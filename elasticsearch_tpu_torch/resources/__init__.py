@@ -1,0 +1,14 @@
+"""Device-memory resource management: breakers + residency.
+
+- :mod:`breakers` — ES-shaped hierarchical circuit breakers (parent,
+  fielddata, request, in_flight_requests + ``segments``).
+- :mod:`residency` — the one choke point for device placement: every
+  tensor a segment keeps on the device goes through it, charged to a
+  breaker.
+
+Each ``Node`` owns one breaker service and one residency registry, bound
+to its device, and passes them down.
+"""
+from elasticsearch_tpu_torch.resources.breakers import (  # noqa: F401
+    CircuitBreaker, CircuitBreakerService, hbm_capacity, parse_limit)
+from elasticsearch_tpu_torch.resources.residency import Residency  # noqa: F401

@@ -1,0 +1,75 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX
+package, and its entry point never falls back to the CPU on its own."""
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import sys
+from elasticsearch_tpu_torch import Node
+n = Node(device="cpu")
+n.create_index("i", {"mappings": {"properties": {
+    "body": {"type": "text", "analyzer": "english"}}}})
+for i in range(200):
+    n.index("i", str(i), {"body": "quick brown fox" if i % 2 else "lazy dog"})
+n.refresh()
+r = n.search("i", {"query": {"match": {"body": "fox"}}})
+assert r["hits"]["total"] == 100, r["hits"]["total"]
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "elasticsearch_tpu" or m.startswith("elasticsearch_tpu."))
+print("LOADED", bad)
+"""
+
+
+def test_port_search_loads_no_jax():
+    """In a fresh interpreter (this test process already holds jax)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def _sources():
+    pkg = os.path.join(ROOT, "elasticsearch_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+_IMPORT = re.compile(
+    r"^\s*(?:from\s+(?:jax|jaxlib|elasticsearch_tpu(?!_torch))\b"
+    r"|import\s+(?:jax|jaxlib|elasticsearch_tpu(?!_torch))\b)", re.M)
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    offenders = []
+    for path in _sources():
+        with open(path, encoding="utf-8") as f:
+            for m in _IMPORT.finditer(f.read()):
+                offenders.append(f"{os.path.relpath(path, ROOT)}: "
+                                 f"{m.group(0).strip()}")
+    assert not offenders, offenders
+
+
+def test_node_without_device_raises_when_no_card(monkeypatch):
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Node()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Node(device="cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("mps")
