@@ -9,23 +9,36 @@ Phases, in order; any failure exits non-zero before the result line:
 1. device   the card's name, power limit and compute capability;
 2. build    every CUDA kernel, from the sources in the checkout (nvcc,
             sm_90a, one process per source, all started together);
-3. kernels  each kernel against its plain PyTorch twin on the card;
+3. kernels  each kernel against its plain PyTorch twin on the card:
+            B1 bm25_dense_topk, B2 knn_topk (three metrics, both
+            precisions, k up to 1000, ragged D, ties, a 90% mask) and B3
+            adc_scores;
 4. write    the write path through ``Node``: index, refresh, search,
             delete, checked against the same Node on the CPU;
-5. read     the product-sized read path: a 2^20-doc MS-MARCO-shaped
-            corpus loaded with ``segment_from_arrays``, 32 Zipfian
-            ``match`` queries through ``Node.search`` (the main path:
-            kernel launch counts are taken over exactly this run), hits
-            held against the plain twin and an exact numpy scorer;
+5. read     the BM25 read path: a 2^20-doc MS-MARCO-shaped corpus loaded
+            with ``segment_from_arrays``, 32 Zipfian ``match`` queries
+            through ``Node.search`` (B1's launch counts are taken over
+            exactly this run), hits held against the plain twin and an
+            exact numpy scorer;
+5b. vectors the kNN read path: 1,000,000 SIFT-shaped 128-d vectors
+            (``bench.py::make_sift_node``'s recipe) padded to 2^20, IVF
+            (C = 4000) and PQ (M = 32, K = 256) built twice on the card
+            and required identical, then brute-force, filtered, MaxSim,
+            IVF-PQ and filtered IVF-PQ ``knn`` queries through
+            ``Node.search`` (B2's and B3's launch counts are taken over
+            exactly this run), hits held against the plain twins and an
+            exact f64 numpy oracle;
 6. timing   each kernel, its plain twin, a one-call library yardstick and
             the card's bound at the main path's shape.
 
-The last two lines of standard output are the ``{"kernels": [...]}``
-record and ``{"ok": true, "device": {...}}``. The script needs a CUDA
-card and the repository around it; without either it fails.
+The last three lines of standard output are the ``{"kernels": [...]}``
+record, the card's name and power limit (as ``nvidia-smi`` gives them),
+and ``{"ok": true, "device": {...}}``. The script needs a CUDA card and
+the repository around it; without either it fails.
 """
 from __future__ import annotations
 
+import copy
 import functools
 import json
 import os
@@ -36,11 +49,17 @@ import time
 # H100 SXM published peaks (NVIDIA data sheet; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12  # outside the tensor cores
 
 N_DOCS = 1 << 20          # product bench size (bench.py --docs default)
 VOCAB = 30_000
 N_QUERIES = 32
 SEED = 0
+
+N_VECS = 1_000_000        # SIFT1M (BASELINE.json configs[2])
+DIMS = 128
+IVF_LISTS = 4000
+PQ_CANDIDATES = 10_000     # num_candidates of the IVF-PQ queries
 
 
 def log(*a):
@@ -153,7 +172,14 @@ def _b1_inputs(torch, dev, Q, F, D, seed, quant=None, prefix=0):
     return qw.contiguous(), impact.contiguous(), mask.contiguous()
 
 
-def phase_kernels(torch, dev) -> float:
+def phase_kernels(torch, dev) -> dict:
+    """Max abs error of each kernel against its twin, by kernel name."""
+    return {"bm25_dense_topk": _kernels_b1(torch, dev),
+            "knn_topk": _kernels_b2(torch, dev),
+            "adc_scores": _kernels_b3(torch, dev)}
+
+
+def _kernels_b1(torch, dev) -> float:
     from elasticsearch_tpu_torch.ops.bm25_topk import bm25_dense_topk
 
     cases = [  # (name, Q, F, D, k, quant, masked prefix)
@@ -181,6 +207,97 @@ def phase_kernels(torch, dev) -> float:
             f"agrees with the plain twin, max abs err {err:g}")
         del qw, impact, mask, v, i, pv, pi
     return worst
+
+
+def check_exact(v, i, pv, pi, what: str) -> float:
+    """Kernel (v, i) against its twin (pv, pi): the same bits and (unless
+    the ids are None) the same ids in every slot. Returns the max abs
+    error (0)."""
+    import numpy as np
+
+    if v.shape != pv.shape:
+        raise AssertionError(f"{what}: shape {v.shape} != {pv.shape}")
+    if not np.array_equal(v.view(np.uint32), pv.view(np.uint32)):
+        bad = np.argwhere(v.view(np.uint32) != pv.view(np.uint32))
+        raise AssertionError(f"{what}: values differ from the plain twin at "
+                             f"{bad[:3].tolist()}: {v[tuple(bad[0])]} vs "
+                             f"{pv[tuple(bad[0])]}")
+    if i is not None and not np.array_equal(i, pi):
+        bad = np.argwhere(i != pi)
+        raise AssertionError(f"{what}: ids differ from the plain twin at "
+                             f"{bad[:3].tolist()}")
+    return 0.0
+
+
+def _b2_inputs(torch, dev, Q, D, dims, seed, live=0.9, quant=None):
+    """Seeded queries f32[Q, dims], slab f32[D, dims], mask bool[D];
+    ``quant`` rounds the vectors to multiples of it (heavy ties)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(Q, dims, generator=g, device=dev)
+    v = torch.randn(D, dims, generator=g, device=dev)
+    if quant is not None:
+        q = torch.round(q / quant) * quant
+        v = torch.round(v / quant) * quant
+    mask = torch.rand(D, generator=g, device=dev) < live
+    return q.contiguous(), v.contiguous(), mask.contiguous()
+
+
+def _kernels_b2(torch, dev) -> float:
+    """B2 against its twin, bit for bit in both precisions: each sum runs
+    in increasing dims with one rounding per operation on both sides."""
+    from elasticsearch_tpu_torch.ops.knn_topk import knn_topk
+
+    ks = (1, 10, 100, 1000)
+    cases = []  # (name, Q, D, dims, k, metric, precise, live, quant)
+    for c, (metric, precise) in enumerate(
+            (m, p) for m in ("cosine", "dot_product", "l2_norm")
+            for p in (False, True)):
+        for j, k in enumerate(ks):
+            cases.append((f"{metric} {'f32' if precise else 'bf16'}",
+                          (1, 8)[j % 2], (1 << 20, 1_000_003)[(j + c) % 2],
+                          (128, 100)[(j // 2) % 2], k, metric, precise, 0.9,
+                          None))
+    cases += [("quantized ties", 8, 1 << 20, 128, 100, "dot_product", True,
+               0.9, 0.5),
+              ("4-byte staging (dims % 4 != 0)", 1, 1 << 20, 37, 10,
+               "l2_norm", True, 0.9, None),
+              ("90% masked", 1, 1 << 20, 128, 100, "cosine", False, 0.1,
+               None)]
+    for n, (name, Q, D, dims, k, metric, precise, live, quant) in \
+            enumerate(cases):
+        q, v, mask = _b2_inputs(torch, dev, Q, D, dims, 200 + n, live, quant)
+        kv, ki = knn_topk(q, v, mask, k=k, metric=metric, precise=precise)
+        torch.cuda.synchronize()
+        pv, pi = knn_topk(q, v, mask, k=k, metric=metric, precise=precise,
+                          plain=True)
+        check_exact(kv.cpu().numpy(), ki.cpu().numpy(), pv.cpu().numpy(),
+                    pi.cpu().numpy(), f"knn_topk {name} Q={Q} D={D} "
+                                      f"dims={dims} k={k}")
+        log(f"[kernels] knn_topk {name} Q={Q} D={D} dims={dims} k={k}: "
+            f"bit-equal to the plain twin")
+        del q, v, mask, kv, ki, pv, pi
+    torch.cuda.empty_cache()
+    return 0.0
+
+
+def _kernels_b3(torch, dev) -> float:
+    """B3 against its twin, bit for bit (one f32 add per m, in order)."""
+    from elasticsearch_tpu_torch.ops.adc import adc_scores
+
+    for n, (W, M, K) in enumerate((W, M, K) for W in (1000, 65_536, 1 << 20)
+                                  for M in (8, 32) for K in (16, 256)):
+        g = torch.Generator(device=dev).manual_seed(300 + n)
+        codes = torch.randint(0, K, (W, M), generator=g, device=dev,
+                              dtype=torch.int64).to(torch.uint8)
+        lut = torch.randn(M, K, generator=g, device=dev)
+        out = adc_scores(codes, lut)
+        torch.cuda.synchronize()
+        want = adc_scores(codes, lut, plain=True)
+        check_exact(out.cpu().numpy(), None, want.cpu().numpy(), None,
+                    f"adc_scores W={W} M={M} K={K}")
+        log(f"[kernels] adc_scores W={W} M={M} K={K}: bit-equal to the "
+            f"plain twin")
+    return 0.0
 
 
 WRITE_MAPPING = {"properties": {
@@ -392,16 +509,250 @@ def phase_read(torch, np, dev, card):
         f"{_p50(np, ms[~fz])}); bm25_dense_topk "
         f"launches {launches}; hits equal the plain twin's; recall@10 vs "
         f"exact f64: mean {np.mean(recalls)}, min {min(recalls)}")
-    profile_read(torch, node, bodies, float(ms.sum()))
+    profile_read(torch, node, "msmarco", bodies, float(ms.sum()), "read")
     node.close()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the kNN read path
+# ---------------------------------------------------------------------------
+
+def make_sift(np, n_vecs, dims, seed):
+    """bench.py::make_sift_node's recipe (256 Gaussian clusters plus unit
+    noise, f32, from ``seed + 7``), padded to a power of two, with an
+    integer ``bucket`` column 0-99 for filters, and bench.py's queries
+    (corpus points plus 0.1 noise, from ``seed + 3``)."""
+    rng = np.random.default_rng(seed + 7)
+    cents = rng.standard_normal((256, dims)).astype(np.float32)
+    assign = rng.integers(0, 256, n_vecs)
+    vecs = cents[assign] + rng.standard_normal((n_vecs, dims)).astype(
+        np.float32)
+    D = 1 << max(6, (n_vecs - 1).bit_length())
+    vpad = np.zeros((D, dims), np.float32)
+    vpad[:n_vecs] = vecs
+    exists = np.zeros(D, bool)
+    exists[:n_vecs] = True
+    bucket = np.zeros(D, np.int64)
+    bucket[:n_vecs] = np.random.default_rng(seed + 11).integers(0, 100,
+                                                                n_vecs)
+    qrng = np.random.default_rng(seed + 3)
+
+    def queries(n):
+        idx = qrng.integers(0, n_vecs, n)
+        return vecs[idx] + 0.1 * qrng.standard_normal((n, dims)).astype(
+            np.float32)
+
+    return vpad, exists, bucket, D, queries
+
+
+def exact_cosine_top(np, vpad, admitted, qs, k):
+    """Exact f64 cosine oracle, one pass over the slab for all queries:
+    (ids [n, k], scores [n, k] as (1 + cos) / 2, full f64 score of any
+    doc via the returned function)."""
+    qn = qs.astype(np.float64)
+    qn /= np.maximum(np.linalg.norm(qn, axis=1, keepdims=True), 1e-12)
+    D = vpad.shape[0]
+    s = np.empty((qs.shape[0], D), np.float64)
+    step = 1 << 17
+    for a in range(0, D, step):
+        x = vpad[a:a + step].astype(np.float64)
+        x /= np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
+        s[:, a:a + step] = (1.0 + qn @ x.T) / 2.0
+    s[:, ~admitted] = -np.inf
+    ids = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    return ids, np.take_along_axis(s, ids, axis=1), s
+
+
+def check_oracle(np, got, ids, sc, full, what):
+    """Hits against the exact oracle: a hit may differ from the oracle's
+    only where both are within 1e-6 of the oracle's last score; every
+    score within 1e-5 relative of the doc's exact score."""
+    hits = got["hits"]["hits"]
+    gid = np.array([int(h["_id"]) for h in hits])
+    gs = np.array([h["_score"] for h in hits])
+    if len(gid) != len(ids):
+        raise AssertionError(f"{what}: {len(gid)} hits, oracle {len(ids)}")
+    if not np.allclose(gs, full[gid], rtol=1e-5, atol=0):
+        raise AssertionError(f"{what}: scores off the exact oracle: {gs} vs "
+                             f"{full[gid]}")
+    edge = sc[-1]
+    for a, b in zip(gid, ids):
+        if a != b and not (abs(full[a] - edge) <= 1e-6
+                           and abs(full[b] - edge) <= 1e-6):
+            raise AssertionError(f"{what}: hit {a} where the oracle has {b}")
+
+
+VEC_MAPPING = {"properties": {
+    "emb": {"type": "dense_vector", "dims": DIMS, "similarity": "cosine",
+            "index_options": {"type": "ivf_pq"}},
+    "bucket": {"type": "long"},
+}}
+
+
+def phase_vectors(torch, np, dev, card):
+    """The kNN read path; returns (B2 launches, B3 launches, B3's W)."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.index.convert import segment_from_arrays
+    from elasticsearch_tpu_torch.ops import adc, ivf, knn_topk
+    from elasticsearch_tpu_torch.ops.ivf import build_ivf
+    from elasticsearch_tpu_torch.ops.pq import build_pq, place_pq
+    from elasticsearch_tpu_torch.search import queries
+
+    t0 = time.perf_counter()
+    vpad, exists, bucket, D, make_q = make_sift(np, N_VECS, DIMS, SEED)
+    node = Node(name="sift", device=dev)
+    node.create_index("sift", {"settings": {"number_of_shards": 1},
+                               "mappings": VEC_MAPPING})
+    seg = segment_from_arrays({
+        "num_docs": N_VECS, "max_docs": D,
+        "numerics": {"bucket": {"exact": bucket, "exists": exists,
+                                "kind": "long"}},
+        "vectors": {"emb": {"vecs": vpad, "exists": exists, "dims": DIMS,
+                            "similarity": "cosine"}}}, node.residency)
+    node.get_index("sift").shards[0].engine.add_segment(seg)
+    vc = seg.vectors["emb"]
+    torch.cuda.synchronize()
+    log(f"[vectors] {N_VECS} x {DIMS} f32 SIFT-shaped slab, padded to {D}; "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+
+    builds = []
+    for _ in range(2):
+        t = time.perf_counter()
+        index = build_ivf(vc.vecs, vc.exists, D, C=IVF_LISTS,
+                          metric=vc.similarity, place=node.residency.device_put)
+        torch.cuda.synchronize()
+        t_ivf = time.perf_counter() - t
+        t = time.perf_counter()
+        parts = build_pq(vc.vecs, vc.exists, vc.similarity)
+        torch.cuda.synchronize()
+        builds.append((index, parts, t_ivf, time.perf_counter() - t))
+    (i1, p1, ti1, tp1), (i2, p2, ti2, tp2) = builds
+    if not (torch.equal(i1.lists, i2.lists)
+            and torch.equal(i1.centroids, i2.centroids)
+            and torch.equal(p1.codes, p2.codes)
+            and torch.equal(p1.codebooks, p2.codebooks)):
+        raise AssertionError("vector builds are not deterministic")
+    vc._ivf = i1
+    vc._pq = place_pq(p1, node.residency, label="pq[emb]")
+    if vc._pq is None:
+        raise AssertionError("the PQ codes were denied placement")
+    del builds, i2, p2
+    lens = i1.list_lens.cpu().numpy()
+    nprobe = i1.nprobe_for(PQ_CANDIDATES)
+    W = nprobe * i1.Lmax
+    log(f"[vectors] IVF C={i1.C} Lmax={i1.Lmax} (lists {lens.min()}-"
+        f"{lens.max()}, mean {lens.mean():.1f}) built in {ti1:.2f} s and "
+        f"{ti2:.2f} s; PQ M={p1.M} K={p1.K} dsub={p1.dsub} built in "
+        f"{tp1:.2f} s and {tp2:.2f} s; both builds bit-identical; IVF-PQ "
+        f"probes {nprobe} lists, W={W} codes per query")
+
+    flt = {"range": {"bucket": {"lt": 10}}}
+    qv = make_q(32 + 8 + 8 * 8 + 32 + 8)
+    rows = iter(range(qv.shape[0]))
+
+    def vec():
+        return [float(a) for a in qv[next(rows)]]
+
+    mix = []  # (branch, body)
+    mix += [("brute", {"knn": {"field": "emb", "query_vector": vec(),
+                               "ann": False}}) for _ in range(32)]
+    mix += [("brute_filter", {"knn": {"field": "emb", "query_vector": vec(),
+                                      "ann": False, "filter": flt}})
+            for _ in range(8)]
+    mix += [("maxsim", {"knn": {"field": "emb", "query_vectors": [
+        vec() for _ in range(8)]}}) for _ in range(8)]
+    mix += [("ivf_pq", {"knn": {"field": "emb", "query_vector": vec(),
+                                "num_candidates": PQ_CANDIDATES}})
+            for _ in range(32)]
+    mix += [("ivf_pq_filter", {"knn": {"field": "emb", "query_vector": vec(),
+                                       "num_candidates": PQ_CANDIDATES,
+                                       "filter": flt}}) for _ in range(8)]
+    bodies = [{"query": q, "size": 10} for _, q in mix]
+    node.search("sift", copy.deepcopy(bodies[0]))  # first-use set-up
+    node.search("sift", copy.deepcopy(bodies[-1]))
+
+    knn_topk.LAUNCHES = 0
+    adc.LAUNCHES = 0
+    times, got, per_query = [], [], []
+    for body in bodies:
+        b2, b3 = knn_topk.LAUNCHES, adc.LAUNCHES
+        t = time.perf_counter()
+        got.append(node.search("sift", copy.deepcopy(body)))
+        times.append(time.perf_counter() - t)
+        per_query.append((knn_topk.LAUNCHES - b2, adc.LAUNCHES - b3))
+    b2_launches, b3_launches = knn_topk.LAUNCHES, adc.LAUNCHES
+    if b2_launches == 0 or b3_launches == 0:
+        raise AssertionError(f"the kNN path launched knn_topk "
+                             f"{b2_launches} and adc_scores {b3_launches} "
+                             f"times")
+    starved = 0
+    for (branch, _), (n2, n3) in zip(mix, per_query):
+        want = (0, 1) if branch.startswith("ivf_pq") else (1, 0)
+        if branch.startswith("ivf_pq") and (n2, n3) == (1, 1):
+            starved += 1  # a filter starved the probes: brute force ran
+        elif (n2, n3) != want:
+            raise AssertionError(f"{branch}: launched knn_topk {n2} and "
+                                 f"adc_scores {n3} times, expected {want}")
+
+    # the same searches with the kernels swapped for their plain twins
+    real_b2, real_b3 = queries.knn_topk, ivf.adc_scores
+    queries.knn_topk = functools.partial(real_b2, plain=True)
+    ivf.adc_scores = functools.partial(real_b3, plain=True)
+    try:
+        for n, body in enumerate(bodies):
+            check_hits(got[n], node.search("sift", copy.deepcopy(body)),
+                       f"{mix[n][0]} query {n} vs plain twins")
+    finally:
+        queries.knn_topk, ivf.adc_scores = real_b2, real_b3
+
+    # brute force (plain and filtered) against the exact f64 oracle, and
+    # the IVF-PQ recall@10 against it
+    live = exists.copy()
+    sel = live & (bucket < 10)
+    for branch, admitted in (("brute", live), ("brute_filter", sel)):
+        idx = [n for n, (b, _) in enumerate(mix) if b == branch]
+        qs = np.stack([np.array(mix[n][1]["knn"]["query_vector"],
+                                np.float32) for n in idx])
+        ids, sc, full = exact_cosine_top(np, vpad, admitted, qs, 10)
+        for r, n in enumerate(idx):
+            if got[n]["hits"]["total"] != min(100, int(admitted.sum())):
+                raise AssertionError(f"{branch} query {n}: total "
+                                     f"{got[n]['hits']['total']}")
+            check_oracle(np, got[n], ids[r], sc[r], full[r],
+                         f"{branch} query {n}")
+    recalls = {}
+    for branch, admitted in (("ivf_pq", live), ("ivf_pq_filter", sel)):
+        idx = [n for n, (b, _) in enumerate(mix) if b == branch]
+        qs = np.stack([np.array(mix[n][1]["knn"]["query_vector"],
+                                np.float32) for n in idx])
+        ids, _sc, _full = exact_cosine_top(np, vpad, admitted, qs, 10)
+        recalls[branch] = float(np.mean([
+            len({int(h["_id"]) for h in got[n]["hits"]["hits"]}
+                & set(ids[r].tolist())) / 10 for r, n in enumerate(idx)]))
+
+    ms = np.array(times) * 1e3
+    per_branch = "; ".join(
+        f"{b} x{sum(1 for m, _ in mix if m == b)}: p50 "
+        f"{np.percentile(ms[[m == b for m, _ in mix]], 50):.3f} ms, p99 "
+        f"{np.percentile(ms[[m == b for m, _ in mix]], 99):.3f} ms"
+        for b in dict.fromkeys(m for m, _ in mix))
+    log(f"[vectors] {len(bodies)} knn queries through Node.search on {card}:"
+        f" {per_branch}; knn_topk launches {b2_launches}, adc_scores "
+        f"launches {b3_launches} ({starved} filtered IVF-PQ queries starved "
+        f"into brute force); hits equal the plain twins'; brute-force hits "
+        f"match the exact f64 oracle; IVF-PQ recall@10 vs exact: "
+        f"{recalls['ivf_pq']} (filtered {recalls['ivf_pq_filter']})")
+    profile_read(torch, node, "sift", bodies, float(ms.sum()), "vectors")
+    node.close()
+    return b2_launches, b3_launches, W
 
 
 def _p50(np, ms) -> str:
     return f"{np.percentile(ms, 50):.3f} ms" if ms.size else "no queries"
 
 
-def profile_read(torch, node, bodies, wall_ms):
+def profile_read(torch, node, index, bodies, wall_ms, tag):
     """Device time of the same searches under torch.profiler, over the
     host time of the unprofiled run: the device's busy share."""
     from torch.autograd import DeviceType
@@ -410,17 +761,17 @@ def profile_read(torch, node, bodies, wall_ms):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for body in bodies:
-            node.search("msmarco", dict(body))
+            node.search(index, copy.deepcopy(body))
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     if busy_ms == 0:
-        log("[read] device busy share: not measured (the profiler "
+        log(f"[{tag}] device busy share: not measured (the profiler "
             "recorded no device time)")
         return
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"[read] device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms host "
+    log(f"[{tag}] device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms host "
         f"time ({100 * busy_ms / wall_ms:.1f}% busy); top device time: "
         + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
                     f" x{e.count}" for e in top))
@@ -506,6 +857,87 @@ def phase_timing(torch, dev, card):
     return out
 
 
+def _bound(in_bytes, out_bytes, ops, peak):
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def timing_knn(torch, dev, card):
+    """B2 at the brute-force kNN shape of the slice: Q = 1 (and Q = 8,
+    MaxSim), D = 2^20, dims = 128, f32 (precise), k = 100, cosine. The
+    slab (512 MiB) is ten times the L2, so every call reads it from
+    device memory."""
+    import torch.nn.functional as F
+
+    from elasticsearch_tpu_torch.ops.knn_topk import knn_topk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    D, dims, k = 1 << 20, DIMS, 100
+    out = {}
+    for Q in (1, 8):
+        q, v, mask = _b2_inputs(torch, dev, Q, D, dims, 17)
+
+        def lib():
+            s = F.normalize(q, dim=1) @ F.normalize(v, dim=1).T
+            s = torch.where(mask[None, :], (1.0 + s) * 0.5, -torch.inf)
+            return torch.topk(s, k)
+
+        def kernel():
+            return knn_topk(q, v, mask, k=k, metric="cosine", precise=True)
+
+        kern = _time_ms(torch, kernel, 20)
+        plain = _time_ms(torch, lambda: knn_topk(
+            q, v, mask, k=k, metric="cosine", precise=True, plain=True), 2)
+        library = _time_ms(torch, lib, 20)
+        kern_dev = _device_ms(torch, kernel, 20)
+        lib_dev = _device_ms(torch, lib, 20)
+        # f32 ops: the row norm (2 per element), the division (1), the
+        # dot (2 per element and query)
+        b = _bound(D * dims * 4 + D + Q * dims * 4, Q * k * 8,
+                   D * dims * (3 + 2 * Q), F32_FLOP_PER_S)
+        out[Q] = {"ms": kern, "plain_ms": plain, "library_ms": library, **b}
+        log(f"[timing] knn_topk Q={Q} D={D} dims={dims} k={k} cosine f32 on "
+            f"{card}: kernel {kern:.4f} ms, plain {plain:.4f} ms, library "
+            f"(normalize + f32 matmul + topk) {library:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}); device time per "
+            f"call: kernel {kern_dev:.4f} ms, library {lib_dev:.4f} ms")
+        del q, v, mask
+        torch.cuda.empty_cache()
+    return out[1]
+
+
+def timing_adc(torch, dev, card, W):
+    """B3 at the IVF-PQ shape of the slice: W = nprobe * Lmax codes of
+    M = 32 bytes, K = 256. The codes are gathered fresh by each query,
+    so they are timed as they come (no L2 rotation)."""
+    from elasticsearch_tpu_torch.ops.adc import adc_scores
+
+    M, K = 32, 256
+    g = torch.Generator(device=dev).manual_seed(23)
+    codes = torch.randint(0, K, (W, M), generator=g, device=dev,
+                          dtype=torch.int64).to(torch.uint8)
+    lut = torch.randn(M, K, generator=g, device=dev)
+    rows = torch.arange(M, device=dev)
+
+    def lib():
+        return lut[rows, codes.long()].sum(1)
+
+    kern = _time_ms(torch, lambda: adc_scores(codes, lut), 200)
+    plain = _time_ms(torch, lambda: adc_scores(codes, lut, plain=True), 20)
+    library = _time_ms(torch, lib, 200)
+    kern_dev = _device_ms(torch, lambda: adc_scores(codes, lut), 200)
+    lib_dev = _device_ms(torch, lib, 200)
+    b = _bound(W * M + M * K * 4, W * 4, W * M, F32_FLOP_PER_S)
+    log(f"[timing] adc_scores W={W} M={M} K={K} on {card}: kernel "
+        f"{kern:.4f} ms, plain {plain:.4f} ms, library (gather + sum) "
+        f"{library:.4f} ms, bound {b['bound_ms']:.6f} ms ({b['bound_by']}); "
+        f"device time per call: kernel {kern_dev:.4f} ms, library "
+        f"{lib_dev:.4f} ms")
+    return {"ms": kern, "plain_ms": plain, "library_ms": library, **b}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -519,15 +951,20 @@ def main() -> int:
     phase_build()
     err = phase_kernels(torch, dev)
     phase_write(torch, np, dev)
-    launches = phase_read(torch, np, dev, card)
-    timing = phase_timing(torch, dev, card)
-    single = timing["single"]
+    launches = {"bm25_dense_topk": phase_read(torch, np, dev, card)}
+    launches["knn_topk"], launches["adc_scores"], W = phase_vectors(
+        torch, np, dev, card)
+    timing = {"bm25_dense_topk": phase_timing(torch, dev, card)["single"],
+              "knn_topk": timing_knn(torch, dev, card),
+              "adc_scores": timing_adc(torch, dev, card, W)}
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
+    replaces = {"bm25_dense_topk": 150, "knn_topk": 39, "adc_scores": 415}
     print(json.dumps({"kernels": [{
-        "name": "bm25_dense_topk", "route": "cuda",
-        "source": "elasticsearch_tpu_torch/csrc/bm25_dense_topk.cu",
-        "replaces": "elasticsearch_tpu/ops/pallas_kernels.py:150",
-        "launches": launches, "max_abs_err": err, **single}]}))
+        "name": name, "route": "cuda",
+        "source": f"elasticsearch_tpu_torch/csrc/{name}.cu",
+        "replaces": f"elasticsearch_tpu/ops/pallas_kernels.py:{line}",
+        "launches": launches[name], "max_abs_err": err[name],
+        **timing[name]} for name, line in replaces.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

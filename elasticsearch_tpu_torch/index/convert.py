@@ -21,7 +21,20 @@ the product-sized smoke corpus is), so both packages score the same state.
      "keywords": {name: {"ords": i32[max_docs], "exists": bool[max_docs],
                          "host_values": [[str] | None]}},
      "numerics": {name: {"exact": i64|f64[max_docs],
-                         "exists": bool[max_docs], "kind": str}}}
+                         "exists": bool[max_docs], "kind": str}},
+     "vectors": {name: {           # dense_vector fields
+         "vecs": f32[max_docs, dims], "exists": bool[max_docs],
+         "dims": int, "similarity": str,
+         "ivf": {"centroids": f32[C, dims], "lists": i32[C, Lmax],
+                 "list_lens": i32[C], "C": int, "Lmax": int,
+                 "avg_len": float, "metric": str} | None,
+         "pq": {"codebooks": f32[M, K, dsub], "codes": u8[max_docs, M],
+                "M": int, "K": int, "dsub": int, "metric": str} | None}}}
+
+A built IVF quantizer or PQ tier given under ``vectors`` is placed as it
+is, so a carried-across segment answers from the same quantizer as the
+reference's (no second k-means run has to agree with the first); without
+one, the column builds its own on first use.
 """
 from __future__ import annotations
 
@@ -29,9 +42,11 @@ from typing import Any, Dict
 
 import numpy as np
 
-from elasticsearch_tpu_torch.index.segment import (TpuSegment, make_inverted,
+from elasticsearch_tpu_torch.index.segment import (TpuSegment, VectorColumn,
+                                                   make_inverted,
                                                    make_keyword_column,
-                                                   make_numeric)
+                                                   make_numeric,
+                                                   make_vector_column)
 from elasticsearch_tpu_torch.resources.residency import Residency
 
 
@@ -69,6 +84,8 @@ def segment_from_arrays(arrays: Dict[str, Any],
         name: make_numeric(name, c["kind"], np.asarray(c["exact"]),
                            np.asarray(c["exists"], bool), residency)
         for name, c in arrays.get("numerics", {}).items()}
+    vectors = {name: _vector_column(name, v, D, residency)
+               for name, v in arrays.get("vectors", {}).items()}
     ids = arrays.get("ids")
     ids = [str(i) for i in range(n)] if ids is None else list(ids)
     sources = arrays.get("sources")
@@ -78,4 +95,38 @@ def segment_from_arrays(arrays: Dict[str, Any],
         keywords=keywords, sources=sources, stored=[{}] * n, ids=ids,
         id_map={doc_id: i for i, doc_id in enumerate(ids)},
         field_lengths=lengths, residency=residency,
-        live=arrays.get("live"))
+        live=arrays.get("live"), vectors=vectors)
+
+
+def _vector_column(name: str, v: Dict[str, Any], D: int,
+                   residency: Residency) -> VectorColumn:
+    from elasticsearch_tpu_torch.ops.ivf import IvfIndex
+    from elasticsearch_tpu_torch.ops.pq import PqHostParts, place_pq
+
+    vecs = np.asarray(v["vecs"], np.float32)
+    if vecs.shape != (D, int(v["dims"])):
+        raise ValueError(f"vectors [{name}]: slab {vecs.shape} is not "
+                         f"[max_docs={D}, dims={v['dims']}]")
+    vc = make_vector_column(name, vecs, np.asarray(v["exists"], bool),
+                            v.get("similarity", "cosine"), residency)
+    ivf = v.get("ivf")
+    if ivf is not None:
+        put = residency.device_put
+        vc._ivf = IvfIndex(
+            centroids=put(np.asarray(ivf["centroids"], np.float32)),
+            lists=put(np.asarray(ivf["lists"], np.int32)),
+            list_lens=put(np.asarray(ivf["list_lens"], np.int32)),
+            C=int(ivf["C"]), Lmax=int(ivf["Lmax"]), sentinel=D,
+            avg_len=float(ivf["avg_len"]),
+            metric=ivf.get("metric", vc.similarity))
+    pq = v.get("pq")
+    if pq is not None:
+        books = np.asarray(pq["codebooks"], np.float32)
+        vc._pq_parts = PqHostParts(
+            codebooks=books, codes=np.asarray(pq["codes"], np.uint8),
+            M=int(pq["M"]), K=int(pq["K"]), dsub=int(pq["dsub"]),
+            dims=vc.dims, metric=pq.get("metric", vc.similarity))
+        placed = place_pq(vc._pq_parts, residency, label=f"pq[{name}]")
+        if placed is not None:
+            vc._pq, vc._pq_parts = placed, None
+    return vc

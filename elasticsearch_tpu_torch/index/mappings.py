@@ -13,8 +13,9 @@ legacy form and the modern `text`/`keyword` split, plus `dense_vector` (the
 north-star addition). Object fields flatten to dotted paths like ES's
 ObjectMapper.
 
-This copy serves the types of the port's first slice (text, keyword,
-numeric, date, boolean, ip, token_count, murmur3). Mapping a type whose
+This copy serves the types of the port's slices so far (text, keyword,
+numeric, date, boolean, ip, token_count, murmur3, dense_vector with its
+``dims``, ``similarity`` and ``index_options``). Mapping a type whose
 search path is not ported yet raises a typed MapperParsingException that
 names the ROADMAP item porting it, so no document is accepted that a
 search could not serve.
@@ -36,7 +37,6 @@ INT_TYPES = {"long", "integer", "short", "byte", "token_count", "murmur3"}
 
 #: mapping type -> the ROADMAP queue-A item that ports its search path
 NOT_YET_PORTED = {
-    "dense_vector": "A7 (vectors)",
     "nested": "A9 (joins in the rest of the DSL)",
     "geo_point": "A9 (geo in the rest of the DSL)",
     "geo_shape": "A9 (geo in the rest of the DSL)",

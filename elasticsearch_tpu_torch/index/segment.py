@@ -9,6 +9,9 @@ searchable structure as a padded tensor on the owning node's device:
   sentinel doc id, plus host ``offsets`` and the term dictionary;
 - per doc-value field a dense column padded to ``max_docs`` (64-bit
   values keep an exact int32 (hi, lo) pair for range masks);
+- per dense_vector field a ``[max_docs, dims]`` f32 slab with its exists
+  mask, and per its ``index_options`` an IVF quantizer and a PQ tier,
+  built at freeze on the slab's device;
 - the live mask (host-authoritative, device copy refreshed lazily);
 - ``_source``, ids and stored fields stay on the host.
 
@@ -218,6 +221,63 @@ class KeywordColumn:
     exists_host: Optional[np.ndarray] = None
 
 
+@dataclass
+class VectorColumn:
+    """A dense_vector field: the slab and, built once on first use (at
+    freeze when the mapping asks for ANN), its IVF and PQ tiers."""
+
+    name: str
+    vecs: Any  # f32[max_docs, dims] device, charged to fielddata
+    exists: Any  # bool[max_docs] device
+    dims: int
+    residency: Residency
+    similarity: str = "cosine"
+    # IVF: None = not built yet, False = declined (too few vectors)
+    _ivf: Any = None
+    # PQ: None = not built or placement denied (retry), False = declined,
+    # else a PqIndex; the built parts are kept so a retry only places
+    _pq: Any = None
+    _pq_parts: Any = None
+
+    def get_ivf(self, max_docs: int):
+        """The IVF index over this immutable slab, built once."""
+        if self._ivf is None:
+            from elasticsearch_tpu_torch.ops.ivf import build_ivf
+
+            idx = build_ivf(self.vecs, self.exists, max_docs,
+                            metric=self.similarity,
+                            place=self.residency.device_put)
+            self._ivf = idx if idx is not None else False
+        return self._ivf or None
+
+    def get_pq(self, max_docs: int):
+        """The PQ tier over this slab, built once; its placement is
+        best-effort (None while the fielddata breaker denies it)."""
+        if self._pq is False:
+            return None
+        if self._pq is not None:
+            return self._pq
+        from elasticsearch_tpu_torch.ops.pq import build_pq, place_pq
+
+        if self._pq_parts is None:
+            parts = build_pq(self.vecs, self.exists, self.similarity)
+            if parts is None:
+                self._pq = False  # too few vectors: permanent decline
+                return None
+            self._pq_parts = parts
+        idx = place_pq(self._pq_parts, self.residency,
+                       label=f"pq[{self.name}]")
+        if idx is not None:
+            self._pq = idx
+            self._pq_parts = None
+        return idx
+
+    def resident_bytes(self) -> int:
+        """Always-resident bytes of the IVF quantizer (the slab and the PQ
+        codes are charged to the fielddata breaker when placed)."""
+        return self._ivf.nbytes() if self._ivf else 0
+
+
 _SEG_IDS = itertools.count(1)
 
 
@@ -238,6 +298,7 @@ class TpuSegment:
         field_lengths: Dict[str, Any],
         residency: Residency,
         live: Optional[np.ndarray] = None,
+        vectors: Optional[Dict[str, VectorColumn]] = None,
     ):
         self.seg_id = next(_SEG_IDS)
         self.num_docs = num_docs
@@ -250,6 +311,7 @@ class TpuSegment:
         self.ids = ids
         self.id_map = id_map
         self.field_lengths = field_lengths  # field -> f32[max_docs] device
+        self.vectors = vectors or {}
         self.residency = residency
         # deletion state: host-authoritative, device copy refreshed lazily
         if live is None:
@@ -288,11 +350,15 @@ class TpuSegment:
         return self.num_docs - self.deleted_count
 
     def memory_bytes(self) -> int:
-        """Always-resident device bytes (live mask + postings): the
-        ``segments`` breaker charge at freeze."""
+        """Always-resident device bytes (live mask, postings, IVF
+        quantizers): the ``segments`` breaker charge at freeze. Vector
+        slabs and PQ codes are charged to the ``fielddata`` breaker when
+        placed, as doc-value columns are, and are not counted twice."""
         total = self.max_docs
         for inv in self.inverted.values():
             total += inv.nnz_pad * (4 + 4 + 4 + 4)
+        for vc in self.vectors.values():
+            total += vc.resident_bytes()
         return total
 
 
@@ -350,6 +416,19 @@ def make_numeric(name: str, kind: str, exact: np.ndarray,
     return col
 
 
+def make_vector_column(name: str, vecs: np.ndarray, exists: np.ndarray,
+                       similarity: str, residency: Residency) -> VectorColumn:
+    """A dense_vector column: the f32 slab and its exists mask placed and
+    charged to the ``fielddata`` breaker."""
+    return VectorColumn(
+        name=name,
+        vecs=residency.put_array(np.asarray(vecs, np.float32),
+                                 label=f"vectors:{name}.vecs"),
+        exists=residency.put_array(np.asarray(exists, bool),
+                                   label=f"vectors:{name}.exists"),
+        dims=int(vecs.shape[1]), residency=residency, similarity=similarity)
+
+
 def make_keyword_column(name: str, ords: np.ndarray, exists: np.ndarray,
                         host_values: List[Optional[List[str]]],
                         residency: Residency) -> KeywordColumn:
@@ -389,9 +468,14 @@ class SegmentBuilder:
         text_fields: Dict[str, None] = {}
         kw_fields: Dict[str, None] = {}
         num_fields: Dict[str, str] = {}
+        vec_fields: Dict[str, Tuple[int, str]] = {}
         for d in self.docs:
             for f in d.text_tokens:
                 text_fields.setdefault(f)
+            for f, vec in d.vectors.items():
+                fm = self.mappings.get(f)
+                vec_fields.setdefault(
+                    f, (len(vec), fm.similarity if fm else "cosine"))
             for f, vals in d.doc_values.items():
                 fm = self.mappings.get(f)
                 kind = fm.type if fm else None
@@ -421,6 +505,10 @@ class SegmentBuilder:
         for fname, kind in num_fields.items():
             numerics[fname] = self._build_numeric(fname, kind, max_docs)
 
+        vectors: Dict[str, VectorColumn] = {}
+        for fname, (dims, sim) in vec_fields.items():
+            vectors[fname] = self._build_vectors(fname, dims, sim, max_docs)
+
         ids = [d.doc_id for d in self.docs]
         seg = TpuSegment(
             num_docs=n, max_docs=max_docs, inverted=inverted,
@@ -428,9 +516,30 @@ class SegmentBuilder:
             sources=[d.source for d in self.docs],
             stored=[d.stored for d in self.docs],
             ids=ids, id_map={doc_id: i for i, doc_id in enumerate(ids)},
-            field_lengths=field_lengths, residency=res,
+            field_lengths=field_lengths, residency=res, vectors=vectors,
         )
         return seg
+
+    def _build_vectors(self, fname: str, dims: int, sim: str,
+                       max_docs: int) -> VectorColumn:
+        mat = np.zeros((max_docs, dims), dtype=np.float32)
+        exists = np.zeros(max_docs, dtype=bool)
+        for i, d in enumerate(self.docs):
+            v = d.vectors.get(fname)
+            if v is not None:
+                mat[i] = np.asarray(v, dtype=np.float32)
+                exists[i] = True
+        vc = make_vector_column(fname, mat, exists, sim, self.residency)
+        fm = self.mappings.get(fname)
+        opts = getattr(fm, "index_options", None) if fm is not None else None
+        ann = opts.get("type") if isinstance(opts, dict) else None
+        # index-time ANN build (as Lucene builds HNSW at flush): refreshes
+        # pay the k-means, never the first query
+        if ann in ("ivf", "ivf_flat", "ivf_pq"):
+            vc.get_ivf(max_docs)
+        if ann == "ivf_pq":
+            vc.get_pq(max_docs)
+        return vc
 
     def _build_inverted_text(self, fname: str, max_docs: int) -> InvertedField:
         vocab: Dict[str, int] = {}

@@ -20,7 +20,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 #: kernel library name -> source file, relative to the package
-SOURCES = {"bm25_dense_topk": "csrc/bm25_dense_topk.cu"}
+SOURCES = {"bm25_dense_topk": "csrc/bm25_dense_topk.cu",
+           "knn_topk": "csrc/knn_topk.cu",
+           "adc_scores": "csrc/adc_scores.cu"}
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -43,9 +45,14 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[str, str]:
     src = os.path.join(_PKG, SOURCES[name])
-    with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(_BUILD_DIR, f"{name}_{tag}.so")
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    # the source and every shared header it may include
+    csrc = os.path.dirname(src)
+    for path in [src] + sorted(os.path.join(csrc, f) for f in os.listdir(csrc)
+                               if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(_BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str):

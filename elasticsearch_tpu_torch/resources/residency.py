@@ -17,7 +17,7 @@ LRU eviction and rehydration of the fielddata tier are not ported yet
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -32,19 +32,24 @@ class Residency:
         self.breakers = breakers if breakers is not None \
             else CircuitBreakerService()
 
-    def device_put(self, x: np.ndarray) -> torch.Tensor:
-        """Always-resident placement of a host array (copied)."""
+    def device_put(self, x: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
+        """Always-resident placement of a host array (copied), or of a
+        tensor built on any device (moved; kept as it is when it already
+        lies on this device)."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device).contiguous()
         a = np.ascontiguousarray(x)
         if not a.flags.writeable:  # torch.from_numpy wants writable memory
             a = a.copy()
         return torch.from_numpy(a).to(self.device, copy=True)
 
-    def put_array(self, x: np.ndarray, label: str,
+    def put_array(self, x: Union[np.ndarray, torch.Tensor], label: str,
                   best_effort: bool = False) -> Optional[torch.Tensor]:
         """Charge ``x``'s bytes to the ``fielddata`` breaker, then place it.
         ``best_effort``: a denied charge returns None (the structure only
         accelerates); otherwise it raises CircuitBreakingException."""
-        n = int(x.nbytes)
+        n = int(x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+                else x.nbytes)
         br = self.breakers.breaker("fielddata")
         if best_effort:
             if not br.reserve(n):

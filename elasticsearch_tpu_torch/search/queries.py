@@ -4,8 +4,9 @@ Port of the part of elasticsearch_tpu/search/queries.py the main path
 needs: ``match`` (operator, minimum_should_match, analyzer), ``term``,
 ``terms``, ``bool`` (must, should, must_not, filter,
 minimum_should_match), ``match_all``, ``range``, ``ids``, ``exists`` and
-``constant_score``, plus the fused dense-impact top-k fast path. Any other
-query type raises a typed QueryParsingException.
+``constant_score``, plus the fused dense-impact top-k fast path, and
+``knn`` over a dense_vector field (brute force, MaxSim, IVF, IVF-PQ). Any
+other query type raises a typed QueryParsingException.
 
 A node's ``execute(ctx)`` returns a whole-segment pair
 
@@ -21,7 +22,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from elasticsearch_tpu_torch.ops.bitvec import pack_mask, popcount
 from elasticsearch_tpu_torch.ops.bm25_topk import bm25_dense_topk
+from elasticsearch_tpu_torch.ops.ivf import ivf_candidate_scores
+from elasticsearch_tpu_torch.ops.knn import knn_topk
 from elasticsearch_tpu_torch.ops.scoring import (
     bm25_score_hybrid_gather,
     bm25_score_segment,
@@ -37,6 +41,7 @@ from elasticsearch_tpu_torch.ops.scoring import (
 from elasticsearch_tpu_torch.search.context import SegmentContext
 from elasticsearch_tpu_torch.utils.dates import parse_date
 from elasticsearch_tpu_torch.utils.errors import QueryParsingException
+from elasticsearch_tpu_torch.utils.shapes import pow2_bucket
 
 ExecResult = Tuple[Optional[Any], Any]  # (scores f32[D] | None, mask bool[D])
 
@@ -391,6 +396,8 @@ class ExistsQuery(Query):
             return None, seg.numerics[self.field].exists
         if self.field in seg.keywords:
             return None, seg.keywords[self.field].exists
+        if self.field in seg.vectors:
+            return None, seg.vectors[self.field].exists
         if self.field in seg.field_lengths:
             return None, seg.field_lengths[self.field] > 0
         return _empty(ctx)
@@ -459,6 +466,143 @@ class ConstantScoreQuery(Query):
     def execute(self, ctx) -> ExecResult:
         _, mask = self.inner.execute(ctx)
         return mask.to(torch.float32) * self.boost, mask
+
+
+class KnnQuery(Query):
+    """dense_vector kNN. As a query node it scores the top num_candidates
+    docs by similarity (the rest are non-matches, ES knn-query
+    semantics); the generic top-k then selects. A ``filter`` folds into
+    the candidate mask before selection.
+
+    Branches, in the reference's order:
+    - MaxSim: a list of query vectors (``query_vectors``, or a nested
+      list under ``query_vector``): kernel B2 per token, then a
+      scatter-max merge; per doc the max over tokens;
+    - IVF-PQ (``index_options: {type: ivf_pq}``): probe, the filter as a
+      packed pre-filter, ADC coarse rank (kernel B3), exact f32 re-rank
+      of the top ``fine_k``;
+    - IVF (``{type: ivf}``): probe wider (4x) under a filter and
+      post-filter;
+    - brute force: kernel B2 at k = num_candidates in f32.
+    When a filter leaves fewer than k IVF candidates while at least k
+    docs pass it, the query falls through to brute force, which selects
+    from every admitted doc: query semantics, not a device fallback."""
+
+    def __init__(self, field: str, query_vector, k: int = 10,
+                 num_candidates: Optional[int] = None,
+                 filter_: Optional[Query] = None, boost: float = 1.0,
+                 ann: Optional[bool] = None, pq: Optional[bool] = None):
+        self.field = field
+        try:
+            toks = np.asarray(query_vector, dtype=np.float32)
+        except (ValueError, TypeError) as e:
+            # ragged token lists / non-numeric entries: a typed 400
+            raise QueryParsingException(f"malformed knn query vector: {e}")
+        if toks.ndim == 1:
+            toks = toks[None, :]
+        elif toks.ndim != 2:
+            raise QueryParsingException(
+                "knn query_vector must be a vector or a list of vectors")
+        self.tokens = toks  # [T, dims]; T > 1 = MaxSim
+        self.maxsim = toks.shape[0] > 1
+        self.k = k
+        self.num_candidates = num_candidates or max(k * 10, 100)
+        self.filter = filter_
+        self.boost = boost
+        # None = follow the mapping's index_options; True/False forces
+        self.ann = ann
+        self.pq = pq
+
+    def _ann_type(self, ctx) -> Optional[str]:
+        fm = ctx.mappings.get(self.field)
+        opts = getattr(fm, "index_options", None) if fm is not None else None
+        return opts.get("type") if isinstance(opts, dict) else None
+
+    def _use_ann(self, ctx) -> bool:
+        if self.ann is not None:
+            return bool(self.ann)
+        return self._ann_type(ctx) in ("ivf", "ivf_flat", "ivf_pq")
+
+    def _use_pq(self, ctx) -> bool:
+        if self.pq is not None:
+            return bool(self.pq)
+        return self._ann_type(ctx) == "ivf_pq"
+
+    def _admitted(self, ctx, vc):
+        """bool[D]: docs with a vector, live, and passing the filter."""
+        lv = vc.exists & ctx.segment.live
+        if self.filter is not None:
+            _, fm = self.filter.execute(ctx)
+            lv = lv & fm
+        return lv
+
+    def _select(self, ctx, vc, toks: torch.Tensor):
+        """Kernel B2 over the admitted docs at k = num_candidates, then a
+        scatter-max of the valid (score, id) pairs into the (scores,
+        mask) contract. Slots at -inf are invalid and their ids unused."""
+        kc = int(min(max(self.num_candidates, self.k), ctx.D))
+        vals, idx = knn_topk(toks, vc.vecs, self._admitted(ctx, vc), k=kc,
+                             metric=vc.similarity, precise=True)
+        valid = (vals > float("-inf")).reshape(-1)
+        ids = idx.reshape(-1).to(torch.int64)
+        zero = torch.zeros_like(valid, dtype=torch.float32)
+        vals = torch.where(valid, vals.reshape(-1) * self.boost, zero)
+        scores = _zeros(ctx, torch.float32).scatter_reduce_(
+            0, ids, vals, reduce="amax")
+        # a scatter, not mask[ids[valid]]: no device-to-host sync
+        mask = _zeros(ctx, torch.float32).scatter_reduce_(
+            0, ids, valid.to(torch.float32), reduce="amax") > 0
+        return scores, mask
+
+    def execute(self, ctx) -> ExecResult:
+        vc = ctx.segment.vectors.get(self.field)
+        if vc is None:
+            return _empty(ctx)
+        if self.tokens.shape[1] != vc.dims:
+            raise QueryParsingException(
+                f"knn query vector has {self.tokens.shape[1]} dims but "
+                f"field [{self.field}] is mapped with {vc.dims}")
+        toks = torch.from_numpy(self.tokens).to(ctx.device)
+        if self.maxsim:
+            # per-token top-kc; the union of the per-token lists covers
+            # the per-doc-max top kc
+            return self._select(ctx, vc, toks)
+        if self._use_ann(ctx):
+            ivf = vc.get_ivf(ctx.segment.max_docs)
+            pq = (vc.get_pq(ctx.segment.max_docs)
+                  if ivf is not None and self._use_pq(ctx) else None)
+            num_cand = self.num_candidates
+            if self.filter is not None:
+                num_cand *= 4  # a selective filter thins the probed lists
+            if ivf is not None and pq is not None:
+                # the filter and liveness pre-filter the candidates as a
+                # packed bit-vector, so every ADC survivor is admissible
+                words = pack_mask(self._admitted(ctx, vc))
+                fine_k = min(pow2_bucket(max(8 * self.k, 128)), ctx.D)
+                scores, mask = ivf_candidate_scores(
+                    ivf, vc.vecs, self.tokens[0], num_cand, vc.similarity,
+                    ctx.D, pq=pq, fine_k=fine_k, filter_words=words)
+                if int(mask.sum()) >= min(self.k, popcount(words)):
+                    return _ann_result(scores, mask, self.boost)
+                # starved: brute force below selects from every admitted doc
+            elif ivf is not None:
+                scores, mask = ivf_candidate_scores(
+                    ivf, vc.vecs, self.tokens[0], num_cand, vc.similarity,
+                    ctx.D)
+                mask = mask & vc.exists
+                starved = False
+                if self.filter is not None:
+                    _, fm = self.filter.execute(ctx)
+                    mask = mask & fm
+                    starved = int(mask.sum()) < min(
+                        self.k, int((fm & vc.exists).sum()))
+                if not starved:
+                    return _ann_result(scores, mask, self.boost)
+        return self._select(ctx, vc, toks)
+
+
+def _ann_result(scores, mask, boost: float) -> ExecResult:
+    return torch.where(mask, scores, torch.zeros_like(scores)) * boost, mask
 
 
 # ---------------------------------------------------------------------------
@@ -561,6 +705,17 @@ def parse_query(dsl: Optional[dict]) -> Query:
         inner = body.get("filter", body.get("query"))
         return ConstantScoreQuery(parse_query(inner),
                                   boost=float(body.get("boost", 1.0)))
+
+    if qtype == "knn":
+        filt = parse_query(body["filter"]) if "filter" in body else None
+        # query_vectors: a ColBERT-style token matrix (MaxSim); a nested
+        # list under query_vector means the same
+        vec = body.get("query_vectors",
+                       body.get("query_vector", body.get("vector")))
+        return KnnQuery(body["field"], vec, k=int(body.get("k", 10)),
+                        num_candidates=body.get("num_candidates"),
+                        filter_=filt, boost=float(body.get("boost", 1.0)),
+                        ann=body.get("ann"), pq=body.get("pq"))
 
     raise QueryParsingException(
         f"query type [{qtype}] is not yet in the PyTorch port")

@@ -60,7 +60,43 @@ def reference_arrays(seg) -> dict:
     numerics = {
         name: {"exact": c.exact, "exists": c.exists_host, "kind": c.kind}
         for name, c in seg.numerics.items()}
+    vectors = {name: reference_vectors(c)
+               for name, c in getattr(seg, "vectors", {}).items()}
     return {"num_docs": seg.num_docs, "max_docs": seg.max_docs,
             "ids": list(seg.ids), "sources": list(seg.sources),
             "live": np.array(seg.live_host), "fields": fields,
-            "keywords": keywords, "numerics": numerics}
+            "keywords": keywords, "numerics": numerics, "vectors": vectors}
+
+
+def reference_vectors(vc) -> dict:
+    """A JAX-package VectorColumn in convert's ``vectors`` layout, with
+    the IVF quantizer and PQ tier it has built, if any."""
+    out = {"vecs": np.asarray(vc.vecs_host), "exists": vc.exists_host,
+           "dims": vc.dims, "similarity": vc.similarity}
+    ivf = vc._ivf or None
+    if ivf is not None:
+        out["ivf"] = {"centroids": np.asarray(ivf.centroids),
+                      "lists": np.asarray(ivf.lists),
+                      "list_lens": np.asarray(ivf.list_lens), "C": ivf.C,
+                      "Lmax": ivf.Lmax, "avg_len": ivf.avg_len,
+                      "metric": ivf.metric}
+    pq = vc._pq or vc._pq_parts
+    if pq is not None:
+        books = getattr(pq, "codebooks_host", None)
+        codes = getattr(pq, "codes_host", None)
+        out["pq"] = {
+            "codebooks": np.asarray(pq.codebooks if books is None else books),
+            "codes": np.asarray(pq.codes if codes is None else codes),
+            "M": pq.M, "K": pq.K, "dsub": pq.dsub, "metric": pq.metric}
+    return out
+
+
+def clustered(n: int, dims: int, n_clusters: int, seed: int = 0,
+              spread: float = 1.0):
+    """[n, dims] f32 vectors around n_clusters Gaussian centres (the
+    reference's IVF/PQ test recipe)."""
+    rng = np.random.default_rng(seed)
+    cents = rng.standard_normal((n_clusters, dims)).astype(np.float32) * 3
+    assign = rng.integers(0, n_clusters, n)
+    return (cents[assign] + spread * rng.standard_normal((n, dims))
+            ).astype(np.float32)

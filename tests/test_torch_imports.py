@@ -21,6 +21,19 @@ for i in range(200):
 n.refresh()
 r = n.search("i", {"query": {"match": {"body": "fox"}}})
 assert r["hits"]["total"] == 100, r["hits"]["total"]
+n.create_index("v", {"mappings": {"properties": {"v": {
+    "type": "dense_vector", "dims": 8, "index_options": {"type": "ivf_pq"}}}}})
+for i in range(300):
+    n.index("v", str(i), {"v": [float((i * j) % 7) for j in range(1, 9)]})
+n.refresh("v")
+knn = {"field": "v", "query_vector": [1.0] * 8}
+for body in (knn, dict(knn, ann=False), dict(knn, query_vector=[[1.0] * 8] * 2)):
+    assert n.search("v", {"query": {"knn": body}})["hits"]["hits"]
+import importlib, pkgutil
+import elasticsearch_tpu_torch
+for m in pkgutil.walk_packages(elasticsearch_tpu_torch.__path__,
+                               "elasticsearch_tpu_torch."):
+    importlib.import_module(m.name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "elasticsearch_tpu" or m.startswith("elasticsearch_tpu."))

@@ -1,0 +1,221 @@
+"""Kernel B2 of the PyTorch port (fused kNN scores + top-k) against the
+JAX package's Pallas kernel in interpret mode and a numpy oracle.
+
+On the CPU the port's wrapper runs its plain twin; the CUDA kernel itself
+is held against the same twin on the card by ``chip_smoke.py``.
+
+Bars. Against ``knn_topk_pallas(interpret=True)`` on the same inputs:
+scores at rtol 1e-5 (both round the same operands and sum exact or f32
+products, in different orders), ids equal wherever the score is more
+than that away from its neighbours. Against the exact f64 oracle: the
+reference test's own bar, rtol/atol 5e-3 and recall@k >= 0.95
+(tests/unit/test_pallas_kernels.py::test_pallas_knn_matches_oracle).
+"""
+import numpy as np
+import pytest
+import torch
+
+from elasticsearch_tpu.ops.pallas_kernels import knn_topk_pallas
+from elasticsearch_tpu_torch.ops import knn_topk as b2
+from elasticsearch_tpu_torch.ops.knn import knn_scores, knn_topk
+
+METRICS = ("cosine", "dot_product", "l2_norm")
+
+
+def _inputs(seed, Q, D, dims, live=0.9):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(Q, dims)).astype(np.float32)
+    v = rng.normal(size=(D, dims)).astype(np.float32)
+    mask = rng.random(D) < live
+    return q, v, mask
+
+
+def _port(q, v, mask, k, metric, precise):
+    vals, ids = knn_topk(torch.from_numpy(q), torch.from_numpy(v),
+                         torch.from_numpy(mask), k=k, metric=metric,
+                         precise=precise)
+    return vals.numpy(), ids.numpy()
+
+
+def _pallas(q, v, mask, k, metric, precise, tile=2048):
+    import jax.numpy as jnp
+
+    vals, ids = knn_topk_pallas(jnp.asarray(q), jnp.asarray(v),
+                                jnp.asarray(mask), k=k, metric=metric,
+                                tile=tile, interpret=True, precise=precise)
+    return np.asarray(vals), np.asarray(ids)
+
+
+def _assert_same_ranking(v, i, rv, ri, rtol):
+    """(v, i) [Q, k] against a reference (rv, ri) [Q, k+1]: values at
+    rtol, ids equal outside groups of values within rtol."""
+    k = v.shape[1]
+    np.testing.assert_allclose(v, rv[:, :k], rtol=rtol, atol=0)
+    for q in range(v.shape[0]):
+        row = rv[q]
+        for j in range(k):
+            near = lambda a, b: abs(a - b) <= rtol * abs(b)  # noqa: E731
+            tied = (j > 0 and near(row[j - 1], row[j])) or (
+                j + 1 < row.shape[0] and near(row[j], row[j + 1]))
+            if not tied:
+                assert i[q, j] == ri[q, j], (q, j)
+
+
+def _exact_topk(q, v, mask, k, metric):
+    q, v = q.astype(np.float64), v.astype(np.float64)
+    if metric == "cosine":
+        qn = q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-12)
+        vn = v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-12)
+        s = (1 + qn @ vn.T) / 2
+    elif metric == "dot_product":
+        s = (1 + q @ v.T) / 2
+    else:
+        s = 1.0 / (1.0 + ((q[:, None, :] - v[None, :, :]) ** 2).sum(-1))
+    s = np.where(mask[None, :], s, -np.inf)
+    idx = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(s, idx, axis=1), idx
+
+
+@pytest.mark.parametrize("D", [4096, 8192])
+@pytest.mark.parametrize("precise", [False, True])
+@pytest.mark.parametrize("metric", METRICS)
+def test_plain_matches_pallas_interpret(metric, precise, D):
+    q, v, mask = _inputs(3, 4, D, 64)
+    k = 10
+    rv, ri = _pallas(q, v, mask, k + 1, metric, precise)
+    pv, pi = _port(q, v, mask, k, metric, precise)
+    _assert_same_ranking(pv, pi, rv, ri, rtol=1e-5)
+
+
+@pytest.mark.parametrize("precise", [False, True])
+@pytest.mark.parametrize("metric", METRICS)
+def test_plain_holds_the_reference_bar(metric, precise):
+    q, v, mask = _inputs(3, 4, 8192, 64)
+    k = 10
+    pv, pi = _port(q, v, mask, k, metric, precise)
+    ev, ei = _exact_topk(q, v, mask, k, metric)
+    np.testing.assert_allclose(pv, ev, rtol=5e-3, atol=5e-3)
+    recall = np.mean([len(set(pi[r]) & set(ei[r])) / k for r in range(4)])
+    assert recall >= 0.95
+    assert not np.isin(pi, np.nonzero(~mask)[0]).any()
+    assert (np.diff(pv, axis=1) <= 0).all()
+    if precise:  # f32 throughout: within a few ulps of f64
+        np.testing.assert_allclose(pv, ev, rtol=1e-5)
+
+
+def _quantized(seed, Q, D, dims):
+    """Half-integer vectors: every product and sum is exact in f32, so
+    every implementation computes the same values and ties are many."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-2, 3, size=(Q, dims)).astype(np.float32) / 2
+    v = rng.integers(-2, 3, size=(D, dims)).astype(np.float32) / 2
+    mask = rng.random(D) < 0.8
+    return q, v, mask
+
+
+def test_tie_rule_matches_pallas_exactly():
+    """Tie-heavy rows: the port and the Pallas kernel (whose extract-max
+    takes the first maximum, previous best first) return the same ids
+    in the same order, lower doc id first among equal scores."""
+    q, v, mask = _quantized(11, 3, 4096, 8)
+    pv, pi = _port(q, v, mask, 40, "dot_product", True)
+    rv, ri = _pallas(q, v, mask, 40, "dot_product", True)
+    np.testing.assert_array_equal(pv, rv)
+    np.testing.assert_array_equal(pi, ri)
+    ties = np.sum(pv[:, 1:] == pv[:, :-1])
+    assert ties > 30  # the case really is tie-heavy
+    for r in range(pv.shape[0]):
+        for j in range(1, pv.shape[1]):
+            if pv[r, j] == pv[r, j - 1]:
+                assert pi[r, j] > pi[r, j - 1]
+
+
+def test_k_larger_than_a_tile():
+    """k = 2500 > the 2048-doc tile (and the kernel's 2048-doc chunk):
+    exact values, so the order must be the oracle's exactly."""
+    q, v, mask = _quantized(12, 2, 4096, 8)
+    k = 2500
+    pv, pi = _port(q, v, mask, k, "dot_product", True)
+    s = np.where(mask[None, :], (1 + q.astype(np.float64) @ v.T.astype(
+        np.float64)) / 2, -np.inf)
+    order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    np.testing.assert_array_equal(pi, order)
+    np.testing.assert_array_equal(pv, np.take_along_axis(s, order, axis=1))
+
+
+def test_fewer_live_docs_than_k_leave_neg_inf_slots():
+    q, v, _ = _inputs(5, 2, 4096, 16)
+    mask = np.zeros(4096, bool)
+    live = np.array([7, 300, 1999, 2048, 4095])
+    mask[live] = True
+    pv, pi = _port(q, v, mask, 10, "cosine", True)
+    assert np.isfinite(pv[:, :5]).all() and np.isneginf(pv[:, 5:]).all()
+    for r in range(2):
+        assert set(pi[r, :5]) == set(live)
+    ev, ei = _exact_topk(q, v, mask, 5, "cosine")
+    np.testing.assert_array_equal(pi[:, :5], ei)
+
+
+@pytest.mark.parametrize("Q", [1, 3])
+def test_unpadded_query_counts(Q):
+    """Q = 1 (a REST knn query) and Q = 3 run as they are, no padding to
+    the TPU's sublane multiple; the rows match the Pallas kernel's."""
+    q, v, mask = _inputs(7, Q, 4096, 128)
+    pv, pi = _port(q, v, mask, 5, "cosine", False)
+    assert pv.shape == (Q, 5) and pi.shape == (Q, 5)
+    assert pi.dtype == np.int32
+    rv, ri = _pallas(q, v, mask, 6, "cosine", False)
+    _assert_same_ranking(pv, pi, rv, ri, rtol=1e-5)
+
+
+def test_kernel_arithmetic_on_one_row():
+    """The twin's arithmetic, spelled out in numpy for one doc: per-row
+    normalisation, bf16 rounding, f32 sums in increasing dims."""
+    def bf16(x):
+        u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+        u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+        return u.astype(np.uint32).view(np.float32)
+
+    q, v, mask = _inputs(9, 1, 64, 32, live=1.0)
+    qh, _ = b2.prepare_queries(torch.from_numpy(q), "cosine", False)
+    row = v[17]
+    v2 = np.float32(0)
+    for x in row:
+        v2 = np.float32(v2 + np.float32(x * x))
+    den = np.maximum(np.sqrt(v2), np.float32(1e-12))
+    xb = bf16((row / den).astype(np.float32))
+    s = np.float32(0)
+    for a, b in zip(qh.numpy()[0], xb):
+        s = np.float32(s + np.float32(a * b))
+    want = np.float32(np.float32(1 + s) * np.float32(0.5))
+    got = b2.knn_scores_plain(qh, torch.zeros(1), torch.from_numpy(v),
+                              "cosine", False)[0, 17].item()
+    assert got == want
+
+
+def test_knn_scores_matches_reference():
+    import jax.numpy as jnp
+
+    from elasticsearch_tpu.ops.knn import knn_scores as ref_scores
+
+    q, v, _ = _inputs(4, 3, 300, 24)
+    for metric in METRICS:
+        want = np.asarray(ref_scores(jnp.asarray(q), jnp.asarray(v),
+                                     metric=metric, use_bf16=False))
+        got = knn_scores(torch.from_numpy(q), torch.from_numpy(v),
+                         metric=metric).numpy()
+        # f32 sums in another order; (1 + dot) / 2 cancels near dot = -1,
+        # so the bar is absolute there (dot magnitudes reach ~10)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-6)
+
+
+def test_wrapper_rejects_bad_arguments():
+    q, v, mask = (torch.from_numpy(a) for a in _inputs(1, 1, 64, 8))
+    with pytest.raises(ValueError, match="k must be"):
+        knn_topk(q, v, mask, k=0)
+    with pytest.raises(ValueError, match="k must be"):
+        knn_topk(q, v, mask, k=65)
+    with pytest.raises(ValueError, match="unknown knn metric"):
+        knn_topk(q, v, mask, k=3, metric="hamming")
+    with pytest.raises(ValueError, match="shape mismatch"):
+        knn_topk(q[:, :4], v, mask, k=3)

@@ -139,11 +139,68 @@ def test_convert_round_trip_of_reference_segment(both_segments):
     assert torch.equal(conv.keywords["tag"].ords, port.keywords["tag"].ords)
 
 
-@pytest.mark.parametrize("ftype", ["dense_vector", "nested", "geo_point",
+@pytest.mark.parametrize("ftype", ["completion", "nested", "geo_point",
                                    "geo_shape", "percolator"])
 def test_unported_mapping_type_raises_typed(ftype):
     spec = {"type": ftype}
-    if ftype == "dense_vector":
-        spec["dims"] = 4
     with pytest.raises(MapperParsingException, match="ROADMAP"):
         Mappings({"properties": {"f": spec}})
+
+
+def _vector_segments(index_options=None):
+    spec = {"type": "dense_vector", "dims": 4, "similarity": "l2_norm"}
+    if index_options:
+        spec["index_options"] = index_options
+    mapping = {"properties": {"v": spec, "tag": {"type": "keyword"}}}
+    rng = np.random.default_rng(2)
+    docs = []
+    for i in range(300):
+        src = {"tag": f"t{i % 3}"}
+        if i % 7:
+            src["v"] = [float(a) for a in rng.standard_normal(4)]
+        docs.append((f"d{i}", src))
+    ref_map, mp = RefMappings(mapping), Mappings(mapping)
+    rb, rp = RefBuilder(ref_map), RefParser(ref_map, RefAnalysis({}))
+    pb = SegmentBuilder(mp, Residency(torch.device("cpu")))
+    pp = DocumentParser(mp, AnalysisRegistry({}))
+    for doc_id, src in docs:
+        rb.add(rp.parse(doc_id, src))
+        pb.add(pp.parse(doc_id, src))
+    return rb.freeze(), pb.freeze(), (rp, pp)
+
+
+def test_vector_column_parity():
+    ref, port, _ = _vector_segments()
+    r, p = ref.vectors["v"], port.vectors["v"]
+    np.testing.assert_array_equal(p.vecs.numpy(), np.asarray(r.vecs_host))
+    np.testing.assert_array_equal(p.exists.numpy(), np.asarray(r.exists_host))
+    assert (p.dims, p.similarity) == (r.dims, r.similarity) == (4, "l2_norm")
+    assert p._ivf is None and p._pq is None  # no index_options: no ANN build
+
+
+def test_vector_freeze_builds_ann_tiers():
+    ref, port, _ = _vector_segments({"type": "ivf_pq"})
+    vc = port.vectors["v"]
+    ivf, pq = vc._ivf, vc._pq
+    assert ivf and pq, "freeze builds IVF and PQ for ivf_pq"
+    assert (ivf.C, ivf.Lmax) == (ref.vectors["v"]._ivf.C,
+                                 ref.vectors["v"]._ivf.Lmax)
+    assert (pq.M, pq.K, pq.dsub) == (ref.vectors["v"]._pq.M,
+                                     ref.vectors["v"]._pq.K,
+                                     ref.vectors["v"]._pq.dsub)
+    assert pq.codes.dtype == torch.uint8 and pq.codes.shape == (512, 2)
+    # the always-resident quantizer joins the segments-breaker charge
+    base = port.max_docs + sum(inv.nnz_pad * 16
+                               for inv in port.inverted.values())
+    assert port.memory_bytes() == base + ivf.nbytes()
+
+
+def test_dense_vector_dims_mismatch_raises_like_reference():
+    _ref, _port, (rp, pp) = _vector_segments()
+    bad = {"v": [1.0, 2.0, 3.0]}
+    with pytest.raises(Exception, match="3 dims") as ref_exc:
+        rp.parse("x", bad)
+    with pytest.raises(MapperParsingException, match="3 dims") as port_exc:
+        pp.parse("x", bad)
+    assert type(ref_exc.value).__name__ == type(port_exc.value).__name__
+    assert str(port_exc.value) == str(ref_exc.value)

@@ -228,3 +228,177 @@ def test_translog_replays_across_packages(tmp_path, writer):
         assert resp["hits"]["total"] == 59
     finally:
         reader.close()
+
+
+# -- knn: the second slice ---------------------------------------------------
+#
+# Four vector indices over the same seeded clustered corpus: brute force
+# (no index_options), IVF and IVF-PQ, and an l2_norm IVF-PQ index. The
+# port writes the brute-force index itself (write path, freeze). The IVF
+# indices carry the reference's frozen segments across through
+# segment_from_arrays, with the reference's quantizer and PQ codes, so
+# query-time parity does not hang on two k-means runs agreeing. Bar: the
+# same hit ids in the same order, hits.total exact, scores at rtol 1e-5
+# (f32 sums in other orders).
+
+VEC_DIMS = 16
+VEC_DOCS = 600
+
+
+def _vec_body(opts, similarity="cosine"):
+    v = {"type": "dense_vector", "dims": VEC_DIMS, "similarity": similarity}
+    if opts:
+        v["index_options"] = opts
+    return {"settings": SETTINGS, "mappings": {"properties": {
+        "v": v, "bucket": {"type": "long"}, "tag": {"type": "keyword"}}}}
+
+
+def _vec_docs():
+    from _torch_parity import clustered
+
+    x = clustered(VEC_DOCS, VEC_DIMS, 12, seed=21)
+    docs = []
+    for i in range(VEC_DOCS):
+        src = {"bucket": i % 50, "tag": f"t{i % 7}"}
+        if i % 29:  # a few docs without a vector
+            src["v"] = [float(a) for a in x[i]]
+        docs.append((f"v{i}", src))
+    return x, docs
+
+
+@pytest.fixture(scope="module")
+def vec_nodes():
+    from elasticsearch_tpu_torch.index.convert import segment_from_arrays
+
+    from _torch_parity import reference_arrays
+
+    ref = RefNode(name="ref")
+    port = Node(name="port", device="cpu")
+    x, docs = _vec_docs()
+    for name, opts, sim in (("vb", None, "cosine"),
+                            ("vi", {"type": "ivf"}, "cosine"),
+                            ("vp", {"type": "ivf_pq"}, "cosine"),
+                            ("vl", {"type": "ivf_pq"}, "l2_norm")):
+        ref.create_index(name, _vec_body(opts, sim))
+        port.create_index(name, _vec_body(opts, sim))
+        for doc_id, src in docs:
+            ref.indices[name].index_doc(doc_id, src)
+            if name == "vb":
+                port.index(name, doc_id, src)
+        ref.indices[name].refresh()
+        if name == "vb":
+            port.refresh(name)
+            continue
+        for s, shard in enumerate(ref.indices[name].shards):
+            for seg in shard.engine.segments:
+                port.get_index(name).shards[s].engine.add_segment(
+                    segment_from_arrays(reference_arrays(seg),
+                                        port.residency))
+    yield ref, port, x
+    ref.close()
+    port.close()
+
+
+def _q(x, i, noise=0.05):
+    rng = np.random.default_rng(i)
+    return [float(a) for a in x[i] + noise * rng.standard_normal(VEC_DIMS)]
+
+
+def _knn_bodies(x):
+    q, q2 = _q(x, 5), _q(x, 40)
+    knn = {"field": "v", "query_vector": q}
+    knn_far = {"field": "v", "query_vector": _q(x, 9, noise=1.0)}
+    sel = {"range": {"bucket": {"lt": 2}}}  # 24 of 600 docs
+    return {
+        # (index, body, brute force expected to run)
+        "brute": ("vb", {"query": {"knn": dict(knn)}}, True),
+        "brute_k_size": ("vb", {"query": {"knn": dict(
+            knn, k=20, num_candidates=50)}, "size": 20}, True),
+        "brute_filter": ("vb", {"query": {"knn": dict(
+            knn, filter={"term": {"tag": "t3"}})}, "size": 15}, True),
+        "brute_in_bool": ("vb", {"query": {"bool": {
+            "must": [{"knn": dict(knn)}],
+            "filter": [{"range": {"bucket": {"gte": 10}}}]}}}, True),
+        "maxsim": ("vb", {"query": {"knn": {
+            "field": "v", "query_vectors": [q, q2, _q(x, 77)]}},
+            "size": 12}, True),
+        "maxsim_nested_filter": ("vb", {"query": {"knn": {
+            "field": "v", "query_vector": [q, q2],
+            "filter": {"term": {"tag": "t1"}}}}}, True),
+        "ivf": ("vi", {"query": {"knn": dict(knn, num_candidates=60)}},
+                False),
+        "ivf_filter": ("vi", {"query": {"knn": dict(
+            knn, num_candidates=60, filter={"term": {"tag": "t2"}})}},
+            False),
+        "ivf_starved": ("vi", {"query": {"knn": dict(
+            knn, num_candidates=10, filter=sel)}}, True),
+        "ivf_forced_brute": ("vi", {"query": {"knn": dict(
+            knn, ann=False)}}, True),
+        "ivf_pq": ("vp", {"query": {"knn": dict(knn, num_candidates=60)}},
+                   False),
+        "ivf_pq_filter": ("vp", {"query": {"knn": dict(
+            knn, num_candidates=60, filter={"term": {"tag": "t2"}})}},
+            False),
+        "ivf_pq_starved": ("vp", {"query": {"knn": dict(
+            knn, num_candidates=10, filter=sel)}}, True),
+        # l2_norm: B2's norm expansion, the l2 quantizer and LUT. Both
+        # packages score l2 as 1 / (1 + |q|^2 - 2 q.v + |v|^2), which
+        # cancels near a duplicate (|q|^2 ~ 150 here): a query at
+        # distance ~4 keeps every score well inside rtol 1e-5
+        "l2_ivf_pq": ("vl", {"query": {"knn": dict(
+            knn_far, num_candidates=60)}}, False),
+        "l2_brute_filter": ("vl", {"query": {"knn": dict(
+            knn_far, ann=False, filter={"term": {"tag": "t4"}})}}, True),
+    }
+
+
+_KNN_CASES = sorted(_knn_bodies(np.zeros((VEC_DOCS, VEC_DIMS))))
+
+
+@pytest.mark.parametrize("name", _KNN_CASES)
+def test_knn_matches_reference(vec_nodes, monkeypatch, name):
+    ref, port, x = vec_nodes
+    index, body, brute = _knn_bodies(x)[name]
+    calls = []
+    real = port_queries.knn_topk
+    monkeypatch.setattr(port_queries, "knn_topk",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    p = port.search(index, copy.deepcopy(body))
+    r = ref.search(index, copy.deepcopy(body))
+    assert p["hits"]["hits"], "expected hits"
+    assert bool(calls) == brute, "brute force ran" if calls else "no brute"
+    _check_generic(r, p)
+
+
+def test_knn_dims_mismatch_raises_typed(vec_nodes):
+    from elasticsearch_tpu_torch.utils.errors import QueryParsingException
+
+    _ref, port, _x = vec_nodes
+    with pytest.raises(QueryParsingException, match="dims"):
+        port.search("vb", {"query": {"knn": {"field": "v",
+                                             "query_vector": [1.0, 2.0]}}})
+
+
+def test_knn_own_ivf_pq_build_recall(vec_nodes):
+    """The port's own IVF-PQ build (write path, freeze) against its own
+    exact brute force on the same index: recall@10 >= 0.95, the
+    reference's floor for its ANN paths."""
+    _ref, _port, x = vec_nodes
+    _x, docs = _vec_docs()
+    node = Node(name="own", device="cpu")
+    try:
+        node.create_index("own", _vec_body({"type": "ivf_pq"}))
+        for doc_id, src in docs:
+            node.index("own", doc_id, src)
+        node.refresh("own")
+        hits = 0
+        for i in range(10):
+            knn = {"field": "v", "query_vector": _q(x, 30 * i + 1),
+                   "num_candidates": 100}
+            ann = node.search("own", {"query": {"knn": knn}})
+            exact = node.search("own", {"query": {"knn": dict(knn,
+                                                              ann=False)}})
+            hits += len(set(_ids(ann)) & set(_ids(exact)))
+        assert hits / 100 >= 0.95
+    finally:
+        node.close()
