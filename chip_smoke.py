@@ -11,8 +11,10 @@ Phases, in order; any failure exits non-zero before the result line:
             sm_90a, one process per source, all started together);
 3. kernels  each kernel against its plain PyTorch twin on the card:
             B1 bm25_dense_topk, B2 knn_topk (three metrics, both
-            precisions, k up to 1000, ragged D, ties, a 90% mask) and B3
-            adc_scores;
+            precisions, k up to 1000, ragged D, ties, a 90% mask), B3
+            adc_scores and B4 maxsim_adc (W up to 81,920, M 1-64, K 64
+            and 256, T 1-100, negative tables, a NaN, unaligned codes),
+            B2-B4 bit for bit;
 4. write    the write path through ``Node``: index, refresh, search,
             delete, checked against the same Node on the CPU;
 5. read     the BM25 read path: a 2^20-doc MS-MARCO-shaped corpus loaded
@@ -28,8 +30,18 @@ Phases, in order; any failure exits non-zero before the result line:
             ``Node.search`` (B2's and B3's launch counts are taken over
             exactly this run), hits held against the plain twins and an
             exact f64 numpy oracle;
+5c. hybrid  the hybrid read path: one 2^20-doc segment holding phase 5's
+            text field and phase 5b's slab (its IVF and PQ carried
+            across), 56 ``hybrid`` queries through ``Node.search`` (RRF,
+            linear, an IVF-PQ knn side, a filtered knn side, MaxSim
+            re-ranks of a 100-doc window over the slab and over the PQ
+            codes; the launches of B2, B3 and B4 are taken over exactly
+            this run, per query), hits held against the plain twins, a
+            numpy fusion of the engines' own rows and f64 MaxSim;
 6. timing   each kernel, its plain twin, a one-call library yardstick and
             the card's bound at the main path's shape.
+
+Each corpus is generated once and shared by the phases that read it.
 
 The last three lines of standard output are the ``{"kernels": [...]}``
 record, the card's name and power limit (as ``nvidia-smi`` gives them),
@@ -176,7 +188,8 @@ def phase_kernels(torch, dev) -> dict:
     """Max abs error of each kernel against its twin, by kernel name."""
     return {"bm25_dense_topk": _kernels_b1(torch, dev),
             "knn_topk": _kernels_b2(torch, dev),
-            "adc_scores": _kernels_b3(torch, dev)}
+            "adc_scores": _kernels_b3(torch, dev),
+            "maxsim_adc": _kernels_b4(torch, dev)}
 
 
 def _kernels_b1(torch, dev) -> float:
@@ -300,6 +313,66 @@ def _kernels_b3(torch, dev) -> float:
     return 0.0
 
 
+def check_exact_nan(v, pv, what: str) -> float:
+    """Kernel values against the twin's: NaN in the same places, the same
+    bits everywhere else (a NaN's payload may differ). Returns 0."""
+    import numpy as np
+
+    nan = np.isnan(v)
+    if v.shape != pv.shape or not np.array_equal(nan, np.isnan(pv)):
+        raise AssertionError(f"{what}: NaN places differ from the plain twin")
+    return check_exact(v[~nan], None, pv[~nan], None, what)
+
+
+def _kernels_b4(torch, dev) -> float:
+    """B4 against its twin, bit for bit (per token one f32 add per m in
+    order, then the max with torch.maximum's NaN rule), over the
+    re-rank's shapes, LUTs that lean negative (the l2 form), a NaN, a
+    code array off 16-byte alignment and rows wider than 32 codes."""
+    from elasticsearch_tpu_torch.ops.maxsim_adc import maxsim_adc
+
+    def run(n, W, M, K, T, what, nan=False, misalign=False):
+        g = torch.Generator(device=dev).manual_seed(400 + n)
+        codes = torch.randint(0, K, (W, M), generator=g, device=dev,
+                              dtype=torch.int64).to(torch.uint8)
+        if misalign:  # a contiguous view one byte into its buffer
+            buf = torch.empty(W * M + 1, dtype=torch.uint8, device=dev)
+            buf[1:] = codes.reshape(-1)
+            codes = buf[1:].view(W, M)
+        luts = torch.randn(T, M, K, generator=g, device=dev) - 1.5
+        if nan:
+            luts[T // 2, M // 2, codes[W // 2, M // 2].long()] = float("nan")
+        out = maxsim_adc(codes, luts)
+        torch.cuda.synchronize()
+        want = maxsim_adc(codes, luts, plain=True)
+        check_exact_nan(out.cpu().numpy(), want.cpu().numpy(),
+                        f"maxsim_adc {what} W={W} M={M} K={K} T={T}")
+        if nan and not bool(torch.isnan(out).any()):
+            raise AssertionError("maxsim_adc dropped the NaN sum")
+
+    n = 0
+    for W in (1, 100, 4097, 10_000, 81_920):
+        for M in (32, 16, 1):
+            for K in (256, 64):
+                for T in (1, 8, 32, 64, 100):
+                    run(n, W, M, K, T, "grid")
+                    n += 1
+        log(f"[kernels] maxsim_adc W={W}, M in (32, 16, 1), K in (256, 64),"
+            f" T in (1, 8, 32, 64, 100): bit-equal to the plain twin")
+    extra = [(4097, 32, 256, 32, "NaN in one token's table", True, False),
+             (10_000, 32, 256, 32, "codes off 16-byte alignment", False,
+              True),
+             (4097, 64, 256, 8, "rows of 64 codes", False, False),
+             (100, 33, 64, 5, "rows of 33 codes", False, False),
+             (300, 3, 255, 7, "tables of an odd width", False, False)]
+    for W, M, K, T, what, nan, mis in extra:
+        run(n, W, M, K, T, what, nan, mis)
+        n += 1
+        log(f"[kernels] maxsim_adc {what} W={W} M={M} K={K} T={T}: "
+            f"bit-equal to the plain twin")
+    return 0.0
+
+
 WRITE_MAPPING = {"properties": {
     "body": {"type": "text", "analyzer": "english"},
     "tag": {"type": "keyword"},
@@ -418,24 +491,27 @@ def exact_top10(np, q, u_doc, tfn, offsets, df, n_docs, D):
     return order, s[order], total
 
 
-def phase_read(torch, np, dev, card):
+def text_field(np, corpus):
+    """``segment_from_arrays``'s entry for the corpus's text field."""
+    u_doc, tf, tfn, offsets, df, cf, doc_len = corpus
+    return {"terms": [f"t{t}" for t in range(VOCAB)], "df": df, "cf": cf,
+            "offsets": offsets, "doc_ids_host": u_doc, "tfnorm_host": tfn,
+            "tf_host": tf, "avg_len": float(doc_len.mean()),
+            "num_docs": N_DOCS, "total_terms": int(doc_len.sum()),
+            "lengths": doc_len.astype(np.float32)}
+
+
+def phase_read(torch, np, dev, card, corpus):
     from elasticsearch_tpu_torch import Node
     from elasticsearch_tpu_torch.index.convert import segment_from_arrays
     from elasticsearch_tpu_torch.ops import bm25_topk
     from elasticsearch_tpu_torch.search import queries
 
     t0 = time.perf_counter()
-    u_doc, tf, tfn, offsets, df, cf, doc_len = build_corpus(
-        np, N_DOCS, VOCAB, SEED)
+    u_doc, tf, tfn, offsets, df, cf, doc_len = corpus
     D = N_DOCS  # pow2_bucket(2^20) == 2^20
-    lengths = np.zeros(D, np.float32)
-    lengths[:N_DOCS] = doc_len
-    arrays = {"num_docs": N_DOCS, "max_docs": D, "fields": {"body": {
-        "terms": [f"t{t}" for t in range(VOCAB)], "df": df, "cf": cf,
-        "offsets": offsets, "doc_ids_host": u_doc, "tfnorm_host": tfn,
-        "tf_host": tf, "avg_len": float(doc_len.mean()),
-        "num_docs": N_DOCS, "total_terms": int(doc_len.sum()),
-        "lengths": lengths}}}
+    arrays = {"num_docs": N_DOCS, "max_docs": D,
+              "fields": {"body": text_field(np, corpus)}}
     node = Node(name="msmarco", device=dev)
     node.create_index("msmarco", {
         "settings": {"number_of_shards": 1},
@@ -590,8 +666,9 @@ VEC_MAPPING = {"properties": {
 }}
 
 
-def phase_vectors(torch, np, dev, card):
-    """The kNN read path; returns (B2 launches, B3 launches, B3's W)."""
+def phase_vectors(torch, np, dev, card, sift):
+    """The kNN read path; returns (B2 launches, B3 launches, B3's W, the
+    built IVF index and PQ parts)."""
     from elasticsearch_tpu_torch import Node
     from elasticsearch_tpu_torch.index.convert import segment_from_arrays
     from elasticsearch_tpu_torch.ops import adc, ivf, knn_topk
@@ -600,7 +677,7 @@ def phase_vectors(torch, np, dev, card):
     from elasticsearch_tpu_torch.search import queries
 
     t0 = time.perf_counter()
-    vpad, exists, bucket, D, make_q = make_sift(np, N_VECS, DIMS, SEED)
+    vpad, exists, bucket, D, make_q = sift
     node = Node(name="sift", device=dev)
     node.create_index("sift", {"settings": {"number_of_shards": 1},
                                "mappings": VEC_MAPPING})
@@ -677,8 +754,9 @@ def phase_vectors(torch, np, dev, card):
     times, got, per_query = [], [], []
     for body in bodies:
         b2, b3 = knn_topk.LAUNCHES, adc.LAUNCHES
+        body = copy.deepcopy(body)  # the search may mutate it; not timed
         t = time.perf_counter()
-        got.append(node.search("sift", copy.deepcopy(body)))
+        got.append(node.search("sift", body))
         times.append(time.perf_counter() - t)
         per_query.append((knn_topk.LAUNCHES - b2, adc.LAUNCHES - b3))
     b2_launches, b3_launches = knn_topk.LAUNCHES, adc.LAUNCHES
@@ -745,7 +823,247 @@ def phase_vectors(torch, np, dev, card):
         f"{recalls['ivf_pq']} (filtered {recalls['ivf_pq_filter']})")
     profile_read(torch, node, "sift", bodies, float(ms.sum()), "vectors")
     node.close()
-    return b2_launches, b3_launches, W
+    return b2_launches, b3_launches, W, i1, p1
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the hybrid read path
+# ---------------------------------------------------------------------------
+
+HYB_MAPPING = {"properties": {"body": {"type": "text"},
+                              **VEC_MAPPING["properties"]}}
+RERANK_TOKENS = 32
+RERANK_WINDOW = 100
+
+
+def _rrf_np(np, scores, mask, rank_constant, weight):
+    """tests/unit/test_hybrid.py::_rrf_ref: numpy RRF contribution."""
+    key = np.where(mask, scores, -np.inf).astype(np.float32)
+    rank = np.empty(key.size, np.int64)
+    rank[np.argsort(-key, kind="stable")] = np.arange(key.size)
+    contrib = np.where(
+        mask, np.float32(1.0) / (np.float32(rank_constant) + np.float32(1.0)
+                                 + rank.astype(np.float32)),
+        np.float32(0.0)).astype(np.float32)
+    return (np.float32(weight) * contrib).astype(np.float32)
+
+
+def fuse_np(np, ls, lm, vs, vm, method, weights, rank_constant):
+    """tests/unit/test_hybrid.py::_fuse_ref: the numpy fusion."""
+    if method == "linear":
+        fused = (np.float32(weights[0]) * np.where(lm, ls, np.float32(0))
+                 + np.float32(weights[1]) * np.where(vm, vs, np.float32(0)))
+    else:
+        fused = (_rrf_np(np, ls, lm, rank_constant, weights[0])
+                 + _rrf_np(np, vs, vm, rank_constant, weights[1]))
+    return fused.astype(np.float32), lm | vm
+
+
+def phase_hybrid(torch, np, dev, card, corpus, sift, ivf_index, pq_parts):
+    """The hybrid read path over one 2^20-doc segment holding phase 5's
+    text field and phase 5b's vector slab, with phase 5b's IVF and PQ.
+    Returns the launches of B2, B3 and B4 over the query mix."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.index.convert import segment_from_arrays
+    from elasticsearch_tpu_torch.ops import adc, ivf, knn_topk, maxsim_adc
+    from elasticsearch_tpu_torch.ops.pq import place_pq
+    from elasticsearch_tpu_torch.search import hybrid, queries
+    from elasticsearch_tpu_torch.search.context import SegmentContext
+
+    t0 = time.perf_counter()
+    vpad, exists, bucket, D, make_q = sift
+    if D != N_DOCS:
+        raise AssertionError(f"slab of {D} rows, text of {N_DOCS} docs")
+    df = corpus[4]
+    node = Node(name="hybrid", device=dev)
+    node.create_index("hybrid", {"settings": {"number_of_shards": 1},
+                                 "mappings": HYB_MAPPING})
+    seg = segment_from_arrays({
+        "num_docs": N_DOCS, "max_docs": D,
+        "fields": {"body": text_field(np, corpus)},
+        "numerics": {"bucket": {"exact": bucket, "exists": exists,
+                                "kind": "long"}},
+        "vectors": {"emb": {"vecs": vpad, "exists": exists, "dims": DIMS,
+                            "similarity": "cosine"}}}, node.residency)
+    vc = seg.vectors["emb"]
+    vc._ivf = ivf_index
+    vc._pq = place_pq(pq_parts, node.residency, label="pq[emb]")
+    if vc._pq is None:
+        raise AssertionError("the PQ codes were denied placement")
+    svc = node.get_index("hybrid")
+    svc.shards[0].engine.add_segment(seg)
+    torch.cuda.synchronize()
+    log(f"[hybrid] one segment of {N_DOCS} docs: phase 5's text field and "
+        f"phase 5b's {N_VECS} x {DIMS} slab (IVF C={ivf_index.C}, PQ "
+        f"M={pq_parts.M} K={pq_parts.K} carried across); set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    lex = make_queries(np, 56, VOCAB, df, SEED + 5)
+    qv = make_q(56)
+    pool = make_q(16 * (RERANK_TOKENS - 1))
+    flt = {"range": {"bucket": {"lt": 10}}}
+
+    def vec(a):
+        return [float(x) for x in a]
+
+    def hyb(i, method="rrf", weights=(1.0, 1.0), **knn):
+        return {"hybrid": {
+            "query": {"match": {"body": " ".join(f"t{t}" for t in lex[i])}},
+            "knn": dict({"field": "emb", "query_vector": vec(qv[i])}, **knn),
+            "fusion": {"method": method, "weights": list(weights),
+                       "rank_constant": 60}}}
+
+    mix = []  # (branch, body)
+    for i in range(56):
+        if i < 16:
+            mix.append(("rrf", {"query": hyb(i, ann=False,
+                                             num_candidates=100)}))
+        elif i < 24:
+            mix.append(("linear", {"query": hyb(i, "linear", (0.3, 2.0),
+                                                ann=False, boost=1.7)}))
+        elif i < 32:
+            mix.append(("rrf_ivf_pq", {"query": hyb(
+                i, num_candidates=PQ_CANDIDATES)}))
+        elif i < 40:
+            mix.append(("rrf_filter", {"query": hyb(i, ann=False,
+                                                    filter=flt)}))
+        else:
+            j = i - 40
+            q = hyb(i, ann=False, num_candidates=100)
+            q["hybrid"]["rerank"] = {
+                "query_vectors": [vec(qv[i])] + [
+                    vec(t) for t in pool[j * (RERANK_TOKENS - 1):
+                                         (j + 1) * (RERANK_TOKENS - 1)]],
+                "window_size": RERANK_WINDOW, "pq": i >= 48}
+            mix.append(("rerank_pq" if i >= 48 else "rerank_exact",
+                        {"query": q, "size": RERANK_WINDOW}))
+    for _, body in mix:
+        body.setdefault("size", 10)
+    for b in ("rrf", "rrf_ivf_pq", "rerank_exact", "rerank_pq"):
+        node.search("hybrid", copy.deepcopy(  # first-use set-up, untimed
+            next(body for m, body in mix if m == b)))
+
+    knn_topk.LAUNCHES = adc.LAUNCHES = maxsim_adc.LAUNCHES = 0
+    times, got, per_query = [], [], []
+    for _, body in mix:
+        before = (knn_topk.LAUNCHES, adc.LAUNCHES, maxsim_adc.LAUNCHES)
+        body = copy.deepcopy(body)  # the search may mutate it; not timed
+        t = time.perf_counter()
+        got.append(node.search("hybrid", body))
+        times.append(time.perf_counter() - t)
+        per_query.append((knn_topk.LAUNCHES - before[0],
+                          adc.LAUNCHES - before[1],
+                          maxsim_adc.LAUNCHES - before[2]))
+    launches = {"knn_topk": knn_topk.LAUNCHES, "adc_scores": adc.LAUNCHES,
+                "maxsim_adc": maxsim_adc.LAUNCHES}
+    starved = 0
+    for (branch, _), n in zip(mix, per_query):
+        want = {"rrf_ivf_pq": (0, 1, 0),
+                "rerank_pq": (1, 0, 1)}.get(branch, (1, 0, 0))
+        if branch == "rrf_ivf_pq" and n == (1, 1, 0):
+            starved += 1  # the probes starved: brute force ran
+        elif n != want:
+            raise AssertionError(f"{branch}: launched (knn_topk, adc_scores,"
+                                 f" maxsim_adc) {n} times, expected {want}")
+    if launches["maxsim_adc"] != 8:
+        raise AssertionError(f"maxsim_adc launched {launches['maxsim_adc']}"
+                             f" times over 8 PQ re-ranks")
+
+    # the same searches with the kernels swapped for their plain twins
+    real = queries.knn_topk, ivf.adc_scores, hybrid.maxsim_adc
+    queries.knn_topk = functools.partial(real[0], plain=True)
+    ivf.adc_scores = functools.partial(real[1], plain=True)
+    hybrid.maxsim_adc = functools.partial(real[2], plain=True)
+    try:
+        for n, (branch, body) in enumerate(mix):
+            twin = node.search("hybrid", copy.deepcopy(body))
+            check_hits(got[n], twin, f"{branch} query {n} vs plain twins")
+            if got[n].get("hybrid") != twin.get("hybrid"):
+                raise AssertionError(f"{branch} query {n}: hybrid section "
+                                     f"{got[n].get('hybrid')} vs twins' "
+                                     f"{twin.get('hybrid')}")
+    finally:
+        queries.knn_topk, ivf.adc_scores, hybrid.maxsim_adc = real
+
+    # stage 1 against a numpy fusion of the port's own per-engine rows
+    live = seg.live.cpu().numpy()
+    fused_checked = 0
+    for n in (0, 1, 2, 3, 16, 17, 24, 32):
+        q = queries.parse_query(mix[n][1]["query"])
+        ctx = SegmentContext(seg, svc.mappings, svc.analysis)
+        ls, lm = q.lexical.score_or_mask(ctx)
+        vs, vm = q.knn.score_or_mask(ctx)
+        ls, lm, vs, vm = (x.cpu().numpy() for x in (ls, lm, vs, vm))
+        fused, mask = fuse_np(np, ls, lm & live, vs, vm & live, q.method,
+                              q.weights, q.rank_constant)
+        eff = np.where(mask, fused, -np.inf)
+        top = np.lexsort((np.arange(eff.size), -eff))[:10]
+        want = [(str(i), float(fused[i])) for i in top if np.isfinite(eff[i])]
+        have = [(h["_id"], h["_score"]) for h in got[n]["hits"]["hits"]]
+        if have != want or got[n]["hits"]["total"] != int(mask.sum()):
+            raise AssertionError(f"{mix[n][0]} query {n}: hits differ from "
+                                 f"the numpy fusion: {have[:3]} vs "
+                                 f"{want[:3]}")
+        fused_checked += 1
+
+    # stage 2: the windows against f64 MaxSim, exact and over the codes
+    codes = pq_parts.codes.cpu().numpy()
+    books = pq_parts.codebooks.cpu().numpy().astype(np.float64)
+    M, K, dsub = books.shape
+    for n, (branch, body) in enumerate(mix):
+        if not branch.startswith("rerank"):
+            continue
+        if got[n].get("hybrid") != {"rerank": "applied",
+                                    "window": RERANK_WINDOW}:
+            raise AssertionError(f"{branch} query {n}: hybrid section "
+                                 f"{got[n].get('hybrid')}")
+        toks = np.array(body["query"]["hybrid"]["rerank"]["query_vectors"],
+                        np.float64)
+        toks /= np.maximum(np.linalg.norm(toks, axis=1, keepdims=True),
+                           1e-12)
+        plain = copy.deepcopy(body)
+        del plain["query"]["hybrid"]["rerank"]
+        stage1 = {h["_id"]: h["_score"] for h in node.search(
+            "hybrid", plain)["hits"]["hits"]}
+        hits = got[n]["hits"]["hits"]
+        if sorted(stage1) != sorted(h["_id"] for h in hits):
+            raise AssertionError(f"{branch} query {n}: the window is not "
+                                 f"stage 1's top {RERANK_WINDOW}")
+        ids = np.array([int(h["_id"]) for h in hits])
+        gs = np.array([h["_score"] for h in hits])
+        has = exists[ids]
+        if branch == "rerank_exact":
+            x = vpad[ids].astype(np.float64)
+            x /= np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
+            ms = ((1.0 + toks @ x.T) * 0.5).max(axis=0)
+        else:
+            luts = np.einsum("tmd,mkd->tmk", toks.reshape(-1, M, dsub), books)
+            ms = luts[:, np.arange(M)[None, :], codes[ids]].sum(2).max(0)
+        s1 = np.array([stage1[h["_id"]] for h in hits])
+        if not (np.allclose(gs[has], ms[has], rtol=1e-5, atol=0)
+                and np.array_equal(gs[~has], s1[~has])
+                and np.all(np.diff(gs) <= 0)):
+            raise AssertionError(f"{branch} query {n}: window scores off "
+                                 f"the f64 MaxSim: {gs[:4]} vs {ms[:4]}")
+
+    ms = np.array(times) * 1e3
+    per_branch = "; ".join(
+        f"{b} x{sum(1 for m, _ in mix if m == b)}: p50 "
+        f"{np.percentile(ms[[m == b for m, _ in mix]], 50):.3f} ms, p99 "
+        f"{np.percentile(ms[[m == b for m, _ in mix]], 99):.3f} ms"
+        for b in dict.fromkeys(m for m, _ in mix))
+    log(f"[hybrid] {len(mix)} hybrid queries through Node.search on {card}:"
+        f" {per_branch}; launches knn_topk {launches['knn_topk']}, "
+        f"adc_scores {launches['adc_scores']}, maxsim_adc "
+        f"{launches['maxsim_adc']} ({starved} IVF-PQ knn sides starved into "
+        f"brute force); hits and hybrid sections equal the plain twins'; "
+        f"{fused_checked} stage-1 queries equal a numpy fusion of the "
+        f"engines' rows; 16 re-rank windows match f64 MaxSim (exact and "
+        f"over the PQ codes) at rtol 1e-5")
+    profile_read(torch, node, "hybrid", [b for _, b in mix],
+                 float(ms.sum()), "hybrid")
+    node.close()
+    return launches
 
 
 def _p50(np, ms) -> str:
@@ -938,6 +1256,40 @@ def timing_adc(torch, dev, card, W):
     return {"ms": kern, "plain_ms": plain, "library_ms": library, **b}
 
 
+def timing_maxsim(torch, dev, card):
+    """B4 at the re-rank's shape: a window of W = 100 candidates (and the
+    largest window, W = 10,000) of M = 32 codes, T = 32 token tables of
+    K = 256. Returns the W = 100 row."""
+    from elasticsearch_tpu_torch.ops.maxsim_adc import maxsim_adc
+
+    M, K, T = 32, 256, RERANK_TOKENS
+    rows = torch.arange(M, device=dev)
+    out = {}
+    for W in (RERANK_WINDOW, 10_000):
+        g = torch.Generator(device=dev).manual_seed(29)
+        codes = torch.randint(0, K, (W, M), generator=g, device=dev,
+                              dtype=torch.int64).to(torch.uint8)
+        luts = torch.randn(T, M, K, generator=g, device=dev)
+
+        def lib():
+            return luts[:, rows[None, :], codes.long()].sum(2).amax(0)
+
+        kern = _time_ms(torch, lambda: maxsim_adc(codes, luts), 200)
+        plain = _time_ms(torch, lambda: maxsim_adc(codes, luts, plain=True),
+                         20)
+        library = _time_ms(torch, lib, 200)
+        kern_dev = _device_ms(torch, lambda: maxsim_adc(codes, luts), 200)
+        lib_dev = _device_ms(torch, lib, 200)
+        b = _bound(W * M + T * M * K * 4, W * 4, W * T * M, F32_FLOP_PER_S)
+        out[W] = {"ms": kern, "plain_ms": plain, "library_ms": library, **b}
+        log(f"[timing] maxsim_adc W={W} M={M} K={K} T={T} on {card}: kernel "
+            f"{kern:.4f} ms, plain {plain:.4f} ms, library (gather + sum + "
+            f"amax) {library:.4f} ms, bound {b['bound_ms']:.6f} ms "
+            f"({b['bound_by']}); device time per call: kernel "
+            f"{kern_dev:.4f} ms, library {lib_dev:.4f} ms")
+    return out[RERANK_WINDOW]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -951,14 +1303,26 @@ def main() -> int:
     phase_build()
     err = phase_kernels(torch, dev)
     phase_write(torch, np, dev)
-    launches = {"bm25_dense_topk": phase_read(torch, np, dev, card)}
-    launches["knn_topk"], launches["adc_scores"], W = phase_vectors(
-        torch, np, dev, card)
+    # each corpus is generated once and shared by the phases that read it
+    t = time.perf_counter()
+    corpus = build_corpus(np, N_DOCS, VOCAB, SEED)
+    sift = make_sift(np, N_VECS, DIMS, SEED)
+    log(f"[data] MS-MARCO-shaped postings and SIFT-shaped vectors generated"
+        f" in {time.perf_counter() - t:.1f} s")
+    launches = {"bm25_dense_topk": phase_read(torch, np, dev, card, corpus)}
+    (launches["knn_topk"], launches["adc_scores"], W, ivf_index,
+     pq_parts) = phase_vectors(torch, np, dev, card, sift)
+    hyb = phase_hybrid(torch, np, dev, card, corpus, sift, ivf_index,
+                       pq_parts)
+    launches["maxsim_adc"] = hyb["maxsim_adc"]
+    del corpus, sift, ivf_index, pq_parts
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card)["single"],
               "knn_topk": timing_knn(torch, dev, card),
-              "adc_scores": timing_adc(torch, dev, card, W)}
+              "adc_scores": timing_adc(torch, dev, card, W),
+              "maxsim_adc": timing_maxsim(torch, dev, card)}
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
-    replaces = {"bm25_dense_topk": 150, "knn_topk": 39, "adc_scores": 415}
+    replaces = {"bm25_dense_topk": 150, "knn_topk": 39, "adc_scores": 415,
+                "maxsim_adc": 585}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"elasticsearch_tpu_torch/csrc/{name}.cu",

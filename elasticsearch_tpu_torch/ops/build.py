@@ -22,7 +22,8 @@ _BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 #: kernel library name -> source file, relative to the package
 SOURCES = {"bm25_dense_topk": "csrc/bm25_dense_topk.cu",
            "knn_topk": "csrc/knn_topk.cu",
-           "adc_scores": "csrc/adc_scores.cu"}
+           "adc_scores": "csrc/adc_scores.cu",
+           "maxsim_adc": "csrc/maxsim_adc.cu"}
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

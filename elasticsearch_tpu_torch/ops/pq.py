@@ -4,7 +4,8 @@ Port of elasticsearch_tpu/ops/pq.py. The build splits ``dims`` into M
 subspaces of ``dsub`` dims, trains K centroids per subspace (squared-l2
 k-means, ``ops/ivf.kmeans``) and encodes every slab row into M uint8
 codes. A query builds one M x K lookup table of partial similarities
-(``adc_lut``); a candidate's coarse score is the sum of its M table
+(``adc_lut``; ``adc_luts`` for every token of a MaxSim re-rank, which
+kernel B4 reads); a candidate's coarse score is the sum of its M table
 entries (kernel B3, ``ops/adc.py``; the reference's XLA form is
 ``adc_sum``). Coarse scores only rank: the IVF fine stage re-scores the
 survivors exactly.
@@ -171,6 +172,23 @@ def adc_lut(query: torch.Tensor, codebooks: torch.Tensor,
     if metric in ("l2_norm", "l2"):
         lut = 2.0 * lut - torch.sum(codebooks * codebooks, dim=-1)
     return lut.contiguous()
+
+
+def adc_luts(tokens: torch.Tensor, codebooks: torch.Tensor,
+             metric: str) -> torch.Tensor:
+    """f32[T, M, K]: ``adc_lut`` of every query token at once, one einsum
+    over the tokens (the reference vmaps ``adc_lut``). The layout kernel
+    B4 (``ops/maxsim_adc.py``) reads."""
+    q = tokens.to(torch.float32)
+    if metric == "cosine":
+        n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+        q = q / torch.clamp(n, min=1e-12)
+    M, _K, dsub = codebooks.shape
+    luts = torch.einsum("tmd,mkd->tmk", q.reshape(q.shape[0], M, dsub),
+                        codebooks)
+    if metric in ("l2_norm", "l2"):
+        luts = 2.0 * luts - torch.sum(codebooks * codebooks, dim=-1)[None]
+    return luts.contiguous()
 
 
 def adc_sum(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,9 @@ needs: ``match`` (operator, minimum_should_match, analyzer), ``term``,
 ``terms``, ``bool`` (must, should, must_not, filter,
 minimum_should_match), ``match_all``, ``range``, ``ids``, ``exists`` and
 ``constant_score``, plus the fused dense-impact top-k fast path, and
-``knn`` over a dense_vector field (brute force, MaxSim, IVF, IVF-PQ). Any
-other query type raises a typed QueryParsingException.
+``knn`` over a dense_vector field (brute force, MaxSim, IVF, IVF-PQ), and
+``hybrid`` (search/hybrid.py). Any other query type raises a typed
+QueryParsingException.
 
 A node's ``execute(ctx)`` returns a whole-segment pair
 
@@ -716,6 +717,13 @@ def parse_query(dsl: Optional[dict]) -> Query:
                         num_candidates=body.get("num_candidates"),
                         filter_=filt, boost=float(body.get("boost", 1.0)),
                         ann=body.get("ann"), pq=body.get("pq"))
+
+    if qtype == "hybrid":
+        # lexical + vector fusion (search/hybrid.py); a local import, as
+        # hybrid.py imports this module when it loads
+        from elasticsearch_tpu_torch.search.hybrid import parse_hybrid
+
+        return parse_hybrid(body)
 
     raise QueryParsingException(
         f"query type [{qtype}] is not yet in the PyTorch port")

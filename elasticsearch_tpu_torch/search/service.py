@@ -2,15 +2,16 @@
 
 Port of the host loop of elasticsearch_tpu/search/service.py for the
 request shape of the slice: a query with ``from``/``size``, ``_source``
-on, off or filtered, and ``version``. Aggregations, sort, rescore,
+on, off or filtered, ``version`` and ``rescore``. Aggregations, sort,
 scroll, min_score, search_after, highlight and the other request keys
 are not ported yet and raise a typed SearchParseException.
 
 Per segment the query runs the fused dense-impact top-k (kernel B1) when
-the query is a pure-dense term group, else the generic score/mask tensors
-followed by a masked top-k. Candidates merge per shard by
-``(-score, seg_id, local_id)`` and across shards by
-``(-score, shard_ord, local_id)``, the reference's orders.
+the query is a pure-dense term group and nothing rescores, else the
+generic score/mask tensors followed by a masked top-k. Candidates merge
+per shard by ``(-score, seg_id, local_id)``; a ``hybrid`` query's stage-2
+re-rank and then the rescorers re-order the merged window; shards merge
+by ``(-score, shard_ord, local_id)``, the reference's orders.
 """
 from __future__ import annotations
 
@@ -22,11 +23,15 @@ import numpy as np
 
 from elasticsearch_tpu_torch.ops.scoring import count_mask, topk_with_mask
 from elasticsearch_tpu_torch.search.context import GlobalStats, SegmentContext
+from elasticsearch_tpu_torch.search.hybrid import (HybridQuery,
+                                                   apply_hybrid_rerank)
 from elasticsearch_tpu_torch.search.queries import fused_bm25_topk, parse_query
+from elasticsearch_tpu_torch.search.rescore import apply_rescore, parse_rescore
 from elasticsearch_tpu_torch.utils.errors import SearchParseException
 
 #: request keys the port serves; any other key raises
-_SUPPORTED_KEYS = frozenset({"query", "size", "from", "_source", "version"})
+_SUPPORTED_KEYS = frozenset({"query", "size", "from", "_source", "version",
+                             "rescore"})
 
 
 def check_body(body: dict) -> None:
@@ -52,6 +57,8 @@ class QueryPhaseResult:
     docs: List[ShardDoc]
     total_hits: int
     max_score: float
+    # a hybrid query's stage-2 status: {"rerank": "applied"|"declined", ...}
+    hybrid: Optional[dict] = None
 
 
 class ShardSearcher:
@@ -82,6 +89,11 @@ class ShardSearcher:
                 f"or equal to: [10000] but was [{frm + size}]. Use scroll or "
                 f"search_after for deep pagination.")
         k = min(max(size + frm, 1), 10_000)
+        rescore_specs = parse_rescore(body.get("rescore") or None)
+        if rescore_specs:
+            # the candidates must cover the largest rescore window
+            k = min(max([k] + [s["window_size"] for s in rescore_specs]),
+                    10_000)
         docs: List[ShardDoc] = []
         total = 0
         max_score = float("-inf")
@@ -89,7 +101,8 @@ class ShardSearcher:
             ctx = SegmentContext(seg, self.mappings, self.analysis,
                                  global_stats, index_name=self.index_name)
             kk = min(k, seg.max_docs)
-            fused = fused_bm25_topk(ctx, query, kk)
+            # a rescore re-reads scores: B1's bf16 scores would show
+            fused = None if rescore_specs else fused_bm25_topk(ctx, query, kk)
             if fused is not None:
                 vals, ids, seg_total = fused
                 total += seg_total
@@ -114,10 +127,22 @@ class ShardSearcher:
                                          float(v)))
         docs.sort(key=lambda d: (-d.score, d.seg.seg_id, d.local_id))
         docs = docs[:k]
+        hybrid = None
+        if isinstance(query, HybridQuery) and query.rerank is not None:
+            # stage 2 over the merged window; a breaker denial comes back
+            # as the typed "declined" status with stage-1 scores untouched
+            hybrid = apply_hybrid_rerank(docs, query, self.mappings,
+                                         self.analysis)
+            max_score = max((d.score for d in docs if np.isfinite(d.score)),
+                            default=float("-inf"))
+        if rescore_specs:
+            apply_rescore(docs, rescore_specs, self.mappings, self.analysis)
+            docs = docs[: min(max(size + frm, 1), 10_000)]
+            max_score = max((d.score for d in docs), default=float("-inf"))
         return QueryPhaseResult(
             docs=docs, total_hits=total,
             max_score=max_score if docs and max_score != float("-inf")
-            else float("nan"))
+            else float("nan"), hybrid=hybrid)
 
     def fetch_phase(self, docs: List[ShardDoc], body: dict,
                     index_name: str = "") -> List[dict]:
@@ -177,7 +202,7 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
                 docs, body, index_name)):
             fetched[(d.shard_ord, id(d.seg), d.local_id)] = h
     hits = [fetched[(d.shard_ord, id(d.seg), d.local_id)] for d in page]
-    return {
+    response: Dict[str, Any] = {
         "took": int((time.perf_counter() - t0) * 1000),
         "timed_out": False,
         "_shards": {"total": len(searchers), "successful": len(searchers),
@@ -188,6 +213,20 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
             "hits": hits,
         },
     }
+    # stage-2 status: a denial on any shard marks the whole response as
+    # degraded to stage 1, with per-shard counts
+    statuses = [r.hybrid for r in results if r.hybrid is not None]
+    if statuses:
+        declined = [h for h in statuses if h.get("rerank") == "declined"]
+        if declined:
+            response["hybrid"] = dict(
+                declined[0], shards_declined=len(declined),
+                shards_applied=len(statuses) - len(declined))
+        else:
+            response["hybrid"] = {
+                "rerank": "applied",
+                "window": sum(int(h.get("window", 0)) for h in statuses)}
+    return response
 
 
 # ---------------------------------------------------------------------------

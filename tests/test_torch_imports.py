@@ -29,6 +29,19 @@ n.refresh("v")
 knn = {"field": "v", "query_vector": [1.0] * 8}
 for body in (knn, dict(knn, ann=False), dict(knn, query_vector=[[1.0] * 8] * 2)):
     assert n.search("v", {"query": {"knn": body}})["hits"]["hits"]
+n.create_index("h", {"mappings": {"properties": {"body": {"type": "text"},
+    "v": {"type": "dense_vector", "dims": 8, "index_options": {"type": "ivf_pq"}}}}})
+for i in range(300):
+    n.index("h", str(i), {"body": "fox" if i % 3 else "dog",
+                          "v": [float((i * j) % 5) for j in range(1, 9)]})
+n.refresh("h")
+hyb = {"query": {"match": {"body": "fox"}}, "knn": dict(knn, ann=False),
+       "rerank": {"query_vectors": [[1.0] * 8, [0.5] * 8], "pq": True}}
+r = n.search("h", {"query": {"hybrid": hyb}})
+assert r["hybrid"]["rerank"] == "applied", r.get("hybrid")
+r = n.search("h", {"query": {"match": {"body": "fox"}}, "rescore": {
+    "query": {"rescore_query": {"knn": {"field": "v", "query_vectors": [[1.0] * 8]}}}}})
+assert r["hits"]["hits"]
 import importlib, pkgutil
 import elasticsearch_tpu_torch
 for m in pkgutil.walk_packages(elasticsearch_tpu_torch.__path__,
