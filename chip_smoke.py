@@ -8,13 +8,16 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. device   the card's name, power limit and compute capability;
 2. build    every CUDA kernel, from the sources in the checkout (nvcc,
-            sm_90a, one process per source, all started together);
+            sm_90a, one process per source, all started together), with
+            each kernel's registers and spill bytes;
 3. kernels  each kernel against its plain PyTorch twin on the card:
             B1 bm25_dense_topk, B2 knn_topk (three metrics, both
-            precisions, k up to 1000, ragged D, ties, a 90% mask), B3
-            adc_scores and B4 maxsim_adc (W up to 81,920, M 1-64, K 64
-            and 256, T 1-100, negative tables, a NaN, unaligned codes),
-            B2-B4 bit for bit;
+            precisions, k up to 1000, ragged D, ties, a 90% mask, D under
+            one chunk, Q=9, 768 to 40,000 dims (narrow ring stages,
+            no staging), an unaligned slab, zero rows), B3
+            adc_scores and B4 maxsim_adc (W 1 to 81,920, M 1-64, K 64-256,
+            T 1-100, negative tables, a NaN in a later token group,
+            unaligned codes), B2-B4 bit for bit;
 4. write    the write path through ``Node``: index, refresh, search,
             delete, checked against the same Node on the CPU;
 5. read     the BM25 read path: a 2^20-doc MS-MARCO-shaped corpus loaded
@@ -54,6 +57,8 @@ import copy
 import functools
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -155,15 +160,48 @@ def phase_device(torch):
     return dev, line
 
 
+def ptxas_usage(text: str):
+    """[(kernel, registers, spill store bytes, spill load bytes)] of each
+    entry function in ``nvcc -Xptxas -v`` output, names demangled where
+    ``c++filt`` exists."""
+    rows, name, spill = [], None, (0, 0)
+    for ln in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows.append([name, int(m.group(1)), *spill])
+            name = None
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout.split("\n")
+        for r, n in zip(rows, names):
+            # knn_chunk_topk<8, 0>: the name and template arguments only
+            r[0] = re.sub(r"\(anonymous namespace\)::", "", n).split("(")[0]
+    return [tuple(r) for r in rows]
+
+
 def phase_build():
     from elasticsearch_tpu_torch.ops import build
 
     t0 = time.perf_counter()
     out = build.build_all()
+    spilled = []
     for name, text in out.items():
-        usage = [ln.strip() for ln in text.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}: " + (" | ".join(usage) or "cached"))
+        usage = ptxas_usage(text)
+        log(f"[build] {name}: " + (" | ".join(
+            f"{fn} {regs} registers, spill {st}/{ld} bytes"
+            for fn, regs, st, ld in usage) or "cached"))
+        spilled += [f"{name} {fn} ({st}/{ld} bytes)"
+                    for fn, _, st, ld in usage if st or ld]
+    if any(out.values()):  # a cached library prints nothing
+        log("[build] spill stores/loads: " + (", ".join(spilled) or "none"))
     log(f"[build] {len(out)} libraries in {time.perf_counter() - t0:.1f} s")
 
 
@@ -276,9 +314,43 @@ def _kernels_b2(torch, dev) -> float:
                "l2_norm", True, 0.9, None),
               ("90% masked", 1, 1 << 20, 128, 100, "cosine", False, 0.1,
                None)]
+    # the staging plan's edges: each bit-equal too
+    cases += [("D smaller than one chunk", 3, 1000, 128, 10, "cosine", True,
+               0.9, None),
+              ("Q=9, a partial group of 8", 9, 1 << 20, 128, 100, "cosine",
+               True, 0.9, None),
+              ("wide rows, 8 per stage", 8, 100_003, 1024, 100,
+               "dot_product", False, 0.9, None),
+              # rings of fewer than 32 rows: groups that share a warp
+              # wait on each other's stages (blocks walk two chunks at 768)
+              ("wide rows, 4 per stage", 1, 600_000, 768, 100, "cosine",
+               True, 0.9, None),
+              ("wide rows, 4 per stage", 1, 50_000, 1024, 10, "l2_norm",
+               True, 0.9, None),
+              ("wide rows, 2 per stage", 1, 50_000, 1536, 100, "cosine",
+               False, 0.9, None),
+              ("wide rows, 4 per stage", 8, 300_000, 2048, 100, "cosine",
+               True, 0.9, None),
+              ("wide rows, 2 per stage", 8, 40_000, 4096, 10,
+               "dot_product", True, 0.9, None),
+              ("rows too wide to stage", 2, 3000, 40_000, 10, "l2_norm",
+               True, 0.9, None),
+              ("slab one float off 16-byte alignment", 1, 1 << 20, 128, 100,
+               "cosine", True, 0.9, "offset"),
+              ("zero rows (the 1e-12 clamp)", 1, 65_536, 128, 100, "cosine",
+               True, 0.9, "zero")]
     for n, (name, Q, D, dims, k, metric, precise, live, quant) in \
             enumerate(cases):
-        q, v, mask = _b2_inputs(torch, dev, Q, D, dims, 200 + n, live, quant)
+        tweak = quant if isinstance(quant, str) else None
+        q, v, mask = _b2_inputs(torch, dev, Q, D, dims, 200 + n, live,
+                                None if tweak else quant)
+        if tweak == "offset":  # a contiguous view one float into its buffer
+            buf = torch.empty(D * dims + 1, device=dev)
+            buf[1:] = v.reshape(-1)
+            v = buf[1:].view(D, dims)
+        elif tweak == "zero":  # every score below 0.5 but the zero rows'
+            q, v = q.abs(), -v.abs()
+            v[::97] = 0.0
         kv, ki = knn_topk(q, v, mask, k=k, metric=metric, precise=precise)
         torch.cuda.synchronize()
         pv, pi = knn_topk(q, v, mask, k=k, metric=metric, precise=precise,
@@ -364,7 +436,12 @@ def _kernels_b4(torch, dev) -> float:
               True),
              (4097, 64, 256, 8, "rows of 64 codes", False, False),
              (100, 33, 64, 5, "rows of 33 codes", False, False),
-             (300, 3, 255, 7, "tables of an odd width", False, False)]
+             (300, 3, 255, 7, "tables of an odd width", False, False),
+             # the token groups' edges
+             (1, 32, 256, 32, "a single candidate", False, False),
+             (100, 32, 256, 33, "NaN in a token of a later group", True,
+              False),
+             (4097, 32, 255, 32, "K=255 with M=32", False, False)]
     for W, M, K, T, what, nan, mis in extra:
         run(n, W, M, K, T, what, nan, mis)
         n += 1

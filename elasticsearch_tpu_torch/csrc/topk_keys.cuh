@@ -32,6 +32,13 @@ constexpr int kSmallK = 32;  // warp 0 merges kWarps * kSmallK == kThreads keys
 constexpr u64 kSentinel = ~0ull;           // past the end of D: never wins
 constexpr unsigned int kNegInfBits = 0xff800000u;
 
+// Barrier of the kThreads threads that score a chunk (threads 0 ..
+// kThreads - 1): named barrier 1, so that a kernel may run a copy warp
+// beside them that never joins it (knn_topk.cu).
+__device__ __forceinline__ void chunk_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
+}
+
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -53,9 +60,12 @@ __device__ __forceinline__ float key_value(u64 key) {
 __device__ void bitonic_sort(u64* k) {
   for (int size = 2; size <= kChunk; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < kChunk / 2; i += kThreads) {
-        int lo = (i / stride) * 2 * stride + (i % stride);
-        int hi = lo + stride;
+#pragma unroll
+      for (int n = 0; n < kChunk / 2 / kThreads; ++n) {
+        const int i = threadIdx.x + n * kThreads;
+        // strides are powers of two: (i / stride) * 2 * stride + i % stride
+        const int lo = ((i & ~(stride - 1)) << 1) | (i & (stride - 1));
+        const int hi = lo + stride;
         bool up = (lo & size) == 0;
         u64 a = k[lo], b = k[hi];
         if ((a > b) == up) {
@@ -63,14 +73,15 @@ __device__ void bitonic_sort(u64* k) {
           k[hi] = a;
         }
       }
-      __syncthreads();
+      chunk_sync();
     }
   }
 }
 
 // The warp's kp smallest keys of its 32 x kItems, ascending, to out[0, kp)
 // (written by lane 0). Consumes `key`.
-__device__ void warp_select(u64 (&key)[kItems], int kp, u64* out) {
+__device__ __forceinline__ void warp_select(u64 (&key)[kItems], int kp,
+                                            u64* out) {
   for (int i = 0; i < kp; ++i) {
     u64 m = key[0];
 #pragma unroll
@@ -88,35 +99,37 @@ __device__ void warp_select(u64 (&key)[kItems], int kp, u64* out) {
 }
 
 // The block's kp <= kSmallK smallest keys, ascending, to out[0, kp).
-__device__ void block_select(u64 (&key)[kItems], int kp, u64* stage,
-                             u64* out) {
+__device__ __forceinline__ void block_select(u64 (&key)[kItems], int kp,
+                                             u64* stage, u64* out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   u64* mine = stage + warp * kSmallK;
   warp_select(key, kp, mine);
   for (int i = kp + lane; i < kSmallK; i += 32) mine[i] = kSentinel;
-  __syncthreads();
+  chunk_sync();
   if (warp == 0) {
     u64 all[kItems];
 #pragma unroll
     for (int j = 0; j < kItems; ++j) all[j] = stage[lane + j * 32];
     warp_select(all, kp, out);
   }
-  __syncthreads();  // stage is reused by the caller's next selection
+  chunk_sync();  // stage is reused by the caller's next selection
 }
 
 // Pass 1's tail: the chunk's kp smallest keys, ascending, to out[0, kp).
-// `smem` holds kChunk keys; the block is in step on entry and on exit.
-__device__ void emit_chunk(u64 (&key)[kItems], int kp, u64* smem, u64* out) {
+// `smem` holds kChunk keys; the kThreads scoring threads are in step on
+// entry and on exit.
+__device__ __forceinline__ void emit_chunk(u64 (&key)[kItems], int kp,
+                                           u64* smem, u64* out) {
   if (kp <= kSmallK) {
     block_select(key, kp, smem, out);
     return;
   }
 #pragma unroll
   for (int j = 0; j < kItems; ++j) smem[threadIdx.x + j * kThreads] = key[j];
-  __syncthreads();
+  chunk_sync();
   bitonic_sort(smem);
   for (int i = threadIdx.x; i < kp; i += kThreads) out[i] = smem[i];
-  __syncthreads();
+  chunk_sync();
 }
 
 // Small k: the kp smallest keys of each 2048-key chunk of every query's

@@ -32,6 +32,45 @@ METRICS = {"cosine": 0, "dot_product": 1, "dot": 1, "l2_norm": 2, "l2": 2}
 
 _U64_AS_I64 = torch.int64  # scratch holds 64-bit keys; only the bits matter
 
+#: the kernel's staging modes (csrc/knn_topk.cu)
+TENSOR, ASYNC4, DIRECT = 0, 1, 2
+#: shared-memory bytes of the kernel's ring of row stages. Eight queries
+#: at a time (Q >= 8): one block per SM, whose 227 KiB less the chunk's
+#: 2048 sort keys (16 KiB), eight running lists of 128 keys (8 KiB), the
+#: slots' mbarriers and counters (512 B) and the chunk's eight scores per
+#: thread (64 KiB) hold the ring. One query: two blocks per SM (each 228
+#: KiB / 2 less the 1 KiB the card reserves per block, its keys, one
+#: running list and the counters), which the card times faster at Q = 1.
+RING_BYTES = 232_448 - 16_384 - 8_192 - 512 - 65_536
+RING_BYTES_ONE = 233_472 // 2 - 1_024 - 16_384 - 1_024 - 512
+MAX_ROWS, MAX_SLOTS = 64, 16
+#: widest box row of a tensor copy, in floats
+MAX_BOX = 256
+
+
+def stage_plan(dims: int, aligned: bool, queries: int = 8):
+    """(mode, rows per stage, slots, row stride in floats) of the kernel's
+    ring for ``queries`` queries (its budget: ``RING_BYTES``, or
+    ``RING_BYTES_ONE`` below eight). Rows of a multiple of 4 floats on a 16-byte aligned slab, padded
+    to an odd count of 16-byte pieces that fits a tensor copy's box, are
+    staged by one tensor copy per stage (TENSOR); other slabs by 4-byte
+    copies (ASYNC4), padded to an odd count of floats. Odd strides keep a
+    warp's reads of its 32 rows on distinct banks. Rows per stage: the
+    largest power of two up to 64 of which four stages fit in the
+    budget (wide rows take fewer); slots: as many stages as fit, at most
+    16. Rows so wide that two stages of one row do not fit are
+    not staged (DIRECT)."""
+    ring = RING_BYTES if queries >= 8 else RING_BYTES_ONE
+    tensor = dims % 4 == 0 and aligned and ((dims // 4) | 1) * 4 <= MAX_BOX
+    stride = ((dims // 4) | 1) * 4 if tensor else dims | 1
+    rows = MAX_ROWS
+    while rows > 1 and 4 * rows * stride * 4 > ring:
+        rows //= 2
+    slots = min(MAX_SLOTS, ring // (rows * stride * 4))
+    if slots < 2:
+        return DIRECT, 0, 0, 0
+    return (TENSOR if tensor else ASYNC4), rows, slots, stride
+
 
 def _metric_code(metric: str) -> int:
     try:
@@ -108,7 +147,7 @@ def _lib():
         lib.knn_topk_scratch.argtypes = [i32, i64, i32]
         lib.knn_topk_scratch.restype = i64
         lib.knn_topk.argtypes = [vp, vp, i32, i32, vp, i64, vp, i32, i32,
-                                 i32, vp, vp, vp, vp, vp]
+                                 i32, i32, i32, i32, i32, vp, vp, vp, vp, vp]
         lib.knn_topk.restype = i32
         lib._typed = True
     return lib
@@ -148,6 +187,10 @@ def knn_topk(queries: torch.Tensor, vecs: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"kernel takes 1 <= Q <= 65535, dims >= 1 and "
                          f"D < 2^31, got Q={Q}, dims={dims}, D={D}")
     qh, q2 = prepare_queries(queries, metric, precise)
+    if qh.data_ptr() % 16:  # the kernel reads query rows as float4s
+        qh = qh.clone()
+    mode, rows, slots, stride = stage_plan(dims, vecs.data_ptr() % 16 == 0,
+                                           Q)
     lib = _lib()
     n = int(lib.knn_topk_scratch(Q, D, k))
     dev = queries.device
@@ -159,7 +202,8 @@ def knn_topk(queries: torch.Tensor, vecs: torch.Tensor, mask: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.knn_topk(qh.data_ptr(), q2.data_ptr(), Q, dims,
                            vecs.data_ptr(), D, mask.data_ptr(), code,
-                           int(bool(precise)), k, scratch_a.data_ptr(),
+                           int(bool(precise)), k, mode, rows, slots, stride,
+                           scratch_a.data_ptr(),
                            scratch_b.data_ptr(), vals.data_ptr(),
                            ids.data_ptr(), stream)
     if err != 0:

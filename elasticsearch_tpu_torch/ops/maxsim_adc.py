@@ -23,8 +23,27 @@ import ctypes
 
 import torch
 
-#: kernel launches (one per wrapper call that reaches the card)
+#: kernel launches (one per wrapper call that reaches the card; the
+#: fold of the token groups' maxima is part of that one call)
 LAUNCHES = 0
+
+#: shared-memory bytes of token tables one block of the kernel stages
+GROUP_BYTES = 32 * 1024
+#: widest code row the grouped kernel keeps in registers
+REG_CODES = 32
+
+
+def plan(W: int, M: int, K: int, T: int):
+    """(tokens per group, groups, scratch floats) of the kernel's launch:
+    as many tokens per group as fit in ``GROUP_BYTES`` of tables (at
+    least one), and an f32[groups, W] scratch for the groups' maxima
+    when there is more than one group. Rows wider than ``REG_CODES``
+    take the one-launch wide kernel: one group, no scratch."""
+    if M > REG_CODES:
+        return T, 1, 0
+    gt = max(1, min(T, GROUP_BYTES // (M * K * 4)))
+    groups = -(-T // gt)
+    return gt, groups, groups * W if groups > 1 else 0
 
 
 def maxsim_adc_plain(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
@@ -49,7 +68,8 @@ def _lib():
     lib = library("maxsim_adc")
     if not getattr(lib, "_typed", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.maxsim_adc.argtypes = [vp, i64, i32, i32, i32, vp, vp, vp]
+        lib.maxsim_adc.argtypes = [vp, i64, i32, i32, i32, vp, i32, vp, vp,
+                                   vp]
         lib.maxsim_adc.restype = i32
         lib._typed = True
     return lib
@@ -84,10 +104,13 @@ def maxsim_adc(codes: torch.Tensor, luts: torch.Tensor, *,
     out = torch.empty(W, dtype=torch.float32, device=dev)
     if W == 0:
         return out
+    gt, _groups, n_scratch = plan(W, M, K, T)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.maxsim_adc(codes.data_ptr(), W, M, K, T, luts.data_ptr(),
+                             gt, scratch.data_ptr() if n_scratch else None,
                              out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"maxsim_adc kernel launch failed: CUDA error "

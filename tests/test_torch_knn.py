@@ -219,3 +219,111 @@ def test_wrapper_rejects_bad_arguments():
         knn_topk(q, v, mask, k=3, metric="hamming")
     with pytest.raises(ValueError, match="shape mismatch"):
         knn_topk(q[:, :4], v, mask, k=3)
+
+
+@pytest.mark.parametrize("queries", [1, 8])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dims", [1, 3, 37, 100, 128, 252, 256, 1024, 4096,
+                                  20_000, 40_000])
+def test_stage_plan(dims, aligned, queries):
+    """The kernel's ring: whole-stage tensor copies only for rows of a
+    multiple of 4 floats on an aligned slab that fit a copy's box once
+    padded; strides of an odd count of 16-byte pieces (or floats), so a
+    warp's reads of 32 rows miss no bank; rows per stage dividing the
+    256 scorers, as many as four stages allow; 2-16 slots inside the
+    ring (the smaller one-query ring leaves room for two blocks per SM);
+    no staging only where two stages of one row do not fit."""
+    ring = b2.RING_BYTES if queries >= 8 else b2.RING_BYTES_ONE
+    mode, rows, slots, stride = b2.stage_plan(dims, aligned, queries)
+    if mode == b2.DIRECT:
+        assert 8 * (dims + 1) > ring
+        return
+    assert dims <= stride < dims + 8
+    if aligned and dims % 4 == 0 and dims <= 252:
+        assert mode == b2.TENSOR
+        assert stride % 4 == 0 and (stride // 4) % 2 == 1
+        assert stride <= b2.MAX_BOX
+    else:
+        assert mode == b2.ASYNC4 and stride % 2 == 1
+    assert 256 % rows == 0 and 1 <= rows <= b2.MAX_ROWS
+    assert 2 <= slots <= b2.MAX_SLOTS
+    assert slots * rows * stride * 4 <= ring
+    if rows < b2.MAX_ROWS:
+        assert 4 * 2 * rows * stride * 4 > ring
+    if dims == 128 and aligned:  # the slice's shape
+        assert (mode, rows, slots, stride) == (
+            (b2.TENSOR, 64, 4, 132) if queries >= 8 else (b2.TENSOR, 32, 5, 132))
+    # the block's shared memory: keys, running lists, counters, eight
+    # queries' scores and the ring
+    best = (8 if queries >= 8 else 1) * 128 * 8
+    scores = 65_536 if queries >= 8 else 0
+    smem = 16_384 + best + 512 + scores + slots * rows * stride * 4
+    assert smem <= 232_448 and (queries >= 8 or 2 * (smem + 1024) <= 233_472)
+
+
+def _ring_completes(rows, slots, warp_wide, items=16):
+    """A model of one block of the kernel's ring (csrc/knn_topk.cu),
+    over two chunks (16 items per scorer): group g (rows threads) scores
+    stages j * groups + g in increasing j, each once the copy warp (which
+    fills stages in order, a slot once its previous stage is scored) has
+    filled it and the slot's previous stage is scored; a stage counts as
+    scored once its group has left the warp sync that follows. With
+    ``warp_wide`` that sync waits for every lane of the warp (at any
+    stage), else for the group's own lanes. True when every stage gets
+    scored, False on a deadlock."""
+    groups = 256 // rows
+    mates = max(1, 32 // rows)  # groups sharing a warp
+    nxt = [0] * groups          # next item of each group
+    in_sync = [False] * groups  # scored its stage, not yet out of the sync
+    scored = set()
+    filled = -1
+    total = items * groups
+
+    def ready(n):
+        return n < 0 or n in scored
+
+    progress = True
+    while progress:
+        progress = False
+        while filled + 1 < total and ready(filled + 1 - slots):
+            filled += 1
+            progress = True
+        for g in range(groups):
+            n = nxt[g] * groups + g
+            if nxt[g] < items and not in_sync[g] and n <= filled \
+                    and ready(n - slots):
+                in_sync[g] = True
+                progress = True
+        for w in range(0, groups, mates):
+            warp = range(w, w + mates)
+            leave = [g for g in warp if in_sync[g]]
+            if warp_wide and len(leave) < mates:
+                continue
+            for g in leave:
+                scored.add(nxt[g] * groups + g)
+                nxt[g] += 1
+                in_sync[g] = False
+                progress = True
+    return len(scored) == total
+
+
+@pytest.mark.parametrize("queries", [1, 8])
+@pytest.mark.parametrize("dims", [37, 128, 768, 1024, 1536, 2048, 3072, 4096])
+def test_ring_groups_progress(dims, queries):
+    """Every ring the stage plan makes scores all its stages when a group
+    syncs only its own lanes, rings of fewer than 32 rows included (where
+    groups share a warp and wait on each other's stages)."""
+    mode, rows, slots, _ = b2.stage_plan(dims, True, queries)
+    assert mode != b2.DIRECT
+    assert _ring_completes(rows, slots, warp_wide=False)
+
+
+def test_ring_warp_wide_sync_deadlocks():
+    """Why the kernel's sync names the group's lanes: with a warp-wide
+    sync, a 768-dim ring for one query (4 rows, 7 slots) deadlocks, as
+    group 7 waits on group 0's stage while group 0 waits in the sync for
+    group 7's lanes; wide enough rings do not."""
+    assert b2.stage_plan(768, True, 1)[1:3] == (4, 7)
+    assert not _ring_completes(4, 7, warp_wide=True)
+    assert _ring_completes(32, 5, warp_wide=True)
+    assert _ring_completes(64, 4, warp_wide=True)

@@ -15,7 +15,7 @@ from elasticsearch_tpu.ops import pq as ref_pq
 from elasticsearch_tpu.ops.pallas_kernels import (_maxsim_adc_xla,
                                                   maxsim_adc_pallas)
 from elasticsearch_tpu_torch.ops.maxsim_adc import (maxsim_adc,
-                                                    maxsim_adc_plain)
+                                                    maxsim_adc_plain, plan)
 from elasticsearch_tpu_torch.ops.pq import adc_lut, adc_luts
 
 
@@ -88,6 +88,48 @@ def test_plain_is_a_per_token_sum_then_max():
     ok = ~np.isnan(per).any(axis=0)
     np.testing.assert_array_equal(got[ok], per.max(axis=0)[ok])
     assert np.isnan(got).sum() == (~ok).sum()
+
+
+@pytest.mark.parametrize("group", [1, 2, 5])
+def test_group_maxima_fold_to_the_full_max(group):
+    """The kernel's split of the token axis: the twin over each group of
+    tokens, the groups' maxima folded with torch.maximum in forward and
+    in reverse group order, equals the twin over all tokens bit for bit,
+    with a NaN in a token past the first group."""
+    W, M, K, T = 200, 8, 64, 13
+    codes, luts = _case(41 + group, W, M, K, T)
+    luts[T - 2, 3, codes[5, 3]] = np.nan
+    c, lt = torch.from_numpy(codes), torch.from_numpy(luts)
+    full = maxsim_adc_plain(c, lt)
+    parts = [maxsim_adc_plain(c, lt[t:t + group]) for t in range(0, T, group)]
+    assert len(parts) == -(-T // group)
+    nan = torch.isnan(full)
+    assert nan[5]
+    for order in (parts, parts[::-1]):
+        got = order[0]
+        for p in order[1:]:
+            got = torch.maximum(got, p)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan].view(torch.int32),
+                           full[~nan].view(torch.int32))
+
+
+def test_plan_groups_tokens_by_table_bytes():
+    """Tokens per group: as many as fit in 32 KiB of tables, at least
+    one; the scratch holds one row of W maxima per group, and none for
+    a single group or rows of more than 32 codes (one launch)."""
+    assert plan(100, 32, 256, 32) == (1, 32, 3200)
+    assert plan(100, 32, 256, 33) == (1, 33, 3300)
+    assert plan(100, 16, 256, 32) == (2, 16, 1600)
+    assert plan(300, 3, 255, 7) == (7, 1, 0)
+    assert plan(1, 1, 64, 100) == (100, 1, 0)
+    assert plan(4097, 64, 256, 8) == (8, 1, 0)
+    for W, M, K, T in [(100, 32, 256, 32), (7, 5, 200, 40), (10, 32, 255, 3),
+                       (1, 1, 1, 1)]:
+        gt, groups, n = plan(W, M, K, T)
+        assert gt == 1 or gt * M * K * 4 <= 32 * 1024
+        assert (groups - 1) * gt < T <= groups * gt
+        assert n == (groups * W if groups > 1 else 0)
 
 
 @pytest.mark.parametrize("metric", ["cosine", "dot_product", "l2_norm"])
