@@ -10,21 +10,27 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build    every CUDA kernel, from the sources in the checkout (nvcc,
             sm_90a, one process per source, all started together), with
             each kernel's registers and spill bytes;
-3. kernels  each kernel against its plain PyTorch twin on the card:
-            B1 bm25_dense_topk, B2 knn_topk (three metrics, both
-            precisions, k up to 1000, ragged D, ties, a 90% mask, D under
-            one chunk, Q=9, 768 to 40,000 dims (narrow ring stages,
-            no staging), an unaligned slab, zero rows), B3
-            adc_scores and B4 maxsim_adc (W 1 to 81,920, M 1-64, K 64-256,
-            T 1-100, negative tables, a NaN in a later token group,
-            unaligned codes), B2-B4 bit for bit;
+3. kernels  each kernel against its plain PyTorch twin on the card, bit
+            for bit: B1 bm25_dense_topk (all-rows and rows forms: rows of
+            a whole 256-row block with pads and repeats, R 1 to 256, the
+            hit count exact, f32 subnormals that round to bf16 zero, k up
+            to 1000, ragged D, ties, Q=9, the batched form), B2 knn_topk
+            (three metrics, both precisions, k up to 1000, ragged D, ties,
+            a 90% mask, D under one chunk, Q=9, 768 to 40,000 dims
+            (narrow ring stages, no staging), an unaligned slab, zero
+            rows), B3 adc_scores (the table-sum, and the fused form over a
+            whole code table: IVF-shaped slots with pads, filters at 10%
+            and 0%, all padded, W=1, unaligned codes, M 8 to 64) and B4
+            maxsim_adc (W 1 to 81,920, M 1-64, K 64-256, T 1-100, negative
+            tables, a NaN in a later token group, unaligned codes);
 4. write    the write path through ``Node``: index, refresh, search,
             delete, checked against the same Node on the CPU;
 5. read     the BM25 read path: a 2^20-doc MS-MARCO-shaped corpus loaded
             with ``segment_from_arrays``, 32 Zipfian ``match`` queries
             through ``Node.search`` (B1's launch counts are taken over
             exactly this run), hits held against the plain twin and an
-            exact numpy scorer;
+            exact numpy scorer; one fused query must run B1's two
+            kernels and one copy each way, nothing else;
 5b. vectors the kNN read path: 1,000,000 SIFT-shaped 128-d vectors
             (``bench.py::make_sift_node``'s recipe) padded to 2^20, IVF
             (C = 4000) and PQ (M = 32, K = 256) built twice on the card
@@ -32,7 +38,7 @@ Phases, in order; any failure exits non-zero before the result line:
             IVF-PQ and filtered IVF-PQ ``knn`` queries through
             ``Node.search`` (B2's and B3's launch counts are taken over
             exactly this run), hits held against the plain twins and an
-            exact f64 numpy oracle;
+            exact f64 numpy oracle; one IVF-PQ query must launch B3 once;
 5c. hybrid  the hybrid read path: one 2^20-doc segment holding phase 5's
             text field and phase 5b's slab (its IVF and PQ carried
             across), 56 ``hybrid`` queries through ``Node.search`` (RRF,
@@ -41,8 +47,10 @@ Phases, in order; any failure exits non-zero before the result line:
             codes; the launches of B2, B3 and B4 are taken over exactly
             this run, per query), hits held against the plain twins, a
             numpy fusion of the engines' own rows and f64 MaxSim;
-6. timing   each kernel, its plain twin, a one-call library yardstick and
-            the card's bound at the main path's shape.
+6. timing   each kernel, its plain twin, a library yardstick and the
+            card's bound at the main path's shape (B1 and B3 also at
+            their earlier shapes), by CUDA events and by the profiler's
+            device time ("not measured" where it records none twice).
 
 Each corpus is generated once and shared by the phases that read it.
 
@@ -231,33 +239,93 @@ def phase_kernels(torch, dev) -> dict:
 
 
 def _kernels_b1(torch, dev) -> float:
+    """B1 against its twin, bit for bit with exact counts (the bf16
+    products are exact in f32 and both sides add them in increasing row
+    order; ties go to the lower doc id on both sides): the all-rows form
+    and the rows form (rows of a whole 256-row block, pads at -1,
+    repeated rows) with the hit count."""
     from elasticsearch_tpu_torch.ops.bm25_topk import bm25_dense_topk
+
+    def check(name, qw, impact, mask, k, rows=None):
+        count = rows is not None
+        got = bm25_dense_topk(qw, impact, mask, k=k, rows=rows, count=count)
+        torch.cuda.synchronize()
+        want = bm25_dense_topk(qw, impact, mask, k=k, rows=rows,
+                               count=count, plain=True)
+        what = (f"bm25_dense_topk {name} Q={qw.shape[0]} R={qw.shape[1]} "
+                f"D={impact.shape[1]} k={k}")
+        check_exact(got[0].cpu().numpy(), got[1].cpu().numpy(),
+                    want[0].cpu().numpy(), want[1].cpu().numpy(), what)
+        if count and not torch.equal(got[2], want[2]):
+            raise AssertionError(f"{what}: hit counts {got[2].tolist()} vs "
+                                 f"the twin's {want[2].tolist()}")
+        log(f"[kernels] {what}: bit-equal to the plain twin"
+            + (f", counts equal ({got[2].tolist()[:3]})" if count else ""))
+        return got
 
     cases = [  # (name, Q, F, D, k, quant, masked prefix)
         ("single query", 1, 8, 1 << 20, 10, None, 0),
         ("k=1000", 1, 8, 1 << 20, 1000, None, 0),
         ("quantized ties, masked prefix", 16, 16, 4096, 10, 1.0, 600),
         ("batched", 256, 256, 1 << 20, 10, None, 0),
-        # both sides of the kernel's k <= 32 selection path, ragged D
+        # both sides of the running list (k <= 128), ragged D
         ("k=1", 1, 8, 70_001, 1, None, 0),
         ("k=32", 3, 8, 1_000_003, 32, None, 0),
         ("k=33", 1, 16, 1 << 20, 33, 0.5, 0),
+        ("k=129", 2, 8, 300_000, 129, None, 0),
     ]
-    worst = 0.0
     for n, (name, Q, F, D, k, quant, prefix) in enumerate(cases):
         qw, impact, mask = _b1_inputs(torch, dev, Q, F, D, 100 + n, quant,
                                       prefix)
-        v, i = bm25_dense_topk(qw, impact, mask, k=k)
-        torch.cuda.synchronize()
-        pv, pi = bm25_dense_topk(qw, impact, mask, k=min(k + 1, D),
-                                 plain=True)
-        err = check_topk(v.cpu().numpy(), i.cpu().numpy(), pv.cpu().numpy(),
-                         pi.cpu().numpy(), f"bm25_dense_topk {name}")
-        worst = max(worst, err)
-        log(f"[kernels] bm25_dense_topk {name} Q={Q} F={F} D={D} k={k}: "
-            f"agrees with the plain twin, max abs err {err:g}")
-        del qw, impact, mask, v, i, pv, pi
-    return worst
+        check(name, qw, impact, mask, k)
+        del qw, impact, mask
+
+    # the rows form over one whole block of 256 rows, as a segment holds
+    _, block, mask = _b1_inputs(torch, dev, 1, 256, 1 << 20, 121)
+
+    def pick(R, Q=1, pads=0, repeat=False, seed=0):
+        gg = torch.Generator(device=dev).manual_seed(130 + seed)
+        rows = torch.randperm(256, generator=gg, device=dev)[:R]
+        if repeat:
+            rows[R // 2:] = rows[:R - R // 2]
+        rows = rows.to(torch.int32)
+        if pads:  # pads at -1 and outside the block, anywhere in the list
+            at = torch.randperm(R, generator=gg, device=dev)[:pads]
+            rows[at] = torch.tensor([(-1, 256, -7, 1000)[i % 4]
+                                     for i in range(pads)],
+                                    dtype=torch.int32, device=dev)
+        qw = torch.rand(Q, R, generator=gg, device=dev) * 3
+        return qw.contiguous(), rows.contiguous()
+
+    for n, (R, Q, pads, repeat, k) in enumerate((
+            (1, 1, 0, False, 10), (3, 1, 1, False, 10), (8, 1, 0, False, 10),
+            (8, 1, 3, False, 10), (16, 1, 4, True, 10), (16, 1, 0, False, 100),
+            (5, 1, 2, False, 1000), (16, 9, 3, False, 10),
+            (256, 1, 0, False, 10))):
+        qw, rows = pick(R, Q, pads, repeat, n)
+        check(f"rows form ({pads} pads{', repeated rows' if repeat else ''})",
+              qw, block, mask, k, rows)
+    del block
+    # ragged D (the scalar loads) and quantized ties, in the rows form
+    qw, impact, mask = _b1_inputs(torch, dev, 2, 12, 1_000_003, 140, 0.5, 77)
+    rows = torch.tensor([3, -1, 0, 11, 5, 5], dtype=torch.int32, device=dev)
+    check("rows form, ragged D, quantized ties", qw[:, :6].contiguous(),
+          impact, mask, 10, rows)
+    # f32 subnormals: their bf16 rounding is 0, their hits still count
+    impact = torch.zeros(4, 1 << 16, device=dev)
+    impact[1, ::7] = 2.0 ** -140
+    impact[2, ::5] = 1.5
+    mask = torch.ones(1 << 16, dtype=torch.bool, device=dev)
+    qw = torch.ones(1, 3, device=dev)
+    rows = torch.tensor([1, -1, 2], dtype=torch.int32, device=dev)
+    got = check("subnormal impacts", qw, impact, mask, 10, rows)
+    want = len(set(range(0, 1 << 16, 7)) | set(range(0, 1 << 16, 5)))
+    if int(got[2][0]) != want:
+        raise AssertionError(f"bm25_dense_topk subnormal hits: "
+                             f"{int(got[2][0])} counted, {want} expected")
+    del qw, impact, mask
+    torch.cuda.empty_cache()
+    return 0.0
 
 
 def check_exact(v, i, pv, pi, what: str) -> float:
@@ -366,22 +434,79 @@ def _kernels_b2(torch, dev) -> float:
 
 
 def _kernels_b3(torch, dev) -> float:
-    """B3 against its twin, bit for bit (one f32 add per m, in order)."""
+    """B3 against its twin, bit for bit (one f32 add per m, in order): the
+    table-sum form, and the fused form over a whole code table with
+    probed candidates (pads, filters, tables off 16-byte alignment,
+    byte-path widths)."""
     from elasticsearch_tpu_torch.ops.adc import adc_scores
+    from elasticsearch_tpu_torch.ops.bitvec import pack_mask
 
-    for n, (W, M, K) in enumerate((W, M, K) for W in (1000, 65_536, 1 << 20)
-                                  for M in (8, 32) for K in (16, 256)):
-        g = torch.Generator(device=dev).manual_seed(300 + n)
-        codes = torch.randint(0, K, (W, M), generator=g, device=dev,
-                              dtype=torch.int64).to(torch.uint8)
-        lut = torch.randn(M, K, generator=g, device=dev)
-        out = adc_scores(codes, lut)
+    def check(what, codes, lut, cand=None, words=None):
+        out = adc_scores(codes, lut, cand=cand, filter_words=words)
         torch.cuda.synchronize()
-        want = adc_scores(codes, lut, plain=True)
+        want = adc_scores(codes, lut, cand=cand, filter_words=words,
+                          plain=True)
         check_exact(out.cpu().numpy(), None, want.cpu().numpy(), None,
-                    f"adc_scores W={W} M={M} K={K}")
-        log(f"[kernels] adc_scores W={W} M={M} K={K}: bit-equal to the "
-            f"plain twin")
+                    f"adc_scores {what}")
+        log(f"[kernels] adc_scores {what}: bit-equal to the plain twin"
+            + ("" if cand is None else
+               f" ({int(torch.isfinite(out).sum())} of {out.numel()} "
+               f"slots live)"))
+
+    def table(n, N, M, K, misalign=False):
+        g = torch.Generator(device=dev).manual_seed(300 + n)
+        codes = torch.randint(0, K, (N, M), generator=g, device=dev,
+                              dtype=torch.int64).to(torch.uint8)
+        if misalign:  # a contiguous view one byte into its buffer
+            buf = torch.empty(N * M + 1, dtype=torch.uint8, device=dev)
+            buf[1:] = codes.reshape(-1)
+            codes = buf[1:].view(N, M)
+        return codes, torch.randn(M, K, generator=g, device=dev), g
+
+    n = 0
+    for W in (1000, 65_536, 1 << 20):
+        for M in (8, 32):
+            for K in (16, 256):
+                codes, lut, _ = table(n, W, M, K)
+                check(f"W={W} M={M} K={K}", codes, lut)
+                n += 1
+
+    def probed(g, N, W, live):
+        """W slots of IVF-shaped lists: runs of ids, the rest pads."""
+        cand = torch.full((W,), N, dtype=torch.int32, device=dev)
+        real = torch.rand(W, generator=g, device=dev) < live
+        cand[real] = torch.randint(0, N, (int(real.sum()),), generator=g,
+                                   device=dev, dtype=torch.int32)
+        return cand
+
+    N = 1 << 20
+    for what, M, K, W, live, filt, mis in (
+            ("IVF-PQ slots, 12% live", 32, 256, 81_920, 0.12, None, False),
+            ("filter at 10%", 32, 256, 81_920, 0.12, 0.1, False),
+            ("filter at 0%", 32, 256, 81_920, 0.12, 0.0, False),
+            ("every slot padded", 32, 256, 81_920, 0.0, None, False),
+            ("W=1", 32, 256, 1, 1.0, None, False),
+            ("codes off 16-byte alignment", 32, 256, 81_920, 0.12, 0.5, True),
+            ("M=20 (byte path)", 20, 256, 40_000, 0.5, 0.5, False),
+            ("M=64", 64, 256, 40_000, 0.5, None, False),
+            ("M=8 K=16", 8, 16, 40_000, 0.5, 0.3, False)):
+        codes, lut, g = table(n, N, M, K, mis)
+        cand = probed(g, N, W, live)
+        words = None
+        if filt is not None:
+            words = pack_mask(torch.rand(N, generator=g, device=dev) < filt)
+        check(f"fused, {what} N={N} W={W} M={M} K={K}", codes, lut, cand,
+              words)
+        n += 1
+    # ids below 0 are pads too; a filter without candidates
+    codes, lut, g = table(n, 4096, 32, 256)
+    cand = torch.randint(-50, 4200, (3000,), generator=g, device=dev,
+                         dtype=torch.int32)
+    check("fused, ids outside [0, N)", codes, lut, cand)
+    check("filter without candidates", codes, lut, None,
+          pack_mask(torch.rand(4096, generator=g, device=dev) < 0.5))
+    del codes, lut, cand
+    torch.cuda.empty_cache()
     return 0.0
 
 
@@ -583,6 +708,7 @@ def phase_read(torch, np, dev, card, corpus):
     from elasticsearch_tpu_torch.index.convert import segment_from_arrays
     from elasticsearch_tpu_torch.ops import bm25_topk
     from elasticsearch_tpu_torch.search import queries
+    from elasticsearch_tpu_torch.search.context import SegmentContext
 
     t0 = time.perf_counter()
     u_doc, tf, tfn, offsets, df, cf, doc_len = corpus
@@ -663,6 +789,24 @@ def phase_read(torch, np, dev, card, corpus):
         f"launches {launches}; hits equal the plain twin's; recall@10 vs "
         f"exact f64: mean {np.mean(recalls)}, min {min(recalls)}")
     profile_read(torch, node, "msmarco", bodies, float(ms.sum()), "read")
+    # one fused query's device work: B1's two launches, one copy each way
+    svc = node.get_index("msmarco")
+    q = queries.parse_query(bodies[took_fused.index(True)]["query"])
+    ctx = SegmentContext(seg, svc.mappings, svc.analysis)
+    ops = device_ops(torch, lambda: queries.fused_bm25_topk(ctx, q, 10))
+    if ops is None:
+        log("[read] a fused query's device ops: not measured (the profiler "
+            "recorded none)")
+    else:
+        kernels = {k: c for k, c in ops.items()
+                   if not k.startswith(("Memcpy", "Memset"))}
+        if sorted(c for k, c in kernels.items() if "bm25_" in k) != [1, 1] \
+                or len(kernels) != 2 \
+                or sum(c for k, c in ops.items() if "DtoH" in k) != 1:
+            raise AssertionError(f"a fused query ran {ops}, where B1's two "
+                                 f"launches and one copy back were expected")
+        log(f"[read] one fused query's device ops: " + "; ".join(
+            f"{k[:48]} x{c}" for k, c in ops.items()))
     node.close()
     return launches
 
@@ -744,8 +888,8 @@ VEC_MAPPING = {"properties": {
 
 
 def phase_vectors(torch, np, dev, card, sift):
-    """The kNN read path; returns (B2 launches, B3 launches, B3's W, the
-    built IVF index and PQ parts)."""
+    """The kNN read path; returns (B2 launches, B3 launches, B3's inputs
+    in one IVF-PQ query, the built IVF index and PQ parts)."""
     from elasticsearch_tpu_torch import Node
     from elasticsearch_tpu_torch.index.convert import segment_from_arrays
     from elasticsearch_tpu_torch.ops import adc, ivf, knn_topk
@@ -899,8 +1043,39 @@ def phase_vectors(torch, np, dev, card, sift):
         f"match the exact f64 oracle; IVF-PQ recall@10 vs exact: "
         f"{recalls['ivf_pq']} (filtered {recalls['ivf_pq_filter']})")
     profile_read(torch, node, "sift", bodies, float(ms.sum()), "vectors")
+    body = next(b for m, b in zip(mix, bodies) if m[0] == "ivf_pq")
+    ops = device_ops(torch, lambda: node.search("sift", copy.deepcopy(body)))
+    if ops is None:
+        log("[vectors] an IVF-PQ query's device ops: not measured (the "
+            "profiler recorded none)")
+    else:
+        b3 = sum(c for k, c in ops.items() if "adc_table_sum" in k)
+        if b3 != 1:
+            raise AssertionError(f"an IVF-PQ query launched adc_scores {b3} "
+                                 f"times: {ops}")
+        kernels = sum(c for k, c in ops.items()
+                      if not k.startswith(("Memcpy", "Memset")))
+        log(f"[vectors] one IVF-PQ query's device ops: {kernels} kernels, "
+            f"adc_scores once; " + "; ".join(f"{k[:40]} x{c}"
+                                            for k, c in ops.items()))
+    b3_case = b3_query_case(torch, np, seg, vc, i1, nprobe, next(
+        body for m, body in mix if m == "ivf_pq")["knn"]["query_vector"])
     node.close()
-    return b2_launches, b3_launches, W, i1, p1
+    return b2_launches, b3_launches, b3_case, i1, p1
+
+
+def b3_query_case(torch, np, seg, vc, index, nprobe, query):
+    """B3's inputs in one unfiltered IVF-PQ query of the segment, as
+    ``ivf_pq_search`` gives them to it: the whole code table, the probed
+    slots, the LUT and the packed liveness words."""
+    from elasticsearch_tpu_torch.ops import ivf
+    from elasticsearch_tpu_torch.ops.bitvec import pack_mask
+    from elasticsearch_tpu_torch.ops.pq import adc_lut
+
+    q = torch.as_tensor(np.asarray(query, np.float32), device=vc.vecs.device)
+    return {"codes": vc._pq.codes, "cand": ivf._probe(index, q, nprobe),
+            "words": pack_mask(vc.exists & seg.live),
+            "lut": adc_lut(q, vc._pq.codebooks, vc._pq.metric)}
 
 
 # ---------------------------------------------------------------------------
@@ -1153,23 +1328,45 @@ def profile_read(torch, node, index, bodies, wall_ms, tag):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for body in bodies:
-            node.search(index, copy.deepcopy(body))
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    if busy_ms == 0:
+    for _ in range(2):  # a session that records nothing is tried again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for body in bodies:
+                node.search(index, copy.deepcopy(body))
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+        if busy_ms > 0:
+            break
+    else:
         log(f"[{tag}] device busy share: not measured (the profiler "
-            "recorded no device time)")
+            "recorded no device time twice)")
         return
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     log(f"[{tag}] device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms host "
         f"time ({100 * busy_ms / wall_ms:.1f}% busy); top device time: "
         + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
                     f" x{e.count}" for e in top))
+
+
+def device_ops(torch, fn):
+    """{name: count} of the device kernels and copies one call of ``fn``
+    runs, from torch.profiler (a session that records none is tried once
+    more); None when none is recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+        if ops:
+            return ops
+    return None
 
 
 def _time_ms(torch, fn, iters):
@@ -1189,29 +1386,93 @@ def _time_ms(torch, fn, iters):
 
 def _device_ms(torch, fn, iters):
     """Mean device time per call of the kernels ``fn`` launches, from
-    torch.profiler: the call time without the host's share."""
+    torch.profiler: the call time without the host's share. A session
+    that records no device time is tried once more in a fresh one; if
+    that reads 0 too, None (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3 / iters
+        if ms > 0:
+            return ms
+    log("[timing] the profiler recorded no device time twice: not measured")
+    return None
+
+
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def phase_timing(torch, dev, card):
+    """B1 at the main path's shape, the rows form with the count: one
+    query, R = 8 rows of a whole 256-row block (1 GiB), D = 2^20, k = 10;
+    each call takes the next 8 rows, so its rows come from device memory
+    (32 sets of 32 MiB pass the 50 MB L2). Also the all-rows form at its
+    PR 4 shape (8 gathered rows, rotated past the L2 likewise) and the
+    batched form (Q = 256, all rows). Returns the rows form's row."""
     from elasticsearch_tpu_torch.ops.bm25_topk import bm25_dense_topk
 
     out = {}
-    for label, (Q, F, D, k) in (("single", (1, 8, 1 << 20, 10)),
-                                ("batched", (256, 256, 1 << 20, 10))):
+    D, k = 1 << 20, 10
+    # the rows form: one block, the rows rotate
+    qw, block, mask = _b1_inputs(torch, dev, 1, 256, D, 7)
+    R = 8
+    sets = [(qw[:, :R].contiguous(),
+             torch.arange(R * j, R * j + R, dtype=torch.int32, device=dev))
+            for j in range(256 // R)]
+    it = [0]
+
+    def nxt():
+        it[0] = (it[0] + 1) % len(sets)
+        return sets[it[0]]
+
+    def kernel():
+        w, rows = nxt()
+        return bm25_dense_topk(w, block, mask, k=k, rows=rows, count=True,
+                               packed=True)
+
+    def lib():  # the same function in PyTorch calls
+        w, rows = nxt()
+        sub = block.index_select(0, rows.long())
+        s = w.to(torch.bfloat16) @ sub.to(torch.bfloat16)
+        top = torch.topk(torch.where(mask, s.float(), -torch.inf), k)
+        return top, ((sub != 0).any(0) & mask).sum()
+
+    def twin():
+        w, rows = nxt()
+        return bm25_dense_topk(w, block, mask, k=k, rows=rows, count=True,
+                               plain=True)
+
+    kern = _time_ms(torch, kernel, 50)
+    plain = _time_ms(torch, twin, 5)
+    library = _time_ms(torch, lib, 50)
+    kern_dev = _device_ms(torch, kernel, 50)
+    lib_dev = _device_ms(torch, lib, 50)
+    b = _bound(R * D * 4 + D + R * 8, 2 * k * 4 + 8, 2 * R * D,
+               BF16_FLOP_PER_S)
+    out["rows"] = {"ms": kern, "device_ms": kern_dev, "plain_ms": plain,
+                   "library_ms": library, **b}
+    log(f"[timing] bm25_dense_topk rows form + count Q=1 R={R} of 256 rows "
+        f"D={D} k={k} on {card}: kernel {kern:.4f} ms, plain {plain:.4f} "
+        f"ms, library (index_select + bf16 matmul + topk + count) "
+        f"{library:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+        f"device time per call: kernel {_fmt(kern_dev)}, library "
+        f"{_fmt(lib_dev)}")
+    del qw, block, mask, sets
+    torch.cuda.empty_cache()
+
+    for label, (Q, F) in (("all rows", (1, 8)), ("batched", (256, 256))):
         in_bytes = Q * F * 4 + F * D * 4 + D
         # rotate input copies past the 50 MB L2, so each launch reads
-        # its impact rows from device memory, as a query's fresh gather
+        # its impact rows from device memory
         n_buf = max(1, -(-200_000_000 // (F * D * 4)))
         bufs = [_b1_inputs(torch, dev, Q, F, D, 7 + j) for j in range(n_buf)]
         it = [0]
@@ -1234,22 +1495,17 @@ def phase_timing(torch, dev, card):
         kern_dev = _device_ms(torch, lambda: bm25_dense_topk(*nxt(), k=k),
                               iters)
         lib_dev = _device_ms(torch, lib, iters)
-        out_bytes = Q * k * 8
-        t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * Q * F * D / BF16_FLOP_PER_S * 1e3
-        out[label] = {"ms": kern, "plain_ms": plain, "library_ms": library,
-                      "bound_ms": max(t_bytes, t_ops),
-                      "bound_by": "bytes" if t_bytes >= t_ops
-                      else "operations"}
+        b = _bound(in_bytes, Q * k * 8, 2 * Q * F * D, BF16_FLOP_PER_S)
+        out[label] = {"ms": kern, "device_ms": kern_dev, "plain_ms": plain,
+                      "library_ms": library, **b}
         log(f"[timing] bm25_dense_topk {label} Q={Q} F={F} D={D} k={k} on "
             f"{card}: kernel {kern:.4f} ms, plain {plain:.4f} ms, library "
             f"(bf16 matmul + topk) {library:.4f} ms, bound "
-            f"{out[label]['bound_ms']:.4f} ms ({out[label]['bound_by']}); "
-            f"device time per call: kernel {kern_dev:.4f} ms, library "
-            f"{lib_dev:.4f} ms")
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}); device time per "
+            f"call: kernel {_fmt(kern_dev)}, library {_fmt(lib_dev)}")
         del bufs
         torch.cuda.empty_cache()
-    return out
+    return out["rows"]
 
 
 def _bound(in_bytes, out_bytes, ops, peak):
@@ -1292,45 +1548,94 @@ def timing_knn(torch, dev, card):
         # dot (2 per element and query)
         b = _bound(D * dims * 4 + D + Q * dims * 4, Q * k * 8,
                    D * dims * (3 + 2 * Q), F32_FLOP_PER_S)
-        out[Q] = {"ms": kern, "plain_ms": plain, "library_ms": library, **b}
+        out[Q] = {"ms": kern, "device_ms": kern_dev, "plain_ms": plain,
+                  "library_ms": library, **b}
         log(f"[timing] knn_topk Q={Q} D={D} dims={dims} k={k} cosine f32 on "
             f"{card}: kernel {kern:.4f} ms, plain {plain:.4f} ms, library "
             f"(normalize + f32 matmul + topk) {library:.4f} ms, bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']}); device time per "
-            f"call: kernel {kern_dev:.4f} ms, library {lib_dev:.4f} ms")
+            f"call: kernel {_fmt(kern_dev)}, library {_fmt(lib_dev)}")
         del q, v, mask
         torch.cuda.empty_cache()
     return out[1]
 
 
-def timing_adc(torch, dev, card, W):
-    """B3 at the IVF-PQ shape of the slice: W = nprobe * Lmax codes of
-    M = 32 bytes, K = 256. The codes are gathered fresh by each query,
-    so they are timed as they come (no L2 rotation)."""
+def timing_adc(torch, dev, card, case):
+    """B3 at its PR 4 shape, the table-sum over W = 81,920 gathered rows
+    of M = 32 codes (K = 256), and at the IVF-PQ query's shape, the fused
+    form: one query's probed slots ``case["cand"]`` (W = nprobe * Lmax,
+    pads at D) over the whole code table ``case["codes"]`` with its LUT
+    and pre-filter words, as phase 5b runs it. The fused form is also
+    timed against what the caller ran before it: the code gather, the
+    table-sum and the mask. Returns the fused form's row."""
     from elasticsearch_tpu_torch.ops.adc import adc_scores
+    from elasticsearch_tpu_torch.ops.bitvec import test_bits
 
-    M, K = 32, 256
-    g = torch.Generator(device=dev).manual_seed(23)
-    codes = torch.randint(0, K, (W, M), generator=g, device=dev,
-                          dtype=torch.int64).to(torch.uint8)
-    lut = torch.randn(M, K, generator=g, device=dev)
+    codes, cand, words, lut = (case[n] for n in ("codes", "cand", "words",
+                                                 "lut"))
+    N, M = codes.shape
+    K = lut.shape[1]
+    W = cand.shape[0]
     rows = torch.arange(M, device=dev)
+    out = {}
 
-    def lib():
-        return lut[rows, codes.long()].sum(1)
-
-    kern = _time_ms(torch, lambda: adc_scores(codes, lut), 200)
-    plain = _time_ms(torch, lambda: adc_scores(codes, lut, plain=True), 20)
-    library = _time_ms(torch, lib, 200)
-    kern_dev = _device_ms(torch, lambda: adc_scores(codes, lut), 200)
-    lib_dev = _device_ms(torch, lib, 200)
+    g = torch.Generator(device=dev).manual_seed(23)
+    gathered = torch.randint(0, K, (W, M), generator=g, device=dev,
+                             dtype=torch.int64).to(torch.uint8)
+    kern = _time_ms(torch, lambda: adc_scores(gathered, lut), 200)
+    plain = _time_ms(torch, lambda: adc_scores(gathered, lut, plain=True), 20)
+    library = _time_ms(torch, lambda: lut[rows, gathered.long()].sum(1), 200)
+    kern_dev = _device_ms(torch, lambda: adc_scores(gathered, lut), 200)
+    lib_dev = _device_ms(torch, lambda: lut[rows, gathered.long()].sum(1),
+                         200)
     b = _bound(W * M + M * K * 4, W * 4, W * M, F32_FLOP_PER_S)
-    log(f"[timing] adc_scores W={W} M={M} K={K} on {card}: kernel "
+    out["table"] = {"ms": kern, "device_ms": kern_dev, "plain_ms": plain,
+                    "library_ms": library, **b}
+    log(f"[timing] adc_scores table-sum W={W} M={M} K={K} on {card}: kernel "
         f"{kern:.4f} ms, plain {plain:.4f} ms, library (gather + sum) "
         f"{library:.4f} ms, bound {b['bound_ms']:.6f} ms ({b['bound_by']}); "
-        f"device time per call: kernel {kern_dev:.4f} ms, library "
-        f"{lib_dev:.4f} ms")
-    return {"ms": kern, "plain_ms": plain, "library_ms": library, **b}
+        f"device time per call: kernel {_fmt(kern_dev)}, library "
+        f"{_fmt(lib_dev)}")
+
+    def fused():
+        return adc_scores(codes, lut, cand=cand, filter_words=words)
+
+    def composed(table_sum):  # gather, table-sum, mask
+        valid = cand < N
+        safe = torch.where(valid, cand, torch.zeros_like(cand)).long()
+        valid = valid & test_bits(words, safe)
+        return torch.where(valid, table_sum(codes[safe]), -torch.inf)
+
+    def lib():
+        return composed(lambda c: lut[rows, c.long()].sum(1))
+
+    def before():  # the caller's sequence up to PR 4
+        return composed(lambda c: adc_scores(c, lut))
+
+    kern = _time_ms(torch, fused, 200)
+    plain = _time_ms(torch, lambda: adc_scores(
+        codes, lut, cand=cand, filter_words=words, plain=True), 20)
+    library = _time_ms(torch, lib, 200)
+    prev = _time_ms(torch, before, 200)
+    kern_dev = _device_ms(torch, fused, 200)
+    lib_dev = _device_ms(torch, lib, 200)
+    prev_dev = _device_ms(torch, before, 200)
+    live = (cand < N) & test_bits(words, torch.where(
+        cand < N, cand, torch.zeros_like(cand)).long())
+    n_live = int(live.sum())
+    n_words = int(torch.unique(cand[cand < N] >> 5).numel())
+    b = _bound(W * 4 + n_live * M + n_words * 4 + M * K * 4, W * 4,
+               n_live * M, F32_FLOP_PER_S)
+    out["fused"] = {"ms": kern, "device_ms": kern_dev, "plain_ms": plain,
+                    "library_ms": library, **b}
+    log(f"[timing] adc_scores fused N={N} W={W} ({n_live} live) M={M} K={K} "
+        f"on {card}: kernel {kern:.4f} ms, plain {plain:.4f} ms, library "
+        f"(gather + sum + test_bits + where) {library:.4f} ms, PR 4's "
+        f"caller (gather + B3 + test_bits + where) {prev:.4f} ms, bound "
+        f"{b['bound_ms']:.6f} ms ({b['bound_by']}); device time per call: "
+        f"kernel {_fmt(kern_dev)}, library {_fmt(lib_dev)}, PR 4's caller "
+        f"{_fmt(prev_dev)}")
+    return out["fused"]
 
 
 def timing_maxsim(torch, dev, card):
@@ -1358,12 +1663,13 @@ def timing_maxsim(torch, dev, card):
         kern_dev = _device_ms(torch, lambda: maxsim_adc(codes, luts), 200)
         lib_dev = _device_ms(torch, lib, 200)
         b = _bound(W * M + T * M * K * 4, W * 4, W * T * M, F32_FLOP_PER_S)
-        out[W] = {"ms": kern, "plain_ms": plain, "library_ms": library, **b}
+        out[W] = {"ms": kern, "device_ms": kern_dev, "plain_ms": plain,
+                  "library_ms": library, **b}
         log(f"[timing] maxsim_adc W={W} M={M} K={K} T={T} on {card}: kernel "
             f"{kern:.4f} ms, plain {plain:.4f} ms, library (gather + sum + "
             f"amax) {library:.4f} ms, bound {b['bound_ms']:.6f} ms "
             f"({b['bound_by']}); device time per call: kernel "
-            f"{kern_dev:.4f} ms, library {lib_dev:.4f} ms")
+            f"{_fmt(kern_dev)}, library {_fmt(lib_dev)}")
     return out[RERANK_WINDOW]
 
 
@@ -1387,16 +1693,17 @@ def main() -> int:
     log(f"[data] MS-MARCO-shaped postings and SIFT-shaped vectors generated"
         f" in {time.perf_counter() - t:.1f} s")
     launches = {"bm25_dense_topk": phase_read(torch, np, dev, card, corpus)}
-    (launches["knn_topk"], launches["adc_scores"], W, ivf_index,
+    (launches["knn_topk"], launches["adc_scores"], b3_case, ivf_index,
      pq_parts) = phase_vectors(torch, np, dev, card, sift)
     hyb = phase_hybrid(torch, np, dev, card, corpus, sift, ivf_index,
                        pq_parts)
     launches["maxsim_adc"] = hyb["maxsim_adc"]
     del corpus, sift, ivf_index, pq_parts
-    timing = {"bm25_dense_topk": phase_timing(torch, dev, card)["single"],
+    timing = {"bm25_dense_topk": phase_timing(torch, dev, card),
               "knn_topk": timing_knn(torch, dev, card),
-              "adc_scores": timing_adc(torch, dev, card, W),
+              "adc_scores": timing_adc(torch, dev, card, b3_case),
               "maxsim_adc": timing_maxsim(torch, dev, card)}
+    del b3_case
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     replaces = {"bm25_dense_topk": 150, "knn_topk": 39, "adc_scores": 415,
                 "maxsim_adc": 585}

@@ -202,11 +202,12 @@ long long topk_scratch_elems(int Q, long long D, int k) {
   return most * Q;
 }
 
-// Pass 2: `cur` holds Q x n_chunks sorted partial lists of kp keys each
-// (pass 1's output); reduce them to one list of k keys per query, using
-// `nxt` as the other buffer, and decode it into vals/ids.
-void reduce_and_decode(u64* cur, u64* nxt, int Q, int n_chunks, int kp, int k,
-                       float* vals, int* ids, cudaStream_t s) {
+// Pass 2 up to the decode: `cur` holds Q x n_chunks sorted partial lists
+// of kp keys each (pass 1's output); reduce them to one sorted list of
+// *L_out >= k keys per query, using `nxt` as the other buffer. Returns the
+// buffer that holds it.
+u64* reduce_lists(u64* cur, u64* nxt, int Q, int n_chunks, int kp, int k,
+                  int* L_out, cudaStream_t s) {
   int n = n_chunks, L = kp;
   if (kp <= kSmallK) {
     long long len = static_cast<long long>(n_chunks) * kp;
@@ -233,9 +234,18 @@ void reduce_and_decode(u64* cur, u64* nxt, int Q, int n_chunks, int kp, int k,
     n = n_out;
     L = Lout;
   }
+  *L_out = L;
+  return cur;
+}
+
+// Pass 2: reduce_lists(), then decode the first k keys into vals/ids.
+void reduce_and_decode(u64* cur, u64* nxt, int Q, int n_chunks, int kp, int k,
+                       float* vals, int* ids, cudaStream_t s) {
+  int L = 0;
+  const u64* keys = reduce_lists(cur, nxt, Q, n_chunks, kp, k, &L, s);
   const long long total = static_cast<long long>(Q) * k;
   decode_keys<<<static_cast<unsigned int>(ceil_div(total, kThreads)), kThreads, 0, s>>>(
-      cur, L, Q, k, vals, ids);
+      keys, L, Q, k, vals, ids);
 }
 
 }  // namespace

@@ -1,45 +1,90 @@
 """Fused dense-impact BM25 top-k: kernel B1 and its plain twin.
 
 Port of ``bm25_dense_topk_pallas`` (elasticsearch_tpu/ops/pallas_kernels.py
-:150, dispatched by ``bm25_dense_topk_auto`` :316). The CUDA kernel lives
-in ``csrc/bm25_dense_topk.cu``; its note gives the design and the bound.
+:150, dispatched by ``bm25_dense_topk_auto`` :316), fused with the work its
+single-query caller did around it: the gather of the query's rows out of
+the dense block and the hit count. The CUDA kernel lives in
+``csrc/bm25_dense_topk.cu``; its note gives the design and the bound.
 
-The function, for qw f32[Q, F], impact f32[F, D], mask bool[D]:
+The function, for qw f32[Q, R], rows i32[R] (rows of the whole block
+impact f32[F, D]; a row outside [0, F), -1 by convention, is a pad and is
+never read; without rows, all F rows) and mask bool[D]:
 
-    s[q, d] = sum_f bf16(qw[q, f]) * bf16(impact[f, d])   (f32 accumulate)
+    s[q, d] = sum over valid r, in increasing r, of
+              bf16(qw[q, r]) * bf16(impact[rows[r], d])   (f32 accumulate)
     s[q, d] = -inf where not mask[d]
     returns the top k of each row as (f32[Q, k], i32[Q, k]), ordered by
     (-value, doc id): among equal scores the lowest doc id wins, which is
-    ``lax.top_k``'s tie rule.
+    ``lax.top_k``'s tie rule;
+    with count=True also total i64[Q]: the docs d with mask[d] where some
+    valid row r with qw[q, r] != 0 has impact[rows[r], d] != 0 in f32
+    (``ops/scoring.py::dense_presence_count`` over the gathered rows).
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 #: kernel launches (one per wrapper call that reaches the card)
 LAUNCHES = 0
 
-_U64_AS_I64 = torch.int64  # scratch holds 64-bit keys; only the bits matter
+
+def _row_list(rows, F: int, R: int):
+    """The rows as host ints, None for a pad (outside [0, F))."""
+    idx = range(R) if rows is None else rows.tolist()
+    return [r if 0 <= r < F else None for r in idx]
 
 
 def bm25_dense_topk_plain(qw: torch.Tensor, impact: torch.Tensor,
-                          mask: torch.Tensor, *, k: int):
-    """Plain PyTorch twin of the kernel: the bf16-rounded product summed
-    in f32 in increasing f (the kernel's order, so the two agree bit for
-    bit: bf16 x bf16 products are exact in f32), then a STABLE descending
-    sort cut to k. ``torch.topk`` leaves tie order unspecified, so it
-    cannot stand in for the sort."""
+                          mask: torch.Tensor, *, k: int, rows=None,
+                          count: bool = False):
+    """Plain PyTorch twin of the kernel: the bf16-rounded products summed
+    in f32 in increasing r over the valid rows (the kernel's order, so the
+    two agree bit for bit: bf16 x bf16 products are exact in f32), then a
+    STABLE descending sort cut to k; with ``count``, the hit count of the
+    f32 rows. ``torch.topk`` leaves tie order unspecified, so it cannot
+    stand in for the sort."""
+    Q, R = qw.shape
+    D = impact.shape[1]
     qb = qw.to(torch.bfloat16).to(torch.float32)
-    ib = impact.to(torch.bfloat16).to(torch.float32)
-    s = torch.zeros(qw.shape[0], impact.shape[1], dtype=torch.float32,
-                    device=impact.device)
-    for f in range(qw.shape[1]):
-        s = s + qb[:, f:f + 1] * ib[f]
+    s = torch.zeros(Q, D, dtype=torch.float32, device=impact.device)
+    hit = torch.zeros(Q, D, dtype=torch.bool, device=impact.device)
+    for r, row in enumerate(_row_list(rows, impact.shape[0], R)):
+        if row is None:
+            continue
+        x = impact[row]
+        s = s + qb[:, r:r + 1] * x.to(torch.bfloat16).to(torch.float32)
+        if count:
+            hit |= (qw[:, r:r + 1] != 0) & (x != 0)[None, :]
     s = torch.where(mask[None, :], s, torch.full_like(s, float("-inf")))
     vals, idx = torch.sort(s, dim=1, descending=True, stable=True)
-    return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
+    out = (vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous())
+    if count:
+        return out + ((hit & mask[None, :]).sum(1, dtype=torch.int64),)
+    return out
+
+
+def pack_topk(vals: torch.Tensor, ids: torch.Tensor, total=None):
+    """The kernel's packed result i32[Q, 2k + 2] from its parts: per query
+    the values' f32 bits, the doc ids, and the total as an int64 (0 when
+    None)."""
+    Q = vals.shape[0]
+    if total is None:
+        total = torch.zeros(Q, dtype=torch.int64, device=vals.device)
+    return torch.cat([vals.contiguous().view(torch.int32), ids,
+                      total.reshape(Q, 1).view(torch.int32)], dim=1)
+
+
+def unpack_topk(buf, k: int):
+    """(vals f32[Q, k], ids i32[Q, k], total i64[Q]) as views of a packed
+    result, a tensor or a numpy array."""
+    if isinstance(buf, np.ndarray):
+        return (buf[:, :k].view(np.float32), buf[:, k:2 * k],
+                buf[:, 2 * k:].view(np.int64)[:, 0])
+    return (buf[:, :k].view(torch.float32), buf[:, k:2 * k],
+            buf[:, 2 * k:].view(torch.int64)[:, 0])
 
 
 def _lib():
@@ -50,59 +95,74 @@ def _lib():
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.bm25_dense_topk_scratch.argtypes = [i32, i64, i32]
         lib.bm25_dense_topk_scratch.restype = i64
-        lib.bm25_dense_topk.argtypes = [vp, i32, i32, vp, i64, vp, i32, vp,
-                                        vp, vp, vp, vp]
+        lib.bm25_dense_topk.argtypes = [vp, i32, i32, vp, i32, vp, i64, vp,
+                                        i32, i32, vp, vp, vp]
         lib.bm25_dense_topk.restype = i32
         lib._typed = True
     return lib
 
 
 def bm25_dense_topk(qw: torch.Tensor, impact: torch.Tensor,
-                    mask: torch.Tensor, *, k: int, plain: bool = False):
+                    mask: torch.Tensor, *, k: int, rows=None,
+                    count: bool = False, packed: bool = False,
+                    plain: bool = False):
     """Top-k of the masked bf16 dense-impact product (see module doc).
 
-    CPU tensors take the plain twin. CUDA tensors launch the kernel, or
-    raise; ``plain=True`` runs the twin on the card instead, for checks
-    that compare the two."""
+    Returns (vals, ids), with ``count`` (vals, ids, total); with
+    ``packed`` the one i32[Q, 2k + 2] buffer those are views of instead
+    (``unpack_topk`` splits it), so that a caller moves all of it to the
+    host in one copy. CPU tensors take the plain twin. CUDA tensors launch
+    the kernel, or raise; ``plain=True`` runs the twin on the card
+    instead, for checks that compare the two."""
     if qw.dim() != 2 or impact.dim() != 2 or mask.dim() != 1:
-        raise ValueError("expected qw [Q, F], impact [F, D], mask [D]")
-    Q, F = qw.shape
-    D = impact.shape[1]
-    if impact.shape[0] != F or mask.shape[0] != D:
+        raise ValueError("expected qw [Q, R], impact [F, D], mask [D]")
+    Q, R = qw.shape
+    F, D = impact.shape
+    if rows is None and R != F:
+        raise ValueError(f"shape mismatch: qw {tuple(qw.shape)}, impact "
+                         f"{tuple(impact.shape)}, mask {tuple(mask.shape)}")
+    if rows is not None and (rows.dim() != 1 or rows.shape[0] != R):
+        raise ValueError(f"expected rows [{R}], got {tuple(rows.shape)}")
+    if mask.shape[0] != D:
         raise ValueError(f"shape mismatch: qw {tuple(qw.shape)}, impact "
                          f"{tuple(impact.shape)}, mask {tuple(mask.shape)}")
     if not 1 <= k <= D:
         raise ValueError(f"k must be in [1, {D}], got {k}")
     if qw.device.type == "cpu" or plain:
-        return bm25_dense_topk_plain(qw, impact, mask, k=k)
-    if qw.device.type != "cuda" or impact.device != qw.device \
-            or mask.device != qw.device:
-        raise ValueError("qw, impact and mask must lie on one CUDA device")
+        res = bm25_dense_topk_plain(qw, impact, mask, k=k, rows=rows,
+                                    count=count)
+        return pack_topk(*res) if packed else res
+    tensors = (qw, impact, mask) + (() if rows is None else (rows,))
+    if qw.device.type != "cuda" or any(t.device != qw.device
+                                       for t in tensors):
+        raise ValueError("qw, impact, mask and rows must lie on one CUDA "
+                         "device")
     if qw.dtype != torch.float32 or impact.dtype != torch.float32 \
-            or mask.dtype != torch.bool:
-        raise TypeError("expected qw f32, impact f32, mask bool")
-    if not (qw.is_contiguous() and impact.is_contiguous()
-            and mask.is_contiguous()):
-        raise ValueError("qw, impact and mask must be contiguous")
-    if Q < 1 or Q > 65535 or D >= 2 ** 31:
-        raise ValueError(f"kernel takes 1 <= Q <= 65535 and D < 2^31, got "
-                         f"Q={Q}, D={D}")
+            or mask.dtype != torch.bool \
+            or (rows is not None and rows.dtype != torch.int32):
+        raise TypeError("expected qw f32, impact f32, mask bool, rows i32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("qw, impact, mask and rows must be contiguous")
+    if Q < 1 or Q > 65535 or D >= 2 ** 31 or F >= 2 ** 31:
+        raise ValueError(f"kernel takes 1 <= Q <= 65535 and D, F < 2^31, "
+                         f"got Q={Q}, D={D}, F={F}")
     lib = _lib()
-    n = int(lib.bm25_dense_topk_scratch(Q, D, k))
     dev = qw.device
-    scratch_a = torch.empty(n, dtype=_U64_AS_I64, device=dev)
-    scratch_b = torch.empty(n, dtype=_U64_AS_I64, device=dev)
-    vals = torch.empty(Q, k, dtype=torch.float32, device=dev)
-    ids = torch.empty(Q, k, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        n = int(lib.bm25_dense_topk_scratch(Q, D, k))
+        scratch = torch.empty(n, dtype=torch.int64, device=dev)
+        buf = torch.empty(Q, 2 * k + 2, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bm25_dense_topk(qw.data_ptr(), Q, F, impact.data_ptr(), D,
-                                  mask.data_ptr(), k, scratch_a.data_ptr(),
-                                  scratch_b.data_ptr(), vals.data_ptr(),
-                                  ids.data_ptr(), stream)
+        err = lib.bm25_dense_topk(
+            qw.data_ptr(), Q, R, None if rows is None else rows.data_ptr(),
+            F, impact.data_ptr(), D, mask.data_ptr(), k, int(count),
+            scratch.data_ptr(), buf.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"bm25_dense_topk kernel launch failed: CUDA "
                            f"error {err}")
     global LAUNCHES
     LAUNCHES += 1
-    return vals, ids
+    if packed:
+        return buf
+    vals, ids, total = unpack_topk(buf, k)
+    return (vals, ids, total) if count else (vals, ids)

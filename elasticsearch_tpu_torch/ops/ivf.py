@@ -184,23 +184,28 @@ def _scatter(D: int, ids: torch.Tensor, scores: torch.Tensor,
     return out, mask
 
 
-def _probe(index: IvfIndex, query: torch.Tensor, nprobe: int, D: int):
-    """(cand i32[nprobe * Lmax], valid bool, safe ids) of the nprobe
-    closest lists under the quantizer's metric, padding invalid."""
+def _probe(index: IvfIndex, query: torch.Tensor, nprobe: int):
+    """cand i32[nprobe * Lmax]: the nprobe closest lists under the
+    quantizer's metric, padded with the sentinel."""
     csim = _quantizer_affinity(query[None, :], index.centroids,
                                index.metric)[0]
-    cand = index.lists[top_positions(csim, nprobe)].reshape(-1)
+    return index.lists[top_positions(csim, nprobe)].reshape(-1)
+
+
+def _admitted(cand: torch.Tensor, D: int):
+    """(valid bool, safe i64 ids: padding at 0) of probed candidates."""
     valid = cand < D
-    return cand, valid, torch.where(valid, cand, torch.zeros_like(cand))
+    return valid, torch.where(valid, cand, torch.zeros_like(cand)).to(
+        torch.int64)
 
 
 def ivf_search(index: IvfIndex, query: torch.Tensor, vecs: torch.Tensor,
                nprobe: int, metric: str, D: int):
     """IVF-flat: probe, then the exact f32 metric on every probed
     candidate (reference ``make_ivf_search``)."""
-    cand, valid, safe = _probe(index, query, nprobe, D)
-    cs = knn_scores(query[None, :], vecs[safe.to(torch.int64)],
-                    metric=metric)[0]
+    cand = _probe(index, query, nprobe)
+    valid, safe = _admitted(cand, D)
+    cs = knn_scores(query[None, :], vecs[safe], metric=metric)[0]
     return _scatter(D, cand, cs, valid)
 
 
@@ -209,19 +214,18 @@ def ivf_pq_search(index: IvfIndex, query: torch.Tensor, vecs: torch.Tensor,
                   fine_k: int = 64, filter_words=None):
     """Coarse -> fine IVF (reference ``make_ivf_pq_search``): probe; drop
     candidates the packed pre-filter rejects; rank the rest by ADC over
-    their PQ codes (kernel B3); re-score the top ``fine_k`` exactly in
-    f32. Without ``pq`` every admitted candidate is scored exactly."""
-    cand, valid, safe = _probe(index, query, nprobe, D)
-    safe = safe.to(torch.int64)
-    if filter_words is not None:
-        valid = valid & test_bits(filter_words, safe)
+    their PQ codes (kernel B3, which reads the probed candidates' codes
+    out of the whole code table and gives padding and filtered slots
+    -inf itself); re-score the top ``fine_k`` exactly in f32. Without
+    ``pq`` every admitted candidate is scored exactly."""
+    cand = _probe(index, query, nprobe)
     if pq is not None:
         from elasticsearch_tpu_torch.ops.pq import adc_lut
 
         lut = adc_lut(query, pq.codebooks, pq.metric)
-        coarse = adc_scores(pq.codes[safe].contiguous(), lut)
-        coarse = torch.where(valid, coarse, torch.full_like(coarse,
-                                                            float("-inf")))
+        # the codes hold one row per doc of the segment: ids >= D are pads
+        coarse = adc_scores(pq.codes[:D], lut, cand=cand,
+                            filter_words=filter_words)
         fpos = top_positions(coarse, fine_k)
         fv = coarse[fpos]
         fids = cand[fpos]
@@ -230,6 +234,9 @@ def ivf_pq_search(index: IvfIndex, query: torch.Tensor, vecs: torch.Tensor,
         fscores = knn_scores(query[None, :], vecs[fsafe.to(torch.int64)],
                              metric=metric)[0]
     else:
+        valid, safe = _admitted(cand, D)
+        if filter_words is not None:
+            valid = valid & test_bits(filter_words, safe)
         fids, fvalid = cand, valid
         fscores = knn_scores(query[None, :], vecs[safe], metric=metric)[0]
     return _scatter(D, fids, fscores, fvalid)

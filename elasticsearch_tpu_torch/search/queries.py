@@ -24,14 +24,12 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.ops.bitvec import pack_mask, popcount
-from elasticsearch_tpu_torch.ops.bm25_topk import bm25_dense_topk
+from elasticsearch_tpu_torch.ops.bm25_topk import bm25_dense_topk, unpack_topk
 from elasticsearch_tpu_torch.ops.ivf import ivf_candidate_scores
 from elasticsearch_tpu_torch.ops.knn import knn_topk
 from elasticsearch_tpu_torch.ops.scoring import (
     bm25_score_hybrid_gather,
     bm25_score_segment,
-    dense_presence_count,
-    gather_impact_rows,
     match_count_hybrid_gather,
     match_count_segment,
     range_mask_f32,
@@ -127,10 +125,11 @@ def _score_term_group(ctx, field, terms, boost=1.0, with_counts=False):
 def fused_bm25_topk(ctx, query, k: int):
     """Fused dense-impact BM25 top-k fast path (kernel B1, no [D] score
     row). Eligible when ``query`` is a pure disjunctive term group whose
-    present terms ALL have dense impact rows: the kernel streams only the
-    query's R gathered rows. Returns (vals np.f32[k], ids np.i32[k],
-    total int), or None to fall through to the generic score/mask path.
-    Non-matches carry score <= 0 or -inf."""
+    present terms ALL have dense impact rows: the kernel reads only the
+    query's rows out of the whole dense block, and counts the hits in the
+    same pass. Returns (vals np.f32[k], ids np.i32[k], total int), or None
+    to fall through to the generic score/mask path. Non-matches carry
+    score <= 0 or -inf."""
     e = _fused_eligible_terms(ctx, query)
     if e is None:
         return None
@@ -144,15 +143,19 @@ def fused_bm25_topk(ctx, query, k: int):
     impact, _qw, _qind, _starts, lens, _ws, _P, n_present, qrows, qrw = hyb
     if n_present == 0 or int(np.sum(lens)) > 0:
         return None  # tail terms present — not a pure-dense group
-    rows, qvalid = gather_impact_rows(impact, qrows)
-    qw = torch.as_tensor(qrw[None, :], device=rows.device)
-    live = ctx.segment.live
+    real = qrows >= 0
+    R = int(real.sum())
+    # the real rows only, weights and rows in one host-to-device copy
+    arg = torch.as_tensor(np.concatenate([qrw[real].view(np.int32),
+                                          qrows[real]]), device=impact.device)
     kk = min(k, ctx.D)
-    vals, ids = bm25_dense_topk(qw, rows, live, k=kk)
-    total = dense_presence_count(rows, qvalid[None, :], live)
+    buf = bm25_dense_topk(arg[:R].view(torch.float32).view(1, R), impact,
+                          ctx.segment.live, k=kk, rows=arg[R:], count=True,
+                          packed=True)
+    vals, ids, total = unpack_topk(buf.cpu().numpy(), kk)  # one copy back
     global FUSED_CALLS
     FUSED_CALLS += 1
-    return vals[0].cpu().numpy(), ids[0].cpu().numpy(), total
+    return vals[0], ids[0], int(total[0])
 
 
 def _fused_eligible_terms(ctx, query):

@@ -173,3 +173,182 @@ def test_wrapper_rejects_bad_input(bad):
         mask = torch.ones(63, dtype=torch.bool)
     with pytest.raises(ValueError):
         bm25_dense_topk(qw, imp, mask, k=k)
+
+
+# -- the rows form: rows of a whole dense block, pads skipped ----------------
+
+_ROWS_CASES = [  # (R, pads, repeated rows, quantized impacts)
+    (1, 0, False, None), (2, 1, False, None), (3, 0, False, None),
+    (4, 2, False, None), (8, 3, False, None), (8, 0, True, None),
+    (12, 4, True, None), (16, 0, False, None), (16, 5, False, 0.5),
+    (5, 2, True, 1.0),
+]
+
+
+def _rows_case(n, R, pads, repeat, quant):
+    """A 64-row block, its live mask, rows i32[R] (pads at -1 and outside
+    the block, anywhere in the list), and weights qw f32[8, R] whose pad
+    columns hold garbage for the port and zeros for the reference."""
+    rng = np.random.default_rng(40 + n)
+    F, D = 64, 4096
+    impact = ((rng.random((F, D)) < 0.3) * rng.random((F, D)) * 2.2
+              ).astype(np.float32)
+    if quant is not None:
+        impact = ((impact / quant).round() * quant).astype(np.float32)
+    mask = rng.random(D) > 0.2
+    rows = rng.permutation(F)[:R].astype(np.int32)
+    if repeat:
+        rows[R // 2:] = rows[:R - R // 2]
+    pad = rng.permutation(R)[:pads]
+    rows[pad] = [(-1, 64, -1, 1000)[i % 4] for i in range(pads)]
+    qw = (rng.random((8, R)) * 3).astype(np.float32)
+    qw_ref = np.where((rows >= 0) & (rows < F), qw, 0).astype(np.float32)
+    return qw, qw_ref, impact, mask, rows
+
+
+@pytest.mark.parametrize("n", range(len(_ROWS_CASES)))
+def test_rows_form_matches_pallas_on_gathered_rows(n):
+    """The rows form reads the query's rows out of the whole block and
+    skips pads; the reference gathers them first (pads clamp to row 0 at
+    weight 0) and runs the Pallas kernel in interpret mode on the copy.
+    Same ids in the same order, bit-equal values; where the Pallas
+    kernel's own tie fault shows (ROADMAP C), the rule it states
+    (lax.top_k over the bf16 score row) decides, at the tie-parity
+    test's tolerance."""
+    import jax.numpy as jnp
+    from jax import lax
+
+    from elasticsearch_tpu.ops.scoring import gather_impact_rows
+
+    qw, qw_ref, impact, mask, rows = _rows_case(n, *_ROWS_CASES[n])
+    sub, _valid = gather_impact_rows(jnp.asarray(impact), jnp.asarray(
+        np.where(rows < impact.shape[0], rows, -1)))
+    pv, pi = bm25_dense_topk_pallas(jnp.asarray(qw_ref), sub,
+                                    jnp.asarray(mask), k=10, tile=512,
+                                    q_tile=8, interpret=True)
+    tv, ti = bm25_dense_topk(torch.from_numpy(qw), torch.from_numpy(impact),
+                             torch.from_numpy(mask), k=10,
+                             rows=torch.from_numpy(rows))
+    tv, ti = tv.numpy(), ti.numpy()
+    sc = jnp.dot(jnp.asarray(qw_ref).astype(jnp.bfloat16),
+                 sub.astype(jnp.bfloat16), preferred_element_type=jnp.float32)
+    wv, wi = lax.top_k(jnp.where(jnp.asarray(mask)[None, :], sc, -jnp.inf),
+                       10)
+    if np.array_equal(np.asarray(pi), np.asarray(wi)):
+        np.testing.assert_array_equal(ti, np.asarray(pi))
+        np.testing.assert_array_equal(tv.view(np.uint32),
+                                      np.asarray(pv).view(np.uint32))
+    else:  # the reference's tie fault: the stated rule decides
+        np.testing.assert_array_equal(ti, np.asarray(wi))
+        np.testing.assert_allclose(tv, np.asarray(wv), rtol=1e-6)
+
+
+@pytest.mark.parametrize("n", range(len(_ROWS_CASES)))
+def test_rows_form_count_matches_reference_presence_count(n):
+    """count=True: docs where a valid row's f32 impact is non-zero, live
+    ones only; exactly the reference's dense_presence_count over the
+    gathered rows."""
+    import jax.numpy as jnp
+
+    from elasticsearch_tpu.ops.scoring import (dense_presence_count,
+                                               gather_impact_rows)
+
+    qw, _qw_ref, impact, mask, rows = _rows_case(n, *_ROWS_CASES[n])
+    sub, valid = gather_impact_rows(jnp.asarray(impact), jnp.asarray(
+        np.where(rows < impact.shape[0], rows, -1)))
+    want = int(dense_presence_count(sub, valid[None, :], jnp.asarray(mask)))
+    v, i, total = bm25_dense_topk(torch.from_numpy(qw),
+                                  torch.from_numpy(impact),
+                                  torch.from_numpy(mask), k=10,
+                                  rows=torch.from_numpy(rows), count=True)
+    assert total.dtype == torch.int64 and total.shape == (8,)
+    assert total.tolist() == [want] * 8
+    pv, pi = bm25_dense_topk(torch.from_numpy(qw), torch.from_numpy(impact),
+                             torch.from_numpy(mask), k=10,
+                             rows=torch.from_numpy(rows))
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+def test_count_includes_f32_subnormals():
+    """An f32 subnormal impact rounds to bf16 zero, so it adds nothing to
+    a score, but its doc holds the term and counts as a hit. The
+    reference's XLA:CPU compare flushes subnormals to zero and misses
+    exactly those docs (ROADMAP C); on normal impacts the two agree."""
+    import jax.numpy as jnp
+
+    from elasticsearch_tpu.ops.scoring import (dense_presence_count,
+                                               gather_impact_rows)
+
+    F, D = 4, 1024
+    impact = np.zeros((F, D), np.float32)
+    impact[1, ::7] = np.float32(2.0 ** -140)  # subnormal, bf16 rounds to 0
+    impact[2, ::5] = 1.5
+    mask = np.ones(D, bool)
+    mask[3::10] = False
+    rows = np.array([1, -1, 2], np.int32)
+    qw = np.ones((1, 3), np.float32)
+    v, i, total = bm25_dense_topk(torch.from_numpy(qw),
+                                  torch.from_numpy(impact),
+                                  torch.from_numpy(mask), k=10,
+                                  rows=torch.from_numpy(rows), count=True)
+    sub7 = np.zeros(D, bool)
+    sub7[::7] = True
+    five = np.zeros(D, bool)
+    five[::5] = True
+    assert int(total[0]) == int(((sub7 | five) & mask).sum())
+    sub, valid = gather_impact_rows(jnp.asarray(impact), jnp.asarray(rows))
+    ref = int(dense_presence_count(sub, valid[None, :], jnp.asarray(mask)))
+    assert ref == int((five & mask).sum())  # XLA:CPU flushes subnormals
+    assert int(total[0]) - ref == int((sub7 & ~five & mask).sum())
+    # the subnormal rows add nothing to a score: the top docs are row 2's
+    assert (v[0] == 1.5).all() and all(d % 5 == 0 for d in i[0].tolist())
+
+
+def test_packed_result_is_the_parts():
+    rng = np.random.default_rng(9)
+    qw = torch.from_numpy(rng.random((3, 4)).astype(np.float32))
+    imp = torch.from_numpy(((rng.random((16, 300)) < 0.4)
+                            * rng.random((16, 300))).astype(np.float32))
+    mask = torch.from_numpy(rng.random(300) > 0.1)
+    rows = torch.tensor([5, -1, 0, 9], dtype=torch.int32)
+    parts = bm25_dense_topk(qw, imp, mask, k=7, rows=rows, count=True)
+    buf = bm25_dense_topk(qw, imp, mask, k=7, rows=rows, count=True,
+                          packed=True)
+    assert buf.dtype == torch.int32 and buf.shape == (3, 16)
+    for got in (bm25_topk.unpack_topk(buf, 7),
+                bm25_topk.unpack_topk(buf.numpy(), 7)):
+        for a, b in zip(got, parts):
+            assert np.array_equal(np.asarray(a), b.numpy())
+    # without count the total slot is 0
+    empty = bm25_dense_topk(qw, imp, mask, k=7, rows=rows, packed=True)
+    assert bm25_topk.unpack_topk(empty, 7)[2].tolist() == [0, 0, 0]
+
+
+def test_rows_form_equals_all_rows_form_on_the_gathered_block():
+    """rows=None is the form over all F rows: the rows form over an
+    identity row list gives the same bits, and over a row subset the same
+    as the all-rows form on a copy of those rows."""
+    rng = np.random.default_rng(12)
+    imp = torch.from_numpy(((rng.random((10, 700)) < 0.3)
+                            * rng.random((10, 700))).astype(np.float32))
+    mask = torch.from_numpy(rng.random(700) > 0.2)
+    qw = torch.from_numpy(rng.random((2, 10)).astype(np.float32))
+    a = bm25_dense_topk(qw, imp, mask, k=20, count=True)
+    b = bm25_dense_topk(qw, imp, mask, k=20, count=True,
+                        rows=torch.arange(10, dtype=torch.int32))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    rows = torch.tensor([7, 2, 2, 9], dtype=torch.int32)
+    c = bm25_dense_topk(qw[:, :4].contiguous(), imp, mask, k=20, rows=rows)
+    d = bm25_dense_topk(qw[:, :4].contiguous(), imp[rows.long()], mask, k=20)
+    assert all(torch.equal(x, y) for x, y in zip(c, d))
+
+
+@pytest.mark.parametrize("bad", ["rows_len", "rows_dim"])
+def test_wrapper_rejects_bad_rows(bad):
+    qw = torch.zeros(1, 3)
+    imp = torch.zeros(8, 64)
+    mask = torch.ones(64, dtype=torch.bool)
+    rows = (torch.zeros(4, dtype=torch.int32) if bad == "rows_len"
+            else torch.zeros(1, 3, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        bm25_dense_topk(qw, imp, mask, k=5, rows=rows)

@@ -157,6 +157,31 @@ def test_fused_path_matches_reference(nodes, name):
     assert np.all(np.diff(_scores(p)) <= 0)
 
 
+@pytest.mark.parametrize("name", sorted(FUSED))
+def test_fused_path_reads_the_query_rows_of_the_whole_block(nodes, name,
+                                                           monkeypatch):
+    """The fused caller hands B1 the segment's whole dense block, the
+    query's real rows only (no pad), and asks for the count in the packed
+    result, so that one copy brings the hits and the total back."""
+    _ref, port = nodes
+    calls = []
+    real = port_queries.bm25_dense_topk
+
+    def spy(qw, impact, mask, **kw):
+        calls.append((qw.shape, impact.shape, mask.shape[0], kw))
+        return real(qw, impact, mask, **kw)
+
+    monkeypatch.setattr(port_queries, "bm25_dense_topk", spy)
+    _search(port, FUSED[name])
+    assert calls
+    for (Q, R), (F, D), n_mask, kw in calls:
+        rows = kw["rows"]
+        assert Q == 1 and rows.shape == (R,) and D == n_mask
+        assert ((rows >= 0) & (rows < F)).all()
+        assert len(set(rows.tolist())) == R  # each query row once
+        assert kw["count"] and kw["packed"]
+
+
 def test_delete_then_search(nodes):
     ref, port = nodes
     body = {"query": {"match": {"body": "zulu yankee island"}}, "size": 3}

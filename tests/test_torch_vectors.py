@@ -204,6 +204,72 @@ def test_small_slabs_decline():
     assert build_pq(v, torch.ones(64, dtype=torch.bool), "cosine") is None
 
 
+_FUSED = {  # name: (N, W, M, K, live share, filter share or None)
+    "pads": (8192, 6144, 32, 256, 0.12, None),
+    "filter_10pct": (8192, 6144, 32, 256, 0.12, 0.1),
+    "filter_0pct": (8192, 6144, 32, 256, 0.12, 0.0),
+    "all_padded": (8192, 2048, 32, 256, 0.0, None),
+    "w1": (8192, 1, 32, 256, 1.0, None),
+    "m8_k16": (4096, 2048, 8, 16, 0.5, 0.5),
+    "m64_k256": (4096, 2048, 64, 256, 0.5, None),
+    "m32_k16": (4096, 4096, 32, 16, 0.3, 0.3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_FUSED))
+def test_adc_fused_matches_pallas_bit_for_bit(name):
+    """The fused form reads each slot's code row out of the whole table
+    and gives pads (ids outside [0, N)) and filtered slots -inf; the
+    reference gathers the rows first and runs the Pallas kernel in
+    interpret mode on the copy, the mask applied after in numpy."""
+    import jax.numpy as jnp
+
+    N, W, M, K, live, filt = _FUSED[name]
+    rng = np.random.default_rng(len(name) * 1000 + W)
+    codes = rng.integers(0, K, size=(N, M)).astype(np.uint8)
+    lut = rng.standard_normal((M, K)).astype(np.float32)
+    cand = np.where(rng.random(W) < live, rng.integers(0, N, W), N)
+    cand = cand.astype(np.int32)
+    ok = cand < N
+    words = None
+    if filt is not None:
+        fmask = rng.random(N) < filt
+        ok &= fmask[np.where(ok, cand, 0)]
+        words = bitvec.pack_mask(torch.from_numpy(fmask))
+    got = adc_scores(torch.from_numpy(codes), torch.from_numpy(lut),
+                     cand=torch.from_numpy(cand), filter_words=words).numpy()
+    tile = 2048
+    Wp = -(-W // tile) * tile  # the Pallas kernel takes whole tiles
+    rows = np.zeros((Wp, M), np.int32)
+    rows[:W] = codes[np.where(cand < N, cand, 0)]
+    want = np.asarray(adc_scores_pallas(jnp.asarray(rows), jnp.asarray(lut),
+                                        tile=tile, interpret=True))[:W]
+    want = np.where(ok, want, np.float32(-np.inf))
+    assert got.dtype == np.float32 and got.shape == (W,)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert np.isneginf(got).sum() == W - ok.sum()
+
+
+def test_adc_fused_filter_without_candidates_and_negative_ids():
+    rng = np.random.default_rng(3)
+    codes = torch.from_numpy(rng.integers(0, 16, (256, 8)).astype(np.uint8))
+    lut = torch.from_numpy(rng.standard_normal((8, 16)).astype(np.float32))
+    fmask = torch.from_numpy(rng.random(256) < 0.5)
+    words = bitvec.pack_mask(fmask)
+    full = adc_scores(codes, lut)
+    got = adc_scores(codes, lut, filter_words=words)
+    assert torch.equal(got, torch.where(fmask, full, -torch.inf))
+    cand = torch.tensor([-1, 5, 256, 255, -7, 0], dtype=torch.int32)
+    got = adc_scores(codes, lut, cand=cand)
+    want = torch.tensor([-np.inf, full[5], -np.inf, full[255], -np.inf,
+                         full[0]], dtype=torch.float32)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="filter words"):
+        adc_scores(codes, lut, filter_words=words[:4])
+    with pytest.raises(ValueError, match="cand"):
+        adc_scores(codes, lut, cand=cand[None, :])
+
+
 # -- the IVF pipeline on carried-across state ------------------------------------
 
 @pytest.fixture(scope="module")
