@@ -30,7 +30,8 @@ Phases, in order; any failure exits non-zero before the result line:
             through ``Node.search`` (B1's launch counts are taken over
             exactly this run), hits held against the plain twin and an
             exact numpy scorer; one fused query must run B1's two
-            kernels and one copy each way, nothing else;
+            kernels and one copy each way, nothing else, through the
+            mesh path (one slot);
 5b. vectors the kNN read path: 1,000,000 SIFT-shaped 128-d vectors
             (``bench.py::make_sift_node``'s recipe) padded to 2^20, IVF
             (C = 4000) and PQ (M = 32, K = 256) built twice on the card
@@ -47,6 +48,13 @@ Phases, in order; any failure exits non-zero before the result line:
             codes; the launches of B2, B3 and B4 are taken over exactly
             this run, per query), hits held against the plain twins, a
             numpy fusion of the engines' own rows and f64 MaxSim;
+5d. mesh    phase 5's corpus and 5b's slab split over five shards by
+            ``shard_id_for`` (ES 2.0's default shard count), one segment
+            a shard: phase 5's 32 queries and 8 brute-force knn queries
+            on the default mesh path and on the host loop (the same hits,
+            totals exact against the f64 scorer; p50, device time, busy
+            share, kernels and copies per query of both), and
+            ``search_knn`` at Q = 8 against the B2 twin and the oracle;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes), by CUDA events and by the profiler's
@@ -708,7 +716,6 @@ def phase_read(torch, np, dev, card, corpus):
     from elasticsearch_tpu_torch.index.convert import segment_from_arrays
     from elasticsearch_tpu_torch.ops import bm25_topk
     from elasticsearch_tpu_torch.search import queries
-    from elasticsearch_tpu_torch.search.context import SegmentContext
 
     t0 = time.perf_counter()
     u_doc, tf, tfn, offsets, df, cf, doc_len = corpus
@@ -789,11 +796,12 @@ def phase_read(torch, np, dev, card, corpus):
         f"launches {launches}; hits equal the plain twin's; recall@10 vs "
         f"exact f64: mean {np.mean(recalls)}, min {min(recalls)}")
     profile_read(torch, node, "msmarco", bodies, float(ms.sum()), "read")
-    # one fused query's device work: B1's two launches, one copy each way
-    svc = node.get_index("msmarco")
-    q = queries.parse_query(bodies[took_fused.index(True)]["query"])
-    ctx = SegmentContext(seg, svc.mappings, svc.analysis)
-    ops = device_ops(torch, lambda: queries.fused_bm25_topk(ctx, q, 10))
+    # one fused query's device work through Node.search (the mesh path,
+    # S = 1): one copy in, B1's two launches, one copy back. "from": 0
+    # makes the body new to the prepared-query memo, so its tables are
+    # built and copied as a first request's are
+    fresh = dict(bodies[took_fused.index(True)], **{"from": 0})
+    ops = device_ops(torch, lambda: node.search("msmarco", dict(fresh)))
     if ops is None:
         log("[read] a fused query's device ops: not measured (the profiler "
             "recorded none)")
@@ -802,11 +810,13 @@ def phase_read(torch, np, dev, card, corpus):
                    if not k.startswith(("Memcpy", "Memset"))}
         if sorted(c for k, c in kernels.items() if "bm25_" in k) != [1, 1] \
                 or len(kernels) != 2 \
+                or sum(c for k, c in ops.items() if "HtoD" in k) != 1 \
                 or sum(c for k, c in ops.items() if "DtoH" in k) != 1:
-            raise AssertionError(f"a fused query ran {ops}, where B1's two "
-                                 f"launches and one copy back were expected")
-        log(f"[read] one fused query's device ops: " + "; ".join(
-            f"{k[:48]} x{c}" for k, c in ops.items()))
+            raise AssertionError(f"a fused query ran {ops}, where one copy "
+                                 f"in, B1's two launches and one copy back "
+                                 f"were expected")
+        log(f"[read] one fused query's device ops through the mesh path: "
+            + "; ".join(f"{k[:48]} x{c}" for k, c in ops.items()))
     node.close()
     return launches
 
@@ -1318,6 +1328,313 @@ def phase_hybrid(torch, np, dev, card, corpus, sift, ivf_index, pq_parts):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5d: the mesh path over five shards
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 5  # ES 2.0's default index.number_of_shards
+MESH_MAPPING = {"properties": {
+    "body": {"type": "text"},
+    "emb": {"type": "dense_vector", "dims": DIMS, "similarity": "cosine"},
+}}
+
+
+def shard_arrays(np, corpus, u_term, sift, shard_of, s):
+    """``segment_from_arrays``'s arrays for shard s: its docs (ids are the
+    global doc numbers, local ids in their order), the text field's CSR
+    restricted to them with BM25 tf-normalization at the shard's own
+    average length, and their rows of the slab."""
+    from elasticsearch_tpu_torch.utils.shapes import pow2_bucket
+
+    k1, b = 1.2, 0.75
+    u_doc, tf, _tfn, _offsets, _df, _cf, doc_len = corpus
+    vpad, exists = sift[0], sift[1]
+    docs = np.nonzero(shard_of == s)[0]
+    n = int(docs.size)
+    D = pow2_bucket(n, minimum=64)
+    local = np.full(shard_of.size, -1, np.int32)
+    local[docs] = np.arange(n, dtype=np.int32)
+    keep = shard_of[u_doc] == s
+    t, d, tf_s = u_term[keep], u_doc[keep], tf[keep]
+    avg = float(doc_len[docs].mean())
+    tfn_s = (tf_s * (k1 + 1) / (tf_s + k1 * (1 - b + b * doc_len[d] / avg))
+             ).astype(np.float32)
+    df_s = np.bincount(t, minlength=VOCAB).astype(np.int32)
+    offsets = np.zeros(VOCAB + 1, np.int64)
+    offsets[1:] = np.cumsum(df_s)
+    lengths = np.zeros(D, np.float32)
+    lengths[:n] = doc_len[docs]
+    vecs = np.zeros((D, DIMS), np.float32)
+    vecs[:n] = vpad[docs]
+    ex = np.zeros(D, bool)
+    ex[:n] = exists[docs]
+    return {"num_docs": n, "max_docs": D, "ids": [str(x) for x in docs],
+            "fields": {"body": {
+                "terms": [f"t{x}" for x in range(VOCAB)], "df": df_s,
+                "cf": np.bincount(t, weights=tf_s,
+                                  minlength=VOCAB).astype(np.int64),
+                "offsets": offsets, "doc_ids_host": local[d],
+                "tfnorm_host": tfn_s, "tf_host": tf_s, "avg_len": avg,
+                "num_docs": n, "total_terms": int(doc_len[docs].sum()),
+                "lengths": lengths}},
+            "vectors": {"emb": {"vecs": vecs, "exists": ex, "dims": DIMS,
+                                "similarity": "cosine"}}}
+
+
+def profile_path(torch, run):
+    """(device ms, kernels, copies in, copies back) of ``run()`` under
+    torch.profiler; None when a second session records nothing too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in ev) / 1e3
+        if busy > 0:
+            return (busy, sum(e.count for e in ev if not e.key.startswith(
+                ("Memcpy", "Memset"))),
+                sum(e.count for e in ev if "HtoD" in e.key),
+                sum(e.count for e in ev if "DtoH" in e.key))
+    return None
+
+
+def phase_mesh(torch, np, dev, card, corpus, sift):
+    """Phase 5d: phase 5's corpus and phase 5b's slab split over five
+    shards by document routing, one segment a shard; phase 5's queries
+    and brute-force knn on the mesh path and on the host loop, and
+    ``search_knn`` at Q = 8. Returns the mesh run's (B1, B2) launches."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.cluster.routing import shard_id_for
+    from elasticsearch_tpu_torch.index.convert import segment_from_arrays
+    from elasticsearch_tpu_torch.monitor import kernels as counters
+    from elasticsearch_tpu_torch.ops import bm25_topk, knn_topk
+    from elasticsearch_tpu_torch.parallel import executor as mesh_exec
+    from elasticsearch_tpu_torch.search import queries
+
+    t0 = time.perf_counter()
+    u_doc, tf, tfn, offsets, df, cf, doc_len = corpus
+    shard_of = np.fromiter((shard_id_for(str(x), MESH_SHARDS)
+                            for x in range(N_DOCS)), np.int32, N_DOCS)
+    u_term = np.repeat(np.arange(VOCAB, dtype=np.int32), df)
+    node = Node(name="mesh", device=dev)
+    node.create_index("mesh5", {
+        "settings": {"number_of_shards": MESH_SHARDS},
+        "mappings": MESH_MAPPING})
+    svc = node.get_index("mesh5")
+    qs = make_queries(np, N_QUERIES, VOCAB, df, SEED)
+    # the exact f64 scorer on each shard's own arrays (per-shard idf and
+    # average length, as the engine scores a shard): (score, shard, local,
+    # doc) of each shard's top 10, and the hit counts
+    exact_cands = [[] for _ in qs]
+    exact_totals = [0] * len(qs)
+    for s in range(MESH_SHARDS):
+        arrays = shard_arrays(np, corpus, u_term, sift, shard_of, s)
+        fb = arrays["fields"]["body"]
+        docs = np.asarray(arrays["ids"], np.int64)
+        for n, q in enumerate(qs):
+            ids, sc, total = exact_top10(
+                np, q, fb["doc_ids_host"], fb["tfnorm_host"], fb["offsets"],
+                fb["df"], arrays["num_docs"], arrays["max_docs"])
+            exact_cands[n] += [(float(v), s, int(i), int(docs[i]))
+                               for v, i in zip(sc, ids)]
+            exact_totals[n] += total
+        svc.shards[s].engine.add_segment(segment_from_arrays(
+            arrays, node.residency))
+        del arrays, fb
+    del u_term
+    sizes = np.bincount(shard_of, minlength=MESH_SHARDS)
+    torch.cuda.synchronize()
+    log(f"[mesh] {N_DOCS} docs over {MESH_SHARDS} shards by "
+        f"shard_id_for ({', '.join(map(str, sizes))} docs), one segment "
+        f"each with its text postings and slab rows; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def on_mesh(flag):
+        svc.settings["search"] = {"mesh": flag}
+
+    def run(bodies):
+        times, got = [], []
+        for body in bodies:
+            t = time.perf_counter()
+            got.append(node.search("mesh5", copy.deepcopy(body)))
+            times.append(time.perf_counter() - t)
+        return np.array(times) * 1e3, got
+
+    bodies = [{"query": {"match": {"body": " ".join(f"t{t}" for t in q)}},
+               "size": 10} for q in qs]
+    warm = {"query": {"match": {"body": "t1 t2 t3"}}, "size": 10}
+    qv = sift[4](16)
+    knn_bodies = [{"query": {"knn": {"field": "emb", "ann": False,
+                                     "query_vector": [float(a) for a in v]}},
+                   "size": 10} for v in qv[:8]]
+    results = {}
+    for path in (True, False):
+        on_mesh(path)
+        # first-use set-up (dense blocks, stacked postings), untimed
+        node.search("mesh5", dict(warm))
+        node.search("mesh5", copy.deepcopy(knn_bodies[0]))
+        counters.reset()
+        bm25_topk.LAUNCHES = knn_topk.LAUNCHES = 0
+        ms, got = run(bodies)
+        b1 = bm25_topk.LAUNCHES
+        kms, kgot = run(knn_bodies)
+        b2 = knn_topk.LAUNCHES
+        snap = counters.snapshot()
+        # a repeat of the same requests: the mesh's prepared-query memo
+        # serves them without a build or a copy in
+        ms2, _ = run(bodies)
+        # the device's view of first requests ("from": 0 makes each body
+        # new to the memo; the stacked segment data stays cached)
+        prof = profile_path(torch, lambda: run(
+            [dict(b, **{"from": 0}) for b in bodies]))
+        kprof = profile_path(torch, lambda: run(
+            [dict(b, **{"from": 0}) for b in knn_bodies]))
+        results[path] = (ms, got, b1, kms, kgot, b2, snap, ms2, prof, kprof)
+    on_mesh(True)
+    (ms, got, b1, kms, kgot, b2, snap, ms2, prof, kprof) = results[True]
+    if snap.get("mesh_search") != len(bodies) + len(knn_bodies) \
+            or snap.get("mesh_fallback_total"):
+        raise AssertionError(f"phase 5d: the mesh path did not serve every "
+                             f"request: {snap}")
+    if b1 == 0 or b2 == 0:
+        raise AssertionError(f"phase 5d: the mesh path launched B1 {b1} "
+                             f"and B2 {b2} times")
+    h = results[False]
+    identical = 0
+    for n, body in enumerate(bodies + knn_bodies):
+        a = (got + kgot)[n]
+        want = (h[1] + h[4])[n]
+        if [x["_id"] for x in a["hits"]["hits"]] != \
+                [x["_id"] for x in want["hits"]["hits"]]:
+            raise AssertionError(f"phase 5d query {n}: the mesh's hits "
+                                 f"differ from the host loop's")
+        check_hits(a, want, f"phase 5d query {n}, mesh vs host loop")
+        identical += a["hits"] == want["hits"]
+    # the same requests on the mesh path with B1 and B2 swapped for their
+    # twins: the same hits; scores bit for bit where no round took the
+    # generic route (whose index_add_ adds in no fixed order on the card),
+    # else at 1e-5
+    real = (queries.bm25_dense_topk, queries.knn_topk)
+    queries.bm25_dense_topk = functools.partial(real[0], plain=True)
+    queries.knn_topk = functools.partial(real[1], plain=True)
+    try:
+        for n, body in enumerate(bodies + knn_bodies):
+            before = counters.snapshot()
+            twin = node.search("mesh5", copy.deepcopy(body))
+            after = counters.snapshot()
+            generic = any(after.get(c, 0) != before.get(c, 0)
+                          for c in ("bm25_hybrid", "bm25_scatter"))
+            a = (got + kgot)[n]
+            if [x["_id"] for x in a["hits"]["hits"]] != \
+                    [x["_id"] for x in twin["hits"]["hits"]] \
+                    or (not generic and a["hits"] != twin["hits"]):
+                raise AssertionError(f"phase 5d query {n}: the mesh's hits "
+                                     f"differ from the plain twins'")
+            check_hits(a, twin, f"phase 5d query {n}, mesh vs plain twins")
+    finally:
+        queries.bm25_dense_topk, queries.knn_topk = real
+    # match queries against the exact f64 scorer: totals exact; scores
+    # within 2^-7 (phase 5's bar for B1's bf16 products), recall@10
+    recalls = []
+    for n in range(len(qs)):
+        want = sorted(exact_cands[n], key=lambda c: (-c[0], c[1], c[2]))
+        want = want[:10]
+        hits = got[n]["hits"]["hits"]
+        if got[n]["hits"]["total"] != exact_totals[n] \
+                or len(hits) != len(want):
+            raise AssertionError(f"phase 5d query {n}: total "
+                                 f"{got[n]['hits']['total']} and {len(hits)} "
+                                 f"hits, exact {exact_totals[n]} and "
+                                 f"{len(want)}")
+        sc = np.array([c[0] for c in want])
+        s_ = np.array([h["_score"] for h in hits])
+        if not (np.all(np.isfinite(s_)) and np.all(np.diff(s_) <= 0)
+                and np.allclose(s_, sc, rtol=2.0 ** -7, atol=0)):
+            raise AssertionError(f"phase 5d query {n}: scores off the exact "
+                                 f"scorer: {s_} vs {sc}")
+        recalls.append(len({int(h["_id"]) for h in hits}
+                           & {c[3] for c in want}) / len(want))
+    if np.mean(recalls) < 0.95:
+        raise AssertionError(f"phase 5d mean recall@10 {np.mean(recalls)} "
+                             f"< 0.95")
+    # knn queries against the exact f64 cosine oracle (one pass for
+    # these and search_knn's queries)
+    o_ids, o_sc, o_full = exact_cosine_top(np, sift[0], sift[1], qv, 10)
+    for r in range(len(knn_bodies)):
+        check_oracle(np, kgot[r], o_ids[r], o_sc[r], o_full[r],
+                     f"phase 5d knn query {r}")
+
+    def fmt(ms_, prof_, launches, nq, kernel):
+        if prof_ is None:
+            dev_txt = "device time not measured"
+        else:
+            busy, kern, hd, dh = prof_
+            dev_txt = (f"device {busy:.3f} ms ({100 * busy / ms_.sum():.1f}"
+                       f"% busy), {kern / nq:.1f} kernels, {hd / nq:.2f} "
+                       f"copies in and {dh / nq:.2f} back per query")
+        return (f"p50 {np.percentile(ms_, 50):.3f} ms, p99 "
+                f"{np.percentile(ms_, 99):.3f} ms, {dev_txt}, {kernel} "
+                f"{launches / nq:.2f} per query")
+
+    nb, nk = len(bodies), len(knn_bodies)
+    log(f"[mesh] {nb} match queries on {card}: mesh path "
+        f"{fmt(ms, prof, b1, nb, 'B1')}, repeated (memo) p50 "
+        f"{np.percentile(ms2, 50):.3f} ms; host loop "
+        f"{fmt(h[0], h[8], h[2], nb, 'B1')}, repeated p50 "
+        f"{np.percentile(h[7], 50):.3f} ms; hits equal on both paths "
+        f"({identical} of {nb + nk} responses bit-identical) and to the "
+        f"plain twins'; totals exact and scores within 2^-7 of the f64 "
+        f"scorer, recall@10 mean {np.mean(recalls)}, min {min(recalls)}; "
+        f"knn hits match the f64 oracle")
+    log(f"[mesh] {nk} brute-force knn queries: mesh path "
+        f"{fmt(kms, kprof, b2, nk, 'B2')}; host loop "
+        f"{fmt(h[3], h[9], h[5], nk, 'B2')}")
+
+    # search_knn at Q = 8: B2 per slot at 4k in bf16, the f32 re-rank,
+    # the merge; held against the same call on the B2 twin and against
+    # the exact f64 oracle
+    ex = svc.mesh_executor()
+    qk = qv[8:16]
+    knn_topk.LAUNCHES = 0
+    got_k = ex.search_knn("emb", qk, k=10)
+    b2_knn = knn_topk.LAUNCHES
+    t = time.perf_counter()
+    for _ in range(5):
+        ex.search_knn("emb", qk, k=10)
+    knn_ms = (time.perf_counter() - t) / 5 * 1e3
+    real = mesh_exec.knn_topk
+    mesh_exec.knn_topk = functools.partial(real, plain=True)
+    try:
+        twin = ex.search_knn("emb", qk, k=10)
+    finally:
+        mesh_exec.knn_topk = real
+    for a, w, what in zip(got_k[:4], twin[:4],
+                          ("values", "shards", "locals", "segments")):
+        if not np.array_equal(a, w):
+            raise AssertionError(f"search_knn: {what} differ from the B2 "
+                                 f"twin's")
+    vals, shard, local, seg_ord, _ = got_k
+    gid = np.array([[int(svc.shards[s].segments[o].ids[lc])
+                     for s, o, lc in zip(*r)]
+                    for r in zip(shard, seg_ord, local)])
+    for r in range(qk.shape[0]):
+        o = r + 8  # qk is qv[8:16]
+        check_oracle(np, {"hits": {"hits": [
+            {"_id": str(i), "_score": float(v)}
+            for i, v in zip(gid[r], vals[r])]}}, o_ids[o], o_sc[o],
+            o_full[o], f"search_knn query {r}")
+    log(f"[mesh] search_knn Q=8 k=10 over {MESH_SHARDS} slots: "
+        f"{knn_ms:.3f} ms a call, B2 launches {b2_knn}; equal to the B2 "
+        f"twin's, hits match the exact f64 oracle")
+    node.close()
+    return b1, b2 + b2_knn
+
+
 def _p50(np, ms) -> str:
     return f"{np.percentile(ms, 50):.3f} ms" if ms.size else "no queries"
 
@@ -1698,7 +2015,11 @@ def main() -> int:
     hyb = phase_hybrid(torch, np, dev, card, corpus, sift, ivf_index,
                        pq_parts)
     launches["maxsim_adc"] = hyb["maxsim_adc"]
-    del corpus, sift, ivf_index, pq_parts
+    del ivf_index, pq_parts
+    b1_mesh, b2_mesh = phase_mesh(torch, np, dev, card, corpus, sift)
+    launches["bm25_dense_topk"] += b1_mesh
+    launches["knn_topk"] += b2_mesh
+    del corpus, sift
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card),
               "knn_topk": timing_knn(torch, dev, card),
               "adc_scores": timing_adc(torch, dev, card, b3_case),

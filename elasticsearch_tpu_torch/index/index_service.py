@@ -1,12 +1,18 @@
 """IndexService: one index = mappings + analysis + N shards + routing.
 
 Port of elasticsearch_tpu/index/index_service.py, slim: document ops route
-by ``shard_id_for`` (murmur3 of routing or id, modulo the shard count) and
-``search`` goes straight to the host query-then-fetch loop. The mesh
-program, query cache, slowlog, replicas and percolator are not ported yet.
+by ``shard_id_for`` (murmur3 of routing or id, modulo the shard count).
+``search`` tries the mesh path first (``parallel/mesh_service.py``: one
+sequence of launches per segment round over every shard) and takes the
+host query-then-fetch loop when the mesh declines, as the reference
+does. ``index.search.mesh: false`` in the index settings, or the
+``ESTPU_DISABLE_MESH`` environment variable, pins an index to the host
+loop. The query cache, slowlog, replicas and percolator are not ported
+yet.
 """
 from __future__ import annotations
 
+import os
 import uuid
 from typing import List, Optional
 
@@ -14,6 +20,9 @@ from elasticsearch_tpu_torch.analysis.registry import AnalysisRegistry
 from elasticsearch_tpu_torch.cluster.routing import shard_id_for
 from elasticsearch_tpu_torch.index.mappings import Mappings
 from elasticsearch_tpu_torch.index.shard import IndexShard
+from elasticsearch_tpu_torch.parallel.executor import MeshSearchExecutor
+from elasticsearch_tpu_torch.parallel.mesh import shard_mesh
+from elasticsearch_tpu_torch.parallel.mesh_service import try_mesh_search
 from elasticsearch_tpu_torch.resources.residency import Residency
 from elasticsearch_tpu_torch.search.service import search_shards
 from elasticsearch_tpu_torch.utils.errors import (IllegalArgumentException,
@@ -26,6 +35,7 @@ class IndexService:
                  mappings_json: Optional[dict] = None,
                  data_path: Optional[str] = None):
         self.name = name
+        self.residency = residency
         self.settings = settings or {}
         idx_settings = self.settings.get("index", self.settings)
         self.num_shards = int(idx_settings.get("number_of_shards", 1))
@@ -36,6 +46,7 @@ class IndexService:
             IndexShard(name, i, self.mappings, self.analysis, residency,
                        data_path)
             for i in range(self.num_shards)]
+        self._mesh_executor: Optional[MeshSearchExecutor] = None
         if data_path:
             for shard in self.shards:
                 shard.recover()
@@ -109,14 +120,41 @@ class IndexService:
         for s in self.shards:
             s.refresh()
 
+    def mesh_executor(self) -> MeshSearchExecutor:
+        """The index's MeshSearchExecutor: one slot per shard on the
+        node's device, over the live shards (never a segment snapshot,
+        which would pin merged-away segments); its caches live as long
+        as the index."""
+        if self._mesh_executor is None:
+            self._mesh_executor = MeshSearchExecutor(
+                shard_mesh(self.num_shards, self.residency.device),
+                self.shards, self.residency)
+        return self._mesh_executor
+
+    def _mesh_enabled(self) -> bool:
+        if os.environ.get("ESTPU_DISABLE_MESH"):
+            return False
+        idx = self.settings.get("index", self.settings)
+        return str(idx.get("search", {}).get("mesh", True)).lower() \
+            != "false"
+
     def search(self, body: dict) -> dict:
-        return search_shards([s.searcher for s in self.shards], body or {},
-                             index_name=self.name)
+        body = body or {}
+        searchers = [s.searcher for s in self.shards]
+        resp = None
+        if self._mesh_enabled():
+            # the default path; the host loop serves what the mesh declines
+            resp = try_mesh_search(self, searchers, body)
+        if resp is None:
+            resp = search_shards(searchers, body, index_name=self.name)
+        return resp
 
     @property
     def num_docs(self) -> int:
         return sum(s.engine.num_docs for s in self.shards)
 
     def close(self):
+        if self._mesh_executor is not None:
+            self._mesh_executor.close()
         for s in self.shards:
             s.close()

@@ -1,0 +1,46 @@
+"""Kernel-dispatch counters: which device route served each query.
+
+Copy of elasticsearch_tpu/monitor/kernels.py (the port keeps its own).
+Dispatch decisions happen in host code (query execution, prim build,
+mesh_service routing), so each ``record()`` call site marks one served
+request component.
+
+Names the port records:
+  bm25_scatter        pure scatter-add postings scoring (host or mesh)
+  bm25_hybrid         dense-impact row gather + scatter tail
+  bm25_fused_topk     kernel B1's fused dense top-k (no [D] score row)
+  knn_fused_topk      kernel B2's fused scores + mask + top-k, brute force
+  mesh_search         request served by the mesh product path
+  mesh_fallback_total request fell back to the host per-shard loop
+  mesh_host_by_design request routed to the host loop ON PURPOSE (IVF
+                      probing, MaxSim, hybrid) — not a fallback
+  executor_prep_hit   a search round reused a prepared-query memo entry
+                      (its device inputs: no build, no copy in)
+  executor_prep_miss  a memoizable round built its inputs fresh
+  executor_data_hit   a segment round's stacked device data was reused
+  executor_data_miss  a segment round's stacked device data was built
+"""
+from __future__ import annotations
+
+import threading
+from collections import defaultdict
+from typing import Dict
+
+_LOCK = threading.Lock()
+_COUNTS: Dict[str, int] = defaultdict(int)
+
+
+def record(name: str, n: int = 1) -> None:
+    with _LOCK:
+        _COUNTS[name] += n
+
+
+def snapshot() -> Dict[str, int]:
+    with _LOCK:
+        return dict(_COUNTS)
+
+
+def reset() -> None:
+    """Test isolation only."""
+    with _LOCK:
+        _COUNTS.clear()

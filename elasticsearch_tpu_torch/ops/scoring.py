@@ -6,6 +6,13 @@ host path calls. The reference's forms that exist only to suit XLA:TPU
 blocked ``exact_topk``, the packed single-pull result) are not ported:
 on the card a scatter is an ``index_add_``.
 
+The ``*_slots`` forms serve the mesh path (``parallel/``): the same
+arithmetic over S slots at once, postings ``[S, NNZ]`` and chunk tables
+``[S, T]``, each slot's scatter going to its own ``D + 1`` row of one
+flat buffer, one ``index_add_`` per chunk position for all slots. A
+doc's sum runs in the same chunk order as the per-segment form, so the
+two agree bit for bit.
+
 Postings windows: a query term's run is a ``(start, len)`` chunk of the
 segment's padded CSR; ``P`` is the window width (>= every chunk length)
 and ``D`` the segment's ``max_docs``. Scatters go into a ``D + 1`` buffer
@@ -68,6 +75,52 @@ def match_count_segment(doc_ids, starts, lens, *, P: int, D: int):
 def term_mask(doc_ids, starts, lens, *, P: int, D: int):
     """bool[D]: docs containing ANY of the chunks."""
     return match_count_segment(doc_ids, starts, lens, P=P, D=D) > 0
+
+
+def _windows_slots(doc_ids, starts, lens, P: int, D: int):
+    """(flat i64[S, T, P], pos i64[S, T, P], valid bool[S, T, P]):
+    ``_windows`` per slot, with slot s's doc d at flat index
+    s * (D + 1) + d and invalid entries at s * (D + 1) + D."""
+    S, nnz = doc_ids.shape
+    dev = doc_ids.device
+    ar = torch.arange(P, dtype=torch.int64, device=dev)
+    valid = ar < lens.to(torch.int64).unsqueeze(2)
+    pos = torch.clamp(starts.to(torch.int64).unsqueeze(2) + ar, max=nnz - 1)
+    docs = torch.gather(doc_ids, 1, pos.view(S, -1)).view(pos.shape)
+    base = torch.arange(0, S * (D + 1), D + 1, dtype=torch.int64,
+                        device=dev).view(S, 1, 1)
+    return torch.where(valid, docs + base, base + D), pos, valid
+
+
+def _scatter_sum_slots(flat, contrib, D: int):
+    """Chunk position t of every slot in one ``index_add_``, t in order."""
+    S, T = flat.shape[:2]
+    out = torch.zeros(S * (D + 1), dtype=contrib.dtype, device=contrib.device)
+    for f, c in zip(flat.transpose(0, 1).reshape(T, -1).unbind(0),
+                    contrib.transpose(0, 1).reshape(T, -1).unbind(0)):
+        out.index_add_(0, f, c)
+    return out.view(S, D + 1)[:, :D]
+
+
+def bm25_score_slots(doc_ids, tfnorm, starts, lens, weights, *, P: int,
+                     D: int):
+    """f32[S, D]: ``bm25_score_segment`` of each slot."""
+    flat, pos, valid = _windows_slots(doc_ids, starts, lens, P, D)
+    tf = torch.gather(tfnorm, 1, pos.view(pos.shape[0], -1)).view(pos.shape)
+    contrib = torch.where(valid, tf * weights.unsqueeze(2),
+                          torch.zeros((), device=doc_ids.device))
+    return _scatter_sum_slots(flat, contrib, D)
+
+
+def match_count_slots(doc_ids, starts, lens, *, P: int, D: int):
+    """i32[S, D]: ``match_count_segment`` of each slot."""
+    flat, _, valid = _windows_slots(doc_ids, starts, lens, P, D)
+    return _scatter_sum_slots(flat, valid.to(torch.int32), D)
+
+
+def term_mask_slots(doc_ids, starts, lens, *, P: int, D: int):
+    """bool[S, D]: ``term_mask`` of each slot."""
+    return match_count_slots(doc_ids, starts, lens, P=P, D=D) > 0
 
 
 def pack_dense_rows(row_w: dict):

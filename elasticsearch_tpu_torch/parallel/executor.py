@@ -1,0 +1,632 @@
+"""Distributed query execution over the shard slots of one card.
+
+Port of elasticsearch_tpu/parallel/executor.py. The reference scatters
+the query phase over a ``('shard',)`` mesh as one ``shard_map`` program:
+per-shard scoring and top-k, an ``all_gather`` merge and ``psum`` totals.
+On one H100 the mesh is S slots of one device (``parallel/mesh.py``): a
+segment round — the r-th segment of every shard — runs as one sequence
+of PyTorch ops and kernel launches over slot-stacked ``[S, ...]``
+tensors, and the round's merged top-k comes back to the host in one
+copy of one packed buffer.
+
+Host work per round: compile the query (``parallel/compiler.py``), build
+each prim's data, pack the per-request tables into one word buffer and
+copy it to the card once. A repeated identical request skips the build
+and the copy through the prepared-query memo. Segment data is never
+re-uploaded: at S = 1 the round passes the segment's own tensors; at
+S > 1 the stacked copies (live masks, postings, columns) live in an LRU
+keyed by segment identity and charged to the ``fielddata`` breaker,
+released on eviction and on ``close``. A memo entry holds only the key
+of such a copy, never the copy, and looks it up again each time it runs
+(rebuilding it, charged, after an eviction). Dense impact blocks and
+vector slabs are never copied.
+
+Routes inside a round:
+- a request that is a pure disjunctive term group on dense rows (the
+  host loop's fused shape) runs kernel B1's rows form with its hit count
+  on every slot whose part is pure-dense, on that slot's own block; at
+  S = 1 that is the whole round: one copy in, B1's two kernels, one copy
+  back. A round with no other non-empty slot builds and copies only B1's
+  rows and weights; otherwise the other slots take the generic route,
+  which gathers no dense row of a slot B1 serves;
+- every other request runs the compiled emit tree over the stacked
+  tensors, then one stable top-k per slot;
+- ``search_knn`` / ``search_maxsim``: kernel B2 per slot at k' = 4k in
+  bf16, then an f32 re-rank (``exact_rescore_topk``), MaxSim's per-doc
+  max (``merge_candidate_topk``), and the merge across slots.
+
+Slots merge in shard order, so the result does not depend on how shards
+map to slots. A failure after a launch raises: only ``MeshCompileError``,
+raised before anything runs, sends a request to the host loop.
+"""
+from __future__ import annotations
+
+import functools
+import itertools
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from elasticsearch_tpu_torch.monitor import kernels
+from elasticsearch_tpu_torch.ops.bm25_topk import unpack_topk
+from elasticsearch_tpu_torch.ops.knn import (exact_rescore_topk, knn_topk,
+                                             merge_candidate_topk)
+from elasticsearch_tpu_torch.parallel.compiler import (HybridTGroupPrim,
+                                                       MeshQueryCompiler,
+                                                       TGroupPrim)
+from elasticsearch_tpu_torch.parallel.mesh import ShardMesh, mesh_size
+from elasticsearch_tpu_torch.search import queries as Q
+from elasticsearch_tpu_torch.search.context import SegmentContext
+from elasticsearch_tpu_torch.utils.shapes import pow2_bucket
+
+NEG_INF = float("-inf")
+
+#: stacked segment-round data groups kept per executor
+_DATA_CACHE_CAP = 32
+#: prepared-query memo entries kept per executor
+_PREP_CACHE_CAP = 64
+
+
+def _shard_order(lut_shard) -> List[int]:
+    """The slots in the order of the shards they hold (empty slots last):
+    candidates merge by (-score, shard, local) whatever the layout."""
+    return sorted(range(len(lut_shard)),
+                  key=lambda s: (lut_shard[s] < 0, lut_shard[s]))
+
+
+def _pack_words(tables) -> np.ndarray:
+    """One int32 word buffer of 4-byte numpy tables, in order."""
+    if len(tables) == 1 and tables[0].dtype == np.int32:
+        return tables[0].reshape(-1)
+    return np.concatenate([np.ascontiguousarray(a).reshape(-1).view(np.int32)
+                           for a in tables] or [np.zeros(0, np.int32)])
+
+
+def _word_view(words: torch.Tensor, off: int, a: np.ndarray):
+    """The view of the device word buffer that holds table ``a`` at word
+    ``off``, in its dtype and shape."""
+    t = words[off: off + a.size]
+    if a.dtype == np.float32:
+        t = t.view(torch.float32)
+    return t.view(a.shape)
+
+
+class _Env(dict):
+    """prim index → its items, made when an emit first reads the prim:
+    a table becomes its view of the word buffer, a deferred item (a
+    callable) is called. A route that reads few prims makes few tensor
+    ops, each of which costs host time on the card. One is made for each
+    run of a round and dropped after it, so a memo entry pins no stacked
+    copy."""
+
+    def __init__(self, items):
+        super().__init__()
+        self._items = items
+
+    def __missing__(self, i):
+        its = tuple(a() if callable(a) else a for a in self._items[i])
+        self[i] = its
+        return its
+
+
+class _SlotData:
+    """What ``DataPrim.build`` gets: slot-stacked views or cached copies
+    of the round's segment data."""
+
+    def __init__(self, executor: "MeshSearchExecutor", seg_row):
+        self.executor = executor
+        self.seg_row = seg_row
+
+    def _stack(self, per_slot, length, fill, dtype, fix):
+        out = torch.full((len(self.seg_row), length), fill, dtype=dtype,
+                         device=self.executor.device)
+        for s, seg in enumerate(self.seg_row):
+            t = per_slot(seg) if seg is not None else None
+            if t is not None:
+                out[s, : t.shape[0]] = fix(seg, t) if fix is not None else t
+        return out
+
+    def stacked(self, key, per_slot, length: int, fill, dtype, fix=None):
+        """A deferred [S, length] of ``per_slot(segment)`` (a 1-D tensor or
+        None, padded with ``fill``; ``fix(segment, t)`` adjusts a row when
+        it is copied), made when an emit reads it. At S = 1 a view of the
+        segment's own tensor; at S > 1 a copy from the executor's data
+        cache, looked up by ``key`` on every run."""
+        stack = functools.partial(self._stack, per_slot, length, fill, dtype,
+                                  fix)
+        if len(self.seg_row) == 1:
+            seg = self.seg_row[0]
+            t = per_slot(seg) if seg is not None else None
+            if t is not None and t.shape[0] == length:
+                return functools.partial(t.unsqueeze, 0)
+            return stack
+        nbytes = len(self.seg_row) * length * torch.empty(
+            (), dtype=dtype).element_size()
+        return functools.partial(self.executor._cached_data, key, nbytes,
+                                 stack, self.seg_row)
+
+
+@dataclass
+class _Round:
+    """One prepared segment round: what the memo keeps."""
+
+    compiled: Any
+    # per prim: its items for an _Env (views of the word buffer and
+    # segment tensors, deferred); None when no slot takes the generic
+    # route
+    items: Optional[List[list]]
+    meta: Dict[int, tuple]
+    kk: int
+    # per slot: (qw [1, R], rows [R], block, live, k) of B1's rows form,
+    # or None for the generic route or an empty slot
+    fused: List[Optional[tuple]]
+    perm: Optional[torch.Tensor]  # the slots in shard order (S > 1)
+    words: torch.Tensor  # the round's tables on the card
+    refs: List[Any]  # the round's segments, pinned while the entry lives
+
+    @property
+    def nbytes(self) -> int:
+        """The word buffer's bytes: what a memo entry charges."""
+        return int(self.words.numel()) * 4
+
+
+class MeshSearchExecutor:
+    """Runs queries over N shards laid out on S slots of one card.
+
+    Segments are searched in rounds (round r stacks the r-th segment of
+    every shard; a shard with fewer segments leaves its slot empty), and
+    rounds merge on the host. More shards than slots wrap round-robin
+    (shard i → slot i % S, its segments joining that slot's rounds)."""
+
+    def __init__(self, mesh: ShardMesh, shards, residency):
+        self.mesh = mesh
+        self.S = mesh_size(mesh)
+        self.device = mesh.device
+        self.residency = residency
+        self.shards = list(shards)
+        if len(self.shards) < self.S:
+            raise ValueError(
+                f"mesh has {self.S} shard slots but got only "
+                f"{len(self.shards)} shards; build the mesh with "
+                f"shard_mesh(n_shards)")
+        # prepared-query memo (LRU): (canonical body, round, segment
+        # identity + tombstone counts, k) → _Round
+        self._prep: "OrderedDict[Tuple, _Round]" = OrderedDict()
+        self._prep_lock = threading.Lock()
+        # stacked device data per segment round (S > 1), LRU-bounded:
+        # key → (tensor, pinned segments, charged bytes)
+        self._data: "OrderedDict[Tuple, tuple]" = OrderedDict()
+        self._data_lock = threading.Lock()
+
+    # -- caches ------------------------------------------------------------
+
+    def _cached_data(self, key, nbytes: int, build, refs):
+        """A stacked copy keyed by segment ids. ``refs`` (the segments)
+        are kept with it so a cached id() can never be recycled while the
+        entry lives. The bytes are charged to the ``fielddata`` breaker
+        before the copy is made (a denial raises the typed
+        CircuitBreakingException) and released on eviction or close."""
+        with self._data_lock:
+            if key in self._data:
+                self._data.move_to_end(key)
+                kernels.record("executor_data_hit")
+                return self._data[key][0]
+        kernels.record("executor_data_miss")
+        self.residency.charge(nbytes, label="executor.data")
+        try:
+            val = build()
+        except BaseException:
+            self.residency.release(nbytes)
+            raise
+        evicted = []
+        with self._data_lock:
+            if key in self._data:  # a concurrent build won
+                evicted.append(nbytes)
+                val = self._data[key][0]
+            else:
+                self._data[key] = (val, list(refs), nbytes)
+                while len(self._data) > _DATA_CACHE_CAP:
+                    evicted.append(self._data.popitem(last=False)[1][2])
+        for n in evicted:
+            self.residency.release(n)
+        return val
+
+    def data_bytes(self) -> int:
+        """Bytes the stacked-data cache holds (and has charged)."""
+        with self._data_lock:
+            return sum(e[2] for e in self._data.values())
+
+    def close(self) -> None:
+        """Release every cached copy and memo entry and their charges."""
+        with self._data_lock:
+            data, self._data = list(self._data.values()), OrderedDict()
+        with self._prep_lock:
+            prep, self._prep = list(self._prep.values()), OrderedDict()
+        for e in data:
+            self.residency.release(e[2])
+        for rd in prep:
+            self.residency.release(rd.nbytes)
+
+    # -- rounds --------------------------------------------------------------
+
+    def _rounds_for(self, shard_list):
+        cols = [[] for _ in range(self.S)]
+        for i, s in enumerate(shard_list):
+            cols[i % self.S].extend(
+                (i, ordinal, seg)
+                for ordinal, seg in enumerate(_segments_of(s)))
+        max_rounds = max((len(c) for c in cols), default=0) or 1
+        return [[c[r] if r < len(c) else None for c in cols]
+                for r in range(max_rounds)]
+
+    def _compile(self, query, mappings, analysis, seg_row):
+        D = pow2_bucket(max((s.max_docs if s is not None else 1)
+                            for s in seg_row))
+
+        def has_dense(field):
+            # builds the lazy dense block as the host loop's
+            # ctx.hybrid_slices → inv.dense_block() does
+            for s in seg_row:
+                inv = s.inverted.get(field) if s is not None else None
+                if inv is not None and inv.dense_block() is not None:
+                    return True
+            return False
+
+        return MeshQueryCompiler(mappings, analysis, D=D,
+                                 has_dense=has_dense).compile(query)
+
+    def _build_round(self, compiled, mappings, analysis, seg_row, lut_shard,
+                     k: int) -> _Round:
+        """Build the prims' data and copy the round's tables to the card
+        in one word buffer. A fused request builds its term group first:
+        when no non-empty slot needs the generic route, nothing else is
+        built or copied."""
+        D = compiled.D
+        kk = min(k, D)
+        ctxs = [SegmentContext(s, mappings, analysis) if s is not None
+                else None for s in seg_row]
+        data = _SlotData(self, seg_row)
+        items: List[list] = []
+        meta: Dict[int, tuple] = {}
+        f = compiled.fused
+        on_b1 = [False] * len(seg_row)
+        if f is not None:
+            compiled.prims[f].scan(seg_row, ctxs)
+            on_b1 = [seg is not None and compiled.prims[f].fused[s]
+                     for s, seg in enumerate(seg_row)]
+        generic = any(seg is not None and not b
+                      for seg, b in zip(seg_row, on_b1)) or f is None
+        tables: List[np.ndarray] = []
+        if generic:  # the term group reuses its scan
+            for i, prim in enumerate(compiled.prims):
+                its, meta[i] = prim.build(seg_row, ctxs, D, data)
+                items.append(its)
+            tables = [a for its in items for a in its
+                      if isinstance(a, np.ndarray)]
+        perm_t = len(tables)  # the slots in shard order (S > 1)
+        if len(seg_row) > 1:
+            tables.append(np.asarray(_shard_order(lut_shard), np.int32))
+        # B1's arguments of each pure-dense slot: its real rows' weights
+        # then the rows, one table each (fused_bm25_topk's layout)
+        fused: List[Optional[tuple]] = [None] * len(seg_row)
+        for s, seg in enumerate(seg_row):
+            if on_b1[s]:
+                block, rows, w = compiled.prims[f].b1_args(s)
+                fused[s] = (len(tables), rows.size, block, seg.live)
+                tables.append(np.concatenate([w.view(np.int32), rows]))
+        offs = list(itertools.accumulate([a.size for a in tables],
+                                         initial=0))
+        words = torch.from_numpy(_pack_words(tables)).to(self.device)
+        env_items = None
+        if generic:
+            at = {id(a): o for a, o in zip(tables, offs)}
+            env_items = [[functools.partial(_word_view, words, at[id(a)], a)
+                          if isinstance(a, np.ndarray) else a for a in its]
+                         for its in items]
+            if any(on_b1):
+                # B1 serves those slots: the generic route gathers none
+                # of their dense rows
+                env_items[f][0] = [None if b else blk for blk, b in
+                                   zip(env_items[f][0], on_b1)]
+        perm = (_word_view(words, offs[perm_t], tables[perm_t])
+                if len(seg_row) > 1 else None)
+        for s, fs in enumerate(fused):
+            if fs is not None:
+                t, R, block, live = fs
+                arg = words[offs[t]: offs[t] + 2 * R]
+                fused[s] = (arg[:R].view(torch.float32).view(1, R), arg[R:],
+                            block, live, min(kk, seg_row[s].max_docs))
+        return _Round(compiled, env_items, meta, kk, fused, perm,
+                      words, [s for s in seg_row if s is not None])
+
+    def _run_round(self, rd: _Round) -> np.ndarray:
+        """Launch the round; its packed result, copied back once."""
+        compiled, kk = rd.compiled, rd.kk
+        fused = rd.fused
+        n = len(fused)
+        if n == 1 and fused[0] is not None:
+            qw, rows, block, live, ks = fused[0]
+            kernels.record("bm25_fused_topk")
+            Q.FUSED_CALLS += 1
+            return Q.bm25_dense_topk(qw, block, live, k=ks, rows=rows,
+                                     count=True, packed=True).cpu().numpy()
+        ks = {f[4] for f in fused if f is not None}
+        if all(f is not None for f in fused) and ks == {kk}:
+            # every slot on B1 at the round's k: its packed results are
+            # the stacked [S, 2k + 2] rows
+            kernels.record("bm25_fused_topk", n)
+            Q.FUSED_CALLS += n
+            buf = torch.cat([Q.bm25_dense_topk(qw, block, live, k=kk,
+                                               rows=rows, count=True,
+                                               packed=True)
+                             for qw, rows, block, live, _ in fused])
+            v, ids, totals = unpack_topk(buf, kk)
+            # a fused non-match scores <= 0: out of the merge
+            vals = torch.where(v > 0, v, NEG_INF)
+            fused = ()
+        elif rd.items is not None:
+            _record_tgroup_kernels(compiled)
+            env = _Env(rd.items)
+            scores, mask = compiled.root.sm(env, rd.meta)
+            mask = mask & env[compiled.live][0]
+            masked = torch.where(mask, scores, NEG_INF)
+            sv, si = torch.sort(masked, dim=1, descending=True, stable=True)
+            vals, ids = sv[:, :kk], si[:, :kk].to(torch.int32)
+            totals = mask.sum(1)
+        else:
+            dev = self.device
+            vals = torch.full((n, kk), NEG_INF, dtype=torch.float32,
+                              device=dev)
+            ids = torch.zeros((n, kk), dtype=torch.int32, device=dev)
+            totals = torch.zeros(n, dtype=torch.int64, device=dev)
+        for s, f in enumerate(fused):
+            if f is None:
+                continue
+            qw, rows, block, live, ks = f
+            kernels.record("bm25_fused_topk")
+            Q.FUSED_CALLS += 1
+            v, i, t = Q.bm25_dense_topk(qw, block, live, k=ks, rows=rows,
+                                        count=True)
+            if ks < kk:
+                vals[s].fill_(NEG_INF)
+            # a fused non-match scores <= 0: out of the merge
+            vals[s, :ks] = torch.where(v[0] > 0, v[0], NEG_INF)
+            ids[s, :ks] = i[0]
+            totals[s] = t[0]
+        total = totals.sum().reshape(1).view(torch.int32)
+        if n == 1:
+            return torch.cat([vals[0].contiguous().view(torch.int32),
+                              ids[0], total]).cpu().numpy()
+        perm = rd.perm.to(torch.int64)
+        pv = vals.index_select(0, perm).reshape(-1)
+        pi = ids.index_select(0, perm).reshape(-1)
+        gv, gpos = torch.sort(pv, descending=True, stable=True)
+        gv, gpos = gv[:kk], gpos[:kk]
+        return torch.cat([gv.contiguous().view(torch.int32),
+                          perm[gpos // kk].to(torch.int32), pi[gpos],
+                          total]).cpu().numpy()
+
+    @staticmethod
+    def _decode_round(out: np.ndarray, rd: _Round, lut_shard, lut_ord,
+                      merged: list) -> int:
+        """Candidates (score, shard, seg_ord, local) of one round into
+        ``merged``; returns the round's exact hit count."""
+        if len(rd.fused) == 1 and rd.fused[0] is not None:
+            vals, ids, total = unpack_topk(out, rd.fused[0][4])
+            # a fused non-match scores <= 0 or -inf
+            ok = np.isfinite(vals[0]) & (vals[0] > 0)
+            merged += [(v, lut_shard[0], lut_ord[0], i) for v, i in zip(
+                vals[0][ok].tolist(), ids[0][ok].tolist())]
+            return int(total[0])
+        kk = rd.kk
+        gvals = out[:kk].view(np.float32)
+        ok = np.isfinite(gvals)
+        glocal = out[2 * kk: 3 * kk] if len(rd.fused) > 1 \
+            else out[kk: 2 * kk]
+        gslot = out[kk: 2 * kk][ok].tolist() if len(rd.fused) > 1 \
+            else [0] * int(ok.sum())
+        merged += [(v, lut_shard[sl], lut_ord[sl], lc) for v, sl, lc in zip(
+            gvals[ok].tolist(), gslot, glocal[ok].tolist())]
+        return int(out[-2:].view(np.int64)[0])
+
+    # -- full DSL (compiled query trees) -------------------------------------
+
+    def search_dsl(self, query, mappings, analysis, k: int, shards=None,
+                   memo_key: Optional[Callable[[], Optional[bytes]]] = None):
+        """Execute a parsed query over the mesh: (cands, totals), cands a
+        list of (score, shard, seg_ord, local) for the global top k in
+        the host loop's order, totals the exact hit count. Raises
+        MeshCompileError, before anything is launched, for a query the
+        compiler does not take.
+
+        ``shards`` is the caller's snapshot of per-shard segment lists
+        (the reader the fetch phase will read); ``memo_key()`` gives the
+        serialised request body that keys the prepared-query memo, or
+        None. It is called once every round has compiled: a request the
+        mesh declines never pays for it."""
+        rows = self._rounds_for(self.shards if shards is None
+                                else list(shards))
+        # every round compiles before any round launches
+        seg_rows = [[e[2] if e is not None else None for e in row]
+                    for row in rows]
+        compiled = [self._compile(query, mappings, analysis, seg_row)
+                    for seg_row in seg_rows]
+        key = memo_key() if memo_key is not None else None
+        plans = []
+        for rno, (row, seg_row) in enumerate(zip(rows, seg_rows)):
+            prep_key = None
+            if key is not None:
+                prep_key = (key, rno,
+                            tuple((id(s), s.deleted_count)
+                                  if s is not None else None
+                                  for s in seg_row), k)
+            with self._prep_lock:
+                rd = self._prep.get(prep_key) if prep_key is not None \
+                    else None
+                if rd is not None:
+                    self._prep.move_to_end(prep_key)
+            plans.append((row, seg_row, prep_key, rd, compiled[rno]))
+        merged: List[tuple] = []
+        totals = 0
+        for row, seg_row, prep_key, rd, compiled in plans:
+            lut_shard = [e[0] if e is not None else -1 for e in row]
+            lut_ord = [e[1] if e is not None else 0 for e in row]
+            if rd is None:
+                rd = self._build_round(compiled, mappings, analysis, seg_row,
+                                       lut_shard, k)
+                if prep_key is not None:
+                    kernels.record("executor_prep_miss")
+                    self._remember(prep_key, rd)
+            else:
+                kernels.record("executor_prep_hit")
+            totals += self._decode_round(self._run_round(rd), rd, lut_shard,
+                                         lut_ord, merged)
+        # the host loop's order: per shard (-score, seg, local) cut at k
+        # (query_phase), then globally (-score, shard, local), stable
+        # (search_shards)
+        by_shard: Dict[int, list] = {}
+        for t in merged:
+            by_shard.setdefault(t[1], []).append(t)
+        out: List[tuple] = []
+        for sh in sorted(by_shard):
+            lst = by_shard[sh]
+            lst.sort(key=lambda t: (-t[0], t[2], t[3]))
+            out.extend(lst[:k])
+        out.sort(key=lambda t: (-t[0], t[1], t[3]))
+        return out[:k], totals
+
+    def _remember(self, prep_key, rd: _Round) -> None:
+        """Keep a prepared round, dropping the least recent past the
+        cap."""
+        self.residency.charge(rd.nbytes, label="executor.prep", force=True)
+        dropped = []
+        with self._prep_lock:
+            old = self._prep.pop(prep_key, None)
+            if old is not None:
+                dropped.append(old)
+            self._prep[prep_key] = rd
+            while len(self._prep) > _PREP_CACHE_CAP:
+                dropped.append(self._prep.popitem(last=False)[1])
+        for ent in dropped:
+            self.residency.release(ent.nbytes)
+
+    # -- kNN -------------------------------------------------------------------
+
+    def search_knn(self, field: str, queries: np.ndarray, k: int = 10,
+                   metric: str = "cosine"):
+        """queries f32[Q, dims] → (vals, shard, local, seg_ord [Q, k],
+        totals=None), merged over every segment round."""
+        q = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(
+            self.device)
+
+        def topk(vecs, live):
+            kp = min(4 * k, vecs.shape[0])
+            vals, idx = knn_topk(q, vecs, live, k=kp, metric=metric)
+            vals, idx = exact_rescore_topk(q, vecs, vals, idx, metric=metric)
+            return vals[:, :k], idx[:, :k]
+
+        return self._search_vector_rounds(field, q.shape[0], k, topk)
+
+    def search_maxsim(self, field: str, tokens: np.ndarray, k: int = 10,
+                      metric: str = "cosine"):
+        """Multi-vector MaxSim: tokens f32[Q, T, dims] → (vals, shard,
+        local, seg_ord [Q, k], totals=None); a doc's score is the max
+        over the request's tokens."""
+        nq, T, dims = tokens.shape
+        flat = torch.from_numpy(np.ascontiguousarray(
+            tokens, np.float32).reshape(nq * T, dims)).to(self.device)
+
+        def topk(vecs, live):
+            kp = min(4 * k, vecs.shape[0])
+            vals, idx = knn_topk(flat, vecs, live, k=kp, metric=metric)
+            vals, idx = exact_rescore_topk(flat, vecs, vals, idx,
+                                           metric=metric)
+            vals, idx, _ = merge_candidate_topk(
+                vals.reshape(nq, T * kp), idx.reshape(nq, T * kp),
+                k=min(k, T * kp))
+            return vals, idx
+
+        return self._search_vector_rounds(field, nq, k, topk)
+
+    def _search_vector_rounds(self, field: str, nq: int, k: int, topk):
+        """Per round: ``topk(vecs, live)`` on every slot's own slab (B2
+        and the re-rank), the slots stacked in shard order, one sorted
+        merge per request, one copy back; rounds merge on the host."""
+        merged = None
+        for row in self._rounds_for(self.shards):
+            lut_shard = [e[0] if e is not None else -1 for e in row]
+            lut_ord = [e[1] if e is not None else 0 for e in row]
+            order = _shard_order(lut_shard)
+            vals = torch.full((len(row), nq, k), NEG_INF,
+                              dtype=torch.float32, device=self.device)
+            ids = torch.zeros((len(row), nq, k), dtype=torch.int32,
+                              device=self.device)
+            for pos, s in enumerate(order):
+                seg = row[s][2] if row[s] is not None else None
+                vc = seg.vectors.get(field) if seg is not None else None
+                if vc is None:
+                    continue
+                kernels.record("knn_fused_topk")
+                v, i = topk(vc.vecs, seg.live & vc.exists)
+                vals[pos, :, : v.shape[1]] = v
+                ids[pos, :, : v.shape[1]] = i
+            flat_v = vals.permute(1, 0, 2).reshape(nq, -1)
+            flat_i = ids.permute(1, 0, 2).reshape(nq, -1)
+            gv, gpos = torch.sort(flat_v, dim=1, descending=True,
+                                  stable=True)
+            gv, gpos = gv[:, :k], gpos[:, :k]
+            out = torch.cat([gv.contiguous().view(torch.int32),
+                             (gpos // k).to(torch.int32),
+                             torch.gather(flat_i, 1, gpos)],
+                            dim=1).cpu().numpy()
+            slot = np.asarray(order, np.int32)[out[:, k: 2 * k]]
+            res = (out[:, :k].view(np.float32),
+                   np.asarray(lut_shard, np.int32)[slot], out[:, 2 * k:],
+                   np.asarray(lut_ord, np.int32)[slot], None)
+            merged = res if merged is None else _merge_rounds(merged, res, k)
+        return merged
+
+
+def _record_tgroup_kernels(compiled) -> None:
+    """Dispatch counters: which scoring form serves each term group of a
+    round the generic route runs."""
+    n_hybrid = sum(1 for p in compiled.prims
+                   if isinstance(p, HybridTGroupPrim))
+    n_scatter = sum(1 for p in compiled.prims if type(p) is TGroupPrim)
+    if n_hybrid:
+        kernels.record("bm25_hybrid", n_hybrid)
+    if n_scatter:
+        kernels.record("bm25_scatter", n_scatter)
+
+
+def _segments_of(s) -> list:
+    """A shard slot's segment list (live view where possible)."""
+    if s is None:
+        return []
+    if isinstance(s, list):
+        return s
+    segs = getattr(s, "segments", None)
+    if isinstance(segs, list):
+        return segs
+    return [s]  # a bare segment
+
+
+def _merge_rounds(a, b, k):
+    """Host merge of two (vals, shard, local, seg_ord, totals) sets."""
+    av, ash, al, ar, at = a
+    bv, bsh, bl, br, bt = b
+    v = np.concatenate([av, bv], axis=1)
+    sh = np.concatenate([ash, bsh], axis=1)
+    lo = np.concatenate([al, bl], axis=1)
+    rn = np.concatenate([ar, br], axis=1)
+    order = np.argsort(-v, axis=1, kind="stable")[:, :k]
+
+    def take(x):
+        return np.take_along_axis(x, order, axis=1)
+
+    totals = None if at is None else at + bt
+    return take(v), take(sh), take(lo), take(rn), totals

@@ -1,0 +1,105 @@
+"""The product search path over the shard mesh.
+
+Port of elasticsearch_tpu/parallel/mesh_service.py's ``try_mesh_search``.
+``IndexService.search`` lands here first: the parsed query compiles
+(``parallel/compiler.py``) into one sequence of launches per segment
+round over every shard (``parallel/executor.py``), and only the fetch
+phase stays per shard on the host. Anything the compiler can't express
+returns None and the caller takes the host per-shard loop in
+``search/service.py`` (the same result, shard after shard). The response
+is assembled as the host loop assembles it, so the two are identical
+apart from ``took`` and the scores' last bits.
+
+Sort staging and aggregations come with ROADMAP A6 (the port's
+``check_body`` refuses those keys today), ``try_mesh_msearch`` with A5.
+"""
+from __future__ import annotations
+
+import pickle
+import time
+from typing import Any, Dict, List, Optional
+
+from elasticsearch_tpu_torch.monitor import kernels
+from elasticsearch_tpu_torch.parallel.compiler import MeshCompileError
+from elasticsearch_tpu_torch.search.queries import parse_query
+from elasticsearch_tpu_torch.search.service import ShardDoc, check_body
+
+# host-loop-only request features: their presence skips the mesh path
+_UNSUPPORTED_KEYS = ("rescore", "search_after", "min_score", "scroll",
+                     "profile", "terminate_after", "timeout",
+                     "indices_boost")
+
+_BY_DESIGN = object()  # host path chosen on purpose (IVF probing, hybrid)
+
+
+def try_mesh_search(svc, searchers, body: dict) -> Optional[dict]:
+    """Mesh-execute a search request; None → the caller uses the host
+    loop."""
+    resp = _try_mesh_search(svc, searchers, body)
+    if resp is _BY_DESIGN:
+        kernels.record("mesh_host_by_design")
+        return None
+    kernels.record("mesh_search" if resp is not None
+                   else "mesh_fallback_total")
+    return resp
+
+
+def _canonical(body: dict) -> Optional[bytes]:
+    """The prepared-query memo key: the request body, serialised (a
+    repeated request skips build and copy; the round always re-runs).
+    A pickle, not JSON: it writes a vector's floats as bytes, where JSON
+    formats each one (0.2 ms for 128 floats); equal pickles are equal
+    bodies, and the same body written in another key order only misses."""
+    try:
+        return pickle.dumps(body, protocol=pickle.HIGHEST_PROTOCOL)
+    except (TypeError, pickle.PicklingError, AttributeError):
+        return None
+
+
+def _try_mesh_search(svc, searchers, body: dict):
+    body = body or {}
+    check_body(body)  # the host loop's typed refusal, raised here too
+    for key in _UNSUPPORTED_KEYS:
+        if body.get(key):
+            return None
+    size = int(body.get("size", 10))
+    frm = int(body.get("from", 0))
+    if frm + size > 10_000:
+        return None  # the host loop raises the max_result_window error
+    query = parse_query(body.get("query"))
+    t0 = time.perf_counter()
+    executor = svc.mesh_executor()
+    k = max(frm + size, 1)
+    shard_segs = [list(s.segments) for s in searchers]
+    try:
+        cands, totals = executor.search_dsl(
+            query, svc.mappings, svc.analysis, k, shards=shard_segs,
+            memo_key=lambda: _canonical(body))
+    except MeshCompileError as e:
+        return _BY_DESIGN if e.by_design else None
+
+    docs = [ShardDoc(sh, shard_segs[sh][seg_ord], local, val)
+            for val, sh, seg_ord, local in cands]
+    page = docs[frm: frm + size]
+    max_score = max(v for v, *_ in cands) if cands else None
+
+    # fetch phase per shard, then restore the global order
+    by_shard: Dict[int, List[ShardDoc]] = {}
+    for d in page:
+        by_shard.setdefault(d.shard_ord, []).append(d)
+    fetched: Dict[int, dict] = {}
+    for sh, ds in by_shard.items():
+        for d, h in zip(ds, searchers[sh].fetch_phase(ds, body, svc.name)):
+            fetched[id(d)] = h
+    response: Dict[str, Any] = {
+        "took": int((time.perf_counter() - t0) * 1000),
+        "timed_out": False,
+        "_shards": {"total": len(searchers), "successful": len(searchers),
+                    "failed": 0},
+        "hits": {
+            "total": totals,
+            "max_score": max_score,
+            "hits": [fetched[id(d)] for d in page],
+        },
+    }
+    return response

@@ -12,6 +12,10 @@ tensor a segment keeps on the device is placed here, onto the owning
   denied charge raises ``CircuitBreakingException``,
   or returns None when the caller marked the structure best-effort.
 
+- :meth:`Residency.charge` / :meth:`Residency.release` — bytes a caller
+  places itself and frees on its own schedule (the mesh executor's
+  stacked copies and prepared queries), charged to the same breaker.
+
 LRU eviction and rehydration of the fielddata tier are not ported yet
 (ROADMAP): a charged tensor stays resident until its segment is dropped.
 """
@@ -61,3 +65,17 @@ class Residency:
         except Exception:
             br.release(n)  # a failed placement must not leak its charge
             raise
+
+    def charge(self, nbytes: int, label: str, force: bool = False) -> None:
+        """Charge ``nbytes`` the caller is about to place to the
+        ``fielddata`` breaker: a denial raises CircuitBreakingException,
+        unless ``force`` (bounded caches whose own cap is the ceiling)."""
+        br = self.breakers.breaker("fielddata")
+        if force:
+            br.force(nbytes)
+        else:
+            br.break_or_reserve(nbytes, label=label)
+
+    def release(self, nbytes: int) -> None:
+        """Return bytes charged by :meth:`charge`."""
+        self.breakers.breaker("fielddata").release(nbytes)

@@ -23,6 +23,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from elasticsearch_tpu_torch.monitor import kernels
 from elasticsearch_tpu_torch.ops.bitvec import pack_mask, popcount
 from elasticsearch_tpu_torch.ops.bm25_topk import bm25_dense_topk, unpack_topk
 from elasticsearch_tpu_torch.ops.ivf import ivf_candidate_scores
@@ -96,6 +97,7 @@ def _score_term_group(ctx, field, terms, boost=1.0, with_counts=False):
     terms, weights = _dedupe_terms(terms, boost, lambda t: ctx.idf(field, t))
     all_positive = all(w > 0 for w in weights)
     hyb = ctx.hybrid_slices(inv, terms, weights, need_qw=False)
+    kernels.record("bm25_hybrid" if hyb is not None else "bm25_scatter")
     if hyb is not None:
         impact, _qw, _qind, starts, lens, ws, P, n_present, qrows, qrw = hyb
         scores = bm25_score_hybrid_gather(
@@ -155,6 +157,7 @@ def fused_bm25_topk(ctx, query, k: int):
     vals, ids, total = unpack_topk(buf.cpu().numpy(), kk)  # one copy back
     global FUSED_CALLS
     FUSED_CALLS += 1
+    kernels.record("bm25_fused_topk")
     return vals[0], ids[0], int(total[0])
 
 
@@ -602,6 +605,7 @@ class KnnQuery(Query):
                         self.k, int((fm & vc.exists).sum()))
                 if not starved:
                     return _ann_result(scores, mask, self.boost)
+        kernels.record("knn_fused_topk")
         return self._select(ctx, vc, toks)
 
 

@@ -21,6 +21,13 @@ for i in range(200):
 n.refresh()
 r = n.search("i", {"query": {"match": {"body": "fox"}}})
 assert r["hits"]["total"] == 100, r["hits"]["total"]
+from elasticsearch_tpu_torch.monitor import kernels
+n.create_index("m", {"settings": {"number_of_shards": 3}})
+for i in range(90):
+    n.index("m", str(i), {"body": "quick fox" if i % 3 else "dog"})
+n.refresh("m")
+assert n.search("m", {"query": {"match": {"body": "fox"}}})["hits"]["total"] == 60
+assert kernels.snapshot().get("mesh_search") == 2, kernels.snapshot()
 n.create_index("v", {"mappings": {"properties": {"v": {
     "type": "dense_vector", "dims": 8, "index_options": {"type": "ivf_pq"}}}}})
 for i in range(300):

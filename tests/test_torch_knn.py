@@ -327,3 +327,61 @@ def test_ring_warp_wide_sync_deadlocks():
     assert not _ring_completes(4, 7, warp_wide=True)
     assert _ring_completes(32, 5, warp_wide=True)
     assert _ring_completes(64, 4, warp_wide=True)
+
+
+# -- the mesh's vector-round stages: exact_rescore_topk and
+# merge_candidate_topk against the reference's functions on seeded
+# inputs, with ties and -inf padding. Bar: the same ids in the same
+# order, scores at rtol 1e-5 (f32 sums in other orders) for the re-rank;
+# the merge reorders the given values only, so it is exact.
+
+def _ref_knn():
+    from elasticsearch_tpu.ops import knn as ref_knn
+
+    return ref_knn
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_exact_rescore_topk_matches_reference(metric):
+    from elasticsearch_tpu_torch.ops.knn import exact_rescore_topk
+
+    rng = np.random.default_rng(31)
+    Q, D, dims, k = 3, 300, 16, 24
+    q = rng.normal(size=(Q, dims)).astype(np.float32)
+    v = rng.normal(size=(D, dims)).astype(np.float32)
+    v[7] = v[5]  # a duplicate row: tied candidates keep position order
+    idx = np.stack([rng.permutation(D)[:k] for _ in range(Q)]).astype(
+        np.int32)
+    idx[:, :2] = [5, 7]
+    vals = rng.random((Q, k)).astype(np.float32)
+    vals[:, -5:] = -np.inf  # padding: stays -inf, sorts last
+    idx[0, -1] = D - 1
+    got_v, got_i = exact_rescore_topk(
+        torch.from_numpy(q), torch.from_numpy(v), torch.from_numpy(vals),
+        torch.from_numpy(idx), metric=metric)
+    ref_v, ref_i = _ref_knn().exact_rescore_topk(q, v, vals, idx,
+                                                 metric=metric)
+    ref_v, ref_i = np.asarray(ref_v), np.asarray(ref_i)
+    np.testing.assert_array_equal(got_i.numpy(), ref_i)
+    np.testing.assert_allclose(got_v.numpy(), ref_v, rtol=1e-5, atol=0)
+    assert np.isneginf(got_v.numpy()[:, -5:]).all()
+
+
+@pytest.mark.parametrize("k", [1, 8, 30])
+def test_merge_candidate_topk_matches_reference(k):
+    from elasticsearch_tpu_torch.ops.knn import merge_candidate_topk
+
+    rng = np.random.default_rng(41 + k)
+    Q, N = 4, 48
+    ids = rng.integers(0, 20, size=(Q, N)).astype(np.int32)  # repeats
+    vals = np.round(rng.random((Q, N)), 1).astype(np.float32)  # ties
+    vals[:, ::7] = -np.inf  # invalid slots, some sharing valid ids
+    vals[3] = -np.inf  # a row with no valid candidate
+    got = merge_candidate_topk(torch.from_numpy(vals), torch.from_numpy(ids),
+                               k=k)
+    ref = _ref_knn().merge_candidate_topk(vals, ids, k=k)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    with pytest.raises(ValueError, match="exceeds"):
+        merge_candidate_topk(torch.from_numpy(vals), torch.from_numpy(ids),
+                             k=N + 1)
