@@ -14,9 +14,11 @@ Phases, in order; any failure exits non-zero before the result line:
             for bit: B1 bm25_dense_topk (all-rows and rows forms: rows of
             a whole 256-row block with pads and repeats, R 1 to 256, the
             hit count exact, f32 subnormals that round to bf16 zero, k up
-            to 1000, ragged D, ties, Q=9, the batched form), B2 knn_topk
+            to 1000, ragged D, ties, Q=9, the batched form, and at
+            Q=2048 with the count, _msearch's tier 1), B2 knn_topk
             (three metrics, both precisions, k up to 1000, ragged D, ties,
-            a 90% mask, D under one chunk, Q=9, 768 to 40,000 dims
+            a 90% mask, D under one chunk, Q=9, Q=32 and Q=64 at k=100
+            (_msearch's kNN and MaxSim batches), 768 to 40,000 dims
             (narrow ring stages, no staging), an unaligned slab, zero
             rows), B3 adc_scores (the table-sum, and the fused form over a
             whole code table: IVF-shaped slots with pads, filters at 10%
@@ -53,12 +55,27 @@ Phases, in order; any failure exits non-zero before the result line:
             a shard: phase 5's 32 queries and 8 brute-force knn queries
             on the default mesh path and on the host loop (the same hits,
             totals exact against the f64 scorer; p50, device time, busy
-            share, kernels and copies per query of both), and
-            ``search_knn`` at Q = 8 against the B2 twin and the oracle;
+            share, kernels and copies per query of both),
+            ``search_knn`` at Q = 8 against the B2 twin and the oracle,
+            and cProfile's top 10 of one match query on each path;
+5e. msearch ``Node.msearch`` and the serving coalescer, with bench.py's
+            recipes: (a) 2048 pure-dense bodies on phase 5's index, one
+            B1 launch over all rows with the count, held against
+            sequential ``Node.search`` and bit for bit against a rerun on
+            the B1 twin; (b) 2048 mixed Zipfian bodies (tier 2: the f32
+            product and the tails' scatters); (c) 256 mixed bodies on
+            phase 5d's five shards through the mesh's batched round,
+            against the host tiers and sequential searches; (d) 32
+            brute-force kNN and 8 MaxSim bodies on phase 5b's slab, one
+            B2 launch each, against sequential searches and the f64
+            oracle; (e) (a)'s bodies as single searches from 64 threads
+            through the coalescer, equal to (a)'s; queries per second,
+            device time, kernels and copies, busy share;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
-            their earlier shapes), by CUDA events and by the profiler's
-            device time ("not measured" where it records none twice).
+            their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
+            events and by the profiler's device time ("not measured"
+            where it records none twice).
 
 Each corpus is generated once and shared by the phases that read it.
 
@@ -69,6 +86,7 @@ the repository around it; without either it fails.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -254,8 +272,8 @@ def _kernels_b1(torch, dev) -> float:
     repeated rows) with the hit count."""
     from elasticsearch_tpu_torch.ops.bm25_topk import bm25_dense_topk
 
-    def check(name, qw, impact, mask, k, rows=None):
-        count = rows is not None
+    def check(name, qw, impact, mask, k, rows=None, count=None):
+        count = rows is not None if count is None else count
         got = bm25_dense_topk(qw, impact, mask, k=k, rows=rows, count=count)
         torch.cuda.synchronize()
         want = bm25_dense_topk(qw, impact, mask, k=k, rows=rows,
@@ -287,6 +305,20 @@ def _kernels_b1(torch, dev) -> float:
                                       prefix)
         check(name, qw, impact, mask, k)
         del qw, impact, mask
+    # _msearch tier 1's shape: 2048 queries over all rows with the count,
+    # weights on a few rows a query (D cut so the twin's [Q, D] fits)
+    qw, impact, mask = _b1_inputs(torch, dev, 2048, 256, 1 << 16, 118)
+    keep = torch.rand(qw.shape, generator=torch.Generator(
+        device=dev).manual_seed(119), device=dev) < 4 / 256
+    check("batched, msearch tier 1", (qw * keep).contiguous(), impact, mask,
+          10, count=True)
+    del qw, impact, mask, keep
+    # one query row past a launch's 65,535: two launches whose rows stack
+    # (D cut so the twin's [Q, D] fits)
+    qw, impact, mask = _b1_inputs(torch, dev, 65_536, 16, 4096, 120)
+    check("batched, past one launch (two launches)", qw, impact, mask, 10,
+          count=True)
+    del qw, impact, mask
 
     # the rows form over one whole block of 256 rows, as a segment holds
     _, block, mask = _b1_inputs(torch, dev, 1, 256, 1 << 20, 121)
@@ -373,6 +405,7 @@ def _kernels_b2(torch, dev) -> float:
     """B2 against its twin, bit for bit in both precisions: each sum runs
     in increasing dims with one rounding per operation on both sides."""
     from elasticsearch_tpu_torch.ops.knn_topk import knn_topk
+    from elasticsearch_tpu_torch.utils import shapes
 
     ks = (1, 10, 100, 1000)
     cases = []  # (name, Q, D, dims, k, metric, precise, live, quant)
@@ -395,6 +428,19 @@ def _kernels_b2(torch, dev) -> float:
                0.9, None),
               ("Q=9, a partial group of 8", 9, 1 << 20, 128, 100, "cosine",
                True, 0.9, None),
+              # _msearch's kNN and MaxSim batches: Q * T rows at k = 100
+              ("msearch kNN batch", 32, 1 << 20, 128, 100, "cosine", True,
+               1.0, None),
+              ("msearch MaxSim batch", 64, 1 << 20, 128, 100, "cosine",
+               True, 1.0, None),
+              # 2048 MaxSim bodies of 32 tokens: one row past a launch's
+              # 65,535, two launches (D cut so the twin's [Q, D] fits)
+              ("msearch MaxSim batch past one launch (two launches)",
+               65_536, 4096, 128, 100, "cosine", True, 1.0, None),
+              # key lists past the scratch budget: launches of 24 rows
+              ("msearch MaxSim batch on a 24-row scratch budget (three "
+               "launches)", 64, 1 << 20, 128, 100, "cosine", True, 1.0,
+               "budget"),
               ("wide rows, 8 per stage", 8, 100_003, 1024, 100,
                "dot_product", False, 0.9, None),
               # rings of fewer than 32 rows: groups that share a warp
@@ -427,8 +473,20 @@ def _kernels_b2(torch, dev) -> float:
         elif tweak == "zero":  # every score below 0.5 but the zero rows'
             q, v = q.abs(), -v.abs()
             v[::97] = 0.0
-        kv, ki = knn_topk(q, v, mask, k=k, metric=metric, precise=precise)
-        torch.cuda.synchronize()
+        budget = shapes.TOPK_SCRATCH_BYTES
+        if tweak == "budget":  # two u64 buffers of D / 2048 lists of k
+            shapes.TOPK_SCRATCH_BYTES = 24 * 16 * (D // 2048) * k
+        try:
+            want = (3 if tweak == "budget"
+                    else -(-Q // shapes.MAX_QUERY_ROWS))
+            if len(shapes.query_slices(Q, D, k)) != want:
+                raise AssertionError(f"knn_topk {name}: launches "
+                                     f"{shapes.query_slices(Q, D, k)}")
+            kv, ki = knn_topk(q, v, mask, k=k, metric=metric,
+                              precise=precise)
+            torch.cuda.synchronize()
+        finally:
+            shapes.TOPK_SCRATCH_BYTES = budget
         pv, pi = knn_topk(q, v, mask, k=k, metric=metric, precise=precise,
                           plain=True)
         check_exact(kv.cpu().numpy(), ki.cpu().numpy(), pv.cpu().numpy(),
@@ -672,15 +730,20 @@ def build_corpus(np, n_docs, vocab, seed):
     return u_doc, tf.astype(np.float32), tfn, offsets, df, cf, doc_len
 
 
-def make_queries(np, n_q, vocab, df, seed, terms_per_q=4):
-    """bench.py::make_queries's recipe: 2-4 Zipf(1.3) term ids each."""
+def make_queries(np, n_q, vocab, df, seed, terms_per_q=4, dense_only=None):
+    """bench.py::make_queries's recipe: 2-4 Zipf(1.3) term ids each; with
+    ``dense_only`` (bool[vocab]) drawn from those terms instead."""
     rng = np.random.default_rng(seed + 1)
     qs = []
+    pool = np.nonzero(dense_only)[0] if dense_only is not None else None
     for _ in range(n_q):
         npick = rng.integers(2, terms_per_q + 1)
-        t = rng.zipf(1.3, npick).astype(np.int64)
-        t = np.where((t >= vocab) | (df[np.clip(t, 0, vocab - 1)] == 0),
-                     rng.integers(1, vocab, npick), t)
+        if pool is not None:
+            t = rng.choice(pool, size=npick, replace=False)
+        else:
+            t = rng.zipf(1.3, npick).astype(np.int64)
+            t = np.where((t >= vocab) | (df[np.clip(t, 0, vocab - 1)] == 0),
+                         rng.integers(1, vocab, npick), t)
         qs.append(np.unique(t))
     return qs
 
@@ -817,8 +880,7 @@ def phase_read(torch, np, dev, card, corpus):
                                  f"were expected")
         log(f"[read] one fused query's device ops through the mesh path: "
             + "; ".join(f"{k[:48]} x{c}" for k, c in ops.items()))
-    node.close()
-    return launches
+    return launches, node  # phase 5e reads the same index
 
 
 # ---------------------------------------------------------------------------
@@ -1382,24 +1444,22 @@ def shard_arrays(np, corpus, u_term, sift, shard_of, s):
 
 
 def profile_path(torch, run):
-    """(device ms, kernels, copies in, copies back) of ``run()`` under
-    torch.profiler; None when a second session records nothing too."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
+    """(device ms, kernels, copies in, copies back, the top four device
+    items as "name ms xcount") of ``run()`` under torch.profiler; None
+    when a second session records nothing too."""
     for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with _profiled(torch) as prof:
             run()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+        ev = _device_rows(prof)
         busy = sum(e.self_device_time_total for e in ev) / 1e3
         if busy > 0:
+            top = sorted(ev, key=lambda e: -e.self_device_time_total)[:4]
             return (busy, sum(e.count for e in ev if not e.key.startswith(
                 ("Memcpy", "Memset"))),
                 sum(e.count for e in ev if "HtoD" in e.key),
-                sum(e.count for e in ev if "DtoH" in e.key))
+                sum(e.count for e in ev if "DtoH" in e.key),
+                [f"{e.key[:36]} {e.self_device_time_total / 1e3:.3f} ms "
+                 f"x{e.count}" for e in top])
     return None
 
 
@@ -1432,10 +1492,14 @@ def phase_mesh(torch, np, dev, card, corpus, sift):
     # doc) of each shard's top 10, and the hit counts
     exact_cands = [[] for _ in qs]
     exact_totals = [0] * len(qs)
+    shard_text = []  # each shard's text CSR and doc numbers, for 5e
     for s in range(MESH_SHARDS):
         arrays = shard_arrays(np, corpus, u_term, sift, shard_of, s)
         fb = arrays["fields"]["body"]
         docs = np.asarray(arrays["ids"], np.int64)
+        shard_text.append(((fb["doc_ids_host"], fb["tfnorm_host"],
+                            fb["offsets"], fb["df"], arrays["num_docs"],
+                            arrays["max_docs"]), docs))
         for n, q in enumerate(qs):
             ids, sc, total = exact_top10(
                 np, q, fb["doc_ids_host"], fb["tfnorm_host"], fb["offsets"],
@@ -1573,7 +1637,7 @@ def phase_mesh(torch, np, dev, card, corpus, sift):
         if prof_ is None:
             dev_txt = "device time not measured"
         else:
-            busy, kern, hd, dh = prof_
+            busy, kern, hd, dh, _top = prof_
             dev_txt = (f"device {busy:.3f} ms ({100 * busy / ms_.sum():.1f}"
                        f"% busy), {kern / nq:.1f} kernels, {hd / nq:.2f} "
                        f"copies in and {dh / nq:.2f} back per query")
@@ -1598,6 +1662,7 @@ def phase_mesh(torch, np, dev, card, corpus, sift):
     # search_knn at Q = 8: B2 per slot at 4k in bf16, the f32 re-rank,
     # the merge; held against the same call on the B2 twin and against
     # the exact f64 oracle
+    mesh_host_profile(node, on_mesh, bodies)
     ex = svc.mesh_executor()
     qk = qv[8:16]
     knn_topk.LAUNCHES = 0
@@ -1631,8 +1696,544 @@ def phase_mesh(torch, np, dev, card, corpus, sift):
     log(f"[mesh] search_knn Q=8 k=10 over {MESH_SHARDS} slots: "
         f"{knn_ms:.3f} ms a call, B2 launches {b2_knn}; equal to the B2 "
         f"twin's, hits match the exact f64 oracle")
-    node.close()
-    return b1, b2 + b2_knn
+    return b1, b2 + b2_knn, node, shard_text  # phase 5e reads them
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: batched _msearch and the serving coalescer
+# ---------------------------------------------------------------------------
+
+MSEARCH_BATCH = 2048       # bench.py --batch-queries
+MSEARCH_MESH_BATCH = 256
+COALESCE_THREADS = 64      # bench.py::coalesced_qps
+
+
+def _median_ms(np, fn, args):
+    """Median wall ms of ``fn(a)`` over ``args[1:]`` after a warm call on
+    ``args[0]``, and the last result."""
+    fn(args[0])
+    ms, out = [], None
+    for a in args[1:]:
+        t = time.perf_counter()
+        out = fn(a)
+        ms.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(ms)), out
+
+
+def _sequential(node, index, bodies):
+    """Each body through ``Node.search`` alone, with whether kernel B1
+    served any of its segments (B1 rounds to bf16 where a batch's tier 2
+    and the mesh round sum in f32)."""
+    from elasticsearch_tpu_torch.search import queries
+
+    out = []
+    for b in bodies:
+        f = queries.FUSED_CALLS
+        r = node.search(index, copy.deepcopy(b))
+        out.append((r, queries.FUSED_CALLS > f))
+    return out
+
+
+#: B1's bf16 products against f32 sums: each of its two roundings is
+#: within 2^-8 relative, so a sum of positive products is within 2^-7
+BF16_BAND = 2.0 ** -7
+
+
+def _fused_bar(np, got, want, what) -> float:
+    """One side scored in f32, the other by B1's bf16 products: exact
+    total, as many hits, scores within ``BF16_BAND`` rank by rank (phase
+    5's bar against the exact scorer), and an id on one side only scoring
+    within two bands of that side's last score: a near-tie at the cut
+    that the roundings can swap. Returns the recall of ``got``'s ids in
+    ``want``'s."""
+    g, w = got["hits"]["hits"], want["hits"]["hits"]
+    if got["hits"]["total"] != want["hits"]["total"] or len(g) != len(w):
+        raise AssertionError(f"{what}: total {got['hits']['total']} and "
+                             f"{len(g)} hits, sequential "
+                             f"{want['hits']['total']} and {len(w)}")
+    gs = np.array([h["_score"] for h in g])
+    ws = np.array([h["_score"] for h in w])
+    if not np.allclose(gs, ws, rtol=BF16_BAND, atol=0):
+        raise AssertionError(f"{what}: scores {gs} vs sequential {ws}")
+    gi, wi = [h["_id"] for h in g], [h["_id"] for h in w]
+    for ids, other, sc in ((gi, set(wi), gs), (wi, set(gi), ws)):
+        for d, v in zip(ids, sc):
+            if d not in other and v > sc[-1] * (1 + 2 * BF16_BAND):
+                raise AssertionError(f"{what}: doc {d} at {v} is missing on "
+                                     f"the other side, above the cut's "
+                                     f"rounding band ({sc[-1]})")
+    return len(set(gi) & set(wi)) / max(len(wi), 1)
+
+
+def _hold_mixed(np, got, seq, what):
+    """A mixed batch against its sequential answers: where B1 served the
+    sequential search, ``_fused_bar``; else ``check_hits`` at 1e-5.
+    Returns (how many took the fused bar, their mean recall)."""
+    recalls = []
+    for n, (g, (w, b1)) in enumerate(zip(got, seq)):
+        if b1:
+            recalls.append(_fused_bar(np, g, w, f"{what} body {n}"))
+        else:
+            check_hits(g, w, f"{what} body {n} vs sequential", rtol=1e-5)
+    return len(recalls), float(np.mean(recalls)) if recalls else 1.0
+
+
+def exact_top10_card(torch, np, dev, qs, csr, chunk=64):
+    """``exact_top10`` of many queries, in f64 on the card: the same
+    arithmetic (each term's postings add tfn * idf, idf in f64, per doc
+    in term order), so the same bits. Per query (ids, scores, total)."""
+    u_doc, tfn, offsets, df, n_docs, D = csr
+    docs = torch.from_numpy(np.asarray(u_doc, np.int64)).to(dev)
+    w = torch.from_numpy(np.asarray(tfn, np.float64)).to(dev)
+    out = []
+    for c0 in range(0, len(qs), chunk):
+        part = qs[c0: c0 + chunk]
+        s = torch.zeros(len(part) * D, dtype=torch.float64, device=dev)
+        hit = torch.zeros(len(part) * D, dtype=torch.bool, device=dev)
+        for i, q in enumerate(part):
+            for t in q:
+                lo, hi = int(offsets[t]), int(offsets[t + 1])
+                idf = float(np.log(1.0 + (n_docs - df[t] + 0.5)
+                                   / (df[t] + 0.5)))
+                s.index_add_(0, docs[lo:hi] + i * D, w[lo:hi] * idf)
+                hit[docs[lo:hi] + i * D] = True
+        s = torch.where(hit, s, float("-inf")).view(len(part), D)
+        totals = hit.view(len(part), D).sum(1).cpu().numpy()
+        v, idx = torch.topk(s, min(42, D), dim=1)
+        v, idx = v.cpu().numpy(), idx.cpu().numpy()
+        for r in range(len(part)):  # ties by doc id among the candidates
+            o = np.lexsort((idx[r], -v[r]))[:min(10, int(totals[r]))]
+            out.append((idx[r][o], v[r][o], int(totals[r])))
+    return out
+
+
+def exact_mesh_card(torch, np, dev, qs, shard_text):
+    """The f64 scorer over the five shards, each with its own idf and
+    average length, merged as the engine merges shards: (-score, shard,
+    local) order. Per query (global doc ids, scores, total)."""
+    per = [exact_top10_card(torch, np, dev, qs, csr, chunk=256)
+           for csr, _docs in shard_text]
+    out = []
+    for n in range(len(qs)):
+        cands = [(float(v), sh, int(i), int(shard_text[sh][1][i]))
+                 for sh in range(len(per))
+                 for i, v in zip(per[sh][n][0], per[sh][n][1])]
+        cands.sort(key=lambda c: (-c[0], c[1], c[2]))
+        top = cands[:10]
+        out.append((np.array([c[3] for c in top], np.int64),
+                    np.array([c[0] for c in top]),
+                    sum(per[sh][n][2] for sh in range(len(per)))))
+    return out
+
+
+def _hold_exact(np, resp, exact, band, what) -> float:
+    """A response against the f64 scorer's (ids, scores, total): exact
+    total, as many hits, scores within ``band`` of the exact ones rank by
+    rank, and a doc outside the exact top only within two bands of its
+    cut (a near-tie that the side's rounding can swap). Returns its
+    recall of the exact top."""
+    ids, sc, total = exact
+    hits = resp["hits"]["hits"]
+    if resp["hits"]["total"] != total or len(hits) != len(ids):
+        raise AssertionError(f"{what}: total {resp['hits']['total']} and "
+                             f"{len(hits)} hits, exact {total} and "
+                             f"{len(ids)}")
+    s = np.array([h["_score"] for h in hits])
+    if not np.allclose(s, sc, rtol=band, atol=0):
+        raise AssertionError(f"{what}: scores {s} vs exact {sc}")
+    want = set(ids.tolist())
+    got = [int(h["_id"]) for h in hits]
+    for d, v in zip(got, s):
+        if d not in want and v > sc[-1] * (1 + 2 * band):
+            raise AssertionError(f"{what}: doc {d} at {v} is not in the "
+                                 f"exact top, above the cut's band "
+                                 f"({sc[-1]})")
+    return len(set(got) & want) / max(len(ids), 1)
+
+
+#: f32 sums of a few positive f32 products of f32-rounded weights: well
+#: within 1e-5 relative of the f64 scores
+F32_BAND = 1e-5
+
+
+def _hold_fused_exact(np, got, seq, exact, what):
+    """The members of a mixed batch whose sequential search took B1, each
+    side against the f64 scorer within its own rounding: the batch's f32
+    sums within ``F32_BAND``, the sequential B1 answer within
+    ``BF16_BAND``. Returns (their count, mean recall of each side)."""
+    rb, rs = [], []
+    for n, (g, (w, b1)) in enumerate(zip(got, seq)):
+        if b1:  # exact: {body number: (ids, scores, total)}
+            rb.append(_hold_exact(np, g, exact[n], F32_BAND,
+                                  f"{what} body {n}, batch vs f64"))
+            rs.append(_hold_exact(np, w, exact[n], BF16_BAND,
+                                  f"{what} body {n}, sequential vs f64"))
+    return len(rb), float(np.mean(rb or [1.0])), float(np.mean(rs or [1.0]))
+
+
+def _fmt_prof(prof, wall_ms, per="msearch") -> str:
+    if prof is None:
+        return "device time not measured"
+    busy, kern, hd, dh, top = prof
+    return (f"device {busy:.3f} ms ({100 * busy / wall_ms:.1f}% busy), "
+            f"{kern} kernels, {hd} copies in and {dh} back a {per} (top: "
+            + "; ".join(top) + ")")
+
+
+def phase_msearch(torch, np, dev, card, corpus, sift, read_node, mesh_node,
+                  shard_text):
+    """Phase 5e: ``Node.msearch`` and the serving coalescer on phase 5's
+    index (one 2^20-doc segment), phase 5d's five shards and phase 5b's
+    slab, with ``bench.py``'s recipes (``make_queries``, pure-dense and
+    mixed; ``batched_msearch_qps``; ``coalesced_qps``). Returns its (B1,
+    B2) launches, counted in its single-threaded runs."""
+    import itertools
+    import threading
+
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.index.convert import segment_from_arrays
+    from elasticsearch_tpu_torch.monitor import kernels as counters
+    from elasticsearch_tpu_torch.ops import bm25_topk, knn_topk
+    from elasticsearch_tpu_torch.search import queries
+
+    t0 = time.perf_counter()
+    df = corpus[4]
+    node = read_node
+    seg = node.get_index("msmarco").shards[0].segments[0]
+    dense_rows = seg.inverted["body"].dense_block()[0]
+    dense = np.asarray(dense_rows[:VOCAB]) >= 0
+
+    def bodies_of(qs):
+        return [{"query": {"match": {"body": " ".join(f"t{t}" for t in q)}},
+                 "size": 10} for q in qs]
+
+    def pairs_of(index, bodies):
+        return [({"index": index}, copy.deepcopy(b)) for b in bodies]
+
+    def msearch(nd, index):
+        return lambda pairs: nd.msearch(pairs)["responses"]
+
+    # (a) pure-dense msearch: tier 1, B1's batched form
+    bodies_a = bodies_of(make_queries(np, MSEARCH_BATCH, VOCAB, df, SEED,
+                                      dense_only=dense))
+    run_a = msearch(node, "msmarco")
+    run_a(pairs_of("msmarco", bodies_a))  # first use, untimed
+    counters.reset()
+    bm25_topk.LAUNCHES = 0
+    got_a = run_a(pairs_of("msmarco", bodies_a))
+    b1_a, snap = bm25_topk.LAUNCHES, counters.snapshot()
+    if b1_a != 1 or snap.get("bm25_fused_topk") != MSEARCH_BATCH \
+            or snap.get("bm25_hybrid") or snap.get("bm25_scatter"):
+        raise AssertionError(f"5e(a): {b1_a} B1 launches, counters {snap}; "
+                             f"one launch for the one segment expected")
+    wall_a, _ = _median_ms(np, run_a, [pairs_of("msmarco", bodies_a)
+                                       for _ in range(4)])
+    prof_a = profile_path(torch, lambda: run_a(pairs_of("msmarco",
+                                                        bodies_a)))
+    seq_a = _sequential(node, "msmarco", bodies_a)
+    same_a = 0
+    for n, (w, b1) in enumerate(seq_a):
+        if not b1:
+            raise AssertionError(f"5e(a) body {n}: B1 did not serve it alone")
+        check_hits(got_a[n], w, f"5e(a) body {n} vs sequential", rtol=1e-6)
+        same_a += got_a[n]["hits"] == w["hits"]
+    real = queries.bm25_dense_topk
+    queries.bm25_dense_topk = functools.partial(real, plain=True)
+    try:  # the twin at 256 queries a call: its [Q, D] rows and sort fit
+        twin = []
+        for a in range(0, MSEARCH_BATCH, 256):
+            twin += run_a(pairs_of("msmarco", bodies_a[a: a + 256]))
+    finally:
+        queries.bm25_dense_topk = real
+    for n in range(MSEARCH_BATCH):
+        if got_a[n]["hits"] != twin[n]["hits"]:
+            raise AssertionError(f"5e(a) body {n}: hits differ from the B1 "
+                                 f"twin's")
+    qps_a = MSEARCH_BATCH / wall_a * 1e3
+    log(f"[msearch] (a) {MSEARCH_BATCH} pure-dense bodies in one "
+        f"Node.msearch on {card}: {qps_a:.1f} queries/s (median "
+        f"{wall_a:.3f} ms a call of 3 after a warm one), "
+        f"{_fmt_prof(prof_a, wall_a)}; B1 launches {b1_a} (one segment), "
+        f"no generic BM25; equal to sequential Node.search "
+        f"({same_a} of {MSEARCH_BATCH} bit-identical), bit for bit the B1 "
+        f"twin's")
+
+    # (b) mixed Zipfian msearch: tier 2, the f32 product and the tails
+    qs_b = make_queries(np, MSEARCH_BATCH, VOCAB, df, SEED + 9)
+    bodies_b = bodies_of(qs_b)
+    run_b = msearch(node, "msmarco")
+    run_b(pairs_of("msmarco", bodies_b))
+    counters.reset()
+    bm25_topk.LAUNCHES = 0
+    got_b = run_b(pairs_of("msmarco", bodies_b))
+    snap = counters.snapshot()
+    if bm25_topk.LAUNCHES or snap.get("bm25_hybrid") != MSEARCH_BATCH:
+        raise AssertionError(f"5e(b): {bm25_topk.LAUNCHES} B1 launches, "
+                             f"counters {snap}; tier 2 for every body "
+                             f"expected")
+    wall_b, _ = _median_ms(np, run_b, [pairs_of("msmarco", bodies_b)
+                                       for _ in range(4)])
+    prof_b = profile_path(torch, lambda: run_b(pairs_of("msmarco",
+                                                        bodies_b)))
+    seq_b = _sequential(node, "msmarco", bodies_b)
+    n_fused, rec_b = _hold_mixed(np, got_b, seq_b, "5e(b)")
+    # the pure-dense members, each side against the f64 scorer (phase 5's,
+    # on the card; its first four checked against the numpy one)
+    csr = (corpus[0], corpus[2], corpus[3], df, N_DOCS, N_DOCS)
+    at = [n for n, (_, b1) in enumerate(seq_b) if b1]
+    exact = dict(zip(at, exact_top10_card(torch, np, dev,
+                                          [qs_b[n] for n in at], csr)))
+    for n in at[:4]:
+        ids, sc, total = exact_top10(np, qs_b[n], corpus[0], corpus[2],
+                                     corpus[3], df, N_DOCS, N_DOCS)
+        if not (np.array_equal(ids, exact[n][0]) and total == exact[n][2]
+                and np.array_equal(sc, exact[n][1])):
+            raise AssertionError(f"5e(b) body {n}: the card's f64 scorer "
+                                 f"differs from the numpy one")
+    _, xb_b, xs_b = _hold_fused_exact(np, got_b, seq_b, exact, "5e(b)")
+    log(f"[msearch] (b) {MSEARCH_BATCH} mixed Zipfian bodies in one "
+        f"Node.msearch: {MSEARCH_BATCH / wall_b * 1e3:.1f} queries/s "
+        f"(median {wall_b:.3f} ms), {_fmt_prof(prof_b, wall_b)}; tier 2 "
+        f"for all, no B1 launch; equal to sequential Node.search ("
+        f"{MSEARCH_BATCH - n_fused} at 1e-5, {n_fused} pure-dense within "
+        f"B1's rounding band, recall@10 of those {rec_b:.4f}); those "
+        f"{n_fused} against the f64 scorer: the batch within {F32_BAND} "
+        f"(recall@10 {xb_b:.4f}), sequential within 2^-7 (recall@10 "
+        f"{xs_b:.4f})")
+
+    # (c) five shards: the mesh's batched round against the host tiers
+    svc = mesh_node.get_index("mesh5")
+    bodies_c = bodies_b[:MSEARCH_MESH_BATCH]
+    run_c = msearch(mesh_node, "mesh5")
+    run_c(pairs_of("mesh5", bodies_c))
+    counters.reset()
+    bm25_topk.LAUNCHES = 0
+    got_c = run_c(pairs_of("mesh5", bodies_c))
+    snap = counters.snapshot()
+    if snap.get("mesh_msearch") != 1 or snap.get("mesh_msearch_fallback") \
+            or bm25_topk.LAUNCHES:
+        raise AssertionError(f"5e(c): counters {snap}, B1 launches "
+                             f"{bm25_topk.LAUNCHES}; one mesh round and no "
+                             f"B1 expected")
+    wall_c, _ = _median_ms(np, run_c, [pairs_of("mesh5", bodies_c)
+                                       for _ in range(4)])
+    prof_c = profile_path(torch, lambda: run_c(pairs_of("mesh5", bodies_c)))
+    svc.settings["search"] = {"mesh": False}
+    try:
+        run_c(pairs_of("mesh5", bodies_c))
+        counters.reset()
+        t = time.perf_counter()
+        host_c = run_c(pairs_of("mesh5", bodies_c))
+        host_ms = (time.perf_counter() - t) * 1e3
+        if counters.snapshot().get("mesh_msearch"):
+            raise AssertionError("5e(c): the host tiers took the mesh")
+    finally:
+        svc.settings["search"] = {"mesh": True}
+    for n in range(MSEARCH_MESH_BATCH):
+        check_hits(got_c[n], host_c[n], f"5e(c) body {n}, mesh vs host "
+                                        f"tiers", rtol=1e-5)
+    seq_c = _sequential(mesh_node, "mesh5", bodies_c)
+    n_fused, rec_c = _hold_mixed(np, got_c, seq_c, "5e(c)")
+    at = [n for n, (_, b1) in enumerate(seq_c) if b1]
+    exact = dict(zip(at, exact_mesh_card(torch, np, dev,
+                                         [qs_b[n] for n in at], shard_text)))
+    _, xb_c, xs_c = _hold_fused_exact(np, got_c, seq_c, exact, "5e(c)")
+    log(f"[msearch] (c) {MSEARCH_MESH_BATCH} mixed bodies over "
+        f"{MESH_SHARDS} shards: mesh round "
+        f"{MSEARCH_MESH_BATCH / wall_c * 1e3:.1f} queries/s (median "
+        f"{wall_c:.3f} ms), {_fmt_prof(prof_c, wall_c)}; host tiers "
+        f"{host_ms:.3f} ms a call; mesh_msearch once, no B1; equal to the "
+        f"host tiers at 1e-5 and to sequential Node.search "
+        f"({MSEARCH_MESH_BATCH - n_fused} at 1e-5, {n_fused} with a "
+        f"pure-dense shard within B1's rounding band, recall@10 of those "
+        f"{rec_c:.4f}; against the f64 scorer: the mesh round within "
+        f"{F32_BAND} (recall@10 {xb_c:.4f}), sequential within 2^-7 "
+        f"(recall@10 {xs_c:.4f}))")
+
+    # (d) brute-force kNN and MaxSim msearch on phase 5b's slab
+    vpad, exists, bucket, D, make_q = sift
+    vnode = Node(name="msearch-vec", device=dev)
+    vnode.create_index("sift", {"settings": {"number_of_shards": 1},
+                                "mappings": VEC_MAPPING})
+    vnode.get_index("sift").shards[0].engine.add_segment(segment_from_arrays({
+        "num_docs": N_VECS, "max_docs": D,
+        "numerics": {"bucket": {"exact": bucket, "exists": exists,
+                                "kind": "long"}},
+        "vectors": {"emb": {"vecs": vpad, "exists": exists, "dims": DIMS,
+                            "similarity": "cosine"}}}, vnode.residency))
+    qv = make_q(32 + 8 * 8)
+    knn_bodies = [{"query": {"knn": {"field": "emb", "ann": False,
+                                     "query_vector": [float(a) for a in v]}},
+                   "size": 10} for v in qv[:32]]
+    toks = qv[32:].reshape(8, 8, DIMS)
+    ms_bodies = [{"query": {"knn": {"field": "emb", "query_vectors": [
+        [float(a) for a in v] for v in t]}}, "size": 10} for t in toks]
+    _ids, _sc, full = exact_cosine_top(np, vpad, exists, qv, 10)
+    oracles = {"knn": full[:32],
+               "maxsim": full[32:].reshape(8, 8, -1).max(axis=1)}
+    del full
+    b2_d, d_txt = 0, []
+    for name, bodies in (("knn", knn_bodies), ("maxsim", ms_bodies)):
+        run_d = msearch(vnode, "sift")
+        run_d(pairs_of("sift", bodies))
+        counters.reset()
+        knn_topk.LAUNCHES = 0
+        t = time.perf_counter()
+        got = run_d(pairs_of("sift", bodies))
+        d_ms = (time.perf_counter() - t) * 1e3
+        b2, snap = knn_topk.LAUNCHES, counters.snapshot()
+        if b2 != 1 or snap.get("knn_fused_batch") != len(bodies):
+            raise AssertionError(f"5e(d) {name}: {b2} B2 launches, counters "
+                                 f"{snap}; one launch expected")
+        b2_d += b2
+        same = 0
+        for n, (w, _) in enumerate(_sequential(vnode, "sift", bodies)):
+            check_hits(got[n], w, f"5e(d) {name} body {n} vs sequential",
+                       rtol=1e-6)
+            same += got[n]["hits"] == w["hits"]
+        orc = oracles[name]
+        for n in range(len(bodies)):
+            ids = np.argsort(-orc[n], kind="stable")[:10]
+            check_oracle(np, got[n], ids, orc[n][ids], orc[n],
+                         f"5e(d) {name} body {n}")
+        d_txt.append(f"{len(bodies)} {name} bodies {d_ms:.3f} ms, B2 once, "
+                     f"{same} bit-identical to sequential")
+    del oracles
+    vnode.close()
+    log(f"[msearch] (d) on the {N_VECS}-vector slab: " + "; ".join(d_txt)
+        + "; hits equal sequential Node.search and the f64 oracle")
+
+    # (e) the coalescer: 64 threads send (a)'s bodies as single searches
+    coal = node.serving.coalescer
+
+    def round_(_=None):
+        out = [None] * MSEARCH_BATCH
+        errs = []
+        nxt = itertools.count()
+
+        def worker():
+            while True:
+                i = next(nxt)
+                if i >= MSEARCH_BATCH:
+                    return
+                try:
+                    out[i] = node.search("msmarco", bodies_a[i])
+                except Exception as e:  # raised below
+                    errs.append(e)
+                    return
+
+        threads = [threading.Thread(target=worker)
+                   for _ in range(COALESCE_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        if errs or any(th.is_alive() for th in threads):
+            raise AssertionError(f"5e(e): a coalesced round failed: "
+                                 f"{errs[:1]}")
+        return out
+
+    # the same rounds with the coalescer on (adaptive, its default) and
+    # off (each search on its own path), alternated after a warm round of
+    # each
+    def in_mode(mode):
+        node.serving.apply_cluster_settings({"serving.coalescer.mode": mode})
+        return round_()
+
+    in_mode("adaptive")
+    in_mode("off")
+    before = coal.stats()
+    ms_e = {"adaptive": [], "off": []}
+    got_e = {}
+    for _ in range(3):
+        for mode in ms_e:
+            t = time.perf_counter()
+            got_e[mode] = in_mode(mode)
+            ms_e[mode].append((time.perf_counter() - t) * 1e3)
+    after = coal.stats()
+    in_mode("off")
+    prof_off = profile_path(torch, round_)
+    in_mode("adaptive")
+    prof_e = profile_path(torch, round_)
+    node.serving.apply_cluster_settings({})
+    flushes = {r: n - before["flushes"].get(r, 0)
+               for r, n in after["flushes"].items()
+               if n > before["flushes"].get(r, 0)}
+    batches = after["batch_size"]["count"] - before["batch_size"]["count"]
+    sizes = after["batch_size"]["sum"] - before["batch_size"]["sum"]
+    if batches < 1 or after["batch_size"]["max"] < 2:
+        raise AssertionError(f"5e(e): no flush held more than one request: "
+                             f"{after}")
+    for mode, got in got_e.items():
+        for n in range(MSEARCH_BATCH):
+            check_hits(got[n], got_a[n], f"5e(e) {mode} body {n} vs (a)",
+                       rtol=1e-6)
+    wall_e = float(np.median(ms_e["adaptive"]))
+    wall_off = float(np.median(ms_e["off"]))
+    qps_e = MSEARCH_BATCH / wall_e * 1e3
+    qps_off = MSEARCH_BATCH / wall_off * 1e3
+    solo = after["bypass"].get("solo", 0) - before["bypass"].get("solo", 0)
+    log(f"[msearch] (e) {MSEARCH_BATCH} single searches from "
+        f"{COALESCE_THREADS} threads through the coalescer: {qps_e:.1f} "
+        f"queries/s (median {wall_e:.3f} ms a round of 3), "
+        f"{_fmt_prof(prof_e, wall_e, 'round')}; {100 * qps_e / qps_a:.1f}% "
+        f"of (a)'s rate; over 3 rounds {batches} batches of "
+        f"{sizes / max(batches, 1):.1f} requests on average (largest "
+        f"{after['batch_size']['max']}), flushes {flushes}, {solo} solo "
+        f"bypasses. The coalescer off, alternated with those rounds: "
+        f"{qps_off:.1f} queries/s (median {wall_off:.3f} ms), "
+        f"{_fmt_prof(prof_off, wall_off, 'round')}; coalesced / off "
+        f"{qps_e / qps_off:.3f}. Every response equal to (a)'s")
+    log(f"[msearch] phase 5e took {time.perf_counter() - t0:.1f} s")
+    return b1_a, b2_d
+
+
+def _cprofile_rows(st, key, n, per=1):
+    """The top ``n`` of a pstats.Stats by ``key`` ("cum" or "own") as
+    lines of calls, own ms, cumulative ms (each divided by ``per``) and
+    the function."""
+    rows = [(ct if key == "cum" else tt, nc, tt, ct, fn)
+            for fn, (cc, nc, tt, ct, _callers) in st.stats.items()]
+    rows.sort(key=lambda r: -r[0])
+    out = []
+    for _, nc, tt, ct, (path, line, name) in rows[:n]:
+        path = re.sub(r".*/(elasticsearch_tpu_torch|torch)/", r"\1/", path)
+        out.append(f"{nc / per:7.1f} {tt * 1e3 / per:8.3f} "
+                   f"{ct * 1e3 / per:8.3f}  {path}:{line}({name})")
+    return out
+
+
+def mesh_host_profile(node, on_mesh, bodies):
+    """Where the host time of phase 5d goes: cProfile's top 10 by
+    cumulative time of one five-shard match query on the mesh path and
+    on the host loop, and the top 10 by own time over all the queries
+    (each new to the prepared-query memo)."""
+    import cProfile
+    import pstats
+
+    for flag, name in ((True, "mesh path"), (False, "host loop")):
+        on_mesh(flag)
+        fresh = [dict(b, _source=True) for b in bodies]  # memo misses
+        pr = cProfile.Profile()
+        pr.enable()
+        node.search("mesh5", copy.deepcopy(fresh[0]))
+        pr.disable()
+        one = pstats.Stats(pr)
+        pr = cProfile.Profile()
+        pr.enable()
+        for b in fresh[1:]:
+            node.search("mesh5", copy.deepcopy(b))
+        pr.disable()
+        many = pstats.Stats(pr)
+        n = len(fresh) - 1
+        log(f"[mesh] cProfile on the {name} (calls, own ms, cumulative ms, "
+            f"function): one match query, {one.total_tt * 1e3:.3f} ms under "
+            f"the profiler, top 10 by cumulative time:\n  "
+            + "\n  ".join(_cprofile_rows(one, "cum", 10))
+            + f"\n  {n} other queries, per query "
+              f"{many.total_tt * 1e3 / n:.3f} ms, top 10 by own time:\n  "
+            + "\n  ".join(_cprofile_rows(many, "own", 10, per=n)))
+    on_mesh(True)
 
 
 def _p50(np, ms) -> str:
@@ -1642,17 +2243,11 @@ def _p50(np, ms) -> str:
 def profile_read(torch, node, index, bodies, wall_ms, tag):
     """Device time of the same searches under torch.profiler, over the
     host time of the unprofiled run: the device's busy share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(2):  # a session that records nothing is tried again
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _profiled(torch, cpu=True) as prof:
             for body in bodies:
                 node.search(index, copy.deepcopy(body))
-            torch.cuda.synchronize()
-        dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+        dev = _device_rows(prof)
         busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
         if busy_ms > 0:
             break
@@ -1671,19 +2266,53 @@ def device_ops(torch, fn):
     """{name: count} of the device kernels and copies one call of ``fn``
     runs, from torch.profiler (a session that records none is tried once
     more); None when none is recorded."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
     for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with _profiled(torch) as prof:
             fn()
-            torch.cuda.synchronize()
-        ops = {e.key: e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA}
+        ops = {e.key: e.count for e in _device_rows(prof)}
         if ops:
             return ops
     return None
+
+
+#: spin-kernel launches that open every profiler session: late in this
+#: process the profiler drops the first records of a session (a few, up
+#: to all of a short session's), so these take the loss, not the work
+PRIMERS = 16
+#: (sessions, sessions that dropped primers, primers dropped)
+PRIMER_LOSS = [0, 0, 0]
+
+
+@contextlib.contextmanager
+def _profiled(torch, cpu=False):
+    """A torch.profiler session (device activity, and host with ``cpu``)
+    around the block, which ``PRIMERS`` spin kernels precede. Read it
+    with ``_device_rows``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        for _ in range(PRIMERS):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+
+
+def _device_rows(prof):
+    """The device rows of a ``_profiled`` session's ``key_averages()``,
+    the primers left out and their loss tallied in ``PRIMER_LOSS``."""
+    from torch.autograd import DeviceType
+
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    seen = sum(e.count for e in rows if "spin_kernel" in e.key)
+    PRIMER_LOSS[0] += 1
+    if seen < PRIMERS:
+        PRIMER_LOSS[1] += 1
+        PRIMER_LOSS[2] += PRIMERS - seen
+    return [e for e in rows if "spin_kernel" not in e.key]
 
 
 def _time_ms(torch, fn, iters):
@@ -1705,19 +2334,28 @@ def _device_ms(torch, fn, iters):
     """Mean device time per call of the kernels ``fn`` launches, from
     torch.profiler: the call time without the host's share. A session
     that records no device time is tried once more in a fresh one; if
-    that reads 0 too, None (not measured)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    that reads 0 too, None (not measured). A kernel whose records are not
+    a whole multiple of the calls (a record lost past the primers) is
+    logged with the CUDA events of the same window."""
     fn()
     torch.cuda.synchronize()
     for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with _profiled(torch) as prof:
+            a.record()
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
-        ms = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA) / 1e3 / iters
+            b.record()
+        rows = _device_rows(prof)
+        ms = sum(e.self_device_time_total for e in rows) / 1e3 / iters
+        if any(e.count % iters for e in rows):
+            log(f"[timing] the profiler's records over {iters} calls: "
+                + "; ".join(f"{e.key[:40]} x{e.count} "
+                            f"{e.self_device_time_total / 1e3:.4f} ms"
+                            for e in rows)
+                + f"; CUDA events in the same window "
+                  f"{a.elapsed_time(b) / iters:.4f} ms a call")
         if ms > 0:
             return ms
     log("[timing] the profiler recorded no device time twice: not measured")
@@ -1834,7 +2472,8 @@ def _bound(in_bytes, out_bytes, ops, peak):
 
 def timing_knn(torch, dev, card):
     """B2 at the brute-force kNN shape of the slice: Q = 1 (and Q = 8,
-    MaxSim), D = 2^20, dims = 128, f32 (precise), k = 100, cosine. The
+    MaxSim; Q = 32 and 64, phase 5e's kNN and MaxSim batches), D = 2^20,
+    dims = 128, f32 (precise), k = 100, cosine. The
     slab (512 MiB) is ten times the L2, so every call reads it from
     device memory."""
     import torch.nn.functional as F
@@ -1844,7 +2483,8 @@ def timing_knn(torch, dev, card):
     torch.backends.cuda.matmul.allow_tf32 = False
     D, dims, k = 1 << 20, DIMS, 100
     out = {}
-    for Q in (1, 8):
+    # Q = 32 and 64: _msearch's kNN batch and MaxSim batch (8 x 8 tokens)
+    for Q in (1, 8, 32, 64):
         q, v, mask = _b2_inputs(torch, dev, Q, D, dims, 17)
 
         def lib():
@@ -2009,22 +2649,34 @@ def main() -> int:
     sift = make_sift(np, N_VECS, DIMS, SEED)
     log(f"[data] MS-MARCO-shaped postings and SIFT-shaped vectors generated"
         f" in {time.perf_counter() - t:.1f} s")
-    launches = {"bm25_dense_topk": phase_read(torch, np, dev, card, corpus)}
+    b1_read, read_node = phase_read(torch, np, dev, card, corpus)
+    launches = {"bm25_dense_topk": b1_read}
     (launches["knn_topk"], launches["adc_scores"], b3_case, ivf_index,
      pq_parts) = phase_vectors(torch, np, dev, card, sift)
     hyb = phase_hybrid(torch, np, dev, card, corpus, sift, ivf_index,
                        pq_parts)
     launches["maxsim_adc"] = hyb["maxsim_adc"]
     del ivf_index, pq_parts
-    b1_mesh, b2_mesh = phase_mesh(torch, np, dev, card, corpus, sift)
+    b1_mesh, b2_mesh, mesh_node, shard_text = phase_mesh(
+        torch, np, dev, card, corpus, sift)
     launches["bm25_dense_topk"] += b1_mesh
     launches["knn_topk"] += b2_mesh
-    del corpus, sift
+    b1_ms, b2_ms = phase_msearch(torch, np, dev, card, corpus, sift,
+                                 read_node, mesh_node, shard_text)
+    launches["bm25_dense_topk"] += b1_ms
+    launches["knn_topk"] += b2_ms
+    read_node.close()
+    mesh_node.close()
+    del corpus, sift, read_node, mesh_node, shard_text
+    torch.cuda.empty_cache()
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card),
               "knn_topk": timing_knn(torch, dev, card),
               "adc_scores": timing_adc(torch, dev, card, b3_case),
               "maxsim_adc": timing_maxsim(torch, dev, card)}
     del b3_case
+    log(f"[done] the profiler dropped primer records in {PRIMER_LOSS[1]} "
+        f"of {PRIMER_LOSS[0]} sessions ({PRIMER_LOSS[2]} of "
+        f"{PRIMERS * PRIMER_LOSS[0]})")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     replaces = {"bm25_dense_topk": 150, "knn_topk": 39, "adc_scores": 415,
                 "maxsim_adc": 585}

@@ -64,7 +64,8 @@
 // pass 2 is the pairwise merge of topk_keys.cuh plus a decode launch.
 // Keys are unique (they carry the doc id), so a plain ascending key order
 // is exactly the (-value, doc id) order. There is no shape gate: any
-// Q <= 65535 (a grid dimension), R, F, D < 2^31 and 1 <= k <= D are taken.
+// Q <= 65535 (a grid dimension; ops/bm25_topk.py launches larger batches
+// in slices), R, F, D < 2^31 and 1 <= k <= D are taken.
 //
 // Measured on an H100 (PERF.md): about 0.025 ms of device time at the
 // single-query shape above, 41% of the bound, against 0.044 ms for the

@@ -67,7 +67,8 @@
 // block for one query (emit_filtered()), one warp per query for eight
 // (emit_by_warps(), which also thresholds a block's first chunk by a
 // sample). Pass 2 of topk_keys.cuh merges the chunk lists. No shape
-// gate: any 1 <= Q <= 65535, dims >= 1, D < 2^31 and 1 <= k <= D.
+// gate: any 1 <= Q <= 65535 (a grid dimension; ops/knn_topk.py launches
+// larger batches in slices), dims >= 1, D < 2^31 and 1 <= k <= D.
 //
 // Bound on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense, 67 TFLOP/s f32):
 //   Q = 1, D = 2^20, dims = 128, f32: the slab (536.9 MB) and the mask

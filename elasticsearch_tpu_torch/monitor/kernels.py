@@ -8,10 +8,18 @@ request component.
 Names the port records:
   bm25_scatter        pure scatter-add postings scoring (host or mesh)
   bm25_hybrid         dense-impact row gather + scatter tail
-  bm25_fused_topk     kernel B1's fused dense top-k (no [D] score row)
+  bm25_fused_topk     kernel B1's fused dense top-k (no [D] score row); a
+                      batched _msearch tier 1 records its query count
+  bm25_hybrid_tf32_refused
+                      a batched tier 2 refused: TF32 was on for the f32
+                      product (its batch then runs query by query)
   knn_fused_topk      kernel B2's fused scores + mask + top-k, brute force
+  knn_fused_batch     queries served by a batched kNN/MaxSim B2 launch
   mesh_search         request served by the mesh product path
   mesh_fallback_total request fell back to the host per-shard loop
+  mesh_msearch        a batch's query phase served by the mesh's round
+  mesh_msearch_fallback
+                      a batch the mesh declined (the host tiers served it)
   mesh_host_by_design request routed to the host loop ON PURPOSE (IVF
                       probing, MaxSim, hybrid) — not a fallback
   executor_prep_hit   a search round reused a prepared-query memo entry

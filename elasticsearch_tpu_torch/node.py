@@ -1,22 +1,30 @@
 """Node: the top-level runtime holding indices.
 
 Port of elasticsearch_tpu/node.py, slim: create an index, index / get /
-delete documents, refresh, single-index search, close. The node owns the
-device (``cuda`` unless the caller asks for ``cpu``), one breaker service
-and one residency registry, and passes them down to every segment.
+delete documents, refresh, single-index search, ``msearch``, close. The
+node owns the device (``cuda`` unless the caller asks for ``cpu``), one
+breaker service, one residency registry, which it passes down to every
+segment, and the serving front-end (``node.serving``): a single search
+goes through its coalescer, so that concurrent searches run as one batch
+(``serving/coalescer.py``), and an ``msearch`` batches its eligible items
+itself (``search/batch.py``).
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from elasticsearch_tpu_torch.index.index_service import IndexService
 from elasticsearch_tpu_torch.resources.breakers import CircuitBreakerService
 from elasticsearch_tpu_torch.resources.residency import Residency
+from elasticsearch_tpu_torch.search.batch import (msearch_error_entry,
+                                                  try_batched_msearch)
+from elasticsearch_tpu_torch.serving import ServingFrontend
 from elasticsearch_tpu_torch.utils.device import resolve_device
-from elasticsearch_tpu_torch.utils.errors import (IllegalArgumentException,
+from elasticsearch_tpu_torch.utils.errors import (ElasticsearchTpuException,
+                                                  IllegalArgumentException,
                                                   IndexAlreadyExistsException,
                                                   IndexNotFoundException)
 
@@ -30,6 +38,8 @@ class Node:
         self.breakers = CircuitBreakerService()
         self.residency = Residency(self.device, self.breakers)
         self.indices: Dict[str, IndexService] = {}
+        # cheap to build: the coalescer's drain thread starts on first use
+        self.serving = ServingFrontend(self)
 
     def create_index(self, name: str, body: Optional[dict] = None) -> dict:
         if name in self.indices:
@@ -70,9 +80,56 @@ class Node:
                             "failed": 0}}
 
     def search(self, index: str, body: Optional[dict] = None) -> dict:
-        return self.get_index(index).search(body or {})
+        svc = self.get_index(index)
+        body = body or {}
+
+        def run():
+            return svc.search(body)
+
+        # the serving coalescer: eligible bodies of concurrent requests
+        # park briefly and run as one batch; a lone request or an
+        # ineligible body runs the normal path unchanged
+        out = self.serving.coalescer.execute(svc, body, run)
+        return out if out is not None else run()
+
+    def msearch(self, pairs: List[Tuple[dict, dict]]) -> dict:
+        """``_msearch`` over (header, body) pairs. When every header names
+        the same existing index, the eligible items run as one batch
+        (``search/batch.py``: one device pass per segment); the rest run
+        one by one through ``search``, and a typed error becomes that
+        item's ES-shaped failure entry."""
+        pre: List[Optional[dict]] = [None] * len(pairs)
+        if len(pairs) >= 2:
+            names = {h.get("index") if isinstance(h.get("index"), str)
+                     else None for h, _ in pairs}
+            if len(names) == 1 and None not in names:
+                svc = self.indices.get(next(iter(names)))
+                out = None
+                if svc is not None:
+                    try:
+                        out = try_batched_msearch(svc, [b for _, b in pairs])
+                    except ElasticsearchTpuException:
+                        # a typed refusal (a breaker denial): each item
+                        # runs alone and reports its own error; a device
+                        # fault is not typed and propagates
+                        out = None
+                if out is not None:
+                    pre = out
+        responses = []
+        for (header, body), served in zip(pairs, pre):
+            if served is not None:
+                responses.append(served)
+                continue
+            try:
+                responses.append(self.search(header.get("index"), body))
+            except ElasticsearchTpuException as e:
+                responses.append(msearch_error_entry(e))
+        return {"responses": responses}
 
     def close(self):
+        # the coalescer first: parked requests resolve before the indices
+        # they search close
+        self.serving.close()
         for svc in self.indices.values():
             svc.close()
         self.indices.clear()

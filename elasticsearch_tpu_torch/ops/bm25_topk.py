@@ -27,6 +27,8 @@ import ctypes
 import numpy as np
 import torch
 
+from elasticsearch_tpu_torch.utils.shapes import query_slices
+
 #: kernel launches (one per wrapper call that reaches the card)
 LAUNCHES = 0
 
@@ -113,7 +115,8 @@ def bm25_dense_topk(qw: torch.Tensor, impact: torch.Tensor,
     (``unpack_topk`` splits it), so that a caller moves all of it to the
     host in one copy. CPU tensors take the plain twin. CUDA tensors launch
     the kernel, or raise; ``plain=True`` runs the twin on the card
-    instead, for checks that compare the two."""
+    instead, for checks that compare the two. More query rows than one
+    launch takes run as one launch per slice of ``query_slices``."""
     if qw.dim() != 2 or impact.dim() != 2 or mask.dim() != 1:
         raise ValueError("expected qw [Q, R], impact [F, D], mask [D]")
     Q, R = qw.shape
@@ -128,6 +131,14 @@ def bm25_dense_topk(qw: torch.Tensor, impact: torch.Tensor,
                          f"{tuple(impact.shape)}, mask {tuple(mask.shape)}")
     if not 1 <= k <= D:
         raise ValueError(f"k must be in [1, {D}], got {k}")
+    parts = query_slices(Q, D, k)
+    if len(parts) > 1:
+        outs = [bm25_dense_topk(qw[a:b], impact, mask, k=k, rows=rows,
+                                count=count, packed=packed, plain=plain)
+                for a, b in parts]
+        if packed:
+            return torch.cat(outs)
+        return tuple(torch.cat(x) for x in zip(*outs))
     if qw.device.type == "cpu" or plain:
         res = bm25_dense_topk_plain(qw, impact, mask, k=k, rows=rows,
                                     count=count)
@@ -143,9 +154,9 @@ def bm25_dense_topk(qw: torch.Tensor, impact: torch.Tensor,
         raise TypeError("expected qw f32, impact f32, mask bool, rows i32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("qw, impact, mask and rows must be contiguous")
-    if Q < 1 or Q > 65535 or D >= 2 ** 31 or F >= 2 ** 31:
-        raise ValueError(f"kernel takes 1 <= Q <= 65535 and D, F < 2^31, "
-                         f"got Q={Q}, D={D}, F={F}")
+    if Q < 1 or D >= 2 ** 31 or F >= 2 ** 31:
+        raise ValueError(f"kernel takes Q >= 1 and D, F < 2^31, got Q={Q}, "
+                         f"D={D}, F={F}")
     lib = _lib()
     dev = qw.device
     with torch.cuda.device(dev):

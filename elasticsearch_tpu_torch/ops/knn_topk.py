@@ -15,15 +15,18 @@ The function, for queries f32[Q, dims], vecs f32[D, dims], mask bool[D]:
     ordered by (-value, doc id): ``lax.top_k``'s tie rule.
 
 Slots past the live docs hold -inf; their ids are masked docs and mean
-nothing. There is no shape gate: the kernel takes any Q <= 65535, dims,
-and 1 <= k <= D (the TPU dispatcher sent k > 64 or dims % 128 != 0 to
-XLA).
+nothing. There is no shape gate: the kernel takes any dims and 1 <= k <=
+D (the TPU dispatcher sent k > 64 or dims % 128 != 0 to XLA), and any Q:
+the wrapper launches it once per slice of query rows that its grid and
+scratch hold (``utils/shapes.py::query_slices``).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+
+from elasticsearch_tpu_torch.utils.shapes import query_slices
 
 #: kernel launches (one per wrapper call that reaches the card)
 LAUNCHES = 0
@@ -160,7 +163,8 @@ def knn_topk(queries: torch.Tensor, vecs: torch.Tensor, mask: torch.Tensor,
 
     CPU tensors take the plain twin. CUDA tensors launch the kernel, or
     raise; ``plain=True`` runs the twin on the card instead, for checks
-    that compare the two."""
+    that compare the two. More query rows than one launch takes run as
+    one launch per slice of ``query_slices``."""
     if queries.dim() != 2 or vecs.dim() != 2 or mask.dim() != 1:
         raise ValueError("expected queries [Q, dims], vecs [D, dims], "
                          "mask [D]")
@@ -173,6 +177,11 @@ def knn_topk(queries: torch.Tensor, vecs: torch.Tensor, mask: torch.Tensor,
     if not 1 <= k <= D:
         raise ValueError(f"k must be in [1, {D}], got {k}")
     code = _metric_code(metric)
+    parts = query_slices(Q, D, k)
+    if len(parts) > 1:
+        outs = [knn_topk(queries[a:b], vecs, mask, k=k, metric=metric,
+                         precise=precise, plain=plain) for a, b in parts]
+        return tuple(torch.cat(x) for x in zip(*outs))
     if queries.device.type == "cpu" or plain:
         return knn_topk_plain(queries, vecs, mask, k=k, metric=metric,
                               precise=precise)
@@ -183,9 +192,9 @@ def knn_topk(queries: torch.Tensor, vecs: torch.Tensor, mask: torch.Tensor,
         raise TypeError("expected vecs f32 and mask bool")
     if not (vecs.is_contiguous() and mask.is_contiguous()):
         raise ValueError("vecs and mask must be contiguous")
-    if Q < 1 or Q > 65535 or D >= 2 ** 31 or dims < 1:
-        raise ValueError(f"kernel takes 1 <= Q <= 65535, dims >= 1 and "
-                         f"D < 2^31, got Q={Q}, dims={dims}, D={D}")
+    if Q < 1 or D >= 2 ** 31 or dims < 1:
+        raise ValueError(f"kernel takes Q >= 1, dims >= 1 and D < 2^31, "
+                         f"got Q={Q}, dims={dims}, D={D}")
     qh, q2 = prepare_queries(queries, metric, precise)
     if qh.data_ptr() % 16:  # the kernel reads query rows as float4s
         qh = qh.clone()

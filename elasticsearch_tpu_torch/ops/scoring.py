@@ -6,20 +6,19 @@ host path calls. The reference's forms that exist only to suit XLA:TPU
 blocked ``exact_topk``, the packed single-pull result) are not ported:
 on the card a scatter is an ``index_add_``.
 
-The ``*_slots`` forms serve the mesh path (``parallel/``): the same
-arithmetic over S slots at once, postings ``[S, NNZ]`` and chunk tables
-``[S, T]``, each slot's scatter going to its own ``D + 1`` row of one
-flat buffer, one ``index_add_`` per chunk position for all slots. A
-doc's sum runs in the same chunk order as the per-segment form, so the
-two agree bit for bit.
-
-Postings windows: a query term's run is a ``(start, len)`` chunk of the
-segment's padded CSR; ``P`` is the window width (>= every chunk length)
-and ``D`` the segment's ``max_docs``. Scatters go into a ``D + 1`` buffer
-whose last slot swallows padding and invalid window entries, then are
-sliced back to ``D``. Each chunk is one ``index_add_`` (a doc occurs at
-most once in a chunk), so a doc's sum runs in chunk order, deterministic
-on the card as on the CPU.
+Postings scatters: a query term's run is a ``(start, len)`` chunk of the
+segment's CSR, and a query is a chunk table (starts, lens, weights over
+chunk positions t). ``bm25_score_runs`` and ``match_count_runs`` scatter
+the postings of the real runs of G such tables at once (G queries of one
+segment, or the S slots of the mesh over slot-stacked postings ``[S,
+NNZ]``), one ``index_add_`` per chunk position into a ``[G, D]`` buffer:
+a doc occurs at most once in a chunk, so a doc's sum runs in chunk
+order, deterministic on the card as on the CPU, and every caller's sums
+agree bit for bit. The host's run lengths size each scatter, so nothing
+waits on the card. The ``*_segment`` forms are one table (the host loop),
+``bm25_score_batch`` many host tables in one copy (batched ``_msearch``),
+and ``bm25_hybrid_topk_batch`` adds the f32 product ``qw[Q, F] @
+impact`` and takes each query's top k and hit count.
 """
 from __future__ import annotations
 
@@ -33,94 +32,129 @@ NEG_INF = float("-inf")
 DENSE_ROW_PAD = 8  # kernel sublane multiple; pack_dense_rows pads R to it
 
 
-def _windows(doc_ids, starts, lens, P: int, D: int):
-    """(docs i64[T, P], pos i64[T, P], valid bool[T, P]) for the postings
-    windows; invalid entries point at doc D."""
-    dev = doc_ids.device
-    starts = torch.as_tensor(starts, dtype=torch.int64, device=dev)
-    lens = torch.as_tensor(lens, dtype=torch.int64, device=dev)
-    ar = torch.arange(P, dtype=torch.int64, device=dev)
-    valid = ar[None, :] < lens[:, None]
-    pos = torch.clamp(starts[:, None] + ar[None, :], max=doc_ids.shape[0] - 1)
-    docs = torch.where(valid, doc_ids[pos].to(torch.int64),
-                       torch.full_like(pos, D))
-    return docs, pos, valid
+def _t_major(x):
+    """A [G, T] table flattened chunk position major: [t * G + g]."""
+    return x.reshape(-1) if x.shape[0] == 1 else x.t().reshape(-1)
 
 
-def _scatter_sum(docs, contrib, D: int):
-    out = torch.zeros(D + 1, dtype=contrib.dtype, device=contrib.device)
-    for t in range(docs.shape[0]):
-        out.index_add_(0, docs[t], contrib[t])
-    return out[:D]
+def _run_postings(starts, lens, base, sizes):
+    """(pair i32[n], pos i64[n]): every posting of the chunk tables
+    starts/lens [G, T] (on the card), chunk position major: for each t,
+    row g's run of lens[g, t] postings from base[g] + starts[g, t] in the
+    flat postings. ``pair`` is t * G + g. ``sizes`` (host, [T]) holds each
+    position's posting count, so the host sizes every op and nothing
+    waits on the card."""
+    n = int(sizes.sum())
+    ln = _t_major(lens)
+    pair = torch.repeat_interleave(ln, output_size=n)
+    off = _t_major(starts) - (torch.cumsum(ln, 0, dtype=torch.int64) - ln)
+    if base is not None:
+        off = off + base.repeat(lens.shape[1])
+    return pair, off[pair] + torch.arange(n, device=lens.device)
 
 
-def bm25_score_segment(doc_ids, tfnorm, starts, lens, weights, *, P: int,
-                       D: int):
-    """f32[D] BM25 scores: sum over chunks of tfnorm * weight at each
-    posting (0 for non-matching docs)."""
-    docs, pos, valid = _windows(doc_ids, starts, lens, P, D)
-    w = torch.as_tensor(weights, dtype=torch.float32, device=doc_ids.device)
-    contrib = torch.where(valid, tfnorm[pos] * w[:, None],
-                          torch.zeros((), device=doc_ids.device))
-    return _scatter_sum(docs, contrib, D)
+def _doc_index(doc_ids, pair, pos, G: int, D: int):
+    """Flat [G * D] index of each posting: its row's base plus its doc."""
+    docs = doc_ids.reshape(-1)[pos]
+    return docs if G == 1 else (pair % G).to(torch.int64) * D + docs
 
 
-def match_count_segment(doc_ids, starts, lens, *, P: int, D: int):
+def _scatter_runs(idx, contrib, sizes, G: int, D: int):
+    """[G, D] sums of ``contrib`` at flat ``idx`` (g * D + doc), one
+    ``index_add_`` per chunk position in increasing t: a doc occurs at
+    most once in a chunk, so each add is free of collisions and a doc's
+    sum runs in chunk order, deterministic on the card as on the CPU."""
+    out = torch.zeros(G * D, dtype=contrib.dtype, device=contrib.device)
+    off = 0
+    for size in sizes.tolist():
+        if size:
+            out.index_add_(0, idx[off: off + size],
+                           contrib[off: off + size])
+        off += size
+    return out.view(G, D)
+
+
+def bm25_score_runs(doc_ids, tfnorm, starts, lens, weights, sizes, *,
+                    D: int, base=None):
+    """f32[G, D]: for each row g of the chunk tables starts/lens/weights
+    [G, T] (on the card), the sum over its chunks of tfnorm * weight at
+    each posting (0 for docs it does not match). ``doc_ids``/``tfnorm``
+    are one segment's [NNZ], or slot-stacked [S, NNZ] with ``base`` (i64
+    [G] on the card) the flat offset of each row's slot; ``sizes`` as in
+    ``_run_postings``."""
+    G = lens.shape[0]
+    if not sizes.any():
+        return torch.zeros(G, D, dtype=torch.float32, device=tfnorm.device)
+    pair, pos = _run_postings(starts, lens, base, sizes)
+    contrib = tfnorm.reshape(-1)[pos] * _t_major(weights)[pair]
+    return _scatter_runs(_doc_index(doc_ids, pair, pos, G, D), contrib,
+                         sizes, G, D)
+
+
+def match_count_runs(doc_ids, starts, lens, sizes, *, D: int, base=None):
+    """i32[G, D]: how many of row g's chunks hold each doc (a doc occurs
+    at most once in a term's run, so a split run still counts it once);
+    arguments as ``bm25_score_runs``'s."""
+    G = lens.shape[0]
+    if not sizes.any():
+        return torch.zeros(G, D, dtype=torch.int32, device=doc_ids.device)
+    pair, pos = _run_postings(starts, lens, base, sizes)
+    ones = torch.ones(pos.shape[0], dtype=torch.int32, device=pos.device)
+    return _scatter_runs(_doc_index(doc_ids, pair, pos, G, D), ones, sizes,
+                         G, D)
+
+
+def _upload_tables(doc_ids, starts, lens, weights, slot_of=None):
+    """Host chunk tables (numpy [G, T]) on the card in one copy: (starts,
+    lens, weights, base or None) and the host's per-position sizes."""
+    G, T = np.shape(lens)
+    parts = [(starts, np.int32), (lens, np.int32), (weights, np.float32)]
+    if slot_of is not None:
+        parts.append((slot_of, np.int32))
+    words = torch.from_numpy(np.concatenate([
+        np.ascontiguousarray(a, dtype=dt).reshape(-1).view(np.int32)
+        for a, dt in parts])).to(doc_ids.device)
+    n = G * T
+    base = None
+    if slot_of is not None:
+        base = words[3 * n:].to(torch.int64) * doc_ids.shape[-1]
+    return (words[:n].view(G, T), words[n: 2 * n].view(G, T),
+            words[2 * n: 3 * n].view(torch.float32).view(G, T), base,
+            np.asarray(lens, np.int64).sum(0))
+
+
+def bm25_score_batch(doc_ids, tfnorm, starts, lens, weights, *, D: int,
+                     slot_of=None):
+    """``bm25_score_runs`` of host chunk tables (numpy [G, T]), with
+    ``slot_of`` (numpy [G]) naming each row's slot of slot-stacked
+    postings. The tables go to the card in one copy."""
+    st, ln, ws, base, sizes = _upload_tables(doc_ids, starts, lens, weights,
+                                             slot_of)
+    return bm25_score_runs(doc_ids, tfnorm, st, ln, ws, sizes, D=D,
+                           base=base)
+
+
+def bm25_score_segment(doc_ids, tfnorm, starts, lens, weights, *, D: int):
+    """f32[D] BM25 scores of one segment's chunk table (numpy [T]): sum
+    over chunks of tfnorm * weight at each posting (0 for non-matching
+    docs)."""
+    return bm25_score_batch(doc_ids, tfnorm, np.asarray(starts)[None],
+                            np.asarray(lens)[None],
+                            np.asarray(weights)[None], D=D)[0]
+
+
+def match_count_segment(doc_ids, starts, lens, *, D: int):
     """i32[D] count of matching query terms per doc (a doc occurs at most
     once in a term's run, so split chunks still count it once)."""
-    docs, _, valid = _windows(doc_ids, starts, lens, P, D)
-    return _scatter_sum(docs, valid.to(torch.int32), D)
+    lens = np.asarray(lens)[None]
+    st, ln, _ws, _base, sizes = _upload_tables(
+        doc_ids, np.asarray(starts)[None], lens, np.zeros(lens.shape))
+    return match_count_runs(doc_ids, st, ln, sizes, D=D)[0]
 
 
-def term_mask(doc_ids, starts, lens, *, P: int, D: int):
+def term_mask(doc_ids, starts, lens, *, D: int):
     """bool[D]: docs containing ANY of the chunks."""
-    return match_count_segment(doc_ids, starts, lens, P=P, D=D) > 0
-
-
-def _windows_slots(doc_ids, starts, lens, P: int, D: int):
-    """(flat i64[S, T, P], pos i64[S, T, P], valid bool[S, T, P]):
-    ``_windows`` per slot, with slot s's doc d at flat index
-    s * (D + 1) + d and invalid entries at s * (D + 1) + D."""
-    S, nnz = doc_ids.shape
-    dev = doc_ids.device
-    ar = torch.arange(P, dtype=torch.int64, device=dev)
-    valid = ar < lens.to(torch.int64).unsqueeze(2)
-    pos = torch.clamp(starts.to(torch.int64).unsqueeze(2) + ar, max=nnz - 1)
-    docs = torch.gather(doc_ids, 1, pos.view(S, -1)).view(pos.shape)
-    base = torch.arange(0, S * (D + 1), D + 1, dtype=torch.int64,
-                        device=dev).view(S, 1, 1)
-    return torch.where(valid, docs + base, base + D), pos, valid
-
-
-def _scatter_sum_slots(flat, contrib, D: int):
-    """Chunk position t of every slot in one ``index_add_``, t in order."""
-    S, T = flat.shape[:2]
-    out = torch.zeros(S * (D + 1), dtype=contrib.dtype, device=contrib.device)
-    for f, c in zip(flat.transpose(0, 1).reshape(T, -1).unbind(0),
-                    contrib.transpose(0, 1).reshape(T, -1).unbind(0)):
-        out.index_add_(0, f, c)
-    return out.view(S, D + 1)[:, :D]
-
-
-def bm25_score_slots(doc_ids, tfnorm, starts, lens, weights, *, P: int,
-                     D: int):
-    """f32[S, D]: ``bm25_score_segment`` of each slot."""
-    flat, pos, valid = _windows_slots(doc_ids, starts, lens, P, D)
-    tf = torch.gather(tfnorm, 1, pos.view(pos.shape[0], -1)).view(pos.shape)
-    contrib = torch.where(valid, tf * weights.unsqueeze(2),
-                          torch.zeros((), device=doc_ids.device))
-    return _scatter_sum_slots(flat, contrib, D)
-
-
-def match_count_slots(doc_ids, starts, lens, *, P: int, D: int):
-    """i32[S, D]: ``match_count_segment`` of each slot."""
-    flat, _, valid = _windows_slots(doc_ids, starts, lens, P, D)
-    return _scatter_sum_slots(flat, valid.to(torch.int32), D)
-
-
-def term_mask_slots(doc_ids, starts, lens, *, P: int, D: int):
-    """bool[S, D]: ``term_mask`` of each slot."""
-    return match_count_slots(doc_ids, starts, lens, P=P, D=D) > 0
+    return match_count_segment(doc_ids, starts, lens, D=D) > 0
 
 
 def pack_dense_rows(row_w: dict):
@@ -149,7 +183,7 @@ def gather_impact_rows(dense_impact, qrows):
 
 
 def bm25_score_hybrid_gather(dense_impact, qrows, qrw, doc_ids, tfnorm,
-                             starts, lens, weights, *, P: int, D: int):
+                             starts, lens, weights, *, D: int):
     """f32[D] hybrid BM25 reading only the query's dense rows: an f32
     sum over the R gathered rows (in row order) plus the CSR tail."""
     rows = _rows(dense_impact, qrows)
@@ -158,7 +192,7 @@ def bm25_score_hybrid_gather(dense_impact, qrows, qrw, doc_ids, tfnorm,
     for r in range(rows.shape[0]):
         dense = dense + w[r] * rows[r]
     return dense + bm25_score_segment(doc_ids, tfnorm, starts, lens, weights,
-                                      P=P, D=D)
+                                      D=D)
 
 
 def _dense_present(dense_impact, qrows):
@@ -167,17 +201,17 @@ def _dense_present(dense_impact, qrows):
 
 
 def match_count_hybrid_gather(dense_impact, qrows, doc_ids, starts, lens,
-                              *, P: int, D: int):
+                              *, D: int):
     """i32[D] matched-term counts: gathered dense presence + CSR tail."""
     dcount = _dense_present(dense_impact, qrows).sum(0, dtype=torch.int32)
-    return dcount + match_count_segment(doc_ids, starts, lens, P=P, D=D)
+    return dcount + match_count_segment(doc_ids, starts, lens, D=D)
 
 
 def term_mask_hybrid_gather(dense_impact, qrows, doc_ids, starts, lens, *,
-                            P: int, D: int):
+                            D: int):
     """bool[D] any-term mask: gathered dense presence | CSR tail."""
     return (_dense_present(dense_impact, qrows).any(0)
-            | term_mask(doc_ids, starts, lens, P=P, D=D))
+            | term_mask(doc_ids, starts, lens, D=D))
 
 
 def dense_presence_count(impact, qind, live) -> int:
@@ -186,6 +220,56 @@ def dense_presence_count(impact, qind, live) -> int:
     sel = qind[0] > 0
     present = ((impact != 0) & sel[:, None]).any(0) & live
     return int(present.sum())
+
+
+def f32_matmul_exact(device) -> bool:
+    """Whether an f32 ``torch.matmul`` on ``device`` multiplies in f32:
+    on the card only while TF32 is off (``torch.backends.cuda.matmul.
+    allow_tf32``, which ``torch.set_float32_matmul_precision`` also
+    sets). The batched products need f32, the reference's ``HIGHEST``;
+    this reads the caller's setting and never changes it."""
+    return torch.device(device).type != "cuda" \
+        or not torch.backends.cuda.matmul.allow_tf32
+
+
+def bm25_score_hybrid_batch(dense_impact, qw, doc_ids, tfnorm, starts, lens,
+                            weights, *, D: int):
+    """f32[Q, D] batched hybrid BM25: the f32 product qw[Q, F] @
+    impact[F, D] for the dense rows plus the scatter tail of the [Q, T]
+    chunk tables. The caller holds the product to f32
+    (``f32_matmul_exact``)."""
+    dense = torch.matmul(qw, dense_impact)
+    return dense + bm25_score_batch(doc_ids, tfnorm, starts, lens, weights,
+                                    D=D)
+
+
+def topk_stable(scores, k: int):
+    """(vals f32[R, k], ids i32[R, k]): each row's top k by (-value,
+    index), the first k of a stable descending sort (``torch.topk`` alone
+    leaves the order of ties open), as one ``torch.topk`` over unique
+    int64 keys: the value's order-preserving bits over the inverted
+    index. No row is sorted whole. -0.0 ranks as 0.0."""
+    s = scores + 0.0  # -0.0 -> 0.0, as a sort compares them
+    b = s.view(torch.int32).to(torch.int64)
+    u = b & 0xFFFFFFFF
+    u = torch.where(b < 0, 0xFFFFFFFF - u, u | 0x80000000)
+    ids = torch.arange(s.shape[-1], dtype=torch.int64, device=s.device)
+    key = (u - (1 << 31)) * (1 << 32) + (0xFFFFFFFF - ids)
+    idx = torch.topk(key, k, dim=-1).indices
+    return torch.gather(s, -1, idx), idx.to(torch.int32)
+
+
+def bm25_hybrid_topk_batch(dense_impact, qw, doc_ids, tfnorm, starts, lens,
+                           weights, live, *, D: int, k: int):
+    """(vals f32[Q, k], ids i32[Q, k], totals i64[Q]): the scores of
+    ``bm25_score_hybrid_batch``, matched where > 0 (every weight of a
+    disjunctive term group is positive) and live, then each row's top k
+    by (-score, doc id), ``topk_with_mask``'s order."""
+    scores = bm25_score_hybrid_batch(dense_impact, qw, doc_ids, tfnorm,
+                                     starts, lens, weights, D=D)
+    m = (scores > 0) & live[None, :]
+    vals, idx = topk_stable(torch.where(m, scores, NEG_INF), k)
+    return vals, idx, m.sum(1)
 
 
 def range_mask_f32(values, exists, lo: float, hi: float, include_lo: bool,

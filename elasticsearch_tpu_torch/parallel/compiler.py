@@ -66,7 +66,8 @@ class DataPrim:
     """One input group of the round. ``build(seg_row, ctxs, D, data)``
     returns (items, static): the items are numpy tables, slot-stacked
     tensors (``data.stacked``) or per-slot lists; ``static`` holds the
-    parameters the emits read (window P, row count R, range form)."""
+    parameters the emits read (postings a chunk position, row count R,
+    range form)."""
 
     def build(self, seg_row, ctxs, D: int, data) -> Tuple[list, tuple]:
         raise NotImplementedError
@@ -123,7 +124,9 @@ class PostingsPrim(DataPrim):
 
 
 def _tables(per_slot, S: int):
-    """starts/lens/ws [S, T] from per-slot chunk lists, T a pow2."""
+    """starts/lens/ws [S, T] from per-slot chunk lists, T a pow2, and the
+    postings of each chunk position over the slots (host i64[T]: the
+    scatters' sizes)."""
     T = pow2_bucket(max([len(st) for st, _, _ in per_slot] or [1]),
                     minimum=1)
     h_starts = np.zeros((S, T), np.int32)
@@ -133,7 +136,7 @@ def _tables(per_slot, S: int):
         h_starts[si, : len(st)] = st
         h_lens[si, : len(ln)] = ln
         h_ws[si, : len(ws)] = ws
-    return [h_starts, h_lens, h_ws]
+    return [h_starts, h_lens, h_ws], h_lens.astype(np.int64).sum(0)
 
 
 class TGroupPrim(DataPrim):
@@ -147,7 +150,6 @@ class TGroupPrim(DataPrim):
 
     def build(self, seg_row, ctxs, D, data):
         per_slot = []
-        P = 1
         for seg, ctx in zip(seg_row, ctxs):
             inv = seg.inverted.get(self.field) if seg is not None else None
             runs = []
@@ -155,11 +157,9 @@ class TGroupPrim(DataPrim):
                 terms, weights = self.terms_fn(ctx)
                 runs = [inv.term_slice(t) + (w,)
                         for t, w in zip(terms, weights)]
-            starts, lens, ws, max_len = (split_runs(runs) if runs
-                                         else ([], [], [], 1))
-            P = max(P, pow2_bucket(max_len))
-            per_slot.append((starts, lens, ws))
-        return _tables(per_slot, len(seg_row)), (P,)
+            per_slot.append(split_runs(runs)[:3])
+        tables, sizes = _tables(per_slot, len(seg_row))
+        return tables, (sizes,)
 
 
 class HybridTGroupPrim(DataPrim):
@@ -175,7 +175,8 @@ class HybridTGroupPrim(DataPrim):
     generic route) adds the tables. Items: the per-slot blocks (a
     segment's own tensor or None; never stacked), qrows/qrw [S, R] (each
     slot's dense rows, sorted, -1/0 padded), starts/lens/ws [S, T] tail
-    tables; static (P, the most real rows of a slot)."""
+    tables; static (the tail's postings a chunk position, the most real
+    rows of a slot)."""
 
     def __init__(self, field: str, terms_fn: Callable):
         self.field = field
@@ -223,13 +224,9 @@ class HybridTGroupPrim(DataPrim):
         if self._slots is None:
             self.scan(seg_row, ctxs)
         blocks, per_slot = [], []
-        P = 1
         for blk, _row_w, runs in self._slots:
             blocks.append(blk)
-            starts, lens, ws, max_len = (split_runs(runs) if runs
-                                         else ([], [], [], 1))
-            P = max(P, pow2_bucket(max_len))
-            per_slot.append((starts, lens, ws))
+            per_slot.append(split_runs(runs)[:3])
         packed = [S.pack_dense_rows(sl[1]) for sl in self._slots]
         R = max(p[0].shape[0] for p in packed)
         h_qrows = np.full((len(seg_row), R), -1, np.int32)
@@ -237,9 +234,9 @@ class HybridTGroupPrim(DataPrim):
         for si, (qr, qv) in enumerate(packed):
             h_qrows[si, : qr.shape[0]] = qr
             h_qrw[si, : qv.shape[0]] = qv
+        tables, sizes = _tables(per_slot, len(seg_row))
         # past every slot's last real row the tables hold only pads
-        return ([blocks, h_qrows, h_qrw] + _tables(per_slot, len(seg_row)),
-                (P, max(self.n_rows)))
+        return [blocks, h_qrows, h_qrw] + tables, (sizes, max(self.n_rows))
 
 
 def _as_exact_int(v):
@@ -424,17 +421,26 @@ class ETermGroup(Emit):
     def ex(self, env, meta):
         doc_ids, tfnorm = env[self.post]
         starts, lens, ws = env[self.prim]
-        (P,) = meta[self.prim]
+        (sizes,) = meta[self.prim]
+        base = _slot_base(doc_ids)
+        if self.mode != "scores":
+            counts = S.match_count_runs(doc_ids, starts, lens, sizes,
+                                        D=self.D, base=base)
         if self.mode == "mask":
-            return None, S.term_mask_slots(doc_ids, starts, lens, P=P,
-                                           D=self.D)
-        scores = S.bm25_score_slots(doc_ids, tfnorm, starts, lens, ws, P=P,
-                                    D=self.D)
+            return None, counts > 0
+        scores = S.bm25_score_runs(doc_ids, tfnorm, starts, lens, ws, sizes,
+                                   D=self.D, base=base)
         if self.mode == "count_ge":
-            counts = S.match_count_slots(doc_ids, starts, lens, P=P,
-                                         D=self.D)
             return scores, counts >= self.n
         return scores, scores > 0
+
+
+def _slot_base(doc_ids):
+    """i64[S]: where slot s's postings start in the flat [S, NNZ] stack
+    (row s of a round's chunk tables reads slot s)."""
+    S_, nnz = doc_ids.shape
+    return torch.arange(0, S_ * nnz, nnz, dtype=torch.int64,
+                        device=doc_ids.device)
 
 
 def gather_rows(blocks, qrows, D: int):
@@ -474,7 +480,8 @@ class ETermGroupHybrid(Emit):
     def ex(self, env, meta):
         doc_ids, tfnorm = env[self.post]
         blocks, qrows, qrw, starts, lens, ws = env[self.prim]
-        (P, R) = meta[self.prim]
+        (sizes, R) = meta[self.prim]
+        base = _slot_base(doc_ids)
         # the first R rows hold every slot's real rows; the rest are pads,
         # whose weight-0 terms leave the sum as it is
         qrows, qrw = qrows[:, :R], qrw[:, :R]
@@ -482,20 +489,20 @@ class ETermGroupHybrid(Emit):
         if self.mode != "scores":
             present = (rows != 0) & (qrows >= 0)[:, :, None]
         if self.mode == "mask":
-            return None, present.any(1) | S.term_mask_slots(
-                doc_ids, starts, lens, P=P, D=self.D)
+            return None, present.any(1) | (S.match_count_runs(
+                doc_ids, starts, lens, sizes, D=self.D, base=base) > 0)
         # the dense rows summed in row order, then the tail, as
         # bm25_score_hybrid_gather does
         dense = torch.zeros(rows.shape[0], self.D, dtype=torch.float32,
                             device=rows.device)
         for w, x in zip(qrw.t().unsqueeze(2).unbind(0), rows.unbind(1)):
             dense = dense + w * x
-        scores = dense + S.bm25_score_slots(doc_ids, tfnorm, starts, lens,
-                                            ws, P=P, D=self.D)
+        scores = dense + S.bm25_score_runs(doc_ids, tfnorm, starts, lens,
+                                           ws, sizes, D=self.D, base=base)
         if self.mode == "scores":
             return scores, scores > 0
-        counts = present.sum(1, dtype=torch.int32) + S.match_count_slots(
-            doc_ids, starts, lens, P=P, D=self.D)
+        counts = present.sum(1, dtype=torch.int32) + S.match_count_runs(
+            doc_ids, starts, lens, sizes, D=self.D, base=base)
         return scores, counts >= self.n
 
 

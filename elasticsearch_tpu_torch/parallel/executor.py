@@ -55,12 +55,16 @@ from elasticsearch_tpu_torch.monitor import kernels
 from elasticsearch_tpu_torch.ops.bm25_topk import unpack_topk
 from elasticsearch_tpu_torch.ops.knn import (exact_rescore_topk, knn_topk,
                                              merge_candidate_topk)
+from elasticsearch_tpu_torch.ops.scoring import (bm25_score_batch,
+                                                topk_stable)
 from elasticsearch_tpu_torch.parallel.compiler import (HybridTGroupPrim,
+                                                       LivePrim,
                                                        MeshQueryCompiler,
+                                                       PostingsPrim,
                                                        TGroupPrim)
 from elasticsearch_tpu_torch.parallel.mesh import ShardMesh, mesh_size
 from elasticsearch_tpu_torch.search import queries as Q
-from elasticsearch_tpu_torch.search.context import SegmentContext
+from elasticsearch_tpu_torch.search.context import SegmentContext, split_runs
 from elasticsearch_tpu_torch.utils.shapes import pow2_bucket
 
 NEG_INF = float("-inf")
@@ -69,6 +73,9 @@ NEG_INF = float("-inf")
 _DATA_CACHE_CAP = 32
 #: prepared-query memo entries kept per executor
 _PREP_CACHE_CAP = 64
+#: score elements of one batched BM25 round's query chunk, [S, chunk, D]
+#: (2^26 f32 = 256 MiB, with the sort behind it about 1.4 GiB)
+_ROUND_ELEMS = 1 << 26
 
 
 def _shard_order(lut_shard) -> List[int]:
@@ -514,6 +521,97 @@ class MeshSearchExecutor:
         for ent in dropped:
             self.residency.release(ent.nbytes)
 
+    # -- batched BM25 (msearch) ------------------------------------------------
+
+    def search_terms(self, field: str,
+                     query_terms: List[List[Tuple[str, float]]], k: int = 10,
+                     shards=None):
+        """The mesh's batched BM25 round: query_terms holds, per query, its
+        (term, idf-free weight) list on ``field``. Returns (vals [Q, k],
+        shard [Q, k], local [Q, k], seg_ord [Q, k], totals [Q]) merged
+        over every segment round; (shard, seg_ord, local) addresses a doc
+        as (shard, segment ordinal within it, local id).
+
+        ``shards`` is the caller's snapshot of per-shard segment lists
+        (the reader the fetch phase will read). Every term is scored from
+        the postings by scatter, as the reference's batched program does
+        (never kernel B1, whose bf16 products would change the scores)."""
+        merged = None
+        rows = self._rounds_for(self.shards if shards is None
+                                else list(shards))
+        for row in rows:
+            out = self._search_round(field, query_terms, row, k)
+            merged = out if merged is None else _merge_rounds(merged, out, k)
+        return merged
+
+    def _search_round(self, field, query_terms, row, k):
+        """One segment round of ``search_terms``: per slot, each query's
+        postings BM25 with that segment's own idf (``_chunk_table``), the
+        live mask, the hit count and a stable top-k; the slots merged in
+        shard order. Queries run in chunks that bound the [S, chunk, D]
+        score block; the round's packed result comes back in one copy."""
+        seg_row = [e[2] if e is not None else None for e in row]
+        lut_shard = np.asarray([e[0] if e is not None else -1 for e in row],
+                               np.int32)
+        lut_ord = np.asarray([e[1] if e is not None else 0 for e in row],
+                             np.int32)
+        S, Qr = len(seg_row), len(query_terms)
+        D = pow2_bucket(max((s.max_docs if s is not None else 1)
+                            for s in seg_row))
+        kk = min(k, D)
+        data = _SlotData(self, seg_row)
+        post, _ = PostingsPrim(field).build(seg_row, None, D, data)
+        doc_ids, tfnorm = post[0](), post[1]()
+        live = LivePrim().build(seg_row, None, D, data)[0][0]()
+        # per-slot chunk tables: the vocabulary and idf are the segment's
+        tables = [[_chunk_table(seg, field, terms) for terms in query_terms]
+                  for seg in seg_row]
+        T = max([len(st) for per_q in tables for st, _, _ in per_q] + [1])
+        starts = np.zeros((S, Qr, T), np.int32)
+        lens = np.zeros((S, Qr, T), np.int32)
+        ws = np.zeros((S, Qr, T), np.float32)
+        for si, per_q in enumerate(tables):
+            for qi, (st, ln, w) in enumerate(per_q):
+                starts[si, qi, : len(st)] = st
+                lens[si, qi, : len(ln)] = ln
+                ws[si, qi, : len(w)] = w
+        order = np.asarray(_shard_order(lut_shard), np.int64)
+        perm = torch.from_numpy(order).to(self.device)
+        chunk = max(1, _ROUND_ELEMS // (S * D))
+        outs = []
+        for q0 in range(0, Qr, chunk):
+            n = min(q0 + chunk, Qr) - q0
+            G = S * n
+            scores = bm25_score_batch(
+                doc_ids, tfnorm, starts[:, q0: q0 + n].reshape(G, T),
+                lens[:, q0: q0 + n].reshape(G, T),
+                ws[:, q0: q0 + n].reshape(G, T), D=D,
+                slot_of=np.repeat(np.arange(S, dtype=np.int32), n))
+            masked = torch.where(live.unsqueeze(1), scores.view(S, n, D),
+                                 NEG_INF)
+            total = (masked > 0).sum((0, 2))
+            sv, si = topk_stable(masked.view(G, D), kk)
+            # each slot's top kk, the slots in shard order, then one
+            # stable merge per query
+            sv = sv.reshape(S, n, kk).index_select(0, perm)
+            si = si.reshape(S, n, kk).index_select(0, perm)
+            flat_v = sv.permute(1, 0, 2).reshape(n, S * kk)
+            flat_i = si.permute(1, 0, 2).reshape(n, S * kk)
+            gv, gpos = torch.sort(flat_v, dim=1, descending=True,
+                                  stable=True)
+            gv, gpos = gv[:, :kk], gpos[:, :kk]
+            outs.append(torch.cat([
+                gv.contiguous().view(torch.int32),
+                (gpos // kk).to(torch.int32),
+                torch.gather(flat_i, 1, gpos).to(torch.int32),
+                total.view(n, 1).view(torch.int32)], dim=1))
+        kernels.record("bm25_scatter", Qr)
+        out = torch.cat(outs).cpu().numpy()  # one copy back
+        slot = order[out[:, kk: 2 * kk]]
+        return (out[:, :kk].view(np.float32), lut_shard[slot],
+                out[:, 2 * kk: 3 * kk], lut_ord[slot],
+                out[:, 3 * kk:].view(np.int64)[:, 0])
+
     # -- kNN -------------------------------------------------------------------
 
     def search_knn(self, field: str, queries: np.ndarray, k: int = 10,
@@ -613,6 +711,21 @@ def _segments_of(s) -> list:
     if isinstance(segs, list):
         return segs
     return [s]  # a bare segment
+
+
+def _chunk_table(seg, field: str, terms):
+    """A slot's chunk table (starts, lens, weights) for a (term, weight)
+    list: the segment's own postings runs, its idf folded into each
+    weight, absent terms dropped."""
+    runs = []
+    inv = seg.inverted.get(field) if seg is not None else None
+    if inv is not None:
+        for term, w in terms:
+            s, ln = inv.term_slice(term)
+            if ln > 0:
+                runs.append((s, ln, inv.idf(term) * w))
+    starts, lens, ws, _ = split_runs(runs)
+    return starts, lens, ws
 
 
 def _merge_rounds(a, b, k):

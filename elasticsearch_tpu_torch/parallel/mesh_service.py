@@ -10,8 +10,12 @@ returns None and the caller takes the host per-shard loop in
 is assembled as the host loop assembles it, so the two are identical
 apart from ``took`` and the scores' last bits.
 
+``try_mesh_msearch`` is the batched query phase of an ``_msearch``
+batch (``search/batch.py``): every query of the batch on every shard in
+one postings round a segment row (``executor.search_terms``).
+
 Sort staging and aggregations come with ROADMAP A6 (the port's
-``check_body`` refuses those keys today), ``try_mesh_msearch`` with A5.
+``check_body`` refuses those keys today).
 """
 from __future__ import annotations
 
@@ -19,10 +23,14 @@ import pickle
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
 from elasticsearch_tpu_torch.monitor import kernels
 from elasticsearch_tpu_torch.parallel.compiler import MeshCompileError
-from elasticsearch_tpu_torch.search.queries import parse_query
+from elasticsearch_tpu_torch.search.context import SegmentContext
+from elasticsearch_tpu_torch.search.queries import _batch_terms, parse_query
 from elasticsearch_tpu_torch.search.service import ShardDoc, check_body
+from elasticsearch_tpu_torch.utils.errors import CircuitBreakingException
 
 # host-loop-only request features: their presence skips the mesh path
 _UNSUPPORTED_KEYS = ("rescore", "search_after", "min_score", "scroll",
@@ -42,6 +50,60 @@ def try_mesh_search(svc, searchers, body: dict) -> Optional[dict]:
     kernels.record("mesh_search" if resp is not None
                    else "mesh_fallback_total")
     return resp
+
+
+def try_mesh_msearch(svc, searchers, queries, k: int):
+    """The batched query phase over the shard mesh: every query of the
+    batch (fused-eligible term groups on one field) scored on every
+    shard in one round a segment row, with per-shard top-k, the merge in
+    shard order and exact totals (``executor.search_terms``).
+
+    Returns ``(cands, totals)`` in ``search/batch.py``'s candidate
+    format, ``cands[qi]`` a list of ``(-score, shard, seg_id, local,
+    segment)`` holding each query's global top ``k``, or None, and then
+    the caller takes the per-segment host tiers (the same results, shard
+    after shard). Fetch, paging and the responses stay with the caller."""
+    out = _try_mesh_msearch(svc, searchers, queries, k)
+    kernels.record("mesh_msearch" if out is not None
+                   else "mesh_msearch_fallback")
+    return out
+
+
+def _try_mesh_msearch(svc, searchers, queries, k: int):
+    if len(searchers) < 2 or k < 1:
+        return None  # one shard: the host tiers already are one pass
+    shard_segs = [list(s.segments) for s in searchers]
+    probe = next((seg for segs in shard_segs for seg in segs), None)
+    if probe is None:
+        return None  # an empty snapshot: the host tiers answer it
+    # the probe context for analysis and mappings only: the weights stay
+    # idf-free, each segment's own idf folds into its chunk tables
+    ctx = SegmentContext(probe, svc.mappings, svc.analysis,
+                         index_name=svc.name)
+    got = _batch_terms(ctx, queries, idf=False)
+    if got is None:
+        return None
+    field, rows = got
+    qterms = [list(zip(tlist, wlist)) for tlist, wlist in rows]
+    try:
+        out = svc.mesh_executor().search_terms(field, qterms, k=k,
+                                               shards=shard_segs)
+    except CircuitBreakingException:
+        # stacked postings denied by the breaker: the host tiers score
+        # the batch segment at a time within what the budget leaves
+        return None
+    vals, shard, local, seg_ord, totals = out
+    ok = (np.isfinite(vals) & (vals > 0)).tolist()
+    cands: List[list] = []
+    for row in zip(vals.tolist(), shard.tolist(), seg_ord.tolist(),
+                   local.tolist(), ok):
+        c = []
+        for v, sh, o, lc, y in zip(*row):
+            if y:  # a match; an empty slot's entries are -inf
+                seg = shard_segs[sh][o]
+                c.append((-v, sh, seg.seg_id, lc, seg))
+        cands.append(c)
+    return cands, totals.tolist()
 
 
 def _canonical(body: dict) -> Optional[bytes]:

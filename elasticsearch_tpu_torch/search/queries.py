@@ -4,7 +4,9 @@ Port of the part of elasticsearch_tpu/search/queries.py the main path
 needs: ``match`` (operator, minimum_should_match, analyzer), ``term``,
 ``terms``, ``bool`` (must, should, must_not, filter,
 minimum_should_match), ``match_all``, ``range``, ``ids``, ``exists`` and
-``constant_score``, plus the fused dense-impact top-k fast path, and
+``constant_score``, plus the fused dense-impact top-k fast path (and its
+two batched tiers for ``_msearch``, ``fused_bm25_topk_batch`` and
+``hybrid_bm25_topk_batch``), and
 ``knn`` over a dense_vector field (brute force, MaxSim, IVF, IVF-PQ), and
 ``hybrid`` (search/hybrid.py). Any other query type raises a typed
 QueryParsingException.
@@ -29,8 +31,10 @@ from elasticsearch_tpu_torch.ops.bm25_topk import bm25_dense_topk, unpack_topk
 from elasticsearch_tpu_torch.ops.ivf import ivf_candidate_scores
 from elasticsearch_tpu_torch.ops.knn import knn_topk
 from elasticsearch_tpu_torch.ops.scoring import (
+    bm25_hybrid_topk_batch,
     bm25_score_hybrid_gather,
     bm25_score_segment,
+    f32_matmul_exact,
     match_count_hybrid_gather,
     match_count_segment,
     range_mask_f32,
@@ -99,28 +103,29 @@ def _score_term_group(ctx, field, terms, boost=1.0, with_counts=False):
     hyb = ctx.hybrid_slices(inv, terms, weights, need_qw=False)
     kernels.record("bm25_hybrid" if hyb is not None else "bm25_scatter")
     if hyb is not None:
-        impact, _qw, _qind, starts, lens, ws, P, n_present, qrows, qrw = hyb
+        impact, _qw, _qind, starts, lens, ws, _P, n_present, qrows, qrw = hyb
         scores = bm25_score_hybrid_gather(
             impact, qrows, qrw, inv.doc_ids, inv.tfnorm, starts, lens, ws,
-            P=P, D=ctx.D)
+            D=ctx.D)
         if with_counts:
             matched = match_count_hybrid_gather(
-                impact, qrows, inv.doc_ids, starts, lens, P=P, D=ctx.D)
+                impact, qrows, inv.doc_ids, starts, lens, D=ctx.D)
         elif all_positive:
             matched = scores > 0
         else:
             matched = term_mask_hybrid_gather(
-                impact, qrows, inv.doc_ids, starts, lens, P=P, D=ctx.D)
+                impact, qrows, inv.doc_ids, starts, lens, D=ctx.D)
         return scores, matched, n_present
-    starts, lens, ws, P, n_present = ctx.chunked_slices(inv, terms, weights)
+    starts, lens, ws, _P, n_present = ctx.chunked_slices(inv, terms,
+                                                          weights)
     scores = bm25_score_segment(inv.doc_ids, inv.tfnorm, starts, lens, ws,
-                                P=P, D=ctx.D)
+                                D=ctx.D)
     if with_counts:
-        matched = match_count_segment(inv.doc_ids, starts, lens, P=P, D=ctx.D)
+        matched = match_count_segment(inv.doc_ids, starts, lens, D=ctx.D)
     elif all_positive:
         matched = scores > 0
     else:
-        matched = term_mask(inv.doc_ids, starts, lens, P=P, D=ctx.D)
+        matched = term_mask(inv.doc_ids, starts, lens, D=ctx.D)
     return scores, matched, n_present
 
 
@@ -161,10 +166,15 @@ def fused_bm25_topk(ctx, query, k: int):
     return vals[0], ids[0], int(total[0])
 
 
-def _fused_eligible_terms(ctx, query):
+def _fused_eligible_terms(ctx, query, idf: bool = True):
     """(field, deduped (terms, weights)) when ``query`` is a pure
     disjunctive term group — match operator:or / term on a text field,
-    positive boost — else None."""
+    positive boost — else None. The gate of the fused single and batched
+    top-k paths.
+
+    ``idf=False`` keeps the weights idf-free (duplicate terms still merge
+    additively): the mesh's batched round folds each segment's own idf
+    into its chunk tables (``parallel/executor.py::_chunk_table``)."""
     if isinstance(query, MatchQuery):
         if query.operator != "or" or query.msm is not None:
             return None
@@ -180,7 +190,136 @@ def _fused_eligible_terms(ctx, query):
         return None
     if boost <= 0 or not terms:
         return None
-    return field, _dedupe_terms(terms, boost, lambda t: ctx.idf(field, t))
+    idf_fn = (lambda t: ctx.idf(field, t)) if idf else (lambda t: 1.0)
+    return field, _dedupe_terms(terms, boost, idf_fn)
+
+
+def _batch_terms(ctx, queries, idf: bool = True):
+    """(field, [(terms, weights)] per query) when every query is a
+    fused-eligible term group on one field (one dense block or postings
+    field per batch), else None. The rule of every batched BM25 tier;
+    ``idf`` as in ``_fused_eligible_terms``."""
+    field, rows = None, []
+    for q in queries:
+        e = _fused_eligible_terms(ctx, q, idf=idf)
+        if e is None:
+            return None
+        f, tw = e
+        if field is None:
+            field = f
+        elif f != field:
+            return None
+        rows.append(tw)
+    return None if field is None else (field, rows)
+
+
+def _batch_field(ctx, queries):
+    """(inv, rows) of ``_batch_terms`` on this segment, or None."""
+    got = _batch_terms(ctx, queries)
+    inv = None if got is None else ctx.inv(got[0])
+    return None if inv is None else (inv, got[1])
+
+
+def fused_bm25_topk_batch(ctx, queries: List[Query], k: int):
+    """Tier 1 of a batched ``_msearch`` over one segment: every query a
+    pure-dense term group on one field, so the whole batch is one launch
+    of kernel B1's batched form, ``qw[Q, F]`` over all F rows of the
+    dense block with the hit count, and one copy back. Every weight is
+    idf * boost > 0, so the kernel's count (docs where a row with a
+    non-zero weight has a non-zero impact) is the reference's
+    ``dense_presence_count_batch`` over the rows' 1.0 indicators.
+
+    Returns (vals f32[Q, k], ids i32[Q, k], totals i64[Q]) as numpy, or
+    None when a query does not batch (the caller falls back to the next
+    tier or to per-query execution). Non-matches score <= 0 or -inf."""
+    got = _batch_field(ctx, queries)
+    if got is None:
+        return None
+    inv, rows = got
+    qw = None
+    impact = None
+    for qi, (tlist, wlist) in enumerate(rows):
+        hyb = ctx.hybrid_slices(inv, tlist, wlist)
+        if hyb is None:
+            return None  # no dense block / no dense query term
+        impact, row_qw, _qind, _st, lens, _ws, _P, n_present, *_ = hyb
+        if n_present == 0 or int(np.sum(lens)) > 0:
+            return None  # a tail term or an empty group: not tier 1
+        if qw is None:
+            qw = np.zeros((len(rows), row_qw.shape[0]), np.float32)
+        qw[qi] = row_qw
+    kk = min(k, ctx.D)
+    buf = bm25_dense_topk(torch.from_numpy(qw).to(impact.device), impact,
+                          ctx.segment.live, k=kk, count=True, packed=True)
+    vals, ids, totals = unpack_topk(buf.cpu().numpy(), kk)  # one copy back
+    global FUSED_CALLS
+    FUSED_CALLS += 1
+    kernels.record("bm25_fused_topk", len(rows))
+    return vals, ids, totals
+
+
+#: queries of one tier-2 chunk: bounds the transient [chunk, D] scores
+#: (64 x 2^20 f32 = 256 MB) and the sort behind them
+HYBRID_CHUNK_Q = 64
+
+
+def hybrid_bm25_topk_batch(ctx, queries: List[Query], k: int,
+                           chunk_q: int = HYBRID_CHUNK_Q):
+    """Tier 2 of a batched ``_msearch`` over one segment: term groups on
+    one field whose rare terms have scatter tails. Each chunk of
+    ``chunk_q`` queries is one f32 product ``qw[chunk, F] @ impact[F, D]``
+    for the dense rows, the tails' ``index_add_`` scatters, and a stable
+    top-k per query (``ops/scoring.py::bm25_hybrid_topk_batch``). A query
+    with no dense term (all rare, or absent) rides with a zero row and
+    its whole group in the tail.
+
+    Returns (vals [Q, k], ids [Q, k], totals [Q]) as numpy, or None when
+    a query does not batch, the field has no dense block, or an f32
+    product would run in TF32 (then the caller's per-query path serves
+    the batch exactly)."""
+    got = _batch_field(ctx, queries)
+    if got is None:
+        return None
+    inv, rows = got
+    block = inv.dense_block()
+    if block is None:
+        return None
+    impact = block[1]
+    if not f32_matmul_exact(impact.device):
+        kernels.record("bm25_hybrid_tf32_refused")
+        return None
+    Q, F = len(rows), int(impact.shape[0])
+    qw = np.zeros((Q, F), np.float32)
+    tails = []
+    for qi, (tlist, wlist) in enumerate(rows):
+        h = ctx.hybrid_slices(inv, tlist, wlist)
+        if h is None:  # no dense term: the whole group is tail
+            st, ln, w, _P, _n = ctx.chunked_slices(inv, tlist, wlist)
+        else:
+            _imp, qw[qi], _qind, st, ln, w, *_ = h
+        tails.append((st, ln, w))
+    T = max(t[0].shape[0] for t in tails)
+    starts = np.zeros((Q, T), np.int32)
+    lens = np.zeros((Q, T), np.int32)
+    ws = np.zeros((Q, T), np.float32)
+    for qi, (st, ln, w) in enumerate(tails):
+        starts[qi, : st.shape[0]] = st
+        lens[qi, : ln.shape[0]] = ln
+        ws[qi, : w.shape[0]] = w
+    kk = min(k, ctx.D)
+    live = ctx.segment.live
+    out = []
+    for q0 in range(0, Q, chunk_q):
+        q1 = min(q0 + chunk_q, Q)
+        vals, ids, tot = bm25_hybrid_topk_batch(
+            impact, torch.from_numpy(qw[q0:q1]).to(impact.device),
+            inv.doc_ids, inv.tfnorm, starts[q0:q1], lens[q0:q1],
+            ws[q0:q1], live, D=ctx.D, k=kk)
+        out.append(torch.cat([vals.view(torch.int32), ids,
+                              tot.view(-1, 1).view(torch.int32)], dim=1))
+    vals, ids, totals = unpack_topk(torch.cat(out).cpu().numpy(), kk)
+    kernels.record("bm25_hybrid", Q)
+    return vals, ids, totals
 
 
 def _terms_filter_mask(ctx, field, terms):
@@ -190,16 +329,16 @@ def _terms_filter_mask(ctx, field, terms):
     terms = list(dict.fromkeys(terms))  # dedupe, order-preserving
     hyb = ctx.hybrid_slices(inv, terms, [1.0] * len(terms), need_qw=False)
     if hyb is not None:
-        impact, _, _qind, starts, lens, _, P, n_present, qrows, _qrw = hyb
+        impact, _, _qind, starts, lens, _, _P, n_present, qrows, _qrw = hyb
         if n_present == 0:
             return _zeros(ctx, torch.bool)
         return term_mask_hybrid_gather(impact, qrows, inv.doc_ids, starts,
-                                       lens, P=P, D=ctx.D)
-    starts, lens, _, P, n_present = ctx.chunked_slices(
+                                       lens, D=ctx.D)
+    starts, lens, _, _P, n_present = ctx.chunked_slices(
         inv, terms, [1.0] * len(terms))
     if n_present == 0:
         return _zeros(ctx, torch.bool)
-    return term_mask(inv.doc_ids, starts, lens, P=P, D=ctx.D)
+    return term_mask(inv.doc_ids, starts, lens, D=ctx.D)
 
 
 def _min_should_match(msm, n_clauses: int) -> int:

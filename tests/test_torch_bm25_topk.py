@@ -352,3 +352,83 @@ def test_wrapper_rejects_bad_rows(bad):
             else torch.zeros(1, 3, dtype=torch.int32))
     with pytest.raises(ValueError):
         bm25_dense_topk(qw, imp, mask, k=5, rows=rows)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_all_rows_form_count_matches_reference_batch_count(seed):
+    """The batched form of ``_msearch`` tier 1 (rows=None, count=True,
+    Q=9): weights built as ``fused_bm25_topk_batch`` builds them (a few
+    dense rows a query, each idf * boost > 0, the rest 0). The count is
+    the reference's ``dense_presence_count_batch`` over the 1.0
+    indicators of those rows; values and ids are the Pallas kernel's in
+    interpret mode over the whole block, at rtol 1e-6."""
+    import jax.numpy as jnp
+    from jax import lax
+
+    from elasticsearch_tpu.ops.scoring import dense_presence_count_batch
+
+    rng = np.random.default_rng(60 + seed)
+    Q, F, D = 9, 64, 4096
+    impact = ((rng.random((F, D)) < 0.05) * rng.random((F, D)) * 2.2
+              ).astype(np.float32)
+    mask = rng.random(D) > 0.2
+    qw = np.zeros((Q, F), np.float32)
+    for q in range(Q):
+        rows = rng.permutation(F)[: int(rng.integers(1, 5))]
+        qw[q, rows] = rng.random(rows.size) * 3 + 0.1
+    qind = (qw > 0).astype(np.float32)
+    want = np.asarray(dense_presence_count_batch(
+        jnp.asarray(impact), jnp.asarray(qind), jnp.asarray(mask),
+        chunk=1024))
+    v, i, total = bm25_dense_topk(torch.from_numpy(qw),
+                                  torch.from_numpy(impact),
+                                  torch.from_numpy(mask), k=10, count=True)
+    assert total.dtype == torch.int64 and total.shape == (Q,)
+    np.testing.assert_array_equal(total.numpy(), want)
+    # Q pads to the kernel's q_tile with zero rows, as its dispatcher
+    # (bm25_dense_topk_auto) pads it
+    qp = np.concatenate([qw, np.zeros((16 - Q, F), np.float32)])
+    pv, pi = bm25_dense_topk_pallas(jnp.asarray(qp), jnp.asarray(impact),
+                                    jnp.asarray(mask), k=10, tile=512,
+                                    q_tile=8, interpret=True)
+    sc = jnp.dot(jnp.asarray(qw).astype(jnp.bfloat16),
+                 jnp.asarray(impact).astype(jnp.bfloat16),
+                 preferred_element_type=jnp.float32)
+    wv, wi = lax.top_k(jnp.where(jnp.asarray(mask)[None, :], sc, -jnp.inf),
+                       10)
+    for q in range(Q):
+        # bf16 impacts tie often; where the Pallas kernel's own tie fault
+        # shows (ROADMAP C), the rule it states (lax.top_k over the bf16
+        # score row) decides
+        ref_v, ref_i = ((pv[q], pi[q]) if np.array_equal(pi[q], wi[q])
+                        else (wv[q], wi[q]))
+        np.testing.assert_array_equal(i[q].numpy(), np.asarray(ref_i))
+        np.testing.assert_allclose(v[q].numpy(), np.asarray(ref_v),
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("form", ["all_rows", "rows"])
+def test_batches_past_one_launch_run_in_slices(monkeypatch, form):
+    """A batch of more query rows than one launch takes (the grid's
+    65,535 rows) runs as several launches whose rows stack: the same
+    values, ids, counts and packed buffer as one call."""
+    from elasticsearch_tpu_torch.utils import shapes
+
+    rng = np.random.default_rng(70)
+    Q, F, D = 11, 16, 2500
+    qw = torch.from_numpy((rng.random((Q, F)) * 3).astype(np.float32))
+    imp = torch.from_numpy(((rng.random((F, D)) < 0.2)
+                            * rng.random((F, D))).astype(np.float32))
+    mask = torch.from_numpy(rng.random(D) > 0.1)
+    rows = (None if form == "all_rows"
+            else torch.tensor([3, -1, 0, 7, 7, 15, 2, 9, 1, 4, 11, 12, 13,
+                               5, 6, 8], dtype=torch.int32))
+    whole = bm25_dense_topk(qw, imp, mask, k=9, rows=rows, count=True)
+    buf = bm25_dense_topk(qw, imp, mask, k=9, rows=rows, count=True,
+                          packed=True)
+    monkeypatch.setattr(shapes, "MAX_QUERY_ROWS", 4)
+    assert len(shapes.query_slices(Q, D, 9)) == 3
+    got = bm25_dense_topk(qw, imp, mask, k=9, rows=rows, count=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, whole))
+    assert torch.equal(bm25_dense_topk(qw, imp, mask, k=9, rows=rows,
+                                       count=True, packed=True), buf)

@@ -49,6 +49,25 @@ assert r["hybrid"]["rerank"] == "applied", r.get("hybrid")
 r = n.search("h", {"query": {"match": {"body": "fox"}}, "rescore": {
     "query": {"rescore_query": {"knn": {"field": "v", "query_vectors": [[1.0] * 8]}}}}})
 assert r["hits"]["hits"]
+r = n.msearch([({"index": "m"}, {"query": {"match": {"body": q}}})
+               for q in ("fox", "dog")])
+assert [x["hits"]["total"] for x in r["responses"]] == [60, 30], r
+assert kernels.snapshot().get("mesh_msearch") == 1, kernels.snapshot()
+import threading
+n.serving.apply_cluster_settings({"serving.coalescer.mode": "always",
+                                  "serving.coalescer.max_wait": "200ms",
+                                  "serving.coalescer.idle_gap": "50ms"})
+out = []
+ts = [threading.Thread(target=lambda q=q: out.append(n.search(
+    "i", {"query": {"match": {"body": q}}})["hits"]["total"]))
+      for q in ("fox", "dog")]
+for t in ts:
+    t.start()
+for t in ts:
+    t.join(60)
+assert out == [100, 100], out
+assert n.serving.coalescer.stats()["flushes"], n.serving.stats()
+n.close()
 import importlib, pkgutil
 import elasticsearch_tpu_torch
 for m in pkgutil.walk_packages(elasticsearch_tpu_torch.__path__,

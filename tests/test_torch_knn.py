@@ -385,3 +385,23 @@ def test_merge_candidate_topk_matches_reference(k):
     with pytest.raises(ValueError, match="exceeds"):
         merge_candidate_topk(torch.from_numpy(vals), torch.from_numpy(ids),
                              k=N + 1)
+
+
+@pytest.mark.parametrize("limit", ["rows", "scratch"])
+def test_batches_past_one_launch_run_in_slices(monkeypatch, limit):
+    """More query rows than one launch takes (the grid's 65,535 rows, or
+    the scratch budget for the key lists) run as several launches whose
+    rows stack: the same bits as one call over all rows."""
+    from elasticsearch_tpu_torch.utils import shapes
+
+    q, v, mask = (torch.from_numpy(a) for a in _inputs(11, 13, 4096, 32))
+    whole = b2.knn_topk(q, v, mask, k=20, precise=True)
+    if limit == "rows":
+        monkeypatch.setattr(shapes, "MAX_QUERY_ROWS", 5)
+        want = [(0, 5), (5, 10), (10, 13)]
+    else:  # two chunks of 2048 docs, 20 keys, two buffers: 640 B a row
+        monkeypatch.setattr(shapes, "TOPK_SCRATCH_BYTES", 4 * 640 + 639)
+        want = [(0, 4), (4, 8), (8, 12), (12, 13)]
+    assert shapes.query_slices(13, 4096, 20) == want
+    got = b2.knn_topk(q, v, mask, k=20, precise=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, whole))

@@ -578,7 +578,7 @@ def test_a_failure_after_launch_raises(nodes, monkeypatch):
     def broken(*a, **kw):
         raise RuntimeError("injected fault")
 
-    monkeypatch.setattr(port_scoring, "bm25_score_slots", broken)
+    monkeypatch.setattr(port_scoring, "bm25_score_runs", broken)
     kernels.reset()
     with pytest.raises(RuntimeError, match="injected fault"):
         _search(port, "docs", {"query": {"match": {"body": "zulu fox"}}})

@@ -58,14 +58,14 @@ def test_scatter_scores_counts_masks(segs, group):
     want = np.asarray(ref.bm25_score_segment(inv.doc_ids, inv.tfnorm, starts,
                                              lens, ws, P=P, D=D))
     got = port.bm25_score_segment(pinv.doc_ids, pinv.tfnorm, starts, lens,
-                                  ws, P=P, D=D)
+                                  ws, D=D)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
     np.testing.assert_array_equal(
-        port.match_count_segment(pinv.doc_ids, starts, lens, P=P, D=D).numpy(),
+        port.match_count_segment(pinv.doc_ids, starts, lens, D=D).numpy(),
         np.asarray(ref.match_count_segment(inv.doc_ids, starts, lens, P=P,
                                            D=D)))
     np.testing.assert_array_equal(
-        port.term_mask(pinv.doc_ids, starts, lens, P=P, D=D).numpy(),
+        port.term_mask(pinv.doc_ids, starts, lens, D=D).numpy(),
         np.asarray(ref.term_mask(inv.doc_ids, starts, lens, P=P, D=D)))
 
 
@@ -84,17 +84,16 @@ def test_hybrid_gather_primitives(segs, group):
         rimp, qrows, qrw, inv.doc_ids, inv.tfnorm, starts, lens, ws, P=P,
         D=D))
     got = port.bm25_score_hybrid_gather(pimp, qrows, qrw, pinv.doc_ids,
-                                        pinv.tfnorm, starts, lens, ws, P=P,
-                                        D=D)
+                                        pinv.tfnorm, starts, lens, ws, D=D)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
     np.testing.assert_array_equal(
         port.match_count_hybrid_gather(pimp, qrows, pinv.doc_ids, starts,
-                                       lens, P=P, D=D).numpy(),
+                                       lens, D=D).numpy(),
         np.asarray(ref.match_count_hybrid_gather(rimp, qrows, inv.doc_ids,
                                                  starts, lens, P=P, D=D)))
     np.testing.assert_array_equal(
         port.term_mask_hybrid_gather(pimp, qrows, pinv.doc_ids, starts, lens,
-                                     P=P, D=D).numpy(),
+                                     D=D).numpy(),
         np.asarray(ref.term_mask_hybrid_gather(rimp, qrows, inv.doc_ids,
                                                starts, lens, P=P, D=D)))
     rsub, rvalid = ref.gather_impact_rows(rimp, qrows)
