@@ -71,6 +71,16 @@ Phases, in order; any failure exits non-zero before the result line:
             oracle; (e) (a)'s bodies as single searches from 64 threads
             through the coalescer, equal to (a)'s; queries per second,
             device time, kernels and copies, busy share;
+5f. aggs    aggregations on a stand-in for Elastic Rally's ``nyc_taxis``
+            track: 4,194,304 generated trips in four shards of one
+            2^20-doc segment, the track's aggregation bodies (histogram
+            with stats, date_histogram, keyword terms on the mesh's
+            device route, terms with an avg, cardinality, percentiles,
+            extended_stats, range, missing, filters) on the mesh path and
+            the host loop, byte-identical and held against numpy (HLL
+            registers against a numpy build of the same hash); p50, p99,
+            device time, kernels, copies and busy share per body and
+            route;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
@@ -2188,6 +2198,470 @@ def phase_msearch(torch, np, dev, card, corpus, sift, read_node, mesh_node,
     return b1_a, b2_d
 
 
+# ---------------------------------------------------------------------------
+# phase 5f: aggregations on an nyc_taxis stand-in
+# ---------------------------------------------------------------------------
+
+TAXI_SHARDS = 4
+TAXI_DOCS = 1 << 20        # per shard: one 2^20-doc segment each
+TAXI_WINDOW_S = 2.0        # timed requests per body and route: for about
+TAXI_MIN_REPS = 25         # this many seconds, at least TAXI_MIN_REPS and
+TAXI_MAX_REPS = 200        # at most TAXI_MAX_REPS of them
+TAXI_TAIL_REPS = 100       # a p99 is printed from this many requests on
+TAXI_PROFILED = 6          # requests per body and route under the profiler
+SAMPLE_CAP = 1 << 16       # percentiles' per-segment sample (the reference's)
+TAXI_YEAR = 1_420_070_400_000   # 2015-01-01T00:00:00Z
+DAY_MS = 86_400_000
+#: keyword fields: their values in term order (ordinal = position)
+TAXI_KEYWORDS = {
+    "vendor_id": ("1", "2", "4"),
+    "payment_type": ("1", "2", "3", "4", "5", "6"),
+    "rate_code_id": ("1", "2", "3", "4", "5", "6", "99"),
+    "store_and_fwd_flag": ("N", "Y"),
+}
+TAXI_MAPPING = {"properties": dict(
+    {k: {"type": "keyword"} for k in TAXI_KEYWORDS},
+    passenger_count={"type": "integer"},
+    trip_distance={"type": "double"}, fare_amount={"type": "double"},
+    tip_amount={"type": "double"}, total_amount={"type": "double"},
+    pickup_datetime={"type": "date", "format": "yyyy-MM-dd HH:mm:ss"},
+    dropoff_datetime={"type": "date", "format": "yyyy-MM-dd HH:mm:ss"})}
+#: the track's aggregation operations (operations/default.json) and the
+#: agg types the port serves, every body size 0 as the track sends them
+TAXI_BODIES = {
+    "distance_amount_agg": {"size": 0, "query": {"bool": {"filter": {
+        "range": {"trip_distance": {"lt": 50, "gte": 0}}}}}, "aggs": {
+        "distance_histo": {"histogram": {"field": "trip_distance",
+                                         "interval": 1}, "aggs": {
+            "total_amount_stats": {"stats": {"field": "total_amount"}}}}}},
+    "date_histogram_agg": {"size": 0, "query": {"range": {
+        "dropoff_datetime": {"gte": "01/01/2015", "lte": "21/01/2015",
+                             "format": "dd/MM/yyyy"}}}, "aggs": {
+        "dropoffs_over_time": {"date_histogram": {
+            "field": "dropoff_datetime", "interval": "day"}}}},
+    "keyword_terms": {"size": 0, "aggs": {
+        "vendors": {"terms": {"field": "vendor_id"}},
+        "payments": {"terms": {"field": "payment_type"}}}},
+    "terms_avg_tip": {"size": 0, "aggs": {"payments": {
+        "terms": {"field": "payment_type"},
+        "aggs": {"avg_tip": {"avg": {"field": "tip_amount"}}}}}},
+    "cardinality": {"size": 0, "aggs": {
+        "fares": {"cardinality": {"field": "fare_amount"}},
+        "rate_codes": {"cardinality": {"field": "rate_code_id"}}}},
+    "percentiles": {"size": 0, "aggs": {
+        "total": {"percentiles": {"field": "total_amount"}}}},
+    "numeric_mix": {"size": 0, "aggs": {
+        "fare_stats": {"extended_stats": {"field": "fare_amount"}},
+        "passengers": {"stats": {"field": "passenger_count"}},
+        "distance_ranges": {"range": {"field": "trip_distance", "ranges": [
+            {"to": 2}, {"from": 2, "to": 10}, {"from": 10}]}},
+        "no_tip": {"missing": {"field": "tip_amount"}},
+        "trips": {"filters": {"filters": {
+            "long": {"range": {"trip_distance": {"gte": 10}}},
+            "january": {"range": {"pickup_datetime": {
+                "gte": "2015-01-01 00:00:00",
+                "lt": "2015-02-01 00:00:00"}}}}}}}},
+}
+
+
+def make_taxis(np, n, seed):
+    """Generated trip records, one array per field (keywords as term
+    ordinals): the shapes of the track's fields, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = {
+        "vendor_id": rng.choice(3, n, p=[0.46, 0.50, 0.04]),
+        "payment_type": rng.choice(
+            6, n, p=[0.62, 0.365, 0.008, 0.004, 0.002, 0.001]),
+        "rate_code_id": rng.choice(
+            7, n, p=[0.972, 0.02, 0.004, 0.002, 0.001, 0.0008, 0.0002]),
+        "store_and_fwd_flag": (rng.random(n) < 0.01).astype(np.int64),
+        "passenger_count": rng.choice(
+            10, n, p=[0.004, 0.70, 0.14, 0.04, 0.02, 0.06, 0.034, 0.001,
+                      0.0005, 0.0005]).astype(np.int64),
+    }
+    for k in TAXI_KEYWORDS:
+        out[k] = out[k].astype(np.int32)
+    dist = np.round(rng.lognormal(0.8, 0.9, n), 2)
+    fare = np.round(np.maximum(2.5, 2.5 + 2.6 * dist
+                               + rng.normal(0.0, 1.5, n)), 2)
+    # a tip is recorded for card payments; cash trips have none
+    tip_exists = out["payment_type"] != 1
+    tip = np.round(fare * rng.uniform(0.0, 0.3, n), 2)
+    pickup = TAXI_YEAR + rng.integers(0, 365 * DAY_MS, n)
+    out.update(
+        trip_distance=dist, fare_amount=fare,
+        tip_amount=np.where(tip_exists, tip, 0.0), tip_exists=tip_exists,
+        total_amount=np.round(fare + np.where(tip_exists, tip, 0.0) + 0.8,
+                              2),
+        pickup_datetime=pickup,
+        dropoff_datetime=pickup + (rng.lognormal(6.5, 0.6, n)
+                                   * 1000).astype(np.int64))
+    return out
+
+
+def taxi_shard_arrays(np, taxis, s):
+    """``segment_from_arrays``'s arrays for shard s: docs [s * 2^20,
+    (s + 1) * 2^20), keyword postings and ordinals, numeric columns."""
+    lo, hi = s * TAXI_DOCS, (s + 1) * TAXI_DOCS
+    n = TAXI_DOCS
+    ones = np.ones(n, np.float32)
+    fields, keywords = {}, {}
+    for name, terms in TAXI_KEYWORDS.items():
+        ords = taxis[name][lo:hi]
+        df = np.bincount(ords, minlength=len(terms)).astype(np.int32)
+        offsets = np.zeros(len(terms) + 1, np.int64)
+        offsets[1:] = np.cumsum(df)
+        fields[name] = {
+            "terms": list(terms), "df": df, "cf": df.astype(np.int64),
+            "offsets": offsets,
+            "doc_ids_host": np.argsort(ords, kind="stable").astype(np.int32),
+            "tfnorm_host": ones, "tf_host": ones, "avg_len": 1.0,
+            "num_docs": n, "total_terms": n}
+        single = [[t] for t in terms]  # shared: never mutated
+        keywords[name] = {"ords": ords, "exists": np.ones(n, bool),
+                          "host_values": [single[o] for o in ords.tolist()]}
+    numerics = {}
+    for name, kind in (("passenger_count", "integer"),
+                       ("trip_distance", "double"),
+                       ("fare_amount", "double"), ("tip_amount", "double"),
+                       ("total_amount", "double"),
+                       ("pickup_datetime", "date"),
+                       ("dropoff_datetime", "date")):
+        exists = taxis["tip_exists"][lo:hi] if name == "tip_amount" \
+            else np.ones(n, bool)
+        numerics[name] = {"exact": taxis[name][lo:hi], "exists": exists,
+                          "kind": kind}
+    return {"num_docs": n, "max_docs": n, "fields": fields,
+            "keywords": keywords, "numerics": numerics}
+
+
+def hash32_np(np, x):
+    """The HLL value mix in numpy uint32 (wrapping multiplies)."""
+    h = x.astype(np.uint32)
+    h = h * np.uint32(2654435761)
+    h ^= h >> np.uint32(16)
+    h = h * np.uint32(0x45D9F3B)
+    h ^= h >> np.uint32(16)
+    return h
+
+
+def hll_bounds(np, values):
+    """(lo, hi) int32[4096] register bounds of an f64 column's HLL: each
+    value's rank is its exact leading-zero count + 1; a rest whose f32
+    lies within 2^-20 below or at a power of two may take one more or
+    one less (the f32 formula's log2), the rest exactly that."""
+    bits = values.view(np.int64)
+    h = hash32_np(np, (bits & 0xFFFFFFFF) ^ ((bits >> 32) & 0xFFFFFFFF))
+    reg = (h >> np.uint32(20)).astype(np.int64)
+    rest = (h << np.uint32(12)).astype(np.uint32)
+    bl = np.zeros(rest.shape, np.int64)  # bit length
+    r = rest.astype(np.int64)
+    for b in range(32, 0, -1):
+        bl = np.where((bl == 0) & (r >> (b - 1) > 0), b, bl)
+    exact = np.clip(32 - bl + 1, 1, 21)
+    f = rest.astype(np.float32).astype(np.float64)
+    with np.errstate(divide="ignore"):
+        up = np.exp2(np.ceil(np.log2(np.maximum(f, 1.0))))
+    band = (rest > 0) & (f >= up * (1 - 2.0 ** -20))
+    lo = np.zeros(4096, np.int64)
+    hi = np.zeros(4096, np.int64)
+    np.maximum.at(lo, reg, np.clip(exact - band, 1, 21))
+    np.maximum.at(hi, reg, np.clip(exact + band, 1, 21))
+    return lo, hi, exact, reg
+
+
+def _hold(cond, what):
+    if not cond:
+        raise AssertionError(f"phase 5f: {what}")
+
+
+def _near(got, want, rtol, what):
+    _hold(got is not None and abs(got - want) <= rtol * abs(want),
+          f"{what}: {got!r} vs {want!r} (rtol {rtol})")
+
+
+def taxi_oracle_check(np, name, resp, t):
+    """Hold one response against numpy over the generated arrays ``t``:
+    keys, order and counts exact; count, min and max exact; sums and
+    averages at rtol 1e-5 of an f64 sum (variance, a difference of two
+    sums, at 1e-4); percentiles equal numpy's on the same sample."""
+    f32 = np.float32
+    aggs = resp["aggregations"]
+    n_all = t["trip_distance"].size
+    if name == "distance_amount_agg":
+        td32 = t["trip_distance"].astype(f32)
+        q = (td32 >= f32(0)) & (td32 < f32(50))
+        _hold(resp["hits"]["total"] == int(q.sum()), "distance total")
+        keys = np.floor(t["trip_distance"][q]).astype(np.int64)
+        cnt = np.bincount(keys - keys.min())
+        got = aggs["distance_histo"]["buckets"]
+        _hold([b["key"] for b in got]
+              == [float(k) for k in range(keys.min(), keys.max() + 1)]
+              and [b["doc_count"] for b in got] == cnt.tolist(),
+              "distance_histo keys or counts")
+        tot32 = t["total_amount"].astype(f32)
+        for b in got:
+            k = b["key"]
+            m = q & (td32 >= f32(k)) & (td32 < f32(k + 1))
+            n = int(m.sum())
+            s = b.get("total_amount_stats")
+            if not b["doc_count"]:
+                _hold(s is None, f"bucket {k}: stats of an empty bucket")
+                continue
+            _hold(s["count"] == n and s["min"] == float(tot32[m].min())
+                  and s["max"] == float(tot32[m].max()),
+                  f"bucket {k} stats count/min/max {s}")
+            want = float(t["total_amount"][m].sum())
+            _near(s["sum"], want, 1e-5, f"bucket {k} sum")
+            _near(s["avg"], want / n, 1e-5, f"bucket {k} avg")
+    elif name == "date_histogram_agg":
+        lo = TAXI_YEAR
+        hi = TAXI_YEAR + 20 * DAY_MS
+        d = t["dropoff_datetime"]
+        q = (d >= lo) & (d <= hi)
+        _hold(resp["hits"]["total"] == int(q.sum()), "date total")
+        days = d[q] // DAY_MS
+        cnt = np.bincount(days - days.min())
+        got = aggs["dropoffs_over_time"]["buckets"]
+        want_keys = [int(x) * DAY_MS for x in range(days.min(),
+                                                    days.max() + 1)]
+        _hold([b["key"] for b in got] == want_keys
+              and [b["doc_count"] for b in got] == cnt.tolist(),
+              "dropoffs_over_time keys or counts")
+        _hold(all(b["key_as_string"] == time.strftime(
+            "%Y-%m-%dT%H:%M:%S.000Z", time.gmtime(b["key"] // 1000))
+            for b in got), "dropoffs_over_time key_as_string")
+    elif name in ("keyword_terms", "terms_avg_tip"):
+        _hold(resp["hits"]["total"] == n_all, "terms total")
+        fields = (("vendors", "vendor_id"), ("payments", "payment_type")) \
+            if name == "keyword_terms" else (("payments", "payment_type"),)
+        for agg, field in fields:
+            terms = TAXI_KEYWORDS[field]
+            cnt = np.bincount(t[field], minlength=len(terms))
+            want = sorted(((int(c), terms[i]) for i, c in enumerate(cnt)
+                           if c), reverse=True)[:10]
+            got = aggs[agg]
+            _hold([(b["doc_count"], b["key"]) for b in got["buckets"]]
+                  == want and got["sum_other_doc_count"] == 0
+                  and got["doc_count_error_upper_bound"] == 0,
+                  f"{agg} buckets {got['buckets']}")
+            if name == "terms_avg_tip":
+                for b in got["buckets"]:
+                    m = (t[field] == terms.index(b["key"])) & t["tip_exists"]
+                    n = int(m.sum())
+                    v = b["avg_tip"]["value"]
+                    if n == 0:
+                        _hold(v is None, f"avg_tip of {b['key']}")
+                    else:
+                        _near(v, float(t["tip_amount"][m].sum()) / n, 1e-5,
+                              f"avg_tip of {b['key']}")
+    elif name == "percentiles":
+        rng_parts = []
+        for s in range(TAXI_SHARDS):
+            part = t["total_amount"][s * TAXI_DOCS: (s + 1) * TAXI_DOCS]
+            if part.size > SAMPLE_CAP:
+                part = np.random.default_rng(17).choice(
+                    part, SAMPLE_CAP, replace=False)
+            rng_parts.append(part)
+        allv = np.concatenate(rng_parts)
+        want = {f"{float(p)}": float(np.percentile(allv, p))
+                for p in (1, 5, 25, 50, 75, 95, 99)}
+        _hold(aggs["total"]["values"] == want,
+              f"percentiles {aggs['total']['values']} vs {want}")
+    elif name == "numeric_mix":
+        fare = t["fare_amount"]
+        fs = aggs["fare_stats"]
+        f32v = fare.astype(f32)
+        _hold(fs["count"] == n_all and fs["min"] == float(f32v.min())
+              and fs["max"] == float(f32v.max()), f"fare_stats {fs}")
+        s, sq = float(fare.sum()), float((fare * fare).sum())
+        _near(fs["sum"], s, 1e-5, "fare sum")
+        _near(fs["avg"], s / n_all, 1e-5, "fare avg")
+        _near(fs["sum_of_squares"], sq, 1e-5, "fare sum_of_squares")
+        var = sq / n_all - (s / n_all) ** 2
+        _near(fs["variance"], var, 1e-4, "fare variance")
+        _near(fs["std_deviation"], var ** 0.5, 1e-4, "fare std_deviation")
+        ps = aggs["passengers"]
+        pc = t["passenger_count"]
+        _hold(ps["count"] == n_all and ps["min"] == float(pc.min())
+              and ps["max"] == float(pc.max()), f"passengers {ps}")
+        _near(ps["sum"], float(pc.sum()), 1e-5, "passengers sum")
+        td32 = t["trip_distance"].astype(f32)
+        want = [("*-2", int((td32 < f32(2)).sum())),
+                ("2-10", int(((td32 >= f32(2)) & (td32 < f32(10))).sum())),
+                ("10-*", int((td32 >= f32(10)).sum()))]
+        _hold([(b["key"], b["doc_count"])
+               for b in aggs["distance_ranges"]["buckets"]] == want,
+              f"distance_ranges {aggs['distance_ranges']}")
+        _hold(aggs["no_tip"]["doc_count"] == int((~t["tip_exists"]).sum()),
+              "no_tip")
+        pk = t["pickup_datetime"]
+        jan = int(((pk >= TAXI_YEAR) & (pk < TAXI_YEAR + 31 * DAY_MS)).sum())
+        _hold(aggs["trips"]["buckets"] == {
+            "long": {"doc_count": int((td32 >= f32(10)).sum())},
+            "january": {"doc_count": jan}}, f"trips {aggs['trips']}")
+
+
+def taxi_cardinality_check(np, torch, node, resp, t):
+    """Cardinality: each shard's registers (the collector on the card)
+    against the numpy build of the same hash; the response is their
+    merge. Returns how many of the 4 x 4096 fare registers equal the
+    numpy build's exact-rank registers, and the values in the f32 band."""
+    from elasticsearch_tpu_torch.search.aggregations import parse_aggs
+    from elasticsearch_tpu_torch.search.context import SegmentContext
+    from elasticsearch_tpu_torch.utils.hashing import (hll_update_host,
+                                                       murmur3_32)
+
+    svc = node.get_index("taxis")
+    (fares, rates) = parse_aggs(TAXI_BODIES["cardinality"]["aggs"])
+    regs, equal, in_band = [], 0, 0
+    for s in range(TAXI_SHARDS):
+        seg = svc.shards[s].segments[0]
+        ctx = SegmentContext(seg, svc.mappings, svc.analysis)
+        got = fares.collect(ctx, seg.live).astype(np.int64)
+        lo, hi, exact, reg = hll_bounds(
+            np, t["fare_amount"][s * TAXI_DOCS: (s + 1) * TAXI_DOCS])
+        _hold(np.all((lo <= got) & (got <= hi)),
+              f"shard {s}: fare registers outside the numpy bounds")
+        want = np.zeros(4096, np.int64)
+        np.maximum.at(want, reg, exact)
+        equal += int((got == want).sum())
+        in_band += int((lo != hi).sum())
+        regs.append(got.astype(np.int32))
+    _hold(resp["aggregations"]["fares"] == fares.reduce(regs),
+          "fares: the response is not the merge of the shards' registers")
+    rate_regs = np.zeros(4096, np.int32)
+    for s in range(TAXI_SHARDS):
+        present = np.unique(t["rate_code_id"][s * TAXI_DOCS:
+                                              (s + 1) * TAXI_DOCS])
+        hll_update_host(rate_regs, np.array(
+            [murmur3_32(TAXI_KEYWORDS["rate_code_id"][i]) for i in present],
+            np.uint32))
+    _hold(resp["aggregations"]["rate_codes"] == rates.reduce([rate_regs]),
+          "rate_codes value")
+    return equal, in_band
+
+
+def phase_aggs(torch, np, dev, card):
+    """Phase 5f: aggregations on a stand-in for Elastic Rally's public
+    ``nyc_taxis`` track (its ``index.json`` mapping and the aggregation
+    operations of ``operations/default.json``), generated from seed 0.
+    Cut from the track: 4,194,304 docs in four shards of one 2^20-doc
+    segment (the track has 165M); the track's scaled_float fields are
+    doubles (ES 2.0 has none); no geo_point fields (geo is ROADMAP A9);
+    the other fields of the track's mapping left out. The doc count is
+    cut for time, not for the card's memory (the track's keyword and
+    numeric columns, about 10 GB, would fit): generating and building
+    the docs on the host takes 4-5.3 s per 2^20 of them (the set-up
+    line prints it), so the track's 165M would take 11-14 minutes of
+    the script's 20 before a request, and the phase has about 60 s.
+
+    Every body runs on the mesh path and on the host loop
+    (``index.search.mesh: false``), the two byte-identical and each held
+    against numpy over the generated arrays. Per body and route: p50
+    over about TAXI_WINDOW_S seconds of requests (TAXI_MIN_REPS to
+    TAXI_MAX_REPS), p99 where they number TAXI_TAIL_REPS or more (else
+    the slowest, labelled so), device time, kernels and copies a request
+    over TAXI_PROFILED profiled requests, and the busy share."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.index.convert import segment_from_arrays
+    from elasticsearch_tpu_torch.monitor import kernels as counters
+    from elasticsearch_tpu_torch.search.aggregations.metrics import \
+        PercentilesAggregator
+
+    _hold(PercentilesAggregator.SAMPLE_CAP == SAMPLE_CAP,
+          "the port's percentile sample cap moved")
+    t0 = time.perf_counter()
+    taxis = make_taxis(np, TAXI_SHARDS * TAXI_DOCS, SEED)
+    node = Node(name="taxis", device=dev)
+    node.create_index("taxis", {
+        "settings": {"number_of_shards": TAXI_SHARDS},
+        "mappings": TAXI_MAPPING})
+    svc = node.get_index("taxis")
+    for s in range(TAXI_SHARDS):
+        svc.shards[s].engine.add_segment(segment_from_arrays(
+            taxi_shard_arrays(np, taxis, s), node.residency))
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    log(f"[aggs] {TAXI_SHARDS * TAXI_DOCS} generated trips over "
+        f"{TAXI_SHARDS} shards of one {TAXI_DOCS}-doc segment; set-up "
+        f"{setup:.1f} s ({setup * (1 << 20) / (TAXI_SHARDS * TAXI_DOCS):.2f}"
+        f" s per 2^20 docs)")
+
+    def on_mesh(flag):
+        svc.settings["search"] = {"mesh": flag}
+
+    def run(body, n, window_s=0.0):
+        """n requests, or more until ``window_s`` seconds have passed,
+        at most TAXI_MAX_REPS: (each one's ms, the last response)."""
+        ms, out = [], None
+        start = time.perf_counter()
+        while len(ms) < n or (len(ms) < TAXI_MAX_REPS and
+                              time.perf_counter() - start < window_s):
+            t = time.perf_counter()
+            out = node.search("taxis", copy.deepcopy(body))
+            ms.append((time.perf_counter() - t) * 1e3)
+        return np.array(ms), out
+
+    lines, card_eq = [], None
+    for name, body in TAXI_BODIES.items():
+        res = {}
+        for mesh in (True, False):
+            on_mesh(mesh)
+            run(body, 1)  # first use: dense blocks, stacked copies
+            counters.reset()
+            ms, resp = run(body, TAXI_MIN_REPS, TAXI_WINDOW_S)
+            snap = counters.snapshot()
+            prof = profile_path(torch, lambda: run(body, TAXI_PROFILED))
+            res[mesh] = (ms, resp, snap, prof)
+        on_mesh(True)
+        (ms, resp, snap, prof), host = res[True], res[False]
+        route = "agg_terms_device" if name == "keyword_terms" else "agg_mask"
+        _hold(snap.get("mesh_search") == len(ms)
+              and snap.get(route) == len(ms),
+              f"{name}: the mesh route did not serve it: {snap}")
+        _hold(not any(k.startswith(("mesh_", "agg_")) for k in host[2]),
+              f"{name}: the host loop ran the mesh: {host[2]}")
+        _hold(json.dumps(dict(resp, took=0), sort_keys=True)
+              == json.dumps(dict(host[1], took=0), sort_keys=True),
+              f"{name}: the mesh's response differs from the host loop's")
+        taxi_oracle_check(np, name, resp, taxis)
+        if name == "cardinality":
+            card_eq = taxi_cardinality_check(np, torch, node, resp, taxis)
+        for label, (ms_, _r, _s, prof_) in (("mesh path", res[True]),
+                                            ("host loop", host)):
+            if prof_ is None:
+                dev_txt = "device time not measured"
+            else:
+                busy, kern, hd, dh, top = prof_
+                per = busy / TAXI_PROFILED
+                dev_txt = (f"device {per:.3f} ms a request "
+                           f"({100 * per / ms_.mean():.1f}% busy), "
+                           f"{kern / TAXI_PROFILED:.1f} kernels, "
+                           f"{hd / TAXI_PROFILED:.1f} copies in and "
+                           f"{dh / TAXI_PROFILED:.1f} back a request; top: "
+                           + "; ".join(top[:3]))
+            tail = (f"p99 {np.percentile(ms_, 99):.3f} ms"
+                    if len(ms_) >= TAXI_TAIL_REPS else
+                    f"slowest {ms_.max():.3f} ms (too few for a p99)")
+            lines.append(
+                f"[aggs] {name}, {label}"
+                + (f" ({route})" if label == "mesh path" else "")
+                + f" on {card}: p50 {np.percentile(ms_, 50):.3f} ms, "
+                  f"{tail} over {len(ms_)} requests, {dev_txt}")
+    for line in lines:
+        log(line)
+    log(f"[aggs] every response byte-identical on both routes and held "
+        f"against numpy: keys, order and counts exact, count/min/max "
+        f"exact, sums and averages within 1e-5 of f64 (variance 1e-4), "
+        f"percentiles equal numpy's sample; fare HLL registers in the "
+        f"numpy bounds on all {TAXI_SHARDS} shards, {card_eq[0]} of "
+        f"{TAXI_SHARDS * 4096} equal to the exact-rank build "
+        f"({card_eq[1]} with a value in the f32 band)")
+    node.close()
+    log(f"[aggs] phase 5f took {time.perf_counter() - t0:.1f} s")
+
+
 def _cprofile_rows(st, key, n, per=1):
     """The top ``n`` of a pstats.Stats by ``key`` ("cum" or "own") as
     lines of calls, own ms, cumulative ms (each divided by ``per``) and
@@ -2668,6 +3142,8 @@ def main() -> int:
     read_node.close()
     mesh_node.close()
     del corpus, sift, read_node, mesh_node, shard_text
+    torch.cuda.empty_cache()
+    phase_aggs(torch, np, dev, card)
     torch.cuda.empty_cache()
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card),
               "knn_topk": timing_knn(torch, dev, card),

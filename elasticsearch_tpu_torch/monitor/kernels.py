@@ -1,6 +1,7 @@
 """Kernel-dispatch counters: which device route served each query.
 
-Copy of elasticsearch_tpu/monitor/kernels.py (the port keeps its own).
+Copy of elasticsearch_tpu/monitor/kernels.py (the port keeps its own;
+the ``agg_*`` names are the port's).
 Dispatch decisions happen in host code (query execution, prim build,
 mesh_service routing), so each ``record()`` call site marks one served
 request component.
@@ -27,6 +28,10 @@ Names the port records:
   executor_prep_miss  a memoizable round built its inputs fresh
   executor_data_hit   a segment round's stacked device data was reused
   executor_data_miss  a segment round's stacked device data was built
+  agg_terms_device    a mesh request's aggs (keyword terms, no subs)
+                      were counted in its rounds on the card
+  agg_mask            a mesh request's aggs ran the host-side collectors
+                      over its rounds' match masks
 """
 from __future__ import annotations
 

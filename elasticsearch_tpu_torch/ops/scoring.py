@@ -1,10 +1,11 @@
-"""BM25, mask and top-k primitives of the slice, on tensors.
+"""BM25, mask, top-k and aggregation primitives of the slice, on tensors.
 
 Port of the parts of elasticsearch_tpu/ops/scoring.py the single-query
-host path calls. The reference's forms that exist only to suit XLA:TPU
-(the scatter-free ``*_lookup`` tails, ``bm25_hybrid_candidates_topk``,
-blocked ``exact_topk``, the packed single-pull result) are not ported:
-on the card a scatter is an ``index_add_``.
+host path and the aggregations call. The reference's forms that exist
+only to suit XLA:TPU (the scatter-free ``*_lookup`` tails,
+``bm25_hybrid_candidates_topk``, blocked ``exact_topk``, the packed
+single-pull result, ``bucket_count``'s sort-and-search branch) are not
+ported: on the card a scatter is an ``index_add_``.
 
 Postings scatters: a query term's run is a ``(start, len)`` chunk of the
 segment's CSR, and a query is a chunk table (starts, lens, weights over
@@ -307,3 +308,26 @@ def topk_with_mask(scores, mask, *, k: int):
 
 def count_mask(mask) -> int:
     return int(mask.sum())
+
+
+#: most int64 counters ``bucket_count`` spreads its adds over
+_COUNT_SLOTS = 1 << 16
+
+
+def bucket_count(bucket_ids, mask, *, num_buckets: int):
+    """i64[num_buckets]: how many selected entries carry each id, an
+    ``index_add_`` of the 0/1 ``mask`` at ``bucket_ids`` (each in
+    ``[0, num_buckets)``). Each bucket has ``lanes`` private counters (an
+    entry adds to the one its position mod lanes picks) summed at the
+    end: a handful of buckets over 2^20 entries (a keyword's few values)
+    would otherwise queue every add of the card on a few addresses.
+    Integer adds, so the counts are exact in any order."""
+    ids = bucket_ids.reshape(-1).to(torch.int64)
+    lanes = max(1, min(256, _COUNT_SLOTS // max(num_buckets, 1)))
+    if lanes > 1:
+        ids = ids * lanes + torch.arange(ids.numel(), device=ids.device) \
+            % lanes
+    out = torch.zeros(num_buckets * lanes, dtype=torch.int64,
+                      device=ids.device)
+    out.index_add_(0, ids, mask.reshape(-1).to(torch.int64))
+    return out.view(num_buckets, lanes).sum(1)

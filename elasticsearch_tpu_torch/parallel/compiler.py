@@ -24,8 +24,16 @@ range (numeric i64-exact and f32, date, keyword by term expansion),
 exists, ids, bool, constant_score and brute-force knn. ``hybrid`` and knn
 through IVF, IVF-PQ or MaxSim decline by design (``MeshCompileError``
 with ``by_design``) and keep their host-loop routes; any other tree
-raises ``MeshCompileError`` and the caller takes the host loop. Sort and
-aggregation prims come with ROADMAP A6, phrase, dis_max, boosting,
+raises ``MeshCompileError`` and the caller takes the host loop.
+
+Aggregations ride the round in one of two ways (``mesh_service``): a
+request whose aggs are all keyword ``terms`` without sub-aggregations
+adds one ``AggTermsPrim`` per agg, and the round counts each slot's
+terms over its match mask on the card; any other agg tree asks for the
+round's ``[S, D]`` match mask (``want_mask``), which the host-side
+collectors read. Either way the round takes the generic route, never
+kernel B1, which makes no mask. The sort prims (``SortColPrim``,
+``SortOrdPrim``) come with ROADMAP A6b; phrase, dis_max, boosting,
 function_score and the term expansions with A9.
 """
 from __future__ import annotations
@@ -92,6 +100,31 @@ class NumDocsPrim(DataPrim):
                             for s in seg_row], np.int32)], ()
 
 
+def _postings_nnz(field: str, seg_row) -> int:
+    return max([s.inverted[field].nnz_pad for s in seg_row
+                if s is not None and field in s.inverted] or [1])
+
+
+def _inv_attr(field: str, attr: str):
+    """per_slot reader of an inverted field's tensor (None without it)."""
+    def get(seg):
+        inv = seg.inverted.get(field)
+        return None if inv is None else getattr(inv, attr)
+    return get
+
+
+def _stacked_doc_ids(field: str, seg_row, D: int, data):
+    """The field's postings doc ids [S, NNZ], every pad (a segment pads
+    with its own max_docs, an empty slot row with D) mapped to D."""
+    def sentinel(seg, t):
+        return torch.where(t >= seg.max_docs, torch.full_like(t, D), t)
+
+    nnz = _postings_nnz(field, seg_row)
+    return data.stacked(("postings", field, _ids(seg_row), nnz, D),
+                        _inv_attr(field, "doc_ids"), nnz, D, torch.int32,
+                        fix=sentinel)
+
+
 class PostingsPrim(DataPrim):
     """Stacked postings of one field: doc_ids [S, NNZ] (pads and other
     slots' sentinels → D), tfnorm [S, NNZ]."""
@@ -100,27 +133,51 @@ class PostingsPrim(DataPrim):
         self.field = field
 
     def build(self, seg_row, ctxs, D, data):
-        invs = [s.inverted.get(self.field) if s is not None else None
-                for s in seg_row]
-        nnz = max([i.nnz_pad for i in invs if i is not None] or [1])
         f = self.field
-
-        def doc_ids(seg):
-            inv = seg.inverted.get(f)
-            return None if inv is None else inv.doc_ids
-
-        def tfnorm(seg):
-            inv = seg.inverted.get(f)
-            return None if inv is None else inv.tfnorm
-
-        def sentinel(seg, t):  # a segment pads with its own max_docs
-            return torch.where(t >= seg.max_docs, torch.full_like(t, D), t)
-
-        key = (f, _ids(seg_row), nnz, D)
-        return [data.stacked(("postings",) + key, doc_ids, nnz, D,
-                             torch.int32, fix=sentinel),
-                data.stacked(("tfnorm",) + key, tfnorm, nnz, 0.0,
+        nnz = _postings_nnz(f, seg_row)
+        return [_stacked_doc_ids(f, seg_row, D, data),
+                data.stacked(("tfnorm", f, _ids(seg_row), nnz, D),
+                             _inv_attr(f, "tfnorm"), nnz, 0.0,
                              torch.float32)], ()
+
+
+class AggTermsPrim(DataPrim):
+    """A keyword terms agg's inputs: the field's postings doc ids and
+    term ids [S, NNZ] (the doc ids shared with the field's PostingsPrim,
+    term-id pads ≥ a slot's vocabulary) and each slot's real vocabulary
+    size; static: the widest vocabulary. Mirrors TermsAggregator's
+    postings count, so multi-valued fields count correctly."""
+
+    def __init__(self, field: str):
+        self.field = field
+
+    def build(self, seg_row, ctxs, D, data):
+        f = self.field
+        nnz = _postings_nnz(f, seg_row)
+        vreal = np.asarray([len(s.inverted[f].terms)
+                            if s is not None and f in s.inverted else 0
+                            for s in seg_row], np.int32)
+        vmax = int(vreal.max(initial=0))
+        term_ids = data.stacked(("termids", f, _ids(seg_row), nnz, vmax),
+                                _inv_attr(f, "term_ids"), nnz, vmax,
+                                torch.int32)
+        return [_stacked_doc_ids(f, seg_row, D, data), term_ids,
+                vreal], (vmax,)
+
+
+def agg_term_counts(mask, doc_ids, term_ids, vreal, vmax: int):
+    """i64[S, vmax + 1]: per slot, how many matched docs (``mask`` [S,
+    D]) carry each term, over the slot's postings; column vmax collects
+    nothing real. One ``index_add_`` for every slot (exact)."""
+    n = mask.shape[0]
+    # the D sentinel of a pad reads a False column
+    hit = torch.cat([mask, mask.new_zeros(n, 1)], 1).gather(
+        1, doc_ids.to(torch.int64))
+    w = hit & (term_ids < vreal[:, None])
+    slot = torch.arange(n, device=mask.device)[:, None] * (vmax + 1)
+    ids = term_ids.to(torch.int64).clamp(max=vmax) + slot
+    return S.bucket_count(ids, w, num_buckets=n * (vmax + 1)).view(
+        n, vmax + 1)
 
 
 def _tables(per_slot, S: int):
@@ -674,15 +731,22 @@ class CompiledMeshQuery:
     """Result of ``MeshQueryCompiler.compile``: emit tree + data prims,
     one per request and round. ``fused`` is the index of the term-group
     prim when the request is a pure disjunctive term group on dense rows
-    (the host loop's ``_fused_eligible_terms`` shape), else None."""
+    (the host loop's ``_fused_eligible_terms`` shape) and nothing reads
+    the mask, else None. ``agg_prims`` lists (agg name, AggTermsPrim
+    index) of the keyword terms aggs the round counts; ``want_mask``
+    asks the round for its [S, D] match mask (host-side collectors)."""
 
     def __init__(self, root: Emit, prims: List[DataPrim], live: int, D: int,
-                 fused: Optional[int] = None):
+                 fused: Optional[int] = None,
+                 agg_prims: Optional[List[Tuple[str, int]]] = None,
+                 want_mask: bool = False):
         self.root = root
         self.prims = prims
         self.live = live
         self.D = D
         self.fused = fused
+        self.agg_prims = agg_prims or []
+        self.want_mask = want_mask
 
 
 class MeshQueryCompiler:
@@ -709,16 +773,21 @@ class MeshQueryCompiler:
             self._postings[field] = self._add(PostingsPrim(field))
         return self._postings[field]
 
-    def compile(self, query) -> CompiledMeshQuery:
+    def compile(self, query, agg_specs: Optional[list] = None,
+                want_mask: bool = False) -> CompiledMeshQuery:
         self._live = self._add(LivePrim())
         self._nd = self._add(NumDocsPrim())
         root = self._c(query)
+        agg_prims = [(name, self._add(AggTermsPrim(field)))
+                     for name, field in (agg_specs or [])]
         # a scores-mode hybrid root is a match (operator or, no
         # minimum_should_match) or a term on a text field with a positive
         # boost: the host loop's _fused_eligible_terms shape
         fused = root.prim if isinstance(root, ETermGroupHybrid) \
-            and root.mode == "scores" else None
-        return CompiledMeshQuery(root, self.prims, self._live, self.D, fused)
+            and root.mode == "scores" and not agg_prims \
+            and not want_mask else None
+        return CompiledMeshQuery(root, self.prims, self._live, self.D, fused,
+                                 agg_prims, want_mask)
 
     # -- tree walk (mirrors search/queries.py execute semantics) -------------
 

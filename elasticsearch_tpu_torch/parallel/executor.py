@@ -30,7 +30,10 @@ Routes inside a round:
   rows and weights; otherwise the other slots take the generic route,
   which gathers no dense row of a slot B1 serves;
 - every other request runs the compiled emit tree over the stacked
-  tensors, then one stable top-k per slot;
+  tensors, then one stable top-k per slot; a request with aggregations
+  always does, and adds to the round each keyword terms agg's per-slot
+  counts (in the same copy back) or keeps the round's [S, D] match mask
+  on the card for the host-side collectors;
 - ``search_knn`` / ``search_maxsim``: kernel B2 per slot at k' = 4k in
   bf16, then an f32 re-rank (``exact_rescore_topk``), MaxSim's per-doc
   max (``merge_candidate_topk``), and the merge across slots.
@@ -61,7 +64,8 @@ from elasticsearch_tpu_torch.parallel.compiler import (HybridTGroupPrim,
                                                        LivePrim,
                                                        MeshQueryCompiler,
                                                        PostingsPrim,
-                                                       TGroupPrim)
+                                                       TGroupPrim,
+                                                       agg_term_counts)
 from elasticsearch_tpu_torch.parallel.mesh import ShardMesh, mesh_size
 from elasticsearch_tpu_torch.search import queries as Q
 from elasticsearch_tpu_torch.search.context import SegmentContext, split_runs
@@ -270,7 +274,8 @@ class MeshSearchExecutor:
         return [[c[r] if r < len(c) else None for c in cols]
                 for r in range(max_rounds)]
 
-    def _compile(self, query, mappings, analysis, seg_row):
+    def _compile(self, query, mappings, analysis, seg_row, agg_specs=None,
+                 want_mask: bool = False):
         D = pow2_bucket(max((s.max_docs if s is not None else 1)
                             for s in seg_row))
 
@@ -284,7 +289,8 @@ class MeshSearchExecutor:
             return False
 
         return MeshQueryCompiler(mappings, analysis, D=D,
-                                 has_dense=has_dense).compile(query)
+                                 has_dense=has_dense).compile(
+                                     query, agg_specs, want_mask)
 
     def _build_round(self, compiled, mappings, analysis, seg_row, lut_shard,
                      k: int) -> _Round:
@@ -350,17 +356,21 @@ class MeshSearchExecutor:
         return _Round(compiled, env_items, meta, kk, fused, perm,
                       words, [s for s in seg_row if s is not None])
 
-    def _run_round(self, rd: _Round) -> np.ndarray:
-        """Launch the round; its packed result, copied back once."""
+    def _run_round(self, rd: _Round):
+        """Launch the round: (its packed result, copied back once, the
+        terms aggs' counts at its end; the [S, D] match mask when the
+        request wants it, else None)."""
         compiled, kk = rd.compiled, rd.kk
         fused = rd.fused
         n = len(fused)
+        counts, mask = [], None
         if n == 1 and fused[0] is not None:
             qw, rows, block, live, ks = fused[0]
             kernels.record("bm25_fused_topk")
             Q.FUSED_CALLS += 1
             return Q.bm25_dense_topk(qw, block, live, k=ks, rows=rows,
-                                     count=True, packed=True).cpu().numpy()
+                                     count=True, packed=True).cpu().numpy(), \
+                None
         ks = {f[4] for f in fused if f is not None}
         if all(f is not None for f in fused) and ks == {kk}:
             # every slot on B1 at the round's k: its packed results are
@@ -384,6 +394,11 @@ class MeshSearchExecutor:
             sv, si = torch.sort(masked, dim=1, descending=True, stable=True)
             vals, ids = sv[:, :kk], si[:, :kk].to(torch.int32)
             totals = mask.sum(1)
+            counts = [agg_term_counts(mask, *env[p], rd.meta[p][0])
+                      .reshape(-1).view(torch.int32)
+                      for _name, p in compiled.agg_prims]
+            if not compiled.want_mask:
+                mask = None
         else:
             dev = self.device
             vals = torch.full((n, kk), NEG_INF, dtype=torch.float32,
@@ -407,7 +422,7 @@ class MeshSearchExecutor:
         total = totals.sum().reshape(1).view(torch.int32)
         if n == 1:
             return torch.cat([vals[0].contiguous().view(torch.int32),
-                              ids[0], total]).cpu().numpy()
+                              ids[0], total] + counts).cpu().numpy(), mask
         perm = rd.perm.to(torch.int64)
         pv = vals.index_select(0, perm).reshape(-1)
         pi = ids.index_select(0, perm).reshape(-1)
@@ -415,13 +430,15 @@ class MeshSearchExecutor:
         gv, gpos = gv[:kk], gpos[:kk]
         return torch.cat([gv.contiguous().view(torch.int32),
                           perm[gpos // kk].to(torch.int32), pi[gpos],
-                          total]).cpu().numpy()
+                          total] + counts).cpu().numpy(), mask
 
     @staticmethod
     def _decode_round(out: np.ndarray, rd: _Round, lut_shard, lut_ord,
-                      merged: list) -> int:
+                      merged: list, seg_row, agg_rounds: dict) -> int:
         """Candidates (score, shard, seg_ord, local) of one round into
-        ``merged``; returns the round's exact hit count."""
+        ``merged``, and each non-empty slot's count vector of every terms
+        agg into ``agg_rounds`` (agg name → [(shard, seg_ord, segment,
+        i64[vmax + 1])]); returns the round's exact hit count."""
         if len(rd.fused) == 1 and rd.fused[0] is not None:
             vals, ids, total = unpack_topk(out, rd.fused[0][4])
             # a fused non-match scores <= 0 or -inf
@@ -429,24 +446,39 @@ class MeshSearchExecutor:
             merged += [(v, lut_shard[0], lut_ord[0], i) for v, i in zip(
                 vals[0][ok].tolist(), ids[0][ok].tolist())]
             return int(total[0])
-        kk = rd.kk
+        kk, n = rd.kk, len(rd.fused)
         gvals = out[:kk].view(np.float32)
         ok = np.isfinite(gvals)
-        glocal = out[2 * kk: 3 * kk] if len(rd.fused) > 1 \
-            else out[kk: 2 * kk]
-        gslot = out[kk: 2 * kk][ok].tolist() if len(rd.fused) > 1 \
+        glocal = out[2 * kk: 3 * kk] if n > 1 else out[kk: 2 * kk]
+        gslot = out[kk: 2 * kk][ok].tolist() if n > 1 \
             else [0] * int(ok.sum())
         merged += [(v, lut_shard[sl], lut_ord[sl], lc) for v, sl, lc in zip(
             gvals[ok].tolist(), gslot, glocal[ok].tolist())]
-        return int(out[-2:].view(np.int64)[0])
+        end = (3 if n > 1 else 2) * kk + 2
+        total = int(out[end - 2: end].view(np.int64)[0])
+        for name, p in rd.compiled.agg_prims:
+            width = rd.meta[p][0] + 1
+            c = out[end: end + 2 * n * width].view(np.int64).reshape(n, width)
+            end += 2 * n * width
+            agg_rounds.setdefault(name, []).extend(
+                (lut_shard[si], lut_ord[si], seg, c[si])
+                for si, seg in enumerate(seg_row) if seg is not None)
+        return total
 
     # -- full DSL (compiled query trees) -------------------------------------
 
     def search_dsl(self, query, mappings, analysis, k: int, shards=None,
-                   memo_key: Optional[Callable[[], Optional[bytes]]] = None):
-        """Execute a parsed query over the mesh: (cands, totals), cands a
-        list of (score, shard, seg_ord, local) for the global top k in
-        the host loop's order, totals the exact hit count. Raises
+                   memo_key: Optional[Callable[[], Optional[bytes]]] = None,
+                   agg_specs=None, want_mask: bool = False):
+        """Execute a parsed query over the mesh: (cands, totals,
+        agg_rounds, mask_rounds), cands a list of (score, shard, seg_ord,
+        local) for the global top k in the host loop's order, totals the
+        exact hit count. ``agg_specs`` lists (agg name, keyword field) of
+        terms aggs the rounds count on the card: agg_rounds maps each
+        name to [(shard, seg_ord, segment, i64 counts)], a vector per
+        segment. With ``want_mask``, mask_rounds lists (shard, seg_ord,
+        segment, bool[max_docs] on the card), each segment's match mask
+        (live docs only) for the host-side collectors. Raises
         MeshCompileError, before anything is launched, for a query the
         compiler does not take.
 
@@ -460,7 +492,8 @@ class MeshSearchExecutor:
         # every round compiles before any round launches
         seg_rows = [[e[2] if e is not None else None for e in row]
                     for row in rows]
-        compiled = [self._compile(query, mappings, analysis, seg_row)
+        compiled = [self._compile(query, mappings, analysis, seg_row,
+                                  agg_specs, want_mask)
                     for seg_row in seg_rows]
         key = memo_key() if memo_key is not None else None
         plans = []
@@ -479,6 +512,8 @@ class MeshSearchExecutor:
             plans.append((row, seg_row, prep_key, rd, compiled[rno]))
         merged: List[tuple] = []
         totals = 0
+        agg_rounds: Dict[str, list] = {}
+        mask_rounds: List[tuple] = []
         for row, seg_row, prep_key, rd, compiled in plans:
             lut_shard = [e[0] if e is not None else -1 for e in row]
             lut_ord = [e[1] if e is not None else 0 for e in row]
@@ -490,8 +525,13 @@ class MeshSearchExecutor:
                     self._remember(prep_key, rd)
             else:
                 kernels.record("executor_prep_hit")
-            totals += self._decode_round(self._run_round(rd), rd, lut_shard,
-                                         lut_ord, merged)
+            out, mask = self._run_round(rd)
+            totals += self._decode_round(out, rd, lut_shard, lut_ord, merged,
+                                         seg_row, agg_rounds)
+            if mask is not None:
+                mask_rounds.extend(
+                    (lut_shard[si], lut_ord[si], seg, mask[si, : seg.max_docs])
+                    for si, seg in enumerate(seg_row) if seg is not None)
         # the host loop's order: per shard (-score, seg, local) cut at k
         # (query_phase), then globally (-score, shard, local), stable
         # (search_shards)
@@ -504,7 +544,7 @@ class MeshSearchExecutor:
             lst.sort(key=lambda t: (-t[0], t[2], t[3]))
             out.extend(lst[:k])
         out.sort(key=lambda t: (-t[0], t[1], t[3]))
-        return out[:k], totals
+        return out[:k], totals, agg_rounds, mask_rounds
 
     def _remember(self, prep_key, rd: _Round) -> None:
         """Keep a prepared round, dropping the least recent past the

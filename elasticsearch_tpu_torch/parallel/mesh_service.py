@@ -14,8 +14,19 @@ apart from ``took`` and the scores' last bits.
 batch (``search/batch.py``): every query of the batch on every shard in
 one postings round a segment row (``executor.search_terms``).
 
-Sort staging and aggregations come with ROADMAP A6 (the port's
-``check_body`` refuses those keys today).
+Aggregations: a body whose aggs are all keyword ``terms`` without
+sub-aggregations has each segment's term counts made in the round on the
+card (``agg_terms_device``); any other agg tree runs the host-side
+collectors over the round's match mask, which stays on the card
+(``agg_mask``). The partials reach ``reduce_aggs`` in (shard, segment)
+order, the host loop's, so a response is byte-identical to the host
+loop's. One card has no exchange between devices, so the reference's
+cross-shard ``psum`` merge of the integer lanes waits for a mesh of
+several cards (ROADMAP A4). A failure on the way raises: nothing falls
+back to the host loop on the card.
+
+Sort staging and the rest of the request come with ROADMAP A6b (the
+port's ``check_body`` refuses those keys today).
 """
 from __future__ import annotations
 
@@ -28,6 +39,11 @@ import numpy as np
 from elasticsearch_tpu_torch.monitor import kernels
 from elasticsearch_tpu_torch.parallel.compiler import MeshCompileError
 from elasticsearch_tpu_torch.search.context import SegmentContext
+from elasticsearch_tpu_torch.search.aggregations import (parse_aggs,
+                                                         reduce_aggs,
+                                                         run_aggs)
+from elasticsearch_tpu_torch.search.aggregations.bucket import \
+    TermsAggregator
 from elasticsearch_tpu_torch.search.queries import _batch_terms, parse_query
 from elasticsearch_tpu_torch.search.service import ShardDoc, check_body
 from elasticsearch_tpu_torch.utils.errors import CircuitBreakingException
@@ -129,14 +145,23 @@ def _try_mesh_search(svc, searchers, body: dict):
     if frm + size > 10_000:
         return None  # the host loop raises the max_result_window error
     query = parse_query(body.get("query"))
+    aggs = parse_aggs(body.get("aggs") or body.get("aggregations"))
+    # keyword terms aggs without subs count on the card in the round; any
+    # other agg tree reads the round's match mask through the host-side
+    # collectors. The query phase stays one mesh round either way.
+    device_aggs = bool(aggs) and all(_terms_agg_eligible(a, svc.mappings)
+                                     for a in aggs)
     t0 = time.perf_counter()
     executor = svc.mesh_executor()
     k = max(frm + size, 1)
     shard_segs = [list(s.segments) for s in searchers]
     try:
-        cands, totals = executor.search_dsl(
+        cands, totals, agg_rounds, mask_rounds = executor.search_dsl(
             query, svc.mappings, svc.analysis, k, shards=shard_segs,
-            memo_key=lambda: _canonical(body))
+            memo_key=lambda: _canonical(body),
+            agg_specs=[(a.name, a.body["field"]) for a in aggs]
+            if device_aggs else None,
+            want_mask=bool(aggs) and not device_aggs)
     except MeshCompileError as e:
         return _BY_DESIGN if e.by_design else None
 
@@ -164,4 +189,43 @@ def _try_mesh_search(svc, searchers, body: dict):
             "hits": [fetched[id(d)] for d in page],
         },
     }
+    if aggs:
+        if device_aggs:
+            kernels.record("agg_terms_device")
+            partials = _agg_partials(aggs, agg_rounds)
+        else:
+            kernels.record("agg_mask")
+            partials = [
+                run_aggs(aggs, SegmentContext(seg, svc.mappings,
+                                              svc.analysis,
+                                              index_name=svc.name), mask)
+                for _sh, _seg_ord, seg, mask in sorted(
+                    mask_rounds, key=lambda r: (r[0], r[1]))]
+        response["aggregations"] = reduce_aggs(aggs, partials)
     return response
+
+
+def _terms_agg_eligible(agg, mappings) -> bool:
+    """A keyword ``terms`` agg without sub-aggregations: the round counts
+    it on the card."""
+    if type(agg) is not TermsAggregator or agg.subs:
+        return False
+    field = agg.body.get("field")
+    fm = mappings.get(field) if field is not None else None
+    return fm is not None and fm.is_keyword
+
+
+def _agg_partials(aggs, agg_rounds):
+    """The rounds' count vectors → per-(shard, segment) partials in the
+    shape ``TermsAggregator.collect`` makes (the same shard_size and
+    min_doc_count selection), sorted by (shard, segment), the host
+    loop's order."""
+    by_seg: Dict[tuple, dict] = {}
+    for agg in aggs:
+        for sh, seg_ord, seg, counts in agg_rounds.get(agg.name, []):
+            inv = seg.inverted.get(agg.body.get("field"))
+            keys = inv.terms if inv is not None else []
+            by_seg.setdefault((sh, seg_ord), {})[agg.name] = \
+                agg.partial_from_counts(counts[: len(keys)], keys)
+    return [p for _, p in sorted(by_seg.items())]
+

@@ -50,6 +50,7 @@ from elasticsearch_tpu_torch.search.queries import (KnnQuery,
 from elasticsearch_tpu_torch.search.service import ShardDoc
 from elasticsearch_tpu_torch.utils.errors import ElasticsearchTpuException
 
+#: an item with any other key (``aggs`` among them) runs sequentially
 _ALLOWED_KEYS = {"query", "size", "from", "_source"}
 
 #: 2.0 msearch reports error entries as strings like

@@ -2,13 +2,18 @@
 
 Port of the host loop of elasticsearch_tpu/search/service.py for the
 request shape of the slice: a query with ``from``/``size``, ``_source``
-on, off or filtered, ``version`` and ``rescore``. Aggregations, sort,
-scroll, min_score, search_after, highlight and the other request keys
-are not ported yet and raise a typed SearchParseException.
+on, off or filtered, ``version``, ``rescore`` and ``aggs`` /
+``aggregations`` (``search/aggregations/``). Sort, search_after,
+min_score, scroll, highlight, profile, terminate_after, timeout and the
+other request keys come with ROADMAP A6b and raise a typed
+SearchParseException.
 
 Per segment the query runs the fused dense-impact top-k (kernel B1) when
-the query is a pure-dense term group and nothing rescores, else the
-generic score/mask tensors followed by a masked top-k. Candidates merge
+the query is a pure-dense term group and nothing rescores or aggregates,
+else the generic score/mask tensors followed by a masked top-k; the
+aggregations collect each segment's partial over the same mask that
+counts ``hits.total``, and ``search_shards`` reduces the partials of
+every shard in shard and segment order. Candidates merge
 per shard by ``(-score, seg_id, local_id)``; a ``hybrid`` query's stage-2
 re-rank and then the rescorers re-order the merged window; shards merge
 by ``(-score, shard_ord, local_id)``, the reference's orders.
@@ -22,6 +27,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from elasticsearch_tpu_torch.ops.scoring import count_mask, topk_with_mask
+from elasticsearch_tpu_torch.search.aggregations import (parse_aggs,
+                                                         reduce_aggs,
+                                                         run_aggs)
 from elasticsearch_tpu_torch.search.context import GlobalStats, SegmentContext
 from elasticsearch_tpu_torch.search.hybrid import (HybridQuery,
                                                    apply_hybrid_rerank)
@@ -31,7 +39,7 @@ from elasticsearch_tpu_torch.utils.errors import SearchParseException
 
 #: request keys the port serves; any other key raises
 _SUPPORTED_KEYS = frozenset({"query", "size", "from", "_source", "version",
-                             "rescore"})
+                             "rescore", "aggs", "aggregations"})
 
 
 def check_body(body: dict) -> None:
@@ -59,6 +67,8 @@ class QueryPhaseResult:
     max_score: float
     # a hybrid query's stage-2 status: {"rerank": "applied"|"declined", ...}
     hybrid: Optional[dict] = None
+    # {"_list": [per-segment partials], "_aggs": the parsed agg tree}
+    agg_partials: Optional[dict] = None
 
 
 class ShardSearcher:
@@ -80,6 +90,7 @@ class ShardSearcher:
                     ) -> QueryPhaseResult:
         check_body(body)
         query = parse_query(body.get("query"))
+        aggs = parse_aggs(body.get("aggs") or body.get("aggregations"))
         size = int(body.get("size", 10))
         frm = int(body.get("from", 0))
         if frm + size > 10_000:
@@ -97,12 +108,15 @@ class ShardSearcher:
         docs: List[ShardDoc] = []
         total = 0
         max_score = float("-inf")
+        agg_partials: List[dict] = []
         for seg in self.segments:
             ctx = SegmentContext(seg, self.mappings, self.analysis,
                                  global_stats, index_name=self.index_name)
             kk = min(k, seg.max_docs)
-            # a rescore re-reads scores: B1's bf16 scores would show
-            fused = None if rescore_specs else fused_bm25_topk(ctx, query, kk)
+            # a rescore re-reads scores (B1's bf16 scores would show) and
+            # the aggregations read the mask, which B1 does not make
+            fused = None if rescore_specs or aggs \
+                else fused_bm25_topk(ctx, query, kk)
             if fused is not None:
                 vals, ids, seg_total = fused
                 total += seg_total
@@ -116,6 +130,8 @@ class ShardSearcher:
                 continue
             scores, mask = query.score_or_mask(ctx)
             mask = mask & seg.live
+            if aggs:
+                agg_partials.append(run_aggs(aggs, ctx, mask))
             vals, idx = topk_with_mask(scores, mask, k=kk)
             total += count_mask(mask)
             vals = vals.cpu().numpy()
@@ -142,7 +158,9 @@ class ShardSearcher:
         return QueryPhaseResult(
             docs=docs, total_hits=total,
             max_score=max_score if docs and max_score != float("-inf")
-            else float("nan"), hybrid=hybrid)
+            else float("nan"), hybrid=hybrid,
+            agg_partials={"_list": agg_partials, "_aggs": aggs}
+            if aggs else None)
 
     def fetch_phase(self, docs: List[ShardDoc], body: dict,
                     index_name: str = "") -> List[dict]:
@@ -226,6 +244,10 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
             response["hybrid"] = {
                 "rerank": "applied",
                 "window": sum(int(h.get("window", 0)) for h in statuses)}
+    present = [r.agg_partials for r in results if r.agg_partials]
+    if present:
+        response["aggregations"] = reduce_aggs(
+            present[0]["_aggs"], [p for r in present for p in r["_list"]])
     return response
 
 

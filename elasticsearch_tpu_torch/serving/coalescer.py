@@ -43,7 +43,8 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 #: body keys a parked request may carry; `profile` parks too (its queue
-#: wait is real) but executes on its own thread at the flush
+#: wait is real) but executes on its own thread at the flush. A body with
+#: any other key (`aggs` among them) runs its own path unparked
 PARK_KEYS = frozenset({"query", "size", "from", "_source", "profile"})
 
 #: sentinel result: the waiter executes its own body on its own thread

@@ -100,3 +100,49 @@ def clustered(n: int, dims: int, n_clusters: int, seed: int = 0,
     assign = rng.integers(0, n_clusters, n)
     return (cents[assign] + spread * rng.standard_normal((n, dims))
             ).astype(np.float32)
+
+
+AGG_MAPPING = {"properties": {
+    "body": {"type": "text", "analyzer": "english"},
+    "tag": {"type": "keyword"},
+    "labels": {"type": "keyword"},
+    "n": {"type": "long"},
+    "qty": {"type": "integer"},
+    "price": {"type": "double"},
+    "ts": {"type": "date"},
+    "addr": {"type": "ip"},
+}}
+
+LABELS = ("red", "green", "blue", "gold", "grey")
+#: 2015-01-01T00:00:00Z in epoch millis
+TS_BASE = 1_420_070_400_000
+
+
+def agg_corpus(n_docs: int, seed: int = 0):
+    """[(doc id, source)] for the aggregation tests: ``corpus``'s text and
+    keyword, a multi-valued keyword (``labels``, 0-3 values), a long, an
+    integer, a double, a date over 120 days and an ip, each numeric left
+    out of some docs (missing, exists)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, len(WORDS) + 1) ** 1.1
+    p /= p.sum()
+    docs = []
+    for i in range(n_docs):
+        body = " ".join(rng.choice(WORDS, size=int(rng.integers(4, 16)), p=p))
+        src = {"body": body, "tag": f"t{int(rng.integers(0, 7))}"}
+        k = int(rng.integers(0, 4))
+        if k:
+            src["labels"] = [str(x) for x in rng.choice(LABELS, size=k,
+                                                        replace=False)]
+        if i % 11:
+            src["n"] = int(rng.integers(-50, 1000)) * 1_000_003
+        if i % 3:
+            src["qty"] = int(rng.integers(0, 20))
+        if i % 7:
+            src["price"] = float(np.round(rng.random() * 100, 2))
+        if i % 5:
+            src["ts"] = TS_BASE + int(rng.integers(0, 120 * 86_400_000))
+        src["addr"] = f"10.0.{int(rng.integers(0, 4))}." \
+                      f"{int(rng.integers(0, 256))}"
+        docs.append((f"d{i}", src))
+    return docs
