@@ -81,6 +81,19 @@ Phases, in order; any failure exits non-zero before the result line:
             registers against a numpy build of the same hash); p50, p99,
             device time, kernels, copies and busy share per body and
             route;
+5g. sort    field sort and the request tail on phase 5f's node: Rally's
+            ``desc_sort_*`` form (total_amount desc), 10 pages of 100 by
+            ``search_after`` on pickup_datetime, vendor_id then
+            trip_distance desc (3 values over 2^20 docs a shard),
+            tip_amount with ``missing`` last and first (card trips have
+            no tip), a score-ordered ``scroll`` of 25 pages of 1000 and a
+            ``scan`` (geonames' scroll), ``min_score``,
+            ``terminate_after`` and ``timeout``, ``profile``, and
+            ``highlight`` on a small text index written through
+            ``Node.index``; every body on each route it takes, held
+            against numpy (``np.lexsort``, exact totals); p50, p99,
+            device time, kernels, copies and busy share per body and
+            route;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
@@ -2370,9 +2383,9 @@ def hll_bounds(np, values):
     return lo, hi, exact, reg
 
 
-def _hold(cond, what):
+def _hold(cond, what, phase="5f"):
     if not cond:
-        raise AssertionError(f"phase 5f: {what}")
+        raise AssertionError(f"phase {phase}: {what}")
 
 
 def _near(got, want, rtol, what):
@@ -2562,7 +2575,8 @@ def phase_aggs(torch, np, dev, card):
     over about TAXI_WINDOW_S seconds of requests (TAXI_MIN_REPS to
     TAXI_MAX_REPS), p99 where they number TAXI_TAIL_REPS or more (else
     the slowest, labelled so), device time, kernels and copies a request
-    over TAXI_PROFILED profiled requests, and the busy share."""
+    over TAXI_PROFILED profiled requests, and the busy share. Returns
+    the node and the generated arrays for phase 5g."""
     from elasticsearch_tpu_torch import Node
     from elasticsearch_tpu_torch.index.convert import segment_from_arrays
     from elasticsearch_tpu_torch.monitor import kernels as counters
@@ -2658,8 +2672,405 @@ def phase_aggs(torch, np, dev, card):
         f"numpy bounds on all {TAXI_SHARDS} shards, {card_eq[0]} of "
         f"{TAXI_SHARDS * 4096} equal to the exact-rank build "
         f"({card_eq[1]} with a value in the f32 band)")
-    node.close()
     log(f"[aggs] phase 5f took {time.perf_counter() - t0:.1f} s")
+    return node, taxis
+
+
+# ---------------------------------------------------------------------------
+# phase 5g: field sort and the request tail on the nyc_taxis stand-in
+# ---------------------------------------------------------------------------
+
+SORT_WINDOW_S = 1.0        # timed requests per body and route: about this
+SORT_MIN_REPS = 20         # many seconds, at least SORT_MIN_REPS, at most
+SORT_PROFILED = 4          # TAXI_MAX_REPS; this many under the profiler
+AFTER_PAGES, AFTER_SIZE = 10, 100      # http_logs' search_after operations
+SCROLL_PAGES, SCROLL_SIZE = 25, 1000   # geonames' scroll operation
+SCROLL_DRAINS = 3          # timed drains of the scroll and of the scan
+HL_DOCS = 2000             # the highlight index, written by Node.index
+HL_WORDS = ("the quick brown fox jumps over lazy dog river mountain valley "
+            "ocean forest desert island city night morning light water "
+            "stone bridge road market garden").split()
+SCROLL_QUERY = {"range": {"trip_distance": {"gte": 2, "lt": 10}}}
+#: scores 1 to 3: how many of three ranges a trip falls in
+TAIL_QUERY = {"bool": {"should": [
+    {"range": {"trip_distance": {"gte": 5}}},
+    {"range": {"fare_amount": {"gte": 20}}},
+    {"range": {"tip_amount": {"gte": 3}}}]}}
+#: name -> (body, its sort keys for the oracle, runs on the mesh too)
+SORT_BODIES = {
+    "a_total_amount_desc": ({"sort": [{"total_amount": "desc"}],
+                             "size": 10},
+                            [("total_amount", "desc", "_last")], True),
+    "c_vendor_then_distance": ({"sort": ["vendor_id",
+                                         {"trip_distance": "desc"}],
+                                "size": 10},
+                               [("vendor_id", "asc", "_last"),
+                                ("trip_distance", "desc", "_last")], True),
+    "d_tip_missing_last": ({"sort": [{"tip_amount": {
+        "order": "asc", "missing": "_last"}}], "size": 10},
+        [("tip_amount", "asc", "_last")], True),
+    "d_tip_missing_first": ({"sort": [{"tip_amount": {
+        "order": "asc", "missing": "_first"}}], "size": 10},
+        [("tip_amount", "asc", "_first")], True),
+    "f_min_score": ({"query": TAIL_QUERY, "min_score": 2, "size": 10},
+                    None, False),
+    "f_terminate_after": ({"query": SCROLL_QUERY, "terminate_after": 1000,
+                           "size": 10}, None, False),
+    "f_timeout": ({"query": SCROLL_QUERY, "timeout": "10s", "size": 10},
+                  None, False),
+    "g_profile": ({"sort": [{"total_amount": "desc"}], "size": 10,
+                   "profile": True}, [("total_amount", "desc", "_last")],
+                  False),
+}
+
+
+def _taxi_value(t, field, i):
+    """The sort value a hit reports for trip ``i`` (None when missing)."""
+    if field in TAXI_KEYWORDS:
+        return TAXI_KEYWORDS[field][int(t[field][i])]
+    if field == "tip_amount" and not t["tip_exists"][i]:
+        return None
+    v = t[field][i]
+    return int(v) if t[field].dtype.kind == "i" else float(v)
+
+
+def taxi_sort_order(np, t, keys, n):
+    """The first ``n`` trips in ES order by ``np.lexsort``: per key a
+    missing rank and the value (keywords by ordinal, which is term
+    order), then shard and local id, which for one segment a shard is
+    the trip's index."""
+    cols = []
+    for field, order, missing in keys:
+        v = t[field]
+        if field == "tip_amount":
+            rank = np.where(t["tip_exists"], 1, 0 if missing == "_first"
+                            else 2)
+            v = np.where(t["tip_exists"], v, 0.0)
+        else:
+            rank = np.ones(v.size, np.int8)
+        cols += [rank, -v if order == "desc" else v]
+    idx = np.arange(t["trip_distance"].size)
+    return np.lexsort([idx] + cols[::-1])[:n]
+
+
+def _hold_hits(t, resp, want_idx, keys, what):
+    """A response's hits are the trips ``want_idx`` in order: each hit's
+    local id and, sorted, its sort values."""
+    hits = resp["hits"]["hits"]
+    _hold([h["_id"] for h in hits]
+          == [str(int(i) % TAXI_DOCS) for i in want_idx],
+          f"{what}: the hits are not numpy's", "5g")
+    if keys:
+        _hold([h["sort"] for h in hits]
+              == [[_taxi_value(t, f, int(i)) for f, _o, _m in keys]
+                  for i in want_idx],
+              f"{what}: the sort values are not numpy's", "5g")
+
+
+def _route_line(np, name, label, ms, prof, per_call=SORT_PROFILED):
+    tail = (f"p99 {np.percentile(ms, 99):.3f} ms"
+            if len(ms) >= TAXI_TAIL_REPS else
+            f"slowest {ms.max():.3f} ms (too few for a p99)")
+    if prof is None:
+        dev_txt = "device time not measured"
+    else:
+        busy, kern, hd, dh, top = prof
+        per = busy / per_call
+        dev_txt = (f"device {per:.3f} ms a request "
+                   f"({100 * per / ms.mean():.1f}% busy), "
+                   f"{kern / per_call:.1f} kernels, {hd / per_call:.1f} "
+                   f"copies in and {dh / per_call:.1f} back a request; "
+                   f"top: " + "; ".join(top[:3]))
+    return (f"[sort] {name}, {label}: p50 {np.percentile(ms, 50):.3f} ms, "
+            f"{tail} over {len(ms)} requests, {dev_txt}")
+
+
+def phase_sort(torch, np, dev, card, node, t):
+    """Phase 5g: field sort, ``search_after``, scroll and the request
+    tail on phase 5f's node (4,194,304 generated trips in four shards of
+    one 2^20-doc segment), with the bodies of Rally's public tracks:
+    ``http_logs``' ``desc_sort_*`` / ``asc_sort_*`` and their
+    ``search_after`` forms, ``geonames``' ``scroll`` (25 pages of 1000).
+    Each body runs on every route it takes (the mesh path and the host
+    loop; ``min_score``, ``terminate_after``, ``timeout``,
+    ``search_after``, ``scroll`` and ``profile`` keep a request on the
+    host loop) and is held against numpy over the generated arrays:
+    ``np.lexsort`` order and sort values exact, totals exact. Per body
+    and route: p50 over about SORT_WINDOW_S seconds of requests, p99
+    from TAXI_TAIL_REPS on, device time, kernels and copies over
+    SORT_PROFILED profiled requests, busy share."""
+    from elasticsearch_tpu_torch.monitor import kernels as counters
+    from elasticsearch_tpu_torch.ops import (adc, bm25_topk, knn_topk,
+                                             maxsim_adc)
+    from elasticsearch_tpu_torch.search.service import (clear_scroll,
+                                                        scroll_next)
+
+    hand = (bm25_topk, knn_topk, adc, maxsim_adc)
+    t0 = time.perf_counter()
+    svc = node.get_index("taxis")
+    f32 = np.float32
+    n_all = t["trip_distance"].size
+    idx_all = np.arange(n_all)
+
+    def on_mesh(flag):
+        svc.settings["search"] = {"mesh": flag}
+
+    def timed(fn, n, window_s):
+        ms, out = [], None
+        start = time.perf_counter()
+        while len(ms) < n or (len(ms) < TAXI_MAX_REPS and
+                              time.perf_counter() - start < window_s):
+            a = time.perf_counter()
+            out = fn()
+            ms.append((time.perf_counter() - a) * 1e3)
+        return np.array(ms), out
+
+    lines = []
+    for name, (body, keys, mesh_too) in SORT_BODIES.items():
+        want = None
+        if keys is not None:
+            want = taxi_sort_order(np, t, keys, body["size"])
+        answers = {}
+        # True: the mesh path; False: the host loop, pinned; None: the
+        # host loop because the mesh declines the body's keys
+        for mesh in ((True, False) if mesh_too else (None,)):
+            on_mesh(mesh is not False)
+
+            def one():
+                return node.search("taxis", copy.deepcopy(body))
+
+            for m in hand:
+                m.LAUNCHES = 0
+            one()  # first use: the sort mirrors, stacked copies
+            # the sort path and the request tail launch no hand kernel
+            _hold(not any(m.LAUNCHES for m in hand),
+                  f"{name}: a hand kernel ran", "5g")
+            counters.reset()
+            ms, resp = timed(one, SORT_MIN_REPS, SORT_WINDOW_S)
+            snap = counters.snapshot()
+            if mesh is False:
+                _hold(not any(k.startswith("mesh_") for k in snap),
+                      f"{name}: the pinned host loop ran the mesh", "5g")
+            else:
+                route = "mesh_search" if mesh else "mesh_fallback_total"
+                _hold(snap.get(route) == len(ms),
+                      f"{name}: not served by {route}: {snap}", "5g")
+            prof = profile_path(torch, lambda: [one() for _ in
+                                                range(SORT_PROFILED)])
+            label = {True: "mesh path", False: "host loop",
+                     None: "host loop (the mesh declines it)"}[mesh]
+            answers[mesh] = resp
+            what = f"{name} ({label})"
+            if want is not None:
+                _hold(resp["hits"]["total"] == n_all,
+                      f"{what}: total {resp['hits']['total']}", "5g")
+                _hold_hits(t, resp, want, keys, what)
+            lines.append(_route_line(np, name, label, ms, prof))
+            if name == "g_profile":
+                shards = resp["profile"]["shards"]
+                _hold(len(shards) == TAXI_SHARDS and all(
+                    s["tpu"]["segments"] == 1 and s["tpu"]["phases"][
+                        "device_execute_nanos"] > 0 for s in shards),
+                    f"{what}: profile {shards[:1]}", "5g")
+                ph = shards[0]["tpu"]["phases"]
+                lines.append(
+                    "[sort] g_profile, shard 0's phases (ms): " + ", ".join(
+                        f"{k[:-6]} {v / 1e6:.3f}" for k, v in ph.items()
+                        if v))
+        if mesh_too:
+            _hold(json.dumps(dict(answers[True], took=0), sort_keys=True)
+                  == json.dumps(dict(answers[False], took=0),
+                                sort_keys=True),
+                  f"{name}: the mesh's response differs from the host "
+                  f"loop's", "5g")
+        if name.startswith("f_"):
+            td, fare, tip = (t["trip_distance"].astype(f32),
+                             t["fare_amount"].astype(f32),
+                             t["tip_amount"].astype(f32))
+            if name == "f_min_score":
+                score = ((td >= f32(5)).astype(np.int64)
+                         + (fare >= f32(20)) + ((tip >= f32(3))
+                                                & t["tip_exists"]))
+                ok = score >= 2
+                total = int(ok.sum())
+                top = idx_all[ok][np.lexsort((idx_all[ok], -score[ok]))][
+                    :10]
+                _hold([h["_score"] for h in resp["hits"]["hits"]]
+                      == [float(score[i]) for i in top],
+                      f"{name}: scores", "5g")
+            else:
+                ok = (td >= f32(2)) & (td < f32(10))
+                total = int(ok.sum())
+                top = idx_all[ok][:10]
+                if name == "f_terminate_after":
+                    total = TAXI_SHARDS * 1000
+                    _hold(resp.get("terminated_early") is True,
+                          f"{name}: not terminated early", "5g")
+                else:
+                    _hold(resp["timed_out"] is False, f"{name}: timed out",
+                          "5g")
+            _hold(resp["hits"]["total"] == total,
+                  f"{name}: total {resp['hits']['total']} vs {total}", "5g")
+            _hold_hits(t, resp, top, None, name)
+    on_mesh(True)
+
+    # (b) search_after: AFTER_PAGES pages of AFTER_SIZE by pickup time
+    pick = t["pickup_datetime"]
+    order = np.argsort(pick, kind="stable")
+    walk_body = {"sort": [{"pickup_datetime": "asc"}], "size": AFTER_SIZE}
+    for mesh in (True, False):
+        on_mesh(mesh)
+        ms, got = [], []
+        counters.reset()
+        for _ in range(SORT_MIN_REPS // 2):
+            after, ids = None, []
+            for _ in range(AFTER_PAGES):
+                b = dict(walk_body, search_after=after) if after else \
+                    walk_body
+                a = time.perf_counter()
+                page = node.search("taxis", copy.deepcopy(b))
+                ms.append((time.perf_counter() - a) * 1e3)
+                ids += [h["_id"] for h in page["hits"]["hits"]]
+                after = page["hits"]["hits"][-1]["sort"]
+            got = ids
+        snap = counters.snapshot()
+        # ES's rule, in numpy: a page starts strictly after the cursor
+        want, pos = [], 0
+        for _ in range(AFTER_PAGES):
+            pg = order[pos: pos + AFTER_SIZE]
+            want += [str(int(i) % TAXI_DOCS) for i in pg]
+            pos = int(np.searchsorted(pick[order], pick[pg[-1]],
+                                      side="right"))
+        _hold(got == want, "b: the search_after walk is not numpy's", "5g")
+        reps = SORT_MIN_REPS // 2
+        _hold((snap.get("mesh_search", 0), snap.get("mesh_fallback_total",
+                                                    0))
+              == ((reps, (AFTER_PAGES - 1) * reps) if mesh else (0, 0)),
+              f"b: routes {snap}", "5g")
+
+        def walk():
+            after = None
+            for _ in range(AFTER_PAGES):
+                b = dict(walk_body, search_after=after) if after else \
+                    walk_body
+                after = node.search("taxis", copy.deepcopy(b))[
+                    "hits"]["hits"][-1]["sort"]
+
+        prof = profile_path(torch, walk)
+        lines.append(_route_line(
+            np, f"b_search_after ({AFTER_PAGES} pages of {AFTER_SIZE})",
+            f"page 1 on the mesh path, pages 2-{AFTER_PAGES} on the host "
+            f"loop"
+            if mesh else "host loop", np.array(ms), prof,
+            per_call=AFTER_PAGES))
+    on_mesh(True)
+
+    # (e) a score-ordered scroll and a scan: SCROLL_PAGES of SCROLL_SIZE
+    td = t["trip_distance"].astype(f32)
+    match = idx_all[(td >= f32(2)) & (td < f32(10))]
+    for kind in ("scroll", "scan"):
+        body = {"query": SCROLL_QUERY, "scroll": "1m", "size": SCROLL_SIZE}
+        if kind == "scan":
+            body["search_type"] = "scan"
+        opens, pages = [], []
+
+        def drain(timing):
+            a = time.perf_counter()
+            first = node.search("taxis", copy.deepcopy(body))
+            if timing:
+                opens.append((time.perf_counter() - a) * 1e3)
+            got = [h["_id"] for h in first["hits"]["hits"]]
+            while len(got) < SCROLL_PAGES * SCROLL_SIZE:
+                a = time.perf_counter()
+                page = scroll_next(first["_scroll_id"])
+                if timing:
+                    pages.append((time.perf_counter() - a) * 1e3)
+                got += [h["_id"] for h in page["hits"]["hits"]]
+            clear_scroll(first["_scroll_id"])
+            return first, got
+
+        for _ in range(SCROLL_DRAINS):
+            first, got = drain(True)
+        _hold(first["hits"]["total"] == match.size
+              and got == [str(int(i) % TAXI_DOCS)
+                          for i in match[: SCROLL_PAGES * SCROLL_SIZE]],
+              f"e: the {kind}'s pages are not numpy's", "5g")
+        _hold(kind != "scan" or not first["hits"]["hits"],
+              "e: a scan's first page has hits", "5g")
+        prof = profile_path(torch, lambda: drain(False))
+        busy = (f"device {prof[0]:.3f} ms a drain, {prof[1]} kernels, "
+                f"{prof[2]} copies in and {prof[3]} back; top: "
+                + "; ".join(prof[4][:3])) if prof else \
+            "device time not measured"
+        op, pg = np.array(opens), np.array(pages)
+        lines.append(
+            f"[sort] e_{kind} ({SCROLL_PAGES} pages of {SCROLL_SIZE}, "
+            f"{match.size} matches), host loop: open p50 "
+            f"{np.percentile(op, 50):.3f} ms (slowest {op.max():.3f}), next "
+            f"page p50 {np.percentile(pg, 50):.3f} ms, p99 "
+            f"{np.percentile(pg, 99):.3f} ms over {pg.size} pages, a drain "
+            f"{(op.sum() + pg.sum()) / SCROLL_DRAINS:.3f} ms; {busy}")
+
+    # (h) highlight on a small text index written through Node.index
+    rng = np.random.default_rng(SEED)
+    ts = time.perf_counter()
+    node.create_index("hl", {"settings": {"number_of_shards": 2},
+                             "mappings": {"properties": {
+                                 "body": {"type": "text",
+                                          "analyzer": "standard"}}}})
+    texts = {}
+    for i in range(HL_DOCS):
+        words = rng.choice(HL_WORDS, size=int(rng.integers(20, 41)))
+        texts[str(i)] = " ".join(words).capitalize() + "."
+        node.index("hl", str(i), {"body": texts[str(i)]})
+    node.refresh("hl")
+    hl_setup = time.perf_counter() - ts
+    hsvc = node.get_index("hl")
+    hl_body = {"query": {"match": {"body": "fox river"}}, "size": 10,
+               "highlight": {"fields": {"body": {"fragment_size": 60}}}}
+    res, b1 = {}, 0
+    for mesh in (True, False):
+        hsvc.settings["search"] = {"mesh": mesh}
+
+        def one():
+            return node.search("hl", copy.deepcopy(hl_body))
+
+        bm25_topk.LAUNCHES = 0
+        one()  # a pure-dense match: B1 on each shard's segment
+        _hold(bm25_topk.LAUNCHES == 2, f"h: B1 launched "
+              f"{bm25_topk.LAUNCHES} times, not once a shard", "5g")
+        b1 += bm25_topk.LAUNCHES
+        ms, resp = timed(one, SORT_MIN_REPS, SORT_WINDOW_S)
+        prof = profile_path(torch, lambda: [one() for _ in
+                                            range(SORT_PROFILED)])
+        res[mesh] = resp
+        lines.append(_route_line(np, f"h_highlight ({HL_DOCS} docs)",
+                                 "mesh path" if mesh else "host loop", ms,
+                                 prof))
+    _hold(json.dumps(dict(res[True], took=0), sort_keys=True)
+          == json.dumps(dict(res[False], took=0), sort_keys=True),
+          "h: the mesh's response differs from the host loop's", "5g")
+    n_match = sum(1 for s in texts.values()
+                  if re.search(r"\b(fox|river)\b", s.lower()))
+    _hold(res[True]["hits"]["total"] == n_match, "h: total", "5g")
+    for h in res[True]["hits"]["hits"]:
+        for frag in h["highlight"]["body"]:
+            plain = frag.replace("<em>", "").replace("</em>", "")
+            tagged = re.findall(r"<em>(.*?)</em>", frag)
+            _hold(plain in texts[h["_id"]] and tagged and all(
+                w.lower() in ("fox", "river") for w in tagged)
+                and not re.search(r"\b(fox|river)\b", re.sub(
+                    r"<em>.*?</em>", "", frag).lower()),
+                f"h: fragment {frag!r}", "5g")
+    for line in lines:
+        log(line)
+    log(f"[sort] every body held against numpy on every route it takes "
+        f"(order, sort values and totals exact), the mesh's responses "
+        f"equal to the host loop's; the highlight index ({HL_DOCS} docs of "
+        f"20-40 words, two shards) took {hl_setup:.1f} s to write")
+    log(f"[sort] phase 5g took {time.perf_counter() - t0:.1f} s; B1 "
+        f"launches in (h)'s two counted requests: {b1}")
+    return b1
 
 
 def _cprofile_rows(st, key, n, per=1):
@@ -3143,7 +3554,11 @@ def main() -> int:
     mesh_node.close()
     del corpus, sift, read_node, mesh_node, shard_text
     torch.cuda.empty_cache()
-    phase_aggs(torch, np, dev, card)
+    taxi_node, taxis = phase_aggs(torch, np, dev, card)
+    launches["bm25_dense_topk"] += phase_sort(torch, np, dev, card,
+                                              taxi_node, taxis)
+    taxi_node.close()
+    del taxi_node, taxis
     torch.cuda.empty_cache()
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card),
               "knn_topk": timing_knn(torch, dev, card),

@@ -29,6 +29,7 @@ import numpy as np
 
 from elasticsearch_tpu_torch.index.doc_parser import ParsedDocument
 from elasticsearch_tpu_torch.index.mappings import Mappings
+from elasticsearch_tpu_torch.ops.scoring import f64_order_keys
 from elasticsearch_tpu_torch.resources.residency import Residency
 from elasticsearch_tpu_torch.utils.shapes import pad_to, pow2_bucket
 
@@ -222,6 +223,21 @@ class KeywordColumn:
 
 
 @dataclass
+class SortKeys:
+    """A doc-value field's sort mirror on the device: per doc an i64 key
+    that ranks the value the fetch reports for the doc as its sort value
+    (``search/service.py::_sort_value``) in ascending order, built once
+    per (segment, field) and charged to the ``fielddata`` breaker."""
+
+    key: Any  # i64[max_docs] device; 0 where the value is missing
+    exists: Any  # bool[max_docs] device
+    kind: str  # "int" (the value), "f64" (its order key), "rank"
+    lo: int = 0  # the least and greatest key of a present value
+    hi: int = 0
+    terms: Optional[List[str]] = None  # "rank": the sorted terms
+
+
+@dataclass
 class VectorColumn:
     """A dense_vector field: the slab and, built once on first use (at
     freeze when the mapping asks for ANN), its IVF and PQ tiers."""
@@ -321,6 +337,8 @@ class TpuSegment:
         self._live_dev = residency.device_put(self._live_host)
         self._live_dirty = False
         self.deleted_count = int(num_docs - self._live_host[:num_docs].sum())
+        self._sort_keys: Dict[str, Optional[SortKeys]] = {}
+        self._sort_lock = threading.Lock()
 
     @property
     def device(self):
@@ -349,6 +367,14 @@ class TpuSegment:
     def live_docs(self) -> int:
         return self.num_docs - self.deleted_count
 
+    def sort_keys(self, field: str) -> Optional[SortKeys]:
+        """The field's sort mirror (``SortKeys``), built on first use;
+        None when the segment has no doc values for it."""
+        with self._sort_lock:
+            if field not in self._sort_keys:
+                self._sort_keys[field] = _build_sort_keys(self, field)
+            return self._sort_keys[field]
+
     def memory_bytes(self) -> int:
         """Always-resident device bytes (live mask, postings, IVF
         quantizers): the ``segments`` breaker charge at freeze. Vector
@@ -360,6 +386,51 @@ class TpuSegment:
         for vc in self.vectors.values():
             total += vc.resident_bytes()
         return total
+
+
+def _build_sort_keys(seg: TpuSegment, field: str) -> Optional[SortKeys]:
+    """A numeric column's keys are its exact values (integers) or their
+    f64 order keys; a keyword's are the rank, among the segment's sorted
+    terms, of a doc's first value (``host_values[i][0]``, the one the
+    fetch reports, also for a multi-valued doc)."""
+    col = seg.numerics.get(field)
+    terms = None
+    if col is not None:
+        exists = np.asarray(col.exists_host, bool)
+        exact = np.asarray(col.exact)
+        if exact.dtype.kind == "i":
+            kind, key = "int", exact.astype(np.int64)
+        else:
+            kind, key = "f64", f64_order_keys(exact.astype(np.float64))
+        dev_exists = col.exists
+    else:
+        kw = seg.keywords.get(field)
+        if kw is None:
+            return None
+        kind = "rank"
+        exists = np.asarray(kw.exists_host, bool)
+        inv = seg.inverted.get(field)
+        ords = np.asarray(kw.ords_host)
+        vals = kw.host_values
+        names = list(inv.terms) if inv is not None else sorted(
+            {v[0] for v in vals if v})
+        order = sorted(range(len(names)), key=names.__getitem__)
+        terms = [names[i] for i in order]
+        rank = np.zeros(max(len(names), 1), np.int64)
+        rank[order] = np.arange(len(names))
+        single = ords >= 0
+        key = np.where(single, rank[np.maximum(ords, 0)], 0)
+        at = {t: i for i, t in enumerate(terms)}
+        for i in np.nonzero(exists & ~single)[0].tolist():
+            key[i] = at[vals[i][0]]  # a multi-valued doc: its first value
+        dev_exists = kw.exists
+    key = np.where(exists, key, 0).astype(np.int64)
+    present = key[exists]
+    return SortKeys(
+        key=seg.residency.put_array(key, label=f"sort:{field}"),
+        exists=dev_exists, kind=kind,
+        lo=int(present.min()) if present.size else 0,
+        hi=int(present.max()) if present.size else 0, terms=terms)
 
 
 # -- constructors shared by SegmentBuilder.freeze and index/convert.py ------

@@ -30,6 +30,9 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+#: kernel libraries built or loaded by this process (the profiler files
+#: a device call during which it moved under ``device_compile``)
+LOADS = 0
 
 
 def _nvcc() -> str:
@@ -94,8 +97,10 @@ def library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
+    global LOADS
     with _lock:
         if name not in _libs:
             _finish(name, _start(name))
             _libs[name] = ctypes.CDLL(_target(name)[1])
+            LOADS += 1
         return _libs[name]

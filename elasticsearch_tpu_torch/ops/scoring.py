@@ -20,8 +20,17 @@ waits on the card. The ``*_segment`` forms are one table (the host loop),
 ``bm25_score_batch`` many host tables in one copy (batched ``_msearch``),
 and ``bm25_hybrid_topk_batch`` adds the f32 product ``qw[Q, F] @
 impact`` and takes each query's top k and hit count.
+
+Field sort: every sort key of a segment becomes one or two int64 lanes
+in an order-preserving key space (``sort_lanes``), and ``sort_topk``
+takes the exact top k of a mask by the lanes' lexicographic order, then
+the doc id; ``after_mask`` is ``search_after``'s strict "after" in the
+same space (``lane_cursor`` places the cursor).
 """
 from __future__ import annotations
+
+import math
+from bisect import bisect_left
 
 import numpy as np
 import torch
@@ -331,3 +340,148 @@ def bucket_count(bucket_ids, mask, *, num_buckets: int):
                       device=ids.device)
     out.index_add_(0, ids, mask.reshape(-1).to(torch.int64))
     return out.view(num_buckets, lanes).sum(1)
+
+
+# ---------------------------------------------------------------------------
+# exact field sort
+# ---------------------------------------------------------------------------
+
+I64_MIN = -(1 << 63)
+I64_MAX = (1 << 63) - 1
+#: the sentinels of a single-lane key: a missing value sorts first or
+#: last, and in the first lane a doc outside the selection after both.
+#: A lane holds them only when every present value lies strictly between
+#: MISSING_FIRST and MISSING_LAST (``lanes_safe``)
+MISSING_FIRST = I64_MIN
+MISSING_LAST = I64_MAX - 1
+UNMATCHED = I64_MAX
+
+
+def f64_order_keys(x) -> np.ndarray:
+    """i64 keys in the order of the f64 values ``x`` (-0.0 as 0.0): the
+    bits, with a negative value's other 63 bits flipped."""
+    b = (np.asarray(x, np.float64) + 0.0).view(np.int64)
+    return np.where(b < 0, b ^ np.int64(I64_MAX), b)
+
+
+def f32_order_keys(x):
+    """i64 keys in the order of the f32 tensor ``x`` (-0.0 as 0.0)."""
+    b = (x + 0.0).view(torch.int32).to(torch.int64)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
+def lanes_safe(lo: int, hi: int, desc: bool) -> bool:
+    """Whether keys in [lo, hi] stay clear of the sentinels in the order
+    ``desc`` asks for (a descending lane holds ~key)."""
+    if desc:
+        lo, hi = ~hi, ~lo
+    return lo > MISSING_FIRST and hi < MISSING_LAST
+
+
+def sort_lanes(key, exists, desc: bool, missing_first: bool,
+               safe: bool) -> list:
+    """The i64 lanes of one sort key: ``key`` (ascending key space) where
+    ``exists``, ~key for a descending order, and the missing docs first
+    or last whatever the order. One lane with sentinels when ``safe``,
+    else a rank lane (0 missing first, 1 present, 2 missing last) and
+    the value lane."""
+    v = torch.bitwise_not(key) if desc else key
+    if safe:
+        return [torch.where(exists, v, MISSING_FIRST if missing_first
+                            else MISSING_LAST)]
+    rank = torch.where(exists, 1, 0 if missing_first else 2)
+    return [rank.to(torch.int64), torch.where(exists, v, 0)]
+
+
+def _as_float(c) -> float:
+    try:
+        return float(c)
+    except OverflowError:  # an int past the f64 range
+        return math.inf if c > 0 else -math.inf
+
+
+def value_bounds(c, kind: str, terms=None):
+    """(lo, exact, hi) for a search_after value ``c`` in a key space: the
+    greatest key at or below c, whether it equals c, and the least key
+    at or above it. ``kind``: "int" (the value itself, unbounded),
+    "f64"/"f32" (``f*_order_keys``), "rank" (c's place among the sorted
+    ``terms``)."""
+    if kind == "rank":
+        i = bisect_left(terms, c)
+        present = i < len(terms) and terms[i] == c
+        return (i if present else i - 1), present, i
+    if kind == "int":
+        if isinstance(c, float) and math.isinf(c):
+            far = I64_MAX + 1 if c > 0 else I64_MIN - 1
+            return far, False, far
+        lo, hi = math.floor(c), math.ceil(c)
+        return lo, lo == c, hi
+    f = _as_float(c)
+    ft = np.float64 if kind == "f64" else np.float32
+    with np.errstate(over="ignore"):
+        v = ft(f)
+    lo = v if float(v) <= c else np.nextafter(v, ft(-np.inf))
+    hi = v if float(v) >= c else np.nextafter(v, ft(np.inf))
+    if kind == "f64":
+        keys = f64_order_keys(np.asarray([lo, hi], np.float64))
+    else:
+        keys = f32_order_keys(torch.tensor([lo, hi], dtype=torch.float32))
+    return int(keys[0]), float(lo) == c, int(keys[1])
+
+
+def lane_cursor(c, kind: str, desc: bool, missing_first: bool, safe: bool,
+                terms=None) -> list:
+    """The cursor of one sort key over its ``sort_lanes``: a (position,
+    exact) pair a lane, where a doc comes after the cursor on the lane
+    when its key is greater than the position and ties with it when
+    exact and equal. ``c`` None is a missing cursor value."""
+    if c is None:
+        if safe:
+            return [(MISSING_FIRST if missing_first else MISSING_LAST, True)]
+        return [(0 if missing_first else 2, True), (0, True)]
+    lo, exact, hi = value_bounds(c, kind, terms)
+    p = ~hi if desc else lo
+    if safe:
+        # no present value reaches a sentinel: a cursor beyond every
+        # value sits just inside them, ranking the missing docs right
+        if p <= MISSING_FIRST:
+            return [(MISSING_FIRST, False)]
+        if p >= MISSING_LAST - 1:
+            return [(MISSING_LAST - 1, exact and p == MISSING_LAST - 1)]
+        return [(p, exact)]
+    if p < I64_MIN:
+        return [(0, False), (0, False)]
+    if p > I64_MAX:
+        return [(1, False), (0, False)]
+    return [(1, True), (p, exact)]
+
+
+def after_mask(lanes, cursor):
+    """bool: the docs whose lane tuple comes strictly after ``cursor``
+    (a (position, exact) pair a lane, ``lane_cursor``'s)."""
+    after = torch.zeros(lanes[0].shape, dtype=torch.bool,
+                        device=lanes[0].device)
+    tie = None
+    for lane, (pos, exact) in zip(lanes, cursor):
+        gt = lane > pos
+        after = after | (gt if tie is None else tie & gt)
+        if not exact:
+            break
+        eq = lane == pos
+        tie = eq if tie is None else tie & eq
+    return after
+
+
+def sort_topk(lanes, mask, k: int):
+    """i64[..., k]: along the last dim, the docs of ``mask`` in the
+    lexicographic order of the i64 ``lanes``, then doc id, the first k
+    (then the unmatched docs, when fewer match). Stable sorts from the
+    last lane to the first; the first lane moves the unmatched docs past
+    every key (``UNMATCHED``)."""
+    keys = [torch.where(mask, lanes[0], UNMATCHED)] + list(lanes[1:])
+    perm = None
+    for lane in reversed(keys):
+        x = lane if perm is None else lane.gather(-1, perm)
+        p = torch.sort(x, dim=-1, stable=True).indices
+        perm = p if perm is None else perm.gather(-1, p)
+    return perm[..., :k]

@@ -32,9 +32,17 @@ adds one ``AggTermsPrim`` per agg, and the round counts each slot's
 terms over its match mask on the card; any other agg tree asks for the
 round's ``[S, D]`` match mask (``want_mask``), which the host-side
 collectors read. Either way the round takes the generic route, never
-kernel B1, which makes no mask. The sort prims (``SortColPrim``,
-``SortOrdPrim``) come with ROADMAP A6b; phrase, dis_max, boosting,
-function_score and the term expansions with A9.
+kernel B1, which makes no mask.
+
+A field-sorted request adds one sort prim a key (``SortColPrim`` for a
+numeric or date column, ``SortOrdPrim`` for a keyword): each slot's
+order-preserving int64 keys, the segment's own sort mirror
+(``TpuSegment.sort_keys``), and the round selects each slot's exact top
+k by the full key tuple (``ops/scoring.py::sort_topk``); a keyword's
+keys rank its terms inside the slot's segment, and the slots' candidates
+merge on the host by their values (``mesh_service``). ``_score`` as any
+sort key declines (the host loop serves it). Phrase, dis_max, boosting,
+function_score and the term expansions come with ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -194,6 +202,52 @@ def _tables(per_slot, S: int):
         h_lens[si, : len(ln)] = ln
         h_ws[si, : len(ws)] = ws
     return [h_starts, h_lens, h_ws], h_lens.astype(np.int64).sum(0)
+
+
+class _SortPrim(DataPrim):
+    """One sort key's inputs: each slot's i64 keys and exists [S, D]
+    (its segment's sort mirror, stacked; zeros and False for a slot
+    without it); static: whether every slot's keys clear the missing
+    sentinels in this order (``scoring.lanes_safe``)."""
+
+    label = "sort"
+
+    def __init__(self, field: str, desc: bool):
+        self.field = field
+        self.desc = desc
+
+    def build(self, seg_row, ctxs, D, data):
+        f = self.field
+
+        def mirror(attr):
+            def get(seg):
+                m = seg.sort_keys(f)
+                return None if m is None else getattr(m, attr)
+            return get
+
+        key = (f, _ids(seg_row), D)
+        safe = all(S.lanes_safe(m.lo, m.hi, self.desc)
+                   for m in (s.sort_keys(f) for s in seg_row
+                             if s is not None) if m is not None)
+        return [data.stacked((self.label,) + key, mirror("key"), D, 0,
+                             torch.int64),
+                data.stacked((self.label + "exists",) + key,
+                             mirror("exists"), D, False, torch.bool)], \
+            (safe,)
+
+
+class SortColPrim(_SortPrim):
+    """A numeric, date or ip sort key: a column's exact values (integers)
+    or f64 order keys."""
+
+    label = "sortcol"
+
+
+class SortOrdPrim(_SortPrim):
+    """A keyword sort key: the rank of a doc's first value among its
+    segment's sorted terms (slot-local; the merge compares strings)."""
+
+    label = "sortord"
 
 
 class TGroupPrim(DataPrim):
@@ -734,12 +788,15 @@ class CompiledMeshQuery:
     (the host loop's ``_fused_eligible_terms`` shape) and nothing reads
     the mask, else None. ``agg_prims`` lists (agg name, AggTermsPrim
     index) of the keyword terms aggs the round counts; ``want_mask``
-    asks the round for its [S, D] match mask (host-side collectors)."""
+    asks the round for its [S, D] match mask (host-side collectors);
+    ``sort`` lists (sort prim index, descending, missing first) of a
+    field-sorted request's keys, in order."""
 
     def __init__(self, root: Emit, prims: List[DataPrim], live: int, D: int,
                  fused: Optional[int] = None,
                  agg_prims: Optional[List[Tuple[str, int]]] = None,
-                 want_mask: bool = False):
+                 want_mask: bool = False,
+                 sort: Optional[List[Tuple[int, bool, bool]]] = None):
         self.root = root
         self.prims = prims
         self.live = live
@@ -747,6 +804,7 @@ class CompiledMeshQuery:
         self.fused = fused
         self.agg_prims = agg_prims or []
         self.want_mask = want_mask
+        self.sort = sort or []
 
 
 class MeshQueryCompiler:
@@ -774,20 +832,39 @@ class MeshQueryCompiler:
         return self._postings[field]
 
     def compile(self, query, agg_specs: Optional[list] = None,
-                want_mask: bool = False) -> CompiledMeshQuery:
+                want_mask: bool = False,
+                sort_spec: Optional[list] = None) -> CompiledMeshQuery:
         self._live = self._add(LivePrim())
         self._nd = self._add(NumDocsPrim())
         root = self._c(query)
         agg_prims = [(name, self._add(AggTermsPrim(field)))
                      for name, field in (agg_specs or [])]
+        sort = [self._sort_key(s) for s in (sort_spec or [])]
         # a scores-mode hybrid root is a match (operator or, no
         # minimum_should_match) or a term on a text field with a positive
         # boost: the host loop's _fused_eligible_terms shape
         fused = root.prim if isinstance(root, ETermGroupHybrid) \
             and root.mode == "scores" and not agg_prims \
-            and not want_mask else None
+            and not want_mask and not sort else None
         return CompiledMeshQuery(root, self.prims, self._live, self.D, fused,
-                                 agg_prims, want_mask)
+                                 agg_prims, want_mask, sort)
+
+    def _sort_key(self, s: dict) -> Tuple[int, bool, bool]:
+        """A sort key's prim, or MeshCompileError: ``_score`` as any key
+        (a sorted round carries no scores), ``_geo_distance``, and a
+        field the mapping gives no numeric (ip included) or keyword doc
+        values (the reference declines an ip primary too)."""
+        field = s["field"]
+        if field in ("_score", "_geo_distance"):
+            raise MeshCompileError(f"{field} sort key")
+        fm = self.mappings.get(field)
+        column = fm is not None and (fm.is_numeric or fm.type == "ip")
+        if not (column or fm is not None and fm.is_keyword):
+            raise MeshCompileError(f"unsortable sort field [{field}]")
+        desc = s["order"] == "desc"
+        prim = (SortColPrim if column else SortOrdPrim)(field, desc)
+        return (self._add(prim), desc,
+                str(s.get("missing", "_last")) == "_first")
 
     # -- tree walk (mirrors search/queries.py execute semantics) -------------
 

@@ -33,7 +33,10 @@ Routes inside a round:
   tensors, then one stable top-k per slot; a request with aggregations
   always does, and adds to the round each keyword terms agg's per-slot
   counts (in the same copy back) or keeps the round's [S, D] match mask
-  on the card for the host-side collectors;
+  on the card for the host-side collectors; a field-sorted request
+  selects each slot's exact top k by its sort keys (``sort_topk``) and
+  copies back every slot's candidates and match count, which the mesh
+  service merges by value;
 - ``search_knn`` / ``search_maxsim``: kernel B2 per slot at k' = 4k in
   bf16, then an f32 re-rank (``exact_rescore_topk``), MaxSim's per-doc
   max (``merge_candidate_topk``), and the merge across slots.
@@ -59,6 +62,7 @@ from elasticsearch_tpu_torch.ops.bm25_topk import unpack_topk
 from elasticsearch_tpu_torch.ops.knn import (exact_rescore_topk, knn_topk,
                                              merge_candidate_topk)
 from elasticsearch_tpu_torch.ops.scoring import (bm25_score_batch,
+                                                sort_lanes, sort_topk,
                                                 topk_stable)
 from elasticsearch_tpu_torch.parallel.compiler import (HybridTGroupPrim,
                                                        LivePrim,
@@ -275,7 +279,7 @@ class MeshSearchExecutor:
                 for r in range(max_rounds)]
 
     def _compile(self, query, mappings, analysis, seg_row, agg_specs=None,
-                 want_mask: bool = False):
+                 want_mask: bool = False, sort_spec=None):
         D = pow2_bucket(max((s.max_docs if s is not None else 1)
                             for s in seg_row))
 
@@ -290,7 +294,7 @@ class MeshSearchExecutor:
 
         return MeshQueryCompiler(mappings, analysis, D=D,
                                  has_dense=has_dense).compile(
-                                     query, agg_specs, want_mask)
+                                     query, agg_specs, want_mask, sort_spec)
 
     def _build_round(self, compiled, mappings, analysis, seg_row, lut_shard,
                      k: int) -> _Round:
@@ -390,13 +394,25 @@ class MeshSearchExecutor:
             env = _Env(rd.items)
             scores, mask = compiled.root.sm(env, rd.meta)
             mask = mask & env[compiled.live][0]
+            counts = [agg_term_counts(mask, *env[p], rd.meta[p][0])
+                      .reshape(-1).view(torch.int32)
+                      for _name, p in compiled.agg_prims]
+            if compiled.sort:
+                # each slot's top kk by its keys; every slot's count
+                lanes = []
+                for p, desc, first in compiled.sort:
+                    key, exists = env[p]
+                    lanes += sort_lanes(key, exists, desc, first,
+                                        rd.meta[p][0])
+                ids = sort_topk(lanes, mask, kk).to(torch.int32)
+                return torch.cat([ids.reshape(-1),
+                                  mask.sum(1).view(torch.int32)] + counts
+                                 ).cpu().numpy(), \
+                    mask if compiled.want_mask else None
             masked = torch.where(mask, scores, NEG_INF)
             sv, si = torch.sort(masked, dim=1, descending=True, stable=True)
             vals, ids = sv[:, :kk], si[:, :kk].to(torch.int32)
             totals = mask.sum(1)
-            counts = [agg_term_counts(mask, *env[p], rd.meta[p][0])
-                      .reshape(-1).view(torch.int32)
-                      for _name, p in compiled.agg_prims]
             if not compiled.want_mask:
                 mask = None
         else:
@@ -436,7 +452,8 @@ class MeshSearchExecutor:
     def _decode_round(out: np.ndarray, rd: _Round, lut_shard, lut_ord,
                       merged: list, seg_row, agg_rounds: dict) -> int:
         """Candidates (score, shard, seg_ord, local) of one round into
-        ``merged``, and each non-empty slot's count vector of every terms
+        ``merged`` (a sorted round's: each slot's, in its key order, the
+        score NaN), and each non-empty slot's count vector of every terms
         agg into ``agg_rounds`` (agg name → [(shard, seg_ord, segment,
         i64[vmax + 1])]); returns the round's exact hit count."""
         if len(rd.fused) == 1 and rd.fused[0] is not None:
@@ -447,15 +464,26 @@ class MeshSearchExecutor:
                 vals[0][ok].tolist(), ids[0][ok].tolist())]
             return int(total[0])
         kk, n = rd.kk, len(rd.fused)
-        gvals = out[:kk].view(np.float32)
-        ok = np.isfinite(gvals)
-        glocal = out[2 * kk: 3 * kk] if n > 1 else out[kk: 2 * kk]
-        gslot = out[kk: 2 * kk][ok].tolist() if n > 1 \
-            else [0] * int(ok.sum())
-        merged += [(v, lut_shard[sl], lut_ord[sl], lc) for v, sl, lc in zip(
-            gvals[ok].tolist(), gslot, glocal[ok].tolist())]
-        end = (3 if n > 1 else 2) * kk + 2
-        total = int(out[end - 2: end].view(np.int64)[0])
+        if rd.compiled.sort:
+            ids = out[: n * kk].reshape(n, kk)
+            end = n * kk + 2 * n
+            counts = out[n * kk: end].view(np.int64)
+            for si, seg in enumerate(seg_row):
+                if seg is not None:
+                    merged += [(NEG_INF, lut_shard[si], lut_ord[si], lc)
+                               for lc in ids[si, : min(kk, int(counts[si]))]
+                               .tolist()]
+            total = int(counts.sum())
+        else:
+            gvals = out[:kk].view(np.float32)
+            ok = np.isfinite(gvals)
+            glocal = out[2 * kk: 3 * kk] if n > 1 else out[kk: 2 * kk]
+            gslot = out[kk: 2 * kk][ok].tolist() if n > 1 \
+                else [0] * int(ok.sum())
+            merged += [(v, lut_shard[sl], lut_ord[sl], lc) for v, sl, lc
+                       in zip(gvals[ok].tolist(), gslot, glocal[ok].tolist())]
+            end = (3 if n > 1 else 2) * kk + 2
+            total = int(out[end - 2: end].view(np.int64)[0])
         for name, p in rd.compiled.agg_prims:
             width = rd.meta[p][0] + 1
             c = out[end: end + 2 * n * width].view(np.int64).reshape(n, width)
@@ -469,7 +497,7 @@ class MeshSearchExecutor:
 
     def search_dsl(self, query, mappings, analysis, k: int, shards=None,
                    memo_key: Optional[Callable[[], Optional[bytes]]] = None,
-                   agg_specs=None, want_mask: bool = False):
+                   agg_specs=None, want_mask: bool = False, sort_spec=None):
         """Execute a parsed query over the mesh: (cands, totals,
         agg_rounds, mask_rounds), cands a list of (score, shard, seg_ord,
         local) for the global top k in the host loop's order, totals the
@@ -478,7 +506,10 @@ class MeshSearchExecutor:
         name to [(shard, seg_ord, segment, i64 counts)], a vector per
         segment. With ``want_mask``, mask_rounds lists (shard, seg_ord,
         segment, bool[max_docs] on the card), each segment's match mask
-        (live docs only) for the host-side collectors. Raises
+        (live docs only) for the host-side collectors. With
+        ``sort_spec`` (parsed sort keys), cands holds every segment's top
+        k by its keys, each segment's in order, for the caller's merge by
+        value. Raises
         MeshCompileError, before anything is launched, for a query the
         compiler does not take.
 
@@ -493,7 +524,7 @@ class MeshSearchExecutor:
         seg_rows = [[e[2] if e is not None else None for e in row]
                     for row in rows]
         compiled = [self._compile(query, mappings, analysis, seg_row,
-                                  agg_specs, want_mask)
+                                  agg_specs, want_mask, sort_spec)
                     for seg_row in seg_rows]
         key = memo_key() if memo_key is not None else None
         plans = []
@@ -532,6 +563,8 @@ class MeshSearchExecutor:
                 mask_rounds.extend(
                     (lut_shard[si], lut_ord[si], seg, mask[si, : seg.max_docs])
                     for si, seg in enumerate(seg_row) if seg is not None)
+        if sort_spec:
+            return merged, totals, agg_rounds, mask_rounds
         # the host loop's order: per shard (-score, seg, local) cut at k
         # (query_phase), then globally (-score, shard, local), stable
         # (search_shards)

@@ -25,8 +25,14 @@ cross-shard ``psum`` merge of the integer lanes waits for a mesh of
 several cards (ROADMAP A4). A failure on the way raises: nothing falls
 back to the host loop on the card.
 
-Sort staging and the rest of the request come with ROADMAP A6b (the
-port's ``check_body`` refuses those keys today).
+Field sort: each slot's round selects its segment's exact top k by the
+sort keys on the card (``executor.search_dsl`` with ``sort_spec``), and
+the candidates merge here by their value tuples (a keyword's by its
+string, from ``host_values``) in ``(tuple, shard, segment, local)``
+order, the host loop's, so the two routes answer byte for byte. The keys
+in ``_UNSUPPORTED_KEYS`` (scroll, search_after, min_score, profile,
+terminate_after, timeout, ...) keep a request on the host loop, as in
+the reference; highlight is a fetch-phase key and rides either route.
 """
 from __future__ import annotations
 
@@ -45,7 +51,9 @@ from elasticsearch_tpu_torch.search.aggregations import (parse_aggs,
 from elasticsearch_tpu_torch.search.aggregations.bucket import \
     TermsAggregator
 from elasticsearch_tpu_torch.search.queries import _batch_terms, parse_query
-from elasticsearch_tpu_torch.search.service import ShardDoc, check_body
+from elasticsearch_tpu_torch.search.service import (ShardDoc, _parse_sort,
+                                                    _sort_key, _sort_value,
+                                                    check_body)
 from elasticsearch_tpu_torch.utils.errors import CircuitBreakingException
 
 # host-loop-only request features: their presence skips the mesh path
@@ -138,12 +146,14 @@ def _try_mesh_search(svc, searchers, body: dict):
     body = body or {}
     check_body(body)  # the host loop's typed refusal, raised here too
     for key in _UNSUPPORTED_KEYS:
-        if body.get(key):
+        # present at all (a min_score or timeout of 0 too): the host loop
+        if body.get(key) is not None and body.get(key) is not False:
             return None
     size = int(body.get("size", 10))
     frm = int(body.get("from", 0))
     if frm + size > 10_000:
         return None  # the host loop raises the max_result_window error
+    sort_spec = _parse_sort(body.get("sort"))
     query = parse_query(body.get("query"))
     aggs = parse_aggs(body.get("aggs") or body.get("aggregations"))
     # keyword terms aggs without subs count on the card in the round; any
@@ -161,14 +171,18 @@ def _try_mesh_search(svc, searchers, body: dict):
             memo_key=lambda: _canonical(body),
             agg_specs=[(a.name, a.body["field"]) for a in aggs]
             if device_aggs else None,
-            want_mask=bool(aggs) and not device_aggs)
+            want_mask=bool(aggs) and not device_aggs,
+            sort_spec=sort_spec or None)
     except MeshCompileError as e:
         return _BY_DESIGN if e.by_design else None
 
-    docs = [ShardDoc(sh, shard_segs[sh][seg_ord], local, val)
-            for val, sh, seg_ord, local in cands]
-    page = docs[frm: frm + size]
-    max_score = max(v for v, *_ in cands) if cands else None
+    if sort_spec:
+        page = _sorted_page(cands, shard_segs, sort_spec, k)[frm: frm + size]
+        max_score = None
+    else:
+        page = [ShardDoc(sh, shard_segs[sh][seg_ord], local, val)
+                for val, sh, seg_ord, local in cands][frm: frm + size]
+        max_score = max(v for v, *_ in cands) if cands else None
 
     # fetch phase per shard, then restore the global order
     by_shard: Dict[int, List[ShardDoc]] = {}
@@ -203,6 +217,20 @@ def _try_mesh_search(svc, searchers, body: dict):
                     mask_rounds, key=lambda r: (r[0], r[1]))]
         response["aggregations"] = reduce_aggs(aggs, partials)
     return response
+
+
+def _sorted_page(cands, shard_segs, sort_spec, k: int) -> List[ShardDoc]:
+    """The global top ``k`` of the slots' sorted candidates by (value
+    tuple, shard, segment, local), the host loop's merge order, each with
+    its sort values."""
+    docs = []
+    for _v, sh, seg_ord, local in cands:
+        seg = shard_segs[sh][seg_ord]
+        sv = tuple(_sort_value(seg, s, local, None) for s in sort_spec)
+        docs.append((_sort_key(sv, sort_spec), sh, seg_ord, local, seg, sv))
+    docs.sort(key=lambda t: t[:4])
+    return [ShardDoc(sh, seg, local, float("nan"), sv)
+            for _key, sh, _o, local, seg, sv in docs[:k]]
 
 
 def _terms_agg_eligible(agg, mappings) -> bool:

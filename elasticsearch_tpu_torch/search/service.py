@@ -1,53 +1,119 @@
 """Search service: query-then-fetch over a shard's segments.
 
-Port of the host loop of elasticsearch_tpu/search/service.py for the
-request shape of the slice: a query with ``from``/``size``, ``_source``
-on, off or filtered, ``version``, ``rescore`` and ``aggs`` /
-``aggregations`` (``search/aggregations/``). Sort, search_after,
-min_score, scroll, highlight, profile, terminate_after, timeout and the
-other request keys come with ROADMAP A6b and raise a typed
-SearchParseException.
+Port of the host loop of elasticsearch_tpu/search/service.py. A request
+may carry ``query``, ``from``/``size``, ``_source``, ``version``,
+``rescore``, ``aggs`` / ``aggregations`` (``search/aggregations/``),
+``sort`` and ``search_after``, ``min_score``, ``scroll`` (with
+``search_type: scan``), ``highlight`` (``search/highlight.py``),
+``profile`` (``tracing/profiler.py``), ``terminate_after`` and
+``timeout``; any other key raises a typed SearchParseException that
+names the ROADMAP item bringing it (``check_body``).
 
 Per segment the query runs the fused dense-impact top-k (kernel B1) when
-the query is a pure-dense term group and nothing rescores or aggregates,
-else the generic score/mask tensors followed by a masked top-k; the
-aggregations collect each segment's partial over the same mask that
-counts ``hits.total``, and ``search_shards`` reduces the partials of
-every shard in shard and segment order. Candidates merge
-per shard by ``(-score, seg_id, local_id)``; a ``hybrid`` query's stage-2
-re-rank and then the rescorers re-order the merged window; shards merge
-by ``(-score, shard_ord, local_id)``, the reference's orders.
+the query is a pure-dense term group and nothing else reads the scores
+or the mask (``fused_ok``, the reference's condition), else the generic
+score/mask tensors followed by a masked top-k; the aggregations collect
+each segment's partial over the same mask that counts ``hits.total``.
+Candidates merge per shard by ``(-score, seg_id, local_id)``; a
+``hybrid`` query's stage-2 re-rank and then the rescorers re-order the
+merged window; shards merge by ``(-score, shard_ord, local_id)``, the
+reference's orders.
+
+Field sort is exact. Every sort key becomes int64 lanes in an
+order-preserving key space on the card (``ops/scoring.py``: a long's
+value, a double's f64 order bits, a keyword's rank among the segment's
+sorted terms, the f32 score's bits; a missing value below or above every
+value as ``missing`` says), and ``sort_topk`` selects each segment's top
+k by the full tuple, then the local id; ``search_after`` is a strict
+"after" mask in the same space. The reference preselects on the primary
+key alone, in f32, and drops the docs missing it (ROADMAP C, "Reference
+fault, field sort"); wherever that preselect is right the two agree.
+Segments then merge by the value tuple (``_sort_key``) in segment order
+and shards in shard order: ``(tuple, shard, segment, local)``.
+
+A scroll snapshots its whole match set when it opens (point in time: the
+snapshot holds the segments and their doc lists, so later writes and
+deletes leave its pages as they were); a score-ordered one as compact
+arrays, ordered on the card by one stable sort a segment; a sorted one
+as its complete merged candidate list. ``scroll_next`` and
+``clear_scroll`` page and drop it.
 """
 from __future__ import annotations
 
 import time
+import uuid
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from elasticsearch_tpu_torch.ops import scoring as S
 from elasticsearch_tpu_torch.ops.scoring import count_mask, topk_with_mask
 from elasticsearch_tpu_torch.search.aggregations import (parse_aggs,
                                                          reduce_aggs,
                                                          run_aggs)
+from elasticsearch_tpu_torch.search.aggregations.base import a9_refusal
 from elasticsearch_tpu_torch.search.context import GlobalStats, SegmentContext
+from elasticsearch_tpu_torch.search.highlight import (extract_query_terms,
+                                                      highlight_field)
 from elasticsearch_tpu_torch.search.hybrid import (HybridQuery,
                                                    apply_hybrid_rerank)
 from elasticsearch_tpu_torch.search.queries import fused_bm25_topk, parse_query
 from elasticsearch_tpu_torch.search.rescore import apply_rescore, parse_rescore
-from elasticsearch_tpu_torch.utils.errors import SearchParseException
+from elasticsearch_tpu_torch.tracing import profiler
+from elasticsearch_tpu_torch.utils.errors import (
+    SearchContextMissingException, SearchParseException)
 
-#: request keys the port serves; any other key raises
-_SUPPORTED_KEYS = frozenset({"query", "size", "from", "_source", "version",
-                             "rescore", "aggs", "aggregations"})
+#: request keys the port serves
+_SUPPORTED_KEYS = frozenset({
+    "query", "size", "from", "_source", "version", "rescore", "aggs",
+    "aggregations", "sort", "search_after", "min_score", "scroll",
+    "search_type", "highlight", "profile", "terminate_after", "timeout"})
+#: refused keys that come with A9 (the rest of the DSL); every other
+#: refused key or search_type is A6c's
+_A9_KEYS = frozenset({"script_fields", "suggest"})
+
+#: the clock of ``timeout`` (checked between segments)
+_clock = time.perf_counter
 
 
 def check_body(body: dict) -> None:
+    """Raise the typed refusal of a request the port does not serve,
+    naming the ROADMAP item that brings it."""
     unsupported = sorted(set(body) - _SUPPORTED_KEYS)
     if unsupported:
+        items = sorted({"A9" if k in _A9_KEYS else "A6c"
+                        for k in unsupported})
         raise SearchParseException(
             f"search request keys {unsupported} are not yet in the PyTorch "
-            f"port")
+            f"port (ROADMAP {', '.join(items)})")
+    st = body.get("search_type")
+    if st is not None and st not in ("query_then_fetch", "scan"):
+        raise SearchParseException(
+            f"search_type [{st}] is not yet in the PyTorch port (ROADMAP "
+            f"A6c)")
+    if st == "scan" and not body.get("scroll"):
+        raise SearchParseException("search_type [scan] requires [scroll]")
+
+
+def _parse_timeout(v) -> Optional[float]:
+    """Request timeout → seconds ("10ms", "1s", "2m", or numeric millis)."""
+    if v in (None, -1, "-1"):
+        return None
+    s = str(v).strip().lower()
+    for suf, mul in (("ms", 1e-3), ("s", 1.0), ("m", 60.0), ("h", 3600.0)):
+        if s.endswith(suf) and s[: -len(suf)].replace(".", "", 1).isdigit():
+            return float(s[: -len(suf)]) * mul
+    try:
+        return float(s) * 1e-3  # bare number = millis (ES convention)
+    except ValueError:
+        raise SearchParseException(f"failed to parse timeout value [{v}]")
+
+
+# in-memory scroll registry: scroll_id -> snapshot state
+_SCROLLS: Dict[str, dict] = {}
 
 
 @dataclass
@@ -58,6 +124,7 @@ class ShardDoc:
     seg: Any  # TpuSegment
     local_id: int
     score: float
+    sort_values: Tuple = ()
 
 
 @dataclass
@@ -69,6 +136,13 @@ class QueryPhaseResult:
     hybrid: Optional[dict] = None
     # {"_list": [per-segment partials], "_aggs": the parsed agg tree}
     agg_partials: Optional[dict] = None
+    # score-ordered scroll snapshot: per segment (segment, i32 local ids
+    # of every match in order, f32 scores in the same order)
+    full: Optional[List[Tuple[Any, np.ndarray, np.ndarray]]] = None
+    terminated_early: bool = False
+    timed_out: bool = False
+    # profile: true — the shard's phase breakdown (tracing/profiler.py)
+    profile: Optional[dict] = None
 
 
 class ShardSearcher:
@@ -86,20 +160,57 @@ class ShardSearcher:
         self.version_of = version_of
 
     def query_phase(self, body: dict,
-                    global_stats: Optional[GlobalStats] = None
-                    ) -> QueryPhaseResult:
+                    global_stats: Optional[GlobalStats] = None,
+                    collect_full: bool = False) -> QueryPhaseResult:
+        """One shard's query phase. ``collect_full`` (a scroll) keeps
+        every match: a score-ordered snapshot (``full``) or, sorted, the
+        complete candidate list."""
         check_body(body)
-        query = parse_query(body.get("query"))
+        # a scroll snapshot profiles nothing: its cost is the snapshot
+        prof = profiler.PhaseTimer() if body.get("profile") \
+            and not collect_full else None
+
+        def _p(name: str):
+            return prof.phase(name) if prof is not None else nullcontext()
+
+        def _dc(fn, bucket: Optional[str] = None):
+            return prof.device_call(fn, bucket) if prof is not None \
+                else fn()
+
+        with _p("rewrite"):
+            query = parse_query(body.get("query"))
         aggs = parse_aggs(body.get("aggs") or body.get("aggregations"))
         size = int(body.get("size", 10))
         frm = int(body.get("from", 0))
-        if frm + size > 10_000:
+        if not collect_full and frm + size > 10_000:
             # explicit, like ES's index.max_result_window — never a silent cap
             raise SearchParseException(
                 f"Result window is too large, from + size must be less than "
                 f"or equal to: [10000] but was [{frm + size}]. Use scroll or "
                 f"search_after for deep pagination.")
         k = min(max(size + frm, 1), 10_000)
+        min_score = body.get("min_score")
+        scan = collect_full and body.get("search_type") == "scan"
+        # scan ignores sort entirely (ScanContext)
+        sort_spec = [] if scan else _parse_sort(body.get("sort"))
+        search_after = body.get("search_after")
+        if search_after is not None and not sort_spec:
+            raise SearchParseException(
+                "Sort must contain at least one field when using "
+                "[search_after]")
+        if search_after is not None and (
+                not isinstance(search_after, list)
+                or len(search_after) != len(sort_spec)):
+            n = len(search_after) if isinstance(search_after, list) else 1
+            raise SearchParseException(
+                f"search_after has {n} value(s) but sort has "
+                f"{len(sort_spec)}")
+        if body.get("rescore") and sort_spec:
+            raise SearchParseException(
+                "cannot use [rescore] in combination with [sort]")
+        if body.get("rescore") and collect_full:
+            raise SearchParseException(
+                "cannot use [rescore] in combination with [scroll]")
         rescore_specs = parse_rescore(body.get("rescore") or None)
         if rescore_specs:
             # the candidates must cover the largest rescore window
@@ -109,63 +220,158 @@ class ShardSearcher:
         total = 0
         max_score = float("-inf")
         agg_partials: List[dict] = []
-        for seg in self.segments:
-            ctx = SegmentContext(seg, self.mappings, self.analysis,
-                                 global_stats, index_name=self.index_name)
-            kk = min(k, seg.max_docs)
-            # a rescore re-reads scores (B1's bf16 scores would show) and
-            # the aggregations read the mask, which B1 does not make
-            fused = None if rescore_specs or aggs \
-                else fused_bm25_topk(ctx, query, kk)
-            if fused is not None:
-                vals, ids, seg_total = fused
-                total += seg_total
-                for v, i in zip(vals, ids):
-                    # matches score strictly > 0; the live mask maps
-                    # non-matches to -inf or a 0.0 dense row
-                    if np.isfinite(v) and v > 0:
-                        max_score = max(max_score, float(v))
-                        docs.append(ShardDoc(self.shard_ord, seg, int(i),
-                                             float(v)))
-                continue
-            scores, mask = query.score_or_mask(ctx)
-            mask = mask & seg.live
-            if aggs:
-                agg_partials.append(run_aggs(aggs, ctx, mask))
-            vals, idx = topk_with_mask(scores, mask, k=kk)
-            total += count_mask(mask)
-            vals = vals.cpu().numpy()
-            idx = idx.cpu().numpy()
-            for v, i in zip(vals, idx):
-                if np.isfinite(v):
-                    max_score = max(max_score, float(v))
-                    docs.append(ShardDoc(self.shard_ord, seg, int(i),
-                                         float(v)))
-        docs.sort(key=lambda d: (-d.score, d.seg.seg_id, d.local_id))
-        docs = docs[:k]
+        # a score-ordered scroll snapshots every match (no 10k cap); a
+        # sorted one keeps its complete candidate list
+        full_snap = [] if collect_full and not sort_spec else None
+        # terminate_after caps the shard's collected count; timeout stops
+        # between segments (a segment's launches are not interruptible)
+        terminate_after = body.get("terminate_after")
+        terminate_after = int(terminate_after) if terminate_after else None
+        timeout_s = _parse_timeout(body.get("timeout"))
+        t_begin = _clock()
+        terminated_early = timed_out = False
+        # B1 makes no score row and no mask: only a plain score top-k
+        fused_ok = not (aggs or sort_spec or min_score is not None
+                        or search_after is not None or rescore_specs
+                        or collect_full)
+        with profiler.attached(prof):
+            for seg in self.segments:
+                if timeout_s is not None and _clock() - t_begin > timeout_s:
+                    timed_out = True
+                    break
+                if terminate_after is not None and total >= terminate_after:
+                    terminated_early = True
+                    break
+                with _p("executor_build"):
+                    ctx = SegmentContext(seg, self.mappings, self.analysis,
+                                         global_stats,
+                                         index_name=self.index_name)
+                if prof is not None:
+                    prof.segments += 1
+                kk = min(k, seg.max_docs)
+                if fused_ok:
+                    fused = _dc(lambda: fused_bm25_topk(ctx, query, kk),
+                                "topk")
+                    if fused is not None:
+                        vals, ids, seg_total = fused
+                        total += seg_total
+                        for v, i in zip(vals, ids):
+                            # matches score strictly > 0; the live mask
+                            # maps non-matches to -inf or a 0.0 dense row
+                            if np.isfinite(v) and v > 0:
+                                max_score = max(max_score, float(v))
+                                docs.append(ShardDoc(self.shard_ord, seg,
+                                                     int(i), float(v)))
+                        continue
+                scores, mask = _dc(lambda: query.score_or_mask(ctx))
+                mask = mask & seg.live
+                if min_score is not None:
+                    mask = mask & (scores >= float(min_score))
+                if aggs:
+                    with _p("aggs"):
+                        agg_partials.append(run_aggs(aggs, ctx, mask))
+                if sort_spec:
+                    with _p("topk"):
+                        seg_docs, seg_total = self._sorted_candidates(
+                            seg, scores, mask, sort_spec,
+                            seg.max_docs if collect_full else kk,
+                            search_after)
+                    total += seg_total
+                elif full_snap is not None:
+                    order, sc = _snapshot_segment(scores, mask, scan)
+                    total += int(order.size)
+                    full_snap.append((seg, order, sc))
+                    seg_docs = [] if scan else [
+                        ShardDoc(self.shard_ord, seg, int(i), float(v))
+                        for i, v in zip(order[:k].tolist(),
+                                        sc[:k].tolist())]
+                else:
+                    vals, idx = _dc(lambda: topk_with_mask(scores, mask,
+                                                           k=kk), "topk")
+                    with _p("host_sync"):
+                        total += count_mask(mask)
+                        vals = vals.cpu().numpy()
+                        idx = idx.cpu().numpy()
+                    seg_docs = [ShardDoc(self.shard_ord, seg, int(i),
+                                         float(v))
+                                for v, i in zip(vals, idx)
+                                if np.isfinite(v)]
+                for d in seg_docs:
+                    if np.isfinite(d.score):
+                        max_score = max(max_score, d.score)
+                docs.extend(seg_docs)
+
+        # merge segment candidates
+        if sort_spec:
+            docs.sort(key=lambda d: _sort_key(d.sort_values, sort_spec))
+        else:
+            docs.sort(key=lambda d: (-d.score, d.seg.seg_id, d.local_id))
+        if not (collect_full and sort_spec):
+            docs = docs[:k]
         hybrid = None
-        if isinstance(query, HybridQuery) and query.rerank is not None:
+        if isinstance(query, HybridQuery) and query.rerank is not None \
+                and not sort_spec and not collect_full:
             # stage 2 over the merged window; a breaker denial comes back
             # as the typed "declined" status with stage-1 scores untouched
-            hybrid = apply_hybrid_rerank(docs, query, self.mappings,
-                                         self.analysis)
+            with _p("rerank"):
+                hybrid = apply_hybrid_rerank(docs, query, self.mappings,
+                                             self.analysis)
             max_score = max((d.score for d in docs if np.isfinite(d.score)),
                             default=float("-inf"))
         if rescore_specs:
             apply_rescore(docs, rescore_specs, self.mappings, self.analysis)
             docs = docs[: min(max(size + frm, 1), 10_000)]
             max_score = max((d.score for d in docs), default=float("-inf"))
+        if terminate_after is not None and total >= terminate_after:
+            terminated_early = True
+            total = min(total, terminate_after)
         return QueryPhaseResult(
             docs=docs, total_hits=total,
             max_score=max_score if docs and max_score != float("-inf")
             else float("nan"), hybrid=hybrid,
             agg_partials={"_list": agg_partials, "_aggs": aggs}
-            if aggs else None)
+            if aggs else None,
+            full=full_snap, terminated_early=terminated_early,
+            timed_out=timed_out,
+            profile=prof.to_json() if prof is not None else None)
+
+    def _sorted_candidates(self, seg, scores, mask, sort_spec, k: int,
+                           search_after) -> Tuple[List[ShardDoc], int]:
+        """(the segment's top ``k`` matches by the full sort tuple, then
+        local id, each with its sort values; the segment's match count):
+        ``sort_topk`` over the keys' lanes on the card, the strict
+        ``search_after`` mask in the same key space, one copy back."""
+        lanes: list = []
+        cursor: list = []  # a (position, exact) pair a lane
+        for i, s in enumerate(sort_spec):
+            ln, cur = _key_lanes(seg, s, scores, search_after[i]
+                                 if search_after is not None else _NO_CURSOR)
+            lanes += ln
+            cursor += cur or []
+        sel = mask if search_after is None \
+            else mask & S.after_mask(lanes, cursor)
+        ids = S.sort_topk(lanes, sel, k)
+        kk = int(ids.numel())
+        out = torch.cat([ids.to(torch.int32),
+                         scores.gather(0, ids).view(torch.int32),
+                         torch.stack([sel.sum(), mask.sum()]).to(torch.int32)
+                         ]).cpu().numpy()
+        n = min(kk, int(out[-2]))
+        docs = []
+        for local, score in zip(out[:n].tolist(),
+                                out[kk: kk + n].view(np.float32).tolist()):
+            sv = tuple(_sort_value(seg, s, local, score) for s in sort_spec)
+            docs.append(ShardDoc(self.shard_ord, seg, local, score, sv))
+        return docs, int(out[-1])
+
+    # -- fetch phase -----------------------------------------------------------
 
     def fetch_phase(self, docs: List[ShardDoc], body: dict,
                     index_name: str = "") -> List[dict]:
         src_filter = body.get("_source", True)
         want_version = bool(body.get("version", False))
+        hl = body.get("highlight")
+        query = parse_query(body.get("query")) if hl else None
         hits = []
         for d in docs:
             tcol = d.seg.keywords.get("_type")
@@ -175,16 +381,63 @@ class ShardSearcher:
                 "_index": self.index_name or index_name,
                 "_type": tvals[0] if tvals else "_doc",
                 "_id": doc_id,
-                "_score": d.score,
+                "_score": None if d.sort_values else d.score,
             }
+            if d.sort_values:
+                hit["sort"] = list(d.sort_values)
             if want_version and self.version_of is not None:
                 hit["_version"] = self.version_of(doc_id)
-            filtered = _filter_source(d.seg.sources[d.local_id], src_filter)
+            src = d.seg.sources[d.local_id]
+            filtered = _filter_source(src, src_filter)
             if filtered is not None:
                 hit["_source"] = filtered
+            if hl:
+                ctx = SegmentContext(d.seg, self.mappings, self.analysis)
+                hit["highlight"] = self._highlight(ctx, query, src, hl)
             hits.append(hit)
         return hits
 
+    def _highlight(self, ctx, query, src, hl_spec) -> Dict[str, List[str]]:
+        out = {}
+        pre = (hl_spec.get("pre_tags") or ["<em>"])[0]
+        post = (hl_spec.get("post_tags") or ["</em>"])[0]
+        for fname, fspec in hl_spec.get("fields", {}).items():
+            fm = self.mappings.get(fname)
+            if fm is None or src is None:
+                continue
+            raw = src.get(fname)
+            if not isinstance(raw, str):
+                continue
+            terms = extract_query_terms(query, fname, ctx)
+            analyzer = ctx.search_analyzer(fname)
+            frags = highlight_field(
+                raw, terms, analyzer,
+                pre_tag=pre, post_tag=post,
+                fragment_size=int(fspec.get("fragment_size", 100)),
+                number_of_fragments=int(fspec.get("number_of_fragments", 5)),
+            )
+            if frags:
+                out[fname] = frags
+        return out
+
+
+def _snapshot_segment(scores, mask, scan: bool):
+    """(i32 local ids, f32 scores) of every match of a segment: in index
+    order for a scan, else by (-score, local id), one stable sort on the
+    card (-0.0 ranks as 0.0, as the reference's numpy sort compares)."""
+    if scan:
+        order = torch.nonzero(mask).view(-1)
+    else:
+        eff = torch.where(mask, scores + 0.0, float("-inf"))
+        order = torch.sort(eff, descending=True, stable=True).indices[
+            : count_mask(mask)]
+    return (order.to(torch.int32).cpu().numpy(),
+            scores.gather(0, order).cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# coordinating search across shards (single node)
+# ---------------------------------------------------------------------------
 
 def search_shards(searchers: List[ShardSearcher], body: dict,
                   index_name: str = "",
@@ -193,13 +446,23 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
     t0 = time.perf_counter()
     size = int(body.get("size", 10))
     frm = int(body.get("from", 0))
+    scroll = bool(body.get("scroll"))
+    scan = scroll and body.get("search_type") == "scan"
+    sort_spec = [] if scan else _parse_sort(body.get("sort"))
+    profile = bool(body.get("profile"))
+    shard_profiles: List[dict] = []
     results = []
     for pos, s in enumerate(searchers):
-        r = s.query_phase(body, global_stats)
+        tq = time.perf_counter()
+        r = s.query_phase(body, global_stats, collect_full=scroll)
         # fetch resolves searchers positionally in THIS list
         for d in r.docs:
             d.shard_ord = pos
         results.append(r)
+        if profile:
+            shard_profiles.append(profiler.shard_profile_entry(
+                f"[{s.index_name or index_name or 'shard'}][{pos}]",
+                int((time.perf_counter() - tq) * 1e9), r.profile))
     all_docs: List[ShardDoc] = []
     total = 0
     max_score = float("-inf")
@@ -208,26 +471,43 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
         total += r.total_hits
         if r.docs and not np.isnan(r.max_score):
             max_score = max(max_score, r.max_score)
-    all_docs.sort(key=lambda d: (-d.score, d.shard_ord, d.local_id))
-    page = all_docs[frm: frm + size]
+    if sort_spec:
+        all_docs.sort(key=lambda d: _sort_key(d.sort_values, sort_spec))
+    else:
+        all_docs.sort(key=lambda d: (-d.score, d.shard_ord, d.local_id))
+
+    # a score-ordered scroll: one global snapshot in compact arrays; page
+    # 1 is served from it, so its ties order as every later page's
+    snapshot = None
+    if scroll and not sort_spec:
+        snapshot = _global_snapshot(results, scan)
+        # scan's first response carries no hits, only the scroll id
+        page = [] if scan else _snapshot_page(snapshot, frm, size)
+    else:
+        page = all_docs[frm: frm + size]
 
     by_shard: Dict[int, List[ShardDoc]] = {}
     for d in page:
         by_shard.setdefault(d.shard_ord, []).append(d)
     fetched: Dict[Tuple[int, int, int], dict] = {}
     for shard_ord, docs in by_shard.items():
+        tf = time.perf_counter()
         for d, h in zip(docs, searchers[shard_ord].fetch_phase(
                 docs, body, index_name)):
             fetched[(d.shard_ord, id(d.seg), d.local_id)] = h
+        if profile:
+            shard_profiles[shard_ord]["fetch"] = {
+                "time_in_nanos": int((time.perf_counter() - tf) * 1e9)}
     hits = [fetched[(d.shard_ord, id(d.seg), d.local_id)] for d in page]
     response: Dict[str, Any] = {
         "took": int((time.perf_counter() - t0) * 1000),
-        "timed_out": False,
+        "timed_out": any(r.timed_out for r in results),
         "_shards": {"total": len(searchers), "successful": len(searchers),
                     "failed": 0},
         "hits": {
             "total": total,
-            "max_score": None if max_score == float("-inf") else max_score,
+            "max_score": None if max_score == float("-inf") or sort_spec
+            else max_score,
             "hits": hits,
         },
     }
@@ -244,11 +524,246 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
             response["hybrid"] = {
                 "rerank": "applied",
                 "window": sum(int(h.get("window", 0)) for h in statuses)}
+    if any(r.terminated_early for r in results):
+        response["terminated_early"] = True
     present = [r.agg_partials for r in results if r.agg_partials]
     if present:
         response["aggregations"] = reduce_aggs(
             present[0]["_aggs"], [p for r in present for p in r["_list"]])
+    if profile:
+        response["profile"] = {"shards": shard_profiles}
+    if scroll:
+        scroll_id = uuid.uuid4().hex
+        state: Dict[str, Any] = {
+            # scan serves every doc by scrolling: page 1 consumed nothing
+            "pos": 0 if scan else frm + size,
+            "body": body, "searchers": searchers, "index_name": index_name,
+            "total": total,
+        }
+        if snapshot is not None:
+            state.update(mode="arrays", **snapshot)
+        else:
+            # a sorted scroll: the complete merged candidate list
+            state.update(mode="docs", docs=all_docs)
+        _SCROLLS[scroll_id] = state
+        response["_scroll_id"] = scroll_id
     return response
+
+
+def _global_snapshot(results, scan: bool) -> dict:
+    """Every shard's per-segment snapshot in one order: (shard, segment,
+    local) for a scan, else (-score, shard, local, segment), the
+    reference's."""
+    segs: List[Tuple[int, Any]] = []
+    seg_of, shard_of, local, score = [], [], [], []
+    for pos, r in enumerate(results):
+        for seg, order, sc in (r.full or []):
+            seg_of.append(np.full(order.size, len(segs), np.int32))
+            segs.append((pos, seg))
+            shard_of.append(np.full(order.size, pos, np.int32))
+            local.append(order)
+            score.append(sc.astype(np.float32))
+    if not segs:
+        return {"segs": [], "seg_of": np.empty(0, np.int32),
+                "local": np.empty(0, np.int32),
+                "score": np.empty(0, np.float32)}
+    seg_of, shard_of, local, score = (np.concatenate(a) for a in
+                                      (seg_of, shard_of, local, score))
+    glob = np.lexsort((local, seg_of, shard_of)) if scan \
+        else np.lexsort((seg_of, local, shard_of, -score))
+    return {"segs": segs, "seg_of": seg_of[glob], "local": local[glob],
+            "score": score[glob]}
+
+
+def _snapshot_page(snap: dict, lo: int, size: int) -> List[ShardDoc]:
+    segs = snap["segs"]
+    return [ShardDoc(segs[si][0], segs[si][1], li, sc)
+            for si, li, sc in zip(snap["seg_of"][lo: lo + size].tolist(),
+                                  snap["local"][lo: lo + size].tolist(),
+                                  snap["score"][lo: lo + size].tolist())]
+
+
+def scroll_next(scroll_id: str, size: Optional[int] = None) -> dict:
+    """The next page of an open scroll (empty past its end)."""
+    state = _SCROLLS.get(scroll_id)
+    if state is None:
+        raise SearchContextMissingException(
+            f"No search context found for id [{scroll_id}]")
+    body = state["body"]
+    sz = size or int(body.get("size", 10))
+    lo = state["pos"]
+    state["pos"] += sz
+    if state["mode"] == "arrays":
+        page = _snapshot_page(state, lo, sz)
+    else:
+        page = state["docs"][lo: lo + sz]
+    by_shard: Dict[int, List[ShardDoc]] = {}
+    for d in page:
+        by_shard.setdefault(d.shard_ord, []).append(d)
+    fetched: Dict[Tuple[int, int, int], dict] = {}
+    for shard_ord, docs in by_shard.items():
+        for d, h in zip(docs, state["searchers"][shard_ord].fetch_phase(
+                docs, body, state["index_name"])):
+            fetched[(d.shard_ord, id(d.seg), d.local_id)] = h
+    return {
+        "took": 0, "timed_out": False, "_scroll_id": scroll_id,
+        "hits": {"total": state["total"], "max_score": None,
+                 "hits": [fetched[(d.shard_ord, id(d.seg), d.local_id)]
+                          for d in page]},
+    }
+
+
+def scroll_state(scroll_id: str) -> Optional[dict]:
+    """The live scroll context for ``scroll_id`` (None when unknown)."""
+    return _SCROLLS.get(scroll_id)
+
+
+def clear_scroll(scroll_id: str) -> bool:
+    return _SCROLLS.pop(scroll_id, None) is not None
+
+
+# ---------------------------------------------------------------------------
+# sort helpers
+# ---------------------------------------------------------------------------
+
+def _parse_sort(spec) -> List[dict]:
+    if not spec:
+        return []
+    if isinstance(spec, (str, dict)):
+        spec = [spec]
+    out = []
+    for item in spec:
+        if isinstance(item, str):
+            if item == "_score":
+                out.append({"field": "_score", "order": "desc"})
+            else:
+                out.append({"field": item, "order": "asc"})
+        else:
+            (fieldname, cfg), = item.items()
+            if fieldname == "_geo_distance":
+                raise a9_refusal("sort by [_geo_distance]")
+            if isinstance(cfg, str):
+                out.append({"field": fieldname, "order": cfg})
+            else:
+                out.append({
+                    "field": fieldname,
+                    "order": cfg.get("order", "desc" if fieldname == "_score"
+                                     else "asc"),
+                    "missing": cfg.get("missing", "_last"),
+                })
+    # drop trailing pure-score sort into score path
+    if len(out) == 1 and out[0]["field"] == "_score" \
+            and out[0]["order"] == "desc":
+        return []
+    return out
+
+
+def _missing_first(s: dict) -> bool:
+    """Where a doc missing the key sorts: ``_first``, else last (a custom
+    ``missing`` value sorts last, as the reference treats it)."""
+    return str(s.get("missing", "_last")) == "_first"
+
+
+#: ``_key_lanes``' marker of a request without search_after
+_NO_CURSOR = object()
+
+
+def _key_lanes(seg, s: dict, scores, after) -> Tuple[list, Optional[list]]:
+    """(the i64 lanes of sort key ``s`` on ``seg``, its search_after
+    cursor over them, or None for ``_NO_CURSOR``)."""
+    desc = s["order"] == "desc"
+    first = _missing_first(s)
+    kind, safe, terms = None, True, None
+    if s["field"] == "_score":
+        kind = "f32"
+        key = S.f32_order_keys(scores)
+        lanes = [torch.bitwise_not(key) if desc else key]
+    else:
+        m = seg.sort_keys(s["field"])
+        if m is None:  # no doc values here: every doc misses the key
+            lanes = [torch.full((seg.max_docs,), S.MISSING_FIRST if first
+                                else S.MISSING_LAST, dtype=torch.int64,
+                                device=seg.device)]
+        else:
+            kind, terms = m.kind, m.terms
+            safe = S.lanes_safe(m.lo, m.hi, desc)
+            lanes = S.sort_lanes(m.key, m.exists, desc, first, safe)
+    if after is _NO_CURSOR:
+        return lanes, None
+    c = _cursor_value(after, kind, s["field"])
+    if kind is None and c is not None:
+        # a present cursor against docs that all miss the key: decided
+        # by the missing sentinel alone
+        return lanes, [(0, False)]
+    return lanes, S.lane_cursor(c, kind, desc, first, safe, terms)
+
+
+def _cursor_value(c, kind: Optional[str], field: str):
+    """A search_after value in the key's own type: a keyword compares as
+    a string (the reference's rule); a number key takes a number, a
+    string parsed as one."""
+    if c is None or kind is None:
+        return c
+    if kind == "rank":
+        return c if isinstance(c, str) else str(c)
+    if isinstance(c, bool):
+        return int(c)
+    if isinstance(c, str):
+        for conv in (int, float):
+            try:
+                c = conv(c)
+                break
+            except ValueError:
+                continue
+    if not isinstance(c, (int, float)) or c != c:
+        raise SearchParseException(
+            f"search_after value [{c}] does not parse as a number for "
+            f"sort field [{field}]")
+    return c
+
+
+def _sort_value(seg, s: dict, local: int, score):
+    """The value a hit reports for sort key ``s`` (None when missing):
+    the score, a column's exact value, or a keyword's first value."""
+    if s["field"] == "_score":
+        return float(score)
+    col = seg.numerics.get(s["field"])
+    if col is not None:
+        if not bool(col.exists_host[local]):
+            return None
+        ex = col.exact[local]
+        return int(ex) if col.exact.dtype.kind == "i" else float(ex)
+    kw = seg.keywords.get(s["field"])
+    if kw is not None and kw.host_values[local]:
+        return kw.host_values[local][0]
+    return None
+
+
+def _sort_key(sort_values: Tuple, sort_spec: List[dict]):
+    key = []
+    for v, s in zip(sort_values, sort_spec):
+        desc = s["order"] == "desc"
+        if v is None:
+            key.append((0 if _missing_first(s) else 2, 0))
+        elif isinstance(v, str):
+            key.append((1, _StrKey(v, desc)))
+        else:
+            key.append((1, -v if desc else v))
+    return tuple(key)
+
+
+class _StrKey:
+    __slots__ = ("v", "desc")
+
+    def __init__(self, v, desc):
+        self.v = v
+        self.desc = desc
+
+    def __lt__(self, other):
+        return (self.v > other.v) if self.desc else (self.v < other.v)
+
+    def __eq__(self, other):
+        return self.v == other.v
 
 
 # ---------------------------------------------------------------------------

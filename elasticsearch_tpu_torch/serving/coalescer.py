@@ -24,7 +24,9 @@ Drain policy (adaptive):
 ``enabled: false`` (or ``ESTPU_COALESCER=0`` in the environment) parks
 none. Ineligible bodies (keys beyond query/size/from/_source/profile, a
 query no batch tier takes) run the normal path unchanged; a ``profile``
-body parks but runs on its own thread at the flush, as in the reference.
+body parks but runs on its own thread at the flush, as in the reference,
+and its response's ``profile.coalescer`` reports its queue wait, batch
+size and flush reason.
 A failure of the batch is raised on every request of the batch: the
 port has no fallback that would hide a device fault.
 
@@ -250,9 +252,18 @@ class QueryCoalescer:
             if entry.error is not None:
                 raise entry.error
             resp = run() if entry.result is RUN_SELF else entry.result
-            if isinstance(resp, dict) and "took" in resp:
+            if isinstance(resp, dict):
                 queue_s = (entry.claimed_at or entry.enqueued) - entry.enqueued
-                resp["took"] = int(resp["took"]) + int(queue_s * 1000)
+                if "took" in resp:
+                    resp["took"] = int(resp["took"]) + int(queue_s * 1000)
+                if isinstance(resp.get("profile"), dict):
+                    # a profiled request's time in the queue and the
+                    # batch it was flushed with
+                    resp["profile"]["coalescer"] = {
+                        "queue_wait_nanos": int(queue_s * 1e9),
+                        "batch_size": entry.batch_size,
+                        "flush_reason": entry.flush_reason or "self",
+                    }
             return resp
         finally:
             with self._cv:

@@ -21,6 +21,14 @@ for i in range(200):
 n.refresh()
 r = n.search("i", {"query": {"match": {"body": "fox"}}})
 assert r["hits"]["total"] == 100, r["hits"]["total"]
+q = {"query": {"match": {"body": "fox"}}, "size": 3,
+     "highlight": {"fields": {"body": {}}}}
+r = n.search("i", dict(q, sort=[{"_score": "asc"}], profile=True))
+assert r["profile"]["shards"][0]["tpu"]["segments"] == 1
+r = n.search("i", dict(q, scroll="1m"))
+from elasticsearch_tpu_torch.search.service import clear_scroll, scroll_next
+assert scroll_next(r["_scroll_id"])["hits"]["hits"][0]["highlight"]
+assert clear_scroll(r["_scroll_id"])
 from elasticsearch_tpu_torch.monitor import kernels
 n.create_index("m", {"settings": {"number_of_shards": 3}})
 for i in range(90):

@@ -3,7 +3,8 @@ threads, without REST: concurrent single searches through
 ``Node.search`` run as one batch (``search/batch.py``) and answer what
 sequential searches answer; a lone request, ``enabled: false`` and
 ``mode: off`` bypass the queue; ``close()`` drains parked requests; a
-body the coalescer cannot batch gives the sequential path's typed error.
+body the coalescer cannot batch gives the sequential path's answer or
+typed error.
 
 The corpus is ``tests/unit/test_serving.py``'s, with the dense-block df
 bar dropped to 8 so that its head words have dense rows. Every wait has
@@ -19,8 +20,7 @@ import pytest
 
 from elasticsearch_tpu_torch.monitor import kernels
 from elasticsearch_tpu_torch.node import Node
-from elasticsearch_tpu_torch.utils.errors import (QueryParsingException,
-                                                  SearchParseException)
+from elasticsearch_tpu_torch.utils.errors import QueryParsingException
 
 HEAD = ["alpha", "beta", "gamma", "delta"]
 WAIT_S = 60.0
@@ -239,19 +239,29 @@ def test_close_drains_parked_requests():
 
 @pytest.mark.parametrize("bad", ["profile", "unknown_query"])
 def test_unbatchable_body_gives_the_sequential_typed_error(node, bad):
-    body = (dict(_body("alpha"), profile=True) if bad == "profile"
-            else {"query": {"no_such_query": {}}})
-    kind = SearchParseException if bad == "profile" \
-        else QueryParsingException
-    with pytest.raises(kind) as seq:
-        node.get_index("co").search(copy.deepcopy(body))
+    """A body no batch takes answers as the sequential path does: a
+    ``profile`` body parks and runs alone at the flush (its response, with
+    the coalescer's profile section), an unknown query gives the typed
+    error."""
+    if bad == "profile":
+        body = dict(_body("alpha"), profile=True)
+        seq = node.get_index("co").search(copy.deepcopy(body))
+    else:
+        body = {"query": {"no_such_query": {}}}
+        with pytest.raises(QueryParsingException) as err:
+            node.get_index("co").search(copy.deepcopy(body))
     _settings(node, mode="always", max_wait="20ms", idle_gap="5ms")
     try:
         got = _concurrent(node, [body, body, _body("gamma")])
     finally:
         _settings(node)
     for g in got[:2]:
-        assert type(g) is kind and str(g) == str(seq.value)
+        if bad == "profile":
+            assert _sig(g) == _sig(seq)
+            assert g["profile"]["coalescer"]["batch_size"] == 1
+        else:
+            assert type(g) is QueryParsingException \
+                and str(g) == str(err.value)
     assert got[2]["hits"]["total"] > 0
 
 
