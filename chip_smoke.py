@@ -94,6 +94,21 @@ Phases, in order; any failure exits non-zero before the result line:
             against numpy (``np.lexsort``, exact totals); p50, p99,
             device time, kernels, copies and busy share per body and
             route;
+5h. writes  the write path and merges (``phase_writepath``): 65,536
+            generated log docs (Zipf(1.1) bodies of 20-80 tokens over
+            phase 5's vocabulary, a keyword, a long, a date) through
+            ``Node.index`` into five shards with 32 refreshes, so the
+            tiered policy folds ~32 fresh segments a shard into ~4, and a
+            second index of a tenth as many; the mesh's full deep page
+            past a round's padded width (C1), B1 on merged segments,
+            responses after ``force_merge(1)`` and after a delete-reclaim
+            merge byte-identical to one-refresh rebuilds of the live docs
+            (C2), no retired segment in the executors and the breakers at
+            the live segments' bytes, dfs on both routes and over two
+            indices against an f64 scorer, multi-index search with
+            ``indices_boost`` and ``fields`` against a CPU Node, the
+            request cache; the ingest rate, refresh and merge times,
+            breaker bytes and read p50/p99s;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
@@ -3073,6 +3088,485 @@ def phase_sort(torch, np, dev, card, node, t):
     return b1
 
 
+# ---------------------------------------------------------------------------
+# phase 5h: the write path and merges on the card
+# ---------------------------------------------------------------------------
+
+WP_DOCS = 1 << 16          # logs-a's documents (cut from 2^18, PERF.md §4)
+WP_REFRESHES = 32          # refreshes over logs-a: ~32 fresh segments a shard
+WP_SHARDS = 5              # ES 2.0's default index.number_of_shards
+WP_B_SHARE = 10            # logs-b holds a further 1/WP_B_SHARE of the docs
+WP_PREFIX = 1 << 14        # the CPU comparison's prefix of logs-a
+WP_RECLAIM = 0.3           # the share of one shard's docs deleted
+WP_REPS = 40               # timed requests per body
+WP_MAPPING = {"properties": {
+    "body": {"type": "text"},
+    "tag": {"type": "keyword"},
+    "n": {"type": "long"},
+    "ts": {"type": "date"},
+}}
+#: phase 4's five body shapes on 5h's vocabulary, and a deep page
+WP_BODIES = {
+    "match": {"query": {"match": {"body": "t0 t1 t5"}}},
+    "match_tail": {"query": {"match": {"body": "t2000 t7000 t15000"}}},
+    "term": {"query": {"term": {"tag": "g3"}}, "size": 5},
+    "bool_range": {"query": {"bool": {
+        "must": [{"match": {"body": "t10 t40"}}],
+        "filter": [{"range": {"n": {"gte": 100_000, "lt": 600_000}}}]}}},
+    "paged": {"query": {"match": {"body": "t3 t9 t27"}},
+              "from": 10, "size": 10},
+    "deep": {"query": {"match": {"body": "t1 t300"}}, "from": 5000,
+             "size": 20},
+}
+#: dfs bodies: a head term with rarer ones (the f32 generic route)
+WP_DFS = [{"query": {"match": {"body": q}}, "size": 10}
+          for q in ("t2 t150 t900", "t0 t70 t3000", "t12 t500",
+                    "t6 t45 t260 t8000")]
+
+
+def wp_docs(np, n, seed, start=0):
+    """[(id, source)]: a ``body`` of 20-80 tokens drawn Zipf(1.1) from
+    phase 5's 30,000-term vocabulary (MS-MARCO-passage lengths), a
+    ``tag`` of 9 values, a long ``n`` and a date ``ts``."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, VOCAB + 1) ** 1.1
+    p /= p.sum()
+    lens = rng.integers(20, 81, n)
+    toks = rng.choice(VOCAB, size=int(lens.sum()), p=p)
+    words = np.array([f"t{i}" for i in range(VOCAB)])
+    cuts = np.concatenate([[0], np.cumsum(lens)])
+    tags = rng.integers(0, 9, n)
+    nums = rng.integers(0, 1_000_000, n)
+    ts = TAXI_YEAR + rng.integers(0, 30 * DAY_MS, n)
+    return [(f"d{start + i}", {
+        "body": " ".join(words[toks[cuts[i]: cuts[i + 1]]].tolist()),
+        "tag": f"g{int(tags[i])}", "n": int(nums[i]), "ts": int(ts[i])})
+        for i in range(n)]
+
+
+def _strip_took(resp) -> str:
+    return json.dumps({k: v for k, v in resp.items() if k != "took"},
+                      sort_keys=True)
+
+
+@contextlib.contextmanager
+def _host_loop():
+    """The host loop for every index while the block runs."""
+    os.environ["ESTPU_DISABLE_MESH"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["ESTPU_DISABLE_MESH"]
+
+
+def _wp_time(np, torch, node, index, bodies, reps=WP_REPS):
+    """ms of each search of ``bodies`` on ``index``, in turn, until
+    ``reps`` requests ran (synchronized), after one warm-up pass."""
+    for b in bodies:
+        node.search(index, copy.deepcopy(b))
+    torch.cuda.synchronize()
+    ms = []
+    for r in range(reps):
+        b = copy.deepcopy(bodies[r % len(bodies)])
+        t = time.perf_counter()
+        node.search(index, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return np.array(ms)
+
+
+def _pcts(np, ms) -> str:
+    return (f"p50 {np.percentile(ms, 50):.3f} ms, p99 "
+            f"{np.percentile(ms, 99):.3f} ms over {len(ms)}")
+
+
+def _dev_line(np, prof, n, ms) -> str:
+    """Device time, kernels and copies a request over ``n`` profiled
+    requests, and the busy share against the mean of ``ms``."""
+    if prof is None:
+        return "device time not measured"
+    busy, kern, hd, dh, top = prof
+    return (f"device {busy / n:.3f} ms a request "
+            f"({100 * busy / n / ms.mean():.1f}% busy), {kern / n:.1f} "
+            f"kernels, {hd / n:.1f} copies in and {dh / n:.1f} back; top: "
+            + "; ".join(top[:3]))
+
+
+def _profile_bodies(torch, node, index, bodies):
+    return profile_path(torch, lambda: [node.search(index, copy.deepcopy(b))
+                                        for b in bodies])
+
+
+def _hold_no_retired(node, retired, what):
+    """The executors hold no retired segment; the ``segments`` breaker
+    holds exactly the live segments' charges, ``fielddata`` the live
+    segments' and the executors' caches'. Returns the two byte counts."""
+    segs = [seg for svc in node.indices.values() for s in svc.shards
+            for seg in s.segments]
+    execs = [svc._mesh_executor for svc in node.indices.values()
+             if svc._mesh_executor is not None]
+    held = set().union(*[ex.cached_segments() for ex in execs])
+    _hold(not (held & retired), f"{what}: an executor holds a retired "
+          f"segment", "5h")
+    seg_used = node.breakers.breaker("segments").used
+    fd_used = node.breakers.breaker("fielddata").used
+    want_fd = sum(s.fielddata_bytes() for s in segs) + sum(
+        ex.data_bytes() + sum(rd.nbytes for rd in ex._prep.values())
+        for ex in execs)
+    _hold(seg_used == sum(s.memory_bytes() for s in segs),
+          f"{what}: segments breaker {seg_used} != the live segments' "
+          f"{sum(s.memory_bytes() for s in segs)}", "5h")
+    _hold(fd_used == want_fd, f"{what}: fielddata breaker {fd_used} != "
+          f"{want_fd}", "5h")
+    return seg_used, fd_used
+
+
+def _f64_dfs(np, searchers, body, k):
+    """The want-response of a dfs ``match`` (or-group) over ``searchers``
+    in f64: idf from the df and doc counts summed over every searched
+    segment, BM25 tf-normalisation from each segment's own lengths and
+    average length, the host loop's order (-score, shard, local)."""
+    from elasticsearch_tpu_torch.index.segment import B, K1
+
+    terms = list(dict.fromkeys(body["query"]["match"]["body"].split()))
+    segs = [(pos, seg) for pos, s in enumerate(searchers)
+            for seg in s.segments]
+    n_all = sum(seg.inverted["body"].num_docs for _, seg in segs
+                if "body" in seg.inverted)
+    df = {t: sum(int(seg.inverted["body"].df[seg.inverted["body"].vocab[t]])
+                 for _, seg in segs if t in seg.inverted["body"].vocab)
+          for t in terms}
+    cands, total = [], 0
+    for pos, seg in segs:
+        inv = seg.inverted["body"]
+        dl = seg.field_lengths["body"].cpu().numpy().astype(np.float64)
+        score = np.zeros(seg.max_docs, np.float64)
+        hit = np.zeros(seg.max_docs, bool)
+        for t in terms:
+            if t not in inv.vocab:
+                continue
+            tid = inv.vocab[t]
+            lo, hi = int(inv.offsets[tid]), int(inv.offsets[tid + 1])
+            docs = inv.doc_ids_host[lo:hi].astype(np.int64)
+            tf = inv.tf_host[lo:hi].astype(np.float64)
+            tfn = tf * (K1 + 1.0) / (tf + K1 * (1.0 - B + B * dl[docs]
+                                                 / inv.avg_len))
+            idf = np.log(1.0 + (n_all - df[t] + 0.5) / (df[t] + 0.5))
+            score[docs] += idf * tfn
+            hit[docs] = True
+        hit &= seg.live_host
+        total += int(hit.sum())
+        for i in np.nonzero(hit)[0].tolist():
+            cands.append((-score[i], pos, i, seg.ids[i], score[i]))
+    cands.sort(key=lambda c: c[:3])
+    return {"hits": {"total": total, "hits": [
+        {"_id": c[3], "_score": c[4]} for c in cands[:k]]}}
+
+
+def phase_writepath(torch, np, dev, card):
+    """Phase 5h: the write path and merges on the card. WP_DOCS generated
+    documents (``wp_docs``) go through ``Node.index`` into ``logs-a``
+    (five shards) with a refresh every WP_DOCS / WP_REFRESHES docs, so
+    each shard gets ~32 fresh segments that the tiered policy (8 a tier)
+    folds into ~4; ``logs-b`` takes a further 1/WP_B_SHARE. Checks, each
+    held on the card: the mesh's deep page past the round's padded
+    width (C1); B1 on merged segments; after ``force_merge(1)`` and after
+    a delete-reclaim merge, responses byte-identical to one-refresh
+    rebuilds of the live docs in each merged segment's order (C2); no
+    retired segment in the executors and the breakers at the live
+    segments' bytes after each merge; dfs on one index alike on both
+    routes and, over two indices, against an f64 scorer; multi-index
+    search, ``indices_boost`` and ``fields`` against a CPU Node on a
+    WP_PREFIX-doc prefix; the request cache's hit, byte-equality and
+    invalidation. Prints the ingest rate, refresh and merge times, the
+    breaker bytes and the read p50/p99s. Returns B1's launches."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.monitor import kernels as counters
+    from elasticsearch_tpu_torch.ops import bm25_topk
+
+    t_phase = time.perf_counter()
+    docs = wp_docs(np, WP_DOCS, SEED)
+    docs_b = wp_docs(np, WP_DOCS // WP_B_SHARE, SEED + 1, start=WP_DOCS)
+    log(f"[5h] {len(docs)} + {len(docs_b)} docs generated in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    bm25_topk.LAUNCHES = 0
+    node = Node(name="writes", device=dev)
+    for name in ("logs-a", "logs-b"):
+        node.create_index(name, {"settings": {"number_of_shards": WP_SHARDS},
+                                 "mappings": WP_MAPPING})
+    svc = node.indices["logs-a"]
+    every = WP_DOCS // WP_REFRESHES
+    refresh_ms, merges = [], []
+    c1 = None
+    t0 = time.perf_counter()
+    for j, (doc_id, src) in enumerate(docs):
+        node.index("logs-a", doc_id, src)
+        if (j + 1) % every:
+            continue
+        before = [(s.engine.stats.merge_total, s.engine.stats.merge_docs,
+                   s.engine.stats.merge_time_ms) for s in svc.shards]
+        t = time.perf_counter()
+        node.refresh("logs-a")
+        torch.cuda.synchronize()
+        refresh_ms.append((time.perf_counter() - t) * 1e3)
+        for s, (m, d, ms) in zip(svc.shards, before):
+            st = s.engine.stats
+            if st.merge_total > m:
+                merges.append((st.merge_time_ms - ms, st.merge_docs - d))
+        if (j + 1) // every == 7:
+            # C1: seven fresh segments a shard; a page past the rounds'
+            # padded width needs more candidates than one slot's width
+            t_c1 = time.perf_counter()
+            width = max(seg.max_docs for s in svc.shards
+                        for seg in s.segments)
+            deep = {"query": {"match_all": {}},
+                    "from": min(9990, j + 1 - 10), "size": 10}
+            _hold(deep["from"] > width, "C1: the page is not past the "
+                  "round's width", "5h")
+            counters.reset()
+            mesh = node.search("logs-a", copy.deepcopy(deep))
+            _hold(counters.snapshot().get("mesh_search") == 1,
+                  "C1: the deep page did not run on the mesh", "5h")
+            with _host_loop():
+                host = node.search("logs-a", copy.deepcopy(deep))
+            _hold(len(mesh["hits"]["hits"]) == 10 and _strip_took(mesh)
+                  == _strip_took(host), "C1: the mesh's deep page is not "
+                  "the host loop's full page", "5h")
+            c1 = (deep["from"], width, mesh["hits"]["total"],
+                  (time.perf_counter() - t_c1) * 1e3)
+            t0 += time.perf_counter() - t_c1  # not part of the ingest
+    ingest_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    for doc_id, src in docs_b:
+        node.index("logs-b", doc_id, src)
+    node.refresh("logs-b")
+    b_s = time.perf_counter() - t
+    layout = [len(s.segments) for s in svc.shards]
+    log(f"[5h] C1 on {card}: match_all from {c1[0]} on the mesh, round "
+        f"width {c1[1]}, {c1[2]} docs: the full page, byte-identical to "
+        f"the host loop ({c1[3]:.1f} ms for both)")
+    rm = np.array(refresh_ms)
+    log(f"[5h] ingest on {card}: {WP_DOCS} docs through Node.index into "
+        f"logs-a ({WP_SHARDS} shards) in {ingest_s:.1f} s with "
+        f"{len(rm)} refreshes and {len(merges)} tier merges counted in: "
+        f"{WP_DOCS / ingest_s:.0f} docs/s; refresh p50 "
+        f"{np.percentile(rm, 50):.1f} ms, p99 {np.percentile(rm, 99):.1f} "
+        f"ms; segments a shard {layout}; logs-b {len(docs_b)} docs in "
+        f"{b_s:.1f} s")
+    log(f"[5h] tier merges on {card} (ms, docs): " + ", ".join(
+        f"({ms:.1f}, {d})" for ms, d in merges))
+
+    # B1 on merged segments, reads with ~4 segments a shard
+    match = [{"query": {"match": {"body": f"t{a} t{b}"}}}
+             for a, b in ((0, 3), (1, 6), (2, 9), (4, 12), (5, 20),
+                          (7, 33), (8, 60), (11, 99))]
+    tier_merged = {id(seg) for s in svc.shards for seg in s.segments
+                   if seg.num_docs > every}
+    _hold(bool(tier_merged), "no tier-merged segment to search", "5h")
+    counters.reset()
+    b1 = bm25_topk.LAUNCHES
+    node.search("logs-a", copy.deepcopy(WP_BODIES["match"]))
+    snap = counters.snapshot()
+    _hold(snap.get("mesh_search") == 1 and snap.get("bm25_fused_topk", 0)
+          >= len(layout) and bm25_topk.LAUNCHES > b1,
+          f"B1 did not serve the merged segments on the mesh: {snap}", "5h")
+
+    ms4 = _wp_time(np, torch, node, "logs-a", match)
+    prof4 = _profile_bodies(torch, node, "logs-a", match)
+    dfs = [dict(b, search_type="dfs_query_then_fetch") for b in WP_DFS]
+    for b, plain in zip(dfs, WP_DFS):
+        got = node.search("logs-a", copy.deepcopy(b))
+        with _host_loop():
+            host = node.search("logs-a", copy.deepcopy(b))
+        check_hits(got, host, f"5h dfs mesh vs host loop {b}")
+        check_hits(got, _f64_dfs(np, [s.searcher for s in svc.shards], b,
+                                 10), f"5h dfs vs f64 {b}")
+        two = node.search("logs-a,logs-b", copy.deepcopy(b))
+        check_hits(two, _f64_dfs(np, [s.searcher for n in ("logs-a",
+                                                            "logs-b")
+                                      for s in node.indices[n].shards], b,
+                                 10), f"5h dfs over two indices vs f64 {b}")
+        _hold(node.search("logs-a", copy.deepcopy(plain))["hits"]["hits"]
+              != got["hits"]["hits"], "dfs changed no score", "5h")
+
+    dfs_ms = _wp_time(np, torch, node, "logs-a", dfs)
+    qtf_ms = _wp_time(np, torch, node, "logs-a", WP_DFS)
+    prof_dfs = _profile_bodies(torch, node, "logs-a", dfs)
+    multi = [{"query": {"match": {"body": f"t{a} t{b}"}}, "size": 10}
+             for a, b in ((2, 150), (0, 44), (9, 700), (3, 31))]
+    multi_ms = _wp_time(np, torch, node, "logs-*", multi)
+    prof_multi = _profile_bodies(torch, node, "logs-*", multi)
+    log(f"[5h] reads on {card}, {layout} segments a shard: match on the "
+        f"mesh {_pcts(np, ms4)} requests, "
+        f"{_dev_line(np, prof4, len(match), ms4)}")
+    log(f"[5h] dfs on {card}: p50 {np.percentile(dfs_ms, 50):.3f} ms "
+        f"against query_then_fetch p50 {np.percentile(qtf_ms, 50):.3f} ms "
+        f"on the mesh ({len(dfs)} bodies; the same hits on the mesh and "
+        f"the host loop, within 1e-5 of the f64 scorer on logs-a and on "
+        f"logs-a,logs-b), {_dev_line(np, prof_dfs, len(dfs), dfs_ms)}")
+    log(f"[5h] multi-index on {card}: logs-* (two indices, ten shards, the "
+        f"host loop) {_pcts(np, multi_ms)} requests, "
+        f"{_dev_line(np, prof_multi, len(multi), multi_ms)}")
+
+    # force merge to one segment a shard
+    retired = {id(seg) for s in svc.shards for seg in s.segments}
+    seg0, fd0 = (node.breakers.breaker(b).used
+                 for b in ("segments", "fielddata"))
+    t = time.perf_counter()
+    svc.force_merge(1)
+    torch.cuda.synchronize()
+    fm_ms = (time.perf_counter() - t) * 1e3
+    seg1, fd1 = _hold_no_retired(node, retired, "force merge")
+    _hold([len(s.segments) for s in svc.shards] == [1] * WP_SHARDS,
+          "force merge left more than one segment a shard", "5h")
+    counters.reset()
+    b1 = bm25_topk.LAUNCHES
+    node.search("logs-a", copy.deepcopy(WP_BODIES["match"]))
+    snap = counters.snapshot()
+    _hold(snap.get("mesh_search") == 1 and snap.get("bm25_fused_topk") ==
+          WP_SHARDS and bm25_topk.LAUNCHES == b1 + WP_SHARDS,
+          f"B1 did not serve the force-merged segments: {snap}", "5h")
+    ms1 = _wp_time(np, torch, node, "logs-a", match)
+    prof1 = _profile_bodies(torch, node, "logs-a", match)
+    log(f"[5h] force merge on {card}: {svc.num_docs} docs into one segment "
+        f"a shard in {fm_ms:.1f} ms; breakers segments {seg0} -> {seg1} "
+        f"bytes, fielddata {fd0} -> {fd1} bytes (each equal to the live "
+        f"segments' and caches' charges; no retired segment cached)")
+    log(f"[5h] reads on {card}, one segment a shard: match on the mesh "
+        f"{_pcts(np, ms1)} requests, {_dev_line(np, prof1, len(match), ms1)}")
+
+    # C2: responses byte-identical to one-refresh rebuilds
+    def rebuild(label):
+        fresh = Node(name=label, device=dev)
+        fresh.create_index("logs-a", {"settings": {
+            "number_of_shards": WP_SHARDS}, "mappings": WP_MAPPING})
+        for s in svc.shards:
+            for seg in s.segments:
+                live = seg.live_host
+                for local, doc_id in enumerate(seg.ids):
+                    if live[local]:
+                        fresh.index("logs-a", doc_id, seg.sources[local])
+        fresh.refresh("logs-a")
+        want = [len(s.segments) for s in svc.shards]
+        _hold([len(s.segments) for s in fresh.indices["logs-a"].shards]
+              == want, f"{label}: the rebuild's layout differs", "5h")
+        return fresh
+
+    def hold_bytes(fresh, what):
+        for name, body in WP_BODIES.items():
+            for route in ("mesh", "host"):
+                with (_host_loop() if route == "host"
+                      else contextlib.nullcontext()):
+                    got = node.search("logs-a", copy.deepcopy(body))
+                    want = fresh.search("logs-a", copy.deepcopy(body))
+                _hold(_strip_took(got) == _strip_took(want) and
+                      got["hits"]["hits"], f"{what} {name} {route}: not "
+                      "byte-identical to the rebuild", "5h")
+
+    t = time.perf_counter()
+    fresh = rebuild("rebuild")
+    hold_bytes(fresh, "C2 force merge")
+    fresh.close()
+    rb1 = time.perf_counter() - t
+    shard0 = svc.shards[0]
+    (seg,) = shard0.segments
+    victims = [d for i, d in enumerate(seg.ids) if i % 10 < 10 * WP_RECLAIM]
+    retired = {id(seg)}
+    m0 = shard0.engine.stats.merge_total
+    t = time.perf_counter()
+    for doc_id in victims:
+        node.delete("logs-a", doc_id)
+    node.refresh("logs-a")
+    torch.cuda.synchronize()
+    reclaim_ms = (time.perf_counter() - t) * 1e3
+    st = shard0.engine.stats
+    _hold(st.merge_total == m0 + 1 and shard0.segments[0].deleted_count == 0,
+          "the delete-reclaim merge did not fire", "5h")
+    _hold_no_retired(node, retired, "reclaim merge")
+    t = time.perf_counter()
+    fresh = rebuild("rebuild2")
+    hold_bytes(fresh, "C2 reclaim")
+    fresh.close()
+    rb2 = time.perf_counter() - t
+    log(f"[5h] C2 on {card}: after force_merge(1) and after deleting "
+        f"{len(victims)} of shard 0's {seg.num_docs} docs (a reclaim merge "
+        f"of {shard0.segments[0].num_docs} docs; deletes, refresh and "
+        f"merge {reclaim_ms:.1f} ms), {len(WP_BODIES)} bodies on both "
+        f"routes byte-identical to one-refresh rebuilds of the live docs "
+        f"in merged order (rebuilds and checks {rb1:.1f} s and {rb2:.1f} "
+        f"s); no retired segment cached")
+
+    # multi-index, indices_boost and fields against a CPU Node
+    t = time.perf_counter()
+    pair = [Node(name="mi-card", device=dev), Node(name="mi-cpu",
+                                                   device="cpu")]
+    pre = docs[:WP_PREFIX]
+    pre_b = docs_b[: WP_PREFIX // WP_B_SHARE]
+    for n in pair:
+        for name, part in (("logs-a", pre), ("logs-b", pre_b)):
+            n.create_index(name, {"settings": {
+                "number_of_shards": WP_SHARDS}, "mappings": WP_MAPPING})
+            step = max(1, len(part) // WP_REFRESHES)
+            for j, (doc_id, src) in enumerate(part):
+                n.index(name, doc_id, src)
+                if (j + 1) % step == 0:
+                    n.refresh(name)
+            n.refresh(name)
+    for expr, body in (
+            ("logs-*", {"query": {"match": {"body": "t2 t150"}},
+                        "size": 20}),
+            ("logs-a,logs-b", {"query": {"match": {"body": "t0 t77"}},
+                               "indices_boost": {"logs-b": 2.5},
+                               "fields": ["tag", "n"], "size": 20}),
+            ("_all", dict(WP_DFS[0], search_type="dfs_query_then_fetch",
+                          stored_fields=["ts"])),
+            ("l*-b", {"query": {"term": {"tag": "g4"}}, "fields": "n"})):
+        got, want = (n.search(expr, copy.deepcopy(body)) for n in pair)
+        check_hits(got, want, f"5h {expr} card vs CPU")
+        _hold([(h["_index"], h.get("fields")) for h in got["hits"]["hits"]]
+              == [(h["_index"], h.get("fields"))
+                  for h in want["hits"]["hits"]],
+              f"5h {expr}: indices or fields differ from the CPU", "5h")
+    for n in pair:
+        n.close()
+    log(f"[5h] multi-index on {card}: logs-*, a comma list with "
+        f"indices_boost and fields, _all with dfs and stored_fields, and a "
+        f"wildcard equal a CPU Node fed the same writes (a {WP_PREFIX}-doc "
+        f"prefix of logs-a and {len(pre_b)} docs of logs-b; "
+        f"{time.perf_counter() - t:.1f} s)")
+
+    # the request cache
+    agg = {"size": 0, "_query_cache": True,
+           "query": {"match": {"body": "t4 t8"}},
+           "aggs": {"tags": {"terms": {"field": "tag"}},
+                    "n": {"avg": {"field": "n"}}}}
+    first = node.search("logs-a", copy.deepcopy(agg))
+    second = node.search("logs-a", copy.deepcopy(agg))
+    _hold(svc.query_cache_stats == {"hits": 1, "misses": 1, "evictions": 0}
+          and json.dumps(first) == json.dumps(second),
+          f"request cache: {svc.query_cache_stats}", "5h")
+    hit_ms = _wp_time(np, torch, node, "logs-a", [agg])
+    node.index("logs-a", "new", {"body": "t4 t8", "tag": "g1", "n": 5,
+                                 "ts": TAXI_YEAR})
+    node.refresh("logs-a")
+    misses = svc.query_cache_stats["misses"]
+    third = node.search("logs-a", copy.deepcopy(agg))
+    _hold(svc.query_cache_stats["misses"] == misses + 1 and
+          third["hits"]["total"] == first["hits"]["total"] + 1,
+          "request cache: a write and a refresh did not miss", "5h")
+    miss_ms = _wp_time(np, torch, node, "logs-a",
+                       [dict(agg, _query_cache=False)], reps=WP_REPS // 4)
+    log(f"[5h] request cache on {card}: a size-0 terms+avg body, the second "
+        f"call a hit byte-equal to the first, a write and refresh a miss; "
+        f"hit {_pcts(np, hit_ms)}, uncached p50 "
+        f"{np.percentile(miss_ms, 50):.3f} ms")
+    node.close()
+    b1 = bm25_topk.LAUNCHES
+    log(f"[5h] B1 launched {b1} times in 5h; phase 5h took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return b1
+
+
 def _cprofile_rows(st, key, n, per=1):
     """The top ``n`` of a pstats.Stats by ``key`` ("cum" or "own") as
     lines of calls, own ms, cumulative ms (each divided by ``per``) and
@@ -3559,6 +4053,8 @@ def main() -> int:
                                               taxi_node, taxis)
     taxi_node.close()
     del taxi_node, taxis
+    torch.cuda.empty_cache()
+    launches["bm25_dense_topk"] += phase_writepath(torch, np, dev, card)
     torch.cuda.empty_cache()
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card),
               "knn_topk": timing_knn(torch, dev, card),

@@ -4,9 +4,13 @@ Port of elasticsearch_tpu/index/engine.py for the slice: versioned
 index/get/delete with optimistic concurrency, realtime GET from the
 not-yet-refreshed buffer, tombstone deletes, NRT refresh (the buffer
 freezes into an immutable device-resident segment), the per-segment
-``segments`` breaker charge, and translog append and replay with
-(primary term, seq no) identity. Updates, merges, TTL purging, peer
-recovery and replication are not in the slice yet (ROADMAP).
+``segments`` breaker charge, translog append and replay with (primary
+term, seq no) identity, and merges: after each refresh that froze a
+segment the tiered policy (``index/merge.py``) may fold a tier, or a
+segment with too many deletes, into one new segment built on the
+node's device from the live docs' sources; ``merge()`` with no subset
+is the force merge. Updates, TTL purging, peer recovery and replication
+are not in the slice yet (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from elasticsearch_tpu_torch.analysis.registry import AnalysisRegistry
 from elasticsearch_tpu_torch.index.doc_parser import DocumentParser
 from elasticsearch_tpu_torch.index.mappings import Mappings
+from elasticsearch_tpu_torch.index.merge import TieredMergePolicy
 from elasticsearch_tpu_torch.index.segment import SegmentBuilder, TpuSegment
 from elasticsearch_tpu_torch.index.seqno import (NO_OPS_PERFORMED,
                                                  UNASSIGNED_SEQ_NO,
@@ -50,6 +55,10 @@ class EngineStats:
     delete_total: int = 0
     get_total: int = 0
     refresh_total: int = 0
+    # ES 2.0's merge stats: merges run, docs they wrote, their time
+    merge_total: int = 0
+    merge_docs: int = 0
+    merge_time_ms: float = 0.0
 
 
 class Engine:
@@ -75,6 +84,10 @@ class Engine:
         self.seq = LocalCheckpointTracker()
         self._term_seq: Dict[int, int] = {}
         self._auto_id = 0
+        self.merge_policy = TieredMergePolicy()
+        # a segment lost docs since the last refresh: the next refresh
+        # runs the merge check even when it freezes nothing
+        self._deletes_pending = False
 
     # -- sequence numbers --------------------------------------------------------
 
@@ -226,6 +239,7 @@ class Engine:
             for seg in self.segments:
                 if seg.seg_id == loc.where:
                     seg.delete_local(loc.local_id)
+                    self._deletes_pending = True
                     break
 
     # -- read path -------------------------------------------------------------
@@ -263,16 +277,29 @@ class Engine:
     # -- lifecycle -------------------------------------------------------------
 
     def refresh(self) -> bool:
-        """Freeze the buffer into a new searchable segment (NRT refresh)."""
+        """Freeze the buffer into a new searchable segment (NRT refresh),
+        then run the merge check. A refresh that freezes nothing runs it
+        too when segments lost docs since the last one, as Lucene's NRT
+        reopen does after it applies deletes (the reference returns
+        first, so its deletion-heavy segments wait for the next write).
+        Returns whether a segment was frozen or merged."""
         with self._lock:
             live_docs = [d for d in self.buffer.docs if d is not None]
             if not live_docs:
-                return False
+                pending, self._deletes_pending = self._deletes_pending, False
+                return self.maybe_merge() if pending else False
             fresh = SegmentBuilder(self.mappings, self.residency)
             for d in live_docs:
                 fresh.add(d)
             seg = fresh.freeze()
-            self._charge_segment(seg)
+            try:
+                self._charge_segment(seg)
+            except CircuitBreakingException:
+                # reclaim before giving up: a merge of deleted docs is the
+                # one path that frees segment budget, and maybe_merge
+                # otherwise runs only after a successful refresh
+                self.maybe_merge()
+                self._charge_segment(seg)
             self.segments.append(seg)
             for doc_id, local in seg.id_map.items():
                 loc = self._locations.get(doc_id)
@@ -283,7 +310,63 @@ class Engine:
             self.buffer = SegmentBuilder(self.mappings, self.residency)
             self._buffer_ids.clear()
             self.stats.refresh_total += 1
+            self._deletes_pending = False
+            self.maybe_merge()
             return True
+
+    def merge(self, max_segments: Optional[int] = None,
+              subset: Optional[List[TpuSegment]] = None) -> bool:
+        """Merge segments by re-parsing their live docs' sources into one
+        new segment. With ``subset``: the policy's partial merge, whose
+        output follows the segments it keeps; without: the force merge,
+        every segment in order into one (nothing to do at or below
+        ``max_segments``). Returns whether it merged."""
+        with self._lock:
+            if subset is None and len(self.segments) <= (max_segments or 1):
+                return False
+            t0 = time.perf_counter()
+            targets = list(subset) if subset is not None \
+                else list(self.segments)
+            target_ids = {s.seg_id for s in targets}
+            builder = SegmentBuilder(self.mappings, self.residency)
+            for seg in targets:
+                live = seg.live_host
+                for local, doc_id in enumerate(seg.ids):
+                    if live[local]:
+                        loc = self._locations[doc_id]
+                        builder.add(self.parser.parse(
+                            doc_id, seg.sources[local], routing=loc.routing,
+                            doc_type=loc.doc_type))
+            merged = builder.freeze()
+            keep = [s for s in self.segments if s.seg_id not in target_ids]
+            # release, then charge: a merge nets memory down, so its charge
+            # is forced; only new data (a refresh) can trip the breaker
+            br = self.residency.breakers.breaker("segments")
+            for s in targets:
+                br.release(getattr(s, "_charged", 0))
+                s._charged = 0
+                self.residency.release(s.fielddata_bytes())
+            if merged is not None:
+                merged._charged = merged.memory_bytes()
+                br.force(merged._charged)
+                keep.append(merged)
+                for doc_id, local in merged.id_map.items():
+                    loc = self._locations.get(doc_id)
+                    if loc is not None and not loc.deleted:
+                        loc.where = merged.seg_id
+                        loc.local_id = local
+            self.segments[:] = keep  # in place: the searcher shares it
+            self.stats.merge_total += 1
+            self.stats.merge_docs += len(builder)
+            self.stats.merge_time_ms += (time.perf_counter() - t0) * 1e3
+            return True
+
+    def maybe_merge(self) -> bool:
+        """The merge check after a refresh (ES's maybeMerge through its
+        merge scheduler; synchronous here): one policy merge at most."""
+        with self._lock:
+            found = self.merge_policy.find_merge(self.segments)
+            return self.merge(subset=found) if found else False
 
     def add_segment(self, seg: TpuSegment) -> None:
         """Serve an already-built segment (index/convert.py): its docs

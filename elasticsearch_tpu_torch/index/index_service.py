@@ -7,14 +7,26 @@ sequence of launches per segment round over every shard) and takes the
 host query-then-fetch loop when the mesh declines, as the reference
 does. ``index.search.mesh: false`` in the index settings, or the
 ``ESTPU_DISABLE_MESH`` environment variable, pins an index to the host
-loop. The query cache, slowlog, replicas and percolator are not ported
-yet.
+loop.
+
+``search_type: dfs_query_then_fetch`` first collects the index-wide
+term statistics (``global_stats``) and scores every segment with them on
+either route. The request cache (``_query_cache`` on the body, or the
+index setting ``index.cache.query.enable``) keeps up to 256 ``size: 0``
+responses keyed by the body and every shard's (index, delete, refresh,
+merge) counters, so a write, a refresh or a merge moves the key. ``force_merge`` folds each shard's segments into one. The slowlog,
+replicas and percolator are not ported yet.
 """
 from __future__ import annotations
 
+import copy
+import json
 import os
+import re
+import threading
 import uuid
-from typing import List, Optional
+from collections import OrderedDict
+from typing import List, Optional, Tuple
 
 from elasticsearch_tpu_torch.analysis.registry import AnalysisRegistry
 from elasticsearch_tpu_torch.cluster.routing import shard_id_for
@@ -24,12 +36,21 @@ from elasticsearch_tpu_torch.parallel.executor import MeshSearchExecutor
 from elasticsearch_tpu_torch.parallel.mesh import shard_mesh
 from elasticsearch_tpu_torch.parallel.mesh_service import try_mesh_search
 from elasticsearch_tpu_torch.resources.residency import Residency
+from elasticsearch_tpu_torch.search.context import GlobalStats, global_stats
 from elasticsearch_tpu_torch.search.service import search_shards
 from elasticsearch_tpu_torch.utils.errors import (IllegalArgumentException,
                                                   MapperParsingException)
 
 
+#: now-relative date math in a serialised body ("now", "now-1d", "now/d");
+#: plain words such as "nowhere" still cache
+_NOW = re.compile(r'"now(?:["+/\-]|\\)', re.IGNORECASE)
+
+
 class IndexService:
+    #: request cache entries kept per index (LRU)
+    QUERY_CACHE_CAP = 256
+
     def __init__(self, name: str, residency: Residency,
                  settings: Optional[dict] = None,
                  mappings_json: Optional[dict] = None,
@@ -47,6 +68,9 @@ class IndexService:
                        data_path)
             for i in range(self.num_shards)]
         self._mesh_executor: Optional[MeshSearchExecutor] = None
+        self._query_cache: "OrderedDict[Tuple, dict]" = OrderedDict()
+        self._qc_lock = threading.Lock()
+        self.query_cache_stats = {"hits": 0, "misses": 0, "evictions": 0}
         if data_path:
             for shard in self.shards:
                 shard.recover()
@@ -119,6 +143,26 @@ class IndexService:
     def refresh(self):
         for s in self.shards:
             s.refresh()
+        self._drop_retired()
+
+    def force_merge(self, max_num_segments: int = 1) -> None:
+        """Fold each shard's segments, in order, into one (ES 2.0's
+        ``_optimize`` with ``max_num_segments``; a shard at or below it
+        is left as it is)."""
+        for s in self.shards:
+            s.engine.merge(max_segments=max_num_segments)
+        self._drop_retired()
+
+    def _drop_retired(self) -> None:
+        """A merge retired segments: the mesh executor lets go of their
+        stacked copies and prepared rounds, and of those charges."""
+        if self._mesh_executor is not None:
+            self._mesh_executor.drop_retired()
+
+    def global_stats(self) -> GlobalStats:
+        """The dfs phase: the index-wide doc counts and doc freqs that
+        give every shard's segments one idf."""
+        return global_stats(seg for s in self.shards for seg in s.segments)
 
     def mesh_executor(self) -> MeshSearchExecutor:
         """The index's MeshSearchExecutor: one slot per shard on the
@@ -138,15 +182,86 @@ class IndexService:
         return str(idx.get("search", {}).get("mesh", True)).lower() \
             != "false"
 
+    # -- the request cache ---------------------------------------------------
+
+    def _query_cache_enabled(self) -> bool:
+        idx = self.settings.get("index", self.settings)
+        v = idx.get("cache.query.enable", idx.get("index.cache.query.enable"))
+        if v is None and isinstance(idx.get("cache"), dict):
+            v = idx["cache"].get("query", {}).get("enable")
+        return str(v).lower() in ("1", "true")
+
+    def _query_cache_key(self, body: dict):
+        """The request cache's key of a cacheable body, else None: only
+        ``size: 0``, and never a scroll, a profile, dfs, a scan or
+        now-relative date math; ``_query_cache`` on the body overrides
+        the index setting."""
+        override = body.get("_query_cache")
+        if override is False:
+            return None
+        if override is None and not self._query_cache_enabled():
+            return None
+        if int(body.get("size", 10)) != 0 or body.get("scroll") \
+                or body.get("profile"):
+            return None
+        if body.get("search_type") in ("dfs_query_then_fetch", "scan"):
+            return None
+        try:
+            blob = json.dumps({k: v for k, v in body.items()
+                               if k != "_query_cache"}, sort_keys=True)
+        except TypeError:
+            return None  # a body that does not serialise is not cached
+        if _NOW.search(blob):
+            return None
+        # merge_total too: a force merge moves no other counter, and a
+        # float sum over one merged segment differs in its last bits from
+        # the sum over the segments it folded (the reference's key lacks
+        # it and serves the pre-merge answer; ROADMAP C)
+        gen = tuple((s.engine.stats.index_total, s.engine.stats.delete_total,
+                     s.engine.stats.refresh_total,
+                     s.engine.stats.merge_total) for s in self.shards)
+        return gen, blob
+
+    def clear_query_cache(self) -> None:
+        with self._qc_lock:
+            self._query_cache.clear()
+
+    # -- search -----------------------------------------------------------------
+
     def search(self, body: dict) -> dict:
+        """One index's search; ``search_type: dfs_query_then_fetch`` runs
+        the dfs phase first."""
         body = body or {}
+        dfs = body.get("search_type") == "dfs_query_then_fetch"
+        qc_key = None if dfs else self._query_cache_key(body)
+        if qc_key is not None:
+            with self._qc_lock:
+                hit = self._query_cache.get(qc_key)
+                if hit is not None:
+                    self._query_cache.move_to_end(qc_key)
+                    self.query_cache_stats["hits"] += 1
+                else:
+                    self.query_cache_stats["misses"] += 1
+            if hit is not None:
+                return copy.deepcopy(hit)
+        if "_query_cache" in body:
+            body = {k: v for k, v in body.items() if k != "_query_cache"}
+        gs = self.global_stats() if dfs else None
         searchers = [s.searcher for s in self.shards]
         resp = None
         if self._mesh_enabled():
             # the default path; the host loop serves what the mesh declines
-            resp = try_mesh_search(self, searchers, body)
+            resp = try_mesh_search(self, searchers, body, gs)
         if resp is None:
-            resp = search_shards(searchers, body, index_name=self.name)
+            resp = search_shards(searchers, body, index_name=self.name,
+                                 global_stats=gs)
+        if qc_key is not None:
+            entry = copy.deepcopy(resp)
+            with self._qc_lock:
+                self._query_cache[qc_key] = entry
+                if len(self._query_cache) > self.QUERY_CACHE_CAP:
+                    self._query_cache.popitem(last=False)
+                    self.query_cache_stats["evictions"] += 1
         return resp
 
     @property

@@ -387,6 +387,27 @@ class TpuSegment:
             total += vc.resident_bytes()
         return total
 
+    def fielddata_bytes(self) -> int:
+        """The bytes this segment has charged to the ``fielddata``
+        breaker so far: its doc-value and keyword columns, vector slabs
+        and placed PQ codes, the dense impact blocks and sort mirrors
+        built since. A merge releases them when it retires the
+        segment."""
+        ts = []
+        for col in self.numerics.values():
+            ts += [col.values, col.exists, col.hi, col.lo]
+        for kw in self.keywords.values():
+            ts += [kw.ords, kw.exists]
+        for vc in self.vectors.values():
+            ts += [vc.vecs, vc.exists, vc._pq.codes if vc._pq else None]
+        for inv in self.inverted.values():
+            if inv._dense:
+                ts.append(inv._dense[1])
+        with self._sort_lock:
+            ts += [m.key for m in self._sort_keys.values() if m is not None]
+        return sum(int(t.numel()) * t.element_size() for t in ts
+                   if t is not None)
+
 
 def _build_sort_keys(seg: TpuSegment, field: str) -> Optional[SortKeys]:
     """A numeric column's keys are its exact values (integers) or their
@@ -613,52 +634,48 @@ class SegmentBuilder:
         return vc
 
     def _build_inverted_text(self, fname: str, max_docs: int) -> InvertedField:
+        """The field's postings CSR: terms in first-seen order, each term's
+        postings by doc, each posting's positions in token order. The one
+        Python pass maps tokens to term ids; one stable sort by term id
+        then groups the (doc, position) stream into postings."""
         vocab: Dict[str, int] = {}
-        terms: List[str] = []
-        post: List[List[Tuple[int, int, List[int]]]] = []
-        total_terms = 0
+        lens = np.zeros(len(self.docs), dtype=np.int64)
+        tids: List[int] = []
+        poss: List[int] = []
         for i, d in enumerate(self.docs):
             toks = d.text_tokens.get(fname)
             if not toks:
                 continue
-            total_terms += len(toks)
-            per_term: Dict[int, List[int]] = {}
-            for t, p in toks:
-                tid = vocab.get(t)
-                if tid is None:
-                    tid = len(terms)
-                    vocab[t] = tid
-                    terms.append(t)
-                    post.append([])
-                per_term.setdefault(tid, []).append(p)
-            for tid, poss in per_term.items():
-                post[tid].append((i, len(poss), poss))
-
+            lens[i] = len(toks)
+            ts, ps = zip(*toks)
+            tids += [vocab.setdefault(t, len(vocab)) for t in ts]
+            poss += ps
+        terms = list(vocab)
         V = len(terms)
-        df = np.array([len(p) for p in post], dtype=np.int32) if V else np.zeros(0, np.int32)
-        cf = np.array([sum(tf for _, tf, _ in p) for p in post], dtype=np.int64) if V else np.zeros(0, np.int64)
-        nnz = int(df.sum())
-        ndocs_with_field = int(sum(1 for d in self.docs if d.text_tokens.get(fname)))
+        tid = np.asarray(tids, dtype=np.int64)
+        order = np.argsort(tid, kind="stable")
+        st = tid[order]
+        sd = np.repeat(np.arange(len(self.docs), dtype=np.int64), lens)[order]
+        L = int(st.size)
+        brk = np.ones(L, dtype=bool)
+        brk[1:] = (st[1:] != st[:-1]) | (sd[1:] != sd[:-1])
+        starts = np.nonzero(brk)[0]
+        tf = np.diff(np.append(starts, L))
+        doc_ids = sd[starts].astype(np.int32)
+        tf_arr = tf.astype(np.float32)
+        df = np.bincount(st[starts], minlength=V).astype(np.int32)
+        cf = np.bincount(st, minlength=V).astype(np.int64)
+        offsets = np.zeros(V + 1, dtype=np.int64)
+        offsets[1:] = np.cumsum(df)
+        pos_offsets = np.zeros(starts.size + 1, dtype=np.int64)
+        pos_offsets[1:] = np.cumsum(tf)
+        positions = np.asarray(poss, dtype=np.int32)[order]
+        total_terms = int(lens.sum())
+        ndocs_with_field = int(np.count_nonzero(lens))
         avg_len = (total_terms / ndocs_with_field) if ndocs_with_field else 1.0
 
-        doc_ids = np.full(nnz, 0, dtype=np.int32)
-        tf_arr = np.zeros(nnz, dtype=np.float32)
-        offsets = np.zeros(V + 1, dtype=np.int64)
-        pos_offsets = np.zeros(nnz + 1, dtype=np.int64)
-        positions_flat: List[int] = []
-        k = 0
-        for tid in range(V):
-            offsets[tid] = k
-            for doc, tf, poss in post[tid]:
-                doc_ids[k] = doc
-                tf_arr[k] = tf
-                positions_flat.extend(poss)
-                pos_offsets[k + 1] = len(positions_flat)
-                k += 1
-        offsets[V] = k
-
         # BM25 tf-normalization at index time; idf is applied at query time
-        dl = np.array([self.docs[i].field_length(fname) for i in doc_ids], dtype=np.float32) if nnz else np.zeros(0, np.float32)
+        dl = lens[doc_ids].astype(np.float32)
         tfnorm = tf_arr * (K1 + 1.0) / (tf_arr + K1 * (1.0 - B + B * dl / max(avg_len, 1e-9)))
         return make_inverted(
             fname, vocab=vocab, terms=terms, df=df, cf=cf, offsets=offsets,
@@ -666,8 +683,7 @@ class SegmentBuilder:
             tfnorm_host=tfnorm.astype(np.float32),
             num_docs=ndocs_with_field, total_terms=total_terms,
             avg_len=avg_len, max_docs=max_docs, residency=self.residency,
-            pos_offsets=pos_offsets,
-            positions=np.array(positions_flat, dtype=np.int32))
+            pos_offsets=pos_offsets, positions=positions)
 
     def _build_keyword(self, fname: str, max_docs: int):
         vocab: Dict[str, int] = {}

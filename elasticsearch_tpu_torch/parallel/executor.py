@@ -19,7 +19,9 @@ keyed by segment identity and charged to the ``fielddata`` breaker,
 released on eviction and on ``close``. A memo entry holds only the key
 of such a copy, never the copy, and looks it up again each time it runs
 (rebuilding it, charged, after an eviction). Dense impact blocks and
-vector slabs are never copied.
+vector slabs are never copied. A merge retires segments: after each
+refresh and force merge the index service has ``drop_retired`` let go
+of every entry that holds one, and of its charge.
 
 Routes inside a round:
 - a request that is a pure disjunctive term group on dense rows (the
@@ -175,7 +177,8 @@ class _Round:
     # route
     items: Optional[List[list]]
     meta: Dict[int, tuple]
-    kk: int
+    kk: int  # each slot's candidates: min(k, D)
+    kg: int  # the round's, over all its slots: min(k, S * kk)
     # per slot: (qw [1, R], rows [R], block, live, k) of B1's rows form,
     # or None for the generic route or an empty slot
     fused: List[Optional[tuple]]
@@ -255,6 +258,33 @@ class MeshSearchExecutor:
         with self._data_lock:
             return sum(e[2] for e in self._data.values())
 
+    def drop_retired(self) -> None:
+        """Drop every memo entry and stacked copy that holds a segment no
+        shard serves any more (a merge retired it), releasing their
+        charges. Their keys can never match again, and they would pin the
+        dead segments' tensors until the LRUs cycle."""
+        live = {id(seg) for sh in self.shards for seg in _segments_of(sh)}
+        with self._data_lock:
+            dead_data = [key for key, e in self._data.items()
+                         if any(id(s) not in live for s in e[1])]
+            data = [self._data.pop(key) for key in dead_data]
+        with self._prep_lock:
+            dead_prep = [key for key, rd in self._prep.items()
+                         if any(id(s) not in live for s in rd.refs)]
+            prep = [self._prep.pop(key) for key in dead_prep]
+        for e in data:
+            self.residency.release(e[2])
+        for rd in prep:
+            self.residency.release(rd.nbytes)
+
+    def cached_segments(self) -> set:
+        """ids of the segments the memo and the stacked-data LRU hold."""
+        with self._data_lock:
+            ids = {id(s) for e in self._data.values() for s in e[1]}
+        with self._prep_lock:
+            ids |= {id(s) for rd in self._prep.values() for s in rd.refs}
+        return ids
+
     def close(self) -> None:
         """Release every cached copy and memo entry and their charges."""
         with self._data_lock:
@@ -297,15 +327,16 @@ class MeshSearchExecutor:
                                      query, agg_specs, want_mask, sort_spec)
 
     def _build_round(self, compiled, mappings, analysis, seg_row, lut_shard,
-                     k: int) -> _Round:
+                     k: int, global_stats=None) -> _Round:
         """Build the prims' data and copy the round's tables to the card
         in one word buffer. A fused request builds its term group first:
         when no non-empty slot needs the generic route, nothing else is
-        built or copied."""
+        built or copied. With ``global_stats`` (dfs) every slot's term
+        weights take the index-wide idf."""
         D = compiled.D
         kk = min(k, D)
-        ctxs = [SegmentContext(s, mappings, analysis) if s is not None
-                else None for s in seg_row]
+        ctxs = [SegmentContext(s, mappings, analysis, global_stats)
+                if s is not None else None for s in seg_row]
         data = _SlotData(self, seg_row)
         items: List[list] = []
         meta: Dict[int, tuple] = {}
@@ -357,8 +388,9 @@ class MeshSearchExecutor:
                 arg = words[offs[t]: offs[t] + 2 * R]
                 fused[s] = (arg[:R].view(torch.float32).view(1, R), arg[R:],
                             block, live, min(kk, seg_row[s].max_docs))
-        return _Round(compiled, env_items, meta, kk, fused, perm,
-                      words, [s for s in seg_row if s is not None])
+        return _Round(compiled, env_items, meta, kk,
+                      min(k, len(seg_row) * kk), fused, perm, words,
+                      [s for s in seg_row if s is not None])
 
     def _run_round(self, rd: _Round):
         """Launch the round: (its packed result, copied back once, the
@@ -439,11 +471,13 @@ class MeshSearchExecutor:
         if n == 1:
             return torch.cat([vals[0].contiguous().view(torch.int32),
                               ids[0], total] + counts).cpu().numpy(), mask
+        # the round's top kg over all its slots: a round of S slots can
+        # hold up to S * kk of a deep page's candidates
         perm = rd.perm.to(torch.int64)
         pv = vals.index_select(0, perm).reshape(-1)
         pi = ids.index_select(0, perm).reshape(-1)
         gv, gpos = torch.sort(pv, descending=True, stable=True)
-        gv, gpos = gv[:kk], gpos[:kk]
+        gv, gpos = gv[:rd.kg], gpos[:rd.kg]
         return torch.cat([gv.contiguous().view(torch.int32),
                           perm[gpos // kk].to(torch.int32), pi[gpos],
                           total] + counts).cpu().numpy(), mask
@@ -463,7 +497,7 @@ class MeshSearchExecutor:
             merged += [(v, lut_shard[0], lut_ord[0], i) for v, i in zip(
                 vals[0][ok].tolist(), ids[0][ok].tolist())]
             return int(total[0])
-        kk, n = rd.kk, len(rd.fused)
+        kk, kg, n = rd.kk, rd.kg, len(rd.fused)
         if rd.compiled.sort:
             ids = out[: n * kk].reshape(n, kk)
             end = n * kk + 2 * n
@@ -475,14 +509,14 @@ class MeshSearchExecutor:
                                .tolist()]
             total = int(counts.sum())
         else:
-            gvals = out[:kk].view(np.float32)
+            gvals = out[:kg].view(np.float32)
             ok = np.isfinite(gvals)
-            glocal = out[2 * kk: 3 * kk] if n > 1 else out[kk: 2 * kk]
-            gslot = out[kk: 2 * kk][ok].tolist() if n > 1 \
+            glocal = out[2 * kg: 3 * kg] if n > 1 else out[kg: 2 * kg]
+            gslot = out[kg: 2 * kg][ok].tolist() if n > 1 \
                 else [0] * int(ok.sum())
             merged += [(v, lut_shard[sl], lut_ord[sl], lc) for v, sl, lc
                        in zip(gvals[ok].tolist(), gslot, glocal[ok].tolist())]
-            end = (3 if n > 1 else 2) * kk + 2
+            end = (3 if n > 1 else 2) * kg + 2
             total = int(out[end - 2: end].view(np.int64)[0])
         for name, p in rd.compiled.agg_prims:
             width = rd.meta[p][0] + 1
@@ -497,7 +531,8 @@ class MeshSearchExecutor:
 
     def search_dsl(self, query, mappings, analysis, k: int, shards=None,
                    memo_key: Optional[Callable[[], Optional[bytes]]] = None,
-                   agg_specs=None, want_mask: bool = False, sort_spec=None):
+                   agg_specs=None, want_mask: bool = False, sort_spec=None,
+                   global_stats=None):
         """Execute a parsed query over the mesh: (cands, totals,
         agg_rounds, mask_rounds), cands a list of (score, shard, seg_ord,
         local) for the global top k in the host loop's order, totals the
@@ -517,7 +552,9 @@ class MeshSearchExecutor:
         (the reader the fetch phase will read); ``memo_key()`` gives the
         serialised request body that keys the prepared-query memo, or
         None. It is called once every round has compiled: a request the
-        mesh declines never pays for it."""
+        mesh declines never pays for it. ``global_stats`` (dfs) gives
+        every slot the index-wide idf; such a request never reads or
+        fills the memo, since its weights hold per-request statistics."""
         rows = self._rounds_for(self.shards if shards is None
                                 else list(shards))
         # every round compiles before any round launches
@@ -526,7 +563,8 @@ class MeshSearchExecutor:
         compiled = [self._compile(query, mappings, analysis, seg_row,
                                   agg_specs, want_mask, sort_spec)
                     for seg_row in seg_rows]
-        key = memo_key() if memo_key is not None else None
+        key = memo_key() if memo_key is not None and global_stats is None \
+            else None
         plans = []
         for rno, (row, seg_row) in enumerate(zip(rows, seg_rows)):
             prep_key = None
@@ -550,7 +588,7 @@ class MeshSearchExecutor:
             lut_ord = [e[1] if e is not None else 0 for e in row]
             if rd is None:
                 rd = self._build_round(compiled, mappings, analysis, seg_row,
-                                       lut_shard, k)
+                                       lut_shard, k, global_stats)
                 if prep_key is not None:
                     kernels.record("executor_prep_miss")
                     self._remember(prep_key, rd)
@@ -632,6 +670,7 @@ class MeshSearchExecutor:
         D = pow2_bucket(max((s.max_docs if s is not None else 1)
                             for s in seg_row))
         kk = min(k, D)
+        kg = min(k, S * kk)  # the round keeps up to k over all its slots
         data = _SlotData(self, seg_row)
         post, _ = PostingsPrim(field).build(seg_row, None, D, data)
         doc_ids, tfnorm = post[0](), post[1]()
@@ -672,7 +711,7 @@ class MeshSearchExecutor:
             flat_i = si.permute(1, 0, 2).reshape(n, S * kk)
             gv, gpos = torch.sort(flat_v, dim=1, descending=True,
                                   stable=True)
-            gv, gpos = gv[:, :kk], gpos[:, :kk]
+            gv, gpos = gv[:, :kg], gpos[:, :kg]
             outs.append(torch.cat([
                 gv.contiguous().view(torch.int32),
                 (gpos // kk).to(torch.int32),
@@ -680,10 +719,10 @@ class MeshSearchExecutor:
                 total.view(n, 1).view(torch.int32)], dim=1))
         kernels.record("bm25_scatter", Qr)
         out = torch.cat(outs).cpu().numpy()  # one copy back
-        slot = order[out[:, kk: 2 * kk]]
-        return (out[:, :kk].view(np.float32), lut_shard[slot],
-                out[:, 2 * kk: 3 * kk], lut_ord[slot],
-                out[:, 3 * kk:].view(np.int64)[:, 0])
+        slot = order[out[:, kg: 2 * kg]]
+        return (out[:, :kg].view(np.float32), lut_shard[slot],
+                out[:, 2 * kg: 3 * kg], lut_ord[slot],
+                out[:, 3 * kg:].view(np.int64)[:, 0])
 
     # -- kNN -------------------------------------------------------------------
 

@@ -32,7 +32,11 @@ string, from ``host_values``) in ``(tuple, shard, segment, local)``
 order, the host loop's, so the two routes answer byte for byte. The keys
 in ``_UNSUPPORTED_KEYS`` (scroll, search_after, min_score, profile,
 terminate_after, timeout, ...) keep a request on the host loop, as in
-the reference; highlight is a fetch-phase key and rides either route.
+the reference; highlight, ``fields`` and ``_name``'s
+``matched_queries`` are fetch-phase keys and ride either route.
+``dfs_query_then_fetch`` runs here too: the round's contexts take the
+index-wide statistics, and such a round never reads or fills the
+prepared-query memo.
 """
 from __future__ import annotations
 
@@ -64,10 +68,12 @@ _UNSUPPORTED_KEYS = ("rescore", "search_after", "min_score", "scroll",
 _BY_DESIGN = object()  # host path chosen on purpose (IVF probing, hybrid)
 
 
-def try_mesh_search(svc, searchers, body: dict) -> Optional[dict]:
+def try_mesh_search(svc, searchers, body: dict,
+                    global_stats=None) -> Optional[dict]:
     """Mesh-execute a search request; None → the caller uses the host
-    loop."""
-    resp = _try_mesh_search(svc, searchers, body)
+    loop. ``global_stats`` (``dfs_query_then_fetch``) gives the round's
+    term weights the index-wide idf."""
+    resp = _try_mesh_search(svc, searchers, body, global_stats)
     if resp is _BY_DESIGN:
         kernels.record("mesh_host_by_design")
         return None
@@ -142,7 +148,7 @@ def _canonical(body: dict) -> Optional[bytes]:
         return None
 
 
-def _try_mesh_search(svc, searchers, body: dict):
+def _try_mesh_search(svc, searchers, body: dict, global_stats=None):
     body = body or {}
     check_body(body)  # the host loop's typed refusal, raised here too
     for key in _UNSUPPORTED_KEYS:
@@ -172,7 +178,7 @@ def _try_mesh_search(svc, searchers, body: dict):
             agg_specs=[(a.name, a.body["field"]) for a in aggs]
             if device_aggs else None,
             want_mask=bool(aggs) and not device_aggs,
-            sort_spec=sort_spec or None)
+            sort_spec=sort_spec or None, global_stats=global_stats)
     except MeshCompileError as e:
         return _BY_DESIGN if e.by_design else None
 

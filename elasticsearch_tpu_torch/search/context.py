@@ -52,7 +52,42 @@ class GlobalStats:
     """Cross-shard term statistics for consistent idf (dfs phase)."""
 
     num_docs: Dict[str, int]  # field -> total docs with field
-    df: Dict[Tuple[str, str], int]  # (field, term) -> doc freq
+    df: "SegmentDf"  # .get((field, term), 0) -> doc freq
+
+
+class SegmentDf:
+    """(field, term) → the term's doc freq summed over a set of segments,
+    summed when first asked and kept: the dfs phase's ``df`` table
+    without a pass over every term of every segment, since a request
+    reads only its own terms."""
+
+    def __init__(self, segments):
+        self._segments = list(segments)
+        self._memo: Dict[Tuple[str, str], int] = {}
+
+    def get(self, key: Tuple[str, str], default: int = 0) -> int:
+        n = self._memo.get(key)
+        if n is None:
+            field, term = key
+            n = 0
+            for seg in self._segments:
+                inv = seg.inverted.get(field)
+                tid = inv.vocab.get(term) if inv is not None else None
+                if tid is not None:
+                    n += int(inv.df[tid])
+            self._memo[key] = n
+        return n or default
+
+
+def global_stats(segments) -> GlobalStats:
+    """The dfs phase over ``segments`` (every shard of every searched
+    index): per field the docs that hold it, per term its doc freq."""
+    segments = list(segments)
+    num_docs: Dict[str, int] = {}
+    for seg in segments:
+        for fname, inv in seg.inverted.items():
+            num_docs[fname] = num_docs.get(fname, 0) + inv.num_docs
+    return GlobalStats(num_docs=num_docs, df=SegmentDf(segments))
 
 
 class SegmentContext:

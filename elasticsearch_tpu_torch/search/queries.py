@@ -771,7 +771,51 @@ def _single_field(qtype, body):
 
 
 def parse_query(dsl: Optional[dict]) -> Query:
-    """Parse an ES query DSL dict into a Query tree."""
+    """Parse an ES query DSL dict into a Query tree. A ``_name`` key (on
+    the query body or a single-field spec) names the node for
+    ``matched_queries`` (``collect_named``; the fetch phase reports it)."""
+    name = None
+    if isinstance(dsl, dict) and len(dsl) == 1:
+        (qtype, qbody), = dsl.items()
+        if isinstance(qbody, dict):
+            body2 = dict(qbody)
+            name = body2.pop("_name", None)
+            if name is None and len(body2) == 1:
+                (f, spec), = body2.items()
+                if isinstance(spec, dict) and "_name" in spec:
+                    spec = dict(spec)
+                    name = spec.pop("_name")
+                    body2 = {f: spec}
+            if name is not None:
+                dsl = {qtype: body2}
+    q = _parse_query_inner(dsl)
+    if name is not None:
+        q._name = str(name)
+    return q
+
+
+def collect_named(q: Query, out: Optional[List[Tuple[str, Query]]] = None
+                  ) -> List[Tuple[str, Query]]:
+    """All (_name, node) pairs in a query tree (matched_queries)."""
+    if out is None:
+        out = []
+    nm = getattr(q, "_name", None)
+    if nm is not None:
+        out.append((nm, q))
+    for attr in ("must", "should", "must_not", "filter", "queries"):
+        v = getattr(q, attr, None)
+        if isinstance(v, (list, tuple)):
+            for c in v:
+                if isinstance(c, Query):
+                    collect_named(c, out)
+    for attr in ("inner", "positive", "negative", "no_match", "filter"):
+        c = getattr(q, attr, None)
+        if isinstance(c, Query):
+            collect_named(c, out)
+    return out
+
+
+def _parse_query_inner(dsl: Optional[dict]) -> Query:
     if dsl is None or dsl == {}:
         return MatchAllQuery()
     if not isinstance(dsl, dict) or len(dsl) != 1:

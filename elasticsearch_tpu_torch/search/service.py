@@ -5,9 +5,14 @@ may carry ``query``, ``from``/``size``, ``_source``, ``version``,
 ``rescore``, ``aggs`` / ``aggregations`` (``search/aggregations/``),
 ``sort`` and ``search_after``, ``min_score``, ``scroll`` (with
 ``search_type: scan``), ``highlight`` (``search/highlight.py``),
-``profile`` (``tracing/profiler.py``), ``terminate_after`` and
-``timeout``; any other key raises a typed SearchParseException that
-names the ROADMAP item bringing it (``check_body``).
+``profile`` (``tracing/profiler.py``), ``terminate_after``,
+``timeout``, ``fields`` / ``stored_fields``, ``indices_boost`` (applied
+in ``search_shards`` before the global merge), ``_query_cache`` (read by
+``IndexService``) and ``search_type: dfs_query_then_fetch`` (the
+caller's ``GlobalStats``); any other key raises a typed
+SearchParseException that names the ROADMAP item bringing it
+(``check_body``). A ``_name`` in the query adds ``matched_queries`` to
+each hit in the fetch phase.
 
 Per segment the query runs the fused dense-impact top-k (kernel B1) when
 the query is a pure-dense term group and nothing else reads the scores
@@ -40,6 +45,7 @@ as its complete merged candidate list. ``scroll_next`` and
 """
 from __future__ import annotations
 
+import fnmatch
 import time
 import uuid
 from contextlib import nullcontext
@@ -60,7 +66,9 @@ from elasticsearch_tpu_torch.search.highlight import (extract_query_terms,
                                                       highlight_field)
 from elasticsearch_tpu_torch.search.hybrid import (HybridQuery,
                                                    apply_hybrid_rerank)
-from elasticsearch_tpu_torch.search.queries import fused_bm25_topk, parse_query
+from elasticsearch_tpu_torch.search.queries import (collect_named,
+                                                    fused_bm25_topk,
+                                                    parse_query)
 from elasticsearch_tpu_torch.search.rescore import apply_rescore, parse_rescore
 from elasticsearch_tpu_torch.tracing import profiler
 from elasticsearch_tpu_torch.utils.errors import (
@@ -70,10 +78,14 @@ from elasticsearch_tpu_torch.utils.errors import (
 _SUPPORTED_KEYS = frozenset({
     "query", "size", "from", "_source", "version", "rescore", "aggs",
     "aggregations", "sort", "search_after", "min_score", "scroll",
-    "search_type", "highlight", "profile", "terminate_after", "timeout"})
-#: refused keys that come with A9 (the rest of the DSL); every other
-#: refused key or search_type is A6c's
-_A9_KEYS = frozenset({"script_fields", "suggest"})
+    "search_type", "highlight", "profile", "terminate_after", "timeout",
+    "fields", "stored_fields", "indices_boost", "_query_cache"})
+#: refused keys and the ROADMAP item that brings each: A9 (the rest of
+#: the DSL), A10 (the stats surface); every other refused key or
+#: search_type stays A6c's
+_KEY_ITEMS = {"script_fields": "A9", "suggest": "A9", "stats": "A10"}
+#: the search types the port serves
+_SEARCH_TYPES = ("query_then_fetch", "dfs_query_then_fetch", "scan")
 
 #: the clock of ``timeout`` (checked between segments)
 _clock = time.perf_counter
@@ -84,13 +96,12 @@ def check_body(body: dict) -> None:
     naming the ROADMAP item that brings it."""
     unsupported = sorted(set(body) - _SUPPORTED_KEYS)
     if unsupported:
-        items = sorted({"A9" if k in _A9_KEYS else "A6c"
-                        for k in unsupported})
+        items = sorted({_KEY_ITEMS.get(k, "A6c") for k in unsupported})
         raise SearchParseException(
             f"search request keys {unsupported} are not yet in the PyTorch "
             f"port (ROADMAP {', '.join(items)})")
     st = body.get("search_type")
-    if st is not None and st not in ("query_then_fetch", "scan"):
+    if st is not None and st not in _SEARCH_TYPES:
         raise SearchParseException(
             f"search_type [{st}] is not yet in the PyTorch port (ROADMAP "
             f"A6c)")
@@ -371,7 +382,8 @@ class ShardSearcher:
         src_filter = body.get("_source", True)
         want_version = bool(body.get("version", False))
         hl = body.get("highlight")
-        query = parse_query(body.get("query")) if hl else None
+        query = parse_query(body.get("query"))
+        stored_fields = body.get("stored_fields", body.get("fields"))
         hits = []
         for d in docs:
             tcol = d.seg.keywords.get("_type")
@@ -391,11 +403,37 @@ class ShardSearcher:
             filtered = _filter_source(src, src_filter)
             if filtered is not None:
                 hit["_source"] = filtered
+            if stored_fields:
+                _attach_fields(hit, d.seg.stored[d.local_id], src,
+                               stored_fields, body)
             if hl:
                 ctx = SegmentContext(d.seg, self.mappings, self.analysis)
                 hit["highlight"] = self._highlight(ctx, query, src, hl)
             hits.append(hit)
+        self._attach_matched_queries(query, docs, hits)
         return hits
+
+    def _attach_matched_queries(self, query, docs: List[ShardDoc],
+                                hits: List[dict]) -> None:
+        """``matched_queries``: for each ``_name``d node of the query tree,
+        the page hits its mask matches; one mask a (segment, name), copied
+        back once, never one a doc."""
+        named = collect_named(query)
+        if not named:
+            return
+        masks: Dict[tuple, np.ndarray] = {}
+        for d, hit in zip(docs, hits):
+            names = []
+            for nm, node in named:
+                key = (nm, id(d.seg))
+                mk = masks.get(key)
+                if mk is None:
+                    ctx = SegmentContext(d.seg, self.mappings, self.analysis)
+                    mk = masks[key] = node.execute(ctx)[1].cpu().numpy()
+                if mk[d.local_id]:
+                    names.append(nm)
+            if names:
+                hit["matched_queries"] = names
 
     def _highlight(self, ctx, query, src, hl_spec) -> Dict[str, List[str]]:
         out = {}
@@ -463,6 +501,8 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
             shard_profiles.append(profiler.shard_profile_entry(
                 f"[{s.index_name or index_name or 'shard'}][{pos}]",
                 int((time.perf_counter() - tq) * 1e9), r.profile))
+    if body.get("indices_boost"):
+        _apply_indices_boost(body["indices_boost"], searchers, results)
     all_docs: List[ShardDoc] = []
     total = 0
     max_score = float("-inf")
@@ -548,6 +588,27 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
         _SCROLLS[scroll_id] = state
         response["_scroll_id"] = scroll_id
     return response
+
+
+def _apply_indices_boost(spec, searchers, results) -> None:
+    """``indices_boost``: each shard's scores times the boost of the
+    first pattern its index matches, before the global merge (a dict, or
+    ES 2.0's list of one-key dicts)."""
+    items = (spec.items() if isinstance(spec, dict)
+             else [(k, v) for d in spec for k, v in d.items()])
+    boosts = [(pat, float(v)) for pat, v in items]
+    for s, r in zip(searchers, results):
+        b = next((v for pat, v in boosts
+                  if fnmatch.fnmatch(s.index_name, pat)), None)
+        if b is None or b == 1.0:
+            continue
+        for d in r.docs:
+            if np.isfinite(d.score):
+                d.score *= b
+        if not np.isnan(r.max_score):
+            r.max_score *= b
+        if r.full:
+            r.full = [(seg, order, sc * b) for seg, order, sc in r.full]
 
 
 def _global_snapshot(results, scan: bool) -> dict:
@@ -767,12 +828,43 @@ class _StrKey:
 
 
 # ---------------------------------------------------------------------------
-# source filtering (fetch/source/FetchSourceSubPhase semantics)
+# fetch-phase fields and source filtering (FetchSourceSubPhase semantics)
 # ---------------------------------------------------------------------------
 
-def _filter_source(src: Optional[dict], spec) -> Optional[dict]:
-    import fnmatch
+def _attach_fields(hit: dict, stored: Optional[dict], src: Optional[dict],
+                   stored_fields, body: dict) -> None:
+    """``fields`` / ``stored_fields``: each named field's stored values,
+    else its value at the dotted path in ``_source`` (a list as it is, a
+    scalar as a one-value list). A fields list drops ``_source`` unless it
+    names ``_source`` or the body asks for ``_source`` itself."""
+    names = ([stored_fields] if isinstance(stored_fields, str)
+             else list(stored_fields))
+    flds = {}
+    for f in names:
+        if f == "_source":
+            continue
+        sv = stored.get(f) if stored else None
+        if sv is None and src:
+            cur = source_path(src, f)
+            if cur is not None:
+                sv = cur if isinstance(cur, list) else [cur]
+        if sv is not None:
+            flds[f] = sv
+    if flds:
+        hit["fields"] = flds
+    if "_source" not in names and "_source" not in body:
+        hit.pop("_source", None)
 
+
+def source_path(src, path: str):
+    """Walk a dotted path into a source dict; None when any hop misses."""
+    cur = src
+    for part in str(path).split("."):
+        cur = cur.get(part) if isinstance(cur, dict) else None
+    return cur
+
+
+def _filter_source(src: Optional[dict], spec) -> Optional[dict]:
     if src is None or spec is False:
         return None
     if spec is True or spec is None:

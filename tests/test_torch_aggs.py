@@ -527,9 +527,9 @@ def test_unknown_type_is_not_an_a9_refusal(nodes):
         _search(port, "mesh", {"aggs": {"x": {"nope": {}}}})
 
 
-@pytest.mark.parametrize("key", ["stored_fields", "fields", "indices_boost",
-                                 "stats", "script_fields", "suggest",
-                                 "post_filter", "track_scores"])
+@pytest.mark.parametrize("key", ["explain", "fielddata_fields",
+                                 "partial_fields", "stats", "script_fields",
+                                 "suggest", "post_filter", "track_scores"])
 @pytest.mark.parametrize("index", ["one_segment", "mesh"])
 def test_other_request_keys_are_still_refused(nodes, key, index):
     _ref, port = nodes

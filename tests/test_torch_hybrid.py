@@ -265,14 +265,19 @@ def test_rerank_breaker_denial_keeps_stage1(nodes):
     rr = _rerank(body, _vec(22, 2), 10)
     ref_br = ref_resources.BREAKERS.breaker("request")
     port_br = port.breakers.breaker("request")
-    old = (ref_br.limit, port_br.limit)
+    # the reference's breakers are process-wide, and its mesh executor
+    # keeps its prepared rounds charged to ``request`` for as long as
+    # they are cached, whichever test searched first: the reason string
+    # reports the used bytes, so the reference's count starts from zero
+    old = (ref_br.limit, port_br.limit, ref_br.used)
     ref_br.limit = port_br.limit = 1
+    ref_br.used = 0
     declines = port_hybrid.RERANK_DECISIONS["decline"]
     try:
         p = port.search("hyb", copy.deepcopy(rr))
         r = ref.search("hyb", copy.deepcopy(rr))
     finally:
-        ref_br.limit, port_br.limit = old
+        ref_br.limit, port_br.limit, ref_br.used = old
     assert p["hybrid"]["rerank"] == "declined"
     assert p["hybrid"]["degraded_to"] == "stage1"
     assert p["hybrid"]["reason"]["type"] == "circuit_breaking_exception"

@@ -75,6 +75,26 @@ for t in ts:
     t.join(60)
 assert out == [100, 100], out
 assert n.serving.coalescer.stats()["flushes"], n.serving.stats()
+n.serving.apply_cluster_settings({})
+n.create_index("w", {"settings": {"number_of_shards": 2,
+                                  "cache.query.enable": True}})
+for i in range(160):
+    n.index("w", str(i), {"body": "fox" if i % 4 else "dog river", "tag": i % 3})
+    if i % 10 == 9:
+        n.refresh("w")
+assert "elasticsearch_tpu_torch.index.merge" in sys.modules
+svc = n.indices["w"]
+assert all(s.engine.stats.merge_total >= 1 for s in svc.shards)
+svc.force_merge(1)
+assert [len(s.segments) for s in svc.shards] == [1, 1]
+q = {"query": {"match": {"body": {"query": "fox", "_name": "f"}}},
+     "fields": ["tag"], "search_type": "dfs_query_then_fetch"}
+r = n.search("w,i", q)
+assert r["hits"]["total"] == 220 and r["hits"]["hits"][0]["matched_queries"] == ["f"]
+r = n.search("w", {"size": 0, "aggs": {"t": {"terms": {"field": "tag"}}}})
+assert n.search("w", {"size": 0, "aggs": {"t": {"terms": {"field": "tag"}}}}) == r
+assert svc.query_cache_stats == {"hits": 1, "misses": 1, "evictions": 0}
+assert n.search("*", {"indices_boost": {"w": 2}})["hits"]["total"] == 1050
 n.close()
 import importlib, pkgutil
 import elasticsearch_tpu_torch

@@ -357,9 +357,9 @@ def test_profile_on_a_coalesced_search(nodes):
 # -- refusals and faults --------------------------------------------------------
 
 @pytest.mark.parametrize("body, item", [
-    ({"stored_fields": ["n"]}, "A6c"), ({"fields": ["n"]}, "A6c"),
-    ({"indices_boost": {"r": 2}}, "A6c"), ({"stats": ["g"]}, "A6c"),
-    ({"search_type": "dfs_query_then_fetch"}, "A6c"),
+    ({"post_filter": {"term": {"tag": "t1"}}}, "A6c"), ({"explain": True}, "A6c"),
+    ({"track_scores": True}, "A6c"), ({"stats": ["g"]}, "A10"),
+    ({"search_type": "count"}, "A6c"),
     ({"script_fields": {}}, "A9"), ({"suggest": {}}, "A9"),
 ])
 def test_remaining_keys_are_refused_by_their_queue_item(nodes, body, item):
