@@ -109,6 +109,24 @@ Phases, in order; any failure exits non-zero before the result line:
             ``indices_boost`` and ``fields`` against a CPU Node, the
             request cache; the ingest rate, refresh and merge times,
             breaker bytes and read p50/p99s;
+5i. text    the full-text DSL (``phase_fulltext``): phase 5's 2^20-doc
+            corpus again with each token's position kept (~63M positions
+            in a term-major, doc-ascending positional CSR, one stable
+            sort) and a title field of each doc's first 10 tokens,
+            loaded through ``segment_from_arrays``; groups of bodies
+            drawn from the corpus (match_phrase of 2-3 consecutive tokens
+            at slop 0 and 2, Rally pmc's ``phrase`` shape; multi_match
+            best_fields over title and body; prefix; wildcard; fuzzy;
+            match with fuzziness; dis_max; boosting; query_string with a
+            quoted phrase, a prefix and AND; common), each on the mesh
+            path and the host loop for about a second: responses
+            byte-identical across the routes, every doc's phrase
+            frequency against an f64 numpy oracle over the host positions
+            (exact at slop 0), totals and top hits against the oracle's
+            scores, every body against a CPU Node of the port on a
+            2^14-doc prefix, and the CSR's bytes released when the node
+            closes; p50, p99, device time, kernels, copies and busy share
+            per group and route;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
@@ -745,15 +763,22 @@ def phase_write(torch, np, dev):
         f"CPU node, fused path taken, delete vanishes")
 
 
-def build_corpus(np, n_docs, vocab, seed):
-    """bench.py::build_corpus's recipe: ~60-token passages, Zipf(1.15)
-    vocabulary, term-major postings CSR with BM25 tf-normalization."""
-    k1, b = 1.2, 0.75
+def corpus_tokens(np, n_docs, vocab, seed):
+    """bench.py::build_corpus's token stream: (doc lengths, ~60 each, and
+    every doc's Zipf(1.15) term ids in order)."""
     rng = np.random.default_rng(seed)
     doc_len = np.clip(rng.normal(60, 15, n_docs), 20, 120).astype(np.int64)
     nnz_tok = int(doc_len.sum())
     terms = rng.zipf(1.15, nnz_tok).astype(np.int64)
     terms = np.where(terms >= vocab, rng.integers(1, vocab, nnz_tok), terms)
+    return doc_len, terms
+
+
+def build_corpus(np, n_docs, vocab, seed):
+    """bench.py::build_corpus's recipe: ~60-token passages, Zipf(1.15)
+    vocabulary, term-major postings CSR with BM25 tf-normalization."""
+    k1, b = 1.2, 0.75
+    doc_len, terms = corpus_tokens(np, n_docs, vocab, seed)
     docs = np.repeat(np.arange(n_docs, dtype=np.int64), doc_len)
     uniq, tf = np.unique(terms * n_docs + docs, return_counts=True)
     u_term = (uniq // n_docs).astype(np.int32)
@@ -3567,6 +3592,395 @@ def phase_writepath(torch, np, dev, card):
     return b1
 
 
+# ---------------------------------------------------------------------------
+# phase 5i: the full-text DSL on a positional CSR
+# ---------------------------------------------------------------------------
+
+FT_DOCS = N_DOCS           # phase 5's corpus, with each token's position
+FT_TITLE = 10              # the title field: each doc's first 10 tokens
+FT_VARIANTS = 8            # bodies of each group, run in turn
+FT_WINDOW_S = 1.0          # timed requests per group and route: about this
+FT_MIN_REPS = 10           # many seconds, at least FT_MIN_REPS, at most
+FT_MAX_REPS = 400          # FT_MAX_REPS; p99 from TAXI_TAIL_REPS on
+FT_PROFILED = 4            # requests per group and route under the profiler
+FT_PREFIX = 1 << 14        # the CPU comparison's prefix of the corpus
+FT_MAPPING = {"properties": {"body": {"type": "text"},
+                             "title": {"type": "text"}}}
+
+
+def csr_field(np, terms, docs, pos, n_docs, vocab, lengths):
+    """``segment_from_arrays``'s entry for a text field of the token
+    stream (term, doc, position), in doc then position order: one stable
+    sort by term (a radix sort of 16-bit ids; the stream's doc and
+    position order stays within a term) gives the postings
+    (build_corpus's, term-major, doc-ascending) and, in the same order,
+    the positional CSR."""
+    k1, b = 1.2, 0.75
+    order = np.argsort(terms.astype(np.int16), kind="stable")
+    key = terms[order] * n_docs + docs[order]
+    positions = pos[order].astype(np.int32)
+    brk = np.ones(key.size, bool)
+    brk[1:] = key[1:] != key[:-1]
+    first = np.nonzero(brk)[0]
+    del brk, order
+    tf = np.diff(np.append(first, key.size))
+    u_term = (key[first] // n_docs).astype(np.int32)
+    u_doc = (key[first] % n_docs).astype(np.int32)
+    del key
+    df = np.bincount(u_term, minlength=vocab).astype(np.int32)
+    offsets = np.zeros(vocab + 1, np.int64)
+    offsets[1:] = np.cumsum(df)
+    avg = float(lengths[lengths > 0].mean())
+    tfn = (tf * (k1 + 1) / (tf + k1 * (1 - b + b * lengths[u_doc] / avg))
+           ).astype(np.float32)
+    return {"terms": [f"t{t}" for t in range(vocab)], "df": df,
+            "cf": np.bincount(u_term, weights=tf,
+                              minlength=vocab).astype(np.int64),
+            "offsets": offsets, "doc_ids_host": u_doc, "tfnorm_host": tfn,
+            "tf_host": tf.astype(np.float32), "avg_len": avg,
+            "num_docs": int((lengths > 0).sum()),
+            "total_terms": int(lengths.sum()),
+            "lengths": lengths.astype(np.float32),
+            "positions": positions,
+            "pos_offsets": np.append(first, pos.size).astype(np.int64)}
+
+
+def fulltext_arrays(np, doc_len, terms, n_docs):
+    """``segment_from_arrays``'s arrays of the first ``n_docs`` docs: the
+    body and its first FT_TITLE tokens as the title."""
+    n_tok = int(doc_len[:n_docs].sum())
+    dl = doc_len[:n_docs]
+    docs = np.repeat(np.arange(n_docs, dtype=np.int64), dl)
+    pos = np.arange(n_tok, dtype=np.int64) - np.repeat(np.cumsum(dl) - dl,
+                                                       dl)
+    body = csr_field(np, terms[:n_tok], docs, pos, n_docs, VOCAB,
+                     dl.astype(np.float64))
+    head = pos < FT_TITLE
+    title = csr_field(np, terms[:n_tok][head], docs[head], pos[head],
+                      n_docs, VOCAB, np.minimum(dl, FT_TITLE).astype(
+                          np.float64))
+    return {"num_docs": n_docs, "max_docs": n_docs,
+            "fields": {"body": body, "title": title}}
+
+
+def fulltext_bodies(np, doc_len, terms, seed):
+    """Groups of FT_VARIANTS bodies, each drawn from the corpus with a
+    seeded rng: (name, [bodies], served by the mesh, phrase slop or
+    None). Phrases are 2-3 consecutive tokens of random docs (Rally
+    pmc's ``phrase`` operation's shape)."""
+    rng = np.random.default_rng(seed + 9)
+    start = np.cumsum(doc_len) - doc_len
+
+    def toks(n):
+        d = int(rng.integers(doc_len.size))
+        s = int(rng.integers(0, doc_len[d] - n + 1))
+        return [f"t{t}" for t in terms[start[d] + s: start[d] + s + n]]
+
+    def phrase():
+        return " ".join(toks(int(rng.integers(2, 4))))
+
+    def head(n):  # tokens of a doc's title
+        d = int(rng.integers(doc_len.size))
+        s = int(rng.integers(0, FT_TITLE - n + 1))
+        return [f"t{t}" for t in terms[start[d] + s: start[d] + s + n]]
+
+    V = range(FT_VARIANTS)
+    ph = [phrase() for _ in V]
+    ph2 = [phrase() for _ in V]
+    return [
+        ("a_phrase", [{"match_phrase": {"body": p}} for p in ph], True, 0),
+        ("b_phrase_slop2", [{"match_phrase": {"body": {
+            "query": p, "slop": 2}}} for p in ph], True, 2),
+        ("c_multi_match", [{"multi_match": {
+            "query": " ".join(head(2) + toks(1)), "type": "best_fields",
+            "fields": ["title", "body"], "tie_breaker": 0.3}} for _ in V],
+         False, None),
+        ("d_prefix", [{"prefix": {"body": f"t{int(rng.integers(100, 999))}"}}
+                      for _ in V], True, None),
+        ("d_wildcard", [{"wildcard": {"body": f"t{int(rng.integers(1, 9))}?"
+                                              f"{int(rng.integers(0, 9))}"}}
+                        for _ in V], True, None),
+        # three characters: AUTO allows one edit (a scan of the term dict
+        # on the host, as in the reference)
+        ("e_fuzzy", [{"fuzzy": {"body": f"t{int(rng.integers(10, 99))}"}}
+                     for _ in V], True, None),
+        ("e_match_fuzziness", [{"match": {"body": {
+            "query": " ".join(toks(2)) + f" x{int(rng.integers(10, 99))}",
+            "fuzziness": "AUTO"}}} for _ in V], False, None),
+        ("f_dis_max", [{"dis_max": {"tie_breaker": 0.2, "queries": [
+            {"match_phrase": {"body": p}},
+            {"match": {"title": " ".join(head(1))}}]}} for p in ph2],
+         True, None),
+        ("f_boosting", [{"boosting": {
+            "positive": {"match_phrase": {"body": {"query": p, "slop": 1}}},
+            "negative": {"wildcard": {"title": "t1?"}},
+            "negative_boost": 0.5}} for p in ph2], True, None),
+        ("g_query_string", [{"query_string": {
+            "query": f'"{p}" AND {toks(1)[0][:3]}*',
+            "default_field": "body"}} for p in ph2], False, None),
+        ("h_common", [{"common": {"body": {
+            "query": " ".join(toks(4)), "cutoff_frequency": 0.001}}}
+            for _ in V], False, None),
+    ]
+
+
+def phrase_oracle(np, field, words, slop, D):
+    """f64 phrase frequency per doc over the host positional CSR, by
+    Lucene's greedy rule as the reference documents it: each occurrence
+    of the first term anchors; exact (slop 0): every other term at its
+    offset; sloppy: each term's position nearest its expected slot
+    (the later one on a tie), matchLength the spread, weight
+    1 / (1 + matchLength) when it fits the slop."""
+    offsets, u_doc = field["offsets"], field["doc_ids_host"]
+    po, positions = field["pos_offsets"], field["positions"]
+    cache = field.setdefault("_oracle_entries", {})
+
+    def entries(word):
+        """(docs, positions, packed doc << 32 | position keys, sorted)."""
+        if word not in cache:
+            t = int(word[1:])
+            lo, hi = int(offsets[t]), int(offsets[t + 1])
+            docs = np.repeat(u_doc[lo:hi].astype(np.int64),
+                             np.diff(po[lo:hi + 1]))
+            p = positions[po[lo]: po[hi]].astype(np.int64)
+            cache[word] = (docs, p, docs * 2 ** 32 + p)
+        return cache[word]
+
+    adoc, apos, _ = entries(words[0])
+    ok = np.ones(adoc.size, bool)
+    lo_adj, hi_adj = apos.copy(), apos.copy()
+    for j, w in enumerate(words[1:], 1):
+        d, p, key = entries(w)
+        want = adoc * 2 ** 32 + apos + j
+        i = np.searchsorted(key, want)
+        i1, i0 = np.minimum(i, key.size - 1), np.maximum(i - 1, 0)
+        if slop == 0:
+            ok &= key[i1] == want
+            continue
+        c1_ok = (i < key.size) & (d[i1] == adoc)
+        c0_ok = (i >= 1) & (d[i0] == adoc)
+        d1 = np.where(c1_ok, np.abs(p[i1] - apos - j), np.inf)
+        d0 = np.where(c0_ok, np.abs(p[i0] - apos - j), np.inf)
+        adj = np.where(d0 < d1, p[i0], p[i1]) - j
+        found = c0_ok | c1_ok
+        ok &= found
+        lo_adj = np.where(found, np.minimum(lo_adj, adj), lo_adj)
+        hi_adj = np.where(found, np.maximum(hi_adj, adj), hi_adj)
+    mlen = hi_adj - lo_adj
+    w = np.where(ok & (mlen <= slop), 1.0 / (1.0 + mlen), 0.0)
+    return np.bincount(adoc, weights=w, minlength=D)
+
+
+def _ft_line(np, name, label, ms, prof):
+    tail = (f"p99 {np.percentile(ms, 99):.3f} ms"
+            if len(ms) >= TAXI_TAIL_REPS else
+            f"slowest {ms.max():.3f} ms (too few for a p99)")
+    return (f"[5i] {name}, {label}: p50 {np.percentile(ms, 50):.3f} ms, "
+            f"{tail} over {len(ms)} requests, "
+            + _dev_line(np, prof, FT_PROFILED, ms))
+
+
+def _hold_same_hits(got, want, what):
+    gh, wh = got["hits"]["hits"], want["hits"]["hits"]
+    _hold(got["hits"]["total"] == want["hits"]["total"]
+          and [h["_id"] for h in gh] == [h["_id"] for h in wh],
+          f"{what}: total {got['hits']['total']} vs "
+          f"{want['hits']['total']}, ids differ", "5i")
+    g = [h["_score"] for h in gh]
+    w = [h["_score"] for h in wh]
+    _hold(len(g) == len(w) and all(abs(a - b) <= 1e-5 * abs(b)
+                                   for a, b in zip(g, w)),
+          f"{what}: scores {g[:3]} vs {w[:3]}", "5i")
+
+
+def phase_fulltext(torch, np, dev, card):
+    """Phase 5i: the full-text DSL (ROADMAP A9a) on phase 5's 2^20-doc
+    MS-MARCO-shaped corpus, its positional CSR kept (~63M positions),
+    with a title field of each doc's first 10 tokens, loaded through
+    ``segment_from_arrays``. Every group of bodies (match_phrase at slop 0
+    and 2, multi_match best_fields, prefix, wildcard, fuzzy, match with
+    fuzziness, dis_max, boosting, query_string, common) runs on the mesh
+    path and on the host loop for about FT_WINDOW_S each: the routes'
+    responses byte-identical, the phrases' frequencies against a float64
+    numpy oracle over the host positions (exact at slop 0), every body on
+    the card against a CPU Node of the port on a 2^14-doc prefix, and the
+    positional CSR's bytes released when the node closes."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.index.convert import segment_from_arrays
+    from elasticsearch_tpu_torch.monitor import kernels as counters
+    from elasticsearch_tpu_torch.ops import bm25_topk
+    from elasticsearch_tpu_torch.ops.positional import (phrase_freq,
+                                                        positional_bytes)
+
+    t_phase = time.perf_counter()
+    doc_len, terms = corpus_tokens(np, FT_DOCS, VOCAB, SEED)
+    arrays = fulltext_arrays(np, doc_len, terms, FT_DOCS)
+    body_f = arrays["fields"]["body"]
+    n_pos = int(body_f["positions"].size)
+    t_data = time.perf_counter() - t_phase
+    node = Node(name="fulltext", device=dev)
+    node.create_index("ft", {"settings": {"number_of_shards": 1},
+                             "mappings": FT_MAPPING})
+    svc = node.get_index("ft")
+    seg = segment_from_arrays(arrays, node.residency)
+    svc.shards[0].engine.add_segment(seg)
+    fd = node.breakers.breaker("fielddata")
+    segs_br = node.breakers.breaker("segments")
+    fd0 = fd.used
+    groups = fulltext_bodies(np, doc_len, terms, SEED)
+    node.search("ft", {"query": groups[0][1][0]})  # places the CSR
+    inv = seg.inverted["body"]
+    csr_bytes = positional_bytes(inv)
+    _hold(csr_bytes == 4 * (2 * n_pos + int(body_f["pos_offsets"].size)),
+          f"positional CSR {csr_bytes} bytes", "5i")
+    log(f"[5i] {FT_DOCS} docs, {n_pos} positions ({int(body_f['df'].sum())}"
+        f" postings) in a term-major, doc-ascending positional CSR, a "
+        f"{FT_TITLE}-token title field; data {t_data:.1f} s, set-up "
+        f"{time.perf_counter() - t_phase:.1f} s; the CSR on the card "
+        f"{csr_bytes} bytes (positions, pos_offsets, doc_per_pos); "
+        f"breakers: segments {segs_br.used} bytes, fielddata {fd0} -> "
+        f"{fd.used} bytes")
+
+    def timed(bodies, n, window_s):
+        ms, out = [], {}
+        start = time.perf_counter()
+        while len(ms) < n or (len(ms) < FT_MAX_REPS and
+                              time.perf_counter() - start < window_s):
+            b = bodies[len(ms) % len(bodies)]
+            a = time.perf_counter()
+            out[len(ms) % len(bodies)] = node.search(
+                "ft", {"query": copy.deepcopy(b), "size": 10})
+            ms.append((time.perf_counter() - a) * 1e3)
+        return np.array(ms), out
+
+    bm25_topk.LAUNCHES = 0
+    lines, answers = [], {}
+    for name, bodies, mesh_serves, _slop in groups:
+        for b in bodies:  # first use: expansions' sorted dicts, memo
+            node.search("ft", {"query": copy.deepcopy(b), "size": 10})
+        for route in ("mesh", "host"):
+            with (_host_loop() if route == "host"
+                  else contextlib.nullcontext()):
+                counters.reset()
+                ms, out = timed(bodies, FT_MIN_REPS, FT_WINDOW_S)
+                snap = counters.snapshot()
+                prof = profile_path(torch, lambda: [node.search(
+                    "ft", {"query": copy.deepcopy(bodies[i % len(bodies)]),
+                           "size": 10}) for i in range(FT_PROFILED)])
+            if route == "host":
+                _hold(not any(k.startswith("mesh_") for k in snap),
+                      f"{name}: the pinned host loop ran the mesh", "5i")
+                label = "host loop"
+            else:
+                want_key = ("mesh_search" if mesh_serves
+                            else "mesh_fallback_total")
+                _hold(snap.get(want_key) == len(ms),
+                      f"{name}: not served by {want_key}: {snap}", "5i")
+                label = ("mesh path" if mesh_serves else
+                         "mesh route, declined to the host loop "
+                         "(MeshCompileError)")
+            answers[(name, route)] = out
+            lines.append(_ft_line(np, name, label, ms, prof))
+        for i in range(len(bodies)):
+            a, b = answers[(name, "mesh")][i], answers[(name, "host")][i]
+            _hold(json.dumps(dict(a, took=0), sort_keys=True)
+                  == json.dumps(dict(b, took=0), sort_keys=True),
+                  f"{name} body {i}: the mesh's response differs from the "
+                  f"host loop's", "5i")
+    b1 = bm25_topk.LAUNCHES
+    for ln in lines:
+        log(ln)
+
+    # (a) and (b): every doc's phrase frequency against the f64 oracle,
+    # and each response's total and hits against the oracle's scores
+    t = time.perf_counter()
+    n_terms = float(FT_DOCS)
+    avg = body_f["avg_len"]
+    lengths = body_f["lengths"].astype(np.float64)
+    n_checked = n_hits = 0
+    for name, bodies, _m, slop in groups:
+        if slop is None:
+            continue
+        for i, b in enumerate(bodies):
+            q = b["match_phrase"]["body"]
+            words = (q["query"] if isinstance(q, dict) else q).split()
+            want = phrase_oracle(np, body_f, words, slop, FT_DOCS)
+            got = phrase_freq(inv, [(w, j) for j, w in enumerate(words)],
+                              FT_DOCS, slop).cpu().numpy()
+            if slop == 0:
+                _hold(np.array_equal(got, want.astype(np.float32)),
+                      f"{name} {words}: frequencies differ from the "
+                      f"oracle's", "5i")
+            else:
+                _hold(np.allclose(got, want, rtol=1e-6, atol=0)
+                      and np.array_equal(got > 0, want > 0),
+                      f"{name} {words}: frequencies off the oracle's", "5i")
+            resp = answers[(name, "mesh")][i]
+            _hold(resp["hits"]["total"] == int((want > 0).sum()),
+                  f"{name} {words}: total {resp['hits']['total']} vs "
+                  f"{int((want > 0).sum())}", "5i")
+            idf = sum(np.log(1.0 + (n_terms - body_f["df"][int(w[1:])] + 0.5)
+                             / (body_f["df"][int(w[1:])] + 0.5))
+                      for w in dict.fromkeys(words))
+            norm = 1.2 * (0.25 + 0.75 * lengths / avg)
+            score = np.where(want > 0, idf * want * 2.2 / (want + norm),
+                             -np.inf)
+            top = np.lexsort((np.arange(FT_DOCS), -score))[:10]
+            top = top[np.isfinite(score[top])]
+            hits = resp["hits"]["hits"]
+            s = np.array([h["_score"] for h in hits])
+            _hold(len(hits) == top.size and np.allclose(
+                s, score[top], rtol=1e-5, atol=0) and np.allclose(
+                [score[int(h["_id"])] for h in hits], s, rtol=1e-5, atol=0),
+                f"{name} {words}: hits off the oracle's top 10", "5i")
+            n_checked += 1
+            n_hits += len(hits)
+    body_f.pop("_oracle_entries", None)
+    log(f"[5i] {n_checked} phrases (slop 0 and 2): every doc's frequency "
+        f"equals the f64 oracle's (exact at slop 0, rtol 1e-6 at slop 2), "
+        f"totals exact, {n_hits} hits' scores within rtol 1e-5 of the "
+        f"oracle's top 10; {time.perf_counter() - t:.1f} s")
+
+    # every body on the card against a CPU Node of the port on a prefix
+    t = time.perf_counter()
+    pre = fulltext_arrays(np, doc_len, terms, FT_PREFIX)
+    pnodes = []
+    for d in (dev, "cpu"):
+        n = Node(name=f"ft-prefix-{d}", device=d)
+        n.create_index("ftp", {"settings": {"number_of_shards": 1},
+                               "mappings": FT_MAPPING})
+        n.get_index("ftp").shards[0].engine.add_segment(
+            segment_from_arrays(pre, n.residency))
+        pnodes.append(n)
+    n_bodies = 0
+    for name, bodies, _m, _s in groups:
+        for b in bodies:
+            body = {"query": b, "size": 10}
+            want = pnodes[1].search("ftp", copy.deepcopy(body))
+            _hold_same_hits(pnodes[0].search("ftp", copy.deepcopy(body)),
+                            want, f"{name} prefix, card mesh vs CPU")
+            with _host_loop():
+                _hold_same_hits(pnodes[0].search("ftp", copy.deepcopy(body)),
+                                want, f"{name} prefix, card host vs CPU")
+            n_bodies += 1
+    for n in pnodes:
+        n.close()
+    log(f"[5i] {n_bodies} bodies on a {FT_PREFIX}-doc prefix: the card's "
+        f"mesh path and host loop equal a CPU Node of the port (ids, "
+        f"order, totals exact; scores within rtol 1e-5); "
+        f"{time.perf_counter() - t:.1f} s")
+
+    node.close()
+    _hold(fd.used == 0, f"fielddata {fd.used} bytes after the index closed "
+          f"(the CSR's {csr_bytes} included)", "5i")
+    log(f"[5i] after the node closed: fielddata {fd.used} bytes (the "
+        f"positional CSR's {csr_bytes} released), segments {segs_br.used}")
+    del arrays, pre, doc_len, terms
+    log(f"[5i] B1 launched {b1} times in 5i's timed runs; phase 5i took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return b1
+
+
 def _cprofile_rows(st, key, n, per=1):
     """The top ``n`` of a pstats.Stats by ``key`` ("cum" or "own") as
     lines of calls, own ms, cumulative ms (each divided by ``per``) and
@@ -4055,6 +4469,8 @@ def main() -> int:
     del taxi_node, taxis
     torch.cuda.empty_cache()
     launches["bm25_dense_topk"] += phase_writepath(torch, np, dev, card)
+    torch.cuda.empty_cache()
+    launches["bm25_dense_topk"] += phase_fulltext(torch, np, dev, card)
     torch.cuda.empty_cache()
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card),
               "knn_topk": timing_knn(torch, dev, card),

@@ -17,7 +17,9 @@ the product-sized smoke corpus is), so both packages score the same state.
          "doc_ids_host": i32[nnz], "tfnorm_host": f32[nnz],
          "tf_host": f32[nnz], "avg_len": float, "num_docs": int,
          "total_terms": int,
-         "lengths": f32[max_docs] | None}},   # text fields only
+         "lengths": f32[max_docs] | None,     # text fields only
+         "positions": i32[total positions] | None,  # text fields: the
+         "pos_offsets": i64[nnz + 1] | None}},      # positional CSR
      "keywords": {name: {"ords": i32[max_docs], "exists": bool[max_docs],
                          "host_values": [[str] | None]}},
      "numerics": {name: {"exact": i64|f64[max_docs],
@@ -30,6 +32,10 @@ the product-sized smoke corpus is), so both packages score the same state.
                  "avg_len": float, "metric": str} | None,
          "pq": {"codebooks": f32[M, K, dsub], "codes": u8[max_docs, M],
                 "M": int, "K": int, "dsub": int, "metric": str} | None}}}
+
+A text field's positional CSR (positions aligned with the postings
+order, ``pos_offsets`` per posting) is carried with its postings, so
+phrase queries read the same positions in both packages.
 
 A built IVF quantizer or PQ tier given under ``vectors`` is placed as it
 is, so a carried-across segment answers from the same quantizer as the
@@ -71,7 +77,9 @@ def segment_from_arrays(arrays: Dict[str, Any],
             tf_host=np.asarray(f["tf_host"], np.float32),
             tfnorm_host=np.asarray(f["tfnorm_host"], np.float32),
             num_docs=int(f["num_docs"]), total_terms=int(f["total_terms"]),
-            avg_len=float(f["avg_len"]), max_docs=D, residency=residency)
+            avg_len=float(f["avg_len"]), max_docs=D, residency=residency,
+            pos_offsets=_opt(f.get("pos_offsets"), np.int64),
+            positions=_opt(f.get("positions"), np.int32))
         if f.get("lengths") is not None:
             lengths[name] = residency.device_put(
                 np.asarray(f["lengths"], np.float32))
@@ -96,6 +104,10 @@ def segment_from_arrays(arrays: Dict[str, Any],
         id_map={doc_id: i for i, doc_id in enumerate(ids)},
         field_lengths=lengths, residency=residency,
         live=arrays.get("live"), vectors=vectors)
+
+
+def _opt(a, dtype):
+    return None if a is None else np.asarray(a, dtype)
 
 
 def _vector_column(name: str, v: Dict[str, Any], D: int,

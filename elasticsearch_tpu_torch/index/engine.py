@@ -425,4 +425,5 @@ class Engine:
         for seg in self.segments:
             br.release(getattr(seg, "_charged", 0))
             seg._charged = 0
+            self.residency.release(seg.fielddata_bytes())
         self.translog.close()

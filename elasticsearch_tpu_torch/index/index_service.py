@@ -14,8 +14,11 @@ term statistics (``global_stats``) and scores every segment with them on
 either route. The request cache (``_query_cache`` on the body, or the
 index setting ``index.cache.query.enable``) keeps up to 256 ``size: 0``
 responses keyed by the body and every shard's (index, delete, refresh,
-merge) counters, so a write, a refresh or a merge moves the key. ``force_merge`` folds each shard's segments into one. The slowlog,
-replicas and percolator are not ported yet.
+merge) counters, so a write, a refresh or a merge moves the key.
+``force_merge`` folds each shard's segments into one. A body's
+more_like_this liked ids resolve over every shard before the search
+(``mlt_source``, ``rewrite_mlt_in_body``). The slowlog, replicas and
+percolator are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,8 +40,10 @@ from elasticsearch_tpu_torch.parallel.mesh import shard_mesh
 from elasticsearch_tpu_torch.parallel.mesh_service import try_mesh_search
 from elasticsearch_tpu_torch.resources.residency import Residency
 from elasticsearch_tpu_torch.search.context import GlobalStats, global_stats
+from elasticsearch_tpu_torch.search.queries import rewrite_mlt_in_body
 from elasticsearch_tpu_torch.search.service import search_shards
 from elasticsearch_tpu_torch.utils.errors import (IllegalArgumentException,
+                                                  IndexNotFoundException,
                                                   MapperParsingException)
 
 
@@ -54,9 +59,10 @@ class IndexService:
     def __init__(self, name: str, residency: Residency,
                  settings: Optional[dict] = None,
                  mappings_json: Optional[dict] = None,
-                 data_path: Optional[str] = None):
+                 data_path: Optional[str] = None, node=None):
         self.name = name
         self.residency = residency
+        self._node = node  # resolves lookups that name another index
         self.settings = settings or {}
         idx_settings = self.settings.get("index", self.settings)
         self.num_shards = int(idx_settings.get("number_of_shards", 1))
@@ -246,6 +252,12 @@ class IndexService:
                 return copy.deepcopy(hit)
         if "_query_cache" in body:
             body = {k: v for k, v in body.items() if k != "_query_cache"}
+        if body.get("query"):
+            # more_like_this liked ids (and terms lookups) resolve once
+            # against the whole index before the per-shard fan-out
+            q2 = rewrite_mlt_in_body(body["query"], self.mlt_source)
+            if q2 is not body["query"]:
+                body = dict(body, query=q2)
         gs = self.global_stats() if dfs else None
         searchers = [s.searcher for s in self.shards]
         resp = None
@@ -263,6 +275,33 @@ class IndexService:
                     self._query_cache.popitem(last=False)
                     self.query_cache_stats["evictions"] += 1
         return resp
+
+    def mlt_source(self, doc_id: str, routing=None, index=None):
+        """The source of a doc a query names (more_like_this liked ids,
+        terms lookups), found in any shard (a routed doc need not live at
+        its id's shard, so the routing hint is not needed). A reference
+        to another index resolves through the node; None when the doc or
+        the index is missing."""
+        if index is not None and index != self.name:
+            node = self._node
+            if node is None:
+                return None
+            try:
+                names = node.resolve_indices(index)
+            except IndexNotFoundException:
+                return None
+            for nm in names:
+                svc = node.indices.get(nm)
+                if svc is not None and svc is not self:
+                    src = svc.mlt_source(doc_id, routing=routing)
+                    if src is not None:
+                        return src
+            return None
+        for sh in self.shards:
+            got = sh.engine.get(str(doc_id))
+            if got is not None:
+                return got.get("_source")
+        return None
 
     @property
     def num_docs(self) -> int:

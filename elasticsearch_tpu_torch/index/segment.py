@@ -125,6 +125,12 @@ class InvertedField:
     # lazy dense block: None = not built yet (or budget denied, retry),
     # False = no qualifying term, else (dense_rows np.i32[V], impact tensor)
     _dense: Any = None
+    # lazy sorted term dict for prefix/wildcard expansion
+    _sorted_terms: Any = None
+    # lazy positional CSR on the card (ops/positional.py::positional_device)
+    # and its host doc-per-position expansion
+    _pos_dev: Any = None
+    _pos_host_dpp: Any = None
     _dense_lock: Any = dfield(default_factory=threading.Lock)
 
     def dense_block(self):
@@ -390,9 +396,9 @@ class TpuSegment:
     def fielddata_bytes(self) -> int:
         """The bytes this segment has charged to the ``fielddata``
         breaker so far: its doc-value and keyword columns, vector slabs
-        and placed PQ codes, the dense impact blocks and sort mirrors
-        built since. A merge releases them when it retires the
-        segment."""
+        and placed PQ codes, the dense impact blocks, positional CSRs and
+        sort mirrors built since. A merge releases them when it retires
+        the segment, and the engine's close when the index closes."""
         ts = []
         for col in self.numerics.values():
             ts += [col.values, col.exists, col.hi, col.lo]
@@ -403,6 +409,8 @@ class TpuSegment:
         for inv in self.inverted.values():
             if inv._dense:
                 ts.append(inv._dense[1])
+            if inv._pos_dev is not None:
+                ts += list(inv._pos_dev)
         with self._sort_lock:
             ts += [m.key for m in self._sort_keys.values() if m is not None]
         return sum(int(t.numel()) * t.element_size() for t in ts

@@ -31,6 +31,7 @@ from elasticsearch_tpu_torch.resources.residency import Residency
 from elasticsearch_tpu_torch.search.batch import (msearch_error_entry,
                                                   try_batched_msearch)
 from elasticsearch_tpu_torch.search.context import global_stats
+from elasticsearch_tpu_torch.search.queries import rewrite_mlt_in_body
 from elasticsearch_tpu_torch.search.service import search_shards
 from elasticsearch_tpu_torch.serving import ServingFrontend
 from elasticsearch_tpu_torch.utils.device import resolve_device
@@ -60,7 +61,7 @@ class Node:
         self.indices[name] = IndexService(
             name, self.residency, settings=dict(body.get("settings", {})),
             mappings_json=dict(body.get("mappings", {})),
-            data_path=self.data_path)
+            data_path=self.data_path, node=self)
         return {"acknowledged": True, "shards_acknowledged": True,
                 "index": name}
 
@@ -129,6 +130,22 @@ class Node:
             out = self.serving.coalescer.execute(svc, body, run)
             return out if out is not None else run()
         svcs = [self.indices[n] for n in names]
+        if body.get("query"):
+            # more_like_this liked ids resolve over every searched index
+            # (an explicit _index over that index) before the fan-out
+            def lookup(doc_id, routing=None, index=None):
+                if index:
+                    return svcs[0].mlt_source(doc_id, routing=routing,
+                                              index=index)
+                for svc in svcs:
+                    src = svc.mlt_source(doc_id, routing=routing)
+                    if src is not None:
+                        return src
+                return None
+
+            q2 = rewrite_mlt_in_body(body["query"], lookup)
+            if q2 is not body["query"]:
+                body = dict(body, query=q2)
         searchers = [s.searcher for svc in svcs for s in svc.shards]
         if not searchers:
             return {"took": 0, "timed_out": False,

@@ -19,12 +19,17 @@ Data a prim builds is one of three things:
   vector slabs), which are never stacked: the emits gather the rows they
   need, or launch kernel B2 once per slot.
 
-Supported: match_all, term, terms, match (operator, minimum_should_match),
-range (numeric i64-exact and f32, date, keyword by term expansion),
-exists, ids, bool, constant_score and brute-force knn. ``hybrid`` and knn
-through IVF, IVF-PQ or MaxSim decline by design (``MeshCompileError``
-with ``by_design``) and keep their host-loop routes; any other tree
-raises ``MeshCompileError`` and the caller takes the host loop.
+Supported: match_all, match_none, term, terms, match (operator,
+minimum_should_match), match_phrase (the positional program on each
+slot's own CSR, ``PhrasePrim``/``EPhrase``), range (numeric i64-exact
+and f32, date, keyword by term expansion), exists, ids, prefix,
+wildcard, regexp and fuzzy (per-slot term-dict expansions, as data),
+bool, constant_score, dis_max, boosting and brute-force knn. ``hybrid``
+and knn through IVF, IVF-PQ or MaxSim decline by design
+(``MeshCompileError`` with ``by_design``) and keep their host-loop
+routes; any other tree raises ``MeshCompileError`` and the caller takes
+the host loop, as the reference's mesh sends ``match`` with fuzziness,
+multi_match, common, query_string, more_like_this and indices there.
 
 Aggregations ride the round in one of two ways (``mesh_service``): a
 request whose aggs are all keyword ``terms`` without sub-aggregations
@@ -41,11 +46,12 @@ order-preserving int64 keys, the segment's own sort mirror
 k by the full key tuple (``ops/scoring.py::sort_topk``); a keyword's
 keys rank its terms inside the slot's segment, and the slots' candidates
 merge on the host by their values (``mesh_service``). ``_score`` as any
-sort key declines (the host loop serves it). Phrase, dis_max, boosting,
-function_score and the term expansions come with ROADMAP A9.
+sort key declines (the host loop serves it). function_score comes with
+ROADMAP A9b.
 """
 from __future__ import annotations
 
+import functools
 from bisect import bisect_left
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -55,6 +61,9 @@ import torch
 from elasticsearch_tpu_torch.index.segment import split_i64
 from elasticsearch_tpu_torch.monitor import kernels
 from elasticsearch_tpu_torch.ops import scoring as S
+from elasticsearch_tpu_torch.ops.positional import (build_phrase_inputs,
+                                                    phrase_freq_program,
+                                                    phrase_score)
 from elasticsearch_tpu_torch.search import queries as Q
 from elasticsearch_tpu_torch.search.context import SegmentContext, split_runs
 from elasticsearch_tpu_torch.utils.errors import QueryParsingException
@@ -453,6 +462,46 @@ class IdsPrim(DataPrim):
         return [np.asarray(pos, np.int32)], ()
 
 
+class PhrasePrim(DataPrim):
+    """A phrase's inputs: a deferred per-slot list of the positional
+    program's inputs on that slot's own CSR (``build_phrase_inputs``;
+    views of the segment's tensors, nothing copied) with the slot's doc
+    count, None where the phrase cannot match (positions missing, a term
+    absent); the per-slot (avg_len, idf_sum) table [S, 2], idf through
+    ``ctx.idf`` so dfs reaches it; the field lengths [S, D]."""
+
+    def __init__(self, field: str, toks: List[Tuple[str, int]]):
+        self.field = field
+        self.toks = toks  # [(term, position)]: the query's analyzer output
+
+    def build(self, seg_row, ctxs, D, data):
+        f = self.field
+        terms = list(dict.fromkeys(t for t, _ in self.toks))
+        stats = np.zeros((len(seg_row), 2), np.float32)
+        ok = []
+        for si, (seg, ctx) in enumerate(zip(seg_row, ctxs)):
+            inv = seg.inverted.get(f) if seg is not None else None
+            ok.append(inv is not None and inv.positions is not None
+                      and all(inv.term_slice(t)[1] > 0 for t in terms))
+            if ok[-1]:
+                stats[si] = (inv.avg_len,
+                             sum(ctx.idf(f, t) for t in terms))
+
+        def lengths(seg):
+            return seg.field_lengths.get(f)
+
+        return [functools.partial(_phrase_slots, seg_row, ok, f, self.toks),
+                stats,
+                data.stacked(("fieldlen", f, _ids(seg_row), D), lengths, D,
+                             0.0, torch.float32)], ()
+
+
+def _phrase_slots(seg_row, ok, field, toks):
+    return [(build_phrase_inputs(seg.inverted[field], toks, seg.max_docs),
+             seg.max_docs) if good else None
+            for seg, good in zip(seg_row, ok)]
+
+
 class VecsPrim(DataPrim):
     """dense_vector slabs for knn-as-query: the per-slot (vecs, exists)
     of each segment (its own tensors, never stacked), and the query
@@ -726,6 +775,56 @@ class EBool(Emit):
         return scores * mask, mask
 
 
+class EPhrase(Emit):
+    """match_phrase: the positional program on each slot's inputs, then
+    the BM25 phrase score over the slot-stacked frequencies, the host
+    loop's MatchPhraseQuery math."""
+
+    def __init__(self, prim: int, slop: int, boost: float):
+        self.prim = prim
+        self.slop = slop
+        self.boost = boost
+
+    def ex(self, env, meta):
+        slots, stats, lengths = env[self.prim]
+        freq = torch.zeros(lengths.shape, dtype=torch.float32,
+                           device=lengths.device)
+        for s, slot in enumerate(slots):
+            if slot is None or slot[0] is None:
+                continue
+            kernels.record("phrase_program")
+            freq[s, : slot[1]] = phrase_freq_program(
+                *slot[0], slop=self.slop, D=slot[1])
+        scores = phrase_score(freq, lengths, stats[:, 0:1],
+                              stats[:, 1:2]) * self.boost
+        return scores, freq > 0
+
+
+class EDisMax(Emit):
+    def __init__(self, children: List[Emit], tie: float, boost: float):
+        self.children = children
+        self.tie = tie
+        self.boost = boost
+
+    def ex(self, env, meta):
+        return Q.dis_max_scores([c.sm(env, meta) for c in self.children],
+                                self.tie, self.boost)
+
+
+class EBoosting(Emit):
+    def __init__(self, positive: Emit, negative: Emit, neg_boost: float,
+                 boost: float):
+        self.positive = positive
+        self.negative = negative
+        self.neg_boost = neg_boost
+        self.boost = boost
+
+    def ex(self, env, meta):
+        s, mask = self.positive.sm(env, meta)
+        return Q.boosting_scores(s, mask, self.negative.ex(env, meta)[1],
+                                 self.neg_boost, self.boost)
+
+
 class EKnn(Emit):
     """knn-as-query, brute force: kernel B2 per slot over that segment's
     own slab at k = num_candidates in f32, then one scatter-max of every
@@ -840,12 +939,14 @@ class MeshQueryCompiler:
         agg_prims = [(name, self._add(AggTermsPrim(field)))
                      for name, field in (agg_specs or [])]
         sort = [self._sort_key(s) for s in (sort_spec or [])]
-        # a scores-mode hybrid root is a match (operator or, no
-        # minimum_should_match) or a term on a text field with a positive
-        # boost: the host loop's _fused_eligible_terms shape
+        # the host loop's _fused_eligible_terms shape: a match (operator
+        # or, no minimum_should_match) or a term on a text field with a
+        # positive boost, a scores-mode hybrid root (a fuzzy query or a
+        # one-term phrase scores in f32 there, so it does here)
         fused = root.prim if isinstance(root, ETermGroupHybrid) \
-            and root.mode == "scores" and not agg_prims \
-            and not want_mask and not sort else None
+            and root.mode == "scores" \
+            and isinstance(query, (Q.MatchQuery, Q.TermQuery)) \
+            and not agg_prims and not want_mask and not sort else None
         return CompiledMeshQuery(root, self.prims, self._live, self.D, fused,
                                  agg_prims, want_mask, sort)
 
@@ -872,6 +973,8 @@ class MeshQueryCompiler:
         D = self.D
         if q is None or isinstance(q, Q.MatchAllQuery):
             return EMatchAll(getattr(q, "boost", 1.0), self._nd, D)
+        if isinstance(q, Q.MatchNoneQuery):
+            return ENone(self._nd, D)
         if isinstance(q, Q.TermQuery):
             fm = self.mappings.get(q.field)
             if fm is not None and fm.is_numeric:
@@ -889,7 +992,32 @@ class MeshQueryCompiler:
             terms = list(dict.fromkeys(str(v) for v in q.values))
             return self._tgroup_mask(q.field, q.boost, lambda ctx: terms)
         if isinstance(q, Q.MatchQuery):
+            if q.fuzziness is not None:
+                # per-term expansion groups: the host loop, as in the
+                # reference's mesh
+                raise MeshCompileError("fuzzy match")
             return self._match(q)
+        if isinstance(q, Q.MatchPhraseQuery):
+            return self._phrase(q)
+        if isinstance(q, (Q.PrefixQuery, Q.WildcardQuery, Q.RegexpQuery)):
+            def expand(ctx, q=q):
+                inv = ctx.inv(q.field)
+                return [] if inv is None else q.expand(inv)
+
+            return self._tgroup_mask(q.field, q.boost, expand)
+        if isinstance(q, Q.FuzzyQuery):
+            return self._tgroup_scores(
+                q.field, q.boost, lambda ctx, q=q: Q.fuzzy_terms(
+                    ctx.inv(q.field), str(q.value), q.fuzziness,
+                    q.max_expansions))
+        if isinstance(q, Q.DisMaxQuery):
+            if not q.queries:
+                return ENone(self._nd, D)
+            return EDisMax([self._c(c) for c in q.queries], q.tie_breaker,
+                           q.boost)
+        if isinstance(q, Q.BoostingQuery):
+            return EBoosting(self._c(q.positive), self._c(q.negative),
+                             q.negative_boost, q.boost)
         if isinstance(q, Q.RangeQuery):
             return self._range(q)
         if isinstance(q, Q.ExistsQuery):
@@ -922,6 +1050,20 @@ class MeshQueryCompiler:
             raise MeshCompileError("hybrid runs its own engines",
                                    by_design=True)
         raise MeshCompileError(f"unsupported query type {type(q).__name__}")
+
+    def _phrase(self, q) -> Emit:
+        fm = self.mappings.get(q.field)
+        if fm is None or not fm.is_text:
+            raise MeshCompileError("match_phrase on a non-text field")
+        an = self._qctx.search_analyzer(q.field)
+        toks = an.analyze(str(q.text)) if an else [(str(q.text), 0)]
+        if not toks:
+            return ENone(self._nd, self.D)
+        if len(toks) == 1:
+            t0 = toks[0][0]
+            return self._tgroup_scores(q.field, q.boost, lambda ctx: [t0])
+        return EPhrase(self._add(PhrasePrim(q.field, list(toks))),
+                       int(q.slop), q.boost)
 
     def _knn(self, q) -> Emit:
         fm = self.mappings.get(q.field)

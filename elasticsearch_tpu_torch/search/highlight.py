@@ -4,8 +4,10 @@ Copy of elasticsearch_tpu/search/highlight.py (reference:
 org/elasticsearch/search/highlight/PlainHighlighter.java): re-analyzes
 the source text, wraps the words whose analyzed form is a query term in
 tags, and cuts fragments around them. ``extract_query_terms`` walks the
-query types the port parses; phrase, prefix, wildcard, fuzzy and
-multi_match come with their queries (ROADMAP A9).
+query tree as the reference's does: a phrase gives its analyzed terms, a
+prefix its first 64 completions, a fuzzy query its expansions (a
+wildcard, as in the reference, none), a multi_match its text on each of
+its fields.
 """
 from __future__ import annotations
 
@@ -22,12 +24,34 @@ def extract_query_terms(query, field: str, ctx) -> Set[str]:
     def walk(q):
         if isinstance(q, Q.MatchQuery) and q.field == field:
             terms.update(q._analyze(ctx))
+        elif isinstance(q, (Q.MatchPhraseQuery, Q.MatchPhrasePrefixQuery)) \
+                and q.field == field:
+            an = ctx.search_analyzer(field)
+            if an:
+                terms.update(t for t, _ in an.analyze(str(q.text)))
         elif isinstance(q, Q.TermQuery) and q.field == field:
             terms.add(str(q.value))
         elif isinstance(q, Q.TermsQuery) and q.field == field:
             terms.update(str(v) for v in q.values)
+        elif isinstance(q, (Q.PrefixQuery, Q.WildcardQuery, Q.FuzzyQuery)) \
+                and q.field == field:
+            inv = ctx.inv(field)
+            if inv is not None:
+                if isinstance(q, Q.PrefixQuery):
+                    terms.update(Q._expand_prefix(inv, str(q.value), 64))
+                elif isinstance(q, Q.FuzzyQuery):  # every expansion
+                    terms.update(Q.fuzzy_terms(inv, str(q.value),
+                                               q.fuzziness, len(inv.terms)))
+        elif isinstance(q, Q.MultiMatchQuery):
+            for f in q.fields:
+                base = f.partition("^")[0]
+                if base == field:
+                    terms.update(Q.MatchQuery(base, q.text)._analyze(ctx))
         elif isinstance(q, Q.BoolQuery):
             for sub in q.must + q.should + q.filter:
+                walk(sub)
+        elif isinstance(q, Q.DisMaxQuery):
+            for sub in q.queries:
                 walk(sub)
         elif hasattr(q, "inner"):
             walk(q.inner)

@@ -1,15 +1,23 @@
-"""Query DSL, the slice's subset: parse and run per segment on tensors.
+"""Query DSL: parse and run per segment on tensors.
 
-Port of the part of elasticsearch_tpu/search/queries.py the main path
-needs: ``match`` (operator, minimum_should_match, analyzer), ``term``,
-``terms``, ``bool`` (must, should, must_not, filter,
-minimum_should_match), ``match_all``, ``range``, ``ids``, ``exists`` and
-``constant_score``, plus the fused dense-impact top-k fast path (and its
-two batched tiers for ``_msearch``, ``fused_bm25_topk_batch`` and
-``hybrid_bm25_topk_batch``), and
-``knn`` over a dense_vector field (brute force, MaxSim, IVF, IVF-PQ), and
-``hybrid`` (search/hybrid.py). Any other query type raises a typed
-QueryParsingException.
+Port of elasticsearch_tpu/search/queries.py: ``match`` (operator,
+minimum_should_match, analyzer, fuzziness, ``type: phrase`` /
+``phrase_prefix``), ``term``, ``terms``, ``bool``, ``match_all``,
+``match_none``, ``range``, ``ids``, ``exists``, ``missing``,
+``constant_score``, ``filtered``; the full-text types ``match_phrase``
+(the positional program, ops/positional.py), ``match_phrase_prefix``,
+``multi_match``, ``common``, ``query_string`` and
+``simple_query_string``; the term expansions ``prefix``, ``wildcard``,
+``regexp`` and ``fuzzy`` (a scan of the segment's term dict, capped at
+``max_expansions``, where Lucene walks an FST); ``dis_max``,
+``boosting``, ``indices``, ``more_like_this`` (``rewrite_mlt_in_body``
+resolves its liked ids over the whole index first), ``template`` and
+``wrapper``; ``knn`` over a dense_vector field (brute force, MaxSim, IVF,
+IVF-PQ) and ``hybrid`` (search/hybrid.py); plus the fused dense-impact
+top-k fast path and its two batched tiers for ``_msearch``
+(``fused_bm25_topk_batch``, ``hybrid_bm25_topk_batch``). The types of
+ROADMAP A9b (function_score, script, the span queries, the joins and the
+geo queries) raise a typed QueryParsingException naming it.
 
 A node's ``execute(ctx)`` returns a whole-segment pair
 
@@ -19,6 +27,10 @@ A node's ``execute(ctx)`` returns a whole-segment pair
 """
 from __future__ import annotations
 
+import base64
+import fnmatch
+import json
+import re
 from bisect import bisect_left
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -30,6 +42,7 @@ from elasticsearch_tpu_torch.ops.bitvec import pack_mask, popcount
 from elasticsearch_tpu_torch.ops.bm25_topk import bm25_dense_topk, unpack_topk
 from elasticsearch_tpu_torch.ops.ivf import ivf_candidate_scores
 from elasticsearch_tpu_torch.ops.knn import knn_topk
+from elasticsearch_tpu_torch.ops.positional import phrase_freq, phrase_score
 from elasticsearch_tpu_torch.ops.scoring import (
     bm25_hybrid_topk_batch,
     bm25_score_hybrid_gather,
@@ -168,15 +181,16 @@ def fused_bm25_topk(ctx, query, k: int):
 
 def _fused_eligible_terms(ctx, query, idf: bool = True):
     """(field, deduped (terms, weights)) when ``query`` is a pure
-    disjunctive term group — match operator:or / term on a text field,
-    positive boost — else None. The gate of the fused single and batched
+    disjunctive term group — match operator:or without fuzziness / term
+    on a text field, positive boost — else None. The gate of the fused single and batched
     top-k paths.
 
     ``idf=False`` keeps the weights idf-free (duplicate terms still merge
     additively): the mesh's batched round folds each segment's own idf
     into its chunk tables (``parallel/executor.py::_chunk_table``)."""
     if isinstance(query, MatchQuery):
-        if query.operator != "or" or query.msm is not None:
+        if query.operator != "or" or query.msm is not None \
+                or query.fuzziness is not None:
             return None
         field, boost = query.field, query.boost
         terms = query._analyze(ctx)
@@ -360,6 +374,66 @@ def _min_should_match(msm, n_clauses: int) -> int:
     return max(0, min(v, n_clauses))
 
 
+def _sorted_terms(inv):
+    """(sorted terms, their term ids), built once per field."""
+    cached = inv._sorted_terms
+    if cached is None:
+        pairs = sorted((t, i) for i, t in enumerate(inv.terms))
+        cached = ([t for t, _ in pairs], [i for _, i in pairs])
+        inv._sorted_terms = cached
+    return cached
+
+
+def _expand_prefix(inv, prefix: str, max_expansions: int = 1024) -> List[str]:
+    terms, _ = _sorted_terms(inv)
+    i = bisect_left(terms, prefix)
+    out = []
+    while i < len(terms) and terms[i].startswith(prefix) \
+            and len(out) < max_expansions:
+        out.append(terms[i])
+        i += 1
+    return out
+
+
+def _edit_distance_le(a: str, b: str, k: int) -> bool:
+    """Levenshtein distance <= k, a banded DP with an early exit."""
+    if abs(len(a) - len(b)) > k:
+        return False
+    if a == b:
+        return True
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i] + [0] * len(b)
+        lo = max(1, i - k)
+        hi = min(len(b), i + k)
+        if lo > 1:
+            cur[lo - 1] = k + 1
+        for j in range(lo, hi + 1):
+            cost = 0 if ca == b[j - 1] else 1
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + cost)
+        for j in range(hi + 1, len(b) + 1):
+            cur[j] = k + 1
+        prev = cur
+        if min(prev) > k:
+            return False
+    return prev[len(b)] <= k
+
+
+def _fuzziness_to_edits(fuzziness, term: str) -> int:
+    if fuzziness in (None, "AUTO", "auto"):
+        n = len(term)
+        return 0 if n <= 2 else (1 if n <= 5 else 2)
+    return int(fuzziness)
+
+
+def fuzzy_terms(inv, value: str, fuzziness, max_expansions: int) -> List[str]:
+    """The field's terms within ``fuzziness`` edits of ``value``, in term
+    id order, capped."""
+    k = _fuzziness_to_edits(fuzziness, value)
+    return [c for c in inv.terms
+            if _edit_distance_le(value, c, k)][:max_expansions]
+
+
 # ---------------------------------------------------------------------------
 # leaf queries
 # ---------------------------------------------------------------------------
@@ -371,6 +445,11 @@ class MatchAllQuery(Query):
     def execute(self, ctx) -> ExecResult:
         mask = _doc_range(ctx)
         return mask.to(torch.float32) * self.boost, mask
+
+
+class MatchNoneQuery(Query):
+    def execute(self, ctx) -> ExecResult:
+        return _empty(ctx)
 
 
 class TermQuery(Query):
@@ -424,17 +503,24 @@ class TermsQuery(Query):
 
 
 class MatchQuery(Query):
-    """Analyzed full-text query."""
+    """Analyzed full-text query. With ``fuzziness`` each analyzed term
+    expands to an OR group of the field's terms within its edits (up to
+    ``max_expansions``; a term of the dict stays itself), and the
+    operator and minimum_should_match count groups, not terms (the
+    FuzzyQuery rewrite)."""
 
     def __init__(self, field: str, text: Any, operator: str = "or",
                  minimum_should_match=None, boost: float = 1.0,
-                 analyzer: Optional[str] = None):
+                 analyzer: Optional[str] = None, fuzziness=None,
+                 max_expansions: int = 50):
         self.field = field
         self.text = text
         self.operator = operator.lower()
         self.msm = minimum_should_match
         self.boost = boost
         self.analyzer = analyzer
+        self.fuzziness = fuzziness
+        self.max_expansions = max_expansions
 
     def _analyze(self, ctx) -> List[str]:
         an = (ctx.analysis.get(self.analyzer) if self.analyzer
@@ -447,14 +533,31 @@ class MatchQuery(Query):
         terms = self._analyze(ctx)
         if not terms:
             return _empty(ctx)
-        if ctx.inv(self.field) is None:
+        inv = ctx.inv(self.field)
+        if inv is None:
             return _empty(ctx)
-        # conjunctions need distinct-matched-term counts; a plain OR only
-        # needs the match mask (scores > 0)
-        need_counts = self.operator == "and" or self.msm is not None
-        scores, counts, _ = _score_term_group(
-            ctx, self.field, terms, self.boost, with_counts=need_counts)
-        n_terms = len(set(terms))
+        if self.fuzziness is not None:
+            # a term of the dict, or one allowed no edit, stays itself
+            groups = [[t] if t in inv.vocab
+                      or _fuzziness_to_edits(self.fuzziness, t) == 0
+                      else fuzzy_terms(inv, t, self.fuzziness,
+                                       self.max_expansions) or [t]
+                      for t in terms]
+            scores, _, _ = _score_term_group(
+                ctx, self.field, [t for g in groups for t in g], self.boost)
+            counts = _zeros(ctx, torch.int32)
+            for g in groups:
+                _, gmask, _ = _score_term_group(ctx, self.field, g, 1.0)
+                counts = counts + gmask.to(torch.int32)
+            n_terms = len(groups)
+            need_counts = True
+        else:
+            # conjunctions need distinct-matched-term counts; a plain OR
+            # only needs the match mask (scores > 0)
+            need_counts = self.operator == "and" or self.msm is not None
+            scores, counts, _ = _score_term_group(
+                ctx, self.field, terms, self.boost, with_counts=need_counts)
+            n_terms = len(set(terms))
         if self.operator == "and":
             mask = counts >= n_terms  # absent terms can never match
         elif need_counts:
@@ -462,6 +565,188 @@ class MatchQuery(Query):
         else:
             mask = counts
         return scores, mask
+
+
+def _analyzed(ctx, field: str, text) -> List[str]:
+    an = ctx.search_analyzer(field)
+    return [t for t, _ in an.analyze(str(text))] if an else [str(text)]
+
+
+class CommonTermsQuery(Query):
+    """Terms split by doc freq at ``cutoff_frequency`` (a fraction of the
+    field's docs, or an absolute count from 1 on): the low-freq terms
+    select, scored as a match under ``low_freq_operator`` /
+    ``minimum_should_match``; the high-freq ones add their score to the
+    docs the low group matched and never select alone, unless every term
+    is high-freq (then they select under ``high_freq_operator``)."""
+
+    def __init__(self, field: str, text: Any, cutoff_frequency: float = 0.01,
+                 low_freq_operator: str = "or", high_freq_operator: str = "or",
+                 minimum_should_match=None, boost: float = 1.0):
+        self.field = field
+        self.text = text
+        self.cutoff = float(cutoff_frequency)
+        self.low_op = low_freq_operator.lower()
+        self.high_op = high_freq_operator.lower()
+        self.msm = minimum_should_match
+        self.boost = boost
+
+    def _msm_for(self, group: str):
+        if isinstance(self.msm, dict):
+            return self.msm.get(group)
+        return self.msm if group == "low_freq" else None
+
+    def _group_mask(self, ctx, terms, op, msm):
+        need_counts = op == "and" or msm is not None
+        scores, matched, _ = _score_term_group(
+            ctx, self.field, terms, self.boost, with_counts=need_counts)
+        n_terms = len(set(terms))
+        if op == "and":
+            return scores, matched >= n_terms
+        if msm is not None:
+            return scores, matched >= max(_min_should_match(msm, n_terms), 1)
+        return scores, matched
+
+    def execute(self, ctx) -> ExecResult:
+        terms = _analyzed(ctx, self.field, self.text)
+        inv = ctx.inv(self.field)
+        if not terms or inv is None:
+            return _empty(ctx)
+        maxdoc = max(inv.num_docs, 1)
+        abs_cutoff = self.cutoff if self.cutoff >= 1.0 \
+            else self.cutoff * maxdoc
+        low, high = [], []
+        for t in dict.fromkeys(terms):
+            tid = inv.term_id(t)
+            df = int(inv.df[tid]) if tid >= 0 else 0
+            (high if df > abs_cutoff else low).append(t)
+        if low:
+            scores, mask = self._group_mask(ctx, low, self.low_op,
+                                            self._msm_for("low_freq"))
+            if high:
+                s_high, _, _ = _score_term_group(ctx, self.field, high,
+                                                 self.boost)
+                scores = scores + torch.where(mask, s_high, 0.0)
+            return scores, mask
+        return self._group_mask(ctx, high, self.high_op,
+                                self._msm_for("high_freq"))
+
+
+class MultiMatchQuery(Query):
+    """A match over several fields (``field^boost``): ``most_fields`` sums
+    the fields' scores; every other type is ``best_fields``, the best
+    field's score plus ``tie_breaker`` times the others'."""
+
+    def __init__(self, fields: List[str], text: Any,
+                 type_: str = "best_fields", operator: str = "or",
+                 tie_breaker: float = 0.0, boost: float = 1.0):
+        self.fields = fields
+        self.text = text
+        self.type = type_
+        self.operator = operator
+        self.tie_breaker = tie_breaker
+        self.boost = boost
+
+    def execute(self, ctx) -> ExecResult:
+        parts = []
+        for f in self.fields:
+            fboost = 1.0
+            if "^" in f:
+                f, _, b = f.partition("^")
+                fboost = float(b)
+            parts.append(MatchQuery(f, self.text, operator=self.operator,
+                                    boost=fboost * self.boost).execute(ctx))
+        if not parts:
+            return _empty(ctx)
+        mask = parts[0][1]
+        for _, m in parts[1:]:
+            mask = mask | m
+        stacked = torch.stack([s if s is not None else m.to(torch.float32)
+                               for s, m in parts])
+        if self.type == "most_fields":
+            return stacked.sum(0), mask
+        best = stacked.amax(0)
+        if self.tie_breaker > 0:
+            best = best + self.tie_breaker * (stacked.sum(0) - best)
+        return best, mask
+
+
+class MatchPhraseQuery(Query):
+    """match type=phrase: the positional program (ops/positional.py)
+    gives each doc's phrase frequency over the field's positional CSR on
+    the card, scored as Lucene scores a phrase: idf_sum *
+    tfNorm(phraseFreq), one pseudo-term through BM25. The idf comes from
+    ``ctx.idf``, so dfs statistics reach it. A one-term phrase is a
+    term query."""
+
+    def __init__(self, field: str, text: str, slop: int = 0,
+                 boost: float = 1.0):
+        self.field = field
+        self.text = text
+        self.slop = slop
+        self.boost = boost
+
+    def execute(self, ctx) -> ExecResult:
+        an = ctx.search_analyzer(self.field)
+        toks = an.analyze(str(self.text)) if an else [(str(self.text), 0)]
+        if not toks:
+            return _empty(ctx)
+        inv = ctx.inv(self.field)
+        if inv is None or inv.positions is None:
+            return _empty(ctx)
+        if any(t not in inv.vocab for t, _ in toks):
+            return _empty(ctx)
+        if len(toks) == 1:
+            scores, matched, n = _score_term_group(
+                ctx, self.field, [toks[0][0]], self.boost)
+            return (scores, matched) if n else _empty(ctx)
+        freq = phrase_freq(inv, toks, ctx.D, self.slop)
+        if freq is None:
+            return _empty(ctx)
+        kernels.record("phrase_program")
+        idf_sum = sum(ctx.idf(self.field, t)
+                      for t in dict.fromkeys(t for t, _ in toks))
+        lengths = ctx.segment.field_lengths.get(self.field)
+        if lengths is None:
+            lengths = _zeros(ctx, torch.float32)
+        scores = phrase_score(freq, lengths, inv.avg_len,
+                              idf_sum) * self.boost
+        return scores, freq > 0
+
+
+class MatchPhrasePrefixQuery(Query):
+    """A phrase whose last term is a prefix: each of its first
+    ``max_expansions`` completions runs as a phrase, a doc keeping its
+    best."""
+
+    def __init__(self, field: str, text: str, max_expansions: int = 50,
+                 boost: float = 1.0):
+        self.field = field
+        self.text = text
+        self.max_expansions = max_expansions
+        self.boost = boost
+
+    def execute(self, ctx) -> ExecResult:
+        toks = _analyzed(ctx, self.field, self.text)
+        if not toks:
+            return _empty(ctx)
+        inv = ctx.inv(self.field)
+        if inv is None:
+            return _empty(ctx)
+        expansions = _expand_prefix(inv, toks[-1], self.max_expansions)
+        if not expansions:
+            return _empty(ctx)
+        out_s, out_m = None, _zeros(ctx, torch.bool)
+        for e in expansions:
+            s, m = MatchPhraseQuery(self.field, " ".join(toks[:-1] + [e]),
+                                    boost=self.boost).execute(ctx)
+            out_m = out_m | m
+            if s is None:  # no phrase match: nothing to add
+                continue
+            out_s = s if out_s is None else torch.maximum(out_s, s)
+        if out_s is None:
+            return _empty(ctx)
+        return out_s, out_m
 
 
 class RangeQuery(Query):
@@ -492,7 +777,7 @@ class RangeQuery(Query):
             inv = ctx.inv(self.field)
             if inv is None:
                 return _empty(ctx)
-            terms = sorted(inv.terms)
+            terms, _ = _sorted_terms(inv)
             i0 = bisect_left(terms, str(lo)) if lo is not None else 0
             if lo is not None and not ilo and i0 < len(terms) and terms[i0] == str(lo):
                 i0 += 1
@@ -563,6 +848,84 @@ class IdsQuery(Query):
         return None, torch.from_numpy(m).to(ctx.device)
 
 
+class _ExpansionQuery(Query):
+    """A term-dict expansion on one field, run as a terms filter (its
+    score is the boost, as ``score_or_mask`` gives a filter)."""
+
+    def __init__(self, field: str, value: str, boost: float = 1.0,
+                 max_expansions: int = 1024):
+        self.field = field
+        self.value = value
+        self.boost = boost
+        self.max_expansions = max_expansions
+
+    def expand(self, inv) -> List[str]:
+        raise NotImplementedError
+
+    def execute(self, ctx) -> ExecResult:
+        inv = ctx.inv(self.field)
+        if inv is None:
+            return _empty(ctx)
+        terms = self.expand(inv)
+        if not terms:
+            return _empty(ctx)
+        return None, _terms_filter_mask(ctx, self.field, terms)
+
+
+class PrefixQuery(_ExpansionQuery):
+    def expand(self, inv) -> List[str]:
+        return _expand_prefix(inv, str(self.value), self.max_expansions)
+
+
+class WildcardQuery(_ExpansionQuery):
+    """``*`` and ``?`` globs; the literal prefix narrows the scan."""
+
+    def expand(self, inv) -> List[str]:
+        pat = str(self.value)
+        prefix = re.match(r"^[^*?\[\]]*", pat).group(0)
+        cands = _expand_prefix(inv, prefix, 1 << 30) if prefix else inv.terms
+        rx = re.compile(fnmatch.translate(pat))
+        return [t for t in cands if rx.match(t)][: self.max_expansions]
+
+
+class RegexpQuery(_ExpansionQuery):
+    """Terms the regexp matches whole."""
+
+    def expand(self, inv) -> List[str]:
+        try:
+            rx = re.compile(str(self.value))
+        except re.error as e:
+            raise QueryParsingException(
+                f"invalid regexp [{self.value}]: {e}")
+        return [t for t in inv.terms if rx.fullmatch(t)][
+            : self.max_expansions]
+
+
+class FuzzyQuery(Query):
+    """The field's terms within ``fuzziness`` edits, scored as a term
+    group."""
+
+    def __init__(self, field: str, value: str, fuzziness="AUTO",
+                 boost: float = 1.0, max_expansions: int = 50):
+        self.field = field
+        self.value = value
+        self.fuzziness = fuzziness
+        self.boost = boost
+        self.max_expansions = max_expansions
+
+    def execute(self, ctx) -> ExecResult:
+        inv = ctx.inv(self.field)
+        if inv is None:
+            return _empty(ctx)
+        terms = fuzzy_terms(inv, str(self.value), self.fuzziness,
+                            self.max_expansions)
+        if not terms:
+            return _empty(ctx)
+        scores, matched, _ = _score_term_group(ctx, self.field, terms,
+                                               self.boost)
+        return scores, matched
+
+
 class BoolQuery(Query):
     def __init__(self, must=(), should=(), must_not=(), filter_=(),
                  minimum_should_match=None, boost: float = 1.0):
@@ -612,6 +975,78 @@ class ConstantScoreQuery(Query):
     def execute(self, ctx) -> ExecResult:
         _, mask = self.inner.execute(ctx)
         return mask.to(torch.float32) * self.boost, mask
+
+
+class IndicesQuery(Query):
+    """``query`` on the segments of the named indices (globs), else
+    ``no_match`` (None: nothing), by the segment's owning index."""
+
+    def __init__(self, indices: List[str], inner: Query,
+                 no_match: Optional[Query]):
+        self.indices = [str(i) for i in indices]
+        self.inner = inner
+        self.no_match = no_match
+
+    def execute(self, ctx) -> ExecResult:
+        if any(fnmatch.fnmatch(ctx.index_name, p) for p in self.indices):
+            return self.inner.execute(ctx)
+        if self.no_match is None:
+            return _empty(ctx)
+        return self.no_match.execute(ctx)
+
+
+class DisMaxQuery(Query):
+    """The best clause's score plus ``tie_breaker`` times the others'."""
+
+    def __init__(self, queries: List[Query], tie_breaker: float = 0.0,
+                 boost: float = 1.0):
+        self.queries = queries
+        self.tie_breaker = tie_breaker
+        self.boost = boost
+
+    def execute(self, ctx) -> ExecResult:
+        if not self.queries:
+            return _empty(ctx)
+        return dis_max_scores([q.score_or_mask(ctx) for q in self.queries],
+                              self.tie_breaker, self.boost)
+
+
+def dis_max_scores(parts, tie_breaker: float, boost: float) -> ExecResult:
+    """dis_max over its clauses' (scores, mask) pairs (a segment's, or
+    the mesh's [S, D] stacks)."""
+    mask = parts[0][1]
+    for _, m in parts[1:]:
+        mask = mask | m
+    stacked = torch.stack([torch.where(m, s, 0.0) for s, m in parts])
+    best = stacked.amax(0)
+    if tie_breaker > 0:
+        best = best + tie_breaker * (stacked.sum(0) - best)
+    return best * boost * mask, mask
+
+
+class BoostingQuery(Query):
+    """``positive``'s matches, those ``negative`` also matches scored
+    times ``negative_boost``."""
+
+    def __init__(self, positive: Query, negative: Query,
+                 negative_boost: float = 0.5, boost: float = 1.0):
+        self.positive = positive
+        self.negative = negative
+        self.negative_boost = negative_boost
+        self.boost = boost
+
+    def execute(self, ctx) -> ExecResult:
+        s, mask = self.positive.score_or_mask(ctx)
+        return boosting_scores(s, mask, self.negative.execute(ctx)[1],
+                               self.negative_boost, self.boost)
+
+
+def boosting_scores(s, mask, neg, negative_boost: float,
+                    boost: float) -> ExecResult:
+    """boosting: the positive clause's scores, times ``negative_boost``
+    where the negative clause matches."""
+    s = torch.where(neg, s * negative_boost, s)
+    return s * boost * mask, mask
 
 
 class KnnQuery(Query):
@@ -753,6 +1188,341 @@ def _ann_result(scores, mask, boost: float) -> ExecResult:
 
 
 # ---------------------------------------------------------------------------
+# query_string / simple_query_string (the reference's subset grammar)
+# ---------------------------------------------------------------------------
+
+_QS_TOKEN = re.compile(r'([+\-]?)(?:([\w.]+):)?"([^"]*)"|(\S+)')
+
+
+class QueryStringQuery(Query):
+    """The reference's subset of QueryStringQueryBuilder: ``field:term``,
+    quoted phrases, ``+``/``-`` prefixes, AND/OR/NOT connectives (no
+    parentheses); a term with ``*``/``?`` is a wildcard, one ending in
+    ``~`` a fuzzy query. Runs as the bool query it rewrites to."""
+
+    def __init__(self, query: str, default_field: str = "_all",
+                 fields: Optional[List[str]] = None,
+                 default_operator: str = "or", boost: float = 1.0):
+        self.query = query
+        self.default_field = default_field
+        self.fields = fields
+        self.default_operator = default_operator.lower()
+        self.boost = boost
+
+    def _leaf(self, field: Optional[str], text: str, phrase: bool) -> Query:
+        tgt = field or (self.fields[0] if self.fields else self.default_field)
+        if self.fields and field is None and len(self.fields) > 1:
+            return MultiMatchQuery(self.fields, text)
+        if phrase:
+            return MatchPhraseQuery(tgt, text)
+        if "*" in text or "?" in text:
+            return WildcardQuery(tgt, text)
+        if text.endswith("~"):
+            return FuzzyQuery(tgt, text[:-1])
+        return MatchQuery(tgt, text)
+
+    def rewrite(self) -> Query:
+        must: List[Query] = []
+        must_not: List[Query] = []
+        should: List[Query] = []
+        pending_op: Optional[str] = None
+        negate_next = False
+        for m in _QS_TOKEN.finditer(self.query):
+            phrase_sign, field, phrase_text, word = m.groups()
+            if word in ("AND", "&&"):
+                pending_op = "and"
+                # AND binds both sides: the previous should clause too
+                if should:
+                    must.append(should.pop())
+                continue
+            if word in ("OR", "||"):
+                pending_op = "or"
+                continue
+            if word in ("NOT", "!"):
+                negate_next = True
+                continue
+            raw = phrase_text if phrase_text is not None else word
+            is_phrase = phrase_text is not None
+            sign = phrase_sign or None
+            if not is_phrase:
+                if raw.startswith("+"):
+                    sign, raw = "+", raw[1:]
+                elif raw.startswith("-"):
+                    sign, raw = "-", raw[1:]
+                if ":" in raw:
+                    field, _, raw = raw.partition(":")
+                    if raw.startswith('"') and raw.endswith('"'):
+                        raw = raw[1:-1]
+                        is_phrase = True
+            leaf = self._leaf(field, raw, is_phrase)
+            if negate_next or sign == "-":
+                must_not.append(leaf)
+                negate_next = False
+            elif sign == "+" or pending_op == "and" \
+                    or self.default_operator == "and":
+                must.append(leaf)
+            else:
+                should.append(leaf)
+            pending_op = None
+        return BoolQuery(must=must, should=should, must_not=must_not,
+                         boost=self.boost)
+
+    def execute(self, ctx) -> ExecResult:
+        return self.rewrite().execute(ctx)
+
+
+# ---------------------------------------------------------------------------
+# more_like_this
+# ---------------------------------------------------------------------------
+
+class MoreLikeThisQuery(Query):
+    """Significant terms of the liked texts and docs (tf * idf, at most
+    ``max_query_terms`` a field, unliked terms skipped) as a should
+    group; the liked docs themselves are left out unless ``include``."""
+
+    def __init__(self, fields: List[str], like_texts=(), like_ids=(),
+                 unlike_texts=(), unlike_ids=(), include: bool = False,
+                 max_query_terms: int = 25, min_term_freq: int = 1,
+                 min_doc_freq: int = 1, boost: float = 1.0,
+                 exclude_ids=()):
+        self.fields = fields or ["_all"]
+        self.like_texts = list(like_texts)
+        self.like_ids = list(like_ids)
+        self.unlike_texts = list(unlike_texts)
+        self.unlike_ids = list(unlike_ids)
+        # ids whose docs rewrite_mlt_in_body resolved to texts, excluded
+        # from the results as like_ids are
+        self.exclude_ids = list(exclude_ids)
+        self.include = include
+        self.max_query_terms = max_query_terms
+        self.min_term_freq = min_term_freq
+        self.min_doc_freq = min_doc_freq
+        self.boost = boost
+
+    def _texts_of(self, ctx, ids, extra_texts) -> List[str]:
+        texts = list(extra_texts)
+        for doc_id in ids:
+            loc = ctx.segment.id_map.get(str(doc_id))
+            if loc is not None and ctx.segment.sources[loc]:
+                src = ctx.segment.sources[loc]
+                for f in self.fields:
+                    if f == "_all":  # every text value, as the _all mapper
+                        v = " ".join(x for x in src.values()
+                                     if isinstance(x, str))
+                    else:
+                        v = src.get(f)
+                    if isinstance(v, str):
+                        texts.append(v)
+        return texts
+
+    def execute(self, ctx) -> ExecResult:
+        out_s = _zeros(ctx, torch.float32)
+        out_m = _zeros(ctx, torch.bool)
+        texts = self._texts_of(ctx, self.like_ids, self.like_texts)
+        untexts = self._texts_of(ctx, self.unlike_ids, self.unlike_texts)
+        for field in self.fields:
+            inv = ctx.inv(field)
+            if inv is None:
+                continue
+            an = ctx.search_analyzer(field)
+
+            def toks_of(text):
+                return ([t for t, _ in an.analyze(text)] if an
+                        else text.split())
+
+            tf: Dict[str, int] = {}
+            for text in texts:
+                for t in toks_of(text):
+                    tf[t] = tf.get(t, 0) + 1
+            skip = {t for text in untexts for t in toks_of(text)}
+            scored = []
+            for t, f_ in tf.items():
+                if f_ < self.min_term_freq or t in skip:
+                    continue
+                tid = inv.vocab.get(t, -1)
+                if tid < 0 or inv.df[tid] < self.min_doc_freq:
+                    continue
+                scored.append((f_ * inv.idf(t), t))
+            scored.sort(reverse=True)
+            sel = [t for _, t in scored[: self.max_query_terms]]
+            if not sel:
+                continue
+            s, matched, _ = _score_term_group(ctx, field, sel, self.boost)
+            out_s = out_s + s
+            out_m = out_m | matched
+        excl = self.like_ids + self.exclude_ids
+        if not self.include and excl:
+            drop = np.zeros(ctx.D, dtype=bool)
+            for doc_id in excl:
+                loc = ctx.segment.id_map.get(str(doc_id))
+                if loc is not None:
+                    drop[loc] = True
+            keep = torch.from_numpy(~drop).to(ctx.device)
+            out_m = out_m & keep
+            out_s = torch.where(keep, out_s, 0.0)
+        return out_s, out_m
+
+
+def _doc_path_values(src, path: str) -> list:
+    """Dot-path values of a source dict, lists flattened."""
+    cur = [src]
+    for part in str(path).split("."):
+        nxt = []
+        for c in cur:
+            if isinstance(c, dict) and part in c:
+                v = c[part]
+                nxt.extend(v if isinstance(v, list) else [v])
+        cur = nxt
+    return cur
+
+
+def rewrite_mlt_in_body(query_dsl, lookup):
+    """Resolve the documents a query names before it fans out to the
+    shards, where a segment sees only its own docs:
+
+    - more_like_this liked ids become the docs' texts (``{"doc":
+      source}``), still excluded from the results through
+      ``_exclude_ids`` (TransportMoreLikeThisAction gets the liked doc,
+      then queries);
+    - a terms lookup (``{"terms": {f: {index, type, id, path}}}``)
+      becomes the term list at ``path`` (a missing doc: an empty list,
+      matching nothing);
+    - a geo_shape ``indexed_shape`` becomes the inline shape.
+
+    ``lookup(doc_id, routing=None, index=None)`` honours each item's
+    routing and ``_index``. Returns a rewritten copy, or the input
+    unchanged."""
+    if not isinstance(query_dsl, dict):
+        return query_dsl
+
+    def resolve_terms(spec):
+        out = None
+        for field, v in spec.items():
+            if not (isinstance(v, dict) and v.get("id") is not None
+                    and ("path" in v or "index" in v)):
+                continue
+            src = lookup(str(v["id"]), routing=v.get("routing"),
+                         index=v.get("index"))
+            vals = ([] if src is None
+                    else [x for x in _doc_path_values(src,
+                                                      v.get("path", field))
+                          if not isinstance(x, (dict, list))])
+            if out is None:
+                out = dict(spec)
+            out[field] = vals
+        return out if out is not None else spec
+
+    def resolve_shape(spec):
+        for field, v in spec.items():
+            ind = v.get("indexed_shape") if isinstance(v, dict) else None
+            if not (isinstance(ind, dict) and ind.get("id") is not None):
+                continue
+            src = lookup(str(ind["id"]), routing=ind.get("routing"),
+                         index=ind.get("index"))
+            if src is None:
+                continue  # stays indexed_shape: the geo parser raises
+            got = _doc_path_values(src, ind.get("path", "shape"))
+            if got and isinstance(got[0], dict):
+                nv = {k: x for k, x in v.items() if k != "indexed_shape"}
+                nv["shape"] = got[0]
+                out = dict(spec)
+                out[field] = nv
+                return out
+        return spec
+
+    def fields_of(spec):
+        flds = spec.get("fields") or None
+        # _all has no _source key: every field's text, the whole source
+        if flds and "_all" in flds:
+            return None
+        return flds
+
+    def resolve(spec):
+        changed = False
+        out = dict(spec)
+        excl = list(out.get("_exclude_ids", []))
+        flds = fields_of(spec)
+
+        def conv(entries, exclude: bool):
+            nonlocal changed
+            if entries is None:
+                return None
+            lst = entries if isinstance(entries, list) else [entries]
+            new = []
+            for item in lst:
+                if isinstance(item, dict) and "doc" not in item \
+                        and item.get("_id") is not None:
+                    src = lookup(str(item["_id"]),
+                                 routing=item.get("routing") or
+                                 item.get("_routing"),
+                                 index=item.get("_index"))
+                    if src is not None:
+                        doc = (src if flds is None
+                               else {f: src[f] for f in flds if f in src})
+                        new.append({"doc": doc})
+                        if exclude:
+                            excl.append(str(item["_id"]))
+                        changed = True
+                        continue
+                new.append(item)
+            return new
+
+        for key, exclude in (("like", True), ("like_text", True),
+                             ("docs", True), ("unlike", False),
+                             ("ignore_like", False)):
+            if key in out:
+                got = conv(out[key], exclude)
+                if got is not None:
+                    out[key] = got
+        if "ids" in out and out["ids"]:
+            likes = conv([{"_id": i} for i in out["ids"]], True)
+            if any("doc" in e for e in likes if isinstance(e, dict)):
+                out["ids"] = [i for i, e in zip(out["ids"], likes)
+                              if not (isinstance(e, dict) and "doc" in e)]
+                if "like" not in out and "like_text" in out:
+                    # a new ``like`` would shadow like_text in the
+                    # parser's like-or-like_text fallback: fold it in
+                    lt = out.pop("like_text")
+                    out["like"] = lt if isinstance(lt, list) else [lt]
+                else:
+                    out.setdefault("like", [])
+                if not isinstance(out["like"], list):
+                    out["like"] = [out["like"]]
+                out["like"] = list(out["like"]) + [
+                    e for e in likes if isinstance(e, dict) and "doc" in e]
+        if not changed:
+            return spec
+        out["_exclude_ids"] = excl
+        return out
+
+    def walk(node):
+        if isinstance(node, dict):
+            out = None
+            for k, v in node.items():
+                if k in ("more_like_this", "mlt") and isinstance(v, dict):
+                    nv = resolve(v)
+                elif k == "terms" and isinstance(v, dict):
+                    nv = resolve_terms(v)
+                elif k == "geo_shape" and isinstance(v, dict):
+                    nv = resolve_shape(v)
+                else:
+                    nv = walk(v)
+                if nv is not v:
+                    if out is None:
+                        out = dict(node)
+                    out[k] = nv
+            return out if out is not None else node
+        if isinstance(node, list):
+            newl = [walk(x) for x in node]
+            if any(a is not b for a, b in zip(newl, node)):
+                return newl
+            return node
+        return node
+
+    return walk(query_dsl)
+
+
+# ---------------------------------------------------------------------------
 # parsing
 # ---------------------------------------------------------------------------
 
@@ -824,20 +1594,68 @@ def _parse_query_inner(dsl: Optional[dict]) -> Query:
 
     if qtype == "match_all":
         return MatchAllQuery(boost=float((body or {}).get("boost", 1.0)))
+    if qtype == "match_none":
+        return MatchNoneQuery()
 
     if qtype == "match":
         field, spec = _single_field(qtype, body)
-        if isinstance(spec, dict):
-            if spec.get("fuzziness") is not None:
-                raise QueryParsingException(
-                    "[match] fuzziness is not yet in the PyTorch port")
-            return MatchQuery(
+        if not isinstance(spec, dict):
+            return MatchQuery(field, spec)
+        # ES 2.0's MatchQuery.Type: phrase and phrase_prefix run as their
+        # own queries (the reference ignores ``type``; ROADMAP C6)
+        mtype = str(spec.get("type", "boolean"))
+        if mtype == "phrase":
+            return MatchPhraseQuery(field, spec.get("query"),
+                                    slop=int(spec.get("slop", 0)),
+                                    boost=float(spec.get("boost", 1.0)))
+        if mtype == "phrase_prefix":
+            return MatchPhrasePrefixQuery(
                 field, spec.get("query"),
-                operator=spec.get("operator", "or"),
+                max_expansions=int(spec.get("max_expansions", 50)))
+        return MatchQuery(
+            field, spec.get("query"),
+            operator=spec.get("operator", "or"),
+            minimum_should_match=spec.get("minimum_should_match"),
+            boost=float(spec.get("boost", 1.0)),
+            analyzer=spec.get("analyzer"),
+            fuzziness=spec.get("fuzziness"),
+            max_expansions=int(spec.get("max_expansions", 50)))
+
+    if qtype in ("match_phrase", "text_phrase"):
+        field, spec = _single_field(qtype, body)
+        if isinstance(spec, dict):
+            return MatchPhraseQuery(field, spec.get("query"),
+                                    slop=int(spec.get("slop", 0)),
+                                    boost=float(spec.get("boost", 1.0)))
+        return MatchPhraseQuery(field, spec)
+
+    if qtype == "match_phrase_prefix":
+        field, spec = _single_field(qtype, body)
+        if isinstance(spec, dict):
+            return MatchPhrasePrefixQuery(
+                field, spec.get("query"),
+                max_expansions=int(spec.get("max_expansions", 50)))
+        return MatchPhrasePrefixQuery(field, spec)
+
+    if qtype == "multi_match":
+        return MultiMatchQuery(
+            list(body.get("fields", [])), body.get("query"),
+            type_=body.get("type", "best_fields"),
+            operator=body.get("operator", "or"),
+            tie_breaker=float(body.get("tie_breaker", 0.0)),
+            boost=float(body.get("boost", 1.0)))
+
+    if qtype == "common":
+        field, spec = _single_field(qtype, body)
+        if isinstance(spec, dict):
+            return CommonTermsQuery(
+                field, spec.get("query"),
+                cutoff_frequency=float(spec.get("cutoff_frequency", 0.01)),
+                low_freq_operator=spec.get("low_freq_operator", "or"),
+                high_freq_operator=spec.get("high_freq_operator", "or"),
                 minimum_should_match=spec.get("minimum_should_match"),
-                boost=float(spec.get("boost", 1.0)),
-                analyzer=spec.get("analyzer"))
-        return MatchQuery(field, spec)
+                boost=float(spec.get("boost", 1.0)))
+        return CommonTermsQuery(field, spec)
 
     if qtype == "term":
         field, spec = _single_field(qtype, body)
@@ -879,9 +1697,39 @@ def _parse_query_inner(dsl: Optional[dict]) -> Query:
 
     if qtype == "exists":
         return ExistsQuery(body["field"])
+    if qtype == "missing":  # ES 2.0's missing query: NOT exists
+        return BoolQuery(must_not=[ExistsQuery(body["field"])])
 
     if qtype == "ids":
         return IdsQuery(list(body.get("values", [])))
+
+    if qtype == "prefix":
+        field, spec = _single_field(
+            qtype, {k: v for k, v in body.items() if k != "boost"})
+        value = spec.get("value", spec.get("prefix")) \
+            if isinstance(spec, dict) else spec
+        return PrefixQuery(field, value, boost=float(body.get("boost", 1.0)))
+
+    if qtype == "wildcard":
+        field, spec = _single_field(qtype, body)
+        value = spec.get("value", spec.get("wildcard")) \
+            if isinstance(spec, dict) else spec
+        return WildcardQuery(field, value)
+
+    if qtype == "regexp":
+        field, spec = _single_field(qtype, body)
+        return RegexpQuery(field, spec.get("value")
+                           if isinstance(spec, dict) else spec)
+
+    if qtype == "fuzzy":
+        field, spec = _single_field(qtype, body)
+        if isinstance(spec, dict):
+            return FuzzyQuery(field, spec.get("value"),
+                              fuzziness=spec.get("fuzziness", "AUTO"),
+                              boost=float(spec.get("boost", 1.0)),
+                              max_expansions=int(spec.get("max_expansions",
+                                                          50)))
+        return FuzzyQuery(field, spec)
 
     if qtype == "bool":
         return BoolQuery(
@@ -896,6 +1744,65 @@ def _parse_query_inner(dsl: Optional[dict]) -> Query:
         inner = body.get("filter", body.get("query"))
         return ConstantScoreQuery(parse_query(inner),
                                   boost=float(body.get("boost", 1.0)))
+
+    if qtype == "filtered":  # ES 2.0 legacy
+        q = parse_query(body.get("query")) if body.get("query") \
+            else MatchAllQuery()
+        if not body.get("filter"):
+            return q
+        return BoolQuery(must=[q], filter_=[parse_query(body["filter"])])
+
+    if qtype == "dis_max":
+        return DisMaxQuery([parse_query(q) for q in body.get("queries", [])],
+                           tie_breaker=float(body.get("tie_breaker", 0.0)),
+                           boost=float(body.get("boost", 1.0)))
+
+    if qtype == "boosting":
+        return BoostingQuery(
+            parse_query(body["positive"]), parse_query(body["negative"]),
+            negative_boost=float(body.get("negative_boost", 0.5)))
+
+    if qtype == "query_string":
+        return QueryStringQuery(
+            body["query"], default_field=body.get("default_field", "_all"),
+            fields=body.get("fields"),
+            default_operator=body.get("default_operator", "or"),
+            boost=float(body.get("boost", 1.0)))
+
+    if qtype == "simple_query_string":
+        fields = body.get("fields")
+        return QueryStringQuery(
+            body["query"], fields=fields,
+            default_field=fields[0] if fields else "_all",
+            default_operator=body.get("default_operator", "or"))
+
+    if qtype == "more_like_this":
+        return _parse_mlt(body)
+
+    if qtype == "indices":
+        # applied by the owning index of each segment
+        names = body.get("indices",
+                         [body.get("index")] if body.get("index") else [])
+        q = parse_query(body["query"])
+        nm = body.get("no_match_query", "all")
+        if nm == "none":
+            no_match: Optional[Query] = None
+        elif nm == "all":
+            no_match = MatchAllQuery()
+        else:
+            no_match = parse_query(nm)
+        return IndicesQuery(names, q, no_match)
+
+    if qtype == "template":
+        from elasticsearch_tpu_torch.search.templates import render_template
+
+        spec = body.get("query", body.get("inline", body))
+        return parse_query(render_template(spec, body.get("params")))
+
+    if qtype == "wrapper":
+        raw = body["query"]
+        return parse_query(raw if isinstance(raw, dict)
+                           else json.loads(base64.b64decode(raw)))
 
     if qtype == "knn":
         filt = parse_query(body["filter"]) if "filter" in body else None
@@ -915,5 +1822,50 @@ def _parse_query_inner(dsl: Optional[dict]) -> Query:
 
         return parse_hybrid(body)
 
-    raise QueryParsingException(
-        f"query type [{qtype}] is not yet in the PyTorch port")
+    if qtype in A9B_QUERIES:
+        raise QueryParsingException(
+            f"query type [{qtype}] is not yet in the PyTorch port "
+            f"(ROADMAP A9b)")
+    raise QueryParsingException(f"unknown query type [{qtype}]")
+
+
+#: the reference's query types that come with ROADMAP A9b
+A9B_QUERIES = ("function_score", "script", "span_term", "span_first",
+               "span_near", "span_not", "span_or", "span_multi",
+               "field_masking_span", "nested", "has_child", "has_parent",
+               "top_children", "geo_distance", "geo_bounding_box",
+               "geo_polygon", "geo_shape")
+
+
+def _parse_mlt(body: dict) -> MoreLikeThisQuery:
+    def split(spec):
+        """like/unlike/docs: strings, {_id} and {doc: {...}} artificial
+        docs, as (texts, ids)."""
+        if spec is None:
+            return [], []
+        if isinstance(spec, (str, dict)):
+            spec = [spec]
+        texts, ids = [], []
+        for item in spec:
+            if isinstance(item, dict):
+                if isinstance(item.get("doc"), dict):
+                    texts.extend(str(v) for v in item["doc"].values()
+                                 if isinstance(v, (str, int, float)))
+                elif item.get("_id") is not None:
+                    ids.append(item["_id"])
+            else:
+                texts.append(item)
+        return texts, ids
+
+    texts, ids = split(body.get("like", body.get("like_text")))
+    dtexts, dids = split(body.get("docs"))
+    untexts, unids = split(body.get("unlike", body.get("ignore_like")))
+    return MoreLikeThisQuery(
+        body.get("fields", []), like_texts=texts + dtexts,
+        like_ids=ids + dids + list(body.get("ids", [])),
+        exclude_ids=list(body.get("_exclude_ids", [])),
+        unlike_texts=untexts, unlike_ids=unids,
+        include=bool(body.get("include", False)),
+        max_query_terms=int(body.get("max_query_terms", 25)),
+        min_term_freq=int(body.get("min_term_freq", 1)),
+        min_doc_freq=int(body.get("min_doc_freq", 1)))

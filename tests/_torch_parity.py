@@ -52,6 +52,7 @@ def reference_arrays(seg) -> dict:
             "avg_len": inv.avg_len,
             "num_docs": inv.num_docs, "total_terms": inv.total_terms,
             "lengths": None if lens is None else np.asarray(lens),
+            "positions": inv.positions, "pos_offsets": inv.pos_offsets,
         }
     keywords = {
         name: {"ords": np.asarray(c.ords_host), "exists": c.exists_host,

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX
-package, and its entry point never falls back to the CPU on its own."""
+package (a phrase, a term expansion and a query_string included), and
+its entry point never falls back to the CPU on its own."""
 import os
 import re
 import subprocess
@@ -95,6 +96,14 @@ r = n.search("w", {"size": 0, "aggs": {"t": {"terms": {"field": "tag"}}}})
 assert n.search("w", {"size": 0, "aggs": {"t": {"terms": {"field": "tag"}}}}) == r
 assert svc.query_cache_stats == {"hits": 1, "misses": 1, "evictions": 0}
 assert n.search("*", {"indices_boost": {"w": 2}})["hits"]["total"] == 1050
+r = n.search("i", {"query": {"match_phrase": {"body": "quick brown"}},
+                   "highlight": {"fields": {"body": {}}}})
+assert r["hits"]["total"] == 100 and r["hits"]["hits"][0]["highlight"]
+assert kernels.snapshot().get("phrase_program"), kernels.snapshot()
+assert n.search("m", {"query": {"wildcard": {"body": "f*x"}}})["hits"]["total"] == 60
+r = n.search("i", {"query": {"query_string": {
+    "query": '"brown fox" AND qu*', "default_field": "body"}}})
+assert r["hits"]["total"] == 100, r["hits"]["total"]
 n.close()
 import importlib, pkgutil
 import elasticsearch_tpu_torch

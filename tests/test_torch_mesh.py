@@ -565,7 +565,9 @@ def test_stacked_copies_are_charged_and_released(monkeypatch):
         _check_host(again, _port_host(node, "t", fox, monkeypatch),
                     exact=False)
         node.close()
-        assert fd.used == base
+        # the executor's copies and memo, and with the index the
+        # segments' own fielddata (``base``): nothing stays charged
+        assert base > 0 and fd.used == 0
     finally:
         node.close()
 
