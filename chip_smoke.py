@@ -127,6 +127,24 @@ Phases, in order; any failure exits non-zero before the result line:
             2^14-doc prefix, and the CSR's bytes released when the node
             closes; p50, p99, device time, kernels, copies and busy share
             per group and route;
+5j. scoring the scoring DSL (``phase_scoring``) on 5i's index before it
+            closes, with two doc-value columns from seed 0: popularity
+            (a Zipf(1.5) long, absent on 10% of docs) and published (a
+            date over 2015-2020); groups of eight bodies each from the
+            seed: (a) function_score field_value_factor log2p (geonames'
+            ``field_value_function_score``), (b) its script_score twin,
+            (c) random_score, (d) a recency boost (a match times a gauss
+            on the date plus a filtered weight), (e) a script filter in a
+            bool, (f) span_near in and out of order, span_first, span_or,
+            span_not and span_multi, (g) size-0 script aggregations
+            (avg, histogram, scripted_metric) and a page of (d) with two
+            script_fields; each on the mesh path (or its typed decline)
+            and on the host loop for about a second: responses
+            byte-identical across the routes, (a), (c) and (d)'s function
+            values and top 10 against f64 numpy oracles, span_first,
+            span_or and span_not's match sets against numpy over the host
+            positions, every body against a CPU Node of the port on
+            5i's 2^14-doc prefix; no B1-B4 launch on this path;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
@@ -3605,7 +3623,9 @@ FT_MAX_REPS = 400          # FT_MAX_REPS; p99 from TAXI_TAIL_REPS on
 FT_PROFILED = 4            # requests per group and route under the profiler
 FT_PREFIX = 1 << 14        # the CPU comparison's prefix of the corpus
 FT_MAPPING = {"properties": {"body": {"type": "text"},
-                             "title": {"type": "text"}}}
+                             "title": {"type": "text"},
+                             "popularity": {"type": "long"},
+                             "published": {"type": "date"}}}
 
 
 def csr_field(np, terms, docs, pos, n_docs, vocab, lengths):
@@ -3659,8 +3679,27 @@ def fulltext_arrays(np, doc_len, terms, n_docs):
     title = csr_field(np, terms[:n_tok][head], docs[head], pos[head],
                       n_docs, VOCAB, np.minimum(dl, FT_TITLE).astype(
                           np.float64))
+    pop, pop_ok, pub = scoring_columns(np, n_docs)
     return {"num_docs": n_docs, "max_docs": n_docs,
-            "fields": {"body": body, "title": title}}
+            "fields": {"body": body, "title": title},
+            "numerics": {
+                "popularity": {"exact": pop, "exists": pop_ok,
+                               "kind": "long"},
+                "published": {"exact": pub,
+                              "exists": np.ones(n_docs, bool),
+                              "kind": "date"}}}
+
+
+def scoring_columns(np, n_docs):
+    """Phase 5j's doc values of the first ``n_docs`` of FT_DOCS, from seed
+    0: popularity, a heavy-tailed Zipf(1.5) long absent on 10% of docs
+    (0 there), and published, a date uniform over 2015-2020 (epoch ms)."""
+    rng = np.random.default_rng(0)
+    pop = rng.zipf(1.5, FT_DOCS).astype(np.int64)
+    pop_ok = rng.random(FT_DOCS) >= 0.1
+    pub = rng.integers(TAXI_YEAR, PUB_END, FT_DOCS).astype(np.int64)
+    return (np.where(pop_ok, pop, 0)[:n_docs], pop_ok[:n_docs],
+            pub[:n_docs])
 
 
 def fulltext_bodies(np, doc_len, terms, seed):
@@ -3771,26 +3810,26 @@ def phrase_oracle(np, field, words, slop, D):
     return np.bincount(adoc, weights=w, minlength=D)
 
 
-def _ft_line(np, name, label, ms, prof):
+def _ft_line(np, name, label, ms, prof, tag="5i"):
     tail = (f"p99 {np.percentile(ms, 99):.3f} ms"
             if len(ms) >= TAXI_TAIL_REPS else
             f"slowest {ms.max():.3f} ms (too few for a p99)")
-    return (f"[5i] {name}, {label}: p50 {np.percentile(ms, 50):.3f} ms, "
+    return (f"[{tag}] {name}, {label}: p50 {np.percentile(ms, 50):.3f} ms, "
             f"{tail} over {len(ms)} requests, "
             + _dev_line(np, prof, FT_PROFILED, ms))
 
 
-def _hold_same_hits(got, want, what):
+def _hold_same_hits(got, want, what, tag="5i"):
     gh, wh = got["hits"]["hits"], want["hits"]["hits"]
     _hold(got["hits"]["total"] == want["hits"]["total"]
           and [h["_id"] for h in gh] == [h["_id"] for h in wh],
           f"{what}: total {got['hits']['total']} vs "
-          f"{want['hits']['total']}, ids differ", "5i")
+          f"{want['hits']['total']}, ids differ", tag)
     g = [h["_score"] for h in gh]
     w = [h["_score"] for h in wh]
     _hold(len(g) == len(w) and all(abs(a - b) <= 1e-5 * abs(b)
                                    for a, b in zip(g, w)),
-          f"{what}: scores {g[:3]} vs {w[:3]}", "5i")
+          f"{what}: scores {g[:3]} vs {w[:3]}", tag)
 
 
 def phase_fulltext(torch, np, dev, card):
@@ -3963,22 +4002,386 @@ def phase_fulltext(torch, np, dev, card):
                 _hold_same_hits(pnodes[0].search("ftp", copy.deepcopy(body)),
                                 want, f"{name} prefix, card host vs CPU")
             n_bodies += 1
-    for n in pnodes:
-        n.close()
     log(f"[5i] {n_bodies} bodies on a {FT_PREFIX}-doc prefix: the card's "
         f"mesh path and host loop equal a CPU Node of the port (ids, "
         f"order, totals exact; scores within rtol 1e-5); "
         f"{time.perf_counter() - t:.1f} s")
 
+    b1 += phase_scoring(torch, np, dev, card, node, pnodes, arrays, doc_len,
+                        terms)
+    for n in pnodes:
+        n.close()
     node.close()
     _hold(fd.used == 0, f"fielddata {fd.used} bytes after the index closed "
           f"(the CSR's {csr_bytes} included)", "5i")
     log(f"[5i] after the node closed: fielddata {fd.used} bytes (the "
         f"positional CSR's {csr_bytes} released), segments {segs_br.used}")
     del arrays, pre, doc_len, terms
-    log(f"[5i] B1 launched {b1} times in 5i's timed runs; phase 5i took "
-        f"{time.perf_counter() - t_phase:.1f} s")
+    log(f"[5i] B1 launched {b1} times in 5i's and 5j's timed runs; phases "
+        f"5i and 5j took {time.perf_counter() - t_phase:.1f} s")
     return b1
+
+
+PUB_END = 1_609_459_200_000   # 2021-01-01T00:00:00Z: published below it
+SC_ORIGIN = "2018-06-01"       # (d)'s decay origin
+SC_ORIGIN_MS = 1_527_811_200_000
+SC_POP_CUT = 100               # (d)'s filtered weight: popularity >= this
+SC_BAND = 1e-5                 # the function values' bar against f64
+
+
+def scoring_bodies(np, doc_len, terms, seed):
+    """Phase 5j's groups of FT_VARIANTS request bodies, drawn with a seeded
+    rng from the corpus: (name, [bodies], the mesh serves them)."""
+    rng = np.random.default_rng(seed + 13)
+    start = np.cumsum(doc_len) - doc_len
+
+    def toks(n, head=None):
+        """n consecutive tokens of a random doc (within its first
+        ``head`` positions)."""
+        d = int(rng.integers(doc_len.size))
+        s0 = int(rng.integers(0, (head or doc_len[d]) - n + 1))
+        return [f"t{t}" for t in terms[start[d] + s0: start[d] + s0 + n]]
+
+    def q(body):
+        return {"query": body, "size": 10}
+
+    V = range(FT_VARIANTS)
+    factors = [round(float(rng.uniform(0.5, 4.0)), 2) for _ in V]
+    recency = [{"function_score": {
+        "query": {"match": {"body": " ".join(toks(int(rng.integers(2, 4))))}},
+        "functions": [
+            {"gauss": {"published": {"origin": SC_ORIGIN, "scale": "30d",
+                                     "offset": "1d", "decay": 0.5}}},
+            {"filter": {"range": {"popularity": {"gte": SC_POP_CUT}}},
+             "weight": 2}],
+        "score_mode": "sum", "boost_mode": "multiply"}} for _ in V]
+
+    def fvf(f):
+        return {"function_score": {"query": {"match_all": {}},
+                                   "field_value_factor": {
+                                       "field": "popularity", "factor": f,
+                                       "modifier": "log2p", "missing": 1}}}
+
+    def script_score(f):
+        return {"function_score": {"query": {"match_all": {}},
+                                   "script_score": {"script": {
+                                       "inline": "Math.log10(doc['popularity']"
+                                                 ".value * params.f + 2)",
+                                       "params": {"f": f}}}}}
+
+    def span_terms(ts):
+        return [{"span_term": {"body": t}} for t in ts]
+
+    return [
+        ("a_field_value", [q(fvf(f)) for f in factors], True),
+        ("b_script_score", [q(script_score(f)) for f in factors], False),
+        ("c_random", [q({"function_score": {
+            "query": {"match_all": {}},
+            "random_score": {"seed": int(rng.integers(0, 2 ** 31))},
+            "boost_mode": "replace"}}) for _ in V], True),
+        ("d_recency", [q(b) for b in recency], True),
+        ("e_script_filter", [q({"bool": {
+            "must": [{"match": {"body": " ".join(toks(2))}}],
+            "filter": [{"script": {"script": {
+                "inline": "doc['popularity'].value > params.cut",
+                "params": {"cut": int(rng.integers(2, 50))}}}}]}})
+            for _ in V], False),
+        ("f_near_ordered", [q({"span_near": {
+            "clauses": span_terms(toks(int(rng.integers(2, 4)))),
+            "slop": 1, "in_order": True}}) for _ in V], False),
+        ("f_near_unordered", [q({"span_near": {
+            "clauses": span_terms(toks(2)[::-1]), "slop": 3,
+            "in_order": False}}) for _ in V], False),
+        ("f_first", [q({"span_first": {
+            "match": span_terms(toks(1, head=3))[0], "end": 3}})
+            for _ in V], False),
+        ("f_or", [q({"span_or": {"clauses": span_terms(
+            toks(1)[0] for _ in range(3))}}) for _ in V], False),
+        ("f_not", [q({"span_not": {"include": span_terms([a])[0],
+                                   "exclude": span_terms([b])[0],
+                                   "post": 1}})
+                   for a, b in (toks(2) for _ in V)], False),
+        ("f_multi", [q({"span_multi": {"match": {"prefix": {
+            "body": f"t{int(rng.integers(100, 999))}"}}}}) for _ in V],
+         False),
+        ("g_script_avg", [{"size": 0, "aggs": {"a": {"avg": {"script": {
+            "inline": "doc['popularity'].value * params.f",
+            "params": {"f": f}}}}}} for f in factors], True),
+        ("g_script_histogram", [{"size": 0, "aggs": {"h": {"histogram": {
+            "script": {"inline": "doc['popularity'].value % params.m",
+                       "params": {"m": int(rng.integers(20, 200))}},
+            "interval": 10}}}} for _ in V], True),
+        ("g_scripted_metric", [{"size": 0, "aggs": {"m": {"scripted_metric": {
+            "map_script": "doc['popularity'].value > params.t ? 1 : 0",
+            "params": {"t": int(rng.integers(2, 100))}}}}} for _ in V],
+         True),
+        ("g_script_fields", [dict(q(b), script_fields={
+            "pop2": {"script": "doc['popularity'].value * 2"},
+            "days": {"script": "doc['published'].value / 86400000"}})
+            for b in recency], True),
+    ]
+
+
+def _top_oracle(np, values, k):
+    """(ids, values) of the top k finite values by (-value, doc id)."""
+    idx = np.nonzero(np.isfinite(values))[0]
+    order = np.lexsort((idx, -values[idx]))[:k]
+    return idx[order], values[idx[order]]
+
+
+def _hold_oracle(np, resp, oracle, what) -> int:
+    """A response against an f64 oracle of every doc's value (-inf where
+    no match): the exact total, each hit's score within SC_BAND of its
+    doc's value, and the top 10 the oracle's outside a tie band of that
+    bar at the cut, as phase 5's ``_hold_exact`` holds it. Returns the
+    hits checked."""
+    total = int(np.isfinite(oracle).sum())
+    hits = resp["hits"]["hits"]
+    _hold(resp["hits"]["total"] == total,
+          f"{what}: total {resp['hits']['total']} vs the oracle's {total}",
+          "5j")
+    ids = np.array([int(h["_id"]) for h in hits], np.int64)
+    s = np.array([h["_score"] for h in hits])
+    _hold(ids.size == min(10, total) and np.allclose(
+        s, oracle[ids], rtol=SC_BAND, atol=0),
+        f"{what}: scores {s[:3]} vs the oracle's {oracle[ids][:3]}", "5j")
+    want, wv = _top_oracle(np, oracle, ids.size)
+    cut = wv[-1] if wv.size else 0.0
+    for d in set(ids.tolist()) ^ set(want.tolist()):
+        _hold(abs(oracle[d] - cut) <= 2 * SC_BAND * abs(cut),
+              f"{what}: doc {d} at {oracle[d]} is on one side of the top "
+              f"10 only, outside the band of the cut {cut}", "5j")
+    return int(ids.size)
+
+
+def _bm25_oracle(np, field, words, n_docs):
+    """f64 BM25 of a match (OR) over the host CSR: duplicate terms' idf
+    summed, the stored f32 tfnorms as the data; -inf where no term."""
+    score = np.zeros(n_docs)
+    hit = np.zeros(n_docs, bool)
+    n = float(field["num_docs"])
+    for w, c in zip(*np.unique(words, return_counts=True)):
+        t = int(w[1:])
+        df = float(field["df"][t])
+        lo, hi = int(field["offsets"][t]), int(field["offsets"][t + 1])
+        docs = field["doc_ids_host"][lo:hi]
+        idf = np.log(1.0 + (n - df + 0.5) / (df + 0.5))
+        score[docs] += c * idf * field["tfnorm_host"][lo:hi].astype(
+            np.float64)
+        hit[docs] = True
+    return np.where(hit, score, -np.inf)
+
+
+def _span_docs(np, field, kind, spec):
+    """The docs of a span body by numpy over the host positional CSR:
+    span_or (any of the terms), span_first (a term's first position below
+    ``end``), span_not (an include position with no exclude position in
+    [p - pre, p + post])."""
+    offs, u_doc = field["offsets"], field["doc_ids_host"]
+    po, pos = field["pos_offsets"], field["positions"]
+
+    def entries(word):
+        t = int(word[1:])
+        return int(offs[t]), int(offs[t + 1])
+
+    def occurrences(word):
+        lo, hi = entries(word)
+        docs = np.repeat(u_doc[lo:hi].astype(np.int64), np.diff(po[lo:hi + 1]))
+        return docs, pos[po[lo]: po[hi]].astype(np.int64)
+
+    if kind == "span_or":
+        return np.unique(np.concatenate([
+            u_doc[slice(*entries(c["span_term"]["body"]))]
+            for c in spec["clauses"]]))
+    if kind == "span_first":
+        lo, hi = entries(spec["match"]["span_term"]["body"])
+        firsts = pos[po[lo:hi]]
+        return np.unique(u_doc[lo:hi][firsts < spec["end"]])
+    ad, ap = occurrences(spec["include"]["span_term"]["body"])
+    bd, bp = occurrences(spec["exclude"]["span_term"]["body"])
+    keys = np.sort(bd * 2 ** 32 + bp)
+    pre, post = spec.get("pre", 0), spec.get("post", 0)
+    i = np.searchsorted(keys, ad * 2 ** 32 + ap - pre)
+    k = keys[np.minimum(i, keys.size - 1)] if keys.size else np.zeros_like(ad)
+    blocked = (i < keys.size) & (k <= ad * 2 ** 32 + ap + post)
+    return np.unique(ad[~blocked])
+
+
+def _close(a, b, rtol=1e-5) -> bool:
+    """JSON values equal, floats within rtol."""
+    if isinstance(b, dict):
+        return isinstance(a, dict) and a.keys() == b.keys() and all(
+            _close(a[k], b[k], rtol) for k in b)
+    if isinstance(b, list):
+        return isinstance(a, list) and len(a) == len(b) and all(
+            _close(x, y, rtol) for x, y in zip(a, b))
+    if isinstance(b, float) and isinstance(a, (int, float)):
+        return abs(a - b) <= rtol * abs(b)
+    return a == b
+
+
+def phase_scoring(torch, np, dev, card, node, pnodes, arrays, doc_len,
+                  terms) -> int:
+    """Phase 5j: the scoring DSL (ROADMAP A9b) on 5i's 2^20-doc index and
+    its prefix nodes (module docstring). Returns B1's launches in its
+    timed runs (none expected: no function_score or span root takes B1's
+    pure-dense route)."""
+    from elasticsearch_tpu_torch.monitor import kernels as counters
+    from elasticsearch_tpu_torch.ops import adc, bm25_topk, knn_topk, \
+        maxsim_adc
+
+    t_phase = time.perf_counter()
+    body_f = arrays["fields"]["body"]
+    pop = arrays["numerics"]["popularity"]["exact"]
+    pop_ok = arrays["numerics"]["popularity"]["exists"]
+    pub = arrays["numerics"]["published"]["exact"]
+    groups = scoring_bodies(np, doc_len, terms, SEED)
+    log(f"[5j] {FT_DOCS} docs with popularity (Zipf(1.5), {int(pop_ok.sum())}"
+        f" present, max {int(pop.max())}) and published (2015-2020); "
+        f"{len(groups)} groups of {FT_VARIANTS} bodies")
+
+    def timed(bodies):
+        ms, out = [], {}
+        start = time.perf_counter()
+        while len(ms) < FT_MIN_REPS or (len(ms) < FT_MAX_REPS and
+                                        time.perf_counter() - start
+                                        < FT_WINDOW_S):
+            i = len(ms) % len(bodies)
+            a = time.perf_counter()
+            out[i] = node.search("ft", copy.deepcopy(bodies[i]))
+            ms.append((time.perf_counter() - a) * 1e3)
+        return np.array(ms), out
+
+    mods = (bm25_topk, knn_topk, adc, maxsim_adc)
+    before = [m.LAUNCHES for m in mods]
+    lines, answers = [], {}
+    for name, bodies, mesh_serves in groups:
+        for b in bodies:  # first use: the CSR's expansions, the memo
+            node.search("ft", copy.deepcopy(b))
+        for route in ("mesh", "host"):
+            with (_host_loop() if route == "host"
+                  else contextlib.nullcontext()):
+                counters.reset()
+                ms, out = timed(bodies)
+                snap = counters.snapshot()
+                prof = profile_path(torch, lambda: [node.search(
+                    "ft", copy.deepcopy(bodies[i % len(bodies)]))
+                    for i in range(FT_PROFILED)])
+            if route == "host":
+                _hold(not any(k.startswith("mesh_") for k in snap),
+                      f"{name}: the pinned host loop ran the mesh", "5j")
+                label = "host loop"
+            else:
+                want_key = ("mesh_search" if mesh_serves
+                            else "mesh_fallback_total")
+                _hold(snap.get(want_key) == len(ms),
+                      f"{name}: not served by {want_key}: {snap}", "5j")
+                label = ("mesh path" if mesh_serves else
+                         "mesh route, declined to the host loop "
+                         "(MeshCompileError)")
+            if name.startswith("f_"):
+                _hold(snap.get("span_device", 0) >= len(ms)
+                      and not snap.get("span_host_walk"),
+                      f"{name}: spans off the card's programs: {snap}", "5j")
+            answers[(name, route)] = out
+            lines.append(_ft_line(np, name, label, ms, prof, "5j"))
+        for i in range(len(bodies)):
+            a, b = answers[(name, "mesh")][i], answers[(name, "host")][i]
+            _hold(json.dumps(dict(a, took=0), sort_keys=True)
+                  == json.dumps(dict(b, took=0), sort_keys=True),
+                  f"{name} body {i}: the mesh's response differs from the "
+                  f"host loop's", "5j")
+    launched = [m.LAUNCHES - b for m, b in zip(mods, before)]
+    for ln in lines:
+        log(ln)
+
+    # (a), (c), (d): every returned hit's value and the top 10 against f64
+    t = time.perf_counter()
+    by = {name: bodies for name, bodies, _m in groups}
+    n_hits = 0
+    pop_f = np.where(pop_ok, pop, 1).astype(np.float64)  # missing: 1
+    for i, b in enumerate(by["a_field_value"]):
+        f = b["query"]["function_score"]["field_value_factor"]["factor"]
+        oracle = np.log10(pop_f * f + 2.0)
+        n_hits += _hold_oracle(np, answers[("a_field_value", "mesh")][i],
+                               oracle, f"(a) factor {f}")
+        got_b = answers[("b_script_score", "mesh")][i]["hits"]["hits"]
+        got_a = answers[("a_field_value", "mesh")][i]["hits"]["hits"]
+        _hold([h["_id"] for h in got_b] == [h["_id"] for h in got_a]
+              and all(abs(x["_score"] - y["_score"]) <= 1e-6 * y["_score"]
+                      for x, y in zip(got_b, got_a)),
+              f"(b) factor {f}: script_score's hits differ from (a)'s", "5j")
+    for i, b in enumerate(by["c_random"]):
+        seed = b["query"]["function_score"]["random_score"]["seed"]
+        h = hash32_np(np, np.arange(FT_DOCS, dtype=np.int64) + seed)
+        n_hits += _hold_oracle(np, answers[("c_random", "mesh")][i],
+                               h.astype(np.float64) / 2.0 ** 32,
+                               f"(c) seed {seed}")
+    off = np.float32(pub.min())
+    pub_f = (np.float32(pub - pub.min()) + off).astype(np.float64)
+    origin = float(np.float32(SC_ORIGIN_MS))
+    scale = 30.0 * DAY_MS
+    dist = np.maximum(np.abs(pub_f - origin) - DAY_MS, 0.0)
+    gauss = np.exp(-dist ** 2 / (2.0 * (-scale ** 2 / (2.0 * np.log(0.5)))))
+    boost = gauss + 2.0 * (pop_ok & (pop >= SC_POP_CUT))
+    for i, b in enumerate(by["d_recency"]):
+        words = b["query"]["function_score"]["query"]["match"]["body"].split()
+        with np.errstate(invalid="ignore"):  # -inf (no match) times 0
+            value = _bm25_oracle(np, body_f, words, FT_DOCS) * boost
+        n_hits += _hold_oracle(np, answers[("d_recency", "mesh")][i],
+                               np.where(np.isnan(value), -np.inf, value),
+                               f"(d) {words}")
+    log(f"[5j] (a), (c) and (d): {n_hits} hits' function values within "
+        f"rtol {SC_BAND} of f64 numpy oracles, totals exact, top 10 the "
+        f"oracles' outside the tie band; (b)'s hits equal (a)'s; "
+        f"{time.perf_counter() - t:.1f} s")
+
+    # (f): span_first, span_or and span_not against numpy's match sets
+    t = time.perf_counter()
+    n_spans = 0
+    for name in ("f_first", "f_or", "f_not"):
+        for i, b in enumerate(by[name]):
+            (kind, spec), = b["query"].items()
+            want = _span_docs(np, body_f, kind, spec)
+            resp = answers[(name, "mesh")][i]
+            got = [int(h["_id"]) for h in resp["hits"]["hits"]]
+            _hold(resp["hits"]["total"] == want.size
+                  and np.isin(got, want).all(),
+                  f"{name} body {i}: total {resp['hits']['total']} vs "
+                  f"numpy's {want.size}", "5j")
+            n_spans += 1
+    log(f"[5j] (f): {n_spans} span_first, span_or and span_not bodies: "
+        f"totals equal numpy's match sets over the host positions, every "
+        f"hit in them; {time.perf_counter() - t:.1f} s")
+
+    # every body on the card against a CPU Node of the port on the prefix
+    t = time.perf_counter()
+    n_bodies = 0
+    for name, bodies, _m in groups:
+        for b in bodies:
+            want = pnodes[1].search("ftp", copy.deepcopy(b))
+            for route in ("mesh", "host"):
+                with (_host_loop() if route == "host"
+                      else contextlib.nullcontext()):
+                    got = pnodes[0].search("ftp", copy.deepcopy(b))
+                what = f"{name} prefix, card {route} vs CPU"
+                _hold_same_hits(got, want, what, "5j")
+                _hold(_close(got.get("aggregations"),
+                             want.get("aggregations"))
+                      and _close([h.get("fields") for h in got["hits"]["hits"]],
+                                 [h.get("fields") for h in
+                                  want["hits"]["hits"]]),
+                      f"{what}: aggregations or script fields differ", "5j")
+            n_bodies += 1
+    log(f"[5j] {n_bodies} bodies on a {FT_PREFIX}-doc prefix: the card's "
+        f"mesh path and host loop equal a CPU Node of the port (ids, "
+        f"order, totals exact; scores, aggregations and script fields "
+        f"within rtol 1e-5); {time.perf_counter() - t:.1f} s")
+    log(f"[5j] launches in 5j's timed runs: B1 {launched[0]}, B2 "
+        f"{launched[1]}, B3 {launched[2]}, B4 {launched[3]} (none expected: "
+        f"no B1-B4 on the scoring DSL's path); phase 5j took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launched[0]
 
 
 def _cprofile_rows(st, key, n, per=1):

@@ -32,6 +32,13 @@ Names the port records:
                       were counted in its rounds on the card
   agg_mask            a mesh request's aggs ran the host-side collectors
                       over its rounds' match masks
+  span_device         a span query ran as a program on the card over a
+                      segment (near, not, first, term unions)
+  span_host_walk      a span query's deeper tree took the host interval
+                      walk over a segment
+  span_clause_truncated
+                      the host walk cut a clause at MAX_SPANS_PER_CLAUSE
+                      spans in a doc (search/spans.py)
 """
 from __future__ import annotations
 

@@ -24,12 +24,15 @@ minimum_should_match), match_phrase (the positional program on each
 slot's own CSR, ``PhrasePrim``/``EPhrase``), range (numeric i64-exact
 and f32, date, keyword by term expansion), exists, ids, prefix,
 wildcard, regexp and fuzzy (per-slot term-dict expansions, as data),
-bool, constant_score, dis_max, boosting and brute-force knn. ``hybrid``
-and knn through IVF, IVF-PQ or MaxSim decline by design
-(``MeshCompileError`` with ``by_design``) and keep their host-loop
-routes; any other tree raises ``MeshCompileError`` and the caller takes
-the host loop, as the reference's mesh sends ``match`` with fuzziness,
-multi_match, common, query_string, more_like_this and indices there.
+bool, constant_score, dis_max, boosting, function_score with weight,
+field_value_factor, decay and random_score functions (``ColPrim``,
+``EFuncScore``) and brute-force knn. ``hybrid`` and knn through IVF,
+IVF-PQ or MaxSim decline by design (``MeshCompileError`` with
+``by_design``) and keep their host-loop routes; any other tree raises
+``MeshCompileError`` and the caller takes the host loop, as the
+reference's mesh sends ``match`` with fuzziness, multi_match, common,
+query_string, more_like_this, indices, ``script``, script_score, the
+span queries and a decay from ``now`` there.
 
 Aggregations ride the round in one of two ways (``mesh_service``): a
 request whose aggs are all keyword ``terms`` without sub-aggregations
@@ -46,8 +49,7 @@ order-preserving int64 keys, the segment's own sort mirror
 k by the full key tuple (``ops/scoring.py::sort_topk``); a keyword's
 keys rank its terms inside the slot's segment, and the slots' candidates
 merge on the host by their values (``mesh_service``). ``_score`` as any
-sort key declines (the host loop serves it). function_score comes with
-ROADMAP A9b.
+sort key declines (the host loop serves it).
 """
 from __future__ import annotations
 
@@ -64,6 +66,7 @@ from elasticsearch_tpu_torch.ops import scoring as S
 from elasticsearch_tpu_torch.ops.positional import (build_phrase_inputs,
                                                     phrase_freq_program,
                                                     phrase_score)
+from elasticsearch_tpu_torch.search import function_score as FS
 from elasticsearch_tpu_torch.search import queries as Q
 from elasticsearch_tpu_torch.search.context import SegmentContext, split_runs
 from elasticsearch_tpu_torch.utils.errors import QueryParsingException
@@ -384,20 +387,11 @@ class RangePrim(DataPrim):
         self.hi = hi
         self.use_int = use_int
 
-    def _col(self, attr):
-        f = self.field
-
-        def get(seg):
-            c = seg.numerics.get(f)
-            return None if c is None else getattr(c, attr)
-        return get
-
     def build(self, seg_row, ctxs, D, data):
         cols = [(s.numerics.get(self.field) if s is not None else None)
                 for s in seg_row]
         key = (self.field, _ids(seg_row), D)
-        exists = data.stacked(("colexists",) + key, self._col("exists"), D,
-                              False, torch.bool)
+        values, exists = _col_items(self.field, seg_row, D, data)
         if self.use_int and any(c is not None and c.has_pair for c in cols):
             lo_v = _as_exact_int(self.lo)
             hi_v = _as_exact_int(self.hi)
@@ -408,9 +402,11 @@ class RangePrim(DataPrim):
             bounds = np.broadcast_to(np.asarray([lhi, llo, hhi, hlo],
                                                 np.int32),
                                      (len(seg_row), 4)).copy()
-            return [data.stacked(("colhi",) + key, self._col("hi"), D, 0,
+            return [data.stacked(("colhi",) + key,
+                                 _col_reader(self.field, "hi"), D, 0,
                                  torch.int32),
-                    data.stacked(("collo",) + key, self._col("lo"), D, 0,
+                    data.stacked(("collo",) + key,
+                                 _col_reader(self.field, "lo"), D, 0,
                                  torch.int32),
                     exists, bounds], ("pair",)
         bounds = np.zeros((len(seg_row), 2), np.float32)
@@ -420,9 +416,7 @@ class RangePrim(DataPrim):
                 else -np.inf
             bounds[si, 1] = (float(self.hi) - off) if self.hi is not None \
                 else np.inf
-        return [data.stacked(("colf32",) + key, self._col("values"), D, 0.0,
-                             torch.float32),
-                exists, bounds], ("f32",)
+        return [values, exists, bounds], ("f32",)
 
 
 class ExistsPrim(DataPrim):
@@ -442,6 +436,44 @@ class ExistsPrim(DataPrim):
 
         key = ("exists", f, _ids(seg_row), D)
         return [data.stacked(key, exists, D, False, torch.bool)], ()
+
+
+def _col_reader(field: str, attr: str):
+    """per_slot reader of a numeric column's tensor (None without it)."""
+    def get(seg):
+        c = seg.numerics.get(field)
+        return None if c is None else getattr(c, attr)
+    return get
+
+
+def _col_items(field: str, seg_row, D: int, data) -> list:
+    """A numeric column's f32 channel and exists [S, D], stacked (views
+    at S = 1); the keys RangePrim's f32 form uses, so the two share a
+    copy."""
+    key = (field, _ids(seg_row), D)
+    return [data.stacked(("colf32",) + key, _col_reader(field, "values"), D,
+                         0.0, torch.float32),
+            data.stacked(("colexists",) + key, _col_reader(field, "exists"),
+                         D, False, torch.bool)]
+
+
+class ColPrim(DataPrim):
+    """A numeric column for function_score: its f32 channel and exists
+    [S, D] (at S = 1 views of the segment's own tensors, stacked and
+    cached only at S > 1) and each slot's offset f32 [S, 1] (a per-request
+    table). The emits add the offset back on the card, the host loop's
+    ``f32(values) + f32(offset)`` (search/function_score.py::absolute),
+    where the reference's mesh casts the exact value to f32 instead
+    (ROADMAP C7)."""
+
+    def __init__(self, field: str):
+        self.field = field
+
+    def build(self, seg_row, ctxs, D, data):
+        offs = np.asarray([[s.numerics[self.field].offset
+                            if s is not None and self.field in s.numerics
+                            else 0.0] for s in seg_row], np.float32)
+        return _col_items(self.field, seg_row, D, data) + [offs], ()
 
 
 class IdsPrim(DataPrim):
@@ -876,6 +908,111 @@ class EKnn(Emit):
         return scores[: Sn * D].view(Sn, D), hit[: Sn * D].view(Sn, D)
 
 
+class FEmit:
+    """A function_score function over the round's data: mirrors
+    ScoreFunction (search/function_score.py) on [S, D], through the same
+    module functions, so each slot's values are the host loop's bytes."""
+
+    weight = 1.0
+    filter: Optional[Emit] = None
+
+    def value(self, env, meta, like):
+        raise NotImplementedError
+
+    def weighted(self, env, meta, like):
+        """(value, match) shaped as ``like``, the child's [S, D] mask."""
+        v = self.value(env, meta, like) * self.weight
+        if self.filter is not None:
+            return v, self.filter.ex(env, meta)[1]
+        return v, torch.ones_like(like)
+
+
+def _absolute(env, prim):
+    """(absolute f32 values, exists) [S, D] of a ColPrim."""
+    values, exists, offs = env[prim]
+    return values + offs, exists
+
+
+class FWeight(FEmit):
+    def __init__(self, weight: float, filt: Optional[Emit]):
+        self.weight = weight
+        self.filter = filt
+
+    def value(self, env, meta, like):
+        return torch.ones(like.shape, dtype=torch.float32, device=like.device)
+
+
+class FFieldValue(FEmit):
+    def __init__(self, prim: int, factor: float, modifier: str, missing,
+                 weight: float, filt: Optional[Emit]):
+        self.prim = prim
+        self.factor = factor
+        self.modifier = modifier
+        self.missing = missing
+        self.weight = weight
+        self.filter = filt
+
+    def value(self, env, meta, like):
+        return FS.field_value(*_absolute(env, self.prim), self.factor,
+                              self.modifier, self.missing)
+
+
+class FDecay(FEmit):
+    def __init__(self, prim: int, kind: str, origin: float, scale: float,
+                 offset: float, decay: float, weight: float,
+                 filt: Optional[Emit]):
+        self.prim = prim
+        self.kind = kind
+        self.origin = origin
+        self.scale = scale
+        self.offset = offset
+        self.decay = decay
+        self.weight = weight
+        self.filter = filt
+
+    def value(self, env, meta, like):
+        return FS.decay_value(*_absolute(env, self.prim), self.kind,
+                              self.origin, self.scale, self.offset,
+                              self.decay)
+
+
+class FRandom(FEmit):
+    """random_score: the hash of each doc's slot position, which is its
+    local id in every slot, so each slot's values are its segment's."""
+
+    def __init__(self, seed: int, weight: float, filt: Optional[Emit]):
+        self.seed = int(seed)
+        self.weight = weight
+        self.filter = filt
+
+    def value(self, env, meta, like):
+        return FS.random_value(like.shape[-1], self.seed, like.device)
+
+
+class EFuncScore(Emit):
+    """function_score: the child's scores and the functions combined by
+    ``function_score.combine``, the host loop's algebra."""
+
+    def __init__(self, child: Emit, functions: List[FEmit], score_mode: str,
+                 boost_mode: str, max_boost, min_score, boost: float):
+        self.child = child
+        self.functions = functions
+        self.score_mode = score_mode
+        self.boost_mode = boost_mode
+        self.max_boost = max_boost
+        self.min_score = min_score
+        self.boost = boost
+
+    def ex(self, env, meta):
+        scores, mask = self.child.sm(env, meta)
+        if not self.functions:
+            return scores * self.boost, mask
+        pairs = [f.weighted(env, meta, mask) for f in self.functions]
+        return FS.combine(scores, mask, pairs, self.score_mode,
+                          self.boost_mode, self.max_boost, self.min_score,
+                          self.boost)
+
+
 # ---------------------------------------------------------------------------
 # compiler
 # ---------------------------------------------------------------------------
@@ -908,7 +1045,8 @@ class CompiledMeshQuery:
 
 class MeshQueryCompiler:
     def __init__(self, mappings, analysis, D: int = 0,
-                 has_dense: Optional[Callable[[str], bool]] = None):
+                 has_dense: Optional[Callable[[str], bool]] = None,
+                 col_everywhere: Optional[Callable[[str], bool]] = None):
         self.mappings = mappings
         self.analysis = analysis
         self.D = D
@@ -916,6 +1054,9 @@ class MeshQueryCompiler:
         # impact block for the field; term groups then take the hybrid
         # form (the host loop's ctx.hybrid_slices dispatch)
         self.has_dense = has_dense or (lambda field: False)
+        # col_everywhere(field): every segment of the round has the
+        # numeric column
+        self.col_everywhere = col_everywhere or (lambda field: True)
         # a segment-free context: analysis and mappings only
         self._qctx = SegmentContext(None, mappings, analysis)
         self.prims: List[DataPrim] = []
@@ -1042,6 +1183,8 @@ class MeshQueryCompiler:
             return EConstScore(self._c(q.inner), q.boost)
         if isinstance(q, Q.KnnQuery):
             return self._knn(q)
+        if isinstance(q, FS.FunctionScoreQuery):
+            return self._function_score(q)
         from elasticsearch_tpu_torch.search.hybrid import HybridQuery
 
         if isinstance(q, HybridQuery):
@@ -1050,6 +1193,51 @@ class MeshQueryCompiler:
             raise MeshCompileError("hybrid runs its own engines",
                                    by_design=True)
         raise MeshCompileError(f"unsupported query type {type(q).__name__}")
+
+    def _function_score(self, q) -> Emit:
+        """function_score with weight, field_value_factor, decay and
+        random_score functions. Declines, as the reference's mesh does:
+        script_score, a decay on a date with origin ``now`` or none (the
+        segment's greatest value, a host read), a non-numeric field, and
+        field_value_factor without ``missing`` on a round where a segment
+        lacks the column (the host loop raises there)."""
+        child = self._c(q.inner)
+        fns: List[FEmit] = []
+        for f in q.functions:
+            filt = self._c(f.filter) if f.filter is not None else None
+            if type(f) is FS.WeightFunction:
+                fns.append(FWeight(f.weight, filt))
+            elif type(f) is FS.FieldValueFactorFunction:
+                fm = self.mappings.get(f.field)
+                if fm is None or not fm.is_numeric:
+                    raise MeshCompileError("field_value_factor field")
+                if f.missing is None and not self.col_everywhere(f.field):
+                    raise MeshCompileError(
+                        "field_value_factor without [missing] on a round "
+                        "with column-less segments")
+                if f.modifier not in FS.MODIFIERS and f.modifier is not None:
+                    raise MeshCompileError(
+                        f"field_value_factor modifier [{f.modifier}]")
+                fns.append(FFieldValue(self._add(ColPrim(f.field)),
+                                       float(f.factor), f.modifier,
+                                       f.missing, f.weight, filt))
+            elif type(f) is FS.DecayFunction:
+                fm = self.mappings.get(f.field)
+                if fm is None or not fm.is_numeric:
+                    raise MeshCompileError("decay field")
+                if fm.type == "date" and f.origin in (None, "now"):
+                    raise MeshCompileError("decay origin now/None")
+                origin, scale, offset = FS.decay_params(f, fm)
+                fns.append(FDecay(self._add(ColPrim(f.field)), f.kind,
+                                  origin, scale, offset, float(f.decay),
+                                  f.weight, filt))
+            elif type(f) is FS.RandomScoreFunction:
+                fns.append(FRandom(f.seed, f.weight, filt))
+            else:
+                raise MeshCompileError(
+                    f"function_score function {type(f).__name__}")
+        return EFuncScore(child, fns, q.score_mode, q.boost_mode,
+                          q.max_boost, q.min_score, q.boost)
 
     def _phrase(self, q) -> Emit:
         fm = self.mappings.get(q.field)

@@ -322,8 +322,12 @@ class MeshSearchExecutor:
                     return True
             return False
 
+        def col_everywhere(field):
+            return all(s is None or field in s.numerics for s in seg_row)
+
         return MeshQueryCompiler(mappings, analysis, D=D,
-                                 has_dense=has_dense).compile(
+                                 has_dense=has_dense,
+                                 col_everywhere=col_everywhere).compile(
                                      query, agg_specs, want_mask, sort_spec)
 
     def _build_round(self, compiled, mappings, analysis, seg_row, lut_shard,

@@ -19,10 +19,10 @@ Bucket aggregators compute sub-aggregations by narrowing the doc mask to
 each selected bucket (shard_size-style top buckets per shard), mirroring
 BucketsAggregator's per-bucket doc collection.
 
-Agg types whose queries or value sources come with ROADMAP A9 (nested,
-reverse_nested, children, geo, scripted_metric, and any ``script`` value
-source) are registered and raise a typed ``SearchParseException`` that
-names A9 when the request is parsed.
+A value source is a ``field`` or a ``script`` (search/scripting.py).
+Agg types that come with ROADMAP A9c (nested, reverse_nested, children
+and the geo aggs) are registered and raise a typed
+``SearchParseException`` that names A9c when the request is parsed.
 """
 from __future__ import annotations
 
@@ -30,6 +30,10 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from elasticsearch_tpu_torch.search.function_score import run_script
+from elasticsearch_tpu_torch.search.scripting import (compile_script,
+                                                      script_params,
+                                                      script_source)
 from elasticsearch_tpu_torch.utils.errors import SearchParseException
 
 # registry: agg type name -> factory(name, body, sub_factories)
@@ -45,11 +49,11 @@ def register(name):
 
 
 def a9_refusal(what: str) -> SearchParseException:
-    """The typed refusal of an aggregation feature that ROADMAP A9 ports
-    (the rest of the DSL: joins, geo, scripting)."""
+    """The typed refusal of a feature that ROADMAP A9c ports (the joins
+    and geo)."""
     return SearchParseException(
-        f"{what} is not yet in the PyTorch port (ROADMAP A9, the rest of "
-        f"the DSL)")
+        f"{what} is not yet in the PyTorch port (ROADMAP A9c, joins and "
+        f"geo)")
 
 
 class Aggregator:
@@ -83,19 +87,13 @@ class Aggregator:
 
 
 class ValueSourceAggregator(Aggregator):
-    """An aggregator that reads ``resolve_values``: a ``script`` source
-    is refused when the request is parsed, before any segment runs."""
-
-    def __init__(self, name, body, subs=None):
-        if body.get("script") is not None:
-            raise a9_refusal(f"a [script] value source in aggregation "
-                             f"[{name}]")
-        super().__init__(name, body, subs)
+    """An aggregator that reads ``resolve_values``: a ``field``'s doc
+    values or a ``script``'s column."""
 
 
 class DeferredAggregator(Aggregator):
     """A registered type the port does not serve yet: parsing it raises
-    the typed A9 refusal (an unregistered type raises 'unknown
+    the typed A9c refusal (an unregistered type raises 'unknown
     aggregation type' instead)."""
 
     type_name = ""
@@ -105,7 +103,7 @@ class DeferredAggregator(Aggregator):
 
 
 def deferred(*names: str) -> None:
-    """Register ``names`` as types that raise the A9 refusal."""
+    """Register ``names`` as types that raise the A9c refusal."""
     for n in names:
         register(n)(type(f"Deferred_{n}", (DeferredAggregator,),
                          {"type_name": n}))
@@ -156,8 +154,15 @@ def reduce_aggs(aggs: List[Aggregator], partial_dicts: List[Dict[str, Any]]
 def resolve_values(ctx, body: dict):
     """The value source of an agg body: (values f32[D] on the card, the
     segment-relative channel of 64-bit kinds, exists bool[D], offset,
-    the NumericColumn or None). Keyword fields give their ordinals. Its
-    callers are ValueSourceAggregators, which refuse a ``script``."""
+    the NumericColumn or None). Keyword fields give their ordinals; a
+    ``script`` gives its f32 column over the segment, present for every
+    doc."""
+    script = body.get("script")
+    if script is not None:
+        vals = run_script(ctx, compile_script(script_source(script)),
+                          script_params(script))
+        return vals, torch.ones(ctx.D, dtype=torch.bool, device=ctx.device), \
+            0.0, None
     field = body.get("field")
     if field is None:
         raise SearchParseException("aggregation requires [field] or [script]")

@@ -23,7 +23,7 @@ Kept as the reference has them, each a difference from ES 2.0:
   and collected by a neighbour's sub-aggregations.
 
 ``nested``, ``reverse_nested``, ``children``, ``geohash_grid`` and
-``geo_distance`` come with ROADMAP A9 and raise its typed refusal.
+``geo_distance`` come with ROADMAP A9c and raise its typed refusal.
 """
 from __future__ import annotations
 
@@ -530,7 +530,7 @@ class IpRangeAggregator(RangeAggregator):
 # ---------------------------------------------------------------------------
 
 # The reference runs joins.prepare_tree over a filter's parsed query; the
-# port's parse_query has no join queries (ROADMAP A9), so there is
+# port's parse_query has no join queries (ROADMAP A9c), so there is
 # nothing to prepare.
 
 @register("filter")

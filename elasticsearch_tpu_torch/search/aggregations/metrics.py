@@ -14,8 +14,9 @@ sketches; cardinality is a dense 2^12-register HLL without the ++ sparse
 encoding or bias tables, its rank the f32 formula
 ``31 - floor(log2(f32(rest)))``.
 
-``geo_bounds`` and ``scripted_metric`` come with ROADMAP A9 and raise its
-typed refusal.
+``scripted_metric`` is the reference's simplified one (a map script
+summed). ``geo_bounds`` comes with ROADMAP A9c and raises its typed
+refusal.
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ import torch
 from elasticsearch_tpu_torch.ops.scoring import bucket_count
 from elasticsearch_tpu_torch.search.aggregations.base import (
     Aggregator, ValueSourceAggregator, deferred, register, resolve_values)
+from elasticsearch_tpu_torch.search.function_score import run_script
+from elasticsearch_tpu_torch.search.scripting import (compile_script,
+                                                      script_source)
 from elasticsearch_tpu_torch.utils.hashing import (HLL_BITS, HLL_M,
                                                    hash32_device,
                                                    hll_update_host,
@@ -321,4 +325,21 @@ class TopHitsAggregator(Aggregator):
         return {"hits": {"total": total, "hits": hits}}
 
 
-deferred("geo_bounds", "scripted_metric")
+@register("scripted_metric")
+class ScriptedMetricAggregator(Aggregator):
+    """The reference's simplified scripted_metric: the ``map_script``
+    gives a value a doc, and the partials (each segment's f32 sum over
+    the selected docs) add up. ES's init, combine and reduce scripts are
+    not run, as in the reference."""
+
+    def collect(self, ctx, mask):
+        spec = self.body.get("map_script", "1")
+        vals = run_script(ctx, compile_script(script_source(spec)),
+                          self.body.get("params", {}))
+        return float(torch.where(mask, vals, 0.0).sum())
+
+    def reduce(self, partials):
+        return {"value": float(sum(partials))}
+
+
+deferred("geo_bounds")

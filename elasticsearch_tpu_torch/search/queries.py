@@ -12,12 +12,14 @@ minimum_should_match, analyzer, fuzziness, ``type: phrase`` /
 ``max_expansions``, where Lucene walks an FST); ``dis_max``,
 ``boosting``, ``indices``, ``more_like_this`` (``rewrite_mlt_in_body``
 resolves its liked ids over the whole index first), ``template`` and
-``wrapper``; ``knn`` over a dense_vector field (brute force, MaxSim, IVF,
-IVF-PQ) and ``hybrid`` (search/hybrid.py); plus the fused dense-impact
-top-k fast path and its two batched tiers for ``_msearch``
-(``fused_bm25_topk_batch``, ``hybrid_bm25_topk_batch``). The types of
-ROADMAP A9b (function_score, script, the span queries, the joins and the
-geo queries) raise a typed QueryParsingException naming it.
+``wrapper``; ``function_score`` (search/function_score.py), ``script``
+(search/scripting.py) and the span queries (search/spans.py); ``knn``
+over a dense_vector field (brute force, MaxSim, IVF, IVF-PQ) and
+``hybrid`` (search/hybrid.py); plus the fused dense-impact top-k fast
+path and its two batched tiers for ``_msearch``
+(``fused_bm25_topk_batch``, ``hybrid_bm25_topk_batch``). The joins and
+the geo queries come with ROADMAP A9c and raise a typed
+QueryParsingException naming it.
 
 A node's ``execute(ctx)`` returns a whole-segment pair
 
@@ -56,6 +58,11 @@ from elasticsearch_tpu_torch.ops.scoring import (
     term_mask_hybrid_gather,
 )
 from elasticsearch_tpu_torch.search.context import SegmentContext
+from elasticsearch_tpu_torch.search.function_score import (
+    doc_resolver, parse_function_score)
+from elasticsearch_tpu_torch.search.scripting import (as_column,
+                                                      compile_script,
+                                                      script_source)
 from elasticsearch_tpu_torch.utils.dates import parse_date
 from elasticsearch_tpu_torch.utils.errors import QueryParsingException
 from elasticsearch_tpu_torch.utils.shapes import pow2_bucket
@@ -1187,6 +1194,23 @@ def _ann_result(scores, mask, boost: float) -> ExecResult:
     return torch.where(mask, scores, torch.zeros_like(scores)) * boost, mask
 
 
+class ScriptQuery(Query):
+    """A script as a filter (ScriptQueryBuilder): the docs of the segment
+    where the script's value is true (non-zero)."""
+
+    def __init__(self, script: str, params: Optional[dict] = None,
+                 boost: float = 1.0):
+        self.script = compile_script(script)
+        self.params = params or {}
+        self.boost = boost
+
+    def execute(self, ctx) -> ExecResult:
+        val = self.script.run(doc_resolver(ctx), params=self.params,
+                              device=ctx.device)
+        return None, as_column(val, ctx.D, ctx.device, torch.bool) \
+            & _doc_range(ctx)
+
+
 # ---------------------------------------------------------------------------
 # query_string / simple_query_string (the reference's subset grammar)
 # ---------------------------------------------------------------------------
@@ -1582,6 +1606,9 @@ def collect_named(q: Query, out: Optional[List[Tuple[str, Query]]] = None
         c = getattr(q, attr, None)
         if isinstance(c, Query):
             collect_named(c, out)
+    for fn in getattr(q, "functions", None) or ():  # function_score
+        if isinstance(getattr(fn, "filter", None), Query):
+            collect_named(fn.filter, out)
     return out
 
 
@@ -1822,19 +1849,33 @@ def _parse_query_inner(dsl: Optional[dict]) -> Query:
 
         return parse_hybrid(body)
 
-    if qtype in A9B_QUERIES:
+    if qtype == "function_score":
+        return parse_function_score(body)
+
+    if qtype == "script":
+        spec = body.get("script", body)
+        return ScriptQuery(script_source(spec),
+                           params=spec.get("params")
+                           if isinstance(spec, dict) else None)
+
+    if qtype in SPAN_QUERIES:
+        from elasticsearch_tpu_torch.search.spans import parse_span_query
+
+        return parse_span_query(qtype, body)
+
+    if qtype in A9C_QUERIES:
         raise QueryParsingException(
             f"query type [{qtype}] is not yet in the PyTorch port "
-            f"(ROADMAP A9b)")
+            f"(ROADMAP A9c)")
     raise QueryParsingException(f"unknown query type [{qtype}]")
 
 
-#: the reference's query types that come with ROADMAP A9b
-A9B_QUERIES = ("function_score", "script", "span_term", "span_first",
-               "span_near", "span_not", "span_or", "span_multi",
-               "field_masking_span", "nested", "has_child", "has_parent",
-               "top_children", "geo_distance", "geo_bounding_box",
-               "geo_polygon", "geo_shape")
+SPAN_QUERIES = ("span_term", "span_first", "span_near", "span_not",
+                "span_or", "span_multi", "field_masking_span")
+#: the reference's query types that come with ROADMAP A9c (joins, geo)
+A9C_QUERIES = ("nested", "has_child", "has_parent", "top_children",
+               "geo_distance", "geo_bounding_box", "geo_polygon",
+               "geo_shape")
 
 
 def _parse_mlt(body: dict) -> MoreLikeThisQuery:

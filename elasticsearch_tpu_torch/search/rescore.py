@@ -15,7 +15,7 @@ candidates are scored, every admissible one counts as matched, and a
 
 The reference prepares join queries (``has_child`` and the like) across
 segments before a query rescore; the port has no join queries yet
-(ROADMAP A9), so there is nothing to prepare.
+(ROADMAP A9c), so there is nothing to prepare.
 """
 from __future__ import annotations
 

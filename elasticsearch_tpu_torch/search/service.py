@@ -6,7 +6,8 @@ may carry ``query``, ``from``/``size``, ``_source``, ``version``,
 ``sort`` and ``search_after``, ``min_score``, ``scroll`` (with
 ``search_type: scan``), ``highlight`` (``search/highlight.py``),
 ``profile`` (``tracing/profiler.py``), ``terminate_after``,
-``timeout``, ``fields`` / ``stored_fields``, ``indices_boost`` (applied
+``timeout``, ``fields`` / ``stored_fields``, ``script_fields`` (one
+run of each script a segment, ``_script_field``), ``indices_boost`` (applied
 in ``search_shards`` before the global merge), ``_query_cache`` (read by
 ``IndexService``) and ``search_type: dfs_query_then_fetch`` (the
 caller's ``GlobalStats``); any other key raises a typed
@@ -62,6 +63,7 @@ from elasticsearch_tpu_torch.search.aggregations import (parse_aggs,
                                                          run_aggs)
 from elasticsearch_tpu_torch.search.aggregations.base import a9_refusal
 from elasticsearch_tpu_torch.search.context import GlobalStats, SegmentContext
+from elasticsearch_tpu_torch.search.function_score import doc_resolver
 from elasticsearch_tpu_torch.search.highlight import (extract_query_terms,
                                                       highlight_field)
 from elasticsearch_tpu_torch.search.hybrid import (HybridQuery,
@@ -70,6 +72,9 @@ from elasticsearch_tpu_torch.search.queries import (collect_named,
                                                     fused_bm25_topk,
                                                     parse_query)
 from elasticsearch_tpu_torch.search.rescore import apply_rescore, parse_rescore
+from elasticsearch_tpu_torch.search.scripting import (compile_script,
+                                                      script_params,
+                                                      script_source)
 from elasticsearch_tpu_torch.tracing import profiler
 from elasticsearch_tpu_torch.utils.errors import (
     SearchContextMissingException, SearchParseException)
@@ -79,11 +84,12 @@ _SUPPORTED_KEYS = frozenset({
     "query", "size", "from", "_source", "version", "rescore", "aggs",
     "aggregations", "sort", "search_after", "min_score", "scroll",
     "search_type", "highlight", "profile", "terminate_after", "timeout",
-    "fields", "stored_fields", "indices_boost", "_query_cache"})
-#: refused keys and the ROADMAP item that brings each: A9 (the rest of
-#: the DSL), A10 (the stats surface); every other refused key or
-#: search_type stays A6c's
-_KEY_ITEMS = {"script_fields": "A9", "suggest": "A9", "stats": "A10"}
+    "fields", "stored_fields", "indices_boost", "_query_cache",
+    "script_fields"})
+#: refused keys and the ROADMAP item that brings each: A9d (suggesters),
+#: A10 (the stats surface); every other refused key or search_type stays
+#: A6c's
+_KEY_ITEMS = {"suggest": "A9d", "stats": "A10"}
 #: the search types the port serves
 _SEARCH_TYPES = ("query_then_fetch", "dfs_query_then_fetch", "scan")
 
@@ -384,6 +390,8 @@ class ShardSearcher:
         hl = body.get("highlight")
         query = parse_query(body.get("query"))
         stored_fields = body.get("stored_fields", body.get("fields"))
+        script_fields = body.get("script_fields")
+        sf_cache: Dict[Tuple[int, str], Any] = {}  # (seg_id, field) → values
         hits = []
         for d in docs:
             tcol = d.seg.keywords.get("_type")
@@ -406,12 +414,38 @@ class ShardSearcher:
             if stored_fields:
                 _attach_fields(hit, d.seg.stored[d.local_id], src,
                                stored_fields, body)
+            if script_fields:
+                hit.setdefault("fields", {})
+                for fname, spec in script_fields.items():
+                    hit["fields"][fname] = [
+                        self._script_field(d, spec, fname, sf_cache)]
             if hl:
                 ctx = SegmentContext(d.seg, self.mappings, self.analysis)
                 hit["highlight"] = self._highlight(ctx, query, src, hl)
             hits.append(hit)
         self._attach_matched_queries(query, docs, hits)
         return hits
+
+    def _script_field(self, d: ShardDoc, spec, fname: str, cache: dict):
+        """A script field's value for one hit. The script runs once a
+        (segment, field) over the whole segment and its column comes to
+        the host in one copy, kept for the other hits of the fetch."""
+        key = (d.seg.seg_id, fname)
+        vals = cache.get(key)
+        if vals is None:
+            s = spec.get("script", spec) if isinstance(spec, dict) else spec
+            ctx = SegmentContext(d.seg, self.mappings, self.analysis)
+            vals = compile_script(script_source(s)).run(
+                doc_resolver(ctx), params=script_params(s),
+                device=ctx.device)
+            if isinstance(vals, torch.Tensor):
+                vals = vals.cpu().numpy()
+            cache[key] = vals
+        if isinstance(vals, np.ndarray) and vals.shape != ():
+            return float(vals[d.local_id])
+        if isinstance(vals, (np.ndarray, int, float)):
+            return float(vals)
+        return vals
 
     def _attach_matched_queries(self, query, docs: List[ShardDoc],
                                 hits: List[dict]) -> None:

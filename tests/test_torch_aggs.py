@@ -16,8 +16,10 @@ docs indexed by both packages, every 23rd doc deleted after the refresh.
   as in ``test_torch_mesh.py``) on the device terms route and the mask
   route; the port's mesh against its own host loop byte for byte.
 - ``hash32_device`` and the HLL rank against the reference's ``jnp``
-  expressions, ``bucket_count`` against ``np.bincount``, the typed A9
-  refusals, ``_msearch`` and the coalescer around agg bodies, and the
+  expressions, ``bucket_count`` against ``np.bincount``, script value
+  sources and ``scripted_metric`` on one segment and on the mesh, the
+  typed A9c refusals (joins and geo), ``_msearch`` and the coalescer
+  around agg bodies, and the
   reference's orderings that differ from ES 2.0 (ROADMAP C).
 """
 import copy
@@ -348,6 +350,57 @@ def test_mesh_matches_host_loop_bytes(nodes, case, monkeypatch):
     assert _bytes(mesh) == _bytes(_port_host(port, body, monkeypatch))
 
 
+# -- script value sources and scripted_metric ------------------------------
+
+SCRIPT_CASES = {
+    "script_avg": {"g": {"avg": {"script": "doc['qty'].value * 2"}}},
+    "script_sum_params": {"g": {"sum": {"script": {
+        "inline": "doc['price'].value * params.f", "params": {"f": 1.5}}}}},
+    "script_stats": {"g": {"stats": {"script": "doc['qty'].value > 10 ? "
+                                               "doc['price'].value : 0"}}},
+    "script_min_max": {"lo": {"min": {"script": "doc['ts'].value"}},
+                       "hi": {"max": {"script": "doc['n'].value / 1000"}}},
+    "script_histogram": {"g": {"histogram": {
+        "script": {"source": "doc['price'].value * 3"}, "interval": 25}}},
+    "script_histogram_subs": {"g": {"histogram": {
+        "script": "doc['qty'].value", "interval": 5},
+        "aggs": {"s": {"avg": {"script": "doc['price'].value"}}}}},
+    "scripted_metric": {"g": {"scripted_metric": {
+        "map_script": "doc['price'].value"}}},
+    "scripted_metric_params": {"g": {"scripted_metric": {
+        "map_script": "doc['qty'].value * params.w + 1",
+        "params": {"w": 0.25}}}},
+    "scripted_metric_default": {"g": {"scripted_metric": {}}},
+    "terms_with_scripted": {"t": {"terms": {"field": "tag"}, "aggs": {
+        "m": {"scripted_metric": {"map_script": "doc['qty'].value"}}}}},
+}
+
+
+@pytest.mark.parametrize("index", ["one_segment", "mesh"])
+@pytest.mark.parametrize("case", sorted(SCRIPT_CASES))
+def test_script_aggs_match_reference(nodes, case, index):
+    ref, port = nodes
+    body = {"query": QUERY, "size": 3, "aggs": SCRIPT_CASES[case]}
+    kernels.reset()
+    p = _search(port, index, body)
+    if index == "mesh":
+        assert kernels.snapshot().get("agg_mask") == 1, kernels.snapshot()
+    r = _search(ref, index, body)
+    assert p["hits"]["total"] == r["hits"]["total"] > 0
+    assert _hits(p) == _hits(r)
+    _same(p["aggregations"], r["aggregations"], "aggregations")
+
+
+@pytest.mark.parametrize("case", sorted(SCRIPT_CASES))
+def test_script_aggs_mesh_matches_host_loop_bytes(nodes, case,
+                                                  monkeypatch):
+    """Mask-route partials fold in (shard, segment) order on the mesh."""
+    _ref, port = nodes
+    body = {"size": 0, "aggs": SCRIPT_CASES[case]}
+    mesh, _ = _port_mesh(port, body, "agg_mask")
+    assert _bytes(mesh) == _bytes(_port_host(port, body, monkeypatch))
+
+
 def test_mesh_agg_round_takes_the_generic_route(nodes):
     """A pure-dense match with aggs: no B1 launch (B1 makes no mask)."""
     _ref, port = nodes
@@ -498,7 +551,6 @@ def test_cardinality_registers_equal_the_reference(nodes):
 
 A9_BODIES = {
     "geo_bounds": {"g": {"geo_bounds": {"field": "addr"}}},
-    "scripted_metric": {"g": {"scripted_metric": {"map_script": "1"}}},
     "nested": {"g": {"nested": {"path": "x"}}},
     "reverse_nested": {"g": {"terms": {"field": "tag"},
                              "aggs": {"r": {"reverse_nested": {}}}}},
@@ -506,9 +558,6 @@ A9_BODIES = {
     "geohash_grid": {"g": {"geohash_grid": {"field": "addr"}}},
     "geo_distance": {"g": {"geo_distance": {
         "field": "addr", "origin": "1,2", "ranges": [{"to": 10}]}}},
-    "script_avg": {"g": {"avg": {"script": "doc['qty'].value * 2"}}},
-    "script_histogram": {"g": {"histogram": {
-        "script": {"source": "doc['n'].value"}, "interval": 5}}},
 }
 
 
@@ -516,7 +565,7 @@ A9_BODIES = {
 @pytest.mark.parametrize("name", sorted(A9_BODIES))
 def test_deferred_types_raise_the_typed_a9_refusal(nodes, name, index):
     _ref, port = nodes
-    with pytest.raises(SearchParseException, match="A9"):
+    with pytest.raises(SearchParseException, match="A9c"):
         _search(port, index, {"size": 0, "aggs": A9_BODIES[name]})
 
 
@@ -528,8 +577,8 @@ def test_unknown_type_is_not_an_a9_refusal(nodes):
 
 
 @pytest.mark.parametrize("key", ["explain", "fielddata_fields",
-                                 "partial_fields", "stats", "script_fields",
-                                 "suggest", "post_filter", "track_scores"])
+                                 "partial_fields", "stats", "suggest",
+                                 "post_filter", "track_scores"])
 @pytest.mark.parametrize("index", ["one_segment", "mesh"])
 def test_other_request_keys_are_still_refused(nodes, key, index):
     _ref, port = nodes

@@ -10,7 +10,10 @@ and ``test_rescore_templates.py``'s template rendering, plus ``_name`` on
 each new type, phrase highlighting, a phrase under
 ``dfs_query_then_fetch`` over two indices, a phrase on merged segments,
 ``max_expansions`` caps, the routes the mesh takes and declines, and
-the typed refusals naming ROADMAP A9b. One reference difference is
+the typed refusals of the joins and geo types, which name ROADMAP A9c
+(A9b's function_score, script and span types are served since, and
+tested in ``test_torch_function_score.py`` and ``test_torch_spans.py``).
+One reference difference is
 pinned (ROADMAP C6): ``match`` with ``type: phrase``.
 
 Bars: the same ids in the same order, ``hits.total`` exact, scores within
@@ -618,18 +621,6 @@ def test_match_type_phrase_is_a_phrase(nodes, monkeypatch):
 # -- refusals and parsing --------------------------------------------------------
 
 A9B = {
-    "function_score": {"function_score": {"query": {"match_all": {}},
-                                          "weight": 2}},
-    "script": {"script": {"script": "doc['n'].value > 1"}},
-    "span_term": {"span_term": {"body": "fox"}},
-    "span_near": {"span_near": {"clauses": [{"span_term": {"body": "a"}}],
-                                "slop": 1}},
-    "span_first": {"span_first": {"match": {"span_term": {"body": "a"}},
-                                  "end": 2}},
-    "span_not": {"span_not": {}},
-    "span_or": {"span_or": {"clauses": []}},
-    "span_multi": {"span_multi": {"match": {"prefix": {"body": "a"}}}},
-    "field_masking_span": {"field_masking_span": {}},
     "nested": {"nested": {"path": "x", "query": {"match_all": {}}}},
     "has_child": {"has_child": {"type": "c", "query": {"match_all": {}}}},
     "has_parent": {"has_parent": {"type": "p", "query": {"match_all": {}}}},
@@ -647,7 +638,7 @@ A9B = {
 @pytest.mark.parametrize("host", [False, True])
 def test_a9b_types_are_refused(nodes, monkeypatch, name, host):
     _ref, port = nodes
-    with pytest.raises(QueryParsingException, match="A9b"):
+    with pytest.raises(QueryParsingException, match="A9c"):
         _port(port, "two", {"query": A9B[name]}, host, monkeypatch)
 
 

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX
-package (a phrase, a term expansion and a query_string included), and
+package (a phrase, a term expansion, a query_string, a function_score on
+the mesh, a script_score with script_fields, a span_near and script
+aggregations included), and
 its entry point never falls back to the CPU on its own."""
 import os
 import re
@@ -104,6 +106,32 @@ assert n.search("m", {"query": {"wildcard": {"body": "f*x"}}})["hits"]["total"] 
 r = n.search("i", {"query": {"query_string": {
     "query": '"brown fox" AND qu*', "default_field": "body"}}})
 assert r["hits"]["total"] == 100, r["hits"]["total"]
+n.create_index("s", {"settings": {"number_of_shards": 2}, "mappings": {
+    "properties": {"body": {"type": "text"}, "pop": {"type": "long"}}}})
+for i in range(60):
+    n.index("s", str(i), {"body": "quick brown fox" if i % 2 else "lazy dog",
+                          "pop": i})
+n.refresh("s")
+kernels.reset()
+fs = {"function_score": {"query": {"match": {"body": "fox"}},
+                         "field_value_factor": {"field": "pop",
+                                                "modifier": "log2p"}}}
+assert n.search("s", {"query": fs})["hits"]["total"] == 30
+assert kernels.snapshot().get("mesh_search") == 1, kernels.snapshot()
+r = n.search("s", {"query": {"function_score": {"script_score": {
+    "script": "Math.log10(doc['pop'].value + 2)"}}}, "script_fields": {
+    "x": {"script": "doc['pop'].value * 2"}}})
+assert r["hits"]["hits"][0]["_id"] == "59" and \
+    r["hits"]["hits"][0]["fields"]["x"] == [118.0], r["hits"]["hits"][0]
+r = n.search("s", {"query": {"span_near": {"clauses": [
+    {"span_term": {"body": "quick"}}, {"span_term": {"body": "fox"}}],
+    "slop": 1}}})
+assert r["hits"]["total"] == 30 and kernels.snapshot().get("span_device")
+r = n.search("s", {"size": 0, "aggs": {
+    "a": {"avg": {"script": "doc['pop'].value * 2"}},
+    "m": {"scripted_metric": {"map_script": "doc['pop'].value"}}}})
+assert r["aggregations"] == {"a": {"value": 59.0},
+                             "m": {"value": 1770.0}}, r["aggregations"]
 n.close()
 import importlib, pkgutil
 import elasticsearch_tpu_torch
