@@ -145,6 +145,38 @@ Phases, in order; any failure exits non-zero before the result line:
             span_or and span_not's match sets against numpy over the host
             positions, every body against a CPU Node of the port on
             5i's 2^14-doc prefix; no B1-B4 launch on this path;
+5k. joins   joins and geo (``phase_joins_geo``, ROADMAP A9c), corpora
+            from seed 0: (a) Rally ``nested``'s shape, 2^18 questions
+            with 0-6 nested answers (a Zipf user of 50,000, a date, a
+            score) in one block-join segment of about 2^20 docs loaded
+            through ``segment_from_arrays`` with ``blocks``: the nested
+            bool of a term on the user and a date range in score modes
+            avg, sum, max and none, with inner_hits, a match on the
+            title (no B1 on a nested segment), a term on the tag (roots
+            only), a nested terms agg with reverse_nested and the
+            track's nested date histogram, each against numpy f64; sum
+            and avg bodies byte-identical over repeated runs; a delete
+            of 64 roots cascading into totals and aggs; the block arrays
+            charged and released at the close; (b) the same questions as
+            ``question`` parents of ``answer`` children over five shards
+            by ``shard_id_for(parent)``: has_child (min_children 2, max
+            and sum), has_parent, a children agg under a terms agg,
+            exact against numpy, and a match riding the mesh and B1;
+            (c) Rally ``geopoint``'s shape, 2^20 points around 1,000
+            Zipf-weighted centres plus points exactly on geohash cell
+            and box edges: polygons, boxes (one across the
+            antimeridian), geohash cells at precisions 3 and 6 and
+            bounds exact against numpy f32 (true divisions: the card's
+            cells of edge points are the exact ones), distances at three
+            radii, distance rings and the ``_geo_distance`` sort against
+            numpy f64 outside a printed band, ``exists`` on the mesh;
+            (d) 4,096 polygons and linestrings through ``Node.index``,
+            envelope and polygon queries under intersects, within and
+            disjoint against a brute-force refinement; (a) and (c) on
+            prefixes against a CPU Node of the port; every group on the
+            host loop for about JG_WINDOW_S (and on the mesh where it
+            serves), the mesh's declines counted, p50, p99, device time,
+            kernels, copies and busy share per group;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
@@ -4384,6 +4416,1082 @@ def phase_scoring(torch, np, dev, card, node, pnodes, arrays, doc_len,
     return launched[0]
 
 
+# ---------------------------------------------------------------------------
+# phase 5k: joins and geo (ROADMAP A9c)
+# ---------------------------------------------------------------------------
+
+JG_QUESTIONS = 1 << 18     # Rally nested's StackOverflow questions, cut
+JG_MAX_ANSWERS = 6         # 0-6 nested answers a question (PERF.md §4)
+JG_USERS = 50_000          # answers.user: Zipf(1.2) over these
+JG_TAGS = 100              # tag: Zipf(1.5) over these
+JG_SHARDS = 5              # (b): ES 2.0's default index.number_of_shards
+JG_POINTS = 1 << 20        # (c): Rally geopoint's geonames locations, cut
+JG_CENTRES = 1000          # (c): seeded centres, Zipf(1.1) weights
+JG_SHAPES = 4096           # (d): polygons and linestrings via Node.index
+JG_PREFIX_Q = 1 << 12      # the CPU comparison's prefix of (a)
+JG_PREFIX_PTS = 1 << 14    # and of (c)
+JG_BAND = 1e-5             # hazard 2's band: f64 distance within 1e-5 rel
+JG_DELETES = 64            # roots deleted after (a)'s groups
+JG_WINDOW_S = 0.6          # timed requests per group and route: about this
+                           # many seconds, FT_MIN_REPS to FT_MAX_REPS
+JG_ANSWER = {"user": {"type": "keyword"}, "date": {"type": "date"},
+             "score": {"type": "long"}}
+JG_QA_MAPPING = {"properties": {
+    "title": {"type": "text"}, "tag": {"type": "keyword"},
+    "votes": {"type": "long"},
+    "answers": {"type": "nested", "properties": JG_ANSWER}}}
+JG_PC_MAPPING = {
+    "question": {"properties": {"title": {"type": "text"},
+                                "tag": {"type": "keyword"},
+                                "votes": {"type": "long"}}},
+    "answer": {"_parent": {"type": "question"},
+               "properties": JG_ANSWER}}
+JG_GEO_MAPPING = {"properties": {"location": {"type": "geo_point"}}}
+JG_SHAPE_MAPPING = {"properties": {"area": {"type": "geo_shape"},
+                                   "kind": {"type": "keyword"}}}
+JG_MODES = ("avg", "sum", "max", "none")
+
+
+def qa_corpus(np, n_q, seed):
+    """Rally nested's shape from the seed: per question a 10-token title
+    over phase 5's vocabulary, a Zipf tag, votes and 0-6 answers; per
+    answer a Zipf user, a date over 2015-2019 and a score."""
+    rng = np.random.default_rng(seed + 14)
+    n_ans = rng.integers(0, JG_MAX_ANSWERS + 1, n_q)
+    a = int(n_ans.sum())
+    return {"n_ans": n_ans,
+            "title": np.minimum(rng.zipf(1.3, (n_q, 10)), VOCAB) - 1,
+            "tag": np.minimum(rng.zipf(1.5, n_q), JG_TAGS) - 1,
+            "votes": rng.integers(0, 1000, n_q).astype(np.int64),
+            "user": np.minimum(rng.zipf(1.2, a), JG_USERS) - 1,
+            "date": TAXI_YEAR + rng.integers(0, 5 * 365 * DAY_MS, a),
+            "score": rng.integers(-5, 100, a).astype(np.int64)}
+
+
+def qa_prefix(c, n):
+    a = int(c["n_ans"][:n].sum())
+    return {k: (v[:a] if k in ("user", "date", "score") else v[:n])
+            for k, v in c.items()}
+
+
+def kw_arrays(np, ids, names, present, D):
+    """``segment_from_arrays``'s (fields, keywords) entries of a
+    single-valued keyword: doc i holds ``names[ids[i]]`` where
+    ``present``; the terms sorted, the ordinals their ranks."""
+    docs = np.nonzero(present)[0]
+    used, inv = np.unique(ids[docs], return_inverse=True)
+    strs = [names(int(u)) for u in used]
+    order = sorted(range(len(strs)), key=strs.__getitem__)
+    rank = np.empty(len(strs), np.int32)
+    rank[order] = np.arange(len(strs), dtype=np.int32)
+    terms = [strs[o] for o in order]
+    ords = np.full(D, -1, np.int32)
+    ords[docs] = rank[inv]
+    df = np.bincount(ords[docs], minlength=len(terms)).astype(np.int32)
+    offsets = np.zeros(len(terms) + 1, np.int64)
+    offsets[1:] = np.cumsum(df)
+    post = docs[np.argsort(ords[docs], kind="stable")].astype(np.int32)
+    ones = np.ones(post.size, np.float32)
+    single = [[t] for t in terms]  # shared: never mutated
+    hv = [None] * D
+    for d, o in zip(docs.tolist(), ords[docs].tolist()):
+        hv[d] = single[o]
+    exists = np.zeros(D, bool)
+    exists[docs] = True
+    return ({"terms": terms, "df": df, "cf": df.astype(np.int64),
+             "offsets": offsets, "doc_ids_host": post, "tfnorm_host": ones,
+             "tf_host": ones, "avg_len": 1.0, "num_docs": int(docs.size),
+             "total_terms": int(docs.size)},
+            {"ords": ords, "exists": exists, "host_values": hv})
+
+
+def _pow2(n):
+    return max(64, 1 << (int(n) - 1).bit_length())
+
+
+def _title_field(np, title, at, D):
+    """The title text field: question q's 10 tokens at doc ``at[q]``."""
+    n_q = title.shape[0]
+    lengths = np.zeros(D)
+    lengths[at] = title.shape[1]
+    return csr_field(np, title.ravel(), np.repeat(at, title.shape[1]),
+                     np.tile(np.arange(title.shape[1]), n_q), D, VOCAB,
+                     lengths)
+
+
+def _num(np, D, at, values, kind):
+    exact = np.zeros(D, np.int64)
+    exact[at] = values
+    exists = np.zeros(D, bool)
+    exists[at] = True
+    return {"exact": exact, "exists": exists, "kind": kind}
+
+
+def nested_arrays(np, c):
+    """(a)'s one block-join segment: each question's answers then the
+    question (Lucene block order), with ``blocks`` and no parsing."""
+    n_ans = c["n_ans"]
+    n_q, a = n_ans.size, int(n_ans.sum())
+    n = n_q + a
+    D = _pow2(n)
+    start = np.cumsum(n_ans + 1) - (n_ans + 1)
+    root = start + n_ans
+    first = np.cumsum(n_ans) - n_ans
+    j = np.arange(a) - np.repeat(first, n_ans)
+    q_of = np.repeat(np.arange(n_q), n_ans)
+    ans = np.repeat(start, n_ans) + j
+    parent_of = np.full(D, -1, np.int32)
+    parent_of[ans] = root[q_of]
+    code = np.full(D, -1, np.int32)
+    code[ans] = 0
+    ordn = np.full(D, -1, np.int32)
+    ordn[ans] = j
+    fields, keywords = {}, {}
+    fields["tag"], keywords["tag"] = kw_arrays(
+        np, _at(np, D, root, c["tag"]),
+        lambda t: f"tag{t}", _mask(np, D, root), D)
+    fields["answers.user"], keywords["answers.user"] = kw_arrays(
+        np, _at(np, D, ans, c["user"]), lambda u: f"u{u}",
+        _mask(np, D, ans), D)
+    fields["title"] = _title_field(np, c["title"], root, D)
+    ids = [None] * n
+    for i, r in enumerate(root.tolist()):
+        ids[r] = f"q{i}"
+    for q, jj, d in zip(q_of.tolist(), j.tolist(), ans.tolist()):
+        ids[d] = f"q{q}|answers|{jj}"
+    users, dates, scores = (c[k].tolist() for k in ("user", "date",
+                                                    "score"))
+    sources = [None] * n
+    lo = 0
+    for i, (r, k) in enumerate(zip(root.tolist(), n_ans.tolist())):
+        sources[r] = {"tag": f"tag{int(c['tag'][i])}", "answers": [
+            {"user": f"u{users[x]}", "date": dates[x], "score": scores[x]}
+            for x in range(lo, lo + k)]}
+        lo += k
+    return {"num_docs": n, "max_docs": D, "ids": ids, "sources": sources,
+            "fields": fields, "keywords": keywords,
+            "numerics": {"votes": _num(np, D, root, c["votes"], "long"),
+                         "answers.date": _num(np, D, ans, c["date"], "date"),
+                         "answers.score": _num(np, D, ans, c["score"],
+                                               "long")},
+            "blocks": {"parent_of": parent_of, "nested_paths": {"answers": 0},
+                       "nested_code": code, "nested_ord": ordn}}
+
+
+def _at(np, D, at, values):
+    out = np.zeros(D, np.int64)
+    out[at] = values
+    return out
+
+
+def _mask(np, D, at):
+    m = np.zeros(D, bool)
+    m[at] = True
+    return m
+
+
+def pc_shard_arrays(np, c, shard_of, s):
+    """(b)'s shard s: its questions (docs 0..P) then their answers, each
+    answer a child doc with ``_type`` answer and ``_parent`` its
+    question's id."""
+    n_ans = c["n_ans"]
+    qs = np.nonzero(shard_of == s)[0]
+    first = np.cumsum(n_ans) - n_ans
+    cnt = n_ans[qs]
+    a_idx = np.repeat(first[qs], cnt) + (np.arange(int(cnt.sum()))
+                                         - np.repeat(np.cumsum(cnt) - cnt,
+                                                     cnt))
+    q_of = np.repeat(qs, cnt)
+    j = a_idx - first[q_of]
+    P, A = qs.size, a_idx.size
+    n = P + A
+    D = _pow2(n)
+    par, ch = np.arange(P), P + np.arange(A)
+    fields, keywords = {}, {}
+    fields["tag"], keywords["tag"] = kw_arrays(
+        np, _at(np, D, par, c["tag"][qs]), lambda t: f"tag{t}",
+        _mask(np, D, par), D)
+    fields["user"], keywords["user"] = kw_arrays(
+        np, _at(np, D, ch, c["user"][a_idx]), lambda u: f"u{u}",
+        _mask(np, D, ch), D)
+    fields["_type"], keywords["_type"] = kw_arrays(
+        np, _at(np, D, ch, 1), ("question", "answer").__getitem__,
+        _mask(np, D, np.arange(n)), D)
+    fields["_parent"], keywords["_parent"] = kw_arrays(
+        np, _at(np, D, ch, q_of), lambda q: f"q{q}", _mask(np, D, ch), D)
+    fields["title"] = _title_field(np, c["title"][qs], par, D)
+    ids = [f"q{q}" for q in qs.tolist()] + [
+        f"q{q}a{x}" for q, x in zip(q_of.tolist(), j.tolist())]
+    return {"num_docs": n, "max_docs": D, "ids": ids,
+            "fields": fields, "keywords": keywords,
+            "numerics": {"votes": _num(np, D, par, c["votes"][qs], "long"),
+                         "date": _num(np, D, ch, c["date"][a_idx], "date"),
+                         "score": _num(np, D, ch, c["score"][a_idx],
+                                       "long")}}, (qs, a_idx, q_of, j)
+
+
+def geo_points(np, n, seed):
+    """(c)'s points: Zipf(1.1)-weighted seeded centres worldwide, each
+    point a centre plus Gaussian noise (2 degrees lat, 3 lon); one doc in
+    64 without a point; the last docs exactly on geohash cell edges at
+    precisions 3 and 6 and on the boxes' edges (``geo_edges``)."""
+    rng = np.random.default_rng(seed + 15)
+    cent = np.stack([rng.uniform(-60, 70, JG_CENTRES),
+                     rng.uniform(-180, 180, JG_CENTRES)], 1)
+    w = 1.0 / np.arange(1, JG_CENTRES + 1) ** 1.1
+    k = rng.choice(JG_CENTRES, n, p=w / w.sum())
+    lat = np.clip(cent[k, 0] + rng.normal(0, 2, n), -89.9, 89.9)
+    lon = (cent[k, 1] + rng.normal(0, 3, n) + 180.0) % 360.0 - 180.0
+    edges = geo_edges(np)
+    lat[n - len(edges):] = edges[:, 0]
+    lon[n - len(edges):] = edges[:, 1]
+    ok = np.ones(n, bool)
+    ok[: n - len(edges)][::64] = False
+    return lat, lon, ok, cent
+
+
+def geo_edges(np):
+    """Points on cell edges (-90 + 180 j / 2^bits and its lon twin are f32
+    values) at precisions 3 and 6, and on the edges and corners of
+    ``JG_BOXES``."""
+    pts = []
+    for prec in (3, 6):
+        total = prec * 5
+        lat_bits, lon_bits = total // 2, (total + 1) // 2
+        for j in range(1, 1 << min(lat_bits, 7), 3):
+            jj = (j * 9973) % (1 << lat_bits)
+            lj = (j * 7919) % (1 << lon_bits)
+            pts.append((-90.0 + 180.0 * jj / (1 << lat_bits),
+                        -180.0 + 360.0 * lj / (1 << lon_bits)))
+    for top, left, bottom, right in JG_BOXES:
+        for la in (top, bottom, (top + bottom) / 2):
+            for lo in (left, right, 179.5, -179.5):
+                pts.append((la, lo))
+    return np.asarray(pts, np.float64)
+
+
+# (top, left, bottom, right); the second crosses the antimeridian
+JG_BOXES = [(50.0, -10.0, 35.0, 30.0), (40.0, 170.0, -10.0, -170.0),
+            (12.5, 100.0, -8.0, 140.0), (64.0, -130.0, 24.0, -60.0),
+            (0.0, -80.0, -40.0, -30.0), (60.0, 60.0, 40.0, 100.0),
+            (30.0, -20.0, 5.0, 50.0), (-15.0, 110.0, -45.0, 155.0)]
+
+
+def geo_arrays(np, lat, lon, ok):
+    n = lat.size
+    D = _pow2(n)
+    num = {}
+    for name, v in (("location.lat", lat), ("location.lon", lon)):
+        exact = np.zeros(D, np.float64)
+        exact[:n] = np.where(ok, v, 0.0)
+        exists = np.zeros(D, bool)
+        exists[:n] = ok
+        num[name] = {"exact": exact, "exists": exists, "kind": "double"}
+    return {"num_docs": n, "max_docs": D, "numerics": num}
+
+
+def jg_bodies(np, c, cent, seed):
+    """The groups of bodies of (a), (b) and (c) from the seed: name ->
+    (index, bodies, served by the mesh)."""
+    rng = np.random.default_rng(seed + 16)
+    users = [f"u{u}" for u in rng.integers(0, 30, 8)]
+    spans = [(TAXI_YEAR + int(rng.integers(0, 3 * 365)) * DAY_MS,
+              int(rng.integers(120, 700)) * DAY_MS) for _ in range(8)]
+
+    def nested(mode, i, inner_hits=None):
+        lo, width = spans[i]
+        q = {"nested": {"path": "answers", "score_mode": mode, "query": {
+            "bool": {"must": [{"term": {"answers.user": users[i]}}],
+                     "filter": [{"range": {"answers.date": {
+                         "gte": lo, "lt": lo + width}}}]}}}}
+        if inner_hits:
+            q["nested"]["inner_hits"] = inner_hits
+        return {"query": q, "size": 10}
+
+    tags = [f"tag{t}" for t in rng.integers(0, 20, 8)]
+    g = {}
+    for mode in JG_MODES:
+        g[f"a_nested_{mode}"] = ("qa", [nested(mode, i) for i in range(8)],
+                                 False)
+    g["a_inner_hits"] = ("qa", [nested("max", i, {"size": 3})
+                                for i in range(8)], False)
+    heads = [f"t{w}" for w in range(8)]  # the title's densest terms
+    g["a_match"] = ("qa", [{"query": {"match": {"title": f"{heads[i]} "
+                                                f"{heads[(i + 3) % 8]}"}},
+                            "size": 10} for i in range(8)], False)
+    g["a_tag"] = ("qa", [{"query": {"term": {"tag": t}}, "size": 10}
+                         for t in tags], False)
+    g["a_nested_agg"] = ("qa", [{"size": 0, "query": {"term": {"tag": t}},
+                                 "aggs": {"answers": {
+                                     "nested": {"path": "answers"},
+                                     "aggs": {"users": {
+                                         "terms": {"field": "answers.user",
+                                                   "size": 10},
+                                         "aggs": {"questions": {
+                                             "reverse_nested": {}}}}}}}}
+                                for t in tags], False)
+    g["a_date_histo"] = ("qa", [{"size": 0, "query": {"term": {"tag": t}},
+                                 "aggs": {"answers": {
+                                     "nested": {"path": "answers"},
+                                     "aggs": {"by_month": {
+                                         "date_histogram": {
+                                             "field": "answers.date",
+                                             "interval": "month"}}}}}}
+                                for t in tags], False)
+    g["b_has_child_max"] = ("qapc", [{"query": {"has_child": {
+        "type": "answer", "score_mode": "max", "min_children": 2,
+        "query": {"term": {"user": u}}}}, "size": 10} for u in users], False)
+    g["b_has_child_sum"] = ("qapc", [{"query": {"has_child": {
+        "type": "answer", "score_mode": "sum", "min_children": 2,
+        "query": {"term": {"user": u}}}}, "size": 10} for u in users], False)
+    g["b_has_parent"] = ("qapc", [{"query": {"has_parent": {
+        "parent_type": "question", "score_mode": "score",
+        "query": {"term": {"tag": t}}}}, "size": 10} for t in tags], False)
+    g["b_children_agg"] = ("qapc", [{"size": 0, "query": {"term": {
+        "_type": "question"}}, "aggs": {"tags": {
+            "terms": {"field": "tag", "size": 3 + i % 3}, "aggs": {
+                "answers": {"children": {"type": "answer"}}}}}}
+        for i in range(8)], True)
+    g["b_match"] = ("qapc", [{"query": {"match": {"title": f"{heads[i]} "
+                                                  f"{heads[(i + 3) % 8]}"}},
+                              "size": 10} for i in range(8)], True)
+    pick = cent[rng.integers(0, 50, 8)]
+
+    def star(i):
+        m = int(rng.integers(5, 9))
+        ang = np.sort(rng.uniform(0, 2 * np.pi, m))
+        r = rng.uniform(3, 15, m)
+        return [{"lat": float(np.clip(pick[i, 0] + r[x] * np.sin(ang[x]),
+                                      -89, 89)),
+                 "lon": float(np.clip(pick[i, 1] + r[x] * np.cos(ang[x]),
+                                      -179.9, 179.9))} for x in range(m)]
+
+    radii = ("50km", "500km", "2000km")
+    g["c_polygon"] = ("geo", [{"query": {"geo_polygon": {"location": {
+        "points": star(i)}}}, "size": 10} for i in range(8)], False)
+    g["c_bbox"] = ("geo", [{"query": {"geo_bounding_box": {"location": {
+        "top": b[0], "left": b[1], "bottom": b[2], "right": b[3]}}},
+        "size": 10} for b in JG_BOXES], False)
+    g["c_distance"] = ("geo", [{"query": {"geo_distance": {
+        "distance": radii[i % 3], "location": {
+            "lat": float(pick[i, 0]), "lon": float(pick[i, 1])}}},
+        "size": 10} for i in range(8)], False)
+    g["c_geohash3"] = ("geo", [{"size": 0, "aggs": {"cells": {
+        "geohash_grid": {"field": "location", "precision": 3,
+                         "size": 50 + i}}}} for i in range(8)], True)
+    g["c_geohash6"] = ("geo", [{"size": 0, "query": {"geo_bounding_box": {
+        "location": {"top": b[0], "left": b[1], "bottom": b[2],
+                     "right": b[3]}}}, "aggs": {"cells": {"geohash_grid": {
+                         "field": "location", "precision": 6,
+                         "size": 100}}}} for b in JG_BOXES], False)
+    g["c_distance_agg"] = ("geo", [{"size": 0, "aggs": {"rings": {
+        "geo_distance": {"field": "location", "unit": "km",
+                         "origin": {"lat": float(pick[i, 0]),
+                                    "lon": float(pick[i, 1])},
+                         "ranges": [{"to": 100}, {"from": 100, "to": 1000},
+                                    {"from": 1000, "to": 5000},
+                                    {"from": 5000}]}}}} for i in range(8)],
+                           True)
+    g["c_bounds"] = ("geo", [{"size": 0, "query": {"geo_bounding_box": {
+        "location": {"top": b[0], "left": b[1], "bottom": b[2],
+                     "right": b[3]}}}, "aggs": {"b": {"geo_bounds": {
+                         "field": "location"}}}} for b in JG_BOXES], False)
+    for size in (10, 100):
+        g[f"c_sort{size}"] = ("geo", [{"query": {"match_all": {}},
+                                        "size": size, "sort": [{
+                                            "_geo_distance": {"location": {
+                                                "lat": float(pick[i, 0]),
+                                                "lon": float(pick[i, 1])},
+                                                "order": "asc",
+                                                "unit": "km"}}]}
+                                       for i in range(8)], False)
+    g["c_exists"] = ("geo", [{"query": {"exists": {"field": "location"}},
+                              "size": 10 + i} for i in range(8)], True)
+    return g
+
+
+def shape_docs(np, n, seed):
+    """(d)'s shapes: small seeded polygons (4-7 vertices, under a degree
+    across) and two-to-four-point linestrings over Europe."""
+    rng = np.random.default_rng(seed + 17)
+    out = []
+    for i in range(n):
+        x, y = rng.uniform(-10, 30), rng.uniform(35, 60)
+        if i % 3:
+            m = int(rng.integers(4, 8))
+            ang = np.sort(rng.uniform(0, 2 * np.pi, m))
+            r = rng.uniform(0.1, 0.4, m)
+            ring = [[float(x + r[k] * np.cos(ang[k])),
+                     float(y + r[k] * np.sin(ang[k]))] for k in range(m)]
+            out.append({"type": "polygon", "coordinates": [ring + [ring[0]]]})
+        else:
+            m = int(rng.integers(2, 5))
+            out.append({"type": "linestring", "coordinates": [
+                [float(x + rng.uniform(-0.4, 0.4)),
+                 float(y + rng.uniform(-0.4, 0.4))] for _ in range(m)]})
+    return out
+
+
+def _jg_f32_cells(np, lat, lon, prec):
+    """Geohash cell ids in numpy f32 with true divisions (the reference's
+    arithmetic)."""
+    total = prec * 5
+    lat_bits, lon_bits = total // 2, (total + 1) // 2
+    f = np.float32
+    la = np.clip(((lat.astype(f) + f(90.0)) / f(180.0) * f(1 << lat_bits))
+                 .astype(np.int32), 0, (1 << lat_bits) - 1)
+    lo = np.clip(((lon.astype(f) + f(180.0)) / f(360.0) * f(1 << lon_bits))
+                 .astype(np.int32), 0, (1 << lon_bits) - 1)
+    return (lo.astype(np.int64) << lat_bits) + la
+
+
+def _jg_f32_polygon(np, lat, lon, pts):
+    """The even-odd ray cast in numpy f32, the reference's arithmetic."""
+    f = np.float32
+    y, x = lat.astype(f), lon.astype(f)
+    inside = np.zeros(y.size, bool)
+    n = len(pts)
+    for i in range(n):
+        y1, x1 = pts[i]["lat"], pts[i]["lon"]
+        y2, x2 = pts[(i + 1) % n]["lat"], pts[(i + 1) % n]["lon"]
+        xs = (f(x2 - x1) * (y - f(y1))) / f((y2 - y1) if y2 != y1 else 1e-12) \
+            + f(x1)
+        inside ^= ((f(y1) > y) != (f(y2) > y)) & (x < xs)
+    return inside
+
+
+def _jg_f32_box(np, lat, lon, b):
+    f = np.float32
+    y, x = lat.astype(f), lon.astype(f)
+    top, left, bottom, right = b
+    m = (y <= f(top)) & (y >= f(bottom))
+    if left <= right:
+        return m & (x >= f(left)) & (x <= f(right))
+    return m & ((x >= f(left)) | (x <= f(right)))
+
+
+def _jg_idf(np, df, n):
+    return float(np.log(1.0 + (n - df + 0.5) / (df + 0.5)))
+
+
+def _jg_topk_valid(np, resp, score_of, total, k, what, rtol=1e-6):
+    """A scored page against an oracle's f64 scores (``score_of``: id ->
+    score for every match): the total exact, each hit's score within
+    rtol, the page in descending order and no match outside it scoring
+    above its last hit beyond rtol (ties may order either way)."""
+    hits = resp["hits"]["hits"]
+    _hold(resp["hits"]["total"] == total,
+          f"{what}: total {resp['hits']['total']} vs oracle {total}", "5k")
+    _hold(len(hits) == min(k, total), f"{what}: {len(hits)} hits", "5k")
+    got = [h["_score"] for h in hits]
+    for h in hits:
+        w = score_of.get(h["_id"])
+        _hold(w is not None and abs(h["_score"] - w) <= rtol * abs(w),
+              f"{what}: {h['_id']} scored {h['_score']}, oracle {w}", "5k")
+    _hold(all(a >= b for a, b in zip(got, got[1:])), f"{what}: order",
+          "5k")
+    if hits:
+        seen = {h["_id"] for h in hits}
+        floor = min(got) * (1 + rtol)
+        above = [i for i, s in score_of.items() if s > floor and i not in
+                 seen]
+        _hold(not above, f"{what}: {above[:3]} score above the page", "5k")
+
+
+def _jg_buckets(resp_buckets, want, what, sub=None):
+    """Terms buckets against oracle counts (``want``: key -> count): each
+    returned count exact, no left-out key counting more than the last
+    returned one; ``sub(bucket) -> (got, want)`` checks a sub-agg."""
+    keys = [b["key"] for b in resp_buckets]
+    for b in resp_buckets:
+        _hold(b["doc_count"] == want.get(b["key"], -1),
+              f"{what}: bucket {b['key']} {b['doc_count']} vs "
+              f"{want.get(b['key'])}", "5k")
+        if sub is not None:
+            g, w = sub(b)
+            _hold(g == w, f"{what}: bucket {b['key']} sub {g} vs {w}", "5k")
+    if keys:
+        low = min(b["doc_count"] for b in resp_buckets)
+        _hold(all(v <= low for kk, v in want.items() if kk not in keys),
+              f"{what}: a left-out key counts more", "5k")
+
+
+def phase_joins_geo(torch, np, dev, card) -> int:
+    """Phase 5k: joins and geo (ROADMAP A9c; module docstring). Returns
+    B1's launches in 5k's timed runs (only (b)'s match, on segments
+    without nested docs, takes B1)."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.cluster.routing import shard_id_for
+    from elasticsearch_tpu_torch.index.convert import segment_from_arrays
+    from elasticsearch_tpu_torch.monitor import kernels as counters
+    from elasticsearch_tpu_torch.ops import bm25_topk
+    from elasticsearch_tpu_torch.search import geo as G
+
+    t_phase = time.perf_counter()
+    c = qa_corpus(np, JG_QUESTIONS, SEED)
+    lat, lon, ok, cent = geo_points(np, JG_POINTS, SEED)
+    groups = jg_bodies(np, c, cent, SEED)
+    n_ans = c["n_ans"]
+    nq, na = n_ans.size, int(n_ans.sum())
+    q_of = np.repeat(np.arange(nq), n_ans)
+    lines, answers = [], {}
+    b1_0 = bm25_topk.LAUNCHES
+
+    def timed(node, index, bodies):
+        ms, out = [], {}
+        start = time.perf_counter()
+        while len(ms) < max(FT_MIN_REPS, len(bodies)) or (
+                len(ms) < FT_MAX_REPS
+                and time.perf_counter() - start < JG_WINDOW_S):
+            i = len(ms) % len(bodies)
+            a = time.perf_counter()
+            out[i] = node.search(index, copy.deepcopy(bodies[i]))
+            ms.append((time.perf_counter() - a) * 1e3)
+        return np.array(ms), out
+
+    def run_group(node, name):
+        """Time a group on the host loop (and on the mesh where it
+        serves), check the route counters and that both routes answer
+        byte for byte; returns the host loop's answers."""
+        index, bodies, mesh_serves = groups[name]
+        counters.reset()
+        first = [node.search(index, copy.deepcopy(b)) for b in bodies]
+        snap = counters.snapshot()
+        key = "mesh_search" if mesh_serves else "mesh_fallback_total"
+        _hold(snap.get(key) == len(bodies),
+              f"{name}: {key} not counted once a body: {snap}", "5k")
+        for route in (("mesh", "host") if mesh_serves else ("host",)):
+            with (_host_loop() if route == "host"
+                  else contextlib.nullcontext()):
+                counters.reset()
+                ms, out = timed(node, index, bodies)
+                snap = counters.snapshot()
+                prof = profile_path(torch, lambda: [node.search(
+                    index, copy.deepcopy(bodies[i % len(bodies)]))
+                    for i in range(FT_PROFILED)])
+            if route == "host":
+                _hold(not any(k.startswith("mesh_") for k in snap),
+                      f"{name}: the pinned host loop ran the mesh", "5k")
+            label = {"host": "host loop", "mesh": "mesh path"}[route]
+            if route == "host" and not mesh_serves:
+                label = "host loop (the mesh declines)"
+            lines.append(_ft_line(np, name, label, ms, prof, "5k"))
+            answers[(name, route)] = out
+        for i, f in enumerate(first):
+            for route in ("mesh", "host"):
+                if (name, route) in answers:
+                    _hold(_strip_took(f) == _strip_took(
+                        answers[(name, route)][i]),
+                          f"{name} body {i}: {route} answers differ from "
+                          f"the default route's", "5k")
+        return answers[(name, "host")]
+
+    # -- (a) nested ------------------------------------------------------
+    t = time.perf_counter()
+    arrays = nested_arrays(np, c)
+    t_data = time.perf_counter() - t
+    node = Node(name="nested", device=dev)
+    node.create_index("qa", {"settings": {"number_of_shards": 1},
+                             "mappings": JG_QA_MAPPING})
+    seg = segment_from_arrays(arrays, node.residency)
+    node.get_index("qa").shards[0].engine.add_segment(seg)
+    segs_br = node.breakers.breaker("segments")
+    blk = seg.block_bytes()
+    _hold(seg.has_nested and blk > 0 and segs_br.used >= blk,
+          f"block arrays {blk} bytes, segments breaker {segs_br.used}", "5k")
+    log(f"[5k] (a) {nq} questions with {na} nested answers in one "
+        f"{seg.max_docs}-slot segment ({seg.num_docs} docs); arrays "
+        f"{t_data:.1f} s, set-up {time.perf_counter() - t:.1f} s; block "
+        f"arrays {blk} bytes on the card, segments breaker {segs_br.used}")
+    user_of = c["user"]
+    first_a = np.cumsum(n_ans) - n_ans
+    root_at = np.cumsum(n_ans + 1) - 1
+    idf_cache = {}
+
+    def user_idf(u):
+        if u not in idf_cache:
+            idf_cache[u] = _jg_idf(np, int(np.sum(user_of == u)), na)
+        return idf_cache[u]
+
+    b1_a = bm25_topk.LAUNCHES
+    for name in [f"a_nested_{m}" for m in JG_MODES] + [
+            "a_inner_hits", "a_match", "a_tag", "a_nested_agg",
+            "a_date_histo"]:
+        out = run_group(node, name)
+        bodies = groups[name][1]
+        for i, b in enumerate(bodies):
+            resp = out[i]
+            what = f"{name} body {i}"
+            if "nested" in b["query"]:
+                nb = b["query"]["nested"]
+                mode = nb["score_mode"]
+                u = int(nb["query"]["bool"]["must"][0]["term"][
+                    "answers.user"][1:])
+                rng_ = nb["query"]["bool"]["filter"][0]["range"][
+                    "answers.date"]
+                m = (user_of == u) & (c["date"] >= rng_["gte"]) & \
+                    (c["date"] < rng_["lt"])
+                cnt = np.bincount(q_of[m], minlength=nq)
+                idf = user_idf(u)
+                hit = np.nonzero(cnt)[0]
+                sc = {"sum": cnt[hit] * idf, "none": np.ones(hit.size)}.get(
+                    mode, np.full(hit.size, idf))
+                _jg_topk_valid(np, resp, dict(zip(
+                    [f"q{q}" for q in hit.tolist()], sc.tolist())),
+                    int(hit.size), 10, what)
+                if mode in ("max", "none"):  # equal scores: local order
+                    _hold([h["_id"] for h in resp["hits"]["hits"]] ==
+                          [f"q{q}" for q in hit[:10].tolist()],
+                          f"{what}: ids not in local order", "5k")
+                if name == "a_inner_hits":
+                    for h in resp["hits"]["hits"]:
+                        q = int(h["_id"][1:])
+                        js = np.nonzero(m[first_a[q]: first_a[q]
+                                          + n_ans[q]])[0]
+                        ih = h["inner_hits"]["answers"]["hits"]
+                        root_src = arrays["sources"][int(root_at[q])]
+                        _hold(ih["total"] == js.size and
+                              [x["_nested"]["offset"] for x in ih["hits"]]
+                              == js[:3].tolist() and
+                              all(x["_source"] == root_src["answers"][j]
+                                  for x, j in zip(ih["hits"], js[:3]))
+                              and all(x["_id"] == h["_id"]
+                                      for x in ih["hits"]),
+                              f"{what}: inner hits of {h['_id']}", "5k")
+            elif name == "a_tag":
+                k = int(b["query"]["term"]["tag"][3:])
+                sel = np.nonzero(c["tag"] == k)[0]
+                _hold(resp["hits"]["total"] == sel.size and
+                      [h["_id"] for h in resp["hits"]["hits"]] ==
+                      [f"q{q}" for q in sel[:10].tolist()],
+                      f"{what}: roots only, in local order", "5k")
+            elif name == "a_match":
+                ws = [int(w[1:]) for w in b["query"]["match"]["title"]
+                      .split()]
+                has = np.isin(c["title"], ws).any(1)
+                _hold(resp["hits"]["total"] == int(has.sum()) and all(
+                    "|" not in h["_id"] for h in resp["hits"]["hits"]),
+                      f"{what}: total {resp['hits']['total']} vs "
+                      f"{int(has.sum())}", "5k")
+            else:
+                k = int(b["query"]["term"]["tag"][3:])
+                selq = c["tag"] == k
+                am = selq[q_of]
+                agg = resp["aggregations"]["answers"]
+                _hold(agg["doc_count"] == int(am.sum()),
+                      f"{what}: nested doc_count {agg['doc_count']} vs "
+                      f"{int(am.sum())}", "5k")
+                if name == "a_nested_agg":
+                    us, cn = np.unique(user_of[am], return_counts=True)
+                    want = {f"u{u}": int(x) for u, x in zip(us, cn)}
+
+                    def distinct(bk):
+                        uu = int(bk["key"][1:])
+                        return (bk["questions"]["doc_count"],
+                                int(np.unique(q_of[am & (user_of == uu)])
+                                    .size))
+
+                    _jg_buckets(agg["users"]["buckets"], want, what,
+                                distinct)
+                else:
+                    mon = c["date"][am].astype("datetime64[ms]").astype(
+                        "datetime64[M]")
+                    ks, cn = np.unique(mon, return_counts=True)
+                    want = [(int(x), int(y)) for x, y in zip(
+                        ks.astype("datetime64[ms]").astype(np.int64), cn)]
+                    got = [(b_["key"], b_["doc_count"]) for b_ in
+                           agg["by_month"]["buckets"] if b_["doc_count"]]
+                    _hold(got == want, f"{what}: months differ", "5k")
+    b1_nested = bm25_topk.LAUNCHES - b1_a
+    _hold(b1_nested == 0, f"(a): B1 launched {b1_nested} times on a nested "
+          "segment", "5k")
+    # repeats: a sum or avg body's bytes do not change between runs
+    for name in ("a_nested_sum", "a_nested_avg"):
+        for i, b in enumerate(groups[name][1]):
+            again = [node.search("qa", copy.deepcopy(b)) for _ in range(2)]
+            _hold(all(_strip_took(x) == _strip_took(answers[(name, "host")]
+                                                    [i]) for x in again),
+                  f"{name} body {i}: the bytes changed between runs", "5k")
+    # the runs sum in index order on the card: bit for bit the CPU's
+    # sequential sums (the reference's order) of values of mixed scales
+    from elasticsearch_tpu_torch.search.joins import run_reduce
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    vals = torch.rand(seg.max_docs, generator=g, device=dev) * torch.pow(
+        10.0, torch.randint(-3, 4, (seg.max_docs,), generator=g,
+                            device=dev).float())
+    for mode, init in (("sum", 0.0), ("max", float("-inf"))):
+        card_r = run_reduce(vals, seg.root_id_dev, mode, init, seg.max_docs)
+        cpu_r = run_reduce(vals.cpu(), seg.root_id_dev.cpu(), mode, init,
+                           seg.max_docs)
+        _hold(torch.equal(card_r.cpu(), cpu_r),
+              f"run_reduce {mode}: the card's runs differ from the CPU's "
+              f"sequential ones", "5k")
+    log(f"[5k] (a) nested runs' sums and maxima over the {seg.max_docs} "
+        f"slots bit for bit the CPU's sequential ones")
+    log(f"[5k] (a) every nested body against numpy f64 (totals exact, "
+        f"scores rtol 1e-6, max/none ids exact), inner hits, roots only, "
+        f"the agg's buckets and months exact; sum and avg bodies "
+        f"byte-identical over repeated runs; B1 0 launches on the nested "
+        f"segment")
+    # a delete of roots cascades into totals and aggs after a refresh
+    rng = np.random.default_rng(SEED + 18)
+    gone = np.sort(rng.choice(nq, JG_DELETES, replace=False))
+    for q in gone.tolist():
+        node.delete("qa", f"q{q}")
+    node.refresh("qa")
+    seg_now = node.get_index("qa").shards[0].engine.segments
+    _hold(len(seg_now) == 1 and seg_now[0] is seg,
+          "a delete of 64 roots merged the segment", "5k")
+    dead = int(JG_DELETES + n_ans[gone].sum())
+    r = node.search("qa", {"size": 0, "aggs": {"n": {"nested": {
+        "path": "answers"}}}})
+    _hold(r["hits"]["total"] == nq - JG_DELETES and
+          r["aggregations"]["n"]["doc_count"] == na - int(n_ans[gone].sum())
+          and int(seg.live.sum()) == seg.num_docs - dead,
+          f"after deleting {JG_DELETES} roots: total {r['hits']['total']}, "
+          f"nested {r['aggregations']['n']['doc_count']}", "5k")
+    log(f"[5k] (a) {JG_DELETES} roots deleted: {dead} docs off the card's "
+        f"live mask, totals and the nested agg down by exactly theirs")
+    # the prefix against a CPU Node of the port
+    t = time.perf_counter()
+    pc_ = qa_prefix(c, JG_PREFIX_Q)
+    p_arrays = nested_arrays(np, pc_)
+    pnodes = [Node(name="qa-card", device=dev), Node(name="qa-cpu",
+                                                    device="cpu")]
+    for pn in pnodes:
+        pn.create_index("qa", {"settings": {"number_of_shards": 1},
+                               "mappings": JG_QA_MAPPING})
+        pn.get_index("qa").shards[0].engine.add_segment(
+            segment_from_arrays(p_arrays, pn.residency))
+    n_cmp = 0
+    for name in [g for g in groups if g.startswith("a_")]:
+        for b in groups[name][1]:
+            b = dict(b, size=10_000)
+            got, want = (pn.search("qa", copy.deepcopy(b)) for pn in pnodes)
+            _jg_same_set(got, want, f"{name} prefix, card vs CPU")
+            n_cmp += 1
+    for pn in pnodes:
+        pn.close()
+    log(f"[5k] (a) {n_cmp} bodies on a {JG_PREFIX_Q}-question prefix: the "
+        f"card equals a CPU Node of the port (totals, ids, aggregations; "
+        f"scores rtol 1e-6); {time.perf_counter() - t:.1f} s")
+    node.close()
+    _hold(segs_br.used == 0, f"segments breaker {segs_br.used} bytes after "
+          "the close", "5k")
+    log(f"[5k] (a) closed: segments breaker {segs_br.used} bytes (the block "
+        f"arrays released)")
+    del arrays, seg, node
+
+    # -- (b) parent/child ----------------------------------------------
+    t = time.perf_counter()
+    shard_of = np.array([shard_id_for(f"q{q}", JG_SHARDS)
+                         for q in range(nq)])
+    node = Node(name="pc", device=dev)
+    node.create_index("qapc", {"settings": {"number_of_shards": JG_SHARDS},
+                               "mappings": JG_PC_MAPPING})
+    shard_meta = []
+    for s in range(JG_SHARDS):
+        arr, meta = pc_shard_arrays(np, c, shard_of, s)
+        node.get_index("qapc").shards[s].engine.add_segment(
+            segment_from_arrays(arr, node.residency))
+        shard_meta.append(meta)
+    log(f"[5k] (b) {nq} questions and {na} answers as parents and children "
+        f"over {JG_SHARDS} shards by shard_id_for(parent), one segment a "
+        f"shard; set-up {time.perf_counter() - t:.1f} s")
+    b1_b = bm25_topk.LAUNCHES
+    f32 = np.float32
+    for name in ("b_has_child_max", "b_has_child_sum", "b_has_parent",
+                 "b_children_agg", "b_match"):
+        out = run_group(node, name)
+        for i, b in enumerate(groups[name][1]):
+            resp, what = out[i], f"{name} body {i}"
+            if name.startswith("b_has_child"):
+                hc = b["query"]["has_child"]
+                u = int(hc["query"]["term"]["user"][1:])
+                cands = []
+                for s, (qs, a_idx, qo, _j) in enumerate(shard_meta):
+                    us = user_of[a_idx]
+                    idf32 = f32(_jg_idf(np, int(np.sum(us == u)), a_idx.size))
+                    cnt = np.bincount(np.searchsorted(qs, qo[us == u]),
+                                      minlength=qs.size)
+                    for loc in np.nonzero(cnt >= 2)[0].tolist():
+                        v = idf32 if hc["score_mode"] == "max" else f32(
+                            cnt[loc] * np.float64(idf32))
+                        cands.append((-float(v), s, loc, f"q{qs[loc]}"))
+                cands.sort()
+                _hold(resp["hits"]["total"] == len(cands) and
+                      [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
+                      == [(x[3], -x[0]) for x in cands[:10]],
+                      f"{what}: hits or scores differ from numpy", "5k")
+            elif name == "b_has_parent":
+                k = int(b["query"]["has_parent"]["query"]["term"]["tag"][3:])
+                cands = []
+                for s, (qs, a_idx, qo, jj) in enumerate(shard_meta):
+                    tg = c["tag"][qs]
+                    idf32 = float(f32(_jg_idf(np, int(np.sum(tg == k)),
+                                              qs.size)))
+                    kids = np.nonzero(c["tag"][qo] == k)[0]
+                    cands += [(-idf32, s, qs.size + x, f"q{qo[x]}a{jj[x]}")
+                              for x in kids.tolist()]
+                cands.sort()
+                _hold(resp["hits"]["total"] == len(cands) and
+                      [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
+                      == [(x[3], -x[0]) for x in cands[:10]],
+                      f"{what}: hits or scores differ from numpy", "5k")
+            elif name == "b_children_agg":
+                ts, cn = np.unique(c["tag"], return_counts=True)
+                want = {f"tag{x}": int(y) for x, y in zip(ts, cn)}
+                kids = {f"tag{x}": int(n_ans[c["tag"] == x].sum())
+                        for x in ts}
+                _jg_buckets(resp["aggregations"]["tags"]["buckets"], want,
+                            what, lambda bk: (bk["answers"]["doc_count"],
+                                              kids[bk["key"]]))
+            else:
+                ws = [int(w[1:]) for w in b["query"]["match"]["title"]
+                      .split()]
+                has = int(np.isin(c["title"], ws).any(1).sum())
+                _hold(resp["hits"]["total"] == has,
+                      f"{what}: total {resp['hits']['total']} vs {has}",
+                      "5k")
+    b1_pc = bm25_topk.LAUNCHES - b1_b
+    _hold(b1_pc > 0, "(b): the match launched no B1", "5k")
+    log(f"[5k] (b) has_child counts, min_children, max and sum scores and "
+        f"has_parent sets exact against numpy; children agg buckets exact; "
+        f"the match on the mesh and B1 ({b1_pc} launches), byte for byte "
+        f"with the host loop")
+    node.close()
+    del node, shard_meta
+
+    # -- (c) geo points --------------------------------------------------
+    t = time.perf_counter()
+    node = Node(name="geo", device=dev)
+    node.create_index("geo", {"settings": {"number_of_shards": 1},
+                              "mappings": JG_GEO_MAPPING})
+    node.get_index("geo").shards[0].engine.add_segment(segment_from_arrays(
+        geo_arrays(np, lat, lon, ok), node.residency))
+    edges = geo_edges(np)
+    log(f"[5k] (c) {JG_POINTS} docs, {int(ok.sum())} located around "
+        f"{JG_CENTRES} centres, {len(edges)} on cell and box edges; set-up "
+        f"{time.perf_counter() - t:.1f} s")
+    # hazard 1 on the card: cells of points on cell edges are the exact
+    # f64 cells (a product with the reciprocal lands one low)
+    et = torch.tensor(edges, dtype=torch.float32, device=dev)
+    n_cell = 0
+    for prec in (3, 6):
+        total = prec * 5
+        lat_bits, lon_bits = total // 2, (total + 1) // 2
+        got = G.geohash_cell_device(et[:, 0], et[:, 1], prec).cpu().numpy()
+        exact = (np.clip(np.floor((edges[:, 1] + 180) / 360 * (1 << lon_bits)),
+                         0, (1 << lon_bits) - 1).astype(np.int64)
+                 << lat_bits) + np.clip(np.floor((edges[:, 0] + 90) / 180 * (
+                     1 << lat_bits)), 0, (1 << lat_bits) - 1).astype(np.int64)
+        on_edge = np.arange(len(edges)) < 2 * len(range(1, 128, 3))
+        _hold(np.array_equal(got, _jg_f32_cells(np, edges[:, 0], edges[:, 1],
+                                                prec))
+              and np.array_equal(got[on_edge], exact[on_edge]),
+              f"precision {prec}: cells of edge points differ", "5k")
+        n_cell += int(on_edge.sum())
+    log(f"[5k] (c) {n_cell} cell checks of points exactly on cell edges at "
+        f"precisions 3 and 6: the card's cells are the exact ones")
+    loc = np.nonzero(ok)[0]
+    llat, llon = lat[loc], lon[loc]
+    band_total = 0
+    for name in ("c_polygon", "c_bbox", "c_distance", "c_geohash3",
+                 "c_geohash6", "c_distance_agg", "c_bounds", "c_sort10",
+                 "c_sort100", "c_exists"):
+        out = run_group(node, name)
+        for i, b in enumerate(groups[name][1]):
+            resp, what = out[i], f"{name} body {i}"
+            q = b.get("query", {})
+            member = None
+            if "geo_polygon" in q:
+                member = _jg_f32_polygon(np, llat, llon, q["geo_polygon"][
+                    "location"]["points"])
+            elif "geo_bounding_box" in q:
+                bx = q["geo_bounding_box"]["location"]
+                member = _jg_f32_box(np, llat, llon, (bx["top"], bx["left"],
+                                                      bx["bottom"],
+                                                      bx["right"]))
+            if name in ("c_polygon", "c_bbox"):
+                ids = loc[member]
+                _hold(resp["hits"]["total"] == ids.size and
+                      [h["_id"] for h in resp["hits"]["hits"]] ==
+                      [str(x) for x in ids[:10].tolist()],
+                      f"{what}: members differ from numpy's f32 "
+                      f"{ids.size}", "5k")
+            elif name == "c_distance":
+                gd = q["geo_distance"]
+                r = G.parse_distance(gd["distance"])
+                d = G.haversine_np(llat, llon, gd["location"]["lat"],
+                                   gd["location"]["lon"])
+                band = np.abs(d - r) <= JG_BAND * r
+                band_total += int(band.sum())
+                inside = int(np.sum(d <= r))
+                _hold(abs(resp["hits"]["total"] - inside) <= band.sum()
+                      and resp["hits"]["total"] >= inside - band.sum(),
+                      f"{what}: total {resp['hits']['total']} vs {inside} "
+                      f"(band {int(band.sum())})", "5k")
+                pos = {str(x): j for j, x in enumerate(loc.tolist())}
+                _hold(all(d[pos[h["_id"]]] <= r or band[pos[h["_id"]]]
+                          for h in resp["hits"]["hits"]),
+                      f"{what}: a hit outside the radius", "5k")
+            elif name in ("c_geohash3", "c_geohash6"):
+                prec = b["aggs"]["cells"]["geohash_grid"]["precision"]
+                size = b["aggs"]["cells"]["geohash_grid"]["size"]
+                sel = member if member is not None else np.ones(loc.size,
+                                                                bool)
+                cells, cn = np.unique(_jg_f32_cells(np, llat[sel], llon[sel],
+                                                    prec),
+                                      return_counts=True)
+                order = np.lexsort((cells, -cn))[:size]
+                want = [{"key": G.geohash_encode_cell(int(cells[j]), prec),
+                         "doc_count": int(cn[j])} for j in order]
+                _hold(resp["aggregations"]["cells"]["buckets"] == want,
+                      f"{what}: cells differ from numpy's f32", "5k")
+            elif name == "c_distance_agg":
+                o = b["aggs"]["rings"]["geo_distance"]["origin"]
+                d = G.haversine_np(llat, llon, o["lat"], o["lon"]) / 1000.0
+                edges_km = np.array([100.0, 1000.0, 5000.0])
+                band = int(sum(np.sum(np.abs(d - e) <= JG_BAND * e)
+                               for e in edges_km))
+                band_total += band
+                want = np.histogram(d, bins=[0, 100, 1000, 5000, np.inf])[0]
+                got = [bk["doc_count"] for bk in
+                       resp["aggregations"]["rings"]["buckets"]]
+                _hold(sum(abs(g_ - w_) for g_, w_ in zip(got, want))
+                      <= 2 * band, f"{what}: rings {got} vs {want.tolist()}"
+                      f" (band {band})", "5k")
+            elif name == "c_bounds":
+                fl, fo = llat[member].astype(f32), llon[member].astype(f32)
+                bb = resp["aggregations"]["b"]["bounds"]
+                _hold(bb == {"top_left": {"lat": float(fl.max()),
+                                          "lon": float(fo.min())},
+                             "bottom_right": {"lat": float(fl.min()),
+                                              "lon": float(fo.max())}},
+                      f"{what}: bounds {bb}", "5k")
+            elif name.startswith("c_sort"):
+                o = b["sort"][0]["_geo_distance"]["location"]
+                d = G.haversine_np(llat, llon, o["lat"], o["lon"]) / 1000.0
+                hits = resp["hits"]["hits"]
+                pos = {str(x): j for j, x in enumerate(loc.tolist())}
+                vals = [h["sort"][0] for h in hits]
+                kth = np.partition(d, len(hits))[len(hits)]
+                _hold(len(hits) == b["size"] and vals == sorted(vals) and
+                      all(abs(v - d[pos[h["_id"]]]) <= 1e-9 * max(v, 1e-9)
+                          for v, h in zip(vals, hits)) and
+                      vals[-1] <= kth * (1 + 1e-9),
+                      f"{what}: not the {b['size']} nearest", "5k")
+            else:
+                _hold(resp["hits"]["total"] == loc.size,
+                      f"{what}: exists total {resp['hits']['total']}", "5k")
+    log(f"[5k] (c) polygons, boxes (one across the antimeridian), geohash "
+        f"cells and bounds exact against numpy f32; distances, rings and "
+        f"the sort's selection against numpy f64, {band_total} docs in "
+        f"the band (f64 distance within {JG_BAND} relative of a radius or "
+        f"ring edge) over all bodies; exists on the mesh byte for byte")
+    # the prefix against a CPU Node of the port
+    t = time.perf_counter()
+    n = JG_PREFIX_PTS
+    p_arrays = geo_arrays(np, lat[:n], lon[:n], ok[:n])
+    pnodes = [Node(name="geo-card", device=dev),
+              Node(name="geo-cpu", device="cpu")]
+    for pn in pnodes:
+        pn.create_index("geo", {"settings": {"number_of_shards": 1},
+                                "mappings": JG_GEO_MAPPING})
+        pn.get_index("geo").shards[0].engine.add_segment(
+            segment_from_arrays(p_arrays, pn.residency))
+    n_cmp = 0
+    for name in [g for g in groups if g.startswith("c_")]:
+        for b in groups[name][1]:
+            got, want = (pn.search("geo", copy.deepcopy(b)) for pn in pnodes)
+            if name in ("c_distance", "c_distance_agg"):
+                _hold(abs(got["hits"]["total"] - want["hits"]["total"]) <= 2,
+                      f"{name} prefix: totals", "5k")
+            else:
+                _hold(_close(got.get("aggregations"), want.get(
+                    "aggregations"), 1e-12) and _close(
+                    [(h["_id"], h.get("sort")) for h in got["hits"]["hits"]],
+                    [(h["_id"], h.get("sort")) for h in
+                     want["hits"]["hits"]], 1e-12)
+                      and got["hits"]["total"] == want["hits"]["total"],
+                      f"{name} prefix: card vs CPU differ", "5k")
+            n_cmp += 1
+    for pn in pnodes:
+        pn.close()
+    log(f"[5k] (c) {n_cmp} bodies on a {n}-doc prefix: the card equals a "
+        f"CPU Node of the port (distance totals within 2 docs); "
+        f"{time.perf_counter() - t:.1f} s")
+    node.close()
+    del node
+
+    # -- (d) geo shapes through Node.index ---------------------------------
+    t = time.perf_counter()
+    shapes = shape_docs(np, JG_SHAPES, SEED)
+    node = Node(name="shapes", device=dev)
+    node.create_index("shapes", {"settings": {"number_of_shards": 1},
+                                 "mappings": JG_SHAPE_MAPPING})
+    for i, sh in enumerate(shapes):
+        node.index("shapes", str(i), {"area": sh, "kind": sh["type"]})
+    node.refresh("shapes")
+    t_index = time.perf_counter() - t
+    queries = [{"type": "envelope", "coordinates": [[2.0, 52.0], [9.0, 46.0]]},
+               {"type": "polygon", "coordinates": [[[10, 40], [20, 42],
+                                                    [24, 50], [15, 55],
+                                                    [8, 48], [10, 40]]]}]
+    bodies = [{"query": {"geo_shape": {"area": {"shape": qs, "relation": r}}},
+               "size": 5000} for qs in queries
+              for r in ("intersects", "within", "disjoint")]
+    bodies += [dict(bodies[0], size=10), dict(bodies[4], size=10)]
+    groups["d_shapes"] = ("shapes", bodies, False)
+    out = run_group(node, "d_shapes")
+    prims = [G._shape_prims(s) for s in shapes]
+    for i, b in enumerate(bodies):
+        spec = b["query"]["geo_shape"]["area"]
+        qp = G._shape_prims(spec["shape"])
+        hit = [G.shape_within(p, qp) if spec["relation"] == "within"
+               else G.shape_intersects(p, qp) for p in prims]
+        if spec["relation"] == "disjoint":
+            hit = [not x for x in hit]
+        want = [str(j) for j, x in enumerate(hit) if x]
+        got = [h["_id"] for h in out[i]["hits"]["hits"]]
+        _hold(out[i]["hits"]["total"] == len(want) and
+              got == want[: b["size"]],
+              f"d_shapes body {i}: {out[i]['hits']['total']} vs brute "
+              f"force {len(want)}", "5k")
+    log(f"[5k] (d) {JG_SHAPES} shapes through Node.index in {t_index:.1f} s;"
+        f" envelope and polygon under intersects, within and disjoint equal "
+        f"a brute-force refinement of every shape (no cell prefilter)")
+    node.close()
+    for ln in lines:
+        log(ln)
+    b1 = bm25_topk.LAUNCHES - b1_0
+    log(f"[5k] launches in 5k's runs: B1 {b1} ((b)'s match only); phase 5k "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    return b1
+
+
+def _jg_same_set(got, want, what):
+    """Two responses of one body on two devices: totals, the hit ids as a
+    set and each hit's score within rtol 1e-6 (scores that tie to the
+    last bits may order either way), the aggregations equal."""
+    gh = {h["_id"]: h for h in got["hits"]["hits"]}
+    wh = {h["_id"]: h for h in want["hits"]["hits"]}
+    _hold(got["hits"]["total"] == want["hits"]["total"] and gh.keys() ==
+          wh.keys(), f"{what}: total {got['hits']['total']} vs "
+          f"{want['hits']['total']} or the ids differ", "5k")
+    for k, h in gh.items():
+        a, b = h["_score"], wh[k]["_score"]
+        _hold((a is None and b is None) or abs(a - b) <= 1e-6 * abs(b),
+              f"{what}: {k} scored {a} vs {b}", "5k")
+        _hold(h.get("inner_hits") is None or _close(h["inner_hits"],
+                                                    wh[k]["inner_hits"],
+                                                    1e-6),
+              f"{what}: inner hits of {k}", "5k")
+    _hold(_close(got.get("aggregations"), want.get("aggregations")),
+          f"{what}: aggregations differ", "5k")
+
+
 def _cprofile_rows(st, key, n, per=1):
     """The top ``n`` of a pstats.Stats by ``key`` ("cum" or "own") as
     lines of calls, own ms, cumulative ms (each divided by ``per``) and
@@ -4874,6 +5982,8 @@ def main() -> int:
     launches["bm25_dense_topk"] += phase_writepath(torch, np, dev, card)
     torch.cuda.empty_cache()
     launches["bm25_dense_topk"] += phase_fulltext(torch, np, dev, card)
+    torch.cuda.empty_cache()
+    launches["bm25_dense_topk"] += phase_joins_geo(torch, np, dev, card)
     torch.cuda.empty_cache()
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card),
               "knn_topk": timing_knn(torch, dev, card),

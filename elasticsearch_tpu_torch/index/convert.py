@@ -31,7 +31,16 @@ the product-sized smoke corpus is), so both packages score the same state.
                  "list_lens": i32[C], "C": int, "Lmax": int,
                  "avg_len": float, "metric": str} | None,
          "pq": {"codebooks": f32[M, K, dsub], "codes": u8[max_docs, M],
-                "M": int, "K": int, "dsub": int, "metric": str} | None}}}
+                "M": int, "K": int, "dsub": int, "metric": str} | None}},
+     "blocks": {                   # a segment holding nested docs
+         "parent_of": i32[max_docs],          # -1 for a root
+         "nested_paths": {path: code},
+         "nested_code": i32[max_docs], "nested_ord": i32[max_docs]} | None,
+     "metas": [dict] | None}       # each doc's _type/_parent/routing
+
+Blocks are in Lucene order (a root's nested docs first, the root last);
+``TpuSegment.set_blocks`` derives the roots, root ids and per-level
+ancestors exactly as a freeze does.
 
 A text field's positional CSR (positions aligned with the postings
 order, ``pos_offsets`` per posting) is carried with its postings, so
@@ -98,12 +107,21 @@ def segment_from_arrays(arrays: Dict[str, Any],
     ids = [str(i) for i in range(n)] if ids is None else list(ids)
     sources = arrays.get("sources")
     sources = [None] * n if sources is None else list(sources)
-    return TpuSegment(
+    seg = TpuSegment(
         num_docs=n, max_docs=D, inverted=inverted, numerics=numerics,
         keywords=keywords, sources=sources, stored=[{}] * n, ids=ids,
         id_map={doc_id: i for i, doc_id in enumerate(ids)},
         field_lengths=lengths, residency=residency,
         live=arrays.get("live"), vectors=vectors)
+    metas = arrays.get("metas")
+    seg.metas = list(metas) if metas else [{}] * n
+    blocks = arrays.get("blocks")
+    if blocks is not None:
+        seg.set_blocks(np.asarray(blocks["parent_of"], np.int32),
+                       dict(blocks["nested_paths"]),
+                       np.asarray(blocks["nested_code"], np.int32),
+                       np.asarray(blocks["nested_ord"], np.int32))
+    return seg
 
 
 def _opt(a, dtype):

@@ -294,4 +294,26 @@ class DocumentParser:
                     parsed.doc_values.setdefault(fm.name + ".lat", []).append(norm[0])
                     parsed.doc_values.setdefault(fm.name + ".lon", []).append(norm[1])
                     continue
+                if fm.type == "geo_shape":
+                    # covering-cell tokens under `<field>.__cells`: freeze
+                    # builds their keyword postings, which the geo_shape
+                    # query filters on (search/geo.py)
+                    from elasticsearch_tpu_torch.search.geo import \
+                        shape_index_tokens
+                    from elasticsearch_tpu_torch.utils.errors import \
+                        QueryParsingException
+
+                    if not isinstance(norm, dict):
+                        raise MapperParsingException(
+                            f"geo_shape field [{fm.name}] expects a GeoJSON "
+                            "object")
+                    try:
+                        toks = shape_index_tokens(norm)
+                    except QueryParsingException as e:
+                        # an index-time parse failure is a mapper error
+                        raise MapperParsingException(
+                            f"failed to parse [{fm.name}]: {e}") from e
+                    parsed.doc_values.setdefault(
+                        fm.name + ".__cells", []).extend(toks)
+                    continue
                 parsed.doc_values.setdefault(fm.name, []).append(norm)

@@ -19,6 +19,8 @@ import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
+
 from elasticsearch_tpu_torch.analysis.registry import AnalysisRegistry
 from elasticsearch_tpu_torch.index.doc_parser import DocumentParser
 from elasticsearch_tpu_torch.index.mappings import Mappings
@@ -128,10 +130,13 @@ class Engine:
     def index(self, doc_id: Optional[str], source: dict,
               version: Optional[int] = None, version_type: str = "internal",
               op_type: str = "index", routing: Optional[str] = None,
-              doc_type: Optional[str] = None, seq_no: Optional[int] = None,
+              doc_type: Optional[str] = None, parent: Optional[str] = None,
+              seq_no: Optional[int] = None,
               primary_term: Optional[int] = None,
               _replay: bool = False) -> Tuple[str, int, bool]:
         """Index/create a document. Returns (id, new_version, created).
+        ``parent`` is a child's parent id (its ``_parent`` doc value); a
+        doc with nested objects joins the buffer as one block.
 
         Internal versioning requires the given version to equal the
         current one; external requires it to be strictly greater (gte
@@ -167,7 +172,7 @@ class Engine:
                 new_version = (loc.version if loc else 0) + 1
 
             parsed = self.parser.parse(doc_id, source, routing=routing,
-                                       doc_type=doc_type)
+                                       doc_type=doc_type, parent=parent)
             # seq no after validation: a rejected op consumes no number
             if seq_no is None:
                 seq_no = self.seq.generate()
@@ -184,6 +189,8 @@ class Engine:
                          "seq_no": seq_no, "term": op_term}
                 if doc_type:
                     entry["doc_type"] = doc_type
+                if parent:
+                    entry["parent"] = parent
                 self._translog_append(entry)
             self._note_op(op_term, seq_no)
             self.stats.index_total += 1
@@ -284,7 +291,11 @@ class Engine:
         first, so its deletion-heavy segments wait for the next write).
         Returns whether a segment was frozen or merged."""
         with self._lock:
-            live_docs = [d for d in self.buffer.docs if d is not None]
+            # roots only: a root re-adds its block; a replaced root leaves
+            # its nested docs behind as orphans, which go with the buffer
+            live_docs = [d for d, p in zip(self.buffer.docs,
+                                           self.buffer.parent_of)
+                         if d is not None and p < 0]
             if not live_docs:
                 pending, self._deletes_pending = self._deletes_pending, False
                 return self.maybe_merge() if pending else False
@@ -330,13 +341,17 @@ class Engine:
             target_ids = {s.seg_id for s in targets}
             builder = SegmentBuilder(self.mappings, self.residency)
             for seg in targets:
-                live = seg.live_host
-                for local, doc_id in enumerate(seg.ids):
-                    if live[local]:
-                        loc = self._locations[doc_id]
-                        builder.add(self.parser.parse(
-                            doc_id, seg.sources[local], routing=loc.routing,
-                            doc_type=loc.doc_type))
+                # live roots only, each re-parsed into its whole block
+                keep = seg.live_host[: seg.num_docs]
+                if seg.roots_host is not None:
+                    keep = keep & seg.roots_host[: seg.num_docs]
+                for local in np.nonzero(keep)[0].tolist():
+                    meta = seg.metas[local]
+                    builder.add(self.parser.parse(
+                        seg.ids[local], seg.sources[local],
+                        routing=meta.get("routing"),
+                        doc_type=meta.get("_type"),
+                        parent=meta.get("_parent")))
             merged = builder.freeze()
             keep = [s for s in self.segments if s.seg_id not in target_ids]
             # release, then charge: a merge nets memory down, so its charge
@@ -375,7 +390,8 @@ class Engine:
             self._charge_segment(seg)
             self.segments.append(seg)
             for doc_id, local in seg.id_map.items():
-                if seg.live_host[local]:
+                if seg.live_host[local] and (seg.roots_host is None
+                                             or seg.roots_host[local]):
                     self._locations[doc_id] = DocLocation(
                         version=1, where=seg.seg_id, local_id=local)
 
@@ -392,7 +408,8 @@ class Engine:
                 seq = UNASSIGNED_SEQ_NO if seq is None else seq
                 if op["op"] == "index":
                     self.index(op["id"], op["source"], routing=op.get("routing"),
-                               doc_type=op.get("doc_type"), seq_no=seq,
+                               doc_type=op.get("doc_type"),
+                               parent=op.get("parent"), seq_no=seq,
                                primary_term=op.get("term"), _replay=True)
                     self._locations[op["id"]].version = op["version"]
                     replayed += 1

@@ -44,7 +44,8 @@ from elasticsearch_tpu_torch.search.queries import rewrite_mlt_in_body
 from elasticsearch_tpu_torch.search.service import search_shards
 from elasticsearch_tpu_torch.utils.errors import (IllegalArgumentException,
                                                   IndexNotFoundException,
-                                                  MapperParsingException)
+                                                  MapperParsingException,
+                                                  RoutingMissingException)
 
 
 #: now-relative date math in a serialised body ("now", "now-1d", "now/d");
@@ -107,6 +108,8 @@ class IndexService:
                   routing: Optional[str] = None, **kw) -> dict:
         if doc_id is None:
             doc_id = uuid.uuid4().hex[:20]
+        self._check_routing_required(doc_id, kw.get("doc_type"),
+                                     routing or kw.get("parent"))
         shard = self.route(doc_id, routing)
         rid, version, created = shard.engine.index(doc_id, source,
                                                    routing=routing, **kw)
@@ -122,6 +125,18 @@ class IndexService:
             "created": created,
             "_shards": {"total": 1, "successful": 1, "failed": 0},
         }
+
+    def _check_routing_required(self, doc_id, doc_type, routing) -> None:
+        """``_routing: {required: true}``, and a type with a ``_parent``
+        mapping, make routing (or the parent) mandatory on a write. As in
+        the reference's Python API, the parent does not route the doc:
+        callers give ``routing=parent``."""
+        if routing is not None:
+            return
+        if self.mappings.routing_required or (
+                doc_type and doc_type in self.mappings.parent_types):
+            raise RoutingMissingException(self.name, doc_type or "_doc",
+                                          str(doc_id))
 
     def get_doc(self, doc_id: str, routing: Optional[str] = None,
                 realtime: bool = True) -> dict:

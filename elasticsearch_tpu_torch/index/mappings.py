@@ -37,9 +37,6 @@ INT_TYPES = {"long", "integer", "short", "byte", "token_count", "murmur3"}
 
 #: mapping type -> the ROADMAP queue-A item that ports its search path
 NOT_YET_PORTED = {
-    "nested": "A9c (joins in the rest of the DSL)",
-    "geo_point": "A9c (geo in the rest of the DSL)",
-    "geo_shape": "A9c (geo in the rest of the DSL)",
     "percolator": "A9d (percolator in the rest of the DSL)",
     "completion": "A9d (suggest in the rest of the DSL)",
 }

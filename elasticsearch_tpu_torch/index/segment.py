@@ -344,17 +344,99 @@ class TpuSegment:
         self._live_dirty = False
         self.deleted_count = int(num_docs - self._live_host[:num_docs].sum())
         self._sort_keys: Dict[str, Optional[SortKeys]] = {}
+        self._geo64: Dict[str, Optional[Tuple[Any, Any, Any]]] = {}
         self._sort_lock = threading.Lock()
+        # each doc's _type / _parent / routing meta (merges replay them)
+        self.metas: List[dict] = []
+        # block-join arrays (``set_blocks``); None: every doc is a root
+        self.parent_id_host: Optional[np.ndarray] = None
+        self.nested_code_host: Optional[np.ndarray] = None
+        self.nested_ord_host: Optional[np.ndarray] = None
+        self.nested_paths: Dict[str, int] = {}
+        self.roots_host: Optional[np.ndarray] = None
+        self.root_id_host: Optional[np.ndarray] = None
+        self.ancestors_host: Dict[int, np.ndarray] = {}
+        self.parent_id_dev: Any = None
+        self.nested_code_dev: Any = None
+        self.roots_dev: Any = None
+        self.root_id_dev: Any = None
+        self.ancestors_dev: Dict[int, Any] = {}
 
     @property
     def device(self):
         return self.residency.device
 
+    @property
+    def has_nested(self) -> bool:
+        return self.parent_id_dev is not None
+
+    def set_blocks(self, parent_id: np.ndarray, nested_paths: Dict[str, int],
+                   nested_code: np.ndarray, nested_ord: np.ndarray) -> None:
+        """Install the block-join arrays of a segment holding nested docs
+        (blocks in Lucene order: descendants first, the root last) and
+        derive the rest: the roots, each doc's root (``root_id``) and per
+        nested level L each doc's ancestor-or-self at L (``ancestors[L]``,
+        -1 where none), the join targets of nested queries and aggs. One
+        vectorised step per level of depth walks every doc up at once.
+        Every array goes to the device; ``memory_bytes`` counts them in
+        the segment's ``segments`` charge."""
+        D = self.max_docs
+        parent_id = np.asarray(parent_id, np.int32)
+        nested_code = np.asarray(nested_code, np.int32)
+        roots = parent_id < 0
+        roots[self.num_docs:] = False
+        root_id = np.arange(D, dtype=np.int32)
+        anc = {c: np.where(nested_code == c, root_id, -1).astype(np.int32)
+               for c in nested_paths.values()}
+        # walk every doc's chain: ``cur`` is its ancestor at this depth
+        cur = parent_id.copy()
+        while True:
+            up = np.nonzero(cur >= 0)[0]
+            if up.size == 0:
+                break
+            a = cur[up]
+            root_id[up] = a
+            code = nested_code[a]
+            for c, arr in anc.items():
+                hit = up[(code == c) & (arr[up] < 0)]
+                arr[hit] = cur[hit]
+            cur[up] = parent_id[a]
+        self.parent_id_host = parent_id
+        self.nested_code_host = nested_code
+        self.nested_ord_host = np.asarray(nested_ord, np.int32)
+        self.nested_paths = dict(nested_paths)
+        self.roots_host = roots
+        self.root_id_host = root_id
+        self.ancestors_host = anc
+        put = self.residency.device_put
+        self.parent_id_dev = put(parent_id)
+        self.nested_code_dev = put(nested_code)
+        self.roots_dev = put(roots)
+        self.root_id_dev = put(root_id)
+        self.ancestors_dev = {c: put(a) for c, a in anc.items()}
+
+    def block_bytes(self) -> int:
+        """Device bytes of the block-join arrays (0 without nested docs)."""
+        ts = [self.parent_id_dev, self.nested_code_dev, self.roots_dev,
+              self.root_id_dev, *self.ancestors_dev.values()]
+        return sum(int(t.numel()) * t.element_size() for t in ts
+                   if t is not None)
+
     def delete_local(self, local_id: int) -> bool:
+        """Delete a doc and its descendants: a root takes its block."""
         if 0 <= local_id < self.num_docs and self._live_host[local_id]:
             self._live_host[local_id] = False
             self._live_dirty = True
             self.deleted_count += 1
+            if self.parent_id_host is not None:
+                p = self.parent_id_host[: self.num_docs]
+                frontier = np.array([local_id])
+                while frontier.size:  # one level of descendants a step
+                    kids = np.nonzero(np.isin(p, frontier))[0]
+                    live = kids[self._live_host[kids]]
+                    self._live_host[live] = False
+                    self.deleted_count += int(live.size)
+                    frontier = kids
             return True
         return False
 
@@ -381,12 +463,31 @@ class TpuSegment:
                 self._sort_keys[field] = _build_sort_keys(self, field)
             return self._sort_keys[field]
 
+    def geo_f64(self, field: str):
+        """(lat f64, lon f64, exists) of a geo_point field on the device,
+        the ``_geo_distance`` sort's exact coordinates: built on first use
+        and charged to ``fielddata``; None when the segment has no points
+        of the field."""
+        with self._sort_lock:
+            if field not in self._geo64:
+                lat = self.numerics.get(f"{field}.lat")
+                lon = self.numerics.get(f"{field}.lon")
+                got = None
+                if lat is not None and lon is not None:
+                    got = tuple(self.residency.put_array(
+                        np.asarray(c.exact, np.float64),
+                        label=f"sort:{c.name}") for c in (lat, lon)) \
+                        + (lat.exists,)
+                self._geo64[field] = got
+            return self._geo64[field]
+
     def memory_bytes(self) -> int:
-        """Always-resident device bytes (live mask, postings, IVF
-        quantizers): the ``segments`` breaker charge at freeze. Vector
-        slabs and PQ codes are charged to the ``fielddata`` breaker when
-        placed, as doc-value columns are, and are not counted twice."""
-        total = self.max_docs
+        """Always-resident device bytes (live mask, block-join arrays,
+        postings, IVF quantizers): the ``segments`` breaker charge at
+        freeze. Vector slabs and PQ codes are charged to the ``fielddata``
+        breaker when placed, as doc-value columns are, and are not
+        counted twice."""
+        total = self.max_docs + self.block_bytes()
         for inv in self.inverted.values():
             total += inv.nnz_pad * (4 + 4 + 4 + 4)
         for vc in self.vectors.values():
@@ -413,6 +514,8 @@ class TpuSegment:
                 ts += list(inv._pos_dev)
         with self._sort_lock:
             ts += [m.key for m in self._sort_keys.values() if m is not None]
+            ts += [t for g in self._geo64.values() if g is not None
+                   for t in g[:2]]
         return sum(int(t.numel()) * t.element_size() for t in ts
                    if t is not None)
 
@@ -546,10 +649,20 @@ class SegmentBuilder:
         self.mappings = mappings
         self.residency = residency
         self.docs: List[Optional[ParsedDocument]] = []
+        # each doc's parent local id, -1 for a root (block order:
+        # descendants first, the root last)
+        self.parent_of: List[int] = []
 
     def add(self, parsed: ParsedDocument) -> int:
+        """Append a doc's block (its nested docs first, depth first, then
+        the doc); returns the doc's local id."""
+        child_locals = [self.add(child) for child in parsed.children]
+        local = len(self.docs)
         self.docs.append(parsed)
-        return len(self.docs) - 1
+        self.parent_of.append(-1)
+        for c in child_locals:
+            self.parent_of[c] = local
+        return local
 
     def __len__(self) -> int:
         return len(self.docs)
@@ -618,6 +731,19 @@ class SegmentBuilder:
             ids=ids, id_map={doc_id: i for i, doc_id in enumerate(ids)},
             field_lengths=field_lengths, residency=res, vectors=vectors,
         )
+        seg.metas = [d.meta for d in self.docs]
+        if any(p >= 0 for p in self.parent_of):
+            parent_id = np.full(max_docs, -1, dtype=np.int32)
+            parent_id[:n] = self.parent_of
+            nested_code = np.full(max_docs, -1, dtype=np.int32)
+            nested_ord = np.full(max_docs, -1, dtype=np.int32)
+            paths: Dict[str, int] = {}
+            for i, d in enumerate(self.docs):
+                if d.nested_path is not None:
+                    nested_code[i] = paths.setdefault(d.nested_path,
+                                                      len(paths))
+                    nested_ord[i] = d.nested_ord
+            seg.set_blocks(parent_id, paths, nested_code, nested_ord)
         return seg
 
     def _build_vectors(self, fname: str, dims: int, sim: str,

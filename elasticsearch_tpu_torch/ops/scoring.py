@@ -364,6 +364,12 @@ def f64_order_keys(x) -> np.ndarray:
     return np.where(b < 0, b ^ np.int64(I64_MAX), b)
 
 
+def f64_order_keys_dev(x):
+    """``f64_order_keys`` of an f64 tensor, on its device."""
+    b = (x + 0.0).view(torch.int64)
+    return torch.where(b < 0, b ^ I64_MAX, b)
+
+
 def f32_order_keys(x):
     """i64 keys in the order of the f32 tensor ``x`` (-0.0 as 0.0)."""
     b = (x + 0.0).view(torch.int32).to(torch.int64)

@@ -32,7 +32,9 @@ IVF-PQ or MaxSim decline by design (``MeshCompileError`` with
 ``MeshCompileError`` and the caller takes the host loop, as the
 reference's mesh sends ``match`` with fuzziness, multi_match, common,
 query_string, more_like_this, indices, ``script``, script_score, the
-span queries and a decay from ``now`` there.
+span queries, a decay from ``now``, the joins and the geo queries there.
+``exists`` on a geo_point or geo_shape field reads its ``.lat`` column or
+``.__cells`` keyword, as the host loop does.
 
 Aggregations ride the round in one of two ways (``mesh_service``): a
 request whose aggs are all keyword ``terms`` without sub-aggregations
@@ -48,8 +50,8 @@ order-preserving int64 keys, the segment's own sort mirror
 (``TpuSegment.sort_keys``), and the round selects each slot's exact top
 k by the full key tuple (``ops/scoring.py::sort_topk``); a keyword's
 keys rank its terms inside the slot's segment, and the slots' candidates
-merge on the host by their values (``mesh_service``). ``_score`` as any
-sort key declines (the host loop serves it).
+merge on the host by their values (``mesh_service``). ``_score`` or
+``_geo_distance`` as any sort key declines (the host loop serves it).
 """
 from __future__ import annotations
 
@@ -432,6 +434,10 @@ class ExistsPrim(DataPrim):
                     return cols[f].exists
             if f in seg.field_lengths:
                 return seg.field_lengths[f] > 0
+            for cols, sub in ((seg.numerics, ".lat"),  # geo_point
+                              (seg.keywords, ".__cells")):  # geo_shape
+                if f + sub in cols:
+                    return cols[f + sub].exists
             return None
 
         key = ("exists", f, _ids(seg_row), D)

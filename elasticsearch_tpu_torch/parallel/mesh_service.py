@@ -36,7 +36,9 @@ the reference; highlight, ``fields`` and ``_name``'s
 ``matched_queries`` are fetch-phase keys and ride either route.
 ``dfs_query_then_fetch`` runs here too: the round's contexts take the
 index-wide statistics, and such a round never reads or fills the
-prepared-query memo.
+prepared-query memo. A shard holding a segment with nested docs keeps
+every request on the host loop (the round has no roots-only mask), as do
+the join and geo queries (the compiler declines them).
 """
 from __future__ import annotations
 
@@ -103,6 +105,8 @@ def _try_mesh_msearch(svc, searchers, queries, k: int):
     if len(searchers) < 2 or k < 1:
         return None  # one shard: the host tiers already are one pass
     shard_segs = [list(s.segments) for s in searchers]
+    if _any_nested(shard_segs):
+        return None
     probe = next((seg for segs in shard_segs for seg in segs), None)
     if probe is None:
         return None  # an empty snapshot: the host tiers answer it
@@ -134,6 +138,13 @@ def _try_mesh_msearch(svc, searchers, queries, k: int):
                 c.append((-v, sh, seg.seg_id, lc, seg))
         cands.append(c)
     return cands, totals.tolist()
+
+
+def _any_nested(shard_segs) -> bool:
+    """A segment holding nested docs: the round carries no block-join
+    arrays (and no roots-only mask), so the host loop serves, as the
+    reference's mesh declines."""
+    return any(seg.has_nested for segs in shard_segs for seg in segs)
 
 
 def _canonical(body: dict) -> Optional[bytes]:
@@ -171,6 +182,8 @@ def _try_mesh_search(svc, searchers, body: dict, global_stats=None):
     executor = svc.mesh_executor()
     k = max(frm + size, 1)
     shard_segs = [list(s.segments) for s in searchers]
+    if _any_nested(shard_segs):
+        return None
     try:
         cands, totals, agg_rounds, mask_rounds = executor.search_dsl(
             query, svc.mappings, svc.analysis, k, shards=shard_segs,
@@ -215,11 +228,14 @@ def _try_mesh_search(svc, searchers, body: dict, global_stats=None):
             partials = _agg_partials(aggs, agg_rounds)
         else:
             kernels.record("agg_mask")
+            # a join in a filter agg prepares over its shard's segments
             partials = [
                 run_aggs(aggs, SegmentContext(seg, svc.mappings,
                                               svc.analysis,
-                                              index_name=svc.name), mask)
-                for _sh, _seg_ord, seg, mask in sorted(
+                                              index_name=svc.name,
+                                              all_segments=shard_segs[sh]),
+                         mask)
+                for sh, _seg_ord, seg, mask in sorted(
                     mask_rounds, key=lambda r: (r[0], r[1]))]
         response["aggregations"] = reduce_aggs(aggs, partials)
     return response

@@ -20,9 +20,6 @@ each selected bucket (shard_size-style top buckets per shard), mirroring
 BucketsAggregator's per-bucket doc collection.
 
 A value source is a ``field`` or a ``script`` (search/scripting.py).
-Agg types that come with ROADMAP A9c (nested, reverse_nested, children
-and the geo aggs) are registered and raise a typed
-``SearchParseException`` that names A9c when the request is parsed.
 """
 from __future__ import annotations
 
@@ -46,14 +43,6 @@ def register(name):
         return cls
 
     return deco
-
-
-def a9_refusal(what: str) -> SearchParseException:
-    """The typed refusal of a feature that ROADMAP A9c ports (the joins
-    and geo)."""
-    return SearchParseException(
-        f"{what} is not yet in the PyTorch port (ROADMAP A9c, joins and "
-        f"geo)")
 
 
 class Aggregator:
@@ -89,24 +78,6 @@ class Aggregator:
 class ValueSourceAggregator(Aggregator):
     """An aggregator that reads ``resolve_values``: a ``field``'s doc
     values or a ``script``'s column."""
-
-
-class DeferredAggregator(Aggregator):
-    """A registered type the port does not serve yet: parsing it raises
-    the typed A9c refusal (an unregistered type raises 'unknown
-    aggregation type' instead)."""
-
-    type_name = ""
-
-    def __init__(self, name, body, subs=None):
-        raise a9_refusal(f"aggregation type [{self.type_name}]")
-
-
-def deferred(*names: str) -> None:
-    """Register ``names`` as types that raise the A9c refusal."""
-    for n in names:
-        register(n)(type(f"Deferred_{n}", (DeferredAggregator,),
-                         {"type_name": n}))
 
 
 def parse_aggs(dsl: Optional[dict]) -> List[Aggregator]:

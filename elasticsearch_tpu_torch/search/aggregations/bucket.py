@@ -22,8 +22,14 @@ Kept as the reference has them, each a difference from ES 2.0:
   double within f32 rounding of a bucket edge is counted in one bucket
   and collected by a neighbour's sub-aggregations.
 
-``nested``, ``reverse_nested``, ``children``, ``geohash_grid`` and
-``geo_distance`` come with ROADMAP A9c and raise its typed refusal.
+The join aggs: ``nested`` gathers the incoming mask onto each child of
+a path through its root (or enclosing level) id, ``reverse_nested``
+scatters a child mask back onto its targets, and ``children`` joins a
+segment's selected parents to its children through the ``_parent``
+ordinals (the reference's rule: parents and children of the same
+segment). The geo aggs: ``geohash_grid`` makes one int64 cell id a doc
+on the card and counts the selected ones with ``torch.unique``;
+``geo_distance`` buckets an f32 haversine distance (search/geo.py).
 """
 from __future__ import annotations
 
@@ -32,9 +38,17 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from elasticsearch_tpu_torch.index.mappings import _parse_geo_point
 from elasticsearch_tpu_torch.ops.scoring import bucket_count
 from elasticsearch_tpu_torch.search.aggregations.base import (
-    Aggregator, ValueSourceAggregator, deferred, register, resolve_values)
+    Aggregator, ValueSourceAggregator, register, resolve_values)
+from elasticsearch_tpu_torch.search.geo import (_UNIT_M, _div,
+                                                geohash_cell_device,
+                                                geohash_encode_cell,
+                                                haversine_device)
+from elasticsearch_tpu_torch.search.joins import (_type_mask,
+                                                  parent_locals,
+                                                  prepare_tree)
 from elasticsearch_tpu_torch.search.queries import (ExistsQuery, RangeQuery,
                                                     _terms_filter_mask,
                                                     parse_query)
@@ -529,14 +543,17 @@ class IpRangeAggregator(RangeAggregator):
 # filter / filters / global / missing / sampler / significant_terms
 # ---------------------------------------------------------------------------
 
-# The reference runs joins.prepare_tree over a filter's parsed query; the
-# port's parse_query has no join queries (ROADMAP A9c), so there is
-# nothing to prepare.
+def _filter_query(body, ctx):
+    """A filter's parsed query, its joins prepared over the shard."""
+    q = parse_query(body)
+    prepare_tree(q, ctx.all_segments, ctx.mappings, ctx.analysis)
+    return q
+
 
 @register("filter")
 class FilterAggregator(Aggregator):
     def collect(self, ctx, mask):
-        _, fmask = parse_query(self.body).execute(ctx)
+        _, fmask = _filter_query(self.body, ctx).execute(ctx)
         bmask = mask & fmask
         # the count stays on the card; reduce sums and copies it once
         out = {"doc_count": bmask.sum()}
@@ -560,7 +577,7 @@ class FiltersAggregator(Aggregator):
                      else enumerate(specs))
         keys, bmasks = [], []
         for key, q in items:
-            _, fmask = parse_query(q).execute(ctx)
+            _, fmask = _filter_query(q, ctx).execute(ctx)
             keys.append(str(key))
             bmasks.append(mask & fmask)
         if not keys:
@@ -680,5 +697,202 @@ class SignificantTermsAggregator(TermsAggregator):
         return {"doc_count": fg_total, "buckets": out[:size]}
 
 
-deferred("nested", "reverse_nested", "children", "geohash_grid",
-         "geo_distance")
+@register("nested")
+class NestedAggregator(Aggregator):
+    """The children of a nested path whose enclosing doc (the root, or a
+    doc of a prefix nested level for chained nested aggs) is in the
+    incoming mask: one gather a level; the levels' doc spaces are
+    disjoint, so at most one gather selects a child."""
+
+    def collect(self, ctx, mask):
+        seg = ctx.segment
+        path = self.body.get("path")
+        if not seg.has_nested or path not in seg.nested_paths:
+            out = {"doc_count": 0}
+            if self.subs:
+                out["subs"] = self.collect_subs(
+                    ctx, torch.zeros(ctx.D, dtype=torch.bool,
+                                     device=ctx.device))
+            return out
+        parent_sel = mask[seg.root_id_dev.long()]
+        parts = path.split(".")
+        for i in range(1, len(parts)):
+            pc = seg.nested_paths.get(".".join(parts[:i]))
+            if pc is not None:
+                anc = seg.ancestors_dev[pc]
+                parent_sel = parent_sel | (
+                    mask[torch.clamp(anc, min=0).long()] & (anc >= 0))
+        child_mask = (seg.nested_code_dev == seg.nested_paths[path]) \
+            & parent_sel & seg.live
+        out = {"doc_count": child_mask.sum()}
+        if self.subs:
+            out["subs"] = self.collect_subs(ctx, child_mask)
+        return out
+
+    reduce = FilterAggregator.reduce
+
+
+@register("reverse_nested")
+class ReverseNestedAggregator(Aggregator):
+    """From child docs back to their roots (or to the level ``path``
+    names): the targets of the selected children, marked by one
+    scatter."""
+
+    def collect(self, ctx, mask):
+        seg = ctx.segment
+        if not seg.has_nested:
+            out = {"doc_count": mask.sum()}
+            if self.subs:
+                out["subs"] = self.collect_subs(ctx, mask)
+            return out
+        D = ctx.D
+        path = self.body.get("path")
+        pc = seg.nested_paths.get(path) if path is not None else None
+        target = seg.ancestors_dev[pc] if pc is not None \
+            else seg.root_id_dev
+        child_sel = mask & (seg.parent_id_dev >= 0) & (target >= 0)
+        tgt = torch.where(child_sel, target, D).long()
+        hit = torch.zeros(D + 1, dtype=torch.bool, device=ctx.device)
+        hit[tgt] = True
+        parent_mask = hit[:D] & seg.live
+        out = {"doc_count": parent_mask.sum()}
+        if self.subs:
+            out["subs"] = self.collect_subs(ctx, parent_mask)
+        return out
+
+    reduce = FilterAggregator.reduce
+
+
+@register("children")
+class ChildrenAggregator(Aggregator):
+    """The live children (of ``type``) of the selected parents, joined
+    within the segment through the ``_parent`` ordinals, as the
+    reference's collector joins them."""
+
+    def collect(self, ctx, mask):
+        seg = ctx.segment
+        child_mask = np.zeros(seg.max_docs, dtype=bool)
+        pcol = seg.keywords.get("_parent")
+        if pcol is not None:
+            # a parent ordinal is picked when its doc is in the mask
+            sel = mask.cpu().numpy()
+            sel[seg.num_docs:] = False
+            at = parent_locals(seg, seg)
+            picked = (at >= 0) & sel[np.maximum(at, 0)]
+            ords = np.asarray(pcol.ords_host)
+            child_mask = picked[np.where(ords >= 0, ords, at.size - 1)] \
+                & seg.live_host & _type_mask(seg, self.body.get("type"))
+        out = {"doc_count": int(child_mask.sum())}
+        if self.subs:
+            out["subs"] = self.collect_subs(
+                ctx, torch.from_numpy(child_mask).to(ctx.device))
+        return out
+
+    reduce = FilterAggregator.reduce
+
+
+@register("geohash_grid")
+class GeohashGridAggregator(Aggregator):
+    """One int64 cell id a doc on the card; the occupied cells and their
+    counts by ``torch.unique``; the cells' geohashes on the host."""
+
+    def collect(self, ctx, mask):
+        field = self.body.get("field")
+        if field is None:
+            raise SearchParseException("geohash_grid requires [field]")
+        precision = int(self.body.get("precision", 5))
+        if not 1 <= precision <= 12:
+            raise SearchParseException(
+                f"geohash_grid precision must be in [1, 12], got "
+                f"{precision}")
+        lat = ctx.col(f"{field}.lat")
+        lon = ctx.col(f"{field}.lon")
+        if lat is None or lon is None:
+            return {"cells": {}, "precision": precision}
+        cells = geohash_cell_device(lat.values + lat.offset,
+                                    lon.values + lon.offset, precision)
+        sel = mask & lat.exists
+        uniq, cnt = torch.unique(cells[sel], return_counts=True)
+        out: Dict[int, dict] = {}
+        for cell, c in zip(uniq.tolist(), cnt.tolist()):
+            b = {"doc_count": int(c)}
+            if self.subs:
+                b["subs"] = self.collect_subs(ctx, sel & (cells == cell))
+            out[int(cell)] = b
+        return {"cells": out, "precision": precision}
+
+    def reduce(self, partials):
+        merged: Dict[int, int] = {}
+        sub_partials: Dict[int, list] = {}
+        precision = 5
+        for p in partials:
+            precision = p.get("precision", precision)
+            for cell, b in p.get("cells", {}).items():
+                merged[cell] = merged.get(cell, 0) + b["doc_count"]
+                if "subs" in b:
+                    sub_partials.setdefault(cell, []).append(b["subs"])
+        size = int(self.body.get("size", 10_000)) or 10_000
+        buckets = []
+        for cell, count in sorted(merged.items(),
+                                  key=lambda kv: (-kv[1], kv[0]))[:size]:
+            b = {"key": geohash_encode_cell(cell, precision),
+                 "doc_count": count}
+            if cell in sub_partials:
+                b.update(self.reduce_subs(sub_partials[cell]))
+            buckets.append(b)
+        return {"buckets": buckets}
+
+
+@register("geo_distance")
+class GeoDistanceAggregator(Aggregator):
+    """Range buckets over the f32 haversine distance from an origin: one
+    distance tensor, the buckets' counts in one copy."""
+
+    def collect(self, ctx, mask):
+        field = self.body.get("field")
+        origin = self.body.get("origin") or self.body.get("point") \
+            or self.body.get("center")
+        if field is None or origin is None:
+            raise SearchParseException(
+                "geo_distance requires [field] and [origin]")
+        lat0, lon0 = _parse_geo_point(origin)
+        unit = self.body.get("unit", "m")
+        unit_m = _UNIT_M.get(unit)
+        if unit_m is None:
+            raise SearchParseException(f"unknown distance unit [{unit}]")
+        lat = ctx.col(f"{field}.lat")
+        lon = ctx.col(f"{field}.lon")
+        dist_u = None
+        if lat is not None and lon is not None:
+            dist_u = _div(haversine_device(lat.values + lat.offset,
+                                           lon.values + lon.offset,
+                                           lat0, lon0), unit_m)
+        specs, bmasks = [], []
+        for r in self.body.get("ranges", []):
+            frm = float(r["from"]) if r.get("from") is not None else None
+            to = float(r["to"]) if r.get("to") is not None else None
+            key = r.get("key") or (f"{'*' if frm is None else frm}-"
+                                   f"{'*' if to is None else to}")
+            if dist_u is None:
+                bmask = torch.zeros(ctx.D, dtype=torch.bool,
+                                    device=ctx.device)
+            else:
+                bmask = mask & lat.exists
+                if frm is not None:
+                    bmask = bmask & (dist_u >= frm)
+                if to is not None:
+                    bmask = bmask & (dist_u < to)
+            specs.append((key, frm, to))
+            bmasks.append(bmask)
+        if not specs:
+            return {"buckets": {}}
+        out: Dict[str, dict] = {}
+        for (key, frm, to), cnt, bmask in zip(specs, _counts(bmasks),
+                                              bmasks):
+            b = {"doc_count": int(cnt), "from": frm, "to": to}
+            if self.subs:
+                b["subs"] = self.collect_subs(ctx, bmask)
+            out[key] = b
+        return {"buckets": out}
+
+    reduce = RangeAggregator.reduce

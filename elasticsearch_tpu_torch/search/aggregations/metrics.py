@@ -15,8 +15,7 @@ encoding or bias tables, its rank the f32 formula
 ``31 - floor(log2(f32(rest)))``.
 
 ``scripted_metric`` is the reference's simplified one (a map script
-summed). ``geo_bounds`` comes with ROADMAP A9c and raises its typed
-refusal.
+summed). ``geo_bounds`` reads the f32 lat/lon channels of a geo_point.
 """
 from __future__ import annotations
 
@@ -27,7 +26,7 @@ import torch
 
 from elasticsearch_tpu_torch.ops.scoring import bucket_count
 from elasticsearch_tpu_torch.search.aggregations.base import (
-    Aggregator, ValueSourceAggregator, deferred, register, resolve_values)
+    Aggregator, ValueSourceAggregator, register, resolve_values)
 from elasticsearch_tpu_torch.search.function_score import run_script
 from elasticsearch_tpu_torch.search.scripting import (compile_script,
                                                       script_source)
@@ -342,4 +341,33 @@ class ScriptedMetricAggregator(Aggregator):
         return {"value": float(sum(partials))}
 
 
-deferred("geo_bounds")
+@register("geo_bounds")
+class GeoBoundsAggregator(Aggregator):
+    def collect(self, ctx, mask):
+        field = self.body["field"]
+        lat = ctx.col(f"{field}.lat")
+        lon = ctx.col(f"{field}.lon")
+        if lat is None:
+            return None
+        sel = lat.exists & mask
+        inf = float("inf")
+        # the four extremes and the any-flag in one copy back
+        got = torch.stack([
+            torch.where(sel, lat.values, -inf).max(),
+            torch.where(sel, lat.values, inf).min(),
+            torch.where(sel, lon.values, inf).min(),
+            torch.where(sel, lon.values, -inf).max(),
+            sel.any().to(torch.float32)]).cpu().tolist()
+        if not got[4]:
+            return None
+        return dict(zip(("top", "bottom", "left", "right"), got[:4]))
+
+    def reduce(self, partials):
+        ps = [p for p in partials if p]
+        if not ps:
+            return {"bounds": None}
+        return {"bounds": {
+            "top_left": {"lat": max(p["top"] for p in ps),
+                         "lon": min(p["left"] for p in ps)},
+            "bottom_right": {"lat": min(p["bottom"] for p in ps),
+                             "lon": max(p["right"] for p in ps)}}}

@@ -23,7 +23,9 @@ flush (``serving/coalescer.py``). Eligibility is per item: an ineligible
 item runs on its own, and a malformed query becomes an ES-shaped item
 failure. ``hybrid`` bodies never batch in the port (they run in
 sequence; the reference's one-program hybrid tier is left out with
-``hybrid_fused_topk``), nor do filtered or IVF ``knn`` bodies.
+``hybrid_fused_topk``), nor do filtered or IVF ``knn`` bodies. An index
+with a segment of nested docs serves every item on its own (the tiers
+score every doc, and a search counts roots only), as the reference does.
 
 The reference's per-searcher stats, program registry and retrace
 accounting around the tiers are not ported (ROADMAP A10, A11), nor its
@@ -132,7 +134,7 @@ def batch_field(svc, query) -> Optional[str]:
     batchable), probed on the index's first segment; a tier may still
     refuse at execution time, and the caller then runs per request."""
     probe = _probe_segment(svc)
-    if probe is None:
+    if probe is None or probe.has_nested:
         return None
     try:
         ctx = SegmentContext(probe, svc.mappings, svc.analysis,
@@ -226,6 +228,8 @@ def execute_batch(svc, bodies: List[dict],
     if not mesh_served:
         for pos, s in enumerate(searchers):
             for seg in s.segments:
+                if seg.has_nested:
+                    return None  # roots only: the sequential path
                 ctx = SegmentContext(seg, svc.mappings, svc.analysis,
                                      index_name=svc.name)
                 kb = min(k, seg.max_docs)
@@ -307,7 +311,7 @@ def try_batched_msearch(svc, bodies: List[dict],
     # one batch per call: the largest bucket; stragglers run on their own
     probe = _probe_segment(svc)
     groups: Dict[str, List[int]] = {}
-    if probe is not None:
+    if probe is not None and not probe.has_nested:
         ctx = SegmentContext(probe, svc.mappings, svc.analysis,
                              index_name=svc.name)
         for i in eligible:

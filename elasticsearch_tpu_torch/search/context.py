@@ -98,12 +98,17 @@ class SegmentContext:
         analysis: AnalysisRegistry,
         global_stats: Optional[GlobalStats] = None,
         index_name: str = "",
+        all_segments: Optional[list] = None,
     ):
         self.segment = segment
         self.mappings = mappings
         self.analysis = analysis
         self.global_stats = global_stats
         self.index_name = index_name
+        # the shard's segments: a join inside a filter agg prepares over
+        # them (joins.prepare_tree)
+        self.all_segments = all_segments if all_segments is not None \
+            else [segment]
 
     @property
     def device(self):

@@ -13,13 +13,13 @@ minimum_should_match, analyzer, fuzziness, ``type: phrase`` /
 ``boosting``, ``indices``, ``more_like_this`` (``rewrite_mlt_in_body``
 resolves its liked ids over the whole index first), ``template`` and
 ``wrapper``; ``function_score`` (search/function_score.py), ``script``
-(search/scripting.py) and the span queries (search/spans.py); ``knn``
-over a dense_vector field (brute force, MaxSim, IVF, IVF-PQ) and
-``hybrid`` (search/hybrid.py); plus the fused dense-impact top-k fast
-path and its two batched tiers for ``_msearch``
-(``fused_bm25_topk_batch``, ``hybrid_bm25_topk_batch``). The joins and
-the geo queries come with ROADMAP A9c and raise a typed
-QueryParsingException naming it.
+(search/scripting.py), the span queries (search/spans.py), the joins
+``nested``, ``has_child``, ``top_children`` and ``has_parent``
+(search/joins.py) and the geo queries (search/geo.py); ``knn`` over a
+dense_vector field (brute force, MaxSim, IVF, IVF-PQ) and ``hybrid``
+(search/hybrid.py); plus the fused dense-impact top-k fast path and its
+two batched tiers for ``_msearch`` (``fused_bm25_topk_batch``,
+``hybrid_bm25_topk_batch``).
 
 A node's ``execute(ctx)`` returns a whole-segment pair
 
@@ -838,6 +838,12 @@ class ExistsQuery(Query):
             return None, seg.vectors[self.field].exists
         if self.field in seg.field_lengths:
             return None, seg.field_lengths[self.field] > 0
+        # a geo_point splits into .lat/.lon columns, a geo_shape into
+        # .__cells keyword tokens
+        if f"{self.field}.lat" in seg.numerics:
+            return None, seg.numerics[f"{self.field}.lat"].exists
+        if f"{self.field}.__cells" in seg.keywords:
+            return None, seg.keywords[f"{self.field}.__cells"].exists
         return _empty(ctx)
 
 
@@ -1863,18 +1869,22 @@ def _parse_query_inner(dsl: Optional[dict]) -> Query:
 
         return parse_span_query(qtype, body)
 
-    if qtype in A9C_QUERIES:
-        raise QueryParsingException(
-            f"query type [{qtype}] is not yet in the PyTorch port "
-            f"(ROADMAP A9c)")
+    if qtype in JOIN_QUERIES:
+        from elasticsearch_tpu_torch.search.joins import parse_join_query
+
+        return parse_join_query(qtype, body)
+
+    if qtype in GEO_QUERIES:
+        from elasticsearch_tpu_torch.search.geo import parse_geo_query
+
+        return parse_geo_query(qtype, body)
     raise QueryParsingException(f"unknown query type [{qtype}]")
 
 
 SPAN_QUERIES = ("span_term", "span_first", "span_near", "span_not",
                 "span_or", "span_multi", "field_masking_span")
-#: the reference's query types that come with ROADMAP A9c (joins, geo)
-A9C_QUERIES = ("nested", "has_child", "has_parent", "top_children",
-               "geo_distance", "geo_bounding_box", "geo_polygon",
+JOIN_QUERIES = ("nested", "has_child", "has_parent", "top_children")
+GEO_QUERIES = ("geo_distance", "geo_bounding_box", "geo_polygon",
                "geo_shape")
 
 

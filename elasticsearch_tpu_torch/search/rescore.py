@@ -13,9 +13,8 @@ rescore query without a filter takes the stage-2 window path instead
 candidates are scored, every admissible one counts as matched, and a
 ``request``-breaker denial keeps the whole window on its original scores.
 
-The reference prepares join queries (``has_child`` and the like) across
-segments before a query rescore; the port has no join queries yet
-(ROADMAP A9c), so there is nothing to prepare.
+A query rescore's joins (``has_child`` and the like) prepare over the
+shard's segments first (``joins.prepare_tree``).
 """
 from __future__ import annotations
 
@@ -24,6 +23,7 @@ from typing import Dict, List
 import numpy as np
 
 from elasticsearch_tpu_torch.search.context import SegmentContext
+from elasticsearch_tpu_torch.search.joins import prepare_tree
 from elasticsearch_tpu_torch.search.queries import KnnQuery, parse_query
 from elasticsearch_tpu_torch.utils.errors import (CircuitBreakingException,
                                                   SearchParseException)
@@ -79,9 +79,10 @@ def _by_segment(window) -> Dict[int, list]:
 
 
 def apply_rescore(docs, rescore_specs: List[dict], mappings,
-                  analysis) -> None:
+                  analysis, segments=None) -> None:
     """Re-rank the top window of ``docs`` (ShardDocs in query-phase
-    order) in place, once per spec, in turn."""
+    order) in place, once per spec, in turn; ``segments``: the shard's,
+    over which a rescore query's joins prepare."""
     for spec in rescore_specs:
         window = docs[: spec["window_size"]]
         if not window:
@@ -90,6 +91,8 @@ def apply_rescore(docs, rescore_specs: List[dict], mappings,
         if isinstance(q, KnnQuery) and q.filter is None:
             _rescore_knn_window(window, q, spec, mappings, analysis)
         else:
+            if segments is not None:
+                prepare_tree(q, segments, mappings, analysis)
             for seg_docs in _by_segment(window).values():
                 ctx = SegmentContext(seg_docs[0].seg, mappings, analysis)
                 scores, mask = q.score_or_mask(ctx)

@@ -13,7 +13,14 @@ in ``search_shards`` before the global merge), ``_query_cache`` (read by
 caller's ``GlobalStats``); any other key raises a typed
 SearchParseException that names the ROADMAP item bringing it
 (``check_body``). A ``_name`` in the query adds ``matched_queries`` to
-each hit in the fetch phase.
+each hit in the fetch phase, a nested query with ``inner_hits`` its
+matching children (``_attach_inner_hits``).
+
+A request's has_child and has_parent run their shard-wide pass first
+(``joins.prepare_tree``). On a segment holding nested docs the top-level
+mask is ``live & roots``, for hits, totals, aggs, sorts, scrolls,
+``terminate_after`` and ``min_score`` alike, and B1's fused route is not
+taken (it scores every doc).
 
 Per segment the query runs the fused dense-impact top-k (kernel B1) when
 the query is a pure-dense term group and nothing else reads the scores
@@ -35,7 +42,10 @@ k by the full tuple, then the local id; ``search_after`` is a strict
 key alone, in f32, and drops the docs missing it (ROADMAP C, "Reference
 fault, field sort"); wherever that preselect is right the two agree.
 Segments then merge by the value tuple (``_sort_key``) in segment order
-and shards in shard order: ``(tuple, shard, segment, local)``.
+and shards in shard order: ``(tuple, shard, segment, local)``. A
+``_geo_distance`` key is the f64 haversine of the exact coordinates on
+the card (``TpuSegment.geo_f64``) in the same key space, a doc without a
+point last; a hit reports the f64 numpy distance, as the reference does.
 
 A scroll snapshots its whole match set when it opens (point in time: the
 snapshot holds the segments and their doc lists, so later writes and
@@ -56,18 +66,22 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from elasticsearch_tpu_torch.index.mappings import _parse_geo_point
 from elasticsearch_tpu_torch.ops import scoring as S
 from elasticsearch_tpu_torch.ops.scoring import count_mask, topk_with_mask
 from elasticsearch_tpu_torch.search.aggregations import (parse_aggs,
                                                          reduce_aggs,
                                                          run_aggs)
-from elasticsearch_tpu_torch.search.aggregations.base import a9_refusal
 from elasticsearch_tpu_torch.search.context import GlobalStats, SegmentContext
 from elasticsearch_tpu_torch.search.function_score import doc_resolver
+from elasticsearch_tpu_torch.search.geo import (_UNIT_M, haversine_f64,
+                                                haversine_np)
 from elasticsearch_tpu_torch.search.highlight import (extract_query_terms,
                                                       highlight_field)
 from elasticsearch_tpu_torch.search.hybrid import (HybridQuery,
                                                    apply_hybrid_rerank)
+from elasticsearch_tpu_torch.search.joins import (collect_nested_inner_hits,
+                                                  prepare_tree)
 from elasticsearch_tpu_torch.search.queries import (collect_named,
                                                     fused_bm25_topk,
                                                     parse_query)
@@ -196,6 +210,9 @@ class ShardSearcher:
 
         with _p("rewrite"):
             query = parse_query(body.get("query"))
+            # has_child / has_parent: their shard-wide pass
+            prepare_tree(query, self.segments, self.mappings, self.analysis,
+                         global_stats)
         aggs = parse_aggs(body.get("aggs") or body.get("aggregations"))
         size = int(body.get("size", 10))
         frm = int(body.get("from", 0))
@@ -262,11 +279,14 @@ class ShardSearcher:
                 with _p("executor_build"):
                     ctx = SegmentContext(seg, self.mappings, self.analysis,
                                          global_stats,
-                                         index_name=self.index_name)
+                                         index_name=self.index_name,
+                                         all_segments=self.segments)
                 if prof is not None:
                     prof.segments += 1
                 kk = min(k, seg.max_docs)
-                if fused_ok:
+                # B1 scores every doc: a segment with nested docs takes
+                # the generic route and its roots-only mask
+                if fused_ok and not seg.has_nested:
                     fused = _dc(lambda: fused_bm25_topk(ctx, query, kk),
                                 "topk")
                     if fused is not None:
@@ -282,6 +302,11 @@ class ShardSearcher:
                         continue
                 scores, mask = _dc(lambda: query.score_or_mask(ctx))
                 mask = mask & seg.live
+                if seg.has_nested:
+                    # top-level hits, totals, aggs and sorts see roots
+                    # only: nested docs are reached through nested
+                    # queries and aggs (Lucene's block join)
+                    mask = mask & seg.roots_dev
                 if min_score is not None:
                     mask = mask & (scores >= float(min_score))
                 if aggs:
@@ -336,7 +361,8 @@ class ShardSearcher:
             max_score = max((d.score for d in docs if np.isfinite(d.score)),
                             default=float("-inf"))
         if rescore_specs:
-            apply_rescore(docs, rescore_specs, self.mappings, self.analysis)
+            apply_rescore(docs, rescore_specs, self.mappings, self.analysis,
+                          self.segments)
             docs = docs[: min(max(size + frm, 1), 10_000)]
             max_score = max((d.score for d in docs), default=float("-inf"))
         if terminate_after is not None and total >= terminate_after:
@@ -424,7 +450,56 @@ class ShardSearcher:
                 hit["highlight"] = self._highlight(ctx, query, src, hl)
             hits.append(hit)
         self._attach_matched_queries(query, docs, hits)
+        self._attach_inner_hits(query, docs, hits, index_name)
         return hits
+
+    def _attach_inner_hits(self, query, docs: List[ShardDoc],
+                           hits: List[dict], index_name: str) -> None:
+        """``inner_hits`` of nested queries: per root hit its matching
+        children of the path, best first, each with its object from the
+        root's ``_source``. One selection a (query, segment), copied back
+        once."""
+        nq_list = collect_nested_inner_hits(query)
+        if not nq_list:
+            return
+        sel_cache: Dict[Tuple[int, int], Tuple[np.ndarray, np.ndarray]] = {}
+        for nq_i, nq in enumerate(nq_list):
+            name = nq.inner_hits.get("name", nq.path)
+            ih_size = int(nq.inner_hits.get("size", 3))
+            ih_from = int(nq.inner_hits.get("from", 0))
+            for d, hit in zip(docs, hits):
+                seg = d.seg
+                if not seg.has_nested or nq.path not in seg.nested_paths:
+                    continue
+                key = (nq_i, seg.seg_id)
+                if key not in sel_cache:
+                    ctx = SegmentContext(seg, self.mappings, self.analysis)
+                    sel, child_scores = nq.child_selection(ctx)
+                    sel_cache[key] = (sel.cpu().numpy(),
+                                      child_scores.cpu().numpy())
+                sel_np, scores_np = sel_cache[key]
+                n = seg.num_docs
+                kids = np.nonzero(sel_np[:n] & (seg.root_id_host[:n]
+                                                == d.local_id))[0]
+                if kids.size == 0:
+                    continue
+                order = kids[np.argsort(-scores_np[kids], kind="stable")]
+                root_src = seg.sources[d.local_id] or {}
+                child_hits = []
+                for kid in order[ih_from: ih_from + ih_size]:
+                    ordn = int(seg.nested_ord_host[kid])
+                    child_hits.append({
+                        "_index": self.index_name or index_name,
+                        "_id": hit["_id"],
+                        "_nested": {"field": nq.path, "offset": ordn},
+                        "_score": float(scores_np[kid]),
+                        "_source": _nested_sub_source(root_src, nq.path,
+                                                      ordn),
+                    })
+                hit.setdefault("inner_hits", {})[name] = {"hits": {
+                    "total": int(kids.size),
+                    "max_score": float(scores_np[order[0]]),
+                    "hits": child_hits}}
 
     def _script_field(self, d: ShardDoc, spec, fname: str, cache: dict):
         """A script field's value for one hit. The script runs once a
@@ -736,8 +811,18 @@ def _parse_sort(spec) -> List[dict]:
         else:
             (fieldname, cfg), = item.items()
             if fieldname == "_geo_distance":
-                raise a9_refusal("sort by [_geo_distance]")
-            if isinstance(cfg, str):
+                # {"_geo_distance": {"<field>": <point>, "order", "unit"}}
+                cfg = dict(cfg)
+                order = cfg.pop("order", "asc")
+                unit = cfg.pop("unit", "m")
+                cfg.pop("distance_type", None)
+                cfg.pop("mode", None)
+                (geo_field, point), = cfg.items()
+                out.append({"field": "_geo_distance", "order": order,
+                            "geo_field": geo_field,
+                            "origin": _parse_geo_point(point),
+                            "unit_m": _UNIT_M.get(unit, 1.0)})
+            elif isinstance(cfg, str):
                 out.append({"field": fieldname, "order": cfg})
             else:
                 out.append({
@@ -773,12 +858,24 @@ def _key_lanes(seg, s: dict, scores, after) -> Tuple[list, Optional[list]]:
         kind = "f32"
         key = S.f32_order_keys(scores)
         lanes = [torch.bitwise_not(key) if desc else key]
+    elif s["field"] == "_geo_distance":
+        # the f64 distance on the card, in its order-key space: exact,
+        # where the reference preselects on an f32 distance
+        geo = seg.geo_f64(s["geo_field"])
+        if geo is None:  # no points here: every doc misses the key
+            lanes = _missing_lane(seg, first)
+        else:
+            kind = "f64"
+            lat, lon, exists = geo
+            d = torch.div(haversine_f64(lat, lon, *s["origin"]),
+                          torch.tensor(s["unit_m"], dtype=torch.float64,
+                                       device=seg.device))
+            key = S.f64_order_keys_dev(torch.where(exists, d, 0.0))
+            lanes = S.sort_lanes(key, exists, desc, first, True)
     else:
         m = seg.sort_keys(s["field"])
         if m is None:  # no doc values here: every doc misses the key
-            lanes = [torch.full((seg.max_docs,), S.MISSING_FIRST if first
-                                else S.MISSING_LAST, dtype=torch.int64,
-                                device=seg.device)]
+            lanes = _missing_lane(seg, first)
         else:
             kind, terms = m.kind, m.terms
             safe = S.lanes_safe(m.lo, m.hi, desc)
@@ -791,6 +888,13 @@ def _key_lanes(seg, s: dict, scores, after) -> Tuple[list, Optional[list]]:
         # by the missing sentinel alone
         return lanes, [(0, False)]
     return lanes, S.lane_cursor(c, kind, desc, first, safe, terms)
+
+
+def _missing_lane(seg, first: bool) -> list:
+    """The one lane of a key every doc of ``seg`` misses."""
+    return [torch.full((seg.max_docs,), S.MISSING_FIRST if first
+                       else S.MISSING_LAST, dtype=torch.int64,
+                       device=seg.device)]
 
 
 def _cursor_value(c, kind: Optional[str], field: str):
@@ -822,6 +926,14 @@ def _sort_value(seg, s: dict, local: int, score):
     the score, a column's exact value, or a keyword's first value."""
     if s["field"] == "_score":
         return float(score)
+    if s["field"] == "_geo_distance":
+        lat = seg.numerics.get(f"{s['geo_field']}.lat")
+        lon = seg.numerics.get(f"{s['geo_field']}.lon")
+        if lat is None or lon is None or not bool(lat.exists_host[local]):
+            return None
+        return float(haversine_np(float(lat.exact[local]),
+                                  float(lon.exact[local]),
+                                  *s["origin"]) / s["unit_m"])
     col = seg.numerics.get(s["field"])
     if col is not None:
         if not bool(col.exists_host[local]):
@@ -888,6 +1000,19 @@ def _attach_fields(hit: dict, stored: Optional[dict], src: Optional[dict],
         hit["fields"] = flds
     if "_source" not in names and "_source" not in body:
         hit.pop("_source", None)
+
+
+def _nested_sub_source(root_src: dict, path: str, ordn: int):
+    """The ``ordn``-th object under a (dotted) nested path of the root's
+    ``_source``."""
+    cur: Any = root_src
+    for part in path.split("."):
+        if not isinstance(cur, dict) or part not in cur:
+            return None
+        cur = cur[part]
+    if isinstance(cur, list):
+        return cur[ordn] if 0 <= ordn < len(cur) else None
+    return cur if ordn == 0 else None
 
 
 def source_path(src, path: str):

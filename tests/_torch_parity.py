@@ -63,10 +63,17 @@ def reference_arrays(seg) -> dict:
         for name, c in seg.numerics.items()}
     vectors = {name: reference_vectors(c)
                for name, c in getattr(seg, "vectors", {}).items()}
+    blocks = None
+    if seg.has_nested:
+        blocks = {"parent_of": np.asarray(seg.parent_id_host),
+                  "nested_paths": dict(seg.nested_paths),
+                  "nested_code": np.asarray(seg.nested_code_host),
+                  "nested_ord": np.asarray(seg.nested_ord_host)}
     return {"num_docs": seg.num_docs, "max_docs": seg.max_docs,
             "ids": list(seg.ids), "sources": list(seg.sources),
             "live": np.array(seg.live_host), "fields": fields,
-            "keywords": keywords, "numerics": numerics, "vectors": vectors}
+            "keywords": keywords, "numerics": numerics, "vectors": vectors,
+            "blocks": blocks, "metas": list(seg.metas)}
 
 
 def reference_vectors(vc) -> dict:

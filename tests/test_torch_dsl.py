@@ -10,9 +10,10 @@ and ``test_rescore_templates.py``'s template rendering, plus ``_name`` on
 each new type, phrase highlighting, a phrase under
 ``dfs_query_then_fetch`` over two indices, a phrase on merged segments,
 ``max_expansions`` caps, the routes the mesh takes and declines, and
-the typed refusals of the joins and geo types, which name ROADMAP A9c
-(A9b's function_score, script and span types are served since, and
-tested in ``test_torch_function_score.py`` and ``test_torch_spans.py``).
+the joins and geo types on an index without nested or geo fields (A9b's
+function_score, script and span types and A9c's joins and geo are tested
+in ``test_torch_function_score.py``, ``test_torch_spans.py``,
+``test_torch_joins.py`` and ``test_torch_geo.py``).
 One reference difference is
 pinned (ROADMAP C6): ``match`` with ``type: phrase``.
 
@@ -628,18 +629,26 @@ A9B = {
                                       "query": {"match_all": {}}}},
     "geo_distance": {"geo_distance": {"distance": "1km",
                                       "loc": [0, 0]}},
-    "geo_bounding_box": {"geo_bounding_box": {"loc": {}}},
-    "geo_polygon": {"geo_polygon": {"loc": {"points": []}}},
-    "geo_shape": {"geo_shape": {"loc": {}}},
+    "geo_bounding_box": {"geo_bounding_box": {"loc": {
+        "top_left": [-10, 10], "bottom_right": [10, -10]}}},
+    "geo_polygon": {"geo_polygon": {"loc": {"points": [[0, 0], [1, 1],
+                                                       [1, 0]]}}},
+    "geo_shape": {"geo_shape": {"loc": {"shape": {
+        "type": "envelope", "coordinates": [[-1, 1], [1, -1]]}}}},
 }
 
 
 @pytest.mark.parametrize("name", sorted(A9B))
 @pytest.mark.parametrize("host", [False, True])
 def test_a9b_types_are_refused(nodes, monkeypatch, name, host):
-    _ref, port = nodes
-    with pytest.raises(QueryParsingException, match="A9c"):
-        _port(port, "two", {"query": A9B[name]}, host, monkeypatch)
+    """The join and geo types the port once refused (A9c) are served: on
+    an index without nested docs, children, parents or points each
+    matches nothing on either route, as in the reference (a join with
+    ``_type`` matching the whole untyped index: has_parent's default)."""
+    ref, port = nodes
+    body = {"query": A9B[name], "size": 5}
+    _hold(_port(port, "two", body, host, monkeypatch), _ref(ref, "two", body),
+          name)
 
 
 def test_unknown_and_malformed_queries_raise(nodes):

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX
 package (a phrase, a term expansion, a query_string, a function_score on
-the mesh, a script_score with script_fields, a span_near and script
-aggregations included), and
+the mesh, a script_score with script_fields, a span_near, script
+aggregations, nested queries and aggs, has_child, the geo queries and
+the ``_geo_distance`` sort included), and
 its entry point never falls back to the CPU on its own."""
 import os
 import re
@@ -132,6 +133,32 @@ r = n.search("s", {"size": 0, "aggs": {
     "m": {"scripted_metric": {"map_script": "doc['pop'].value"}}}})
 assert r["aggregations"] == {"a": {"value": 59.0},
                              "m": {"value": 1770.0}}, r["aggregations"]
+n.create_index("j", {"mappings": {"properties": {
+    "c": {"type": "nested", "properties": {"who": {"type": "keyword"}}},
+    "loc": {"type": "geo_point"}, "area": {"type": "geo_shape"}}}})
+for i in range(20):
+    n.index("j", str(i), {"c": [{"who": "a"}, {"who": "b" if i % 2 else "a"}],
+                          "loc": {"lat": i, "lon": -i},
+                          "area": {"type": "point", "coordinates": [i, 0]}})
+n.refresh("j")
+r = n.search("j", {"query": {"nested": {"path": "c", "score_mode": "sum",
+    "query": {"term": {"c.who": "a"}}, "inner_hits": {}}}})
+assert r["hits"]["total"] == 20 and r["hits"]["hits"][0]["inner_hits"]
+r = n.search("j", {"query": {"geo_distance": {"distance": "600km",
+    "loc": {"lat": 0, "lon": 0}}}, "sort": [{"_geo_distance": {
+    "loc": [0, 0]}}], "aggs": {"g": {"geohash_grid": {"field": "loc"}},
+    "n": {"nested": {"path": "c"}}}})
+assert r["hits"]["total"] == 4 and r["aggregations"]["n"]["doc_count"] == 8
+r = n.search("j", {"query": {"geo_shape": {"area": {"shape": {
+    "type": "envelope", "coordinates": [[-1, 1], [2.5, -1]]}}}}})
+assert r["hits"]["total"] == 3, r["hits"]["total"]
+n.create_index("pc", {"mappings": {"q": {}, "a": {"_parent": {"type": "q"}}}})
+n.index("pc", "q1", {"t": "x"}, doc_type="q")
+n.index("pc", "a1", {"t": "y"}, doc_type="a", parent="q1", routing="q1")
+n.refresh("pc")
+r = n.search("pc", {"query": {"has_child": {"type": "a",
+                                            "query": {"match_all": {}}}}})
+assert [h["_id"] for h in r["hits"]["hits"]] == ["q1"], r
 n.close()
 import importlib, pkgutil
 import elasticsearch_tpu_torch

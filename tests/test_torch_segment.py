@@ -139,12 +139,22 @@ def test_convert_round_trip_of_reference_segment(both_segments):
     assert torch.equal(conv.keywords["tag"].ords, port.keywords["tag"].ords)
 
 
-@pytest.mark.parametrize("ftype", ["completion", "nested", "geo_point",
-                                   "geo_shape", "percolator"])
+@pytest.mark.parametrize("ftype", ["completion", "percolator"])
 def test_unported_mapping_type_raises_typed(ftype):
     spec = {"type": ftype}
     with pytest.raises(MapperParsingException, match="ROADMAP"):
         Mappings({"properties": {"f": spec}})
+
+
+@pytest.mark.parametrize("ftype", ["nested", "geo_point", "geo_shape"])
+def test_join_and_geo_mapping_types_are_served(ftype):
+    """The A9c mapping types parse: a nested path, a geo_point's lat/lon
+    columns, a geo_shape's cell tokens."""
+    m = Mappings({"properties": {"f": {"type": ftype}}})
+    if ftype == "nested":
+        assert m.nested_paths == ["f"]
+    else:
+        assert m.get("f").type == ftype
 
 
 def _vector_segments(index_options=None):

@@ -553,7 +553,8 @@ def test_sort_mirror_is_built_and_charged_once(nodes, monkeypatch):
         "rescore_query": QUERY}}}, "cannot use [rescore] in combination"),
     ({"scroll": "1m", "rescore": {"window_size": 5, "query": {
         "rescore_query": QUERY}}}, "[rescore] in combination with [scroll]"),
-    ({"sort": [{"_geo_distance": {"loc": [0, 0]}}]}, "ROADMAP A9"),
+    ({"sort": ["n"], "search_after": [1, 2]},
+     "search_after has 2 value(s) but sort has 1"),
     ({"sort": ["n"], "search_after": ["abc"]}, "does not parse as a number"),
     ({"timeout": "10minutes"}, "failed to parse timeout value"),
 ])
