@@ -177,6 +177,32 @@ Phases, in order; any failure exits non-zero before the result line:
             host loop for about JG_WINDOW_S (and on the mesh where it
             serves), the mesh's declines counted, p50, p99, device time,
             kernels, copies and busy share per group;
+5l. a9d     suggesters, the percolator and by-query (ROADMAP A9d),
+            from seed 0: (a) inside ``phase_fulltext`` on 5i's live
+            index, the term suggester on 5i's tokens with 1-2 seeded
+            edits (missing, popular, always; by score and by frequency)
+            and the phrase suggester on 2-4-token phrases with one token
+            misspelt (highlight, confidence, max_errors), through
+            ``IndexService.suggest`` and embedded in a match ``_search``
+            on the mesh path and the host loop, every option (text,
+            rounded score, freq) against numpy oracles (a textbook
+            Levenshtein DP over the vocabulary, bigrams from
+            ``np.unique`` over consecutive tokens) and the bigram table
+            built on the card equal to the oracle's; (b) completion on
+            Rally ``geonames``' shape, 2^18 places over five shards with
+            a population weight, a country category and a 100km geo
+            context: prefixes of 1-4 characters, fuzzy 1, both contexts,
+            against a sorted Python list; (c) 2,000 registered queries
+            (term, match, match_phrase, a bool with a range), 64 docs
+            percolated one at a time and as one batch against a Python
+            oracle over their tokens, a restriction, size, highlight and
+            aggs, the breakers back at their bytes after; (d)
+            ``Node.bulk`` of 16,384 index, create, update and delete
+            items into five shards (~6% failing by design) item by item
+            against a dict model, then mget, count, delete-by-query and
+            update-by-query through ``run_by_query``, the totals after
+            against the model; p50, p99, device time, kernels, copies,
+            busy share, ops/s and docs/s per group;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
@@ -4041,6 +4067,8 @@ def phase_fulltext(torch, np, dev, card):
 
     b1 += phase_scoring(torch, np, dev, card, node, pnodes, arrays, doc_len,
                         terms)
+    b1 += phase_suggest_text(torch, np, dev, card, node, seg, body_f,
+                             doc_len, terms)
     for n in pnodes:
         n.close()
     node.close()
@@ -5492,6 +5520,971 @@ def _jg_same_set(got, want, what):
           f"{what}: aggregations differ", "5k")
 
 
+# ---------------------------------------------------------------------------
+# phase 5l: suggesters, the percolator and by-query (ROADMAP A9d)
+# ---------------------------------------------------------------------------
+
+SG_VARIANTS = 8            # bodies of each suggest group, run in turn
+SG_WINDOW_S = 0.6          # timed requests per group: about this many
+CP_DOCS = 1 << 18          # (b): Rally geonames' places, cut from 11.4M
+CP_SHARDS = 5              # ES 2.0's default index.number_of_shards
+CP_COUNTRIES = 250         # country_code: Zipf(1.3) over these
+CP_GEO_PRECISION = "100km"  # the geo context's cells (geohash length 4)
+PC_QUERIES = 2000          # (c): registered queries, four shapes
+PC_DOCS = 64               # (c): docs percolated
+PC_WORDS = 60              # (c): the docs' vocabulary
+PC_OPT_DOCS = 2            # (c): docs each request option runs over
+PC_PROFILED = 2            # (c): one-doc percolates under the profiler
+WT_OPS = 16384             # (d): bulk items into five shards
+WT_SHARDS = 5
+WT_MGET = 1000
+#: (c)'s vocabulary: standard-analyzed as they are
+PC_VOCAB = [f"w{i}" for i in range(PC_WORDS)]
+CP_MAPPING = {"properties": {"suggest": {"type": "completion", "context": {
+    "country": {"type": "category"},
+    "location": {"type": "geo", "precision": CP_GEO_PRECISION}}}}}
+PC_MAPPING = {"properties": {"body": {"type": "text"}, "n": {"type": "long"},
+                             "shape": {"type": "keyword"}}}
+WT_MAPPING = {"properties": {"body": {"type": "text"},
+                             "tag": {"type": "keyword"},
+                             "n": {"type": "long"}}}
+WT_TAGS = ["a", "b", "c", "d", "e", "f", "g", "h", "rare", "hot"]
+#: by-query's two tags match about 5% of the docs each
+WT_TAG_P = [0.1125] * 8 + [0.05, 0.05]
+#: a by-query window shorter than this gives its time a doc, not a rate
+WT_RATE_MIN_S = 0.5
+
+
+def _sg_line(np, name, ms, prof, card, per=FT_PROFILED):
+    """A 5l group's p50, p99 (or the slowest), device time, kernels and
+    copies a request, busy share, and the card. ``prof`` None: the
+    profiler recorded no device activity in two sessions (a host-only
+    path); ``False``: the group was not profiled."""
+    tail = (f"p99 {np.percentile(ms, 99):.3f} ms"
+            if len(ms) >= TAXI_TAIL_REPS else
+            f"slowest {ms.max():.3f} ms (too few for a p99)")
+    dev = ("device not profiled (the one-doc line's device time applies)"
+           if prof is False else
+           "no device activity recorded in two profiled sessions (host "
+           "only)" if prof is None else _dev_line(np, prof, per, ms))
+    return (f"[5l] {name}: p50 {np.percentile(ms, 50):.3f} ms, {tail} over "
+            f"{len(ms)} requests, {dev}; {card}")
+
+
+def _sg_timed(np, fn, bodies, window_s=SG_WINDOW_S, min_reps=FT_MIN_REPS):
+    """ms of ``fn(body)`` over ``bodies`` in turn for about ``window_s``
+    (at least ``min_reps`` and every body once), and the last answer of
+    each body."""
+    ms, out = [], {}
+    start = time.perf_counter()
+    while len(ms) < max(min_reps, len(bodies)) or (
+            len(ms) < FT_MAX_REPS and time.perf_counter() - start < window_s):
+        i = len(ms) % len(bodies)
+        a = time.perf_counter()
+        out[i] = fn(copy.deepcopy(bodies[i]))
+        ms.append((time.perf_counter() - a) * 1e3)
+    return np.array(ms), out
+
+
+def sg_edit_np(np, query, mat, lens):
+    """The textbook Levenshtein DP, row by row and cell by cell, across
+    every packed term at once (numpy int64): the oracle of the port's
+    ``batched_edit_distance``."""
+    n, L = mat.shape
+    prev = np.tile(np.arange(L + 1, dtype=np.int64), (n, 1))
+    for i, ch in enumerate(query, start=1):
+        qc = ord(ch)
+        cur = np.empty_like(prev)
+        cur[:, 0] = i
+        for j in range(1, L + 1):
+            cur[:, j] = np.minimum(np.minimum(prev[:, j] + 1,
+                                              cur[:, j - 1] + 1),
+                                   prev[:, j - 1] + (mat[:, j - 1] != qc))
+        prev = cur
+    return prev[np.arange(n), lens]
+
+
+def sg_pack(np, words):
+    lens = np.array([len(w) for w in words], np.int64)
+    mat = np.zeros((len(words), max(1, int(lens.max()) if len(words) else 1)),
+                   np.int64)
+    for i, w in enumerate(words):
+        mat[i, :len(w)] = [ord(c) for c in w]
+    return mat, lens
+
+
+class SgOracle:
+    """The term and phrase suggesters of ES 2.0 as the reference defines
+    them, over the host arrays of 5i's body field: df, cf, the packed
+    vocabulary, and bigram counts from ``np.unique`` over consecutive
+    tokens of a doc (5i's token stream is in (doc, position) order, one
+    token a position)."""
+
+    def __init__(self, np, body_f, doc_len, terms):
+        self.np = np
+        self.words = list(body_f["terms"])
+        self.V = len(self.words)
+        self.df = body_f["df"].astype(np.int64)
+        self.cf = body_f["cf"].astype(np.int64)
+        self.num_docs = int(body_f["num_docs"])
+        self.total = int(body_f["total_terms"])
+        self.tid = {w: i for i, w in enumerate(self.words)}
+        self.mat, self.lens = sg_pack(np, self.words)
+        t = time.perf_counter()
+        n_tok = int(doc_len.sum())
+        tok = terms[:n_tok]
+        same = np.ones(n_tok - 1, bool)
+        same[np.cumsum(doc_len)[:-1] - 1] = False
+        pairs = (tok[:-1] * self.V + tok[1:])[same]
+        self.keys, self.counts = np.unique(pairs, return_counts=True)
+        self.seconds = time.perf_counter() - t
+
+    def bigram(self, a, b):
+        if a not in self.tid or b not in self.tid:
+            return 0
+        k = self.tid[a] * self.V + self.tid[b]
+        i = int(self.np.searchsorted(self.keys, k))
+        return int(self.counts[i]) if i < self.keys.size and \
+            self.keys[i] == k else 0
+
+    def candidates(self, token, o):
+        np = self.np
+        max_edits = int(o.get("max_edits", 2))
+        prefix = int(o.get("prefix_length", 1))
+        min_len = int(o.get("min_word_length", 4))
+        max_tf = float(o.get("max_term_freq", 0.01))
+        mode = o.get("suggest_mode", "missing")
+        tdf = int(self.df[self.tid[token]]) if token in self.tid else 0
+        if mode == "missing" and tdf > 0:
+            return []
+        if tdf and mode != "always" and tdf > (
+                max_tf * self.num_docs if max_tf < 1.0 else max_tf):
+            return []
+        if len(token) < min_len:
+            return []
+        d = sg_edit_np(np, token, self.mat, self.lens)
+        out = []
+        for i in np.nonzero((d <= max_edits) & (d > 0))[0].tolist():
+            w = self.words[i]
+            if prefix and w[:prefix] != token[:prefix]:
+                continue
+            if mode == "popular" and self.df[i] <= tdf:
+                continue
+            score = 1.0 - int(d[i]) / max(1, min(len(w), len(token)))
+            out.append({"text": w, "score": round(score, 6),
+                        "freq": int(self.df[i])})
+        if o.get("sort", "score") == "frequency":
+            out.sort(key=lambda x: (-x["freq"], -x["score"], x["text"]))
+        else:
+            out.sort(key=lambda x: (-x["score"], -x["freq"], x["text"]))
+        return out[: int(o.get("size", 5))]
+
+    def term(self, text, o):
+        out, at = [], 0
+        for tok in text.split():
+            out.append({"text": tok, "offset": at, "length": len(tok),
+                        "options": self.candidates(tok, o)})
+            at += len(tok) + 1
+        return out
+
+    def logp(self, prev, w):
+        np = self.np
+        uni = int(self.cf[self.tid[w]]) if w in self.tid else 0
+        total = max(1, self.total)
+        if prev is not None:
+            bi = self.bigram(prev, w)
+            cp = int(self.cf[self.tid[prev]]) if prev in self.tid else 0
+            if bi > 0 and cp > 0:
+                return float(np.log(bi / cp))
+            return float(np.log(0.4 * max(uni, 0.5) / total))
+        return float(np.log(max(uni, 0.5) / total))
+
+    def phrase(self, text, o):
+        np = self.np
+        toks = text.split()
+        gen = dict(o, suggest_mode="always", max_term_freq=1e18,
+                   min_word_length=2, size=5)
+        sets = []
+        for t in toks:
+            sets.append(([t] + [c["text"] for c in
+                                self.candidates(t, gen)])[:5])
+        me = float(o.get("max_errors", 1.0))
+        max_changes = int(me) if me >= 1 else max(1, int(round(me * len(toks))))
+        keep, change = float(np.log(0.95)), float(np.log(1.0 - 0.95))
+        beams = [(0.0, [], 0)]
+        for pos, cands in enumerate(sets):
+            nxt = []
+            for lp, seq, nch in beams:
+                prev = seq[-1] if seq else None
+                for w in cands:
+                    ch = w != toks[pos]
+                    if ch and nch >= max_changes:
+                        continue
+                    nxt.append((lp + self.logp(prev, w) + (change if ch
+                                                           else keep),
+                                seq + [w], nch + ch))
+            nxt.sort(key=lambda b: -b[0])
+            beams = nxt[:32]
+        base = 0.0
+        prev = None
+        for t in toks:
+            base += self.logp(prev, t)
+            prev = t
+        base = base / len(toks) + keep
+        conf = float(o.get("confidence", 1.0))
+        hl = o.get("highlight")
+        seen, opts = set(), []
+        for lp, seq, _n in beams:
+            p = " ".join(seq)
+            if p in seen:
+                continue
+            seen.add(p)
+            score = lp / len(seq)
+            if seq == toks or (conf > 0 and np.exp(score)
+                               <= conf * np.exp(base)):
+                continue
+            opt = {"text": p, "score": round(float(np.exp(score)), 8)}
+            if hl:
+                opt["highlighted"] = " ".join(
+                    f"{hl['pre_tag']}{w}{hl['post_tag']}" if w != t else w
+                    for w, t in zip(seq, toks))
+            opts.append(opt)
+            if len(opts) >= int(o.get("size", 5)):
+                break
+        return [{"text": text, "offset": 0, "length": len(text),
+                 "options": opts}]
+
+
+def _misspell(rng, word):
+    """One or two seeded edits of a ``t<digits>`` term: substitute,
+    delete or insert a digit (the leading letter kept)."""
+    w = list(word)
+    for _ in range(int(rng.integers(1, 3))):
+        op = int(rng.integers(0, 3))
+        j = int(rng.integers(1, len(w))) if len(w) > 1 else 1
+        if op == 0 and len(w) > 1:
+            w[j] = str(int(rng.integers(0, 10)))
+        elif op == 1 and len(w) > 2:
+            del w[j]
+        else:
+            w.insert(j, str(int(rng.integers(0, 10))))
+    return "".join(w)
+
+
+def suggest_bodies(np, doc_len, terms, seed):
+    """(term bodies, phrase bodies): 2-3 body tokens of random docs with
+    one or two seeded edits, in every suggest_mode and both sorts; 2-4
+    consecutive tokens of random docs with one token misspelt, with
+    highlight, confidence and max_errors varied."""
+    rng = np.random.default_rng(seed + 15)
+    starts = np.cumsum(doc_len) - doc_len
+    term_b, phrase_b = [], []
+    modes = ("missing", "popular", "always")
+    for i in range(SG_VARIANTS):
+        d = int(rng.integers(0, doc_len.size))
+        k = int(rng.integers(2, 4))
+        toks = [f"t{int(t)}" for t in terms[starts[d]: starts[d] + k]]
+        text = " ".join(_misspell(rng, t) for t in toks)
+        term_b.append({"t": {"text": text, "term": {
+            "field": "body", "suggest_mode": modes[i % 3],
+            "sort": ("score", "frequency")[(i // 3) % 2]}}})
+    for i in range(SG_VARIANTS):
+        d = int(rng.integers(0, doc_len.size))
+        k = int(rng.integers(2, 5))
+        o = int(rng.integers(0, max(1, int(doc_len[d]) - k)))
+        toks = [f"t{int(t)}" for t in terms[starts[d] + o: starts[d] + o + k]]
+        j = int(rng.integers(0, k))
+        toks[j] = _misspell(rng, toks[j])
+        spec = {"field": "body", "confidence": (1.0, 0.0, 0.5)[i % 3],
+                "max_errors": (1, 2, 0.5)[(i // 3) % 3]}
+        if i % 2:
+            spec["highlight"] = {"pre_tag": "<em>", "post_tag": "</em>"}
+        phrase_b.append({"p": {"text": " ".join(toks), "phrase": spec}})
+    return term_b, phrase_b
+
+
+def phase_suggest_text(torch, np, dev, card, node, seg, body_f, doc_len,
+                       terms) -> int:
+    """Phase 5l (a): the term and phrase suggesters on 5i's live 2^20-doc
+    index: through ``IndexService.suggest`` (the ``_suggest`` API) and
+    embedded in a ``_search`` on the mesh path and the host loop, every
+    option against ``SgOracle`` (texts, rounded scores and freqs exact),
+    the bigram table on the card against the oracle's ``np.unique``."""
+    from elasticsearch_tpu_torch.ops import bm25_topk
+    from elasticsearch_tpu_torch.search import suggest as S
+
+    t_phase = time.perf_counter()
+    b1_0 = bm25_topk.LAUNCHES
+    svc = node.get_index("ft")
+    oracle = SgOracle(np, body_f, doc_len, terms)
+    term_b, phrase_b = suggest_bodies(np, doc_len, terms, SEED)
+    fd = node.breakers.breaker("fielddata")
+    fd0 = fd.used
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    keys, counts, V = S.segment_bigrams(seg, "body")
+    torch.cuda.synchronize()
+    t_build = (time.perf_counter() - t) * 1e3
+    nbytes = int(keys.numel() * 8 + counts.numel() * 8)
+    _hold(V == oracle.V and np.array_equal(keys.cpu().numpy(), oracle.keys)
+          and np.array_equal(counts.cpu().numpy(), oracle.counts),
+          "the card's bigram table differs from np.unique's", "5l")
+    _hold(fd.used - fd0 == nbytes, f"bigram bytes {nbytes} not charged "
+          f"({fd.used - fd0})", "5l")
+    log(f"[5l] (a) bigrams of 5i's body: {keys.numel()} distinct over "
+        f"{int(body_f['positions'].size)} positions, built on the card in "
+        f"{t_build:.1f} ms, {nbytes} bytes kept (charged to fielddata), "
+        f"equal to np.unique's table ({oracle.seconds:.1f} s on the host); "
+        f"{card}")
+
+    n_opts = 0
+    for b in term_b:
+        spec = b["t"]
+        want = oracle.term(spec["text"], spec["term"])
+        got = svc.suggest(copy.deepcopy(b))["t"]
+        _hold(got == want, f"term {spec}: {got} vs the oracle's {want}",
+              "5l")
+        n_opts += sum(len(e["options"]) for e in got)
+    for b in phrase_b:
+        spec = b["p"]
+        want = oracle.phrase(spec["text"], spec["phrase"])
+        got = svc.suggest(copy.deepcopy(b))["p"]
+        _hold(got == want, f"phrase {spec}: {got} vs the oracle's {want}",
+              "5l")
+        n_opts += len(got[0]["options"])
+    _hold(n_opts > 0, "no suggest option at all", "5l")
+    embedded = [{"query": {"match": {"body": pb["p"]["text"]}}, "size": 10,
+                 "suggest": dict(tb, **pb)}
+                for tb, pb in zip(term_b, phrase_b)]
+    lines = []
+    for name, bodies, fn in (
+            ("term suggester (missing, popular, always; by score and by "
+             "frequency), _suggest", term_b, svc.suggest),
+            ("phrase suggester (2-4 terms, one misspelt; highlight, "
+             "confidence, max_errors), _suggest", phrase_b, svc.suggest)):
+        ms, _out = _sg_timed(np, fn, bodies)
+        prof = profile_path(torch, lambda: [fn(copy.deepcopy(
+            bodies[i % len(bodies)])) for i in range(FT_PROFILED)])
+        lines.append(_sg_line(np, name, ms, prof, card))
+    answers = {}
+    for route in ("mesh", "host"):
+        with (_host_loop() if route == "host" else contextlib.nullcontext()):
+            ms, out = _sg_timed(np, lambda b: node.search("ft", b), embedded)
+            prof = profile_path(torch, lambda: [node.search(
+                "ft", copy.deepcopy(embedded[i % len(embedded)]))
+                for i in range(FT_PROFILED)])
+        answers[route] = out
+        lines.append(_sg_line(
+            np, f"term + phrase embedded in a match _search, "
+            f"{'mesh path' if route == 'mesh' else 'host loop'}", ms, prof,
+            card))
+    for i, b in enumerate(embedded):
+        a, h = answers["mesh"][i], answers["host"][i]
+        _hold(_strip_took(a) == _strip_took(h),
+              f"embedded body {i}: the routes differ", "5l")
+        want = {"t": oracle.term(b["suggest"]["t"]["text"],
+                                 b["suggest"]["t"]["term"]),
+                "p": oracle.phrase(b["suggest"]["p"]["text"],
+                                   b["suggest"]["p"]["phrase"])}
+        _hold(a["suggest"] == want, f"embedded body {i}: suggest differs "
+              f"from the oracle's", "5l")
+    for ln in lines:
+        log(ln)
+    b1 = bm25_topk.LAUNCHES - b1_0
+    log(f"[5l] (a) {len(term_b)} term and {len(phrase_b)} phrase bodies "
+        f"and {len(embedded)} embedded ones equal the oracle ({n_opts} "
+        f"options: text, rounded score, freq exact), the mesh's and the "
+        f"host loop's responses byte-identical; B1 launched {b1} times "
+        f"(the embedded match); {time.perf_counter() - t_phase:.1f} s")
+    return b1
+
+
+# -- (b) completion ---------------------------------------------------------
+
+_CP_SYL = ("ka", "lo", "mi", "san", "ta", "ri", "bel", "do", "ven", "por",
+           "ha", "nu", "ost", "gar", "le", "mon", "ar", "is", "qu", "ze",
+           "bra", "chi", "fu", "ya", "we", "ox", "ti", "ne", "ro", "sa")
+
+
+def cp_places(np, n, seed):
+    """Rally geonames' shape: a place name of 2-4 syllables (a tenth with
+    an alternate name), a population Zipf(1.4), a country code Zipf(1.3)
+    over CP_COUNTRIES, a location around its country's centre."""
+    rng = np.random.default_rng(seed + 16)
+    k = rng.integers(2, 5, n)
+    syl = rng.integers(0, len(_CP_SYL), (n, 4))
+    names = ["".join(_CP_SYL[s] for s in row[:kk]).capitalize()
+             for row, kk in zip(syl.tolist(), k.tolist())]
+    alt = rng.random(n) < 0.1
+    pop = np.minimum(rng.zipf(1.4, n), 10_000_000).astype(np.int64)
+    cc = np.minimum(rng.zipf(1.3, n), CP_COUNTRIES) - 1
+    clat = rng.uniform(-60, 70, CP_COUNTRIES)
+    clon = rng.uniform(-180, 180, CP_COUNTRIES)
+    lat = np.clip(clat[cc] + rng.normal(0, 3, n), -89.9, 89.9)
+    lon = (clon[cc] + rng.normal(0, 3, n) + 180) % 360 - 180
+    entries = []
+    for i in range(n):
+        e = {"input": [names[i]] + ([names[(i * 7919) % n]] if alt[i]
+                                    else []),
+             "output": names[i], "weight": int(pop[i]),
+             "context": {"country": f"C{int(cc[i]):03d}",
+                         "location": {"lat": float(lat[i]),
+                                      "lon": float(lon[i])}}}
+        entries.append(e)
+    return entries
+
+
+def _cp_geohash(lat, lon, length):
+    """Base-32 interleaved bisection (the geohash the context matches)."""
+    alphabet = "0123456789bcdefghjkmnpqrstuvwxyz"
+    la, lo = [-90.0, 90.0], [-180.0, 180.0]
+    out, bits, nb, even = [], 0, 0, True
+    while len(out) < length:
+        rng_, v = (lo, lon) if even else (la, lat)
+        mid = (rng_[0] + rng_[1]) / 2
+        if v >= mid:
+            bits, rng_[0] = (bits << 1) | 1, mid
+        else:
+            bits, rng_[1] = bits << 1, mid
+        even, nb = not even, nb + 1
+        if nb == 5:
+            out.append(alphabet[bits])
+            bits, nb = 0, 0
+    return "".join(out)
+
+
+class CpOracle:
+    """Completion over a sorted Python list of (lowercased input, entry):
+    a prefix's range by ``bisect`` and a walk, fuzzy by ``sg_edit_np`` over
+    the distinct inputs cut to the prefix's length, the contexts by the
+    category and a geohash of length 4 (the 100km precision)."""
+
+    def __init__(self, np, entries):
+        import bisect
+
+        self.np, self.bisect = np, bisect
+        pairs = sorted((s.lower(), i) for i, e in enumerate(entries)
+                       for s in e["input"])
+        self.inputs = [p[0] for p in pairs]
+        self.owner = [p[1] for p in pairs]
+        self.entries = entries
+
+    def query(self, prefix, size=5, fuzzy=None, ctx=None):
+        np = self.np
+        p = prefix.lower()
+        if fuzzy:
+            cut = {}
+            for j, s in enumerate(self.inputs):
+                cut.setdefault(s[:len(p)], []).append(j)
+            keys = list(cut)
+            mat, lens = sg_pack(np, keys)
+            d = sg_edit_np(np, p, mat, lens)
+            idx = [j for i in np.nonzero(d <= fuzzy)[0].tolist()
+                   for j in cut[keys[i]]]
+        else:
+            lo = self.bisect.bisect_left(self.inputs, p)
+            hi = lo
+            while hi < len(self.inputs) and self.inputs[hi].startswith(p):
+                hi += 1
+            idx = range(lo, hi)
+        best = {}
+        for j in idx:
+            e = self.entries[self.owner[j]]
+            if ctx and "country" in ctx and \
+                    e["context"]["country"] != ctx["country"]:
+                continue
+            if ctx and "location" in ctx:
+                w, h = ctx["location"], e["context"]["location"]
+                if _cp_geohash(w["lat"], w["lon"], 4) != \
+                        _cp_geohash(h["lat"], h["lon"], 4):
+                    continue
+            sc = float(e["weight"])
+            if best.get(e["output"], -1.0) < sc:
+                best[e["output"]] = sc
+        opts = sorted(({"text": t, "score": s} for t, s in best.items()),
+                      key=lambda o: (-o["score"], o["text"]))[:size]
+        return [{"text": prefix, "offset": 0, "length": len(prefix),
+                 "options": opts}]
+
+
+def cp_bodies(np, entries, seed):
+    """Groups of SG_VARIANTS (name, body, oracle kwargs): prefixes of 1-4
+    characters of random names, 3-4 with one edit and fuzzy 1, 2-3 under
+    a country, 4 under a location's cell (each candidate's cell is a
+    geohash computed in Python, as the reference's context check does)."""
+    rng = np.random.default_rng(seed + 17)
+    pick = lambda: entries[int(rng.integers(0, len(entries)))]
+    groups = {"prefix": [], "fuzzy": [], "country": [], "location": []}
+    for i in range(SG_VARIANTS):
+        e = pick()
+        p = e["output"][:1 + i % 4]
+        groups["prefix"].append(({"c": {"text": p, "completion": {
+            "field": "suggest", "size": 10}}}, {"size": 10}))
+        e = pick()
+        p = list(e["output"][:3 + i % 2].lower())
+        p[int(rng.integers(1, len(p)))] = "xq"[i % 2]
+        groups["fuzzy"].append(({"c": {"text": "".join(p), "completion": {
+            "field": "suggest", "fuzzy": {"fuzziness": 1}}}},
+            {"fuzzy": 1}))
+        e = pick()
+        cc = e["context"]["country"]
+        groups["country"].append(({"c": {"text": e["output"][:2 + i % 2],
+                                         "completion": {
+            "field": "suggest", "size": 10, "context": {"country": cc}}}},
+            {"size": 10, "ctx": {"country": cc}}))
+        e = pick()
+        loc = dict(e["context"]["location"])
+        groups["location"].append(({"c": {"text": e["output"][:4],
+                                          "completion": {
+            "field": "suggest", "context": {"location": loc}}}},
+            {"ctx": {"location": loc}}))
+    return groups
+
+
+def phase_completion(torch, np, dev, card):
+    """Phase 5l (b): the completion suggester over CP_DOCS places in five
+    shards, one segment each, loaded through ``segment_from_arrays``
+    with each doc's stored entry; every body against ``CpOracle``."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.cluster.routing import shard_id_for
+    from elasticsearch_tpu_torch.index.convert import segment_from_arrays
+
+    t_phase = time.perf_counter()
+    entries = cp_places(np, CP_DOCS, SEED)
+    ids = [f"g{i}" for i in range(CP_DOCS)]
+    shard_of = np.array([shard_id_for(i, CP_SHARDS) for i in ids])
+    node = Node(name="completion", device=dev)
+    node.create_index("geonames", {"settings": {
+        "number_of_shards": CP_SHARDS}, "mappings": CP_MAPPING})
+    svc = node.get_index("geonames")
+    for s in range(CP_SHARDS):
+        at = np.nonzero(shard_of == s)[0].tolist()
+        n = len(at)
+        svc.shards[s].engine.add_segment(segment_from_arrays({
+            "num_docs": n, "max_docs": max(64, 1 << (n - 1).bit_length()),
+            "ids": [ids[i] for i in at],
+            "stored": [{"suggest": [entries[i]]} for i in at]},
+            node.residency))
+    oracle = CpOracle(np, entries)
+    groups = cp_bodies(np, entries, SEED)
+    log(f"[5l] (b) {CP_DOCS} places in {CP_SHARDS} shards "
+        f"({len(oracle.inputs)} inputs), a country and a {CP_GEO_PRECISION} "
+        f"geo context; set-up {time.perf_counter() - t_phase:.1f} s")
+    t = time.perf_counter()
+    svc.suggest({"c": {"text": "a", "completion": {"field": "suggest"}}})
+    log(f"[5l] (b) the first request builds each segment's sorted inputs: "
+        f"{(time.perf_counter() - t) * 1e3:.1f} ms")
+    n_opts = 0
+    lines = []
+    for name, cases in groups.items():
+        bodies = [b for b, _ in cases]
+        for b, kw in cases:
+            spec = b["c"]
+            want = oracle.query(spec["text"], **kw)
+            got = svc.suggest(copy.deepcopy(b))["c"]
+            _hold(got == want, f"completion {name} {spec}: {got} vs the "
+                  f"oracle's {want}", "5l")
+            n_opts += len(got[0]["options"])
+        ms, _out = _sg_timed(np, svc.suggest, bodies)
+        prof = profile_path(torch, lambda: [svc.suggest(copy.deepcopy(
+            bodies[i % len(bodies)])) for i in range(FT_PROFILED)])
+        lines.append(_sg_line(np, f"completion, {name}", ms, prof, card))
+    for ln in lines:
+        log(ln)
+    _hold(n_opts > 0, "no completion option at all", "5l")
+    node.close()
+    log(f"[5l] (b) {sum(len(c) for c in groups.values())} bodies equal "
+        f"the oracle ({n_opts} options); "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# -- (c) percolator ---------------------------------------------------------
+
+def pc_queries(np, seed):
+    """PC_QUERIES (id, source) in four shapes: a term, a 2-3-term match, a
+    2-term match_phrase, a bool of a term and a range on ``n``."""
+    rng = np.random.default_rng(seed + 18)
+    p = 1.0 / np.arange(1, PC_WORDS + 1) ** 0.8
+    p /= p.sum()
+    out = []
+    for i in range(PC_QUERIES):
+        shape = ("term", "match", "phrase", "bool")[i % 4]
+        w = [PC_VOCAB[j] for j in rng.choice(PC_WORDS, size=3, p=p)]
+        if shape == "term":
+            q = {"term": {"body": w[0]}}
+        elif shape == "match":
+            q = {"match": {"body": " ".join(w[: 2 + i % 2])}}
+        elif shape == "phrase":
+            q = {"match_phrase": {"body": " ".join(w[:2])}}
+        else:
+            q = {"bool": {"must": [{"term": {"body": w[0]}}, {"range": {
+                "n": {"gte": int(rng.integers(0, 100))}}}]}}
+        out.append((f"q{i:04d}", {"query": q, "shape": shape}))
+    return out
+
+
+def pc_docs(np, seed):
+    rng = np.random.default_rng(seed + 19)
+    p = 1.0 / np.arange(1, PC_WORDS + 1) ** 0.8
+    p /= p.sum()
+    return [{"body": " ".join(PC_VOCAB[j] for j in rng.choice(
+        PC_WORDS, size=int(rng.integers(6, 15)), p=p)),
+        "n": int(rng.integers(0, 100))} for _ in range(PC_DOCS)]
+
+
+def pc_oracle(queries, doc):
+    """The ids of the queries that match ``doc``, decided on its tokens
+    (lowercase words split on spaces, as the standard analyzer gives
+    them here)."""
+    toks = doc["body"].split()
+    have, pairs = set(toks), set(zip(toks, toks[1:]))
+    out = []
+    for qid, src in queries:
+        q = src["query"]
+        if "term" in q:
+            ok = q["term"]["body"] in have
+        elif "match" in q:
+            ok = bool(have & set(q["match"]["body"].split()))
+        elif "match_phrase" in q:
+            ok = tuple(q["match_phrase"]["body"].split()) in pairs
+        else:
+            must = q["bool"]["must"]
+            ok = must[0]["term"]["body"] in have and \
+                doc["n"] >= must[1]["range"]["n"]["gte"]
+        if ok:
+            out.append(qid)
+    return sorted(out)
+
+
+def phase_percolate(torch, np, dev, card):
+    """Phase 5l (c): PC_QUERIES registered queries, PC_DOCS docs
+    percolated one at a time and as one batch against ``pc_oracle``, the
+    ``query`` restriction, ``size``, ``highlight`` and ``aggs``; the
+    breakers back at their bytes after every call."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.search.percolator import percolate
+
+    t_phase = time.perf_counter()
+    node = Node(name="percolate", device=dev)
+    node.create_index("alerts", {"settings": {"number_of_shards": 1},
+                                 "mappings": PC_MAPPING})
+    svc = node.get_index("alerts")
+    queries = pc_queries(np, SEED)
+    for qid, src in queries:
+        svc.index_doc(qid, copy.deepcopy(src), doc_type=".percolator")
+    svc.refresh()
+    docs = pc_docs(np, SEED)
+    want = [pc_oracle(queries, d) for d in docs]
+    opts = [{"query": {"term": {"shape": "phrase"}}}, {"size": 5},
+            {"highlight": {"fields": {"body": {}}}, "size": 10},
+            {"aggs": {"shapes": {"terms": {"field": "shape"}}}}]
+    for o in (opts[0], opts[3]):
+        # the restriction's and the aggs' searches over the registered
+        # docs place that index's own columns and caches once
+        svc.percolate(dict(copy.deepcopy(o), doc=docs[0]))
+    br = node.breakers
+
+    def held():
+        """(segments, fielddata less the mesh executor's caches): the
+        restriction's and the aggs' searches keep prepared rounds in the
+        index's memo, charged to fielddata; the percolate segments must
+        leave nothing."""
+        ex = svc._mesh_executor
+        cache = 0 if ex is None else ex.data_bytes() + sum(
+            rd.nbytes for rd in ex._prep.values())
+        return (br.breaker("segments").used,
+                br.breaker("fielddata").used - cache)
+
+    before = held()
+    log(f"[5l] (c) {len(queries)} queries registered through Node.index "
+        f"in {time.perf_counter() - t_phase:.1f} s; breakers: segments "
+        f"{before[0]}, fielddata {before[1]} bytes (the mesh executor's "
+        f"caches aside)")
+    ms, out = _sg_timed(np, svc.percolate, [{"doc": d} for d in docs],
+                        window_s=0.0, min_reps=len(docs))
+    for i, d in enumerate(docs):
+        got = out[i]
+        _hold([m["_id"] for m in got["matches"]] == want[i]
+              and got["total"] == len(want[i]),
+              f"doc {i}: {got['total']} matches vs the oracle's "
+              f"{len(want[i])}", "5l")
+    prof = profile_path(torch, lambda: [svc.percolate({"doc": docs[i]})
+                                        for i in range(PC_PROFILED)])
+    lines = [_sg_line(np, f"percolate one doc against {len(queries)} "
+                      f"queries", ms, prof, card, per=PC_PROFILED)]
+    t = time.perf_counter()
+    batch, total = percolate(svc.percolator, docs, svc.mappings,
+                             svc.analysis, svc.residency)
+    torch.cuda.synchronize()
+    t_batch = (time.perf_counter() - t) * 1e3
+    _hold(batch == want and total == len(queries),
+          "the batch differs from the one-at-a-time answers", "5l")
+    prof = profile_path(torch, lambda: percolate(
+        svc.percolator, docs, svc.mappings, svc.analysis, svc.residency))
+    lines.append(f"[5l] percolate {len(docs)} docs as one batch: "
+                 f"{t_batch:.1f} ms, "
+                 + _dev_line(np, prof, 1, np.array([t_batch])) + f"; {card}")
+    shape_of = dict((qid, src["shape"]) for qid, src in queries)
+    n_hl = 0
+    for o in opts:
+        bodies = [dict(copy.deepcopy(o), doc=d) for d in docs[:PC_OPT_DOCS]]
+        ms, out = _sg_timed(np, svc.percolate, bodies, window_s=0.0,
+                            min_reps=len(bodies))
+        for i, b in enumerate(bodies):
+            got, w = out[i], want[i]
+            if "query" in o:
+                w = [q for q in w if shape_of[q] == "phrase"]
+            _hold(got["total"] == len(w), f"{o}: total {got['total']} vs "
+                  f"{len(w)}", "5l")
+            listed = w[: o.get("size", len(w))]
+            _hold([m["_id"] for m in got["matches"]] == listed,
+                  f"{o}: matches differ", "5l")
+            if "aggs" in o:
+                cnt = {}
+                for q in w:
+                    cnt[shape_of[q]] = cnt.get(shape_of[q], 0) + 1
+                got_c = {bk["key"]: bk["doc_count"] for bk in
+                         got["aggregations"]["shapes"]["buckets"]}
+                _hold(got_c == cnt, f"aggs {got_c} vs {cnt}", "5l")
+            if "highlight" in o:
+                for m in got["matches"]:
+                    q = dict(queries)[m["_id"]]["query"]
+                    if "term" in q:
+                        frag = m["highlight"]["body"][0]
+                        _hold(f"<em>{q['term']['body']}</em>" in frag,
+                              f"{m['_id']}: highlight {frag}", "5l")
+                        n_hl += 1
+        lines.append(_sg_line(np, f"percolate with {sorted(o)[0]}", ms,
+                              False, card))
+    after = held()
+    _hold(after == before, f"breakers {after} after percolating, "
+          f"{before} before (the executor's caches aside)", "5l")
+    for ln in lines:
+        log(ln)
+    node.close()
+    log(f"[5l] (c) {len(docs)} docs one at a time and as a batch equal the "
+        f"oracle ({sum(map(len, want))} matches); the query restriction, "
+        f"size, highlight ({n_hl} term highlights checked) and aggs held; "
+        f"breakers (segments, fielddata) {after} bytes after, as before; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# -- (d) the write tail -----------------------------------------------------
+
+def wt_ops(np, seed):
+    """WT_OPS bulk items and the dict model's expected item of each: about
+    half index, a sixth create, a seventh update by doc, a tenth update by
+    script, the rest delete; about 5% fail by design (a create of a live
+    id, an update or a delete of a missing one)."""
+    rng = np.random.default_rng(seed + 20)
+    live, version, pool = {}, {}, []
+    ops, want = [], []
+    words = [f"w{i}" for i in range(200)]
+    for k in range(WT_OPS):
+        r = float(rng.random())
+        fail = float(rng.random()) < 0.05
+        doc = {"body": " ".join(rng.choice(words, size=int(
+            rng.integers(5, 16)))), "tag": str(rng.choice(WT_TAGS, p=WT_TAG_P)),
+            "n": int(rng.integers(0, 1000))}
+        if r < 0.5 or not pool:
+            did = f"x{k}" if not pool or rng.random() < 0.7 else \
+                pool[int(rng.integers(0, len(pool)))]
+            ops += [{"index": {"_index": "logs", "_id": did}}, doc]
+            created = did not in live
+            version[did] = version.get(did, 0) + 1
+            live[did] = doc
+            pool.append(did)
+            want.append(("index", 201 if created else 200, None,
+                         version[did]))
+            continue
+        if fail:
+            did = f"missing{k}"
+            if r < 0.65 and live:
+                did = list(live)[int(rng.integers(0, len(live)))]
+        else:
+            did = pool[int(rng.integers(0, len(pool)))]
+        if r < 0.65:
+            if not fail:
+                did = f"c{k}"
+            ops += [{"create": {"_index": "logs", "_id": did}}, doc]
+            if did in live:
+                want.append(("create", 409, "version_conflict_exception",
+                             None))
+            else:
+                version[did] = version.get(did, 0) + 1
+                live[did] = doc
+                pool.append(did)
+                want.append(("create", 201, None, version[did]))
+        elif r < 0.79:
+            ops += [{"update": {"_index": "logs", "_id": did}},
+                    {"doc": {"tag": doc["tag"], "extra": k}}]
+            if did in live:
+                version[did] += 1
+                live[did] = dict(live[did], tag=doc["tag"], extra=k)
+                want.append(("update", 200, None, version[did]))
+            else:
+                want.append(("update", 404, "document_missing_exception",
+                             None))
+        elif r < 0.9:
+            ops += [{"update": {"_index": "logs", "_id": did}},
+                    {"script": "ctx._source.n = ctx._source.n + 1"}]
+            if did in live:
+                version[did] += 1
+                live[did] = dict(live[did], n=live[did]["n"] + 1)
+                want.append(("update", 200, None, version[did]))
+            else:
+                want.append(("update", 404, "document_missing_exception",
+                             None))
+        else:
+            ops += [{"delete": {"_index": "logs", "_id": did}}]
+            if did in live:
+                version[did] += 1
+                del live[did]
+                want.append(("delete", 200, None, version[did]))
+            else:
+                want.append(("delete", 404, "document_missing_exception",
+                             None))
+    return ops, want, live, version
+
+
+def phase_write_tail(torch, np, dev, card) -> int:
+    """Phase 5l (d): ``Node.bulk`` of WT_OPS items into five shards held
+    item by item against a dict model, then ``mget``, ``count`` and
+    delete-by-query and update-by-query through ``run_by_query`` over a
+    term on about 5% of the docs each, the totals after them against the
+    model. Returns B1's launches in its searches."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.ops import bm25_topk
+    from elasticsearch_tpu_torch.search.byquery import run_by_query
+
+    t_phase = time.perf_counter()
+    b1_0 = bm25_topk.LAUNCHES
+    ops, want, live, version = wt_ops(np, SEED)
+    node = Node(name="writetail", device=dev)
+    node.create_index("logs", {"settings": {"number_of_shards": WT_SHARDS},
+                               "mappings": WT_MAPPING})
+    svc = node.get_index("logs")
+    t = time.perf_counter()
+    resp = node.bulk(ops)
+    t_bulk = time.perf_counter() - t
+    n_fail = 0
+    for i, (item, (op, status, err, ver)) in enumerate(zip(resp["items"],
+                                                           want)):
+        (got_op, r), = item.items()
+        _hold(got_op == op and r["status"] == status
+              and (r.get("error") or {}).get("type") == err
+              and (ver is None or r["_version"] == ver),
+              f"bulk item {i}: {item} vs {(op, status, err, ver)}", "5l")
+        n_fail += err is not None
+    _hold(len(resp["items"]) == len(want) and resp["errors"] == (n_fail > 0),
+          "bulk item count or errors flag", "5l")
+    t = time.perf_counter()
+    svc.refresh()
+    t_refresh = time.perf_counter() - t
+    lines = [f"[5l] bulk of {len(want)} items ({n_fail} failed by design) "
+             f"into {WT_SHARDS} shards: {len(want) / t_bulk:.1f} ops/s "
+             f"({t_bulk:.2f} s), then a refresh {t_refresh * 1e3:.1f} ms; "
+             f"{card}"]
+    rng = np.random.default_rng(SEED + 21)
+    names = sorted(version)
+    mget_ids = [names[int(i)] for i in rng.integers(0, len(names), WT_MGET)]
+    got = svc.mget(mget_ids)["docs"]
+    for did, g in zip(mget_ids, got):
+        if did in live:
+            _hold(g["found"] and g["_source"] == live[did]
+                  and g["_version"] == version[did],
+                  f"mget {did}: {g} vs {live[did]}", "5l")
+        else:
+            _hold(not g["found"], f"mget {did}: a deleted doc found", "5l")
+    chunks = [{"ids": mget_ids[i: i + 100]} for i in range(0, WT_MGET, 100)]
+    ms, _o = _sg_timed(np, lambda b: svc.mget(b["ids"]), chunks)
+    prof = profile_path(torch, lambda: [svc.mget(c["ids"])
+                                        for c in chunks[:FT_PROFILED]])
+    lines.append(_sg_line(np, "mget of 100 ids", ms, prof, card))
+
+    def model_count(tag=None, n_min=None):
+        return sum(1 for d in live.values()
+                   if (tag is None or d["tag"] == tag)
+                   and (n_min is None or d["n"] >= n_min))
+
+    count_b = [{"query": {"term": {"tag": t}}} for t in WT_TAGS[:SG_VARIANTS]]
+    for b in count_b + [{}]:
+        tag = b["query"]["term"]["tag"] if b else None
+        _hold(svc.count(b)["count"] == model_count(tag),
+              f"count {b}", "5l")
+    ms, _o = _sg_timed(np, svc.count, count_b)
+    prof = profile_path(torch, lambda: [svc.count(b)
+                                        for b in count_b[:FT_PROFILED]])
+    lines.append(_sg_line(np, "count of a tag", ms, prof, card))
+
+    # delete-by-query and update-by-query as the REST handlers drive them
+    done = {"deleted": 0, "updated": 0}
+
+    def delete(doc_id, loc):
+        svc.delete_doc(doc_id, routing=loc.routing if loc else None)
+        done["deleted"] += 1
+
+    def update(doc_id, loc):
+        svc.update_doc(doc_id, {"script": "ctx._source.n = ctx._source.n "
+                                          "+ 1000"},
+                       routing=loc.routing if loc else None)
+        done["updated"] += 1
+
+    n_rare, n_hot = model_count("rare"), model_count("hot")
+    t = time.perf_counter()
+    ids = run_by_query(svc, {"term": {"tag": "rare"}}, delete)
+    t_del = time.perf_counter() - t
+    for did in ids:
+        del live[did]
+    t = time.perf_counter()
+    ids = run_by_query(svc, {"term": {"tag": "hot"}}, update)
+    t_upd = time.perf_counter() - t
+    for did in ids:
+        live[did] = dict(live[did], n=live[did]["n"] + 1000)
+    svc.refresh()
+    _hold(done["deleted"] == n_rare and done["updated"] == n_hot,
+          f"by-query touched {done} vs {n_rare} and {n_hot}", "5l")
+    for b, (tag, n_min) in (({}, (None, None)),
+                            ({"query": {"term": {"tag": "rare"}}},
+                             ("rare", None)),
+                            ({"query": {"range": {"n": {"gte": 1000}}}},
+                             (None, 1000))):
+        c = svc.count(b)["count"]
+        s = node.search("logs", dict(b, size=0))["hits"]["total"]
+        _hold(c == s == model_count(tag, n_min),
+              f"after by-query {b}: count {c}, search {s}, model "
+              f"{model_count(tag, n_min)}", "5l")
+    def rate(n, secs):
+        per = (f"{n} docs in {secs:.4f} s, "
+               f"{1e3 * secs / max(n, 1):.3f} ms a doc")
+        return per + (f", {n / secs:.1f} docs/s" if secs >= WT_RATE_MIN_S
+                      else f"; no rate (window < {WT_RATE_MIN_S} s)")
+
+    lines.append(f"[5l] delete-by-query over tag:rare: {rate(n_rare, t_del)}; "
+                 f"update-by-query over tag:hot: {rate(n_hot, t_upd)}; "
+                 f"count and the search totals equal the model's; {card}")
+    for ln in lines:
+        log(ln)
+    node.close()
+    b1 = bm25_topk.LAUNCHES - b1_0
+    log(f"[5l] (d) {len(live)} live docs after; B1 launched {b1} times; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return b1
+
+
+def phase_a9d(torch, np, dev, card) -> int:
+    """Phase 5l's groups (b)-(d) (module docstring); returns B1's
+    launches."""
+    t = time.perf_counter()
+    phase_completion(torch, np, dev, card)
+    torch.cuda.empty_cache()
+    phase_percolate(torch, np, dev, card)
+    torch.cuda.empty_cache()
+    b1 = phase_write_tail(torch, np, dev, card)
+    log(f"[5l] groups (b)-(d) took {time.perf_counter() - t:.1f} s")
+    return b1
+
+
 def _cprofile_rows(st, key, n, per=1):
     """The top ``n`` of a pstats.Stats by ``key`` ("cum" or "own") as
     lines of calls, own ms, cumulative ms (each divided by ``per``) and
@@ -5984,6 +6977,8 @@ def main() -> int:
     launches["bm25_dense_topk"] += phase_fulltext(torch, np, dev, card)
     torch.cuda.empty_cache()
     launches["bm25_dense_topk"] += phase_joins_geo(torch, np, dev, card)
+    torch.cuda.empty_cache()
+    launches["bm25_dense_topk"] += phase_a9d(torch, np, dev, card)
     torch.cuda.empty_cache()
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card),
               "knn_topk": timing_knn(torch, dev, card),

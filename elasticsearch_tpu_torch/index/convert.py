@@ -10,6 +10,8 @@ the product-sized smoke corpus is), so both packages score the same state.
     {"num_docs": int, "max_docs": int,
      "ids": [str] | None,          # default: str(local id)
      "sources": [dict | None] | None,
+     "stored": [dict] | None,      # each doc's stored values (completion
+                                   # entries among them), default {}
      "live": bool[max_docs] | None,
      "fields": {name: {            # inverted text/keyword fields
          "terms": [str], "vocab": {str: int} | None,
@@ -107,9 +109,11 @@ def segment_from_arrays(arrays: Dict[str, Any],
     ids = [str(i) for i in range(n)] if ids is None else list(ids)
     sources = arrays.get("sources")
     sources = [None] * n if sources is None else list(sources)
+    stored = arrays.get("stored")
+    stored = [{}] * n if stored is None else list(stored)
     seg = TpuSegment(
         num_docs=n, max_docs=D, inverted=inverted, numerics=numerics,
-        keywords=keywords, sources=sources, stored=[{}] * n, ids=ids,
+        keywords=keywords, sources=sources, stored=stored, ids=ids,
         id_map={doc_id: i for i, doc_id in enumerate(ids)},
         field_lengths=lengths, residency=residency,
         live=arrays.get("live"), vectors=vectors)

@@ -9,8 +9,10 @@ term, seq no) identity, and merges: after each refresh that froze a
 segment the tiered policy (``index/merge.py``) may fold a tier, or a
 segment with too many deletes, into one new segment built on the
 node's device from the live docs' sources; ``merge()`` with no subset
-is the force merge. Updates, TTL purging, peer recovery and replication
-are not in the slice yet (ROADMAP A10).
+is the force merge. ``update`` merges a partial doc or runs an update
+script over the current source and re-indexes it, keeping its routing,
+type and parent. TTL purging, peer recovery and replication are not in
+the port yet (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -31,10 +33,10 @@ from elasticsearch_tpu_torch.index.seqno import (NO_OPS_PERFORMED,
                                                  LocalCheckpointTracker)
 from elasticsearch_tpu_torch.index.translog import Translog
 from elasticsearch_tpu_torch.resources.residency import Residency
-from elasticsearch_tpu_torch.utils.errors import (CircuitBreakingException,
-                                                  DocumentMissingException,
-                                                  EngineFailedException,
-                                                  VersionConflictException)
+from elasticsearch_tpu_torch.utils.errors import (
+    ActionRequestValidationException, CircuitBreakingException,
+    DocumentMissingException, EngineFailedException, ScriptException,
+    VersionConflictException)
 
 
 @dataclass
@@ -45,7 +47,9 @@ class DocLocation:
     where: Any = "buffer"
     local_id: int = -1
     source: Optional[dict] = None  # for realtime get of buffered docs
+    # _type / _parent / routing, kept across partial updates
     doc_type: Optional[str] = None
+    parent: Optional[str] = None
     routing: Optional[str] = None
     seq_no: int = UNASSIGNED_SEQ_NO
     term: int = 0
@@ -181,8 +185,8 @@ class Engine:
             self._locations[doc_id] = DocLocation(
                 version=new_version, where="buffer",
                 local_id=self._buffer_ids[doc_id], source=source,
-                doc_type=doc_type, routing=routing, seq_no=seq_no,
-                term=op_term)
+                doc_type=doc_type, parent=parent, routing=routing,
+                seq_no=seq_no, term=op_term)
             if not _replay:
                 entry = {"op": "index", "id": doc_id, "source": source,
                          "version": new_version, "routing": routing,
@@ -233,6 +237,100 @@ class Engine:
             self._note_op(op_term, seq_no)
             self.stats.delete_total += 1
             return new_version
+
+    def update(self, doc_id: str, partial: Optional[dict] = None,
+               script: Optional[str] = None,
+               script_params: Optional[dict] = None,
+               upsert: Optional[dict] = None, doc_as_upsert: bool = False,
+               scripted_upsert: bool = False,
+               doc_type: Optional[str] = None, routing: Optional[str] = None,
+               parent: Optional[str] = None, version: Optional[int] = None,
+               version_type: str = "internal") -> Tuple[int, bool]:
+        """Partial update (ES 2.0's update API): merge ``partial`` into the
+        current source, or run ``script`` over it, then re-index; a missing
+        doc is created from ``upsert`` (through the script when
+        ``scripted_upsert``) or from ``partial`` when ``doc_as_upsert``.
+        Only internal versioning applies, and a versioned update of a
+        missing doc is a conflict even with an upsert. Returns (version,
+        created)."""
+        if version is not None and version_type != "internal":
+            raise ActionRequestValidationException(
+                f"version type [{version_type}] is not supported by the "
+                f"update API")
+        with self._lock:
+            doc_id = str(doc_id)
+            got = self.get(doc_id)
+            if got is None:
+                if version is not None:
+                    raise VersionConflictException("", doc_id, -1, version)
+                if upsert is not None:
+                    up = dict(upsert)
+                    if scripted_upsert and script is not None:
+                        up = self._run_update_script(
+                            script, script_params or {}, up)
+                    _, v, _ = self.index(doc_id, up, doc_type=doc_type,
+                                         routing=routing, parent=parent)
+                    return v, True
+                if doc_as_upsert and partial is not None:
+                    _, v, _ = self.index(doc_id, partial, doc_type=doc_type,
+                                         routing=routing, parent=parent)
+                    return v, True
+                raise DocumentMissingException("", doc_id)
+            if version is not None and got["_version"] != version:
+                raise VersionConflictException("", doc_id, got["_version"],
+                                               version)
+            source = dict(got["_source"])
+            if script is not None:
+                source = self._run_update_script(script, script_params or {},
+                                                 source)
+            elif partial is not None:
+                _deep_merge(source, partial)
+            # the stored _type, _parent and routing ride the re-index, or a
+            # partial update would sever a child from its parent
+            loc = self._locations.get(doc_id)
+            _, v, _ = self.index(
+                doc_id, source,
+                routing=loc.routing if loc and loc.routing else routing,
+                doc_type=loc.doc_type if loc else doc_type,
+                parent=loc.parent if loc and loc.parent else parent)
+            return v, False
+
+    def _run_update_script(self, script: str, params: dict,
+                           source: dict) -> dict:
+        """An update script is a list of ``ctx._source.<field> = <expr>``
+        statements. Each right side is compiled by ``search/scripting.py``
+        with the source's current values written in as literals; groovy's
+        params bind as bare names too. A tensor result becomes its Python
+        value, as the reference's ``.item()`` makes one of a jnp value."""
+        from elasticsearch_tpu_torch.search.scripting import compile_script
+
+        reserved = {"doc", "params", "Math", "ctx", "_score", "_source",
+                    "true", "false", "null"}
+        extra = tuple(pn for pn in (params or {})
+                      if pn.isidentifier() and pn not in reserved)
+        for stmt in script.split(";"):
+            stmt = stmt.strip()
+            if not stmt:
+                continue
+            if "=" in stmt and "==" not in stmt.split("=", 1)[0]:
+                lhs, _, rhs = stmt.partition("=")
+                lhs = lhs.strip()
+                prefix = "ctx._source."
+                if not lhs.startswith(prefix):
+                    raise ScriptException(
+                        f"update script must assign ctx._source.*: [{stmt}]")
+                rhs = rhs.strip()
+                for fname, fval in source.items():
+                    rhs = rhs.replace(f"ctx._source.{fname}", repr(fval))
+                val = compile_script(rhs, extra_vars=extra).run(
+                    lambda f: None, params=params)
+                if hasattr(val, "item"):
+                    val = val.item()
+                source[lhs[len(prefix):]] = val
+            else:
+                raise ScriptException(
+                    f"unsupported update script statement [{stmt}]")
+        return source
 
     def _remove_existing(self, doc_id: str):
         loc = self._locations.get(doc_id)
@@ -444,3 +542,13 @@ class Engine:
             seg._charged = 0
             self.residency.release(seg.fielddata_bytes())
         self.translog.close()
+
+
+def _deep_merge(dst: dict, src: dict) -> None:
+    """Merge ``src`` into ``dst`` in place: objects merge key by key, any
+    other value replaces."""
+    for k, v in src.items():
+        if isinstance(v, dict) and isinstance(dst.get(k), dict):
+            _deep_merge(dst[k], v)
+        else:
+            dst[k] = v

@@ -17,8 +17,17 @@ responses keyed by the body and every shard's (index, delete, refresh,
 merge) counters, so a write, a refresh or a merge moves the key.
 ``force_merge`` folds each shard's segments into one. A body's
 more_like_this liked ids resolve over every shard before the search
-(``mlt_source``, ``rewrite_mlt_in_body``). The slowlog, replicas and
-percolator are not ported yet.
+(``mlt_source``, ``rewrite_mlt_in_body``). A body's ``suggest`` runs
+after either route (``suggest``, ``search/suggest.py``).
+
+Docs of type ``.percolator`` register their query in the index's
+``percolator`` registry (validated before the write, registered after;
+rebuilt after a translog replay; dropped on delete); ``percolate`` runs
+them against a doc. ``update_doc`` merges a partial doc or runs a
+script (a percolator doc takes partial updates only, re-registered);
+``mget``, ``count`` and ``find_doc_locations`` (every live copy of an id,
+for by-query) serve the rest of the write tail. The slowlog and replicas
+are not ported yet (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from typing import List, Optional, Tuple
 
 from elasticsearch_tpu_torch.analysis.registry import AnalysisRegistry
 from elasticsearch_tpu_torch.cluster.routing import shard_id_for
+from elasticsearch_tpu_torch.index.engine import _deep_merge
 from elasticsearch_tpu_torch.index.mappings import Mappings
 from elasticsearch_tpu_torch.index.shard import IndexShard
 from elasticsearch_tpu_torch.parallel.executor import MeshSearchExecutor
@@ -40,9 +50,17 @@ from elasticsearch_tpu_torch.parallel.mesh import shard_mesh
 from elasticsearch_tpu_torch.parallel.mesh_service import try_mesh_search
 from elasticsearch_tpu_torch.resources.residency import Residency
 from elasticsearch_tpu_torch.search.context import GlobalStats, global_stats
+from elasticsearch_tpu_torch.search.percolator import (PERCOLATOR_TYPE,
+                                                       PercolatorRegistry,
+                                                       highlight_matches,
+                                                       match_queries,
+                                                       percolate_segment)
 from elasticsearch_tpu_torch.search.queries import rewrite_mlt_in_body
+from elasticsearch_tpu_torch.search.scripting import script_source
 from elasticsearch_tpu_torch.search.service import search_shards
-from elasticsearch_tpu_torch.utils.errors import (IllegalArgumentException,
+from elasticsearch_tpu_torch.search.suggest import execute_suggest
+from elasticsearch_tpu_torch.utils.errors import (DocumentMissingException,
+                                                  IllegalArgumentException,
                                                   IndexNotFoundException,
                                                   MapperParsingException,
                                                   RoutingMissingException)
@@ -78,9 +96,26 @@ class IndexService:
         self._query_cache: "OrderedDict[Tuple, dict]" = OrderedDict()
         self._qc_lock = threading.Lock()
         self.query_cache_stats = {"hits": 0, "misses": 0, "evictions": 0}
+        self._percolator: Optional[PercolatorRegistry] = None
         if data_path:
             for shard in self.shards:
                 shard.recover()
+            self._register_recovered_percolators()
+
+    def _register_recovered_percolators(self) -> None:
+        """Rebuild the percolator registry from the replayed docs; a doc
+        whose query no longer parses does not take part (it must not keep
+        the index from opening)."""
+        for shard in self.shards:
+            for doc_id, loc in shard.engine._locations.items():
+                if loc.deleted or loc.doc_type != PERCOLATOR_TYPE:
+                    continue
+                got = shard.engine.get(doc_id)
+                if got and got.get("_source"):
+                    try:
+                        self.percolator.register(doc_id, got["_source"])
+                    except Exception:
+                        pass
 
     def _validate_analyzers(self):
         """Reject mappings naming analyzers the registry can't build."""
@@ -111,8 +146,15 @@ class IndexService:
         self._check_routing_required(doc_id, kw.get("doc_type"),
                                      routing or kw.get("parent"))
         shard = self.route(doc_id, routing)
+        is_perc = kw.get("doc_type") == PERCOLATOR_TYPE
+        if is_perc:
+            # before the write: an unparsable query never reaches the
+            # translog, where it would fail the replay
+            self.percolator.validate(source)
         rid, version, created = shard.engine.index(doc_id, source,
                                                    routing=routing, **kw)
+        if is_perc:
+            self.percolator.register(rid, source)
         loc = shard.engine._locations[rid]
         return {
             "_index": self.name,
@@ -153,6 +195,8 @@ class IndexService:
         loc = engine._locations.get(str(doc_id))
         dtype = loc.doc_type if loc is not None and loc.doc_type else "_doc"
         version = engine.delete(doc_id, **kw)
+        if self._percolator is not None:
+            self._percolator.unregister(str(doc_id))
         loc = engine._locations[str(doc_id)]
         return {
             "_index": self.name, "_type": dtype, "_id": doc_id,
@@ -160,6 +204,156 @@ class IndexService:
             "_primary_term": loc.term, "result": "deleted", "found": True,
             "_shards": {"total": 1, "successful": 1, "failed": 0},
         }
+
+    def update_doc(self, doc_id: str, body: dict,
+                   routing: Optional[str] = None,
+                   doc_type: Optional[str] = None, **kw) -> dict:
+        """ES 2.0's update API: ``doc`` (a partial doc), ``script`` (its
+        ``params`` inside, or groovy's sibling ``params`` and ``lang``),
+        ``upsert``, ``doc_as_upsert``, ``scripted_upsert``. A percolator
+        doc takes partial updates only: the merged query is validated
+        before the write and re-registered after."""
+        engine = self.route(doc_id, routing).engine
+        loc = engine._locations.get(str(doc_id))
+        is_perc = loc is not None and not loc.deleted \
+            and loc.doc_type == PERCOLATOR_TYPE
+        if is_perc:
+            if body.get("script") is not None:
+                raise IllegalArgumentException(
+                    "percolator documents cannot be script-updated")
+            cur = engine.get(str(doc_id))
+            merged = copy.deepcopy(cur["_source"]) if cur else {}
+            _deep_merge(merged, body.get("doc") or {})
+            self.percolator.validate(merged)
+        script = body.get("script")
+        script_src = params = None
+        if script is not None:
+            lang = ((script.get("lang") if isinstance(script, dict)
+                     else None) or body.get("lang") or "groovy")
+            if lang not in ("groovy", "painless", "painless-lite",
+                            "expression"):
+                raise IllegalArgumentException(
+                    f"script_lang not supported [{lang}]")
+            script_src = script_source(script)
+            # a string script takes the body's sibling params (2.0's form)
+            params = script.get("params") if isinstance(script, dict) \
+                else body.get("params")
+        version, created = engine.update(
+            doc_id, partial=body.get("doc"), script=script_src,
+            script_params=params, upsert=body.get("upsert"),
+            doc_as_upsert=bool(body.get("doc_as_upsert", False)),
+            scripted_upsert=bool(body.get("scripted_upsert", False)),
+            doc_type=doc_type, routing=routing, **kw)
+        if is_perc:
+            got = engine.get(str(doc_id))
+            if got and got.get("_source"):
+                self.percolator.register(str(doc_id), got["_source"])
+        loc2 = engine._locations.get(str(doc_id))
+        return {
+            "_index": self.name,
+            "_type": (loc2.doc_type if loc2 is not None and loc2.doc_type
+                      else "_doc"),
+            "_id": doc_id, "_version": version,
+            "result": "created" if created else "updated",
+            "_shards": {"total": 1, "successful": 1, "failed": 0},
+        }
+
+    def mget(self, ids: List[str]) -> dict:
+        return {"docs": [self.get_doc(i) for i in ids]}
+
+    def find_doc_location(self, doc_id: str):
+        """A live copy's DocLocation, found without its routing (by-query
+        gets ids back from a search, not the routing they were written
+        with); None when no shard holds it."""
+        locs = self.find_doc_locations(doc_id)
+        return locs[0] if locs else None
+
+    def find_doc_locations(self, doc_id: str) -> list:
+        """Every live copy of an id, shard by shard: custom routing can
+        place one id on several shards, and by-query touches each copy
+        with its own stored routing."""
+        out = []
+        for shard in self.shards:
+            loc = shard.engine._locations.get(str(doc_id))
+            if loc is not None and not loc.deleted:
+                out.append(loc)
+        return out
+
+    def count(self, body: dict) -> dict:
+        total = sum(s.searcher.count(body or {}) for s in self.shards)
+        return {"count": total, "_shards": {"total": self.num_shards,
+                                            "successful": self.num_shards,
+                                            "failed": 0}}
+
+    # -- suggest and percolate -------------------------------------------------
+
+    def suggest(self, body: dict, shard_ids=None) -> dict:
+        """The suggest body over the index's shards, or over ``shard_ids``
+        of them (ES's suggest action and the search-embedded phase)."""
+        shards = self.shards if shard_ids is None \
+            else [self.shards[i] for i in shard_ids]
+        return execute_suggest(shards, body or {}, self.analysis,
+                               mappings=self.mappings)
+
+    @property
+    def percolator(self) -> PercolatorRegistry:
+        if self._percolator is None:
+            self._percolator = PercolatorRegistry()
+            self._percolator.doc_lookup = self.mlt_source
+        return self._percolator
+
+    def percolate(self, body: dict) -> dict:
+        """Percolate ``doc`` against the registered queries (ES's
+        percolate API): ``query``/``filter`` restrict which registered
+        queries take part (a search over the ``.percolator`` docs),
+        ``size`` cuts the listed matches (``total`` counts them all),
+        ``highlight`` marks the doc once a listed match, ``aggs`` run over
+        the matched ``.percolator`` docs."""
+        body = body or {}
+        doc = body.get("doc")
+        if doc is None:
+            raise DocumentMissingException(self.name,
+                                           "_percolate requires [doc]")
+        registry = self.percolator
+        with percolate_segment([doc], self.mappings, self.analysis,
+                               self.residency) as ctx:
+            full = match_queries(registry, ctx, 1)[0] \
+                if ctx is not None and len(registry) else []
+            restrict = body.get("query") or body.get("filter")
+            if restrict is not None:
+                r = self.search({"query": {"bool": {
+                    "must": [restrict],
+                    "filter": [{"term": {"_type": PERCOLATOR_TYPE}}]}},
+                    "size": 10_000, "_source": False})
+                allowed = {h["_id"] for h in r["hits"]["hits"]}
+                full = [qid for qid in full if qid in allowed]
+            size = body.get("size")
+            listed = full if size is None else full[: int(size)]
+            out = {
+                "took": 0,
+                "_shards": {"total": self.num_shards,
+                            "successful": self.num_shards, "failed": 0},
+                "total": len(full),
+                "matches": [{"_index": self.name, "_id": qid}
+                            for qid in listed],
+            }
+            hl_spec = body.get("highlight")
+            if hl_spec and listed:
+                keep = set(listed)
+                by_id = {qid: pair for qid, pair in registry.items()
+                         if qid in keep}
+                hl = highlight_matches(doc, by_id, hl_spec, ctx)
+                for m in out["matches"]:
+                    if m["_id"] in hl:
+                        m["highlight"] = hl[m["_id"]]
+        aggs_spec = body.get("aggs") or body.get("aggregations")
+        if aggs_spec is not None:
+            r = self.search({"query": {"bool": {"filter": [
+                {"term": {"_type": PERCOLATOR_TYPE}},
+                {"ids": {"values": full}}]}},
+                "size": 0, "aggs": aggs_spec})
+            out["aggregations"] = r.get("aggregations", {})
+        return out
 
     def refresh(self):
         for s in self.shards:
@@ -282,6 +476,8 @@ class IndexService:
         if resp is None:
             resp = search_shards(searchers, body, index_name=self.name,
                                  global_stats=gs)
+        if body.get("suggest"):
+            resp["suggest"] = self.suggest(body["suggest"])
         if qc_key is not None:
             entry = copy.deepcopy(resp)
             with self._qc_lock:

@@ -13,12 +13,10 @@ legacy form and the modern `text`/`keyword` split, plus `dense_vector` (the
 north-star addition). Object fields flatten to dotted paths like ES's
 ObjectMapper.
 
-This copy serves the types of the port's slices so far (text, keyword,
-numeric, date, boolean, ip, token_count, murmur3, dense_vector with its
-``dims``, ``similarity`` and ``index_options``). Mapping a type whose
-search path is not ported yet raises a typed MapperParsingException that
-names the ROADMAP item porting it, so no document is accepted that a
-search could not serve.
+The port serves every type of the reference: text, keyword, numeric,
+date, boolean, ip, token_count, murmur3, dense_vector (with its ``dims``,
+``similarity`` and ``index_options``), nested, geo_point, geo_shape,
+completion (with its ``context`` config) and percolator.
 """
 from __future__ import annotations
 
@@ -34,19 +32,6 @@ TEXT_TYPES = {"text", "string_analyzed"}
 KEYWORD_TYPES = {"keyword", "string_not_analyzed"}
 NUMERIC_TYPES = {"long", "integer", "short", "byte", "double", "float", "half_float"}
 INT_TYPES = {"long", "integer", "short", "byte", "token_count", "murmur3"}
-
-#: mapping type -> the ROADMAP queue-A item that ports its search path
-NOT_YET_PORTED = {
-    "percolator": "A9d (percolator in the rest of the DSL)",
-    "completion": "A9d (suggest in the rest of the DSL)",
-}
-
-
-def _check_ported(full: str, t: str) -> None:
-    if t in NOT_YET_PORTED:
-        raise MapperParsingException(
-            f"field [{full}] has type [{t}], which the PyTorch port does "
-            f"not serve yet (ROADMAP {NOT_YET_PORTED[t]})")
 
 
 @dataclass
@@ -218,7 +203,6 @@ class Mappings:
                 raise MapperParsingException(f"invalid mapping for field [{name}]")
             full = f"{prefix}{name}"
             t = _canonical_type(p)
-            _check_ported(full, t)
             if t in ("object", "nested") or ("properties" in p and "type" not in p):
                 np = nested_path
                 if t == "nested":
@@ -230,7 +214,6 @@ class Mappings:
             self.fields[full] = self._parse_field(full, t, p, nested_path)
 
     def _parse_field(self, full: str, t: str, p: dict, nested_path: Optional[str]) -> FieldMapping:
-        _check_ported(full, t)
         if t == "multi_field":
             # pre-2.0 legacy form: the sub-field sharing the root's name
             # BECOMES the root, the rest stay multi-fields

@@ -345,9 +345,19 @@ class TpuSegment:
         self.deleted_count = int(num_docs - self._live_host[:num_docs].sum())
         self._sort_keys: Dict[str, Optional[SortKeys]] = {}
         self._geo64: Dict[str, Optional[Tuple[Any, Any, Any]]] = {}
-        self._sort_lock = threading.Lock()
         # each doc's _type / _parent / routing meta (merges replay them)
         self.metas: List[dict] = []
+        # the suggesters' per-field caches (search/suggest.py): bigram
+        # tables, packed vocabularies and completion inputs cut to a
+        # prefix length on the device, charged to fielddata; completion
+        # inputs on the host
+        self._bigrams: Dict[str, Optional[Tuple[Any, Any, int]]] = {}
+        self._vocab_packed: Dict[str, Optional[tuple]] = {}
+        self._completions: Dict[str, tuple] = {}
+        self._completion_cuts: Dict[Tuple[str, int], tuple] = {}
+        # guards every cache above and the sort mirrors: each is built
+        # and charged once, and ``fielddata_bytes`` reads them whole
+        self._cache_lock = threading.Lock()
         # block-join arrays (``set_blocks``); None: every doc is a root
         self.parent_id_host: Optional[np.ndarray] = None
         self.nested_code_host: Optional[np.ndarray] = None
@@ -458,7 +468,7 @@ class TpuSegment:
     def sort_keys(self, field: str) -> Optional[SortKeys]:
         """The field's sort mirror (``SortKeys``), built on first use;
         None when the segment has no doc values for it."""
-        with self._sort_lock:
+        with self._cache_lock:
             if field not in self._sort_keys:
                 self._sort_keys[field] = _build_sort_keys(self, field)
             return self._sort_keys[field]
@@ -468,7 +478,7 @@ class TpuSegment:
         the ``_geo_distance`` sort's exact coordinates: built on first use
         and charged to ``fielddata``; None when the segment has no points
         of the field."""
-        with self._sort_lock:
+        with self._cache_lock:
             if field not in self._geo64:
                 lat = self.numerics.get(f"{field}.lat")
                 lon = self.numerics.get(f"{field}.lon")
@@ -497,9 +507,10 @@ class TpuSegment:
     def fielddata_bytes(self) -> int:
         """The bytes this segment has charged to the ``fielddata``
         breaker so far: its doc-value and keyword columns, vector slabs
-        and placed PQ codes, the dense impact blocks, positional CSRs and
-        sort mirrors built since. A merge releases them when it retires
-        the segment, and the engine's close when the index closes."""
+        and placed PQ codes, the dense impact blocks, positional CSRs,
+        sort mirrors and suggester tables built since. A merge releases
+        them when it retires the segment, and the engine's close when the
+        index closes."""
         ts = []
         for col in self.numerics.values():
             ts += [col.values, col.exists, col.hi, col.lo]
@@ -512,10 +523,15 @@ class TpuSegment:
                 ts.append(inv._dense[1])
             if inv._pos_dev is not None:
                 ts += list(inv._pos_dev)
-        with self._sort_lock:
+        with self._cache_lock:
             ts += [m.key for m in self._sort_keys.values() if m is not None]
             ts += [t for g in self._geo64.values() if g is not None
                    for t in g[:2]]
+            ts += [t for g in self._bigrams.values() if g is not None
+                   for t in g[:2]]
+            ts += [t for g in self._vocab_packed.values() if g is not None
+                   for t in g[1:]]
+            ts += [t for g in self._completion_cuts.values() for t in g]
         return sum(int(t.numel()) * t.element_size() for t in ts
                    if t is not None)
 

@@ -1,8 +1,9 @@
 """Node: the top-level runtime holding indices.
 
 Port of elasticsearch_tpu/node.py, slim: create an index, index / get /
-delete documents, refresh, search over an index expression, ``msearch``,
-close. The node owns the device (``cuda`` unless the caller asks for
+delete documents, ``bulk`` (index, create, update and delete items, an
+index created on first write), refresh, search over an index
+expression, ``msearch``, close. The node owns the device (``cuda`` unless the caller asks for
 ``cpu``), one breaker service, one residency registry, which it passes
 down to every segment, and the serving front-end (``node.serving``): a
 search of one index goes through its coalescer, so that concurrent
@@ -13,9 +14,12 @@ batches its eligible items itself (``search/batch.py``).
 ``_all``, ``*`` or None. One index keeps the mesh path and the
 coalescer; several run the host loop over all their shards, with the
 dfs statistics summed over every searched index and ``indices_boost``
-applied before the global merge. A name that is no index answers 404,
-also inside a comma list (ES 2.0's answer; the reference drops such a
-name). Aliases and closed indices come with ROADMAP A10.
+applied before the global merge. A body's ``suggest`` over several
+indices runs each index's suggesters and merges their entries
+(``execute_suggest_multi``), as ES 2.0 does; the reference's
+multi-index route drops the key (ROADMAP C10). A name that is no index
+answers 404, also inside a comma list (ES 2.0's answer; the reference
+drops such a name). Aliases and closed indices come with ROADMAP A10.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from elasticsearch_tpu_torch.search.batch import (msearch_error_entry,
 from elasticsearch_tpu_torch.search.context import global_stats
 from elasticsearch_tpu_torch.search.queries import rewrite_mlt_in_body
 from elasticsearch_tpu_torch.search.service import search_shards
+from elasticsearch_tpu_torch.search.suggest import execute_suggest_multi
 from elasticsearch_tpu_torch.serving import ServingFrontend
 from elasticsearch_tpu_torch.utils.device import resolve_device
 from elasticsearch_tpu_torch.utils.errors import (ElasticsearchTpuException,
@@ -80,6 +85,70 @@ class Node:
 
     def delete(self, index: str, doc_id: str, **kw) -> dict:
         return self.get_index(index).delete_doc(doc_id, **kw)
+
+    def bulk(self, operations: List[dict]) -> dict:
+        """``_bulk`` over parsed NDJSON lines: an action line ({op: meta})
+        then, for index, create and update, its source. Each item answers
+        with ``status`` 201 (created) or 200, or with the typed error's
+        ``status`` and ``error``; ``errors`` says whether any item
+        failed. A child routes by its ``parent`` unless it names a
+        routing. (The reference's branch for an index spread over hosts
+        has no counterpart here: the port's indices live on one node.)"""
+        items = []
+        errors = False
+        i = 0
+        while i < len(operations):
+            (op, meta), = operations[i].items()
+            i += 1
+            source = None
+            if op in ("index", "create", "update"):
+                source = operations[i]
+                i += 1
+            index_name = meta.get("_index")
+            doc_id = meta.get("_id")
+            parent = meta.get("parent", meta.get("_parent"))
+            routing = meta.get("routing", meta.get("_routing")) or parent
+            doc_type = meta.get("_type")
+            try:
+                svc = self.get_or_autocreate(index_name)
+                if op in ("index", "create"):
+                    kw = {}
+                    if doc_type and doc_type != "_doc":
+                        kw["doc_type"] = doc_type
+                    if parent:
+                        kw["parent"] = parent
+                    r = svc.index_doc(doc_id, source, routing=routing,
+                                      op_type=op, **kw)
+                    status = 201 if r.get("created") else 200
+                elif op == "update":
+                    r = svc.update_doc(doc_id, source, routing=routing)
+                    status = 200
+                elif op == "delete":
+                    r = svc.delete_doc(doc_id, routing=routing)
+                    status = 200
+                else:
+                    raise ElasticsearchTpuException(f"unknown bulk op [{op}]")
+                items.append({op: {**r, "status": status}})
+            except ElasticsearchTpuException as e:
+                errors = True
+                items.append({op: {
+                    "_index": index_name, "_id": doc_id, "status": e.status,
+                    "error": {"type": e.error_type, "reason": str(e)}}})
+        return {"took": 0, "errors": errors, "items": items}
+
+    def get_or_autocreate(self, name: str) -> IndexService:
+        """The one index a write names, created when there is none."""
+        try:
+            names = self.resolve_indices(name)
+        except IndexNotFoundException:
+            names = []
+        if names:
+            if len(names) == 1:
+                return self.indices[names[0]]
+            raise ElasticsearchTpuException(
+                f"[{name}] resolves to multiple indices for a write")
+        self.create_index(name)
+        return self.indices[name]
 
     def refresh(self, index: Optional[str] = None) -> dict:
         names = list(self.indices) if index is None else [index]
@@ -157,8 +226,13 @@ class Node:
             # over all the request's shards)
             gs = global_stats(seg for svc in svcs for s in svc.shards
                               for seg in s.segments)
-        return search_shards(searchers, body, index_name=",".join(names),
+        resp = search_shards(searchers, body, index_name=",".join(names),
                              global_stats=gs)
+        if body.get("suggest"):
+            resp["suggest"] = execute_suggest_multi(
+                [(svc.shards, svc.analysis, svc.mappings) for svc in svcs],
+                body["suggest"])
+        return resp
 
     def msearch(self, pairs: List[Tuple[dict, dict]]) -> dict:
         """``_msearch`` over (header, body) pairs. When every header names

@@ -95,6 +95,10 @@ class Query:
             scores = mask.to(torch.float32) * self.boost
         return scores, mask
 
+    def mask(self, ctx: SegmentContext) -> torch.Tensor:
+        """The match mask alone (a bool skips its own scoring)."""
+        return self.execute(ctx)[1]
+
 
 def _empty(ctx: SegmentContext) -> ExecResult:
     return None, _zeros(ctx, torch.bool)
@@ -949,32 +953,50 @@ class BoolQuery(Query):
         self.msm = minimum_should_match
         self.boost = boost
 
-    def execute(self, ctx) -> ExecResult:
-        if not (self.must or self.should or self.filter or self.must_not):
-            return _empty(ctx)
+    def _combine(self, ctx, must, filter_, must_not, should) -> torch.Tensor:
+        """The bool's match mask from its clauses' masks (``execute`` and
+        ``mask`` share it)."""
         mask = _doc_range(ctx)
-        scores = _zeros(ctx, torch.float32)
-        for q in self.must:
-            s, m = q.score_or_mask(ctx)
-            scores = scores + s
+        for m in must + filter_:
             mask = mask & m
-        for q in self.filter:
-            _, m = q.execute(ctx)
-            mask = mask & m
-        for q in self.must_not:
-            _, m = q.execute(ctx)
+        for m in must_not:
             mask = mask & ~m
-        if self.should:
+        if should:
             should_count = _zeros(ctx, torch.int32)
-            for q in self.should:
-                s, m = q.score_or_mask(ctx)
-                scores = scores + torch.where(m, s, torch.zeros_like(s))
+            for m in should:
                 should_count = should_count + m.to(torch.int32)
             default_msm = 0 if (self.must or self.filter) else 1
             need = (_min_should_match(self.msm, len(self.should))
                     if self.msm is not None else default_msm)
             if need > 0:
                 mask = mask & (should_count >= need)
+        return mask
+
+    def mask(self, ctx) -> torch.Tensor:
+        if not (self.must or self.should or self.filter or self.must_not):
+            return _zeros(ctx, torch.bool)
+        return self._combine(ctx, *([q.mask(ctx) for q in clauses]
+                                    for clauses in (self.must, self.filter,
+                                                    self.must_not,
+                                                    self.should)))
+
+    def execute(self, ctx) -> ExecResult:
+        if not (self.must or self.should or self.filter or self.must_not):
+            return _empty(ctx)
+        scores = _zeros(ctx, torch.float32)
+        must = []
+        for q in self.must:
+            s, m = q.score_or_mask(ctx)
+            scores = scores + s
+            must.append(m)
+        filter_ = [q.mask(ctx) for q in self.filter]
+        must_not = [q.mask(ctx) for q in self.must_not]
+        should = []
+        for q in self.should:
+            s, m = q.score_or_mask(ctx)
+            scores = scores + torch.where(m, s, torch.zeros_like(s))
+            should.append(m)
+        mask = self._combine(ctx, must, filter_, must_not, should)
         if self.boost != 1.0:
             scores = scores * self.boost
         return scores * mask, mask

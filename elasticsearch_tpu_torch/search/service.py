@@ -99,11 +99,10 @@ _SUPPORTED_KEYS = frozenset({
     "aggregations", "sort", "search_after", "min_score", "scroll",
     "search_type", "highlight", "profile", "terminate_after", "timeout",
     "fields", "stored_fields", "indices_boost", "_query_cache",
-    "script_fields"})
-#: refused keys and the ROADMAP item that brings each: A9d (suggesters),
-#: A10 (the stats surface); every other refused key or search_type stays
-#: A6c's
-_KEY_ITEMS = {"suggest": "A9d", "stats": "A10"}
+    "script_fields", "suggest"})
+#: refused keys and the ROADMAP item that brings each: A10 (the stats
+#: surface); every other refused key or search_type stays A6c's
+_KEY_ITEMS = {"stats": "A10"}
 #: the search types the port serves
 _SEARCH_TYPES = ("query_then_fetch", "dfs_query_then_fetch", "scan")
 
@@ -408,6 +407,24 @@ class ShardSearcher:
         return docs, int(out[-1])
 
     # -- fetch phase -----------------------------------------------------------
+
+    def count(self, body: dict) -> int:
+        """The shard's live top-level docs matching ``body``'s query (ES
+        2.0's count API): one mask a segment, summed on the card, one
+        copy back."""
+        query = parse_query(body.get("query"))
+        prepare_tree(query, self.segments, self.mappings, self.analysis)
+        counts = []
+        for seg in self.segments:
+            ctx = SegmentContext(seg, self.mappings, self.analysis,
+                                 index_name=self.index_name,
+                                 all_segments=self.segments)
+            _, mask = query.execute(ctx)
+            mask = mask & seg.live
+            if seg.has_nested:
+                mask = mask & seg.roots_dev
+            counts.append(mask.sum())
+        return int(torch.stack(counts).sum()) if counts else 0
 
     def fetch_phase(self, docs: List[ShardDoc], body: dict,
                     index_name: str = "") -> List[dict]:

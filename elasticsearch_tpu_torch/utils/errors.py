@@ -134,6 +134,13 @@ class ScriptException(ElasticsearchTpuException):
     status = 400
 
 
+class TaskCancelledException(ElasticsearchTpuException):
+    """Raised at a cooperative checkpoint of a cancelled task (reference:
+    tasks/TaskCancelledException.java); 400, as the reference maps it."""
+
+    status = 400
+
+
 class EngineFailedException(ElasticsearchTpuException):
     """Reference: index/engine/EngineClosedException + the tragic-event
     path of InternalEngine.failEngine — a durability-critical IO failure

@@ -35,7 +35,8 @@ from elasticsearch_tpu.monitor import kernels as ref_kernels
 from elasticsearch_tpu.node import Node as RefNode
 from elasticsearch_tpu_torch.monitor import kernels
 from elasticsearch_tpu_torch.node import Node
-from elasticsearch_tpu_torch.utils.errors import SearchParseException
+from elasticsearch_tpu_torch.utils.errors import (ElasticsearchTpuException,
+                                                  SearchParseException)
 
 from _torch_parity import AGG_MAPPING, agg_corpus
 
@@ -588,9 +589,18 @@ def test_unknown_type_is_not_an_a9_refusal(nodes):
                                  "post_filter", "track_scores"])
 @pytest.mark.parametrize("index", ["one_segment", "mesh"])
 def test_other_request_keys_are_still_refused(nodes, key, index):
+    """Keys the port does not serve raise their typed refusal; ``suggest``
+    is served since A9d, so its malformed body here (a suggester that is
+    not an object) raises the suggesters' own typed error, the
+    reference's message."""
     _ref, port = nodes
     body = {"query": QUERY, key: {"x": 1}, "aggs": {
         "t": {"terms": {"field": "tag"}}}}
+    if key == "suggest":
+        with pytest.raises(ElasticsearchTpuException,
+                           match=r"^suggester \[x\] malformed body$"):
+            _search(port, index, body)
+        return
     with pytest.raises(SearchParseException, match="not yet in the PyTorch"):
         _search(port, index, body)
 

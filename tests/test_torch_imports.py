@@ -2,7 +2,8 @@
 package (a phrase, a term expansion, a query_string, a function_score on
 the mesh, a script_score with script_fields, a span_near, script
 aggregations, nested queries and aggs, has_child, the geo queries and
-the ``_geo_distance`` sort included), and
+the ``_geo_distance`` sort, the suggesters, the percolator, updates,
+bulk and by-query included), and
 its entry point never falls back to the CPU on its own."""
 import os
 import re
@@ -159,6 +160,34 @@ n.refresh("pc")
 r = n.search("pc", {"query": {"has_child": {"type": "a",
                                             "query": {"match_all": {}}}}})
 assert [h["_id"] for h in r["hits"]["hits"]] == ["q1"], r
+n.create_index("sg", {"mappings": {"properties": {"body": {"type": "text"},
+    "c": {"type": "completion", "context": {"k": {"type": "category"}}}}}})
+for i in range(40):
+    n.index("sg", str(i), {"body": "quick brown fox" if i % 2 else "lazy dog",
+                           "c": {"input": ["quick", "quiet"], "weight": i,
+                                 "context": {"k": "a"}}})
+n.refresh("sg")
+r = n.search("sg", {"query": {"match": {"body": "fox"}}, "suggest": {
+    "t": {"text": "quikc", "term": {"field": "body"}},
+    "p": {"text": "quikc brown", "phrase": {"field": "body"}},
+    "c": {"text": "qu", "completion": {"field": "c", "context": {"k": "a"}}}}})
+assert r["suggest"]["t"][0]["options"][0]["text"] == "quick", r["suggest"]
+assert r["suggest"]["p"][0]["options"][0]["text"] == "quick brown", r["suggest"]
+assert r["suggest"]["c"][0]["options"][0]["score"] == 39.0, r["suggest"]
+svc = n.indices["sg"]
+svc.index_doc("alert", {"query": {"match": {"body": "fox"}}},
+              doc_type=".percolator")
+assert svc.percolate({"doc": {"body": "a fox"}})["total"] == 1
+svc.update_doc("1", {"script": "ctx._source.n = 2"})
+assert svc.mget(["1"])["docs"][0]["_source"]["n"] == 2
+r = n.bulk([{"index": {"_index": "sg", "_id": "x"}}, {"body": "fox"},
+            {"update": {"_index": "sg", "_id": "nope"}}, {"doc": {}}])
+assert r["errors"] and r["items"][0]["index"]["status"] == 201, r
+from elasticsearch_tpu_torch.search.byquery import run_by_query
+svc.refresh()
+done = run_by_query(svc, {"match": {"body": "dog"}},
+                    lambda i, loc: svc.delete_doc(i, routing=loc.routing))
+assert len(done) == 20 and svc.count({})["count"] == 22, svc.count({})
 n.close()
 import importlib, pkgutil
 import elasticsearch_tpu_torch

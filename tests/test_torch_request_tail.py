@@ -400,13 +400,27 @@ def test_profile_on_a_coalesced_search(nodes):
     ({"post_filter": {"term": {"tag": "t1"}}}, "A6c"), ({"explain": True}, "A6c"),
     ({"track_scores": True}, "A6c"), ({"stats": ["g"]}, "A10"),
     ({"search_type": "count"}, "A6c"),
-    ({"suggest": {}}, "A9d"),
+    ({"stats": ["g"], "suggest": {}}, "A10"),
 ])
 def test_remaining_keys_are_refused_by_their_queue_item(nodes, body, item):
     _ref, port = nodes
     with pytest.raises(SearchParseException) as e:
         _search(port, dict(body, query=QUERY))
     assert f"ROADMAP {item}" in str(e.value)
+    assert "suggest" not in str(e.value)  # served since A9d
+
+
+@pytest.mark.parametrize("suggest", [
+    {}, {"s": {"text": "quikc", "term": {"field": "body"}}}])
+def test_suggest_key_is_served(nodes, suggest):
+    """``suggest`` is served (A9d): the response equals the reference's,
+    hits and suggestions."""
+    ref, port = nodes
+    body = {"query": QUERY, "suggest": suggest}
+    want, got = _search(ref, body), _search(port, body)
+    assert _strip(got) == _strip(want)
+    assert got.get("suggest") == want.get("suggest")
+    assert ("suggest" in got) == bool(suggest)
 
 
 @pytest.mark.parametrize("key, value", [

@@ -141,9 +141,16 @@ def test_convert_round_trip_of_reference_segment(both_segments):
 
 @pytest.mark.parametrize("ftype", ["completion", "percolator"])
 def test_unported_mapping_type_raises_typed(ftype):
+    """The A9d mapping types are served: they parse as the reference's
+    do (a completion's ``context`` config kept)."""
     spec = {"type": ftype}
-    with pytest.raises(MapperParsingException, match="ROADMAP"):
-        Mappings({"properties": {"f": spec}})
+    if ftype == "completion":
+        spec["context"] = {"cc": {"type": "category"}}
+    m, ref = Mappings({"properties": {"f": spec}}), \
+        RefMappings({"properties": {"f": spec}})
+    assert m.get("f").type == ref.get("f").type == ftype
+    assert m.get("f").context == ref.get("f").context
+    assert m.to_json() == ref.to_json()
 
 
 @pytest.mark.parametrize("ftype", ["nested", "geo_point", "geo_shape"])
