@@ -94,7 +94,7 @@ Phases, in order; any failure exits non-zero before the result line:
             against numpy (``np.lexsort``, exact totals); p50, p99,
             device time, kernels, copies and busy share per body and
             route;
-5h. writes  the write path and merges (``phase_writepath``): 65,536
+5h. writes  the write path and merges (``phase_writepath``): 32,768
             generated log docs (Zipf(1.1) bodies of 20-80 tokens over
             phase 5's vocabulary, a keyword, a long, a date) through
             ``Node.index`` into five shards with 32 refreshes, so the
@@ -203,6 +203,27 @@ Phases, in order; any failure exits non-zero before the result line:
             update-by-query through ``run_by_query``, the totals after
             against the model; p50, p99, device time, kernels, copies,
             busy share, ops/s and docs/s per group;
+5m. durable durability and the index lifecycle (ROADMAP A10b), from seed
+            0, each data path in a temporary directory, each restart a
+            new ``Node`` in this process with the blob cache's memory
+            layer reset: (a) 2^14 docs of 5h's log recipe by
+            ``Node.bulk`` into five shards, every 20th stamped two days
+            back so the 1d ``_ttl`` purges it at the refresh (the count
+            exact), 32 match bodies, then a restart with no flush (the
+            translog replay: ops/s to the first answer) and a restart
+            after ``flush`` (the committed blocks), each giving the same
+            hits, scores, totals and ``_version``s (B1); (b) 2^14
+            SIFT-shaped vectors into one ``ivf_pq`` shard, a restart
+            loading the quantizer and PQ tier from ``<data>/_ivf``
+            (``ivf_cache_hit``/``pq_cache_hit`` move, the builds do not)
+            against a cold one that runs k-means, brute and IVF-PQ knn
+            equal before and after (B2, B3); (c) full snapshots of both
+            indices (seconds, bytes), incremental ones after 1% more
+            writes (blobs written), a restore of the full ones into a
+            fresh node (seconds, hits equal, the quantizer from the
+            seeded blob); (d) close and open, an alias with a filter, a
+            template at create, a mappings PUT and the ``stats`` groups
+            exact against the bodies sent;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
@@ -6485,6 +6506,422 @@ def phase_a9d(torch, np, dev, card) -> int:
     return b1
 
 
+# ---------------------------------------------------------------------------
+# phase 5m: durability and the index lifecycle (ROADMAP A10b)
+# ---------------------------------------------------------------------------
+
+DM_DOCS = 1 << 14          # (a): 5h's log recipe, cut from 2^16 (PERF.md §4)
+DM_SHARDS = 5              # ES 2.0's default index.number_of_shards
+DM_TTL_EVERY = 20          # every 20th doc stamped two days ago: ~5% expire
+DM_VECS = 1 << 14          # (b): SIFT-shaped 128-d vectors, one shard,
+                           # cut from 2^16 (PERF.md §4)
+DM_QUERIES = 32            # (a)'s match bodies
+DM_KNN = 8                 # (b)'s brute and IVF-PQ bodies each
+DM_NEW = 100               # (c): 1/DM_NEW more writes before the increment
+DM_GROUPS = ("ga", "gb")   # (d): the stats groups
+DM_CODEC = 1 << 16         # postings-shaped values the host codec encodes
+DM_MAPPING = dict(WP_MAPPING, _ttl={"enabled": True, "default": "1d"},
+                  _timestamp={"enabled": True})
+DM_VEC_MAPPING = {"properties": {
+    "emb": {"type": "dense_vector", "dims": DIMS, "similarity": "cosine",
+            "index_options": {"type": "ivf_pq"}}}}
+
+
+def dm_text_ops(np, docs, now_ms):
+    """``Node.bulk`` lines for (a): every DM_TTL_EVERY-th doc carries a
+    ``_timestamp`` two days back, so the mapping's 1d ``_ttl`` has
+    expired it; the rest are stamped now. Returns (ops, expired ids)."""
+    ops, expired = [], []
+    for i, (doc_id, src) in enumerate(docs):
+        meta = {"_index": "logs", "_id": doc_id}
+        if i % DM_TTL_EVERY == 0:
+            meta["_timestamp"] = now_ms - 2 * DAY_MS
+            expired.append(doc_id)
+        ops += [{"index": meta}, src]
+    return ops, expired
+
+
+def dm_vectors(np, n, seed):
+    """f32[n, DIMS] around 256 Gaussian centres (make_sift's recipe at
+    (b)'s size)."""
+    rng = np.random.default_rng(seed)
+    cents = rng.standard_normal((256, DIMS)).astype(np.float32) * 3
+    return (cents[rng.integers(0, 256, n)]
+            + rng.standard_normal((n, DIMS)).astype(np.float32))
+
+
+def dm_text_bodies(np, seed):
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, VOCAB + 1) ** 1.1
+    p /= p.sum()
+    out = []
+    for i in range(DM_QUERIES):
+        words = " ".join(f"t{int(t)}" for t in rng.choice(
+            VOCAB, size=int(rng.integers(2, 5)), p=p))
+        out.append({"query": {"match": {"body": words}}, "size": 10,
+                    "version": True})
+    return out
+
+
+def dm_knn_bodies(np, vecs, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(DM_KNN):
+        q = (vecs[int(rng.integers(0, len(vecs)))]
+             + 0.3 * rng.standard_normal(DIMS)).astype(np.float32)
+        knn = {"field": "emb", "query_vector": [float(x) for x in q],
+               "k": 10}
+        out.append({"query": {"knn": dict(knn, ann=False)}})
+        out.append({"query": {"knn": dict(knn, num_candidates=1000)}})
+    return out
+
+
+def dm_answers(torch, node, index, bodies):
+    """Each body's (total, [(id, score, version)]), and the time of the
+    first answer from the call."""
+    out, t0, first = [], time.perf_counter(), None
+    for b in bodies:
+        r = node.search(index, copy.deepcopy(b))
+        if first is None:
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+        out.append((r["hits"]["total"], [(h["_id"], h["_score"],
+                                          h.get("_version"))
+                                         for h in r["hits"]["hits"]]))
+    return out, first
+
+
+def dm_open(torch, path, dev, index, bodies, name):
+    """A restart: the blob cache's memory layer dropped, a new ``Node``
+    over ``path`` (the gateway replays every shard), then ``bodies``.
+    Returns (node, answers, seconds to the first answer, ops replayed,
+    seconds of the replay spent in segment freezes: the IVF/PQ load or
+    build among them)."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.index import ivf_cache
+    from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+
+    freeze, spent = SegmentBuilder.freeze, [0.0]
+
+    def timed_freeze(self):
+        t = time.perf_counter()
+        try:
+            return freeze(self)
+        finally:
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t
+
+    ivf_cache.reset()
+    SegmentBuilder.freeze = timed_freeze
+    try:
+        t = time.perf_counter()
+        node = Node(name=name, data_path=path, device=dev)
+        t_open = time.perf_counter() - t
+    finally:
+        SegmentBuilder.freeze = freeze
+    ans, first = dm_answers(torch, node, index, bodies)
+    ops = sum(e["ops_replayed"]
+              for e in node.indices[index].recoveries.entries())
+    return node, ans, t_open + first, ops, spent[0]
+
+
+def dm_codec(np):
+    """Which host codec serves (the ``g++`` build of ``csrc/codec.cpp``
+    or its numpy/zlib twins), and its varint encode and decode against
+    the twins' on DM_CODEC sorted doc ids, the bytes held equal."""
+    from elasticsearch_tpu_torch import native
+
+    ids = np.cumsum(np.random.default_rng(SEED + 56).integers(
+        1, 300, DM_CODEC)).astype(np.int64)
+    ran = "native (g++)" if native.native_available() else \
+        "the numpy/zlib twins (no compiler)"
+    out = []
+    for name, enc, dec, tenc, tdec in (
+            ("vbyte", native.vbyte_encode, native.vbyte_decode,
+             native._py_vbyte_encode, native._py_vbyte_decode),
+            ("delta", native.delta_encode, native.delta_decode,
+             native._py_delta_encode, native._py_delta_decode)):
+        t = time.perf_counter()
+        blob = enc(ids)
+        back = dec(blob, ids.size)
+        t_run = time.perf_counter() - t
+        t = time.perf_counter()
+        twin = tenc(ids)
+        tback = tdec(twin, ids.size)
+        t_twin = time.perf_counter() - t
+        _hold(blob == twin and np.array_equal(back, ids)
+              and np.array_equal(tback, ids),
+              f"the {name} codec and its twin disagree", "5m")
+        out.append(f"{name} {t_run * 1e3:.3f} ms against the twins' "
+                   f"{t_twin * 1e3:.3f} ms")
+    return (f"[5m] host codec: {ran}; encode and decode of {DM_CODEC} "
+            f"doc ids, bytes equal: " + ", ".join(out))
+
+
+def _du(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _s, files in os.walk(path) for f in files)
+
+
+def phase_durability(torch, np, dev, card):
+    """Phase 5m (module docstring); returns the launches of B1, B2, B3."""
+    import tempfile
+
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.cluster.metadata import IndexClosedException
+    from elasticsearch_tpu_torch.index import ivf_cache
+    from elasticsearch_tpu_torch.index import snapshots
+    from elasticsearch_tpu_torch.monitor import kernels
+    from elasticsearch_tpu_torch.ops import adc, bm25_topk, knn_topk
+
+    t_phase = time.perf_counter()
+    launches0 = (bm25_topk.LAUNCHES, knn_topk.LAUNCHES, adc.LAUNCHES)
+    root = tempfile.mkdtemp(prefix="chip_smoke_5m_")
+    da, db = os.path.join(root, "a"), os.path.join(root, "b")
+    lines = [dm_codec(np)]
+    try:
+        # (a) text: bulk into five shards, TTL purged at the refresh
+        docs = wp_docs(np, DM_DOCS, SEED)
+        now_ms = int(time.time() * 1000)
+        ops, expired = dm_text_ops(np, docs, now_ms)
+        ivf_cache.reset()
+        node = Node(name="durable-a", data_path=da, device=dev)
+        node.create_index("logs", {"settings": {
+            "number_of_shards": DM_SHARDS}, "mappings": DM_MAPPING})
+        t = time.perf_counter()
+        resp = node.bulk(ops)
+        t_bulk = time.perf_counter() - t
+        _hold(not resp["errors"], "a bulk item failed", "5m")
+        svc = node.indices["logs"]
+        svc.refresh()
+        purged = sum(s.engine.stats.delete_total for s in svc.shards)
+        live = DM_DOCS - len(expired)
+        _hold(purged == len(expired), f"TTL purged {purged}, "
+              f"{len(expired)} expired", "5m")
+        _hold(node.search("logs", {"size": 0})["hits"]["total"] == live,
+              "the TTL-purged total", "5m")
+        _hold(not any(svc.get_doc(d)["found"] for d in expired[:200]),
+              "an expired doc is found", "5m")
+        bodies = dm_text_bodies(np, SEED + 51)
+        want, _ = dm_answers(torch, node, "logs", bodies)
+        _hold(sum(t for t, _h in want) > 0, "no (a) body matched", "5m")
+        node.close()
+        lines.append(f"[5m] (a) {DM_DOCS} docs by Node.bulk into "
+                     f"{DM_SHARDS} shards: {DM_DOCS / t_bulk:.1f} docs/s; "
+                     f"the refresh purged {purged} docs past their _ttl "
+                     f"(exact); {card}")
+        # restart 1: the translog replay
+        node, got, t_first, n_ops, _f = dm_open(torch, da, dev, "logs",
+                                                bodies, "durable-a1")
+        _hold(got == want, "(a) the answers after the translog replay "
+              "differ", "5m")
+        _hold(n_ops == DM_DOCS + len(expired), f"replayed {n_ops} ops", "5m")
+        lines.append(f"[5m] (a) restart with no flush: {n_ops} translog ops "
+                     f"replayed, first answer after {t_first:.3f} s "
+                     f"({n_ops / t_first:.1f} ops/s); {DM_QUERIES} bodies "
+                     f"equal (hits, scores, totals, _version)")
+        t = time.perf_counter()
+        node.flush("logs")
+        t_flush = time.perf_counter() - t
+        commit_bytes = sum(_du(os.path.join(da, "logs", str(s), "_commit"))
+                           for s in range(DM_SHARDS))
+        node.close()
+        # restart 2: the committed blocks
+        node, got, t_first, n_docs, _f = dm_open(torch, da, dev, "logs",
+                                                 bodies, "durable-a2")
+        _hold(got == want, "(a) the answers after the commit replay "
+              "differ", "5m")
+        _hold(n_docs == live, f"replayed {n_docs} committed docs", "5m")
+        lines.append(f"[5m] (a) flush {t_flush:.3f} s ({commit_bytes} "
+                     f"bytes of commit); restart after it: {n_docs} "
+                     f"committed docs replayed, first answer after "
+                     f"{t_first:.3f} s ({n_docs / t_first:.1f} docs/s); "
+                     f"bodies equal")
+        node_a = node
+
+        # (b) vectors: one ivf_pq shard, the quantizer cold and from blobs
+        vecs = dm_vectors(np, DM_VECS, SEED + 52)
+        ivf_cache.reset()
+        node = Node(name="durable-b", data_path=db, device=dev)
+        node.create_index("vecs", {"settings": {"number_of_shards": 1},
+                                   "mappings": DM_VEC_MAPPING})
+        vops = []
+        for i in range(DM_VECS):
+            vops += [{"index": {"_index": "vecs", "_id": f"v{i}"}},
+                     {"emb": vecs[i].tolist()}]
+        t = time.perf_counter()
+        _hold(not node.bulk(vops)["errors"], "a vector bulk item failed",
+              "5m")
+        t_vbulk = time.perf_counter() - t
+        del vops
+        k0 = kernels.snapshot()
+        t = time.perf_counter()
+        node.refresh("vecs")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t
+        k1 = kernels.snapshot()
+        for c in ("ivf_build", "pq_build"):
+            _hold(k1.get(c, 0) - k0.get(c, 0) == 1, f"(b) {c} at freeze",
+                  "5m")
+        kbodies = dm_knn_bodies(np, vecs, SEED + 53)
+        vwant, _ = dm_answers(torch, node, "vecs", kbodies)
+        ivf = node.indices["vecs"].shards[0].segments[0].vectors["emb"]._ivf
+        lists_per = DM_VECS / ivf.C
+        node.close()
+        lines.append(f"[5m] (b) {DM_VECS} x {DIMS} vectors by Node.bulk: "
+                     f"{DM_VECS / t_vbulk:.1f} docs/s; the refresh with "
+                     f"k-means (C = {ivf.C}, {lists_per:.0f} a list) and "
+                     f"the PQ encode took {t_build:.3f} s")
+        restarts = {}
+        for how in ("hit", "cold"):
+            if how == "cold":
+                shutil.rmtree(os.path.join(db, "_ivf"))
+            k0 = kernels.snapshot()
+            node, got, t_first, n_ops, t_freeze = dm_open(
+                torch, db, dev, "vecs", kbodies, f"durable-b-{how}")
+            k1 = kernels.snapshot()
+            moved = {c: k1.get(c, 0) - k0.get(c, 0)
+                     for c in ("ivf_cache_hit", "pq_cache_hit", "ivf_build",
+                               "pq_build")}
+            want_moved = {"ivf_cache_hit": int(how == "hit"),
+                          "pq_cache_hit": int(how == "hit"),
+                          "ivf_build": int(how == "cold"),
+                          "pq_build": int(how == "cold")}
+            _hold(moved == want_moved, f"(b) {how} restart counters "
+                  f"{moved}", "5m")
+            _hold(got == vwant, f"(b) the knn answers after the {how} "
+                  "restart differ", "5m")
+            restarts[how] = (t_first, t_freeze)
+            if how == "hit":
+                node.close()
+        node_b = node
+        (hit, hit_f), (cold, cold_f) = restarts["hit"], restarts["cold"]
+        lines.append(f"[5m] (b) restart over {n_ops} translog ops: blob "
+                     f"hit {hit:.3f} s to the first answer ({hit_f:.3f} s "
+                     f"of it freezing the segment, the quantizer loaded), "
+                     f"cold k-means {cold:.3f} s ({cold_f:.3f} s freezing, "
+                     f"the quantizer built): the freeze's gap "
+                     f"{cold_f - hit_f:.3f} s; {2 * DM_KNN} brute and "
+                     f"IVF-PQ bodies equal; {card}")
+
+        # (c) snapshots: full, incremental after 1% more writes, restore
+        repo_dir = os.path.join(root, "repo")
+        repo = snapshots.FsRepository("backup", repo_dir)
+        for nd, index, tag in ((node_a, "logs", "a"), (node_b, "vecs", "b")):
+            t = time.perf_counter()
+            snapshots.create_snapshot(nd, repo, f"{tag}1", indices=[index])
+            lines.append(f"[5m] (c) full snapshot of {index}: "
+                         f"{time.perf_counter() - t:.3f} s, repository "
+                         f"{_du(repo_dir)} bytes")
+        new_docs = wp_docs(np, DM_DOCS // DM_NEW, SEED + 54, start=DM_DOCS)
+        for doc_id, src in new_docs:
+            node_a.index("logs", doc_id, src)
+        nvecs = dm_vectors(np, DM_VECS // DM_NEW, SEED + 55)
+        for i, v in enumerate(nvecs):
+            node_b.index("vecs", f"n{i}", {"emb": v.tolist()})
+        for nd, index, tag in ((node_a, "logs", "a"), (node_b, "vecs", "b")):
+            nd.refresh(index)
+            before = set(os.listdir(repo.blob_dir))
+            t = time.perf_counter()
+            snapshots.create_snapshot(nd, repo, f"{tag}2", indices=[index])
+            wrote = len(set(os.listdir(repo.blob_dir)) - before)
+            n_blobs = sum(len(s["blobs"]) for s in repo.get_manifest(
+                f"{tag}2")["indices"][index]["shards"])
+            _hold(0 < wrote < n_blobs, f"(c) the increment of {index} wrote "
+                  f"{wrote} of {n_blobs} blobs", "5m")
+            lines.append(f"[5m] (c) incremental snapshot of {index} after "
+                         f"1/{DM_NEW} more writes: "
+                         f"{time.perf_counter() - t:.3f} s, {wrote} of "
+                         f"{n_blobs} blobs written")
+        ivf_cache.reset()
+        fresh = Node(name="restored", device=dev)
+        k0 = kernels.snapshot()
+        t = time.perf_counter()
+        for tag in ("a1", "b1"):
+            snapshots.restore_snapshot(fresh, repo, tag)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t
+        k1 = kernels.snapshot()
+        _hold(k1.get("ivf_cache_hit", 0) - k0.get("ivf_cache_hit", 0) == 1
+              and k1.get("ivf_build", 0) == k0.get("ivf_build", 0),
+              "(c) the restore ran k-means instead of its seeded blob", "5m")
+        got, _ = dm_answers(torch, fresh, "logs", bodies)
+        _hold(got == want, "(c) the restored text answers differ", "5m")
+        got, _ = dm_answers(torch, fresh, "vecs", kbodies)
+        _hold(got == vwant, "(c) the restored knn answers differ", "5m")
+        fresh.close()
+        lines.append(f"[5m] (c) restore of both full snapshots into a fresh "
+                     f"node: {t_restore:.3f} s ({live + DM_VECS} docs, the "
+                     f"quantizer from the seeded blobs); hits, totals and "
+                     f"versions equal the source's")
+        node_b.close()
+
+        # (d) the admin surface on (a)'s index
+        node = node_a
+        node.close_index("logs")
+        try:
+            node.search("logs", {"size": 0})
+            _hold(False, "(d) a closed index answered", "5m")
+        except IndexClosedException:
+            pass
+        node.open_index("logs")
+        node.update_aliases([{"add": {"index": "logs", "alias": "g3",
+                                      "filter": {"term": {"tag": "g3"}}}}])
+        for b in bodies[:8]:
+            via = node.search("g3", copy.deepcopy(b))
+            direct = node.search("logs", {"query": {"bool": {
+                "must": [b["query"]], "filter": [{"term": {"tag": "g3"}}]}},
+                "size": 10})
+            _hold([h["_id"] for h in via["hits"]["hits"]]
+                  == [h["_id"] for h in direct["hits"]["hits"]]
+                  and via["hits"]["total"] == direct["hits"]["total"],
+                  "(d) the alias filter", "5m")
+        node.put_template("t", {"template": "tmpl-*", "order": 1,
+                                "settings": {"number_of_shards": 2},
+                                "mappings": {"properties": {
+                                    "k": {"type": "keyword"}}}})
+        node.create_index("tmpl-1")
+        _hold(node.indices["tmpl-1"].num_shards == 2
+              and node.indices["tmpl-1"].mappings.get("k") is not None,
+              "(d) the template at create", "5m")
+        node.put_mapping("logs", {"properties": {"extra": {
+            "type": "keyword"}}})
+        node.index("logs", "x1", {"body": "t0", "extra": "put"})
+        node.refresh("logs")
+        _hold(node.search("logs", {"query": {"term": {"extra": "put"}}})[
+            "hits"]["total"] == 1, "(d) the mappings PUT", "5m")
+        before = node.indices["logs"].stats()["primaries"]["search"].get(
+            "groups", {})
+        for i, b in enumerate(bodies):
+            groups = list(DM_GROUPS[: 1 + i % 2])
+            node.search("logs", dict(copy.deepcopy(b), stats=groups))
+        after = node.indices["logs"].stats()["primaries"]["search"]["groups"]
+        for g, n_req in ((DM_GROUPS[0], DM_QUERIES),
+                         (DM_GROUPS[1], DM_QUERIES // 2)):
+            got_q = after[g]["query_total"] - before.get(g, {}).get(
+                "query_total", 0)
+            _hold(got_q == n_req * DM_SHARDS, f"(d) group {g}: {got_q} "
+                  f"queries, {n_req * DM_SHARDS} sent", "5m")
+        lines.append(f"[5m] (d) close/open, an alias with a filter, a "
+                     f"template at create, a mappings PUT and the stats "
+                     f"groups ({DM_QUERIES} and {DM_QUERIES // 2} bodies, "
+                     f"x{DM_SHARDS} shards) exact")
+        node.close()
+    finally:
+        ivf_cache.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    for ln in lines:
+        log(ln)
+    b1, b2, b3 = (bm25_topk.LAUNCHES - launches0[0],
+                  knn_topk.LAUNCHES - launches0[1],
+                  adc.LAUNCHES - launches0[2])
+    _hold(b1 > 0 and b2 > 0 and b3 > 0, f"5m launched B1 {b1}, B2 {b2}, "
+          f"B3 {b3} times", "5m")
+    log(f"[5m] B1 launched {b1}, B2 {b2}, B3 {b3} times; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return b1, b2, b3
+
+
 def _cprofile_rows(st, key, n, per=1):
     """The top ``n`` of a pstats.Stats by ``key`` ("cum" or "own") as
     lines of calls, own ms, cumulative ms (each divided by ``per``) and
@@ -6979,6 +7416,11 @@ def main() -> int:
     launches["bm25_dense_topk"] += phase_joins_geo(torch, np, dev, card)
     torch.cuda.empty_cache()
     launches["bm25_dense_topk"] += phase_a9d(torch, np, dev, card)
+    torch.cuda.empty_cache()
+    b1, b2, b3 = phase_durability(torch, np, dev, card)
+    launches["bm25_dense_topk"] += b1
+    launches["knn_topk"] += b2
+    launches["adc_scores"] += b3
     torch.cuda.empty_cache()
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card),
               "knn_topk": timing_knn(torch, dev, card),

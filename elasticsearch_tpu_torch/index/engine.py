@@ -11,11 +11,27 @@ segment with too many deletes, into one new segment built on the
 node's device from the live docs' sources; ``merge()`` with no subset
 is the force merge. ``update`` merges a partial doc or runs an update
 script over the current source and re-indexes it, keeping its routing,
-type and parent. TTL purging, peer recovery and replication are not in
-the port yet (ROADMAP A10).
+type and parent. Docs whose ``_ttl`` expiry has passed are purged (as
+deletes through the translog) at each refresh and merge; a merge checks
+for cancellation between the segments it reads.
+
+``flush`` is a durable commit: it refreshes, writes each frozen
+segment's doc block (``index/snapshots.py``'s ``_segment_payload``, the
+IVF/PQ blobs with it) as a content-addressed blob under
+``<shard>/_commit/blobs/``, then ``commit.json`` naming them with the
+live versions and the max seq no (through a temporary file and
+``os.replace``), and only then lets the translog drop its generations.
+``recover_from_commit`` replays the committed blocks, one segment each,
+and ``recover_from_translog`` then skips the ops the commit already
+holds (seq no at or below its max), so a crash between the commit point
+and the translog's commit replays nothing twice. The reference's flush
+drops the translog with no segment on disk, losing every flushed doc at
+restart (ROADMAP C12). Peer recovery and replication are not in the port
+yet (ROADMAP A10c).
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -33,6 +49,7 @@ from elasticsearch_tpu_torch.index.seqno import (NO_OPS_PERFORMED,
                                                  LocalCheckpointTracker)
 from elasticsearch_tpu_torch.index.translog import Translog
 from elasticsearch_tpu_torch.resources.residency import Residency
+from elasticsearch_tpu_torch.tracing.tasks import check_cancelled
 from elasticsearch_tpu_torch.utils.errors import (
     ActionRequestValidationException, CircuitBreakingException,
     DocumentMissingException, EngineFailedException, ScriptException,
@@ -51,6 +68,9 @@ class DocLocation:
     doc_type: Optional[str] = None
     parent: Optional[str] = None
     routing: Optional[str] = None
+    # the resolved _timestamp and _ttl expiry (epoch millis)
+    timestamp: Optional[int] = None
+    ttl_expiry: Optional[int] = None
     seq_no: int = UNASSIGNED_SEQ_NO
     term: int = 0
 
@@ -61,6 +81,8 @@ class EngineStats:
     delete_total: int = 0
     get_total: int = 0
     refresh_total: int = 0
+    flush_total: int = 0
+    index_time_ms: float = 0.0
     # ES 2.0's merge stats: merges run, docs they wrote, their time
     merge_total: int = 0
     merge_docs: int = 0
@@ -79,6 +101,12 @@ class Engine:
         self.residency = residency
         self.parser = DocumentParser(mappings, analysis)
         self.translog = Translog(translog_path)
+        # the durable commit sits beside the translog (flush)
+        self.commit_dir = (os.path.join(os.path.dirname(translog_path),
+                                        "_commit")
+                           if translog_path else None)
+        # the commit's max seq no: translog ops at or below it are in it
+        self._committed_seq = NO_OPS_PERFORMED
         self.buffer = SegmentBuilder(mappings, residency)
         self.segments: List[TpuSegment] = []
         self._locations: Dict[str, DocLocation] = {}
@@ -135,12 +163,16 @@ class Engine:
               version: Optional[int] = None, version_type: str = "internal",
               op_type: str = "index", routing: Optional[str] = None,
               doc_type: Optional[str] = None, parent: Optional[str] = None,
+              timestamp: Optional[Any] = None, ttl: Optional[Any] = None,
+              ttl_expiry: Optional[int] = None,
               seq_no: Optional[int] = None,
               primary_term: Optional[int] = None,
               _replay: bool = False) -> Tuple[str, int, bool]:
         """Index/create a document. Returns (id, new_version, created).
         ``parent`` is a child's parent id (its ``_parent`` doc value); a
         doc with nested objects joins the buffer as one block.
+        ``timestamp``/``ttl`` feed the ``_timestamp``/``_ttl`` meta
+        fields; ``ttl_expiry`` is a resolved expiry a replay carries.
 
         Internal versioning requires the given version to equal the
         current one; external requires it to be strictly greater (gte
@@ -176,7 +208,9 @@ class Engine:
                 new_version = (loc.version if loc else 0) + 1
 
             parsed = self.parser.parse(doc_id, source, routing=routing,
-                                       doc_type=doc_type, parent=parent)
+                                       doc_type=doc_type, parent=parent,
+                                       timestamp=timestamp, ttl=ttl,
+                                       ttl_expiry=ttl_expiry)
             # seq no after validation: a rejected op consumes no number
             if seq_no is None:
                 seq_no = self.seq.generate()
@@ -186,6 +220,8 @@ class Engine:
                 version=new_version, where="buffer",
                 local_id=self._buffer_ids[doc_id], source=source,
                 doc_type=doc_type, parent=parent, routing=routing,
+                timestamp=parsed.meta.get("timestamp"),
+                ttl_expiry=parsed.meta.get("ttl_expiry"),
                 seq_no=seq_no, term=op_term)
             if not _replay:
                 entry = {"op": "index", "id": doc_id, "source": source,
@@ -195,9 +231,14 @@ class Engine:
                     entry["doc_type"] = doc_type
                 if parent:
                     entry["parent"] = parent
+                # resolved meta values: a replay must not re-resolve "now"
+                for key in ("timestamp", "ttl_expiry"):
+                    if key in parsed.meta:
+                        entry[key] = parsed.meta[key]
                 self._translog_append(entry)
             self._note_op(op_term, seq_no)
             self.stats.index_total += 1
+            self.stats.index_time_ms += (time.perf_counter() - t0) * 1e3
             return doc_id, new_version, not exists
 
     def delete(self, doc_id: str, version: Optional[int] = None,
@@ -374,6 +415,10 @@ class Engine:
         loc = self._locations.get(str(doc_id))
         return None if loc is None or loc.deleted else loc.version
 
+    def exists(self, doc_id: str) -> bool:
+        loc = self._locations.get(str(doc_id))
+        return loc is not None and not loc.deleted
+
     @property
     def num_docs(self) -> int:
         with self._lock:
@@ -381,14 +426,47 @@ class Engine:
 
     # -- lifecycle -------------------------------------------------------------
 
-    def refresh(self) -> bool:
-        """Freeze the buffer into a new searchable segment (NRT refresh),
-        then run the merge check. A refresh that freezes nothing runs it
-        too when segments lost docs since the last one, as Lucene's NRT
-        reopen does after it applies deletes (the reference returns
-        first, so its deletion-heavy segments wait for the next write).
+    def purge_expired(self) -> int:
+        """Delete the docs whose ``_ttl`` expiry has passed (ES's TTL
+        purger; here at each refresh and merge) through the ordinary
+        delete path, so versions and the translog stay consistent.
+        Returns how many were deleted."""
+        if not self.mappings._ttl_enabled or self.failed_reason is not None:
+            return 0
+        now = int(time.time() * 1000)
+        expired: List[str] = []
+        with self._lock:
+            for seg in self.segments:
+                col = seg.numerics.get("_ttl")
+                if col is None or col.exact is None:
+                    continue
+                n = seg.num_docs
+                hit = np.nonzero(seg.live_host[:n] & col.exists_host[:n]
+                                 & (col.exact[:n] < now))[0]
+                expired.extend(seg.ids[int(i)] for i in hit)
+            for d in self.buffer.docs:
+                if d is not None and d.doc_values.get("_ttl") \
+                        and d.doc_values["_ttl"][0] < now:
+                    expired.append(d.doc_id)
+            for doc_id in expired:
+                try:
+                    self.delete(doc_id)
+                except DocumentMissingException:
+                    pass
+        return len(expired)
+
+    def refresh(self, _replay: bool = False) -> bool:
+        """Purge expired docs, freeze the buffer into a new searchable
+        segment (NRT refresh), then run the merge check. A refresh that
+        freezes nothing runs it too when segments lost docs since the
+        last one, as Lucene's NRT reopen does after it applies deletes
+        (the reference returns first, so its deletion-heavy segments wait
+        for the next write). ``_replay`` (a committed block's replay)
+        only freezes, so the committed layout comes back as it was.
         Returns whether a segment was frozen or merged."""
         with self._lock:
+            if not _replay:
+                self.purge_expired()
             # roots only: a root re-adds its block; a replaced root leaves
             # its nested docs behind as orphans, which go with the buffer
             live_docs = [d for d, p in zip(self.buffer.docs,
@@ -418,10 +496,45 @@ class Engine:
                     loc.source = None
             self.buffer = SegmentBuilder(self.mappings, self.residency)
             self._buffer_ids.clear()
+            if _replay:
+                return True
             self.stats.refresh_total += 1
             self._deletes_pending = False
             self.maybe_merge()
             return True
+
+    def flush(self) -> None:
+        """Refresh, write the durable commit (module doc), then commit the
+        translog, then drop the commit blobs no longer named. Without a
+        data path there is nothing on disk: the in-memory translog
+        clears."""
+        from elasticsearch_tpu_torch.index.snapshots import (gc_commit,
+                                                             write_commit)
+
+        with self._lock:
+            self._ensure_open()
+            self.refresh()
+            commit = None
+            if self.commit_dir is not None:
+                commit = write_commit(
+                    self.commit_dir, self.segments,
+                    {d: (l.version, l.seq_no, l.term)
+                     for d, l in self._locations.items() if not l.deleted},
+                    {d: (l.version, l.seq_no, l.term)
+                     for d, l in self._locations.items() if l.deleted},
+                    self.max_seq_no, self.primary_term)
+            try:
+                self.translog.commit()
+            except OSError as e:
+                # the commit point is down, so no acknowledged op is lost;
+                # the engine fails as on a failed append
+                self.failed_reason = f"translog commit failed: {e}"
+                raise EngineFailedException(self.index_name,
+                                            self.failed_reason) from e
+            if commit is not None:
+                gc_commit(self.commit_dir, commit)
+            self._committed_seq = self.max_seq_no
+            self.stats.flush_total += 1
 
     def merge(self, max_segments: Optional[int] = None,
               subset: Optional[List[TpuSegment]] = None) -> bool:
@@ -431,6 +544,7 @@ class Engine:
         every segment in order into one (nothing to do at or below
         ``max_segments``). Returns whether it merged."""
         with self._lock:
+            self.purge_expired()
             if subset is None and len(self.segments) <= (max_segments or 1):
                 return False
             t0 = time.perf_counter()
@@ -439,6 +553,9 @@ class Engine:
             target_ids = {s.seg_id for s in targets}
             builder = SegmentBuilder(self.mappings, self.residency)
             for seg in targets:
+                # a cancelled merge (a force merge's task) stops before the
+                # freeze: nothing is swapped in, nothing is lost
+                check_cancelled()
                 # live roots only, each re-parsed into its whole block
                 keep = seg.live_host[: seg.num_docs]
                 if seg.roots_host is not None:
@@ -449,7 +566,9 @@ class Engine:
                         seg.ids[local], seg.sources[local],
                         routing=meta.get("routing"),
                         doc_type=meta.get("_type"),
-                        parent=meta.get("_parent")))
+                        parent=meta.get("_parent"),
+                        timestamp=meta.get("timestamp"),
+                        ttl_expiry=meta.get("ttl_expiry")))
             merged = builder.freeze()
             keep = [s for s in self.segments if s.seg_id not in target_ids]
             # release, then charge: a merge nets memory down, so its charge
@@ -493,10 +612,67 @@ class Engine:
                     self._locations[doc_id] = DocLocation(
                         version=1, where=seg.seg_id, local_id=local)
 
+    def recover_from_commit(self) -> int:
+        """Replay the durable commit, if there is one: each committed block
+        is parsed into the buffer and frozen as one segment, its deleted
+        docs deleted again, so the segments come back as they were
+        written; each live doc keeps its version, seq no and term, and
+        the tombstones their versions. The seq-no tracker advances to the
+        commit's max. Returns the live docs replayed."""
+        from elasticsearch_tpu_torch.index.snapshots import (commit_payloads,
+                                                             read_commit)
+
+        commit = read_commit(self.commit_dir) if self.commit_dir else None
+        if commit is None:
+            return 0
+        docs = commit["docs"]
+        n = 0
+        with self._lock:
+            for payload, dead in zip(commit_payloads(
+                    self.commit_dir, commit, self.residency.blob_dir),
+                                     commit["dead"]):
+                dead = set(dead)
+                for doc in payload["docs"]:
+                    meta = doc.get("meta") or {}
+                    parsed = self.parser.parse(
+                        doc["id"], doc["source"], routing=meta.get("routing"),
+                        doc_type=meta.get("_type"),
+                        parent=meta.get("_parent"),
+                        timestamp=meta.get("timestamp"),
+                        ttl_expiry=meta.get("ttl_expiry"))
+                    local = self.buffer.add(parsed)
+                    if doc["id"] in dead:
+                        continue
+                    version, seq_no, term = docs[doc["id"]]
+                    self._buffer_ids[doc["id"]] = local
+                    self._locations[doc["id"]] = DocLocation(
+                        version=version, where="buffer", local_id=local,
+                        source=doc["source"], doc_type=meta.get("_type"),
+                        parent=meta.get("_parent"),
+                        routing=meta.get("routing"),
+                        timestamp=parsed.meta.get("timestamp"),
+                        ttl_expiry=parsed.meta.get("ttl_expiry"),
+                        seq_no=seq_no, term=term)
+                    self._note_op(term, seq_no)
+                    n += 1
+                if self.refresh(_replay=True):
+                    seg = self.segments[-1]
+                    for doc_id in dead:
+                        seg.delete_local(seg.id_map[doc_id])
+            for doc_id, (version, seq_no, term) in commit["deleted"].items():
+                self._locations[doc_id] = DocLocation(
+                    version=version, deleted=True, where=None,
+                    seq_no=seq_no, term=term)
+            self.seq.advance_to(commit["max_seq_no"])
+            self.primary_term = max(self.primary_term, commit["term"])
+            self._committed_seq = commit["max_seq_no"]
+        return n
+
     def recover_from_translog(self) -> int:
         """Replay the translog; frames carry (term, seq_no), so replay
-        restores the seq-no tracker and the primary term. Returns ops
-        replayed."""
+        restores the seq-no tracker and the primary term. An op whose seq
+        no is at or below the commit's max is already in the commit and is
+        skipped. Returns ops replayed."""
         replayed = 0
         max_term = 0
         with self._lock:
@@ -504,10 +680,14 @@ class Engine:
                 max_term = max(max_term, op.get("term", 0))
                 seq = op.get("seq_no", UNASSIGNED_SEQ_NO)
                 seq = UNASSIGNED_SEQ_NO if seq is None else seq
+                if 0 <= seq <= self._committed_seq:
+                    continue
                 if op["op"] == "index":
                     self.index(op["id"], op["source"], routing=op.get("routing"),
                                doc_type=op.get("doc_type"),
-                               parent=op.get("parent"), seq_no=seq,
+                               parent=op.get("parent"),
+                               timestamp=op.get("timestamp"),
+                               ttl_expiry=op.get("ttl_expiry"), seq_no=seq,
                                primary_term=op.get("term"), _replay=True)
                     self._locations[op["id"]].version = op["version"]
                     replayed += 1
@@ -521,6 +701,25 @@ class Engine:
                         pass
             self.primary_term = max(self.primary_term, max_term)
         return replayed
+
+    def apply_translog_op(self, op: dict) -> None:
+        """Apply one foreign translog op (an ops-based recovery stream):
+        the op's version rides ``external_gte``, so a newer state already
+        here wins, and its (term, seq no) is kept. Raises
+        VersionConflictException or DocumentMissingException for the
+        caller to count as a skip."""
+        vt = "external_gte" if op.get("version") is not None else "internal"
+        if op["op"] == "delete":
+            self.delete(op["id"], version=op.get("version"), version_type=vt,
+                        seq_no=op.get("seq_no"), primary_term=op.get("term"),
+                        _replay=True)
+            return
+        self.index(op["id"], op["source"], version=op.get("version"),
+                   version_type=vt, routing=op.get("routing"),
+                   doc_type=op.get("doc_type"), parent=op.get("parent"),
+                   timestamp=op.get("timestamp"),
+                   ttl_expiry=op.get("ttl_expiry"), seq_no=op.get("seq_no"),
+                   primary_term=op.get("term"), _replay=True)
 
     def _charge_segment(self, seg: TpuSegment) -> None:
         """Charge a segment to the ``segments`` breaker; a denial fails

@@ -26,8 +26,20 @@ rebuilt after a translog replay; dropped on delete); ``percolate`` runs
 them against a doc. ``update_doc`` merges a partial doc or runs a
 script (a percolator doc takes partial updates only, re-registered);
 ``mget``, ``count`` and ``find_doc_locations`` (every live copy of an id,
-for by-query) serve the rest of the write tail. The slowlog and replicas
-are not ported yet (ROADMAP A10).
+for by-query) serve the rest of the write tail.
+
+An index on a data path recovers on open: each shard replays its
+durable commit and then its translog (``index/recovery.py``), recorded
+in ``recoveries`` as a ``gateway`` entry. ``flush`` commits every shard
+(``Engine.flush``). A closed index (``closed``, set by
+``cluster/metadata.py``) refuses reads and writes, as do the
+``blocks.*`` settings. ``aliases`` maps each alias to its spec
+(``filter``, ``index_routing``, ``search_routing``), applied by the
+node. ``stats()`` is ES's index stats: every shard's docs, indexing,
+search (with the groups a body's ``stats`` key names), refresh, flush,
+merges, segments, fielddata and translog, summed over the primaries,
+and the index's recovery gauges. The slowlog and replicas are not ported
+yet (ROADMAP A10c).
 """
 from __future__ import annotations
 
@@ -38,13 +50,17 @@ import re
 import threading
 import uuid
 from collections import OrderedDict
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from elasticsearch_tpu_torch.analysis.registry import AnalysisRegistry
+from elasticsearch_tpu_torch.cluster.metadata import check_open
 from elasticsearch_tpu_torch.cluster.routing import shard_id_for
 from elasticsearch_tpu_torch.index.engine import _deep_merge
 from elasticsearch_tpu_torch.index.mappings import Mappings
+from elasticsearch_tpu_torch.index.recovery import (RecoveryRegistry,
+                                                    recover_local)
 from elasticsearch_tpu_torch.index.shard import IndexShard
+from elasticsearch_tpu_torch.monitor.stats import aggregate_recovery
 from elasticsearch_tpu_torch.parallel.executor import MeshSearchExecutor
 from elasticsearch_tpu_torch.parallel.mesh import shard_mesh
 from elasticsearch_tpu_torch.parallel.mesh_service import try_mesh_search
@@ -88,6 +104,10 @@ class IndexService:
         self.analysis = AnalysisRegistry(self.settings)
         self.mappings = Mappings(mappings_json or {})
         self._validate_analyzers()
+        self.aliases: Dict[str, dict] = {}
+        self.closed = False
+        self.data_path = data_path
+        self.recoveries = RecoveryRegistry()
         self.shards: List[IndexShard] = [
             IndexShard(name, i, self.mappings, self.analysis, residency,
                        data_path)
@@ -98,9 +118,19 @@ class IndexService:
         self.query_cache_stats = {"hits": 0, "misses": 0, "evictions": 0}
         self._percolator: Optional[PercolatorRegistry] = None
         if data_path:
-            for shard in self.shards:
-                shard.recover()
-            self._register_recovered_percolators()
+            try:
+                self.recover()
+            except Exception:
+                self.close()  # the shards' translogs and device charges
+                raise
+
+    def recover(self) -> None:
+        """Gateway recovery: every shard replays its commit and its
+        translog (a ``gateway`` entry each), then the percolator registry
+        is rebuilt from the replayed docs."""
+        for shard in self.shards:
+            recover_local(shard, self.recoveries)
+        self._register_recovered_percolators()
 
     def _register_recovered_percolators(self) -> None:
         """Rebuild the percolator registry from the replayed docs; a doc
@@ -117,14 +147,16 @@ class IndexService:
                     except Exception:
                         pass
 
-    def _validate_analyzers(self):
-        """Reject mappings naming analyzers the registry can't build."""
+    def _validate_analyzers(self, mappings: Optional[Mappings] = None):
+        """Reject mappings (the index's, or a trial merge of a mappings
+        PUT) naming analyzers the registry can't build."""
+        mappings = mappings if mappings is not None else self.mappings
         try:
             self.analysis.validate()
         except (ValueError, KeyError, TypeError) as e:
             raise IllegalArgumentException(
                 f"failed to build analysis components: {e}") from e
-        for name, fm in self.mappings.fields.items():
+        for name, fm in mappings.fields.items():
             if not fm.is_text:
                 continue
             for an in (fm.analyzer, fm.search_analyzer):
@@ -141,6 +173,7 @@ class IndexService:
 
     def index_doc(self, doc_id: Optional[str], source: dict,
                   routing: Optional[str] = None, **kw) -> dict:
+        check_open(self)
         if doc_id is None:
             doc_id = uuid.uuid4().hex[:20]
         self._check_routing_required(doc_id, kw.get("doc_type"),
@@ -182,6 +215,7 @@ class IndexService:
 
     def get_doc(self, doc_id: str, routing: Optional[str] = None,
                 realtime: bool = True) -> dict:
+        check_open(self, op="read")
         got = self.route(doc_id, routing).engine.get(doc_id, realtime=realtime)
         if got is None:
             return {"_index": self.name, "_type": "_doc", "_id": doc_id,
@@ -191,6 +225,7 @@ class IndexService:
 
     def delete_doc(self, doc_id: str, routing: Optional[str] = None,
                    **kw) -> dict:
+        check_open(self)
         engine = self.route(doc_id, routing).engine
         loc = engine._locations.get(str(doc_id))
         dtype = loc.doc_type if loc is not None and loc.doc_type else "_doc"
@@ -213,6 +248,7 @@ class IndexService:
         ``upsert``, ``doc_as_upsert``, ``scripted_upsert``. A percolator
         doc takes partial updates only: the merged query is validated
         before the write and re-registered after."""
+        check_open(self)
         engine = self.route(doc_id, routing).engine
         loc = engine._locations.get(str(doc_id))
         is_perc = loc is not None and not loc.deleted \
@@ -292,6 +328,8 @@ class IndexService:
         of them (ES's suggest action and the search-embedded phase)."""
         shards = self.shards if shard_ids is None \
             else [self.shards[i] for i in shard_ids]
+        for sh in shards:
+            sh.searcher.stats.on_suggest()
         return execute_suggest(shards, body or {}, self.analysis,
                                mappings=self.mappings)
 
@@ -358,6 +396,12 @@ class IndexService:
     def refresh(self):
         for s in self.shards:
             s.refresh()
+        self._drop_retired()
+
+    def flush(self) -> None:
+        """Commit every shard durably (``Engine.flush``)."""
+        for s in self.shards:
+            s.engine.flush()
         self._drop_retired()
 
     def force_merge(self, max_num_segments: int = 1) -> None:
@@ -443,12 +487,21 @@ class IndexService:
 
     # -- search -----------------------------------------------------------------
 
-    def search(self, body: dict) -> dict:
+    def routing_shards(self, routing: str) -> List[IndexShard]:
+        """The shards a comma list of routing values routes to."""
+        ids = {shard_id_for("", self.num_shards, r.strip())
+               for r in str(routing).split(",")}
+        return [self.shards[i] for i in sorted(ids)]
+
+    def search(self, body: dict, routing: Optional[str] = None) -> dict:
         """One index's search; ``search_type: dfs_query_then_fetch`` runs
-        the dfs phase first."""
+        the dfs phase first. ``routing`` (an alias's search routing)
+        searches only the shards it routes to, on the host loop."""
+        check_open(self, op="read")
         body = body or {}
         dfs = body.get("search_type") == "dfs_query_then_fetch"
-        qc_key = None if dfs else self._query_cache_key(body)
+        qc_key = None if dfs or routing is not None \
+            else self._query_cache_key(body)
         if qc_key is not None:
             with self._qc_lock:
                 hit = self._query_cache.get(qc_key)
@@ -468,9 +521,11 @@ class IndexService:
             if q2 is not body["query"]:
                 body = dict(body, query=q2)
         gs = self.global_stats() if dfs else None
-        searchers = [s.searcher for s in self.shards]
+        shards = self.shards if routing is None \
+            else self.routing_shards(routing)
+        searchers = [s.searcher for s in shards]
         resp = None
-        if self._mesh_enabled():
+        if routing is None and self._mesh_enabled():
             # the default path; the host loop serves what the mesh declines
             resp = try_mesh_search(self, searchers, body, gs)
         if resp is None:
@@ -518,8 +573,33 @@ class IndexService:
     def num_docs(self) -> int:
         return sum(s.engine.num_docs for s in self.shards)
 
+    def stats(self) -> dict:
+        """ES's index stats: each shard's, their sums over the primaries,
+        and the recovery gauges."""
+        shards = [s.stats() for s in self.shards]
+        primaries = {"docs": {"count": 0}, "segments": {}, "indexing": {},
+                     "search": {}, "refresh": {}, "flush": {}, "merges": {},
+                     "fielddata": {}, "translog": {}}
+        for st in shards:
+            for sec in primaries:
+                _merge_counters(primaries[sec], st[sec])
+        return {"primaries": primaries,
+                "shards": {str(i): st for i, st in enumerate(shards)},
+                "recovery": aggregate_recovery([self])}
+
     def close(self):
         if self._mesh_executor is not None:
             self._mesh_executor.close()
         for s in self.shards:
             s.close()
+
+
+def _merge_counters(dst: dict, src: dict) -> None:
+    """Sum numeric counters recursively (other values: the first wins)."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _merge_counters(dst.setdefault(k, {}), v)
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            dst[k] = dst.get(k, 0) + v
+        else:
+            dst.setdefault(k, v)

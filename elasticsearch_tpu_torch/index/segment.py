@@ -11,7 +11,8 @@ searchable structure as a padded tensor on the owning node's device:
   values keep an exact int32 (hi, lo) pair for range masks);
 - per dense_vector field a ``[max_docs, dims]`` f32 slab with its exists
   mask, and per its ``index_options`` an IVF quantizer and a PQ tier,
-  built at freeze on the slab's device;
+  loaded at freeze from the content-addressed blob cache
+  (``index/ivf_cache.py``) or built on the slab's device and stored;
 - the live mask (host-authoritative, device copy refreshed lazily);
 - ``_source``, ids and stored fields stay on the host.
 
@@ -27,8 +28,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from elasticsearch_tpu_torch.index import ivf_cache
 from elasticsearch_tpu_torch.index.doc_parser import ParsedDocument
 from elasticsearch_tpu_torch.index.mappings import Mappings
+from elasticsearch_tpu_torch.monitor import kernels
 from elasticsearch_tpu_torch.ops.scoring import f64_order_keys
 from elasticsearch_tpu_torch.resources.residency import Residency
 from elasticsearch_tpu_torch.utils.shapes import pad_to, pow2_bucket
@@ -246,7 +249,9 @@ class SortKeys:
 @dataclass
 class VectorColumn:
     """A dense_vector field: the slab and, built once on first use (at
-    freeze when the mapping asks for ANN), its IVF and PQ tiers."""
+    freeze when the mapping asks for ANN), its IVF and PQ tiers. A build
+    first looks in the content-addressed blob cache
+    (``index/ivf_cache.py``) and stores what it built there."""
 
     name: str
     vecs: Any  # f32[max_docs, dims] device, charged to fielddata
@@ -260,21 +265,45 @@ class VectorColumn:
     # else a PqIndex; the built parts are kept so a retry only places
     _pq: Any = None
     _pq_parts: Any = None
+    # the slab's content key, memoised for its max_docs (the slab is
+    # immutable, and hashing it is host time)
+    _ck: Any = None
+    _ck_max: int = -1
+
+    def cache_key(self, max_docs: int, host=None) -> str:
+        """The blob cache's key of this slab; ``host`` gives the slab's
+        (vectors, exists) host arrays when the caller holds them, else
+        they are copied off the device."""
+        if self._ck is None or self._ck_max != max_docs:
+            vh, eh = host if host is not None else (
+                self.vecs.cpu().numpy(), self.exists.cpu().numpy())
+            self._ck = ivf_cache.content_key(vh, eh, self.similarity,
+                                             max_docs)
+            self._ck_max = max_docs
+        return self._ck
 
     def get_ivf(self, max_docs: int):
-        """The IVF index over this immutable slab, built once."""
+        """The IVF index over this immutable slab: a cached blob, else
+        built once (and stored)."""
         if self._ivf is None:
             from elasticsearch_tpu_torch.ops.ivf import build_ivf
 
-            idx = build_ivf(self.vecs, self.exists, max_docs,
-                            metric=self.similarity,
-                            place=self.residency.device_put)
+            key = self.cache_key(max_docs)
+            idx = ivf_cache.load(key, place=self.residency.device_put)
+            if idx is None:
+                idx = build_ivf(self.vecs, self.exists, max_docs,
+                                metric=self.similarity,
+                                place=self.residency.device_put)
+                if idx is not None:
+                    kernels.record("ivf_build")
+                    ivf_cache.store(key, idx, self.residency.blob_dir)
             self._ivf = idx if idx is not None else False
         return self._ivf or None
 
     def get_pq(self, max_docs: int):
-        """The PQ tier over this slab, built once; its placement is
-        best-effort (None while the fielddata breaker denies it)."""
+        """The PQ tier over this slab: cached host parts, else trained
+        and encoded once (and stored); its placement is best-effort (None
+        while the fielddata breaker denies it)."""
         if self._pq is False:
             return None
         if self._pq is not None:
@@ -282,10 +311,15 @@ class VectorColumn:
         from elasticsearch_tpu_torch.ops.pq import build_pq, place_pq
 
         if self._pq_parts is None:
-            parts = build_pq(self.vecs, self.exists, self.similarity)
+            key = self.cache_key(max_docs)
+            parts = ivf_cache.load_pq(key)
             if parts is None:
-                self._pq = False  # too few vectors: permanent decline
-                return None
+                parts = build_pq(self.vecs, self.exists, self.similarity)
+                if parts is None:
+                    self._pq = False  # too few vectors: permanent decline
+                    return None
+                kernels.record("pq_build")
+                ivf_cache.store_pq(key, parts, self.residency.blob_dir)
             self._pq_parts = parts
         idx = place_pq(self._pq_parts, self.residency,
                        label=f"pq[{self.name}]")
@@ -776,8 +810,9 @@ class SegmentBuilder:
         opts = getattr(fm, "index_options", None) if fm is not None else None
         ann = opts.get("type") if isinstance(opts, dict) else None
         # index-time ANN build (as Lucene builds HNSW at flush): refreshes
-        # pay the k-means, never the first query
+        # pay the k-means (or load its blob), never the first query
         if ann in ("ivf", "ivf_flat", "ivf_pq"):
+            vc.cache_key(max_docs, host=(mat, exists))
             vc.get_ivf(max_docs)
         if ann == "ivf_pq":
             vc.get_pq(max_docs)

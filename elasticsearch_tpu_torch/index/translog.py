@@ -39,6 +39,16 @@ class TranslogClosedException(OSError):
     engine's tragic-event handler treats it like any other IO failure."""
 
 
+def fsync_dir(path: str) -> None:
+    """Make the entries of directory ``path`` (a file created, renamed
+    or removed in it) durable, as an fsync makes a file's bytes."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
 class Translog:
     def __init__(self, path: Optional[str], durability: str = "request", sync_interval: float = 5.0):
         """path=None → in-memory only (durability off, e.g. ephemeral tests).
@@ -80,6 +90,7 @@ class Translog:
                     if f.read(1)[0] != _MAGIC:
                         self.generation += 1
             self._fh = open(self._gen_path(self.generation), "ab")
+            fsync_dir(d)  # the generation's entry outlives an OS crash
             # size reflects the CURRENT generation on disk, so a restart
             # with a large un-committed translog reports its real flush
             # pressure (reference: TranslogStats sizeInBytes)
@@ -190,7 +201,8 @@ class Translog:
         """Yield ops from all generations >= from_generation (recovery).
 
         A corrupt tail is DETECTED, reported (this translog's
-        ``corrupt_tail_events`` counter), and replay stops at it — acknowledged ops before the
+        ``corrupt_tail_events`` counter and the process-wide
+        ``monitor.stats.TRANSLOG_RECOVERY``), and replay stops at it — acknowledged ops before the
         tear all replay; nothing after it is half-parsed."""
         if self.path is None:
             yield from list(self._mem)
@@ -198,9 +210,13 @@ class Translog:
         self.sync()
 
         def on_corrupt(path: str, bytes_dropped: int, reason: str) -> None:
+            from elasticsearch_tpu_torch.monitor.stats import \
+                record_corrupt_tail
+
             with self._lock:
                 self._corrupt_tail_events += 1
                 self._corrupt_tail_bytes += int(bytes_dropped)
+            record_corrupt_tail(path, bytes_dropped, reason)
 
         for gen in range(from_generation, self.generation + 1):
             yield from self._iter_file(self._gen_path(gen), on_corrupt)
@@ -296,6 +312,7 @@ class Translog:
             old_gen = self.generation
             self.generation += 1
             self._fh = open(self._gen_path(self.generation), "ab")
+            fsync_dir(os.path.dirname(self.path) or ".")
             self._bytes_written = 0  # fresh generation
             for gen in range(1, old_gen + 1):
                 p = self._gen_path(gen)

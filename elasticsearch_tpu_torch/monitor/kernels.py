@@ -39,6 +39,11 @@ Names the port records:
   span_clause_truncated
                       the host walk cut a clause at MAX_SPANS_PER_CLAUSE
                       spans in a doc (search/spans.py)
+  ivf_cache_hit       an IVF quantizer loaded from the content-addressed
+                      blob cache instead of a k-means (index/ivf_cache.py)
+  pq_cache_hit        a PQ tier loaded from the blob cache
+  ivf_build           an IVF quantizer built by k-means (then stored)
+  pq_build            a PQ tier trained and encoded (then stored)
 """
 from __future__ import annotations
 

@@ -1,34 +1,63 @@
 """Node: the top-level runtime holding indices.
 
-Port of elasticsearch_tpu/node.py, slim: create an index, index / get /
-delete documents, ``bulk`` (index, create, update and delete items, an
-index created on first write), refresh, search over an index
-expression, ``msearch``, close. The node owns the device (``cuda`` unless the caller asks for
-``cpu``), one breaker service, one residency registry, which it passes
-down to every segment, and the serving front-end (``node.serving``): a
-search of one index goes through its coalescer, so that concurrent
-searches run as one batch (``serving/coalescer.py``), and an ``msearch``
-batches its eligible items itself (``search/batch.py``).
+Port of elasticsearch_tpu/node.py: create an index (the matching
+templates applied first, lowest ``order`` first), index / get / delete
+documents, ``bulk`` (index, create, update and delete items, an index
+created on first write), refresh, flush, search over an index
+expression, ``msearch``, the index admin surface (``delete_index``,
+``index_exists``, ``put_mapping``/``get_mapping``, ``update_aliases``,
+``put_template``/``delete_template``, ``close_index``/``open_index``,
+``update_index_settings``), snapshot repositories (``repositories``,
+``index/snapshots.py``), close. The node owns the device (``cuda``
+unless the caller asks for ``cpu``), one breaker service, one residency
+registry, which it passes down to every segment, and the serving
+front-end (``node.serving``): a search of one index goes through its
+coalescer, so that concurrent searches run as one batch
+(``serving/coalescer.py``), and an ``msearch`` batches its eligible
+items itself (``search/batch.py``).
 
-``search`` takes an index expression: a name, a comma list, wildcards,
-``_all``, ``*`` or None. One index keeps the mesh path and the
-coalescer; several run the host loop over all their shards, with the
-dfs statistics summed over every searched index and ``indices_boost``
-applied before the global merge. A body's ``suggest`` over several
-indices runs each index's suggesters and merges their entries
-(``execute_suggest_multi``), as ES 2.0 does; the reference's
-multi-index route drops the key (ROADMAP C10). A name that is no index
-answers 404, also inside a comma list (ES 2.0's answer; the reference
-drops such a name). Aliases and closed indices come with ROADMAP A10.
+On a data path the node is durable: each index's metadata (settings,
+mappings, aliases, closed) is kept in ``<data>/<index>/_meta.json``, the
+JAX package's format, and a new ``Node`` over the same path reopens
+every index there (the gateway): each shard replays its commit and its
+translog. ``<data>/_ivf`` is registered with the IVF/PQ blob cache before
+the replay, so a replayed vector segment loads its quantizer.
+
+``search`` takes an index expression: names, aliases, wildcards,
+``_all``, ``*`` or None. Wildcards skip closed indices; a closed index
+named (or reached through an alias) is refused. An alias's ``filter``
+restricts the hits and its ``search_routing`` the shards searched, and
+its ``index_routing`` routes single-doc operations, as in ES 2.0; the
+reference stores them and applies neither (ROADMAP C13). One index keeps
+the mesh path and the coalescer; several run the host loop over all
+their shards, with the dfs statistics summed over every searched index
+and ``indices_boost`` applied before the global merge. A body's
+``suggest`` over several indices runs each index's suggesters and merges
+their entries (``execute_suggest_multi``), as ES 2.0 does; the
+reference's multi-index route drops the key (ROADMAP C10). A name that
+is neither an index nor an alias answers 404, also inside a comma list
+(ES 2.0's answer; the reference drops such a name).
 """
 from __future__ import annotations
 
+import copy
 import fnmatch
+import json
+import logging
+import os
 import re
-from typing import Dict, List, Optional, Tuple
+import shutil
+import uuid
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from elasticsearch_tpu_torch.cluster import metadata
+from elasticsearch_tpu_torch.cluster.state import (ClusterState,
+                                                   DiscoveryNode,
+                                                   IndexMetadata)
+from elasticsearch_tpu_torch.index import ivf_cache
+from elasticsearch_tpu_torch.index.engine import _deep_merge
 from elasticsearch_tpu_torch.index.index_service import IndexService
 from elasticsearch_tpu_torch.resources.breakers import CircuitBreakerService
 from elasticsearch_tpu_torch.resources.residency import Residency
@@ -45,46 +74,261 @@ from elasticsearch_tpu_torch.utils.errors import (ElasticsearchTpuException,
                                                   IndexAlreadyExistsException,
                                                   IndexNotFoundException)
 
+logger = logging.getLogger(__name__)
+
 
 class Node:
     def __init__(self, name: str = "node-1", data_path: Optional[str] = None,
-                 device: Optional[str] = None):
+                 device: Optional[str] = None,
+                 cluster_name: str = "elasticsearch_tpu"):
         self.device: torch.device = resolve_device(device)
+        self.node_id = uuid.uuid4().hex[:12]
         self.name = name
         self.data_path = data_path
         self.breakers = CircuitBreakerService()
         self.residency = Residency(self.device, self.breakers)
         self.indices: Dict[str, IndexService] = {}
+        # stored search templates (carried by a snapshot's global state)
+        self.search_templates: Dict[str, Any] = {}
+        # snapshot repositories by name (index/snapshots.py::FsRepository)
+        self.repositories: Dict[str, Any] = {}
+        # the indices on disk that the gateway could not reopen, with why
+        self.failed_indices: Dict[str, dict] = {}
+        self.cluster_state = ClusterState(cluster_name)
+        self.cluster_state.add_node(DiscoveryNode(self.node_id, name),
+                                    master=True)
         # cheap to build: the coalescer's drain thread starts on first use
         self.serving = ServingFrontend(self)
+        self._ivf_dir = None
+        if data_path:
+            # the blob cache's disk layer must be in place before the
+            # replay freezes segments, or recovery pays the k-means again
+            self._ivf_dir = os.path.join(data_path, "_ivf")
+            ivf_cache.register(self._ivf_dir)
+            self.residency.blob_dir = self._ivf_dir
+            self._gateway_recover()
+
+    # -- the gateway -----------------------------------------------------------
+
+    def _index_meta_path(self, name: str) -> str:
+        return os.path.join(self.data_path, name, "_meta.json")
+
+    def _persist_index_meta(self, name: str) -> None:
+        """Write the index's metadata beside its shards (without it the
+        translogs are orphans at restart)."""
+        if not self.data_path or name not in self.indices:
+            return
+        svc = self.indices[name]
+        path = self._index_meta_path(name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"settings": svc.settings,
+                       "mappings": svc.mappings.to_json(),
+                       "aliases": svc.aliases,
+                       "closed": bool(svc.closed)}, f)
+        os.replace(tmp, path)
+
+    def _gateway_recover(self) -> None:
+        """Reopen every index under the data path; each replays its
+        shards. An index whose metadata or replay fails does not stop the
+        node from starting: it is logged and kept in ``failed_indices``
+        with its data on disk, so it is neither served nor created over
+        (``delete_index`` drops it)."""
+        if not os.path.isdir(self.data_path):
+            return
+        for name in sorted(os.listdir(self.data_path)):
+            meta_path = self._index_meta_path(name)
+            if not os.path.isfile(meta_path):
+                continue
+            try:
+                with open(meta_path) as f:
+                    meta = json.load(f)
+                svc = IndexService(
+                    name, self.residency, settings=meta.get("settings"),
+                    mappings_json=meta.get("mappings") or {},
+                    data_path=self.data_path, node=self)
+            except Exception as e:
+                logger.error("index [%s] failed to recover from [%s]",
+                             name, self.data_path, exc_info=True)
+                self.failed_indices[name] = {
+                    "type": getattr(e, "error_type", type(e).__name__),
+                    "reason": str(e)}
+                continue
+            svc.aliases = dict(meta.get("aliases", {}))
+            svc.closed = bool(meta.get("closed", False))
+            self._register(svc, meta.get("mappings", {}))
+
+    def _register(self, svc: IndexService, mappings_json: dict) -> None:
+        self.indices[svc.name] = svc
+        self.cluster_state.add_index(
+            IndexMetadata(svc.name, svc.settings, mappings_json,
+                          svc.aliases,
+                          state="close" if svc.closed else "open"),
+            svc.num_shards, self.node_id)
+
+    # -- index admin -------------------------------------------------------------
 
     def create_index(self, name: str, body: Optional[dict] = None) -> dict:
-        if name in self.indices:
+        if name in self.indices or name in self.failed_indices:
             raise IndexAlreadyExistsException(name)
         _validate_index_name(name)
         body = body or {}
-        self.indices[name] = IndexService(
-            name, self.residency, settings=dict(body.get("settings", {})),
-            mappings_json=dict(body.get("mappings", {})),
-            data_path=self.data_path, node=self)
+        aliases = copy.deepcopy(dict(body.get("aliases", {})))
+        # the templates whose pattern matches, lowest order first; the
+        # body's own settings and mappings merge last
+        tmpls = sorted(
+            (t for t in self.cluster_state.templates.values()
+             if any(fnmatch.fnmatch(name, pat) for pat in
+                    t.get("index_patterns", [t.get("template", "")]))),
+            key=lambda t: t.get("order", 0))
+        settings: dict = {}
+        mappings: dict = {}
+        for t in tmpls:
+            _deep_merge(settings, copy.deepcopy(t.get("settings", {})))
+            _deep_merge(mappings, copy.deepcopy(t.get("mappings", {})))
+            aliases.update(copy.deepcopy(t.get("aliases", {})))
+        _deep_merge(settings, copy.deepcopy(dict(body.get("settings", {}))))
+        _deep_merge(mappings, copy.deepcopy(dict(body.get("mappings", {}))))
+        svc = IndexService(name, self.residency, settings=settings,
+                           mappings_json=mappings, data_path=self.data_path,
+                           node=self)
+        svc.aliases = {a: _alias_spec(spec) for a, spec in aliases.items()}
+        self._register(svc, mappings)
+        self._persist_index_meta(name)
         return {"acknowledged": True, "shards_acknowledged": True,
                 "index": name}
 
-    def get_index(self, name: str) -> IndexService:
-        svc = self.indices.get(name)
-        if svc is None:
+    def delete_index(self, name: str) -> dict:
+        """Delete every index the expression names, with its directory
+        (an index that failed to recover by its name)."""
+        if name in self.failed_indices:
+            del self.failed_indices[name]
+            shutil.rmtree(os.path.join(self.data_path, name),
+                          ignore_errors=True)
+            return {"acknowledged": True}
+        found = self.resolve_indices(name)
+        if not found:
             raise IndexNotFoundException(name)
-        return svc
+        for n in found:
+            self.indices.pop(n).close()
+            self.cluster_state.remove_index(n)
+            if self.data_path:
+                shutil.rmtree(os.path.join(self.data_path, n),
+                              ignore_errors=True)
+        return {"acknowledged": True}
+
+    def index_exists(self, name: str) -> bool:
+        return name in self.indices or bool(self._alias_targets(name))
+
+    def put_mapping(self, index: str, body: dict) -> dict:
+        """Merge ``body`` into every named index's mappings; each merge is
+        tried on a copy first, so a refused update changes no index."""
+        names = self.resolve_indices(index)
+        for n in names:
+            trial = copy.deepcopy(self.indices[n].mappings)
+            trial.merge(body)
+            self.indices[n]._validate_analyzers(trial)
+        for n in names:
+            self.indices[n].mappings.merge(body)
+            self._persist_index_meta(n)
+        return {"acknowledged": True}
+
+    def get_mapping(self, index: Optional[str] = None) -> dict:
+        out = {}
+        for n in self.resolve_indices(index):
+            m = self.indices[n].mappings
+            mj = m.to_json()
+            # indices created with 2.0 type blocks read back under them
+            out[n] = {"mappings": ({t: mj for t in m.type_names}
+                                   if m.type_names else mj)}
+        return out
+
+    def update_aliases(self, actions: List[dict]) -> dict:
+        """``add`` and ``remove`` actions (``index``/``indices``,
+        ``alias``, ``filter``, ``routing``, ``index_routing``,
+        ``search_routing``)."""
+        for action in actions:
+            for op, spec in action.items():
+                if op not in ("add", "remove"):
+                    raise IllegalArgumentException(
+                        f"unknown alias action [{op}]")
+                alias = spec["alias"]
+                for n in self.resolve_indices(
+                        spec.get("index", spec.get("indices"))):
+                    if op == "add":
+                        self.indices[n].aliases[alias] = _alias_spec(
+                            {k: v for k, v in spec.items()
+                             if k not in ("index", "indices", "alias")})
+                    else:
+                        self.indices[n].aliases.pop(alias, None)
+                    self._persist_index_meta(n)
+        return {"acknowledged": True}
+
+    def put_template(self, name: str, body: dict,
+                     create: bool = False) -> dict:
+        if create and name in self.cluster_state.templates:
+            raise IndexAlreadyExistsException(name)
+        body = copy.deepcopy(dict(body))
+        if body.get("aliases"):
+            body["aliases"] = {a: _alias_spec(s)
+                               for a, s in body["aliases"].items()}
+        self.cluster_state.templates[name] = body
+        return {"acknowledged": True}
+
+    def delete_template(self, name: str) -> dict:
+        if self.cluster_state.templates.pop(name, None) is None:
+            raise IndexNotFoundException(name)
+        return {"acknowledged": True}
+
+    def close_index(self, name: str) -> dict:
+        return metadata.close_index(self, name)
+
+    def open_index(self, name: str) -> dict:
+        return metadata.open_index(self, name)
+
+    def update_index_settings(self, name: str, body: dict) -> dict:
+        for n in self.resolve_indices(name):
+            metadata.update_index_settings(self.indices[n], body, node=self)
+        return {"acknowledged": True}
+
+    def get_index(self, name: str) -> IndexService:
+        """The one index a name, an alias or an expression resolves to."""
+        names = self.resolve_indices(name)
+        if not names:
+            raise IndexNotFoundException(name)
+        if len(names) > 1:
+            raise ElasticsearchTpuException(
+                f"alias/expression [{name}] resolves to multiple indices "
+                f"for a single-index op")
+        return self.indices[names[0]]
+
+    # -- documents ---------------------------------------------------------------
+
+    def _doc_target(self, name: str,
+                    routing: Optional[str]) -> Tuple[IndexService,
+                                                     Optional[str]]:
+        """The index a single-doc op names and its routing: an alias's
+        ``index_routing`` when the caller gives none."""
+        svc = self.get_index(name)
+        if routing is None and name not in self.indices:
+            routing = svc.aliases.get(name, {}).get("index_routing")
+        return svc, routing
 
     def index(self, index: str, doc_id: Optional[str], source: dict,
-              **kw) -> dict:
-        return self.get_index(index).index_doc(doc_id, source, **kw)
+              routing: Optional[str] = None, **kw) -> dict:
+        svc, routing = self._doc_target(index, routing)
+        return svc.index_doc(doc_id, source, routing=routing, **kw)
 
-    def get(self, index: str, doc_id: str, **kw) -> dict:
-        return self.get_index(index).get_doc(doc_id, **kw)
+    def get(self, index: str, doc_id: str, routing: Optional[str] = None,
+            **kw) -> dict:
+        svc, routing = self._doc_target(index, routing)
+        return svc.get_doc(doc_id, routing=routing, **kw)
 
-    def delete(self, index: str, doc_id: str, **kw) -> dict:
-        return self.get_index(index).delete_doc(doc_id, **kw)
+    def delete(self, index: str, doc_id: str, routing: Optional[str] = None,
+               **kw) -> dict:
+        svc, routing = self._doc_target(index, routing)
+        return svc.delete_doc(doc_id, routing=routing, **kw)
 
     def bulk(self, operations: List[dict]) -> dict:
         """``_bulk`` over parsed NDJSON lines: an action line ({op: meta})
@@ -92,8 +336,10 @@ class Node:
         with ``status`` 201 (created) or 200, or with the typed error's
         ``status`` and ``error``; ``errors`` says whether any item
         failed. A child routes by its ``parent`` unless it names a
-        routing. (The reference's branch for an index spread over hosts
-        has no counterpart here: the port's indices live on one node.)"""
+        routing; ``_timestamp`` and ``_ttl`` in the action line feed those
+        meta fields, as in ES 2.0's bulk. (The reference's branch for an
+        index spread over hosts has no counterpart here: the port's
+        indices live on one node.)"""
         items = []
         errors = False
         i = 0
@@ -111,12 +357,19 @@ class Node:
             doc_type = meta.get("_type")
             try:
                 svc = self.get_or_autocreate(index_name)
+                if routing is None and index_name not in self.indices:
+                    routing = svc.aliases.get(index_name, {}).get(
+                        "index_routing")
                 if op in ("index", "create"):
                     kw = {}
                     if doc_type and doc_type != "_doc":
                         kw["doc_type"] = doc_type
                     if parent:
                         kw["parent"] = parent
+                    for key in ("timestamp", "ttl"):
+                        v = meta.get(f"_{key}", meta.get(key))
+                        if v is not None:
+                            kw[key] = v
                     r = svc.index_doc(doc_id, source, routing=routing,
                                       op_type=op, **kw)
                     status = 201 if r.get("created") else 200
@@ -150,21 +403,32 @@ class Node:
         self.create_index(name)
         return self.indices[name]
 
+    def _shards_total(self, names: List[str]) -> dict:
+        n = sum(self.indices[x].num_shards for x in names)
+        return {"_shards": {"total": n, "successful": n, "failed": 0}}
+
     def refresh(self, index: Optional[str] = None) -> dict:
-        names = list(self.indices) if index is None else [index]
+        names = self.resolve_indices(index)
         for n in names:
-            self.get_index(n).refresh()
-        return {"_shards": {"total": sum(self.indices[n].num_shards
-                                         for n in names),
-                            "successful": sum(self.indices[n].num_shards
-                                              for n in names),
-                            "failed": 0}}
+            self.indices[n].refresh()
+        return self._shards_total(names)
+
+    def flush(self, index: Optional[str] = None) -> dict:
+        """Commit every named index durably (``IndexService.flush``)."""
+        names = self.resolve_indices(index)
+        for n in names:
+            self.indices[n].flush()
+        return self._shards_total(names)
+
+    # -- index expressions ---------------------------------------------------------
 
     def resolve_indices(self, expr: Optional[str]) -> List[str]:
         """The indices an expression names, in order, each once: a comma
-        list of names and wildcards; ``_all``, ``*``, "" or None name
-        every index. A name that is no index raises
-        IndexNotFoundException."""
+        list of names, aliases and wildcards; ``_all``, ``*``, "" or None
+        name every index; a list is a comma list. A part that is neither
+        an index nor an alias raises IndexNotFoundException."""
+        if isinstance(expr, (list, tuple)):
+            expr = ",".join(expr)
         if expr in (None, "", "_all", "*"):
             return list(self.indices)
         out: List[str] = []
@@ -176,19 +440,78 @@ class Node:
             elif part in self.indices:
                 out.append(part)
             else:
-                raise IndexNotFoundException(part)
+                targets = self._alias_targets(part)
+                if not targets:
+                    raise IndexNotFoundException(part)
+                out.extend(targets)
         return list(dict.fromkeys(out))
+
+    def _alias_targets(self, alias: str) -> List[str]:
+        return [n for n, svc in self.indices.items() if alias in svc.aliases]
+
+    def _search_plan(self, expr: Optional[str]) -> List[Tuple[
+            str, Optional[dict], Optional[str]]]:
+        """(index, alias filter, search routing) for each index an
+        expression searches. Wildcards (and ``_all``) skip closed
+        indices; a closed index named or reached through an alias is
+        refused. An index reached by name or wildcard, or through an
+        alias without a filter (or routing), is searched unfiltered (or
+        on every shard); otherwise the filters of its aliases are OR-ed
+        and their routings joined, as in ES 2.0."""
+        parts = ["*"] if expr in (None, "", "_all", "*") \
+            else [p.strip() for p in str(expr).split(",")]
+        order: List[str] = []
+        filters: Dict[str, Optional[List[dict]]] = {}
+        routes: Dict[str, Optional[List[str]]] = {}
+        for part in parts:
+            wild = "*" in part or "?" in part
+            if wild or part in self.indices:
+                names = [n for n in self.indices if fnmatch.fnmatch(n, part)
+                         and not (wild and self.indices[n].closed)]
+                specs = [None] * len(names)
+            else:
+                names = self._alias_targets(part)
+                if not names:
+                    raise IndexNotFoundException(part)
+                specs = [self.indices[n].aliases[part] for n in names]
+            for n, spec in zip(names, specs):
+                if not wild:
+                    metadata.check_open(self.indices[n], op="read")
+                if n not in filters:
+                    order.append(n)
+                    filters[n], routes[n] = [], []
+                f = (spec or {}).get("filter")
+                r = (spec or {}).get("search_routing")
+                if filters[n] is not None:
+                    filters[n] = None if f is None else filters[n] + [f]
+                if routes[n] is not None:
+                    routes[n] = None if r is None else routes[n] + [str(r)]
+        out = []
+        for n in order:
+            f = filters[n]
+            if f:
+                f = f[0] if len(f) == 1 else {"bool": {
+                    "should": f, "minimum_should_match": 1}}
+            r = routes[n]
+            out.append((n, f or None, ",".join(r) if r else None))
+        return out
+
+    # -- search ------------------------------------------------------------------
 
     def search(self, index: Optional[str], body: Optional[dict] = None
                ) -> dict:
-        names = self.resolve_indices(index)
-        if not names and index not in (None, "", "_all", "*"):
+        plan = self._search_plan(index)
+        if not plan and index not in (None, "", "_all", "*"):
             raise IndexNotFoundException(str(index))
         body = body or {}
-        if len(names) == 1:
-            svc = self.indices[names[0]]
-            if body.get("search_type") == "dfs_query_then_fetch":
-                return svc.search(body)  # never coalesced, as in ES
+        if len(plan) == 1:
+            name, flt, routing = plan[0]
+            svc = self.indices[name]
+            if flt is not None:
+                body = _with_filter(body, flt)
+            if routing is not None \
+                    or body.get("search_type") == "dfs_query_then_fetch":
+                return svc.search(body, routing=routing)  # never coalesced
 
             def run():
                 return svc.search(body)
@@ -198,7 +521,15 @@ class Node:
             # or an ineligible body runs the normal path unchanged
             out = self.serving.coalescer.execute(svc, body, run)
             return out if out is not None else run()
+        names = [n for n, _f, _r in plan]
         svcs = [self.indices[n] for n in names]
+        if any(f is not None for _n, f, _r in plan):
+            # each index's own alias filter, by the owning index of each
+            # segment
+            body = _with_filter(body, {"bool": {"should": [
+                {"indices": {"indices": [n], "query": f or {"match_all": {}},
+                             "no_match_query": "none"}}
+                for n, f, _r in plan], "minimum_should_match": 1}})
         if body.get("query"):
             # more_like_this liked ids resolve over every searched index
             # (an explicit _index over that index) before the fan-out
@@ -215,7 +546,10 @@ class Node:
             q2 = rewrite_mlt_in_body(body["query"], lookup)
             if q2 is not body["query"]:
                 body = dict(body, query=q2)
-        searchers = [s.searcher for svc in svcs for s in svc.shards]
+        shards = [s for (n, _f, r), svc in zip(plan, svcs)
+                  for s in (svc.shards if r is None
+                            else svc.routing_shards(r))]
+        searchers = [s.searcher for s in shards]
         if not searchers:
             return {"took": 0, "timed_out": False,
                     "_shards": {"total": 0, "successful": 0, "failed": 0},
@@ -224,8 +558,7 @@ class Node:
         if body.get("search_type") == "dfs_query_then_fetch":
             # one idf over every searched index (ES's DfsPhase collects
             # over all the request's shards)
-            gs = global_stats(seg for svc in svcs for s in svc.shards
-                              for seg in s.segments)
+            gs = global_stats(seg for s in shards for seg in s.segments)
         resp = search_shards(searchers, body, index_name=",".join(names),
                              global_stats=gs)
         if body.get("suggest"):
@@ -236,8 +569,8 @@ class Node:
 
     def msearch(self, pairs: List[Tuple[dict, dict]]) -> dict:
         """``_msearch`` over (header, body) pairs. When every header names
-        the same expression and it resolves to one index, the eligible
-        items run as one batch
+        the same expression and it resolves to one open index with no
+        alias filter or routing, the eligible items run as one batch
         (``search/batch.py``: one device pass per segment); the rest run
         one by one through ``search``, and a typed error becomes that
         item's ES-shaped failure entry."""
@@ -247,12 +580,13 @@ class Node:
                      else None for h, _ in pairs}
             if len(names) == 1 and None not in names:
                 try:
-                    resolved = self.resolve_indices(next(iter(names)))
+                    plan = self._search_plan(next(iter(names)))
                 except ElasticsearchTpuException:
-                    resolved = []
+                    plan = []
                 # one concrete index batches; anything else runs through
                 # the sequential search below
-                svc = self.indices[resolved[0]] if len(resolved) == 1 \
+                svc = self.indices[plan[0][0]] \
+                    if len(plan) == 1 and plan[0][1:] == (None, None) \
                     else None
                 out = None
                 if svc is not None:
@@ -283,6 +617,29 @@ class Node:
         for svc in self.indices.values():
             svc.close()
         self.indices.clear()
+        if self._ivf_dir is not None:
+            ivf_cache.unregister(self._ivf_dir)
+            self._ivf_dir = None
+
+
+def _alias_spec(spec: Optional[dict]) -> dict:
+    """An alias's stored spec: ``routing`` fans out into ``index_routing``
+    and ``search_routing``, and routings are strings (settings are)."""
+    meta = copy.deepcopy(dict(spec or {}))
+    if "routing" in meta:
+        r = str(meta.pop("routing"))
+        meta.setdefault("index_routing", r)
+        meta.setdefault("search_routing", r)
+    for rk in ("index_routing", "search_routing"):
+        if rk in meta:
+            meta[rk] = str(meta[rk])
+    return meta
+
+
+def _with_filter(body: dict, flt: dict) -> dict:
+    """The body with ``flt`` as a non-scoring filter beside its query."""
+    return dict(body, query={"bool": {
+        "must": [body.get("query") or {"match_all": {}}], "filter": [flt]}})
 
 
 def _validate_index_name(name: str):

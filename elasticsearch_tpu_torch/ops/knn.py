@@ -6,7 +6,10 @@ IVF stages to score the vectors they gathered. ``knn_topk`` is the
 brute-force top-k: kernel B2 (``ops/knn_topk.py``) on a CUDA tensor, its
 plain twin on a CPU tensor, with no shape gate. ``exact_rescore_topk``
 and ``merge_candidate_topk`` are the two stages the mesh's vector rounds
-run after B2 (``parallel/executor.py``).
+run after B2 (``parallel/executor.py``). ``knn_topk_chunked`` runs B2
+over a slab chunk by chunk with a running top-k (the reference's API for
+a slab too large for one [Q, D] score block; nothing in the port calls
+it).
 
 Scores follow ES dense_vector ``similarity``:
   cosine:      (1 + cos) / 2
@@ -110,3 +113,32 @@ def merge_candidate_topk(vals: torch.Tensor, ids: torch.Tensor, *, k: int):
     best_v, pos = torch.sort(sel, dim=1, descending=True, stable=True)
     best_v, pos = best_v[:, :k], pos[:, :k]
     return best_v, torch.gather(sid, 1, pos).to(torch.int32), n_unique
+
+
+def knn_topk_chunked(queries: torch.Tensor, vecs: torch.Tensor,
+                     mask: torch.Tensor, *, k: int, metric: str = "cosine",
+                     chunk: int = 1 << 16, use_bf16: bool = True,
+                     plain: bool = False):
+    """Top-k over ``vecs`` [D, dims] taken ``chunk`` rows at a time (D a
+    multiple of ``chunk``): B2 (its twin on the CPU, or with ``plain``)
+    on each chunk, merged into the running top-k by a stable sort of
+    [best, chunk's], so equal scores keep the lower doc id as
+    ``lax.top_k`` does. ``use_bf16`` False scores in f32 (B2's
+    ``precise``). Returns (f32[Q, k] scores, i32[Q, k] ids)."""
+    D = vecs.shape[0]
+    if D % chunk != 0:
+        raise ValueError("corpus rows must be padded to a multiple of chunk")
+    Q = queries.shape[0]
+    best_v = torch.full((Q, k), NEG_INF, dtype=torch.float32,
+                        device=queries.device)
+    best_i = torch.zeros((Q, k), dtype=torch.int32, device=queries.device)
+    for s in range(0, D, chunk):
+        cv, ci = knn_topk(queries, vecs[s:s + chunk], mask[s:s + chunk],
+                          k=min(k, chunk), metric=metric,
+                          precise=not use_bf16, plain=plain)
+        mv = torch.cat([best_v, cv], dim=1)
+        mi = torch.cat([best_i, ci + s], dim=1)
+        best_v, pos = torch.sort(mv, dim=1, descending=True, stable=True)
+        best_v = best_v[:, :k].contiguous()
+        best_i = torch.gather(mi, 1, pos[:, :k]).contiguous()
+    return best_v, best_i

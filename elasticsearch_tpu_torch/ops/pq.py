@@ -17,7 +17,7 @@ query in the LUT; dot_product uses the raw query; l2_norm's LUT is
 The build runs on the slab's device and is deterministic (as
 ``kmeans``). ``place_pq`` charges the code array to the ``fielddata``
 breaker as a best-effort structure; eviction and rehydration of it are
-not ported yet.
+not ported yet (ROADMAP A10d).
 """
 from __future__ import annotations
 

@@ -59,7 +59,7 @@ from elasticsearch_tpu_torch.search.aggregations.bucket import \
 from elasticsearch_tpu_torch.search.queries import _batch_terms, parse_query
 from elasticsearch_tpu_torch.search.service import (ShardDoc, _parse_sort,
                                                     _sort_key, _sort_value,
-                                                    check_body)
+                                                    check_body, stats_groups)
 from elasticsearch_tpu_torch.utils.errors import CircuitBreakingException
 
 # host-loop-only request features: their presence skips the mesh path
@@ -194,6 +194,10 @@ def _try_mesh_search(svc, searchers, body: dict, global_stats=None):
             sort_spec=sort_spec or None, global_stats=global_stats)
     except MeshCompileError as e:
         return _BY_DESIGN if e.by_design else None
+    groups = stats_groups(body)
+    q_ms = (time.perf_counter() - t0) * 1e3
+    for s in searchers:
+        s.stats.on_query(q_ms / len(searchers), groups=groups)
 
     if sort_spec:
         page = _sorted_page(cands, shard_segs, sort_spec, k)[frm: frm + size]
@@ -209,8 +213,11 @@ def _try_mesh_search(svc, searchers, body: dict, global_stats=None):
         by_shard.setdefault(d.shard_ord, []).append(d)
     fetched: Dict[int, dict] = {}
     for sh, ds in by_shard.items():
+        tf = time.perf_counter()
         for d, h in zip(ds, searchers[sh].fetch_phase(ds, body, svc.name)):
             fetched[id(d)] = h
+        searchers[sh].stats.on_fetch((time.perf_counter() - tf) * 1e3,
+                                     groups=groups)
     response: Dict[str, Any] = {
         "took": int((time.perf_counter() - t0) * 1000),
         "timed_out": False,

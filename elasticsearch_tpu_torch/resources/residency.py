@@ -17,7 +17,7 @@ tensor a segment keeps on the device is placed here, onto the owning
   stacked copies and prepared queries), charged to the same breaker.
 
 LRU eviction and rehydration of the fielddata tier are not ported yet
-(ROADMAP): a charged tensor stays resident until its segment is dropped.
+(ROADMAP A10d): a charged tensor stays resident until its segment is dropped.
 """
 from __future__ import annotations
 
@@ -35,6 +35,10 @@ class Residency:
         self.device = torch.device(device)
         self.breakers = breakers if breakers is not None \
             else CircuitBreakerService()
+        # the owning Node's ``<data>/_ivf``: where its segments store the
+        # IVF/PQ blobs they build (index/ivf_cache.py); None keeps them
+        # in memory
+        self.blob_dir: Optional[str] = None
 
     def device_put(self, x: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
         """Always-resident placement of a host array (copied), or of a

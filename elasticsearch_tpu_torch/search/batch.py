@@ -27,8 +27,9 @@ sequence; the reference's one-program hybrid tier is left out with
 with a segment of nested docs serves every item on its own (the tiers
 score every doc, and a search counts roots only), as the reference does.
 
-The reference's per-searcher stats, program registry and retrace
-accounting around the tiers are not ported (ROADMAP A10, A11), nor its
+A batch counts each shard's queries and fetches as its sequential
+searches would (``SearchStats``). The reference's program registry and
+retrace accounting around the tiers are not ported (ROADMAP A11), nor its
 power-of-two batch padding, which bounded recompiles on the TPU.
 """
 from __future__ import annotations
@@ -252,6 +253,9 @@ def execute_batch(svc, bodies: List[dict],
                     cands[qi] += [(-x, pos, sid, i, seg)
                                   for x, i, ok in zip(vr, ir, kr) if ok]
     q_ms = (time.perf_counter() - t0) * 1000
+    for s in searchers:
+        # counted as Q sequential requests would be
+        s.stats.on_query(q_ms / len(searchers), n=Q)
 
     by_seg = operator.itemgetter(0, 2, 3)  # (-score, seg_id, local)
     by_shard = operator.itemgetter(0, 1, 3)  # (-score, shard, local)
@@ -277,9 +281,11 @@ def execute_batch(svc, bodies: List[dict],
         for n, d in enumerate(page):
             at.setdefault(d.shard_ord, []).append(n)
         for pos, ns in at.items():
+            tf = time.perf_counter()
             for n, h in zip(ns, searchers[pos].fetch_phase(
                     [page[n] for n in ns], body, svc.name)):
                 hits[n] = h
+            searchers[pos].stats.on_fetch((time.perf_counter() - tf) * 1e3)
         responses.append({
             # this request's cost: the shared query phase + its own fetch
             "took": int(q_ms + (time.perf_counter() - t_resp) * 1000),

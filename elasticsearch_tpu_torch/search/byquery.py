@@ -4,7 +4,7 @@ Port of elasticsearch_tpu/search/byquery.py (reference: ES's
 AbstractAsyncBulkByScrollAction, a scroll-driven scan feeding bulk
 writes, rescanned because the writes shift the results). The caller's
 ``apply_fn`` does the per-document write (a delete or an update); the
-REST handlers that call it come with ROADMAP A10.
+REST handlers that call it come with ROADMAP A10e.
 """
 from __future__ import annotations
 

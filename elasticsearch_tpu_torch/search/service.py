@@ -9,10 +9,11 @@ may carry ``query``, ``from``/``size``, ``_source``, ``version``,
 ``timeout``, ``fields`` / ``stored_fields``, ``script_fields`` (one
 run of each script a segment, ``_script_field``), ``indices_boost`` (applied
 in ``search_shards`` before the global merge), ``_query_cache`` (read by
-``IndexService``) and ``search_type: dfs_query_then_fetch`` (the
-caller's ``GlobalStats``); any other key raises a typed
-SearchParseException that names the ROADMAP item bringing it
-(``check_body``). A ``_name`` in the query adds ``matched_queries`` to
+``IndexService``), ``search_type: dfs_query_then_fetch`` (the
+caller's ``GlobalStats``) and ``stats`` (the groups each shard's
+``SearchStats`` counts the query and fetch phases under); any other key
+raises a typed SearchParseException that names the ROADMAP item
+bringing it (``check_body``). A ``_name`` in the query adds ``matched_queries`` to
 each hit in the fetch phase, a nested query with ``inner_hits`` its
 matching children (``_attach_inner_hits``).
 
@@ -67,6 +68,7 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.index.mappings import _parse_geo_point
+from elasticsearch_tpu_torch.monitor.stats import SearchStats
 from elasticsearch_tpu_torch.ops import scoring as S
 from elasticsearch_tpu_torch.ops.scoring import count_mask, topk_with_mask
 from elasticsearch_tpu_torch.search.aggregations import (parse_aggs,
@@ -99,10 +101,7 @@ _SUPPORTED_KEYS = frozenset({
     "aggregations", "sort", "search_after", "min_score", "scroll",
     "search_type", "highlight", "profile", "terminate_after", "timeout",
     "fields", "stored_fields", "indices_boost", "_query_cache",
-    "script_fields", "suggest"})
-#: refused keys and the ROADMAP item that brings each: A10 (the stats
-#: surface); every other refused key or search_type stays A6c's
-_KEY_ITEMS = {"stats": "A10"}
+    "script_fields", "suggest", "stats"})
 #: the search types the port serves
 _SEARCH_TYPES = ("query_then_fetch", "dfs_query_then_fetch", "scan")
 
@@ -115,10 +114,9 @@ def check_body(body: dict) -> None:
     naming the ROADMAP item that brings it."""
     unsupported = sorted(set(body) - _SUPPORTED_KEYS)
     if unsupported:
-        items = sorted({_KEY_ITEMS.get(k, "A6c") for k in unsupported})
         raise SearchParseException(
             f"search request keys {unsupported} are not yet in the PyTorch "
-            f"port (ROADMAP {', '.join(items)})")
+            f"port (ROADMAP A6c)")
     st = body.get("search_type")
     if st is not None and st not in _SEARCH_TYPES:
         raise SearchParseException(
@@ -126,6 +124,13 @@ def check_body(body: dict) -> None:
             f"A6c)")
     if st == "scan" and not body.get("scroll"):
         raise SearchParseException("search_type [scan] requires [scroll]")
+
+
+def stats_groups(body: dict) -> List[str]:
+    """The search-stats groups a body's ``stats`` key names (a list, or
+    one name)."""
+    g = body.get("stats") or ()
+    return [g] if isinstance(g, str) else [str(x) for x in g]
 
 
 def _parse_timeout(v) -> Optional[float]:
@@ -188,6 +193,8 @@ class ShardSearcher:
         self.shard_ord = shard_ord
         self.index_name = index_name
         self.version_of = version_of
+        # the shard's query, fetch, suggest and scroll counters
+        self.stats = SearchStats()
 
     def query_phase(self, body: dict,
                     global_stats: Optional[GlobalStats] = None,
@@ -616,6 +623,7 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
     profile = bool(body.get("profile"))
     shard_profiles: List[dict] = []
     results = []
+    groups = stats_groups(body)
     for pos, s in enumerate(searchers):
         tq = time.perf_counter()
         r = s.query_phase(body, global_stats, collect_full=scroll)
@@ -623,10 +631,12 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
         for d in r.docs:
             d.shard_ord = pos
         results.append(r)
+        q_s = time.perf_counter() - tq
+        s.stats.on_query(q_s * 1e3, groups=groups)
         if profile:
             shard_profiles.append(profiler.shard_profile_entry(
                 f"[{s.index_name or index_name or 'shard'}][{pos}]",
-                int((time.perf_counter() - tq) * 1e9), r.profile))
+                int(q_s * 1e9), r.profile))
     if body.get("indices_boost"):
         _apply_indices_boost(body["indices_boost"], searchers, results)
     all_docs: List[ShardDoc] = []
@@ -661,9 +671,11 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
         for d, h in zip(docs, searchers[shard_ord].fetch_phase(
                 docs, body, index_name)):
             fetched[(d.shard_ord, id(d.seg), d.local_id)] = h
+        f_s = time.perf_counter() - tf
+        searchers[shard_ord].stats.on_fetch(f_s * 1e3, groups=groups)
         if profile:
             shard_profiles[shard_ord]["fetch"] = {
-                "time_in_nanos": int((time.perf_counter() - tf) * 1e9)}
+                "time_in_nanos": int(f_s * 1e9)}
     hits = [fetched[(d.shard_ord, id(d.seg), d.local_id)] for d in page]
     response: Dict[str, Any] = {
         "took": int((time.perf_counter() - t0) * 1000),
@@ -699,6 +711,9 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
     if profile:
         response["profile"] = {"shards": shard_profiles}
     if scroll:
+        # one scroll context a shard (ES counts contexts, not pages)
+        for s in searchers:
+            s.stats.on_scroll()
         scroll_id = uuid.uuid4().hex
         state: Dict[str, Any] = {
             # scan serves every doc by scrolling: page 1 consumed nothing

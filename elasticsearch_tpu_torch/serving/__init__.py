@@ -5,7 +5,7 @@ Port of elasticsearch_tpu/serving/__init__.py, slim: each
 :class:`ServingFrontend` (``node.serving``), and ``Node.search`` routes
 eligible single-index bodies through ``serving.coalescer``
 (:mod:`coalescer`). The reference's per-tenant QoS (``qos.py``, whose
-one caller is REST dispatch) comes with the REST layer (ROADMAP A10) and
+one caller is REST dispatch) comes with the REST layer (ROADMAP A10e) and
 its census pre-warm (``warmup.py``) with the compile/warm layer (A11).
 """
 from __future__ import annotations

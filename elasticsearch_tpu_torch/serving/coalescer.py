@@ -34,7 +34,7 @@ Every wait here has a timeout, and parking happens outside the lock.
 
 Not ported yet: the reference's metric families, queue-wait span,
 pending task registration (and so cancellation of a parked request),
-slow log and watchdog age probe (ROADMAP A10); ``stats()`` keeps the
+slow log and watchdog age probe (ROADMAP A10e); ``stats()`` keeps the
 batch-size histogram and the flush and bypass counters.
 """
 from __future__ import annotations

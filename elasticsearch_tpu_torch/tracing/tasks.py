@@ -6,7 +6,7 @@ flow runs under, and ``check_cancelled``, the checkpoint long loops call
 between units of work (by-query between docs, ``search/byquery.py``). A
 whole-segment device program is not interruptible; the checkpoint runs
 between them. The task registry, its listing and the REST handlers come
-with ROADMAP A10.
+with ROADMAP A10e.
 """
 from __future__ import annotations
 

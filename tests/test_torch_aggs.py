@@ -592,10 +592,19 @@ def test_other_request_keys_are_still_refused(nodes, key, index):
     """Keys the port does not serve raise their typed refusal; ``suggest``
     is served since A9d, so its malformed body here (a suggester that is
     not an object) raises the suggesters' own typed error, the
-    reference's message."""
-    _ref, port = nodes
+    reference's message; ``stats`` is served since A10b (its keys name
+    the groups), with the hits and aggs the reference answers."""
+    ref, port = nodes
     body = {"query": QUERY, key: {"x": 1}, "aggs": {
         "t": {"terms": {"field": "tag"}}}}
+    if key == "stats":
+        got = _search(port, index, body)
+        want = ref.search(index, copy.deepcopy(body))
+        assert got["hits"]["total"] == want["hits"]["total"]
+        assert [h["_id"] for h in got["hits"]["hits"]] == \
+            [h["_id"] for h in want["hits"]["hits"]]
+        assert got["aggregations"] == want["aggregations"]
+        return
     if key == "suggest":
         with pytest.raises(ElasticsearchTpuException,
                            match=r"^suggester \[x\] malformed body$"):

@@ -3,7 +3,8 @@ package (a phrase, a term expansion, a query_string, a function_score on
 the mesh, a script_score with script_fields, a span_near, script
 aggregations, nested queries and aggs, has_child, the geo queries and
 the ``_geo_distance`` sort, the suggesters, the percolator, updates,
-bulk and by-query included), and
+bulk, by-query, a flush and restart, a snapshot and restore and the
+``stats`` key included), and
 its entry point never falls back to the CPU on its own."""
 import os
 import re
@@ -188,6 +189,25 @@ svc.refresh()
 done = run_by_query(svc, {"match": {"body": "dog"}},
                     lambda i, loc: svc.delete_doc(i, routing=loc.routing))
 assert len(done) == 20 and svc.count({})["count"] == 22, svc.count({})
+n.close()
+import os, tempfile
+from elasticsearch_tpu_torch.index import snapshots
+d = tempfile.mkdtemp()
+n = Node(device="cpu", data_path=os.path.join(d, "data"))
+n.create_index("d", {"settings": {"number_of_shards": 2}})
+for i in range(5):
+    n.index("d", str(i), {"body": "fox"})
+n.flush("d")
+n.index("d", "5", {"body": "fox"})
+n.close()
+n = Node(device="cpu", data_path=os.path.join(d, "data"))
+assert n.search("d", {"query": {"match": {"body": "fox"}}})["hits"]["total"] == 6
+repo = snapshots.FsRepository("b", os.path.join(d, "repo"))
+snapshots.create_snapshot(n, repo, "s")
+n.delete_index("d")
+snapshots.restore_snapshot(n, repo, "s")
+assert n.search("d", {"stats": ["g"]})["hits"]["total"] == 6
+assert n.indices["d"].stats()["primaries"]["search"]["groups"]["g"]["query_total"] == 2
 n.close()
 import importlib, pkgutil
 import elasticsearch_tpu_torch

@@ -42,8 +42,11 @@ ALERT_QUERIES = [
 
 
 def port_service(name, mapping=None, data_path=None, node=None):
+    """The port's index ``name``: created, or reopened by the gateway of a
+    node over a data path that holds it."""
     node = node or Node(name="port", device="cpu", data_path=data_path)
-    node.create_index(name, {"mappings": mapping or {}})
+    if name not in node.indices:
+        node.create_index(name, {"mappings": mapping or {}})
     return node, node.indices[name]
 
 

@@ -220,7 +220,8 @@ def _write_ops(index_doc, delete_doc):
 @pytest.mark.parametrize("writer", ["port", "reference"])
 def test_translog_replays_across_packages(tmp_path, writer):
     """A translog one package writes replays in the other: same docs,
-    versions and search results."""
+    versions and search results. The reader's gateway reopens the index
+    from the ``_meta.json`` beside the shards (both packages write it)."""
     wdir, rdir = str(tmp_path / "w"), str(tmp_path / "w")
     if writer == "port":
         w = Node(name="w", data_path=wdir, device="cpu")
@@ -229,8 +230,6 @@ def test_translog_replays_across_packages(tmp_path, writer):
                    lambda i: w.delete("docs", i))
         w.close()
         reader = RefNode(name="r", data_path=rdir)
-        reader.create_index("docs", {"settings": SETTINGS,
-                                     "mappings": MAPPING})
         svc = reader.indices["docs"]
         get = svc.get_doc
     else:
@@ -240,8 +239,6 @@ def test_translog_replays_across_packages(tmp_path, writer):
         _write_ops(svc.index_doc, svc.delete_doc)
         w.close()
         reader = Node(name="r", data_path=rdir, device="cpu")
-        reader.create_index("docs", {"settings": SETTINGS,
-                                     "mappings": MAPPING})
         get = lambda i: reader.get("docs", i)  # noqa: E731
     try:
         assert get("d7")["found"] is False
