@@ -224,6 +224,30 @@ Phases, in order; any failure exits non-zero before the result line:
             seeded blob); (d) close and open, an alias with a filter, a
             template at create, a mappings PUT and the ``stats`` groups
             exact against the bodies sent;
+5n. replicas in-process replicas (ROADMAP A10c), from seed 0, in ES
+            2.0's default layout of five primaries with one replica
+            each: (a) RP_DOCS docs of 5h's log recipe with a 128-d
+            ``dense_vector`` by ``Node.bulk`` (a refresh a bulk) into a
+            one-copy and a two-copy index, docs/s of each, device bytes
+            and the ``segments``/``fielddata`` breakers' bytes of each,
+            every doc's (version, seq no, term) and every segment layout
+            equal on every copy; (b) 32 match and 8 brute-force knn
+            bodies under ``_primary``, ``_replica`` and round-robin on the
+            mesh and the host loop (p50, p99, device time, B1 and B2
+            launches, the executor's stacked-data hits and misses under
+            round-robin), held against the f64 BM25 oracle (2^-7) and the
+            f64 cosine oracle, the three preferences' responses
+            byte-identical; (c) ``fail_shard`` on every shard (the time to
+            the promotion and to the first answer), writes after it under
+            term 2, a stale group's write fenced by StalePrimaryException
+            and on no live copy, every acknowledged doc found on both
+            routes; on a data path (RP_DURABLE docs) the promotion with
+            its store handed over and committed (ms), the writes after
+            it found after a restart under term 2, a stale group's write
+            refused by the failed engine; (d) a scale to two replicas (the full copies' docs/s),
+            one copy failed by the ``replication.fanout`` fault point, 1%
+            more docs, the copy re-added by an ops-based recovery (ops/s),
+            the global checkpoint at the max seq no on every group;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
@@ -6922,6 +6946,416 @@ def phase_durability(torch, np, dev, card):
     return b1, b2, b3
 
 
+RP_DOCS = 1 << 14          # (a): 5h's log recipe with a 128-d vector,
+                           # cut from 2^15 (PERF.md §4)
+RP_SHARDS = 5              # ES 2.0's default layout: five primaries
+RP_REPLICAS = 1            # and one replica each
+RP_CHUNK = RP_DOCS // 8    # docs a Node.bulk call, a refresh after each:
+                           # the eighth refresh folds a shard's eight
+                           # fresh segments into one (the merge policy's
+                           # tier of 8), so (b) reads one merged segment a
+                           # shard whatever RP_DOCS is
+RP_DURABLE = 1 << 10       # (c): docs of the failover on a data path
+RP_QUERIES = 32            # (b)'s match bodies
+RP_KNN = 8                 # (b)'s brute-force knn bodies
+RP_NEW = 100               # (d): 1/RP_NEW more docs while a copy is out
+RP_MAPPING = {"properties": dict(WP_MAPPING["properties"], emb={
+    "type": "dense_vector", "dims": DIMS, "similarity": "cosine"})}
+RP_PREFS = ("_primary", "_replica", None)  # None: round-robin
+
+
+def rp_sources(np, n, seed):
+    """[(id, source)]: ``wp_docs``' text fields and a 128-d vector around
+    256 seeded centres (``dm_vectors``); ids are row numbers, so the
+    oracles index their arrays by ``int(_id)``. Returns (docs, vectors)."""
+    vecs = dm_vectors(np, n, seed + 1)
+    docs = [(str(i), dict(src, emb=vecs[i].tolist()))
+            for i, (_d, src) in enumerate(wp_docs(np, n, seed))]
+    return docs, vecs
+
+
+def rp_bodies(np, vecs, seed):
+    """RP_QUERIES ``match`` bodies of 2-4 distinct Zipf(1.1) terms and
+    RP_KNN brute-force ``knn`` bodies near seeded rows."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, VOCAB + 1) ** 1.1
+    p /= p.sum()
+    match = [{"query": {"match": {"body": " ".join(
+        f"t{int(t)}" for t in rng.choice(VOCAB, size=int(rng.integers(2, 5)),
+                                         replace=False, p=p))}},
+              "size": 10} for _ in range(RP_QUERIES)]
+    qv = (vecs[rng.integers(0, len(vecs), RP_KNN)]
+          + 0.3 * rng.standard_normal((RP_KNN, DIMS))).astype(np.float32)
+    knn = [{"query": {"knn": {"field": "emb", "ann": False, "query_vector":
+                              [float(x) for x in q]}}, "size": 10}
+           for q in qv]
+    return match, knn, qv
+
+
+def rp_table(engine) -> dict:
+    """A copy's location table: id → (version, seq no, term, deleted)."""
+    return {d: (loc.version, loc.seq_no, loc.term, loc.deleted)
+            for d, loc in engine._locations.items()}
+
+
+def rp_bm25_exact(np, copies, body, k=10):
+    """The want-answer of a ``match`` body over ``copies`` (one copy of
+    each shard, in shard order) in f64: BM25 with each segment's own doc
+    count, doc freqs and average length, as the engine scores a segment.
+    Returns (ids, scores, total) in ``_hold_exact``'s form."""
+    from elasticsearch_tpu_torch.index.segment import B, K1
+
+    terms = body["query"]["match"]["body"].split()
+    cands, total = [], 0
+    for pos, c in enumerate(copies):
+        for seg in c.segments:
+            inv = seg.inverted.get("body")
+            if inv is None:
+                continue
+            dl = seg.field_lengths["body"].cpu().numpy().astype(np.float64)
+            score = np.zeros(seg.max_docs, np.float64)
+            hit = np.zeros(seg.max_docs, bool)
+            for t in terms:
+                if t not in inv.vocab:
+                    continue
+                tid = inv.vocab[t]
+                lo, hi = int(inv.offsets[tid]), int(inv.offsets[tid + 1])
+                docs = inv.doc_ids_host[lo:hi].astype(np.int64)
+                tf = inv.tf_host[lo:hi].astype(np.float64)
+                df = float(inv.df[tid])
+                idf = np.log(1.0 + (inv.num_docs - df + 0.5) / (df + 0.5))
+                score[docs] += idf * tf * (K1 + 1.0) / (
+                    tf + K1 * (1.0 - B + B * dl[docs] / inv.avg_len))
+                hit[docs] = True
+            hit &= seg.live_host
+            total += int(hit.sum())
+            cands += [(-score[i], pos, int(seg.ids[i]))
+                      for i in np.nonzero(hit)[0].tolist()]
+    cands.sort()
+    top = cands[:k]
+    return (np.array([c[2] for c in top], np.int64),
+            np.array([-c[0] for c in top], np.float64), total)
+
+
+def _rp_run(np, torch, node, index, bodies, pref):
+    """Each body once through ``Node.search`` (synchronized): the ms of
+    each and the responses."""
+    ms, out = [], []
+    for b in bodies:
+        t = time.perf_counter()
+        out.append(node.search(index, copy.deepcopy(b), preference=pref))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return np.array(ms), out
+
+
+def _rp_durable_failover(np, torch, dev, docs):
+    """5n(c) on a data path: ``fail_shard`` hands each promoted copy the
+    shard's translog and commit and fails the old primary's engine. Every
+    write acknowledged after it survives a restart under term 2; a stale
+    group's write is refused. Returns the report line."""
+    import tempfile
+
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.cluster.replication import ReplicationGroup
+    from elasticsearch_tpu_torch.utils.errors import EngineFailedException
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_5n_")
+    try:
+        node = Node(name="durable-r", data_path=root, device=dev)
+        try:
+            node.create_index("dur", {"settings": {
+                "number_of_shards": RP_SHARDS, "number_of_replicas": 1},
+                "mappings": RP_MAPPING})
+            ops = []
+            for doc_id, src in docs[:RP_DURABLE]:
+                ops += [{"index": {"_index": "dur", "_id": doc_id}}, src]
+            _hold(not node.bulk(ops)["errors"], "(c) the durable bulk",
+                  "5n")
+            svc = node.indices["dur"]
+            t_prom, olds = [], []
+            for sid in range(RP_SHARDS):
+                g = svc.groups[sid]
+                olds.append((g.primary, list(g.replicas)))
+                t = time.perf_counter()
+                svc.fail_shard(sid)
+                torch.cuda.synchronize()
+                t_prom.append(time.perf_counter() - t)
+            post = [f"post{i}" for i in range(RP_SHARDS * 8)]
+            for doc_id in post:
+                _hold(node.index("dur", doc_id, {"body": "t1 t2"})[
+                    "_primary_term"] == 2, "(c) a durable write's term", "5n")
+            try:
+                ReplicationGroup(0, *olds[0]).index("zombie", {"body": "t1"})
+                _hold(False, "(c) a stale group's write was acknowledged "
+                      "on a data path", "5n")
+            except EngineFailedException:
+                pass
+        finally:
+            node.close()
+        again = Node(name="durable-r2", data_path=root, device=dev)
+        try:
+            tot = again.search("dur", {"size": 0})["hits"]["total"]
+            got = again.search("dur", {"query": {"ids": {
+                "values": post + ["zombie"]}}, "size": len(post) + 1})
+            terms = {again.indices["dur"].route(h["_id"]).engine
+                     ._locations[h["_id"]].term
+                     for h in got["hits"]["hits"]}
+            _hold(tot == RP_DURABLE + len(post)
+                  and sorted(h["_id"] for h in got["hits"]["hits"])
+                  == sorted(post) and terms == {2},
+                  f"(c) after the restart: {tot} docs of "
+                  f"{RP_DURABLE + len(post)}, terms {terms}", "5n")
+        finally:
+            again.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return (f"[5n] (c) on a data path ({RP_DURABLE} docs, {RP_SHARDS} "
+            f"shards x 2 copies): fail_shard with the store handed over "
+            f"and committed {1e3 * np.mean(t_prom):.3f} ms mean "
+            f"({1e3 * max(t_prom):.3f} max); {len(post)} writes after it "
+            f"and every earlier doc found after a restart under term 2; "
+            f"a stale group's write raised EngineFailedException")
+
+
+def phase_replicas(torch, np, dev, card):
+    """Phase 5n (module docstring); returns the launches of B1 and B2."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.cluster.replication import ReplicationGroup
+    from elasticsearch_tpu_torch.monitor import kernels
+    from elasticsearch_tpu_torch.ops import bm25_topk, knn_topk
+    from elasticsearch_tpu_torch.utils.errors import StalePrimaryException
+    from elasticsearch_tpu_torch.utils.faults import FAULTS
+
+    t_phase = time.perf_counter()
+    launches0 = (bm25_topk.LAUNCHES, knn_topk.LAUNCHES)
+    lines = []
+    docs, vecs = rp_sources(np, RP_DOCS, SEED + 60)
+    node = Node(name="replicas", device=dev)
+    segs_br = node.breakers.breaker("segments")
+    fd_br = node.breakers.breaker("fielddata")
+    try:
+        # (a) the replicated write rate against one copy, same docs
+        rates = {}
+        for name, reps in (("rep0", 0), ("rep1", RP_REPLICAS)):
+            torch.cuda.synchronize()
+            m0, s0, f0 = (torch.cuda.memory_allocated(), segs_br.used,
+                          fd_br.used)
+            node.create_index(name, {"settings": {
+                "number_of_shards": RP_SHARDS, "number_of_replicas": reps},
+                "mappings": RP_MAPPING})
+            want_shards = {"total": 1 + reps, "successful": 1 + reps,
+                           "failed": 0}
+            t = time.perf_counter()
+            for a in range(0, RP_DOCS, RP_CHUNK):
+                ops = []
+                for doc_id, src in docs[a: a + RP_CHUNK]:
+                    ops += [{"index": {"_index": name, "_id": doc_id}}, src]
+                resp = node.bulk(ops)
+                _hold(not resp["errors"] and all(
+                    it["index"]["_shards"] == want_shards
+                    for it in resp["items"]), f"(a) a {name} bulk item",
+                    "5n")
+                node.refresh(name)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            rates[name] = RP_DOCS / dt
+            mem = (torch.cuda.memory_allocated() - m0, segs_br.used - s0,
+                   fd_br.used - f0)
+            segs = sorted({len(c.segments) for g in node.indices[name]
+                           .groups for c in g.copies})
+            lines.append(f"[5n] (a) {name}: {RP_DOCS} docs by Node.bulk "
+                         f"into {RP_SHARDS} shards x {1 + reps} copies "
+                         f"({RP_DOCS // RP_CHUNK} bulks, a refresh each; "
+                         f"segments a copy {segs}): "
+                         f"{rates[name]:.1f} docs/s; device "
+                         f"{mem[0]} bytes allocated, breakers segments "
+                         f"{mem[1]} and fielddata {mem[2]} bytes; {card}")
+        rep0, svc = node.indices["rep0"], node.indices["rep1"]
+        for g0, g in zip(rep0.groups, svc.groups):
+            want = rp_table(g.primary.engine)
+            _hold(rp_table(g0.primary.engine) == want
+                  and all(rp_table(r.engine) == want for r in g.replicas)
+                  and all([s.num_docs for s in r.segments]
+                          == [s.num_docs for s in g.primary.segments]
+                          for r in g.replicas),
+                  f"(a) shard {g.shard_id}: a copy's (version, seq no, "
+                  f"term) or segment layout differs", "5n")
+        lines.append(f"[5n] (a) the replicated rate is "
+                     f"{rates['rep1'] / rates['rep0']:.3f} of one copy's; "
+                     f"every doc's (version, seq no, term) equal on every "
+                     f"copy, and the copies' segment layouts")
+
+        # (b) reads under each preference, on the mesh and the host loop
+        match, knn, qv = rp_bodies(np, vecs, SEED + 62)
+        bodies = match + knn
+        exact = [rp_bm25_exact(np, svc.shards, b) for b in match]
+        k_ids, k_sc, k_full = exact_cosine_top(
+            np, vecs, np.ones(RP_DOCS, bool), qv, 10)
+        seen = {}
+        for route in ("mesh", "host"):
+            ctx = contextlib.nullcontext() if route == "mesh" \
+                else _host_loop()
+            with ctx:
+                for pref in RP_PREFS:
+                    tag = f"{route} {pref or 'round-robin'}"
+                    _rp_run(np, torch, node, "rep1", bodies, pref)  # warm
+                    l0 = (bm25_topk.LAUNCHES, knn_topk.LAUNCHES)
+                    c0 = kernels.snapshot()
+                    ms, got = _rp_run(np, torch, node, "rep1", bodies, pref)
+                    c1 = kernels.snapshot()
+                    b1 = bm25_topk.LAUNCHES - l0[0]
+                    b2 = knn_topk.LAUNCHES - l0[1]
+                    prof = profile_path(torch, lambda: _rp_run(
+                        np, torch, node, "rep1", bodies, pref))
+                    for n, (b, r) in enumerate(zip(match, got)):
+                        _hold_exact(np, r, exact[n], BF16_BAND,
+                                    f"5n (b) {tag} match {n} vs f64")
+                    for n, r in enumerate(got[RP_QUERIES:]):
+                        check_oracle(np, r, k_ids[n], k_sc[n], k_full[n],
+                                     f"5n (b) {tag} knn {n} vs f64")
+                    seen[(route, pref)] = [_strip_took(r) for r in got]
+                    if pref == "_replica":
+                        _hold(b1 > 0 and b2 > 0, f"(b) {tag}: B1 {b1}, "
+                              f"B2 {b2} launches on replica reads", "5n")
+                    extra = ""
+                    if pref is None and route == "mesh":
+                        hit = c1.get("executor_data_hit", 0) - c0.get(
+                            "executor_data_hit", 0)
+                        miss = c1.get("executor_data_miss", 0) - c0.get(
+                            "executor_data_miss", 0)
+                        extra = (f"; the executor's stacked data {hit} "
+                                 f"hits, {miss} misses")
+                    lines.append(
+                        f"[5n] (b) {tag}: {_pcts(np, ms)}; "
+                        f"{_dev_line(np, prof, len(bodies), ms)}; B1 {b1}, "
+                        f"B2 {b2} launches{extra}")
+            for pref in RP_PREFS[1:]:
+                _hold(seen[(route, pref)] == seen[(route, "_primary")],
+                      f"(b) {route}: {pref} answers differ from the "
+                      f"primaries' (fan-out copies)", "5n")
+        lines.append(f"[5n] (b) {RP_QUERIES} match bodies within 2^-7 of "
+                     f"the f64 BM25 oracle and {RP_KNN} knn bodies on the "
+                     f"f64 cosine oracle under every preference and "
+                     f"route; _primary, _replica and round-robin "
+                     f"responses byte-identical on each route")
+
+        # (c) failover of every shard, the fence, every doc found
+        body = match[0]
+        t_prom, t_first, olds = [], [], []
+        for sid in range(RP_SHARDS):
+            olds.append((svc.groups[sid].primary,
+                         list(svc.groups[sid].replicas)))
+            t = time.perf_counter()
+            svc.fail_shard(sid)
+            t_prom.append(time.perf_counter() - t)
+            node.search("rep1", copy.deepcopy(body), preference="_primary")
+            torch.cuda.synchronize()
+            t_first.append(time.perf_counter() - t)
+        post = []
+        for i in range(RP_SHARDS * 8):
+            r = node.index("rep1", f"post{i}", {"body": "t1 t2",
+                                                "tag": "g1"})
+            _hold(r["_primary_term"] == 2 and r["_shards"] == {
+                "total": 2, "successful": 1, "failed": 0},
+                f"(c) a write after the failover: {r}", "5n")
+            post.append(f"post{i}")
+        zombie = ReplicationGroup(0, olds[0][0], list(olds[0][1]))
+        try:
+            zombie.index("zombie", {"body": "t1"})
+            _hold(False, "(c) a stale group's write was acknowledged", "5n")
+        except StalePrimaryException:
+            pass
+        _hold(not any(c.engine.exists("zombie") for g in svc.groups
+                      for c in g.copies),
+              "(c) the stale group's write reached a live copy", "5n")
+        node.refresh("rep1")
+        n_ack = RP_DOCS + len(post)
+        for route in ("mesh", "host"):
+            ctx = contextlib.nullcontext() if route == "mesh" \
+                else _host_loop()
+            with ctx:
+                tot = node.search("rep1", {"size": 0})["hits"]["total"]
+                ids = node.search("rep1", {"query": {"ids": {
+                    "values": post}}, "size": len(post)})
+            _hold(tot == n_ack and sorted(h["_id"] for h in ids["hits"][
+                "hits"]) == sorted(post), f"(c) {route}: {tot} docs "
+                  f"found of {n_ack} acknowledged", "5n")
+        lines.append(f"[5n] (c) fail_shard on each of {RP_SHARDS} shards: "
+                     f"promotion {1e3 * np.mean(t_prom):.3f} ms mean "
+                     f"({1e3 * max(t_prom):.3f} max), first answer after "
+                     f"{1e3 * np.mean(t_first):.3f} ms mean "
+                     f"({1e3 * max(t_first):.3f} max); writes after carry "
+                     f"term 2; a stale group's write raised "
+                     f"StalePrimaryException and reached no live copy; "
+                     f"all {n_ack} acknowledged docs found on both routes")
+        lines.append(_rp_durable_failover(np, torch, dev, docs))
+
+        # (d) peer recovery: two full copies, then an ops-based re-sync
+        from elasticsearch_tpu_torch.cluster import metadata
+
+        n0 = len(svc.recoveries.entries())
+        t = time.perf_counter()
+        metadata.update_index_settings(svc, {"number_of_replicas": 2})
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t
+        full = svc.recoveries.entries()[n0:]
+        copied = sum(e["docs_copied"] for e in full)
+        _hold(len(full) == 2 * RP_SHARDS
+              and all(e["mode"] == "full" for e in full)
+              and copied == 2 * n_ack, f"(d) the scale to 2 replicas: "
+              f"{[(e['mode'], e['docs_copied']) for e in full]}", "5n")
+        g0 = svc.groups[0]
+        FAULTS.inject("replication.fanout", error=OSError, count=1,
+                      match=lambda ctx: ctx["shard"] == 0)
+        try:
+            new = wp_docs(np, RP_DOCS // RP_NEW, SEED + 63, start=RP_DOCS)
+            ops = []
+            for doc_id, src in new:
+                ops += [{"index": {"_index": "rep1", "_id": doc_id}}, src]
+            resp = node.bulk(ops)
+        finally:
+            FAULTS.clear()
+        _hold(not resp["errors"] and len(g0.failed_replicas) == 2
+              and len(g0.replicas) == 1, "(d) the fan-out fault did not "
+              "fail one copy of shard 0", "5n")
+        out = g0.failed_replicas[-1]
+        behind = g0.primary.engine.max_seq_no - out.engine.local_checkpoint
+        entry = svc.recoveries.start(0, "replica")
+        t = time.perf_counter()
+        g0.add_replica(out, entry)
+        torch.cuda.synchronize()
+        t_ops = time.perf_counter() - t
+        svc.recoveries.finish(entry)
+        _hold(entry["mode"] == "ops" and entry["ops_replayed"] == behind
+              and rp_table(out.engine) == rp_table(g0.primary.engine),
+              f"(d) the re-added copy: {entry}, {behind} ops behind", "5n")
+        node.refresh("rep1")
+        for g in svc.groups:
+            _hold(g.global_checkpoint == g.primary.engine.max_seq_no
+                  and len(g.replicas) == 2, f"(d) shard {g.shard_id}: "
+                  f"global checkpoint {g.global_checkpoint}, max seq no "
+                  f"{g.primary.engine.max_seq_no}", "5n")
+        lines.append(f"[5n] (d) scale to 2 replicas: {len(full)} full "
+                     f"copies, {copied} docs in {t_full:.3f} s "
+                     f"({copied / t_full:.1f} docs/s); a copy of shard 0 "
+                     f"failed by the replication.fanout fault point, "
+                     f"{len(new)} more docs written, the copy re-added: "
+                     f"mode ops, {entry['ops_replayed']} ops in "
+                     f"{t_ops:.3f} s ({entry['ops_replayed'] / t_ops:.1f} "
+                     f"ops/s); the global checkpoint equals the max seq no "
+                     f"on every group")
+    finally:
+        node.close()
+    for ln in lines:
+        log(ln)
+    b1, b2 = (bm25_topk.LAUNCHES - launches0[0],
+              knn_topk.LAUNCHES - launches0[1])
+    log(f"[5n] B1 launched {b1}, B2 {b2} times; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return b1, b2
+
+
 def _cprofile_rows(st, key, n, per=1):
     """The top ``n`` of a pstats.Stats by ``key`` ("cum" or "own") as
     lines of calls, own ms, cumulative ms (each divided by ``per``) and
@@ -7421,6 +7855,10 @@ def main() -> int:
     launches["bm25_dense_topk"] += b1
     launches["knn_topk"] += b2
     launches["adc_scores"] += b3
+    torch.cuda.empty_cache()
+    b1, b2 = phase_replicas(torch, np, dev, card)
+    launches["bm25_dense_topk"] += b1
+    launches["knn_topk"] += b2
     torch.cuda.empty_cache()
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card),
               "knn_topk": timing_knn(torch, dev, card),

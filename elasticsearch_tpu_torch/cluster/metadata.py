@@ -5,8 +5,9 @@ MetaDataUpdateSettingsService and MetaDataIndexStateService). A closed
 index stays registered, with its segments, and refuses reads and writes
 (``check_open``); the ``blocks.*`` settings refuse one kind of
 operation. ``update_index_settings`` takes the dynamic settings only;
-``number_of_replicas`` is recorded, but the port builds no replicas yet
-(ROADMAP A10c). Each change is persisted through the node's gateway.
+``number_of_replicas`` grows or shrinks every shard's replica set
+(``_scale_replicas``). Each change is persisted through the node's
+gateway.
 """
 from __future__ import annotations
 
@@ -59,13 +60,42 @@ def update_index_settings(svc, body: dict, node=None) -> dict:
                 and not key.startswith(DYNAMIC_SETTING_PREFIXES):
             raise IllegalArgumentException(
                 f"setting [index.{key}] is not dynamically updateable")
-    if "number_of_replicas" in flat and int(flat["number_of_replicas"]) < 0:
-        raise IllegalArgumentException("number_of_replicas must be >= 0")
+    if "number_of_replicas" in flat:
+        _scale_replicas(svc, int(flat["number_of_replicas"]))
     idx = svc.settings.setdefault("index", {})
     idx.update(flat)
     if node is not None:
         node._persist_index_meta(svc.name)
     return {"acknowledged": True}
+
+
+def _scale_replicas(svc, target: int) -> None:
+    """Grow or shrink every shard's replica set to ``target`` copies. A
+    surplus replica is closed (its device segments released); a new one
+    peer-recovers from the primary under the lock writes fan out under,
+    is recorded as a ``replica`` recovery and, caught up, joins the
+    in-sync set, so it can be promoted (the reference leaves it out of
+    the set and records nothing: ROADMAP C15)."""
+    if target < 0:
+        raise IllegalArgumentException("number_of_replicas must be >= 0")
+    for group in svc.groups:
+        with group._lock:
+            while len(group.replicas) > target:
+                gone = group.replicas.pop()
+                group.checkpoints.remove(gone.engine.commit_id)
+                gone.close()
+            while len(group.replicas) < target:
+                entry = svc.recoveries.start(group.shard_id, "replica")
+                fresh = svc._new_copy(group.shard_id)
+                try:
+                    group.add_replica(fresh, entry)
+                except Exception:
+                    svc.recoveries.finish(entry, ok=False)
+                    fresh.close()
+                    raise
+                svc.recoveries.finish(entry)
+    svc.num_replicas = target
+    svc._drop_retired()
 
 
 def _set_state(node, name: str, closed: bool) -> dict:

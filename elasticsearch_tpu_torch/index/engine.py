@@ -26,14 +26,26 @@ and ``recover_from_translog`` then skips the ops the commit already
 holds (seq no at or below its max), so a crash between the commit point
 and the translog's commit replays nothing twice. The reference's flush
 drops the translog with no segment on disk, losing every flushed doc at
-restart (ROADMAP C12). Peer recovery and replication are not in the port
-yet (ROADMAP A10c).
+restart (ROADMAP C12).
+
+Replication safety (``index/seqno.py``): the engine keeps the primary
+term this copy believes its shard runs under, a local-checkpoint tracker
+and each term's max seq no. A live op (a primary's own write, a
+replica's fan-out) from an older term is fenced with
+StalePrimaryException; a history op (translog replay, a recovery
+stream, ``_history=True``) applies under its recorded term.
+``recovery_ops`` serves a peer recovery the translog suffix above the
+target's checkpoint, or None when only a full copy is safe;
+``adopt_seq_state`` takes a full copy's checkpoint and term history.
+``fail`` fails the engine closed after a tragic event; ``adopt_store``
+hands a promoted replica the failed primary's translog and commit.
 """
 from __future__ import annotations
 
 import os
 import threading
 import time
+import uuid
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -53,7 +65,7 @@ from elasticsearch_tpu_torch.tracing.tasks import check_cancelled
 from elasticsearch_tpu_torch.utils.errors import (
     ActionRequestValidationException, CircuitBreakingException,
     DocumentMissingException, EngineFailedException, ScriptException,
-    VersionConflictException)
+    StalePrimaryException, VersionConflictException)
 
 
 @dataclass
@@ -113,6 +125,9 @@ class Engine:
         self._buffer_ids: Dict[str, int] = {}
         self._lock = threading.RLock()
         self.stats = EngineStats()
+        # the copy's identity: the replication group's in-sync set and the
+        # shard stats' commit section key on it
+        self.commit_id = uuid.uuid4().hex
         self.failed_reason: Optional[str] = None
         self.primary_term = 1
         self.seq = LocalCheckpointTracker()
@@ -133,14 +148,147 @@ class Engine:
     def max_seq_no(self) -> int:
         return self.seq.max_seq_no
 
+    def bump_term(self, term: int) -> None:
+        """Adopt a higher primary term (a promotion, or a newer primary's
+        recovery stream)."""
+        with self._lock:
+            if term > self.primary_term:
+                self.primary_term = term
+
+    def _fence_term(self, op_term: Optional[int],
+                    history: bool = False) -> int:
+        """The term one op runs under. A live op from a term older than
+        this copy's comes from a demoted primary and is refused; a newer
+        one is adopted. A history op applies under its recorded term
+        unfenced: replaying a term-1 op onto a term-2 copy is how a copy
+        catches up. Must hold ``_lock``."""
+        if op_term is None:
+            return self.primary_term  # the primary's own op
+        if history:
+            return op_term
+        if op_term < self.primary_term:
+            raise StalePrimaryException(self.index_name, "?", op_term,
+                                        self.primary_term)
+        self.primary_term = op_term
+        return op_term
+
     def _note_op(self, term: int, seq_no: int) -> None:
+        """Record (term, seq no) in the checkpoint tracker and the
+        per-term history. Must hold ``_lock``."""
         if seq_no < 0:
             return
         self.seq.mark_processed(seq_no)
         if seq_no > self._term_seq.get(term, NO_OPS_PERFORMED):
             self._term_seq[term] = seq_no
 
+    def term_at(self, seq_no: int) -> Optional[int]:
+        """The term the op at ``seq_no`` ran under: the lowest term whose
+        max seq no covers it (a new primary numbers on past its
+        predecessor). 0 for an empty history, None when this copy has no
+        record of ``seq_no``."""
+        if seq_no < 0:
+            return 0
+        with self._lock:
+            for term in sorted(self._term_seq):
+                if self._term_seq[term] >= seq_no:
+                    return term
+        return None
+
+    def seq_no_stats(self) -> dict:
+        return {"max_seq_no": self.max_seq_no,
+                "local_checkpoint": self.local_checkpoint,
+                "primary_term": self.primary_term}
+
+    def note_noop(self, seq_no: Optional[int], term: Optional[int]) -> None:
+        """Mark an op's seq no processed without applying it (a replayed
+        or fanned-out op that newer state already covers: ES's NoOp), or
+        the hole would hold the local checkpoint back for good."""
+        if seq_no is None:
+            return
+        with self._lock:
+            self._note_op(self.primary_term if term is None else term,
+                          seq_no)
+
+    def adopt_seq_state(self, term_seq: Dict[int, int], checkpoint: int,
+                        term: int) -> None:
+        """A full copy's target takes the source's checkpoint and term
+        history. Terms below the source's current one are replaced, not
+        merged: a diverged copy's phantom ops would otherwise fail every
+        later log-matching check; the current term's entry keeps the
+        larger max (live fan-out racing the copy extends it)."""
+        with self._lock:
+            fresh = {int(t): m for t, m in (term_seq or {}).items()}
+            for t, m in self._term_seq.items():
+                if t >= term and m > fresh.get(t, NO_OPS_PERFORMED):
+                    fresh[t] = m
+            self._term_seq = fresh
+            self.seq.advance_to(checkpoint)
+            if term > self.primary_term:
+                self.primary_term = term
+
+    def recovery_ops(self, checkpoint: int,
+                     last_term: Optional[int] = None) -> Optional[list]:
+        """A recovery source's translog ops above the target's
+        ``checkpoint``, in seq-no order, or None when only a full copy is
+        safe: the target is ahead of this copy, its term at its
+        checkpoint differs from this copy's (the log-matching check), or
+        the retained translog no longer covers the suffix (a flush
+        dropped it). The log is read outside the engine lock, so a
+        handshake never stalls writes; ops landing meanwhile reach the
+        target by fan-out."""
+        with self._lock:
+            if checkpoint > self.seq.checkpoint:
+                return None
+            if checkpoint >= 0 and last_term is not None:
+                t = self.term_at(checkpoint)
+                if t is None or t != last_term:
+                    return None
+            upper = self.seq.max_seq_no
+        by_seq: Dict[int, dict] = {}
+        try:
+            for op in self.translog.ops_above(checkpoint):
+                s = op["seq_no"]
+                prev = by_seq.get(s)
+                if prev is None or op.get("term", 0) >= prev.get("term", 0):
+                    by_seq[s] = op
+        except OSError:
+            return None
+        if any(s not in by_seq for s in range(checkpoint + 1, upper + 1)):
+            return None
+        return [by_seq[s] for s in sorted(by_seq) if s <= upper]
+
     # -- tragic events -----------------------------------------------------------
+
+    @property
+    def is_failed(self) -> bool:
+        return self.failed_reason is not None
+
+    def fail(self, reason: str) -> None:
+        """Fail the engine closed after a tragic event (idempotent): every
+        later write raises EngineFailedException; reads still serve."""
+        with self._lock:
+            if self.failed_reason is not None:
+                return
+            self.failed_reason = reason
+            try:
+                self.translog.close()
+            except OSError:
+                pass  # the channel is what failed; the flag is what counts
+
+    def adopt_store(self, translog_path: str) -> None:
+        """Take over a failed primary's store (a promotion on a data
+        path): open the translog at ``translog_path`` and the commit
+        beside it, then flush, so the commit holds this copy's state and
+        the old primary's translog generations are dropped before this
+        copy's first write as primary. The old primary's engine must be
+        failed first (``fail``: its translog is closed)."""
+        with self._lock:
+            self._ensure_open()
+            self.translog.close()
+            self.translog = Translog(translog_path)
+            self.commit_dir = os.path.join(os.path.dirname(translog_path),
+                                           "_commit")
+            self.flush()
 
     def _ensure_open(self) -> None:
         if self.failed_reason is not None:
@@ -153,7 +301,7 @@ class Engine:
         try:
             self.translog.append(entry)
         except OSError as e:
-            self.failed_reason = f"translog append failed: {e}"
+            self.fail(f"translog append failed: {e}")
             raise EngineFailedException(self.index_name,
                                         self.failed_reason) from e
 
@@ -167,7 +315,8 @@ class Engine:
               ttl_expiry: Optional[int] = None,
               seq_no: Optional[int] = None,
               primary_term: Optional[int] = None,
-              _replay: bool = False) -> Tuple[str, int, bool]:
+              _replay: bool = False,
+              _history: bool = False) -> Tuple[str, int, bool]:
         """Index/create a document. Returns (id, new_version, created).
         ``parent`` is a child's parent id (its ``_parent`` doc value); a
         doc with nested objects joins the buffer as one block.
@@ -176,11 +325,17 @@ class Engine:
 
         Internal versioning requires the given version to equal the
         current one; external requires it to be strictly greater (gte
-        allows equal). op_type=create fails if the doc exists."""
+        allows equal). op_type=create fails if the doc exists.
+
+        ``seq_no``/``primary_term``: None on a primary (a fresh seq no
+        under the current term); a replica, a replay and a recovery
+        stream pass the primary's. ``_replay`` skips the translog (a
+        replica keeps none); ``_history`` applies an older term unfenced
+        (``_fence_term``)."""
         t0 = time.perf_counter()
         with self._lock:
             self._ensure_open()
-            op_term = self.primary_term if primary_term is None else primary_term
+            op_term = self._fence_term(primary_term, history=_history)
             if doc_id is None:
                 self._auto_id += 1
                 doc_id = f"auto_{self._auto_id}_{int(time.time() * 1000)}"
@@ -244,10 +399,10 @@ class Engine:
     def delete(self, doc_id: str, version: Optional[int] = None,
                version_type: str = "internal", seq_no: Optional[int] = None,
                primary_term: Optional[int] = None,
-               _replay: bool = False) -> int:
+               _replay: bool = False, _history: bool = False) -> int:
         with self._lock:
             self._ensure_open()
-            op_term = self.primary_term if primary_term is None else primary_term
+            op_term = self._fence_term(primary_term, history=_history)
             doc_id = str(doc_id)
             loc = self._locations.get(doc_id)
             if loc is None or loc.deleted:
@@ -528,7 +683,7 @@ class Engine:
             except OSError as e:
                 # the commit point is down, so no acknowledged op is lost;
                 # the engine fails as on a failed append
-                self.failed_reason = f"translog commit failed: {e}"
+                self.fail(f"translog commit failed: {e}")
                 raise EngineFailedException(self.index_name,
                                             self.failed_reason) from e
             if commit is not None:
@@ -688,18 +843,22 @@ class Engine:
                                parent=op.get("parent"),
                                timestamp=op.get("timestamp"),
                                ttl_expiry=op.get("ttl_expiry"), seq_no=seq,
-                               primary_term=op.get("term"), _replay=True)
+                               primary_term=op.get("term"), _replay=True,
+                               _history=True)
                     self._locations[op["id"]].version = op["version"]
                     replayed += 1
                 elif op["op"] == "delete":
                     try:
                         self.delete(op["id"], seq_no=seq,
-                                    primary_term=op.get("term"), _replay=True)
+                                    primary_term=op.get("term"), _replay=True,
+                                    _history=True)
                         self._locations[op["id"]].version = op["version"]
                         replayed += 1
                     except DocumentMissingException:
                         pass
-            self.primary_term = max(self.primary_term, max_term)
+            # the highest term in the log is this copy's: a promotion
+            # survives a close and reopen
+            self.bump_term(max_term)
         return replayed
 
     def apply_translog_op(self, op: dict) -> None:
@@ -712,14 +871,14 @@ class Engine:
         if op["op"] == "delete":
             self.delete(op["id"], version=op.get("version"), version_type=vt,
                         seq_no=op.get("seq_no"), primary_term=op.get("term"),
-                        _replay=True)
+                        _replay=True, _history=True)
             return
         self.index(op["id"], op["source"], version=op.get("version"),
                    version_type=vt, routing=op.get("routing"),
                    doc_type=op.get("doc_type"), parent=op.get("parent"),
                    timestamp=op.get("timestamp"),
                    ttl_expiry=op.get("ttl_expiry"), seq_no=op.get("seq_no"),
-                   primary_term=op.get("term"), _replay=True)
+                   primary_term=op.get("term"), _replay=True, _history=True)
 
     def _charge_segment(self, seg: TpuSegment) -> None:
         """Charge a segment to the ``segments`` breaker; a denial fails

@@ -38,8 +38,28 @@ in ``recoveries`` as a ``gateway`` entry. ``flush`` commits every shard
 node. ``stats()`` is ES's index stats: every shard's docs, indexing,
 search (with the groups a body's ``stats`` key names), refresh, flush,
 merges, segments, fielddata and translog, summed over the primaries,
-and the index's recovery gauges. The slowlog and replicas are not ported
-yet (ROADMAP A10c).
+with each shard's seq-no section (its group's global checkpoint too) and
+the index's recovery gauges; a shard's search counters sum over its
+copies. The slowlog is not ported yet.
+
+Replicas (``number_of_replicas``, 0 by default as in the reference): each
+shard is a ``ReplicationGroup`` (``groups``, ``cluster/replication.py``)
+of a primary and its in-process replicas, each a whole ``IndexShard``
+with its own device segments. Index, delete, update and bulk go through
+the group (``_shards`` counts the copies); ``search`` reads one copy of
+each group, picked once per request by ``preference`` (``_primary``,
+``_replica``, or the next copy in turn), on either route. Count,
+suggest, percolate, more_like_this, the dfs statistics and by-query's
+lookups stay on the primaries (``shards``), as in the reference.
+``fail_shard`` promotes a replica; on a data path the promoted copy
+takes over the shard's translog and commit from the failed primary,
+whose engine is failed first, and commits before its first write (the
+reference's promoted copy keeps nothing on disk: ROADMAP C18). On a
+restart the replicas re-sync from the recovered primaries
+(``recover_peer``). Refresh, flush and force merge reach every copy (the
+reference flushes and merges only the primaries: ROADMAP C17). The
+reference's internal ``_local_replicas`` setting is popped, never
+echoed, and ignored: the port has no cluster members that set it.
 """
 from __future__ import annotations
 
@@ -54,11 +74,13 @@ from typing import Dict, List, Optional, Tuple
 
 from elasticsearch_tpu_torch.analysis.registry import AnalysisRegistry
 from elasticsearch_tpu_torch.cluster.metadata import check_open
+from elasticsearch_tpu_torch.cluster.replication import ReplicationGroup
 from elasticsearch_tpu_torch.cluster.routing import shard_id_for
 from elasticsearch_tpu_torch.index.engine import _deep_merge
 from elasticsearch_tpu_torch.index.mappings import Mappings
 from elasticsearch_tpu_torch.index.recovery import (RecoveryRegistry,
-                                                    recover_local)
+                                                    recover_local,
+                                                    recover_peer)
 from elasticsearch_tpu_torch.index.shard import IndexShard
 from elasticsearch_tpu_torch.monitor.stats import aggregate_recovery
 from elasticsearch_tpu_torch.parallel.executor import MeshSearchExecutor
@@ -101,6 +123,10 @@ class IndexService:
         self.settings = settings or {}
         idx_settings = self.settings.get("index", self.settings)
         self.num_shards = int(idx_settings.get("number_of_shards", 1))
+        self.num_replicas = int(idx_settings.get("number_of_replicas", 0))
+        # the reference's marker for copies held by other cluster members;
+        # popped so it never leaks into the settings echo
+        idx_settings.pop("_local_replicas", None)
         self.analysis = AnalysisRegistry(self.settings)
         self.mappings = Mappings(mappings_json or {})
         self._validate_analyzers()
@@ -112,6 +138,12 @@ class IndexService:
             IndexShard(name, i, self.mappings, self.analysis, residency,
                        data_path)
             for i in range(self.num_shards)]
+        # each shard's copies; a replica keeps no translog (it re-syncs
+        # from its primary by peer recovery)
+        self.groups: List[ReplicationGroup] = [
+            ReplicationGroup(i, primary, [
+                self._new_copy(i) for _ in range(self.num_replicas)])
+            for i, primary in enumerate(self.shards)]
         self._mesh_executor: Optional[MeshSearchExecutor] = None
         self._query_cache: "OrderedDict[Tuple, dict]" = OrderedDict()
         self._qc_lock = threading.Lock()
@@ -124,13 +156,50 @@ class IndexService:
                 self.close()  # the shards' translogs and device charges
                 raise
 
+    def _new_copy(self, shard_id: int) -> IndexShard:
+        """A replica of shard ``shard_id``: in memory, empty."""
+        return IndexShard(self.name, shard_id, self.mappings, self.analysis,
+                          self.residency, None)
+
     def recover(self) -> None:
-        """Gateway recovery: every shard replays its commit and its
-        translog (a ``gateway`` entry each), then the percolator registry
-        is rebuilt from the replayed docs."""
+        """Gateway recovery: every primary replays its commit and its
+        translog (a ``gateway`` entry each), each replica re-syncs from
+        its primary (a ``replica`` entry each), then the percolator
+        registry is rebuilt from the replayed docs."""
         for shard in self.shards:
             recover_local(shard, self.recoveries)
+        for group in self.groups:
+            for replica in group.replicas:
+                entry = self.recoveries.start(group.shard_id, "replica")
+                try:
+                    recover_peer(group.primary.engine, replica.engine, entry)
+                except Exception:
+                    self.recoveries.finish(entry, ok=False)
+                    raise
+                self.recoveries.finish(entry)
+            group._note_checkpoints()
         self._register_recovered_percolators()
+
+    def fail_shard(self, shard_id: int) -> IndexShard:
+        """Fail shard ``shard_id``'s primary: its first in-sync replica is
+        promoted under a bumped term (ES's shard-failed reroute). On a
+        data path the old primary's engine fails (its translog closes, so
+        a stale group's write lands nowhere) and the promoted copy takes
+        over the shard's store and commits, under the lock writes take,
+        before it acknowledges a write. Returns the new primary."""
+        group = self.groups[shard_id]
+        with group._lock:
+            old = group.primary
+            new_primary = group.fail_primary()
+            if self.data_path:
+                old.engine.fail(
+                    f"shard failed: copy [{new_primary.engine.commit_id}] "
+                    f"promoted under term [{group.primary_term}]")
+                new_primary.adopt_store(self.data_path)
+        self.shards[shard_id] = new_primary
+        # the old primary is read no more: its cached mesh data goes
+        self._drop_retired()
+        return new_primary
 
     def _register_recovered_percolators(self) -> None:
         """Rebuild the percolator registry from the replayed docs; a doc
@@ -171,6 +240,16 @@ class IndexService:
     def route(self, doc_id: str, routing: Optional[str] = None) -> IndexShard:
         return self.shards[shard_id_for(doc_id, self.num_shards, routing)]
 
+    def group_for(self, doc_id: str,
+                  routing: Optional[str] = None) -> ReplicationGroup:
+        return self.groups[shard_id_for(doc_id, self.num_shards, routing)]
+
+    def _shards_header(self, group: ReplicationGroup, failed: int) -> dict:
+        """A write's ``_shards``: the copies the settings ask for, those
+        that acknowledged it, those that failed it."""
+        return {"total": 1 + self.num_replicas,
+                "successful": 1 + len(group.replicas), "failed": failed}
+
     def index_doc(self, doc_id: Optional[str], source: dict,
                   routing: Optional[str] = None, **kw) -> dict:
         check_open(self)
@@ -178,27 +257,26 @@ class IndexService:
             doc_id = uuid.uuid4().hex[:20]
         self._check_routing_required(doc_id, kw.get("doc_type"),
                                      routing or kw.get("parent"))
-        shard = self.route(doc_id, routing)
+        group = self.group_for(doc_id, routing)
         is_perc = kw.get("doc_type") == PERCOLATOR_TYPE
         if is_perc:
             # before the write: an unparsable query never reaches the
             # translog, where it would fail the replay
             self.percolator.validate(source)
-        rid, version, created = shard.engine.index(doc_id, source,
-                                                   routing=routing, **kw)
+        rid, version, created, failed, seq_no, term = group.index(
+            doc_id, source, routing=routing, **kw)
         if is_perc:
             self.percolator.register(rid, source)
-        loc = shard.engine._locations[rid]
         return {
             "_index": self.name,
             "_type": kw.get("doc_type") or "_doc",
             "_id": rid,
             "_version": version,
-            "_seq_no": loc.seq_no,
-            "_primary_term": loc.term,
+            "_seq_no": seq_no,
+            "_primary_term": term,
             "result": "created" if created else "updated",
             "created": created,
-            "_shards": {"total": 1, "successful": 1, "failed": 0},
+            "_shards": self._shards_header(group, failed),
         }
 
     def _check_routing_required(self, doc_id, doc_type, routing) -> None:
@@ -226,18 +304,18 @@ class IndexService:
     def delete_doc(self, doc_id: str, routing: Optional[str] = None,
                    **kw) -> dict:
         check_open(self)
-        engine = self.route(doc_id, routing).engine
-        loc = engine._locations.get(str(doc_id))
+        group = self.group_for(doc_id, routing)
+        loc = group.primary.engine._locations.get(str(doc_id))
         dtype = loc.doc_type if loc is not None and loc.doc_type else "_doc"
-        version = engine.delete(doc_id, **kw)
+        version, _failed, seq_no, term = group.delete(doc_id, **kw)
         if self._percolator is not None:
             self._percolator.unregister(str(doc_id))
-        loc = engine._locations[str(doc_id)]
+        # the reference reports no failed copy on a delete
         return {
             "_index": self.name, "_type": dtype, "_id": doc_id,
-            "_version": version, "_seq_no": loc.seq_no,
-            "_primary_term": loc.term, "result": "deleted", "found": True,
-            "_shards": {"total": 1, "successful": 1, "failed": 0},
+            "_version": version, "_seq_no": seq_no,
+            "_primary_term": term, "result": "deleted", "found": True,
+            "_shards": self._shards_header(group, 0),
         }
 
     def update_doc(self, doc_id: str, body: dict,
@@ -280,6 +358,9 @@ class IndexService:
             doc_as_upsert=bool(body.get("doc_as_upsert", False)),
             scripted_upsert=bool(body.get("scripted_upsert", False)),
             doc_type=doc_type, routing=routing, **kw)
+        # the merged source exists only on the primary: fan out its state
+        group = self.group_for(doc_id, routing)
+        group.replicate_current(str(doc_id))
         if is_perc:
             got = engine.get(str(doc_id))
             if got and got.get("_source"):
@@ -291,7 +372,7 @@ class IndexService:
                       else "_doc"),
             "_id": doc_id, "_version": version,
             "result": "created" if created else "updated",
-            "_shards": {"total": 1, "successful": 1, "failed": 0},
+            "_shards": self._shards_header(group, 0),
         }
 
     def mget(self, ids: List[str]) -> dict:
@@ -393,23 +474,27 @@ class IndexService:
             out["aggregations"] = r.get("aggregations", {})
         return out
 
+    def _copies(self) -> List[IndexShard]:
+        return [c for g in self.groups for c in g.copies]
+
     def refresh(self):
-        for s in self.shards:
-            s.refresh()
+        for g in self.groups:
+            g.refresh()
         self._drop_retired()
 
     def flush(self) -> None:
-        """Commit every shard durably (``Engine.flush``)."""
-        for s in self.shards:
-            s.engine.flush()
+        """Commit every copy (``Engine.flush``; a replica, with no data
+        path, only refreshes and clears its empty in-memory log)."""
+        for c in self._copies():
+            c.engine.flush()
         self._drop_retired()
 
     def force_merge(self, max_num_segments: int = 1) -> None:
-        """Fold each shard's segments, in order, into one (ES 2.0's
-        ``_optimize`` with ``max_num_segments``; a shard at or below it
-        is left as it is)."""
-        for s in self.shards:
-            s.engine.merge(max_segments=max_num_segments)
+        """Fold each copy's segments, in order, into one (ES 2.0's
+        ``_optimize`` with ``max_num_segments``; a copy at or below it is
+        left as it is)."""
+        for c in self._copies():
+            c.engine.merge(max_segments=max_num_segments)
         self._drop_retired()
 
     def _drop_retired(self) -> None:
@@ -425,13 +510,14 @@ class IndexService:
 
     def mesh_executor(self) -> MeshSearchExecutor:
         """The index's MeshSearchExecutor: one slot per shard on the
-        node's device, over the live shards (never a segment snapshot,
-        which would pin merged-away segments); its caches live as long
-        as the index."""
+        node's device, following the groups (their live primaries, and
+        every copy's segments as live for its caches), never a segment
+        snapshot, which would pin merged-away segments; its caches live
+        as long as the index."""
         if self._mesh_executor is None:
             self._mesh_executor = MeshSearchExecutor(
                 shard_mesh(self.num_shards, self.residency.device),
-                self.shards, self.residency)
+                self.groups, self.residency)
         return self._mesh_executor
 
     def _mesh_enabled(self) -> bool:
@@ -487,16 +573,29 @@ class IndexService:
 
     # -- search -----------------------------------------------------------------
 
-    def routing_shards(self, routing: str) -> List[IndexShard]:
-        """The shards a comma list of routing values routes to."""
+    def routed_groups(self, routing: Optional[str] = None
+                      ) -> List[ReplicationGroup]:
+        """Every group, or those a comma list of routing values routes
+        to."""
+        if routing is None:
+            return list(self.groups)
         ids = {shard_id_for("", self.num_shards, r.strip())
                for r in str(routing).split(",")}
-        return [self.shards[i] for i in sorted(ids)]
+        return [self.groups[i] for i in sorted(ids)]
 
-    def search(self, body: dict, routing: Optional[str] = None) -> dict:
+    def readers(self, routing: Optional[str] = None,
+                preference: Optional[str] = None) -> List[IndexShard]:
+        """The copy of each routed group a search reads (``reader``,
+        called once per group and request, so round-robin turns once a
+        request)."""
+        return [g.reader(preference) for g in self.routed_groups(routing)]
+
+    def search(self, body: dict, routing: Optional[str] = None,
+               preference: Optional[str] = None) -> dict:
         """One index's search; ``search_type: dfs_query_then_fetch`` runs
         the dfs phase first. ``routing`` (an alias's search routing)
-        searches only the shards it routes to, on the host loop."""
+        searches only the shards it routes to, on the host loop.
+        ``preference`` picks the copy of each shard read (``readers``)."""
         check_open(self, op="read")
         body = body or {}
         dfs = body.get("search_type") == "dfs_query_then_fetch"
@@ -521,9 +620,7 @@ class IndexService:
             if q2 is not body["query"]:
                 body = dict(body, query=q2)
         gs = self.global_stats() if dfs else None
-        shards = self.shards if routing is None \
-            else self.routing_shards(routing)
-        searchers = [s.searcher for s in shards]
+        searchers = [s.searcher for s in self.readers(routing, preference)]
         resp = None
         if routing is None and self._mesh_enabled():
             # the default path; the host loop serves what the mesh declines
@@ -575,8 +672,14 @@ class IndexService:
 
     def stats(self) -> dict:
         """ES's index stats: each shard's, their sums over the primaries,
-        and the recovery gauges."""
+        and the recovery gauges. A search reads one copy, so each shard's
+        search counters sum over its copies; its seq-no section gains the
+        group's global checkpoint."""
         shards = [s.stats() for s in self.shards]
+        for g, st in zip(self.groups, shards):
+            for c in g.replicas:
+                _merge_counters(st["search"], c.searcher.stats.to_json())
+            st["seq_no"]["global_checkpoint"] = g.global_checkpoint
         primaries = {"docs": {"count": 0}, "segments": {}, "indexing": {},
                      "search": {}, "refresh": {}, "flush": {}, "merges": {},
                      "fielddata": {}, "translog": {}}
@@ -590,8 +693,9 @@ class IndexService:
     def close(self):
         if self._mesh_executor is not None:
             self._mesh_executor.close()
-        for s in self.shards:
-            s.close()
+        for g in self.groups:
+            for c in g.copies + g.failed_replicas:
+                c.close()
 
 
 def _merge_counters(dst: dict, src: dict) -> None:

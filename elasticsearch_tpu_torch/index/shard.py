@@ -2,7 +2,9 @@
 
 Port of elasticsearch_tpu/index/shard.py: the lifecycle state, gateway
 recovery (the committed blocks, then the translog) and the shard's
-stats. Replicas are not ported yet (ROADMAP A10c).
+stats. A primary and each of its replicas are IndexShards of their own
+(``cluster/replication.py``); a replica has no data path until a
+promotion hands it the shard's store (``adopt_store``).
 """
 from __future__ import annotations
 
@@ -23,13 +25,8 @@ class IndexShard:
         self.index_name = index_name
         self.shard_id = shard_id
         self.state = "CREATED"
-        translog_path = None
-        if data_path:
-            # the reference's on-disk layout: <data>/<index>/<shard>/translog
-            translog_path = os.path.join(data_path, index_name,
-                                         str(shard_id), "translog")
         self.engine = Engine(mappings, analysis, residency,
-                             translog_path=translog_path,
+                             translog_path=self._translog_path(data_path),
                              index_name=index_name)
         # the searcher shares the engine's segment list object
         self.searcher = ShardSearcher(self.engine.segments, mappings,
@@ -37,6 +34,18 @@ class IndexShard:
                                       index_name=index_name,
                                       version_of=self.engine.version_of)
         self.state = "STARTED"
+
+    def _translog_path(self, data_path: Optional[str]) -> Optional[str]:
+        # the reference's on-disk layout: <data>/<index>/<shard>/translog
+        if not data_path:
+            return None
+        return os.path.join(data_path, self.index_name, str(self.shard_id),
+                            "translog")
+
+    def adopt_store(self, data_path: str) -> None:
+        """A promoted replica takes over the shard's store under
+        ``data_path`` (``Engine.adopt_store``)."""
+        self.engine.adopt_store(self._translog_path(data_path))
 
     def recover(self) -> int:
         """Replay the durable commit, then the translog past it, then
@@ -79,8 +88,12 @@ class IndexShard:
                                                       for s in segs),
                           "evictions": 0},
             "translog": self.engine.translog.stats(),
-            "seq_no": {"max_seq_no": self.engine.max_seq_no,
-                       "local_checkpoint": self.engine.local_checkpoint},
+            # ES's SeqNoStats: what a checkpoint-based recovery negotiates
+            # on (the index adds its group's global checkpoint)
+            "seq_no": self.engine.seq_no_stats(),
+            # Lucene's CommitStats: the copy's identity and generation
+            "commit": {"id": self.engine.commit_id,
+                       "generation": e.refresh_total + e.flush_total + 1},
         }
 
     def close(self):

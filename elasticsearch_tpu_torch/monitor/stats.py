@@ -120,9 +120,9 @@ def record_corrupt_tail(path: str, bytes_dropped: int, reason: str) -> None:
 
 def aggregate_recovery(index_services) -> dict:
     """A node's recovery gauges over its own indices' registries:
-    ``incremental`` counts ops-mode recoveries, ``full_copies`` the full
-    streams; with no peer recovery ported yet (ROADMAP A10c) those two
-    and ``current_as_source`` stay 0 (gateway entries carry no mode)."""
+    ``incremental`` counts ops-mode peer recoveries, ``full_copies`` the
+    full streams (a gateway entry carries no mode). Every recovery runs
+    inside one process, so ``current_as_source`` stays 0."""
     out = {"current_as_source": 0, "current_as_target": 0,
            "total": 0, "incremental": 0, "full_copies": 0,
            "ops_replayed": 0, "docs_copied": 0}

@@ -37,6 +37,14 @@ their entries (``execute_suggest_multi``), as ES 2.0 does; the
 reference's multi-index route drops the key (ROADMAP C10). A name that
 is neither an index nor an alias answers 404, also inside a comma list
 (ES 2.0's answer; the reference drops such a name).
+
+An index with ``number_of_replicas`` holds that many in-process copies
+of each shard (``cluster/replication.py``): ``search`` and ``msearch``
+take ES's ``preference`` (``_primary``, ``_replica``, or the next copy in
+turn), picked once per shard and request on every route; ``bulk`` writes
+through each shard's group; ``nodes_stats`` sums over every copy; the
+gateway rebuilds an index's replicas from its ``_meta.json`` and
+re-syncs them from the recovered primaries.
 """
 from __future__ import annotations
 
@@ -59,6 +67,8 @@ from elasticsearch_tpu_torch.cluster.state import (ClusterState,
 from elasticsearch_tpu_torch.index import ivf_cache
 from elasticsearch_tpu_torch.index.engine import _deep_merge
 from elasticsearch_tpu_torch.index.index_service import IndexService
+from elasticsearch_tpu_torch.monitor.stats import (SearchStats,
+                                                   aggregate_recovery)
 from elasticsearch_tpu_torch.resources.breakers import CircuitBreakerService
 from elasticsearch_tpu_torch.resources.residency import Residency
 from elasticsearch_tpu_torch.search.batch import (msearch_error_entry,
@@ -498,8 +508,11 @@ class Node:
 
     # -- search ------------------------------------------------------------------
 
-    def search(self, index: Optional[str], body: Optional[dict] = None
-               ) -> dict:
+    def search(self, index: Optional[str], body: Optional[dict] = None,
+               preference: Optional[str] = None) -> dict:
+        """``preference`` picks the copy of each shard read: ``_primary``,
+        ``_replica``, or by default the next copy in turn (one pick per
+        shard and request)."""
         plan = self._search_plan(index)
         if not plan and index not in (None, "", "_all", "*"):
             raise IndexNotFoundException(str(index))
@@ -509,9 +522,11 @@ class Node:
             svc = self.indices[name]
             if flt is not None:
                 body = _with_filter(body, flt)
-            if routing is not None \
+            if routing is not None or preference is not None \
                     or body.get("search_type") == "dfs_query_then_fetch":
-                return svc.search(body, routing=routing)  # never coalesced
+                # never coalesced
+                return svc.search(body, routing=routing,
+                                  preference=preference)
 
             def run():
                 return svc.search(body)
@@ -546,10 +561,9 @@ class Node:
             q2 = rewrite_mlt_in_body(body["query"], lookup)
             if q2 is not body["query"]:
                 body = dict(body, query=q2)
-        shards = [s for (n, _f, r), svc in zip(plan, svcs)
-                  for s in (svc.shards if r is None
-                            else svc.routing_shards(r))]
-        searchers = [s.searcher for s in shards]
+        groups = [g for (_n, _f, r), svc in zip(plan, svcs)
+                  for g in svc.routed_groups(r)]
+        searchers = [g.reader(preference).searcher for g in groups]
         if not searchers:
             return {"took": 0, "timed_out": False,
                     "_shards": {"total": 0, "successful": 0, "failed": 0},
@@ -558,7 +572,9 @@ class Node:
         if body.get("search_type") == "dfs_query_then_fetch":
             # one idf over every searched index (ES's DfsPhase collects
             # over all the request's shards)
-            gs = global_stats(seg for s in shards for seg in s.segments)
+            # (the primaries' segments, as each index's own dfs reads)
+            gs = global_stats(seg for g in groups
+                              for seg in g.primary.segments)
         resp = search_shards(searchers, body, index_name=",".join(names),
                              global_stats=gs)
         if body.get("suggest"):
@@ -567,15 +583,19 @@ class Node:
                 body["suggest"])
         return resp
 
-    def msearch(self, pairs: List[Tuple[dict, dict]]) -> dict:
+    def msearch(self, pairs: List[Tuple[dict, dict]],
+                preference: Optional[str] = None) -> dict:
         """``_msearch`` over (header, body) pairs. When every header names
         the same expression and it resolves to one open index with no
         alias filter or routing, the eligible items run as one batch
-        (``search/batch.py``: one device pass per segment); the rest run
-        one by one through ``search``, and a typed error becomes that
-        item's ES-shaped failure entry."""
+        (``search/batch.py``: one device pass per segment, one copy of
+        each shard picked for the batch); the rest run one by one through
+        ``search``, and a typed error becomes that item's ES-shaped
+        failure entry. A header's ``preference`` overrides
+        ``preference``; items whose preferences differ never batch."""
         pre: List[Optional[dict]] = [None] * len(pairs)
-        if len(pairs) >= 2:
+        prefs = [h.get("preference", preference) for h, _ in pairs]
+        if len(pairs) >= 2 and len(set(prefs)) == 1:
             names = {h.get("index") if isinstance(h.get("index"), str)
                      else None for h, _ in pairs}
             if len(names) == 1 and None not in names:
@@ -591,7 +611,8 @@ class Node:
                 out = None
                 if svc is not None:
                     try:
-                        out = try_batched_msearch(svc, [b for _, b in pairs])
+                        out = try_batched_msearch(svc, [b for _, b in pairs],
+                                                  preference=prefs[0])
                     except ElasticsearchTpuException:
                         # a typed refusal (a breaker denial): each item
                         # runs alone and reports its own error; a device
@@ -600,15 +621,64 @@ class Node:
                 if out is not None:
                     pre = out
         responses = []
-        for (header, body), served in zip(pairs, pre):
+        for (header, body), served, pref in zip(pairs, pre, prefs):
             if served is not None:
                 responses.append(served)
                 continue
             try:
-                responses.append(self.search(header.get("index"), body))
+                responses.append(self.search(header.get("index"), body,
+                                             preference=pref))
             except ElasticsearchTpuException as e:
                 responses.append(msearch_error_entry(e))
         return {"responses": responses}
+
+    def nodes_stats(self) -> dict:
+        """ES's ``_nodes/stats`` for this node, its ``indices`` section
+        and breakers (the reference's process, thread pool, tracing and
+        accelerator sections are not ported): search, indexing, segments
+        and fielddata sum over every copy of every shard, as the node
+        holds them all; ``docs`` counts the primaries'."""
+        search = {k: 0 for k in SearchStats().to_json()}
+        indexing = {"index_total": 0, "delete_total": 0,
+                    "index_time_in_millis": 0}
+        seg_count = seg_mem = fd_mem = fd_ev = tl_frames = tl_bytes = 0
+        for svc in self.indices.values():
+            for g in svc.groups:
+                for shard in g.copies:
+                    st = shard.stats()
+                    for k in search:
+                        search[k] += st["search"].get(k, 0)
+                    for k in indexing:
+                        indexing[k] += st["indexing"][k]
+                    seg_count += st["segments"]["count"]
+                    seg_mem += st["segments"]["memory_in_bytes"]
+                    fd_mem += st["fielddata"]["memory_size_in_bytes"]
+                    fd_ev += st["fielddata"]["evictions"]
+                    tl_frames += st["translog"].get(
+                        "corrupt_tail_events", 0)
+                    tl_bytes += st["translog"].get(
+                        "corrupt_tail_bytes_dropped", 0)
+        return {
+            "cluster_name": self.cluster_state.cluster_name,
+            "nodes": {self.node_id: {
+                "name": self.name,
+                "indices": {
+                    "docs": {"count": sum(s.num_docs
+                                          for s in self.indices.values())},
+                    "search": search,
+                    "indexing": indexing,
+                    "segments": {"count": seg_count,
+                                 "memory_in_bytes": seg_mem},
+                    "fielddata": {"memory_size_in_bytes": fd_mem,
+                                  "evictions": fd_ev},
+                    "translog_recovery": {
+                        "corrupt_tail_frames_skipped": tl_frames,
+                        "corrupt_tail_bytes_dropped": tl_bytes},
+                    "recovery": aggregate_recovery(self.indices.values()),
+                },
+                "breakers": self.breakers.stats(),
+            }},
+        }
 
     def close(self):
         # the coalescer first: parked requests resolve before the indices

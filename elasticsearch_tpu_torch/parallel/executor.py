@@ -23,6 +23,11 @@ vector slabs are never copied. A merge retires segments: after each
 refresh and force merge the index service has ``drop_retired`` let go
 of every entry that holds one, and of its charge.
 
+The executor follows the index's replication groups, not a snapshot of
+its shards: ``shards`` are the groups' current primaries (a promotion
+shows at once), and the segments of every copy count as live for the
+caches, since a search may read any copy.
+
 Routes inside a round:
 - a request that is a pure disjunctive term group on dense rows (the
   host loop's fused shape) runs kernel B1's rows form with its hit count
@@ -79,7 +84,8 @@ from elasticsearch_tpu_torch.utils.shapes import pow2_bucket
 
 NEG_INF = float("-inf")
 
-#: stacked segment-round data groups kept per executor
+#: stacked segment-round data groups kept per executor and per copy of a
+#: shard (``MeshSearchExecutor._data_cap``)
 _DATA_CACHE_CAP = 32
 #: prepared-query memo entries kept per executor
 _PREP_CACHE_CAP = 64
@@ -200,12 +206,13 @@ class MeshSearchExecutor:
     rounds merge on the host. More shards than slots wrap round-robin
     (shard i → slot i % S, its segments joining that slot's rounds)."""
 
-    def __init__(self, mesh: ShardMesh, shards, residency):
+    def __init__(self, mesh: ShardMesh, groups, residency):
         self.mesh = mesh
         self.S = mesh_size(mesh)
         self.device = mesh.device
         self.residency = residency
-        self.shards = list(shards)
+        # the index's live group list (``primary`` and ``copies`` of each)
+        self.groups = groups
         if len(self.shards) < self.S:
             raise ValueError(
                 f"mesh has {self.S} shard slots but got only "
@@ -219,6 +226,21 @@ class MeshSearchExecutor:
         # key → (tensor, pinned segments, charged bytes)
         self._data: "OrderedDict[Tuple, tuple]" = OrderedDict()
         self._data_lock = threading.Lock()
+
+    @property
+    def shards(self) -> list:
+        """Each group's current primary."""
+        return [g.primary for g in self.groups]
+
+    @property
+    def _data_cap(self) -> int:
+        """Stacked-data entries kept: _DATA_CACHE_CAP for each copy of a
+        shard. A round stacks one copy of every shard, and round-robin
+        reads turn every group at once, so each copy's rounds need
+        entries of their own: at one cap for all, one replica made every
+        lookup a miss."""
+        return _DATA_CACHE_CAP * max(
+            (len(g.copies) for g in self.groups), default=1)
 
     # -- caches ------------------------------------------------------------
 
@@ -247,7 +269,7 @@ class MeshSearchExecutor:
                 val = self._data[key][0]
             else:
                 self._data[key] = (val, list(refs), nbytes)
-                while len(self._data) > _DATA_CACHE_CAP:
+                while len(self._data) > self._data_cap:
                     evicted.append(self._data.popitem(last=False)[1][2])
         for n in evicted:
             self.residency.release(n)
@@ -260,10 +282,11 @@ class MeshSearchExecutor:
 
     def drop_retired(self) -> None:
         """Drop every memo entry and stacked copy that holds a segment no
-        shard serves any more (a merge retired it), releasing their
+        copy serves any more (a merge retired it), releasing their
         charges. Their keys can never match again, and they would pin the
         dead segments' tensors until the LRUs cycle."""
-        live = {id(seg) for sh in self.shards for seg in _segments_of(sh)}
+        live = {id(seg) for g in self.groups for sh in g.copies
+                for seg in _segments_of(sh)}
         with self._data_lock:
             dead_data = [key for key, e in self._data.items()
                          if any(id(s) not in live for s in e[1])]

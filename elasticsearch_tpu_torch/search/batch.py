@@ -27,7 +27,9 @@ sequence; the reference's one-program hybrid tier is left out with
 with a segment of nested docs serves every item on its own (the tiers
 score every doc, and a search counts roots only), as the reference does.
 
-A batch counts each shard's queries and fetches as its sequential
+A batch reads one copy of each shard, picked once for the whole batch
+(``ReplicationGroup.reader``: ``preference``, else the next copy in
+turn), and counts each shard's queries and fetches as its sequential
 searches would (``SearchStats``). The reference's program registry and
 retrace accounting around the tiers are not ported (ROADMAP A11), nor its
 power-of-two batch padding, which bounded recompiles on the TPU.
@@ -101,9 +103,12 @@ def split_batchable(bodies: List[dict]) -> Tuple[
 
 
 def _probe_segment(svc):
-    for sh in svc.shards:
-        if sh.segments:
-            return sh.segments[0]
+    """A segment of any copy (bucketing reads only its mappings and
+    fields), or None when no copy has one."""
+    for g in svc.groups:
+        for sh in g.copies:
+            if sh.segments:
+                return sh.segments[0]
     return None
 
 
@@ -194,8 +199,9 @@ def knn_topk_fused_batch(ctx, queries, k: int):
             out[:, 2 * kb:].view(np.int64)[:, 0])
 
 
-def execute_batch(svc, bodies: List[dict],
-                  queries: Optional[list] = None) -> Optional[List[dict]]:
+def execute_batch(svc, bodies: List[dict], queries: Optional[list] = None,
+                  preference: Optional[str] = None
+                  ) -> Optional[List[dict]]:
     """Batched execution of uniform single-search bodies over one index:
     one device pass per segment (or one mesh round over every shard),
     per-request responses in order, or None when the tiers refuse (the
@@ -212,7 +218,7 @@ def execute_batch(svc, bodies: List[dict],
     if not 1 <= k <= 10_000:
         return None
     Q = len(bodies)
-    searchers = [sh.searcher for sh in svc.shards]
+    searchers = [g.reader(preference).searcher for g in svc.groups]
     # per query its candidates (-score, shard, seg_id, local, segment)
     cands: List[list] = [[] for _ in range(Q)]
     totals = np.zeros(Q, np.int64)
@@ -301,8 +307,9 @@ def execute_batch(svc, bodies: List[dict],
     return responses
 
 
-def try_batched_msearch(svc, bodies: List[dict],
-                        min_batch: int = 2) -> Optional[List[Optional[dict]]]:
+def try_batched_msearch(svc, bodies: List[dict], min_batch: int = 2,
+                        preference: Optional[str] = None
+                        ) -> Optional[List[Optional[dict]]]:
     """Partial batch execution over one index.
 
     Returns None when nothing amortizes (the caller runs every item on
@@ -331,7 +338,8 @@ def try_batched_msearch(svc, bodies: List[dict],
     if len(batch_idx) < min_batch:
         return out if errors else None
     responses = execute_batch(svc, [bodies[i] for i in batch_idx],
-                              queries=[parsed[i] for i in batch_idx])
+                              queries=[parsed[i] for i in batch_idx],
+                              preference=preference)
     if responses is None:
         return out if errors else None
     for i, r in zip(batch_idx, responses):

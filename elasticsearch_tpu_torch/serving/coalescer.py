@@ -7,7 +7,9 @@ front-end turns *concurrent independent* single searches into the same
 shape: each eligible request parks briefly in a micro-batch queue keyed
 by ``(index, query-shape bucket)``; a drain thread flushes the bucket as
 one batch (``execute_batch``) and hands each request its response on its
-own thread.
+own thread. On an index with replicas a flush reads one copy of each
+shard for the whole batch (``ReplicationGroup.reader``: the next copy in
+turn), as one search would.
 
 Drain policy (adaptive):
 

@@ -4,7 +4,7 @@ the mesh, a script_score with script_fields, a span_near, script
 aggregations, nested queries and aggs, has_child, the geo queries and
 the ``_geo_distance`` sort, the suggesters, the percolator, updates,
 bulk, by-query, a flush and restart, a snapshot and restore and the
-``stats`` key included), and
+``stats`` key included, and replicas with a failover and a scale), and
 its entry point never falls back to the CPU on its own."""
 import os
 import re
@@ -208,6 +208,17 @@ n.delete_index("d")
 snapshots.restore_snapshot(n, repo, "s")
 assert n.search("d", {"stats": ["g"]})["hits"]["total"] == 6
 assert n.indices["d"].stats()["primaries"]["search"]["groups"]["g"]["query_total"] == 2
+n.create_index("rp", {"settings": {"number_of_shards": 2,
+                                   "number_of_replicas": 1}})
+for i in range(40):
+    assert n.index("rp", str(i), {"body": "fox"})["_shards"]["total"] == 2
+n.refresh("rp")
+for pref in ("_primary", "_replica", None):
+    assert n.search("rp", {"query": {"match": {"body": "fox"}}},
+                    preference=pref)["hits"]["total"] == 40
+n.indices["rp"].fail_shard(0)
+n.update_index_settings("rp", {"number_of_replicas": 2})
+assert n.search("rp", {"size": 0}, preference="_replica")["hits"]["total"] == 40
 n.close()
 import importlib, pkgutil
 import elasticsearch_tpu_torch
