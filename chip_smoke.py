@@ -248,6 +248,32 @@ Phases, in order; any failure exits non-zero before the result line:
             one copy failed by the ``replication.fanout`` fault point, 1%
             more docs, the copy re-added by an ops-based recovery (ops/s),
             the global checkpoint at the max seq no on every group;
+5o. fielddata fielddata under pressure (ROADMAP A10d), from seed 0, on
+            one ``segment_from_arrays`` segment holding phase 5b's slab
+            (its IVF and PQ carried across, no k-means), a second 2^20 x
+            128 slab ``emb2`` and eight double columns: (a) the lazy
+            placement of each 512 MiB slab on its first knn body (ms,
+            GB/s) beside a 512 MiB ``copy_`` from pinned and from
+            pageable memory, ``memory_allocated``/``memory_reserved``;
+            (b) 16 brute-force knn bodies, emb and emb2 in turn, under a
+            ``fielddata`` limit that holds one slab (p50, p99, each
+            rehydration's ms and GB/s from its ``tpu.rehydrate`` span,
+            evictions, B2 launches) beside the same bodies at the default
+            limit, hits byte-equal to the unlimited run and held against
+            the f64 cosine oracle; (c) sort and terms-agg bodies over the
+            eight columns round-robin under a limit that holds three,
+            byte-equal to the unlimited run; ``evict_all("fielddata")``
+            then IVF-PQ bodies (B3 on codes rehydrated bit-equal to the
+            host mirror, recall@10); ``evict_all()`` on phase 5's node,
+            then 8 match bodies (B1 on the rehydrated dense impact block,
+            hits byte-equal to those before); (d) a 2-shard index with
+            the column on shard 0 only at a 1-byte limit (``_shards.
+            failed`` 1, a 429 entry, shard 1's hits), a 1-shard index
+            raising, the default limit healing it, ``resources.reserve``
+            armed once giving one entry; (e) ``nodes_stats``' accelerator
+            and fielddata counters, ``tpu.rehydrate`` spans, a profiled
+            body's ``rehydrate_nanos``, every breaker back at its start
+            after the index closes;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
@@ -266,6 +292,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import gc
 import json
 import os
 import re
@@ -1329,7 +1356,8 @@ def b3_query_case(torch, np, seg, vc, index, nprobe, query):
     from elasticsearch_tpu_torch.ops.pq import adc_lut
 
     q = torch.as_tensor(np.asarray(query, np.float32), device=vc.vecs.device)
-    return {"codes": vc._pq.codes, "cand": ivf._probe(index, q, nprobe),
+    return {"codes": vc._pq.codes_dev(),
+            "cand": ivf._probe(index, q, nprobe),
             "words": pack_mask(vc.exists & seg.live),
             "lut": adc_lut(q, vc._pq.codebooks, vc._pq.metric)}
 
@@ -7138,6 +7166,7 @@ def phase_replicas(torch, np, dev, card):
         # (a) the replicated write rate against one copy, same docs
         rates = {}
         for name, reps in (("rep0", 0), ("rep1", RP_REPLICAS)):
+            gc.collect()  # earlier phases' garbage must not free inside (a)
             torch.cuda.synchronize()
             m0, s0, f0 = (torch.cuda.memory_allocated(), segs_br.used,
                           fd_br.used)
@@ -7354,6 +7383,405 @@ def phase_replicas(torch, np, dev, card):
     log(f"[5n] B1 launched {b1}, B2 {b2} times; "
         f"{time.perf_counter() - t_phase:.1f} s")
     return b1, b2
+
+
+# ---------------------------------------------------------------------------
+# phase 5o: fielddata under pressure (ROADMAP A10d)
+# ---------------------------------------------------------------------------
+
+FD_COLS = 8                # (c): numeric columns sorted and aggregated
+FD_ROTATION = 16           # (b): brute-force knn bodies, emb and emb2 in turn
+FD_IVF_BODIES = 8          # (c): IVF-PQ bodies after evict_all
+FD_READ_BODIES = 8         # (c): match bodies on phase 5's node
+FD_PARTIAL_DOCS = 1024     # (d): docs a shard of the partial-results index
+FD_MAPPING = {"properties": dict(
+    VEC_MAPPING["properties"],
+    emb2={"type": "dense_vector", "dims": DIMS, "similarity": "cosine"},
+    **{f"c{i}": {"type": "double"} for i in range(FD_COLS)})}
+
+
+def _fd_copy_rate(torch, np, dev, nbytes, pinned, reps=3):
+    """GB/s of host-to-device copies of ``nbytes`` from pinned or pageable
+    host memory into one device buffer (the best of ``reps``)."""
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pinned) \
+        if pinned else torch.from_numpy(np.ones(nbytes, np.uint8))
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    dst.copy_(src)
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dst.copy_(src)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t)
+    del src, dst
+    return nbytes / best / 1e9
+
+
+def _fd_answers(resps):
+    """Responses without their ``took``, serialised: byte-equality."""
+    return [json.dumps({k: v for k, v in r.items() if k != "took"},
+                       sort_keys=True) for r in resps]
+
+
+def _fd_mem(torch):
+    return (f"memory_allocated {torch.cuda.memory_allocated()} B, "
+            f"memory_reserved {torch.cuda.memory_reserved()} B")
+
+
+def phase_fielddata(torch, np, dev, card, sift, ivf_index, pq_parts,
+                    read_node, read_bodies):
+    """Phase 5o (module docstring); returns the launches of B1, B2, B3."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.cluster.routing import shard_id_for
+    from elasticsearch_tpu_torch.index.convert import segment_from_arrays
+    from elasticsearch_tpu_torch.ops import adc, bm25_topk, knn_topk
+    from elasticsearch_tpu_torch.resources.residency import Residency
+    from elasticsearch_tpu_torch.utils.errors import CircuitBreakingException
+    from elasticsearch_tpu_torch.utils.faults import FAULTS
+
+    t_phase = time.perf_counter()
+    launches0 = (bm25_topk.LAUNCHES, knn_topk.LAUNCHES, adc.LAUNCHES)
+    lines = []
+    vpad, exists, bucket, D, make_q = sift
+    slab_bytes = vpad.nbytes
+    rng = np.random.default_rng(SEED + 80)
+    emb2 = rng.standard_normal((D, DIMS), dtype=np.float32)
+    cols = {f"c{i}": rng.integers(0, 1000, D).astype(np.float64)
+            for i in range(FD_COLS)}
+    node = Node(name="fielddata", device=dev)
+    br = node.breakers
+    start = {n: br.breaker(n).used for n in
+             ("fielddata", "request", "in_flight_requests", "segments")}
+    loads = []
+    real_put = Residency.put_array
+
+    def timed_put(self, host, **kw):  # (a): the lazy placements, timed
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        h = real_put(self, host, **kw)
+        torch.cuda.synchronize()
+        loads.append((kw.get("label"), 0 if h is None else h.nbytes,
+                      time.perf_counter() - t))
+        return h
+
+    try:
+        node.create_index("fd", {"settings": {"number_of_shards": 1},
+                                 "mappings": FD_MAPPING})
+        ivf = {"centroids": ivf_index.centroids.cpu().numpy(),
+               "lists": ivf_index.lists.cpu().numpy(),
+               "list_lens": ivf_index.list_lens.cpu().numpy(),
+               "C": ivf_index.C, "Lmax": ivf_index.Lmax,
+               "avg_len": ivf_index.avg_len, "metric": ivf_index.metric}
+        pq = {"codebooks": pq_parts.codebooks.cpu().numpy(),
+              "codes": pq_parts.codes.cpu().numpy(), "M": pq_parts.M,
+              "K": pq_parts.K, "dsub": pq_parts.dsub,
+              "metric": pq_parts.metric}
+        seg = segment_from_arrays({
+            "num_docs": N_VECS, "max_docs": D,
+            "numerics": dict(
+                {"bucket": {"exact": bucket, "exists": exists,
+                            "kind": "long"}},
+                **{c: {"exact": v, "exists": exists, "kind": "double"}
+                   for c, v in cols.items()}),
+            "vectors": {
+                "emb": {"vecs": vpad, "exists": exists, "dims": DIMS,
+                        "similarity": "cosine", "ivf": ivf, "pq": pq},
+                "emb2": {"vecs": emb2, "exists": exists, "dims": DIMS,
+                         "similarity": "cosine"}}}, node.residency)
+        svc = node.get_index("fd")
+        svc.shards[0].engine.add_segment(seg)
+        fd0 = br.breaker("fielddata").used
+        _hold(fd0 == pq["codes"].nbytes, f"(a) at conversion fielddata "
+              f"holds {fd0} B, not the PQ codes alone", "5o")
+
+        # (a) first touch: the lazy placement of a 512 MiB slab
+        qs = make_q(FD_ROTATION // 2 + FD_IVF_BODIES)
+        q2 = rng.standard_normal((FD_ROTATION // 2, DIMS)).astype(np.float32)
+        rot = []
+        for i in range(FD_ROTATION):
+            field, q = ("emb", qs[i // 2]) if i % 2 == 0 else \
+                ("emb2", q2[i // 2])
+            rot.append((field, {"query": {"knn": {
+                "field": field, "query_vector": [float(a) for a in q],
+                "ann": False}}, "size": 10}))
+        Residency.put_array = timed_put
+        try:
+            t = time.perf_counter()
+            node.search("fd", copy.deepcopy(rot[0][1]))
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t
+            node.search("fd", copy.deepcopy(rot[1][1]))
+        finally:
+            Residency.put_array = real_put
+        slab_loads = [(lb, n, s) for lb, n, s in loads if n == slab_bytes]
+        _hold(len(slab_loads) == 2, f"(a) slab placements {loads}", "5o")
+        pin = _fd_copy_rate(torch, np, dev, slab_bytes, True)
+        page = _fd_copy_rate(torch, np, dev, slab_bytes, False)
+        lines.append(
+            f"[5o] (a) first touch of a {slab_bytes} B slab through "
+            f"Node.search: placed in "
+            + ", ".join(f"{lb} {s * 1e3:.3f} ms ({n / s / 1e9:.3f} GB/s)"
+                        for lb, n, s in slab_loads)
+            + f"; the first knn body {t_first * 1e3:.3f} ms with it; "
+            f"yardstick: a {slab_bytes} B copy_ from pinned memory "
+            f"{pin:.3f} GB/s, from pageable memory {page:.3f} GB/s; "
+            f"{_fd_mem(torch)}; {card}")
+
+        # (b) rotation: one slab fits, two do not
+        def run(bodies):
+            got, ms = [], []
+            for _f, body in bodies:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got.append(node.search("fd", copy.deepcopy(body)))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            return got, np.array(ms)
+
+        free, _ = run(rot)
+        free, free_ms = run(rot)  # both slabs resident: the default limit
+        limit = int(1.03 * 1.5 * slab_bytes)  # one slab and its codes
+        br.apply_cluster_settings({"indices.breaker.fielddata.limit": limit})
+        node.residency.evict_all()  # nothing over the limit stays resident
+        tier0 = dict(node.residency.stats()["tiers"]["fielddata"])
+        n_spans = node.tracer.stats()["finished_total"]
+        b2 = knn_topk.LAUNCHES
+        got, rot_ms = run(rot)
+        b2 = knn_topk.LAUNCHES - b2
+        tier1 = node.residency.stats()["tiers"]["fielddata"]
+        mem_rot = _fd_mem(torch)
+        ev = tier1["evictions"] - tier0["evictions"]
+        rh = tier1["rehydrations"] - tier0["rehydrations"]
+        # each slab's rehydration from its span: bytes over its duration
+        slab_sp = [sp for sp in node.tracer.spans()[-(
+            node.tracer.stats()["finished_total"] - n_spans):]
+            if sp.name == "tpu.rehydrate" and sp.tags["bytes"] == slab_bytes]
+        _hold(_fd_answers(got) == _fd_answers(free),
+              "(b) hits under rotation differ from the unlimited run", "5o")
+        _hold(len(slab_sp) == FD_ROTATION and ev >= FD_ROTATION - 1
+              and b2 == FD_ROTATION, f"(b) {ev} evictions, {rh} "
+              f"rehydrations ({len(slab_sp)} of a slab), {b2} B2 launches "
+              f"over {FD_ROTATION} bodies", "5o")
+        sp_ms = np.array([sp.duration * 1e3 for sp in slab_sp])
+        for field, slab, qq in (("emb", vpad, qs[:FD_ROTATION // 2]),
+                                ("emb2", emb2, q2)):
+            ids, sc, full = exact_cosine_top(np, slab, exists, qq, 10)
+            idx = [n for n, (f, _b) in enumerate(rot) if f == field]
+            for r, n in enumerate(idx):
+                check_oracle(np, got[n], ids[r], sc[r], full[r],
+                             f"5o (b) {field} body {n}")
+        lines.append(
+            f"[5o] (b) {FD_ROTATION} brute-force knn bodies, emb and emb2 "
+            f"in turn, fielddata limit {limit} B (one slab fits): "
+            f"{_pcts(np, rot_ms)}; at the default limit (both resident) "
+            f"{_pcts(np, free_ms)}; {ev} evictions, {rh} rehydrations, "
+            f"{len(slab_sp)} of a {slab_bytes} B slab: p50 "
+            f"{np.percentile(sp_ms, 50):.3f} ms "
+            f"({slab_bytes / np.percentile(sp_ms, 50) / 1e6:.3f} GB/s), "
+            f"mean {sp_ms.mean():.3f} ms "
+            f"({slab_bytes / sp_ms.mean() / 1e6:.3f} GB/s) from pageable "
+            f"memory; B2 launched {b2} times; {mem_rot}; hits byte-equal "
+            f"to the unlimited run and held against the f64 cosine oracle; "
+            f"{card}")
+
+        # (c) columns round-robin under a limit holding three of them
+        col_bodies = []
+        for i in range(FD_COLS):
+            col_bodies.append(("sort", {"query": {"match_all": {}},
+                                        "sort": [{f"c{i}": "desc"}],
+                                        "size": 10}))
+            col_bodies.append(("terms", {"size": 0, "aggs": {"t": {
+                "terms": {"field": f"c{i}", "size": 5}}}}))
+        br.apply_cluster_settings({})
+        node.residency.evict_all()
+        free_cols, _ = run(col_bodies)
+        per_col = sum(h.nbytes for h in seg.fielddata_handles()
+                      if h.label.startswith(("column:c0.", "sort:c0")))
+        limit_c = int(1.03 * 3.5 * per_col)
+        br.apply_cluster_settings({"indices.breaker.fielddata.limit":
+                                   limit_c})
+        node.residency.evict_all()
+        tier0 = dict(node.residency.stats()["tiers"]["fielddata"])
+        got_cols, cols_ms = run(col_bodies)
+        tier1 = node.residency.stats()["tiers"]["fielddata"]
+        _hold(_fd_answers(got_cols) == _fd_answers(free_cols),
+              "(c) column answers under the limit differ", "5o")
+        ev_c = tier1["evictions"] - tier0["evictions"]
+        rh_c = tier1["rehydrations"] - tier0["rehydrations"]
+        _hold(ev_c > 0 and rh_c > 0, f"(c) columns: {ev_c} evictions, "
+              f"{rh_c} rehydrations", "5o")
+        lines.append(
+            f"[5o] (c) {len(col_bodies)} sort and terms-agg bodies over "
+            f"{FD_COLS} columns ({per_col} B each with its sort mirror) "
+            f"round-robin, fielddata limit {limit_c} B: {_pcts(np, cols_ms)};"
+            f" {ev_c} evictions, {rh_c} rehydrations; answers byte-equal to "
+            f"the unlimited run; {card}")
+
+        # (c) IVF-PQ on rehydrated codes
+        br.apply_cluster_settings({})
+        node.residency.evict_all("fielddata")
+        vc = seg.vectors["emb"]
+        _hold(not vc._pq.codes.resident, "(c) the codes stayed resident",
+              "5o")
+        ivf_bodies = [{"query": {"knn": {
+            "field": "emb", "query_vector": [float(a) for a in q],
+            "num_candidates": PQ_CANDIDATES}}, "size": 10}
+            for q in qs[FD_ROTATION // 2:]]
+        b3 = adc.LAUNCHES
+        got_ivf = [node.search("fd", copy.deepcopy(b)) for b in ivf_bodies]
+        b3 = adc.LAUNCHES - b3
+        codes = vc._pq.codes_dev()
+        _hold(torch.equal(codes.cpu(), torch.from_numpy(vc._pq.codes_host))
+              and np.array_equal(vc._pq.codes_host, pq["codes"]),
+              "(c) the rehydrated PQ codes differ from the host mirror",
+              "5o")
+        _hold(b3 == FD_IVF_BODIES, f"(c) B3 launched {b3} times over "
+              f"{FD_IVF_BODIES} IVF-PQ bodies", "5o")
+        ids, _sc, _full = exact_cosine_top(np, vpad, exists,
+                                           qs[FD_ROTATION // 2:], 10)
+        recall = float(np.mean([
+            len({int(h["_id"]) for h in g["hits"]["hits"]}
+                & set(ids[r].tolist())) / 10 for r, g in enumerate(got_ivf)]))
+        lines.append(
+            f"[5o] (c) evict_all(\"fielddata\"), then {FD_IVF_BODIES} IVF-PQ "
+            f"bodies: B3 launched {b3} times on the rehydrated codes (bit-"
+            f"equal to the host mirror), recall@10 vs exact {recall}")
+
+        # (c) B1 on phase 5's node, its dense block rehydrated
+        before = [read_node.search("msmarco", copy.deepcopy(b))
+                  for b in read_bodies]
+        st0 = dict(read_node.residency.stats()["tiers"]["fielddata"])
+        n_ev = read_node.residency.evict_all()
+        b1 = bm25_topk.LAUNCHES
+        after = [read_node.search("msmarco", copy.deepcopy(b))
+                 for b in read_bodies]
+        b1 = bm25_topk.LAUNCHES - b1
+        st1 = read_node.residency.stats()["tiers"]["fielddata"]
+        _hold(_fd_answers(after) == _fd_answers(before),
+              "(c) match hits after the eviction differ", "5o")
+        _hold(n_ev >= 1 and b1 > 0
+              and st1["rehydrations"] > st0["rehydrations"],
+              f"(c) read node: {n_ev} evicted, B1 {b1}, rehydrations "
+              f"{st0['rehydrations']} -> {st1['rehydrations']}", "5o")
+        lines.append(
+            f"[5o] (c) phase 5's node: evict_all() evicted {n_ev} handles, "
+            f"then {len(read_bodies)} match bodies: B1 launched {b1} times "
+            f"on the rehydrated dense impact block "
+            f"({st1['rehydrations'] - st0['rehydrations']} rehydrations in "
+            f"{(st1['rehydrate_time_in_nanos'] - st0['rehydrate_time_in_nanos']) / 1e6:.3f}"
+            f" ms), hits byte-equal to those before the eviction")
+
+        # (d) partial results on a breaker trip (the host loop)
+        pnode = Node(name="partial", device=dev)
+        pbr = pnode.breakers
+        pstart = {n: pbr.breaker(n).used for n in start}
+        try:
+            two = {"settings": {"index": {"number_of_shards": 2,
+                                          "search": {"mesh": False}}},
+                   "mappings": {"properties": {"n": {"type": "long"},
+                                               "body": {"type": "text"}}}}
+            one = copy.deepcopy(two)
+            one["settings"]["index"]["number_of_shards"] = 1
+            pnode.create_index("two", two)
+            pnode.create_index("one", one)
+            r0, r1 = [next(r for r in map(str, range(64))
+                           if shard_id_for("x", 2, r) == s) for s in (0, 1)]
+            psvc = pnode.get_index("two")
+            for i in range(FD_PARTIAL_DOCS):
+                psvc.index_doc(f"n{i}", {"body": "w", "n": i}, routing=r0)
+                psvc.index_doc(f"t{i}", {"body": "w"}, routing=r1)
+                pnode.get_index("one").index_doc(str(i), {"body": "w", "n": i})
+            pnode.refresh("two")
+            pnode.refresh("one")
+            body = {"query": {"match_all": {}}, "sort": [{"n": "desc"}],
+                    "size": 2 * FD_PARTIAL_DOCS}
+            pbr.apply_cluster_settings({"indices.breaker.fielddata.limit": 1})
+            part = pnode.search("two", copy.deepcopy(body))
+            f = part["_shards"].get("failures", [])
+            _hold(part["_shards"]["failed"] == 1 and len(f) == 1
+                  and f[0]["status"] == 429 and f[0]["shard"] == 0
+                  and f[0]["reason"]["type"] == "circuit_breaking_exception"
+                  and len(part["hits"]["hits"]) == FD_PARTIAL_DOCS
+                  and all(h["_id"].startswith("t") for h in part["hits"]["hits"]),
+                  f"(d) the partial answer: {part['_shards']}, "
+                  f"{len(part['hits']['hits'])} hits", "5o")
+            try:
+                pnode.search("one", copy.deepcopy(body))
+                raise AssertionError("phase 5o: (d) a one-shard index answered "
+                                     "past a 1-byte fielddata limit")
+            except CircuitBreakingException as e:
+                one_err = str(e)[:60]
+            pbr.apply_cluster_settings({})
+            healed = pnode.search("two", copy.deepcopy(body))
+            _hold(healed["_shards"] == {"total": 2, "successful": 2, "failed": 0}
+                  and len(healed["hits"]["hits"]) == 2 * FD_PARTIAL_DOCS,
+                  f"(d) healed: {healed['_shards']}", "5o")
+            pnode.residency.evict_all()
+            FAULTS.inject("resources.reserve", CircuitBreakingException, count=1)
+            try:
+                chaos = pnode.search("two", copy.deepcopy(body))
+            finally:
+                FAULTS.clear()
+            _hold(chaos["_shards"]["failed"] == 1
+                  and len(chaos["_shards"]["failures"]) == 1,
+                  f"(d) the armed reserve point: {chaos['_shards']}", "5o")
+            lines.append(
+                f"[5o] (d) a 2-shard index, the column on shard 0 only, "
+                f"fielddata limit 1 B: _shards {{total 2, successful 1, failed "
+                f"1}}, the entry {f[0]['status']} {f[0]['reason']['type']}, "
+                f"{len(part['hits']['hits'])} hits of shard 1; a 1-shard index "
+                f"raises ({one_err}...); the default limit heals it "
+                f"({len(healed['hits']['hits'])} hits); resources.reserve armed "
+                f"once gives one failure entry")
+        finally:
+            pnode.close()
+        pend = {n: pbr.breaker(n).used for n in pstart}
+        _hold(pend == pstart, f"(d) breakers after close {pend}", "5o")
+        # (e) the stats surface
+        node.residency.evict_all()
+        prof = node.search("fd", dict(copy.deepcopy(rot[1][1]),
+                                      profile=True))
+        rh_ns_prof = prof["profile"]["shards"][0]["tpu"]["phases"][
+            "rehydrate_nanos"]
+        ns = node.nodes_stats()["nodes"][node.node_id]
+        acc = ns["accelerator"]
+        free_b, total_b = torch.cuda.mem_get_info()
+        spans = [s for s in node.tracer.spans() if s.name == "tpu.rehydrate"]
+        fdst = ns["indices"]["fielddata"]
+        _hold(acc["platform"] == "gpu"
+              and acc["device_kind"] == torch.cuda.get_device_name()
+              and acc["hbm"]["bytes_limit"] == total_b
+              and fdst["evictions"] > 0 and fdst["rehydrations"] > 0
+              and spans and rh_ns_prof > 0,
+              f"(e) accelerator {acc}, fielddata {fdst}, {len(spans)} "
+              f"tpu.rehydrate spans, rehydrate_nanos {rh_ns_prof}", "5o")
+        lines.append(
+            f"[5o] (e) nodes_stats: accelerator {acc['device_kind']}, hbm "
+            f"{acc['hbm']['bytes_in_use']} of {acc['hbm']['bytes_limit']} "
+            f"B in use, allocated {acc['memory_allocated']} B, reserved "
+            f"{acc['memory_reserved']} B; fielddata evictions "
+            f"{fdst['evictions']}, rehydrations {fdst['rehydrations']}, "
+            f"{fdst['memory_size_in_bytes']} B resident; "
+            f"{len(spans)} tpu.rehydrate spans; a profiled knn body's "
+            f"rehydrate phase {rh_ns_prof / 1e6:.3f} ms")
+    finally:
+        node.close()
+    end = {n: br.breaker(n).used for n in start}
+    _hold(end == start, f"(e) breakers after close {end}, at start {start}",
+          "5o")
+    lines.append(f"[5o] (e) after the index closed: breakers {end} B, as at "
+                 f"the start; {_fd_mem(torch)}")
+    del emb2, cols, seg
+
+    for ln in lines:
+        log(ln)
+    b1, b2, b3 = (bm25_topk.LAUNCHES - launches0[0],
+                  knn_topk.LAUNCHES - launches0[1],
+                  adc.LAUNCHES - launches0[2])
+    log(f"[5o] B1 launched {b1}, B2 {b2}, B3 {b3} times; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return b1, b2, b3
 
 
 def _cprofile_rows(st, key, n, per=1):
@@ -7819,12 +8247,18 @@ def main() -> int:
         f" in {time.perf_counter() - t:.1f} s")
     b1_read, read_node = phase_read(torch, np, dev, card, corpus)
     launches = {"bm25_dense_topk": b1_read}
+    # phase 5o's match bodies on this node: pure-dense term groups (B1)
+    dense_rows = read_node.get_index("msmarco").shards[0].segments[0] \
+        .inverted["body"].dense_block()[0]
+    read_bodies = [{"query": {"match": {"body": " ".join(
+        f"t{t}" for t in q)}}, "size": 10} for q in make_queries(
+            np, FD_READ_BODIES, VOCAB, corpus[4], SEED + 70,
+            dense_only=dense_rows >= 0)]
     (launches["knn_topk"], launches["adc_scores"], b3_case, ivf_index,
      pq_parts) = phase_vectors(torch, np, dev, card, sift)
     hyb = phase_hybrid(torch, np, dev, card, corpus, sift, ivf_index,
                        pq_parts)
     launches["maxsim_adc"] = hyb["maxsim_adc"]
-    del ivf_index, pq_parts
     b1_mesh, b2_mesh, mesh_node, shard_text = phase_mesh(
         torch, np, dev, card, corpus, sift)
     launches["bm25_dense_topk"] += b1_mesh
@@ -7833,9 +8267,8 @@ def main() -> int:
                                  read_node, mesh_node, shard_text)
     launches["bm25_dense_topk"] += b1_ms
     launches["knn_topk"] += b2_ms
-    read_node.close()
     mesh_node.close()
-    del corpus, sift, read_node, mesh_node, shard_text
+    del corpus, mesh_node, shard_text
     torch.cuda.empty_cache()
     taxi_node, taxis = phase_aggs(torch, np, dev, card)
     launches["bm25_dense_topk"] += phase_sort(torch, np, dev, card,
@@ -7859,6 +8292,14 @@ def main() -> int:
     b1, b2 = phase_replicas(torch, np, dev, card)
     launches["bm25_dense_topk"] += b1
     launches["knn_topk"] += b2
+    torch.cuda.empty_cache()
+    b1, b2, b3 = phase_fielddata(torch, np, dev, card, sift, ivf_index,
+                                 pq_parts, read_node, read_bodies)
+    launches["bm25_dense_topk"] += b1
+    launches["knn_topk"] += b2
+    launches["adc_scores"] += b3
+    read_node.close()
+    del sift, ivf_index, pq_parts, read_node
     torch.cuda.empty_cache()
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card),
               "knn_topk": timing_knn(torch, dev, card),

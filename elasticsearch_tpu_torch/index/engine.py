@@ -732,7 +732,7 @@ class Engine:
             for s in targets:
                 br.release(getattr(s, "_charged", 0))
                 s._charged = 0
-                self.residency.release(s.fielddata_bytes())
+                s.release_fielddata()
             if merged is not None:
                 merged._charged = merged.memory_bytes()
                 br.force(merged._charged)
@@ -898,7 +898,7 @@ class Engine:
         for seg in self.segments:
             br.release(getattr(seg, "_charged", 0))
             seg._charged = 0
-            self.residency.release(seg.fielddata_bytes())
+            seg.release_fielddata()
         self.translog.close()
 
 

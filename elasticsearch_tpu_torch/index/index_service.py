@@ -39,8 +39,9 @@ node. ``stats()`` is ES's index stats: every shard's docs, indexing,
 search (with the groups a body's ``stats`` key names), refresh, flush,
 merges, segments, fielddata and translog, summed over the primaries,
 with each shard's seq-no section (its group's global checkpoint too) and
-the index's recovery gauges; a shard's search counters sum over its
-copies. The slowlog is not ported yet.
+the index's recovery gauges; a shard's search counters and fielddata sum
+over its copies. ``slowlog`` (``tracing/slowlog.py``) records writes and
+searches past the ``index.*.slowlog.threshold.*`` settings, read live.
 
 Replicas (``number_of_replicas``, 0 by default as in the reference): each
 shard is a ``ReplicationGroup`` (``groups``, ``cluster/replication.py``)
@@ -68,6 +69,7 @@ import json
 import os
 import re
 import threading
+import time
 import uuid
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -97,6 +99,7 @@ from elasticsearch_tpu_torch.search.queries import rewrite_mlt_in_body
 from elasticsearch_tpu_torch.search.scripting import script_source
 from elasticsearch_tpu_torch.search.service import search_shards
 from elasticsearch_tpu_torch.search.suggest import execute_suggest
+from elasticsearch_tpu_torch.tracing.slowlog import IndexSlowLog
 from elasticsearch_tpu_torch.utils.errors import (DocumentMissingException,
                                                   IllegalArgumentException,
                                                   IndexNotFoundException,
@@ -128,6 +131,9 @@ class IndexService:
         # popped so it never leaks into the settings echo
         idx_settings.pop("_local_replicas", None)
         self.analysis = AnalysisRegistry(self.settings)
+        # search and indexing slow logs, thresholds read from the live
+        # settings on every record
+        self.slowlog = IndexSlowLog(name, lambda: self.settings)
         self.mappings = Mappings(mappings_json or {})
         self._validate_analyzers()
         self.aliases: Dict[str, dict] = {}
@@ -263,10 +269,12 @@ class IndexService:
             # before the write: an unparsable query never reaches the
             # translog, where it would fail the replay
             self.percolator.validate(source)
+        t0 = time.perf_counter()
         rid, version, created, failed, seq_no, term = group.index(
             doc_id, source, routing=routing, **kw)
         if is_perc:
             self.percolator.register(rid, source)
+        self.slowlog.on_index((time.perf_counter() - t0) * 1000, rid)
         return {
             "_index": self.name,
             "_type": kw.get("doc_type") or "_doc",
@@ -597,6 +605,7 @@ class IndexService:
         searches only the shards it routes to, on the host loop.
         ``preference`` picks the copy of each shard read (``readers``)."""
         check_open(self, op="read")
+        t0 = time.perf_counter()
         body = body or {}
         dfs = body.get("search_type") == "dfs_query_then_fetch"
         qc_key = None if dfs or routing is not None \
@@ -630,6 +639,7 @@ class IndexService:
                                  global_stats=gs)
         if body.get("suggest"):
             resp["suggest"] = self.suggest(body["suggest"])
+        self.slowlog.on_search((time.perf_counter() - t0) * 1000, body, resp)
         if qc_key is not None:
             entry = copy.deepcopy(resp)
             with self._qc_lock:
@@ -673,12 +683,13 @@ class IndexService:
     def stats(self) -> dict:
         """ES's index stats: each shard's, their sums over the primaries,
         and the recovery gauges. A search reads one copy, so each shard's
-        search counters sum over its copies; its seq-no section gains the
-        group's global checkpoint."""
+        search counters and fielddata sum over its copies; its seq-no
+        section gains the group's global checkpoint."""
         shards = [s.stats() for s in self.shards]
         for g, st in zip(self.groups, shards):
             for c in g.replicas:
                 _merge_counters(st["search"], c.searcher.stats.to_json())
+                _merge_counters(st["fielddata"], c.fielddata_stats())
             st["seq_no"]["global_checkpoint"] = g.global_checkpoint
         primaries = {"docs": {"count": 0}, "segments": {}, "indexing": {},
                      "search": {}, "refresh": {}, "flush": {}, "merges": {},

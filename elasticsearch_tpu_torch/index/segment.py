@@ -1,4 +1,4 @@
-"""Segment: immutable, device-resident columnar index structures.
+"""Segment: immutable columnar index structures on the device.
 
 Port of elasticsearch_tpu/index/segment.py. A frozen segment keeps every
 searchable structure as a padded tensor on the owning node's device:
@@ -16,24 +16,40 @@ searchable structure as a padded tensor on the owning node's device:
 - the live mask (host-authoritative, device copy refreshed lazily);
 - ``_source``, ids and stored fields stay on the host.
 
+Postings, live masks, field lengths, block-join arrays and IVF
+quantizers are always resident (the ``segments`` charge at freeze).
+Fielddata is lazy and evictable, as in the reference: freeze keeps the
+columns' and slabs' host arrays, and the first search that touches one
+places it through ``_resident_field`` as a ``ResidentArray`` of the
+node's residency registry (``resources/residency.py``), charged to the
+``fielddata`` breaker. Under pressure the registry evicts the least
+recently used copy and the next touch rehydrates it from the host
+mirror. Dense impact blocks, PQ codes, sort mirrors and geo arrays are
+such handles too.
+
 ``max_docs = pow2_bucket(n, minimum=64)`` and the postings padding follow
 the reference exactly, so doc ids and shapes match it one for one.
 """
 from __future__ import annotations
 
+import contextvars
 import itertools
 import threading
+from contextlib import contextmanager
 from dataclasses import dataclass, field as dfield
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from elasticsearch_tpu_torch.index import ivf_cache
 from elasticsearch_tpu_torch.index.doc_parser import ParsedDocument
 from elasticsearch_tpu_torch.index.mappings import Mappings
 from elasticsearch_tpu_torch.monitor import kernels
 from elasticsearch_tpu_torch.ops.scoring import f64_order_keys
-from elasticsearch_tpu_torch.resources.residency import Residency
+from elasticsearch_tpu_torch.resources.residency import (Residency,
+                                                         ResidentArray)
+from elasticsearch_tpu_torch.utils.errors import CircuitBreakingException
 from elasticsearch_tpu_torch.utils.shapes import pad_to, pow2_bucket
 
 # BM25 constants (Lucene BM25Similarity defaults, k1=1.2 b=0.75)
@@ -126,33 +142,48 @@ class InvertedField:
     tfnorm_host: Optional[np.ndarray] = None
     tf_host: Optional[np.ndarray] = None
     # lazy dense block: None = not built yet (or budget denied, retry),
-    # False = no qualifying term, else (dense_rows np.i32[V], impact tensor)
+    # False = no qualifying term, else (dense_rows np.i32[V], the impact
+    # block's ResidentArray)
     _dense: Any = None
     # lazy sorted term dict for prefix/wildcard expansion
     _sorted_terms: Any = None
-    # lazy positional CSR on the card (ops/positional.py::positional_device)
-    # and its host doc-per-position expansion
+    # lazy positional CSR on the card (ops/positional.py::positional_device),
+    # its pinned charges and its host doc-per-position expansion
     _pos_dev: Any = None
+    _pos_tokens: Any = None
     _pos_host_dpp: Any = None
     _dense_lock: Any = dfield(default_factory=threading.Lock)
+
+    @staticmethod
+    def _dense_get(d):
+        """(rows, device block) of a built block, rehydrating an evicted
+        one; None when the rehydration is denied: the block only
+        accelerates, so the field stays on the scatter path."""
+        rows, handle = d
+        try:
+            return rows, handle.get()
+        except CircuitBreakingException:
+            return None
 
     def dense_block(self):
         """Lazy (dense_rows, device impact [F_pad, D]) or None.
 
-        Built on the first search that touches the field and charged to
-        the ``fielddata`` breaker as a best-effort structure: a denied
-        charge leaves the field on the scatter path and a later query
-        retries; only 'no qualifying terms' is remembered as a no."""
+        Built on the first search that touches the field and registered
+        as a best-effort evictable handle of the ``fielddata`` tier that
+        keeps its host mirror: a denied charge (after least recently used
+        copies were evicted) leaves the field on the scatter path and a
+        later query retries; only 'no qualifying terms' is remembered as
+        a no. An evicted block rehydrates on the next touch."""
         d = self._dense
         if d is False:
             return None
         if d is not None:
-            return d
+            return self._dense_get(d)
         with self._dense_lock:
             if self._dense is False:
                 return None
             if self._dense is not None:
-                return self._dense
+                return self._dense_get(self._dense)
             if self.doc_ids_host is None or not self.max_docs:
                 self._dense = False
                 return None
@@ -172,12 +203,12 @@ class InvertedField:
                 self._dense = False
                 return None
             rows, impact = built
-            dev = self.residency.put_array(
+            handle = self.residency.put_array(
                 impact, label=f"dense_impact:{self.name}", best_effort=True)
-            if dev is None:
+            if handle is None:
                 return None  # budget tight: retry later
-            self._dense = (rows, dev)
-            return self._dense
+            self._dense = (rows, handle)
+            return self._dense_get(self._dense)
 
     @property
     def nnz_pad(self) -> int:
@@ -200,22 +231,110 @@ class InvertedField:
         return float(np.log(1.0 + (n - d + 0.5) / (d + 0.5)))
 
 
+def _resident_field(name: str):
+    """A lazy, evictable device accessor for one fielddata array (the
+    reference's ``_resident_field``).
+
+    The builder stores the HOST array; the first read registers it with
+    the owner's residency registry (charging ``fielddata``: the lazy
+    column load that can trip ``indices.breaker.fielddata.limit``) and
+    returns the device copy. The first touch is locked, so two searches
+    do not both charge and place one column. Under pressure the registry
+    evicts the copy and the next read rehydrates it from the host
+    mirror. After the owner released its fielddata (``release_fielddata``)
+    a read gets a transient copy charged to no one."""
+    raw = f"_{name}_res"
+    raw_lock = f"_{name}_res_lock"
+
+    def _get(self):
+        v = self.__dict__.get(raw)
+        if isinstance(v, ResidentArray):
+            return v.get()
+        if not isinstance(v, np.ndarray):
+            return v  # None
+        if self.__dict__.get("_released"):
+            return self.residency.device_put(v)
+        lock = self.__dict__.setdefault(raw_lock, threading.Lock())
+        with lock:
+            v = self.__dict__.get(raw)
+            if isinstance(v, np.ndarray):
+                v = self.residency.put_array(
+                    v, label=f"{self._label}:{self.name}.{name}")
+                self.__dict__[raw] = v
+        return v.get()
+
+    def _set(self, v):
+        self.__dict__[raw] = v
+
+    return property(_get, _set)
+
+
+def host_of(obj, name: str) -> Optional[np.ndarray]:
+    """The host mirror of a resident field (never places it)."""
+    v = obj.__dict__.get(f"_{name}_res")
+    return v.host if isinstance(v, ResidentArray) else v
+
+
+def peek_field(obj, name: str):
+    """A resident field's device copy while it is resident, else its host
+    mirror (never places it)."""
+    v = obj.__dict__.get(f"_{name}_res")
+    return v.peek() if isinstance(v, ResidentArray) else v
+
+
+# set while the mesh executor copies segment data into a stacked round
+_STACKING: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "estpu-stacking", default=False)
+
+
+@contextmanager
+def stacking():
+    """Scope in which ``stack_source`` reads host mirrors of evicted
+    fields (``parallel/executor.py::_SlotData._stack``)."""
+    tok = _STACKING.set(True)
+    try:
+        yield
+    finally:
+        _STACKING.reset(tok)
+
+
+def stack_source(obj, name: str):
+    """What the mesh reads of a resident field: inside ``stacking()`` (a
+    copy into a stacked round) ``peek_field``, so building a round never
+    rehydrates nor charges a column it only copies; elsewhere (a one-slot
+    round's view of the segment's own tensor) the field itself."""
+    if obj is None:
+        return None
+    if _STACKING.get() and f"_{name}_res" in obj.__dict__:
+        return peek_field(obj, name)
+    return getattr(obj, name)
+
+
+def _handles(obj, names) -> List[ResidentArray]:
+    return [h for h in (obj.__dict__.get(f"_{n}_res") for n in names)
+            if isinstance(h, ResidentArray)]
+
+
 @dataclass
 class NumericColumn:
     name: str
-    values: Any  # f32[max_docs] device — arithmetic channel, value - offset
-    exists: Any  # bool[max_docs] device
-    hi: Any = None  # i32[max_docs] exact pair (device) for 64-bit kinds
+    values: Any  # f32[max_docs] resident — arithmetic channel, value - offset
+    exists: Any  # bool[max_docs] resident
+    hi: Any = None  # i32[max_docs] resident exact pair for 64-bit kinds
     lo: Any = None
     exact: Optional[np.ndarray] = None  # host i64/f64 mirror
     exists_host: Optional[np.ndarray] = None
     kind: str = "double"
     # 64-bit kinds keep f32 = exact - offset (offset = segment min)
     offset: float = 0.0
+    residency: Any = None
+
+    _label = "column"
+    RESIDENT = ("values", "exists", "hi", "lo")
 
     @property
     def has_pair(self) -> bool:
-        return self.hi is not None
+        return self.__dict__.get("_hi_res") is not None
 
 
 @dataclass
@@ -224,26 +343,40 @@ class KeywordColumn:
     multi-valued."""
 
     name: str
-    ords: Any  # i32[max_docs] device
-    exists: Any  # bool[max_docs] device
+    ords: Any  # i32[max_docs] resident
+    exists: Any  # bool[max_docs] resident
     host_values: List[Optional[List[str]]] = dfield(default_factory=list)
     ords_host: Optional[np.ndarray] = None
     exists_host: Optional[np.ndarray] = None
+    residency: Any = None
+
+    _label = "column"
+    RESIDENT = ("ords", "exists")
 
 
 @dataclass
 class SortKeys:
-    """A doc-value field's sort mirror on the device: per doc an i64 key
-    that ranks the value the fetch reports for the doc as its sort value
+    """A doc-value field's sort mirror: per doc an i64 key that ranks the
+    value the fetch reports for the doc as its sort value
     (``search/service.py::_sort_value``) in ascending order, built once
-    per (segment, field) and charged to the ``fielddata`` breaker."""
+    per (segment, field) as an evictable ``fielddata`` handle; ``exists``
+    is its column's."""
 
-    key: Any  # i64[max_docs] device; 0 where the value is missing
-    exists: Any  # bool[max_docs] device
+    name: str
+    key: Any  # i64[max_docs] resident; 0 where the value is missing
+    column: Any  # the NumericColumn or KeywordColumn keyed
     kind: str  # "int" (the value), "f64" (its order key), "rank"
     lo: int = 0  # the least and greatest key of a present value
     hi: int = 0
     terms: Optional[List[str]] = None  # "rank": the sorted terms
+    residency: Any = None
+
+    _label = "sort"
+    RESIDENT = ("key",)
+
+    @property
+    def exists(self):
+        return self.column.exists
 
 
 @dataclass
@@ -254,8 +387,8 @@ class VectorColumn:
     (``index/ivf_cache.py``) and stores what it built there."""
 
     name: str
-    vecs: Any  # f32[max_docs, dims] device, charged to fielddata
-    exists: Any  # bool[max_docs] device
+    vecs: Any  # f32[max_docs, dims] resident, charged to fielddata
+    exists: Any  # bool[max_docs] resident
     dims: int
     residency: Residency
     similarity: str = "cosine"
@@ -270,17 +403,30 @@ class VectorColumn:
     _ck: Any = None
     _ck_max: int = -1
 
+    _label = "column"
+    RESIDENT = ("vecs", "exists")
+
     def cache_key(self, max_docs: int, host=None) -> str:
         """The blob cache's key of this slab; ``host`` gives the slab's
-        (vectors, exists) host arrays when the caller holds them, else
-        they are copied off the device."""
+        (vectors, exists) host arrays, else the host mirrors are read."""
         if self._ck is None or self._ck_max != max_docs:
             vh, eh = host if host is not None else (
-                self.vecs.cpu().numpy(), self.exists.cpu().numpy())
+                host_of(self, "vecs"), host_of(self, "exists"))
             self._ck = ivf_cache.content_key(vh, eh, self.similarity,
                                              max_docs)
             self._ck_max = max_docs
         return self._ck
+
+    def _build_inputs(self):
+        """(vecs, exists) on the device for an IVF or PQ build: the
+        resident copies, else transient ones charged to no one, so an
+        index-time build does not load the slab into fielddata."""
+        out = []
+        for nm in ("vecs", "exists"):
+            v = peek_field(self, nm)
+            out.append(v if isinstance(v, torch.Tensor)
+                       else self.residency.device_put(v))
+        return out
 
     def get_ivf(self, max_docs: int):
         """The IVF index over this immutable slab: a cached blob, else
@@ -291,9 +437,11 @@ class VectorColumn:
             key = self.cache_key(max_docs)
             idx = ivf_cache.load(key, place=self.residency.device_put)
             if idx is None:
-                idx = build_ivf(self.vecs, self.exists, max_docs,
+                vecs, exists = self._build_inputs()
+                idx = build_ivf(vecs, exists, max_docs,
                                 metric=self.similarity,
                                 place=self.residency.device_put)
+                del vecs, exists
                 if idx is not None:
                     kernels.record("ivf_build")
                     ivf_cache.store(key, idx, self.residency.blob_dir)
@@ -314,7 +462,9 @@ class VectorColumn:
             key = self.cache_key(max_docs)
             parts = ivf_cache.load_pq(key)
             if parts is None:
-                parts = build_pq(self.vecs, self.exists, self.similarity)
+                vecs, exists = self._build_inputs()
+                parts = build_pq(vecs, exists, self.similarity)
+                del vecs, exists
                 if parts is None:
                     self._pq = False  # too few vectors: permanent decline
                     return None
@@ -330,8 +480,17 @@ class VectorColumn:
 
     def resident_bytes(self) -> int:
         """Always-resident bytes of the IVF quantizer (the slab and the PQ
-        codes are charged to the fielddata breaker when placed)."""
+        codes are evictable fielddata)."""
         return self._ivf.nbytes() if self._ivf else 0
+
+
+# fielddata loads lazily into the evictable tier (``_resident_field``):
+# builders store host arrays, the first read places them, pressure
+# evicts them, the next read rehydrates
+for _ccls in (NumericColumn, KeywordColumn, SortKeys, VectorColumn):
+    for _f in _ccls.RESIDENT:
+        setattr(_ccls, _f, _resident_field(_f))
+del _ccls, _f
 
 
 _SEG_IDS = itertools.count(1)
@@ -378,7 +537,10 @@ class TpuSegment:
         self._live_dirty = False
         self.deleted_count = int(num_docs - self._live_host[:num_docs].sum())
         self._sort_keys: Dict[str, Optional[SortKeys]] = {}
+        # per geo_point field: (lat, lon) f64 handles and the lat column
         self._geo64: Dict[str, Optional[Tuple[Any, Any, Any]]] = {}
+        # pinned fielddata charges of the suggesters' tables (PinnedToken)
+        self._pinned: List[Any] = []
         # each doc's _type / _parent / routing meta (merges replay them)
         self.metas: List[dict] = []
         # the suggesters' per-field caches (search/suggest.py): bigram
@@ -509,21 +671,31 @@ class TpuSegment:
 
     def geo_f64(self, field: str):
         """(lat f64, lon f64, exists) of a geo_point field on the device,
-        the ``_geo_distance`` sort's exact coordinates: built on first use
-        and charged to ``fielddata``; None when the segment has no points
-        of the field."""
+        the ``_geo_distance`` sort's exact coordinates: evictable
+        ``fielddata`` handles built on first use; None when the segment
+        has no points of the field."""
         with self._cache_lock:
             if field not in self._geo64:
                 lat = self.numerics.get(f"{field}.lat")
                 lon = self.numerics.get(f"{field}.lon")
                 got = None
                 if lat is not None and lon is not None:
-                    got = tuple(self.residency.put_array(
-                        np.asarray(c.exact, np.float64),
-                        label=f"sort:{c.name}") for c in (lat, lon)) \
-                        + (lat.exists,)
+                    hs = []
+                    try:
+                        for c in (lat, lon):
+                            hs.append(self.residency.put_array(
+                                np.asarray(c.exact, np.float64),
+                                label=f"sort:{c.name}"))
+                    except BaseException:
+                        for h in hs:
+                            h.close()
+                        raise
+                    got = (hs[0], hs[1], lat)
                 self._geo64[field] = got
-            return self._geo64[field]
+            got = self._geo64[field]
+        if got is None:
+            return None
+        return got[0].get(), got[1].get(), got[2].exists
 
     def memory_bytes(self) -> int:
         """Always-resident device bytes (live mask, block-join arrays,
@@ -538,36 +710,97 @@ class TpuSegment:
             total += vc.resident_bytes()
         return total
 
-    def fielddata_bytes(self) -> int:
-        """The bytes this segment has charged to the ``fielddata``
-        breaker so far: its doc-value and keyword columns, vector slabs
-        and placed PQ codes, the dense impact blocks, positional CSRs,
-        sort mirrors and suggester tables built since. A merge releases
-        them when it retires the segment, and the engine's close when the
-        index closes."""
-        ts = []
-        for col in self.numerics.values():
-            ts += [col.values, col.exists, col.hi, col.lo]
-        for kw in self.keywords.values():
-            ts += [kw.ords, kw.exists]
+    def _column_iter(self):
+        """Every doc-value column and vector slab of the segment."""
+        yield from self.numerics.values()
+        yield from self.keywords.values()
+        yield from self.vectors.values()
+
+    def fielddata_handles(self) -> List[ResidentArray]:
+        """Every evictable handle the segment owns: its columns' and
+        slabs', the dense impact blocks, PQ codes, sort mirrors and geo
+        arrays."""
+        out: List[ResidentArray] = []
+        for col in self._column_iter():
+            out += _handles(col, col.RESIDENT)
         for vc in self.vectors.values():
-            ts += [vc.vecs, vc.exists, vc._pq.codes if vc._pq else None]
+            if vc._pq and isinstance(vc._pq.codes, ResidentArray):
+                out.append(vc._pq.codes)
         for inv in self.inverted.values():
-            if inv._dense:
-                ts.append(inv._dense[1])
-            if inv._pos_dev is not None:
-                ts += list(inv._pos_dev)
+            if isinstance(inv._dense, tuple):
+                out.append(inv._dense[1])
         with self._cache_lock:
-            ts += [m.key for m in self._sort_keys.values() if m is not None]
-            ts += [t for g in self._geo64.values() if g is not None
-                   for t in g[:2]]
-            ts += [t for g in self._bigrams.values() if g is not None
-                   for t in g[:2]]
-            ts += [t for g in self._vocab_packed.values() if g is not None
-                   for t in g[1:]]
-            ts += [t for g in self._completion_cuts.values() for t in g]
-        return sum(int(t.numel()) * t.element_size() for t in ts
-                   if t is not None)
+            for m in self._sort_keys.values():
+                if m is not None:
+                    out += _handles(m, m.RESIDENT)
+            for g in self._geo64.values():
+                if g is not None:
+                    out += list(g[:2])
+        return out
+
+    def _pinned_tokens(self) -> list:
+        toks = [t for inv in self.inverted.values()
+                for t in (inv._pos_tokens or ())]
+        with self._cache_lock:
+            toks += list(self._pinned)
+        return toks
+
+    def fielddata_bytes(self) -> int:
+        """The bytes this segment holds charged to the ``fielddata``
+        breaker now: its resident handles (columns, slabs, PQ codes,
+        dense impact blocks, sort mirrors, geo arrays) and its pinned
+        positional CSRs and suggester tables. A merge releases them when
+        it retires the segment, and the engine's close when the index
+        closes (``release_fielddata``)."""
+        return sum(h.nbytes for h in self.fielddata_handles()
+                   if h.resident) + sum(t.nbytes
+                                        for t in self._pinned_tokens())
+
+    def fielddata_field_bytes(self) -> Dict[str, int]:
+        """Per field, the doc-value bytes resident on the device now: the
+        ``fielddata.fields`` map of the stats (reference:
+        ShardFieldData's per-field map). Columns load lazily and evict,
+        so this counts loaded bytes, not mapped ones; an analyzed text
+        field's always-resident postings play fielddata's role and count
+        in full (``term_ids``, ``doc_ids``, ``tf``), as in the
+        reference."""
+        out: Dict[str, int] = {}
+
+        def add(name, b):
+            if b:
+                out[name] = out.get(name, 0) + b
+
+        for col in self._column_iter():
+            add(col.name, sum(h.nbytes for h in _handles(col, col.RESIDENT)
+                              if h.resident))
+        for name, inv in self.inverted.items():
+            if name in self.keywords or name in self.numerics \
+                    or name.startswith("_"):
+                continue
+            add(name, inv.nnz_pad * 12)
+        return out
+
+    def fielddata_evictions(self) -> Tuple[int, int]:
+        """(evictions, rehydrations) over the segment's handles."""
+        hs = self.fielddata_handles()
+        return (sum(h.evictions for h in hs),
+                sum(h.rehydrations for h in hs))
+
+    def release_fielddata(self) -> None:
+        """Give back every fielddata charge the segment holds: close its
+        handles and pinned tokens (a merge retiring it, the index
+        closing, the percolator's segment). A request still reading it
+        gets transient copies."""
+        for col in self._column_iter():
+            col.__dict__["_released"] = True  # a later first touch: transient
+        for h in self.fielddata_handles():
+            h.close()
+        for t in self._pinned_tokens():
+            t.close()
+        for inv in self.inverted.values():
+            inv._pos_tokens = None
+        with self._cache_lock:
+            self._pinned = []
 
 
 def _build_sort_keys(seg: TpuSegment, field: str) -> Optional[SortKeys]:
@@ -584,7 +817,7 @@ def _build_sort_keys(seg: TpuSegment, field: str) -> Optional[SortKeys]:
             kind, key = "int", exact.astype(np.int64)
         else:
             kind, key = "f64", f64_order_keys(exact.astype(np.float64))
-        dev_exists = col.exists
+        column = col
     else:
         kw = seg.keywords.get(field)
         if kw is None:
@@ -605,14 +838,14 @@ def _build_sort_keys(seg: TpuSegment, field: str) -> Optional[SortKeys]:
         at = {t: i for i, t in enumerate(terms)}
         for i in np.nonzero(exists & ~single)[0].tolist():
             key[i] = at[vals[i][0]]  # a multi-valued doc: its first value
-        dev_exists = kw.exists
+        column = kw
     key = np.where(exists, key, 0).astype(np.int64)
     present = key[exists]
     return SortKeys(
-        key=seg.residency.put_array(key, label=f"sort:{field}"),
-        exists=dev_exists, kind=kind,
+        name=field, key=key, column=column, kind=kind,
         lo=int(present.min()) if present.size else 0,
-        hi=int(present.max()) if present.size else 0, terms=terms)
+        hi=int(present.max()) if present.size else 0, terms=terms,
+        residency=seg.residency)
 
 
 # -- constructors shared by SegmentBuilder.freeze and index/convert.py ------
@@ -647,49 +880,42 @@ def make_inverted(name: str, *, vocab: Dict[str, int], terms: List[str],
 
 def make_numeric(name: str, kind: str, exact: np.ndarray,
                  exists: np.ndarray, residency: Residency) -> NumericColumn:
-    """Numeric doc-value column; 64-bit kinds get the exact (hi, lo) pair
-    and a segment-relative f32 channel."""
+    """Numeric doc-value column (host arrays, placed on first read);
+    64-bit kinds get the exact (hi, lo) pair and a segment-relative f32
+    channel."""
     needs_exact = exact.dtype == np.int64
     offset = 0.0
     if needs_exact and exists.any():
         offset = float(exact[exists].min())
     values = np.where(exists, (exact - offset).astype(np.float32),
                       np.float32(0)).astype(np.float32)
-
-    def put(a, what):
-        return residency.put_array(a, label=f"column:{name}.{what}")
-
-    col = NumericColumn(name=name, values=put(values, "values"),
-                        exists=put(exists, "exists"), exact=exact,
-                        exists_host=exists, kind=kind, offset=offset)
+    exists = np.ascontiguousarray(exists, dtype=bool)
+    col = NumericColumn(name=name, values=values, exists=exists, exact=exact,
+                        exists_host=exists, kind=kind, offset=offset,
+                        residency=residency)
     if needs_exact:
-        hi, lo = split_i64(exact)
-        col.hi = put(hi, "hi")
-        col.lo = put(lo, "lo")
+        col.hi, col.lo = split_i64(exact)
     return col
 
 
 def make_vector_column(name: str, vecs: np.ndarray, exists: np.ndarray,
                        similarity: str, residency: Residency) -> VectorColumn:
-    """A dense_vector column: the f32 slab and its exists mask placed and
-    charged to the ``fielddata`` breaker."""
+    """A dense_vector column: the f32 slab and its exists mask, placed on
+    first read and charged to the ``fielddata`` breaker."""
     return VectorColumn(
-        name=name,
-        vecs=residency.put_array(np.asarray(vecs, np.float32),
-                                 label=f"vectors:{name}.vecs"),
-        exists=residency.put_array(np.asarray(exists, bool),
-                                   label=f"vectors:{name}.exists"),
+        name=name, vecs=np.ascontiguousarray(vecs, dtype=np.float32),
+        exists=np.ascontiguousarray(exists, dtype=bool),
         dims=int(vecs.shape[1]), residency=residency, similarity=similarity)
 
 
 def make_keyword_column(name: str, ords: np.ndarray, exists: np.ndarray,
                         host_values: List[Optional[List[str]]],
                         residency: Residency) -> KeywordColumn:
+    ords = np.ascontiguousarray(ords, dtype=np.int32)
+    exists = np.ascontiguousarray(exists, dtype=bool)
     return KeywordColumn(
-        name=name,
-        ords=residency.put_array(ords, label=f"column:{name}.ords"),
-        exists=residency.put_array(exists, label=f"column:{name}.exists"),
-        host_values=host_values, ords_host=ords, exists_host=exists)
+        name=name, ords=ords, exists=exists, host_values=host_values,
+        ords_host=ords, exists_host=exists, residency=residency)
 
 
 class SegmentBuilder:

@@ -64,6 +64,23 @@ class IndexShard:
     def refresh(self):
         self.engine.refresh()
 
+    def fielddata_stats(self) -> dict:
+        """The reference's ``fielddata`` section: the bytes resident now
+        by field (``TpuSegment.fielddata_field_bytes``), with the
+        evictions and rehydrations of the copy's fielddata handles."""
+        fields: dict = {}
+        evictions = rehydrations = 0
+        for seg in list(self.engine.segments):
+            for fname, b in seg.fielddata_field_bytes().items():
+                fields[fname] = fields.get(fname, 0) + b
+            ev, rh = seg.fielddata_evictions()
+            evictions += ev
+            rehydrations += rh
+        return {"memory_size_in_bytes": sum(fields.values()),
+                "evictions": evictions, "rehydrations": rehydrations,
+                "fields": {f: {"memory_size_in_bytes": b}
+                           for f, b in fields.items()}}
+
     def stats(self) -> dict:
         """ES's shard-level index stats."""
         e = self.engine.stats
@@ -83,10 +100,7 @@ class IndexShard:
             "segments": {"count": len(segs),
                          "memory_in_bytes": sum(s.memory_bytes()
                                                 for s in segs)},
-            # no eviction in the port yet: what is charged stays resident
-            "fielddata": {"memory_size_in_bytes": sum(s.fielddata_bytes()
-                                                      for s in segs),
-                          "evictions": 0},
+            "fielddata": self.fielddata_stats(),
             "translog": self.engine.translog.stats(),
             # ES's SeqNoStats: what a checkpoint-based recovery negotiates
             # on (the index adds its group's global checkpoint)

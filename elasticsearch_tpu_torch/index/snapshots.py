@@ -215,7 +215,7 @@ def _segment_payload(seg, live_only: bool = True) -> dict:
         parts = vc._pq_parts
         if parts is None and vc._pq:
             pq = vc._pq
-            parts = PqHostParts(codebooks=pq.codebooks, codes=pq.codes,
+            parts = PqHostParts(codebooks=pq.codebooks, codes=pq.codes_host,
                                 M=pq.M, K=pq.K, dsub=pq.dsub, dims=pq.dims,
                                 metric=pq.metric)
         if not vc._ivf and parts is None:

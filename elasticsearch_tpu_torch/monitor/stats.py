@@ -6,14 +6,22 @@ and scroll counts and times, with the per-group counters a body's
 ``stats`` key asks for: ES 2.0's SearchStats groups),
 ``TranslogRecoveryStats`` (every corrupt translog tail a replay stopped
 at, fed by ``index/translog.py``) and ``aggregate_recovery`` (a node's
-recovery gauges over its indices' ``RecoveryRegistry`` entries).
+recovery gauges over its indices' ``RecoveryRegistry`` entries), and
+the node-level sections of ``nodes_stats`` (reference: org/elasticsearch/
+monitor/ process/ProcessService.java, os/OsService.java):
+``process_stats``, ``os_stats``, ``aggregate_slowlog`` and
+``device_stats``, the card's counterpart of the reference's accelerator
+section.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import deque
-from typing import Dict
+from typing import Any, Dict
+
+import torch
 
 
 class SearchStats:
@@ -138,3 +146,99 @@ def aggregate_recovery(index_services) -> dict:
             out["ops_replayed"] += e.get("ops_replayed", 0)
             out["docs_copied"] += e.get("docs_copied", 0)
     return out
+
+
+def aggregate_slowlog(index_services) -> dict:
+    """A node's slow-operation counts over its own indices' slow logs
+    (``tracing/slowlog.py``); the entries stay in each index's ring."""
+    search_total = indexing_total = 0
+    for svc in index_services:
+        sl = getattr(svc, "slowlog", None)
+        if sl is None:
+            continue
+        search_total += sl.query.total
+        indexing_total += sl.index.total
+    return {"search_slow_total": search_total,
+            "indexing_slow_total": indexing_total}
+
+
+def process_stats() -> dict:
+    """The process section (reference: ProcessService)."""
+    import resource
+
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    return {
+        "timestamp": int(time.time() * 1000),
+        "open_file_descriptors": _count_fds(),
+        "cpu": {"total_in_millis": int((ru.ru_utime + ru.ru_stime) * 1000)},
+        "mem": {
+            # the current resident set; the peak under its own name
+            "resident_in_bytes": _current_rss() or ru.ru_maxrss * 1024,
+            "peak_resident_in_bytes": ru.ru_maxrss * 1024,
+        },
+    }
+
+
+def _current_rss() -> int:
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def _count_fds() -> int:
+    try:
+        return len(os.listdir("/proc/self/fd"))
+    except OSError:
+        return -1
+
+
+def os_stats() -> dict:
+    """The host section (reference: OsService)."""
+    out: Dict[str, Any] = {"timestamp": int(time.time() * 1000)}
+    try:
+        load1, load5, load15 = os.getloadavg()
+        out["cpu"] = {"load_average": {"1m": load1, "5m": load5,
+                                       "15m": load15}}
+    except OSError:
+        pass
+    try:
+        with open("/proc/meminfo") as f:
+            mem = {}
+            for line in f:
+                parts = line.split()
+                if parts[0] in ("MemTotal:", "MemFree:", "MemAvailable:"):
+                    mem[parts[0][:-1]] = int(parts[1]) * 1024
+        out["mem"] = {
+            "total_in_bytes": mem.get("MemTotal", 0),
+            "free_in_bytes": mem.get("MemFree", 0),
+            "available_in_bytes": mem.get("MemAvailable", 0),
+        }
+    except OSError:
+        pass
+    return out
+
+
+def device_stats(device) -> dict:
+    """The accelerator section for the node's ``device``: on a card its
+    name, ``hbm`` from ``torch.cuda.mem_get_info`` (in use = total less
+    free, over all processes) and the caching allocator's
+    ``memory_allocated``/``memory_reserved`` (a freed block stays
+    reserved); on a CPU node ``platform: cpu``, without probing for a
+    card it did not ask for."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {"platform": device.type}
+    free, total = torch.cuda.mem_get_info(device)
+    return {
+        "platform": "gpu",
+        "device_kind": torch.cuda.get_device_name(device),
+        "hbm": {"bytes_in_use": int(total - free),
+                "bytes_limit": int(total)},
+        "memory_allocated": int(torch.cuda.memory_allocated(device)),
+        "memory_reserved": int(torch.cuda.memory_reserved(device)),
+    }

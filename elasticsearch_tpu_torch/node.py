@@ -45,6 +45,12 @@ turn), picked once per shard and request on every route; ``bulk`` writes
 through each shard's group; ``nodes_stats`` sums over every copy; the
 gateway rebuilds an index's replicas from its ``_meta.json`` and
 re-syncs them from the recovered primaries.
+
+The node's span tracer (``node.tracer``, ``tracing/tracer.py``) is handed
+to its residency registry, which files a ``tpu.rehydrate`` span for every
+evicted fielddata copy it places again; ``nodes_stats`` reports the
+registry (``resources``), the tracer, the slow logs, the process, the
+host and the card (``accelerator``), and ``info()`` the node.
 """
 from __future__ import annotations
 
@@ -67,8 +73,12 @@ from elasticsearch_tpu_torch.cluster.state import (ClusterState,
 from elasticsearch_tpu_torch.index import ivf_cache
 from elasticsearch_tpu_torch.index.engine import _deep_merge
 from elasticsearch_tpu_torch.index.index_service import IndexService
+from elasticsearch_tpu_torch import __version__
 from elasticsearch_tpu_torch.monitor.stats import (SearchStats,
-                                                   aggregate_recovery)
+                                                   aggregate_recovery,
+                                                   aggregate_slowlog,
+                                                   device_stats, os_stats,
+                                                   process_stats)
 from elasticsearch_tpu_torch.resources.breakers import CircuitBreakerService
 from elasticsearch_tpu_torch.resources.residency import Residency
 from elasticsearch_tpu_torch.search.batch import (msearch_error_entry,
@@ -78,6 +88,7 @@ from elasticsearch_tpu_torch.search.queries import rewrite_mlt_in_body
 from elasticsearch_tpu_torch.search.service import search_shards
 from elasticsearch_tpu_torch.search.suggest import execute_suggest_multi
 from elasticsearch_tpu_torch.serving import ServingFrontend
+from elasticsearch_tpu_torch.tracing.tracer import Tracer
 from elasticsearch_tpu_torch.utils.device import resolve_device
 from elasticsearch_tpu_torch.utils.errors import (ElasticsearchTpuException,
                                                   IllegalArgumentException,
@@ -97,6 +108,8 @@ class Node:
         self.data_path = data_path
         self.breakers = CircuitBreakerService()
         self.residency = Residency(self.device, self.breakers)
+        self.tracer = Tracer(self.node_id)
+        self.residency.set_tracer(self.tracer)
         self.indices: Dict[str, IndexService] = {}
         # stored search templates (carried by a snapshot's global state)
         self.search_templates: Dict[str, Any] = {}
@@ -633,15 +646,20 @@ class Node:
         return {"responses": responses}
 
     def nodes_stats(self) -> dict:
-        """ES's ``_nodes/stats`` for this node, its ``indices`` section
-        and breakers (the reference's process, thread pool, tracing and
-        accelerator sections are not ported): search, indexing, segments
-        and fielddata sum over every copy of every shard, as the node
-        holds them all; ``docs`` counts the primaries'."""
+        """ES's ``_nodes/stats`` for this node: its ``indices`` section
+        (search, indexing, segments and fielddata sum over every copy of
+        every shard, as the node holds them all; ``docs`` counts the
+        primaries'), the process and host, ``jvm.mem`` (the process's
+        resident set, for the reference's shape), breakers, the residency
+        registry (``resources``), the tracer, the slow logs and the card
+        (``accelerator``). The reference's ``thread_pool``, ``metrics``,
+        ``serving``, ``programs``, ``flight``, ``watchdog`` and
+        ``transport`` sections are not ported (ROADMAP A10e)."""
         search = {k: 0 for k in SearchStats().to_json()}
         indexing = {"index_total": 0, "delete_total": 0,
                     "index_time_in_millis": 0}
-        seg_count = seg_mem = fd_mem = fd_ev = tl_frames = tl_bytes = 0
+        seg_count = seg_mem = fd_mem = fd_ev = fd_rh = 0
+        tl_frames = tl_bytes = 0
         for svc in self.indices.values():
             for g in svc.groups:
                 for shard in g.copies:
@@ -654,10 +672,12 @@ class Node:
                     seg_mem += st["segments"]["memory_in_bytes"]
                     fd_mem += st["fielddata"]["memory_size_in_bytes"]
                     fd_ev += st["fielddata"]["evictions"]
+                    fd_rh += st["fielddata"]["rehydrations"]
                     tl_frames += st["translog"].get(
                         "corrupt_tail_events", 0)
                     tl_bytes += st["translog"].get(
                         "corrupt_tail_bytes_dropped", 0)
+        proc = process_stats()
         return {
             "cluster_name": self.cluster_state.cluster_name,
             "nodes": {self.node_id: {
@@ -670,14 +690,39 @@ class Node:
                     "segments": {"count": seg_count,
                                  "memory_in_bytes": seg_mem},
                     "fielddata": {"memory_size_in_bytes": fd_mem,
-                                  "evictions": fd_ev},
+                                  "evictions": fd_ev,
+                                  "rehydrations": fd_rh},
                     "translog_recovery": {
                         "corrupt_tail_frames_skipped": tl_frames,
                         "corrupt_tail_bytes_dropped": tl_bytes},
                     "recovery": aggregate_recovery(self.indices.values()),
                 },
+                "process": proc,
+                "os": os_stats(),
+                "jvm": {"mem": {"heap_used_in_bytes":
+                                proc["mem"]["resident_in_bytes"]}},
                 "breakers": self.breakers.stats(),
+                "resources": self.residency.stats(),
+                "tracing": self.tracer.stats(),
+                "slowlog": aggregate_slowlog(self.indices.values()),
+                "accelerator": device_stats(self.device),
             }},
+        }
+
+    def info(self) -> dict:
+        """The node's info (the reference's ``Node.info``); ``devices``
+        lists the node's own device."""
+        return {
+            "name": self.name,
+            "cluster_name": self.cluster_state.cluster_name,
+            "version": {
+                "number": __version__,
+                "build_flavor": "gpu" if self.device.type == "cuda"
+                else self.device.type,
+                "lucene_version": "n/a (device-resident segments)",
+            },
+            "tagline": "You Know, for Search",
+            "devices": [str(self.device)],
         }
 
     def close(self):

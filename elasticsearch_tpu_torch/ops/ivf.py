@@ -224,7 +224,7 @@ def ivf_pq_search(index: IvfIndex, query: torch.Tensor, vecs: torch.Tensor,
 
         lut = adc_lut(query, pq.codebooks, pq.metric)
         # the codes hold one row per doc of the segment: ids >= D are pads
-        coarse = adc_scores(pq.codes[:D], lut, cand=cand,
+        coarse = adc_scores(pq.codes_dev()[:D], lut, cand=cand,
                             filter_words=filter_words)
         fpos = top_positions(coarse, fine_k)
         fv = coarse[fpos]

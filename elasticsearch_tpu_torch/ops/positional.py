@@ -228,11 +228,12 @@ def span_not_program(anchor_doc, anchor_pos, anchor_valid, keys, pre: int,
 def positional_device(inv):
     """The field's positional CSR on the card, (positions, pos_offsets,
     doc_per_pos) int32, placed once and kept as long as the field: each
-    charged to the ``fielddata`` breaker under the reference's labels
-    (``TpuSegment.fielddata_bytes`` counts them, so a merge that retires
-    the segment and the index's close release them). The host
-    ``doc_per_pos`` is kept beside it (``inv._pos_host_dpp``). None
-    without positions."""
+    a pinned ``fielddata`` charge (``Residency.pin``, under the
+    reference's labels; the reference keeps them resident uncharged) held
+    in ``inv._pos_tokens``, so ``TpuSegment.fielddata_bytes`` counts them
+    and a merge that retires the segment and the index's close release
+    them. The host ``doc_per_pos`` is kept beside it
+    (``inv._pos_host_dpp``). None without positions."""
     cached = inv._pos_dev
     if cached is not None:
         return cached
@@ -240,24 +241,25 @@ def positional_device(inv):
         return None
     with inv._dense_lock:
         if inv._pos_dev is None:
-            put = inv.residency.put_array
             counts = np.diff(inv.pos_offsets).astype(np.int64)
             dpp = np.repeat(inv.doc_ids_host[: counts.shape[0]],
                             counts).astype(np.int32)
-            pos = put(np.asarray(inv.positions, np.int32), label="positions")
+            placed, toks = [], []
             try:
-                offs = put(np.asarray(inv.pos_offsets, np.int32),
-                           label="pos_offsets")
-                try:
-                    dev = put(dpp, label="doc_per_pos")
-                except BaseException:
-                    inv.residency.release(offs.numel() * 4)
-                    raise
+                for a, label in ((inv.positions, "positions"),
+                                 (inv.pos_offsets, "pos_offsets"),
+                                 (dpp, "doc_per_pos")):
+                    t, tok = inv.residency.pin(np.asarray(a, np.int32),
+                                               label=label)
+                    placed.append(t)
+                    toks.append(tok)
             except BaseException:
-                inv.residency.release(pos.numel() * 4)
+                for tok in toks:
+                    tok.close()
                 raise
             inv._pos_host_dpp = dpp
-            inv._pos_dev = (pos, offs, dev)
+            inv._pos_tokens = toks
+            inv._pos_dev = tuple(placed)
     return inv._pos_dev
 
 

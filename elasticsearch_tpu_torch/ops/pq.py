@@ -15,9 +15,10 @@ query in the LUT; dot_product uses the raw query; l2_norm's LUT is
 ``2 q_m . c - |c|^2``, monotone in ``-|q_m - c|^2``.
 
 The build runs on the slab's device and is deterministic (as
-``kmeans``). ``place_pq`` charges the code array to the ``fielddata``
-breaker as a best-effort structure; eviction and rehydration of it are
-not ported yet (ROADMAP A10d).
+``kmeans``). ``place_pq`` registers the code array as a best-effort,
+evictable ``fielddata`` handle with its host mirror
+(``resources/residency.py``); readers take ``PqIndex.codes_dev()``, which
+rehydrates it after an eviction.
 """
 from __future__ import annotations
 
@@ -74,15 +75,23 @@ class PqHostParts:
 
 @dataclass
 class PqIndex:
-    """Device-resident PQ tier for one immutable vector slab."""
+    """The PQ tier of one immutable vector slab on the device."""
 
-    codebooks: Any  # f32[M, K, dsub]
-    codes: Any  # u8[max_docs, M], charged to the fielddata breaker
+    codebooks: Any  # f32[M, K, dsub], always resident
+    codes: Any  # ResidentArray of u8[max_docs, M] (evictable fielddata)
     M: int
     K: int
     dsub: int
     dims: int
     metric: str
+
+    @property
+    def codes_host(self) -> np.ndarray:
+        return self.codes.host
+
+    def codes_dev(self) -> torch.Tensor:
+        """The device code array, rehydrating an evicted handle."""
+        return self.codes.get()
 
 
 def _normalize_rows(x: torch.Tensor) -> torch.Tensor:
@@ -147,17 +156,26 @@ def build_pq(vecs: torch.Tensor, exists: torch.Tensor,
 
 def place_pq(parts: PqHostParts, residency,
              label: str = "pq") -> Optional[PqIndex]:
-    """Place a built PQ tier on ``residency``'s device: the code array
-    charged to the ``fielddata`` breaker as best-effort (a denial returns
-    None: PQ only accelerates, the caller keeps the exact path and a
-    later query retries), the small codebooks always resident."""
-    codes = residency.put_array(parts.codes, label=f"{label}.codes",
-                                best_effort=True)
-    if codes is None:
+    """Place a built PQ tier on ``residency``'s device: the code array an
+    evictable ``fielddata`` handle, best-effort (a denial returns None:
+    PQ only accelerates, the caller keeps the exact path and a later
+    query retries), the small codebooks always resident. Codes built on
+    the device are adopted as the first copy; the handle keeps a host
+    mirror for rehydration. A failure to place the codebooks closes the
+    codes handle before it propagates, so no charge is stranded."""
+    codes = parts.codes
+    placed = codes if isinstance(codes, torch.Tensor) else None
+    handle = residency.put_array(codes, label=f"{label}.codes",
+                                 best_effort=True, placed=placed)
+    if handle is None:
         return None
-    return PqIndex(codebooks=residency.device_put(parts.codebooks),
-                   codes=codes, M=parts.M, K=parts.K, dsub=parts.dsub,
-                   dims=parts.dims, metric=parts.metric)
+    try:
+        books = residency.device_put(parts.codebooks)
+    except BaseException:
+        handle.close()
+        raise
+    return PqIndex(codebooks=books, codes=handle, M=parts.M, K=parts.K,
+                   dsub=parts.dsub, dims=parts.dims, metric=parts.metric)
 
 
 def adc_lut(query: torch.Tensor, codebooks: torch.Tensor,

@@ -62,7 +62,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from elasticsearch_tpu_torch.index.segment import split_i64
+from elasticsearch_tpu_torch.index.segment import split_i64, stack_source
 from elasticsearch_tpu_torch.monitor import kernels
 from elasticsearch_tpu_torch.ops import scoring as S
 from elasticsearch_tpu_torch.ops.positional import (build_phrase_inputs,
@@ -71,7 +71,8 @@ from elasticsearch_tpu_torch.ops.positional import (build_phrase_inputs,
 from elasticsearch_tpu_torch.search import function_score as FS
 from elasticsearch_tpu_torch.search import queries as Q
 from elasticsearch_tpu_torch.search.context import SegmentContext, split_runs
-from elasticsearch_tpu_torch.utils.errors import QueryParsingException
+from elasticsearch_tpu_torch.utils.errors import (CircuitBreakingException,
+                                                  QueryParsingException)
 from elasticsearch_tpu_torch.utils.shapes import pow2_bucket
 
 NEG_INF = float("-inf")
@@ -236,7 +237,10 @@ class _SortPrim(DataPrim):
         def mirror(attr):
             def get(seg):
                 m = seg.sort_keys(f)
-                return None if m is None else getattr(m, attr)
+                if m is None:
+                    return None
+                return stack_source(m.column if attr == "exists" else m,
+                                    attr)
             return get
 
         key = (f, _ids(seg_row), D)
@@ -297,8 +301,9 @@ class HybridTGroupPrim(DataPrim):
     whether slot s's part is a pure-dense group (a block, a dense row, no
     tail postings), the shape the host loop sends to kernel B1, and
     ``b1_args(s)`` gives its block, real rows and weights. ``build`` (the
-    generic route) adds the tables. Items: the per-slot blocks (a
-    segment's own tensor or None; never stacked), qrows/qrw [S, R] (each
+    generic route) adds the tables; a slot in ``b1_slots`` (served by B1)
+    gets no block there. Items: the per-slot blocks (each segment's own
+    tensor, read at each run, or None; never stacked), qrows/qrw [S, R] (each
     slot's dense rows, sorted, -1/0 padded), starts/lens/ws [S, T] tail
     tables; static (the tail's postings a chunk position, the most real
     rows of a slot)."""
@@ -308,11 +313,13 @@ class HybridTGroupPrim(DataPrim):
         self.terms_fn = terms_fn
         self.fused: List[bool] = []
         self.n_rows: List[int] = []
+        self.b1_slots: List[bool] = []
         self._slots: Optional[list] = None
 
     def scan(self, seg_row, ctxs) -> None:
         """Per slot: (block or None, {dense row: weight}, tail runs)."""
         self._slots, self.fused, self.n_rows = [], [], []
+        self.b1_slots = [False] * len(seg_row)
         for seg, ctx in zip(seg_row, ctxs):
             inv = seg.inverted.get(self.field) if seg is not None else None
             blk = inv.dense_block() if inv is not None else None
@@ -330,7 +337,11 @@ class HybridTGroupPrim(DataPrim):
                     else:
                         s0 = int(inv.offsets[tid])
                         runs.append((s0, int(inv.offsets[tid + 1]) - s0, w))
-            self._slots.append((None if blk is None else blk[1], row_w, runs))
+            # the block is read again at each run (``dense_impact``): a
+            # memo entry keeps no evictable tensor alive
+            self._slots.append((None if blk is None
+                                else functools.partial(dense_impact, inv),
+                                row_w, runs))
             # a present term with an empty run (no postings in this
             # segment) leaves the group pure-dense, as in fused_bm25_topk
             self.fused.append(blk is not None and bool(row_w)
@@ -349,8 +360,11 @@ class HybridTGroupPrim(DataPrim):
         if self._slots is None:
             self.scan(seg_row, ctxs)
         blocks, per_slot = [], []
-        for blk, _row_w, runs in self._slots:
-            blocks.append(blk)
+        for blk, b1, (_row_w, runs) in zip(
+                (sl[0] for sl in self._slots), self.b1_slots,
+                ((sl[1], sl[2]) for sl in self._slots)):
+            # B1 serves that slot: the generic route gathers none of its rows
+            blocks.append(None if b1 else blk)
             per_slot.append(split_runs(runs)[:3])
         packed = [S.pack_dense_rows(sl[1]) for sl in self._slots]
         R = max(p[0].shape[0] for p in packed)
@@ -361,7 +375,24 @@ class HybridTGroupPrim(DataPrim):
             h_qrw[si, : qv.shape[0]] = qv
         tables, sizes = _tables(per_slot, len(seg_row))
         # past every slot's last real row the tables hold only pads
-        return [blocks, h_qrows, h_qrw] + tables, (sizes, max(self.n_rows))
+        return [functools.partial(_read_blocks, blocks), h_qrows,
+                h_qrw] + tables, (sizes, max(self.n_rows))
+
+
+def _read_blocks(getters) -> list:
+    """Each slot's block read now (``dense_impact``), None where none."""
+    return [g() if g is not None else None for g in getters]
+
+
+def dense_impact(inv) -> torch.Tensor:
+    """The field's device impact block, rehydrated after an eviction; a
+    denied rehydration raises CircuitBreakingException, which sends the
+    request to the host loop (its scatter path)."""
+    d = inv.dense_block()
+    if d is None:
+        raise CircuitBreakingException(
+            f"[fielddata] dense impact block of [{inv.name}] denied")
+    return d[1]
 
 
 def _as_exact_int(v):
@@ -431,13 +462,13 @@ class ExistsPrim(DataPrim):
         def exists(seg):  # ExistsQuery.execute's resolution order
             for cols in (seg.numerics, seg.keywords, seg.vectors):
                 if f in cols:
-                    return cols[f].exists
+                    return stack_source(cols[f], "exists")
             if f in seg.field_lengths:
                 return seg.field_lengths[f] > 0
             for cols, sub in ((seg.numerics, ".lat"),  # geo_point
                               (seg.keywords, ".__cells")):  # geo_shape
                 if f + sub in cols:
-                    return cols[f + sub].exists
+                    return stack_source(cols[f + sub], "exists")
             return None
 
         key = ("exists", f, _ids(seg_row), D)
@@ -445,10 +476,10 @@ class ExistsPrim(DataPrim):
 
 
 def _col_reader(field: str, attr: str):
-    """per_slot reader of a numeric column's tensor (None without it)."""
+    """per_slot reader of a numeric column's tensor (None without it; a
+    host mirror inside a stacked copy, ``segment.stack_source``)."""
     def get(seg):
-        c = seg.numerics.get(field)
-        return None if c is None else getattr(c, attr)
+        return stack_source(seg.numerics.get(field), attr)
     return get
 
 
@@ -540,6 +571,11 @@ def _phrase_slots(seg_row, ok, field, toks):
             for seg, good in zip(seg_row, ok)]
 
 
+def _slab(vc):
+    """(vecs, exists) of a vector column, rehydrated after an eviction."""
+    return vc.vecs, vc.exists
+
+
 class VecsPrim(DataPrim):
     """dense_vector slabs for knn-as-query: the per-slot (vecs, exists)
     of each segment (its own tensors, never stacked), and the query
@@ -553,7 +589,9 @@ class VecsPrim(DataPrim):
         slabs = []
         for seg in seg_row:
             vc = seg.vectors.get(self.field) if seg is not None else None
-            slabs.append(None if vc is None else (vc.vecs, vc.exists))
+            # read again at each run: a memo entry keeps no slab alive
+            slabs.append(None if vc is None
+                         else functools.partial(_slab, vc))
         return [slabs, self.qvec], (int(self.qvec.shape[0]),)
 
 
@@ -890,7 +928,7 @@ class EKnn(Emit):
         for s, slab in enumerate(slabs):
             if slab is None:
                 continue
-            vecs, exists = slab
+            vecs, exists = slab()
             Ds = vecs.shape[0]
             lv = exists & live[s, :Ds]
             if fm is not None:

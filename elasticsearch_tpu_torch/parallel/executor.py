@@ -15,11 +15,16 @@ copy it to the card once. A repeated identical request skips the build
 and the copy through the prepared-query memo. Segment data is never
 re-uploaded: at S = 1 the round passes the segment's own tensors; at
 S > 1 the stacked copies (live masks, postings, columns) live in an LRU
-keyed by segment identity and charged to the ``fielddata`` breaker,
-released on eviction and on ``close``. A memo entry holds only the key
-of such a copy, never the copy, and looks it up again each time it runs
-(rebuilding it, charged, after an eviction). Dense impact blocks and
-vector slabs are never copied. A merge retires segments: after each
+keyed by segment identity, each a pinned ``fielddata`` charge
+(``Residency.track``) closed on eviction and on ``close``. A copy reads
+a column's host mirror when its device copy was evicted
+(``segment.stack_source``), so building a round rehydrates nothing. A
+memo entry holds only the key of such a copy, never the copy, and looks
+it up again each time it runs (rebuilding it, charged, after an
+eviction); it reads the segment's own evictable tensors (columns, dense
+impact blocks, vector slabs) again each run too, so it keeps none alive
+past an eviction. Dense impact blocks and vector slabs are never
+copied. A merge retires segments: after each
 refresh and force merge the index service has ``drop_retired`` let go
 of every entry that holds one, and of its charge.
 
@@ -50,7 +55,9 @@ Routes inside a round:
 
 Slots merge in shard order, so the result does not depend on how shards
 map to slots. A failure after a launch raises: only ``MeshCompileError``,
-raised before anything runs, sends a request to the host loop.
+raised before anything runs, and a breaker's CircuitBreakingException (a
+rehydration of a slot's own tensor denied) send a request to the host
+loop.
 """
 from __future__ import annotations
 
@@ -64,6 +71,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from elasticsearch_tpu_torch.index.segment import stacking
 from elasticsearch_tpu_torch.monitor import kernels
 from elasticsearch_tpu_torch.ops.bm25_topk import unpack_topk
 from elasticsearch_tpu_torch.ops.knn import (exact_rescore_topk, knn_topk,
@@ -136,6 +144,16 @@ class _Env(dict):
         return its
 
 
+def _own_view(per_slot, seg) -> torch.Tensor:
+    """[1, length]: a one-slot round's view of the segment's own tensor."""
+    return per_slot(seg).unsqueeze(0)
+
+
+def _resolve(x):
+    """A deferred item (a callable) read now; anything else as it is."""
+    return x() if callable(x) else x
+
+
 class _SlotData:
     """What ``DataPrim.build`` gets: slot-stacked views or cached copies
     of the round's segment data."""
@@ -145,12 +163,19 @@ class _SlotData:
         self.seg_row = seg_row
 
     def _stack(self, per_slot, length, fill, dtype, fix):
+        """The [S, length] copy. A reader may give a host mirror (an
+        evicted column, ``segment.stack_source``): it is copied in from
+        the host, so building a round rehydrates nothing."""
         out = torch.full((len(self.seg_row), length), fill, dtype=dtype,
                          device=self.executor.device)
         for s, seg in enumerate(self.seg_row):
-            t = per_slot(seg) if seg is not None else None
-            if t is not None:
-                out[s, : t.shape[0]] = fix(seg, t) if fix is not None else t
+            with stacking():
+                t = per_slot(seg) if seg is not None else None
+            if t is None:
+                continue
+            if isinstance(t, np.ndarray):
+                t = torch.from_numpy(t).to(self.executor.device)
+            out[s, : t.shape[0]] = fix(seg, t) if fix is not None else t
         return out
 
     def stacked(self, key, per_slot, length: int, fill, dtype, fix=None):
@@ -165,7 +190,9 @@ class _SlotData:
             seg = self.seg_row[0]
             t = per_slot(seg) if seg is not None else None
             if t is not None and t.shape[0] == length:
-                return functools.partial(t.unsqueeze, 0)
+                # read again each run: a memo entry holds no tensor of an
+                # evictable field, so an eviction frees it
+                return functools.partial(_own_view, per_slot, seg)
             return stack
         nbytes = len(self.seg_row) * length * torch.empty(
             (), dtype=dtype).element_size()
@@ -191,6 +218,7 @@ class _Round:
     perm: Optional[torch.Tensor]  # the slots in shard order (S > 1)
     words: torch.Tensor  # the round's tables on the card
     refs: List[Any]  # the round's segments, pinned while the entry lives
+    token: Any = None  # the memo entry's pinned charge (PinnedToken)
 
     @property
     def nbytes(self) -> int:
@@ -223,7 +251,7 @@ class MeshSearchExecutor:
         self._prep: "OrderedDict[Tuple, _Round]" = OrderedDict()
         self._prep_lock = threading.Lock()
         # stacked device data per segment round (S > 1), LRU-bounded:
-        # key → (tensor, pinned segments, charged bytes)
+        # key → (tensor, pinned segments, PinnedToken of its bytes)
         self._data: "OrderedDict[Tuple, tuple]" = OrderedDict()
         self._data_lock = threading.Lock()
 
@@ -247,38 +275,39 @@ class MeshSearchExecutor:
     def _cached_data(self, key, nbytes: int, build, refs):
         """A stacked copy keyed by segment ids. ``refs`` (the segments)
         are kept with it so a cached id() can never be recycled while the
-        entry lives. The bytes are charged to the ``fielddata`` breaker
-        before the copy is made (a denial raises the typed
-        CircuitBreakingException) and released on eviction or close."""
+        entry lives. The bytes are a pinned ``fielddata`` charge
+        (``Residency.track``), forced as the reference's: the LRU's cap is
+        the ceiling, and a copy reads host mirrors, so it never trips.
+        The token is closed on eviction or close."""
         with self._data_lock:
             if key in self._data:
                 self._data.move_to_end(key)
                 kernels.record("executor_data_hit")
                 return self._data[key][0]
         kernels.record("executor_data_miss")
-        self.residency.charge(nbytes, label="executor.data")
+        tok = self.residency.track(nbytes, label="executor.data")
         try:
             val = build()
         except BaseException:
-            self.residency.release(nbytes)
+            tok.close()
             raise
         evicted = []
         with self._data_lock:
             if key in self._data:  # a concurrent build won
-                evicted.append(nbytes)
+                evicted.append(tok)
                 val = self._data[key][0]
             else:
-                self._data[key] = (val, list(refs), nbytes)
+                self._data[key] = (val, list(refs), tok)
                 while len(self._data) > self._data_cap:
                     evicted.append(self._data.popitem(last=False)[1][2])
-        for n in evicted:
-            self.residency.release(n)
+        for t in evicted:
+            t.close()
         return val
 
     def data_bytes(self) -> int:
         """Bytes the stacked-data cache holds (and has charged)."""
         with self._data_lock:
-            return sum(e[2] for e in self._data.values())
+            return sum(e[2].nbytes for e in self._data.values())
 
     def drop_retired(self) -> None:
         """Drop every memo entry and stacked copy that holds a segment no
@@ -296,9 +325,9 @@ class MeshSearchExecutor:
                          if any(id(s) not in live for s in rd.refs)]
             prep = [self._prep.pop(key) for key in dead_prep]
         for e in data:
-            self.residency.release(e[2])
+            e[2].close()
         for rd in prep:
-            self.residency.release(rd.nbytes)
+            rd.token.close()
 
     def cached_segments(self) -> set:
         """ids of the segments the memo and the stacked-data LRU hold."""
@@ -315,9 +344,9 @@ class MeshSearchExecutor:
         with self._prep_lock:
             prep, self._prep = list(self._prep.values()), OrderedDict()
         for e in data:
-            self.residency.release(e[2])
+            e[2].close()
         for rd in prep:
-            self.residency.release(rd.nbytes)
+            rd.token.close()
 
     # -- rounds --------------------------------------------------------------
 
@@ -373,6 +402,7 @@ class MeshSearchExecutor:
             compiled.prims[f].scan(seg_row, ctxs)
             on_b1 = [seg is not None and compiled.prims[f].fused[s]
                      for s, seg in enumerate(seg_row)]
+            compiled.prims[f].b1_slots = on_b1
         generic = any(seg is not None and not b
                       for seg, b in zip(seg_row, on_b1)) or f is None
         tables: List[np.ndarray] = []
@@ -402,11 +432,6 @@ class MeshSearchExecutor:
             env_items = [[functools.partial(_word_view, words, at[id(a)], a)
                           if isinstance(a, np.ndarray) else a for a in its]
                          for its in items]
-            if any(on_b1):
-                # B1 serves those slots: the generic route gathers none
-                # of their dense rows
-                env_items[f][0] = [None if b else blk for blk, b in
-                                   zip(env_items[f][0], on_b1)]
         perm = (_word_view(words, offs[perm_t], tables[perm_t])
                 if len(seg_row) > 1 else None)
         for s, fs in enumerate(fused):
@@ -431,7 +456,8 @@ class MeshSearchExecutor:
             qw, rows, block, live, ks = fused[0]
             kernels.record("bm25_fused_topk")
             Q.FUSED_CALLS += 1
-            return Q.bm25_dense_topk(qw, block, live, k=ks, rows=rows,
+            return Q.bm25_dense_topk(qw, _resolve(block), live, k=ks,
+                                     rows=rows,
                                      count=True, packed=True).cpu().numpy(), \
                 None
         ks = {f[4] for f in fused if f is not None}
@@ -440,8 +466,8 @@ class MeshSearchExecutor:
             # the stacked [S, 2k + 2] rows
             kernels.record("bm25_fused_topk", n)
             Q.FUSED_CALLS += n
-            buf = torch.cat([Q.bm25_dense_topk(qw, block, live, k=kk,
-                                               rows=rows, count=True,
+            buf = torch.cat([Q.bm25_dense_topk(qw, _resolve(block), live,
+                                               k=kk, rows=rows, count=True,
                                                packed=True)
                              for qw, rows, block, live, _ in fused])
             v, ids, totals = unpack_topk(buf, kk)
@@ -486,8 +512,8 @@ class MeshSearchExecutor:
             qw, rows, block, live, ks = f
             kernels.record("bm25_fused_topk")
             Q.FUSED_CALLS += 1
-            v, i, t = Q.bm25_dense_topk(qw, block, live, k=ks, rows=rows,
-                                        count=True)
+            v, i, t = Q.bm25_dense_topk(qw, _resolve(block), live, k=ks,
+                                        rows=rows, count=True)
             if ks < kk:
                 vals[s].fill_(NEG_INF)
             # a fused non-match scores <= 0: out of the merge
@@ -647,7 +673,7 @@ class MeshSearchExecutor:
     def _remember(self, prep_key, rd: _Round) -> None:
         """Keep a prepared round, dropping the least recent past the
         cap."""
-        self.residency.charge(rd.nbytes, label="executor.prep", force=True)
+        rd.token = self.residency.track(rd.nbytes, label="executor.prep")
         dropped = []
         with self._prep_lock:
             old = self._prep.pop(prep_key, None)
@@ -657,7 +683,7 @@ class MeshSearchExecutor:
             while len(self._prep) > _PREP_CACHE_CAP:
                 dropped.append(self._prep.popitem(last=False)[1])
         for ent in dropped:
-            self.residency.release(ent.nbytes)
+            ent.token.close()
 
     # -- batched BM25 (msearch) ------------------------------------------------
 

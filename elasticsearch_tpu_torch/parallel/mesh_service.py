@@ -194,6 +194,11 @@ def _try_mesh_search(svc, searchers, body: dict, global_stats=None):
             sort_spec=sort_spec or None, global_stats=global_stats)
     except MeshCompileError as e:
         return _BY_DESIGN if e.by_design else None
+    except CircuitBreakingException:
+        # a rehydration denied by the breaker: the host loop serves the
+        # request shard by shard, where a shard that trips becomes a
+        # ``_shards.failures`` entry
+        return None
     groups = stats_groups(body)
     q_ms = (time.perf_counter() - t0) * 1e3
     for s in searchers:

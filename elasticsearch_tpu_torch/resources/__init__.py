@@ -3,12 +3,15 @@
 - :mod:`breakers` — ES-shaped hierarchical circuit breakers (parent,
   fielddata, request, in_flight_requests + ``segments``).
 - :mod:`residency` — the one choke point for device placement: every
-  tensor a segment keeps on the device goes through it, charged to a
-  breaker.
+  tensor a segment keeps on the device goes through it. Fielddata is
+  evictable (``ResidentArray``: placed on first touch, evicted least
+  recently used first under its breaker, rehydrated from its host
+  mirror); bytes a caller owns are pinned charges (``PinnedToken``).
 
 Each ``Node`` owns one breaker service and one residency registry, bound
 to its device, and passes them down.
 """
 from elasticsearch_tpu_torch.resources.breakers import (  # noqa: F401
     CircuitBreaker, CircuitBreakerService, hbm_capacity, parse_limit)
-from elasticsearch_tpu_torch.resources.residency import Residency  # noqa: F401
+from elasticsearch_tpu_torch.resources.residency import (  # noqa: F401
+    PinnedToken, Residency, ResidentArray)

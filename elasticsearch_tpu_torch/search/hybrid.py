@@ -281,7 +281,7 @@ def maxsim_window_scores(ctx, vc, tokens, local_ids, *,
         toks_dev = torch.from_numpy(toks).to(dev)
         if pq is not None:
             luts = adc_luts(toks_dev, pq.codebooks, vc.similarity)
-            scores = maxsim_adc(pq.codes[ids_dev].contiguous(), luts)
+            scores = maxsim_adc(pq.codes_dev()[ids_dev].contiguous(), luts)
         else:
             scores = _maxsim_window_exact(toks_dev, vc.vecs[ids_dev],
                                           vc.similarity)

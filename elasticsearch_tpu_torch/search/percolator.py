@@ -104,13 +104,13 @@ def percolate_segment(docs: List[dict], mappings, analysis,
     try:
         br.break_or_reserve(n, label="percolate")
     except BaseException:
-        residency.release(seg.fielddata_bytes())
+        seg.release_fielddata()
         raise
     try:
         yield SegmentContext(seg, mappings, analysis)
     finally:
         br.release(n)
-        residency.release(seg.fielddata_bytes())
+        seg.release_fielddata()
 
 
 def _term_leaf(q, ctx):

@@ -93,7 +93,8 @@ from elasticsearch_tpu_torch.search.scripting import (compile_script,
                                                       script_source)
 from elasticsearch_tpu_torch.tracing import profiler
 from elasticsearch_tpu_torch.utils.errors import (
-    SearchContextMissingException, SearchParseException)
+    CircuitBreakingException, SearchContextMissingException,
+    SearchParseException)
 
 #: request keys the port serves
 _SUPPORTED_KEYS = frozenset({
@@ -613,7 +614,14 @@ def _snapshot_segment(scores, mask, scan: bool):
 def search_shards(searchers: List[ShardSearcher], body: dict,
                   index_name: str = "",
                   global_stats: Optional[GlobalStats] = None) -> dict:
-    """Query-then-fetch across shards, ES response shape."""
+    """Query-then-fetch across shards, ES response shape.
+
+    A shard whose query phase trips a breaker becomes an ES
+    ``_shards.failures[]`` entry (status 429) and the other shards
+    answer (reference: ShardSearchFailure); only a
+    CircuitBreakingException degrades so, every other error fails the
+    request. When every shard failed, the reference's "all shards
+    failed" CircuitBreakingException is raised."""
     t0 = time.perf_counter()
     size = int(body.get("size", 10))
     frm = int(body.get("from", 0))
@@ -623,10 +631,19 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
     profile = bool(body.get("profile"))
     shard_profiles: List[dict] = []
     results = []
+    shard_failures: List[dict] = []
     groups = stats_groups(body)
     for pos, s in enumerate(searchers):
         tq = time.perf_counter()
-        r = s.query_phase(body, global_stats, collect_full=scroll)
+        try:
+            r = s.query_phase(body, global_stats, collect_full=scroll)
+        except CircuitBreakingException as e:
+            shard_failures.append({
+                "shard": pos, "index": s.index_name or index_name,
+                "node": None, "status": e.status,
+                "reason": {"type": e.error_type, "reason": str(e)}})
+            r = QueryPhaseResult(docs=[], total_hits=0,
+                                 max_score=float("nan"))
         # fetch resolves searchers positionally in THIS list
         for d in r.docs:
             d.shard_ord = pos
@@ -637,6 +654,10 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
             shard_profiles.append(profiler.shard_profile_entry(
                 f"[{s.index_name or index_name or 'shard'}][{pos}]",
                 int(q_s * 1e9), r.profile))
+    if shard_failures and len(shard_failures) == len(searchers):
+        raise CircuitBreakingException(
+            "all shards failed: "
+            + "; ".join(f["reason"]["reason"] for f in shard_failures))
     if body.get("indices_boost"):
         _apply_indices_boost(body["indices_boost"], searchers, results)
     all_docs: List[ShardDoc] = []
@@ -680,8 +701,9 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
     response: Dict[str, Any] = {
         "took": int((time.perf_counter() - t0) * 1000),
         "timed_out": any(r.timed_out for r in results),
-        "_shards": {"total": len(searchers), "successful": len(searchers),
-                    "failed": 0},
+        "_shards": {"total": len(searchers),
+                    "successful": len(searchers) - len(shard_failures),
+                    "failed": len(shard_failures)},
         "hits": {
             "total": total,
             "max_score": None if max_score == float("-inf") or sort_spec
@@ -689,6 +711,8 @@ def search_shards(searchers: List[ShardSearcher], body: dict,
             "hits": hits,
         },
     }
+    if shard_failures:
+        response["_shards"]["failures"] = shard_failures
     # stage-2 status: a denial on any shard marks the whole response as
     # degraded to stage 1, with per-shard counts
     statuses = [r.hybrid for r in results if r.hybrid is not None]

@@ -136,8 +136,9 @@ def segment_vocab(seg, field: str):
             got = None
             if inv is not None and inv.terms:
                 mat, lens = pack_terms(inv.terms)
-                seg.residency.charge(mat.nbytes + lens.nbytes,
-                                     label=f"vocab:{field}")
+                seg._pinned.append(seg.residency.track(
+                    mat.nbytes + lens.nbytes, label=f"vocab:{field}",
+                    reserve=True))
                 put = seg.residency.device_put
                 got = (inv.terms, put(mat), put(lens))
             seg._vocab_packed[field] = got
@@ -304,8 +305,9 @@ def _build_bigrams(seg, field: str):
     del d_s, p_s, t_s, adj
     keys, counts = torch.unique(pairs, sorted=True, return_counts=True)
     keys, counts = keys.contiguous(), counts.to(torch.int64).contiguous()
-    seg.residency.charge(keys.numel() * 8 + counts.numel() * 8,
-                         label=f"bigrams:{field}")
+    seg._pinned.append(seg.residency.track(
+        keys.numel() * 8 + counts.numel() * 8, label=f"bigrams:{field}",
+        reserve=True))
     return keys, counts, V
 
 
@@ -510,8 +512,9 @@ def _cut_packed(seg, field: str, inputs: List[str], plen: int):
         got = seg._completion_cuts.get((field, plen))
         if got is None:
             mat, lens = pack_terms([s[:plen] for s in inputs])
-            seg.residency.charge(mat.nbytes + lens.nbytes,
-                                 label=f"completion:{field}")
+            seg._pinned.append(seg.residency.track(
+                mat.nbytes + lens.nbytes, label=f"completion:{field}",
+                reserve=True))
             put = seg.residency.device_put
             got = seg._completion_cuts[(field, plen)] = (put(mat), put(lens))
         return got

@@ -15,8 +15,11 @@ tree). The per-shard profile keeps the reference's envelope
   topk            top-k and sort selection, result packing (device)
   host_sync       device-to-host copies of packed results
   aggs            aggregation partials (device + host)
-  rehydrate       fielddata re-placed after eviction (filed by
-                  ``record_rehydrate``; the port has no eviction yet)
+  rehydrate       fielddata re-placed after an eviction
+                  (``resources/residency.py`` files each rehydration's
+                  time through ``record_rehydrate``, inside the query
+                  phase's ``attached`` scope; its ``tpu.rehydrate`` span
+                  goes to the node's tracer)
   fuse, rerank    hybrid fusion and stage-2 re-rank
 
 A device call waits for the card with ``torch.cuda.synchronize`` on the

@@ -13,6 +13,10 @@ The points the port passes through:
                           copy (cluster/replication.py::_fanout)
     recovery.ops_replay   before each op of a checkpoint-based recovery
                           replay lands on the target (index/recovery.py)
+    resources.reserve     before every breaker reservation of the
+                          residency registry (resources/residency.py):
+                          a handle's placement or rehydration, a
+                          reserved pinned charge
 
 The reference's other points (transport, translog, discovery,
 allocation, the watchdog), its probabilistic faults and its
@@ -25,7 +29,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 #: the point names ``inject`` accepts, so a typo'd point fails the test
 #: loudly instead of silently never firing
-POINTS = frozenset({"recovery.ops_replay", "replication.fanout"})
+POINTS = frozenset({"recovery.ops_replay", "replication.fanout",
+                    "resources.reserve"})
 
 
 class _Fault:

@@ -205,7 +205,8 @@ def test_vector_freeze_builds_ann_tiers():
     assert (pq.M, pq.K, pq.dsub) == (ref.vectors["v"]._pq.M,
                                      ref.vectors["v"]._pq.K,
                                      ref.vectors["v"]._pq.dsub)
-    assert pq.codes.dtype == torch.uint8 and pq.codes.shape == (512, 2)
+    codes = pq.codes_dev()
+    assert codes.dtype == torch.uint8 and codes.shape == (512, 2)
     # the always-resident quantizer joins the segments-breaker charge
     base = port.max_docs + sum(inv.nnz_pad * 16
                                for inv in port.inverted.values())

@@ -341,6 +341,6 @@ def test_convert_carries_vector_state(carried):
                                   np.asarray(rc._ivf.centroids))
     assert (ivf.C, ivf.Lmax, ivf.sentinel) == (rc._ivf.C, rc._ivf.Lmax, D)
     pq = vc.get_pq(D)
-    np.testing.assert_array_equal(pq.codes.numpy(), rc._pq.codes_host)
+    np.testing.assert_array_equal(pq.codes_dev().numpy(), rc._pq.codes_host)
     assert (pq.M, pq.K, pq.dsub, pq.metric) == (rc._pq.M, rc._pq.K,
                                                 rc._pq.dsub, rc._pq.metric)
