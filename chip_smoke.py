@@ -206,13 +206,13 @@ Phases, in order; any failure exits non-zero before the result line:
 5m. durable durability and the index lifecycle (ROADMAP A10b), from seed
             0, each data path in a temporary directory, each restart a
             new ``Node`` in this process with the blob cache's memory
-            layer reset: (a) 2^14 docs of 5h's log recipe by
+            layer reset: (a) 2^13 docs of 5h's log recipe by
             ``Node.bulk`` into five shards, every 20th stamped two days
             back so the 1d ``_ttl`` purges it at the refresh (the count
             exact), 32 match bodies, then a restart with no flush (the
             translog replay: ops/s to the first answer) and a restart
             after ``flush`` (the committed blocks), each giving the same
-            hits, scores, totals and ``_version``s (B1); (b) 2^14
+            hits, scores, totals and ``_version``s (B1); (b) 2^13
             SIFT-shaped vectors into one ``ivf_pq`` shard, a restart
             loading the quantizer and PQ tier from ``<data>/_ivf``
             (``ivf_cache_hit``/``pq_cache_hit`` move, the builds do not)
@@ -274,6 +274,28 @@ Phases, in order; any failure exits non-zero before the result line:
             and fielddata counters, ``tpu.rehydrate`` spans, a profiled
             body's ``rehydrate_nanos``, every breaker back at its start
             after the index closes;
+5p. rest    the REST front door (ROADMAP A10e): (a) ``python -m
+            elasticsearch_tpu_torch.server --port 0`` as a subprocess on
+            the card: ``GET /``, an index of 4,096 of 5h's log docs by one
+            ``_bulk`` with ``refresh=true`` (docs/s), a match body whose B1
+            launch is read from the server's own ``_nodes/stats``, 64
+            acknowledged ids read back, SIGTERM to exit 0 (s); (b) an
+            in-process ``RestServer`` over phase 5's node, with phase 5b's
+            slab added as an index (its IVF and PQ carried across): phase
+            5's 32 match bodies (B1), 8 brute-force (B2) and 8 IVF-PQ (B3)
+            knn bodies through ``POST /{index}/_search``, each answer
+            byte-equal to ``Node.search``'s once ``took`` is masked; p50
+            and p99 over HTTP and in process and their difference, the
+            REST overhead a request; the device busy share; 5e(a)'s 2,048
+            pure-dense bodies as one ``_msearch`` (one B1 launch,
+            byte-equal to ``Node.msearch``) and as single searches from 64
+            client threads through the coalescer (q/s at 1 and 64 client
+            threads; held at 5e(e)'s bar); (c) a tenant over its QoS share
+            answered 429 while another answers 200, a saturated search
+            pool answered 429 ``es_rejected_execution_exception``; (d) an
+            update-by-query on (a)'s index listed by ``GET /_tasks`` and
+            stopped by ``_cancel``, ``estpu_rest_requests_total`` equal to
+            the requests sent;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
@@ -970,8 +992,7 @@ def exact_top10(np, q, u_doc, tfn, offsets, df, n_docs, D):
                          minlength=D)
         hit[u_doc[lo:hi]] = True
     total = int(hit.sum())
-    order = np.lexsort((np.arange(D), -np.where(hit, s, -np.inf)))
-    order = order[:min(10, total)]
+    order = top_desc(np, np.where(hit, s, -np.inf), min(10, total))
     return order, s[order], total
 
 
@@ -1140,8 +1161,19 @@ def exact_cosine_top(np, vpad, admitted, qs, k):
         x /= np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
         s[:, a:a + step] = (1.0 + qn @ x.T) / 2.0
     s[:, ~admitted] = -np.inf
-    ids = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    ids = np.stack([top_desc(np, row, k) for row in s])
     return ids, np.take_along_axis(s, ids, axis=1), s
+
+
+def top_desc(np, row, k):
+    """``np.argsort(-row, kind="stable")[:k]`` without sorting the whole
+    row: the candidates at or above the k-th largest value (every tie
+    kept, in index order), sorted stably by descending value."""
+    if k == 0:
+        return np.empty(0, np.int64)
+    kth = np.partition(row, row.size - k)[row.size - k]
+    cand = np.nonzero(row >= kth)[0]
+    return cand[np.argsort(-row[cand], kind="stable")][:k]
 
 
 def check_oracle(np, got, ids, sc, full, what):
@@ -1533,7 +1565,7 @@ def phase_hybrid(torch, np, dev, card, corpus, sift, ivf_index, pq_parts):
         fused, mask = fuse_np(np, ls, lm & live, vs, vm & live, q.method,
                               q.weights, q.rank_constant)
         eff = np.where(mask, fused, -np.inf)
-        top = np.lexsort((np.arange(eff.size), -eff))[:10]
+        top = top_desc(np, eff, 10)
         want = [(str(i), float(fused[i])) for i in top if np.isfinite(eff[i])]
         have = [(h["_id"], h["_score"]) for h in got[n]["hits"]["hits"]]
         if have != want or got[n]["hits"]["total"] != int(mask.sum()):
@@ -2305,7 +2337,7 @@ def phase_msearch(torch, np, dev, card, corpus, sift, read_node, mesh_node,
             same += got[n]["hits"] == w["hits"]
         orc = oracles[name]
         for n in range(len(bodies)):
-            ids = np.argsort(-orc[n], kind="stable")[:10]
+            ids = top_desc(np, orc[n], 10)
             check_oracle(np, got[n], ids, orc[n][ids], orc[n],
                          f"5e(d) {name} body {n}")
         d_txt.append(f"{len(bodies)} {name} bodies {d_ms:.3f} ms, B2 once, "
@@ -2406,8 +2438,8 @@ def phase_msearch(torch, np, dev, card, corpus, sift, read_node, mesh_node,
 
 TAXI_SHARDS = 4
 TAXI_DOCS = 1 << 20        # per shard: one 2^20-doc segment each
-TAXI_WINDOW_S = 2.0        # timed requests per body and route: for about
-TAXI_MIN_REPS = 25         # this many seconds, at least TAXI_MIN_REPS and
+TAXI_WINDOW_S = 1.0        # timed requests per body and route: for about
+TAXI_MIN_REPS = 10         # this many seconds, at least TAXI_MIN_REPS and
 TAXI_MAX_REPS = 200        # at most TAXI_MAX_REPS of them
 TAXI_TAIL_REPS = 100       # a p99 is printed from this many requests on
 TAXI_PROFILED = 6          # requests per body and route under the profiler
@@ -2869,8 +2901,8 @@ def phase_aggs(torch, np, dev, card):
 # phase 5g: field sort and the request tail on the nyc_taxis stand-in
 # ---------------------------------------------------------------------------
 
-SORT_WINDOW_S = 1.0        # timed requests per body and route: about this
-SORT_MIN_REPS = 20         # many seconds, at least SORT_MIN_REPS, at most
+SORT_WINDOW_S = 0.5        # timed requests per body and route: about this
+SORT_MIN_REPS = 10         # many seconds, at least SORT_MIN_REPS, at most
 SORT_PROFILED = 4          # TAXI_MAX_REPS; this many under the profiler
 AFTER_PAGES, AFTER_SIZE = 10, 100      # http_logs' search_after operations
 SCROLL_PAGES, SCROLL_SIZE = 25, 1000   # geonames' scroll operation
@@ -3266,11 +3298,11 @@ def phase_sort(torch, np, dev, card, node, t):
 # phase 5h: the write path and merges on the card
 # ---------------------------------------------------------------------------
 
-WP_DOCS = 1 << 16          # logs-a's documents (cut from 2^18, PERF.md §4)
+WP_DOCS = 1 << 15          # logs-a's documents (cut from 2^18, PERF.md §4)
 WP_REFRESHES = 32          # refreshes over logs-a: ~32 fresh segments a shard
 WP_SHARDS = 5              # ES 2.0's default index.number_of_shards
 WP_B_SHARE = 10            # logs-b holds a further 1/WP_B_SHARE of the docs
-WP_PREFIX = 1 << 14        # the CPU comparison's prefix of logs-a
+WP_PREFIX = 1 << 13        # the CPU comparison's prefix of logs-a
 WP_RECLAIM = 0.3           # the share of one shard's docs deleted
 WP_REPS = 40               # timed requests per body
 WP_MAPPING = {"properties": {
@@ -3748,7 +3780,7 @@ def phase_writepath(torch, np, dev, card):
 FT_DOCS = N_DOCS           # phase 5's corpus, with each token's position
 FT_TITLE = 10              # the title field: each doc's first 10 tokens
 FT_VARIANTS = 8            # bodies of each group, run in turn
-FT_WINDOW_S = 1.0          # timed requests per group and route: about this
+FT_WINDOW_S = 0.5          # timed requests per group and route: about this
 FT_MIN_REPS = 10           # many seconds, at least FT_MIN_REPS, at most
 FT_MAX_REPS = 400          # FT_MAX_REPS; p99 from TAXI_TAIL_REPS on
 FT_PROFILED = 4            # requests per group and route under the profiler
@@ -4095,7 +4127,7 @@ def phase_fulltext(torch, np, dev, card):
             norm = 1.2 * (0.25 + 0.75 * lengths / avg)
             score = np.where(want > 0, idf * want * 2.2 / (want + norm),
                              -np.inf)
-            top = np.lexsort((np.arange(FT_DOCS), -score))[:10]
+            top = top_desc(np, score, 10)
             top = top[np.isfinite(score[top])]
             hits = resp["hits"]["hits"]
             s = np.array([h["_score"] for h in hits])
@@ -4258,7 +4290,7 @@ def scoring_bodies(np, doc_len, terms, seed):
 def _top_oracle(np, values, k):
     """(ids, values) of the top k finite values by (-value, doc id)."""
     idx = np.nonzero(np.isfinite(values))[0]
-    order = np.lexsort((idx, -values[idx]))[:k]
+    order = top_desc(np, values[idx], min(k, idx.size))
     return idx[order], values[idx[order]]
 
 
@@ -4533,7 +4565,7 @@ JG_PREFIX_Q = 1 << 12      # the CPU comparison's prefix of (a)
 JG_PREFIX_PTS = 1 << 14    # and of (c)
 JG_BAND = 1e-5             # hazard 2's band: f64 distance within 1e-5 rel
 JG_DELETES = 64            # roots deleted after (a)'s groups
-JG_WINDOW_S = 0.6          # timed requests per group and route: about this
+JG_WINDOW_S = 0.3          # timed requests per group and route: about this
                            # many seconds, FT_MIN_REPS to FT_MAX_REPS
 JG_ANSWER = {"user": {"type": "keyword"}, "date": {"type": "date"},
              "score": {"type": "long"}}
@@ -5598,7 +5630,7 @@ def _jg_same_set(got, want, what):
 # ---------------------------------------------------------------------------
 
 SG_VARIANTS = 8            # bodies of each suggest group, run in turn
-SG_WINDOW_S = 0.6          # timed requests per group: about this many
+SG_WINDOW_S = 0.3          # timed requests per group: about this many
 CP_DOCS = 1 << 18          # (b): Rally geonames' places, cut from 11.4M
 CP_SHARDS = 5              # ES 2.0's default index.number_of_shards
 CP_COUNTRIES = 250         # country_code: Zipf(1.3) over these
@@ -6562,10 +6594,10 @@ def phase_a9d(torch, np, dev, card) -> int:
 # phase 5m: durability and the index lifecycle (ROADMAP A10b)
 # ---------------------------------------------------------------------------
 
-DM_DOCS = 1 << 14          # (a): 5h's log recipe, cut from 2^16 (PERF.md §4)
+DM_DOCS = 1 << 13          # (a): 5h's log recipe, cut from 2^16 (PERF.md §4)
 DM_SHARDS = 5              # ES 2.0's default index.number_of_shards
 DM_TTL_EVERY = 20          # every 20th doc stamped two days ago: ~5% expire
-DM_VECS = 1 << 14          # (b): SIFT-shaped 128-d vectors, one shard,
+DM_VECS = 1 << 13          # (b): SIFT-shaped 128-d vectors, one shard,
                            # cut from 2^16 (PERF.md §4)
 DM_QUERIES = 32            # (a)'s match bodies
 DM_KNN = 8                 # (b)'s brute and IVF-PQ bodies each
@@ -6974,7 +7006,7 @@ def phase_durability(torch, np, dev, card):
     return b1, b2, b3
 
 
-RP_DOCS = 1 << 14          # (a): 5h's log recipe with a 128-d vector,
+RP_DOCS = 1 << 13          # (a): 5h's log recipe with a 128-d vector,
                            # cut from 2^15 (PERF.md §4)
 RP_SHARDS = 5              # ES 2.0's default layout: five primaries
 RP_REPLICAS = 1            # and one replica each
@@ -7429,6 +7461,27 @@ def _fd_mem(torch):
             f"memory_reserved {torch.cuda.memory_reserved()} B")
 
 
+def sift_arrays(sift, ivf_index, pq_parts) -> dict:
+    """``segment_from_arrays``' input for phase 5b's slab as field
+    ``emb`` with the IVF and PQ phase 5b built (carried across, no
+    k-means), and its ``bucket`` column."""
+    vpad, exists, bucket, D, _make_q = sift
+    ivf = {"centroids": ivf_index.centroids.cpu().numpy(),
+           "lists": ivf_index.lists.cpu().numpy(),
+           "list_lens": ivf_index.list_lens.cpu().numpy(),
+           "C": ivf_index.C, "Lmax": ivf_index.Lmax,
+           "avg_len": ivf_index.avg_len, "metric": ivf_index.metric}
+    pq = {"codebooks": pq_parts.codebooks.cpu().numpy(),
+          "codes": pq_parts.codes.cpu().numpy(), "M": pq_parts.M,
+          "K": pq_parts.K, "dsub": pq_parts.dsub, "metric": pq_parts.metric}
+    return {"num_docs": N_VECS, "max_docs": D,
+            "numerics": {"bucket": {"exact": bucket, "exists": exists,
+                                    "kind": "long"}},
+            "vectors": {"emb": {"vecs": vpad, "exists": exists,
+                                "dims": DIMS, "similarity": "cosine",
+                                "ivf": ivf, "pq": pq}}}
+
+
 def phase_fielddata(torch, np, dev, card, sift, ivf_index, pq_parts,
                     read_node, read_bodies):
     """Phase 5o (module docstring); returns the launches of B1, B2, B3."""
@@ -7468,27 +7521,14 @@ def phase_fielddata(torch, np, dev, card, sift, ivf_index, pq_parts,
     try:
         node.create_index("fd", {"settings": {"number_of_shards": 1},
                                  "mappings": FD_MAPPING})
-        ivf = {"centroids": ivf_index.centroids.cpu().numpy(),
-               "lists": ivf_index.lists.cpu().numpy(),
-               "list_lens": ivf_index.list_lens.cpu().numpy(),
-               "C": ivf_index.C, "Lmax": ivf_index.Lmax,
-               "avg_len": ivf_index.avg_len, "metric": ivf_index.metric}
-        pq = {"codebooks": pq_parts.codebooks.cpu().numpy(),
-              "codes": pq_parts.codes.cpu().numpy(), "M": pq_parts.M,
-              "K": pq_parts.K, "dsub": pq_parts.dsub,
-              "metric": pq_parts.metric}
-        seg = segment_from_arrays({
-            "num_docs": N_VECS, "max_docs": D,
-            "numerics": dict(
-                {"bucket": {"exact": bucket, "exists": exists,
-                            "kind": "long"}},
-                **{c: {"exact": v, "exists": exists, "kind": "double"}
-                   for c, v in cols.items()}),
-            "vectors": {
-                "emb": {"vecs": vpad, "exists": exists, "dims": DIMS,
-                        "similarity": "cosine", "ivf": ivf, "pq": pq},
-                "emb2": {"vecs": emb2, "exists": exists, "dims": DIMS,
-                         "similarity": "cosine"}}}, node.residency)
+        arrays = sift_arrays(sift, ivf_index, pq_parts)
+        pq = arrays["vectors"]["emb"]["pq"]
+        arrays["numerics"].update(
+            {c: {"exact": v, "exists": exists, "kind": "double"}
+             for c, v in cols.items()})
+        arrays["vectors"]["emb2"] = {"vecs": emb2, "exists": exists,
+                                     "dims": DIMS, "similarity": "cosine"}
+        seg = segment_from_arrays(arrays, node.residency)
         svc = node.get_index("fd")
         svc.shards[0].engine.add_segment(seg)
         fd0 = br.breaker("fielddata").used
@@ -7834,6 +7874,496 @@ def mesh_host_profile(node, on_mesh, bodies):
 
 def _p50(np, ms) -> str:
     return f"{np.percentile(ms, 50):.3f} ms" if ms.size else "no queries"
+
+
+# ---------------------------------------------------------------------------
+# phase 5p: the REST front door (ROADMAP A10e)
+# ---------------------------------------------------------------------------
+
+REST_LOG_DOCS = 4096       # (a): 5h's log docs the launcher's index takes
+REST_LOG_CHECKED = 64      # (a): acknowledged ids read back by GET
+REST_KNN_BODIES = 8        # (b): brute-force and IVF-PQ bodies, each
+REST_REPS = 3              # (b): timed passes over phase 5's match bodies
+REST_BOOT_S = 120.0        # (a): the launcher's bind, its first import
+REST_STOP_S = 10.0         # (a): SIGTERM to exit
+
+
+class _Rest:
+    """HTTP to one server, each request counted (``sent``)."""
+
+    def __init__(self, port):
+        self.port = port
+        self.sent = 0
+
+    def __call__(self, method, path, body=None, ndjson=None, headers=None):
+        """(status, raw bytes, parsed JSON or text or None)."""
+        import urllib.error
+        import urllib.request
+
+        data, hdrs = None, {"Content-Type": "application/json"}
+        if ndjson is not None:
+            data = ndjson.encode()
+            hdrs["Content-Type"] = "application/x-ndjson"
+        elif body is not None:
+            data = json.dumps(body).encode()
+        hdrs.update(headers or {})
+        req = urllib.request.Request(f"http://127.0.0.1:{self.port}{path}",
+                                     data=data, method=method, headers=hdrs)
+        self.sent += 1
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                st, raw = resp.status, resp.read()
+                ctype = resp.headers.get("Content-Type", "")
+        except urllib.error.HTTPError as e:
+            st, raw = e.code, e.read()
+            ctype = e.headers.get("Content-Type", "")
+        if not raw:
+            return st, raw, None
+        if ctype.startswith("application/json"):
+            return st, raw, json.loads(raw)
+        return st, raw, raw.decode()
+
+
+def _nd(lines) -> str:
+    return "".join(json.dumps(x) + "\n" for x in lines)
+
+
+_TOOK = re.compile(rb'"took": \d+')
+
+
+def _hold_bytes(raw: bytes, want, what: str) -> None:
+    """An HTTP answer against the in-process answer to the same body,
+    byte for byte once ``took`` is masked on both."""
+    from elasticsearch_tpu_torch.rest.server import _json_default
+
+    w = json.dumps(want, default=_json_default).encode()
+    if _TOOK.sub(b'"took": 0', raw) != _TOOK.sub(b'"took": 0', w):
+        raise AssertionError(f"5p {what}: the HTTP answer differs from the "
+                             f"in-process answer")
+
+
+#: a client in a process of its own: ``threads`` keep-alive connections
+#: send the requests of a JSON file, each thread the next unsent one, and
+#: write the wall time, each request's latency and each answer
+_CLIENT = r"""
+import http.client, json, sys, threading, time
+port, threads, src, dst = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \
+    sys.argv[4]
+with open(src) as f:
+    reqs = json.load(f)
+res, lat, it, lock = [None] * len(reqs), [0.0] * len(reqs), \
+    iter(range(len(reqs))), threading.Lock()
+def worker():
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    while True:
+        with lock:
+            i = next(it, None)
+        if i is None:
+            break
+        method, path, body = reqs[i]
+        t = time.perf_counter()
+        c.request(method, path, body=json.dumps(body),
+                  headers={"Content-Type": "application/json"})
+        r = c.getresponse()
+        data = r.read()
+        lat[i] = time.perf_counter() - t
+        res[i] = [r.status, data.decode()]
+    c.close()
+ths = [threading.Thread(target=worker) for _ in range(threads)]
+t = time.perf_counter()
+for th in ths:
+    th.start()
+for th in ths:
+    th.join()
+wall = time.perf_counter() - t
+with open(dst, "w") as f:
+    json.dump({"wall": wall, "lat": lat, "res": res}, f)
+"""
+
+
+def _client_run(port, reqs, threads):
+    """``reqs`` [(method, path, body)] sent by ``_CLIENT`` in a process of
+    its own (the server's process runs no client code): (wall s,
+    latencies s, [(status, parsed answer)])."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        src, dst = os.path.join(d, "reqs.json"), os.path.join(d, "out.json")
+        with open(src, "w") as f:
+            json.dump(reqs, f)
+        subprocess.run([sys.executable, "-c", _CLIENT, str(port),
+                        str(threads), src, dst], check=True, timeout=600)
+        with open(dst) as f:
+            out = json.load(f)
+    return out["wall"], out["lat"], [(st, json.loads(b))
+                                     for st, b in out["res"]]
+
+
+def _launcher(np, card):
+    """(a) and (d): ``python -m elasticsearch_tpu_torch.server --port 0``
+    on the card, driven over HTTP, stopped by SIGTERM. Returns its B1
+    launches, read from its own ``_nodes/stats``."""
+    import queue
+    import signal
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "elasticsearch_tpu_torch.server", "--port",
+         "0", "--name", "front-door"], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [out.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    try:
+        port, seen = None, []
+        deadline = time.monotonic() + REST_BOOT_S
+        while port is None:
+            try:
+                line = out.get(timeout=max(0.1, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"5p(a): the launcher did not bind in "
+                                     f"{REST_BOOT_S} s: {seen}")
+            seen.append(line.rstrip())
+            m = re.search(r"listening on http://127\.0\.0\.1:(\d+)", line)
+            port = int(m.group(1)) if m else None
+        boot_s = time.perf_counter() - t
+        http = _Rest(port)
+        st, _, info = http("GET", "/")
+        _hold(st == 200 and info["version"]["build_flavor"] == "gpu"
+              and info["devices"][0].startswith("cuda"),
+              f"(a) GET / answered {st} {info}", "5p")
+        st, _, _ = http("PUT", "/logs", {"settings": {"number_of_shards": 1},
+                                         "mappings": WP_MAPPING})
+        _hold(st == 200, f"(a) the index create answered {st}", "5p")
+        docs = wp_docs(np, REST_LOG_DOCS, SEED + 90)
+        t = time.perf_counter()
+        st, _, bulk = http("POST", "/_bulk?refresh=true", ndjson=_nd(
+            x for d, src in docs
+            for x in ({"index": {"_index": "logs", "_id": d}}, src)))
+        bulk_s = time.perf_counter() - t
+        _hold(st == 200 and not bulk["errors"]
+              and [i["index"]["status"] for i in bulk["items"]]
+              == [201] * REST_LOG_DOCS, f"(a) _bulk answered {st}", "5p")
+
+        def launches():
+            st, _, ns = http("GET", "/_nodes/stats")
+            node = next(iter(ns["nodes"].values()))
+            return node["indices"]["search"]["launches"]["bm25_dense_topk"]
+
+        b0 = launches()
+        st, _, res = http("POST", "/logs/_search",
+                          {"query": {"match": {"body": "t1 t2 t3"}}})
+        b1 = launches() - b0
+        _hold(st == 200 and res["hits"]["total"] > 0 and b1 >= 1,
+              f"(a) a match body answered {st} with {b1} B1 launches in "
+              f"the server", "5p")
+        want = dict(docs)
+        for d in sorted(want)[:: REST_LOG_DOCS // REST_LOG_CHECKED]:
+            st, _, got = http("GET", f"/logs/_doc/{d}")
+            _hold(st == 200 and got["found"] and got["_source"] == want[d],
+                  f"(a) GET of acknowledged id {d} answered {st}", "5p")
+
+        # (d) a by-query listed by GET /_tasks and stopped by _cancel
+        res = {}
+        th = threading.Thread(target=lambda: res.update(r=http(
+            "POST", "/logs/_update_by_query",
+            {"query": {"match_all": {}}, "script": "ctx._source.n += 1"})))
+        th.start()
+        task, deadline = None, time.monotonic() + 60
+        while task is None and time.monotonic() < deadline:
+            st, _, ls = http("GET", "/_tasks?actions=*byquery")
+            task = next((x for n in ls["nodes"].values()
+                         for x in n["tasks"].values()), None)
+        _hold(task is not None, "(d) the by-query never showed in /_tasks",
+              "5p")
+
+        def indexed():
+            st, _, ist = http("GET", "/logs/_stats/indexing")
+            return ist["_all"]["primaries"]["indexing"]["index_total"]
+
+        # cancel once its first update has landed (the bulk indexed
+        # REST_LOG_DOCS), so the run stops between docs, not before them
+        while indexed() <= REST_LOG_DOCS and time.monotonic() < deadline:
+            time.sleep(0.001)
+        tid = f"{task['node']}:{task['id']}"
+        st, _, cancelled = http("POST", f"/_tasks/{tid}/_cancel")
+        th.join(600)
+        st2, _, upd = res["r"]
+        _hold(st == 200 and cancelled["nodes"] and st2 == 200
+              and "canceled" in upd
+              and 0 < upd["updated"] < REST_LOG_DOCS,
+              f"(d) _cancel answered {st}, the by-query {st2} "
+              f"{ {k: upd.get(k) for k in ('updated', 'canceled')} }", "5p")
+        sent = http.sent
+        st, _, text = http("GET", "/_prometheus/metrics")
+        counted = sum(int(float(x.rsplit(" ", 1)[1]))
+                      for x in text.splitlines()
+                      if x.startswith("estpu_rest_requests_total{"))
+        _hold(counted == sent, f"(d) estpu_rest_requests_total {counted}, "
+              f"requests sent {sent}", "5p")
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=REST_STOP_S)
+        stop_s = time.perf_counter() - t
+        _hold(code == 0, f"(a) SIGTERM: exit {code}", "5p")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"[5p] (a) python -m elasticsearch_tpu_torch.server on {card}: "
+        f"bound in {boot_s:.3f} s; _bulk of {REST_LOG_DOCS} log docs with "
+        f"refresh {bulk_s * 1e3:.3f} ms ({REST_LOG_DOCS / bulk_s:.1f} "
+        f"docs/s); a match body launched B1 {b1} times (the server's "
+        f"_nodes/stats); {REST_LOG_CHECKED} acknowledged ids read back; "
+        f"(d) an update-by-query listed by /_tasks and cancelled after "
+        f"{upd['updated']} of {REST_LOG_DOCS} docs; "
+        f"estpu_rest_requests_total {counted} = requests sent; SIGTERM to "
+        f"exit 0 in {stop_s:.3f} s")
+    return b1
+
+
+def phase_rest(torch, np, dev, card, sift, ivf_index, pq_parts, read_node,
+               match_bodies, dense_bodies):
+    """Phase 5p (module docstring); returns the launches of B1, B2, B3
+    over HTTP."""
+    import threading
+
+    from elasticsearch_tpu_torch.index.convert import segment_from_arrays
+    from elasticsearch_tpu_torch.ops import adc, bm25_topk, knn_topk
+    from elasticsearch_tpu_torch.rest.server import RestServer
+    from elasticsearch_tpu_torch.utils.threadpool import FixedThreadPool
+
+    t_phase = time.perf_counter()
+    b1_sub = _launcher(np, card)
+
+    node = read_node
+    node.create_index("vec", {"settings": {"number_of_shards": 1},
+                              "mappings": VEC_MAPPING})
+    node.get_index("vec").shards[0].engine.add_segment(segment_from_arrays(
+        sift_arrays(sift, ivf_index, pq_parts), node.residency))
+    srv = RestServer(node, host="127.0.0.1", port=0)
+    srv.start(background=True)
+    http = _Rest(srv.port)
+    counts = {"b1": 0, "b2": 0, "b3": 0}
+
+    def counted(fn):
+        before = (bm25_topk.LAUNCHES, knn_topk.LAUNCHES, adc.LAUNCHES)
+        out = fn()
+        for k, a, b in zip(counts, before, (bm25_topk.LAUNCHES,
+                                            knn_topk.LAUNCHES, adc.LAUNCHES)):
+            counts[k] += b - a
+        return out
+
+    try:
+        # (b) phase 5's match bodies: B1, each answer the in-process one
+        http("POST", "/msmarco/_search", match_bodies[0])  # first use
+        b1 = bm25_topk.LAUNCHES
+        for n, body in enumerate(match_bodies):
+            st, raw, _ = counted(lambda: http("POST", "/msmarco/_search",
+                                              body))
+            _hold(st == 200, f"(b) match body {n} answered {st}", "5p")
+            _hold_bytes(raw, node.search("msmarco", copy.deepcopy(body)),
+                        f"(b) match body {n}")
+        _hold(bm25_topk.LAUNCHES > b1, "(b) no B1 launch over HTTP", "5p")
+
+        seq = [("POST", "/msmarco/_search", b)
+               for _ in range(REST_REPS) for b in match_bodies]
+        _client_run(srv.port, seq[:len(match_bodies)], 1)  # warm
+        ms_proc, ms_disp = [], []
+        for _m, _p, body in seq:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            node.search("msmarco", copy.deepcopy(body))
+            torch.cuda.synchronize()
+            ms_proc.append((time.perf_counter() - t) * 1e3)
+            raw = json.dumps(body).encode()
+            t = time.perf_counter()
+            srv.controller.dispatch("POST", "/msmarco/_search", {}, raw)
+            torch.cuda.synchronize()
+            ms_disp.append((time.perf_counter() - t) * 1e3)
+        busy = None
+        for _ in range(2):
+            with _profiled(torch) as prof:
+                wall1, lat1, got1 = counted(
+                    lambda: _client_run(srv.port, seq, 1))
+            dev_ms = sum(e.self_device_time_total
+                         for e in _device_rows(prof)) / 1e3
+            if dev_ms > 0:
+                busy = (dev_ms, wall1 * 1e3)
+                break
+        _hold(all(st == 200 for st, _r in got1), "(b) a timed match body "
+              "failed", "5p")
+        ms_http = np.array(lat1) * 1e3
+        ms_proc, ms_disp = np.array(ms_proc), np.array(ms_disp)
+        pct = {k: (float(np.percentile(v, 50)), float(np.percentile(v, 99)))
+               for k, v in (("http", ms_http), ("proc", ms_proc),
+                            ("disp", ms_disp))}
+        qps1 = len(seq) / wall1
+        lines = [
+            f"[5p] (b) {len(match_bodies)} match bodies x {REST_REPS} "
+            f"through POST /msmarco/_search from one keep-alive client in "
+            f"a process of its own, on {card}: HTTP p50 {pct['http'][0]:.3f}"
+            f" ms p99 {pct['http'][1]:.3f} ms; in-process Node.search p50 "
+            f"{pct['proc'][0]:.3f} ms p99 {pct['proc'][1]:.3f} ms; "
+            f"RestController.dispatch without a socket (route, admission, "
+            f"the pool's hand-off, task, span, metrics) p50 "
+            f"{pct['disp'][0]:.3f} ms p99 {pct['disp'][1]:.3f} ms; REST "
+            f"overhead {pct['http'][0] - pct['proc'][0]:.3f} ms a request "
+            f"at p50 ({pct['http'][1] - pct['proc'][1]:.3f} at p99), "
+            f"{pct['disp'][0] - pct['proc'][0]:.3f} of it in dispatch; "
+            f"{qps1:.1f} queries/s at 1 client thread; device busy "
+            + ("not measured (the profiler recorded no device time twice)"
+               if busy is None else
+               f"{busy[0]:.3f} ms of {busy[1]:.3f} ms "
+               f"({100 * busy[0] / busy[1]:.1f}%)")
+            + "; every answer byte-equal to Node.search's"]
+
+        # brute-force kNN (B2) and IVF-PQ (B3) bodies on phase 5b's slab
+        qs = sift[4](2 * REST_KNN_BODIES)
+        knn = [{"query": {"knn": {"field": "emb", "query_vector": [
+            float(a) for a in q], "ann": False}}, "size": 10}
+            for q in qs[:REST_KNN_BODIES]]
+        ivf = [{"query": {"knn": {"field": "emb", "query_vector": [
+            float(a) for a in q], "num_candidates": PQ_CANDIDATES}},
+            "size": 10} for q in qs[REST_KNN_BODIES:]]
+        http("POST", "/vec/_search", knn[0])  # the slab's first touch
+        http("POST", "/vec/_search", ivf[0])
+        kms = {}
+        for name, bodies, key in (("brute-force", knn, "b2"),
+                                  ("IVF-PQ", ivf, "b3")):
+            k0, ms = counts[key], []
+            for n, body in enumerate(bodies):
+                t = time.perf_counter()
+                st, raw, _ = counted(lambda: http("POST", "/vec/_search",
+                                                  body))
+                ms.append((time.perf_counter() - t) * 1e3)
+                _hold(st == 200, f"(b) {name} body {n} answered {st}", "5p")
+                _hold_bytes(raw, node.search("vec", copy.deepcopy(body)),
+                            f"(b) {name} body {n}")
+            _hold(counts[key] - k0 == len(bodies),
+                  f"(b) {counts[key] - k0} launches over {len(bodies)} "
+                  f"{name} bodies", "5p")
+            kms[name] = float(np.percentile(ms, 50))
+        lines.append(
+            f"[5p] (b) {REST_KNN_BODIES} brute-force knn bodies (B2 once "
+            f"each) p50 {kms['brute-force']:.3f} ms and {REST_KNN_BODIES} "
+            f"IVF-PQ bodies (B3 once each) p50 {kms['IVF-PQ']:.3f} ms "
+            f"through POST /vec/_search on phase 5b's {N_VECS} x {DIMS} "
+            f"slab, each byte-equal to Node.search's")
+
+        # 5e(a)'s pure-dense bodies as one _msearch: one batched B1
+        pairs = [({"index": "msmarco"}, b) for b in dense_bodies]
+        nd = _nd(x for hb in pairs for x in hb)
+        http("POST", "/_msearch", ndjson=nd)  # first use
+        b1 = bm25_topk.LAUNCHES
+        t = time.perf_counter()
+        st, raw, got_ms = counted(lambda: http("POST", "/_msearch",
+                                               ndjson=nd))
+        ms_wall = (time.perf_counter() - t) * 1e3
+        b1 = bm25_topk.LAUNCHES - b1
+        _hold(st == 200 and b1 == 1, f"(b) _msearch answered {st} with "
+              f"{b1} B1 launches", "5p")
+        inproc = node.msearch(copy.deepcopy(pairs))
+        _hold_bytes(raw, inproc, "(b) _msearch")
+        lines.append(
+            f"[5p] (b) {len(dense_bodies)} pure-dense bodies in one POST "
+            f"/_msearch: {ms_wall:.3f} ms, "
+            f"{len(dense_bodies) / ms_wall * 1e3:.1f} queries/s, B1 once, "
+            f"byte-equal to Node.msearch's")
+
+        # the same bodies as single searches from 64 client threads (one
+        # keep-alive connection each, in a process of their own), through
+        # the coalescer (adaptive, its default)
+        coal = node.serving.coalescer
+        reqs = [("POST", "/msmarco/_search", b) for b in dense_bodies]
+        _client_run(srv.port, reqs, COALESCE_THREADS)  # warm
+        before = coal.stats()
+        wall64, _lat, got = counted(
+            lambda: _client_run(srv.port, reqs, COALESCE_THREADS))
+        after = coal.stats()
+        for n, (st, res) in enumerate(got):
+            _hold(st == 200, f"(b) coalesced body {n} answered {st}", "5p")
+            # a request's batch, and so its B1 form, depends on when it
+            # arrived: held at phase 5e(e)'s bar against the msearch
+            check_hits(res, inproc["responses"][n],
+                       f"5p (b) coalesced body {n} vs Node.msearch",
+                       rtol=1e-6)
+        batches = after["batch_size"]["count"] - before["batch_size"]["count"]
+        sizes = after["batch_size"]["sum"] - before["batch_size"]["sum"]
+        solo = after["bypass"].get("solo", 0) - before["bypass"].get("solo", 0)
+        qps64 = len(dense_bodies) / wall64
+        lines.append(
+            f"[5p] (b) the same {len(dense_bodies)} bodies as single POST "
+            f"/msmarco/_search from {COALESCE_THREADS} client threads "
+            f"through the coalescer: {qps64:.1f} queries/s ({wall64 * 1e3:.3f}"
+            f" ms), {batches} batches of {sizes / max(batches, 1):.1f} on "
+            f"average, {solo} solo; every answer held against "
+            f"Node.msearch's at 5e(e)'s bar; {qps1:.1f} queries/s at 1 "
+            f"client thread, {qps64:.1f} at {COALESCE_THREADS}")
+
+        # (c) shedding: a tenant over its share, a saturated pool
+        settings = {"network.breaker.inflight_requests.limit": "64kb",
+                    "serving.qos.tenant.greedy.weight": 1,
+                    "serving.qos.tenant.calm.weight": 1}
+        st, _, _ = http("PUT", "/_cluster/settings",
+                        {"transient": settings})
+        held = node.serving.qos.admit("greedy", 32 * 1024)
+        try:
+            st_g, _, res_g = http("POST", "/msmarco/_search",
+                                  match_bodies[1],
+                                  headers={"X-Tenant-Id": "greedy"})
+            st_c, _, _ = http("POST", "/msmarco/_search", match_bodies[1],
+                              headers={"X-Tenant-Id": "calm"})
+        finally:
+            node.serving.qos.release(held)
+            http("PUT", "/_cluster/settings",
+                 {"transient": {k: None for k in settings}})
+        _hold(st == 200 and st_g == 429 and st_c == 200
+              and res_g["error"]["type"] == "circuit_breaking_exception",
+              f"(c) tenant shares: greedy {st_g}, calm {st_c}", "5p")
+        pools = node.thread_pool.pools
+        old = pools["search"]
+        pools["search"] = FixedThreadPool("search", 1, 1)
+        gate = threading.Event()
+        holders = [threading.Thread(target=pools["search"].execute,
+                                    args=(gate.wait, 60)) for _ in range(2)]
+        try:
+            for th in holders:
+                th.start()
+                time.sleep(0.05)
+            st_p, _, res_p = http("POST", "/msmarco/_search",
+                                  match_bodies[2])
+        finally:
+            gate.set()
+            for th in holders:
+                th.join()
+            pools["search"].shutdown()
+            pools["search"] = old
+        _hold(st_p == 429 and res_p["error"]["type"]
+              == "es_rejected_execution_exception",
+              f"(c) a saturated search pool answered {st_p}", "5p")
+        st, _, _ = http("POST", "/msmarco/_search", match_bodies[2])
+        _hold(st == 200, f"(c) the restored pool answered {st}", "5p")
+        lines.append(
+            "[5p] (c) a tenant over its share of the in_flight_requests "
+            "breaker got 429 circuit_breaking_exception while another "
+            "tenant got 200; a saturated search pool (1 worker, 1 queue "
+            "slot) answered 429 es_rejected_execution_exception, a whole "
+            "HTTP answer, and served again once drained")
+    finally:
+        srv.stop()
+        node.delete_index("vec")
+    for line in lines:
+        log(line)
+    b1 = counts["b1"] + b1_sub
+    log(f"[5p] launches over HTTP: B1 {b1} ({b1_sub} in the launcher's "
+        f"process), B2 {counts['b2']}, B3 {counts['b3']}; phase 5p took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return b1, counts["b2"], counts["b3"]
 
 
 def profile_read(torch, node, index, bodies, wall_ms, tag):
@@ -8254,6 +8784,14 @@ def main() -> int:
         f"t{t}" for t in q)}}, "size": 10} for q in make_queries(
             np, FD_READ_BODIES, VOCAB, corpus[4], SEED + 70,
             dense_only=dense_rows >= 0)]
+    # phase 5p's bodies: phase 5's match bodies and 5e(a)'s pure-dense ones
+    rest_match = [{"query": {"match": {"body": " ".join(
+        f"t{t}" for t in q)}}, "size": 10} for q in make_queries(
+            np, N_QUERIES, VOCAB, corpus[4], SEED)]
+    rest_dense = [{"query": {"match": {"body": " ".join(
+        f"t{t}" for t in q)}}, "size": 10} for q in make_queries(
+            np, MSEARCH_BATCH, VOCAB, corpus[4], SEED,
+            dense_only=np.asarray(dense_rows[:VOCAB]) >= 0)]
     (launches["knn_topk"], launches["adc_scores"], b3_case, ivf_index,
      pq_parts) = phase_vectors(torch, np, dev, card, sift)
     hyb = phase_hybrid(torch, np, dev, card, corpus, sift, ivf_index,
@@ -8295,6 +8833,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     b1, b2, b3 = phase_fielddata(torch, np, dev, card, sift, ivf_index,
                                  pq_parts, read_node, read_bodies)
+    launches["bm25_dense_topk"] += b1
+    launches["knn_topk"] += b2
+    launches["adc_scores"] += b3
+    torch.cuda.empty_cache()
+    b1, b2, b3 = phase_rest(torch, np, dev, card, sift, ivf_index, pq_parts,
+                            read_node, rest_match, rest_dense)
     launches["bm25_dense_topk"] += b1
     launches["knn_topk"] += b2
     launches["adc_scores"] += b3

@@ -2,9 +2,11 @@
 
 Port of the single-node part of elasticsearch_tpu/cluster/state.py: the
 index metadata (settings, mappings, aliases, open or closed), the index
-templates, one routing entry a shard, and health. The master's global
-blocks, publication and the state's JSON come with the cluster layer
-(ROADMAP A10e).
+templates, one routing entry a shard, health, and the state's JSON that
+``GET /_cluster/state`` serves. The master's term and global blocks (the
+no-master write block), elections and publication come with the
+multi-node layer (ROADMAP A10f): one node is never re-elected and never
+headless, so its JSON carries term 0 and no blocks.
 """
 from __future__ import annotations
 
@@ -98,4 +100,46 @@ class ClusterState:
                                      if r.state == "RELOCATING"),
             "initializing_shards": initializing,
             "unassigned_shards": unassigned,
+        }
+
+    def to_json(self) -> dict:
+        return {
+            "cluster_name": self.cluster_name,
+            "version": self.version,
+            "term": 0,
+            "state_uuid": self.state_uuid,
+            "master_node": self.master_node_id,
+            "blocks": {},
+            "nodes": {
+                nid: {"name": n.name, "transport_address": n.transport_address,
+                      "roles": list(n.roles)}
+                for nid, n in self.nodes.items()
+            },
+            "metadata": {
+                "templates": self.templates,
+                "indices": {
+                    name: {
+                        "state": m.state,
+                        "settings": m.settings,
+                        "mappings": m.mappings,
+                        "aliases": list(m.aliases),
+                    }
+                    for name, m in self.indices.items()
+                },
+            },
+            "routing_table": {
+                "indices": {
+                    name: {
+                        "shards": {
+                            str(r.shard_id): [{
+                                "state": r.state, "primary": r.primary,
+                                "node": r.node_id, "shard": r.shard_id,
+                                "index": r.index,
+                            }]
+                            for r in self.routing if r.index == name
+                        }
+                    }
+                    for name in self.indices
+                }
+            },
         }

@@ -137,6 +137,10 @@ class IndexService:
         self.mappings = Mappings(mappings_json or {})
         self._validate_analyzers()
         self.aliases: Dict[str, dict] = {}
+        # search warmers by name, stored by the REST layer's warmer CRUD;
+        # the reference runs them at every refresh, the port stores them
+        # only (running them comes with the compile/warm layer, A11)
+        self.warmers: Dict[str, dict] = {}
         self.closed = False
         self.data_path = data_path
         self.recoveries = RecoveryRegistry()
@@ -274,7 +278,9 @@ class IndexService:
             doc_id, source, routing=routing, **kw)
         if is_perc:
             self.percolator.register(rid, source)
-        self.slowlog.on_index((time.perf_counter() - t0) * 1000, rid)
+        dt = time.perf_counter() - t0
+        self.slowlog.on_index(dt * 1000, rid)
+        self._record_write_metric("index", dt)
         return {
             "_index": self.name,
             "_type": kw.get("doc_type") or "_doc",
@@ -315,7 +321,9 @@ class IndexService:
         group = self.group_for(doc_id, routing)
         loc = group.primary.engine._locations.get(str(doc_id))
         dtype = loc.doc_type if loc is not None and loc.doc_type else "_doc"
+        t0 = time.perf_counter()
         version, _failed, seq_no, term = group.delete(doc_id, **kw)
+        self._record_write_metric("delete", time.perf_counter() - t0)
         if self._percolator is not None:
             self._percolator.unregister(str(doc_id))
         # the reference reports no failed copy on a delete
@@ -598,12 +606,52 @@ class IndexService:
         request)."""
         return [g.reader(preference) for g in self.routed_groups(routing)]
 
+    def _record_write_metric(self, op: str, seconds: float) -> None:
+        """Write latency and op counters into the owning node's metrics
+        registry (``monitor/metrics.py``); an IndexService built without
+        a node records nothing."""
+        node = self._node
+        if node is None:
+            return
+        try:
+            m = node.metrics
+            m.histogram(
+                "estpu_indexing_duration_seconds",
+                "Write operation latency (engine + replication fanout)",
+                ("op",)).labels(op).observe(seconds)
+            m.counter(
+                "estpu_indexing_operations_total",
+                "Write operations by type", ("op",)).labels(op).inc()
+        except Exception:  # a metrics failure must never fail the write
+            pass
+
     def search(self, body: dict, routing: Optional[str] = None,
                preference: Optional[str] = None) -> dict:
         """One index's search; ``search_type: dfs_query_then_fetch`` runs
         the dfs phase first. ``routing`` (an alias's search routing)
         searches only the shards it routes to, on the host loop.
-        ``preference`` picks the copy of each shard read (``readers``)."""
+        ``preference`` picks the copy of each shard read (``readers``).
+        The latency lands in the node's ``estpu_search_duration_seconds``
+        under ``warmup="unknown"``: which requests paid a first build is
+        the compile/warm layer's to say (ROADMAP A11)."""
+        t0 = time.perf_counter()
+        resp = self._search_inner(body, routing, preference)
+        node = self._node
+        if node is not None:
+            try:
+                node.metrics.histogram(
+                    "estpu_search_duration_seconds",
+                    "Search latency by index (warmup=unknown: no layer "
+                    "labels first builds yet)",
+                    ("index", "warmup"),
+                ).labels(self.name, "unknown").observe(
+                    time.perf_counter() - t0)
+            except Exception:  # one dropped sample, never a failure
+                pass
+        return resp
+
+    def _search_inner(self, body: dict, routing: Optional[str],
+                      preference: Optional[str]) -> dict:
         check_open(self, op="read")
         t0 = time.perf_counter()
         body = body or {}

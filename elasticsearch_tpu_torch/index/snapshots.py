@@ -123,12 +123,17 @@ def _seed_vector_blobs(payload: dict, directory: Optional[str]) -> None:
 class FsRepository:
     """A content-addressed blob store on the local filesystem."""
 
-    def __init__(self, name: str, location: str):
+    def __init__(self, name: str, location: str, create: bool = True):
+        """Blobs are gzipped whatever the repository's ``compress``
+        setting, as in the reference; ``create=False`` registers without
+        touching the filesystem, for a read-only ``url`` repository,
+        whose location must not be made."""
         self.name = name
         self.location = location
         self.blob_dir = os.path.join(location, "blobs")
-        os.makedirs(self.blob_dir, exist_ok=True)
-        os.makedirs(os.path.join(location, "snapshots"), exist_ok=True)
+        if create:
+            os.makedirs(self.blob_dir, exist_ok=True)
+            os.makedirs(os.path.join(location, "snapshots"), exist_ok=True)
 
     def put_blob(self, payload: dict) -> str:
         return put_blob(self.blob_dir, payload)

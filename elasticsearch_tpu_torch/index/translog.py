@@ -28,6 +28,8 @@ import time
 import zlib
 from typing import Callable, Iterator, Optional
 
+from elasticsearch_tpu_torch.monitor.metrics import SHARED
+
 _MAGIC = 0xE5
 _VERSION = 2
 _HEADER = struct.Struct(">BBII")  # magic, version, len, crc
@@ -154,11 +156,23 @@ class Translog:
                     raise
 
     def _sync_locked(self):
+        t0 = time.perf_counter()
         self._fh.flush()
         os.fsync(self._fh.fileno())
         self._ops_since_sync = 0
         self._sync_count += 1
         self._last_sync = time.time()
+        # the process-shared registry (a translog knows no node): fsync
+        # latency is what every doc pays under durability "request"
+        try:
+            SHARED.histogram(
+                "estpu_translog_fsync_duration_seconds",
+                "Translog flush+fsync latency").observe(
+                    time.perf_counter() - t0)
+            SHARED.counter("estpu_translog_fsyncs_total",
+                           "Translog fsync operations").inc()
+        except Exception:  # a metrics failure must never fail the sync
+            pass
 
     def _close_tragic(self, truncate_to: Optional[int] = None):
         """Close the channel after a failed write/fsync — best-effort,

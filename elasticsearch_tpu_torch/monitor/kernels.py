@@ -65,6 +65,19 @@ def snapshot() -> Dict[str, int]:
         return dict(_COUNTS)
 
 
+def launches() -> Dict[str, int]:
+    """Launches of each hand-written kernel in this process: the count
+    its wrapper keeps where it launches it on the card (a CPU tensor's
+    plain twin counts nothing). ``Node.nodes_stats`` serves it under
+    ``indices.search.launches``."""
+    from elasticsearch_tpu_torch.ops import adc, bm25_topk, knn_topk, \
+        maxsim_adc
+
+    return {"bm25_dense_topk": bm25_topk.LAUNCHES,
+            "knn_topk": knn_topk.LAUNCHES, "adc_scores": adc.LAUNCHES,
+            "maxsim_adc": maxsim_adc.LAUNCHES}
+
+
 def reset() -> None:
     """Test isolation only."""
     with _LOCK:

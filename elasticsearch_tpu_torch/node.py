@@ -51,6 +51,19 @@ to its residency registry, which files a ``tpu.rehydrate`` span for every
 evicted fielddata copy it places again; ``nodes_stats`` reports the
 registry (``resources``), the tracer, the slow logs, the process, the
 host and the card (``accelerator``), and ``info()`` the node.
+
+What the REST layer (``rest/server.py``) reads besides: the task
+registry (``node.tasks``), the metrics registry (``node.metrics``, fed
+by the tracer's span sink and scrape-time collectors over the thread
+pools, breakers, residency tiers and kernel counters), the named thread
+pools (``node.thread_pool``, built on first use), the dynamic cluster
+settings (``node.cluster_settings``) and the stored search templates'
+versions. ``nodes_stats`` adds their ``thread_pool``, ``tasks``,
+``metrics`` and ``serving`` sections, the dispatch counters under
+``indices.search.kernels`` and the kernels' launches under
+``indices.search.launches``. The reference's ``programs`` section comes
+with the compile/warm layer (ROADMAP A11); ``flight``, ``watchdog`` and
+``transport`` with the multi-node layer (A10f).
 """
 from __future__ import annotations
 
@@ -61,6 +74,7 @@ import logging
 import os
 import re
 import shutil
+import threading
 import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -74,6 +88,8 @@ from elasticsearch_tpu_torch.index import ivf_cache
 from elasticsearch_tpu_torch.index.engine import _deep_merge
 from elasticsearch_tpu_torch.index.index_service import IndexService
 from elasticsearch_tpu_torch import __version__
+from elasticsearch_tpu_torch.monitor import kernels
+from elasticsearch_tpu_torch.monitor.metrics import MetricsRegistry, span_sink
 from elasticsearch_tpu_torch.monitor.stats import (SearchStats,
                                                    aggregate_recovery,
                                                    aggregate_slowlog,
@@ -88,6 +104,7 @@ from elasticsearch_tpu_torch.search.queries import rewrite_mlt_in_body
 from elasticsearch_tpu_torch.search.service import search_shards
 from elasticsearch_tpu_torch.search.suggest import execute_suggest_multi
 from elasticsearch_tpu_torch.serving import ServingFrontend
+from elasticsearch_tpu_torch.tracing.tasks import TaskRegistry
 from elasticsearch_tpu_torch.tracing.tracer import Tracer
 from elasticsearch_tpu_torch.utils.device import resolve_device
 from elasticsearch_tpu_torch.utils.errors import (ElasticsearchTpuException,
@@ -110,9 +127,20 @@ class Node:
         self.residency = Residency(self.device, self.breakers)
         self.tracer = Tracer(self.node_id)
         self.residency.set_tracer(self.tracer)
+        self.tasks = TaskRegistry(self.node_id)
+        # continuous metrics: a registry of this node's, fed by every
+        # finished span and by scrape-time collectors
+        self.metrics = MetricsRegistry(include_shared=True)
+        self.tracer.set_sink(span_sink(self.metrics))
+        self._register_metric_collectors()
         self.indices: Dict[str, IndexService] = {}
         # stored search templates (carried by a snapshot's global state)
+        # and each one's version (the REST layer's PUT bumps it)
         self.search_templates: Dict[str, Any] = {}
+        self.search_template_versions: Dict[str, int] = {}
+        # dynamic cluster settings as PUT /_cluster/settings stored them
+        self.cluster_settings: Dict[str, Dict[str, Any]] = {
+            "persistent": {}, "transient": {}}
         # snapshot repositories by name (index/snapshots.py::FsRepository)
         self.repositories: Dict[str, Any] = {}
         # the indices on disk that the gateway could not reopen, with why
@@ -122,6 +150,9 @@ class Node:
                                     master=True)
         # cheap to build: the coalescer's drain thread starts on first use
         self.serving = ServingFrontend(self)
+        # the named request pools start their threads on first use
+        self._thread_pool = None
+        self._tp_lock = threading.Lock()
         self._ivf_dir = None
         if data_path:
             # the blob cache's disk layer must be in place before the
@@ -130,6 +161,86 @@ class Node:
             ivf_cache.register(self._ivf_dir)
             self.residency.blob_dir = self._ivf_dir
             self._gateway_recover()
+
+    @property
+    def thread_pool(self):
+        """The named request pools (``utils/threadpool.py``), built on
+        first use under a lock: concurrent first requests must not each
+        start a set of worker threads."""
+        if self._thread_pool is None:
+            from elasticsearch_tpu_torch.utils.threadpool import ThreadPool
+
+            with self._tp_lock:
+                if self._thread_pool is None:
+                    self._thread_pool = ThreadPool()
+        return self._thread_pool
+
+    def _register_metric_collectors(self) -> None:
+        """Scrape-time families over state counted elsewhere: the thread
+        pools, the breakers, the residency tiers and the kernel
+        counters. Reading them at a scrape costs one walk per scrape
+        instead of a second lock on every hot path."""
+        m = self.metrics
+
+        def _pools():
+            tp = self._thread_pool
+            return tp.stats().items() if tp is not None else ()
+
+        m.collector("estpu_threadpool_queue_depth",
+                    "Queued work items per named thread pool", ("pool",),
+                    lambda: [((n,), st["queue"]) for n, st in _pools()])
+        m.collector("estpu_threadpool_active",
+                    "Active workers per named thread pool", ("pool",),
+                    lambda: [((n,), st["active"]) for n, st in _pools()])
+        m.collector("estpu_threadpool_rejected_total",
+                    "Work rejected by a full queue, per pool", ("pool",),
+                    lambda: [((n,), st["rejected"]) for n, st in _pools()],
+                    kind="counter")
+        m.collector("estpu_threadpool_completed_total",
+                    "Work completed per named thread pool", ("pool",),
+                    lambda: [((n,), st["completed"]) for n, st in _pools()],
+                    kind="counter")
+
+        def _breakers():
+            return self.breakers.stats().items()
+
+        m.collector("estpu_breaker_used_bytes",
+                    "Estimated bytes held per circuit breaker",
+                    ("breaker",),
+                    lambda: [((n,), br["estimated_size_in_bytes"])
+                             for n, br in _breakers()])
+        m.collector("estpu_breaker_limit_bytes",
+                    "Configured byte limit per circuit breaker",
+                    ("breaker",),
+                    lambda: [((n,), br["limit_size_in_bytes"])
+                             for n, br in _breakers()])
+        m.collector("estpu_breaker_tripped_total",
+                    "Trips per circuit breaker", ("breaker",),
+                    lambda: [((n,), br["tripped"]) for n, br in _breakers()],
+                    kind="counter")
+
+        def _tiers():
+            return self.residency.stats()["tiers"].items()
+
+        m.collector("estpu_residency_tier_bytes",
+                    "Device-resident bytes per residency tier", ("tier",),
+                    lambda: [((t,), st["resident_bytes"])
+                             for t, st in _tiers()])
+        m.collector("estpu_residency_evictions_total",
+                    "Device-copy evictions per residency tier", ("tier",),
+                    lambda: [((t,), st["evictions"]) for t, st in _tiers()],
+                    kind="counter")
+        m.collector("estpu_residency_rehydrations_total",
+                    "Evicted-copy rehydrations per residency tier",
+                    ("tier",),
+                    lambda: [((t,), st["rehydrations"])
+                             for t, st in _tiers()],
+                    kind="counter")
+        m.collector("estpu_kernel_dispatch_total",
+                    "Kernel launches and dispatch decisions "
+                    "(monitor/kernels.py names)", ("kernel",),
+                    lambda: [((k,), v) for k, v in kernels.snapshot().items()],
+                    kind="counter")
 
     # -- the gateway -----------------------------------------------------------
 
@@ -217,6 +328,10 @@ class Node:
                            mappings_json=mappings, data_path=self.data_path,
                            node=self)
         svc.aliases = {a: _alias_spec(spec) for a, spec in aliases.items()}
+        # stored only: running a warmer comes with ROADMAP A11
+        for wname, wspec in dict(body.get("warmers", {})).items():
+            svc.warmers[wname] = (wspec.get("source", wspec)
+                                  if isinstance(wspec, dict) else wspec)
         self._register(svc, mappings)
         self._persist_index_meta(name)
         return {"acknowledged": True, "shards_acknowledged": True,
@@ -652,9 +767,14 @@ class Node:
         primaries'), the process and host, ``jvm.mem`` (the process's
         resident set, for the reference's shape), breakers, the residency
         registry (``resources``), the tracer, the slow logs and the card
-        (``accelerator``). The reference's ``thread_pool``, ``metrics``,
-        ``serving``, ``programs``, ``flight``, ``watchdog`` and
-        ``transport`` sections are not ported (ROADMAP A10e)."""
+        (``accelerator``), the thread pools (empty until a request
+        starts them), the task registry, the metrics registry's summaries
+        and the serving front-end; ``indices.search.kernels`` holds the
+        dispatch counters (``monitor/kernels.py``), with the mesh's
+        fallback gauges beside them, and ``indices.search.launches``
+        each hand-written kernel's launches in this process. The
+        reference's ``programs`` section comes with ROADMAP A11;
+        ``flight``, ``watchdog`` and ``transport`` with A10f."""
         search = {k: 0 for k in SearchStats().to_json()}
         indexing = {"index_total": 0, "delete_total": 0,
                     "index_time_in_millis": 0}
@@ -677,6 +797,12 @@ class Node:
                         "corrupt_tail_events", 0)
                     tl_bytes += st["translog"].get(
                         "corrupt_tail_bytes_dropped", 0)
+        snap = kernels.snapshot()
+        search["kernels"] = snap
+        search["launches"] = kernels.launches()
+        for k in ("mesh_fallback_total", "span_clause_truncated",
+                  "mesh_host_by_design"):
+            search[k] = snap.get(k, 0)
         proc = process_stats()
         return {
             "cluster_name": self.cluster_state.cluster_name,
@@ -701,9 +827,14 @@ class Node:
                 "os": os_stats(),
                 "jvm": {"mem": {"heap_used_in_bytes":
                                 proc["mem"]["resident_in_bytes"]}},
+                "thread_pool": (self._thread_pool.stats()
+                                if self._thread_pool is not None else {}),
                 "breakers": self.breakers.stats(),
                 "resources": self.residency.stats(),
+                "tasks": self.tasks.stats(),
                 "tracing": self.tracer.stats(),
+                "metrics": self.metrics.summaries(),
+                "serving": self.serving.stats(),
                 "slowlog": aggregate_slowlog(self.indices.values()),
                 "accelerator": device_stats(self.device),
             }},
@@ -735,6 +866,9 @@ class Node:
         if self._ivf_dir is not None:
             ivf_cache.unregister(self._ivf_dir)
             self._ivf_dir = None
+        if self._thread_pool is not None:
+            self._thread_pool.shutdown()
+            self._thread_pool = None
 
 
 def _alias_spec(spec: Optional[dict]) -> dict:

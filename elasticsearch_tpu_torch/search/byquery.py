@@ -3,8 +3,11 @@
 Port of elasticsearch_tpu/search/byquery.py (reference: ES's
 AbstractAsyncBulkByScrollAction, a scroll-driven scan feeding bulk
 writes, rescanned because the writes shift the results). The caller's
-``apply_fn`` does the per-document write (a delete or an update); the
-REST handlers that call it come with ROADMAP A10e.
+``apply_fn`` does the per-document write (a delete or an update). The
+REST handlers ``_delete_by_query`` and ``_update_by_query``
+(``rest/server.py``) call it under a registered task, so ``POST
+/_tasks/{id}/_cancel`` stops a run between docs; the reference's
+per-owner action across processes comes with ROADMAP A10f.
 """
 from __future__ import annotations
 

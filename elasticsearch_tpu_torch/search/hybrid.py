@@ -27,7 +27,8 @@ or, over a built PQ tier, from the codes through kernel B4
 (``ops/maxsim_adc.py``), whose scores are ranking proxies. Its cost is
 charged to the owning Node's ``request`` breaker first; a denial keeps
 every stage-1 score and answers with a typed "declined" status, never an
-error. ``RERANK_DECISIONS`` counts admissions and denials.
+error. ``RERANK_DECISIONS`` counts admissions and denials, and so does
+the process-shared ``estpu_hybrid_rerank_total`` family.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from elasticsearch_tpu_torch.monitor.metrics import SHARED
 from elasticsearch_tpu_torch.ops.bitvec import pack_mask, test_bits
 from elasticsearch_tpu_torch.ops.maxsim_adc import maxsim_adc
 from elasticsearch_tpu_torch.ops.pq import adc_luts
@@ -48,6 +50,15 @@ from elasticsearch_tpu_torch.utils.errors import (CircuitBreakingException,
 
 #: stage-2 admission decisions by the request breaker: "admit", "decline"
 RERANK_DECISIONS: "Counter[str]" = Counter()
+
+
+def _rerank_family():
+    """The decision counter, registered at the first decision (as the
+    reference does: a process that never re-ranks exposes no family)."""
+    return SHARED.counter(
+        "estpu_hybrid_rerank_total",
+        "Stage-2 MaxSim re-rank admission decisions by the request "
+        "breaker", ("decision",))
 
 
 def _f32(x: float) -> float:
@@ -273,9 +284,11 @@ def maxsim_window_scores(ctx, vc, tokens, local_ids, *,
         breaker.break_or_reserve(est, label)
     except CircuitBreakingException:
         RERANK_DECISIONS["decline"] += 1
+        _rerank_family().labels("decline").inc()
         raise
     try:
         RERANK_DECISIONS["admit"] += 1
+        _rerank_family().labels("admit").inc()
         dev = ctx.device
         ids_dev = torch.from_numpy(ids).to(dev)
         toks_dev = torch.from_numpy(toks).to(dev)

@@ -92,6 +92,7 @@ from elasticsearch_tpu_torch.search.scripting import (compile_script,
                                                       script_params,
                                                       script_source)
 from elasticsearch_tpu_torch.tracing import profiler
+from elasticsearch_tpu_torch.tracing.tasks import check_cancelled
 from elasticsearch_tpu_torch.utils.errors import (
     CircuitBreakingException, SearchContextMissingException,
     SearchParseException)
@@ -809,8 +810,29 @@ def _snapshot_page(snap: dict, lo: int, size: int) -> List[ShardDoc]:
                                   snap["score"][lo: lo + size].tolist())]
 
 
+def register_scroll_hits(body: dict, hits: List[dict], total: int,
+                         consumed: Optional[int] = None) -> str:
+    """Register a materialized scroll: the whole hit list is already
+    fetched, and pages serve straight from it. ``consumed`` is how many
+    hits the first response already delivered (0 for
+    ``search_type=scan``, whose first response carries none); by default
+    the body's ``size``. The reference's caller is its cross-host scroll
+    (ROADMAP A10f), whose per-owner fetch contexts are one-shot."""
+    scroll_id = uuid.uuid4().hex
+    _SCROLLS[scroll_id] = {
+        "mode": "hits", "hits": hits, "total": total,
+        "pos": (int(body.get("size", 10)) if consumed is None
+                else consumed),
+        "body": body,
+    }
+    return scroll_id
+
+
 def scroll_next(scroll_id: str, size: Optional[int] = None) -> dict:
-    """The next page of an open scroll (empty past its end)."""
+    """The next page of an open scroll (empty past its end). A scroll
+    drained under a task (the REST layer registers one per context)
+    stops at this checkpoint once the task is cancelled."""
+    check_cancelled()
     state = _SCROLLS.get(scroll_id)
     if state is None:
         raise SearchContextMissingException(
@@ -819,6 +841,12 @@ def scroll_next(scroll_id: str, size: Optional[int] = None) -> dict:
     sz = size or int(body.get("size", 10))
     lo = state["pos"]
     state["pos"] += sz
+    if state["mode"] == "hits":
+        return {
+            "took": 0, "timed_out": False, "_scroll_id": scroll_id,
+            "hits": {"total": state["total"], "max_score": None,
+                     "hits": state["hits"][lo: lo + sz]},
+        }
     if state["mode"] == "arrays":
         page = _snapshot_page(state, lo, sz)
     else:

@@ -34,10 +34,19 @@ port has no fallback that would hide a device fault.
 
 Every wait here has a timeout, and parking happens outside the lock.
 
-Not ported yet: the reference's metric families, queue-wait span,
-pending task registration (and so cancellation of a parked request),
-slow log and watchdog age probe (ROADMAP A10e); ``stats()`` keeps the
-batch-size histogram and the flush and bypass counters.
+Around the queue, as in the reference:
+
+- the wait is a ``serving.queue_wait`` span in the node's tracer;
+- a parked request registers a *pending* task in the node's registry
+  (``indices:data/read/search[coalesced]``), so ``POST
+  /_tasks/{id}/_cancel`` evicts it before it reaches the card;
+- the ``estpu_coalescer_*`` families (batch size, queue wait, flush and
+  bypass reasons) ride the node's metrics registry; ``stats()`` reads
+  its counts from them;
+- a coalesced search reaches the index's slow log with its queue wait
+  and the batch's time;
+- ``oldest_queue_age`` is the probe a stall watchdog reads (the
+  watchdog itself comes with ROADMAP A10f).
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ import os
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
+
 
 #: body keys a parked request may carry; `profile` parks too (its queue
 #: wait is real) but executes on its own thread at the flush. A body with
@@ -62,7 +72,7 @@ class _Entry:
     """One parked request."""
 
     __slots__ = ("svc", "body", "query", "claimed", "done", "result",
-                 "error", "enqueued", "claimed_at", "batch_size",
+                 "error", "task", "enqueued", "claimed_at", "batch_size",
                  "flush_reason")
 
     def __init__(self, svc, body: dict, query):
@@ -73,6 +83,7 @@ class _Entry:
         self.done = threading.Event()     # result/error available
         self.result: Any = None
         self.error: Optional[BaseException] = None
+        self.task = None
         self.enqueued = time.perf_counter()
         self.claimed_at: Optional[float] = None
         self.batch_size = 0
@@ -135,12 +146,22 @@ class QueryCoalescer:
         self.max_batch = 256
         self.max_wait_s = 0.004
         self.idle_gap_s = 0.001
-        # counters, under their own lock
-        self._stats_lock = threading.Lock()
-        self._batches = {"count": 0, "sum": 0, "max": 0,
-                         "le": {b: 0 for b in _BATCH_BUCKETS}}
-        self._flushes: Dict[str, int] = {}
-        self._bypass: Dict[str, int] = {}
+        # the node's estpu_coalescer_* families, which stats() reads too
+        m = node.metrics
+        self._m_batch = m.histogram(
+            "estpu_coalescer_batch_size",
+            "Requests per coalesced device batch",
+            buckets=_BATCH_BUCKETS)
+        self._m_wait = m.histogram(
+            "estpu_coalescer_queue_wait_seconds",
+            "Time a request spent parked in the micro-batch queue")
+        self._m_flush = m.counter(
+            "estpu_coalescer_flush_total",
+            "Batch flushes by drain reason (full/deadline/idle/close)",
+            ("reason",))
+        self._m_bypass = m.counter(
+            "estpu_coalescer_bypass_total",
+            "Searches that bypassed the queue, by reason", ("reason",))
 
     # -- settings ------------------------------------------------------------
 
@@ -160,22 +181,6 @@ class QueryCoalescer:
             self.idle_gap_s = _parse_duration_s(
                 flat.get("serving.coalescer.idle_gap"), 0.001)
             self._cv.notify_all()
-
-    # -- counters ------------------------------------------------------------
-
-    def _count(self, table: Dict[str, int], reason: str) -> None:
-        with self._stats_lock:
-            table[reason] = table.get(reason, 0) + 1
-
-    def _observe_batch(self, n: int) -> None:
-        with self._stats_lock:
-            b = self._batches
-            b["count"] += 1
-            b["sum"] += n
-            b["max"] = max(b["max"], n)
-            le = next((x for x in _BATCH_BUCKETS if n <= x), None)
-            if le is not None:
-                b["le"][le] += 1
 
     # -- submission ----------------------------------------------------------
 
@@ -204,7 +209,7 @@ class QueryCoalescer:
                 self._active += 1
         if not park:
             try:
-                self._count(self._bypass, "solo")
+                self._m_bypass.labels("solo").inc()
                 return run()
             finally:
                 with self._cv:
@@ -213,7 +218,7 @@ class QueryCoalescer:
         # coalescing is warranted: now pay for the shape analysis
         made = self._make_entry(svc, body)
         if made is None:
-            self._count(self._bypass, "shape")
+            self._m_bypass.labels("shape").inc()
             return None
         entry, field = made
         return self._park(entry, field, window, run)
@@ -235,27 +240,41 @@ class QueryCoalescer:
         key = (entry.svc.name, field)
         with self._cv:
             self._outstanding += 1
-            q = self._queues.get(key)
-            if q is None:
-                q = self._queues[key] = []
-                self._flush_at[key] = entry.enqueued + window
-            q.append(entry)
-            self._ensure_thread()
-            self._cv.notify_all()
+        # pending child task: listed by /_tasks and cancellable while
+        # parked; on_cancel evicts the entry before the card sees it
+        entry.task = self.node.tasks.register(
+            "indices:data/read/search[coalesced]",
+            description=f"indices[{entry.svc.name}] queued[{field}]",
+            status="pending",
+            on_cancel=lambda t, e=entry: self._evict(e))
         try:
-            while not entry.claimed.wait(timeout=0.05):
-                with self._cv:
-                    dead = (self._thread is None
-                            or not self._thread.is_alive())
-                if dead and self._reclaim(entry, key):
-                    break
+            with self._cv:
+                if entry.error is None:  # not born cancelled
+                    q = self._queues.get(key)
+                    if q is None:
+                        q = self._queues[key] = []
+                        self._flush_at[key] = entry.enqueued + window
+                    q.append(entry)
+                    self._ensure_thread()
+                    self._cv.notify_all()
+            # the wait as a span, closed at the claim: execution time is
+            # the search's, not the queue's
+            with self.node.tracer.span("serving.queue_wait",
+                                       index=entry.svc.name, bucket=field):
+                while not entry.claimed.wait(timeout=0.05):
+                    with self._cv:
+                        dead = (self._thread is None
+                                or not self._thread.is_alive())
+                    if dead and self._reclaim(entry, key):
+                        break
             while not entry.done.wait(timeout=0.05):
                 pass
+            queue_s = (entry.claimed_at or entry.enqueued) - entry.enqueued
+            self._m_wait.observe(queue_s)
             if entry.error is not None:
                 raise entry.error
             resp = run() if entry.result is RUN_SELF else entry.result
             if isinstance(resp, dict):
-                queue_s = (entry.claimed_at or entry.enqueued) - entry.enqueued
                 if "took" in resp:
                     resp["took"] = int(resp["took"]) + int(queue_s * 1000)
                 if isinstance(resp.get("profile"), dict):
@@ -268,6 +287,7 @@ class QueryCoalescer:
                     }
             return resp
         finally:
+            self.node.tasks.unregister(entry.task)
             with self._cv:
                 self._outstanding -= 1
                 self._cv.notify_all()  # close() may be draining
@@ -302,6 +322,32 @@ class QueryCoalescer:
                 entry.resolve(result=RUN_SELF)
                 return True
             return entry.done.is_set()
+
+    def _evict(self, entry: _Entry) -> None:
+        """on_cancel hook (on the cancelling thread): take a still-parked
+        entry out of its queue and fail it with the task's typed error,
+        so it never reaches the card. A claimed entry is past eviction;
+        its flush resolves it."""
+        from elasticsearch_tpu_torch.tracing.tasks import \
+            TaskCancelledException
+
+        with self._cv:
+            for key, q in list(self._queues.items()):
+                if entry in q:
+                    q.remove(entry)
+                    if not q:
+                        self._queues.pop(key, None)
+                        self._flush_at.pop(key, None)
+                    break
+            if not entry.claimed.is_set():
+                task = entry.task
+                reason = (task.cancel_reason if task is not None
+                          else None) or "by user request"
+                tid = task.tagged_id if task is not None else "?"
+                entry.resolve(error=TaskCancelledException(
+                    f"task [{tid}] (indices:data/read/search[coalesced]) "
+                    f"was cancelled [{reason}] while queued"))
+            self._cv.notify_all()
 
     # -- drain thread --------------------------------------------------------
 
@@ -369,7 +415,7 @@ class QueryCoalescer:
                     self._flush(batch, reason)
                 except Exception as e:
                     # raised on every waiter: a device fault must show
-                    self._count(self._bypass, "batch_error")
+                    self._m_bypass.labels("batch_error").inc()
                     for en in batch:
                         if not en.done.is_set():
                             en.resolve(error=e)
@@ -377,14 +423,27 @@ class QueryCoalescer:
     def _flush(self, batch: List[_Entry], reason: str) -> None:
         from elasticsearch_tpu_torch.search.batch import execute_batch
 
-        self._count(self._flushes, reason)
+        # entries cancelled while being claimed resolve with their error
+        live: List[_Entry] = []
+        for e in batch:
+            if e.done.is_set():
+                continue
+            if e.task is not None and e.task.cancelled:
+                self._evict(e)
+                continue
+            live.append(e)
+        if not live:
+            return
+        self._m_flush.labels(reason).inc()
         # profile bodies pay the queue wait like everyone but execute on
         # their own threads: a batch cannot attribute device time to one
         # request
-        fused = [e for e in batch if "profile" not in e.body]
-        rest = [e for e in batch if "profile" in e.body]
+        fused = [e for e in live if "profile" not in e.body]
+        rest = [e for e in live if "profile" in e.body]
         now = time.perf_counter()
-        for e in batch:
+        for e in live:
+            if e.task is not None:
+                e.task.start()
             e.claimed_at = now
             e.batch_size = len(fused) if "profile" not in e.body else 1
             e.flush_reason = reason
@@ -398,14 +457,35 @@ class QueryCoalescer:
             responses = execute_batch(fused[0].svc, [e.body for e in fused],
                                       queries=[e.query for e in fused])
         if responses is not None:
-            self._observe_batch(len(fused))
+            self._m_batch.observe(len(fused))
+            batch_ms = (time.perf_counter() - now) * 1000
             for e, r in zip(fused, responses):
+                # the slow log sees coalesced searches too, at this
+                # request's queue wait plus the batch's time
+                try:
+                    e.svc.slowlog.on_search(
+                        batch_ms + (e.claimed_at - e.enqueued) * 1000,
+                        e.body, r)
+                except Exception:
+                    pass  # logging must never fail the batch
                 e.resolve(result=r)
         else:
             for e in fused:
                 e.resolve(result=RUN_SELF)
 
     # -- lifecycle -----------------------------------------------------------
+
+    def oldest_queue_age(self) -> Optional[float]:
+        """Age in seconds of the oldest still-parked request across every
+        forming bucket, or None when nothing is parked. Normal waits are
+        below a millisecond; an age far past ``max_wait`` means the drain
+        thread is wedged or dead."""
+        with self._cv:
+            oldest = min((e.enqueued for q in self._queues.values()
+                          for e in q), default=None)
+        if oldest is None:
+            return None
+        return time.perf_counter() - oldest
 
     def stats(self) -> dict:
         with self._cv:
@@ -417,11 +497,16 @@ class QueryCoalescer:
                 "max_batch": self.max_batch,
                 "max_wait_ms": self.max_wait_s * 1000,
             }
-        with self._stats_lock:
-            out["batch_size"] = dict(self._batches,
-                                     le=dict(self._batches["le"]))
-            out["flushes"] = dict(self._flushes)
-            out["bypass"] = dict(self._bypass)
+        # the batch-size histogram's per-bucket counts, keyed by each
+        # bucket's upper bound, and the flush and bypass counters
+        h = self._m_batch.labels()
+        out["batch_size"] = {"count": h.count, "sum": int(h.sum),
+                             "max": int(h.max),
+                             "le": {int(b): c for b, c in
+                                    zip(h.bounds, h.counts)}}
+        for key, fam in (("flushes", self._m_flush),
+                         ("bypass", self._m_bypass)):
+            out[key] = {lv[0]: int(c.value) for lv, c in fam.series()}
         return out
 
     def close(self) -> None:

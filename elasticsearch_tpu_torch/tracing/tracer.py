@@ -123,6 +123,17 @@ class Tracer:
         self._spans: deque = deque(maxlen=max_spans)
         self.started_total = 0
         self.finished_total = 0
+        # optional finished-span sink (monitor/metrics.py::span_sink):
+        # every close also lands in a latency histogram, so the span
+        # substrate doubles as continuous time-series
+        self._sink = None
+
+    def set_sink(self, sink) -> None:
+        """``sink(span)`` called after every span close (outside the
+        ring lock). It must be cheap; a sink failure is swallowed —
+        dropping one metric sample must never fail the request the span
+        measured."""
+        self._sink = sink
 
     @contextmanager
     def span(self, name: str, **tags: Any) -> Iterator[Span]:
@@ -147,6 +158,12 @@ class Tracer:
             with self._lock:
                 self.finished_total += 1
                 self._spans.append(sp)
+            sink = self._sink
+            if sink is not None:
+                try:
+                    sink(sp)
+                except Exception:  # one dropped sample, never a failure
+                    pass
 
     def spans(self) -> List[Span]:
         with self._lock:

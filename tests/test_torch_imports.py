@@ -4,8 +4,10 @@ the mesh, a script_score with script_fields, a span_near, script
 aggregations, nested queries and aggs, has_child, the geo queries and
 the ``_geo_distance`` sort, the suggesters, the percolator, updates,
 bulk, by-query, a flush and restart, a snapshot and restore and the
-``stats`` key included, and replicas with a failover and a scale), and
-its entry point never falls back to the CPU on its own."""
+``stats`` key included, replicas with a failover and a scale, and the
+REST server answering a ``_bulk`` and a ``_search`` over HTTP, with the
+launcher, the client and the REST module imported), and its entry point
+never falls back to the CPU on its own."""
 import os
 import re
 import subprocess
@@ -219,6 +221,29 @@ for pref in ("_primary", "_replica", None):
 n.indices["rp"].fail_shard(0)
 n.update_index_settings("rp", {"number_of_replicas": 2})
 assert n.search("rp", {"size": 0}, preference="_replica")["hits"]["total"] == 40
+n.close()
+import json, urllib.request
+from elasticsearch_tpu_torch import Client, client, server
+from elasticsearch_tpu_torch.rest.server import RestServer
+n = Node(device="cpu")
+srv = RestServer(n, host="127.0.0.1", port=0)
+srv.start(background=True)
+def http(method, path, data, ctype="application/json"):
+    req = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}",
+                                 data=data.encode(), method=method,
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req) as resp:
+        return resp.status, json.loads(resp.read())
+nd = "".join(json.dumps(x) + "\n" for i in range(30) for x in (
+    {"index": {"_index": "web", "_id": str(i)}},
+    {"body": "fox" if i % 3 else "dog"}))
+st, r = http("POST", "/_bulk?refresh=true", nd, "application/x-ndjson")
+assert st == 200 and not r["errors"] and len(r["items"]) == 30, r
+st, r = http("POST", "/web/_search",
+             json.dumps({"query": {"match": {"body": "fox"}}}))
+assert st == 200 and r["hits"]["total"] == 20, r
+assert Client(url=f"http://127.0.0.1:{srv.port}").count("web")["count"] == 30
+srv.stop()
 n.close()
 import importlib, pkgutil
 import elasticsearch_tpu_torch

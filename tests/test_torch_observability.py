@@ -240,9 +240,25 @@ def test_node_sections_carry_the_references_keys():
             "memory_size_in_bytes", "evictions", "rehydrations"}
         assert set(want["indices"]["fielddata"]) < set(
             got["indices"]["fielddata"])
-        # the sections A10e brings are not there yet
-        for sec in ("thread_pool", "metrics", "serving", "programs",
-                    "flight", "watchdog", "transport"):
+        # the REST layer's sections (ROADMAP A10e) are there; the
+        # compile/warm layer's (A11) and the multi-node layer's (A10f)
+        # are not yet
+        assert got["thread_pool"] == want["thread_pool"] == {}
+        assert _keys(got["tasks"]) == _keys(want["tasks"])
+        # the families of each node's own registry (the process-shared
+        # ones depend on what else the process ran)
+        own = {"estpu_indexing_duration_seconds",
+               "estpu_indexing_operations_total",
+               "estpu_search_duration_seconds", "estpu_span_duration_seconds",
+               "estpu_coalescer_batch_size",
+               "estpu_coalescer_queue_wait_seconds"}
+        assert own <= set(got["metrics"]) and own <= set(want["metrics"])
+        for fam in own:
+            assert [_keys(x) for x in got["metrics"][fam]] == \
+                [_keys(x) for x in want["metrics"][fam]], fam
+        assert set(want["serving"]) - set(got["serving"]) == {"warmup"}
+        assert _keys(got["serving"]["qos"]) == _keys(want["serving"]["qos"])
+        for sec in ("programs", "flight", "watchdog", "transport"):
             assert sec in want and sec not in got
         assert got["accelerator"] == {"platform": "cpu"}
         assert got["jvm"]["mem"]["heap_used_in_bytes"] \
@@ -269,3 +285,37 @@ def test_device_stats_on_the_cpu_never_probe_a_card(monkeypatch):
 def test_process_and_os_sections_match_the_reference_shape():
     assert _keys(stats.process_stats()) == _keys(ref_stats.process_stats())
     assert _keys(stats.os_stats()) == _keys(ref_stats.os_stats())
+
+
+def test_process_counters_and_delta_match_the_reference():
+    """The bench snapshot (``monitor/metrics.py::process_counters``) and
+    its delta on both packages: a kernel record and a SHARED counter move
+    it alike; the port reads its node's breaker trips where the
+    reference reads its process's (ROADMAP C20)."""
+    from elasticsearch_tpu.monitor import kernels as ref_kernels
+    from elasticsearch_tpu.monitor import metrics as ref_metrics
+    from elasticsearch_tpu_torch.monitor import kernels, metrics
+
+    port = Node(name="port", device="cpu")
+    try:
+        deltas, node_keys = [], []
+        for mod, kmod, args in ((ref_metrics, ref_kernels, ()),
+                                (metrics, kernels, (port,))):
+            before = mod.process_counters(*args)
+            kmod.record("executor_prep_hit")
+            kmod.record("executor_prep_miss", 2)
+            mod.SHARED.counter("estpu_test_delta_total", "t").inc(3)
+            d = mod.counters_delta(before, mod.process_counters(*args))
+            node_keys.append({k for k in d
+                              if k.startswith(("breakers.", "residency."))})
+            deltas.append({k: d[k] for k in (
+                "kernels.executor_prep_hit", "kernels.executor_prep_miss",
+                "estpu_test_delta_total")})
+            assert mod.counters_delta({"a": -1.0}, {"a": 5.0}) == {"a": None}
+        assert node_keys[0] == node_keys[1]
+        assert "breakers.in_flight_requests.tripped" in node_keys[1]
+        assert deltas[0] == deltas[1] == {
+            "kernels.executor_prep_hit": 1, "kernels.executor_prep_miss": 2,
+            "estpu_test_delta_total": 3}
+    finally:
+        port.close()

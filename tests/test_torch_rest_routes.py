@@ -1,0 +1,119 @@
+"""The port's REST route table against the reference's ``RestController``.
+
+Every ``(method, pattern)`` the reference registers is registered by the
+port, in the same order (the first matching route wins, so the order is
+part of the table), and ``pool_for`` names the same thread pool for each
+but the by-queries, which the port runs on ``bulk`` (ROADMAP C22).
+Nine routes answer a typed ``not_yet_ported_exception`` naming the ROADMAP
+item that brings them, and no other route does. An unknown route answers
+the reference's 400 envelope.
+"""
+import re
+
+import pytest
+
+from elasticsearch_tpu.node import Node as RefNode
+from elasticsearch_tpu.rest.server import RestController as RefController
+from elasticsearch_tpu_torch.node import Node
+from elasticsearch_tpu_torch.rest.server import (NotYetPortedException,
+                                                 RestController)
+
+#: the routes the port refuses, with the item each names
+REFUSED = {
+    ("GET", "/_nodes/_local/xla/programs"): "A11",
+    ("GET", "/_cat/programs"): "A11",
+    ("POST", "/_warmup"): "A11",
+    ("GET", "/_warmup"): "A11",
+    ("POST", "/{index}/_warmup"): "A11",
+    ("GET", "/_nodes/_local/flight"): "A10f",
+    ("GET", "/_cat/incidents"): "A10f",
+    ("GET", "/_cluster/diagnostics"): "A10f",
+    ("GET", "/_cluster/diagnostics/incidents/{incident_id}"): "A10f",
+}
+
+
+@pytest.fixture(scope="module")
+def controllers():
+    ref_node = RefNode(name="routes")
+    port_node = Node(name="routes", device="cpu")
+    yield RefController(ref_node), RestController(port_node)
+    ref_node.close()
+    port_node.close()
+
+
+def _table(rc):
+    return [(m, rc._pattern_of[rx]) for m, rx, _h in rc.routes]
+
+
+def test_every_reference_route_is_registered_in_order(controllers):
+    ref, port = controllers
+    assert _table(port) == _table(ref)
+    assert len(set(_table(port))) > 300
+
+
+def test_route_regexes_agree(controllers):
+    ref, port = controllers
+    assert [rx.pattern for _m, rx, _h in port.routes] == \
+        [rx.pattern for _m, rx, _h in ref.routes]
+
+
+def _example_path(pattern: str) -> str:
+    """A concrete path for a pattern: each {name} becomes a plain
+    segment."""
+    return re.sub(r"\{(\w+)\}", lambda m: f"x{m.group(1)}", pattern)
+
+
+#: the routes whose pool differs, as (reference's, port's): a by-query
+#: holds a `management` worker for its whole run in the reference, so two
+#: of them starve that pool's `_tasks` cancel (ROADMAP C22)
+POOL_DIFFERS = {
+    ("POST", "/{index}/_delete_by_query"): ("management", "bulk"),
+    ("DELETE", "/{index}/_query"): ("management", "bulk"),
+    ("POST", "/{index}/_update_by_query"): ("management", "bulk"),
+}
+
+
+def test_pool_for_agrees_on_every_pattern(controllers):
+    ref, port = controllers
+    differs = {}
+    for method, pattern in _table(ref):
+        path = _example_path(pattern)
+        want, got = ref.pool_for(method, path), port.pool_for(method, path)
+        if got != want:
+            differs[(method, pattern)] = (want, got)
+    assert differs == POOL_DIFFERS
+    # the task API and the node's health stay on `management`
+    for method, path in (("GET", "/_tasks"),
+                         ("POST", "/_tasks/n:1/_cancel"),
+                         ("GET", "/_cluster/health")):
+        assert port.pool_for(method, path) == "management"
+
+
+@pytest.mark.parametrize("route", sorted(REFUSED), ids=lambda r: " ".join(r))
+def test_refused_route_names_its_item(controllers, route):
+    _ref, port = controllers
+    method, pattern = route
+    status, out = port.dispatch(method, _example_path(pattern), {}, b"")
+    assert status == NotYetPortedException.status == 400
+    assert out["error"]["type"] == "not_yet_ported_exception"
+    assert f"ROADMAP {REFUSED[route]}" in out["error"]["reason"]
+
+
+def test_no_other_route_is_refused(controllers):
+    _ref, port = controllers
+    refused = set()
+    for method, rx, handler in port.routes:
+        name = getattr(handler, "__qualname__", "")
+        if name.startswith("_not_yet_ported"):
+            refused.add((method, port._pattern_of[rx]))
+    assert refused == set(REFUSED)
+
+
+@pytest.mark.parametrize("method,path", [
+    ("GET", "/_nope/deeper/still"), ("PATCH", "/"),
+    ("DELETE", "/_cluster/health")])
+def test_unknown_route_answers_the_reference_envelope(controllers, method,
+                                                      path):
+    ref, port = controllers
+    assert port.dispatch(method, path, {}, b"") == \
+        ref.dispatch(method, path, {}, b"")

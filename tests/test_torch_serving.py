@@ -206,10 +206,14 @@ def test_disabled_or_off_bypasses(node, setting):
 
 
 def test_env_switch_disables(monkeypatch):
+    from types import SimpleNamespace
+
+    from elasticsearch_tpu_torch.monitor.metrics import MetricsRegistry
     from elasticsearch_tpu_torch.serving.coalescer import QueryCoalescer
 
     monkeypatch.setenv("ESTPU_COALESCER", "0")
-    c = QueryCoalescer(node=None)
+    # the switch is read at construction: a stub node with a registry
+    c = QueryCoalescer(SimpleNamespace(metrics=MetricsRegistry()))
     assert not c.enabled
     c.apply_cluster_settings({"serving.coalescer.enabled": "true"})
     assert c.enabled
