@@ -146,9 +146,9 @@ Phases, in order; any failure exits non-zero before the result line:
             positions, every body against a CPU Node of the port on
             5i's 2^14-doc prefix; no B1-B4 launch on this path;
 5k. joins   joins and geo (``phase_joins_geo``, ROADMAP A9c), corpora
-            from seed 0: (a) Rally ``nested``'s shape, 2^18 questions
+            from seed 0: (a) Rally ``nested``'s shape, 2^17 questions
             with 0-6 nested answers (a Zipf user of 50,000, a date, a
-            score) in one block-join segment of about 2^20 docs loaded
+            score) in one block-join segment of about 2^19 docs loaded
             through ``segment_from_arrays`` with ``blocks``: the nested
             bool of a term on the user and a date range in score modes
             avg, sum, max and none, with inner_hits, a match on the
@@ -189,15 +189,15 @@ Phases, in order; any failure exits non-zero before the result line:
             Levenshtein DP over the vocabulary, bigrams from
             ``np.unique`` over consecutive tokens) and the bigram table
             built on the card equal to the oracle's; (b) completion on
-            Rally ``geonames``' shape, 2^18 places over five shards with
+            Rally ``geonames``' shape, 2^17 places over five shards with
             a population weight, a country category and a 100km geo
             context: prefixes of 1-4 characters, fuzzy 1, both contexts,
-            against a sorted Python list; (c) 2,000 registered queries
+            against a sorted Python list; (c) 1,000 registered queries
             (term, match, match_phrase, a bool with a range), 64 docs
             percolated one at a time and as one batch against a Python
             oracle over their tokens, a restriction, size, highlight and
             aggs, the breakers back at their bytes after; (d)
-            ``Node.bulk`` of 16,384 index, create, update and delete
+            ``Node.bulk`` of 8,192 index, create, update and delete
             items into five shards (~6% failing by design) item by item
             against a dict model, then mget, count, delete-by-query and
             update-by-query through ``run_by_query``, the totals after
@@ -296,6 +296,24 @@ Phases, in order; any failure exits non-zero before the result line:
             update-by-query on (a)'s index listed by ``GET /_tasks`` and
             stopped by ``_cancel``, ``estpu_rest_requests_total`` equal to
             the requests sent;
+5q. cluster the multi-node cluster (ROADMAP A10f): (a) three
+            ``python -m elasticsearch_tpu_torch.server --device cuda``
+            members with the multi-host flags, started together on the
+            one card (each its own CUDA context and an 8 GiB breaker
+            budget): one master, three nodes, the same term and state
+            version on each; (b) a 3-shard, 1-replica index of 2^12 of
+            5h's log docs, through ``_bulk`` to all three coordinators at
+            once (one client process each): docs/s and the transport's
+            bytes; (c) 64 match and bool bodies sent to each coordinator:
+            answers byte-equal across coordinators once ``took`` is
+            masked, equal to one in-process ``Node`` on the card holding
+            the same 3 shards and docs (ids, order, totals; scores at
+            B1's bf16 band), p50 and p99 against that node's, B1
+            launched in every member's process (its own
+            ``_nodes/stats``); (d) the master SIGKILLed while a survivor
+            streams ``_bulk``: the time to a new master at a bumped term,
+            every acknowledged doc found by count and 64 sampled ids by
+            GET, the survivors exit 0 on SIGTERM;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
@@ -4553,7 +4571,7 @@ def phase_scoring(torch, np, dev, card, node, pnodes, arrays, doc_len,
 # phase 5k: joins and geo (ROADMAP A9c)
 # ---------------------------------------------------------------------------
 
-JG_QUESTIONS = 1 << 18     # Rally nested's StackOverflow questions, cut
+JG_QUESTIONS = 1 << 17     # Rally nested's StackOverflow questions, cut
 JG_MAX_ANSWERS = 6         # 0-6 nested answers a question (PERF.md §4)
 JG_USERS = 50_000          # answers.user: Zipf(1.2) over these
 JG_TAGS = 100              # tag: Zipf(1.5) over these
@@ -5631,16 +5649,16 @@ def _jg_same_set(got, want, what):
 
 SG_VARIANTS = 8            # bodies of each suggest group, run in turn
 SG_WINDOW_S = 0.3          # timed requests per group: about this many
-CP_DOCS = 1 << 18          # (b): Rally geonames' places, cut from 11.4M
+CP_DOCS = 1 << 17          # (b): Rally geonames' places, cut from 11.4M
 CP_SHARDS = 5              # ES 2.0's default index.number_of_shards
 CP_COUNTRIES = 250         # country_code: Zipf(1.3) over these
 CP_GEO_PRECISION = "100km"  # the geo context's cells (geohash length 4)
-PC_QUERIES = 2000          # (c): registered queries, four shapes
+PC_QUERIES = 1000          # (c): registered queries, four shapes
 PC_DOCS = 64               # (c): docs percolated
 PC_WORDS = 60              # (c): the docs' vocabulary
 PC_OPT_DOCS = 2            # (c): docs each request option runs over
 PC_PROFILED = 2            # (c): one-doc percolates under the profiler
-WT_OPS = 16384             # (d): bulk items into five shards
+WT_OPS = 8192              # (d): bulk items into five shards
 WT_SHARDS = 5
 WT_MGET = 1000
 #: (c)'s vocabulary: standard-analyzed as they are
@@ -8366,6 +8384,430 @@ def phase_rest(torch, np, dev, card, sift, ivf_index, pq_parts, read_node,
     return b1, counts["b2"], counts["b3"]
 
 
+CL_MEMBERS = 3             # (a): launcher processes on the one card
+CL_SHARDS = 3              # (b): one primary and one replica a member
+CL_REPLICAS = 1
+CL_DOCS = 1 << 12          # (b): 5h's log recipe (cut from 2^16, PERF.md §6)
+CL_BULK = 4096             # (b): docs a _bulk request
+CL_BODIES = 64             # (c): match and bool bodies a coordinator
+CL_HEAD = 32               # (c): body terms from t0..t31, B1's dense rows
+CL_KILL_BULK = 64          # (d): docs a _bulk request while the master dies
+CL_KILL_REQS = 48          # (d): such requests, through one survivor
+CL_SAMPLED = 64            # (d): acknowledged ids read back by GET
+CL_HBM_BYTES = 8 << 30     # each member's ESTPU_HBM_BYTES: three fit the card
+CL_DEVICE = "cuda"
+CL_BOOT_S = 180.0          # (a): every member bound and joined
+CL_ELECT_S = 60.0          # (d): the survivors' new master
+CL_MAPPING = WP_MAPPING
+
+#: a bulk client in a process of its own: one keep-alive connection
+#: sends ``[path, ndjson]`` requests in order and writes, per request,
+#: its latency, status and the ids its items acknowledged; a line on
+#: stdout after each request lets the caller act mid-stream
+_CL_BULK = r"""
+import http.client, json, sys, time
+port, src, dst = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+with open(src) as f:
+    reqs = json.load(f)
+out, t0 = [], time.perf_counter()
+c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+for path, body in reqs:
+    t = time.perf_counter()
+    try:
+        c.request("POST", path, body=body,
+                  headers={"Content-Type": "application/x-ndjson"})
+        r = c.getresponse()
+        data = json.loads(r.read())
+        st = r.status
+    except Exception as e:
+        c.close()
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        st, data = 0, {"error": str(e)}
+    acked = [it[op]["_id"] for it in data.get("items", [])
+             for op in it if it[op].get("status") in (200, 201)]
+    out.append([time.perf_counter() - t, st, acked])
+    print(len(out), flush=True)
+c.close()
+with open(dst, "w") as f:
+    json.dump({"wall": time.perf_counter() - t0, "reqs": out}, f)
+"""
+
+
+def _cl_free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _cl_bulk_client(port, reqs, d, name):
+    """Start ``_CL_BULK`` over ``reqs`` [(path, ndjson)]; (process, the
+    file its answer lands in)."""
+    src, dst = os.path.join(d, f"{name}.in"), os.path.join(d, f"{name}.out")
+    with open(src, "w") as f:
+        json.dump(reqs, f)
+    proc = subprocess.Popen([sys.executable, "-c", _CL_BULK, str(port), src,
+                             dst], stdout=subprocess.PIPE, text=True)
+    return proc, dst
+
+
+def _cl_bulk_requests(docs, index, per):
+    return [("/_bulk", _nd(x for d, src in docs[i: i + per]
+                            for x in ({"index": {"_index": index,
+                                                 "_id": d}}, src)))
+            for i in range(0, len(docs), per)]
+
+
+def _cl_members(card):
+    """(a): the members, started together; [(process, http, role,
+    transport address, queue of (arrival, line) of its output)] once
+    each has joined and bound."""
+    import queue
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, ESTPU_HBM_BYTES=str(CL_HBM_BYTES),
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    rendezvous, transport = _cl_free_port(), _cl_free_port()
+    procs = []
+    for rank in range(CL_MEMBERS):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "elasticsearch_tpu_torch.server",
+             "--device", CL_DEVICE, "--port", "0", "--name",
+             f"member{rank}", "--coordinator", f"127.0.0.1:{rendezvous}",
+             "--num-processes", str(CL_MEMBERS), "--process-id", str(rank),
+             "--transport-port", str(transport)],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    members = []
+    try:
+        deadline = time.monotonic() + CL_BOOT_S
+        for proc in procs:
+            # every line the member prints, stamped on arrival: (d)
+            # reads its fault detection and election from them
+            q: "queue.Queue[tuple]" = queue.Queue()
+            threading.Thread(target=lambda p=proc, q=q: [
+                q.put((time.monotonic(), x)) for x in p.stdout],
+                daemon=True).start()
+            role = addr = port = None
+            seen = []
+            while port is None:
+                try:
+                    _, line = q.get(timeout=max(0.1,
+                                                deadline - time.monotonic()))
+                except queue.Empty:
+                    raise AssertionError(f"5q(a): a member did not join and "
+                                         f"bind in {CL_BOOT_S} s: {seen}")
+                seen.append(line.rstrip())
+                m = re.search(r"joined cluster as (\w+) .*transport "
+                              r"([\d.]+:\d+)", line)
+                if m:
+                    role, addr = m.group(1), m.group(2)
+                m = re.search(r"listening on http://127\.0\.0\.1:(\d+) "
+                              r"\(device (\S+)\)", line)
+                if m:
+                    port = int(m.group(1))
+                    _hold(m.group(2).startswith(CL_DEVICE),
+                          f"(a) a member serves from {m.group(2)}", "5q")
+            members.append((proc, _Rest(port), role, addr, q))
+    except BaseException:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        raise
+    return members
+
+
+def _cl_metric(http, family, label) -> float:
+    st, _, text = http("GET", "/_prometheus/metrics")
+    return sum(float(x.rsplit(" ", 1)[1]) for x in text.splitlines()
+               if x.startswith(family + "{") and label in x)
+
+
+def _cl_b1(http) -> dict:
+    """Each member's B1 launches, from its own ``_nodes/stats`` (one
+    coordinator's ``_nodes/stats`` merges the members' own answers)."""
+    st, _, ns = http("GET", "/_nodes/stats")
+    return {nid: x["indices"]["search"]["launches"]["bm25_dense_topk"]
+            for nid, x in ns["nodes"].items()}
+
+
+def _cl_same_ranking(got, want, body) -> float:
+    """The cluster's page against one node's deeper page of the same
+    body: the same score at every rank (at B1's bf16 band), and at each
+    rank an id from the node's group of docs with that exact score. Docs
+    tied on the score rank by their order within the shard, which is the
+    order they were indexed in: the cluster's three coordinators index
+    concurrently, so its ties may come in another order. Returns the
+    worst relative score difference."""
+    worst, i = 0.0, 0
+    _hold(len(got) <= len(want), f"(c) {len(got)} hits against "
+          f"{len(want)} for {body}", "5q")
+    for x, y in zip(got, want):
+        worst = max(worst, abs(x["_score"] - y["_score"])
+                    / abs(y["_score"]))
+    while i < len(got):
+        j = i
+        while j < len(want) and want[j]["_score"] == want[i]["_score"]:
+            j += 1
+        group = {y["_id"] for y in want[i:j]}
+        _hold({x["_id"] for x in got[i:j]} <= group,
+              f"(c) ranks {i}-{j - 1} of {body}: "
+              f"{[x['_id'] for x in got[i:j]]} not among {sorted(group)}",
+              "5q")
+        i = j
+    _hold(worst <= 2.0 ** -7, f"(c) score band {worst} for {body}", "5q")
+    return worst
+
+
+def _cl_bodies(np, seed):
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, CL_HEAD + 1) ** 1.1
+    p /= p.sum()
+    out = []
+    for i in range(CL_BODIES):
+        terms = " ".join(f"t{t}" for t in np.unique(
+            rng.choice(CL_HEAD, size=int(rng.integers(2, 5)), p=p)))
+        if i % 4 == 3:
+            lo = int(rng.integers(0, 500_000))
+            out.append({"query": {"bool": {
+                "must": [{"match": {"body": terms}}],
+                "filter": [{"range": {"n": {"gte": lo,
+                                            "lt": lo + 400_000}}}]}},
+                "size": 10})
+        else:
+            out.append({"query": {"match": {"body": terms}}, "size": 10})
+    return out
+
+
+def phase_cluster(torch, np, dev, card):
+    """Phase 5q (module docstring); returns the B1 launches of the three
+    members' processes over (c), read from their own ``_nodes/stats``,
+    and of this process's in-process node."""
+    import signal
+    import tempfile
+
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import bm25_topk
+
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    members = _cl_members(card)
+    boot_s = time.perf_counter() - t
+    try:
+        https = [m[1] for m in members]
+        roles = [m[2] for m in members]
+        _hold(roles == ["master"] + ["data"] * (CL_MEMBERS - 1),
+              f"(a) roles {roles}", "5q")
+        health = [h("GET", "/_cluster/health")[2] for h in https]
+        _hold(all(x["number_of_nodes"] == CL_MEMBERS and x["term"] == 1
+                  and x["master_node"] == health[0]["master_node"]
+                  and not x["no_master_block"] for x in health),
+              f"(a) health {health}", "5q")
+        st, _, _ = https[1]("PUT", "/cl", {"settings": {
+            "number_of_shards": CL_SHARDS,
+            "number_of_replicas": CL_REPLICAS}, "mappings": CL_MAPPING})
+        _hold(st == 200, f"(b) the create answered {st}", "5q")
+        versions = [h("GET", "/_cluster/state/version,master_node")[2]
+                    for h in https]
+        _hold(len({(v["version"], v["master_node"]) for v in versions}) == 1,
+              f"(a) state versions {versions}", "5q")
+
+        # (b) the bulk, one client process a coordinator, all at once
+        docs = wp_docs(np, CL_DOCS, SEED + 120)
+        tx0 = sum(_cl_metric(h, "estpu_transport_bytes_total", "tx")
+                  for h in https)
+        third = -(-CL_DOCS // CL_MEMBERS)
+        with tempfile.TemporaryDirectory() as d:
+            t = time.perf_counter()
+            clients = [_cl_bulk_client(
+                h.port, _cl_bulk_requests(
+                    docs[i * third: (i + 1) * third], "cl", CL_BULK), d,
+                f"b{i}") for i, h in enumerate(https)]
+            outs = []
+            for proc, dst in clients:
+                proc.stdout.read()
+                _hold(proc.wait(timeout=900) == 0, "(b) a bulk client "
+                      "failed", "5q")
+                with open(dst) as f:
+                    outs.append(json.load(f))
+            bulk_s = time.perf_counter() - t
+        acked = [x for o in outs for r in o["reqs"] for x in r[2]]
+        _hold(len(acked) == CL_DOCS and all(r[1] == 200 for o in outs
+                                            for r in o["reqs"]),
+              f"(b) {len(acked)} of {CL_DOCS} docs acknowledged", "5q")
+        t = time.perf_counter()
+        st, _, _ = https[0]("POST", "/cl/_refresh")
+        refresh_ms = (time.perf_counter() - t) * 1e3
+        tx = sum(_cl_metric(h, "estpu_transport_bytes_total", "tx")
+                 for h in https) - tx0
+        st, _, cnt = https[2]("POST", "/cl/_count", {"query": {
+            "match_all": {}}})
+        _hold(st == 200 and cnt["count"] == CL_DOCS,
+              f"(b) count {cnt}", "5q")
+
+        # (c) the same bodies to every coordinator, against one node
+        bodies = _cl_bodies(np, SEED + 121)
+        b1_before = _cl_b1(https[0])
+        raws, lat = [], []
+        for h in https:
+            got, ms = [], []
+            for b in bodies:
+                t = time.perf_counter()
+                st, raw, _ = h("POST", "/cl/_search", b)
+                ms.append((time.perf_counter() - t) * 1e3)
+                _hold(st == 200, f"(c) a search answered {st}", "5q")
+                got.append(_TOOK.sub(b'"took": 0', raw))
+            raws.append(got)
+            lat.append(np.asarray(ms))
+        b1_after = _cl_b1(https[0])
+        _hold(len(b1_after) == CL_MEMBERS, f"(c) _nodes/stats lists "
+              f"{sorted(b1_after)}", "5q")
+        b1_members = [b1_after[k] - b1_before[k] for k in sorted(b1_after)]
+        _hold(all(r == raws[0] for r in raws[1:]),
+              "(c) the coordinators' answers differ", "5q")
+        _hold(all(b > 0 for b in b1_members),
+              f"(c) B1 launches a member {b1_members}", "5q")
+        b1_self = bm25_topk.LAUNCHES
+        node = Node(name="cl-single", device=dev)
+        try:
+            node.create_index("cl", {"settings": {
+                "number_of_shards": CL_SHARDS, "number_of_replicas": 0},
+                "mappings": CL_MAPPING})
+            for i in range(0, CL_DOCS, CL_BULK):
+                node.bulk([x for d, src in docs[i: i + CL_BULK]
+                           for x in ({"index": {"_index": "cl", "_id": d}},
+                                     src)])
+            node.refresh("cl")
+            one_ms, worst = [], 0.0
+            for b, raw in zip(bodies, raws[0]):
+                t = time.perf_counter()
+                want = node.search("cl", dict(b))
+                torch.cuda.synchronize()
+                one_ms.append((time.perf_counter() - t) * 1e3)
+                # a deeper page of the same body: a tie across the
+                # page's end may rank either of its docs first
+                deep = node.search("cl", dict(b, size=b["size"] + 32))
+                got = json.loads(raw)
+                _hold(got["hits"]["total"] == want["hits"]["total"],
+                      f"(c) totals {got['hits']['total']} and "
+                      f"{want['hits']['total']} for {b}", "5q")
+                worst = max(worst, _cl_same_ranking(
+                    got["hits"]["hits"], deep["hits"]["hits"], b))
+        finally:
+            node.close()
+        b1_self = bm25_topk.LAUNCHES - b1_self
+        one_ms = np.asarray(one_ms)
+
+        # (d) the master killed while a survivor streams _bulk
+        kill_docs = wp_docs(np, CL_KILL_BULK * CL_KILL_REQS, SEED + 122,
+                            start=CL_DOCS)
+        old_master = health[0]["master_node"]
+        with tempfile.TemporaryDirectory() as d:
+            proc, dst = _cl_bulk_client(
+                https[1].port, _cl_bulk_requests(kill_docs, "cl",
+                                                 CL_KILL_BULK), d, "kill")
+            for _ in range(CL_KILL_REQS // 4):
+                proc.stdout.readline()
+            members[0][0].send_signal(signal.SIGKILL)
+            t = time.perf_counter()
+            t_kill = time.monotonic()
+            members[0][0].wait()
+            elect_s = None
+            while time.perf_counter() - t < CL_ELECT_S:
+                h = https[1]("GET", "/_cluster/health")[2]
+                if h["term"] >= 2 and h["master_node"] not in (
+                        None, old_master):
+                    elect_s = time.perf_counter() - t
+                    break
+                time.sleep(0.05)
+            _hold(elect_s is not None, f"(d) no new master in "
+                  f"{CL_ELECT_S} s: {h}", "5q")
+            proc.stdout.read()
+            _hold(proc.wait(timeout=600) == 0, "(d) the bulk client failed",
+                  "5q")
+            with open(dst) as f:
+                kill_out = json.load(f)
+        acked_d = [x for r in kill_out["reqs"] for x in r[2]]
+        # the survivors' own account, stamped on arrival: when each
+        # declared the master dead, when the election ended
+        events = []
+        for _, _, _, _, q in members[1:]:
+            while not q.empty():
+                at, line = q.get()
+                if re.search(r"failed fault detection|elected master|"
+                             r"stepping down", line):
+                    events.append(f"{at - t_kill:+.3f} s {line.strip()}")
+        survivors = https[1:]
+        health_d = [h("GET", "/_cluster/health")[2] for h in survivors]
+        _hold(all(x["term"] == health_d[0]["term"] >= 2
+                  and x["master_node"] == health_d[0]["master_node"]
+                  and x["number_of_nodes"] == CL_MEMBERS - 1
+                  for x in health_d), f"(d) survivors' health {health_d}",
+              "5q")
+        st, _, _ = survivors[0]("POST", "/cl/_refresh")
+        st, _, cnt = survivors[1]("POST", "/cl/_count", {"query": {
+            "match_all": {}}})
+        want_n = CL_DOCS + len(acked_d)
+        _hold(st == 200 and cnt["count"] == want_n,
+              f"(d) count {cnt} after {len(acked_d)} acknowledged of "
+              f"{len(kill_docs)}", "5q")
+        every = sorted(set(acked) | set(acked_d))
+        rng = np.random.default_rng(SEED + 123)
+        sample = sorted(rng.choice(every, CL_SAMPLED, replace=False))
+        src_of = dict(docs + kill_docs)
+        for doc_id in sample:
+            st, _, got = survivors[1]("GET", f"/cl/_doc/{doc_id}")
+            _hold(st == 200 and got["found"]
+                  and got["_source"] == src_of[doc_id],
+                  f"(d) GET of acknowledged id {doc_id} answered {st}",
+                  "5q")
+        t = time.perf_counter()
+        for proc, *_ in members[1:]:
+            proc.send_signal(signal.SIGTERM)
+        codes = [proc.wait(timeout=60) for proc, *_ in members[1:]]
+        stop_s = time.perf_counter() - t
+        _hold(codes == [0] * (CL_MEMBERS - 1), f"(d) SIGTERM: exits {codes}",
+              "5q")
+    finally:
+        for proc, *_ in members:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cl = np.concatenate(lat)
+    log(f"[5q] (a) {CL_MEMBERS} members of python -m "
+        f"elasticsearch_tpu_torch.server --device {CL_DEVICE} on {card} "
+        f"joined and bound in {boot_s:.3f} s: one master, "
+        f"{CL_MEMBERS} nodes, term 1 and state version "
+        f"{versions[0]['version']} on each")
+    log(f"[5q] (b) _bulk of {CL_DOCS} docs into {CL_SHARDS} shards x "
+        f"{1 + CL_REPLICAS} copies through {CL_MEMBERS} coordinators at "
+        f"once: {bulk_s:.3f} s ({CL_DOCS / bulk_s:.1f} docs/s), refresh "
+        f"{refresh_ms:.3f} ms; transport bytes sent {tx:.0f} "
+        f"({tx / CL_DOCS:.1f} a doc)")
+    log(f"[5q] (c) {CL_BODIES} match/bool bodies to each coordinator: "
+        f"byte-equal across the {CL_MEMBERS}, equal to one in-process node "
+        f"(ids, order, totals; worst score rel {worst:.3e}); p50/p99 "
+        f"{_pcts(np, cl)} over HTTP against {_pcts(np, one_ms)} in "
+        f"process on one node; B1 launches a member {b1_members} (their "
+        f"_nodes/stats), {b1_self} in the one node")
+    log(f"[5q] (d) master SIGKILLed after {CL_KILL_REQS // 4} of "
+        f"{CL_KILL_REQS} _bulk requests: a new master at term "
+        f"{health_d[0]['term']} in {elect_s:.3f} s; "
+        f"{len(acked_d)} of {len(kill_docs)} docs acknowledged, all "
+        f"{want_n} acknowledged docs counted and {CL_SAMPLED} sampled ids "
+        f"read back; SIGTERM to exit 0 in {stop_s:.3f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for e in events:
+        log(f"[5q] (d) after the SIGKILL: {e}")
+    return sum(b1_members) + b1_self
+
+
 def profile_read(torch, node, index, bodies, wall_ms, tag):
     """Device time of the same searches under torch.profiler, over the
     host time of the unprofiled run: the device's busy share."""
@@ -8844,6 +9286,8 @@ def main() -> int:
     launches["adc_scores"] += b3
     read_node.close()
     del sift, ivf_index, pq_parts, read_node
+    torch.cuda.empty_cache()
+    launches["bm25_dense_topk"] += phase_cluster(torch, np, dev, card)
     torch.cuda.empty_cache()
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card),
               "knn_topk": timing_knn(torch, dev, card),

@@ -1,12 +1,12 @@
 """Cluster state: nodes, index metadata, the routing table, templates.
 
-Port of the single-node part of elasticsearch_tpu/cluster/state.py: the
-index metadata (settings, mappings, aliases, open or closed), the index
-templates, one routing entry a shard, health, and the state's JSON that
-``GET /_cluster/state`` serves. The master's term and global blocks (the
-no-master write block), elections and publication come with the
-multi-node layer (ROADMAP A10f): one node is never re-elected and never
-headless, so its JSON carries term 0 and no blocks.
+Port of elasticsearch_tpu/cluster/state.py: the index metadata
+(settings, mappings, aliases, open or closed), the index templates, one
+routing entry a shard, health, and the state's JSON that ``GET
+/_cluster/state`` serves; with the cluster (cluster/bootstrap.py) the
+master's term, bumped by every quorum election, and the global blocks
+(the no-master write block). A master publishes versioned states:
+(term, version) orders them across master changes.
 """
 from __future__ import annotations
 
@@ -22,6 +22,19 @@ class DiscoveryNode:
     name: str
     transport_address: str = "local"
     roles: tuple = ("master", "data", "ingest")
+    attributes: dict = field(default_factory=dict)
+
+
+#: ES's NO_MASTER_BLOCK at write level (reference: DiscoverySettings
+#: .NO_MASTER_BLOCK_WRITES / NoMasterBlockService): with no elected
+#: master, metadata changes and document writes fail typed 503 while
+#: searches keep serving the last committed state.
+NO_MASTER_BLOCK = {
+    "id": 2,
+    "description": "no master",
+    "retryable": True,
+    "levels": ["write", "metadata_write"],
+}
 
 
 @dataclass
@@ -48,16 +61,39 @@ class ClusterState:
     def __init__(self, cluster_name: str = "elasticsearch_tpu"):
         self.cluster_name = cluster_name
         self.version = 0
+        # the master's era, bumped by every quorum election: publications
+        # of an older term are stale and rejected
+        self.term = 0
         self.state_uuid = uuid.uuid4().hex
         self.nodes: Dict[str, DiscoveryNode] = {}
         self.master_node_id: Optional[str] = None
         self.indices: Dict[str, IndexMetadata] = {}
         self.routing: List[ShardRouting] = []
         self.templates: Dict[str, dict] = {}
+        self.blocks: Dict[str, list] = {}
 
     def next_version(self) -> None:
         self.version += 1
         self.state_uuid = uuid.uuid4().hex
+
+    # -- global blocks -------------------------------------------------------
+
+    def add_global_block(self, block: dict) -> None:
+        blocks = self.blocks.setdefault("global", [])
+        if all(b.get("id") != block.get("id") for b in blocks):
+            blocks.append(dict(block))
+
+    def clear_global_block(self, block_id: int) -> None:
+        blocks = self.blocks.get("global")
+        if blocks:
+            blocks[:] = [b for b in blocks if b.get("id") != block_id]
+
+    def global_block(self, level: str) -> Optional[dict]:
+        """The first global block covering ``level``, or None."""
+        for b in self.blocks.get("global", []):
+            if level in b.get("levels", []):
+                return b
+        return None
 
     def add_node(self, node: DiscoveryNode, master: bool = False) -> None:
         self.nodes[node.node_id] = node
@@ -106,10 +142,10 @@ class ClusterState:
         return {
             "cluster_name": self.cluster_name,
             "version": self.version,
-            "term": 0,
+            "term": self.term,
             "state_uuid": self.state_uuid,
             "master_node": self.master_node_id,
-            "blocks": {},
+            "blocks": {k: list(v) for k, v in self.blocks.items() if v},
             "nodes": {
                 nid: {"name": n.name, "transport_address": n.transport_address,
                       "roles": list(n.roles)}

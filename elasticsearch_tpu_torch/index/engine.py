@@ -441,14 +441,16 @@ class Engine:
                scripted_upsert: bool = False,
                doc_type: Optional[str] = None, routing: Optional[str] = None,
                parent: Optional[str] = None, version: Optional[int] = None,
-               version_type: str = "internal") -> Tuple[int, bool]:
+               version_type: str = "internal",
+               primary_term: Optional[int] = None) -> Tuple[int, bool]:
         """Partial update (ES 2.0's update API): merge ``partial`` into the
         current source, or run ``script`` over it, then re-index; a missing
         doc is created from ``upsert`` (through the script when
         ``scripted_upsert``) or from ``partial`` when ``doc_as_upsert``.
         Only internal versioning applies, and a versioned update of a
-        missing doc is a conflict even with an upsert. Returns (version,
-        created)."""
+        missing doc is a conflict even with an upsert. ``primary_term``
+        (a cluster primary's published term) rides the re-index, so a
+        demoted primary's engine fences it. Returns (version, created)."""
         if version is not None and version_type != "internal":
             raise ActionRequestValidationException(
                 f"version type [{version_type}] is not supported by the "
@@ -465,11 +467,13 @@ class Engine:
                         up = self._run_update_script(
                             script, script_params or {}, up)
                     _, v, _ = self.index(doc_id, up, doc_type=doc_type,
-                                         routing=routing, parent=parent)
+                                         routing=routing, parent=parent,
+                                         primary_term=primary_term)
                     return v, True
                 if doc_as_upsert and partial is not None:
                     _, v, _ = self.index(doc_id, partial, doc_type=doc_type,
-                                         routing=routing, parent=parent)
+                                         routing=routing, parent=parent,
+                                         primary_term=primary_term)
                     return v, True
                 raise DocumentMissingException("", doc_id)
             if version is not None and got["_version"] != version:
@@ -488,7 +492,8 @@ class Engine:
                 doc_id, source,
                 routing=loc.routing if loc and loc.routing else routing,
                 doc_type=loc.doc_type if loc else doc_type,
-                parent=loc.parent if loc and loc.parent else parent)
+                parent=loc.parent if loc and loc.parent else parent,
+                primary_term=primary_term)
             return v, False
 
     def _run_update_script(self, script: str, params: dict,

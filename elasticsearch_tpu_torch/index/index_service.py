@@ -60,7 +60,9 @@ restart the replicas re-sync from the recovered primaries
 (``recover_peer``). Refresh, flush and force merge reach every copy (the
 reference flushes and merges only the primaries: ROADMAP C17). The
 reference's internal ``_local_replicas`` setting is popped, never
-echoed, and ignored: the port has no cluster members that set it.
+echoed: a cluster member (cluster/search_action.py) sets it to 0, since
+its replicas are copies held by other members, while
+``number_of_replicas`` still reports the declared count.
 """
 from __future__ import annotations
 
@@ -127,9 +129,12 @@ class IndexService:
         idx_settings = self.settings.get("index", self.settings)
         self.num_shards = int(idx_settings.get("number_of_shards", 1))
         self.num_replicas = int(idx_settings.get("number_of_replicas", 0))
-        # the reference's marker for copies held by other cluster members;
+        # the cluster's marker: replicas are copies held by other members,
+        # so this process holds ``_local_replicas`` in-process copies;
         # popped so it never leaks into the settings echo
-        idx_settings.pop("_local_replicas", None)
+        local = idx_settings.pop("_local_replicas", None)
+        self.local_replicas = (int(local) if local is not None
+                               else self.num_replicas)
         self.analysis = AnalysisRegistry(self.settings)
         # search and indexing slow logs, thresholds read from the live
         # settings on every record
@@ -152,7 +157,7 @@ class IndexService:
         # from its primary by peer recovery)
         self.groups: List[ReplicationGroup] = [
             ReplicationGroup(i, primary, [
-                self._new_copy(i) for _ in range(self.num_replicas)])
+                self._new_copy(i) for _ in range(self.local_replicas)])
             for i, primary in enumerate(self.shards)]
         self._mesh_executor: Optional[MeshSearchExecutor] = None
         self._query_cache: "OrderedDict[Tuple, dict]" = OrderedDict()
@@ -210,6 +215,48 @@ class IndexService:
         # the old primary is read no more: its cached mesh data goes
         self._drop_retired()
         return new_primary
+
+    def replay_op(self, shard_ord: int, d: dict) -> None:
+        """Apply one op of a cluster recovery stream (a doc or a
+        tombstone with its recorded version, seq no and term) to shard
+        ``shard_ord`` at engine level, with the percolator registry kept
+        in step, all under the engine lock, so a racing fan-out write can
+        neither leave a stale registration nor lose one. Version
+        conflicts propagate: the caller counts them as newer-state
+        skips."""
+        engine = self.shards[shard_ord].engine
+        with engine._lock:
+            loc = engine._locations.get(d["id"])
+            was_perc = (loc is not None and not loc.deleted
+                        and loc.doc_type == PERCOLATOR_TYPE)
+            if d.get("deleted"):
+                # _history: a recovery stream replays recorded identity;
+                # ops below the copy's term are catch-up, not a zombie
+                engine.delete(d["id"], version=d["version"],
+                              version_type="external_gte",
+                              seq_no=d.get("seq_no"),
+                              primary_term=d.get("term"), _history=True)
+            else:
+                engine.index(d["id"], d["source"], version=d["version"],
+                             version_type="external_gte",
+                             doc_type=d.get("type"),
+                             parent=d.get("parent"),
+                             routing=d.get("routing"),
+                             ttl_expiry=d.get("ttl_expiry"),
+                             timestamp=d.get("timestamp"),
+                             seq_no=d.get("seq_no"),
+                             primary_term=d.get("term"),
+                             _replay=True, _history=True)
+            now = engine._locations.get(d["id"])
+            is_perc = (now is not None and not now.deleted
+                       and now.doc_type == PERCOLATOR_TYPE)
+            if is_perc:
+                try:
+                    self.percolator.register(d["id"], d["source"])
+                except Exception:
+                    pass  # a query that no longer parses stays out
+            elif was_perc:
+                self.percolator.unregister(d["id"])
 
     def _register_recovered_percolators(self) -> None:
         """Rebuild the percolator registry from the replayed docs; a doc
@@ -306,13 +353,24 @@ class IndexService:
                                           str(doc_id))
 
     def get_doc(self, doc_id: str, routing: Optional[str] = None,
-                realtime: bool = True) -> dict:
+                realtime: bool = True, with_meta: bool = False) -> dict:
+        """``with_meta``: the doc's location meta rides the answer
+        (``_meta``: routing, parent, timestamp, ttl expiry) for a
+        cluster coordinator, which cannot read a remote shard's table."""
         check_open(self, op="read")
-        got = self.route(doc_id, routing).engine.get(doc_id, realtime=realtime)
+        shard = self.route(doc_id, routing)
+        got = shard.engine.get(doc_id, realtime=realtime)
         if got is None:
             return {"_index": self.name, "_type": "_doc", "_id": doc_id,
                     "found": False}
         got["_index"] = self.name
+        if with_meta:
+            loc = shard.engine._locations.get(str(doc_id))
+            if loc is not None:
+                got["_meta"] = {"routing": loc.routing,
+                                "parent": loc.parent,
+                                "timestamp": loc.timestamp,
+                                "ttl_expiry": loc.ttl_expiry}
         return got
 
     def delete_doc(self, doc_id: str, routing: Optional[str] = None,

@@ -42,6 +42,21 @@ class RecoveryRegistry:
     def __init__(self, max_entries: int = 64):
         self._lock = threading.Lock()
         self._entries: "deque[dict]" = deque(maxlen=max_entries)
+        # streams this node serves as a cluster recovery source
+        self._source_active = 0
+
+    def source_started(self) -> None:
+        with self._lock:
+            self._source_active += 1
+
+    def source_finished(self) -> None:
+        with self._lock:
+            self._source_active = max(0, self._source_active - 1)
+
+    @property
+    def source_active(self) -> int:
+        with self._lock:
+            return self._source_active
 
     def start(self, shard: int, rtype: str, source: str = "local",
               target: str = "local") -> dict:

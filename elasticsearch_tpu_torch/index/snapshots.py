@@ -389,9 +389,14 @@ def _local_shards_meta(repo: FsRepository, svc) -> dict:
 
 def create_snapshot(node, repo: FsRepository, snap_name: str,
                     indices: Optional[List[str]] = None,
-                    include_global_state: bool = True) -> dict:
+                    include_global_state: bool = True,
+                    shards_fn=None) -> dict:
     """Write a snapshot of ``indices`` (None: every index; an explicit
-    empty list matches nothing) and its manifest."""
+    empty list matches nothing) and its manifest. ``shards_fn(iname,
+    svc)`` gives an index's shard entries (``{"shards", "failed",
+    "settings"}``, settings optional); the default writes every local
+    shard, the cluster's fans each shard out to its primary owner
+    (cluster/search_action.py)."""
     if snap_name in repo.catalog():
         raise SnapshotException(
             f"snapshot [{repo.name}:{snap_name}] already exists")
@@ -406,11 +411,13 @@ def create_snapshot(node, repo: FsRepository, snap_name: str,
         svc = node.indices.get(iname)
         if svc is None:
             raise SnapshotException(f"index [{iname}] not found")
-        entry = _local_shards_meta(repo, svc)
+        entry = (shards_fn(iname, svc) if shards_fn
+                 else _local_shards_meta(repo, svc))
         total += len(entry["shards"])
         failed += entry["failed"]
         manifest["indices"][iname] = {
-            "settings": svc.settings, "mappings": svc.mappings.to_json(),
+            "settings": entry.get("settings") or svc.settings,
+            "mappings": svc.mappings.to_json(),
             "aliases": svc.aliases, "shards": entry["shards"]}
     if include_global_state:
         manifest["global_state"] = {
@@ -431,11 +438,13 @@ def select_restore_targets(node, manifest: dict,
                            indices: Optional[List[str]],
                            rename_pattern: Optional[str],
                            rename_replacement: Optional[str],
-                           partial: bool) -> List[tuple]:
+                           partial: bool, exists=None) -> List[tuple]:
     """Resolve and validate every (source, target, index meta) before any
     index is touched: a name collision, two indices renamed onto one
     target, failed shards without ``partial`` or an analysis config that
-    does not build fail the whole restore up front."""
+    does not build fail the whole restore up front. ``exists(target)``
+    adds names the node holds elsewhere (the cluster's distributed
+    indices)."""
     from elasticsearch_tpu_torch.analysis.registry import AnalysisRegistry
 
     selected: List[tuple] = []
@@ -446,7 +455,8 @@ def select_restore_targets(node, manifest: dict,
         target = iname
         if rename_pattern and rename_replacement is not None:
             target = re.sub(rename_pattern, rename_replacement, iname)
-        if target in node.indices:
+        if target in node.indices or (exists is not None
+                                      and exists(target)):
             raise SnapshotException(
                 f"cannot restore index [{target}]: an open index with that "
                 f"name already exists (close or delete it first)")

@@ -46,8 +46,8 @@ and the exposition are the reference's. ``process_counters`` reads the
 port's kernel counters and, since the port's breakers and residency
 registry belong to each node, the given node's. The
 reference's ``jit``, program, compile-cache and flight-recorder families
-have no source in the port yet (the compile/warm layer and the
-multi-node layer, ROADMAP A11 and A10f): they are absent, never zero.
+have no source in the port yet (the compile/warm layer and the flight
+recorder, ROADMAP A11 and A10g): they are absent, never zero.
 """
 from __future__ import annotations
 

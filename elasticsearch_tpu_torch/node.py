@@ -62,8 +62,11 @@ versions. ``nodes_stats`` adds their ``thread_pool``, ``tasks``,
 ``metrics`` and ``serving`` sections, the dispatch counters under
 ``indices.search.kernels`` and the kernels' launches under
 ``indices.search.launches``. The reference's ``programs`` section comes
-with the compile/warm layer (ROADMAP A11); ``flight``, ``watchdog`` and
-``transport`` with the multi-node layer (A10f).
+with the compile/warm layer (ROADMAP A11); ``flight`` and ``watchdog``
+with A10g. A member of a cluster (``node.multihost``,
+``cluster/bootstrap.py``) routes the writes, searches, index deletes and
+alias changes of a distributed index through the cluster's data plane,
+and ``nodes_stats`` carries its ``transport`` address.
 """
 from __future__ import annotations
 
@@ -154,6 +157,9 @@ class Node:
         self._thread_pool = None
         self._tp_lock = threading.Lock()
         self._ivf_dir = None
+        # the cluster this node is a member of (cluster/bootstrap.py's
+        # MultiHostCluster sets it); None for a node on its own
+        self.multihost = None
         if data_path:
             # the blob cache's disk layer must be in place before the
             # replay freezes segments, or recovery pays the k-means again
@@ -348,13 +354,23 @@ class Node:
         found = self.resolve_indices(name)
         if not found:
             raise IndexNotFoundException(name)
+        mh = self.multihost
         for n in found:
-            self.indices.pop(n).close()
-            self.cluster_state.remove_index(n)
-            if self.data_path:
-                shutil.rmtree(os.path.join(self.data_path, n),
-                              ignore_errors=True)
+            if mh is not None and n in mh.dist_indices:
+                # cluster-wide: dropped from the published metadata, so
+                # the members remove their copies (a local delete would
+                # come back with the next publish)
+                mh.data.delete_index(n)
+            else:
+                self._delete_local_index(n)
         return {"acknowledged": True}
+
+    def _delete_local_index(self, n: str) -> None:
+        self.indices.pop(n).close()
+        self.cluster_state.remove_index(n)
+        if self.data_path:
+            shutil.rmtree(os.path.join(self.data_path, n),
+                          ignore_errors=True)
 
     def index_exists(self, name: str) -> bool:
         return name in self.indices or bool(self._alias_targets(name))
@@ -385,7 +401,39 @@ class Node:
     def update_aliases(self, actions: List[dict]) -> dict:
         """``add`` and ``remove`` actions (``index``/``indices``,
         ``alias``, ``filter``, ``routing``, ``index_routing``,
-        ``search_routing``)."""
+        ``search_routing``). In a cluster, aliases of a distributed index
+        are cluster state: a member forwards those actions to the master,
+        which folds them into the published metadata."""
+        mh = self.multihost
+        if mh is not None:
+            # metadata: a headless node refuses up front (typed 503)
+            mh.ensure_not_blocked("metadata_write")
+            if not mh.is_master:
+                # split per index: the expressions resolve here, each
+                # name becomes a single-index action, and only the
+                # distributed ones go to the master
+                fwd: List[dict] = []
+                local: List[dict] = []
+                for action in actions:
+                    for op, spec in action.items():
+                        for nm in (self.resolve_indices(
+                                spec.get("index", spec.get("indices")))
+                                or []):
+                            single = {k: v for k, v in spec.items()
+                                      if k not in ("index", "indices")}
+                            single["index"] = nm
+                            (fwd if nm in mh.dist_indices
+                             else local).append({op: single})
+                if fwd:
+                    from elasticsearch_tpu_torch.cluster.search_action \
+                        import ACTION_ALIASES
+
+                    mh.transport.send_remote(
+                        mh.master_addr, ACTION_ALIASES, {"actions": fwd})
+                    actions = local
+                    if not actions:
+                        return {"acknowledged": True}
+        touched: List[str] = []
         for action in actions:
             for op, spec in action.items():
                 if op not in ("add", "remove"):
@@ -401,7 +449,36 @@ class Node:
                     else:
                         self.indices[n].aliases.pop(alias, None)
                     self._persist_index_meta(n)
+                    touched.append(n)
+        if mh is not None and mh.is_master:
+            self._publish_aliases(mh, [n for n in touched
+                                       if n in mh.dist_indices])
         return {"acknowledged": True}
+
+    def _publish_aliases(self, mh, names: List[str]) -> None:
+        """The master folds the alias maps of distributed indices into
+        the published metadata (members replace theirs with it, so a
+        removal spreads); a publish without quorum restores both halves
+        and fails typed."""
+        if not names:
+            return
+        with mh._indices_lock:
+            prior = {n: dict(mh.dist_indices[n].get("aliases") or {})
+                     for n in names}
+            for n in names:
+                mh.dist_indices[n]["aliases"] = dict(self.indices[n].aliases)
+        try:
+            mh.publish_indices()
+        except Exception:
+            with mh._indices_lock:
+                for n, aliases in prior.items():
+                    if n in mh.dist_indices:
+                        mh.dist_indices[n]["aliases"] = dict(aliases)
+                    if n in self.indices:
+                        self.indices[n].aliases = dict(aliases)
+                        self._persist_index_meta(n)
+                mh._persist_dist_meta()
+            raise
 
     def put_template(self, name: str, body: dict,
                      create: bool = False) -> dict:
@@ -475,9 +552,9 @@ class Node:
         ``status`` and ``error``; ``errors`` says whether any item
         failed. A child routes by its ``parent`` unless it names a
         routing; ``_timestamp`` and ``_ttl`` in the action line feed those
-        meta fields, as in ES 2.0's bulk. (The reference's branch for an
-        index spread over hosts has no counterpart here: the port's
-        indices live on one node.)"""
+        meta fields, as in ES 2.0's bulk. In a cluster, an item of a
+        distributed index goes to its shard's primary owner
+        (``cluster/search_action.py``, ES's shard-bulk routing)."""
         items = []
         errors = False
         i = 0
@@ -494,10 +571,17 @@ class Node:
             routing = meta.get("routing", meta.get("_routing")) or parent
             doc_type = meta.get("_type")
             try:
-                svc = self.get_or_autocreate(index_name)
-                if routing is None and index_name not in self.indices:
-                    routing = svc.aliases.get(index_name, {}).get(
-                        "index_routing")
+                mh = self.multihost
+                data = (mh.data if mh is not None
+                        and index_name in mh.dist_indices else None)
+                # a distributed index's data plane takes the index first
+                args = (index_name,) if data is not None else ()
+                svc = data
+                if data is None:
+                    svc = self.get_or_autocreate(index_name)
+                    if routing is None and index_name not in self.indices:
+                        routing = svc.aliases.get(index_name, {}).get(
+                            "index_routing")
                 if op in ("index", "create"):
                     kw = {}
                     if doc_type and doc_type != "_doc":
@@ -508,14 +592,15 @@ class Node:
                         v = meta.get(f"_{key}", meta.get(key))
                         if v is not None:
                             kw[key] = v
-                    r = svc.index_doc(doc_id, source, routing=routing,
-                                      op_type=op, **kw)
+                    r = svc.index_doc(*args, doc_id, source,
+                                      routing=routing, op_type=op, **kw)
                     status = 201 if r.get("created") else 200
                 elif op == "update":
-                    r = svc.update_doc(doc_id, source, routing=routing)
+                    r = svc.update_doc(*args, doc_id, source,
+                                       routing=routing)
                     status = 200
                 elif op == "delete":
-                    r = svc.delete_doc(doc_id, routing=routing)
+                    r = svc.delete_doc(*args, doc_id, routing=routing)
                     status = 200
                 else:
                     raise ElasticsearchTpuException(f"unknown bulk op [{op}]")
@@ -640,7 +725,14 @@ class Node:
                preference: Optional[str] = None) -> dict:
         """``preference`` picks the copy of each shard read: ``_primary``,
         ``_replica``, or by default the next copy in turn (one pick per
-        shard and request)."""
+        shard and request). In a cluster, a distributed index (by name
+        or alias, or as the only open index of ``_all``) scatters over
+        its members (``cluster/search_action.py``)."""
+        mh = self.multihost
+        if mh is not None:
+            dist = self._dist_search_target(mh, index)
+            if dist is not None:
+                return mh.data.search(dist, body or {})
         plan = self._search_plan(index)
         if not plan and index not in (None, "", "_all", "*"):
             raise IndexNotFoundException(str(index))
@@ -711,6 +803,29 @@ class Node:
                 body["suggest"])
         return resp
 
+    def _dist_search_target(self, mh, index: Optional[str]
+                            ) -> Optional[str]:
+        """The distributed index a search names, or None to search
+        locally. The all-indices spelling rides the data plane too when
+        it means one distributed index (a local search would see only
+        this member's shards); several, or one beside local indices, is
+        refused."""
+        if index not in (None, "", "_all", "*"):
+            rname = mh.data.resolve_index(index)
+            return rname if rname in mh.dist_indices else None
+        open_names = [nm for nm in self.resolve_indices(index)
+                      if not self.indices[nm].closed]
+        dist = [nm for nm in open_names if nm in mh.dist_indices]
+        if len(dist) == 1 and len(open_names) == 1:
+            return dist[0]
+        if dist:
+            raise IllegalArgumentException(
+                "all-indices search over multiple (or mixed "
+                "local/distributed) indices is not supported in "
+                "coordinator mode; name one index (distributed "
+                f"here: {sorted(dist)})")
+        return None
+
     def msearch(self, pairs: List[Tuple[dict, dict]],
                 preference: Optional[str] = None) -> dict:
         """``_msearch`` over (header, body) pairs. When every header names
@@ -732,9 +847,14 @@ class Node:
                 except ElasticsearchTpuException:
                     plan = []
                 # one concrete index batches; anything else runs through
-                # the sequential search below
+                # the sequential search below, and so does a distributed
+                # index, whose local service holds only this member's
+                # shards (each item scatters through the data plane)
+                mh = self.multihost
                 svc = self.indices[plan[0][0]] \
                     if len(plan) == 1 and plan[0][1:] == (None, None) \
+                    and not (mh is not None
+                             and plan[0][0] in mh.dist_indices) \
                     else None
                 out = None
                 if svc is not None:
@@ -773,8 +893,9 @@ class Node:
         dispatch counters (``monitor/kernels.py``), with the mesh's
         fallback gauges beside them, and ``indices.search.launches``
         each hand-written kernel's launches in this process. The
-        reference's ``programs`` section comes with ROADMAP A11;
-        ``flight``, ``watchdog`` and ``transport`` with A10f."""
+        ``transport`` gives the node's transport address (a cluster
+        member's TCP endpoint). The reference's ``programs`` section comes
+        with ROADMAP A11; ``flight`` and ``watchdog`` with A10g."""
         search = {k: 0 for k in SearchStats().to_json()}
         indexing = {"index_total": 0, "delete_total": 0,
                     "index_time_in_millis": 0}
@@ -837,8 +958,19 @@ class Node:
                 "serving": self.serving.stats(),
                 "slowlog": aggregate_slowlog(self.indices.values()),
                 "accelerator": device_stats(self.device),
+                "transport": self._transport_info(),
             }},
         }
+
+    def _transport_info(self) -> dict:
+        """The transport section (ES's TransportInfo): the bound and
+        publish address, and no profiles (a netty notion; a member has
+        one binding)."""
+        addr = "local[in-process]"
+        if self.multihost is not None:
+            addr = self.multihost.local.transport_address or addr
+        return {"bound_address": [addr], "publish_address": addr,
+                "profiles": {}}
 
     def info(self) -> dict:
         """The node's info (the reference's ``Node.info``); ``devices``

@@ -12,16 +12,20 @@ heavy work is the kernels on the card), a route table of (method,
 compiled regex) → handler, each request run on the named thread pool its
 route belongs to, and ES-shaped JSON error envelopes.
 
-This is the single-node front door. Every route the reference registers
-is registered here. Nine answer a typed ``not_yet_ported_exception``
-naming the ROADMAP item that brings them, never a partial answer: the
-program observatory and the pre-warm pipeline (``/_nodes/_local/xla/
-programs``, ``/_cat/programs``, the three ``_warmup`` routes; ROADMAP
-A11) and the flight recorder's incident surface (``/_nodes/_local/
-flight``, ``/_cat/incidents``, ``/_cluster/diagnostics`` and its
-incident route; A10f). The reference's multi-host branches (a node
-joined to a cluster of processes, ``node.multihost``) come with the
-multi-node layer, A10f.
+Every route the reference registers is registered here. Nine answer a
+typed ``not_yet_ported_exception`` naming the ROADMAP item that brings
+them, never a partial answer: the program observatory and the pre-warm
+pipeline (``/_nodes/_local/xla/programs``, ``/_cat/programs``, the three
+``_warmup`` routes; ROADMAP A11) and the flight recorder's incident
+surface (``/_nodes/_local/flight``, ``/_cat/incidents``,
+``/_cluster/diagnostics`` and its incident route; A10g). On a node that
+is a cluster member (``node.multihost``, cluster/bootstrap.py), the
+routes of a distributed index go through the cluster's data plane
+(``_mh``/``_mh_for``), and the node-level views (``_nodes``, ``_tasks``,
+``_cat/shards``, ``_cat/segments``, ``_cluster/stats``, the pending
+tasks) merge every member's own answer, fetched over the transport's
+REST proxy (``ACTION_REST_PROXY``; ``_local_only`` pins a proxied
+request to the member that receives it).
 """
 from __future__ import annotations
 
@@ -295,11 +299,11 @@ def _register_all(rc: RestController):
     # /_nodes/{nodeid} patterns so the literal path wins
     add("GET", "/_nodes/_local/xla/programs",
         _not_yet_ported("the device-program observatory", "A11"))
-    # flight recorder + watchdog + incident surface (ROADMAP A10f):
+    # flight recorder + watchdog + incident surface (ROADMAP A10g):
     # per-node black box, cluster-wide support bundle, cat listing of
     # captured incidents
     add("GET", "/_nodes/_local/flight",
-        _not_yet_ported("the flight recorder", "A10f"))
+        _not_yet_ported("the flight recorder", "A10g"))
     # pre-warm pipeline (ROADMAP A11): manual census-replay trigger +
     # status
     add("POST", "/_warmup", _not_yet_ported("the pre-warm pipeline", "A11"))
@@ -307,11 +311,11 @@ def _register_all(rc: RestController):
     add("POST", "/{index}/_warmup",
         _not_yet_ported("the pre-warm pipeline", "A11"))
     add("GET", "/_cat/incidents",
-        _not_yet_ported("the flight recorder's incidents", "A10f"))
+        _not_yet_ported("the flight recorder's incidents", "A10g"))
     add("GET", "/_cluster/diagnostics",
-        _not_yet_ported("the cluster diagnostics bundle", "A10f"))
+        _not_yet_ported("the cluster diagnostics bundle", "A10g"))
     add("GET", "/_cluster/diagnostics/incidents/{incident_id}",
-        _not_yet_ported("the flight recorder's incidents", "A10f"))
+        _not_yet_ported("the flight recorder's incidents", "A10g"))
     # continuous metrics scrape (text exposition format 0.0.4): the node
     # registry + the process-shared families (monitor/metrics.py)
     add("GET", "/_prometheus/metrics", _prometheus_metrics)
@@ -850,6 +854,14 @@ def _put_snapshot(n: Node, p, b, repo: str, snap: str):
         indices = [name for pat in indices for name in n.resolve_indices(pat)]
     r = _repo_or_404(n, repo)
     _reject_readonly_repo(r)
+    c = _mh(n)
+    if c is not None:
+        # each shard's owner writes its own blobs into the shared
+        # repository; the master assembles the manifest
+        return 200, c.data.create_snapshot(
+            r.location, snap, indices=indices,
+            include_global_state=body.get("include_global_state", True),
+            repo_name=repo)
     return 200, create_snapshot(
         n, r, snap, indices=indices,
         include_global_state=body.get("include_global_state", True))
@@ -888,6 +900,16 @@ def _restore_snapshot(n: Node, p, b, repo: str, snap: str):
     if isinstance(indices, str):
         indices = [i for part in indices.split(",") if (i := part.strip())]
     r = _repo_or_404(n, repo)
+    c = _mh(n)
+    if c is not None:
+        # the master computes a fresh assignment over the members, then
+        # every assigned copy replays from the repository
+        return 200, c.data.restore_snapshot(
+            r.location, snap, indices=indices,
+            rename_pattern=body.get("rename_pattern"),
+            rename_replacement=body.get("rename_replacement"),
+            partial=bool(body.get("partial", False)),
+            repo_name=repo)
     return 200, restore_snapshot(
         n, r, snap, indices=indices,
         rename_pattern=body.get("rename_pattern"),
@@ -906,20 +928,68 @@ def _prometheus_metrics(n: Node, p, b):
 
 
 def _cluster_stats(n: Node, p, b):
-    """GET /_cluster/stats: this node's indices and nodes sections
-    (reference: TransportClusterStatsAction, which merges every member's
-    part; one node here, ROADMAP A10f brings the merge of more)."""
+    """GET /_cluster/stats (reference: TransportClusterStatsAction): in a
+    cluster, every member's part over the REST proxy (each answers its
+    own under ``_local_only``), merged; a dead member counts in
+    ``_nodes.failed`` and the answer stays 200."""
+    local = _local_cluster_stats(n)
+    c = _mh(n)
+    if c is not None and "_local_only" in p:
+        # a proxied member's part: raw, ``_index_names`` kept for the
+        # coordinator's union
+        return 200, local
+    parts = [local]
+    failed = 0
+    if c is not None:
+        from elasticsearch_tpu_torch.cluster.search_action import \
+            ACTION_REST_PROXY
+
+        for nid in c.data._other_nodes():
+            try:
+                res = c.data._send(nid, ACTION_REST_PROXY, {
+                    "method": "GET", "path": "/_cluster/stats",
+                    "params": {}})
+                if res.get("status") == 200 and res.get("payload"):
+                    parts.append(res["payload"])
+                else:
+                    failed += 1
+            except Exception:
+                failed += 1
+    out = _merge_cluster_stats(parts, failed=failed)
+    out["cluster_name"] = n.cluster_state.cluster_name
+    out["timestamp"] = int(time.time() * 1000)
+    try:
+        out["status"] = _cluster_health(n, {"_local_only": "1"}, b"")[1][
+            "status"]
+    except Exception:
+        out["status"] = "green"
+    return 200, out
+
+
+def _local_cluster_stats(n: Node) -> dict:
+    """This node's part of ``/_cluster/stats``. ``_index_names`` is for
+    the merge, which strips it: every member holds an IndexService for a
+    distributed index, so a per-node count would multiply it."""
     docs = 0
     store = seg_count = seg_mem = 0
     fd_mem = fd_ev = 0
     shards_total = primaries = 0
-    for svc in n.indices.values():
+    c = _mh(n)
+    for name, svc in n.indices.items():
+        # a distributed index's local groups hold this member's copies,
+        # primaries of other members' shards among them: its docs count
+        # only where this member owns the primary (ROADMAP C23; the
+        # reference counts every copy)
+        dmeta = c.dist_indices.get(name) if c is not None else None
         for g in svc.groups:
             primaries += 1
+            owns = dmeta is None or (
+                dmeta["assignment"].get(str(g.shard_id)) or [None]
+            )[0] == n.node_id
             for shard in g.copies:
                 st = shard.stats()
                 shards_total += 1
-                if shard is g.primary:
+                if shard is g.primary and owns:
                     # docs count PRIMARIES only (reference:
                     # ClusterStatsIndices — replica copies hold the same
                     # documents; counting them would inflate by the
@@ -948,8 +1018,9 @@ def _cluster_stats(n: Node, p, b):
     # the reference's nodes.jit section counts jit traces: the port's
     # compile/warm layer (ROADMAP A11) has no such count yet, so the
     # section is absent, not zero
-    out = {
+    return {
         "cluster_name": n.cluster_state.cluster_name,
+        "_index_names": sorted(n.indices),
         "indices": {
             "count": len(n.indices),
             "shards": {"total": shards_total, "primaries": primaries},
@@ -961,6 +1032,7 @@ def _cluster_stats(n: Node, p, b):
         },
         "nodes": {
             "count": {"total": 1},
+            "versions": [__version__],
             "process": {
                 "mem": {
                     "resident_in_bytes": proc["mem"]["resident_in_bytes"]},
@@ -969,15 +1041,36 @@ def _cluster_stats(n: Node, p, b):
             },
             "thread_pool": tp,
             "breakers": {"tripped": tripped},
-            "versions": [__version__],
         },
-        "timestamp": int(time.time() * 1000),
     }
-    try:
-        out["status"] = _cluster_health(n, {}, b"")[1]["status"]
-    except Exception:
-        out["status"] = "green"
-    return 200, out
+
+
+def _merge_cluster_stats(parts: List[dict], failed: int = 0) -> dict:
+    """Merge the members' parts (reference: ClusterStatsResponse over
+    ClusterStatsNodeResponses): index names union, numbers sum, versions
+    union, the fd min/max/avg combine; ``_nodes`` when a member failed."""
+    names: set = set()
+    versions: List[str] = []
+    for pt in parts:
+        names.update(pt.pop("_index_names", ()))
+        for v in pt["nodes"].pop("versions", ()):
+            if v not in versions:
+                versions.append(v)
+    fds = [pt["nodes"]["process"].pop("open_file_descriptors")
+           for pt in parts]
+    out = _sum_stats(parts)
+    out["indices"]["count"] = len(names)
+    out["nodes"]["versions"] = versions
+    good = [f for f in fds if f.get("min", -1) >= 0]
+    out["nodes"]["process"]["open_file_descriptors"] = {
+        "min": min((f["min"] for f in good), default=-1),
+        "max": max((f["max"] for f in good), default=-1),
+        "avg": (sum(f["avg"] for f in good) // len(good)) if good else -1,
+    }
+    if failed:
+        out["_nodes"] = {"total": len(parts) + failed,
+                         "successful": len(parts), "failed": failed}
+    return out
 
 
 def _sum_stats(dicts):
@@ -1297,12 +1390,37 @@ def _cat_master(n: Node, p, b):
                   "node": m.name or m.node_id}]
 
 
+def _peer_shard_counts(n: Node, c) -> Dict[str, Dict[tuple, tuple]]:
+    """{node_id: {(index, shard): (docs, store)}} from each peer's LOCAL
+    cat-shards rows (the `_local_only` pin makes peers report their own
+    engines) — one round per request, shared by the shard rows."""
+    from elasticsearch_tpu_torch.cluster.search_action import \
+        ACTION_REST_PROXY
+
+    out: Dict[str, Dict[tuple, tuple]] = {}
+    for nid in c.data._other_nodes():
+        try:
+            res = c.data._send(nid, ACTION_REST_PROXY, {
+                "method": "GET", "path": "/_cat/shards",
+                "params": {"format": "json"}, "body": ""})
+        except Exception:
+            continue
+        if res["status"] != 200 or not isinstance(res["payload"], list):
+            continue
+        out[nid] = {(row["index"], row["shard"]):
+                    (row.get("docs", "0"), row.get("store", "0b"))
+                    for row in res["payload"]
+                    if row.get("prirep") == "p"}
+    return out
+
+
 def _cat_shards(n: Node, p, b, index: Optional[str] = None):
     """One row per shard COPY (primary + each replica), RestShardsAction
     columns; in-process replicas report STARTED on this node (they are
     real copies here, where a one-node reference cluster shows them
     UNASSIGNED — both shapes are legal cat output)."""
     scope = set(_cat_scope(n, index))
+    c = _mh(n)
     rows = []
     for iname, svc in n.indices.items():
         if iname not in scope:
@@ -1310,6 +1428,51 @@ def _cat_shards(n: Node, p, b, index: Optional[str] = None):
         idx_settings = svc.settings.get("index", svc.settings)
         shadow = str(idx_settings.get("shadow_replicas", "false")
                      ).lower() in ("true", "1")
+        dmeta = (c.dist_indices.get(iname)
+                 if c is not None and not p.get("_local_only") else None)
+        if dmeta is not None:
+            # distributed: rows come from the published assignment —
+            # one per copy, on its owning NODE; declared replicas with
+            # no surviving copy print UNASSIGNED (RoutingTable shape).
+            # docs/store come from the copy's OWNER (the coordinator's
+            # local engine is empty for remote-owned shards)
+            node_names = {nid: dn.name for nid, dn
+                          in n.cluster_state.nodes.items()}
+            init = dmeta.get("initializing", {})
+            peer_counts = _peer_shard_counts(n, c)
+            local_id = c.data._local_id()
+            for sid in range(dmeta["num_shards"]):
+                owners = dmeta["assignment"].get(str(sid), [])
+                pending = init.get(str(sid), [])
+                want = 1 + int(dmeta.get("replicas", 0))
+                for i in range(max(want, len(owners) + len(pending))):
+                    if i < len(owners):
+                        nid = owners[i]
+                        state = "STARTED"
+                    elif i < len(owners) + len(pending):
+                        nid = pending[i - len(owners)]
+                        state = "INITIALIZING"
+                    else:
+                        nid, state = None, "UNASSIGNED"
+                    row = {"index": iname, "shard": str(sid),
+                           "prirep": ("p" if i == 0
+                                      else "s" if shadow else "r"),
+                           "state": state}
+                    if state == "UNASSIGNED":
+                        row.update(docs="", store="", ip="", node="")
+                    else:
+                        if nid == local_id:
+                            docs = str(svc.shards[sid].engine.num_docs)
+                            store = _human_size(sum(
+                                seg.memory_bytes()
+                                for seg in svc.shards[sid].segments))
+                        else:
+                            docs, store = peer_counts.get(nid, {}).get(
+                                (iname, str(sid)), ("0", "0b"))
+                        row.update(docs=docs, store=store, ip="127.0.0.1",
+                                   node=node_names.get(nid, nid or ""))
+                    rows.append(row)
+            continue
         for g in svc.groups:
             for copy in g.copies:
                 docs = copy.engine.num_docs
@@ -1402,6 +1565,34 @@ def _cat_allocation(n: Node, p, b, nodeid: Optional[str] = None):
     import shutil
 
     nid = nodeid or p.get("node_id")
+    c = _mh(n)
+    if c is not None and "_local_only" not in p:
+        # multi-host: one row per member with its copy count, HBM bytes
+        # over the breakers' capacity, and watermark state — the same
+        # usage fan the allocator's deciders read, so the table an
+        # operator sees IS the signal placement runs on (drain runbook:
+        # a draining node's `shards` column reaching 0 means kill-safe)
+        alloc = c.allocator
+        rows = []
+        for node_id in sorted(c.node.cluster_state.nodes):
+            dn = c.node.cluster_state.nodes[node_id]
+            if nid and nid not in ("_master", "_local", "_all", "*",
+                                   node_id, dn.name):
+                continue
+            r = alloc._probe(node_id) or {}
+            used = int(r.get("hbm_used", 0))
+            cap = int(r.get("hbm_capacity", 0))
+            rows.append({
+                "shards": str(r.get("shards", 0)),
+                "hbm.used": _human_size(used),
+                "hbm.total": _human_size(cap),
+                "hbm.percent": str(int(used * 100 / cap)) if cap else "-",
+                "watermark": alloc.watermark_level(node_id),
+                "draining": str(alloc.filter.excludes(dn)).lower(),
+                "host": dn.transport_address, "ip": dn.transport_address,
+                "node": dn.name or node_id, "node_id": node_id,
+            })
+        return 200, rows
     if nid and nid not in ("_master", "_local", "_all", "*",
                            n.node_id, n.name):
         return 200, []  # no such node: empty table, like the reference
@@ -1446,6 +1637,23 @@ def _cat_segments(n: Node, p, b, index: Optional[str] = None):
                         "committed": "true", "searchable": "true",
                         "version": "0.1.0", "compound": "false",
                     })
+    c = _mh(n)
+    if c is not None and not p.get("_local_only"):
+        # segments live where the DOCS live: union every peer's local
+        # rows (a dist index's remote-owned shards have no local segments)
+        from elasticsearch_tpu_torch.cluster.search_action import \
+            ACTION_REST_PROXY
+
+        path = "/_cat/segments" + (f"/{index}" if index else "")
+        for nid in c.data._other_nodes():
+            try:
+                res = c.data._send(nid, ACTION_REST_PROXY, {
+                    "method": "GET", "path": path,
+                    "params": {"format": "json"}, "body": ""})
+            except Exception:
+                continue
+            if res["status"] == 200 and isinstance(res["payload"], list):
+                rows.extend(res["payload"])
     return 200, rows
 
 
@@ -1550,8 +1758,13 @@ def _close_index(n: Node, p, b, index: str):
     names = n.resolve_indices(index)
     if not names:
         raise IndexNotFoundException(index)
+    c = _mh(n)
     for nm in names:
         close_index(n, nm)
+        if c is not None and nm in c.dist_indices:
+            # closed-ness is cluster state: peers adopt it on publish, so
+            # a search scattered to shard owners is refused everywhere
+            c.data.set_closed(nm, True)
     return 200, {"acknowledged": True}
 
 
@@ -1561,8 +1774,11 @@ def _open_index(n: Node, p, b, index: str):
     names = n.resolve_indices(index)
     if not names:
         raise IndexNotFoundException(index)
+    c = _mh(n)
     for nm in names:
         open_index(n, nm)
+        if c is not None and nm in c.dist_indices:
+            c.data.set_closed(nm, False)
     # the reference queues the re-opened index's census replay here; the
     # pre-warm pipeline comes with ROADMAP A11
     return 200, {"acknowledged": True}
@@ -1637,7 +1853,11 @@ def _get_alias(n: Node, p, b, alias: str):
 def _refresh(n: Node, p, b, index: str):
     names = _resolve_indices_options(n, index, p)
     for name in names:
-        n.indices[name].refresh()
+        data = _mh_for(n, name)
+        if data is not None:
+            data.refresh(name)  # refreshes every process's copies
+        else:
+            n.indices[name].refresh()
     return 200, {"_shards": _shards_header(n, names)}
 
 
@@ -1682,7 +1902,15 @@ def _count_with_body(n: Node, index: Optional[str], body: dict):
     total = 0
     nshards = 0
     for name in svc_names:
-        total += n.indices[name].count(body)["count"]
+        data = _mh_for(n, name)
+        if data is not None:
+            # cross-host count = a size-0 scatter/gather round
+            r = data.search(name, {"query": body.get("query",
+                                                     {"match_all": {}}),
+                                   "size": 0})
+            total += r["hits"]["total"]
+        else:
+            total += n.indices[name].count(body)["count"]
         nshards += n.indices[name].num_shards
     return 200, {"count": total, "_shards": {"total": nshards,
                                              "successful": nshards,
@@ -1762,24 +1990,41 @@ def _split_task_id(task_id: str):
     return node_id, int(num)
 
 
-#: the reference's transport address of a node outside a multi-host
-#: world (the transport itself comes with ROADMAP A10f)
-_TRANSPORT_ADDRESS = "local[in-process]"
-
-
 def _local_tasks_entry(n: Node, p) -> dict:
     tasks = {t.tagged_id: t.to_json()
              for t in n.tasks.list_tasks(actions=p.get("actions"))}
     return {n.node_id: {
         "name": n.name,
-        "transport_address": _TRANSPORT_ADDRESS,
+        "transport_address": n._transport_info()["publish_address"],
         "tasks": tasks}}
 
 
 def _tasks_list(n: Node, p, b):
-    """GET /_tasks (RestListTasksAction): the node's in-flight tasks,
-    optionally filtered by ``actions`` patterns."""
-    return 200, {"nodes": _local_tasks_entry(n, p)}
+    """GET /_tasks (RestListTasksAction): every node's in-flight tasks.
+    Multi-host fans through the REST proxy (each member reports its own
+    registry); a dead peer lands in ``node_failures``, never silently
+    missing — its tasks are exactly what an operator hunting a runaway
+    delete-by-query needs to see."""
+    out: Dict[str, Any] = {"nodes": _local_tasks_entry(n, p)}
+    mh = _mh(n)
+    if mh is not None and "_local_only" not in p:
+        from elasticsearch_tpu_torch.cluster.search_action import \
+            ACTION_REST_PROXY
+
+        failures = []
+        params = {k: p[k] for k in ("actions",) if k in p}
+        for nid in mh.data._other_nodes():
+            try:
+                res = mh.data._send(nid, ACTION_REST_PROXY, {
+                    "method": "GET", "path": "/_tasks", "params": params})
+                if res.get("status") == 200:
+                    out["nodes"].update(
+                        (res.get("payload") or {}).get("nodes", {}))
+            except Exception as e:
+                failures.append({"node_id": nid, "reason": str(e)})
+        if failures:
+            out["node_failures"] = failures
+    return 200, out
 
 
 def _task_get(n: Node, p, b, task_id: str):
@@ -1794,6 +2039,15 @@ def _task_get(n: Node, p, b, task_id: str):
                 f"task [{task_id}] isn't running and hasn't stored its "
                 "results")
         return 200, {"completed": False, "task": t.to_json()}
+    mh = _mh(n)
+    if mh is not None and "_local_only" not in p \
+            and node_id in n.cluster_state.nodes:
+        from elasticsearch_tpu_torch.cluster.search_action import \
+            ACTION_REST_PROXY
+
+        res = mh.data._send(node_id, ACTION_REST_PROXY, {
+            "method": "GET", "path": f"/_tasks/{task_id}", "params": {}})
+        return res["status"], res["payload"]
     # not a member (typo'd or departed node): 404, never a generic 500
     # from an unresolvable transport address
     raise ResourceNotFoundException(
@@ -1802,8 +2056,11 @@ def _task_get(n: Node, p, b, task_id: str):
 
 def _task_cancel(n: Node, p, b, task_id: str):
     """POST /_tasks/{id}/_cancel (RestCancelTasksAction): cancel the task
-    and its local descendants (remote children come with ROADMAP A10f)."""
+    AND its descendants — local children directly, remote children via
+    the parent-id fanout (cluster/search_action.py::cancel_task_children),
+    so cancelling a coordinator by-query stops the remote shard scans."""
     node_id, num = _split_task_id(task_id)
+    mh = _mh(n)
     if node_id in ("", "_local", n.node_id):
         reason = "by user request"
         cancelled = n.tasks.cancel(num, reason)  # 404s when absent
@@ -1812,7 +2069,23 @@ def _task_cancel(n: Node, p, b, task_id: str):
             out["nodes"][n.node_id] = {
                 "name": n.name,
                 "tasks": {t.tagged_id: t.to_json() for t in cancelled}}
+        if mh is not None:
+            remote = mh.data.cancel_task_children(n.node_id, num, reason)
+            out["nodes"].update(remote.get("nodes", {}))
+            if remote.get("node_failures"):
+                out["node_failures"] = remote["node_failures"]
         return 200, out
+    if mh is not None and "_local_only" not in p \
+            and node_id in n.cluster_state.nodes:
+        from elasticsearch_tpu_torch.cluster.search_action import \
+            ACTION_REST_PROXY
+
+        # the task lives on another member: relay — the owner cancels
+        # locally and runs the child fanout itself
+        res = mh.data._send(node_id, ACTION_REST_PROXY, {
+            "method": "POST", "path": f"/_tasks/{task_id}/_cancel",
+            "params": {}})
+        return res["status"], res["payload"]
     from elasticsearch_tpu_torch.tracing.tasks import ResourceNotFoundException
 
     # not a member (typo'd or departed node): 404, never a generic 500
@@ -1850,10 +2123,27 @@ def _cat_tasks(n: Node, p, b):
 
 
 def _all_pending_tasks(n: Node, p) -> List[dict]:
-    """The pending set: the node's registered-but-not-running tasks (a
-    parked coalescer request among them). The reference adds every
-    member's; that comes with ROADMAP A10f."""
-    return list(n.tasks.pending_tasks())
+    """Cluster-wide pending set: the local registry plus every member's
+    (recovery streams queue on whichever member scheduled them, so a
+    local-only view would show 0 to an operator polling a different
+    node). Best-effort like nodes_fan — a dead peer's queue is
+    unknowable and simply absent."""
+    rows = list(n.tasks.pending_tasks())
+    mh = _mh(n)
+    if mh is not None and "_local_only" not in p:
+        from elasticsearch_tpu_torch.cluster.search_action import \
+            ACTION_REST_PROXY
+
+        for nid in mh.data._other_nodes():
+            try:
+                res = mh.data._send(nid, ACTION_REST_PROXY, {
+                    "method": "GET", "path": "/_cluster/pending_tasks",
+                    "params": {}})
+            except Exception:
+                continue  # unreachable peer: its queue stays absent
+            if res.get("status") == 200:
+                rows.extend((res.get("payload") or {}).get("tasks", []))
+    return rows
 
 
 def _cluster_pending_tasks(n: Node, p, b):
@@ -1883,13 +2173,47 @@ def _node_trace(n: Node, p, b):
 # -- document handlers --------------------------------------------------------
 
 def _nodes_info(n: Node, p, b, **_sel):
-    """/_nodes[/...]: the node's own view (reference:
-    TransportNodesInfoAction, one node here). Node-id and metric
-    selectors are accepted and return the full view."""
+    """/_nodes[/...] — single node returns its own view; in a multi-host
+    world the coordinator merges every member's self-reported entry
+    (reference: TransportNodesInfoAction). `_local_only` (set by the
+    cross-host REST proxy) pins to this process to prevent re-fanning.
+    Node-id/metric selectors are accepted and return the full view, the
+    same single-node simplification the scoped stats routes make."""
+    mh = _mh(n)
+    if mh is not None and "_local_only" not in p:
+        return 200, mh.data.nodes_fan()
     return 200, n.nodes_stats()
 
 
+def _mh(n: Node):
+    """The cluster this node is a member of (cluster/bootstrap.py sets
+    ``node.multihost``), or None. REST operations on distributed indices
+    route through its data plane: writes land on the shard owners'
+    processes and searches scatter over the members."""
+    return n.multihost
+
+
+def _mh_for(n: Node, index: Optional[str]):
+    """The data service IF `index` names (or aliases) a distributed
+    index — an alias-named request must ride the cross-host data plane,
+    not fall to the node-local path with only local shards."""
+    c = _mh(n)
+    if c is not None and index is not None \
+            and c.data.resolve_index(index) in c.dist_indices:
+        return c.data
+    return None
+
+
 def _create_index(n: Node, p, b, index: str):
+    c = _mh(n)
+    if c is not None:
+        # multi-host world: every create goes through the master so the
+        # shard→node assignment is computed once and published; the wire
+        # result's assignment map stays internal — clients get the
+        # standard create envelope
+        c.data.create_index(index, _json(b))
+        return 200, {"acknowledged": True, "shards_acknowledged": True,
+                     "index": index}
     return 200, n.create_index(index, _json(b))
 
 
@@ -1917,6 +2241,14 @@ def _index_kw(p, doc_type: Optional[str]) -> dict:
 
 def _index_doc(n: Node, p, b, index: str, id: str, doc_type: Optional[str] = None):
     kw = _index_kw(p, doc_type)
+    data = _mh_for(n, index)
+    if data is not None:
+        r = data.index_doc(index, id, _json(b),
+                           routing=p.get("routing") or p.get("parent"),
+                           **kw)
+        if _refresh_requested(p):
+            data.refresh(index)
+        return (201 if r.get("created") else 200), r
     svc = n.get_or_autocreate(index)
     r = svc.index_doc(id, _json(b), routing=p.get("routing") or p.get("parent"), **kw)
     if _refresh_requested(p):
@@ -1925,6 +2257,13 @@ def _index_doc(n: Node, p, b, index: str, id: str, doc_type: Optional[str] = Non
 
 
 def _index_doc_auto(n: Node, p, b, index: str):
+    data = _mh_for(n, index)
+    if data is not None:
+        r = data.index_doc(index, None, _json(b),
+                           routing=p.get("routing"))
+        if _refresh_requested(p):
+            data.refresh(index)
+        return 201, r
     svc = n.get_or_autocreate(index)
     r = svc.index_doc(None, _json(b), routing=p.get("routing"))
     if _refresh_requested(p):
@@ -1933,6 +2272,10 @@ def _index_doc_auto(n: Node, p, b, index: str):
 
 
 def _create_doc(n: Node, p, b, index: str, id: str):
+    data = _mh_for(n, index)
+    if data is not None:
+        return 201, data.index_doc(index, id, _json(b), op_type="create",
+                                   routing=p.get("routing"))
     svc = n.get_or_autocreate(index)
     r = svc.index_doc(id, _json(b), op_type="create", routing=p.get("routing"))
     return 201, r
@@ -2013,20 +2356,47 @@ def _delete_doc_typed(n: Node, p, b, index: str, type: str, id: str):
 def _realtime_kw(n, p, index: str) -> dict:
     """GET-API realtime/refresh params: realtime=false reads only
     refreshed state; refresh=true refreshes first (GetRequest.realtime/
-    refresh)."""
+    refresh). refresh on a distributed index refreshes CLUSTER-wide."""
     if str(p.get("refresh", "false")).lower() in ("", "true", "1"):
-        n.get_index(index).refresh()
+        data = _mh_for(n, index)
+        if data is not None:
+            data.refresh(index)
+        else:
+            n.get_index(index).refresh()
     rt = str(p.get("realtime", "true")).lower() not in ("false", "0")
     return {"realtime": rt}
+
+
+def _loc_from_meta(meta):
+    """A location-shaped view over the `_meta` dict a cross-host get
+    attaches (the coordinator can't reach a remote shard's table)."""
+    if not meta:
+        return None
+    from types import SimpleNamespace
+
+    return SimpleNamespace(routing=meta.get("routing"),
+                           parent=meta.get("parent"),
+                           timestamp=meta.get("timestamp"),
+                           ttl_expiry=meta.get("ttl_expiry"))
 
 
 def _get_doc(n: Node, p, b, index: str, id: str):
     from elasticsearch_tpu_torch.search.service import _filter_source
 
-    svc = n.get_index(index)
-    r = svc.get_doc(id, routing=p.get("routing") or p.get("parent"),
-                    **_realtime_kw(n, p, index))
-    loc = svc.route(id, p.get("routing")).engine._locations.get(str(id))
+    data = _mh_for(n, index)
+    if data is not None:
+        # cross-host routed read, then the SAME response shaping as the
+        # local path; location meta (routing/parent/timestamp/ttl) rides
+        # the response so the fields extraction below works for remote docs
+        r = data.get_doc(index, id,
+                         routing=p.get("routing") or p.get("parent"),
+                         with_meta=True, **_realtime_kw(n, p, index))
+        loc = _loc_from_meta(r.pop("_meta", None))
+    else:
+        svc = n.get_index(index)
+        r = svc.get_doc(id, routing=p.get("routing") or p.get("parent"),
+                        **_realtime_kw(n, p, index))
+        loc = svc.route(id, p.get("routing")).engine._locations.get(str(id))
     if not r.get("found"):
         return 404, r
     if "version" in p and p.get("version_type") != "force" \
@@ -2131,6 +2501,14 @@ def _delete_doc(n: Node, p, b, index: str, id: str):
     if "version" in p:  # optimistic concurrency, like the index route
         kw["version"] = int(p["version"])
         kw["version_type"] = p.get("version_type", "internal")
+    data = _mh_for(n, index)
+    if data is not None:
+        r = data.delete_doc(index, id,
+                            routing=p.get("routing") or p.get("parent"),
+                            **kw)
+        if _refresh_requested(p):
+            data.refresh(index)
+        return 200, r
     svc = n.get_index(index)
     r = svc.delete_doc(id, routing=p.get("routing") or p.get("parent"), **kw)
     if _refresh_requested(p):
@@ -2180,6 +2558,19 @@ def _update_doc(n: Node, p, b, index: str, id: str,
             env["fields"] = fl
         return env
 
+    data = _mh_for(n, index)
+    if data is not None:
+        # routed to the primary owner: the partial update's merge reads
+        # the current source there
+        r = data.update_doc(index, id, body,
+                            routing=p.get("routing") or p.get("parent"),
+                            doc_type=doc_type, **kw)
+        if fields:
+            r["get"] = _get_env(data.get_doc(
+                index, id, routing=p.get("routing") or p.get("parent")))
+        if _refresh_requested(p):
+            data.refresh(index)
+        return 200, r
     svc = n.get_or_autocreate(index)
     r = svc.update_doc(id, body,
                        routing=p.get("routing") or p.get("parent"),
@@ -2194,6 +2585,11 @@ def _update_doc(n: Node, p, b, index: str, id: str,
 def _delete_by_query(n: Node, p, b, index: str):
     from elasticsearch_tpu_torch.search.byquery import failure_entry, run_by_query
 
+    data = _mh_for(n, index)
+    if data is not None:
+        # distributed index: each primary owner scans + deletes its own
+        # shards' docs, replicas follow through the write hop
+        return 200, data.by_query(index, _json(b), "delete")
     svc = n.get_index(index)
     svc.refresh()
     body = _json(b)
@@ -2234,6 +2630,11 @@ def _update_by_query(n: Node, p, b, index: str):
     from elasticsearch_tpu_torch.search.byquery import failure_entry, run_by_query
 
     body = _json(b)
+    data = _mh_for(n, index)
+    if data is not None:
+        return 200, data.by_query(index, body, "update",
+                                  script=body.get("script"),
+                                  params=body.get("params"))
     svc = n.get_index(index)
     svc.refresh()
     script = body.get("script")
@@ -2314,8 +2715,14 @@ def _mget_one(n: Node, spec: dict, default_index: Optional[str], p) -> dict:
     # mget driver, never per doc (a dist refresh fans to every peer)
     rt_kw = {"realtime":
              str(p.get("realtime", "true")).lower() not in ("false", "0")}
-    got = svc.get_doc(doc_id, routing=rt, **rt_kw)
-    rloc = svc.route(doc_id, rt).engine._locations.get(doc_id)
+    data = _mh_for(n, svc.name)
+    if data is not None:
+        got = data.get_doc(svc.name, doc_id, routing=rt, with_meta=True,
+                           **rt_kw)
+        rloc = _loc_from_meta(got.pop("_meta", None))
+    else:
+        got = svc.get_doc(doc_id, routing=rt, **rt_kw)
+        rloc = svc.route(doc_id, rt).engine._locations.get(doc_id)
     got["_index"] = svc.name  # concrete index, even via an alias
     got["_id"] = doc_id
     if (got.get("found") and want_type not in (None, "_all", "_doc")
@@ -2417,8 +2824,15 @@ def _bulk(n: Node, p, b, index: Optional[str] = None,
                         meta.setdefault("_type", doc_type)
     r = n.bulk(ops)
     if _refresh_requested(p):
-        for svc in n.indices.values():
-            svc.refresh()
+        for name, svc in list(n.indices.items()):
+            # a distributed index refreshes on every member, or the docs
+            # its other members own stay invisible (ROADMAP C24; the
+            # reference refreshes this member's copies only)
+            data = _mh_for(n, name)
+            if data is not None:
+                data.refresh(name)
+            else:
+                svc.refresh()
     return 200, r
 
 
@@ -2502,6 +2916,12 @@ def _with_type_filter(body: dict, type: Optional[str]) -> dict:
 
 
 def _search(n: Node, p, b, index: str):
+    data = _mh_for(n, index)
+    if data is not None:
+        # distributed index: scatter the query phase to shard-owner
+        # processes, merge, fetch (cluster/search_action.py — registers
+        # its own coordinator task + root span)
+        return 200, data.search(index, _search_body(p, b))
     with n.tasks.task("indices:data/read/search",
                       description=f"indices[{index}]"):
         with n.tracer.span("search", index=index):
@@ -2510,6 +2930,10 @@ def _search(n: Node, p, b, index: str):
 
 
 def _search_typed(n: Node, p, b, index: str, type: str):
+    data = _mh_for(n, index)
+    if data is not None:
+        return 200, data.search(index,
+                                _with_type_filter(_search_body(p, b), type))
     return 200, n.search(index, _with_type_filter(_search_body(p, b), type),
                          preference=p.get("preference"))
 
@@ -2647,9 +3071,31 @@ def _validate_query(n: Node, p, b, index: str):
         return 200, {"valid": False}
 
 
+def _forward_doc_op(n: Node, index: str, doc_id, p, b, segment: str):
+    """Forward a doc-level op (explain / termvectors) to the doc's
+    primary owner; None → serve locally. The `_local_only` param pins a
+    PROXIED request to the receiving node — without it, divergent
+    ownership views during a reassignment window would re-forward the
+    request in an unbounded ping-pong between nodes."""
+    if p.get("_local_only"):
+        return None
+    data = _mh_for(n, index)
+    if data is None:
+        return None
+    from urllib.parse import quote
+
+    return data.proxy_doc_rest(
+        index, str(doc_id), p.get("routing"), "POST",
+        f"/{quote(index, safe='')}/{segment}/{quote(str(doc_id), safe='')}",
+        p, b)
+
+
 def _explain(n: Node, p, b, index: str, id: str):
     """Per-doc score explanation (RestExplainAction): run the query on the
     owning segment and report the doc's score + matched state."""
+    fwd = _forward_doc_op(n, index, id, p, b, "_explain")
+    if fwd is not None:
+        return fwd
     import numpy as np
 
     from elasticsearch_tpu_torch.search.context import SegmentContext
@@ -2839,7 +3285,91 @@ def _delete_warmer(n: Node, p, b, index: str, name: str):
     return 200, {"acknowledged": True}
 
 
+def _dist_percolate(n: Node, c, index: str, type: str, body: dict):
+    """Percolate on a distributed index: registered .percolator queries
+    are hash-routed docs, fanned to each PRIMARY owner and merged with
+    per-query-id dedup — replica fanout copies a registration onto
+    replica holders' registries too, so without the dedup (and the
+    primary-owner targeting) the same query would match once per copy.
+    Aggs-under-percolate run as a DISTRIBUTED search over the matched
+    registration docs after the fan (ids filter + size 0), so partials
+    reduce through the same query-then-fetch agg machinery as any other
+    search — per-node FINAL aggs never need merging."""
+    import json as _json_mod
+    from urllib.parse import quote
+
+    from elasticsearch_tpu_torch.cluster.search_action import \
+        ACTION_REST_PROXY
+
+    aggs_spec = body.get("aggs") or body.get("aggregations")
+    # owners must not compute (and discard) local FINAL aggs, and must not
+    # truncate their match pages — "total", and the aggs below, are over
+    # ALL matches; the coordinator applies size itself after the merge
+    fan_body = {k: v for k, v in body.items()
+                if k not in ("aggs", "aggregations", "size")}
+    rname = c.data.resolve_index(index)
+    meta = c.data._meta(rname)
+    by_owner: Dict[str, int] = {}
+    failed_shards = 0
+    for sid in range(meta["num_shards"]):
+        owners = meta["assignment"][str(sid)]
+        if owners:
+            by_owner[owners[0]] = by_owner.get(owners[0], 0) + 1
+        else:
+            failed_shards += 1
+    req = {"method": "POST",
+           "path": (f"/{quote(index, safe='')}/"
+                    f"{quote(type, safe='')}/_percolate"),
+           "params": {}, "body": _json_mod.dumps(fan_body)}
+    matches: list = []
+    seen_ids: set = set()
+    for owner, n_shards in sorted(by_owner.items()):
+        try:
+            if owner == c.data._local_id():
+                res = c.data._on_rest_proxy(dict(req))
+            else:
+                res = c.data._send(owner, ACTION_REST_PROXY, dict(req))
+        except Exception:
+            failed_shards += n_shards
+            continue
+        if res["status"] != 200:
+            failed_shards += n_shards
+            continue
+        for m in res["payload"].get("matches", []):
+            key = (m.get("_index"), m.get("_id"))
+            if key not in seen_ids:
+                seen_ids.add(key)
+                matches.append(m)
+    total = len(matches)
+    size = body.get("size")
+    full_ids = [m.get("_id") for m in matches]
+    if size is not None:
+        matches = matches[: int(size)]
+    total_shards = meta["num_shards"]
+    out = {"took": 0,
+           "_shards": {"total": total_shards,
+                       "successful": total_shards - failed_shards,
+                       "failed": failed_shards},
+           "total": total, "matches": matches}
+    if aggs_spec is not None:
+        from elasticsearch_tpu_torch.search.percolator import PERCOLATOR_TYPE
+
+        # same semantics as IndexService.percolate: aggregate over ALL
+        # matched registrations' metadata (not the size-truncated page),
+        # via the distributed search's shard-partial agg reduce
+        r = c.data.search(index, {"query": {"bool": {"filter": [
+            {"term": {"_type": PERCOLATOR_TYPE}},
+            {"ids": {"values": full_ids}}]}},
+            "size": 0, "aggs": aggs_spec})
+        out["aggregations"] = r.get("aggregations", {})
+    return 200, out
+
+
 def _percolate(n: Node, p, b, index: str, type: str):
+    c = _mh(n)
+    if c is not None and not p.get("_local_only") \
+            and c.data.resolve_index(index) in c.dist_indices:
+        return _dist_percolate(n, c, index, type, _json(b))
     svc = n.get_index(index)
     return 200, svc.percolate(_json(b))
 
@@ -2850,8 +3380,14 @@ def _percolate_existing(n: Node, p, b, index: str, type: str, id: str):
     percolate_type redirect WHICH index's registered queries run
     (TransportPercolateAction getRequest indirection); a version param
     must match the doc's current version."""
-    svc = n.get_index(index)
-    got = svc.get_doc(id, routing=p.get("routing"))
+    c = _mh(n)
+    dist = (c is not None and not p.get("_local_only")
+            and c.data.resolve_index(index) in c.dist_indices)
+    if dist:
+        got = c.data.get_doc(index, str(id), routing=p.get("routing"))
+    else:
+        svc = n.get_index(index)
+        got = svc.get_doc(id, routing=p.get("routing"))
     if not got.get("found"):
         return 404, {"_index": index, "_id": id, "found": False}
     if "version" in p and int(p["version"]) != got.get("_version"):
@@ -2862,31 +3398,66 @@ def _percolate_existing(n: Node, p, b, index: str, type: str, id: str):
     body = _json(b)
     body["doc"] = got["_source"]
     target = p.get("percolate_index")
+    # the fan-out gates on the TARGET registry's index being distributed
+    # — percolate_index can redirect a local source doc at a distributed
+    # registry (and vice versa)
+    tname = target or index
+    if c is not None and not p.get("_local_only") \
+            and c.data.resolve_index(tname) in c.dist_indices:
+        return _dist_percolate(n, c, tname, type, body)
     psvc = n.get_index(target) if target else n.get_index(index)
     return 200, psvc.percolate(body)
 
 
 def _suggest(n: Node, p, b, index: str):
+    c = _mh(n)
+    if c is not None and not p.get("_local_only") \
+            and c.data.resolve_index(index) in c.dist_indices:
+        # distributed index: one request per primary owner, merged per
+        # entry (freq sums, score maxes) — cluster/search_action.py
+        from elasticsearch_tpu_torch.search.suggest import validate_suggest_body
+
+        body = _json(b)
+        validate_suggest_body(body)  # 400 BEFORE the fan, not shard noise
+        res, shards = c.data.suggest_fan(index, body)
+        res["_shards"] = shards
+        return 200, res
     svc = n.get_index(index)
-    res = svc.suggest(_json(b))
-    served = svc.num_shards
+    sh = p.get("_shards")  # internal: the multi-host fan's shard filter
+    shard_ids = [int(i) for i in sh.split(",")] if sh else None
+    res = svc.suggest(_json(b), shard_ids=shard_ids)
+    served = len(shard_ids) if shard_ids is not None else svc.num_shards
     res["_shards"] = {"total": served, "successful": served, "failed": 0}
     return 200, res
 
 
 def _suggest_all(n: Node, p, b):
     """Reference: RestSuggestAction with no index = all indices; each index
-    runs under its own analysis registry, merged per entry."""
+    runs under its own analysis registry, merged per entry. Distributed
+    indices fan per primary owner first (coordinator-local shards of a
+    dist index would under-count), then merge like any other index."""
     from elasticsearch_tpu_torch.search.suggest import (execute_suggest_multi,
                                                   validate_suggest_body)
 
     body = _json(b)
-    validate_suggest_body(body)
+    validate_suggest_body(body)  # a malformed body 400s BEFORE any fan
+    c = _mh(n)
+    dist_names = (set() if c is None or p.get("_local_only")
+                  else set(c.dist_indices))
     groups = [(svc.shards, svc.analysis, svc.mappings)
-              for svc in n.indices.values()]
-    res = execute_suggest_multi(groups, body)
-    total = sum(len(g[0]) for g in groups)
-    res["_shards"] = {"total": total, "successful": total, "failed": 0}
+              for name, svc in n.indices.items()
+              if name not in dist_names]
+    extra = []
+    failed = 0
+    for name in sorted(dist_names):
+        fanned, sh = c.data.suggest_fan(name, body)
+        extra.append(fanned)
+        failed += sh.get("failed", 0)
+    res = execute_suggest_multi(groups, body, extra_results=extra)
+    total = (sum(len(g[0]) for g in groups)
+             + sum(c.dist_indices[nm]["num_shards"] for nm in dist_names))
+    res["_shards"] = {"total": total, "successful": total - failed,
+                      "failed": failed}
     return 200, res
 
 
@@ -2910,11 +3481,69 @@ def _field_stats(n: Node, p, b, index: str):
                 cur[k] = (add[k] if cur.get(k) is None
                           else fn(cur[k], add[k]))
 
+    def _dist_fields(c, name: str) -> Dict[str, dict]:
+        """Fan to each primary owner (its primary shards only — replica
+        copies would double doc counts) and merge with _bump."""
+        import json as _json_mod
+
+        from elasticsearch_tpu_torch.cluster.search_action import \
+            ACTION_REST_PROXY
+        from urllib.parse import quote
+
+        meta = c.data._meta(name)
+        by_owner: Dict[str, list] = {}
+        for sid in range(meta["num_shards"]):
+            owners = meta["assignment"][str(sid)]
+            if owners:
+                by_owner.setdefault(owners[0], []).append(sid)
+        fields: Dict[str, dict] = {}
+        for owner, sids in sorted(by_owner.items()):
+            params = {"level": "indices",
+                      "_shards": ",".join(map(str, sids))}
+            if want is not None:
+                # filter at the SOURCE: owners must not compute + ship
+                # stats for fields the request never asked about
+                params["fields"] = ",".join(want)
+            req = {"method": "GET",
+                   "path": f"/{quote(name, safe='')}/_field_stats",
+                   "params": params, "body": _json_mod.dumps(body)}
+            try:
+                if owner == c.data._local_id():
+                    res = c.data._on_rest_proxy(dict(req))
+                else:
+                    res = c.data._send(owner, ACTION_REST_PROXY, dict(req))
+            except Exception:
+                continue  # dead owner: its shards' stats are unavailable
+            if res["status"] != 200:
+                continue
+            for fname, st in res["payload"].get("indices", {}).get(
+                    name, {}).get("fields", {}).items():
+                st.pop("density", None)  # recomputed after the merge
+                _bump(fields.setdefault(fname, {}), st)
+        return fields
+
+    sh_filter = p.get("_shards")  # internal: the multi-host fan's filter
+    shard_ids = ([int(i) for i in sh_filter.split(",")]
+                 if sh_filter else None)
+    c = _mh(n)
     out = {}
     for name in n.resolve_indices(index):
+        if c is not None and not p.get("_local_only") \
+                and name in c.dist_indices:
+            fields = _dist_fields(c, name)
+            for st in fields.values():
+                md = st.get("max_doc", 0)
+                st["density"] = (int(100 * st.get("doc_count", 0) / md)
+                                 if md else 0)
+            if want is not None:
+                fields = {k: v for k, v in fields.items() if k in want}
+            out[name] = {"fields": fields}
+            continue
         svc = n.indices[name]
         fields: Dict[str, dict] = {}
-        for shard in svc.shards:
+        shard_list = (svc.shards if shard_ids is None
+                      else [svc.shards[i] for i in shard_ids])
+        for shard in shard_list:
             for seg in shard.segments:
                 md = int(seg.num_docs)
                 for fname, col in seg.numerics.items():
@@ -2971,6 +3600,9 @@ def _termvectors(n: Node, p, b, index: str, id: str):
     Offsets are recovered by cursor-scanning the source text for each
     token (the index stores positions, not offsets); stemmed tokens whose
     surface form can't be located omit offsets."""
+    fwd = _forward_doc_op(n, index, id, p, b, "_termvectors")
+    if fwd is not None:
+        return fwd
     body = _json(b)
     opts = {}
     for k, default in (("positions", True), ("offsets", True),
@@ -3073,8 +3705,10 @@ def _cluster_put_settings(n: Node, p, b):
     (indices.breaker.* / network.breaker.*) applies LIVE to the node's
     breaker service, like the reference's dynamic
     HierarchyCircuitBreakerService settings; a null value resets to the
-    default. The allocation family, which the reference hands to its
-    multi-host allocator, is stored only (ROADMAP A10f)."""
+    default. In a cluster the allocation family
+    (``cluster.routing.allocation.*``) applies live to the allocator, and
+    the change is broadcast to every member, so a PUT to any of them
+    drives the master's allocation loop."""
     from elasticsearch_tpu_torch.cluster.metadata import flatten_settings
 
     body = _json(b)
@@ -3092,6 +3726,21 @@ def _cluster_put_settings(n: Node, p, b):
     # serving front-end settings (serving.coalescer.* / serving.qos.*)
     # apply live through the same idempotent full-map path
     n.serving.apply_cluster_settings(merged)
+    c = _mh(n)
+    if c is not None:
+        c.allocator.apply_cluster_settings(merged)
+        if "_local_only" not in p:
+            from elasticsearch_tpu_torch.cluster.search_action import \
+                ACTION_CLUSTER_SETTINGS
+
+            payload = {"cluster_settings": n.cluster_settings,
+                       "merged": merged}
+            for nid in c.data._other_nodes():
+                try:
+                    c.data._send(nid, ACTION_CLUSTER_SETTINGS, payload,
+                                 timeout=5.0)
+                except Exception:  # an unreachable member adopts the
+                    pass           # settings with the next broadcast
     return 200, {"acknowledged": True,
                  "persistent": n.cluster_settings["persistent"],
                  "transient": n.cluster_settings["transient"]}
@@ -3103,18 +3752,35 @@ def _cluster_health(n: Node, p, b):
     uniform, so each index reports its own shard counts). The
     coordination fields ride every response: the master's id, the
     cluster term it was elected under and whether the no-master write
-    block is in force. One node is its own master, never re-elected and
-    never headless: term 0, no block (elections and the block come with
-    ROADMAP A10f)."""
+    block is in force (a headless member keeps answering health: reads
+    serve under the block). In a cluster, relocations in flight and the
+    drain's progress ride along."""
     state = n.cluster_state
     h = dict(state.health())
     h["master_node"] = state.master_node_id
-    h["term"] = 0
-    h["no_master_block"] = False
+    h["term"] = state.term
+    no_master = state.master_node_id is None \
+        or state.global_block("write") is not None
+    h["no_master_block"] = bool(no_master)
+    if no_master:
+        h["status"] = "red"  # an unquorate node cannot vouch for shards
+        h["cluster_blocks"] = [
+            dict(blk) for blk in state.blocks.get("global", [])]
     h["number_of_pending_tasks"] = len(_all_pending_tasks(n, p))
     h.setdefault("number_of_in_flight_fetch", 0)
     h.setdefault("delayed_unassigned_shards", 0)
     h.setdefault("task_max_waiting_in_queue_millis", 0)
+    c = _mh(n)
+    if c is not None:
+        # live relocations and the drain's progress: an operator polls
+        # health until an excluded node's count reaches zero
+        alloc = c.allocator
+        h["relocating_shards"] = len(alloc.inflight_snapshot())
+        drain = alloc.drain_status()
+        if drain:
+            h["draining_nodes"] = {nid: {"remaining_copies": left,
+                                         "drained": left == 0}
+                                   for nid, left in sorted(drain.items())}
     if p.get("level") in ("indices", "shards"):
         idx = {}
         for name, svc in n.indices.items():
@@ -3183,7 +3849,7 @@ def _resolve_indices_options(n: Node, index_expr: str, p) -> List[str]:
 def _cluster_state_metric(n: Node, p, b, metric: str,
                           index: Optional[str] = None):
     """RestClusterStateAction metric scoping: only the requested sections
-    appear (blocks is always available and empty — no block levels here);
+    appear (blocks is always available);
     an index expression filters metadata/routing_table to the concrete
     indices it resolves to under the request's IndicesOptions."""
     import copy
@@ -3193,9 +3859,14 @@ def _cluster_state_metric(n: Node, p, b, metric: str,
     full = copy.deepcopy(n.cluster_state.to_json())
     # blocks built live from index state/settings (reference:
     # ClusterBlocks — ids: 4 = INDEX_CLOSED_BLOCK, 5 = INDEX_READ_ONLY,
-    # 7 = INDEX_READ, 8 = INDEX_WRITE); the global no-master block comes
-    # with the multi-node layer (ROADMAP A10f)
+    # 7 = INDEX_READ, 8 = INDEX_WRITE) plus the global blocks the
+    # cluster set (2 = NO_MASTER_BLOCK, ES's dict-keyed shape)
     blocks: Dict[str, Any] = {}
+    for gb in n.cluster_state.blocks.get("global", []):
+        blocks.setdefault("global", {})[str(gb.get("id"))] = {
+            "description": gb.get("description", ""),
+            "retryable": bool(gb.get("retryable")),
+            "levels": list(gb.get("levels", []))}
     _BLOCKS = (("read_only", "5", "index read-only (api)",
                 ["write", "metadata_write"]),
                ("read", "7", "index read (api)", ["read"]),
@@ -3245,9 +3916,29 @@ def _cluster_reroute(n: Node, p, b):
     move/allocate is already satisfied (there is exactly one node to be
     on), so accepted commands change nothing — the same outcome reroute has
     on a one-node reference cluster. cancel fails the shard, which re-runs
-    recovery (AllocationService.reroute's cancel semantics). The
-    reference's live allocator across processes comes with ROADMAP
-    A10f."""
+    recovery (AllocationService.reroute's cancel semantics). In a
+    cluster the commands drive the live allocator (_cluster_reroute_mh),
+    and a member that is not the master forwards to it (reference:
+    TransportMasterNodeAction): only the master's allocator starts or
+    cancels moves."""
+    c = _mh(n)
+    if c is not None:
+        master = c.node.cluster_state.master_node_id
+        if not c.is_master and master is not None \
+                and "_local_only" not in p:
+            from elasticsearch_tpu_torch.cluster.search_action import \
+                ACTION_REST_PROXY
+
+            try:
+                res = c.data._send(
+                    master, ACTION_REST_PROXY,
+                    {"method": "POST", "path": "/_cluster/reroute",
+                     "params": {k: str(v) for k, v in p.items()},
+                     "body": (b or b"").decode()}, timeout=30.0)
+                return res["status"], res["payload"]
+            except Exception:  # an unreachable master: the local
+                pass           # explain-only view below
+        return _cluster_reroute_mh(c, n, p, b)
     body = _json(b)
     explanations = []
     for cmd in body.get("commands", []):
@@ -3327,6 +4018,142 @@ _IDLE_TOPS = {
     ("socketserver.py", "serve_forever"),
     ("socketserver.py", "service_actions"),
 }
+
+
+def _cluster_reroute_mh(c, n: Node, p, b):
+    """The REAL reroute, against the live allocator (reference:
+    TransportClusterRerouteAction → AllocationService.reroute with
+    AllocationCommands): ``move`` starts a relocation stream through the
+    decider chain, ``cancel`` pulls an in-flight move's cancel gate
+    (releasing its throttle slot), ``allocate``/``allocate_replica``
+    starts a recovery of a new copy onto the named node. ``?explain``
+    answers with per-node decider verdicts from the same chain the
+    command ran through; ``?dry_run`` explains without acting."""
+    body = _json(b)
+    explain = str(p.get("explain", "false")).lower() in ("true", "", "1")
+    dry_run = str(p.get("dry_run", "false")).lower() in ("true", "", "1")
+    alloc = c.allocator
+    explanations = []
+    acked = True
+    for cmd in body.get("commands", []):
+        if not isinstance(cmd, dict) or len(cmd) != 1:
+            raise IllegalArgumentException(
+                "a reroute command must be an object with exactly one "
+                "command name key")
+        ((name, args),) = cmd.items()
+        if name not in ("move", "cancel", "allocate", "allocate_replica",
+                        "allocate_stale_primary", "allocate_empty_primary"):
+            raise IllegalArgumentException(
+                f"unknown reroute command [{name}]")
+        if not isinstance(args, dict):
+            raise IllegalArgumentException(
+                f"[{name}] command expects an object body")
+        iname = args.get("index")
+        if not iname:
+            raise IllegalArgumentException(
+                f"[{name}] command missing required [index] parameter")
+        sid = int(args.get("shard", 0))
+        meta = c.dist_indices.get(iname)
+        if meta is None or sid >= int(meta.get("num_shards", 0)):
+            raise IllegalArgumentException(
+                f"shard [{sid}] of [{iname}] cannot be found")
+        owners = list(meta["assignment"].get(str(sid), []))
+        params = {"index": iname, "shard": sid}
+        decisions = []
+        if name == "move":
+            src = _resolve_member(c, args.get("from_node"))
+            dst = _resolve_member(c, args.get("to_node"))
+            params.update({"from_node": args.get("from_node"),
+                           "to_node": args.get("to_node")})
+            if src is None or dst is None:
+                raise IllegalArgumentException(
+                    f"[move] unknown node in "
+                    f"[{args.get('from_node')}]->[{args.get('to_node')}]")
+            if src not in owners:
+                decisions.append({
+                    "decider": "move_allocation_command", "decision": "NO",
+                    "explanation": f"node [{src}] holds no copy of "
+                                   f"[{iname}][{sid}]"})
+                acked = False
+            else:
+                decisions.extend(alloc.explain(iname, sid, dst))
+                if not dry_run:
+                    task = alloc._start_relocation(iname, sid, src, dst,
+                                                   "reroute", set())
+                    if task is None:
+                        acked = False
+        elif name == "cancel":
+            dst = _resolve_member(c, args.get("node"))
+            params["node"] = args.get("node")
+            cancelled = dst is not None and alloc.cancel_relocation(
+                (iname, sid, dst), reason="reroute cancel")
+            decisions.append({
+                "decider": "cancel_allocation_command",
+                "decision": "YES" if cancelled else "NO",
+                "explanation": (f"cancelled the relocation of "
+                                f"[{iname}][{sid}] to [{dst}]" if cancelled
+                                else f"no relocation of [{iname}][{sid}] "
+                                     f"to [{args.get('node')}] in flight")})
+            acked = acked and cancelled
+        else:  # allocate / allocate_replica / allocate_*_primary
+            dst = _resolve_member(c, args.get("node"))
+            params["node"] = args.get("node")
+            if dst is None:
+                raise IllegalArgumentException(
+                    f"[{name}] unknown node [{args.get('node')}]")
+            decisions.extend(alloc.explain(iname, sid, dst))
+            pend = meta.get("initializing", {}).get(str(sid), [])
+            if dst in owners or dst in pend:
+                decisions.append({
+                    "decider": f"{name}_allocation_command",
+                    "decision": "NO",
+                    "explanation": f"node [{dst}] already holds a copy "
+                                   f"of [{iname}][{sid}]"})
+                acked = False
+            elif not owners:
+                decisions.append({
+                    "decider": f"{name}_allocation_command",
+                    "decision": "NO",
+                    "explanation": f"[{iname}][{sid}] has no active copy "
+                                   "to recover from (resurrect_lost "
+                                   "handles primaries)"})
+                acked = False
+            elif not dry_run:
+                # a NEW copy recovers onto the node through the standard
+                # top-up path: initializing + publish, then the stream,
+                # then graduation into assignment + in_sync
+                with c._indices_lock:
+                    live = c.dist_indices.get(iname)
+                    if live is not None:
+                        live.setdefault("initializing", {}) \
+                            .setdefault(str(sid), []).append(dst)
+                c.publish_indices()
+                c.data.start_recoveries([{
+                    "index": iname, "shard": sid, "target": dst,
+                    "source": owners[0], "body": meta.get("body")}])
+        explanations.append({"command": name, "parameters": params,
+                             "decisions": decisions})
+    state = {"cluster_name": n.cluster_state.cluster_name,
+             "version": n.cluster_state.version,
+             "master_node": n.cluster_state.master_node_id,
+             "relocations": alloc.inflight_snapshot()}
+    resp = {"acknowledged": acked, "state": state}
+    if explain or dry_run:
+        resp["explanations"] = explanations
+    return 200, resp
+
+
+def _resolve_member(c, ref: Optional[str]) -> Optional[str]:
+    """A reroute command's node argument (name or id) → member node id."""
+    if not ref:
+        return None
+    nodes = c.node.cluster_state.nodes
+    if ref in nodes:
+        return ref
+    for nid, dn in nodes.items():
+        if dn.name == ref:
+            return nid
+    return None
 
 
 def _stack_is_idle(stack: tuple) -> bool:
@@ -3820,6 +4647,11 @@ def _clear_cache(n: Node, p, b, index: Optional[str] = None):
 
 def _percolate_count(n: Node, p, b, index: str, type: str):
     """RestPercolateAction count form (count_percolate.json)."""
+    c = _mh(n)
+    if c is not None and not p.get("_local_only") \
+            and c.data.resolve_index(index) in c.dist_indices:
+        status, res = _dist_percolate(n, c, index, type, _json(b))
+        return status, {"total": res["total"], "_shards": res["_shards"]}
     svc = n.get_index(index)
     res = svc.percolate(_json(b))
     return 200, {"total": res["total"], "_shards": {
@@ -3828,12 +4660,19 @@ def _percolate_count(n: Node, p, b, index: str, type: str):
 
 def _mpercolate(n: Node, p, b, index: Optional[str] = None):
     """RestMultiPercolateAction: NDJSON of {percolate: header} / doc pairs."""
+    c = _mh(n)
     lines = _ndjson(b)
     responses = []
     for i in range(0, len(lines) - 1, 2):
         head = lines[i].get("percolate", {})
         iname = head.get("index", index)
         try:
+            if (c is not None and not p.get("_local_only") and iname
+                    and c.data.resolve_index(iname) in c.dist_indices):
+                _st, res = _dist_percolate(
+                    n, c, iname, head.get("type", "_all"), lines[i + 1])
+                responses.append(res)
+                continue
             svc = n.get_index(iname)
             responses.append(svc.percolate(lines[i + 1]))
         except ElasticsearchTpuException as e:
@@ -4535,7 +5374,7 @@ class RestServer:
         self._thread: Optional[threading.Thread] = None
 
     def start(self, background: bool = True):
-        # a node serving HTTP runs the stall watchdog (ROADMAP A10f) and
+        # a node serving HTTP runs the stall watchdog (ROADMAP A10g) and
         # pre-warms from its census (A11) where the node has them; the
         # port's Node has neither yet, so both lookups find nothing
         node = self.controller.node

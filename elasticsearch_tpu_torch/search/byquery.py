@@ -6,8 +6,10 @@ writes, rescanned because the writes shift the results). The caller's
 ``apply_fn`` does the per-document write (a delete or an update). The
 REST handlers ``_delete_by_query`` and ``_update_by_query``
 (``rest/server.py``) call it under a registered task, so ``POST
-/_tasks/{id}/_cancel`` stops a run between docs; the reference's
-per-owner action across processes comes with ROADMAP A10f.
+/_tasks/{id}/_cancel`` stops a run between docs. On a distributed
+index each primary owner runs it over its own shards
+(cluster/search_action.py::_on_by_query), as a child of the
+coordinator's task.
 """
 from __future__ import annotations
 

@@ -816,8 +816,9 @@ def register_scroll_hits(body: dict, hits: List[dict], total: int,
     fetched, and pages serve straight from it. ``consumed`` is how many
     hits the first response already delivered (0 for
     ``search_type=scan``, whose first response carries none); by default
-    the body's ``size``. The reference's caller is its cross-host scroll
-    (ROADMAP A10f), whose per-owner fetch contexts are one-shot."""
+    the body's ``size``. The caller is the cluster's scroll
+    (cluster/search_action.py), whose per-owner fetch contexts are
+    one-shot."""
     scroll_id = uuid.uuid4().hex
     _SCROLLS[scroll_id] = {
         "mode": "hits", "hits": hits, "total": total,

@@ -732,16 +732,20 @@ def merge_index_result(merged: Dict[str, List[dict]], res: dict) -> None:
                 o for o in e["options"] if o["text"] not in seen)
 
 
-def execute_suggest_multi(groups, body: dict) -> dict:
+def execute_suggest_multi(groups, body: dict, extra_results=()) -> dict:
     """Suggest over several indices, each with its own analysis registry:
     ``groups`` holds (shards, analysis[, mappings]) a index. Entries with
-    the same (text, offset) merge and their options re-rank."""
+    the same (text, offset) merge and their options re-rank.
+    ``extra_results`` are results computed elsewhere (a distributed
+    index's merged fan over its members), merged the same way."""
     merged: Dict[str, List[dict]] = {}
     for group in groups:
         shards, analysis = group[0], group[1]
         mappings = group[2] if len(group) > 2 else None
         merge_index_result(merged, execute_suggest(shards, body, analysis,
                                                    mappings=mappings))
+    for res in extra_results:
+        merge_index_result(merged, res)
     _rerank_options(body, merged)
     return merged
 

@@ -46,7 +46,7 @@ Around the queue, as in the reference:
 - a coalesced search reaches the index's slow log with its queue wait
   and the batch's time;
 - ``oldest_queue_age`` is the probe a stall watchdog reads (the
-  watchdog itself comes with ROADMAP A10f).
+  watchdog itself comes with ROADMAP A10g).
 """
 from __future__ import annotations
 

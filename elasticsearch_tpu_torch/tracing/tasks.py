@@ -11,10 +11,9 @@ cooperative: long loops (by-query scans, scroll paging, force-merge,
 recovery replay) call ``check_cancelled()`` between units of work; a
 whole-segment device program is not interruptible. The coalescer's
 parked requests register here too, and their cancel wakes the waiter.
-
-Not here yet: ``wire_parent`` and ``adopt_parent``, which carry a parent
-task across the transport between processes, come with the multi-node
-cluster layer (ROADMAP A10f); a task's parent is the current local task.
+Parent links cross the transport between processes in the wire header
+the tracer rides (``adopt_parent``/``wire_parent``), so cancelling a
+coordinator's task reaches its remote children.
 """
 from __future__ import annotations
 
@@ -31,7 +30,7 @@ from elasticsearch_tpu_torch.utils.errors import (ElasticsearchTpuException,
 __all__ = ["Task", "TaskRegistry", "TaskCancelledException",
            "ResourceNotFoundException", "human_time", "current_task",
            "set_current", "reset_current", "check_cancelled",
-           "task_header"]
+           "task_header", "adopt_parent", "wire_parent"]
 
 
 class ResourceNotFoundException(ElasticsearchTpuException):
@@ -147,6 +146,10 @@ class Task:
 # through every call signature
 _CURRENT_TASK: contextvars.ContextVar[Optional[Task]] = \
     contextvars.ContextVar("estpu-torch-current-task", default=None)
+# the parent task adopted from a transport wire header (a remote parent:
+# there is no local Task object for it)
+_WIRE_PARENT: contextvars.ContextVar[Optional[ParentId]] = \
+    contextvars.ContextVar("estpu-torch-wire-parent-task", default=None)
 
 
 def current_task() -> Optional[Task]:
@@ -181,6 +184,27 @@ def task_header() -> Optional[dict]:
     return {"node": task.node, "id": task.id}
 
 
+@contextmanager
+def adopt_parent(header: Optional[dict]) -> Iterator[None]:
+    """Adopt a remote parent task from a wire header: tasks registered
+    inside become its children (and die with it on a cascade cancel). A
+    non-int id is ignored, not raised: a junk observability header must
+    never fail a valid frame."""
+    tid = (header or {}).get("id")
+    if not isinstance(tid, int) or isinstance(tid, bool):
+        yield
+        return
+    token = _WIRE_PARENT.set((str(header.get("node") or ""), tid))
+    try:
+        yield
+    finally:
+        _WIRE_PARENT.reset(token)
+
+
+def wire_parent() -> Optional[ParentId]:
+    return _WIRE_PARENT.get()
+
+
 class TaskRegistry:
     """All in-flight tasks of one node (reference: TaskManager)."""
 
@@ -213,8 +237,8 @@ class TaskRegistry:
                  status: str = "running",
                  on_cancel: Optional[Callable[[Task], None]] = None) -> Task:
         """Register a task. ``parent`` defaults to the current local task
-        (the reference falls back to a parent adopted from a transport
-        wire header; that comes with ROADMAP A10f).
+        or, failing that, the remote parent adopted from the transport
+        wire header.
         ``on_cancel`` must be given HERE (not assigned afterwards) when
         the task guards a resource: the task is cancellable the instant
         it publishes — a cancel (or the born-cancelled ban path below)
@@ -224,6 +248,8 @@ class TaskRegistry:
             cur = _CURRENT_TASK.get()
             if cur is not None:
                 parent = (cur.node, cur.id)
+            else:
+                parent = _WIRE_PARENT.get()
         task = Task(next(self._seq), self.node_id, action,
                     description=description, parent=parent,
                     cancellable=cancellable, status=status)
@@ -313,8 +339,9 @@ class TaskRegistry:
     def cancel(self, task_id: int,
                reason: str = "by user request") -> List[Task]:
         """Cancel a task and (recursively) its local descendants. Remote
-        children are the multi-node layer's job (ROADMAP A10f). Returns
-        the tasks actually cancelled."""
+        children are the transport layer's job
+        (cluster/search_action.py::cancel_task_children fans the parent
+        id to every member). Returns the tasks actually cancelled."""
         task = self.get(task_id)
         if task is None:
             raise ResourceNotFoundException(

@@ -17,10 +17,29 @@ The points the port passes through:
                           residency registry (resources/residency.py):
                           a handle's placement or rehydration, a
                           reserved pinned charge
+    transport.send        before a client transport connect
+                          (cluster/transport.py)
+    transport.recv        after the request frame is written, before
+                          the response is read (a mid-request failure)
+    discovery.partition   link-level drop, checked on every client
+                          connect with the local node id in ctx, so a
+                          test drops exactly the minority<->majority
+                          links in both directions
+    discovery.vote        before a vote-request handler grants or denies
+                          a ballot (cluster/bootstrap.py)
+    publish.commit        between publish phase 1 (the quorum of acks)
+                          and the commit fan-out
+    allocation.decide     inside the allocator's per-move decider pass
+                          (cluster/allocator.py; ctx: index, shard,
+                          source, target)
+    relocation.stream     at the head of an allocator-driven relocation
+                          stream (cluster/search_action.py::_on_recover)
+    recovery.shard_sync   before a recovery source streams its shard
 
-The reference's other points (transport, translog, discovery,
-allocation, the watchdog), its probabilistic faults and its
-``ESTPU_FAULTS`` environment spec come with the code that checks them.
+The reference's translog and watchdog points, its probabilistic faults
+(``prob``/``seed``/``after``) and its ``ESTPU_FAULTS`` environment spec
+are not here: every scenario of the port's tests is held with ``count``
+and ``match``, which are deterministic.
 """
 from __future__ import annotations
 
@@ -30,7 +49,10 @@ from typing import Any, Callable, Dict, List, Optional
 #: the point names ``inject`` accepts, so a typo'd point fails the test
 #: loudly instead of silently never firing
 POINTS = frozenset({"recovery.ops_replay", "replication.fanout",
-                    "resources.reserve"})
+                    "resources.reserve", "transport.send", "transport.recv",
+                    "discovery.partition", "discovery.vote",
+                    "publish.commit", "allocation.decide",
+                    "relocation.stream", "recovery.shard_sync"})
 
 
 class _Fault:

@@ -245,6 +245,28 @@ assert st == 200 and r["hits"]["total"] == 20, r
 assert Client(url=f"http://127.0.0.1:{srv.port}").count("web")["count"] == 30
 srv.stop()
 n.close()
+from elasticsearch_tpu_torch.cluster.bootstrap import MultiHostCluster
+members = []
+for rank in range(2):
+    m = Node(name=f"m{rank}", device="cpu")
+    port = members[0][1].local.transport_address.rsplit(":", 1)[1] \
+        if members else 0
+    members.append((m, MultiHostCluster(m, rank=rank, world=2,
+                                        transport_port=int(port),
+                                        ping_interval=0)))
+(m0, c0), (m1, c1) = members
+c0.data.create_index("dist", {"settings": {"number_of_shards": 2,
+                                           "number_of_replicas": 1}})
+for i in range(20):
+    c1.data.index_doc("dist", str(i), {"body": "fox" if i % 2 else "dog"})
+c0.data.refresh("dist")
+for m in (m0, m1):
+    assert m.search("dist", {"query": {"match": {"body": "fox"}}})[
+        "hits"]["total"] == 10
+for _m, c in reversed(members):
+    c.close()
+for m, _c in members:
+    m.close()
 import importlib, pkgutil
 import elasticsearch_tpu_torch
 for m in pkgutil.walk_packages(elasticsearch_tpu_torch.__path__,

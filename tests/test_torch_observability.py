@@ -241,8 +241,8 @@ def test_node_sections_carry_the_references_keys():
         assert set(want["indices"]["fielddata"]) < set(
             got["indices"]["fielddata"])
         # the REST layer's sections (ROADMAP A10e) are there; the
-        # compile/warm layer's (A11) and the multi-node layer's (A10f)
-        # are not yet
+        # compile/warm layer's (A11) and the flight recorder's and
+        # watchdog's (A10g) are not yet
         assert got["thread_pool"] == want["thread_pool"] == {}
         assert _keys(got["tasks"]) == _keys(want["tasks"])
         # the families of each node's own registry (the process-shared
@@ -258,8 +258,9 @@ def test_node_sections_carry_the_references_keys():
                 [_keys(x) for x in want["metrics"][fam]], fam
         assert set(want["serving"]) - set(got["serving"]) == {"warmup"}
         assert _keys(got["serving"]["qos"]) == _keys(want["serving"]["qos"])
-        for sec in ("programs", "flight", "watchdog", "transport"):
+        for sec in ("programs", "flight", "watchdog"):
             assert sec in want and sec not in got
+        assert got["transport"] == want["transport"]
         assert got["accelerator"] == {"platform": "cpu"}
         assert got["jvm"]["mem"]["heap_used_in_bytes"] \
             == got["process"]["mem"]["resident_in_bytes"] > 0

@@ -816,15 +816,28 @@ def test_c18_a_failover_on_a_data_path_keeps_acknowledged_writes(tmp_path,
 
 
 def test_the_local_replicas_marker_is_popped_and_ignored():
-    """The reference's ``_local_replicas`` marker (set by cluster members
-    that hold the copies elsewhere) is never echoed; the port has no
-    such members, so it builds ``number_of_replicas`` copies, and a
-    write's ``_shards`` counts them all."""
-    svc = PORT.service("lr", {"index": {"number_of_shards": 1,
-                                        "number_of_replicas": 1,
-                                        "_local_replicas": 0}})
+    """The ``_local_replicas`` marker, set by cluster members whose
+    replicas are copies held by other members
+    (cluster/search_action.py), is popped, never echoed, and honoured as
+    the reference honours it: the member builds that many in-process
+    copies (here none), while ``number_of_replicas`` and a write's
+    ``_shards.total`` keep the declared count. Without the marker every
+    declared copy is built."""
+    for pkg in (REF, PORT):
+        svc = pkg.service("lr", {"index": {"number_of_shards": 1,
+                                           "number_of_replicas": 1,
+                                           "_local_replicas": 0}})
+        try:
+            assert "_local_replicas" not in svc.settings["index"]
+            assert svc.num_replicas == 1
+            assert len(svc.groups[0].replicas) == 0
+            assert svc.index_doc("a", {"v": 1})["_shards"] == {
+                "total": 2, "successful": 1, "failed": 0}
+        finally:
+            svc.close()
+    svc = PORT.service("lr2", {"index": {"number_of_shards": 1,
+                                         "number_of_replicas": 1}})
     try:
-        assert "_local_replicas" not in svc.settings["index"]
         assert len(svc.groups[0].replicas) == 1
         assert svc.index_doc("a", {"v": 1})["_shards"] == {
             "total": 2, "successful": 2, "failed": 0}

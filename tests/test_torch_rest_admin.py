@@ -5,8 +5,8 @@ port's server against the reference's, the same requests to both
 Every answer is held exactly but for the volatile keys the harness masks
 (node ids, clocks, uuids, the process, host and device sections). Where
 the two sections of a node's stats differ by design (the reference's
-compile/warm and multi-node sections, which the port brings with ROADMAP
-A11 and A10f), the test names each section.
+compile/warm, flight-recorder and watchdog sections, which the port
+brings with ROADMAP A11 and A10g), the test names each section.
 """
 import pytest
 
@@ -206,11 +206,11 @@ def test_nodes_info_and_stats(idx):
     assert rs == ps == 200
     r = next(iter(rb["nodes"].values()))
     p = next(iter(pb["nodes"].values()))
-    # the compile/warm layer (ROADMAP A11) and the multi-node layer
-    # (A10f) bring these
-    assert set(r) - set(p) == {"programs", "flight", "watchdog",
-                               "transport"}
+    # the compile/warm layer (ROADMAP A11) and the flight recorder and
+    # watchdog (A10g) bring these
+    assert set(r) - set(p) == {"programs", "flight", "watchdog"}
     assert set(p) - set(r) == set()
+    assert p["transport"] == r["transport"]
     # the reference's breakers are process-wide (their estimates carry
     # every node of the process), the port's belong to the node: the
     # same breakers, limits and overheads

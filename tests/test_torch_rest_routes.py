@@ -25,10 +25,10 @@ REFUSED = {
     ("POST", "/_warmup"): "A11",
     ("GET", "/_warmup"): "A11",
     ("POST", "/{index}/_warmup"): "A11",
-    ("GET", "/_nodes/_local/flight"): "A10f",
-    ("GET", "/_cat/incidents"): "A10f",
-    ("GET", "/_cluster/diagnostics"): "A10f",
-    ("GET", "/_cluster/diagnostics/incidents/{incident_id}"): "A10f",
+    ("GET", "/_nodes/_local/flight"): "A10g",
+    ("GET", "/_cat/incidents"): "A10g",
+    ("GET", "/_cluster/diagnostics"): "A10g",
+    ("GET", "/_cluster/diagnostics/incidents/{incident_id}"): "A10g",
 }
 
 
