@@ -313,7 +313,32 @@ Phases, in order; any failure exits non-zero before the result line:
             ``_nodes/stats``); (d) the master SIGKILLed while a survivor
             streams ``_bulk``: the time to a new master at a bumped term,
             every acknowledged doc found by count and 64 sampled ids by
-            GET, the survivors exit 0 on SIGTERM;
+            GET, the survivors exit 0 on SIGTERM; after (c) one
+            ``/_cluster/diagnostics`` holds the three members' parts, and
+            after (d) the new master's ``/_nodes/_local/flight`` holds its
+            election in the ``cluster`` ring;
+5r. watchdog the flight recorder and the stall watchdog (ROADMAP A10g),
+            run after 5p on phase 5's node, before 5q: (a) a 0.5 s spin
+            (``torch.cuda._sleep``) queued on the stream ahead of one B1
+            search in the mesh round, while another thread ticks a
+            watchdog whose program bound is twice the key's p99, at
+            least 0.05 s: ``program_stall``
+            trips on the dispatch's key and captures an incident (the
+            time from the spin's launch to the trip), the search's hits
+            unchanged and its key's execute seconds grown by the stall;
+            (b) a launcher on the card with a data path and
+            ``ESTPU_FAULTS=watchdog.program_stall:count=1`` over 2,048 of
+            5n's docs serving 64 match (B1) and 8 knn (B2) bodies over
+            HTTP for 2.2 s while
+            its watchdog ticks: ``/_cat/incidents`` lists the incident,
+            ``/_nodes/_local/flight`` holds the trip and the metric
+            snapshots, and after SIGTERM and a restart on the same path
+            the incident is listed as persisted and its payload answers;
+            (c) 64 match bodies on phase 5's node for 1.5 s with the
+            watchdog ticking and 1.5 s closed, twice: the p50s; (d) phase
+            5's body field split into 4 term-range slots on the card
+            (``postings_split(n_devices=4)``): 32 tail-term bodies give
+            the unsplit path's top 10 and totals, scores within 1e-5;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
@@ -8384,6 +8409,319 @@ def phase_rest(torch, np, dev, card, sift, ivf_index, pq_parts, read_node,
     return b1, counts["b2"], counts["b3"]
 
 
+# ---------------------------------------------------------------------------
+# phase 5r: the flight recorder and the stall watchdog (ROADMAP A10g)
+# ---------------------------------------------------------------------------
+
+WD_STALL_S = 0.5           # (a): spin queued on the stream ahead of B1
+WD_FLOOR_S = 0.05          # (a): the watchdog's program floor and bound
+WD_P99_MULT = 2.0          # (a): the bound's multiple of the key's p99
+WD_TRIP_S = 5.0            # (a): the trip must come within this
+WD_DOCS = 2048             # (b): 5h's log docs with a 128-d vector
+WD_MATCH = 64              # (b), (c): match bodies
+WD_KNN = 8                 # (b): brute-force knn bodies
+WD_SERVE_S = 2.2           # (b): seconds of bodies, two ticks at least
+WD_COST_S = 1.5            # (c): seconds of bodies an arm, two arms each
+WD_SLOTS = 4               # (d): term-range slots of phase 5's field
+WD_GENERIC = 32            # (d): tail-term (generic) match bodies
+
+
+def _wd_launch(root, env, data, card):
+    """One launcher on the card over ``data``: (process, http)."""
+    import queue
+    import threading
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "elasticsearch_tpu_torch.server", "--port",
+         "0", "--name", "watched", "--data-path", data], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [out.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    deadline, seen = time.monotonic() + REST_BOOT_S, []
+    while True:
+        try:
+            line = out.get(timeout=max(0.1, deadline - time.monotonic()))
+        except Exception:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"5r(b): the launcher did not bind in "
+                                 f"{REST_BOOT_S} s: {seen}")
+        seen.append(line.rstrip())
+        m = re.search(r"listening on http://127\.0\.0\.1:(\d+)", line)
+        if m:
+            return proc, _Rest(int(m.group(1)))
+
+
+def _wd_stop(proc) -> None:
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    code = proc.wait(timeout=REST_STOP_S)
+    _hold(code == 0, f"(b) SIGTERM: exit {code}", "5r")
+
+
+def _wd_injected(np, card):
+    """(b): an injected stall in a launcher process, its incident listed
+    before and after a restart on the same data path. Returns (B1, B2)
+    launches in the launcher's processes, the incident id, and the
+    flight ring counts."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    docs, vecs = rp_sources(np, WD_DOCS, SEED + 130)
+    match, knn, _qv = rp_bodies(np, vecs, SEED + 131)
+    rng = np.random.default_rng(SEED + 132)
+    match = [match[i % len(match)] for i in range(WD_MATCH)]
+    knn = knn[:WD_KNN]
+
+    def launches(http):
+        st, _, ns = http("GET", "/_nodes/stats")
+        got = next(iter(ns["nodes"].values()))["indices"]["search"][
+            "launches"]
+        return got["bm25_dense_topk"], got["knn_topk"]
+
+    with tempfile.TemporaryDirectory() as data:
+        proc, http = _wd_launch(root, dict(
+            env, ESTPU_FAULTS="watchdog.program_stall:count=1"), data, card)
+        try:
+            st, _, _ = http("PUT", "/wd", {"settings": {
+                "number_of_shards": 1}, "mappings": RP_MAPPING})
+            _hold(st == 200, f"(b) the create answered {st}", "5r")
+            st, _, bulk = http("POST", "/_bulk?refresh=true", ndjson=_nd(
+                x for d, src in docs
+                for x in ({"index": {"_index": "wd", "_id": d}}, src)))
+            _hold(st == 200 and not bulk["errors"], f"(b) _bulk {st}", "5r")
+            b0 = launches(http)
+            t_end = time.monotonic() + WD_SERVE_S
+            order = rng.permutation(WD_MATCH + WD_KNN)
+            while True:
+                for i in order:
+                    body = match[i] if i < WD_MATCH else knn[i - WD_MATCH]
+                    st, _, res = http("POST", "/wd/_search", body)
+                    _hold(st == 200 and res["hits"]["hits"],
+                          f"(b) a search answered {st}", "5r")
+                if time.monotonic() >= t_end:
+                    break
+            b1, b2 = (a - b for a, b in zip(launches(http), b0))
+            _hold(b1 > 0 and b2 > 0, f"(b) launches B1 {b1}, B2 {b2}", "5r")
+            st, _, rows = http("GET", "/_cat/incidents?format=json"
+                               "&h=id,detector,persisted")
+            inc = [r for r in rows if r["detector"] == "program_stall"]
+            _hold(st == 200 and len(inc) == 1, f"(b) /_cat/incidents "
+                  f"{rows}", "5r")
+            iid = inc[0]["id"]
+            st, _, fl = http("GET", "/_nodes/_local/flight")
+            counts = fl["flight"]["counts"]
+            _hold(st == 200 and counts["trips"] >= 1
+                  and counts["metrics"] >= 1
+                  and fl["watchdog"]["trips"].get("program_stall") == 1
+                  and fl["watchdog"]["running"]
+                  and any(e["detector"] == "program_stall"
+                          for e in fl["flight"]["rings"]["trips"]),
+                  f"(b) /_nodes/_local/flight counts {counts}, watchdog "
+                  f"{fl['watchdog']['trips']}", "5r")
+            _wd_stop(proc)
+            proc, http = _wd_launch(root, {k: v for k, v in env.items()
+                                           if k != "ESTPU_FAULTS"}, data,
+                                    card)
+            st, _, rows = http("GET", "/_cat/incidents?format=json"
+                               "&h=id,detector,persisted")
+            _hold(st == 200 and [r["id"] for r in rows] == [iid]
+                  and rows[0]["persisted"] == "true",
+                  f"(b) after the restart /_cat/incidents {rows}", "5r")
+            st, _, payload = http(
+                "GET", f"/_cluster/diagnostics/incidents/{iid}")
+            _hold(st == 200 and payload["id"] == iid
+                  and payload["detector"] == "program_stall"
+                  and payload["hot_threads"]
+                  and set(payload["flight"]["rings"]) == {
+                      "metrics", "slow_ops", "breaker_trips", "compiles",
+                      "cluster", "engine_failures", "trips"},
+                  f"(b) the incident's payload answered {st}", "5r")
+            st, _, res = http("POST", "/wd/_search", match[0])
+            _hold(st == 200 and res["hits"]["hits"],
+                  f"(b) a search after the restart answered {st}", "5r")
+            _wd_stop(proc)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return b1, b2, iid, counts
+
+
+def _wd_stall(torch, node, body):
+    """(a): ``body`` (a pure-dense match, B1 in the mesh round) searched
+    on another thread behind a WD_STALL_S spin on the stream, while this
+    thread ticks a watchdog with a low bound. Returns (the trip, seconds
+    from the spin's launch to the trip, the search's ms, the growth of
+    its key's execute seconds)."""
+    import threading
+
+    from elasticsearch_tpu_torch.monitor import programs
+    from elasticsearch_tpu_torch.monitor.watchdog import WatchdogService
+
+    want = node.search("msmarco", dict(body))  # the memo's entry
+    node.search("msmarco", dict(body))
+    torch.cuda.synchronize()
+    s0, s1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    s0.record()
+    torch.cuda._sleep(10_000_000)
+    s1.record()
+    torch.cuda.synchronize()
+    cycles = int(10_000_000 * WD_STALL_S * 1e3 / s0.elapsed_time(s1))
+    wd = WatchdogService(node, program_floor_s=WD_FLOOR_S,
+                         program_default_bound_s=WD_FLOOR_S,
+                         program_p99_mult=WD_P99_MULT, cooldown_s=0.0)
+    calls0 = {r["shapes"]: r["execute_seconds"]
+              for r in programs.REGISTRY.rows()
+              if r["program"] == "mesh_dsl"}
+    got, trip, trip_s = {}, None, None
+    th = threading.Thread(target=lambda: got.update(
+        r=node.search("msmarco", dict(body))))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    th.start()
+    while trip is None and time.perf_counter() - t0 < WD_TRIP_S:
+        time.sleep(0.01)
+        trip = next((x for x in wd.run_once()
+                     if x["detector"] == "program_stall"
+                     and x["detail"]["program"] == "mesh_dsl"), None)
+    trip_s = time.perf_counter() - t0
+    th.join(60)
+    stall_ms = (time.perf_counter() - t0) * 1e3
+    _hold(trip is not None, f"(a) no program_stall trip in {WD_TRIP_S} s "
+          f"of a {WD_STALL_S} s stall", "5r")
+    _hold(trip["incident_id"] and wd.incidents.load(trip["incident_id"]),
+          "(a) the trip captured no incident", "5r")
+    check_hits(got["r"], want, "5r(a) the stalled search")
+    rows = {r["shapes"]: r for r in programs.REGISTRY.rows()
+            if r["program"] == "mesh_dsl"}
+    grew = rows[trip["detail"]["shapes"]]["execute_seconds"] - calls0.get(
+        trip["detail"]["shapes"], 0.0)
+    _hold(grew >= 0.8 * WD_STALL_S, f"(a) the dispatch's execute time grew "
+          f"{grew:.3f} s, under the stall's device time", "5r")
+    return trip, trip_s, stall_ms, grew
+
+
+def phase_watchdog(torch, np, dev, card, node, corpus_df):
+    """Phase 5r (module docstring) on phase 5's node; returns the B1 and
+    B2 launches it made."""
+    from elasticsearch_tpu_torch.monitor import kernels
+    from elasticsearch_tpu_torch.ops import bm25_topk, knn_topk
+    from elasticsearch_tpu_torch.parallel import postings_shard
+
+    t_phase = time.perf_counter()
+    b1_0, b2_0 = bm25_topk.LAUNCHES, knn_topk.LAUNCHES
+    inv = node.get_index("msmarco").shards[0].segments[0].inverted["body"]
+    dense = inv.dense_block()[0]
+
+    # (a) a real stall: spin queued ahead of one B1 search
+    body = {"query": {"match": {"body": " ".join(f"t{t}" for t in next(
+        q for q in make_queries(np, 64, VOCAB, corpus_df, SEED + 133,
+                                dense_only=dense[:VOCAB] >= 0)))}},
+        "size": 10}
+    trip, trip_s, stall_ms, grew = _wd_stall(torch, node, body)
+
+    # (b) an injected stall that survives a restart
+    b1_b, b2_b, iid, counts = _wd_injected(np, card)
+
+    # (c) the cost: the same bodies with the watchdog ticking and closed
+    bodies = [{"query": {"match": {"body": " ".join(f"t{t}" for t in q)}},
+               "size": 10} for q in make_queries(np, WD_MATCH, VOCAB,
+                                                 corpus_df, SEED + 134)]
+    for b in bodies:
+        node.search("msmarco", dict(b))  # memo entries, untimed
+    arms = {"ticking": [], "closed": []}
+    ticks0 = node.watchdog.ticks
+    for arm in ("ticking", "closed", "ticking", "closed"):
+        if arm == "ticking":
+            node.watchdog.ensure_started()
+        else:
+            node.watchdog.close()
+        t_end = time.perf_counter() + WD_COST_S
+        while time.perf_counter() < t_end:
+            for b in bodies:
+                t = time.perf_counter()
+                node.search("msmarco", dict(b))
+                arms[arm].append((time.perf_counter() - t) * 1e3)
+    node.watchdog.close()
+    ticks = node.watchdog.ticks - ticks0
+    _hold(ticks >= 2, f"(c) the watchdog ticked {ticks} times", "5r")
+    p50 = {k: float(np.percentile(v, 50)) for k, v in arms.items()}
+
+    # (d) phase 5's field split into WD_SLOTS term-range slots on the card
+    tail = np.asarray(dense[:VOCAB]) < 0
+    tail &= np.asarray(corpus_df[:tail.size]) > 0
+    generic = [{"query": {"match": {"body": " ".join(f"t{t}" for t in q)}},
+                "size": 10} for q in make_queries(
+                    np, WD_GENERIC, VOCAB, corpus_df, SEED + 135,
+                    dense_only=tail)]
+    unsplit = [node.search("msmarco", dict(b)) for b in generic]
+    saved, split = postings_shard.POSTINGS_SHARD_NNZ, None
+    postings_shard.POSTINGS_SHARD_NNZ = inv.nnz
+    try:
+        t = time.perf_counter()
+        split = inv.postings_split(n_devices=WD_SLOTS)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t) * 1e3
+        _hold(split is not None and split.S == WD_SLOTS
+              and split.doc_ids_sh.device == inv.doc_ids.device,
+              f"(d) the split {split}", "5r")
+        k0 = kernels.snapshot().get("bm25_postings_sharded", 0)
+        worst = 0.0
+        for b, u in zip(generic, unsplit):
+            r = node.search("msmarco", dict(b))
+            _hold([h["_id"] for h in r["hits"]["hits"]]
+                  == [h["_id"] for h in u["hits"]["hits"]]
+                  and r["hits"]["total"] == u["hits"]["total"],
+                  f"(d) the split's hits differ for {b}", "5r")
+            for x, y in zip(r["hits"]["hits"], u["hits"]["hits"]):
+                worst = max(worst, abs(x["_score"] - y["_score"])
+                            / max(abs(y["_score"]), 1e-30))
+        sharded = kernels.snapshot().get("bm25_postings_sharded", 0) - k0
+        _hold(sharded >= WD_GENERIC, f"(d) the split served {sharded} "
+              f"term groups", "5r")
+        _hold(worst <= 1e-5, f"(d) scores off by {worst:.3e}", "5r")
+    finally:
+        postings_shard.POSTINGS_SHARD_NNZ = saved
+        inv._pshard = None
+        del split
+        torch.cuda.empty_cache()
+    b1 = bm25_topk.LAUNCHES - b1_0 + b1_b
+    b2 = knn_topk.LAUNCHES - b2_0 + b2_b
+    log(f"[5r] (a) a {WD_STALL_S} s spin queued ahead of one B1 search on "
+        f"{card}: program_stall tripped on [mesh_dsl|"
+        f"{trip['detail']['shapes']}] {trip_s * 1e3:.3f} ms after the "
+        f"stall began (bound {trip['detail']['bound_seconds']} s, the "
+        f"dispatch {trip['detail']['age_seconds']:.3f} s in flight), "
+        f"incident {trip['incident_id']}; the search answered in "
+        f"{stall_ms:.3f} ms, its hits unchanged, its execute time "
+        f"{grew:.3f} s")
+    log(f"[5r] (b) python -m elasticsearch_tpu_torch.server with "
+        f"ESTPU_FAULTS=watchdog.program_stall:count=1: {WD_MATCH} match and "
+        f"{WD_KNN} knn bodies a round for {WD_SERVE_S} s (B1 {b1_b}, B2 "
+        f"{b2_b} in "
+        f"its process); incident {iid} listed, flight counts {counts}; "
+        f"after SIGTERM and a restart on the same path it is listed as "
+        f"persisted and its payload answers")
+    log(f"[5r] (c) {WD_MATCH} match bodies on phase 5's node, "
+        f"{WD_COST_S} s an arm, twice: p50 {p50['ticking']:.4f} ms with the "
+        f"watchdog ticking ({ticks} ticks) against {p50['closed']:.4f} ms "
+        f"closed ({(p50['ticking'] / p50['closed'] - 1) * 100:+.2f}%; "
+        f"{len(arms['ticking'])} and {len(arms['closed'])} searches)")
+    log(f"[5r] (d) phase 5's body field ({inv.nnz} postings) split into "
+        f"{WD_SLOTS} term-range slots on {dev} in {build_ms:.3f} ms: "
+        f"{WD_GENERIC} generic bodies through the split, the same top 10 "
+        f"and totals as the unsplit path, scores within {worst:.3e} "
+        f"relative; phase 5r took {time.perf_counter() - t_phase:.1f} s")
+    return b1, b2
+
+
 CL_MEMBERS = 3             # (a): launcher processes on the one card
 CL_SHARDS = 3              # (b): one primary and one replica a member
 CL_REPLICAS = 1
@@ -8703,6 +9041,17 @@ def phase_cluster(torch, np, dev, card):
             node.close()
         b1_self = bm25_topk.LAUNCHES - b1_self
         one_ms = np.asarray(one_ms)
+        # the support bundle merges every member's part
+        t = time.perf_counter()
+        st, raw, diag = https[2]("GET", "/_cluster/diagnostics")
+        diag_ms = (time.perf_counter() - t) * 1e3
+        _hold(st == 200 and diag["_nodes"] == {
+            "total": CL_MEMBERS, "successful": CL_MEMBERS, "failed": 0}
+              and len(diag["nodes"]) == CL_MEMBERS and all(
+                  {"flight", "watchdog", "incidents", "hot_threads",
+                   "programs"} <= set(x) for x in diag["nodes"].values()),
+              f"(c) /_cluster/diagnostics answered {st} with "
+              f"{diag.get('_nodes')}", "5q")
 
         # (d) the master killed while a survivor streams _bulk
         kill_docs = wp_docs(np, CL_KILL_BULK * CL_KILL_REQS, SEED + 122,
@@ -8745,6 +9094,15 @@ def phase_cluster(torch, np, dev, card):
                     events.append(f"{at - t_kill:+.3f} s {line.strip()}")
         survivors = https[1:]
         health_d = [h("GET", "/_cluster/health")[2] for h in survivors]
+        # the new master's flight recorder holds its election
+        flights = [h("GET", "/_nodes/_local/flight")[2]["flight"]
+                   for h in survivors]
+        elected = [e for f in flights
+                   if f["node"] == health_d[0]["master_node"]
+                   for e in f["rings"]["cluster"]
+                   if e.get("event") == "elected"]
+        _hold(elected and elected[-1]["term"] == health_d[0]["term"],
+              f"(d) the new master's cluster ring {elected}", "5q")
         _hold(all(x["term"] == health_d[0]["term"] >= 2
                   and x["master_node"] == health_d[0]["master_node"]
                   and x["number_of_nodes"] == CL_MEMBERS - 1
@@ -8795,13 +9153,17 @@ def phase_cluster(torch, np, dev, card):
         f"(ids, order, totals; worst score rel {worst:.3e}); p50/p99 "
         f"{_pcts(np, cl)} over HTTP against {_pcts(np, one_ms)} in "
         f"process on one node; B1 launches a member {b1_members} (their "
-        f"_nodes/stats), {b1_self} in the one node")
+        f"_nodes/stats), {b1_self} in the one node; /_cluster/diagnostics "
+        f"merged {CL_MEMBERS} members' parts ({len(raw)} bytes) in "
+        f"{diag_ms:.3f} ms")
     log(f"[5q] (d) master SIGKILLed after {CL_KILL_REQS // 4} of "
         f"{CL_KILL_REQS} _bulk requests: a new master at term "
         f"{health_d[0]['term']} in {elect_s:.3f} s; "
         f"{len(acked_d)} of {len(kill_docs)} docs acknowledged, all "
         f"{want_n} acknowledged docs counted and {CL_SAMPLED} sampled ids "
-        f"read back; SIGTERM to exit 0 in {stop_s:.3f} s; phase "
+        f"read back; the new master's flight ring holds its election at "
+        f"term {elected[-1]['term']}; SIGTERM to exit 0 in {stop_s:.3f} s; "
+        f"phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     for e in events:
         log(f"[5q] (d) after the SIGKILL: {e}")
@@ -9248,6 +9610,7 @@ def main() -> int:
     launches["bm25_dense_topk"] += b1_ms
     launches["knn_topk"] += b2_ms
     mesh_node.close()
+    corpus_df = corpus[4]  # phase 5r's bodies
     del corpus, mesh_node, shard_text
     torch.cuda.empty_cache()
     taxi_node, taxis = phase_aggs(torch, np, dev, card)
@@ -9284,6 +9647,9 @@ def main() -> int:
     launches["bm25_dense_topk"] += b1
     launches["knn_topk"] += b2
     launches["adc_scores"] += b3
+    b1, b2 = phase_watchdog(torch, np, dev, card, read_node, corpus_df)
+    launches["bm25_dense_topk"] += b1
+    launches["knn_topk"] += b2
     read_node.close()
     del sift, ivf_index, pq_parts, read_node
     torch.cuda.empty_cache()

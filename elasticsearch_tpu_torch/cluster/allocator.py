@@ -39,11 +39,12 @@ node (``cluster.routing.allocation.node_concurrent_recoveries``) so
 rebalancing can never starve serving.
 
 Stuck-move robustness: every in-flight relocation is visible through
-:meth:`inflight_snapshot` (the reference's relocation watchdog reads it;
-the port's watchdog is ROADMAP A10g); a wedged stream — ``relocation.stream``
-fault, dead target, hung transport — is cancelled through
-:meth:`cancel_relocation`, its throttle slot released, and the move
-rescheduled onto a different target with the wedged one banned.
+:meth:`inflight_snapshot`, which the stall watchdog's
+``relocation_stall`` detector reads (monitor/watchdog.py); a wedged
+stream — ``relocation.stream`` fault, dead target, hung transport — is
+cancelled through :meth:`cancel_relocation`, its throttle slot released,
+and the move rescheduled onto a different target with the wedged one
+banned.
 
 Thread discipline: relocation streams run on daemon threads whose retry
 loops gate on the per-task cancel event AND the allocator's stop event;

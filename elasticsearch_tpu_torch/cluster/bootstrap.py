@@ -109,6 +109,11 @@ class MultiHostCluster:
         # from this node would name an id no nodes map contains
         node.tasks.node_id = nid
         node.tracer.node_id = nid
+        # and so does the flight recorder's (the reference's keeps the
+        # id from before the rename, which no nodes map contains)
+        fl = getattr(node, "flight", None)
+        if fl is not None:
+            fl.node_id = nid
         state = node.cluster_state
         for r in state.routing:
             if r.node_id == old_id:
@@ -328,6 +333,11 @@ class MultiHostCluster:
                 target=self._fault_loop, args=(ping_interval,),
                 name="tpu-fault-detector", daemon=True)
             self._fd_thread.start()
+        # a cluster member is a serving node: the watchdog ticks for the
+        # life of the member (ESTPU_WATCHDOG=0 opts out)
+        wd = getattr(node, "watchdog", None)
+        if wd is not None:
+            wd.ensure_started()
 
     # -- quorum / blocks ------------------------------------------------------
 
@@ -385,6 +395,8 @@ class MultiHostCluster:
         self._go_headless()
         logger.warning("[%s] stepping down as master: %s",
                        self.local.node_id, reason or "quorum lost")
+        self._flight("cluster", event="step_down",
+                     reason=reason or "quorum lost")
         try:
             self.node.metrics.counter(
                 "estpu_discovery_master_stepdowns_total",
@@ -822,6 +834,7 @@ class MultiHostCluster:
         self._clear_headless()
         logger.warning("[%s] elected master for term %d",
                        self.local.node_id, term)
+        self._flight("cluster", event="elected", term=term)
         # metadata takeover: drop dead members from every copy list
         # (promoting in-sync survivors under BUMPED shard terms — the
         # reconcile/_sync_local_terms path) and re-replicate
@@ -925,8 +938,28 @@ class MultiHostCluster:
         stale-term rejection, which means a newer master exists — and
         this master STEPS DOWN without committing. Returns whether the
         state committed."""
-        with self._publish_lock:
-            return self._publish_locked(self.node.cluster_state)
+        # the watchdog's board: the publish is visible while in flight (a
+        # wedged quorum round is a stall no completion counter shows);
+        # the wait for the lock counts
+        wd = getattr(self.node, "watchdog", None)
+        tok = wd.board.begin("publish_commit") if wd is not None else None
+        try:
+            with self._publish_lock:
+                return self._publish_locked(self.node.cluster_state)
+        finally:
+            if wd is not None:
+                wd.board.end(tok)
+
+    def _flight(self, ring: str, **fields) -> None:
+        """Best-effort flight-recorder entry (monitor/flight.py): the
+        control plane's election and publish transitions are the
+        evidence an incident dump needs to explain a write outage."""
+        try:
+            fl = getattr(self.node, "flight", None)
+            if fl is not None:
+                fl.record(ring, **fields)
+        except Exception:  # recording must never perturb the control
+            pass           # plane
 
     def _publish_locked(self, state) -> bool:
         # serialized: two concurrent publishers (join handler thread vs a
@@ -987,11 +1020,16 @@ class MultiHostCluster:
             self._committed_meta = max(self._committed_meta,
                                        (term, indices_version))
             self._committed_snapshot = indices  # the deep copy just shipped
+        self._flight("cluster", event="publish_commit", term=term,
+                     version=version, acks=1 + len(acked))
         try:
             FAULTS.check("publish.commit", term=term, version=version)
         except Exception:
             # the injected master death between phases: followers hold an
-            # uncommitted pending state they will never apply
+            # uncommitted pending state they will never apply; recorded
+            # so the watchdog's publish detector trips on the window
+            self._flight("cluster", event="publish_commit_window_fault",
+                         term=term, version=version)
             return True
         for addr in acked:
             try:

@@ -60,12 +60,14 @@ from elasticsearch_tpu_torch.index.seqno import (NO_OPS_PERFORMED,
                                                  UNASSIGNED_SEQ_NO,
                                                  LocalCheckpointTracker)
 from elasticsearch_tpu_torch.index.translog import Translog
+from elasticsearch_tpu_torch.monitor import flight
 from elasticsearch_tpu_torch.resources.residency import Residency
 from elasticsearch_tpu_torch.tracing.tasks import check_cancelled
 from elasticsearch_tpu_torch.utils.errors import (
     ActionRequestValidationException, CircuitBreakingException,
     DocumentMissingException, EngineFailedException, ScriptException,
     StalePrimaryException, VersionConflictException)
+from elasticsearch_tpu_torch.utils.faults import FAULTS
 
 
 @dataclass
@@ -274,6 +276,10 @@ class Engine:
                 self.translog.close()
             except OSError:
                 pass  # the channel is what failed; the flag is what counts
+        # outside the engine lock: an engine has no node back-reference,
+        # so the event fans to every recorder of the process
+        flight.record("engine_failures", index=self.index_name,
+                      reason=reason)
 
     def adopt_store(self, translog_path: str) -> None:
         """Take over a failed primary's store (a promotion on a data
@@ -635,6 +641,9 @@ class Engine:
             if not live_docs:
                 pending, self._deletes_pending = self._deletes_pending, False
                 return self.maybe_merge() if pending else False
+            # a refresh failure is retryable, not tragic: the buffer keeps
+            # the docs and a later refresh serves them
+            FAULTS.check("segment.freeze", index=self.index_name)
             fresh = SegmentBuilder(self.mappings, self.residency)
             for d in live_docs:
                 fresh.add(d)

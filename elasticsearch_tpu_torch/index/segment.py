@@ -47,6 +47,7 @@ from elasticsearch_tpu_torch.index.doc_parser import ParsedDocument
 from elasticsearch_tpu_torch.index.mappings import Mappings
 from elasticsearch_tpu_torch.monitor import kernels
 from elasticsearch_tpu_torch.ops.scoring import f64_order_keys
+from elasticsearch_tpu_torch.parallel import postings_shard
 from elasticsearch_tpu_torch.resources.residency import (Residency,
                                                          ResidentArray)
 from elasticsearch_tpu_torch.utils.errors import CircuitBreakingException
@@ -153,6 +154,32 @@ class InvertedField:
     _pos_tokens: Any = None
     _pos_host_dpp: Any = None
     _dense_lock: Any = dfield(default_factory=threading.Lock)
+    # lazy term-range split of an oversized field's postings
+    # (parallel/postings_shard.py): None = unchecked, False = declined
+    _pshard: Any = None
+
+    def wants_postings_shard(self) -> bool:
+        """Whether the field's postings pass the split threshold (the
+        mesh declines such an index to the host loop, which scores the
+        field through its split)."""
+        return self.nnz >= postings_shard.POSTINGS_SHARD_NNZ
+
+    def postings_split(self, n_devices: Optional[int] = None):
+        """The field's term-range split, built once, or None (under the
+        threshold, one slot, or no host mirror). ``n_devices`` names the
+        slot count of the first build (``build_split``)."""
+        if self._pshard is False:
+            return None
+        if self._pshard is not None:
+            return self._pshard
+        if not self.wants_postings_shard():
+            return None
+        with self._dense_lock:
+            if self._pshard is None:
+                split = postings_shard.build_split(self, self.max_docs,
+                                                   n_devices)
+                self._pshard = split if split is not None else False
+        return self._pshard or None
 
     @staticmethod
     def _dense_get(d):
@@ -212,7 +239,9 @@ class InvertedField:
 
     @property
     def nnz_pad(self) -> int:
-        return int(self.doc_ids.shape[0])
+        """The padded postings length, without placing an oversized
+        field's postings."""
+        return int(self._doc_ids_raw.shape[0])
 
     def term_id(self, term: str) -> int:
         return self.vocab.get(term, -1)
@@ -229,6 +258,34 @@ class InvertedField:
         n = self.num_docs if num_docs is None else num_docs
         d = (self.df[self.vocab[term]] if term in self.vocab else 0) if df is None else df
         return float(np.log(1.0 + (n - d + 0.5) / (d + 0.5)))
+
+
+def _lazy_device_field(name: str):
+    """A lazy device accessor for one postings array (the reference's
+    ``_lazy_device_field``). The freeze places an ordinary field's
+    postings at once but keeps an oversized field's on the host: its
+    scoring goes through the term-range split, and the whole copy on the
+    device is made only when a path asks for it (phrases, terms aggs over
+    the field), then kept. Attached after the class: a property in the
+    dataclass body would read as a field default."""
+    raw = f"_{name}_raw"
+
+    def _get(self):
+        v = self.__dict__[raw]
+        if isinstance(v, np.ndarray):
+            v = self.residency.device_put(v)
+            self.__dict__[raw] = v
+        return v
+
+    def _set(self, v):
+        self.__dict__[raw] = v
+
+    return property(_get, _set)
+
+
+for _pname in ("doc_ids", "tf", "tfnorm", "term_ids"):
+    setattr(InvertedField, _pname, _lazy_device_field(_pname))
+del _pname
 
 
 def _resident_field(name: str):
@@ -864,7 +921,10 @@ def make_inverted(name: str, *, vocab: Dict[str, int], terms: List[str],
     nnz_pad = pow2_bucket(max(nnz, 1), minimum=8)
     term_ids = np.repeat(np.arange(V, dtype=np.int32),
                          np.diff(offsets).astype(np.int64))
-    put = residency.device_put
+    # an oversized field's postings stay on the host (InvertedField's
+    # lazy accessors place them on a first explicit use)
+    put = ((lambda a: a) if nnz >= postings_shard.POSTINGS_SHARD_NNZ
+           else residency.device_put)
     return InvertedField(
         name=name, vocab=vocab, terms=terms, df=df, cf=cf, offsets=offsets,
         doc_ids=put(pad_to(doc_ids_host.astype(np.int32), nnz_pad, max_docs)),

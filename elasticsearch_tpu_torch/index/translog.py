@@ -29,6 +29,7 @@ import zlib
 from typing import Callable, Iterator, Optional
 
 from elasticsearch_tpu_torch.monitor.metrics import SHARED
+from elasticsearch_tpu_torch.utils.faults import FAULTS
 
 _MAGIC = 0xE5
 _VERSION = 2
@@ -128,6 +129,7 @@ class Translog:
                     f"translog [{self.path}] is closed")
             start = self._fh.tell()
             try:
+                FAULTS.check("translog.append", path=self.path)
                 self._fh.write(_HEADER.pack(_MAGIC, _VERSION, len(payload),
                                             zlib.crc32(payload)))
                 self._fh.write(payload)
@@ -158,6 +160,7 @@ class Translog:
     def _sync_locked(self):
         t0 = time.perf_counter()
         self._fh.flush()
+        FAULTS.check("translog.fsync", path=self.path)
         os.fsync(self._fh.fileno())
         self._ops_since_sync = 0
         self._sync_count += 1

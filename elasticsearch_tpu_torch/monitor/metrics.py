@@ -43,11 +43,11 @@ clock itself.
 
 Port of elasticsearch_tpu/monitor/metrics.py. The registry, the families
 and the exposition are the reference's. ``process_counters`` reads the
-port's kernel counters and, since the port's breakers and residency
-registry belong to each node, the given node's. The
-reference's ``jit``, program, compile-cache and flight-recorder families
-have no source in the port yet (the compile/warm layer and the flight
-recorder, ROADMAP A11 and A10g): they are absent, never zero.
+port's kernel counters, the watchdog's trip and incident counters and,
+since the port's breakers and residency registry belong to each node,
+the given node's. The reference's ``jit``, program and compile-cache
+families have no source in the port yet (the compile/warm layer,
+ROADMAP A11): they are absent, never zero.
 """
 from __future__ import annotations
 
@@ -433,8 +433,10 @@ def process_counters(node) -> Dict[str, float]:
     launches and dispatch decisions (monitor/kernels.py), ``node``'s
     residency evictions/rehydrations and breaker trips (the port's
     breakers and residency registry belong to a node, ROADMAP C20) and
-    the SHARED registry's counters. A bench snapshots this before and
-    after a run and reports the delta."""
+    the SHARED registry's counters, and the watchdog's trips and
+    incidents of the process (``watchdog.trips[.<detector>]``,
+    ``watchdog.incidents``). A bench snapshots this before and after a
+    run and reports the delta."""
     out: Dict[str, float] = {}
     from elasticsearch_tpu_torch.monitor import kernels
 
@@ -449,6 +451,9 @@ def process_counters(node) -> Dict[str, float]:
     out["residency.rehydrations"] = float(rh)
     for name, br in node.breakers.stats().items():
         out[f"breakers.{name}.tripped"] = float(br.get("tripped", 0))
+    from elasticsearch_tpu_torch.monitor import flight
+
+    out.update(flight.trip_counters())
     out.update(SHARED.counter_values())
     return out
 

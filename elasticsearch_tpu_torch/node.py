@@ -61,9 +61,12 @@ settings (``node.cluster_settings``) and the stored search templates'
 versions. ``nodes_stats`` adds their ``thread_pool``, ``tasks``,
 ``metrics`` and ``serving`` sections, the dispatch counters under
 ``indices.search.kernels`` and the kernels' launches under
-``indices.search.launches``. The reference's ``programs`` section comes
-with the compile/warm layer (ROADMAP A11); ``flight`` and ``watchdog``
-with A10g. A member of a cluster (``node.multihost``,
+``indices.search.launches``. Each node owns a flight recorder
+(``node.flight``, monitor/flight.py), registered with the process fan,
+and a stall watchdog (``node.watchdog``, monitor/watchdog.py) whose tick
+thread the serving entry points start; ``nodes_stats`` carries their
+``flight`` and ``watchdog`` sections. The reference's ``programs``
+section comes with the compile/warm layer (ROADMAP A11). A member of a cluster (``node.multihost``,
 ``cluster/bootstrap.py``) routes the writes, searches, index deletes and
 alias changes of a distributed index through the cluster's data plane,
 and ``nodes_stats`` carries its ``transport`` address.
@@ -91,6 +94,7 @@ from elasticsearch_tpu_torch.index import ivf_cache
 from elasticsearch_tpu_torch.index.engine import _deep_merge
 from elasticsearch_tpu_torch.index.index_service import IndexService
 from elasticsearch_tpu_torch import __version__
+from elasticsearch_tpu_torch.monitor import flight as flight_mod
 from elasticsearch_tpu_torch.monitor import kernels
 from elasticsearch_tpu_torch.monitor.metrics import MetricsRegistry, span_sink
 from elasticsearch_tpu_torch.monitor.stats import (SearchStats,
@@ -98,6 +102,7 @@ from elasticsearch_tpu_torch.monitor.stats import (SearchStats,
                                                    aggregate_slowlog,
                                                    device_stats, os_stats,
                                                    process_stats)
+from elasticsearch_tpu_torch.monitor.watchdog import WatchdogService
 from elasticsearch_tpu_torch.resources.breakers import CircuitBreakerService
 from elasticsearch_tpu_torch.resources.residency import Residency
 from elasticsearch_tpu_torch.search.batch import (msearch_error_entry,
@@ -136,6 +141,15 @@ class Node:
         self.metrics = MetricsRegistry(include_shared=True)
         self.tracer.set_sink(span_sink(self.metrics))
         self._register_metric_collectors()
+        # flight recorder and stall watchdog: the recorder joins the
+        # process fan so node-less sources (engines) reach it, and the
+        # node's breakers record their trips into it; the watchdog's tick
+        # thread starts with a serving entry point (RestServer.start, a
+        # cluster member)
+        self.flight = flight_mod.FlightRecorder(self.node_id, name)
+        flight_mod.register(self.flight)
+        self.breakers.flight = self.flight
+        self.watchdog = WatchdogService(self)
         self.indices: Dict[str, IndexService] = {}
         # stored search templates (carried by a snapshot's global state)
         # and each one's version (the REST layer's PUT bumps it)
@@ -894,8 +908,9 @@ class Node:
         fallback gauges beside them, and ``indices.search.launches``
         each hand-written kernel's launches in this process. The
         ``transport`` gives the node's transport address (a cluster
-        member's TCP endpoint). The reference's ``programs`` section comes
-        with ROADMAP A11; ``flight`` and ``watchdog`` with A10g."""
+        member's TCP endpoint). ``flight`` holds the flight recorder's ring
+        counts and ``watchdog`` the watchdog's trips and state; the
+        reference's ``programs`` section comes with ROADMAP A11."""
         search = {k: 0 for k in SearchStats().to_json()}
         indexing = {"index_total": 0, "delete_total": 0,
                     "index_time_in_millis": 0}
@@ -957,6 +972,8 @@ class Node:
                 "metrics": self.metrics.summaries(),
                 "serving": self.serving.stats(),
                 "slowlog": aggregate_slowlog(self.indices.values()),
+                "flight": self.flight.stats(),
+                "watchdog": self.watchdog.stats(),
                 "accelerator": device_stats(self.device),
                 "transport": self._transport_info(),
             }},
@@ -989,7 +1006,11 @@ class Node:
         }
 
     def close(self):
-        # the coalescer first: parked requests resolve before the indices
+        # the watchdog stops and the recorder leaves the process fan
+        # first: a detector must not race the indices closing under it
+        self.watchdog.close()
+        flight_mod.unregister(self.flight)
+        # the coalescer next: parked requests resolve before the indices
         # they search close
         self.serving.close()
         for svc in self.indices.values():

@@ -25,6 +25,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from elasticsearch_tpu_torch.monitor.programs import REGISTRY, static_sig
 from elasticsearch_tpu_torch.ops.adc import adc_scores
 from elasticsearch_tpu_torch.ops.bitvec import test_bits
 from elasticsearch_tpu_torch.ops.knn import knn_scores
@@ -251,12 +252,32 @@ def ivf_candidate_scores(index: IvfIndex, vecs: torch.Tensor, query,
 
     Without ``pq`` and filter: IVF-flat. Otherwise the coarse -> fine
     pipeline with ``fine_k`` survivors (default 64) and the optional
-    packed pre-filter ``filter_words`` (``ops/bitvec.pack_mask``)."""
+    packed pre-filter ``filter_words`` (``ops/bitvec.pack_mask``).
+
+    The dispatch is in flight (monitor/programs.py) until the card has
+    finished it: the result has no copy back of its own (the query node
+    reads it later), so the bracket ends waiting on the stream."""
     nprobe = index.nprobe_for(num_candidates)
     q = torch.as_tensor(np.asarray(query, np.float32), device=vecs.device)
     if pq is None and filter_words is None:
-        return ivf_search(index, q, vecs, nprobe, metric, D)
+        with REGISTRY.timed("ivf_search", static_sig(
+                C=index.C, Lmax=index.Lmax, D=D, nprobe=nprobe)):
+            out = ivf_search(index, q, vecs, nprobe, metric, D)
+            _settle(vecs.device)
+        return out
     W = nprobe * index.Lmax
     fk = max(1, min(int(fine_k or 64), W, D))
-    return ivf_pq_search(index, q, vecs, nprobe, metric, D, pq=pq,
-                         fine_k=fk, filter_words=filter_words)
+    with REGISTRY.timed(
+            "ivf_pq_search" if pq is not None else "ivf_search",
+            static_sig(C=index.C, Lmax=index.Lmax, D=D, nprobe=nprobe,
+                       fk=fk, filtered=filter_words is not None)):
+        out = ivf_pq_search(index, q, vecs, nprobe, metric, D, pq=pq,
+                            fine_k=fk, filter_words=filter_words)
+        _settle(vecs.device)
+    return out
+
+
+def _settle(device: torch.device) -> None:
+    """Wait for the work queued on ``device``'s current stream."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()

@@ -73,6 +73,7 @@ import torch
 
 from elasticsearch_tpu_torch.index.segment import stacking
 from elasticsearch_tpu_torch.monitor import kernels
+from elasticsearch_tpu_torch.monitor.programs import REGISTRY, static_sig
 from elasticsearch_tpu_torch.ops.bm25_topk import unpack_topk
 from elasticsearch_tpu_torch.ops.knn import (exact_rescore_topk, knn_topk,
                                              merge_candidate_topk)
@@ -647,7 +648,11 @@ class MeshSearchExecutor:
                     self._remember(prep_key, rd)
             else:
                 kernels.record("executor_prep_hit")
-            out, mask = self._run_round(rd)
+            # in flight from the launch to the packed result's copy back
+            # (the reference's memo and fresh dispatch points alike)
+            with REGISTRY.timed("mesh_dsl", static_sig(
+                    S=len(seg_row), D=_round_docs(seg_row), k=rd.kk)):
+                out, mask = self._run_round(rd)
             totals += self._decode_round(out, rd, lut_shard, lut_ord, merged,
                                          seg_row, agg_rounds)
             if mask is not None:
@@ -743,35 +748,38 @@ class MeshSearchExecutor:
         order = np.asarray(_shard_order(lut_shard), np.int64)
         perm = torch.from_numpy(order).to(self.device)
         chunk = max(1, _ROUND_ELEMS // (S * D))
-        outs = []
-        for q0 in range(0, Qr, chunk):
-            n = min(q0 + chunk, Qr) - q0
-            G = S * n
-            scores = bm25_score_batch(
-                doc_ids, tfnorm, starts[:, q0: q0 + n].reshape(G, T),
-                lens[:, q0: q0 + n].reshape(G, T),
-                ws[:, q0: q0 + n].reshape(G, T), D=D,
-                slot_of=np.repeat(np.arange(S, dtype=np.int32), n))
-            masked = torch.where(live.unsqueeze(1), scores.view(S, n, D),
-                                 NEG_INF)
-            total = (masked > 0).sum((0, 2))
-            sv, si = topk_stable(masked.view(G, D), kk)
-            # each slot's top kk, the slots in shard order, then one
-            # stable merge per query
-            sv = sv.reshape(S, n, kk).index_select(0, perm)
-            si = si.reshape(S, n, kk).index_select(0, perm)
-            flat_v = sv.permute(1, 0, 2).reshape(n, S * kk)
-            flat_i = si.permute(1, 0, 2).reshape(n, S * kk)
-            gv, gpos = torch.sort(flat_v, dim=1, descending=True,
-                                  stable=True)
-            gv, gpos = gv[:, :kg], gpos[:, :kg]
-            outs.append(torch.cat([
-                gv.contiguous().view(torch.int32),
-                (gpos // kk).to(torch.int32),
-                torch.gather(flat_i, 1, gpos).to(torch.int32),
-                total.view(n, 1).view(torch.int32)], dim=1))
+        # in flight from the first launch to the copy back
+        with REGISTRY.timed("mesh_bm25", static_sig(
+                S=S, Q=pow2_bucket(Qr, 1), T=pow2_bucket(T, 1), D=D, k=kk)):
+            outs = []
+            for q0 in range(0, Qr, chunk):
+                n = min(q0 + chunk, Qr) - q0
+                G = S * n
+                scores = bm25_score_batch(
+                    doc_ids, tfnorm, starts[:, q0: q0 + n].reshape(G, T),
+                    lens[:, q0: q0 + n].reshape(G, T),
+                    ws[:, q0: q0 + n].reshape(G, T), D=D,
+                    slot_of=np.repeat(np.arange(S, dtype=np.int32), n))
+                masked = torch.where(live.unsqueeze(1), scores.view(S, n, D),
+                                     NEG_INF)
+                total = (masked > 0).sum((0, 2))
+                sv, si = topk_stable(masked.view(G, D), kk)
+                # each slot's top kk, the slots in shard order, then one
+                # stable merge per query
+                sv = sv.reshape(S, n, kk).index_select(0, perm)
+                si = si.reshape(S, n, kk).index_select(0, perm)
+                flat_v = sv.permute(1, 0, 2).reshape(n, S * kk)
+                flat_i = si.permute(1, 0, 2).reshape(n, S * kk)
+                gv, gpos = torch.sort(flat_v, dim=1, descending=True,
+                                      stable=True)
+                gv, gpos = gv[:, :kg], gpos[:, :kg]
+                outs.append(torch.cat([
+                    gv.contiguous().view(torch.int32),
+                    (gpos // kk).to(torch.int32),
+                    torch.gather(flat_i, 1, gpos).to(torch.int32),
+                    total.view(n, 1).view(torch.int32)], dim=1))
+            out = torch.cat(outs).cpu().numpy()  # one copy back
         kernels.record("bm25_scatter", Qr)
-        out = torch.cat(outs).cpu().numpy()  # one copy back
         slot = order[out[:, kg: 2 * kg]]
         return (out[:, :kg].view(np.float32), lut_shard[slot],
                 out[:, 2 * kg: 3 * kg], lut_ord[slot],
@@ -792,7 +800,8 @@ class MeshSearchExecutor:
             vals, idx = exact_rescore_topk(q, vecs, vals, idx, metric=metric)
             return vals[:, :k], idx[:, :k]
 
-        return self._search_vector_rounds(field, q.shape[0], k, topk)
+        return self._search_vector_rounds(field, q.shape[0], k, topk,
+                                          "mesh_knn")
 
     def search_maxsim(self, field: str, tokens: np.ndarray, k: int = 10,
                       metric: str = "cosine"):
@@ -813,39 +822,47 @@ class MeshSearchExecutor:
                 k=min(k, T * kp))
             return vals, idx
 
-        return self._search_vector_rounds(field, nq, k, topk)
+        return self._search_vector_rounds(field, nq, k, topk, "mesh_maxsim")
 
-    def _search_vector_rounds(self, field: str, nq: int, k: int, topk):
+    def _search_vector_rounds(self, field: str, nq: int, k: int, topk,
+                              program: str):
         """Per round: ``topk(vecs, live)`` on every slot's own slab (B2
         and the re-rank), the slots stacked in shard order, one sorted
-        merge per request, one copy back; rounds merge on the host."""
+        merge per request, one copy back; rounds merge on the host. Each
+        round is in flight, as ``program``, up to its copy back."""
         merged = None
         for row in self._rounds_for(self.shards):
             lut_shard = [e[0] if e is not None else -1 for e in row]
             lut_ord = [e[1] if e is not None else 0 for e in row]
             order = _shard_order(lut_shard)
-            vals = torch.full((len(row), nq, k), NEG_INF,
-                              dtype=torch.float32, device=self.device)
-            ids = torch.zeros((len(row), nq, k), dtype=torch.int32,
-                              device=self.device)
-            for pos, s in enumerate(order):
-                seg = row[s][2] if row[s] is not None else None
-                vc = seg.vectors.get(field) if seg is not None else None
-                if vc is None:
-                    continue
-                kernels.record("knn_fused_topk")
-                v, i = topk(vc.vecs, seg.live & vc.exists)
-                vals[pos, :, : v.shape[1]] = v
-                ids[pos, :, : v.shape[1]] = i
-            flat_v = vals.permute(1, 0, 2).reshape(nq, -1)
-            flat_i = ids.permute(1, 0, 2).reshape(nq, -1)
-            gv, gpos = torch.sort(flat_v, dim=1, descending=True,
-                                  stable=True)
-            gv, gpos = gv[:, :k], gpos[:, :k]
-            out = torch.cat([gv.contiguous().view(torch.int32),
-                             (gpos // k).to(torch.int32),
-                             torch.gather(flat_i, 1, gpos)],
-                            dim=1).cpu().numpy()
+            segs = [e[2] if e is not None else None for e in row]
+            vcs = [s.vectors.get(field) for s in segs if s is not None]
+            dims = next((vc.dims for vc in vcs if vc is not None), 0)
+            with REGISTRY.timed(program, static_sig(
+                    S=len(row), Q=pow2_bucket(nq, 1), D=_round_docs(segs),
+                    dims=dims, k=k)):
+                vals = torch.full((len(row), nq, k), NEG_INF,
+                                  dtype=torch.float32, device=self.device)
+                ids = torch.zeros((len(row), nq, k), dtype=torch.int32,
+                                  device=self.device)
+                for pos, s in enumerate(order):
+                    seg = row[s][2] if row[s] is not None else None
+                    vc = seg.vectors.get(field) if seg is not None else None
+                    if vc is None:
+                        continue
+                    kernels.record("knn_fused_topk")
+                    v, i = topk(vc.vecs, seg.live & vc.exists)
+                    vals[pos, :, : v.shape[1]] = v
+                    ids[pos, :, : v.shape[1]] = i
+                flat_v = vals.permute(1, 0, 2).reshape(nq, -1)
+                flat_i = ids.permute(1, 0, 2).reshape(nq, -1)
+                gv, gpos = torch.sort(flat_v, dim=1, descending=True,
+                                      stable=True)
+                gv, gpos = gv[:, :k], gpos[:, :k]
+                out = torch.cat([gv.contiguous().view(torch.int32),
+                                 (gpos // k).to(torch.int32),
+                                 torch.gather(flat_i, 1, gpos)],
+                                dim=1).cpu().numpy()
             slot = np.asarray(order, np.int32)[out[:, k: 2 * k]]
             res = (out[:, :k].view(np.float32),
                    np.asarray(lut_shard, np.int32)[slot], out[:, 2 * k:],
@@ -864,6 +881,12 @@ def _record_tgroup_kernels(compiled) -> None:
         kernels.record("bm25_hybrid", n_hybrid)
     if n_scatter:
         kernels.record("bm25_scatter", n_scatter)
+
+
+def _round_docs(seg_row) -> int:
+    """A round's doc-axis class: the pow2 class of its largest slot."""
+    return pow2_bucket(max([s.max_docs for s in seg_row if s is not None]
+                           + [1]))
 
 
 def _segments_of(s) -> list:

@@ -105,7 +105,7 @@ def _try_mesh_msearch(svc, searchers, queries, k: int):
     if len(searchers) < 2 or k < 1:
         return None  # one shard: the host tiers already are one pass
     shard_segs = [list(s.segments) for s in searchers]
-    if _any_nested(shard_segs):
+    if _any_nested(shard_segs) or _any_oversized(shard_segs):
         return None
     probe = next((seg for segs in shard_segs for seg in segs), None)
     if probe is None:
@@ -147,6 +147,15 @@ def _any_nested(shard_segs) -> bool:
     return any(seg.has_nested for segs in shard_segs for seg in segs)
 
 
+def _any_oversized(shard_segs) -> bool:
+    """A segment with a field over the postings split's threshold: it
+    cannot be stacked into the round's [S, ...] arrays, so the host loop
+    scores it through its term-range split (parallel/postings_shard.py),
+    as the reference's mesh declines."""
+    return any(inv.wants_postings_shard() for segs in shard_segs
+               for seg in segs for inv in seg.inverted.values())
+
+
 def _canonical(body: dict) -> Optional[bytes]:
     """The prepared-query memo key: the request body, serialised (a
     repeated request skips build and copy; the round always re-runs).
@@ -182,7 +191,7 @@ def _try_mesh_search(svc, searchers, body: dict, global_stats=None):
     executor = svc.mesh_executor()
     k = max(frm + size, 1)
     shard_segs = [list(s.segments) for s in searchers]
-    if _any_nested(shard_segs):
+    if _any_nested(shard_segs) or _any_oversized(shard_segs):
         return None
     try:
         cands, totals, agg_rounds, mask_rounds = executor.search_dsl(

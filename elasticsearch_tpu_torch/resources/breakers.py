@@ -120,7 +120,11 @@ class CircuitBreaker:
 
     def reserve(self, n: int, count_trip: bool = True) -> bool:
         """Charge ``n`` bytes; False (and a ``tripped`` tick) when this
-        breaker's or the parent's limit would be exceeded."""
+        breaker's or the parent's limit would be exceeded. A counted
+        trip of a breaker in a service is recorded in the service's
+        flight recorder (its node's; the reference records into every
+        recorder of the process)."""
+        parent = False
         with self._lock:
             if self._would_trip(n):
                 if count_trip:
@@ -130,9 +134,16 @@ class CircuitBreaker:
                 if count_trip:
                     self._service.parent_tripped += 1
                     self.trip_count += 1
+                parent = True
             else:
                 self.used += n
                 return True
+            used, limit = self.used, self.limit
+        # outside the breaker lock: no new lock order
+        rec = self._service.flight if self._service is not None else None
+        if count_trip and rec is not None:
+            rec.record("breaker_trips", breaker=self.name, parent=parent,
+                       bytes_wanted=used + n, bytes_limit=limit)
         return False
 
     def break_or_reserve(self, n: int, label: str = "<unknown>") -> None:
@@ -205,6 +216,9 @@ class CircuitBreakerService:
         self.capacity = capacity if capacity is not None else hbm_capacity()
         self.parent_limit = parse_limit("70%", self.capacity)
         self.parent_tripped = 0
+        # the owning node's flight recorder (monitor/flight.py), set by
+        # the Node; trips record there
+        self.flight = None
         self._children: Dict[str, CircuitBreaker] = {}
         for name, limit, overhead, _prefix in _DEFAULTS:
             lb = (_segments_default() if limit is None

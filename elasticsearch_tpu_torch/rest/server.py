@@ -12,13 +12,14 @@ heavy work is the kernels on the card), a route table of (method,
 compiled regex) → handler, each request run on the named thread pool its
 route belongs to, and ES-shaped JSON error envelopes.
 
-Every route the reference registers is registered here. Nine answer a
+Every route the reference registers is registered here. Five answer a
 typed ``not_yet_ported_exception`` naming the ROADMAP item that brings
 them, never a partial answer: the program observatory and the pre-warm
 pipeline (``/_nodes/_local/xla/programs``, ``/_cat/programs``, the three
-``_warmup`` routes; ROADMAP A11) and the flight recorder's incident
-surface (``/_nodes/_local/flight``, ``/_cat/incidents``,
-``/_cluster/diagnostics`` and its incident route; A10g). On a node that
+``_warmup`` routes; ROADMAP A11). The flight recorder's surface
+(``/_nodes/_local/flight``, ``/_cat/incidents``, ``/_cluster/diagnostics``
+and its incident route) reads the node's recorder and watchdog
+(monitor/flight.py, monitor/watchdog.py). On a node that
 is a cluster member (``node.multihost``, cluster/bootstrap.py), the
 routes of a distributed index go through the cluster's data plane
 (``_mh``/``_mh_for``), and the node-level views (``_nodes``, ``_tasks``,
@@ -299,23 +300,20 @@ def _register_all(rc: RestController):
     # /_nodes/{nodeid} patterns so the literal path wins
     add("GET", "/_nodes/_local/xla/programs",
         _not_yet_ported("the device-program observatory", "A11"))
-    # flight recorder + watchdog + incident surface (ROADMAP A10g):
-    # per-node black box, cluster-wide support bundle, cat listing of
-    # captured incidents
-    add("GET", "/_nodes/_local/flight",
-        _not_yet_ported("the flight recorder", "A10g"))
+    # flight recorder + watchdog + incident surface (monitor/flight.py,
+    # monitor/watchdog.py): per-node black box, cluster-wide support
+    # bundle, cat listing of captured incidents
+    add("GET", "/_nodes/_local/flight", _node_flight)
     # pre-warm pipeline (ROADMAP A11): manual census-replay trigger +
     # status
     add("POST", "/_warmup", _not_yet_ported("the pre-warm pipeline", "A11"))
     add("GET", "/_warmup", _not_yet_ported("the pre-warm pipeline", "A11"))
     add("POST", "/{index}/_warmup",
         _not_yet_ported("the pre-warm pipeline", "A11"))
-    add("GET", "/_cat/incidents",
-        _not_yet_ported("the flight recorder's incidents", "A10g"))
-    add("GET", "/_cluster/diagnostics",
-        _not_yet_ported("the cluster diagnostics bundle", "A10g"))
+    add("GET", "/_cat/incidents", _cat_incidents)
+    add("GET", "/_cluster/diagnostics", _cluster_diagnostics)
     add("GET", "/_cluster/diagnostics/incidents/{incident_id}",
-        _not_yet_ported("the flight recorder's incidents", "A10g"))
+        _get_incident)
     # continuous metrics scrape (text exposition format 0.0.4): the node
     # registry + the process-shared families (monitor/metrics.py)
     add("GET", "/_prometheus/metrics", _prometheus_metrics)
@@ -2168,6 +2166,167 @@ def _node_trace(n: Node, p, b):
     trace-event format for offline flamegraph inspection (chrome://
     tracing / Perfetto / speedscope)."""
     return 200, n.tracer.chrome_trace()
+
+
+def _node_flight(n: Node, p, b):
+    """GET /_nodes/_local/flight: this node's flight-recorder rings
+    (metric deltas, slow ops, breaker trips, compile events, cluster
+    transitions, engine failures, watchdog trips), the watchdog's own
+    state and the incident listing."""
+    return 200, {
+        "flight": n.flight.snapshot(),
+        "watchdog": n.watchdog.stats(),
+        "incidents": n.watchdog.incidents.list(),
+    }
+
+
+def _incident_rows(n: Node, p) -> List[dict]:
+    """_cat/incidents rows: this node's incidents and every member's,
+    dedup'd by id (members in one process share the persisted index)."""
+    rows = []
+    for e in n.watchdog.incidents.list():
+        rows.append({
+            "id": str(e.get("id", "")),
+            "detector": str(e.get("detector", "")),
+            "node": str(e.get("node_name") or e.get("node") or ""),
+            "timestamp": str(e.get("timestamp_ms", "")),
+            "persisted": "true" if e.get("persisted") else "false",
+            "reason": str(e.get("reason", ""))[:120],
+        })
+    mh = _mh(n)
+    if mh is not None and "_local_only" not in p:
+        from elasticsearch_tpu_torch.cluster.search_action import \
+            ACTION_REST_PROXY
+
+        for nid in mh.data._other_nodes():
+            try:
+                res = mh.data._send(nid, ACTION_REST_PROXY, {
+                    "method": "GET", "path": "/_cat/incidents",
+                    "params": {}})
+            except Exception:
+                continue  # an unreachable member's incidents stay absent
+            if res.get("status") == 200:
+                rows.extend(r for r in (res.get("payload") or [])
+                            if isinstance(r, dict))
+    seen: set = set()
+    out = []
+    for r in rows:
+        if r["id"] in seen:
+            continue
+        seen.add(r["id"])
+        out.append(r)
+    out.sort(key=lambda r: r["timestamp"])
+    return out
+
+
+def _cat_incidents(n: Node, p, b):
+    """GET /_cat/incidents: one row per captured incident dump,
+    cluster-wide, oldest first."""
+    return 200, _cat_rows(_incident_rows(n, p),
+                          ["id", "detector", "node", "timestamp",
+                           "reason"])
+
+
+def _get_incident(n: Node, p, b, incident_id: str):
+    """GET /_cluster/diagnostics/incidents/{id}: one incident's full
+    payload: the copy in memory, the digest-checked persisted blob, or,
+    when the id names another live member, that member's copy."""
+    payload = n.watchdog.incidents.load(incident_id)
+    if payload is not None:
+        return 200, payload
+    owner, _, _seq = incident_id.partition(":")
+    mh = _mh(n)
+    if mh is not None and "_local_only" not in p \
+            and owner and owner != n.node_id \
+            and owner in n.cluster_state.nodes:
+        from elasticsearch_tpu_torch.cluster.search_action import \
+            ACTION_REST_PROXY
+
+        try:
+            res = mh.data._send(owner, ACTION_REST_PROXY, {
+                "method": "GET",
+                "path": f"/_cluster/diagnostics/incidents/{incident_id}",
+                "params": {}})
+            return res["status"], res["payload"]
+        except Exception:
+            # the owner just died, the outage incidents exist for: the
+            # typed 404 below, never an untyped 500
+            pass
+    from elasticsearch_tpu_torch.tracing.tasks import \
+        ResourceNotFoundException
+
+    raise ResourceNotFoundException(f"incident [{incident_id}] not found")
+
+
+def _local_diagnostics(n: Node, p) -> dict:
+    """One node's part of the diagnostics bundle; its key set is the
+    bundle's schema. ``programs`` holds the dispatches in flight and the
+    execute totals; compile rows come with ROADMAP A11."""
+    from elasticsearch_tpu_torch.monitor.watchdog import (
+        hot_threads_snapshot, programs_section)
+
+    try:
+        k = int(p.get("incidents", 2))
+    except (TypeError, ValueError):
+        k = 2
+    k = max(0, min(k, 8))
+    return {
+        "name": n.name,
+        "flight": n.flight.snapshot(),
+        "watchdog": n.watchdog.stats(),
+        "incidents": n.watchdog.incidents.list(),
+        "incident_payloads": n.watchdog.incidents.recent(k),
+        "hot_threads": hot_threads_snapshot(),
+        "tasks": [t.to_json() for t in n.tasks.list_tasks()][:64],
+        "programs": programs_section(),
+        "breakers": n.breakers.stats(),
+        "thread_pool": (n._thread_pool.stats()
+                        if n._thread_pool is not None else {}),
+    }
+
+
+def _cluster_diagnostics(n: Node, p, b):
+    """GET /_cluster/diagnostics: the cluster-wide support bundle, every
+    member's flight rings, watchdog state, incidents (the most recent
+    payloads inline), hot threads, dispatches in flight and tasks. In a
+    cluster each member's part comes over the REST proxy, as
+    ``nodes_fan``'s do; a dead member counts in ``_nodes.failed`` and is
+    listed under ``failures``, and the answer stays 200: a bundle taken
+    during an outage is the point."""
+    local = _local_diagnostics(n, p)
+    c = _mh(n)
+    if c is not None and "_local_only" in p:
+        # a proxied member's part: raw and unmerged
+        return 200, local
+    nodes = {n.node_id: local}
+    failures: List[dict] = []
+    if c is not None:
+        from elasticsearch_tpu_torch.cluster.search_action import \
+            ACTION_REST_PROXY
+
+        params = {k: p[k] for k in ("incidents",) if k in p}
+        for nid in c.data._other_nodes():
+            try:
+                res = c.data._send(nid, ACTION_REST_PROXY, {
+                    "method": "GET", "path": "/_cluster/diagnostics",
+                    "params": params})
+                if res.get("status") == 200 and res.get("payload"):
+                    nodes[nid] = res["payload"]
+                else:
+                    failures.append({"node_id": nid,
+                                     "reason": f"status {res.get('status')}"})
+            except Exception as e:
+                failures.append({"node_id": nid, "reason": str(e)})
+    return 200, {
+        "version": 1,
+        "cluster_name": n.cluster_state.cluster_name,
+        "timestamp": int(time.time() * 1000),
+        "master_node": n.cluster_state.master_node_id,
+        "_nodes": {"total": len(nodes) + len(failures),
+                   "successful": len(nodes), "failed": len(failures)},
+        "nodes": nodes,
+        "failures": failures,
+    }
 
 
 # -- document handlers --------------------------------------------------------
@@ -5374,13 +5533,14 @@ class RestServer:
         self._thread: Optional[threading.Thread] = None
 
     def start(self, background: bool = True):
-        # a node serving HTTP runs the stall watchdog (ROADMAP A10g) and
-        # pre-warms from its census (A11) where the node has them; the
-        # port's Node has neither yet, so both lookups find nothing
+        # a node serving HTTP runs the stall watchdog for as long as it
+        # serves (monitor/watchdog.py; ESTPU_WATCHDOG=0 opts out) and
+        # pre-warms from its census where the node has one (ROADMAP A11:
+        # the port's Node has none yet, so that lookup finds nothing)
         node = self.controller.node
-        wd = getattr(node, "watchdog", None)
-        if wd is not None:
-            wd.ensure_started()
+        self._watchdog = getattr(node, "watchdog", None)
+        if self._watchdog is not None:
+            self._watchdog.ensure_started()
         wu = getattr(getattr(node, "serving", None), "warmup", None)
         if wu is not None:
             try:
@@ -5396,6 +5556,10 @@ class RestServer:
     def stop(self):
         self.httpd.shutdown()
         self.httpd.server_close()
+        # the tick thread this server started stops with it
+        wd = getattr(self, "_watchdog", None)
+        if wd is not None:
+            wd.close()
 
 
 def _json_default(o):

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.monitor import kernels
+from elasticsearch_tpu_torch.monitor.programs import REGISTRY, static_sig
 from elasticsearch_tpu_torch.ops.bitvec import pack_mask, popcount
 from elasticsearch_tpu_torch.ops.bm25_topk import bm25_dense_topk, unpack_topk
 from elasticsearch_tpu_torch.ops.ivf import ivf_candidate_scores
@@ -124,6 +125,13 @@ def _score_term_group(ctx, field, terms, boost=1.0, with_counts=False):
         return _zeros(ctx, torch.float32), matched, 0
     terms, weights = _dedupe_terms(terms, boost, lambda t: ctx.idf(field, t))
     all_positive = all(w > 0 for w in weights)
+    split = inv.postings_split()
+    if split is not None:
+        # an oversized field: its postings lie in term-range slots whose
+        # partials merge by a sum (parallel/postings_shard.py)
+        kernels.record("bm25_postings_sharded")
+        return split.term_group(terms, weights, with_counts=with_counts,
+                                all_positive=all_positive, D=ctx.D)
     hyb = ctx.hybrid_slices(inv, terms, weights, need_qw=False)
     kernels.record("bm25_hybrid" if hyb is not None else "bm25_scatter")
     if hyb is not None:
@@ -180,10 +188,13 @@ def fused_bm25_topk(ctx, query, k: int):
     arg = torch.as_tensor(np.concatenate([qrw[real].view(np.int32),
                                           qrows[real]]), device=impact.device)
     kk = min(k, ctx.D)
-    buf = bm25_dense_topk(arg[:R].view(torch.float32).view(1, R), impact,
-                          ctx.segment.live, k=kk, rows=arg[R:], count=True,
-                          packed=True)
-    vals, ids, total = unpack_topk(buf.cpu().numpy(), kk)  # one copy back
+    # in flight (monitor/programs.py) up to the copy back
+    with REGISTRY.timed("bm25_fused_topk", static_sig(
+            R=pow2_bucket(R, 1), D=pow2_bucket(ctx.D), k=kk)):
+        buf = bm25_dense_topk(arg[:R].view(torch.float32).view(1, R),
+                              impact, ctx.segment.live, k=kk, rows=arg[R:],
+                              count=True, packed=True)
+        vals, ids, total = unpack_topk(buf.cpu().numpy(), kk)
     global FUSED_CALLS
     FUSED_CALLS += 1
     kernels.record("bm25_fused_topk")
@@ -274,9 +285,12 @@ def fused_bm25_topk_batch(ctx, queries: List[Query], k: int):
             qw = np.zeros((len(rows), row_qw.shape[0]), np.float32)
         qw[qi] = row_qw
     kk = min(k, ctx.D)
-    buf = bm25_dense_topk(torch.from_numpy(qw).to(impact.device), impact,
-                          ctx.segment.live, k=kk, count=True, packed=True)
-    vals, ids, totals = unpack_topk(buf.cpu().numpy(), kk)  # one copy back
+    with REGISTRY.timed("batch_bm25_fused", static_sig(
+            Q=pow2_bucket(len(rows), 1), D=pow2_bucket(ctx.D), k=kk)):
+        buf = bm25_dense_topk(torch.from_numpy(qw).to(impact.device),
+                              impact, ctx.segment.live, k=kk, count=True,
+                              packed=True)
+        vals, ids, totals = unpack_topk(buf.cpu().numpy(), kk)
     global FUSED_CALLS
     FUSED_CALLS += 1
     kernels.record("bm25_fused_topk", len(rows))
@@ -303,8 +317,8 @@ def hybrid_bm25_topk_batch(ctx, queries: List[Query], k: int,
     product would run in TF32 (then the caller's per-query path serves
     the batch exactly)."""
     got = _batch_field(ctx, queries)
-    if got is None:
-        return None
+    if got is None or got[0].wants_postings_shard():
+        return None  # an oversized field: per query, through its split
     inv, rows = got
     block = inv.dense_block()
     if block is None:

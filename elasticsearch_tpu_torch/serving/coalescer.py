@@ -45,8 +45,8 @@ Around the queue, as in the reference:
   its counts from them;
 - a coalesced search reaches the index's slow log with its queue wait
   and the batch's time;
-- ``oldest_queue_age`` is the probe a stall watchdog reads (the
-  watchdog itself comes with ROADMAP A10g).
+- ``oldest_queue_age`` is the probe the stall watchdog's
+  ``coalescer_drain`` detector reads (monitor/watchdog.py).
 """
 from __future__ import annotations
 

@@ -847,12 +847,16 @@ def test_the_local_replicas_marker_is_popped_and_ignored():
 
 
 def test_a_fault_point_the_port_never_checks_is_refused():
-    """``inject`` accepts only the points the port's code checks: a spec
-    naming another (here the reference's translog point) fails loudly
-    instead of never firing."""
-    with pytest.raises(ValueError, match="unknown fault point"):
-        FAULTS.inject("translog.append", count=1)
-    REF_FAULTS.inject("translog.append", count=1)  # the reference checks it
+    """``inject`` accepts only the points the code checks: a spec naming
+    another fails loudly instead of never firing. The port checks every
+    point the reference does, so both registries refuse the same name
+    and accept the translog's."""
+    for reg in (FAULTS, REF_FAULTS):
+        with pytest.raises(ValueError, match="unknown fault point"):
+            reg.inject("translog.truncate", count=1)
+        reg.inject("translog.append", count=1)
+        assert reg.active("translog.append")
+        reg.clear("translog.append")
 
 
 def test_c17_flush_and_force_merge_reach_every_copy():

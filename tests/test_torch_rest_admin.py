@@ -5,8 +5,8 @@ port's server against the reference's, the same requests to both
 Every answer is held exactly but for the volatile keys the harness masks
 (node ids, clocks, uuids, the process, host and device sections). Where
 the two sections of a node's stats differ by design (the reference's
-compile/warm, flight-recorder and watchdog sections, which the port
-brings with ROADMAP A11 and A10g), the test names each section.
+compile/warm section, which the port brings with ROADMAP A11), the test
+names each section.
 """
 import pytest
 
@@ -206,11 +206,25 @@ def test_nodes_info_and_stats(idx):
     assert rs == ps == 200
     r = next(iter(rb["nodes"].values()))
     p = next(iter(pb["nodes"].values()))
-    # the compile/warm layer (ROADMAP A11) and the flight recorder and
-    # watchdog (A10g) bring these
-    assert set(r) - set(p) == {"programs", "flight", "watchdog"}
+    # the compile/warm layer (ROADMAP A11) brings this one
+    assert set(r) - set(p) == {"programs"}
     assert set(p) - set(r) == set()
     assert p["transport"] == r["transport"]
+    # the flight recorder's rings and the watchdog's state: the same
+    # keys and counts, but the compile ring's, whose feed (and the
+    # census-flush cadence) the compile/warm layer brings (ROADMAP A11)
+    assert set(p["flight"]) == set(r["flight"]) == {"counts", "retained"}
+    for sec in ("counts", "retained"):
+        assert set(p["flight"][sec]) == set(r["flight"][sec])
+        assert p["flight"][sec]["compiles"] == 0
+        for ring, n in r["flight"][sec].items():
+            if ring != "compiles":
+                assert p["flight"][sec][ring] == n, (sec, ring)
+    assert set(r["watchdog"]) == set(p["watchdog"])
+    assert set(r["watchdog"]["config"]) - set(p["watchdog"]["config"]) \
+        == {"census_flush_every_s"}
+    for k in ("running", "trips", "incidents_captured", "inflight_ops"):
+        assert p["watchdog"][k] == r["watchdog"][k], k
     # the reference's breakers are process-wide (their estimates carry
     # every node of the process), the port's belong to the node: the
     # same breakers, limits and overheads

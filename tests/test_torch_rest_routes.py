@@ -4,9 +4,10 @@ Every ``(method, pattern)`` the reference registers is registered by the
 port, in the same order (the first matching route wins, so the order is
 part of the table), and ``pool_for`` names the same thread pool for each
 but the by-queries, which the port runs on ``bulk`` (ROADMAP C22).
-Nine routes answer a typed ``not_yet_ported_exception`` naming the ROADMAP
-item that brings them, and no other route does. An unknown route answers
-the reference's 400 envelope.
+Five routes answer a typed ``not_yet_ported_exception`` naming the ROADMAP
+item that brings them, and no other route does; the four of the flight
+recorder answer with the reference's status and keys. An unknown route
+answers the reference's 400 envelope.
 """
 import re
 
@@ -25,11 +26,15 @@ REFUSED = {
     ("POST", "/_warmup"): "A11",
     ("GET", "/_warmup"): "A11",
     ("POST", "/{index}/_warmup"): "A11",
-    ("GET", "/_nodes/_local/flight"): "A10g",
-    ("GET", "/_cat/incidents"): "A10g",
-    ("GET", "/_cluster/diagnostics"): "A10g",
-    ("GET", "/_cluster/diagnostics/incidents/{incident_id}"): "A10g",
 }
+
+#: the flight recorder's routes, served (monitor/flight.py)
+FLIGHT_ROUTES = [
+    ("GET", "/_nodes/_local/flight"),
+    ("GET", "/_cat/incidents"),
+    ("GET", "/_cluster/diagnostics"),
+    ("GET", "/_cluster/diagnostics/incidents/{incident_id}"),
+]
 
 
 @pytest.fixture(scope="module")
@@ -97,6 +102,29 @@ def test_refused_route_names_its_item(controllers, route):
     assert status == NotYetPortedException.status == 400
     assert out["error"]["type"] == "not_yet_ported_exception"
     assert f"ROADMAP {REFUSED[route]}" in out["error"]["reason"]
+
+
+@pytest.mark.parametrize("route", FLIGHT_ROUTES, ids=lambda r: " ".join(r))
+def test_flight_route_answers_as_the_reference(controllers, route):
+    """Each route of the flight recorder answers the reference's status
+    with the reference's top-level keys (an unknown incident: its typed
+    404). ``_cat/incidents`` lists what the process persisted, which
+    depends on the tests run before in it: its rows' columns are held."""
+    ref, port = controllers
+    method, pattern = route
+    path = _example_path(pattern)
+    (rs, rb), (ps, pb) = (c.dispatch(method, path, {}, b"")
+                          for c in (ref, port))
+    assert ps == rs
+    if isinstance(rb, dict):
+        assert set(pb) == set(rb)
+        if rs == 404:
+            assert pb["error"]["type"] == rb["error"]["type"]
+    else:
+        assert pb.default == rb.default
+        cols = {"id", "detector", "node", "timestamp", "persisted",
+                "reason"}
+        assert all(set(r) == cols for r in list(pb) + list(rb))
 
 
 def test_no_other_route_is_refused(controllers):
