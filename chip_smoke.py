@@ -339,6 +339,22 @@ Phases, in order; any failure exits non-zero before the result line:
             5's body field split into 4 term-range slots on the card
             (``postings_split(n_devices=4)``): 32 tail-term bodies give
             the unsplit path's top 10 and totals, scores within 1e-5;
+5s. warm    the compile/warm layer (ROADMAP A11), after 5r: (a) a node
+            process over a data path builds a mesh index (two slots) and
+            a host-loop index of 1,024 of 5n's docs, serves bodies that
+            reach B1 (head-term match), B2 (brute-force knn), B3 (IVF-PQ
+            knn) and B4 (hybrid with a PQ re-rank) and closes, which
+            stores its census and its kernel-library blobs; (b) a second
+            process over the same path with an empty kernel build
+            directory (``ops.build._BUILD_DIR``) starts its
+            ``RestServer``, waits for the boot warmup and answers the
+            same bodies: every library an ``aot_hit`` (no nvcc, no g++),
+            every request ``warmup="false"``, each body's hits (a)'s;
+            (c) a third over a copy of the data without the census, the
+            libraries built: its first request pays the first touch.
+            Printed: each key's first call against its execute p50, the
+            first request's latency warmed and cold, each library's load
+            and build seconds;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
@@ -8577,7 +8593,7 @@ def _wd_stall(torch, node, body):
                          program_default_bound_s=WD_FLOOR_S,
                          program_p99_mult=WD_P99_MULT, cooldown_s=0.0)
     calls0 = {r["shapes"]: r["execute_seconds"]
-              for r in programs.REGISTRY.rows()
+              for r in programs.REGISTRY.snapshot()
               if r["program"] == "mesh_dsl"}
     got, trip, trip_s = {}, None, None
     th = threading.Thread(target=lambda: got.update(
@@ -8599,7 +8615,7 @@ def _wd_stall(torch, node, body):
     _hold(trip["incident_id"] and wd.incidents.load(trip["incident_id"]),
           "(a) the trip captured no incident", "5r")
     check_hits(got["r"], want, "5r(a) the stalled search")
-    rows = {r["shapes"]: r for r in programs.REGISTRY.rows()
+    rows = {r["shapes"]: r for r in programs.REGISTRY.snapshot()
             if r["program"] == "mesh_dsl"}
     grew = rows[trip["detail"]["shapes"]]["execute_seconds"] - calls0.get(
         trip["detail"]["shapes"], 0.0)
@@ -8720,6 +8736,255 @@ def phase_watchdog(torch, np, dev, card, node, corpus_df):
         f"and totals as the unsplit path, scores within {worst:.3e} "
         f"relative; phase 5r took {time.perf_counter() - t_phase:.1f} s")
     return b1, b2
+
+
+# ---------------------------------------------------------------------------
+# phase 5s: the compile/warm layer (ROADMAP A11)
+# ---------------------------------------------------------------------------
+
+WS_DOCS = 1024             # 5h's log docs with a 128-d vector, each index
+WS_HEAD = 16               # body terms from t0..t15: dense rows at 1,024 docs
+WS_MATCH = 4               # head-term match bodies (B1's dense rows)
+WS_KNN = 2                 # brute-force (B2) and IVF-PQ (B3) knn bodies each
+WS_HYBRID = 2              # hybrid bodies with a PQ re-rank (B4)
+WS_TOKENS = 4              # the re-rank's query vectors
+WS_PROC_S = 240.0          # one process's limit
+WS_MAPPING = {"properties": dict(WP_MAPPING["properties"], emb={
+    "type": "dense_vector", "dims": DIMS, "similarity": "cosine",
+    "index_options": {"type": "ivf_pq"}})}
+#: the mesh (two slots) and the host loop
+WS_INDICES = {"wsm": {"number_of_shards": 2},
+              "wsh": {"number_of_shards": 1,
+                      "index": {"search": {"mesh": False}}}}
+
+#: one node process of 5s: ``role`` a records (builds the indices, serves
+#: the bodies, closes), b restarts over the data path with an empty
+#: kernel build directory and waits for its warmup, c restarts with the
+#: libraries built and no census; the build directory is passed in as
+#: ``ops.build._BUILD_DIR``
+_WS_CHILD = r"""
+import json, sys, time
+role, data, build_dir, spec_path = sys.argv[1:5]
+t_start = time.perf_counter()
+import torch
+from elasticsearch_tpu_torch.ops import build
+build._BUILD_DIR = build_dir
+from elasticsearch_tpu_torch import Node
+from elasticsearch_tpu_torch.monitor import compile_cache, programs
+from elasticsearch_tpu_torch.ops import adc, bm25_topk, knn_topk, maxsim_adc
+from elasticsearch_tpu_torch.parallel import aot
+from elasticsearch_tpu_torch.rest.server import RestServer
+spec = json.load(open(spec_path))
+mods = {"bm25_dense_topk": bm25_topk, "knn_topk": knn_topk,
+        "adc_scores": adc, "maxsim_adc": maxsim_adc}
+t0 = time.perf_counter()
+node = Node(name="ws-" + role, data_path=data, device="cuda")
+t_open = time.perf_counter() - t0
+out = {"role": role, "open_s": t_open}
+if role == "a":
+    for name, settings in spec["indices"].items():
+        node.create_index(name, {"settings": settings,
+                                 "mappings": spec["mapping"]})
+        lines = []
+        for d, src in spec["docs"]:
+            lines += [{"index": {"_index": name, "_id": d}}, src]
+        node.bulk(lines)
+        node.indices[name].refresh()
+        node.indices[name].flush()
+    torch.cuda.synchronize()
+server = None
+if role != "a":
+    server = RestServer(node, port=0)
+    server.start(background=True)  # kicks the boot warmup
+    out["warmup_idle"] = node.serving.warmup.wait_idle(timeout=120.0)
+    out["warmup"] = node.serving.warmup.stats()["runs"]
+l0 = {k: m.LAUNCHES for k, m in mods.items()}
+answers, first_ms, lat = [], None, []
+for name in spec["indices"]:
+    for body in spec["bodies"]:
+        t = time.perf_counter()
+        r = node.search(name, json.loads(json.dumps(body)))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        lat.append(ms)
+        if first_ms is None:
+            first_ms = ms
+        answers.append({"hits": {"total": r["hits"]["total"], "hits": [
+            {"_id": h["_id"], "_score": h["_score"]}
+            for h in r["hits"]["hits"]]}})
+out["launches"] = {k: m.LAUNCHES - l0[k] for k, m in mods.items()}
+out["first_ms"] = first_ms
+out["latency_ms"] = lat
+out["answers"] = answers
+rows = node.metrics.summaries().get("estpu_search_duration_seconds", [])
+out["labels"] = {}
+for r in rows:
+    lab = r["labels"]["warmup"]
+    out["labels"][lab] = out["labels"].get(lab, 0) + r["count"]
+out["events"] = compile_cache.events_snapshot()
+out["seconds"] = compile_cache.seconds_snapshot()
+out["libraries"] = aot.stats()
+out["programs"] = [r for r in programs.REGISTRY.snapshot()
+                   if r["program"] != "_other_"]
+out["backend"] = programs.backend_fingerprint()
+if server is not None:
+    server.stop()
+node.close()
+out["total_s"] = time.perf_counter() - t_start
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def _ws_bodies(np, vecs, seed):
+    """WS_MATCH head-term match bodies, WS_KNN brute-force and IVF-PQ knn
+    bodies near seeded rows, WS_HYBRID hybrids with a PQ re-rank."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, WS_HEAD + 1) ** 1.1
+    p /= p.sum()
+
+    def near():
+        q = vecs[int(rng.integers(0, len(vecs)))] \
+            + 0.3 * rng.standard_normal(DIMS)
+        return [float(x) for x in q.astype(np.float32)]
+
+    def terms():
+        return " ".join(f"t{t}" for t in np.unique(
+            rng.choice(WS_HEAD, size=int(rng.integers(2, 5)), p=p)))
+
+    out = [{"query": {"match": {"body": terms()}}, "size": 10}
+           for _ in range(WS_MATCH)]
+    for _ in range(WS_KNN):
+        out.append({"query": {"knn": {"field": "emb", "ann": False,
+                                      "query_vector": near()}}, "size": 10})
+        out.append({"query": {"knn": {"field": "emb", "query_vector": near(),
+                                      "num_candidates": 200}}, "size": 10})
+    for _ in range(WS_HYBRID):
+        out.append({"query": {"hybrid": {
+            "query": {"match": {"body": terms()}},
+            "knn": {"field": "emb", "query_vector": near(), "k": 10,
+                    "num_candidates": 50, "ann": False},
+            "fusion": {"method": "rrf", "rank_constant": 60},
+            "rerank": {"query_vectors": [near() for _ in range(WS_TOKENS)],
+                       "window_size": 10, "pq": True}}}, "size": 10})
+    return out
+
+
+def _ws_run(root, env, role, data, build_dir, spec_path):
+    """One 5s process: its RESULT record and its wall seconds."""
+    t = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", _WS_CHILD, role, data,
+                        build_dir, spec_path], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=WS_PROC_S)
+    line = [ln for ln in p.stdout.splitlines() if ln.startswith("RESULT ")]
+    _hold(p.returncode == 0 and line, f"process {role} exited "
+          f"{p.returncode}: {p.stderr[-3000:]}", "5s")
+    return json.loads(line[-1][len("RESULT "):]), time.perf_counter() - t
+
+
+def phase_warm(np, card):
+    """Phase 5s: (a) a node process builds a mesh index and a host-loop
+    index of WS_DOCS docs, serves bodies reaching B1-B4 and closes,
+    storing its census and library blobs; (b) a second process over the
+    data path with an empty kernel build directory starts its
+    RestServer, waits for the boot warmup and answers the same bodies:
+    every library from the blob tier (``aot_hit``, ``fresh`` 0), every
+    request ``warmup="false"``, the hits (a)'s; (c) a third over a copy
+    of the data without the census and with the libraries built: the
+    cold first request. Returns the launches of each kernel in the three
+    processes."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    from elasticsearch_tpu_torch.ops import build
+    from elasticsearch_tpu_torch.parallel import aot
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.pop("ESTPU_WARMUP", None)
+    docs, vecs = rp_sources(np, WS_DOCS, SEED + 140)
+    bodies = _ws_bodies(np, vecs, SEED + 141)
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as fh:
+            json.dump({"docs": docs, "bodies": bodies, "mapping": WS_MAPPING,
+                       "indices": WS_INDICES}, fh)
+        data, cold = os.path.join(tmp, "data"), os.path.join(tmp, "cold")
+        a, a_s = _ws_run(root, env, "a", data, build._BUILD_DIR, spec_path)
+        ivf = os.path.join(data, "_ivf")
+        kso = sorted(f for f in os.listdir(ivf) if f.endswith(".kso"))
+        census_files = [f for f in os.listdir(ivf)
+                        if f.endswith(".census")]
+        _hold(len(kso) == 5 and len(census_files) == 2,
+              f"(a) stored {kso} and {census_files}", "5s")
+        shutil.copytree(data, cold, ignore=shutil.ignore_patterns(
+            "*.census"))
+        b, b_s = _ws_run(root, env, "b", data, os.path.join(tmp, "empty"),
+                         spec_path)
+        c, c_s = _ws_run(root, env, "c", cold, build._BUILD_DIR, spec_path)
+    n = len(bodies) * len(WS_INDICES)
+    ev = b["events"]
+    _hold(ev["aot_hit"] == 5 and ev["fresh"] == 0
+          and ev["build_dir_hit"] == 0
+          and all(r["source"] == "aot_hit" for r in b["libraries"].values())
+          and set(b["libraries"]) == set(build.SOURCES) | {"codec"},
+          f"(b) library sources {b['libraries']}, events {ev}", "5s")
+    runs = b["warmup"]
+    _hold(b["warmup_idle"] and set(runs) == set(WS_INDICES)
+          and all(r["status"] == "complete" and r["replayed"] == len(bodies)
+                  and r["errors"] == 0 for r in runs.values()),
+          f"(b) warmup runs {runs}", "5s")
+    _hold(b["labels"] == {"prewarm": n, "false": n},
+          f"(b) search labels {b['labels']}", "5s")
+    _hold(c["labels"].get("true", 0) >= 1 and "prewarm" not in c["labels"]
+          and c["events"]["fresh"] == 0,
+          f"(c) search labels {c['labels']}, events {c['events']}", "5s")
+    for other, tag in ((b, "b"), (c, "c")):
+        for i, (got, want) in enumerate(zip(other["answers"], a["answers"])):
+            check_hits(got, want, f"5s({tag}) body {i}")
+    launches = {}
+    for k in ("bm25_dense_topk", "knn_topk", "adc_scores", "maxsim_adc"):
+        each = [x["launches"][k] for x in (a, b, c)]
+        _hold(all(each), f"{k} launches {each} in (a), (b), (c)", "5s")
+        launches[k] = sum(each)
+    _hold(b["backend"].endswith("/n=1") and b["backend"].startswith("cuda/"),
+          f"backend {b['backend']}", "5s")
+    log(f"[5s] (a) {WS_DOCS} docs in {', '.join(WS_INDICES)} (the mesh, 2 "
+        f"slots; the host loop), {n} bodies (B1 {a['launches']['bm25_dense_topk']}"
+        f", B2 {a['launches']['knn_topk']}, B3 {a['launches']['adc_scores']}, "
+        f"B4 {a['launches']['maxsim_adc']} launches); close stored "
+        f"{len(kso)} library blobs and {len(census_files)} censuses "
+        f"({a_s:.1f} s); its libraries {a['events']}")
+    log(f"[5s] (b) restart, empty build directory: events "
+        f"{dict((k, v) for k, v in ev.items() if v)}, warmup replayed "
+        f"{sum(r['replayed'] for r in runs.values())} bodies in "
+        f"{sum(r['took_ms'] for r in runs.values()):.1f} ms; labels "
+        f"{b['labels']}; hits equal (a)'s ({b_s:.1f} s)")
+    log(f"[5s] (c) restart, libraries built, no census: labels "
+        f"{c['labels']}; hits equal (a)'s ({c_s:.1f} s)")
+    for tag, x in (("warmed (b)", b), ("cold (c)", c)):
+        log(f"[5s] first request {tag}: {x['first_ms']:.3f} ms; p50 of the "
+            f"{n} requests {_p50(np, np.asarray(x['latency_ms']))}; node open "
+            f"{x['open_s']:.3f} s")
+    built = aot.stats()
+    for name in sorted(b["libraries"]):
+        rec = built.get(name, {})
+        build_s = (f"{rec['seconds']:.3f} s (phase 2)"
+                   if rec.get("source") == "fresh" else
+                   f"not measured ({rec.get('source', 'not loaded')} in "
+                   f"this process)")
+        log(f"[5s] library {name}: load from the blob tier "
+            f"{b['libraries'][name]['seconds'] * 1e3:.3f} ms (b), from the "
+            f"build directory {c['libraries'][name]['seconds'] * 1e3:.3f} "
+            f"ms (c); build {build_s}")
+    for tag, x in (("b", b), ("c", c)):
+        for r in x["programs"]:
+            log(f"[5s] ({tag}) {r['program']} {r['shapes']}: first call "
+                f"{r['compile_seconds'] * 1e3:.3f} ms ({r['compiles']}), "
+                f"execute p50 {r['execute_p50_seconds'] * 1e3:.3f} ms over "
+                f"{r['calls']}, cache {r['cache_sources'] or '-'}")
+    log(f"[5s] phase 5s took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
 
 
 CL_MEMBERS = 3             # (a): launcher processes on the one card
@@ -9653,6 +9918,8 @@ def main() -> int:
     read_node.close()
     del sift, ivf_index, pq_parts, read_node
     torch.cuda.empty_cache()
+    for name, n in phase_warm(np, card).items():
+        launches[name] += n
     launches["bm25_dense_topk"] += phase_cluster(torch, np, dev, card)
     torch.cuda.empty_cache()
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card),

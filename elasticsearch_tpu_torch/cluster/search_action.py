@@ -25,9 +25,15 @@ creates the full S-shard index locally (mappings and shard numbering
 must agree with ``cluster/routing.py::shard_id_for`` everywhere); only
 the owned shards ever hold documents.
 
-Not here (ROADMAP A11): the reference's census windows, its AOT-blob
-exchange on the recovery stream and its per-index program scope; they
-belong to the compile/warm layer the port has not taken yet.
+The compile/warm layer rides the same plane: the owner's query phase,
+its fetch and the coordinator run in the index's program scope
+(``monitor/programs.py``), so each member's census holds the traffic it
+served; a recovery's shard-sync reply carries the source's census and
+the kernel-library blobs the target lacks (``parallel/aot.py``), and a
+graduated copy adopts them, flushes its census and queues its pre-warm
+replay (``serving/warmup.py``) before its first request. The census
+work is debounced per index (``_census_window``): one recovery syncs
+every shard.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ import numpy as np
 
 from elasticsearch_tpu_torch.cluster.routing import shard_id_for
 from elasticsearch_tpu_torch.cluster.transport import RemoteException, TransportError
+from elasticsearch_tpu_torch.monitor import programs
 from elasticsearch_tpu_torch.index.seqno import (GlobalCheckpointTracker,
                                            NO_OPS_PERFORMED)
 from elasticsearch_tpu_torch.tracing import TaskCancelledException
@@ -48,6 +55,10 @@ from elasticsearch_tpu_torch.utils.errors import (
     ElasticsearchTpuException, FailedToCommitClusterStateException,
     IndexNotFoundException, StalePrimaryException)
 from elasticsearch_tpu_torch.utils.faults import FAULTS
+from elasticsearch_tpu_torch.index import ivf_cache
+from elasticsearch_tpu_torch.parallel import aot
+from elasticsearch_tpu_torch.resources import census
+from elasticsearch_tpu_torch.serving import warmup as warmup_mod
 
 ACTION_QUERY = "indices:data/read/search[phase/query]"
 ACTION_FETCH = "indices:data/read/search[phase/fetch]"
@@ -1806,7 +1817,10 @@ class DistributedDataService:
         try:
             req = {"index": index, "shard": sid, "checkpoint": ckpt,
                    "last_term": engine.term_at(ckpt),
-                   "target": self._local_id()}
+                   "target": self._local_id(),
+                   # the kernel-library blobs this node holds: the source
+                   # ships the rest beside the stream
+                   "kso_have": ivf_cache.list_blob_keys(aot._EXT)}
             res = self._send(payload["source"], ACTION_SHARD_SYNC, req,
                              timeout=60.0)
             # child task on the TARGET node (parent: the driving recovery
@@ -1900,14 +1914,124 @@ class DistributedDataService:
                          (res.get("term_seq") or {}).items()},
                         int(res.get("local_checkpoint", -1)),
                         int(res.get("term", 0)))
+            # the source's kernel-library blobs: this node loads them
+            # instead of running nvcc for its first request
+            rec["kso_seeded"] = self._adopt_library_blobs(
+                res.get("kso_blobs"))
             rec["stage"] = "finalize"
             svc.shards[sid].engine.refresh()
             svc.recoveries.finish(rec, ok=True)
         except Exception:
             svc.recoveries.finish(rec, ok=False)
             raise
+        # the copy graduated here: adopt the census that rode the stream
+        # (this node may share no blob directory with the source), flush
+        # it, and queue the pre-warm replay before the copy's first
+        # search (best-effort, cooldown-guarded)
+        try:
+            self._adopt_census_debounced(index, res.get("census"))
+            self._flush_census_debounced(index)
+            self.node.serving.warmup.kick("shard_assignment", [index])
+        except Exception:
+            pass  # warmup plumbing never fails a completed recovery
         return {"copied": copied, "skipped": skipped,
                 "ops_replayed": replayed, "mode": rec["mode"]}
+
+    #: per-index debounce window for the recovery path's census work:
+    #: a recovery runs once a shard, the census is per index
+    _CENSUS_DEBOUNCE_S = 5.0
+
+    def _census_window(self, name: str, index: str):
+        """(hit, stamp) of one named per-index debounce window: ``hit``
+        is True while the window is open (skip the work), ``stamp()``
+        opens it."""
+        ts = getattr(self, name, None)
+        if ts is None:
+            ts = {}
+            setattr(self, name, ts)
+        now = time.monotonic()
+        hit = now - ts.get(index, float("-inf")) < self._CENSUS_DEBOUNCE_S
+        return hit, (lambda: ts.__setitem__(index, now))
+
+    def _flush_census_debounced(self, index: str) -> None:
+        """The recovery path's census flush, once a window an index."""
+        hit, stamp = self._census_window("_census_flush_ts", index)
+        if hit:
+            return
+        stamp()
+        census.store_census(index)
+
+    def _export_census_debounced(self, index: str):
+        """The source's census payload for a shard-sync reply, computed
+        once a window an index for all of one recovery's shards."""
+        cache = getattr(self, "_census_export_cache", None)
+        if cache is None:
+            cache = self._census_export_cache = {}
+        hit, stamp = self._census_window("_census_export_ts", index)
+        if hit and index in cache:
+            return cache[index]
+        payload = census.export_census(index)
+        cache[index] = payload
+        stamp()
+        return payload
+
+    def _adopt_census_debounced(self, index: str, payload) -> None:
+        """The target's adoption, once a window an index: every shard's
+        recovery carries the same payload."""
+        if payload is None:
+            return
+        hit, stamp = self._census_window("_census_adopt_ts", index)
+        if hit:
+            return
+        if census.adopt_census(index, payload):
+            stamp()
+
+    #: cap on the library bytes one shard-sync reply ships (base64 in
+    #: the JSON transport); the next handshake ships the remainder
+    _KSO_SHIP_MAX_BYTES = 32 << 20
+
+    def _adopt_library_blobs(self, blobs: Optional[dict]) -> int:
+        """Target side: seed the shipped kernel-library blobs into the
+        local tier (content-addressed keys: an existing file is kept;
+        each blob is still checked at its load). Returns the count
+        seeded; never raises."""
+        if not blobs:
+            return 0
+        import base64
+
+        n = 0
+        for key, b64 in blobs.items():
+            try:
+                ivf_cache.store_blob(key, base64.b64decode(b64), aot._EXT,
+                                     overwrite=False, memory=False)
+                n += 1
+            except Exception:
+                continue  # one bad blob must not drop the rest
+        return n
+
+    def _export_library_blobs(self, have, target) -> Optional[dict]:
+        """Source side: the kernel-library blobs the target reported
+        missing, base64, size-capped, once a window a target."""
+        if have is None or target is None:
+            return None
+        hit, stamp = self._census_window("_kso_export_ts", str(target))
+        if hit:
+            return None
+        import base64
+
+        missing = set(ivf_cache.list_blob_keys(aot._EXT)) - set(have)
+        out: Dict[str, str] = {}
+        total = 0
+        for key in sorted(missing):
+            blob = ivf_cache.load_blob(key, aot._EXT)
+            if blob is None:
+                continue
+            if total + len(blob) > self._KSO_SHIP_MAX_BYTES:
+                break  # the remainder ships on the next handshake
+            total += len(blob)
+            out[key] = base64.b64encode(blob).decode("ascii")
+        stamp()
+        return out or None
 
     def _on_shard_sync(self, payload: dict) -> dict:
         """Recovery source: checkpoint comparison first — when the
@@ -1924,9 +2048,28 @@ class DistributedDataService:
         engine = svc.shards[payload["shard"]].engine
         svc.recoveries.source_started()
         try:
-            return self._shard_sync_response(engine, payload)
+            resp = self._shard_sync_response(engine, payload)
+            # the census and the target's missing kernel-library blobs
+            # ride the stream: the target may share no blob directory
+            # with this node
+            try:
+                resp["census"] = self._export_census_debounced(
+                    payload["index"])
+                blobs = self._export_library_blobs(
+                    payload.get("kso_have"), payload.get("target"))
+                if blobs:
+                    resp["kso_blobs"] = blobs
+            except Exception:
+                pass  # warmup plumbing never fails a recovery handshake
+            return resp
         finally:
             svc.recoveries.source_finished()
+            # this node served the index: its census is the target's
+            # work list (one flush covers every shard's handshake)
+            try:
+                self._flush_census_debounced(payload["index"])
+            except Exception:
+                pass
     def _shard_sync_response(self, engine, payload: dict) -> dict:
         ckpt = payload.get("checkpoint")
         if ckpt is not None:
@@ -1981,10 +2124,17 @@ class DistributedDataService:
         pairs: List[Tuple[Any, Any]] = []
         shards_out = []
         agg_lists: List[dict] = []
+        # the owner's census: the programs this query phase runs belong
+        # to this node's index (the node a relocation streams away
+        # from), and so does the body; a pre-warm replay records neither
+        prewarm = warmup_mod.in_prewarm()
+        if not prewarm:
+            svc._record_census_body(body)
         for sid in shard_ids:
             searcher = svc.groups[sid].reader().searcher
             with self.node.tracer.span("shard.query_phase", index=index,
-                                       shard=sid):
+                                       shard=sid), \
+                    programs.index_scope(None if prewarm else index):
                 r = searcher.query_phase(body)
             docs_out = []
             for d in r.docs:
@@ -2029,9 +2179,10 @@ class DistributedDataService:
 
             raise SearchContextMissingException(payload["context_id"])
         positions: List[int] = payload["positions"]
-        hit_of = _fetch_grouped(
-            [(p,) + ctx["pairs"][p] for p in positions],
-            ctx["body"], ctx["index"])
+        with programs.index_scope(ctx["index"]):
+            hit_of = _fetch_grouped(
+                [(p,) + ctx["pairs"][p] for p in positions],
+                ctx["body"], ctx["index"])
         return [hit_of[p] for p in positions]
 
     def _on_free(self, payload: dict) -> dict:
@@ -2065,10 +2216,19 @@ class DistributedDataService:
         the wire header carries both, so every remote owner's
         transport.handle/shard.query_phase spans share this trace id and
         its shard tasks parent to this one."""
+        # the coordinator's census scope: the data plane calls
+        # searcher.query_phase directly, outside IndexService.search; a
+        # pre-warm replay stays out of it
+        prewarm = warmup_mod.in_prewarm()
+        try:
+            scope = None if prewarm else self.resolve_index(index)
+        except Exception:
+            scope = None
         with self.node.tasks.task("indices:data/read/search",
                                   description=f"indices[{index}]"):
             with self.node.tracer.span("search.coordinate", index=index):
-                resp = self._search_inner(index, body)
+                with programs.index_scope(scope):
+                    resp = self._search_inner(index, body)
         # slow log at the COORDINATOR: the owner-side query phases call
         # searcher.query_phase directly, so without this hook a
         # distributed index's thresholds would silently never fire
@@ -2076,6 +2236,8 @@ class DistributedDataService:
         svc = self.node.indices.get(self.resolve_index(index))
         if svc is not None:
             svc.slowlog.on_search(resp.get("took", 0), body, resp)
+            if not prewarm:
+                svc._record_census_body(body or {})
         return resp
 
     def _mesh_all_local(self, index: str, svc, body: dict,

@@ -142,9 +142,8 @@ class IndexService:
         self.mappings = Mappings(mappings_json or {})
         self._validate_analyzers()
         self.aliases: Dict[str, dict] = {}
-        # search warmers by name, stored by the REST layer's warmer CRUD;
-        # the reference runs them at every refresh, the port stores them
-        # only (running them comes with the compile/warm layer, A11)
+        # search warmers by name, stored by the REST layer's warmer CRUD
+        # and run at every refresh (``_run_warmers``)
         self.warmers: Dict[str, dict] = {}
         self.closed = False
         self.data_path = data_path
@@ -555,6 +554,20 @@ class IndexService:
         for g in self.groups:
             g.refresh()
         self._drop_retired()
+        self._run_warmers()
+
+    def _run_warmers(self) -> None:
+        """Run each stored warmer against the fresh segments (ES 2.0's
+        IndicesWarmer): its first dispatches, library loads and uploads
+        are paid here, not by the next request. Through
+        ``_search_inner``, so a warmer's search never lands in the
+        latency series; a broken warmer never fails the refresh."""
+        for body in list(self.warmers.values()):
+            try:
+                self._search_inner(body or {"query": {"match_all": {}}},
+                                   None, None)
+            except Exception:
+                pass
 
     def flush(self) -> None:
         """Commit every copy (``Engine.flush``; a replica, with no data
@@ -689,24 +702,74 @@ class IndexService:
         the dfs phase first. ``routing`` (an alias's search routing)
         searches only the shards it routes to, on the host loop.
         ``preference`` picks the copy of each shard read (``readers``).
-        The latency lands in the node's ``estpu_search_duration_seconds``
-        under ``warmup="unknown"``: which requests paid a first build is
-        the compile/warm layer's to say (ROADMAP A11)."""
+
+        The search runs in the program registry's index scope (the
+        per-index census, ``monitor/programs.py``), and its latency
+        lands in the node's ``estpu_search_duration_seconds`` labelled
+        by ``warmup``: ``true`` when this thread paid a first touch
+        inside it (a kernel library built or loaded, or a dispatch key's
+        first run in the process: ``tracing/retrace.py``), ``false``
+        otherwise, ``prewarm`` for a pre-warm replay
+        (``serving/warmup.py``), which records no census body."""
+        from elasticsearch_tpu_torch.monitor import programs
+        from elasticsearch_tpu_torch.serving import warmup as warmup_mod
+        from elasticsearch_tpu_torch.tracing import retrace
+
         t0 = time.perf_counter()
-        resp = self._search_inner(body, routing, preference)
+        snap = retrace.snapshot()
+        prewarm = warmup_mod.in_prewarm()
+        # a replay runs outside the census scope: it must not bump the
+        # hit counts it was ordered by
+        with programs.index_scope(None if prewarm else self.name):
+            resp = self._search_inner(body, routing, preference)
+        if prewarm:
+            warmup = "prewarm"
+        else:
+            warmup = "true" if retrace.traces_since(snap) else "false"
+            self._record_census_body(body)
         node = self._node
         if node is not None:
             try:
                 node.metrics.histogram(
                     "estpu_search_duration_seconds",
-                    "Search latency by index (warmup=unknown: no layer "
-                    "labels first builds yet)",
+                    "Search latency by index and warmup state (true = "
+                    "paid first-touch work, false = steady, prewarm = "
+                    "pre-warm replay)",
                     ("index", "warmup"),
-                ).labels(self.name, "unknown").observe(
+                ).labels(self.name, warmup).observe(
                     time.perf_counter() - t0)
             except Exception:  # one dropped sample, never a failure
                 pass
         return resp
+
+    #: census-body sampling: every request for the first _CENSUS_FULL,
+    #: then 1 in _CENSUS_SAMPLE with weighted hits
+    _CENSUS_FULL = 256
+    _CENSUS_SAMPLE = 8
+
+    def _record_census_body(self, body: dict) -> None:
+        """Feed the replayable half of the census: the canonical JSON of
+        an eligible body. Profile bodies (they pin the host loop) and
+        scroll bodies (they hold contexts) are left out."""
+        if not isinstance(body, dict) or body.get("profile") \
+                or body.get("scroll"):
+            return
+        self._census_seen = getattr(self, "_census_seen", 0) + 1
+        weight = 1
+        if self._census_seen > self._CENSUS_FULL:
+            if self._census_seen % self._CENSUS_SAMPLE:
+                return
+            weight = self._CENSUS_SAMPLE
+        try:
+            canon = json.dumps(
+                {k: v for k, v in body.items()
+                 if k not in ("_query_cache", "profile")},
+                sort_keys=True)
+        except (TypeError, ValueError):
+            return  # unserializable body: not replayable
+        from elasticsearch_tpu_torch.monitor import programs
+
+        programs.REGISTRY.record_body(self.name, canon, n=weight)
 
     def _search_inner(self, body: dict, routing: Optional[str],
                       preference: Optional[str]) -> dict:

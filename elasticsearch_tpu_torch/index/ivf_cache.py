@@ -26,7 +26,10 @@ never land in another's data path. A blob that fails its checksums is
 deleted and counts as a miss, so the build path runs and writes it anew.
 
 The generic tier (``frame_blob`` ... ``list_blob_keys``) stores other
-named blobs in the registered directories, framed by their sha1.
+named blobs in the registered directories, framed by their sha1: the
+program censuses (``resources/census.py``), the incidents
+(``monitor/flight.py``) and the kernel libraries (``parallel/aot.py``,
+kept out of the memory layer).
 """
 from __future__ import annotations
 
@@ -211,10 +214,27 @@ def load_blob(key: str, ext: str) -> Optional[bytes]:
     return None
 
 
-def store_blob(key: str, blob: bytes, ext: str) -> None:
-    """Persist raw bytes under (key, ext) in every registered directory;
-    name-addressed blobs change, so a file that is there is replaced."""
-    _seed(f"{ext}:{key}", blob, _disk_paths(key, ext), overwrite=True)
+def store_blob(key: str, blob: bytes, ext: str, overwrite: bool = True,
+               memory: bool = True) -> None:
+    """Persist raw bytes under (key, ext) in every registered directory.
+    Name-addressed blobs change, so by default a file that is there is
+    replaced; content-addressed ones (a kernel library's) pass
+    ``overwrite=False``, and large ones ``memory=False`` to stay out of
+    the memory layer."""
+    _seed(f"{ext}:{key}" if memory else None, blob, _disk_paths(key, ext),
+          overwrite=overwrite)
+
+
+def registered_dirs() -> List[str]:
+    """The registered directories, in registration order."""
+    with _LOCK:
+        return list(_DIRS)
+
+
+def blob_everywhere(key: str, ext: str) -> bool:
+    """Whether every registered directory holds (key, ext) on disk."""
+    paths = _disk_paths(key, ext)
+    return bool(paths) and all(os.path.exists(p) for p in paths)
 
 
 def delete_blob(key: str, ext: str) -> None:
@@ -244,12 +264,13 @@ def list_blob_keys(ext: str) -> List[str]:
     return sorted(keys)
 
 
-def _seed(mkey: str, blob: bytes, paths: List[str],
+def _seed(mkey: Optional[str], blob: bytes, paths: List[str],
           overwrite: bool = False) -> None:
-    with _LOCK:
-        if mkey not in _MEM and len(_MEM) >= _MEM_CAP:
-            _MEM.pop(next(iter(_MEM)))
-        _MEM[mkey] = blob
+    if mkey is not None:
+        with _LOCK:
+            if mkey not in _MEM and len(_MEM) >= _MEM_CAP:
+                _MEM.pop(next(iter(_MEM)))
+            _MEM[mkey] = blob
     for path in paths:
         if not overwrite and os.path.exists(path):
             continue

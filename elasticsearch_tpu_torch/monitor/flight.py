@@ -10,8 +10,8 @@ half, a node-wide black box every anomaly source appends into:
 - periodic metric-delta snapshots (the watchdog's tick sampler),
 - slow-op events (detector observations below their trip bound),
 - breaker trips (resources/breakers.py),
-- device-program compile events (the ring is kept for the bundle's
-  schema; its feed comes with the compile layer, ROADMAP A11),
+- device-program compile events (monitor/programs.py: a dispatch that
+  paid first-touch work),
 - election and publish transitions (cluster/bootstrap.py),
 - engine failures (index/engine.py tragic events),
 - watchdog trips (monitor/watchdog.py).
@@ -149,6 +149,10 @@ class OpBoard:
             items = list(self._ops.values())
         return [{"kind": kind, "age_seconds": now - t0, **detail}
                 for kind, detail, t0 in items]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ops.clear()
 
 
 # ---------------------------------------------------------------------------

@@ -43,11 +43,11 @@ clock itself.
 
 Port of elasticsearch_tpu/monitor/metrics.py. The registry, the families
 and the exposition are the reference's. ``process_counters`` reads the
-port's kernel counters, the watchdog's trip and incident counters and,
-since the port's breakers and residency registry belong to each node,
-the given node's. The reference's ``jit``, program and compile-cache
-families have no source in the port yet (the compile/warm layer,
-ROADMAP A11): they are absent, never zero.
+port's kernel counters, its first-touch count (``jit.traces_total``,
+tracing/retrace.py), the kernel-library blob tier's ledger
+(monitor/compile_cache.py), the program registry's per-key counters,
+the watchdog's trip and incident counters and, since the port's
+breakers and residency registry belong to each node, the given node's.
 """
 from __future__ import annotations
 
@@ -435,13 +435,20 @@ def process_counters(node) -> Dict[str, float]:
     breakers and residency registry belong to a node, ROADMAP C20) and
     the SHARED registry's counters, and the watchdog's trips and
     incidents of the process (``watchdog.trips[.<detector>]``,
-    ``watchdog.incidents``). A bench snapshots this before and after a
-    run and reports the delta."""
+    ``watchdog.incidents``), the first-touch count (``jit.traces_total``),
+    the blob tier's ``compile_cache.*`` ledger and the program registry's
+    ``programs.<program>|<shapes>.*`` counters. A bench snapshots this
+    before and after a run and reports the delta."""
     out: Dict[str, float] = {}
-    from elasticsearch_tpu_torch.monitor import kernels
+    from elasticsearch_tpu_torch.monitor import compile_cache, kernels
+    from elasticsearch_tpu_torch.monitor import programs as _programs
+    from elasticsearch_tpu_torch.tracing import retrace
 
     for k, v in kernels.snapshot().items():
         out[f"kernels.{k}"] = float(v)
+    out["jit.traces_total"] = float(retrace.auditor().total())
+    out.update(compile_cache.counter_values())
+    out.update(_programs.REGISTRY.counter_values())
     st = node.residency.stats()
     ev = rh = 0
     for t in st.get("tiers", {}).values():

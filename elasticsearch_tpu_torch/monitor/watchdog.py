@@ -41,9 +41,13 @@ cooldown the trip still counts and records, but no dump is captured.
 detector's scan: an armed fault treats every dispatch in flight (or,
 with none, a synthetic key) as stalled.
 
+Each tick also persists the program census (resources/census.py) of
+every index of the node whose census moved, at most once every
+``census_flush_every_s``, so a killed process loses at most one interval
+of the pre-warm work list.
+
 The tick thread is a daemon whose loop waits on a stop event; ages and
-bounds use ``time.monotonic()``. The reference's periodic census flush
-comes with the compile/warm layer (ROADMAP A11).
+bounds use ``time.monotonic()``.
 """
 from __future__ import annotations
 
@@ -93,14 +97,13 @@ def hot_threads_snapshot(limit: int = 32) -> List[dict]:
 
 def programs_section(table: bool = False) -> dict:
     """The ``programs`` section of an incident dump (``table``) and of
-    the diagnostics bundle: the execute totals, the dispatches in flight
-    and, with ``table``, each key's execute counters. Compile rows come
-    with the compile/warm layer (ROADMAP A11)."""
+    the diagnostics bundle: the compile and execute totals, the
+    dispatches in flight and, with ``table``, each key's row (its
+    compiles and compile seconds beside its execute counters)."""
     out = {"totals": programs.REGISTRY.stats(),
            "inflight": programs.REGISTRY.inflight_snapshot()}
     if table:
-        out["table"] = programs.REGISTRY.rows()[:64]
-    out["compiles"] = "not_yet_ported: ROADMAP A11"
+        out["table"] = programs.REGISTRY.snapshot()[:64]
     return out
 
 
@@ -133,6 +136,9 @@ class WatchdogService:
         # per-detector incident cooldown: within it a trip still counts
         # and records, but no new dump is captured
         "cooldown_s": 30.0,
+        # the census persists on Node.close; a kill would lose it, so
+        # the tick flushes it on this cadence when it moved
+        "census_flush_every_s": 60.0,
     }
 
     def __init__(self, node, **overrides: float):
@@ -159,6 +165,11 @@ class WatchdogService:
         self._last_counters: Optional[Dict[str, float]] = None
         self._fsync_seen: Optional[Tuple[int, float, List[int]]] = None
         self._cluster_scan_ts = time.monotonic()
+        # census-flush cursors: each index's last flushed generation and
+        # the last flush's time: only the indices that moved, at the
+        # cadence
+        self._census_flushed_gens: Dict[str, int] = {}
+        self._census_flush_ts = time.monotonic()
         self._m_trips = node.metrics.counter(
             "estpu_watchdog_trips_total",
             "Watchdog detector trips, by detector", ("detector",))
@@ -206,6 +217,10 @@ class WatchdogService:
         through metrics/flight/incidents)."""
         self.ticks += 1
         self._sample_metrics()
+        try:
+            self._flush_census()
+        except Exception:
+            pass  # durability is best-effort; the detectors still run
         trips: List[dict] = []
         for check in (self._check_programs, self._check_threadpools,
                       self._check_fsync, self._check_publish,
@@ -215,6 +230,30 @@ class WatchdogService:
             except Exception:
                 pass  # one broken detector must not silence the others
         return trips
+
+    def _flush_census(self) -> None:
+        """Persist the census of each of this node's indices whose
+        registry generation moved since its last flush, at most once
+        every ``census_flush_every_s``. The time cursor advances at
+        once (a failed store retries at the cadence); an index's
+        generation cursor only when its store succeeded."""
+        from elasticsearch_tpu_torch.resources import census
+
+        gens = programs.REGISTRY.census_generations()
+        dirty = [name for name in set(gens) & set(self.node.indices)
+                 if gens[name] != self._census_flushed_gens.get(name)]
+        if not dirty:
+            return
+        now = time.monotonic()
+        if now - self._census_flush_ts < self.config["census_flush_every_s"]:
+            return
+        self._census_flush_ts = now
+        for name in dirty:
+            try:
+                census.store_census(name)
+            except Exception:
+                continue  # this index stays dirty; the rest still flush
+            self._census_flushed_gens[name] = gens[name]
 
     def _sample_metrics(self) -> None:
         """Metric-delta snapshot into the flight ring: which counters

@@ -2,12 +2,14 @@
 
 Port of elasticsearch_tpu/native/__init__.py. ctypes bindings over the
 port's copy of the codec (``csrc/codec.cpp``) for the varints, built with
-``g++`` at first use into ``build/torch_kernels/`` at the repository
-root, keyed by a hash of the source; CRC32 is zlib's. The numpy versions
-below are the plain twins: they write the same bytes, and the tests hold
-the two against each other. This is host code, not a device kernel, so
-without a compiler the twins serve (``native_available()`` says which
-one runs).
+``g++`` at first use into the kernel build directory
+(``ops/build.py::_BUILD_DIR``) and found through the blob tier of
+``parallel/aot.py`` like the CUDA libraries (a restarted node loads it
+from its data path instead of running ``g++``); CRC32 is zlib's. The
+numpy versions below are the plain twins: they write the same bytes, and
+the tests hold the two against each other. This is host code, not a
+device kernel, so without a compiler the twins serve
+(``native_available()`` says which one runs).
 """
 from __future__ import annotations
 
@@ -23,11 +25,40 @@ import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "codec.cpp")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _lib = None
 _lib_tried = False
 _lock = threading.Lock()
+
+
+def _prepare(lib: ctypes.CDLL) -> None:
+    u64, i64p, u8p = (ctypes.c_uint64, ctypes.POINTER(ctypes.c_int64),
+                      ctypes.POINTER(ctypes.c_uint8))
+    for fn in ("et_vbyte_encode", "et_delta_encode"):
+        getattr(lib, fn).restype = u64
+        getattr(lib, fn).argtypes = [i64p, u64, u8p]
+    for fn in ("et_vbyte_decode", "et_delta_decode"):
+        getattr(lib, fn).restype = u64
+        getattr(lib, fn).argtypes = [u8p, u64, i64p, u64]
+
+
+def spec():
+    """The codec's library spec for the blob tier."""
+    from elasticsearch_tpu_torch.ops import build
+    from elasticsearch_tpu_torch.parallel import aot
+
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    version = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True, check=True).stdout.splitlines()[0]
+    return aot.LibrarySpec(
+        name="codec", tool="g++", digest=digest, flags=_FLAGS,
+        compiler=version, build_dir=build._BUILD_DIR, placement="host",
+        prepare=_prepare,
+        start=lambda out: subprocess.Popen(
+            ["g++", *_FLAGS, "-o", out, _SRC], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
 
 
 def _build_and_load() -> Optional[ctypes.CDLL]:
@@ -37,29 +68,9 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
             return _lib
         _lib_tried = True
         try:
-            with open(_SRC, "rb") as f:
-                tag = hashlib.sha256(f.read()).hexdigest()[:16]
-            so_path = os.path.join(_BUILD_DIR, f"codec_{tag}.so")
-            if not os.path.exists(so_path):
-                os.makedirs(_BUILD_DIR, exist_ok=True)
-                # a per-process temporary name: concurrent first builds
-                # must not write into one file; os.replace is atomic
-                tmp = f"{so_path}.{os.getpid()}.tmp.so"
-                subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                     "-o", tmp, _SRC],
-                    check=True, capture_output=True, timeout=120)
-                os.replace(tmp, so_path)
-            lib = ctypes.CDLL(so_path)
-            u64, i64p, u8p = (ctypes.c_uint64, ctypes.POINTER(ctypes.c_int64),
-                              ctypes.POINTER(ctypes.c_uint8))
-            for fn in ("et_vbyte_encode", "et_delta_encode"):
-                getattr(lib, fn).restype = u64
-                getattr(lib, fn).argtypes = [i64p, u64, u8p]
-            for fn in ("et_vbyte_decode", "et_delta_decode"):
-                getattr(lib, fn).restype = u64
-                getattr(lib, fn).argtypes = [u8p, u64, i64p, u64]
-            _lib = lib
+            from elasticsearch_tpu_torch.parallel import aot
+
+            _lib = aot.resolve(spec())
         except Exception:
             _lib = None
         return _lib

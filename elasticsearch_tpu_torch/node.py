@@ -65,8 +65,12 @@ versions. ``nodes_stats`` adds their ``thread_pool``, ``tasks``,
 (``node.flight``, monitor/flight.py), registered with the process fan,
 and a stall watchdog (``node.watchdog``, monitor/watchdog.py) whose tick
 thread the serving entry points start; ``nodes_stats`` carries their
-``flight`` and ``watchdog`` sections. The reference's ``programs``
-section comes with the compile/warm layer (ROADMAP A11). A member of a cluster (``node.multihost``,
+``flight`` and ``watchdog`` sections, and ``programs`` the program
+registry's totals (monitor/programs.py). ``close`` persists each index's
+program census and the kernel libraries the process loaded into the
+data path's blob tier (resources/census.py, parallel/aot.py), which the
+next node over it replays and loads before its first request
+(serving/warmup.py). A member of a cluster (``node.multihost``,
 ``cluster/bootstrap.py``) routes the writes, searches, index deletes and
 alias changes of a distributed index through the cluster's data plane,
 and ``nodes_stats`` carries its ``transport`` address.
@@ -81,6 +85,7 @@ import os
 import re
 import shutil
 import threading
+import time
 import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -94,8 +99,9 @@ from elasticsearch_tpu_torch.index import ivf_cache
 from elasticsearch_tpu_torch.index.engine import _deep_merge
 from elasticsearch_tpu_torch.index.index_service import IndexService
 from elasticsearch_tpu_torch import __version__
+from elasticsearch_tpu_torch.monitor import compile_cache
 from elasticsearch_tpu_torch.monitor import flight as flight_mod
-from elasticsearch_tpu_torch.monitor import kernels
+from elasticsearch_tpu_torch.monitor import kernels, programs
 from elasticsearch_tpu_torch.monitor.metrics import MetricsRegistry, span_sink
 from elasticsearch_tpu_torch.monitor.stats import (SearchStats,
                                                    aggregate_recovery,
@@ -103,6 +109,8 @@ from elasticsearch_tpu_torch.monitor.stats import (SearchStats,
                                                    device_stats, os_stats,
                                                    process_stats)
 from elasticsearch_tpu_torch.monitor.watchdog import WatchdogService
+from elasticsearch_tpu_torch.parallel import aot
+from elasticsearch_tpu_torch.resources import census
 from elasticsearch_tpu_torch.resources.breakers import CircuitBreakerService
 from elasticsearch_tpu_torch.resources.residency import Residency
 from elasticsearch_tpu_torch.search.batch import (msearch_error_entry,
@@ -112,6 +120,7 @@ from elasticsearch_tpu_torch.search.queries import rewrite_mlt_in_body
 from elasticsearch_tpu_torch.search.service import search_shards
 from elasticsearch_tpu_torch.search.suggest import execute_suggest_multi
 from elasticsearch_tpu_torch.serving import ServingFrontend
+from elasticsearch_tpu_torch.tracing import retrace
 from elasticsearch_tpu_torch.tracing.tasks import TaskRegistry
 from elasticsearch_tpu_torch.tracing.tracer import Tracer
 from elasticsearch_tpu_torch.utils.device import resolve_device
@@ -261,6 +270,58 @@ class Node:
                     "(monitor/kernels.py names)", ("kernel",),
                     lambda: [((k,), v) for k, v in kernels.snapshot().items()],
                     kind="counter")
+        m.collector("estpu_jit_traces_total",
+                    "First-touch events since process start: kernel-"
+                    "library builds and loads, first dispatches of a key "
+                    "(tracing/retrace.py)", (),
+                    lambda: [((), retrace.auditor().total())],
+                    kind="counter")
+
+        # the program registry's rows, one walk serving the three
+        # families of a scrape (their collect calls land within one
+        # render); the registry's key cap bounds them
+        memo = {"t": float("-inf"), "rows": ()}
+
+        def _programs():
+            now = time.monotonic()
+            if now - memo["t"] > 0.2:
+                memo["rows"] = programs.REGISTRY.counters_snapshot()
+                memo["t"] = now
+            return memo["rows"]
+
+        m.collector("estpu_program_compiles_total",
+                    "Calls that paid first-touch work, per (program, "
+                    "shapes, backend) key", ("program", "shapes", "backend"),
+                    lambda: [((p, s, b), c)
+                             for p, s, b, c, _cs, _es in _programs()],
+                    kind="counter")
+        m.collector("estpu_program_compile_seconds",
+                    "Wall seconds of calls that paid first-touch work, "
+                    "per program key", ("program", "shapes", "backend"),
+                    lambda: [((p, s, b), cs)
+                             for p, s, b, _c, cs, _es in _programs()],
+                    kind="counter")
+        m.collector("estpu_program_execute_seconds",
+                    "Wall seconds of steady dispatches, device time "
+                    "included, per program key",
+                    ("program", "shapes", "backend"),
+                    lambda: [((p, s, b), es)
+                             for p, s, b, _c, _cs, es in _programs()],
+                    kind="counter")
+        m.collector("estpu_compile_cache_events_total",
+                    "Kernel-library resolutions by source "
+                    "(parallel/aot.py): aot_hit / build_dir_hit / fresh, "
+                    "detected misses and store outcomes", ("source",),
+                    lambda: [((k,), v) for k, v in
+                             compile_cache.events_snapshot().items()],
+                    kind="counter")
+        m.collector("estpu_compile_cache_seconds_total",
+                    "Wall seconds in blob-tier phases: deserialize (a "
+                    "blob written out and opened), compile (a build), "
+                    "serialize (a store)", ("phase",),
+                    lambda: [((k,), v) for k, v in
+                             compile_cache.seconds_snapshot().items()],
+                    kind="counter")
 
     # -- the gateway -----------------------------------------------------------
 
@@ -348,7 +409,7 @@ class Node:
                            mappings_json=mappings, data_path=self.data_path,
                            node=self)
         svc.aliases = {a: _alias_spec(spec) for a, spec in aliases.items()}
-        # stored only: running a warmer comes with ROADMAP A11
+        # run at every refresh (IndexService._run_warmers)
         for wname, wspec in dict(body.get("warmers", {})).items():
             svc.warmers[wname] = (wspec.get("source", wspec)
                                   if isinstance(wspec, dict) else wspec)
@@ -909,8 +970,9 @@ class Node:
         each hand-written kernel's launches in this process. The
         ``transport`` gives the node's transport address (a cluster
         member's TCP endpoint). ``flight`` holds the flight recorder's ring
-        counts and ``watchdog`` the watchdog's trips and state; the
-        reference's ``programs`` section comes with ROADMAP A11."""
+        counts, ``watchdog`` the watchdog's trips and state, and
+        ``programs`` the program registry's totals (the per-key table is
+        at ``/_nodes/_local/xla/programs`` and ``/_cat/programs``)."""
         search = {k: 0 for k in SearchStats().to_json()}
         indexing = {"index_total": 0, "delete_total": 0,
                     "index_time_in_millis": 0}
@@ -972,6 +1034,7 @@ class Node:
                 "metrics": self.metrics.summaries(),
                 "serving": self.serving.stats(),
                 "slowlog": aggregate_slowlog(self.indices.values()),
+                "programs": programs.REGISTRY.stats(),
                 "flight": self.flight.stats(),
                 "watchdog": self.watchdog.stats(),
                 "accelerator": device_stats(self.device),
@@ -1015,10 +1078,24 @@ class Node:
         self.serving.close()
         for svc in self.indices.values():
             svc.close()
-        self.indices.clear()
         if self._ivf_dir is not None:
+            # the next process over this data path reads the programs
+            # and bodies each index served, and the kernel libraries,
+            # before its first request: persist them before the tier
+            # unregisters (best-effort: a failed write costs the next
+            # process a warmup, never this close)
+            for name in self.indices:
+                try:
+                    census.store_census(name)
+                except Exception:
+                    logger.exception("census of [%s] not stored", name)
+            try:
+                aot.store_loaded()
+            except Exception:
+                logger.exception("kernel libraries not stored")
             ivf_cache.unregister(self._ivf_dir)
             self._ivf_dir = None
+        self.indices.clear()
         if self._thread_pool is not None:
             self._thread_pool.shutdown()
             self._thread_pool = None

@@ -2,9 +2,14 @@
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 plain-C shared library under ``build/torch_kernels/`` at the repository
-root, keyed by a hash of the source, and loaded with ``ctypes``. Nothing
-is built when a module is imported: the first launch builds, and
-``build_all()`` starts one ``nvcc`` per source at once.
+root (``_BUILD_DIR``, a module attribute a caller may point elsewhere),
+and loaded with ``ctypes``. A library is found through the blob tier of
+``parallel/aot.py`` (the process memo, the build directory, the tier in
+the registered data directories, then ``nvcc``), keyed by the source
+and its headers, the flags, ``nvcc``'s version, the card and the host.
+Nothing is built when a module is imported: the first launch resolves
+its library, and ``build_all()`` resolves every one, starting one
+``nvcc`` per library it must build, all at once.
 """
 from __future__ import annotations
 
@@ -14,7 +19,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Tuple
+from typing import Dict
+
+from elasticsearch_tpu_torch.parallel import aot
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -28,8 +35,8 @@ SOURCES = {"bm25_dense_topk": "csrc/bm25_dense_topk.cu",
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_VERSION: Dict[str, str] = {}
 #: kernel libraries built or loaded by this process (the profiler files
 #: a device call during which it moved under ``device_compile``)
 LOADS = 0
@@ -47,60 +54,57 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Tuple[str, str]:
+def _nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (its build), read once."""
+    if "nvcc" not in _VERSION:
+        out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                             text=True, check=True).stdout
+        _VERSION["nvcc"] = out.strip().splitlines()[-1]
+    return _VERSION["nvcc"]
+
+
+def _digest(name: str) -> str:
+    """sha256 of the source and every shared header it may include."""
     src = os.path.join(_PKG, SOURCES[name])
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
-    # the source and every shared header it may include
+    h = hashlib.sha256()
     csrc = os.path.dirname(src)
     for path in [src] + sorted(os.path.join(csrc, f) for f in os.listdir(csrc)
                                if f.endswith(".cuh")):
         with open(path, "rb") as f:
             h.update(f.read())
-    return src, os.path.join(_BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
+    return h.hexdigest()
 
 
-def _start(name: str):
-    """Popen of the nvcc build for `name`, or None when it is built."""
-    src, so = _target(name)
-    if os.path.exists(so):
-        return None
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp.so"
-    proc = subprocess.Popen([_nvcc(), *_FLAGS, "-o", tmp, src],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return proc, tmp, so
+def spec(name: str) -> aot.LibrarySpec:
+    src = os.path.join(_PKG, SOURCES[name])
+    return aot.LibrarySpec(
+        name=name, tool="nvcc", digest=_digest(name), flags=_FLAGS,
+        compiler=_nvcc_version(), build_dir=_BUILD_DIR,
+        start=lambda out: subprocess.Popen(
+            [_nvcc(), *_FLAGS, "-o", out, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
 
 
-def _finish(name: str, started) -> str:
-    """Wait for a build started by _start; returns the compiler's output."""
-    if started is None:
-        return ""
-    proc, tmp, so = started
-    out, _ = proc.communicate(timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {name}:\n{out}")
-    os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
+def _resolve(names) -> Dict[str, tuple]:
+    global LOADS
+    with _lock:
+        opened = [n for n in names if aot.loaded(n) is None]
+        out = aot.resolve_many([spec(n) for n in names])
+        LOADS += len(opened)
     return out
 
 
 def build_all() -> Dict[str, str]:
-    """Build every kernel library in parallel; returns nvcc's output
-    (``-Xptxas -v``: registers, shared memory, spills) per library."""
-    names: List[str] = list(SOURCES)
-    started = [_start(n) for n in names]
-    return {n: _finish(n, s) for n, s in zip(names, started)}
+    """Resolve every kernel library, building what neither the build
+    directory nor the blob tier holds in parallel; returns nvcc's output
+    (``-Xptxas -v``: registers, shared memory, spills) per library,
+    empty for one that was not built."""
+    return {n: text for n, (_lib, text) in _resolve(list(SOURCES)).items()}
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for `name`, building it on first use."""
-    lib = _libs.get(name)
+    """The loaded library for `name`, resolved on first use."""
+    lib = aot.loaded(name)
     if lib is not None:
         return lib
-    global LOADS
-    with _lock:
-        if name not in _libs:
-            _finish(name, _start(name))
-            _libs[name] = ctypes.CDLL(_target(name)[1])
-            LOADS += 1
-        return _libs[name]
+    return _resolve([name])[name][0]

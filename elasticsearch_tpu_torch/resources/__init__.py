@@ -7,6 +7,8 @@
   evictable (``ResidentArray``: placed on first touch, evicted least
   recently used first under its breaker, rehydrated from its host
   mirror); bytes a caller owns are pinned charges (``PinnedToken``).
+- :mod:`census` — each index's program census, persisted beside the
+  IVF/PQ blobs and replayed by the pre-warm service.
 
 Each ``Node`` owns one breaker service and one residency registry, bound
 to its device, and passes them down.

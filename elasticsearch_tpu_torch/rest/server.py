@@ -12,11 +12,10 @@ heavy work is the kernels on the card), a route table of (method,
 compiled regex) → handler, each request run on the named thread pool its
 route belongs to, and ES-shaped JSON error envelopes.
 
-Every route the reference registers is registered here. Five answer a
-typed ``not_yet_ported_exception`` naming the ROADMAP item that brings
-them, never a partial answer: the program observatory and the pre-warm
-pipeline (``/_nodes/_local/xla/programs``, ``/_cat/programs``, the three
-``_warmup`` routes; ROADMAP A11). The flight recorder's surface
+Every route the reference registers is registered here and served. The
+program observatory (``/_nodes/_local/xla/programs``, ``/_cat/programs``)
+reads monitor/programs.py, and the three ``_warmup`` routes drive the
+node's pre-warm service (serving/warmup.py). The flight recorder's surface
 (``/_nodes/_local/flight``, ``/_cat/incidents``, ``/_cluster/diagnostics``
 and its incident route) reads the node's recorder and watchdog
 (monitor/flight.py, monitor/watchdog.py). On a node that
@@ -49,20 +48,6 @@ from elasticsearch_tpu_torch.utils.errors import (
 
 Handler = Callable[..., Tuple[int, Any]]
 
-
-class NotYetPortedException(ElasticsearchTpuException):
-    """A registered route whose subsystem the port does not have yet;
-    the message names the ROADMAP item that brings it."""
-
-    status = 400
-
-
-def _not_yet_ported(what: str, item: str) -> Handler:
-    def handler(n, p, b, **_):
-        raise NotYetPortedException(
-            f"{what} is not yet in the PyTorch port (ROADMAP {item})")
-
-    return handler
 
 # guards the get-or-register of a scroll context's persistent task
 # (rest/_scroll): concurrent pages for one scroll_id race on it
@@ -296,20 +281,19 @@ def _register_all(rc: RestController):
     # registered before the /_nodes/{nodeid}/... patterns so the literal
     # path wins
     add("GET", "/_nodes/_local/trace", _node_trace)
-    # device-program observatory (ROADMAP A11) — also before the
+    # device-program observatory (monitor/programs.py) — also before the
     # /_nodes/{nodeid} patterns so the literal path wins
-    add("GET", "/_nodes/_local/xla/programs",
-        _not_yet_ported("the device-program observatory", "A11"))
+    add("GET", "/_nodes/_local/xla/programs", _node_programs)
     # flight recorder + watchdog + incident surface (monitor/flight.py,
     # monitor/watchdog.py): per-node black box, cluster-wide support
     # bundle, cat listing of captured incidents
     add("GET", "/_nodes/_local/flight", _node_flight)
-    # pre-warm pipeline (ROADMAP A11): manual census-replay trigger +
-    # status
-    add("POST", "/_warmup", _not_yet_ported("the pre-warm pipeline", "A11"))
-    add("GET", "/_warmup", _not_yet_ported("the pre-warm pipeline", "A11"))
-    add("POST", "/{index}/_warmup",
-        _not_yet_ported("the pre-warm pipeline", "A11"))
+    # pre-warm pipeline (serving/warmup.py): manual census-replay
+    # trigger + status (the runs are cancellable cluster:admin/warmup
+    # tasks in GET /_tasks)
+    add("POST", "/_warmup", _warmup_trigger)
+    add("GET", "/_warmup", _warmup_status)
+    add("POST", "/{index}/_warmup", _warmup_trigger_index)
     add("GET", "/_cat/incidents", _cat_incidents)
     add("GET", "/_cluster/diagnostics", _cluster_diagnostics)
     add("GET", "/_cluster/diagnostics/incidents/{incident_id}",
@@ -335,8 +319,7 @@ def _register_all(rc: RestController):
     add("GET", "/_cat/recovery", _cat_recovery)
     add("GET", "/_cat/plugins", lambda n, p, b: (200, []))
     add("GET", "/_cat/pending_tasks", _cat_pending_tasks)
-    add("GET", "/_cat/programs",
-        _not_yet_ported("the device-program observatory", "A11"))
+    add("GET", "/_cat/programs", _cat_programs)
     add("GET", "/_cat/thread_pool", _cat_thread_pool)
     add("GET", "/_cat/fielddata", _cat_fielddata)
     add("GET", "/_cat/repositories", lambda n, p, b: (200, [
@@ -1013,9 +996,10 @@ def _local_cluster_stats(n: Node) -> dict:
                 tp[k] += st[k]
     tripped = sum(br.get("tripped", 0)
                   for br in n.breakers.stats().values())
-    # the reference's nodes.jit section counts jit traces: the port's
-    # compile/warm layer (ROADMAP A11) has no such count yet, so the
-    # section is absent, not zero
+    # nodes.jit counts the process's first-touch events: kernel-library
+    # builds and loads, first dispatches (tracing/retrace.py)
+    from elasticsearch_tpu_torch.tracing import retrace
+
     return {
         "cluster_name": n.cluster_state.cluster_name,
         "_index_names": sorted(n.indices),
@@ -1039,6 +1023,7 @@ def _local_cluster_stats(n: Node) -> dict:
             },
             "thread_pool": tp,
             "breakers": {"tripped": tripped},
+            "jit": {"traces_total": retrace.auditor().total()},
         },
     }
 
@@ -1777,8 +1762,9 @@ def _open_index(n: Node, p, b, index: str):
         open_index(n, nm)
         if c is not None and nm in c.dist_indices:
             c.data.set_closed(nm, False)
-    # the reference queues the re-opened index's census replay here; the
-    # pre-warm pipeline comes with ROADMAP A11
+    # a re-opened index serves cold: queue its census replay
+    # (serving/warmup.py; cooldown-guarded, no-op without a census)
+    n.serving.warmup.kick("index_open", names)
     return 200, {"acknowledged": True}
 
 
@@ -2168,6 +2154,77 @@ def _node_trace(n: Node, p, b):
     return 200, n.tracer.chrome_trace()
 
 
+def _node_programs(n: Node, p, b):
+    """GET /_nodes/_local/xla/programs: the device-program observatory:
+    per-(program, shapes, backend) compiles and their seconds, execute
+    calls with p50/p99, cold flags, plus each index's (program, shapes,
+    field) census (monitor/programs.py). The registry is the process's
+    (the card is shared by every node in it), hence ``_local``."""
+    from elasticsearch_tpu_torch.monitor import programs
+
+    reg = programs.REGISTRY
+    return 200, {
+        "backend": programs.backend_fingerprint(),
+        "totals": reg.stats(),
+        "programs": reg.snapshot(),
+        "census": {ix: reg.census(ix) for ix in reg.census_indices()},
+    }
+
+
+def _warmup_trigger(n: Node, p, b):
+    """POST /_warmup: queue a census replay for every open local index
+    (serving/warmup.py); cooldown-guarded, each run a cancellable
+    ``cluster:admin/warmup`` task."""
+    return 200, {"acknowledged": True, "queued": n.serving.warmup.kick("api")}
+
+
+def _warmup_trigger_index(n: Node, p, b, index: str):
+    """POST /{index}/_warmup: queue a census replay for the indices
+    ``index`` names."""
+    names = n.resolve_indices(index)
+    if not names:
+        raise IndexNotFoundException(index)
+    return 200, {"acknowledged": True,
+                 "queued": n.serving.warmup.kick("api", names)}
+
+
+def _warmup_status(n: Node, p, b):
+    """GET /_warmup: the pre-warm service's queue and each index's last
+    run (also the ``serving.warmup`` section of /_nodes/stats)."""
+    return 200, n.serving.warmup.stats()
+
+
+def _cat_programs(n: Node, p, b):
+    """GET /_cat/programs: one row per (program, shapes, backend) key:
+    compiles and their seconds, execute calls, p50/p99, the cold flag
+    (no steady execute yet in this process) and the kernel-library
+    resolutions inside its dispatches (``aot:1,fresh:1``; ``-`` for
+    none)."""
+    from elasticsearch_tpu_torch.monitor import programs
+
+    def _cache(sources: dict) -> str:
+        short = {"aot_hit": "aot", "build_dir_hit": "build_dir"}
+        return ",".join(f"{short.get(k, k)}:{v}"
+                        for k, v in sorted(sources.items())) or "-"
+
+    rows = [{
+        "program": r["program"],
+        "shapes": r["shapes"],
+        "backend": r["backend"],
+        "compiles": str(r["compiles"]),
+        "compile_seconds": f"{r['compile_seconds']:.3f}",
+        "calls": str(r["calls"]),
+        "execute_p50_ms": f"{r['execute_p50_seconds'] * 1000.0:.2f}",
+        "execute_p99_ms": f"{r['execute_p99_seconds'] * 1000.0:.2f}",
+        "cold": "true" if r["cold"] else "false",
+        "cache": _cache(r["cache_sources"]),
+    } for r in programs.REGISTRY.snapshot()]
+    return 200, _cat_rows(rows, ["program", "shapes", "backend", "compiles",
+                                 "compile_seconds", "calls",
+                                 "execute_p50_ms", "execute_p99_ms",
+                                 "cold", "cache"])
+
+
 def _node_flight(n: Node, p, b):
     """GET /_nodes/_local/flight: this node's flight-recorder rings
     (metric deltas, slow ops, breaker trips, compile events, cluster
@@ -2260,8 +2317,8 @@ def _get_incident(n: Node, p, b, incident_id: str):
 
 def _local_diagnostics(n: Node, p) -> dict:
     """One node's part of the diagnostics bundle; its key set is the
-    bundle's schema. ``programs`` holds the dispatches in flight and the
-    execute totals; compile rows come with ROADMAP A11."""
+    bundle's schema. ``programs`` holds the program totals, compiles
+    included, and the dispatches in flight."""
     from elasticsearch_tpu_torch.monitor.watchdog import (
         hot_threads_snapshot, programs_section)
 
@@ -5535,8 +5592,8 @@ class RestServer:
     def start(self, background: bool = True):
         # a node serving HTTP runs the stall watchdog for as long as it
         # serves (monitor/watchdog.py; ESTPU_WATCHDOG=0 opts out) and
-        # pre-warms from its census where the node has one (ROADMAP A11:
-        # the port's Node has none yet, so that lookup finds nothing)
+        # replays each index's persisted census through the real search
+        # path before traffic lands (serving/warmup.py)
         node = self.controller.node
         self._watchdog = getattr(node, "watchdog", None)
         if self._watchdog is not None:

@@ -30,9 +30,8 @@ score every doc, and a search counts roots only), as the reference does.
 A batch reads one copy of each shard, picked once for the whole batch
 (``ReplicationGroup.reader``: ``preference``, else the next copy in
 turn), and counts each shard's queries and fetches as its sequential
-searches would (``SearchStats``). The reference's program registry and
-retrace accounting around the tiers are not ported (ROADMAP A11), nor its
-power-of-two batch padding, which bounded recompiles on the TPU.
+searches would (``SearchStats``). The reference's power-of-two batch
+padding, which bounded recompiles on the TPU, is not ported.
 """
 from __future__ import annotations
 
@@ -44,6 +43,7 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.monitor import kernels
+from elasticsearch_tpu_torch.monitor.programs import REGISTRY, static_sig
 from elasticsearch_tpu_torch.ops.knn import knn_topk, merge_candidate_topk
 from elasticsearch_tpu_torch.parallel.mesh_service import try_mesh_msearch
 from elasticsearch_tpu_torch.search.context import SegmentContext
@@ -54,6 +54,7 @@ from elasticsearch_tpu_torch.search.queries import (KnnQuery,
                                                     parse_query)
 from elasticsearch_tpu_torch.search.service import ShardDoc
 from elasticsearch_tpu_torch.utils.errors import ElasticsearchTpuException
+from elasticsearch_tpu_torch.utils.shapes import pow2_bucket
 
 #: an item with any other key (``aggs`` among them) runs sequentially
 _ALLOWED_KEYS = {"query", "size", "from", "_source"}
@@ -183,17 +184,22 @@ def knn_topk_fused_batch(ctx, queries, k: int):
         toks[i] = np.tile(t, (-(-T // t.shape[0]), 1))[:T]
     lv = vc.exists & ctx.segment.live
     kc = int(min(max(q0.num_candidates, q0.k), ctx.D))
-    flat = torch.from_numpy(toks.reshape(Q * T, vc.dims)).to(ctx.device)
-    vals, idx = knn_topk(flat, vc.vecs, lv, k=kc, metric=vc.similarity,
-                         precise=True)
-    best_v, best_i, n_unique = merge_candidate_topk(
-        vals.reshape(Q, T * kc), idx.reshape(Q, T * kc), k=min(k, kc))
-    boosts = torch.tensor([q.boost for q in queries], dtype=torch.float32,
-                          device=ctx.device)
+    # the reference's batched kNN tier program, open to the copy back
+    with REGISTRY.timed("batch_knn_fused", static_sig(
+            QT=pow2_bucket(Q * T, 1), D=pow2_bucket(ctx.D), kc=kc),
+            field=q0.field):
+        flat = torch.from_numpy(toks.reshape(Q * T, vc.dims)).to(ctx.device)
+        vals, idx = knn_topk(flat, vc.vecs, lv, k=kc, metric=vc.similarity,
+                             precise=True)
+        best_v, best_i, n_unique = merge_candidate_topk(
+            vals.reshape(Q, T * kc), idx.reshape(Q, T * kc), k=min(k, kc))
+        boosts = torch.tensor([q.boost for q in queries],
+                              dtype=torch.float32, device=ctx.device)
+        out = torch.cat(
+            [(best_v * boosts[:, None]).view(torch.int32), best_i,
+             n_unique.to(torch.int64).view(-1, 1).view(torch.int32)],
+            dim=1).cpu().numpy()  # one copy back
     kernels.record("knn_fused_batch", Q)
-    out = torch.cat([(best_v * boosts[:, None]).view(torch.int32), best_i,
-                     n_unique.to(torch.int64).view(-1, 1).view(torch.int32)],
-                    dim=1).cpu().numpy()  # one copy back
     kb = best_v.shape[1]
     return (out[:, :kb].view(np.float32), out[:, kb: 2 * kb],
             out[:, 2 * kb:].view(np.int64)[:, 0])

@@ -348,15 +348,18 @@ def hybrid_bm25_topk_batch(ctx, queries: List[Query], k: int,
     kk = min(k, ctx.D)
     live = ctx.segment.live
     out = []
-    for q0 in range(0, Q, chunk_q):
-        q1 = min(q0 + chunk_q, Q)
-        vals, ids, tot = bm25_hybrid_topk_batch(
-            impact, torch.from_numpy(qw[q0:q1]).to(impact.device),
-            inv.doc_ids, inv.tfnorm, starts[q0:q1], lens[q0:q1],
-            ws[q0:q1], live, D=ctx.D, k=kk)
-        out.append(torch.cat([vals.view(torch.int32), ids,
-                              tot.view(-1, 1).view(torch.int32)], dim=1))
-    vals, ids, totals = unpack_topk(torch.cat(out).cpu().numpy(), kk)
+    # the reference's ``batch_bm25_hybrid`` tier program
+    with REGISTRY.timed("batch_bm25_hybrid", static_sig(
+            Q=pow2_bucket(Q, 1), D=pow2_bucket(ctx.D), k=kk)):
+        for q0 in range(0, Q, chunk_q):
+            q1 = min(q0 + chunk_q, Q)
+            vals, ids, tot = bm25_hybrid_topk_batch(
+                impact, torch.from_numpy(qw[q0:q1]).to(impact.device),
+                inv.doc_ids, inv.tfnorm, starts[q0:q1], lens[q0:q1],
+                ws[q0:q1], live, D=ctx.D, k=kk)
+            out.append(torch.cat([vals.view(torch.int32), ids,
+                                  tot.view(-1, 1).view(torch.int32)], dim=1))
+        vals, ids, totals = unpack_topk(torch.cat(out).cpu().numpy(), kk)
     kernels.record("bm25_hybrid", Q)
     return vals, ids, totals
 

@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.index.mappings import _parse_geo_point
+from elasticsearch_tpu_torch.monitor.programs import REGISTRY, static_sig
 from elasticsearch_tpu_torch.monitor.stats import SearchStats
 from elasticsearch_tpu_torch.ops import scoring as S
 from elasticsearch_tpu_torch.ops.scoring import count_mask, topk_with_mask
@@ -96,6 +97,7 @@ from elasticsearch_tpu_torch.tracing.tasks import check_cancelled
 from elasticsearch_tpu_torch.utils.errors import (
     CircuitBreakingException, SearchContextMissingException,
     SearchParseException)
+from elasticsearch_tpu_torch.utils.shapes import pow2_bucket
 
 #: request keys the port serves
 _SUPPORTED_KEYS = frozenset({
@@ -308,44 +310,48 @@ class ShardSearcher:
                                 docs.append(ShardDoc(self.shard_ord, seg,
                                                      int(i), float(v)))
                         continue
-                scores, mask = _dc(lambda: query.score_or_mask(ctx))
-                mask = mask & seg.live
-                if seg.has_nested:
-                    # top-level hits, totals, aggs and sorts see roots
-                    # only: nested docs are reached through nested
-                    # queries and aggs (Lucene's block join)
-                    mask = mask & seg.roots_dev
-                if min_score is not None:
-                    mask = mask & (scores >= float(min_score))
-                if aggs:
-                    with _p("aggs"):
-                        agg_partials.append(run_aggs(aggs, ctx, mask))
-                if sort_spec:
-                    with _p("topk"):
-                        seg_docs, seg_total = self._sorted_candidates(
-                            seg, scores, mask, sort_spec,
-                            seg.max_docs if collect_full else kk,
-                            search_after)
-                    total += seg_total
-                elif full_snap is not None:
-                    order, sc = _snapshot_segment(scores, mask, scan)
-                    total += int(order.size)
-                    full_snap.append((seg, order, sc))
-                    seg_docs = [] if scan else [
-                        ShardDoc(self.shard_ord, seg, int(i), float(v))
-                        for i, v in zip(order[:k].tolist(),
-                                        sc[:k].tolist())]
-                else:
-                    vals, idx = _dc(lambda: topk_with_mask(scores, mask,
-                                                           k=kk), "topk")
-                    with _p("host_sync"):
-                        total += count_mask(mask)
-                        vals = vals.cpu().numpy()
-                        idx = idx.cpu().numpy()
-                    seg_docs = [ShardDoc(self.shard_ord, seg, int(i),
-                                         float(v))
-                                for v, i in zip(vals, idx)
-                                if np.isfinite(v)]
+                # the host loop's program: in flight, and filed as a
+                # compile or an execute, up to its copy back
+                with REGISTRY.timed("host_dsl", static_sig(
+                        D=pow2_bucket(seg.max_docs), k=kk)):
+                    scores, mask = _dc(lambda: query.score_or_mask(ctx))
+                    mask = mask & seg.live
+                    if seg.has_nested:
+                        # top-level hits, totals, aggs and sorts see roots
+                        # only: nested docs are reached through nested
+                        # queries and aggs (Lucene's block join)
+                        mask = mask & seg.roots_dev
+                    if min_score is not None:
+                        mask = mask & (scores >= float(min_score))
+                    if aggs:
+                        with _p("aggs"):
+                            agg_partials.append(run_aggs(aggs, ctx, mask))
+                    if sort_spec:
+                        with _p("topk"):
+                            seg_docs, seg_total = self._sorted_candidates(
+                                seg, scores, mask, sort_spec,
+                                seg.max_docs if collect_full else kk,
+                                search_after)
+                        total += seg_total
+                    elif full_snap is not None:
+                        order, sc = _snapshot_segment(scores, mask, scan)
+                        total += int(order.size)
+                        full_snap.append((seg, order, sc))
+                        seg_docs = [] if scan else [
+                            ShardDoc(self.shard_ord, seg, int(i), float(v))
+                            for i, v in zip(order[:k].tolist(),
+                                            sc[:k].tolist())]
+                    else:
+                        vals, idx = _dc(lambda: topk_with_mask(scores, mask,
+                                                               k=kk), "topk")
+                        with _p("host_sync"):
+                            total += count_mask(mask)
+                            vals = vals.cpu().numpy()
+                            idx = idx.cpu().numpy()
+                        seg_docs = [ShardDoc(self.shard_ord, seg, int(i),
+                                             float(v))
+                                    for v, i in zip(vals, idx)
+                                    if np.isfinite(v)]
                 for d in seg_docs:
                     if np.isfinite(d.score):
                         max_score = max(max_score, d.score)

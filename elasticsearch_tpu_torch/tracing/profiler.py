@@ -25,8 +25,10 @@ tree). The per-shard profile keeps the reference's envelope
 A device call waits for the card with ``torch.cuda.synchronize`` on the
 device of a CUDA tensor it returns, so its time is the device's. It
 never swallows an exception: a fault on the card fails the request.
-``retraces`` is null, the reference's typed absence: the port has no jit
-trace auditor (ROADMAP A11).
+``retraces`` counts the first-touch events of the shard's query phase on
+its thread (``tracing/retrace.py``: a kernel library built or loaded, a
+dispatch key's first run in the process); an identical second request
+reports 0.
 
 Clock discipline: all durations from ``time.perf_counter()``.
 """
@@ -40,6 +42,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import torch
 
 from elasticsearch_tpu_torch.ops import build
+from elasticsearch_tpu_torch.tracing import retrace
 
 PHASES = ("rewrite", "executor_build", "device_compile", "device_execute",
           "topk", "host_sync", "aggs", "rehydrate", "fuse", "rerank")
@@ -95,6 +98,7 @@ class PhaseTimer:
         self.nanos: Dict[str, int] = {p: 0 for p in PHASES}
         self.device_calls = 0
         self.segments = 0
+        self._snap = retrace.snapshot()
         self._t0 = time.perf_counter()
 
     @contextmanager
@@ -133,7 +137,7 @@ class PhaseTimer:
             # bucket (topk) also counts under device_compile/execute
             "query_total_nanos": int(
                 (time.perf_counter() - self._t0) * 1e9),
-            "retraces": None,
+            "retraces": retrace.traces_since(self._snap),
             "device_calls": self.device_calls,
             "segments": self.segments,
         }

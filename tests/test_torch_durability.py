@@ -551,9 +551,10 @@ def test_a_restart_loads_the_quantizer_instead_of_k_means(tmp_path):
     want = _knn_hits(port, bodies)
     snap = kernels.snapshot()
     assert snap.get("ivf_build") == 1 and snap.get("pq_build") == 1
-    assert sorted(f.rsplit(".", 1)[1]
-                  for f in os.listdir(os.path.join(d, "_ivf"))) == \
-        ["ivf", "pq"]
+    # beside the quantizer's blobs the tier may hold the kernel
+    # libraries the process loaded (parallel/aot.py), never more
+    exts = [f.rsplit(".", 1)[1] for f in os.listdir(os.path.join(d, "_ivf"))]
+    assert sorted(e for e in exts if e != "kso") == ["ivf", "pq"]
     port.close()
     ivf_cache.reset()  # a new process: the memory layer is empty
     kernels.reset()

@@ -353,7 +353,9 @@ def test_profile_envelope_matches_reference(nodes, body):
     for ps, rs in zip(p["profile"]["shards"], r["profile"]["shards"]):
         assert ps["id"] == rs["id"]
         assert ps["tpu"]["segments"] == rs["tpu"]["segments"] == 2
-        assert ps["tpu"]["retraces"] is None
+        # first-touch events of the port, jit traces of the reference
+        assert isinstance(ps["tpu"]["retraces"], int) \
+            and ps["tpu"]["retraces"] >= 0
         assert all(isinstance(v, int) and v >= 0
                    for v in ps["tpu"]["phases"].values())
     assert p["profile"]["shards"][0]["tpu"]["phases"][

@@ -37,14 +37,10 @@ MAPPING = {"properties": {"body": {"type": "text"},
                           "n": {"type": "long"}}}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: families of the reference's exposition whose layer the port brings
-#: later: the compile/warm layer (ROADMAP A11)
-REFERENCE_ONLY_FAMILIES = {
-    "estpu_compile_cache_events_total", "estpu_compile_cache_seconds_total",
-    "estpu_jit_traces_total", "estpu_program_compile_seconds",
-    "estpu_program_compiles_total", "estpu_program_execute_seconds",
-    "estpu_warmup_replayed_total", "estpu_warmup_runs_total",
-}
+#: families of the reference's exposition the port lacks: none (the
+#: compile/warm layer's eight, ``estpu_program_*``, ``estpu_jit_traces_total``,
+#: ``estpu_compile_cache_*`` and ``estpu_warmup_*``, are served)
+REFERENCE_ONLY_FAMILIES: set = set()
 
 
 #: families of the process-shared registries, present once the process
