@@ -59,10 +59,10 @@ Phases, in order; any failure exits non-zero before the result line:
             ``search_knn`` at Q = 8 against the B2 twin and the oracle,
             and cProfile's top 10 of one match query on each path;
 5e. msearch ``Node.msearch`` and the serving coalescer, with bench.py's
-            recipes: (a) 2048 pure-dense bodies on phase 5's index, one
-            B1 launch over all rows with the count, held against
-            sequential ``Node.search`` and bit for bit against a rerun on
-            the B1 twin; (b) 2048 mixed Zipfian bodies (tier 2: the f32
+            recipes cut to 1024 bodies: (a) 1024 pure-dense bodies on
+            phase 5's index, one B1 launch over all rows with the count,
+            held against sequential ``Node.search`` and bit for bit
+            against a rerun on the B1 twin; (b) 1024 mixed Zipfian bodies (tier 2: the f32
             product and the tails' scatters); (c) 256 mixed bodies on
             phase 5d's five shards through the mesh's batched round,
             against the host tiers and sequential searches; (d) 32
@@ -94,7 +94,7 @@ Phases, in order; any failure exits non-zero before the result line:
             against numpy (``np.lexsort``, exact totals); p50, p99,
             device time, kernels, copies and busy share per body and
             route;
-5h. writes  the write path and merges (``phase_writepath``): 32,768
+5h. writes  the write path and merges (``phase_writepath``): 16,384
             generated log docs (Zipf(1.1) bodies of 20-80 tokens over
             phase 5's vocabulary, a keyword, a long, a date) through
             ``Node.index`` into five shards with 32 refreshes, so the
@@ -109,10 +109,10 @@ Phases, in order; any failure exits non-zero before the result line:
             ``indices_boost`` and ``fields`` against a CPU Node, the
             request cache; the ingest rate, refresh and merge times,
             breaker bytes and read p50/p99s;
-5i. text    the full-text DSL (``phase_fulltext``): phase 5's 2^20-doc
-            corpus again with each token's position kept (~63M positions
-            in a term-major, doc-ascending positional CSR, one stable
-            sort) and a title field of each doc's first 10 tokens,
+5i. text    the full-text DSL (``phase_fulltext``): the first 2^19
+            docs of phase 5's corpus with each token's position kept
+            (~31M positions in a term-major, doc-ascending positional
+            CSR, one stable sort) and a title field of each doc's first 10 tokens,
             loaded through ``segment_from_arrays``; groups of bodies
             drawn from the corpus (match_phrase of 2-3 consecutive tokens
             at slop 0 and 2, Rally pmc's ``phrase`` shape; multi_match
@@ -286,7 +286,7 @@ Phases, in order; any failure exits non-zero before the result line:
             knn bodies through ``POST /{index}/_search``, each answer
             byte-equal to ``Node.search``'s once ``took`` is masked; p50
             and p99 over HTTP and in process and their difference, the
-            REST overhead a request; the device busy share; 5e(a)'s 2,048
+            REST overhead a request; the device busy share; 5e(a)'s 1,024
             pure-dense bodies as one ``_msearch`` (one B1 launch,
             byte-equal to ``Node.msearch``) and as single searches from 64
             client threads through the coalescer (q/s at 1 and 64 client
@@ -355,6 +355,24 @@ Phases, in order; any failure exits non-zero before the result line:
             Printed: each key's first call against its execute p50, the
             first request's latency warmed and cold, each library's load
             and build seconds;
+5t. encoder the dual encoder (ROADMAP A12) at its default widths
+            (vocab 8192, d_model 256, 4 heads, 4 layers, d_ff 1024,
+            embed 128, bf16) with ``init_params(seed=0)``, last: (a)
+            phase 5's 2^20 passages cut at 128 tokens, tokenized through
+            a term-id -> bucket table built once with the tokenizer's
+            crc32 rule (the first 1,024 equal ``SimpleTokenizer``'s ids
+            and mask) and encoded in calls of 4,096: passages/s,
+            tokens/s, peak memory, 256 of them against the port's CPU
+            encode (cosine > 0.999); (b) the embeddings as a one-shard
+            cosine ``dense_vector`` index (``segment_from_arrays``), 32
+            encoded queries from phase 5's query terms as ``knn`` k=10
+            through ``Node.search`` (B2 once a query): hits against an
+            f64 oracle (ids outside tie bands, scores rtol 1e-5) and bit
+            for bit B2's twin's; (c) ``ring_encode`` at max_len 4,096
+            over 8 sequence slots against the dense encode, B=4 ragged
+            rows (cosine > 0.999), each path's ms and peak memory; (d)
+            20 contrastive train steps at B=64 (span, passage) pairs,
+            L=128, bf16: the loss falls, steps/s;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
@@ -992,15 +1010,26 @@ def phase_write(torch, np, dev):
         f"CPU node, fused path taken, delete vanishes")
 
 
+_TOKENS: dict = {}
+
+
 def corpus_tokens(np, n_docs, vocab, seed):
     """bench.py::build_corpus's token stream: (doc lengths, ~60 each, and
-    every doc's Zipf(1.15) term ids in order)."""
-    rng = np.random.default_rng(seed)
-    doc_len = np.clip(rng.normal(60, 15, n_docs), 20, 120).astype(np.int64)
-    nnz_tok = int(doc_len.sum())
-    terms = rng.zipf(1.15, nnz_tok).astype(np.int64)
-    terms = np.where(terms >= vocab, rng.integers(1, vocab, nnz_tok), terms)
-    return doc_len, terms
+    every doc's Zipf(1.15) term ids in order). Generated once a process
+    and shared, read-only, by the phases that read it (5, 5i, 5t)."""
+    key = (n_docs, vocab, seed)
+    if key not in _TOKENS:
+        rng = np.random.default_rng(seed)
+        doc_len = np.clip(rng.normal(60, 15, n_docs), 20, 120).astype(
+            np.int64)
+        nnz_tok = int(doc_len.sum())
+        terms = rng.zipf(1.15, nnz_tok).astype(np.int64)
+        terms = np.where(terms >= vocab, rng.integers(1, vocab, nnz_tok),
+                         terms)
+        doc_len.setflags(write=False)
+        terms.setflags(write=False)
+        _TOKENS[key] = (doc_len, terms)
+    return _TOKENS[key]
 
 
 def build_corpus(np, n_docs, vocab, seed):
@@ -2006,7 +2035,7 @@ def phase_mesh(torch, np, dev, card, corpus, sift):
 # phase 5e: batched _msearch and the serving coalescer
 # ---------------------------------------------------------------------------
 
-MSEARCH_BATCH = 2048       # bench.py --batch-queries
+MSEARCH_BATCH = 1024       # bench.py --batch-queries 2048, cut (PERF.md §4)
 MSEARCH_MESH_BATCH = 256
 COALESCE_THREADS = 64      # bench.py::coalesced_qps
 
@@ -3357,11 +3386,11 @@ def phase_sort(torch, np, dev, card, node, t):
 # phase 5h: the write path and merges on the card
 # ---------------------------------------------------------------------------
 
-WP_DOCS = 1 << 15          # logs-a's documents (cut from 2^18, PERF.md §4)
+WP_DOCS = 1 << 14          # logs-a's documents (cut from 2^18, PERF.md §4)
 WP_REFRESHES = 32          # refreshes over logs-a: ~32 fresh segments a shard
 WP_SHARDS = 5              # ES 2.0's default index.number_of_shards
 WP_B_SHARE = 10            # logs-b holds a further 1/WP_B_SHARE of the docs
-WP_PREFIX = 1 << 13        # the CPU comparison's prefix of logs-a
+WP_PREFIX = 1 << 12        # the CPU comparison's prefix of logs-a
 WP_RECLAIM = 0.3           # the share of one shard's docs deleted
 WP_REPS = 40               # timed requests per body
 WP_MAPPING = {"properties": {
@@ -3836,7 +3865,7 @@ def phase_writepath(torch, np, dev, card):
 # phase 5i: the full-text DSL on a positional CSR
 # ---------------------------------------------------------------------------
 
-FT_DOCS = N_DOCS           # phase 5's corpus, with each token's position
+FT_DOCS = N_DOCS // 2      # phase 5's first docs, with each token's position
 FT_TITLE = 10              # the title field: each doc's first 10 tokens
 FT_VARIANTS = 8            # bodies of each group, run in turn
 FT_WINDOW_S = 0.5          # timed requests per group and route: about this
@@ -4074,7 +4103,9 @@ def phase_fulltext(torch, np, dev, card):
                                                         positional_bytes)
 
     t_phase = time.perf_counter()
-    doc_len, terms = corpus_tokens(np, FT_DOCS, VOCAB, SEED)
+    doc_len, terms = corpus_tokens(np, N_DOCS, VOCAB, SEED)
+    doc_len = doc_len[:FT_DOCS]
+    terms = terms[:int(doc_len.sum())]
     arrays = fulltext_arrays(np, doc_len, terms, FT_DOCS)
     body_f = arrays["fields"]["body"]
     n_pos = int(body_f["positions"].size)
@@ -9435,6 +9466,283 @@ def phase_cluster(torch, np, dev, card):
     return sum(b1_members) + b1_self
 
 
+# ---------------------------------------------------------------------------
+# phase 5t: the dual encoder (ROADMAP A12)
+# ---------------------------------------------------------------------------
+
+EN_BATCH = 4096            # (a): passages an encode call
+EN_TOK_CHECK = 1024        # (a): passages tokenized both ways
+EN_CPU_CHECK = 256         # (a): passages encoded on the CPU too
+EN_LONG = 4096             # (c): the ring's max_len
+EN_SLOTS = 8               # (c): sequence slots
+EN_LONG_ROWS = (4096, 3000, 2049, 1000)  # (c): the rows' lengths
+EN_PAIRS = 64              # (d): (query, passage) pairs a step
+EN_STEPS = 20              # (d): train steps
+EN_QUERY_SPAN = (8, 40)    # (d): a pair's query is this span of its passage
+EN_MAPPING = {"properties": {  # dims: the default config's embed_dim
+    "emb": {"type": "dense_vector", "dims": 128, "similarity": "cosine"}}}
+
+
+def en_token_table(np, cfg, vocab):
+    """Term id -> the tokenizer's bucket of the term's text ``t<id>``,
+    built once with ``SimpleTokenizer``'s crc32 rule."""
+    from elasticsearch_tpu_torch.models import SimpleTokenizer
+
+    tok = SimpleTokenizer(cfg)
+    return np.array([tok.bucket(f"t{t}") for t in range(vocab)], np.int32)
+
+
+def en_passage_ids(np, doc_len, terms, table, L):
+    """[n, L] bucket ids and f32 mask of every passage, cut at L tokens."""
+    n = doc_len.shape[0]
+    start = np.zeros(n + 1, np.int64)
+    start[1:] = np.cumsum(doc_len)
+    doc = np.repeat(np.arange(n), doc_len)
+    pos = np.arange(terms.shape[0]) - start[doc]
+    keep = pos < L
+    ids = np.zeros((n, L), np.int32)
+    ids[doc[keep], pos[keep]] = table[terms[keep]]
+    mask = (np.arange(L)[None, :] < np.minimum(doc_len, L)[:, None]).astype(
+        np.float32)
+    return ids, mask, start
+
+
+def _en_timed(torch, fn, reps=3):
+    """(result, median ms of ``reps`` runs after a warm one, peak bytes
+    allocated above the entry's allocation)."""
+    out = fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return out, sorted(ms)[reps // 2], torch.cuda.max_memory_allocated() - base
+
+
+def _en_profile(torch, fn) -> str:
+    """One call of ``fn`` under the profiler: its host ms there, the
+    device ms, the kernels launched, the GEMMs' share and the top
+    kernels by device time."""
+    for _ in range(2):  # a session that records nothing is tried again
+        with _profiled(torch, cpu=True) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        rows = _device_rows(prof)
+        dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        if dev_ms > 0:
+            break
+    else:
+        return "device time not measured (the profiler recorded none twice)"
+    gemm = sum(e.self_device_time_total for e in rows if any(
+        g in e.key.lower() for g in ("gemm", "nvjet", "xmma", "cutlass"))
+    ) / 1e3
+    n = sum(e.count for e in rows if not e.key.startswith(("Memcpy",
+                                                           "Memset")))
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:4]
+    return (f"{dev_ms:.3f} ms of device time in {wall:.3f} ms under the "
+            f"profiler ({100 * dev_ms / wall:.1f}% busy), {n} kernels, "
+            f"GEMMs {gemm:.3f} ms ({100 * gemm / dev_ms:.1f}%); top: "
+            + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f}"
+                        f" ms x{e.count}" for e in top))
+
+
+def phase_encoder(torch, np, dev, card, corpus_df) -> int:
+    """Phase 5t (module docstring); returns B2's launches on the encoded
+    index."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.index.convert import segment_from_arrays
+    from elasticsearch_tpu_torch.models import (DualEncoderConfig,
+                                                SimpleTokenizer, encode,
+                                                init_params, make_train_step)
+    from elasticsearch_tpu_torch.models.ring_encoder import (build_sp_mesh,
+                                                             ring_encode)
+    from elasticsearch_tpu_torch.ops import knn_topk
+    from elasticsearch_tpu_torch.search import queries
+
+    t_phase = time.perf_counter()
+    cfg = DualEncoderConfig()
+    L = cfg.max_len
+
+    # (a) phase 5's passages through the tokenizer's table, then encoded
+    t = time.perf_counter()
+    doc_len, terms = corpus_tokens(np, N_DOCS, VOCAB, SEED)
+    table = en_token_table(np, cfg, VOCAB)
+    ids, mask, start = en_passage_ids(np, doc_len, terms, table, L)
+    texts = [" ".join(f"t{x}" for x in terms[start[d]:start[d + 1]])
+             for d in range(EN_TOK_CHECK)]
+    want_ids, want_mask = SimpleTokenizer(cfg)(texts)
+    _hold(np.array_equal(ids[:EN_TOK_CHECK], want_ids)
+          and np.array_equal(mask[:EN_TOK_CHECK], want_mask),
+          "(a) the term table's ids differ from SimpleTokenizer's", "5t")
+    n_tok = int(np.minimum(doc_len, L).sum())
+    log(f"[5t] (a) {N_DOCS} passages cut at {L} tokens ({n_tok} "
+        f"tokens, {int((doc_len > L).sum())} cut) through a {VOCAB}-term "
+        f"bucket table in {time.perf_counter() - t:.1f} s; the first "
+        f"{EN_TOK_CHECK} equal SimpleTokenizer's ids and mask")
+    model = init_params(cfg, seed=0, device=dev)
+    _hold(model.device.type == "cuda", f"(a) the model is on {model.device}",
+          "5t")
+    ids_d = torch.from_numpy(ids).to(dev)
+    mask_d = torch.from_numpy(mask).to(dev)
+    emb = torch.empty((N_DOCS, cfg.embed_dim), dtype=torch.float32,
+                      device=dev)
+    encode(model, ids_d[:EN_BATCH], mask_d[:EN_BATCH])  # first touch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for a in range(0, N_DOCS, EN_BATCH):
+        emb[a:a + EN_BATCH] = encode(model, ids_d[a:a + EN_BATCH],
+                                     mask_d[a:a + EN_BATCH])
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base
+    _hold(bool(torch.isfinite(emb).all()) and float(
+        (torch.linalg.norm(emb, dim=1) - 1).abs().max()) < 1e-3,
+          "(a) embeddings not finite and unit-norm", "5t")
+    cpu = encode(init_params(cfg, seed=0, device="cpu"),
+                 ids[:EN_CPU_CHECK], mask[:EN_CPU_CHECK]).numpy()
+    cos = np.sum(cpu * emb[:EN_CPU_CHECK].cpu().numpy(), axis=1)
+    _hold(bool(np.all(cos > 0.999)), f"(a) card vs CPU cosine {cos.min()}",
+          "5t")
+    log(f"[5t] (a) encode on {card}: {N_DOCS} passages in "
+        f"{N_DOCS // EN_BATCH} calls of {EN_BATCH} in {enc_s * 1e3:.1f} ms: "
+        f"{N_DOCS / enc_s:.1f} passages/s, {n_tok / enc_s:.1f} "
+        f"tokens/s ({N_DOCS * L / enc_s:.1f} with the padding); peak "
+        f"{peak / 2**20:.1f} MiB allocated above the inputs and outputs' "
+        f"{base / 2**20:.1f}; {EN_CPU_CHECK} passages against the CPU "
+        f"encode: cosine >= {cos.min():.6f}")
+    log(f"[5t] (a) one call of {EN_BATCH}: " + _en_profile(
+        torch, lambda: encode(model, ids_d[:EN_BATCH], mask_d[:EN_BATCH])))
+    del ids_d, mask_d
+
+    # (b) the embeddings as a one-shard cosine dense_vector index, knn k=10
+    t = time.perf_counter()
+    vecs = emb.cpu().numpy()
+    del emb
+    exists = np.ones(N_DOCS, bool)
+    node = Node(name="encoded", device=dev)
+    node.create_index("passages", {"settings": {"number_of_shards": 1},
+                                   "mappings": EN_MAPPING})
+    node.get_index("passages").shards[0].engine.add_segment(
+        segment_from_arrays({
+            "num_docs": N_DOCS, "max_docs": N_DOCS,
+            "vectors": {"emb": {"vecs": vecs, "exists": exists,
+                                "dims": cfg.embed_dim,
+                                "similarity": "cosine"}}},
+            node.residency))
+    qterms = make_queries(np, N_QUERIES, VOCAB, corpus_df, SEED)
+    q_ids, q_mask = SimpleTokenizer(cfg)([" ".join(f"t{x}" for x in q)
+                                          for q in qterms])
+    qv = encode(model, q_ids, q_mask).cpu().numpy()
+    bodies = [{"query": {"knn": {"field": "emb", "k": 10,
+                                 "query_vector": [float(x) for x in v]}},
+               "size": 10} for v in qv]
+    node.search("passages", copy.deepcopy(bodies[0]))  # first-use set-up
+    setup_s = time.perf_counter() - t
+    knn_topk.LAUNCHES = 0
+    got, ms, per = [], [], []
+    for body in bodies:
+        n0 = knn_topk.LAUNCHES
+        body = copy.deepcopy(body)
+        t = time.perf_counter()
+        got.append(node.search("passages", body))
+        ms.append((time.perf_counter() - t) * 1e3)
+        per.append(knn_topk.LAUNCHES - n0)
+    b2 = knn_topk.LAUNCHES
+    _hold(per == [1] * len(bodies), f"(b) B2 launches a query {per}", "5t")
+    ids10, sc10, full = exact_cosine_top(np, vecs, exists, qv, 10)
+    for n, r in enumerate(got):
+        _hold(r["hits"]["total"] == 100, f"(b) query {n} total "
+              f"{r['hits']['total']}", "5t")
+        check_oracle(np, r, ids10[n], sc10[n], full[n], f"5t(b) query {n}")
+    real = queries.knn_topk
+    queries.knn_topk = functools.partial(real, plain=True)
+    try:
+        for n, body in enumerate(bodies):
+            twin = node.search("passages", copy.deepcopy(body))
+            _hold(twin["hits"] == got[n]["hits"],
+                  f"(b) query {n} differs on B2's twin", "5t")
+    finally:
+        queries.knn_topk = real
+    node.close()
+    del node, vecs, full
+    torch.cuda.empty_cache()
+    ms = np.array(ms)
+    log(f"[5t] (b) {N_QUERIES} encoded queries as knn k=10 through "
+        f"Node.search over the {N_DOCS} x {cfg.embed_dim} encoded passages "
+        f"on {card}: p50 {np.percentile(ms, 50):.3f} ms, p99 "
+        f"{np.percentile(ms, 99):.3f} ms; B2 launched {b2} times, once a "
+        f"query; hits match the exact f64 oracle and equal B2's twin's bit "
+        f"for bit; set-up {setup_s:.1f} s")
+
+    # (c) the ring encode at max_len 4096 over 8 slots against dense
+    lcfg = DualEncoderConfig(max_len=EN_LONG)
+    lmodel = init_params(lcfg, seed=0, device=dev)
+    B = len(EN_LONG_ROWS)
+    lids = np.zeros((B, EN_LONG), np.int32)
+    lmask = np.zeros((B, EN_LONG), np.float32)
+    for r, n in enumerate(EN_LONG_ROWS):
+        lids[r, :n] = table[terms[r * EN_LONG:r * EN_LONG + n]]
+        lmask[r, :n] = 1.0
+    lids_d = torch.from_numpy(lids).to(dev)
+    lmask_d = torch.from_numpy(lmask).to(dev)
+    mesh = build_sp_mesh(EN_SLOTS, dev)
+    dense, dense_ms, dense_peak = _en_timed(
+        torch, lambda: encode(lmodel, lids_d, lmask_d))
+    ring, ring_ms, ring_peak = _en_timed(
+        torch, lambda: ring_encode(lcfg, lmodel, lids_d, lmask_d, mesh))
+    cos = (dense * ring).sum(1).cpu().numpy()
+    _hold(bool(np.all(cos > 0.999)), f"(c) ring vs dense cosine {cos}", "5t")
+    log(f"[5t] (c) max_len {EN_LONG}, B={B} rows of {list(EN_LONG_ROWS)} "
+        f"tokens on {card}: dense {dense_ms:.3f} ms, peak "
+        f"{dense_peak / 2**20:.1f} MiB allocated; ring over {EN_SLOTS} "
+        f"slots {ring_ms:.3f} ms, peak {ring_peak / 2**20:.1f} MiB; "
+        f"cosine ring vs dense >= {cos.min():.6f}")
+    log("[5t] (c) one ring encode: " + _en_profile(
+        torch, lambda: ring_encode(lcfg, lmodel, lids_d, lmask_d, mesh)))
+    del lmodel, lids_d, lmask_d, dense, ring
+    torch.cuda.empty_cache()
+
+    # (d) 20 contrastive steps on one batch of (span, passage) pairs
+    t = time.perf_counter()
+    step, _opt = make_train_step(cfg, lr=1e-3, device=dev)
+    setup_s = time.perf_counter() - t
+    a, b = EN_QUERY_SPAN
+    d_ids, d_mask = ids[:EN_PAIRS], mask[:EN_PAIRS]
+    q_ids = np.zeros_like(d_ids)
+    q_mask = np.zeros_like(d_mask)
+    q_ids[:, :b - a] = d_ids[:, a:b]
+    q_mask[:, :b - a] = d_mask[:, a:b]
+    batch = tuple(torch.from_numpy(x).to(dev)
+                  for x in (q_ids, q_mask, d_ids, d_mask))
+    t = time.perf_counter()
+    losses = [step(*batch)]
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    losses += [step(*batch) for _ in range(EN_STEPS - 1)]
+    torch.cuda.synchronize()
+    steady = (EN_STEPS - 1) / (time.perf_counter() - t)
+    losses = [float(x) for x in losses]
+    _hold(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"(d) losses {losses}", "5t")
+    log(f"[5t] (d) {EN_STEPS} train steps at B={EN_PAIRS} pairs, L={L}, "
+        f"bf16, on {card}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; model "
+        f"and optimizer set up in {setup_s:.1f} s, first step "
+        f"{first_ms:.1f} ms, then {steady:.2f} steps/s "
+        f"({steady * EN_PAIRS:.1f} pairs/s)")
+    log("[5t] (d) one train step: " + _en_profile(torch, lambda: step(*batch)))
+    log(f"[5t] phase 5t took {time.perf_counter() - t_phase:.1f} s")
+    return b2
+
+
 def profile_read(torch, node, index, bodies, wall_ms, tag):
     """Device time of the same searches under torch.profiler, over the
     host time of the unprofiled run: the device's busy share."""
@@ -9921,6 +10229,8 @@ def main() -> int:
     for name, n in phase_warm(np, card).items():
         launches[name] += n
     launches["bm25_dense_topk"] += phase_cluster(torch, np, dev, card)
+    torch.cuda.empty_cache()
+    launches["knn_topk"] += phase_encoder(torch, np, dev, card, corpus_df)
     torch.cuda.empty_cache()
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card),
               "knn_topk": timing_knn(torch, dev, card),
