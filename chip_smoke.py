@@ -15,7 +15,11 @@ Phases, in order; any failure exits non-zero before the result line:
             a whole 256-row block with pads and repeats, R 1 to 256, the
             hit count exact, f32 subnormals that round to bf16 zero, k up
             to 1000, ragged D, ties, Q=9, the batched form, and at
-            Q=2048 with the count, _msearch's tier 1), B2 knn_topk
+            Q=2048 with the count, _msearch's tier 1; the batched form's
+            tensor-core pass on tie-heavy tops, order-sensitive sums,
+            ragged Q, F, D and k on both sides of its thresholds, an
+            unaligned block, fewer live docs than k and all docs tied,
+            with the docs each query rescored), B2 knn_topk
             (three metrics, both precisions, k up to 1000, ragged D, ties,
             a 90% mask, D under one chunk, Q=9, Q=32 and Q=64 at k=100
             (_msearch's kNN and MaxSim batches), 768 to 40,000 dims
@@ -375,9 +379,10 @@ Phases, in order; any failure exits non-zero before the result line:
             L=128, bf16: the loss falls, steps/s;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
-            their earlier shapes, B2 at phase 5e's batch shapes), by CUDA
-            events and by the profiler's device time ("not measured"
-            where it records none twice).
+            their earlier shapes, B1's batched form with the count at Q =
+            32, 256 and 1,024 and with every doc tied, B2 at phase 5e's
+            batch shapes), by CUDA events and by the profiler's device
+            time ("not measured" where it records none twice).
 
 Each corpus is generated once and shared by the phases that read it.
 
@@ -668,7 +673,181 @@ def _kernels_b1(torch, dev) -> float:
                              f"{int(got[2][0])} counted, {want} expected")
     del qw, impact, mask
     torch.cuda.empty_cache()
+    _kernels_b1_tensor_cores(torch, dev, check)
     return 0.0
+
+
+def _kernels_b1_tensor_cores(torch, dev, check):
+    """The batched form's tensor-core pass (csrc/bm25_tc.cuh), whose
+    tensor-core sums only pick candidates for exact sums: cases aimed at
+    that filter, each bit-equal to the twin with equal counts, with the
+    docs each query rescored exactly, and the built kernel's plan held to
+    its invariants. Ties at the top, sums whose order moves the last bits,
+    weights below the normal range against large impacts, ragged Q, F and
+    D on both sides of the small-Q threshold and of the running lists
+    (k = 128 | 129), an unaligned block (no tensor copies), fewer live
+    docs than k, all docs tied, and two threads launching at once."""
+    from elasticsearch_tpu_torch.ops.bm25_topk import (
+        SMEM_LIMIT, TC_MAX_F, TC_MAX_K, TC_MIN_Q, bm25_dense_topk_rescored,
+        kernel_plan, unpack_topk)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def plan_holds(name, Q, F, D, k):
+        """The built kernel's plan: the tensor-core pass exactly from
+        TC_MIN_Q queries (F <= TC_MAX_F, k <= TC_MAX_K), a query tile of
+        64 rows up to 64 queries and of 128 past that, the grid within the
+        SMs, shared memory within a block's, a tile's slots and one more,
+        and at the batched caller's k the running lists in shared memory."""
+        p = kernel_plan(Q, F, D, k)
+        takes = Q >= TC_MIN_Q and F <= TC_MAX_F and k <= TC_MAX_K
+        nqt = -(-Q // (64 if Q <= 64 else 128))
+        if (p is not None) != takes or p is not None and not (
+                p["QT"] == (64 if Q <= 64 else 128)
+                and p["query_tiles"] == nqt
+                and 1 <= p["G"] <= p["tiles"]
+                and p["G"] * nqt <= max(sms, nqt)
+                and p["smem"] <= SMEM_LIMIT
+                and p["values_stages"] >= p["stages"] + 1
+                and (k > 10 or p["lists_in_smem"])):
+            raise AssertionError(f"bm25_dense_topk {name}: the kernel's "
+                                 f"plan {p} breaks its invariants")
+        return p
+
+    def tc_check(name, qw, impact, mask, k):
+        Q, F = qw.shape
+        D = impact.shape[1]
+        got = check(name, qw, impact, mask, k, count=True)
+        plan = plan_holds(name, Q, F, D, k)
+        if plan is None:
+            log(f"[kernels]   {name}: CUDA-core pass (Q < {TC_MIN_Q}, F > "
+                f"{TC_MAX_F} or k > {TC_MAX_K})")
+            return
+        buf, resc = bm25_dense_topk_rescored(qw, impact, mask, k=k)
+        v, i, t = unpack_topk(buf, k)
+        if not (torch.equal(v.view(torch.int32), got[0].view(torch.int32))
+                and torch.equal(i, got[1]) and torch.equal(t, got[2])):
+            raise AssertionError(f"bm25_dense_topk {name}: the counted "
+                                 f"launch differs from the plain one")
+        r = resc.double()
+        log(f"[kernels]   {name}: tensor-core pass, QT={plan['QT']} "
+            f"G={plan['G']} smem={plan['smem']} B; rescored a query mean "
+            f"{r.mean().item():.1f} max {int(r.max())} of {D} docs")
+
+    # a tie-heavy top: quantized impacts, each query's weights equal
+    qw, impact, mask = _b1_inputs(torch, dev, 256, 256, 1 << 20, 150, 1.0)
+    tc_check("tie-heavy top", qw[:, :1].expand(-1, 256).contiguous(), impact,
+             mask, 10)
+    del qw, impact, mask
+    # order-sensitive sums: impacts near 2^10 and 2^-10 in one doc, weights
+    # from 2^-8 to 2^8, so that summation orders differ in the last bits
+    g = torch.Generator(device=dev).manual_seed(151)
+    big = torch.rand(256, 1 << 18, generator=g, device=dev) < 0.5
+    impact = (torch.where(big, 2.0 ** 10, 2.0 ** -10)
+              * (1 + torch.rand(256, 1 << 18, generator=g, device=dev)))
+    qw = 2.0 ** (torch.rand(64, 256, generator=g, device=dev) * 16 - 8)
+    mask = torch.rand(1 << 18, generator=g, device=dev) > 0.1
+    tc_check("order-sensitive sums", qw.contiguous(), impact.contiguous(),
+             mask, 10)
+    del qw, impact, mask, big
+    # weights below the normal range (bf16 keeps a few bits of them)
+    # against impacts near 2^24: should the tensor cores flush such a
+    # weight, its row's loss is up to 2^-126 M, which the margin covers
+    keep = torch.rand(256, 1 << 18, generator=g, device=dev) < 0.5
+    impact = keep * (2.0 ** 24 * (1 + torch.rand(256, 1 << 18, generator=g,
+                                                 device=dev)))
+    qw = ((torch.rand(64, 256, generator=g, device=dev) < 0.75)
+          * 2.0 ** (-133 + 7 * torch.rand(64, 256, generator=g, device=dev)))
+    mask = torch.rand(1 << 18, generator=g, device=dev) > 0.1
+    tc_check("subnormal weights, large impacts", qw.contiguous(),
+             impact.contiguous(), mask, 10)
+    del qw, impact, mask, keep
+    # ragged edges: (Q, F, D, k, masked prefix); D no multiple of the 64-doc
+    # tile and, odd, no 16-byte row pitch (4-byte copies, no tensor copies)
+    for n, (Q, F, D, k, prefix) in enumerate((
+            (1, 12, 5003, 10, 0), (7, 200, 70_001, 10, 0),
+            (8, 200, 70_001, 10, 0), (9, 12, 4099, 1, 0),
+            (63, 256, 1_000_003, 128, 0), (65, 200, 131_075, 129, 0),
+            (257, 256, 65_539, 1000, 0), (257, 256, 262_147, 10, 262_140),
+            (65, 12, 301, 10, 296), (9, 256, 100_003, 1, 99_990))):
+        qw, impact, mask = _b1_inputs(torch, dev, Q, F, D, 160 + n, None,
+                                      prefix)
+        tc_check(f"ragged Q={Q} F={F} D={D} k={k}"
+                 + (f" {D - prefix} docs unmasked" if prefix else ""),
+                 qw, impact, mask, k)
+        del qw, impact, mask
+    # a block whose rows start off 16-byte alignment (D a multiple of 4)
+    g = torch.Generator(device=dev).manual_seed(171)
+    flat = torch.rand(64 * 65536 + 1, generator=g, device=dev)
+    impact = flat[1:].view(64, 65536)
+    qw = torch.rand(32, 64, generator=g, device=dev)
+    mask = torch.rand(65536, generator=g, device=dev) > 0.2
+    tc_check("block off 16-byte alignment", qw, impact, mask, 10)
+    del flat, impact, qw, mask
+    # every doc tied: each live doc is a candidate and rescored
+    qw = torch.full((64, 64), 1.5, device=dev)
+    impact = torch.ones(64, 1 << 16, device=dev)
+    mask = torch.rand(1 << 16, generator=g, device=dev) > 0.3
+    tc_check("all docs tied", qw, impact, mask, 10)
+    del qw, impact, mask
+    torch.cuda.empty_cache()
+    _b1_threads(torch, dev)
+
+
+def _b1_threads(torch, dev, iters: int = 400) -> None:
+    """Two threads launch the batched form at once, ``iters`` times each,
+    at shapes whose plans differ (Q=32: one 64-row query tile; Q=1,024:
+    128-row tiles, more shared memory), as the REST pool and the coalescer
+    do; the library is called through ctypes, which lets the GIL go, so
+    both are inside it together. Every launch must succeed and equal the
+    twin (a launch must not find the shared-memory cap another thread's
+    plan set)."""
+    import threading
+
+    from elasticsearch_tpu_torch.ops.bm25_topk import (bm25_dense_topk,
+                                                       kernel_plan)
+
+    F, D, k = 256, 1 << 16, 10
+    _, impact, mask = _b1_inputs(torch, dev, 1, F, D, 180)
+    g = torch.Generator(device=dev).manual_seed(181)
+    qws, want, smem = {}, {}, {}
+    for Q in (32, 1024):
+        qws[Q] = (torch.rand(Q, F, generator=g, device=dev) * 3).contiguous()
+        want[Q] = bm25_dense_topk(qws[Q], impact, mask, k=k, count=True,
+                                  packed=True, plain=True)
+        p = kernel_plan(Q, F, D, k)
+        if p is None:
+            raise AssertionError(f"bm25_dense_topk threads: Q={Q} is not on "
+                                 f"the tensor-core pass")
+        smem[Q] = p["smem"]
+    outs = {Q: [] for Q in qws}
+    errs = []
+
+    def run(Q):
+        try:
+            for _ in range(iters):
+                outs[Q].append(bm25_dense_topk(qws[Q], impact, mask, k=k,
+                                               count=True, packed=True))
+        except Exception as e:  # raised below
+            errs.append(f"Q={Q} after {len(outs[Q])} launches: {e}")
+
+    threads = [threading.Thread(target=run, args=(Q,)) for Q in qws]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    torch.cuda.synchronize()
+    if errs or any(th.is_alive() for th in threads):
+        raise AssertionError(f"bm25_dense_topk, two threads at once: {errs}")
+    for Q, got in outs.items():
+        bad = sum(not torch.equal(o, want[Q]) for o in got)
+        if bad:
+            raise AssertionError(f"bm25_dense_topk, two threads at once: "
+                                 f"Q={Q}: {bad} of {iters} results differ "
+                                 f"from the twin")
+    log(f"[kernels]   two threads at once, Q=32 (smem {smem[32]} B) and "
+        f"Q=1024 (smem {smem[1024]} B), {iters} launches each: every one "
+        f"bit-equal to the twin with equal counts")
 
 
 def check_exact(v, i, pv, pi, what: str) -> float:
@@ -9818,9 +9997,9 @@ def _device_rows(prof):
     return [e for e in rows if "spin_kernel" not in e.key]
 
 
-def _time_ms(torch, fn, iters):
-    """Mean ms per call by CUDA events, after a warm-up."""
-    for _ in range(3):
+def _time_ms(torch, fn, iters, warm=3):
+    """Mean ms per call by CUDA events, after `warm` calls."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -9875,7 +10054,9 @@ def phase_timing(torch, dev, card):
     each call takes the next 8 rows, so its rows come from device memory
     (32 sets of 32 MiB pass the 50 MB L2). Also the all-rows form at its
     PR 4 shape (8 gathered rows, rotated past the L2 likewise) and the
-    batched form (Q = 256, all rows). Returns the rows form's row."""
+    batched form as ``fused_bm25_topk_batch`` calls it (all 256 rows, the
+    count, packed) at Q = 32, 256 and 1,024 and on an input where every
+    doc ties. Returns the rows form's row."""
     from elasticsearch_tpu_torch.ops.bm25_topk import bm25_dense_topk
 
     out = {}
@@ -9927,43 +10108,98 @@ def phase_timing(torch, dev, card):
     del qw, block, mask, sets
     torch.cuda.empty_cache()
 
-    for label, (Q, F) in (("all rows", (1, 8)), ("batched", (256, 256))):
-        in_bytes = Q * F * 4 + F * D * 4 + D
-        # rotate input copies past the 50 MB L2, so each launch reads
-        # its impact rows from device memory
-        n_buf = max(1, -(-200_000_000 // (F * D * 4)))
-        bufs = [_b1_inputs(torch, dev, Q, F, D, 7 + j) for j in range(n_buf)]
-        it = [0]
+    # the all-rows form at one query over 8 gathered rows (the CUDA-core
+    # pass), rotated past the L2
+    Q, F = 1, 8
+    in_bytes = Q * F * 4 + F * D * 4 + D
+    n_buf = max(1, -(-200_000_000 // (F * D * 4)))
+    bufs = [_b1_inputs(torch, dev, Q, F, D, 7 + j) for j in range(n_buf)]
+    it = [0]
 
-        def nxt():
-            it[0] = (it[0] + 1) % n_buf
-            return bufs[it[0]]
+    def nxt():
+        it[0] = (it[0] + 1) % n_buf
+        return bufs[it[0]]
 
-        def lib():
-            qw, impact, mask = nxt()
-            s = qw.to(torch.bfloat16) @ impact.to(torch.bfloat16)
-            return torch.topk(torch.where(mask, s.float(), -torch.inf), k)
+    def lib():
+        qw, impact, mask = nxt()
+        s = qw.to(torch.bfloat16) @ impact.to(torch.bfloat16)
+        return torch.topk(torch.where(mask, s.float(), -torch.inf), k)
 
-        iters = 50 if Q == 1 else 5
-        kern = _time_ms(torch, lambda: bm25_dense_topk(*nxt(), k=k), iters)
-        plain = _time_ms(torch, lambda: bm25_dense_topk(*nxt(), k=k,
-                                                        plain=True),
-                         max(2, iters // 10))
-        library = _time_ms(torch, lib, iters)
-        kern_dev = _device_ms(torch, lambda: bm25_dense_topk(*nxt(), k=k),
-                              iters)
-        lib_dev = _device_ms(torch, lib, iters)
-        b = _bound(in_bytes, Q * k * 8, 2 * Q * F * D, BF16_FLOP_PER_S)
-        out[label] = {"ms": kern, "device_ms": kern_dev, "plain_ms": plain,
-                      "library_ms": library, **b}
-        log(f"[timing] bm25_dense_topk {label} Q={Q} F={F} D={D} k={k} on "
-            f"{card}: kernel {kern:.4f} ms, plain {plain:.4f} ms, library "
-            f"(bf16 matmul + topk) {library:.4f} ms, bound "
-            f"{b['bound_ms']:.4f} ms ({b['bound_by']}); device time per "
-            f"call: kernel {_fmt(kern_dev)}, library {_fmt(lib_dev)}")
-        del bufs
-        torch.cuda.empty_cache()
+    kern = _time_ms(torch, lambda: bm25_dense_topk(*nxt(), k=k), 50)
+    plain = _time_ms(torch, lambda: bm25_dense_topk(*nxt(), k=k, plain=True),
+                     5)
+    library = _time_ms(torch, lib, 50)
+    kern_dev = _device_ms(torch, lambda: bm25_dense_topk(*nxt(), k=k), 50)
+    lib_dev = _device_ms(torch, lib, 50)
+    b = _bound(in_bytes, Q * k * 8, 2 * Q * F * D, BF16_FLOP_PER_S)
+    out["all rows"] = {"ms": kern, "device_ms": kern_dev, "plain_ms": plain,
+                       "library_ms": library, **b}
+    log(f"[timing] bm25_dense_topk all rows Q={Q} F={F} D={D} k={k} on "
+        f"{card}: kernel {kern:.4f} ms, plain {plain:.4f} ms, library "
+        f"(bf16 matmul + topk) {library:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}); device time per "
+        f"call: kernel {_fmt(kern_dev)}, library {_fmt(lib_dev)}")
+    del bufs
+    torch.cuda.empty_cache()
+    for Q in (32, 256, 1024):
+        out[f"batched {Q}"] = _time_b1_batched(torch, dev, card, Q, D, k)
+    out["batched 256, all tied"] = _time_b1_batched(torch, dev, card, 256, D,
+                                                    k, tied=True)
     return out["rows"]
+
+
+def _time_b1_batched(torch, dev, card, Q, D, k, tied=False):
+    """B1's batched form as tier 1 of ``_msearch`` calls it: qw[Q, 256]
+    over all rows of a 256-row block (1 GiB: every call reads it from
+    device memory), the count, the packed result; against the same
+    function in PyTorch calls (bf16 matmul + ``topk``, and the count as a
+    product of the 0/1 indicators) and the twin. ``tied``: every impact 1
+    and each query's weights equal, so every live doc ties."""
+    from elasticsearch_tpu_torch.ops.bm25_topk import (
+        bm25_dense_topk, bm25_dense_topk_rescored)
+
+    F = 256
+    qw, impact, mask = _b1_inputs(torch, dev, Q, F, D, 7)
+    if tied:
+        qw = qw[:, :1].expand(-1, F).contiguous()
+        impact.fill_(1.0)
+
+    def kernel():
+        return bm25_dense_topk(qw, impact, mask, k=k, count=True, packed=True)
+
+    def lib():
+        s = qw.to(torch.bfloat16) @ impact.to(torch.bfloat16)
+        top = torch.topk(torch.where(mask, s.float(), -torch.inf), k)
+        hit = ((qw != 0).to(torch.bfloat16)
+               @ (impact != 0).to(torch.bfloat16)) > 0
+        return top, (hit & mask).sum(1)
+
+    iters = 20 if Q <= 256 and not tied else 5
+    kern = _time_ms(torch, kernel, iters)
+    plain = _time_ms(torch, lambda: bm25_dense_topk(
+        qw, impact, mask, k=k, count=True, packed=True, plain=True), 1,
+        warm=0)
+    library = _time_ms(torch, lib, iters)
+    kern_dev = _device_ms(torch, kernel, iters)
+    lib_dev = _device_ms(torch, lib, iters)
+    _, resc = bm25_dense_topk_rescored(qw, impact, mask, k=k)
+    r = resc.double()
+    b = _bound(Q * F * 4 + F * D * 4 + D, Q * (2 * k + 2) * 4, 2 * Q * F * D,
+               BF16_FLOP_PER_S)
+    row = {"ms": kern, "device_ms": kern_dev, "plain_ms": plain,
+           "library_ms": library, "rescored_mean": r.mean().item(),
+           "rescored_max": int(r.max()), **b}
+    log(f"[timing] bm25_dense_topk batched + count Q={Q} F={F} D={D} k={k}"
+        f"{', every doc tied' if tied else ''} on {card}: kernel {kern:.4f} "
+        f"ms, plain {plain:.4f} ms, library (bf16 matmul + topk + the count "
+        f"as an indicator product) {library:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+        f"{b['bound_ms'] / kern:.1%} of it; device time per call: kernel "
+        f"{_fmt(kern_dev)}, library {_fmt(lib_dev)}; docs rescored a query "
+        f"mean {r.mean().item():.1f} max {int(r.max())}")
+    del qw, impact, mask
+    torch.cuda.empty_cache()
+    return row
 
 
 def _bound(in_bytes, out_bytes, ops, peak):

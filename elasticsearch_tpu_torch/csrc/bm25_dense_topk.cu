@@ -29,11 +29,80 @@
 // Bound on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense): one query, R = 8
 // rows of a 256-row block, D = 2^20: 8 * 2^20 * 4 B of rows and 2^20 B of
 // mask, 34.6 MB -> 10.3 us; memory-bound. The batched form (Q = 256, all
-// F = 256 rows) does 2 * Q * F * D = 137 GFLOP -> 0.14 ms on the tensor
-// cores; this version accumulates on the f32 FMA units (tensor-core
-// products for it are later work).
+// F = 256 rows) reads the 1.07 GB block once: 0.321 ms, bytes-bound (its
+// product, 137 GFLOP, takes 0.14 ms on the tensor cores; at Q = 1,024,
+// 550 GFLOP, 0.556 ms, operations-bound).
 //
-// Design. Two launches a call.
+// Two passes share the all-rows form by shape, each shape one kernel
+// chosen before the launch: from Q = 8 queries (F <= 256, k <= 128) the
+// tensor-core pass of bm25_tc.cuh, which replaces the TPU kernel's MXU
+// product (pallas_kernels.py:150, qw @ tile over [q_tile, tile] blocks);
+// below 8 queries, past 256 rows or past k = 128 the CUDA-core pass
+// below, whose 1-query plan reads its rows once and which a 64-row
+// tensor-core tile would leave mostly padding.
+//
+// The tensor-core pass. A block owns a query tile of 64 or 128 rows (one
+// consumer warpgroup per 64) and walks tiles of 64 docs (blockIdx.x, +
+// gridDim.x, ...); the grid is the SMs over the query tiles, so each
+// impact tile is read once per query tile, and the query tiles' blocks
+// read the same tiles at about the same time (the L2 serves the rest).
+// The query tile's bf16 weights and their e4m3 0/1 indicators stay in
+// shared memory, K-major, for the whole launch. A converter warpgroup
+// takes each 64-row stage of the tile from a ring of two f32 stages that
+// tensor copies (TMA; 4-byte copies where the rows are not 16-byte
+// aligned) fill on mbarriers, rounds it to bf16 (as the twin's
+// .to(torch.bfloat16): nearest, ties to even) and to e4m3 indicators of
+// impact != 0 in f32, into a ring of slots laid out as wgmma reads them
+// (8 x 16-byte core matrices, no swizzle), with the tile's live bytes and
+// its largest |bf16 impact| M. The consumers run wgmma m64n64k16 (bf16 in,
+// f32 out) for the scores s^ and m64n64k32 (e4m3) for the hits: sums of
+// 0/1 products of at most 256 terms are exact in any order, so "some row
+// with qw != 0 has impact != 0" is exactly hacc > 0, and a subnormal that
+// rounds to bf16 zero still counts. A tile's slots stay until its
+// epilogue is done, so exact scores read its bf16 values from shared
+// memory.
+//
+// Exact selection. s^ is not the twin's sum: the tensor cores add in
+// their own order and alignment. It only picks candidates. Let p_r =
+// bf16(qw_r) bf16(x_r) (exact in f32 above 2^-126), P = sum |p_r| <= a M
+// with a = sum |bf16(qw_r)|. The twin's sequential sum is within
+// (F - 1) 2^-24 P of the real sum; NVIDIA publishes no rounding model for
+// the tensor cores' f32 accumulation, whose alignment keeps at least 23
+// bits of the largest term of each k16 step: within (F / 16) 17 2^-23 P,
+// about 1.07 F 2^-23 P. Flushing costs: a subnormal impact at most
+// |bf16(qw_r)| 2^-126 a row, a subnormal product 2^-126, a subnormal
+// weight 2^-126 M; in all at most (a + F + F M) 2^-126. So |s^ - s_twin|
+// <= m = F 2^-20 a M + (a + F + F M 2^-6) 2^-120, five times the
+// relative and 64 times the absolute estimate, each step rounded up (ops/bm25_topk.py::rescore_margin mirrors it;
+// tests/test_torch_bm25_topk.py holds it against reversed, pairwise,
+// 16-wide and truncating sums). A loose margin costs rescoring only. Per
+// query a block keeps the kp best exact keys seen (make_key: -value, doc
+// id) and a threshold theta, the largest of: the list's k-th value; before
+// the list fills and while nothing is shared, the tile's k-th largest s^
+// less m (rounded down); a shared lower bound. Shared bounds: a seed
+// kernel scores docs 0 .. 511 exactly and stores their k-th best live
+// value; blocks raise it (atomicMax) with their theta; and each block
+// posts its best exact value on a board whose k-th largest (the blocks'
+// docs are disjoint) bounds the k-th best too. Each bound is met by k
+// distinct docs, so a doc below it is not in the top k. A live doc is a
+// candidate when s^ + m (rounded up) >= theta; a masked doc only when
+// nothing bounds the query yet (fewer than k live docs seen). A candidate
+// without a hitting row scores +0 exactly (every product is +-0);
+// another is rescored: one fma a row, in increasing r, of the staged bf16
+// operands, the twin's sum bit for bit. Ties at theta are kept (>=) and
+// resolve by doc id in the keys. Pass 2 is bm25_merge below.
+//
+// Measured on an H100 (PERF.md, with count and packed result): Q = 256,
+// F = 256, D = 2^20, k = 10 about 1.4 ms, against 13.16 ms for the
+// CUDA-core pass without the count and 9.9 ms for the library calls
+// with it; Q = 32 about 0.63 ms; Q = 1,024 about 4.8 ms; every doc tied
+// (each live doc rescored) about 15 ms. What holds it above the bound:
+// the converter (one warp a scheduler) and the consumers pass each stage
+// through mbarriers, and the weights of 128 queries take 96 KB of shared
+// memory, so two f32 stages and seven slots fit and the two sides wait
+// on each other; the tensor cores are busy a fraction of the time.
+//
+// The CUDA-core pass. Two launches a call.
 //   1. A persistent grid sized to the SMs (two blocks an SM for one query
 //      at a time, one for eight): block x walks chunks x, x + gridDim.x,
 //      ... of kChunk = 2048 docs for QB queries. The block first stages the
@@ -75,6 +144,7 @@
 // merge about 0.004 ms. Folding two chunks at once, or three blocks an
 // SM with 4 rows in flight, spilled registers and ran slower.
 
+#include "bm25_tc.cuh"
 #include "topk_keys.cuh"
 
 namespace {
@@ -482,9 +552,11 @@ bm25_finish(const u64* __restrict__ keys, int L, const int* __restrict__ cnt,
 struct Layout {
   int QB, ny, G, n_chunks, kp, running;
   long long cnt_elems, part_elems;  // u64 elements of each region
+  long long gthr_elems;             // the tensor-core pass's thresholds
+  tc::Plan tcp;                     // the tensor-core pass, when tcp.use
 };
 
-Layout layout(int Q, long long D, int k) {
+Layout layout(int Q, int F, long long D, int k, bool all_rows) {
   Layout l;
   l.QB = Q >= 8 ? 8 : 1;
   l.ny = static_cast<int>(ceil_div(Q, l.QB));
@@ -494,16 +566,26 @@ Layout layout(int Q, long long D, int k) {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long slots = static_cast<long long>(sms) *
-                          (l.QB == 1 ? Plan<1>::kMinBlocks : Plan<8>::kMinBlocks);
-  long long g = slots / l.ny;
-  if (g < 1) g = 1;
-  if (g > l.n_chunks) g = l.n_chunks;
-  l.G = static_cast<int>(g);
+  l.tcp = tc::plan(Q, F, D, k, all_rows, sms);
+  if (l.tcp.use) {
+    l.G = l.tcp.G;
+  } else {
+    const long long slots = static_cast<long long>(sms) *
+                            (l.QB == 1 ? Plan<1>::kMinBlocks : Plan<8>::kMinBlocks);
+    long long g = slots / l.ny;
+    if (g < 1) g = 1;
+    if (g > l.n_chunks) g = l.n_chunks;
+    l.G = static_cast<int>(g);
+  }
   l.cnt_elems = ceil_div(static_cast<long long>(Q) * l.G, 2);
   l.part_elems = l.running ? static_cast<long long>(Q) * l.G * l.kp
                            : topk_scratch_elems(Q, D, k);
+  l.gthr_elems = l.tcp.use ? ceil_div(static_cast<long long>(Q) * (1 + l.G), 2) : 0;
   return l;
+}
+
+long long scratch_elems(const Layout& l) {
+  return l.cnt_elems + (l.running ? 1 : 2) * l.part_elems + l.gthr_elems;
 }
 
 template <int QB, bool kVec, bool kCount>
@@ -535,25 +617,56 @@ void pass1(const Layout& l, bool vec, bool count, const float* qw, int Q,
 
 extern "C" {
 
-// u64 elements of the scratch a call needs.
-long long bm25_dense_topk_scratch(int Q, long long D, int k) {
-  const Layout l = layout(Q, D, k);
-  return l.cnt_elems + (l.running ? 1 : 2) * l.part_elems;
+// u64 elements of the scratch a call needs (all_rows: rows is null).
+long long bm25_dense_topk_scratch(int Q, int F, long long D, int k,
+                                  int all_rows) {
+  return scratch_elems(layout(Q, F, D, k, all_rows != 0));
+}
+
+// The plan of a call (ops/bm25_topk.py::kernel_plan, checked on the card):
+// out[0..9] = tensor-core pass (0/1), query rows a block, query tiles,
+// blocks a query tile (the grid's x), stages a tile, tiles, dynamic
+// shared memory bytes, scratch u64 elements, running lists in shared
+// memory (0/1), values stages.
+void bm25_dense_topk_plan(int Q, int F, long long D, int k, int all_rows,
+                          long long* out) {
+  const Layout l = layout(Q, F, D, k, all_rows != 0);
+  out[0] = l.tcp.use;
+  out[1] = l.tcp.use ? l.tcp.QT : l.QB;
+  out[2] = l.tcp.use ? l.tcp.nqt : l.ny;
+  out[3] = l.G;
+  out[4] = l.tcp.nk;
+  out[5] = l.tcp.use ? l.tcp.n_tiles : l.n_chunks;
+  out[6] = l.tcp.smem;
+  out[7] = scratch_elems(l);
+  out[8] = l.tcp.slist;
+  out[9] = l.tcp.nbv;
 }
 
 // qw f32[Q, R], rows i32[R] (null: R == F, all rows), impact f32[F, D],
 // mask u8[D] (all contiguous, on the device) -> out i32[Q, 2k + 2]: the k
 // best values' f32 bits, their doc ids, and (count != 0; else 0) the hit
-// count as an int64. Launches on `stream` and returns cudaGetLastError()
-// (0 on success).
+// count as an int64. With `rescored` (u64[Q], zeroed; may be null) the
+// tensor-core pass adds each query's exactly rescored docs to it.
+// Launches on `stream` and returns cudaGetLastError(), or the error that
+// kept pass 1 from launching (0 on success).
 int bm25_dense_topk(const float* qw, int Q, int R, const int* rows, int F,
                     const float* impact, long long D,
                     const unsigned char* mask, int k, int count,
-                    void* scratch, int* out, void* stream) {
+                    void* scratch, int* out, unsigned long long* rescored,
+                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Layout l = layout(Q, D, k);
+  const Layout l = layout(Q, F, D, k, rows == nullptr);
   int* cnt = count ? static_cast<int*>(scratch) : nullptr;
   u64* part = static_cast<u64*>(scratch) + l.cnt_elems;
+  if (l.tcp.use) {
+    unsigned* gthr = reinterpret_cast<unsigned*>(part + l.part_elems);
+    const int e = tc::launch(l.tcp, qw, Q, F, impact, D, mask, l.kp, part, cnt,
+                             gthr, rescored, s);
+    if (e != 0) return e;
+    bm25_merge<<<Q, kThreads, 0, s>>>(part, cnt, l.G, l.kp, out);
+    return static_cast<int>(cudaGetLastError());
+  }
   const bool vec = D % 4 == 0 && (reinterpret_cast<uintptr_t>(impact) & 15) == 0;
   if (l.QB == 8)
     pass1<8>(l, vec, count != 0, qw, Q, R, rows, F, impact, D, mask, part, cnt, s);

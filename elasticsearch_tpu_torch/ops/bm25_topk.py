@@ -4,7 +4,8 @@ Port of ``bm25_dense_topk_pallas`` (elasticsearch_tpu/ops/pallas_kernels.py
 :150, dispatched by ``bm25_dense_topk_auto`` :316), fused with the work its
 single-query caller did around it: the gather of the query's rows out of
 the dense block and the hit count. The CUDA kernel lives in
-``csrc/bm25_dense_topk.cu``; its note gives the design and the bound.
+``csrc/bm25_dense_topk.cu`` (the batched form's tensor-core pass in
+``csrc/bm25_tc.cuh``); its note gives the design and the bound.
 
 The function, for qw f32[Q, R], rows i32[R] (rows of the whole block
 impact f32[F, D]; a row outside [0, F), -1 by convention, is a pad and is
@@ -89,19 +90,139 @@ def unpack_topk(buf, k: int):
             buf[:, 2 * k:].view(torch.int64)[:, 0])
 
 
+#: the tensor-core pass of the batched form (csrc/bm25_tc.cuh): it takes
+#: the all-rows form from TC_MIN_Q queries, for F <= TC_MAX_F rows and
+#: k <= TC_MAX_K; other shapes run on the CUDA cores
+TC_MIN_Q, TC_MAX_F, TC_MAX_K = 8, 256, 128
+#: docs 0 .. TC_SEED_DOCS - 1, scored exactly per query before the pass,
+#: seed its shared threshold
+TC_SEED_DOCS = 512
+#: its tiles of docs
+TC_DOCS = 64
+#: a block's dynamic shared memory on an H100
+SMEM_LIMIT = 232448
+
+
+def _f32_up(x: np.ndarray) -> np.ndarray:
+    """float64 -> the least float32 at or above it."""
+    y = x.astype(np.float32)
+    low = y.astype(np.float64) < x
+    y[low] = np.nextafter(y[low], np.float32(np.inf))
+    return y
+
+
+def rescore_margin(qw: torch.Tensor, tile: torch.Tensor) -> torch.Tensor:
+    """f32[Q]: the margin m_q the tensor-core pass allows between its sum
+    of a doc in ``tile`` (impact f32[F, n], one tile's columns) and the
+    twin's: F * 2^-20 * a_q * M + (a_q + F + F * M * 2^-6) * 2^-120,
+    where a_q is the sum of |bf16(qw[q])| and M the largest |bf16 impact|
+    of the tile (the note of csrc/bm25_dense_topk.cu derives it). Computed in float64 and
+    rounded up; the kernel rounds each of its steps up, so its margin is
+    at least this one."""
+    F = qw.shape[1]
+    a = qw.to(torch.bfloat16).double().abs().sum(1).numpy()
+    M = float(tile.to(torch.bfloat16).double().abs().max()) \
+        if tile.numel() else 0.0
+    m = F * 2.0 ** -20 * a * M + (a + F + F * M * 2.0 ** -6) * 2.0 ** -120
+    return torch.from_numpy(_f32_up(m))
+
+
 def _lib():
     from elasticsearch_tpu_torch.ops.build import library
 
     lib = library("bm25_dense_topk")
     if not getattr(lib, "_typed", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.bm25_dense_topk_scratch.argtypes = [i32, i64, i32]
+        lib.bm25_dense_topk_scratch.argtypes = [i32, i32, i64, i32, i32]
         lib.bm25_dense_topk_scratch.restype = i64
+        lib.bm25_dense_topk_plan.argtypes = [i32, i32, i64, i32, i32, vp]
+        lib.bm25_dense_topk_plan.restype = None
         lib.bm25_dense_topk.argtypes = [vp, i32, i32, vp, i32, vp, i64, vp,
-                                        i32, i32, vp, vp, vp]
+                                        i32, i32, vp, vp, vp, vp]
         lib.bm25_dense_topk.restype = i32
         lib._typed = True
     return lib
+
+
+def kernel_plan(Q: int, F: int, D: int, k: int, all_rows: bool = True):
+    """The built kernel's plan for one launch (``bm25_dense_topk_plan``)
+    on the current card, or None where the CUDA-core pass runs: query rows
+    a block (QT), query tiles, blocks a query tile (the grid's x), 64-row
+    stages a tile, doc tiles, dynamic shared memory and scratch bytes,
+    whether the running lists fit in shared memory, and the ring's slots
+    of bf16 values."""
+    out = (ctypes.c_longlong * 10)()
+    _lib().bm25_dense_topk_plan(Q, F, D, k, int(all_rows), out)
+    if not out[0]:
+        return None
+    return {"QT": out[1], "query_tiles": out[2], "G": out[3],
+            "stages": out[4], "tiles": out[5], "smem": out[6],
+            "scratch_bytes": 8 * out[7], "lists_in_smem": bool(out[8]),
+            "values_stages": out[9]}
+
+
+def _check_cuda(qw, impact, mask, rows):
+    Q, R = qw.shape
+    F, D = impact.shape
+    tensors = (qw, impact, mask) + (() if rows is None else (rows,))
+    if qw.device.type != "cuda" or any(t.device != qw.device
+                                       for t in tensors):
+        raise ValueError("qw, impact, mask and rows must lie on one CUDA "
+                         "device")
+    if qw.dtype != torch.float32 or impact.dtype != torch.float32 \
+            or mask.dtype != torch.bool \
+            or (rows is not None and rows.dtype != torch.int32):
+        raise TypeError("expected qw f32, impact f32, mask bool, rows i32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("qw, impact, mask and rows must be contiguous")
+    if Q < 1 or D >= 2 ** 31 or F >= 2 ** 31:
+        raise ValueError(f"kernel takes Q >= 1 and D, F < 2^31, got Q={Q}, "
+                         f"D={D}, F={F}")
+
+
+def _launch(qw, impact, mask, k, rows, count, rescored=None):
+    """One launch on the card: the packed i32[Q, 2k + 2] result."""
+    global LAUNCHES
+    Q, R = qw.shape
+    F, D = impact.shape
+    lib = _lib()
+    dev = qw.device
+    with torch.cuda.device(dev):
+        n = int(lib.bm25_dense_topk_scratch(Q, F, D, k, int(rows is None)))
+        scratch = torch.empty(n, dtype=torch.int64, device=dev)
+        buf = torch.empty(Q, 2 * k + 2, dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bm25_dense_topk(
+            qw.data_ptr(), Q, R, None if rows is None else rows.data_ptr(),
+            F, impact.data_ptr(), D, mask.data_ptr(), k, int(count),
+            scratch.data_ptr(), buf.data_ptr(),
+            None if rescored is None else rescored.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"bm25_dense_topk kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES += 1
+    return buf
+
+
+def bm25_dense_topk_rescored(qw: torch.Tensor, impact: torch.Tensor,
+                             mask: torch.Tensor, *, k: int,
+                             count: bool = True):
+    """The all-rows form on the card, once, with the docs each query
+    rescored exactly: (packed i32[Q, 2k + 2], rescored i64[Q]; zeros
+    where the CUDA-core pass runs). For checks and timings of the
+    tensor-core pass's filter; one launch, so at most one slice of
+    ``query_slices``."""
+    Q, F = qw.shape
+    if impact.dim() != 2 or impact.shape[0] != F or mask.dim() != 1 \
+            or mask.shape[0] != impact.shape[1]:
+        raise ValueError(f"shape mismatch: qw {tuple(qw.shape)}, impact "
+                         f"{tuple(impact.shape)}, mask {tuple(mask.shape)}")
+    if not 1 <= k <= impact.shape[1] or len(
+            query_slices(Q, impact.shape[1], k)) > 1:
+        raise ValueError("one launch's rows and 1 <= k <= D expected")
+    _check_cuda(qw, impact, mask, None)
+    rescored = torch.zeros(Q, dtype=torch.int64, device=qw.device)
+    return _launch(qw, impact, mask, k, None, count, rescored), rescored
 
 
 def bm25_dense_topk(qw: torch.Tensor, impact: torch.Tensor,
@@ -143,36 +264,8 @@ def bm25_dense_topk(qw: torch.Tensor, impact: torch.Tensor,
         res = bm25_dense_topk_plain(qw, impact, mask, k=k, rows=rows,
                                     count=count)
         return pack_topk(*res) if packed else res
-    tensors = (qw, impact, mask) + (() if rows is None else (rows,))
-    if qw.device.type != "cuda" or any(t.device != qw.device
-                                       for t in tensors):
-        raise ValueError("qw, impact, mask and rows must lie on one CUDA "
-                         "device")
-    if qw.dtype != torch.float32 or impact.dtype != torch.float32 \
-            or mask.dtype != torch.bool \
-            or (rows is not None and rows.dtype != torch.int32):
-        raise TypeError("expected qw f32, impact f32, mask bool, rows i32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("qw, impact, mask and rows must be contiguous")
-    if Q < 1 or D >= 2 ** 31 or F >= 2 ** 31:
-        raise ValueError(f"kernel takes Q >= 1 and D, F < 2^31, got Q={Q}, "
-                         f"D={D}, F={F}")
-    lib = _lib()
-    dev = qw.device
-    with torch.cuda.device(dev):
-        n = int(lib.bm25_dense_topk_scratch(Q, D, k))
-        scratch = torch.empty(n, dtype=torch.int64, device=dev)
-        buf = torch.empty(Q, 2 * k + 2, dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bm25_dense_topk(
-            qw.data_ptr(), Q, R, None if rows is None else rows.data_ptr(),
-            F, impact.data_ptr(), D, mask.data_ptr(), k, int(count),
-            scratch.data_ptr(), buf.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"bm25_dense_topk kernel launch failed: CUDA "
-                           f"error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    _check_cuda(qw, impact, mask, rows)
+    buf = _launch(qw, impact, mask, k, rows, count)
     if packed:
         return buf
     vals, ids, total = unpack_topk(buf, k)

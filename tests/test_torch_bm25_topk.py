@@ -432,3 +432,286 @@ def test_batches_past_one_launch_run_in_slices(monkeypatch, form):
     assert all(torch.equal(a, b) for a, b in zip(got, whole))
     assert torch.equal(bm25_dense_topk(qw, imp, mask, k=9, rows=rows,
                                        count=True, packed=True), buf)
+
+
+# --- the tensor-core pass of the batched form (csrc/bm25_tc.cuh) -----------
+# Its tensor-core sums only pick candidates; exact sums decide. On the CPU
+# the margin that makes this safe and the selection rule are checked
+# against emulations; the kernel itself, and its plan, are held against
+# the twin on the card by chip_smoke.py's phase 3.
+
+
+def _margin_inputs(kind, seed, Q=8, F=256, n=256):
+    rng = np.random.default_rng(seed)
+    qw = (rng.random((Q, F)) * 3).astype(np.float32)
+    if kind == "ties":
+        imp = np.round(rng.random((F, n)) * 4).astype(np.float32)
+        qw[:] = qw[:, :1]
+    elif kind == "mixed":
+        mag = np.where(rng.random((F, n)) < 0.5, 2.0 ** 10, 2.0 ** -10)
+        imp = (mag * (1 + rng.random((F, n)))).astype(np.float32)
+        qw = (2.0 ** (rng.random((Q, F)) * 16 - 8)).astype(np.float32)
+    elif kind == "subnormal":
+        imp = ((rng.random((F, n)) < 0.3) * rng.random((F, n))).astype(
+            np.float32)
+        tiny = rng.random((F, n)) < 0.3
+        imp[tiny] = (rng.random(int(tiny.sum())) * 2.0 ** -127).astype(
+            np.float32)
+        qw[:, ::3] = (rng.random((Q, len(range(0, F, 3)))) * 2.0 ** -100
+                      ).astype(np.float32)
+    elif kind == "subnormal weights":
+        # weights below the normal range (bf16 keeps a few bits of them)
+        # against impacts near 2^24: a flushed weight loses 2^-102 or so
+        imp = ((rng.random((F, n)) < 0.5)
+               * (2.0 ** 24 * (1 + rng.random((F, n))))).astype(np.float32)
+        qw = ((rng.random((Q, F)) < 0.75)
+              * 2.0 ** (-133 + rng.random((Q, F)) * 7)).astype(np.float32)
+    else:  # "zero weights": BM25-shaped, most weights of a query 0
+        imp = ((rng.random((F, n)) < 0.2) * rng.random((F, n)) * 2.2
+               ).astype(np.float32)
+        qw *= rng.random((Q, F)) < 4 / F
+    return qw, imp
+
+
+def _products(qw, imp):
+    """f32 [Q, F, n]: the bf16 products (exact in f32 unless they fall
+    below the normal range)."""
+    return (_bf16(qw)[:, :, None] * _bf16(imp)[None]).astype(np.float32)
+
+
+def _seq(p, order):
+    s = np.zeros((p.shape[0], p.shape[2]), np.float32)
+    for r in order:
+        s = (s + p[:, r]).astype(np.float32)
+    return s
+
+
+def _pairwise(p):
+    while p.shape[1] > 1:
+        if p.shape[1] % 2:
+            p = np.concatenate([p, np.zeros_like(p[:, :1])], axis=1)
+        p = (p[:, 0::2] + p[:, 1::2]).astype(np.float32)
+    return p[:, 0]
+
+
+def _wide16(p):
+    acc = np.stack([_seq(p[:, j::16], range(p[:, j::16].shape[1]))
+                    for j in range(16)], axis=1)
+    return _seq(acc, range(16))
+
+
+def _toward_zero_f32(x):
+    y = x.astype(np.float32)
+    over = np.abs(y.astype(np.float64)) > np.abs(x)
+    y[over] = np.nextafter(y[over], np.float32(0))
+    return y
+
+
+def _truncating(p, ftz):
+    """A tensor-core-like accumulator: per k16 step the running sum and
+    the 16 products are aligned to the largest exponent, each truncated
+    to 24 bits below it, summed, and the sum truncated to f32; with
+    ``ftz`` products below the normal range are flushed to zero first."""
+    p = p.astype(np.float64)
+    if ftz:
+        p = np.where(np.abs(p) < 2.0 ** -126, 0.0, p)
+    acc = np.zeros((p.shape[0], p.shape[2]))
+    for g in range(0, p.shape[1], 16):
+        terms = np.concatenate([acc[:, None], p[:, g:g + 16]], axis=1)
+        e = np.frexp(np.abs(terms).max(axis=1))[1]
+        quantum = np.ldexp(1.0, e - 24)[:, None]
+        acc = _toward_zero_f32(
+            (np.trunc(terms / quantum) * quantum).sum(axis=1)
+        ).astype(np.float64)
+    return acc.astype(np.float32)
+
+
+def _flush(x):
+    """bf16 operands with those below the normal range set to zero."""
+    b = _bf16(x)
+    return np.where(np.abs(b) < 2.0 ** -126, np.float32(0), b)
+
+
+@pytest.mark.parametrize("kind", ["ties", "mixed", "subnormal",
+                                  "subnormal weights", "zero weights"])
+def test_rescore_margin_bounds_other_summation_orders(kind):
+    """``rescore_margin`` (the kernel's m_q, its constant mirrored) bounds
+    |s_other - s_twin| per tile of 64 docs for f32 sums in other orders:
+    reversed, pairwise, 16 partial sums then added, and a truncating
+    aligned accumulator with and without flushing subnormal products, and
+    with subnormal operands flushed too. The twin's own sum is taken from
+    ``bm25_dense_topk_plain``'s arithmetic."""
+    qw, imp = _margin_inputs(kind, 80 + len(kind))
+    Q, F = qw.shape
+    n = imp.shape[1]
+    qb = torch.from_numpy(qw).to(torch.bfloat16).float()
+    twin = torch.zeros(Q, n)
+    for r in range(F):
+        twin = twin + qb[:, r:r + 1] * torch.from_numpy(imp[r]).to(
+            torch.bfloat16).float()
+    twin = twin.numpy()
+    p = _products(qw, imp)
+    others = {"reversed": _seq(p, range(F - 1, -1, -1)),
+              "pairwise": _pairwise(p), "16 partial sums": _wide16(p),
+              "truncating": _truncating(p, False),
+              "truncating, ftz": _truncating(p, True),
+              "truncating, operands flushed": _truncating(
+                  _products(_flush(qw), _flush(imp)), True)}
+    if kind == "mixed":  # the point of the case: the last bits differ
+        assert not any(np.array_equal(o, twin) for o in others.values())
+    if kind == "subnormal weights":  # and here a flushed weight matters
+        assert not np.array_equal(others["truncating, operands flushed"],
+                                  twin)
+    T = bm25_topk.TC_DOCS
+    for t0 in range(0, n, T):
+        m = bm25_topk.rescore_margin(
+            torch.from_numpy(qw), torch.from_numpy(imp[:, t0:t0 + T])
+        ).numpy().astype(np.float64)
+        for name, o in others.items():
+            err = np.abs(o[:, t0:t0 + T].astype(np.float64)
+                         - twin[:, t0:t0 + T])
+            assert (err <= m[:, None]).all(), (
+                f"{kind}, {name}: error {err.max()} over margin "
+                f"{m[np.argmax(err.max(1))]}")
+
+
+def _f32_round(x, up):
+    y = x.astype(np.float32)
+    bad = (y.astype(np.float64) < x) if up else (y.astype(np.float64) > x)
+    y[bad] = np.nextafter(y[bad], np.float32(np.inf if up else -np.inf))
+    return y
+
+
+def _emulate_tc(qw, imp, mask, k, G, mode, rng, seed_docs=bm25_topk.TC_SEED_DOCS):
+    """The tensor-core pass's selection on the CPU: G blocks walk tiles of
+    ``TC_DOCS`` docs (block x takes tiles x, x + G, ...), interleaved tile
+    by tile; per query a block keeps the k best exact keys. Its
+    tensor-core score is the twin's perturbed anywhere within +-m
+    (``mode``: all up, all down, or random). The threshold is the list's
+    k-th value, or, before the list is full, the tile's k-th largest ŝ
+    less m (rounded down) when the tile has k live docs and no bound is
+    shared yet; a block publishes it when finite, and every block takes
+    the largest published one too, and the k-th largest of the blocks'
+    best exact values (their docs are disjoint).
+    A live doc is a candidate when ŝ + m (rounded up) reaches the
+    threshold; a masked doc when there is none at all (the list not full,
+    fewer than k live docs in the tile, nothing published). A candidate's
+    key is exact: -inf if masked, +0 if no row hits, else the twin's sum.
+    The blocks' lists merge by key. Before the first tile the shared
+    threshold holds the k-th best live exact score of docs 0 ..
+    ``seed_docs`` - 1, when there are k."""
+    Q, F = qw.shape
+    D = imp.shape[1]
+    T = bm25_topk.TC_DOCS
+    qb = torch.from_numpy(qw).to(torch.bfloat16).float()
+    s = torch.zeros(Q, D)
+    for r in range(F):
+        s = s + qb[:, r:r + 1] * torch.from_numpy(imp[r]).to(
+            torch.bfloat16).float()
+    s = s.numpy()
+    hit = ((qw != 0).astype(np.float64) @ (imp != 0).astype(np.float64)) > 0
+    tiles = -(-D // T)
+    lists = [[[] for _ in range(Q)] for _ in range(G)]
+    published = np.full(Q, -np.inf)
+    seed = min(D, seed_docs)  # the seed: the k-th best live of docs 0 ..
+    for q in range(Q):
+        vals = np.sort(s[q, :seed][mask[:seed]])[::-1]
+        if vals.size >= k and vals[k - 1] > -np.inf:
+            published[q] = vals[k - 1]
+    for step in range(-(-tiles // G)):
+        for x in range(G):
+            tile = x + step * G
+            if tile >= tiles:
+                continue
+            d0, d1 = tile * T, min(D, tile * T + T)
+            m = bm25_topk.rescore_margin(torch.from_numpy(qw),
+                                         torch.from_numpy(imp[:, d0:d1]))
+            m = m.numpy().astype(np.float64)
+            live = mask[d0:d1]
+            for q in range(Q):
+                u = {"up": np.ones(d1 - d0), "down": -np.ones(d1 - d0),
+                     "random": rng.uniform(-1, 1, d1 - d0)}[mode]
+                hat = s[q, d0:d1].astype(np.float64) + m[q] * u
+                hat = np.where(u > 0, _f32_round(hat, False),
+                               _f32_round(hat, True)).astype(np.float64)
+                lst = lists[x][q]
+                heads = sorted((-lists[b][q][0][0] for b in range(G)
+                                if lists[b][q] and lists[b][q][0][0] < np.inf),
+                               reverse=True)
+                board = heads[k - 1] if len(heads) >= k else -np.inf
+                shared = max(published[q], board)
+                theta = -np.inf
+                if len(lst) == k:
+                    theta = -lst[-1][0]
+                elif live.sum() >= k and shared == -np.inf:
+                    kth = np.sort(hat[live])[::-1][k - 1]
+                    theta = float(_f32_round(np.array([kth - m[q]]),
+                                             False)[0])
+                if theta > -np.inf:
+                    published[q] = max(published[q], theta)
+                masked_too = (len(lst) < k and live.sum() < k
+                              and shared == -np.inf)
+                theta = max(theta, shared)
+                up = _f32_round(hat + m[q], True).astype(np.float64)
+                cand = np.where(live, up >= theta, masked_too)
+                for j in np.flatnonzero(cand):
+                    d = d0 + j
+                    v = (-np.inf if not live[j] else
+                         0.0 if not hit[q, d] else float(s[q, d]))
+                    key = (-v, d)
+                    if len(lst) < k or key < lst[-1]:
+                        lst.append(key)
+                        lst.sort()
+                        del lst[k:]
+    vals = np.empty((Q, k), np.float32)
+    ids = np.empty((Q, k), np.int32)
+    for q in range(Q):
+        best = sorted(sum((lists[x][q] for x in range(G)), []))[:k]
+        vals[q] = [np.float32(-v) for v, _ in best]
+        ids[q] = [d for _, d in best]
+    return vals, ids
+
+
+def _selection_case(kind, rng):
+    Q, F, D = 6, 32, 1000
+    if kind == "all tie":
+        qw = np.full((Q, F), 1.5, np.float32)
+        imp = np.ones((F, D), np.float32)
+        mask = rng.random(D) > 0.3
+    elif kind == "ties":
+        qw = np.repeat((rng.random((Q, 1)) * 3), F, axis=1).astype(np.float32)
+        imp = np.round(rng.random((F, D)) * 2).astype(np.float32)
+        mask = rng.random(D) > 0.3
+    elif kind == "fewer live than k":
+        qw = (rng.random((Q, F)) * 3).astype(np.float32)
+        imp = ((rng.random((F, D)) < 0.2) * rng.random((F, D))).astype(
+            np.float32)
+        mask = np.zeros(D, bool)
+        mask[rng.choice(D, 7, replace=False)] = True
+    elif kind in ("mixed", "subnormal weights"):
+        qw, imp = _margin_inputs(kind, 7, Q=Q, F=F, n=D)
+        mask = rng.random(D) > 0.1
+    else:  # "sparse": BM25-shaped, zero weights, docs with no hit
+        qw, imp = _margin_inputs("zero weights", 8, Q=Q, F=F, n=D)
+        mask = rng.random(D) > 0.2
+    return qw, imp, mask
+
+
+@pytest.mark.parametrize("mode", ["up", "down", "random"])
+@pytest.mark.parametrize("kind", ["all tie", "ties", "fewer live than k",
+                                  "mixed", "subnormal weights", "sparse"])
+def test_tensor_core_selection_rule_is_exact(kind, mode):
+    """The selection rule, emulated with tensor-core scores anywhere
+    within the margin of the twin's, returns the twin's values (bit for
+    bit) and ids, for k below, at and above a tile's live docs."""
+    rng = np.random.default_rng(90)
+    qw, imp, mask = _selection_case(kind, rng)
+    for k, G, seed in ((1, 1, 512), (10, 3, 512), (40, 2, 512), (2, 5, 512),
+                       (10, 3, 0), (10, 3, 64)):
+        got_v, got_i = _emulate_tc(qw, imp, mask, k, G, mode, rng, seed)
+        want_v, want_i = bm25_dense_topk_plain(
+            torch.from_numpy(qw), torch.from_numpy(imp),
+            torch.from_numpy(mask), k=k)
+        np.testing.assert_array_equal(got_v.view(np.int32),
+                                      want_v.numpy().view(np.int32))
+        np.testing.assert_array_equal(got_i, want_i.numpy())
