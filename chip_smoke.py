@@ -1974,11 +1974,14 @@ def profile_path(torch, run):
     return None
 
 
-def phase_mesh(torch, np, dev, card, corpus, sift):
+def phase_mesh(torch, np, dev, card, corpus, sift, dense_bodies):
     """Phase 5d: phase 5's corpus and phase 5b's slab split over five
     shards by document routing, one segment a shard; phase 5's queries
     and brute-force knn on the mesh path and on the host loop, and
-    ``search_knn`` at Q = 8. Returns the mesh run's (B1, B2) launches."""
+    ``search_knn`` at Q = 8; then phase 5u, the same shards on a node
+    over several devices (``phase_multidevice``; ``dense_bodies``: 5e(a)'s
+    pure-dense bodies for its ``_msearch``). Returns the mesh runs' (B1,
+    B2) launches, 5u's included."""
     from elasticsearch_tpu_torch import Node
     from elasticsearch_tpu_torch.cluster.routing import shard_id_for
     from elasticsearch_tpu_torch.index.convert import segment_from_arrays
@@ -2004,6 +2007,7 @@ def phase_mesh(torch, np, dev, card, corpus, sift):
     exact_cands = [[] for _ in qs]
     exact_totals = [0] * len(qs)
     shard_text = []  # each shard's text CSR and doc numbers, for 5e
+    kept = []  # each shard's arrays, for 5u's node
     for s in range(MESH_SHARDS):
         arrays = shard_arrays(np, corpus, u_term, sift, shard_of, s)
         fb = arrays["fields"]["body"]
@@ -2020,6 +2024,7 @@ def phase_mesh(torch, np, dev, card, corpus, sift):
             exact_totals[n] += total
         svc.shards[s].engine.add_segment(segment_from_arrays(
             arrays, node.residency))
+        kept.append(arrays)
         del arrays, fb
     del u_term
     sizes = np.bincount(shard_of, minlength=MESH_SHARDS)
@@ -2207,7 +2212,209 @@ def phase_mesh(torch, np, dev, card, corpus, sift):
     log(f"[mesh] search_knn Q=8 k=10 over {MESH_SHARDS} slots: "
         f"{knn_ms:.3f} ms a call, B2 launches {b2_knn}; equal to the B2 "
         f"twin's, hits match the exact f64 oracle")
-    return b1, b2 + b2_knn, node, shard_text  # phase 5e reads them
+    b1_u, b2_u = phase_multidevice(
+        torch, np, dev, card, kept, node, bodies, knn_bodies,
+        (ms, got, kms, kgot), dense_bodies)
+    del kept
+    # phase 5e reads the node and the shards' arrays
+    return b1 + b1_u, b2 + b2_knn + b2_u, node, shard_text
+
+
+# ---------------------------------------------------------------------------
+# phase 5u: the shard mesh over several devices
+# ---------------------------------------------------------------------------
+
+MULTI_NAMED = 4      # mesh devices on a machine with one card: it, 4 times
+MULTI_MSEARCH = 256  # 5u(c)'s _msearch: the first of 5e(a)'s bodies
+
+
+def multi_devices(torch, dev):
+    """Phase 5u's device list and how it was made: every card when there
+    are two or more, else the one card named MULTI_NAMED times (each
+    entry a mesh device with its own residency registry)."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [f"cuda:{i}" for i in range(n)], f"every card ({n} cards)"
+    return [str(dev)] * MULTI_NAMED, (f"one card named {MULTI_NAMED} times "
+                                      f"(the machine has one)")
+
+
+def _launch_owner(svc):
+    """{data_ptr of each shard segment's live mask and slab: its mesh
+    device}: what B1 (the live mask) and B2 (the slab) read tells which
+    device a launch served."""
+    ex = svc.mesh_executor()
+    out = {}
+    for s, sh in enumerate(svc.shards):
+        for seg in sh.segments:
+            out[seg.live.data_ptr()] = ex.mesh.device_of(s)
+            vc = seg.vectors.get("emb")
+            if vc is not None:
+                out[vc.vecs.data_ptr()] = ex.mesh.device_of(s)
+    return out
+
+
+def phase_multidevice(torch, np, dev, card, arrays, one_node, bodies,
+                      knn_bodies, one_run, dense_bodies):
+    """Phase 5u: phase 5d's five shards (the same arrays) on a node over
+    several mesh devices (``multi_devices``): shard i on mesh device i %
+    n, each round a part on every device, the parts merged on the first.
+    (a) the device list; (b) 5d's match and knn bodies, against 5d's
+    one-device node: the same ids in the same order, exact totals,
+    scores bit-equal where B1 alone served and within 1e-5 elsewhere;
+    (c) an ``_msearch`` of 5e(a)'s first MULTI_MSEARCH pure-dense bodies
+    (the mesh's postings round), against the one-device node's at 1e-5
+    and against the node's own sequential searches (their B1 band where
+    B1 served alone); (e) per device its bytes and B1/B2 launches, and
+    the p50s against 5d's. Returns (b)'s (B1, B2) launches."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.index.convert import segment_from_arrays
+    from elasticsearch_tpu_torch.monitor import kernels as counters
+    from elasticsearch_tpu_torch.ops import bm25_topk, knn_topk
+    from elasticsearch_tpu_torch.search import queries
+
+    t0 = time.perf_counter()
+    devs, form = multi_devices(torch, dev)
+    node = Node(name="mesh-multi", device=devs)
+    try:
+        node.create_index("mesh5", {
+            "settings": {"number_of_shards": MESH_SHARDS},
+            "mappings": MESH_MAPPING})
+        svc = node.get_index("mesh5")
+        for s, a in enumerate(arrays):
+            svc.shards[s].engine.add_segment(segment_from_arrays(
+                a, svc.shards[s].engine.residency))
+        ex = svc.mesh_executor()
+        nd = ex.n_devices
+        torch.cuda.synchronize()
+        log(f"[5u] (a) {form}: device list "
+            f"{', '.join(map(str, node.devices))}; {MESH_SHARDS} shards "
+            f"over {nd} mesh devices (shard i on mesh device i % {nd}); "
+            f"set-up {time.perf_counter() - t0:.1f} s")
+
+        def run(bodies_):
+            times, got, generic = [], [], []
+            for b in bodies_:
+                before = counters.snapshot()
+                t = time.perf_counter()
+                got.append(node.search("mesh5", copy.deepcopy(b)))
+                times.append(time.perf_counter() - t)
+                after = counters.snapshot()
+                generic.append(any(after.get(c, 0) != before.get(c, 0)
+                                   for c in ("bm25_hybrid", "bm25_scatter")))
+            return np.array(times) * 1e3, got, generic
+
+        # first use: dense blocks, the word buffers' first copies
+        node.search("mesh5", {"query": {"match": {"body": "t1 t2 t3"}},
+                              "size": 10})
+        node.search("mesh5", copy.deepcopy(knn_bodies[0]))
+        owner = _launch_owner(svc)
+        per = {"B1": [0] * nd, "B2": [0] * nd}
+        real = (queries.bm25_dense_topk, queries.knn_topk)
+
+        def b1_counted(qw, block, live, *a, **kw):
+            per["B1"][owner[live.data_ptr()]] += 1
+            return real[0](qw, block, live, *a, **kw)
+
+        def b2_counted(q, vecs, *a, **kw):
+            per["B2"][owner[vecs.data_ptr()]] += 1
+            return real[1](q, vecs, *a, **kw)
+
+        queries.bm25_dense_topk, queries.knn_topk = b1_counted, b2_counted
+        try:
+            counters.reset()
+            bm25_topk.LAUNCHES = knn_topk.LAUNCHES = 0
+            ms, got, generic = run(bodies)
+            b1 = bm25_topk.LAUNCHES
+            kms, kgot, _ = run(knn_bodies)
+            b2 = knn_topk.LAUNCHES
+            snap = counters.snapshot()
+        finally:
+            queries.bm25_dense_topk, queries.knn_topk = real
+        if snap.get("mesh_search") != len(bodies) + len(knn_bodies) \
+                or snap.get("mesh_fallback_total"):
+            raise AssertionError(f"phase 5u(b): the mesh did not serve every "
+                                 f"request: {snap}")
+        if sum(per["B1"]) != b1 or sum(per["B2"]) != b2 \
+                or min(per["B1"]) == 0 or min(per["B2"]) == 0:
+            raise AssertionError(f"phase 5u(b): B1 {b1} and B2 {b2} launches, "
+                                 f"by device {per}: every device must launch "
+                                 f"both")
+        one_ms, one_got, one_kms, one_kgot = one_run
+        exact = 0
+        for n, (a, w) in enumerate(zip(got + kgot, one_got + one_kgot)):
+            if [x["_id"] for x in a["hits"]["hits"]] != \
+                    [x["_id"] for x in w["hits"]["hits"]] \
+                    or a["hits"]["total"] != w["hits"]["total"]:
+                raise AssertionError(f"phase 5u(b) query {n}: hits or total "
+                                     f"differ from the one-device node's")
+            if n < len(bodies) and not generic[n]:
+                if a["hits"] != w["hits"]:
+                    raise AssertionError(f"phase 5u(b) query {n}: B1's "
+                                         f"scores differ from the one-device "
+                                         f"node's")
+                exact += 1
+            else:
+                check_hits(a, w, f"phase 5u(b) query {n}", rtol=1e-5)
+
+        # (c) the batched postings round, a part on every device
+        pairs = [({"index": "mesh5"}, copy.deepcopy(b)) for b in dense_bodies]
+        node.msearch(copy.deepcopy(pairs))  # first use
+        counters.reset()
+        got_c = node.msearch(copy.deepcopy(pairs))["responses"]
+        snap_c = counters.snapshot()
+        if snap_c.get("mesh_msearch") != 1 \
+                or snap_c.get("mesh_msearch_fallback"):
+            raise AssertionError(f"phase 5u(c): counters {snap_c}; one mesh "
+                                 f"round expected")
+        c_ms, _ = _median_ms(np, lambda p: node.msearch(p), [
+            copy.deepcopy(pairs) for _ in range(4)])
+        c_one_ms, want_c = _median_ms(np, lambda p: one_node.msearch(p), [
+            copy.deepcopy(pairs) for _ in range(4)])
+        want_c = want_c["responses"]
+        for n, (g, w) in enumerate(zip(got_c, want_c)):
+            if [x["_id"] for x in g["hits"]["hits"]] != \
+                    [x["_id"] for x in w["hits"]["hits"]]:
+                raise AssertionError(f"phase 5u(c) body {n}: hits differ "
+                                     f"from the one-device node's")
+            check_hits(g, w, f"phase 5u(c) body {n} vs one device",
+                       rtol=1e-5)
+        n_fused, rec_c = _hold_mixed(np, got_c, _sequential(
+            node, "mesh5", dense_bodies), "5u(c)")
+
+        # (e) per device: bytes and launches
+        st = node.residency.stats()["devices"]
+        seg_bytes = [0] * nd
+        for s, sh in enumerate(svc.shards):
+            seg_bytes[ex.mesh.device_of(s)] += sum(
+                g.memory_bytes() for g in sh.segments)
+        for d in range(nd):
+            log(f"[5u] (e) mesh device {d} ({node.devices[d]}): shards "
+                f"{ex.mesh.slots_of(d)}, {seg_bytes[d]} bytes of segments "
+                f"(postings, live masks), {st[d]['resident_bytes']} held by "
+                f"its registry (blocks, slabs, copies), B1 launches "
+                f"{per['B1'][d]}, B2 {per['B2'][d]}")
+        log("[5u] (e) allocated on the card(s): " + ", ".join(
+            f"{d} {torch.cuda.memory_allocated(d)} bytes"
+            for d in sorted({str(d) for d in node.devices})))
+        log(f"[5u] (b) {len(bodies)} match queries over {nd} mesh devices "
+            f"on {card}: p50 {np.percentile(ms, 50):.3f} ms against 5d's "
+            f"one-device {np.percentile(one_ms, 50):.3f}; {len(knn_bodies)} "
+            f"knn p50 {np.percentile(kms, 50):.3f} ms against "
+            f"{np.percentile(one_kms, 50):.3f}; B1 {b1}, B2 {b2} launches; "
+            f"the same ids in the same order and exact totals as 5d's node, "
+            f"{exact} B1-only responses bit-equal, the rest within 1e-5")
+        log(f"[5u] (c) {len(dense_bodies)} of 5e(a)'s bodies in one "
+            f"Node.msearch over {nd} mesh devices: median {c_ms:.3f} ms of 3 "
+            f"calls against the one-device node's {c_one_ms:.3f}; "
+            f"mesh_msearch once a call; "
+            f"equal to the one-device node's at 1e-5 and to sequential "
+            f"searches ({len(dense_bodies) - n_fused} at 1e-5, {n_fused} in "
+            f"B1's band, recall@10 {rec_c:.4f})")
+        log(f"[5u] phase 5u took {time.perf_counter() - t0:.1f} s")
+        return b1, b2
+    finally:
+        node.close()
 
 
 # ---------------------------------------------------------------------------
@@ -2705,7 +2912,7 @@ def phase_msearch(torch, np, dev, card, corpus, sift, read_node, mesh_node,
 
 TAXI_SHARDS = 4
 TAXI_DOCS = 1 << 20        # per shard: one 2^20-doc segment each
-TAXI_WINDOW_S = 1.0        # timed requests per body and route: for about
+TAXI_WINDOW_S = 0.5        # timed requests per body and route: for about
 TAXI_MIN_REPS = 10         # this many seconds, at least TAXI_MIN_REPS and
 TAXI_MAX_REPS = 200        # at most TAXI_MAX_REPS of them
 TAXI_TAIL_REPS = 100       # a p99 is printed from this many requests on
@@ -3080,9 +3287,10 @@ def phase_aggs(torch, np, dev, card):
         "settings": {"number_of_shards": TAXI_SHARDS},
         "mappings": TAXI_MAPPING})
     svc = node.get_index("taxis")
+    tarrays = [taxi_shard_arrays(np, taxis, s) for s in range(TAXI_SHARDS)]
     for s in range(TAXI_SHARDS):
         svc.shards[s].engine.add_segment(segment_from_arrays(
-            taxi_shard_arrays(np, taxis, s), node.residency))
+            tarrays[s], node.residency))
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     log(f"[aggs] {TAXI_SHARDS * TAXI_DOCS} generated trips over "
@@ -3160,8 +3368,100 @@ def phase_aggs(torch, np, dev, card):
         f"numpy bounds on all {TAXI_SHARDS} shards, {card_eq[0]} of "
         f"{TAXI_SHARDS * 4096} equal to the exact-rank build "
         f"({card_eq[1]} with a value in the f32 band)")
+    multi_aggs(torch, np, dev, card, node, taxis, tarrays)
+    del tarrays
     log(f"[aggs] phase 5f took {time.perf_counter() - t0:.1f} s")
     return node, taxis
+
+
+MULTI_AGG_REPS = 9  # 5u(d)'s timed requests a body and node
+#: phase 5u(d)'s bodies: keyword terms counted in the round, and terms,
+#: value_count, avg and stats over the round's mask
+MULTI_AGG_BODIES = {
+    "keyword_terms": TAXI_BODIES["keyword_terms"],
+    "metrics": {"size": 0, "aggs": {
+        "payments": {"terms": {"field": "payment_type"}},
+        "tips": {"value_count": {"field": "tip_amount"}},
+        "avg_fare": {"avg": {"field": "fare_amount"}},
+        "passengers": {"stats": {"field": "passenger_count"}}}},
+}
+
+
+def multi_aggs(torch, np, dev, card, one_node, t, tarrays):
+    """Phase 5u(d): 5f's four shards of trips (the same arrays) on a node
+    over the mesh devices of ``multi_devices`` (four: one shard each).
+    Terms, value_count, avg and stats: the response byte-identical to
+    5f's one-device node's and held against numpy (buckets and counts
+    exact, sums within 1e-5), with the integer lanes summed across the
+    devices (``mesh_psum`` once per agg)."""
+    from elasticsearch_tpu_torch import Node
+    from elasticsearch_tpu_torch.index.convert import segment_from_arrays
+    from elasticsearch_tpu_torch.monitor import kernels as counters
+
+    t0 = time.perf_counter()
+    devs, form = multi_devices(torch, dev)
+    node = Node(name="taxis-multi", device=devs)
+    try:
+        node.create_index("taxis", {
+            "settings": {"number_of_shards": TAXI_SHARDS},
+            "mappings": TAXI_MAPPING})
+        svc = node.get_index("taxis")
+        for s in range(TAXI_SHARDS):
+            svc.shards[s].engine.add_segment(segment_from_arrays(
+                tarrays[s], svc.shards[s].engine.residency))
+        nd = svc.mesh_executor().n_devices
+        n_all = int(t["trip_distance"].size)
+        lines = []
+        for name, body in MULTI_AGG_BODIES.items():
+            node.search("taxis", copy.deepcopy(body))  # first use
+            counters.reset()
+            resp = node.search("taxis", copy.deepcopy(body))
+            snap = counters.snapshot()
+            ms, _ = _median_ms(np, lambda b: node.search("taxis", b), [
+                copy.deepcopy(body) for _ in range(MULTI_AGG_REPS + 1)])
+            one_ms, want = _median_ms(
+                np, lambda b: one_node.search("taxis", b),
+                [copy.deepcopy(body) for _ in range(MULTI_AGG_REPS + 1)])
+            n_aggs = len(body["aggs"])
+            _hold(snap.get("mesh_search") == 1
+                  and snap.get("mesh_psum") == n_aggs,
+                  f"(d) {name}: the cross-device merge did not run once an "
+                  f"agg: {snap}", "5u")
+            _hold(json.dumps(dict(resp, took=0), sort_keys=True)
+                  == json.dumps(dict(want, took=0), sort_keys=True),
+                  f"(d) {name}: the response differs from the one-device "
+                  f"node's", "5u")
+            if name == "keyword_terms":
+                taxi_oracle_check(np, name, resp, t)
+            else:
+                a = resp["aggregations"]
+                terms = TAXI_KEYWORDS["payment_type"]
+                cnt = np.bincount(t["payment_type"], minlength=len(terms))
+                _hold([(b["doc_count"], b["key"])
+                       for b in a["payments"]["buckets"]]
+                      == sorted(((int(c), terms[i]) for i, c in
+                                 enumerate(cnt) if c), reverse=True)[:10],
+                      f"(d) payments {a['payments']}", "5u")
+                _hold(a["tips"]["value"] == int(t["tip_exists"].sum()),
+                      f"(d) tips {a['tips']}", "5u")
+                _near(a["avg_fare"]["value"],
+                      float(t["fare_amount"].sum()) / n_all, 1e-5,
+                      "5u(d) avg_fare")
+                pc = t["passenger_count"]
+                ps = a["passengers"]
+                _hold(ps["count"] == n_all and ps["min"] == float(pc.min())
+                      and ps["max"] == float(pc.max()),
+                      f"(d) passengers {ps}", "5u")
+                _near(ps["sum"], float(pc.sum()), 1e-5, "5u(d) passengers")
+            lines.append(f"{name} median {ms:.3f} ms of {MULTI_AGG_REPS} "
+                         f"(one device {one_ms:.3f}), mesh_psum "
+                         f"{snap.get('mesh_psum')} a request")
+        log(f"[5u] (d) {TAXI_SHARDS} shards of trips over {nd} mesh devices "
+            f"({form}) on {card}: " + "; ".join(lines) + "; byte-identical "
+            f"to 5f's one-device node, buckets and counts equal numpy's, "
+            f"sums within 1e-5; took {time.perf_counter() - t0:.1f} s")
+    finally:
+        node.close()
 
 
 # ---------------------------------------------------------------------------
@@ -3565,7 +3865,7 @@ def phase_sort(torch, np, dev, card, node, t):
 # phase 5h: the write path and merges on the card
 # ---------------------------------------------------------------------------
 
-WP_DOCS = 1 << 14          # logs-a's documents (cut from 2^18, PERF.md §4)
+WP_DOCS = 1 << 13          # logs-a's documents (cut from 2^18, PERF.md §4)
 WP_REFRESHES = 32          # refreshes over logs-a: ~32 fresh segments a shard
 WP_SHARDS = 5              # ES 2.0's default index.number_of_shards
 WP_B_SHARE = 10            # logs-b holds a further 1/WP_B_SHARE of the docs
@@ -10411,7 +10711,7 @@ def main() -> int:
                        pq_parts)
     launches["maxsim_adc"] = hyb["maxsim_adc"]
     b1_mesh, b2_mesh, mesh_node, shard_text = phase_mesh(
-        torch, np, dev, card, corpus, sift)
+        torch, np, dev, card, corpus, sift, rest_dense[:MULTI_MSEARCH])
     launches["bm25_dense_topk"] += b1_mesh
     launches["knn_topk"] += b2_mesh
     b1_ms, b2_ms = phase_msearch(torch, np, dev, card, corpus, sift,

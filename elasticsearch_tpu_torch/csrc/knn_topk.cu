@@ -720,8 +720,13 @@ int knn_topk(const float* q, const float* q2, int Q, int dims,
   const int kp = k < kChunk ? k : kChunk;
   u64* cur = static_cast<u64*>(scratch_a);
   u64* nxt = static_cast<u64*>(scratch_b);
+  // the device's primary context current on this thread (the wrapper
+  // entered the tensors' device): a thread whose first CUDA call this
+  // is, on any card, has none, and the tensor-map encoder needs one
   int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce == cudaSuccess) ce = cudaSetDevice(dev);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (mode == kTensor && D > 0x7fffffffLL - kChunk)
     mode = kAsync4;  // a stage's first row must be an int coordinate

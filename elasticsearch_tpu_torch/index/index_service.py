@@ -148,9 +148,11 @@ class IndexService:
         self.closed = False
         self.data_path = data_path
         self.recoveries = RecoveryRegistry()
+        # shard i and its copies live on the registry of mesh device
+        # i % min(shards, devices) (one registry: all of them there)
         self.shards: List[IndexShard] = [
-            IndexShard(name, i, self.mappings, self.analysis, residency,
-                       data_path)
+            IndexShard(name, i, self.mappings, self.analysis,
+                       residency.for_shard(i, self.num_shards), data_path)
             for i in range(self.num_shards)]
         # each shard's copies; a replica keeps no translog (it re-syncs
         # from its primary by peer recovery)
@@ -171,9 +173,11 @@ class IndexService:
                 raise
 
     def _new_copy(self, shard_id: int) -> IndexShard:
-        """A replica of shard ``shard_id``: in memory, empty."""
+        """A replica of shard ``shard_id``: in memory, empty, on its
+        primary's device (a promotion moves nothing)."""
         return IndexShard(self.name, shard_id, self.mappings, self.analysis,
-                          self.residency, None)
+                          self.residency.for_shard(shard_id, self.num_shards),
+                          None)
 
     def recover(self) -> None:
         """Gateway recovery: every primary replays its commit and its
@@ -596,14 +600,15 @@ class IndexService:
         return global_stats(seg for s in self.shards for seg in s.segments)
 
     def mesh_executor(self) -> MeshSearchExecutor:
-        """The index's MeshSearchExecutor: one slot per shard on the
-        node's device, following the groups (their live primaries, and
-        every copy's segments as live for its caches), never a segment
-        snapshot, which would pin merged-away segments; its caches live
-        as long as the index."""
+        """The index's MeshSearchExecutor: one slot per shard over the
+        node's devices (slot i on the device shard i lives on),
+        following the groups (their live primaries, and every copy's
+        segments as live for its caches), never a segment snapshot,
+        which would pin merged-away segments; its caches live as long as
+        the index."""
         if self._mesh_executor is None:
             self._mesh_executor = MeshSearchExecutor(
-                shard_mesh(self.num_shards, self.residency.device),
+                shard_mesh(self.num_shards, self.residency.devices),
                 self.groups, self.residency)
         return self._mesh_executor
 

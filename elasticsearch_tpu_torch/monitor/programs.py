@@ -345,18 +345,23 @@ class ProgramRegistry:
 
     # -- in-flight dispatches (the watchdog's feed) ---------------------------
 
-    def begin_dispatch(self, program: str, shapes: str) -> int:
+    def begin_dispatch(self, program: str, shapes: str,
+                       devices: Optional[str] = None) -> int:
         """Mark one dispatch in flight; returns the token
-        :meth:`end_dispatch` retires."""
-        return self._inflight.begin(program, shapes=shapes)
+        :meth:`end_dispatch` retires. ``devices`` names the devices it
+        runs on (a mesh round's), for the watchdog's stall reason."""
+        if devices is None:
+            return self._inflight.begin(program, shapes=shapes)
+        return self._inflight.begin(program, shapes=shapes, devices=devices)
 
     def end_dispatch(self, token: int) -> None:
         self._inflight.end(token)
 
     def inflight_snapshot(self) -> List[dict]:
         """Every dispatch in flight, with its age."""
-        return [{"program": r["kind"], "shapes": r.get("shapes", ""),
-                 "age_seconds": r["age_seconds"]}
+        return [dict({"program": r["kind"], "shapes": r.get("shapes", ""),
+                      "age_seconds": r["age_seconds"]},
+                     **({"devices": r["devices"]} if "devices" in r else {}))
                 for r in self._inflight.snapshot()]
 
     def execute_p99(self, program: str, shapes: str) -> Tuple[float, int]:
@@ -372,17 +377,19 @@ class ProgramRegistry:
 
     @contextmanager
     def timed(self, program: str, shapes: str,
-              field: Optional[str] = None):
+              field: Optional[str] = None, devices: Optional[str] = None):
         """Bracket one dispatch: in flight from entry to exit, filed as a
         compile when the thread's first-touch count moved inside it (the
         key's first dispatch in the process, a library built or loaded),
         else as an execute. The block must end with the host's read of
-        the dispatch's result. Nothing records when the block raises."""
+        the dispatch's result (a mesh round's one copy back, after every
+        device's part). ``devices``: the devices it runs on, shown in
+        flight. Nothing records when the block raises."""
         from elasticsearch_tpu_torch.tracing import retrace
 
         snap = retrace.snapshot()
         retrace.first_dispatch((program, shapes, backend_fingerprint()))
-        tok = self.begin_dispatch(program, shapes)
+        tok = self.begin_dispatch(program, shapes, devices)
         ptok = _ACTIVE_PROG_KEY.set((program, shapes))
         t0 = time.perf_counter()
         try:

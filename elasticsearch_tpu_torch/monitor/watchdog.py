@@ -12,7 +12,8 @@ detector              trips when
                       (monitor/programs.py: ``mult x p99``, floored; a key
                       with too little history gets the absolute default).
                       The bracket closes at the host's read of the result,
-                      so a kernel that hangs on the card stays in flight.
+                      so a kernel that hangs on the card stays in flight;
+                      a mesh round's reason names its devices.
 ``threadpool_starve`` a named pool's oldest queued work item is older than
                       the bound while every worker is busy.
 ``translog_fsync``    the fsyncs since the last tick average over the
@@ -311,7 +312,9 @@ class WatchdogService:
                 trips.append(self._trip(
                     "program_stall",
                     f"device program [{row['program']}|{row['shapes']}] "
-                    f"in flight {row['age_seconds']:.3f}s "
+                    + (f"on [{row['devices']}] " if row.get("devices")
+                       else "")
+                    + f"in flight {row['age_seconds']:.3f}s "
                     f"(bound {bound:.3f}s)", detail))
             elif row["age_seconds"] > bound / 2.0:
                 self.node.flight.record("slow_ops", detector="program_stall",

@@ -8,9 +8,11 @@ expression, ``msearch``, the index admin surface (``delete_index``,
 ``index_exists``, ``put_mapping``/``get_mapping``, ``update_aliases``,
 ``put_template``/``delete_template``, ``close_index``/``open_index``,
 ``update_index_settings``), snapshot repositories (``repositories``,
-``index/snapshots.py``), close. The node owns the device (``cuda``
-unless the caller asks for ``cpu``), one breaker service, one residency
-registry, which it passes down to every segment, and the serving
+``index/snapshots.py``), close. The node owns its devices (every
+visible card unless the caller names one, a list, or ``cpu``;
+``utils/device.py::resolve_devices``), one breaker service, one residency
+registry a device (``resources/residency.py::ResidencySet``), whose
+registry for a shard it passes down to the shard's segments, and the serving
 front-end (``node.serving``): a search of one index goes through its
 coalescer, so that concurrent searches run as one batch
 (``serving/coalescer.py``), and an ``msearch`` batches its eligible
@@ -87,7 +89,7 @@ import shutil
 import threading
 import time
 import uuid
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -112,7 +114,7 @@ from elasticsearch_tpu_torch.monitor.watchdog import WatchdogService
 from elasticsearch_tpu_torch.parallel import aot
 from elasticsearch_tpu_torch.resources import census
 from elasticsearch_tpu_torch.resources.breakers import CircuitBreakerService
-from elasticsearch_tpu_torch.resources.residency import Residency
+from elasticsearch_tpu_torch.resources.residency import ResidencySet
 from elasticsearch_tpu_torch.search.batch import (msearch_error_entry,
                                                   try_batched_msearch)
 from elasticsearch_tpu_torch.search.context import global_stats
@@ -123,7 +125,7 @@ from elasticsearch_tpu_torch.serving import ServingFrontend
 from elasticsearch_tpu_torch.tracing import retrace
 from elasticsearch_tpu_torch.tracing.tasks import TaskRegistry
 from elasticsearch_tpu_torch.tracing.tracer import Tracer
-from elasticsearch_tpu_torch.utils.device import resolve_device
+from elasticsearch_tpu_torch.utils.device import resolve_devices
 from elasticsearch_tpu_torch.utils.errors import (ElasticsearchTpuException,
                                                   IllegalArgumentException,
                                                   IndexAlreadyExistsException,
@@ -134,14 +136,19 @@ logger = logging.getLogger(__name__)
 
 class Node:
     def __init__(self, name: str = "node-1", data_path: Optional[str] = None,
-                 device: Optional[str] = None,
+                 device: Union[None, str, torch.device,
+                               Sequence[Union[str, torch.device]]] = None,
                  cluster_name: str = "elasticsearch_tpu"):
-        self.device: torch.device = resolve_device(device)
+        # the mesh devices, in order: an index's shard i lives on device
+        # i % min(shards, devices); ``device`` is the first, where the
+        # devices' results merge
+        self.devices: Tuple[torch.device, ...] = resolve_devices(device)
+        self.device: torch.device = self.devices[0]
         self.node_id = uuid.uuid4().hex[:12]
         self.name = name
         self.data_path = data_path
         self.breakers = CircuitBreakerService()
-        self.residency = Residency(self.device, self.breakers)
+        self.residency = ResidencySet(self.devices, self.breakers)
         self.tracer = Tracer(self.node_id)
         self.residency.set_tracer(self.tracer)
         self.tasks = TaskRegistry(self.node_id)
@@ -1054,7 +1061,7 @@ class Node:
 
     def info(self) -> dict:
         """The node's info (the reference's ``Node.info``); ``devices``
-        lists the node's own device."""
+        lists the node's mesh devices in order."""
         return {
             "name": self.name,
             "cluster_name": self.cluster_state.cluster_name,
@@ -1065,7 +1072,7 @@ class Node:
                 "lucene_version": "n/a (device-resident segments)",
             },
             "tagline": "You Know, for Search",
-            "devices": [str(self.device)],
+            "devices": [str(d) for d in self.devices],
         }
 
     def close(self):

@@ -27,8 +27,12 @@ each library through this lookup:
 Key anatomy: ``sha1(library name, digest of the source with its headers,
 compiler flags, the compiler's version line, backend_fingerprint() —
 device name, compute capability and device count —, the host
-fingerprint, the placement)``. The placement is the device the
-library's kernels launch on (``cuda:<ordinal>``; ``host`` for the codec).
+fingerprint, the placement)``. The placement is the kind of device the
+library's kernels launch on (``cuda``; ``host`` for the codec), never a
+card's ordinal: a library the process opened once launches on every
+card through the runtime API (each wrapper enters its tensor's device),
+so a node over several cards builds and stores each library once, and
+a blob stored by a process whose current card was another is found.
 The reference's key carries no device count, so a program cached for
 one device layout is served to another (ROADMAP C26); here a blob keyed
 ``n=1`` is never found under ``n=4``, and a hand-moved one fails its
@@ -97,11 +101,13 @@ class LibrarySpec:
 
 
 def placement() -> str:
-    """The device a CUDA library's kernels launch on."""
+    """The kind of device a CUDA library's kernels launch on: ``cuda``
+    for every card (the backend fingerprint carries the card's name,
+    capability and count)."""
     import torch
 
     if torch.cuda.is_available():
-        return f"cuda:{torch.cuda.current_device()}"
+        return "cuda"
     return "cpu"
 
 

@@ -1,13 +1,29 @@
-"""Distributed query execution over the shard slots of one card.
+"""Distributed query execution over the shard slots of the node's
+devices.
 
 Port of elasticsearch_tpu/parallel/executor.py. The reference scatters
 the query phase over a ``('shard',)`` mesh as one ``shard_map`` program:
 per-shard scoring and top-k, an ``all_gather`` merge and ``psum`` totals.
-On one H100 the mesh is S slots of one device (``parallel/mesh.py``): a
-segment round — the r-th segment of every shard — runs as one sequence
-of PyTorch ops and kernel launches over slot-stacked ``[S, ...]``
-tensors, and the round's merged top-k comes back to the host in one
-copy of one packed buffer.
+Here the mesh is S slots over the node's devices (``parallel/mesh.py``;
+slot s on device s % n): a segment round — the r-th segment of every
+shard — runs on each device as one sequence of PyTorch ops and kernel
+launches over that device's slot-stacked ``[S_d, ...]`` tensors, and the
+round's merged top-k comes back to the host in one copy of one packed
+buffer.
+
+Several devices: every device's part of a round is launched before any
+result leaves its device; then each part's small per-slot results
+(``[S_d, k]`` values and ids, hit counts, terms agg counts) go to the
+first device by device-to-device copies (``copy_`` with
+``non_blocking``: no NCCL, whose communicators cannot hold a list that
+names one card twice, for a payload of k ids and scores a slot), merge
+there in shard order by the same stable sort, and come back in one copy.
+Counts are int64 sums, exact; the reference's ``all_gather`` and
+``psum`` in one. A round's dispatch bracket (``monitor/programs.py``)
+stays open to that copy back and names its devices. Each device has its
+own word buffer, stacked copies and memo charges, on its own residency
+registry. The slots and their candidates do not depend on the devices:
+one device or several give the same hits, totals and counts.
 
 Host work per round: compile the query (``parallel/compiler.py``), build
 each prim's data, pack the per-request tables into one word buffer and
@@ -157,25 +173,27 @@ def _resolve(x):
 
 class _SlotData:
     """What ``DataPrim.build`` gets: slot-stacked views or cached copies
-    of the round's segment data."""
+    of the round's segment data on mesh device ``d``."""
 
-    def __init__(self, executor: "MeshSearchExecutor", seg_row):
+    def __init__(self, executor: "MeshSearchExecutor", seg_row, d: int = 0):
         self.executor = executor
         self.seg_row = seg_row
+        self.d = d
 
     def _stack(self, per_slot, length, fill, dtype, fix):
         """The [S, length] copy. A reader may give a host mirror (an
         evicted column, ``segment.stack_source``): it is copied in from
         the host, so building a round rehydrates nothing."""
+        dev = self.executor.devices[self.d]
         out = torch.full((len(self.seg_row), length), fill, dtype=dtype,
-                         device=self.executor.device)
+                         device=dev)
         for s, seg in enumerate(self.seg_row):
             with stacking():
                 t = per_slot(seg) if seg is not None else None
             if t is None:
                 continue
             if isinstance(t, np.ndarray):
-                t = torch.from_numpy(t).to(self.executor.device)
+                t = torch.from_numpy(t).to(dev)
             out[s, : t.shape[0]] = fix(seg, t) if fix is not None else t
         return out
 
@@ -198,7 +216,7 @@ class _SlotData:
         nbytes = len(self.seg_row) * length * torch.empty(
             (), dtype=dtype).element_size()
         return functools.partial(self.executor._cached_data, key, nbytes,
-                                 stack, self.seg_row)
+                                 stack, self.seg_row, self.d)
 
 
 @dataclass
@@ -227,19 +245,89 @@ class _Round:
         return int(self.words.numel()) * 4
 
 
+@dataclass
+class _Part:
+    """One device's slots of a launched round, before the merge across
+    slots, all on that device: each slot's top kk (``vals`` None for a
+    sorted round), its exact hit count, each terms agg's counts [n,
+    width] and the match mask when the request wants it."""
+
+    vals: Optional[torch.Tensor]
+    ids: torch.Tensor
+    totals: torch.Tensor
+    counts: List[torch.Tensor]
+    mask: Optional[torch.Tensor]
+
+
+@dataclass
+class _MeshRound:
+    """One prepared segment round over several devices: what the memo
+    keeps. ``parts`` holds a ``_Round`` for each device with a non-empty
+    slot (device d's slots d, d + n, ...); ``perm`` is the slots' shard
+    order on the first device; ``widths`` each terms agg's count width
+    (the widest part's; narrower parts pad with zeros)."""
+
+    parts: List[Tuple[int, _Round]]
+    compiled: Any
+    kk: int
+    kg: int
+    S: int
+    perm: torch.Tensor
+    widths: Dict[int, int]
+    refs: List[Any]
+    token: Any = None
+
+    @property
+    def fused(self) -> list:
+        """No round of several devices is a one-slot B1 round."""
+        return [None] * self.S
+
+    @property
+    def meta(self) -> Dict[int, tuple]:
+        """``_decode_round``'s view: each agg prim's widest vocabulary."""
+        return {p: (w - 1,) for p, w in self.widths.items()}
+
+    @property
+    def nbytes(self) -> int:
+        return sum(rd.nbytes for _d, rd in self.parts)
+
+
+class _Charges:
+    """A mesh round's memo charges, one on each device, closed as one."""
+
+    def __init__(self, tokens):
+        self.tokens = tokens
+
+    def close(self) -> None:
+        for t in self.tokens:
+            t.close()
+
+
 class MeshSearchExecutor:
-    """Runs queries over N shards laid out on S slots of one card.
+    """Runs queries over N shards laid out on S slots over the mesh's
+    devices (slot s on device s % n).
 
     Segments are searched in rounds (round r stacks the r-th segment of
     every shard; a shard with fewer segments leaves its slot empty), and
     rounds merge on the host. More shards than slots wrap round-robin
-    (shard i → slot i % S, its segments joining that slot's rounds)."""
+    (shard i → slot i % S, its segments joining that slot's rounds).
+    ``residency`` is the node's registry set (or one registry): mesh
+    device d charges its copies to ``residency.members[d]``."""
 
     def __init__(self, mesh: ShardMesh, groups, residency):
         self.mesh = mesh
         self.S = mesh_size(mesh)
         self.device = mesh.device
+        self.devices = mesh.devices
+        self.n_devices = mesh.n_devices
         self.residency = residency
+        members = residency.members
+        if len(members) < self.n_devices:
+            raise ValueError(f"mesh has {self.n_devices} devices but the "
+                             f"residency only {len(members)}")
+        self.residencies = members[: self.n_devices]
+        # what a dispatch bracket names (the watchdog's stall reason)
+        self._devices_label = ",".join(str(d) for d in self.devices)
         # the index's live group list (``primary`` and ``copies`` of each)
         self.groups = groups
         if len(self.shards) < self.S:
@@ -251,8 +339,9 @@ class MeshSearchExecutor:
         # identity + tombstone counts, k) → _Round
         self._prep: "OrderedDict[Tuple, _Round]" = OrderedDict()
         self._prep_lock = threading.Lock()
-        # stacked device data per segment round (S > 1), LRU-bounded:
-        # key → (tensor, pinned segments, PinnedToken of its bytes)
+        # stacked device data per segment round (S > 1), LRU-bounded per
+        # device: key → (tensor, pinned segments, PinnedToken of its
+        # bytes, mesh device)
         self._data: "OrderedDict[Tuple, tuple]" = OrderedDict()
         self._data_lock = threading.Lock()
 
@@ -273,20 +362,21 @@ class MeshSearchExecutor:
 
     # -- caches ------------------------------------------------------------
 
-    def _cached_data(self, key, nbytes: int, build, refs):
-        """A stacked copy keyed by segment ids. ``refs`` (the segments)
-        are kept with it so a cached id() can never be recycled while the
-        entry lives. The bytes are a pinned ``fielddata`` charge
-        (``Residency.track``), forced as the reference's: the LRU's cap is
-        the ceiling, and a copy reads host mirrors, so it never trips.
-        The token is closed on eviction or close."""
+    def _cached_data(self, key, nbytes: int, build, refs, d: int = 0):
+        """A stacked copy on mesh device ``d`` keyed by segment ids.
+        ``refs`` (the segments) are kept with it so a cached id() can
+        never be recycled while the entry lives. The bytes are a pinned
+        ``fielddata`` charge on the device's registry
+        (``Residency.track``), forced as the reference's: the LRU's cap
+        (each device's) is the ceiling, and a copy reads host mirrors, so
+        it never trips. The token is closed on eviction or close."""
         with self._data_lock:
             if key in self._data:
                 self._data.move_to_end(key)
                 kernels.record("executor_data_hit")
                 return self._data[key][0]
         kernels.record("executor_data_miss")
-        tok = self.residency.track(nbytes, label="executor.data")
+        tok = self.residencies[d].track(nbytes, label="executor.data")
         try:
             val = build()
         except BaseException:
@@ -298,9 +388,10 @@ class MeshSearchExecutor:
                 evicted.append(tok)
                 val = self._data[key][0]
             else:
-                self._data[key] = (val, list(refs), tok)
-                while len(self._data) > self._data_cap:
-                    evicted.append(self._data.popitem(last=False)[1][2])
+                self._data[key] = (val, list(refs), tok, d)
+                mine = [k2 for k2, e in self._data.items() if e[3] == d]
+                for old in mine[: max(0, len(mine) - self._data_cap)]:
+                    evicted.append(self._data.pop(old)[2])
         for t in evicted:
             t.close()
         return val
@@ -384,17 +475,20 @@ class MeshSearchExecutor:
                                      query, agg_specs, want_mask, sort_spec)
 
     def _build_round(self, compiled, mappings, analysis, seg_row, lut_shard,
-                     k: int, global_stats=None) -> _Round:
-        """Build the prims' data and copy the round's tables to the card
-        in one word buffer. A fused request builds its term group first:
-        when no non-empty slot needs the generic route, nothing else is
-        built or copied. With ``global_stats`` (dfs) every slot's term
-        weights take the index-wide idf."""
+                     k: int, global_stats=None, d: int = 0,
+                     part: bool = False) -> _Round:
+        """Build the prims' data and copy the round's tables to mesh
+        device ``d`` in one word buffer. A fused request builds its term
+        group first: when no non-empty slot needs the generic route,
+        nothing else is built or copied. With ``global_stats`` (dfs)
+        every slot's term weights take the index-wide idf. ``part``: one
+        device's slots of a round over several, which merges on the first
+        device (no shard order of its own)."""
         D = compiled.D
         kk = min(k, D)
         ctxs = [SegmentContext(s, mappings, analysis, global_stats)
                 if s is not None else None for s in seg_row]
-        data = _SlotData(self, seg_row)
+        data = _SlotData(self, seg_row, d)
         items: List[list] = []
         meta: Dict[int, tuple] = {}
         f = compiled.fused
@@ -414,7 +508,8 @@ class MeshSearchExecutor:
             tables = [a for its in items for a in its
                       if isinstance(a, np.ndarray)]
         perm_t = len(tables)  # the slots in shard order (S > 1)
-        if len(seg_row) > 1:
+        ordered = len(seg_row) > 1 and not part
+        if ordered:
             tables.append(np.asarray(_shard_order(lut_shard), np.int32))
         # B1's arguments of each pure-dense slot: its real rows' weights
         # then the rows, one table each (fused_bm25_topk's layout)
@@ -426,7 +521,7 @@ class MeshSearchExecutor:
                 tables.append(np.concatenate([w.view(np.int32), rows]))
         offs = list(itertools.accumulate([a.size for a in tables],
                                          initial=0))
-        words = torch.from_numpy(_pack_words(tables)).to(self.device)
+        words = torch.from_numpy(_pack_words(tables)).to(self.devices[d])
         env_items = None
         if generic:
             at = {id(a): o for a, o in zip(tables, offs)}
@@ -434,7 +529,7 @@ class MeshSearchExecutor:
                           if isinstance(a, np.ndarray) else a for a in its]
                          for its in items]
         perm = (_word_view(words, offs[perm_t], tables[perm_t])
-                if len(seg_row) > 1 else None)
+                if ordered else None)
         for s, fs in enumerate(fused):
             if fs is not None:
                 t, R, block, live = fs
@@ -445,22 +540,13 @@ class MeshSearchExecutor:
                       min(k, len(seg_row) * kk), fused, perm, words,
                       [s for s in seg_row if s is not None])
 
-    def _run_round(self, rd: _Round):
-        """Launch the round: (its packed result, copied back once, the
-        terms aggs' counts at its end; the [S, D] match mask when the
-        request wants it, else None)."""
+    def _slot_results(self, rd: _Round) -> _Part:
+        """Launch a round's slots on their device: each slot's top kk,
+        hit count, terms agg counts and mask, left on the device."""
         compiled, kk = rd.compiled, rd.kk
         fused = rd.fused
         n = len(fused)
         counts, mask = [], None
-        if n == 1 and fused[0] is not None:
-            qw, rows, block, live, ks = fused[0]
-            kernels.record("bm25_fused_topk")
-            Q.FUSED_CALLS += 1
-            return Q.bm25_dense_topk(qw, _resolve(block), live, k=ks,
-                                     rows=rows,
-                                     count=True, packed=True).cpu().numpy(), \
-                None
         ks = {f[4] for f in fused if f is not None}
         if all(f is not None for f in fused) and ks == {kk}:
             # every slot on B1 at the round's k: its packed results are
@@ -481,7 +567,6 @@ class MeshSearchExecutor:
             scores, mask = compiled.root.sm(env, rd.meta)
             mask = mask & env[compiled.live][0]
             counts = [agg_term_counts(mask, *env[p], rd.meta[p][0])
-                      .reshape(-1).view(torch.int32)
                       for _name, p in compiled.agg_prims]
             if compiled.sort:
                 # each slot's top kk by its keys; every slot's count
@@ -491,10 +576,8 @@ class MeshSearchExecutor:
                     lanes += sort_lanes(key, exists, desc, first,
                                         rd.meta[p][0])
                 ids = sort_topk(lanes, mask, kk).to(torch.int32)
-                return torch.cat([ids.reshape(-1),
-                                  mask.sum(1).view(torch.int32)] + counts
-                                 ).cpu().numpy(), \
-                    mask if compiled.want_mask else None
+                return _Part(None, ids, mask.sum(1), counts,
+                             mask if compiled.want_mask else None)
             masked = torch.where(mask, scores, NEG_INF)
             sv, si = torch.sort(masked, dim=1, descending=True, stable=True)
             vals, ids = sv[:, :kk], si[:, :kk].to(torch.int32)
@@ -502,7 +585,7 @@ class MeshSearchExecutor:
             if not compiled.want_mask:
                 mask = None
         else:
-            dev = self.device
+            dev = rd.words.device
             vals = torch.full((n, kk), NEG_INF, dtype=torch.float32,
                               device=dev)
             ids = torch.zeros((n, kk), dtype=torch.int32, device=dev)
@@ -521,20 +604,91 @@ class MeshSearchExecutor:
             vals[s, :ks] = torch.where(v[0] > 0, v[0], NEG_INF)
             ids[s, :ks] = i[0]
             totals[s] = t[0]
-        total = totals.sum().reshape(1).view(torch.int32)
-        if n == 1:
-            return torch.cat([vals[0].contiguous().view(torch.int32),
-                              ids[0], total] + counts).cpu().numpy(), mask
-        # the round's top kg over all its slots: a round of S slots can
-        # hold up to S * kk of a deep page's candidates
-        perm = rd.perm.to(torch.int64)
-        pv = vals.index_select(0, perm).reshape(-1)
-        pi = ids.index_select(0, perm).reshape(-1)
-        gv, gpos = torch.sort(pv, descending=True, stable=True)
-        gv, gpos = gv[:rd.kg], gpos[:rd.kg]
-        return torch.cat([gv.contiguous().view(torch.int32),
-                          perm[gpos // kk].to(torch.int32), pi[gpos],
-                          total] + counts).cpu().numpy(), mask
+        return _Part(vals, ids, totals, counts, mask)
+
+    def _run_round(self, rd: _Round):
+        """Launch the round on one device: (its packed result, copied
+        back once, the terms aggs' counts at its end; the [S, D] match
+        mask when the request wants it, else None)."""
+        fused = rd.fused
+        n = len(fused)
+        if n == 1 and fused[0] is not None:
+            qw, rows, block, live, ks = fused[0]
+            kernels.record("bm25_fused_topk")
+            Q.FUSED_CALLS += 1
+            return Q.bm25_dense_topk(qw, _resolve(block), live, k=ks,
+                                     rows=rows,
+                                     count=True, packed=True).cpu().numpy(), \
+                None
+        p = self._slot_results(rd)
+        if n == 1 and not rd.compiled.sort:
+            return torch.cat([p.vals[0].contiguous().view(torch.int32),
+                              p.ids[0], p.totals.sum().reshape(1).view(
+                                  torch.int32)]
+                             + [c.reshape(-1).view(torch.int32)
+                                for c in p.counts]).cpu().numpy(), p.mask
+        perm = rd.perm.to(torch.int64) if n > 1 else None
+        return _pack(rd.compiled.sort, p, perm, rd.kk, rd.kg).cpu().numpy(), \
+            p.mask
+
+    def _build_mesh_round(self, compiled, recompile, mappings, analysis,
+                          seg_row, lut_shard, k: int,
+                          global_stats=None) -> _MeshRound:
+        """A round over several devices: each device with a non-empty
+        slot builds its part (its own compiled program from ``recompile``,
+        the same query over the same whole row, so every part has the
+        round's D and prim forms) and gets its word buffer; the shard
+        order goes to the first device."""
+        parts: List[Tuple[int, _Round]] = []
+        for d in range(self.n_devices):
+            slots = self.mesh.slots_of(d)
+            sub = [seg_row[s] for s in slots]
+            if all(seg is None for seg in sub):
+                continue
+            c = compiled if not parts else recompile()
+            parts.append((d, self._build_round(
+                c, mappings, analysis, sub, [lut_shard[s] for s in slots],
+                k, global_stats, d=d, part=True)))
+        kk = min(k, compiled.D)
+        widths = {p: max([rd.meta[p][0] + 1 for _d, rd in parts] or [1])
+                  for _name, p in compiled.agg_prims}
+        perm = torch.from_numpy(np.asarray(_shard_order(lut_shard),
+                                           np.int64)).to(self.device)
+        return _MeshRound(parts, compiled, kk, min(k, self.S * kk), self.S,
+                          perm, widths, [s for s in seg_row if s is not None])
+
+    def _run_mesh_round(self, mr: _MeshRound):
+        """Launch every device's part, then gather the parts' per-slot
+        results onto the first device, merge them there in shard order
+        (``_pack``, as on one device) and copy the packed result back once:
+        (the packed result, each slot's match mask on its own device or
+        None)."""
+        S, kk, nd, dev0 = mr.S, mr.kk, self.n_devices, self.device
+        # every device's part is in flight before anything leaves one
+        launched = [(d, self._slot_results(rd)) for d, rd in mr.parts]
+        sort = bool(mr.compiled.sort)
+        ids = torch.zeros((S, kk), dtype=torch.int32, device=dev0)
+        totals = torch.zeros(S, dtype=torch.int64, device=dev0)
+        vals = None if sort else torch.full((S, kk), NEG_INF,
+                                            dtype=torch.float32, device=dev0)
+        aggs = [p for _name, p in mr.compiled.agg_prims]
+        counts = [torch.zeros((S, mr.widths[p]), dtype=torch.int64,
+                              device=dev0) for p in aggs]
+        masks = None
+        for d, part in launched:
+            sl = slice(d, S, nd)  # device d's slots
+            ids[sl].copy_(part.ids, non_blocking=True)
+            totals[sl].copy_(part.totals, non_blocking=True)
+            if vals is not None:
+                vals[sl].copy_(part.vals, non_blocking=True)
+            for c, pc in zip(counts, part.counts):
+                c[sl, : pc.shape[1]].copy_(pc, non_blocking=True)
+            if part.mask is not None:
+                masks = masks or [None] * S
+                for j, s in enumerate(self.mesh.slots_of(d)):
+                    masks[s] = part.mask[j]
+        return _pack(sort, _Part(vals, ids, totals, counts, None), mr.perm,
+                     kk, mr.kg).cpu().numpy(), masks
 
     @staticmethod
     def _decode_round(out: np.ndarray, rd: _Round, lut_shard, lut_ord,
@@ -614,9 +768,12 @@ class MeshSearchExecutor:
         # every round compiles before any round launches
         seg_rows = [[e[2] if e is not None else None for e in row]
                     for row in rows]
-        compiled = [self._compile(query, mappings, analysis, seg_row,
-                                  agg_specs, want_mask, sort_spec)
-                    for seg_row in seg_rows]
+
+        def compile_row(seg_row):
+            return self._compile(query, mappings, analysis, seg_row,
+                                 agg_specs, want_mask, sort_spec)
+
+        compiled = [compile_row(seg_row) for seg_row in seg_rows]
         key = memo_key() if memo_key is not None and global_stats is None \
             else None
         plans = []
@@ -640,7 +797,14 @@ class MeshSearchExecutor:
         for row, seg_row, prep_key, rd, compiled in plans:
             lut_shard = [e[0] if e is not None else -1 for e in row]
             lut_ord = [e[1] if e is not None else 0 for e in row]
-            if rd is None:
+            if rd is None and self.n_devices > 1:
+                rd = self._build_mesh_round(
+                    compiled, functools.partial(compile_row, seg_row),
+                    mappings, analysis, seg_row, lut_shard, k, global_stats)
+                if prep_key is not None:
+                    kernels.record("executor_prep_miss")
+                    self._remember(prep_key, rd)
+            elif rd is None:
                 rd = self._build_round(compiled, mappings, analysis, seg_row,
                                        lut_shard, k, global_stats)
                 if prep_key is not None:
@@ -650,14 +814,16 @@ class MeshSearchExecutor:
                 kernels.record("executor_prep_hit")
             # in flight from the launch to the packed result's copy back
             # (the reference's memo and fresh dispatch points alike)
-            with REGISTRY.timed("mesh_dsl", static_sig(
-                    S=len(seg_row), D=_round_docs(seg_row), k=rd.kk)):
-                out, mask = self._run_round(rd)
+            with REGISTRY.timed("mesh_dsl", self._sig(
+                    S=len(seg_row), D=_round_docs(seg_row), k=rd.kk),
+                    devices=self._devices_label):
+                out, mask = (self._run_round(rd) if self.n_devices == 1
+                             else self._run_mesh_round(rd))
             totals += self._decode_round(out, rd, lut_shard, lut_ord, merged,
                                          seg_row, agg_rounds)
             if mask is not None:
                 mask_rounds.extend(
-                    (lut_shard[si], lut_ord[si], seg, mask[si, : seg.max_docs])
+                    (lut_shard[si], lut_ord[si], seg, mask[si][: seg.max_docs])
                     for si, seg in enumerate(seg_row) if seg is not None)
         if sort_spec:
             return merged, totals, agg_rounds, mask_rounds
@@ -675,10 +841,23 @@ class MeshSearchExecutor:
         out.sort(key=lambda t: (-t[0], t[1], t[3]))
         return out[:k], totals, agg_rounds, mask_rounds
 
-    def _remember(self, prep_key, rd: _Round) -> None:
-        """Keep a prepared round, dropping the least recent past the
-        cap."""
-        rd.token = self.residency.track(rd.nbytes, label="executor.prep")
+    def _sig(self, **dims) -> str:
+        """A round's dispatch key: its shape class, and the device count
+        when the mesh spans several."""
+        if self.n_devices > 1:
+            dims["devices"] = self.n_devices
+        return static_sig(**dims)
+
+    def _remember(self, prep_key, rd) -> None:
+        """Keep a prepared round (a ``_Round``, or a ``_MeshRound`` whose
+        word buffers are charged on each of its devices), dropping the
+        least recent past the cap."""
+        if isinstance(rd, _MeshRound):
+            rd.token = _Charges([
+                self.residencies[d].track(part.nbytes, label="executor.prep")
+                for d, part in rd.parts])
+        else:
+            rd.token = self.residency.track(rd.nbytes, label="executor.prep")
         dropped = []
         with self._prep_lock:
             old = self._prep.pop(prep_key, None)
@@ -716,9 +895,9 @@ class MeshSearchExecutor:
     def _search_round(self, field, query_terms, row, k):
         """One segment round of ``search_terms``: per slot, each query's
         postings BM25 with that segment's own idf (``_chunk_table``), the
-        live mask, the hit count and a stable top-k; the slots merged in
-        shard order. Queries run in chunks that bound the [S, chunk, D]
-        score block; the round's packed result comes back in one copy."""
+        live mask, the hit count and a stable top-k, each device's slots
+        on that device (``_terms_part``); the slots merged in shard order
+        on the first device, and the packed result back in one copy."""
         seg_row = [e[2] if e is not None else None for e in row]
         lut_shard = np.asarray([e[0] if e is not None else -1 for e in row],
                                np.int32)
@@ -729,10 +908,6 @@ class MeshSearchExecutor:
                             for s in seg_row))
         kk = min(k, D)
         kg = min(k, S * kk)  # the round keeps up to k over all its slots
-        data = _SlotData(self, seg_row)
-        post, _ = PostingsPrim(field).build(seg_row, None, D, data)
-        doc_ids, tfnorm = post[0](), post[1]()
-        live = LivePrim().build(seg_row, None, D, data)[0][0]()
         # per-slot chunk tables: the vocabulary and idf are the segment's
         tables = [[_chunk_table(seg, field, terms) for terms in query_terms]
                   for seg in seg_row]
@@ -746,44 +921,80 @@ class MeshSearchExecutor:
                 lens[si, qi, : len(ln)] = ln
                 ws[si, qi, : len(w)] = w
         order = np.asarray(_shard_order(lut_shard), np.int64)
-        perm = torch.from_numpy(order).to(self.device)
-        chunk = max(1, _ROUND_ELEMS // (S * D))
+        nd, dev0 = self.n_devices, self.device
+        perm = torch.from_numpy(order).to(dev0)
         # in flight from the first launch to the copy back
-        with REGISTRY.timed("mesh_bm25", static_sig(
-                S=S, Q=pow2_bucket(Qr, 1), T=pow2_bucket(T, 1), D=D, k=kk)):
-            outs = []
-            for q0 in range(0, Qr, chunk):
-                n = min(q0 + chunk, Qr) - q0
-                G = S * n
-                scores = bm25_score_batch(
-                    doc_ids, tfnorm, starts[:, q0: q0 + n].reshape(G, T),
-                    lens[:, q0: q0 + n].reshape(G, T),
-                    ws[:, q0: q0 + n].reshape(G, T), D=D,
-                    slot_of=np.repeat(np.arange(S, dtype=np.int32), n))
-                masked = torch.where(live.unsqueeze(1), scores.view(S, n, D),
-                                     NEG_INF)
-                total = (masked > 0).sum((0, 2))
-                sv, si = topk_stable(masked.view(G, D), kk)
-                # each slot's top kk, the slots in shard order, then one
-                # stable merge per query
-                sv = sv.reshape(S, n, kk).index_select(0, perm)
-                si = si.reshape(S, n, kk).index_select(0, perm)
-                flat_v = sv.permute(1, 0, 2).reshape(n, S * kk)
-                flat_i = si.permute(1, 0, 2).reshape(n, S * kk)
-                gv, gpos = torch.sort(flat_v, dim=1, descending=True,
-                                      stable=True)
-                gv, gpos = gv[:, :kg], gpos[:, :kg]
-                outs.append(torch.cat([
-                    gv.contiguous().view(torch.int32),
-                    (gpos // kk).to(torch.int32),
-                    torch.gather(flat_i, 1, gpos).to(torch.int32),
-                    total.view(n, 1).view(torch.int32)], dim=1))
-            out = torch.cat(outs).cpu().numpy()  # one copy back
+        with REGISTRY.timed("mesh_bm25", self._sig(
+                S=S, Q=pow2_bucket(Qr, 1), T=pow2_bucket(T, 1), D=D, k=kk),
+                devices=self._devices_label):
+            # every device's part is in flight before anything leaves one
+            parts = []
+            for d in range(nd):
+                slots = self.mesh.slots_of(d)
+                sub = [seg_row[s] for s in slots]
+                if nd > 1 and all(seg is None for seg in sub):
+                    continue
+                parts.append((d, self._terms_part(
+                    field, sub, d, starts[slots], lens[slots], ws[slots], D,
+                    kk)))
+            if nd == 1:
+                sv, si, total = parts[0][1]
+            else:
+                sv = torch.full((S, Qr, kk), NEG_INF, dtype=torch.float32,
+                                device=dev0)
+                si = torch.zeros((S, Qr, kk), dtype=torch.int64, device=dev0)
+                total = torch.zeros(Qr, dtype=torch.int64, device=dev0)
+                for d, (psv, psi, ptot) in parts:
+                    sv[d::nd].copy_(psv, non_blocking=True)
+                    si[d::nd].copy_(psi, non_blocking=True)
+                    total += ptot.to(dev0, non_blocking=True)
+            # each slot's top kk, the slots in shard order, then one
+            # stable merge per query
+            sv = sv.index_select(0, perm)
+            si = si.index_select(0, perm)
+            flat_v = sv.permute(1, 0, 2).reshape(Qr, S * kk)
+            flat_i = si.permute(1, 0, 2).reshape(Qr, S * kk)
+            gv, gpos = torch.sort(flat_v, dim=1, descending=True, stable=True)
+            gv, gpos = gv[:, :kg], gpos[:, :kg]
+            out = torch.cat([
+                gv.contiguous().view(torch.int32),
+                (gpos // kk).to(torch.int32),
+                torch.gather(flat_i, 1, gpos).to(torch.int32),
+                total.view(Qr, 1).view(torch.int32)],
+                dim=1).cpu().numpy()  # one copy back
         kernels.record("bm25_scatter", Qr)
         slot = order[out[:, kg: 2 * kg]]
         return (out[:, :kg].view(np.float32), lut_shard[slot],
                 out[:, 2 * kg: 3 * kg], lut_ord[slot],
                 out[:, 3 * kg:].view(np.int64)[:, 0])
+
+    def _terms_part(self, field, sub, d, starts, lens, ws, D, kk):
+        """Mesh device ``d``'s slots of a ``search_terms`` round, on the
+        device: each slot's top kk of every query ([S_d, Q, kk] values
+        and ids) and the queries' hit counts over its slots. Queries run
+        in chunks that bound the [S_d, chunk, D] score block."""
+        Sd, Qr, T = starts.shape
+        data = _SlotData(self, sub, d)
+        post, _ = PostingsPrim(field).build(sub, None, D, data)
+        doc_ids, tfnorm = post[0](), post[1]()
+        live = LivePrim().build(sub, None, D, data)[0][0]()
+        chunk = max(1, _ROUND_ELEMS // (Sd * D))
+        svs, sis, tots = [], [], []
+        for q0 in range(0, Qr, chunk):
+            n = min(q0 + chunk, Qr) - q0
+            G = Sd * n
+            scores = bm25_score_batch(
+                doc_ids, tfnorm, starts[:, q0: q0 + n].reshape(G, T),
+                lens[:, q0: q0 + n].reshape(G, T),
+                ws[:, q0: q0 + n].reshape(G, T), D=D,
+                slot_of=np.repeat(np.arange(Sd, dtype=np.int32), n))
+            masked = torch.where(live.unsqueeze(1), scores.view(Sd, n, D),
+                                 NEG_INF)
+            tots.append((masked > 0).sum((0, 2)))
+            sv, si = topk_stable(masked.view(G, D), kk)
+            svs.append(sv.reshape(Sd, n, kk))
+            sis.append(si.reshape(Sd, n, kk))
+        return torch.cat(svs, 1), torch.cat(sis, 1), torch.cat(tots)
 
     # -- kNN -------------------------------------------------------------------
 
@@ -791,17 +1002,16 @@ class MeshSearchExecutor:
                    metric: str = "cosine"):
         """queries f32[Q, dims] → (vals, shard, local, seg_ord [Q, k],
         totals=None), merged over every segment round."""
-        q = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(
-            self.device)
+        host = np.ascontiguousarray(queries, np.float32)
 
-        def topk(vecs, live):
+        def topk(q, vecs, live):
             kp = min(4 * k, vecs.shape[0])
             vals, idx = knn_topk(q, vecs, live, k=kp, metric=metric)
             vals, idx = exact_rescore_topk(q, vecs, vals, idx, metric=metric)
             return vals[:, :k], idx[:, :k]
 
-        return self._search_vector_rounds(field, q.shape[0], k, topk,
-                                          "mesh_knn")
+        return self._search_vector_rounds(field, host, host.shape[0], k,
+                                          topk, "mesh_knn")
 
     def search_maxsim(self, field: str, tokens: np.ndarray, k: int = 10,
                       metric: str = "cosine"):
@@ -809,10 +1019,9 @@ class MeshSearchExecutor:
         local, seg_ord [Q, k], totals=None); a doc's score is the max
         over the request's tokens."""
         nq, T, dims = tokens.shape
-        flat = torch.from_numpy(np.ascontiguousarray(
-            tokens, np.float32).reshape(nq * T, dims)).to(self.device)
+        host = np.ascontiguousarray(tokens, np.float32).reshape(nq * T, dims)
 
-        def topk(vecs, live):
+        def topk(flat, vecs, live):
             kp = min(4 * k, vecs.shape[0])
             vals, idx = knn_topk(flat, vecs, live, k=kp, metric=metric)
             vals, idx = exact_rescore_topk(flat, vecs, vals, idx,
@@ -822,14 +1031,26 @@ class MeshSearchExecutor:
                 k=min(k, T * kp))
             return vals, idx
 
-        return self._search_vector_rounds(field, nq, k, topk, "mesh_maxsim")
+        return self._search_vector_rounds(field, host, nq, k, topk,
+                                          "mesh_maxsim")
 
-    def _search_vector_rounds(self, field: str, nq: int, k: int, topk,
-                              program: str):
-        """Per round: ``topk(vecs, live)`` on every slot's own slab (B2
-        and the re-rank), the slots stacked in shard order, one sorted
-        merge per request, one copy back; rounds merge on the host. Each
-        round is in flight, as ``program``, up to its copy back."""
+    def _search_vector_rounds(self, field: str, host: np.ndarray, nq: int,
+                              k: int, topk, program: str):
+        """Per round: ``topk(queries, vecs, live)`` on every slot's own
+        slab (B2 and the re-rank), on the slot's device with the queries
+        copied there once a call; every device's slots launched before
+        any result leaves its device, then stacked on the first device in
+        shard order, one sorted merge per request, one copy back; rounds
+        merge on the host. Each round is in flight, as ``program``, up to
+        its copy back."""
+        nd, dev0 = self.n_devices, self.device
+        qdev: Dict[int, torch.Tensor] = {}
+
+        def queries_on(d):
+            if d not in qdev:
+                qdev[d] = torch.from_numpy(host).to(self.devices[d])
+            return qdev[d]
+
         merged = None
         for row in self._rounds_for(self.shards):
             lut_shard = [e[0] if e is not None else -1 for e in row]
@@ -838,22 +1059,42 @@ class MeshSearchExecutor:
             segs = [e[2] if e is not None else None for e in row]
             vcs = [s.vectors.get(field) for s in segs if s is not None]
             dims = next((vc.dims for vc in vcs if vc is not None), 0)
-            with REGISTRY.timed(program, static_sig(
+            with REGISTRY.timed(program, self._sig(
                     S=len(row), Q=pow2_bucket(nq, 1), D=_round_docs(segs),
-                    dims=dims, k=k)):
-                vals = torch.full((len(row), nq, k), NEG_INF,
-                                  dtype=torch.float32, device=self.device)
-                ids = torch.zeros((len(row), nq, k), dtype=torch.int32,
-                                  device=self.device)
-                for pos, s in enumerate(order):
-                    seg = row[s][2] if row[s] is not None else None
-                    vc = seg.vectors.get(field) if seg is not None else None
-                    if vc is None:
-                        continue
-                    kernels.record("knn_fused_topk")
-                    v, i = topk(vc.vecs, seg.live & vc.exists)
-                    vals[pos, :, : v.shape[1]] = v
-                    ids[pos, :, : v.shape[1]] = i
+                    dims=dims, k=k), devices=self._devices_label):
+                # per device, its slots in shard order: (position, slot)
+                staged = []
+                for d in range(nd):
+                    mine = [(pos, s) for pos, s in enumerate(order)
+                            if s % nd == d]
+                    dev = self.devices[d]
+                    vals = torch.full((len(mine), nq, k), NEG_INF,
+                                      dtype=torch.float32, device=dev)
+                    ids = torch.zeros((len(mine), nq, k), dtype=torch.int32,
+                                      device=dev)
+                    for j, (_pos, s) in enumerate(mine):
+                        seg = row[s][2] if row[s] is not None else None
+                        vc = seg.vectors.get(field) if seg is not None \
+                            else None
+                        if vc is None:
+                            continue
+                        kernels.record("knn_fused_topk")
+                        v, i = topk(queries_on(d), vc.vecs,
+                                    seg.live & vc.exists)
+                        vals[j, :, : v.shape[1]] = v
+                        ids[j, :, : v.shape[1]] = i
+                    staged.append((mine, vals, ids))
+                if nd == 1:
+                    vals, ids = staged[0][1], staged[0][2]
+                else:
+                    vals = torch.full((len(row), nq, k), NEG_INF,
+                                      dtype=torch.float32, device=dev0)
+                    ids = torch.zeros((len(row), nq, k), dtype=torch.int32,
+                                      device=dev0)
+                    for mine, dv, di in staged:
+                        for j, (pos, _s) in enumerate(mine):
+                            vals[pos].copy_(dv[j], non_blocking=True)
+                            ids[pos].copy_(di[j], non_blocking=True)
                 flat_v = vals.permute(1, 0, 2).reshape(nq, -1)
                 flat_i = ids.permute(1, 0, 2).reshape(nq, -1)
                 gv, gpos = torch.sort(flat_v, dim=1, descending=True,
@@ -869,6 +1110,48 @@ class MeshSearchExecutor:
                    np.asarray(lut_ord, np.int32)[slot], None)
             merged = res if merged is None else _merge_rounds(merged, res, k)
         return merged
+
+    # -- the cross-device sum of integer lanes -----------------------------
+
+    def psum_partials(self, partials: np.ndarray) -> np.ndarray:
+        """int64[S, L] per-slot lanes → their exact int64 sum [L]: each
+        device sums its slots' rows on itself (rows d, d + n, ...), the
+        sums go to the first device, add there, and come back in one
+        copy (the reference's ``psum`` over its mesh). Raises on any
+        failure."""
+        parts = np.ascontiguousarray(partials, np.int64)
+        S, L = parts.shape
+        nd, dev0 = self.n_devices, self.device
+        with REGISTRY.timed("mesh_psum", self._sig(S=S, L=pow2_bucket(L, 1)),
+                            devices=self._devices_label):
+            sums = [torch.from_numpy(parts[d::nd]).to(self.devices[d]).sum(0)
+                    for d in range(nd)]
+            acc = torch.zeros(L, dtype=torch.int64, device=dev0)
+            for t in sums:
+                acc += t.to(dev0, non_blocking=True)
+            out = acc.cpu().numpy()
+        kernels.record("mesh_psum")
+        return out
+
+
+def _pack(sort, p: _Part, perm, kk: int, kg: int) -> torch.Tensor:
+    """A round's packed result from its slots' results: a sorted round's
+    ids and counts as they are; else the round's top kg over all its
+    slots (a round of S slots can hold up to S * kk of a deep page's
+    candidates), merged in shard order (``perm``) by one stable sort,
+    with each one's slot, then the total; the terms aggs' counts last."""
+    counts = [c.reshape(-1).view(torch.int32) for c in p.counts]
+    if sort:
+        return torch.cat([p.ids.reshape(-1), p.totals.view(torch.int32)]
+                         + counts)
+    total = p.totals.sum().reshape(1).view(torch.int32)
+    pv = p.vals.index_select(0, perm).reshape(-1)
+    pi = p.ids.index_select(0, perm).reshape(-1)
+    gv, gpos = torch.sort(pv, descending=True, stable=True)
+    gv, gpos = gv[:kg], gpos[:kg]
+    return torch.cat([gv.contiguous().view(torch.int32),
+                      perm[gpos // kk].to(torch.int32), pi[gpos], total]
+                     + counts)
 
 
 def _record_tgroup_kernels(compiled) -> None:

@@ -20,10 +20,15 @@ card (``agg_terms_device``); any other agg tree runs the host-side
 collectors over the round's match mask, which stays on the card
 (``agg_mask``). The partials reach ``reduce_aggs`` in (shard, segment)
 order, the host loop's, so a response is byte-identical to the host
-loop's. One card has no exchange between devices, so the reference's
-cross-shard ``psum`` merge of the integer lanes waits for a mesh of
-several cards (ROADMAP A4). A failure on the way raises: nothing falls
-back to the host loop on the card.
+loop's. On a mesh of several devices the integer lanes of the partials
+merge across shards on the devices first (``_psum_merge_partials``, the
+reference's ``mesh_psum``): terms doc counts and ``sum_other_doc_count``,
+``value_count``, and the doc counts of ``avg``, ``stats`` and
+``extended_stats`` sum exactly in int64 (``executor.psum_partials``),
+while their float lanes keep the host's f64 fold in partial order, so
+the response is byte-identical to the host reduce's; a mesh of one
+device reduces on the host alone, as before. A failure on the way
+raises: nothing falls back to the host loop on the card.
 
 Field sort: each slot's round selects its segment's exact top k by the
 sort keys on the card (``executor.search_dsl`` with ``sort_spec``), and
@@ -246,18 +251,20 @@ def _try_mesh_search(svc, searchers, body: dict, global_stats=None):
     if aggs:
         if device_aggs:
             kernels.record("agg_terms_device")
-            partials = _agg_partials(aggs, agg_rounds)
+            partials, shards = _agg_partials(aggs, agg_rounds)
         else:
             kernels.record("agg_mask")
             # a join in a filter agg prepares over its shard's segments
+            rounds = sorted(mask_rounds, key=lambda r: (r[0], r[1]))
             partials = [
                 run_aggs(aggs, SegmentContext(seg, svc.mappings,
                                               svc.analysis,
                                               index_name=svc.name,
                                               all_segments=shard_segs[sh]),
                          mask)
-                for sh, _seg_ord, seg, mask in sorted(
-                    mask_rounds, key=lambda r: (r[0], r[1]))]
+                for sh, _seg_ord, seg, mask in rounds]
+            shards = [r[0] for r in rounds]
+        partials = _psum_merge_partials(executor, aggs, partials, shards)
         response["aggregations"] = reduce_aggs(aggs, partials)
     return response
 
@@ -290,7 +297,8 @@ def _agg_partials(aggs, agg_rounds):
     """The rounds' count vectors → per-(shard, segment) partials in the
     shape ``TermsAggregator.collect`` makes (the same shard_size and
     min_doc_count selection), sorted by (shard, segment), the host
-    loop's order."""
+    loop's order. Returns (partials, the shard of each): the shards feed
+    the cross-device merge."""
     by_seg: Dict[tuple, dict] = {}
     for agg in aggs:
         for sh, seg_ord, seg, counts in agg_rounds.get(agg.name, []):
@@ -298,5 +306,119 @@ def _agg_partials(aggs, agg_rounds):
             keys = inv.terms if inv is not None else []
             by_seg.setdefault((sh, seg_ord), {})[agg.name] = \
                 agg.partial_from_counts(counts[: len(keys)], keys)
-    return [p for _, p in sorted(by_seg.items())]
+    items = sorted(by_seg.items())
+    return [p for _, p in items], [sh for (sh, _o), _ in items]
+
+
+def _psum_merge_partials(executor, aggs, partial_dicts, partial_shards):
+    """The cross-shard merge of the integer lanes on a mesh of several
+    devices (the reference's ``mesh_psum`` leg): for each agg whose
+    partials span two shards or more and whose type has an exact device
+    form, its per-shard integer lanes stack into one ``[S, L]`` array
+    (shard i on slot i % S, so on device i % n), sum across the devices
+    in int64 (``executor.psum_partials``) and replace that agg's
+    partials with one pre-merged partial. Float lanes are folded on the
+    host in partial order by ``reduce``'s own f64 sum (Python's
+    ``sum()``, compensated since 3.12; the reference's ``+=`` loop can
+    differ from its own reduce there in the last bits, ROADMAP C35), so
+    the merged partial reduces to the very response the partials would.
+    Within a shard (across its segments) the fold stays on the host. An
+    agg the merge cannot express (a terms agg whose buckets carry
+    sub-aggs, any other type) keeps its partials; ``reduce_aggs`` takes
+    the mix. The lanes are int64, so no total is too large for the device
+    sum (the reference's int32 lanes decline past 2^31 to this same
+    answer). A failure raises; there is no quiet route to the host fold.
+    One device: the partials as they are."""
+    if executor is None or getattr(executor, "n_devices", 1) < 2:
+        return partial_dicts
+    merged: Dict[str, Any] = {}
+    for agg in aggs:
+        rows = [(sh, p[agg.name])
+                for sh, p in zip(partial_shards, partial_dicts)
+                if p is not None and agg.name in p]
+        if len({sh for sh, _ in rows}) < 2:
+            continue  # nothing crosses a shard boundary
+        m = _device_merge_one(executor, agg, rows)
+        if m is not None:
+            merged[agg.name] = m
+    if not merged:
+        return partial_dicts
+    out = [{k: v for k, v in p.items() if k not in merged}
+           for p in partial_dicts if p is not None]
+    out = [p for p in out if p]
+    out.append(merged)
+    return out
+
+
+def _psum_int_lanes(executor, per_shard: Dict[int, np.ndarray]
+                    ) -> np.ndarray:
+    """{shard: int64[L]} → the exact int64[L] sum over the shards,
+    summed across the mesh's devices: each shard's lanes on its slot
+    (shard i → slot i % S; shards past the slots pre-fold onto theirs,
+    integer adds, exact)."""
+    S = executor.S
+    L = next(iter(per_shard.values())).shape[0]
+    arr = np.zeros((S, L), np.int64)
+    for sh, v in per_shard.items():
+        arr[sh % S] += v
+    return executor.psum_partials(arr)
+
+
+def _device_merge_one(executor, agg, rows):
+    """One agg's cross-shard merge → a single pre-merged partial (what
+    ``reduce`` makes of the rows), or None when the agg type has no
+    exact device form."""
+    from elasticsearch_tpu_torch.search.aggregations.metrics import (
+        AvgAggregator, ExtendedStatsAggregator, StatsAggregator,
+        ValueCountAggregator)
+
+    if type(agg) is TermsAggregator:
+        ps = [p for _, p in rows]
+        if any("subs" in b for p in ps for b in p["buckets"].values()):
+            return None  # sub-agg partials must reach reduce_subs intact
+        keys = sorted({k for p in ps for k in p["buckets"]}, key=repr)
+        idx = {k: i for i, k in enumerate(keys)}
+        per_shard: Dict[int, np.ndarray] = {}
+        for sh, p in rows:
+            v = per_shard.setdefault(sh, np.zeros(len(keys) + 1, np.int64))
+            for k2, b in p["buckets"].items():
+                v[idx[k2]] += int(b["doc_count"])
+            v[len(keys)] += int(p.get("sum_other_doc_count", 0))
+        tot = _psum_int_lanes(executor, per_shard)
+        return {
+            "buckets": {k: {"doc_count": int(tot[i])}
+                        for i, k in enumerate(keys)},
+            "sum_other_doc_count": int(tot[len(keys)]),
+            "order": rows[0][1].get("order", {"_count": "desc"}),
+            "doc_count_error_upper_bound": 0,
+        }
+    if type(agg) is ValueCountAggregator:
+        per_shard = {}
+        for sh, p in rows:
+            v = per_shard.setdefault(sh, np.zeros(1, np.int64))
+            v[0] += int(p)
+        return int(_psum_int_lanes(executor, per_shard)[0])
+    if type(agg) is AvgAggregator:
+        per_shard = {}
+        for sh, p in rows:
+            v = per_shard.setdefault(sh, np.zeros(1, np.int64))
+            v[0] += int(p[1])
+        # reduce()'s own f64 fold, in partial order: Python's sum()
+        s_host = sum(p[0] for _, p in rows)
+        return (s_host, int(_psum_int_lanes(executor, per_shard)[0]))
+    if type(agg) in (StatsAggregator, ExtendedStatsAggregator):
+        per_shard = {}
+        for sh, p in rows:
+            v = per_shard.setdefault(sh, np.zeros(1, np.int64))
+            v[0] += int(p["count"])
+        mns = [p["min"] for _, p in rows if p["min"] is not None]
+        mxs = [p["max"] for _, p in rows if p["max"] is not None]
+        tot = _psum_int_lanes(executor, per_shard)
+        out = {"count": int(tot[0]), "sum": sum(p["sum"] for _, p in rows),
+               "min": min(mns) if mns else None,
+               "max": max(mxs) if mxs else None}
+        if type(agg) is ExtendedStatsAggregator:
+            out["sum_sq"] = sum(p["sum_sq"] for _, p in rows)
+        return out
+    return None
 

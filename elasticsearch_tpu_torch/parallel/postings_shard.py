@@ -21,7 +21,9 @@ policy cannot help: one inverted field whose postings alone pass
   each range's slice; one ``bm25_score_batch`` over the slot-stacked
   arrays gives the ``[S, D]`` partials.
 
-The reference splits over its devices; the port's slots share one card.
+The reference splits over its devices; the port's slots share the
+field's own device (a node over several devices places each segment on
+its shard's; the split across cards is queued, ROADMAP A).
 ``build_split`` with no ``n_devices`` takes the card count, so on one
 card (or on the CPU) it declines as the reference does with one device,
 and the host loop scores the field from its unsplit postings. An

@@ -10,10 +10,11 @@
 - :mod:`census` — each index's program census, persisted beside the
   IVF/PQ blobs and replayed by the pre-warm service.
 
-Each ``Node`` owns one breaker service and one residency registry, bound
-to its device, and passes them down.
+Each ``Node`` owns one breaker service and one residency registry per
+device of its device list (a ``ResidencySet``), and passes them down:
+a shard's copies and segments live on its device's registry.
 """
 from elasticsearch_tpu_torch.resources.breakers import (  # noqa: F401
     CircuitBreaker, CircuitBreakerService, hbm_capacity, parse_limit)
 from elasticsearch_tpu_torch.resources.residency import (  # noqa: F401
-    PinnedToken, Residency, ResidentArray)
+    PinnedToken, Residency, ResidencySet, ResidentArray)

@@ -22,6 +22,11 @@ copy (doc-value columns, vector slabs, dense impact blocks) through
 resources/residency.py, which evicts LRU copies under pressure before
 letting the breaker trip.
 
+A node over several devices keeps one service: every device's
+residency registry charges it, so its totals count all of them, and
+each registry bounds its own device with a budget of its own
+(``resources/residency.py``).
+
 Thread safety: one service-level RLock orders every child/parent check —
 searches and refreshes charge concurrently under the threading REST
 server.

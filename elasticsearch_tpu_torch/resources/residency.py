@@ -11,7 +11,9 @@ rehydrates it on the next touch (a ``tpu.rehydrate`` span on the node's
 tracer and the request's ``rehydrate`` profile phase, so running over
 the budget shows, never silently).
 
-One registry per ``Node``, bound to its device and breakers:
+One registry per mesh device of a ``Node`` (a :class:`ResidencySet`
+holds them), each bound to its device, its own byte budget and the
+node's breakers:
 
 - :meth:`Residency.put_array` — an EVICTABLE device copy of a host array
   (a :class:`ResidentArray`: ``get()`` returns the device tensor,
@@ -40,6 +42,15 @@ the reference accepts too; a later side stream must ``record_stream``
 what it reads. PyTorch's caching allocator keeps a freed block
 reserved: ``memory_allocated`` falls on eviction, ``memory_reserved``
 does not. The breakers account logically, as the reference's do.
+
+Several devices: each registry's LRU evicts and rehydrates only its own
+device's handles, and its budget (the device's memory, split evenly
+among the entries of the node's device list that name the device) caps
+the bytes its handles and pinned charges hold; a reservation that
+overruns it evicts this registry's handles only and then raises. The
+breakers stay the node's, shared by every registry, so their totals
+count every device. A request denied on one device evicts nothing on
+another.
 
 Fault point ``resources.reserve`` (``utils/faults.py``) fires before
 every breaker reservation.
@@ -214,13 +225,17 @@ class PinnedToken:
 
 
 class Residency:
-    """A node's registry of device-resident tensors on its device."""
+    """A node's registry of device-resident tensors on one device.
+    ``budget``: the bytes its handles and pinned charges may hold (None:
+    the breakers alone bound them)."""
 
     def __init__(self, device: torch.device,
-                 breakers: Optional[CircuitBreakerService] = None):
+                 breakers: Optional[CircuitBreakerService] = None,
+                 budget: Optional[int] = None):
         self.device = torch.device(device)
         self.breakers = breakers if breakers is not None \
             else CircuitBreakerService()
+        self.budget = budget
         # the owning Node's ``<data>/_ivf``: where its segments store the
         # IVF/PQ blobs they build (index/ivf_cache.py); None keeps them
         # in memory
@@ -242,6 +257,20 @@ class Residency:
     def set_tracer(self, tracer) -> None:
         """The node's tracer: each rehydration files a span there."""
         self._tracer = tracer
+
+    # -- the device list's view of one registry ----------------------------
+
+    @property
+    def members(self) -> List["Residency"]:
+        return [self]
+
+    @property
+    def devices(self):
+        return (self.device,)
+
+    def for_shard(self, shard_id: int, n_shards: int) -> "Residency":
+        """The registry a shard's copies and segments live on: this one."""
+        return self
 
     # -- always-resident placement --------------------------------------------
 
@@ -331,13 +360,28 @@ class Residency:
         raises the ES-shaped CircuitBreakingException when it cannot."""
         FAULTS.check("resources.reserve", tier=tier, label=label, nbytes=n)
         br = self.breakers.breaker(tier)
-        if br.reserve(n, count_trip=False):
+        if self._fits(n) and br.reserve(n, count_trip=False):
             return
         for victim in self._victims(exclude):
             victim.evict()
-            if br.reserve(n, count_trip=False):
+            if self._fits(n) and br.reserve(n, count_trip=False):
                 return
+        if not self._fits(n):
+            held = self._held()
+            raise CircuitBreakingException(
+                f"[{tier}] Data too large, data for [{label}] would be "
+                f"[{held + n}] bytes on [{self.device}], which is larger "
+                f"than the device's budget of [{self.budget}]",
+                bytes_wanted=held + n, bytes_limit=int(self.budget))
         br.break_or_reserve(n, label)  # counts the trip and raises
+
+    def _held(self) -> int:
+        with self._lock:
+            return sum(t["resident_bytes"] for t in self._tiers.values()) \
+                + self._pinned_bytes
+
+    def _fits(self, n: int) -> bool:
+        return self.budget is None or self._held() + n <= self.budget
 
     def _victims(self, exclude: Optional[ResidentArray]) -> List[ResidentArray]:
         with self._lock:
@@ -430,3 +474,97 @@ class Residency:
                 "device_put": {"placements": self._placements,
                                "bytes_total": self._placed_bytes_total},
             }
+
+
+def device_budget(device: torch.device, share: int,
+                  breakers: CircuitBreakerService) -> int:
+    """One registry's budget: its device's memory (a card's total, the
+    CPU's the breakers' capacity) over the ``share`` entries of the
+    device list that name that device."""
+    if device.type == "cuda":
+        total = int(torch.cuda.get_device_properties(device).total_memory)
+    else:
+        total = int(breakers.capacity)
+    return total // max(1, share)
+
+
+class ResidencySet:
+    """A node's registries, one per entry of its device list, in order,
+    sharing the node's breakers: what the node hands its indices. A
+    shard's copies and segments take ``for_shard``'s registry, the
+    reference's slot rule (shard i on mesh device i % min(shards,
+    devices)); placements of the index as a whole (the percolator's
+    segment) and ``device`` are the first registry's. ``stats()`` sums
+    the registries and, with more than one, lists each."""
+
+    def __init__(self, devices, breakers: CircuitBreakerService):
+        devs = [torch.device(d) for d in devices]
+        self.breakers = breakers
+        self._members = [
+            Residency(d, breakers,
+                      budget=device_budget(d, devs.count(d), breakers))
+            for d in devs]
+        self._blob_dir: Optional[str] = None
+
+    @property
+    def members(self) -> List[Residency]:
+        return list(self._members)
+
+    @property
+    def devices(self):
+        return tuple(m.device for m in self._members)
+
+    @property
+    def device(self) -> torch.device:
+        return self._members[0].device
+
+    def for_shard(self, shard_id: int, n_shards: int) -> Residency:
+        n = min(max(1, int(n_shards)), len(self._members))
+        return self._members[int(shard_id) % n]
+
+    @property
+    def blob_dir(self) -> Optional[str]:
+        return self._blob_dir
+
+    @blob_dir.setter
+    def blob_dir(self, path: Optional[str]) -> None:
+        self._blob_dir = path
+        for m in self._members:
+            m.blob_dir = path
+
+    def set_tracer(self, tracer) -> None:
+        for m in self._members:
+            m.set_tracer(tracer)
+
+    # the index-wide placements: the first device's
+    def device_put(self, x):
+        return self._members[0].device_put(x)
+
+    def put_array(self, host, **kw):
+        return self._members[0].put_array(host, **kw)
+
+    def track(self, nbytes: int, label: str, tier: str = "fielddata",
+              reserve: bool = False) -> PinnedToken:
+        return self._members[0].track(nbytes, label, tier, reserve)
+
+    def pin(self, x, label: str, tier: str = "fielddata"):
+        return self._members[0].pin(x, label, tier)
+
+    def evict_all(self, tier: Optional[str] = None) -> int:
+        return sum(m.evict_all(tier) for m in self._members)
+
+    def stats(self) -> dict:
+        per = [m.stats() for m in self._members]
+        if len(per) == 1:
+            return per[0]
+        out = {"tiers": {t: {k: sum(p["tiers"][t][k] for p in per)
+                             for k in per[0]["tiers"][t]} for t in TIERS},
+               "pinned": {k: sum(p["pinned"][k] for p in per)
+                          for k in per[0]["pinned"]},
+               "device_put": {k: sum(p["device_put"][k] for p in per)
+                              for k in per[0]["device_put"]}}
+        out["devices"] = [
+            dict(p, device=str(m.device), budget_bytes=m.budget,
+                 resident_bytes=m._held())
+            for m, p in zip(self._members, per)]
+        return out

@@ -7,7 +7,7 @@ corrections, and the completion suggester's prefix lookup).
 
 - Candidates come from ``batched_edit_distance``: one exact int32
   Levenshtein DP over the whole packed vocabulary at once, as torch ops
-  on the index's device, one query character a step, ``torch.cummin``
+  on each segment's device, one query character a step, ``torch.cummin``
   carrying the insertion channel along each row.
 - The phrase LM's bigram counts come from the positional CSR on the card
   (``ops/positional.py::positional_device``): the (doc, position, term

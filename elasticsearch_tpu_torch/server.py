@@ -3,9 +3,11 @@
 
 Port of elasticsearch_tpu/server.py (reference: ES's
 bootstrap/Bootstrap.java and bin/elasticsearch). It builds one ``Node`` on
-``--device`` (``cuda`` unless the caller asks for ``cpu``; there is no
-fallback to the CPU), serves it over HTTP with ``rest/server.py``, prints
-``listening on http://host:port`` once the socket is bound (``--port 0``
+``--device``: ``cuda`` (every visible card, the default), ``cuda:N``, a
+comma list (``cuda:0,cuda:1``; the shards spread over them) or ``cpu``
+when the caller asks; there is no fallback to the CPU. It serves it
+over HTTP with ``rest/server.py``, prints ``listening on
+http://host:port (device ...)`` once the socket is bound (``--port 0``
 takes a free port), and on SIGTERM or SIGINT closes the node (the
 translog's last sync, the gateway's metadata) and exits 0.
 
@@ -38,8 +40,9 @@ def main(argv=None):
                     help="directory for translog durability and the "
                          "gateway (indices reopen from it at start)")
     ap.add_argument("--device", default="cuda",
-                    help="the device the node's indices live on: cuda "
-                         "(default) or cpu")
+                    help="the devices the node's shards live on: cuda "
+                         "(default: every visible card), cuda:N, a comma "
+                         "list such as cuda:0,cuda:1, or cpu")
     ap.add_argument("--coordinator", default=None,
                     help="host:port of process 0's rendezvous; makes this "
                          "process a cluster member")
@@ -81,7 +84,7 @@ def main(argv=None):
               f"transport {cluster.local.transport_address})", flush=True)
     server = RestServer(node, host=args.host, port=args.port)
     print(f"[{args.name}] listening on http://{server.host}:{server.port} "
-          f"(device {node.device})", flush=True)
+          f"(device {','.join(map(str, node.devices))})", flush=True)
 
     def _stop(*_):
         print("shutting down", flush=True)
