@@ -322,7 +322,8 @@ Phases, in order; any failure exits non-zero before the result line:
             after (d) the new master's ``/_nodes/_local/flight`` holds its
             election in the ``cluster`` ring;
 5r. watchdog the flight recorder and the stall watchdog (ROADMAP A10g),
-            run after 5p on phase 5's node, before 5q: (a) a 0.5 s spin
+            run after 5p on phase 5's node, before 5q: (a) a spin of
+            0.5 s, or four times the key's bound where that is longer
             (``torch.cuda._sleep``) queued on the stream ahead of one B1
             search in the mesh round, while another thread ticks a
             watchdog whose program bound is twice the key's p99, at
@@ -377,6 +378,28 @@ Phases, in order; any failure exits non-zero before the result line:
             rows (cosine > 0.999), each path's ms and peak memory; (d)
             20 contrastive train steps at B=64 (span, passage) pairs,
             L=128, bf16: the loss falls, steps/s;
+5v. meshes  training and the ring across devices (ROADMAP A1), after
+            5t on its config, token table, batch and long rows: (a) the
+            device list, every card when there are two or more, else the
+            one card named 8 times (the reference's dryrun_multichip(8)
+            mesh, dp 2 x tp 4), and ``training_mesh`` over it; (b) f32:
+            3 steps at B=64, L=128 under the mesh and under
+            ``training_mesh(1)`` from one ``init_params(seed=0)``, the
+            first free, each later one from the same parameters (each
+            side keeps its own AdamW moments): each loss within rtol
+            1e-4, each leaf's summed gradient within 1e-3 of the
+            one-device one's norm (plus 1e-5 of the largest leaf's), the
+            gathered parameters within rtol 1e-4 (atol 1e-5 of each
+            tensor's largest entry) where the one-device gradient stayed
+            clear of the rounding floor (under 1e-5 in some step, an
+            exact zero on both sides held), at most a tenth of the
+            entries left to the losses; (c) 5t(d)'s 20
+            bf16 steps under the mesh: the loss falls, the first within
+            rtol 1e-2 of 5t(d)'s, steps/s against 5t(d)'s, each card's
+            peak and one profiled step; (d) the ring at max_len 4,096
+            over 8 slots over the device list: cosine > 0.99999 against
+            5t(c)'s one-device ring and > 0.999 against dense, ms and
+            each card's peak;
 6. timing   each kernel, its plain twin, a library yardstick and the
             card's bound at the main path's shape (B1 and B3 also at
             their earlier shapes, B1's batched form with the count at Q =
@@ -1974,7 +1997,8 @@ def profile_path(torch, run):
     return None
 
 
-def phase_mesh(torch, np, dev, card, corpus, sift, dense_bodies):
+def phase_mesh(torch, np, dev, card, corpus, sift, dense_bodies,
+               tail_bodies):
     """Phase 5d: phase 5's corpus and phase 5b's slab split over five
     shards by document routing, one segment a shard; phase 5's queries
     and brute-force knn on the mesh path and on the host loop, and
@@ -2214,7 +2238,7 @@ def phase_mesh(torch, np, dev, card, corpus, sift, dense_bodies):
         f"twin's, hits match the exact f64 oracle")
     b1_u, b2_u = phase_multidevice(
         torch, np, dev, card, kept, node, bodies, knn_bodies,
-        (ms, got, kms, kgot), dense_bodies)
+        (ms, got, kms, kgot), dense_bodies, tail_bodies)
     del kept
     # phase 5e reads the node and the shards' arrays
     return b1 + b1_u, b2 + b2_knn + b2_u, node, shard_text
@@ -2254,8 +2278,77 @@ def _launch_owner(svc):
     return out
 
 
+def multi_split(torch, np, node, svc, tail_bodies) -> str:
+    """Phase 5u(e): the body field of the shard with the most postings
+    split over the node's registries; returns the log line."""
+    from elasticsearch_tpu_torch.monitor import kernels as counters
+    from elasticsearch_tpu_torch.parallel import postings_shard
+
+    s_big = max(range(len(svc.shards)), key=lambda s: svc.shards[s]
+                .segments[0].inverted["body"].nnz)
+    inv = svc.shards[s_big].segments[0].inverted["body"]
+    os.environ["ESTPU_DISABLE_MESH"] = "1"
+    try:
+        unsplit = [node.search("mesh5", copy.deepcopy(b))
+                   for b in tail_bodies]
+    finally:
+        del os.environ["ESTPU_DISABLE_MESH"]
+    regs = node.residency.members
+    saved, split = postings_shard.POSTINGS_SHARD_NNZ, None
+    postings_shard.POSTINGS_SHARD_NNZ = inv.nnz
+    try:
+        t = time.perf_counter()
+        split = inv.postings_split()
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t) * 1e3
+        _hold(split is not None and split.S == len(regs),
+              f"(e) the split {split} over {len(regs)} registries", "5u")
+        for r in range(split.S):
+            reg = split.registry_of(r)
+            _hold(reg is regs[r % len(regs)]
+                  and all(x.device == reg.device
+                          for x in split.slot_arrays(r)),
+                  f"(e) range {r} is not on registry {r % len(regs)}", "5u")
+        held = [sum(h.nbytes for part in split.parts if part[0] is reg
+                    for h in part[2:]) for reg in regs]
+        k0 = counters.snapshot().get("bm25_postings_sharded", 0)
+        f0 = counters.snapshot().get("mesh_fallback_total", 0)
+        worst = 0.0
+        ms = []
+        for b, u in zip(tail_bodies, unsplit):
+            t = time.perf_counter()
+            r = node.search("mesh5", copy.deepcopy(b))
+            ms.append((time.perf_counter() - t) * 1e3)
+            _hold([h["_id"] for h in r["hits"]["hits"]]
+                  == [h["_id"] for h in u["hits"]["hits"]]
+                  and r["hits"]["total"] == u["hits"]["total"],
+                  f"(e) the split's hits differ for {b}", "5u")
+            for x, y in zip(r["hits"]["hits"], u["hits"]["hits"]):
+                worst = max(worst, abs(x["_score"] - y["_score"])
+                            / max(abs(y["_score"]), 1e-30))
+        snap = counters.snapshot()
+        sharded = snap.get("bm25_postings_sharded", 0) - k0
+        _hold(sharded >= len(tail_bodies), f"(e) the split served "
+              f"{sharded} term groups", "5u")
+        _hold(worst <= 1e-5, f"(e) scores off by {worst:.3e}", "5u")
+    finally:
+        postings_shard.POSTINGS_SHARD_NNZ = saved
+        if split is not None:
+            split.close()
+        inv._pshard = None
+    return (f"[5u] (e) shard {s_big}'s body field ({inv.nnz} postings) "
+            f"split into {split.S} term ranges over the node's "
+            f"{len(regs)} registries in {build_ms:.3f} ms (bytes a "
+            f"registry {held}); {len(tail_bodies)} tail-term bodies on "
+            f"the host loop (the mesh declined "
+            f"{snap.get('mesh_fallback_total', 0) - f0} times): the "
+            f"unsplit host loop's top 10 and totals, scores within "
+            f"{worst:.3e} relative, {sharded} term groups through the "
+            f"split, p50 {np.percentile(ms, 50):.3f} ms")
+
+
 def phase_multidevice(torch, np, dev, card, arrays, one_node, bodies,
-                      knn_bodies, one_run, dense_bodies):
+                      knn_bodies, one_run, dense_bodies, tail_bodies):
     """Phase 5u: phase 5d's five shards (the same arrays) on a node over
     several mesh devices (``multi_devices``): shard i on mesh device i %
     n, each round a part on every device, the parts merged on the first.
@@ -2265,8 +2358,14 @@ def phase_multidevice(torch, np, dev, card, arrays, one_node, bodies,
     (c) an ``_msearch`` of 5e(a)'s first MULTI_MSEARCH pure-dense bodies
     (the mesh's postings round), against the one-device node's at 1e-5
     and against the node's own sequential searches (their B1 band where
-    B1 served alone); (e) per device its bytes and B1/B2 launches, and
-    the p50s against 5d's. Returns (b)'s (B1, B2) launches."""
+    B1 served alone); (e) the body field of the shard with the most
+    postings split over the node's registries (``postings_split()``'s
+    default slot count, the split threshold lowered to that field, as
+    5r(d) does): 5r(d)'s tail-term bodies (``tail_bodies``) through it,
+    the same ids and totals as the unsplit host loop and scores within
+    1e-5, ``bm25_postings_sharded`` counted, each range's tensors on the
+    registry of its slot; (f) per device its bytes and B1/B2 launches,
+    and the p50s against 5d's. Returns (b)'s (B1, B2) launches."""
     from elasticsearch_tpu_torch import Node
     from elasticsearch_tpu_torch.index.convert import segment_from_arrays
     from elasticsearch_tpu_torch.monitor import kernels as counters
@@ -2382,19 +2481,21 @@ def phase_multidevice(torch, np, dev, card, arrays, one_node, bodies,
         n_fused, rec_c = _hold_mixed(np, got_c, _sequential(
             node, "mesh5", dense_bodies), "5u(c)")
 
-        # (e) per device: bytes and launches
+        split_line = multi_split(torch, np, node, svc, tail_bodies)
+
+        # (f) per device: bytes and launches
         st = node.residency.stats()["devices"]
         seg_bytes = [0] * nd
         for s, sh in enumerate(svc.shards):
             seg_bytes[ex.mesh.device_of(s)] += sum(
                 g.memory_bytes() for g in sh.segments)
         for d in range(nd):
-            log(f"[5u] (e) mesh device {d} ({node.devices[d]}): shards "
+            log(f"[5u] (f) mesh device {d} ({node.devices[d]}): shards "
                 f"{ex.mesh.slots_of(d)}, {seg_bytes[d]} bytes of segments "
                 f"(postings, live masks), {st[d]['resident_bytes']} held by "
                 f"its registry (blocks, slabs, copies), B1 launches "
                 f"{per['B1'][d]}, B2 {per['B2'][d]}")
-        log("[5u] (e) allocated on the card(s): " + ", ".join(
+        log("[5u] (f) allocated on the card(s): " + ", ".join(
             f"{d} {torch.cuda.memory_allocated(d)} bytes"
             for d in sorted({str(d) for d in node.devices})))
         log(f"[5u] (b) {len(bodies)} match queries over {nd} mesh devices "
@@ -2411,6 +2512,7 @@ def phase_multidevice(torch, np, dev, card, arrays, one_node, bodies,
             f"equal to the one-device node's at 1e-5 and to sequential "
             f"searches ({len(dense_bodies) - n_fused} at 1e-5, {n_fused} in "
             f"B1's band, recall@10 {rec_c:.4f})")
+        log(split_line)
         log(f"[5u] phase 5u took {time.perf_counter() - t0:.1f} s")
         return b1, b2
     finally:
@@ -2912,7 +3014,7 @@ def phase_msearch(torch, np, dev, card, corpus, sift, read_node, mesh_node,
 
 TAXI_SHARDS = 4
 TAXI_DOCS = 1 << 20        # per shard: one 2^20-doc segment each
-TAXI_WINDOW_S = 0.5        # timed requests per body and route: for about
+TAXI_WINDOW_S = 0.25       # timed requests per body and route: for about
 TAXI_MIN_REPS = 10         # this many seconds, at least TAXI_MIN_REPS and
 TAXI_MAX_REPS = 200        # at most TAXI_MAX_REPS of them
 TAXI_TAIL_REPS = 100       # a p99 is printed from this many requests on
@@ -3468,7 +3570,7 @@ def multi_aggs(torch, np, dev, card, one_node, t, tarrays):
 # phase 5g: field sort and the request tail on the nyc_taxis stand-in
 # ---------------------------------------------------------------------------
 
-SORT_WINDOW_S = 0.5        # timed requests per body and route: about this
+SORT_WINDOW_S = 0.25       # timed requests per body and route: about this
 SORT_MIN_REPS = 10         # many seconds, at least SORT_MIN_REPS, at most
 SORT_PROFILED = 4          # TAXI_MAX_REPS; this many under the profiler
 AFTER_PAGES, AFTER_SIZE = 10, 100      # http_logs' search_after operations
@@ -4347,7 +4449,7 @@ def phase_writepath(torch, np, dev, card):
 FT_DOCS = N_DOCS // 2      # phase 5's first docs, with each token's position
 FT_TITLE = 10              # the title field: each doc's first 10 tokens
 FT_VARIANTS = 8            # bodies of each group, run in turn
-FT_WINDOW_S = 0.5          # timed requests per group and route: about this
+FT_WINDOW_S = 0.25         # timed requests per group and route: about this
 FT_MIN_REPS = 10           # many seconds, at least FT_MIN_REPS, at most
 FT_MAX_REPS = 400          # FT_MAX_REPS; p99 from TAXI_TAIL_REPS on
 FT_PROFILED = 4            # requests per group and route under the profiler
@@ -5134,7 +5236,7 @@ JG_PREFIX_Q = 1 << 12      # the CPU comparison's prefix of (a)
 JG_PREFIX_PTS = 1 << 14    # and of (c)
 JG_BAND = 1e-5             # hazard 2's band: f64 distance within 1e-5 rel
 JG_DELETES = 64            # roots deleted after (a)'s groups
-JG_WINDOW_S = 0.3          # timed requests per group and route: about this
+JG_WINDOW_S = 0.15         # timed requests per group and route: about this
                            # many seconds, FT_MIN_REPS to FT_MAX_REPS
 JG_ANSWER = {"user": {"type": "keyword"}, "date": {"type": "date"},
              "score": {"type": "long"}}
@@ -6199,7 +6301,7 @@ def _jg_same_set(got, want, what):
 # ---------------------------------------------------------------------------
 
 SG_VARIANTS = 8            # bodies of each suggest group, run in turn
-SG_WINDOW_S = 0.3          # timed requests per group: about this many
+SG_WINDOW_S = 0.15         # timed requests per group: about this many
 CP_DOCS = 1 << 17          # (b): Rally geonames' places, cut from 11.4M
 CP_SHARDS = 5              # ES 2.0's default index.number_of_shards
 CP_COUNTRIES = 250         # country_code: Zipf(1.3) over these
@@ -9080,17 +9182,25 @@ def _wd_injected(np, card):
 
 def _wd_stall(torch, node, body):
     """(a): ``body`` (a pure-dense match, B1 in the mesh round) searched
-    on another thread behind a WD_STALL_S spin on the stream, while this
-    thread ticks a watchdog with a low bound. Returns (the trip, seconds
-    from the spin's launch to the trip, the search's ms, the growth of
-    its key's execute seconds)."""
+    on another thread behind a spin on the stream, while this thread
+    ticks a watchdog with a low bound. The spin lasts WD_STALL_S, or four
+    times the key's adaptive bound where that is longer (the bound is
+    twice the key's execute p99, which earlier phases' concurrent
+    searches may have raised). Returns (the trip, seconds from the
+    spin's launch to the trip, the search's ms, the growth of its key's
+    execute seconds, the spin's seconds, the key's bound)."""
     import threading
 
     from elasticsearch_tpu_torch.monitor import programs
     from elasticsearch_tpu_torch.monitor.watchdog import WatchdogService
 
+    calls = {r["shapes"]: r["calls"] for r in programs.REGISTRY.snapshot()
+             if r["program"] == "mesh_dsl"}
     want = node.search("msmarco", dict(body))  # the memo's entry
     node.search("msmarco", dict(body))
+    keys = [r["shapes"] for r in programs.REGISTRY.snapshot()
+            if r["program"] == "mesh_dsl"
+            and r["calls"] > calls.get(r["shapes"], 0)]
     torch.cuda.synchronize()
     s0, s1 = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
@@ -9098,10 +9208,13 @@ def _wd_stall(torch, node, body):
     torch.cuda._sleep(10_000_000)
     s1.record()
     torch.cuda.synchronize()
-    cycles = int(10_000_000 * WD_STALL_S * 1e3 / s0.elapsed_time(s1))
     wd = WatchdogService(node, program_floor_s=WD_FLOOR_S,
                          program_default_bound_s=WD_FLOOR_S,
                          program_p99_mult=WD_P99_MULT, cooldown_s=0.0)
+    bound = max([wd._program_bound("mesh_dsl", k) for k in keys],
+                default=WD_FLOOR_S)
+    stall_s = max(WD_STALL_S, 4 * bound)
+    cycles = int(10_000_000 * stall_s * 1e3 / s0.elapsed_time(s1))
     calls0 = {r["shapes"]: r["execute_seconds"]
               for r in programs.REGISTRY.snapshot()
               if r["program"] == "mesh_dsl"}
@@ -9112,7 +9225,7 @@ def _wd_stall(torch, node, body):
     t0 = time.perf_counter()
     torch.cuda._sleep(cycles)
     th.start()
-    while trip is None and time.perf_counter() - t0 < WD_TRIP_S:
+    while trip is None and time.perf_counter() - t0 < WD_TRIP_S + stall_s:
         time.sleep(0.01)
         trip = next((x for x in wd.run_once()
                      if x["detector"] == "program_stall"
@@ -9120,8 +9233,9 @@ def _wd_stall(torch, node, body):
     trip_s = time.perf_counter() - t0
     th.join(60)
     stall_ms = (time.perf_counter() - t0) * 1e3
-    _hold(trip is not None, f"(a) no program_stall trip in {WD_TRIP_S} s "
-          f"of a {WD_STALL_S} s stall", "5r")
+    _hold(trip is not None, f"(a) no program_stall trip in "
+          f"{WD_TRIP_S + stall_s:.3f} s of a {stall_s:.3f} s stall (the "
+          f"key's bound {bound:.3f} s, keys {keys})", "5r")
     _hold(trip["incident_id"] and wd.incidents.load(trip["incident_id"]),
           "(a) the trip captured no incident", "5r")
     check_hits(got["r"], want, "5r(a) the stalled search")
@@ -9129,9 +9243,9 @@ def _wd_stall(torch, node, body):
             if r["program"] == "mesh_dsl"}
     grew = rows[trip["detail"]["shapes"]]["execute_seconds"] - calls0.get(
         trip["detail"]["shapes"], 0.0)
-    _hold(grew >= 0.8 * WD_STALL_S, f"(a) the dispatch's execute time grew "
+    _hold(grew >= 0.8 * stall_s, f"(a) the dispatch's execute time grew "
           f"{grew:.3f} s, under the stall's device time", "5r")
-    return trip, trip_s, stall_ms, grew
+    return trip, trip_s, stall_ms, grew, stall_s, bound
 
 
 def phase_watchdog(torch, np, dev, card, node, corpus_df):
@@ -9151,7 +9265,8 @@ def phase_watchdog(torch, np, dev, card, node, corpus_df):
         q for q in make_queries(np, 64, VOCAB, corpus_df, SEED + 133,
                                 dense_only=dense[:VOCAB] >= 0)))}},
         "size": 10}
-    trip, trip_s, stall_ms, grew = _wd_stall(torch, node, body)
+    trip, trip_s, stall_ms, grew, stall_s, bound = _wd_stall(torch, node,
+                                                             body)
 
     # (b) an injected stall that survives a restart
     b1_b, b2_b, iid, counts = _wd_injected(np, card)
@@ -9195,9 +9310,11 @@ def phase_watchdog(torch, np, dev, card, node, corpus_df):
         split = inv.postings_split(n_devices=WD_SLOTS)
         torch.cuda.synchronize()
         build_ms = (time.perf_counter() - t) * 1e3
-        _hold(split is not None and split.S == WD_SLOTS
-              and split.doc_ids_sh.device == inv.doc_ids.device,
-              f"(d) the split {split}", "5r")
+        regs = inv.residency.node_registries
+        _hold(split is not None and split.S == WD_SLOTS and len(regs) == 1
+              and all(split.registry_of(r) is regs[0]
+                      for r in range(split.S)),
+              f"(d) the split {split} over {len(regs)} registries", "5r")
         k0 = kernels.snapshot().get("bm25_postings_sharded", 0)
         worst = 0.0
         for b, u in zip(generic, unsplit):
@@ -9215,12 +9332,16 @@ def phase_watchdog(torch, np, dev, card, node, corpus_df):
         _hold(worst <= 1e-5, f"(d) scores off by {worst:.3e}", "5r")
     finally:
         postings_shard.POSTINGS_SHARD_NNZ = saved
+        if split is not None:
+            split.close()
         inv._pshard = None
         del split
         torch.cuda.empty_cache()
     b1 = bm25_topk.LAUNCHES - b1_0 + b1_b
     b2 = knn_topk.LAUNCHES - b2_0 + b2_b
-    log(f"[5r] (a) a {WD_STALL_S} s spin queued ahead of one B1 search on "
+    log(f"[5r] (a) a {stall_s:.3f} s spin (at least {WD_STALL_S} s, four "
+        f"times the key's bound of {bound:.3f} s) queued ahead of one B1 "
+        f"search on "
         f"{card}: program_stall tripped on [mesh_dsl|"
         f"{trip['detail']['shapes']}] {trip_s * 1e3:.3f} ms after the "
         f"stall began (bound {trip['detail']['bound_seconds']} s, the "
@@ -10031,9 +10152,11 @@ def _en_profile(torch, fn) -> str:
                         f" ms x{e.count}" for e in top))
 
 
-def phase_encoder(torch, np, dev, card, corpus_df) -> int:
+def phase_encoder(torch, np, dev, card, corpus_df):
     """Phase 5t (module docstring); returns B2's launches on the encoded
-    index."""
+    index and what phase 5v reuses: the config, (d)'s batch, first loss
+    and steps/s, (c)'s long rows, one-device ring and dense embeddings
+    and the ring's ms."""
     from elasticsearch_tpu_torch import Node
     from elasticsearch_tpu_torch.index.convert import segment_from_arrays
     from elasticsearch_tpu_torch.models import (DualEncoderConfig,
@@ -10179,6 +10302,9 @@ def phase_encoder(torch, np, dev, card, corpus_df) -> int:
         torch, lambda: ring_encode(lcfg, lmodel, lids_d, lmask_d, mesh))
     cos = (dense * ring).sum(1).cpu().numpy()
     _hold(bool(np.all(cos > 0.999)), f"(c) ring vs dense cosine {cos}", "5t")
+    en = {"cfg": cfg, "lcfg": lcfg, "lids": lids, "lmask": lmask,
+          "ring": ring.cpu().numpy(), "dense": dense.cpu().numpy(),
+          "ring_ms": ring_ms}
     log(f"[5t] (c) max_len {EN_LONG}, B={B} rows of {list(EN_LONG_ROWS)} "
         f"tokens on {card}: dense {dense_ms:.3f} ms, peak "
         f"{dense_peak / 2**20:.1f} MiB allocated; ring over {EN_SLOTS} "
@@ -10219,7 +10345,211 @@ def phase_encoder(torch, np, dev, card, corpus_df) -> int:
         f"({steady * EN_PAIRS:.1f} pairs/s)")
     log("[5t] (d) one train step: " + _en_profile(torch, lambda: step(*batch)))
     log(f"[5t] phase 5t took {time.perf_counter() - t_phase:.1f} s")
-    return b2
+    en.update(batch=batch, first_loss=losses[0], steps_s=steady)
+    return b2, en
+
+
+EN_MESH_NAMED = 8          # 5v: mesh devices on a machine with one card
+EN_PARITY_STEPS = 3        # 5v(b): f32 steps under each mesh
+EN_FLOOR_SHARE = 0.1       # 5v(b): most entries left to the losses
+
+
+def _en_peaks(torch, devs) -> str:
+    """Each distinct card's peak allocated bytes since the last reset."""
+    return ", ".join(f"{d} {torch.cuda.max_memory_allocated(d) / 2**20:.1f}"
+                     f" MiB" for d in sorted({str(d) for d in devs}))
+
+
+def _en_reset_peaks(torch, devs) -> None:
+    for d in {str(d) for d in devs}:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def _en_sync(torch, sharded, one) -> None:
+    """Set every shard's parameters to the one-device step's (not the
+    AdamW moments, which each side keeps): 5v(b) holds each step's
+    update, free of the drift that free-running steps grow from
+    reordered sums (an entry whose gradient's sign rounding flips takes
+    Adam's opposite first step, and that perturbs every later
+    gradient)."""
+    params = dict(one.model.named_parameters())
+    tp = sharded.mesh.tp
+    with torch.no_grad():
+        for row in sharded.shards:
+            for r, sh in enumerate(row):
+                for name, leaf in sh.items():
+                    d = sharded.dims[name]
+                    p = params[name]
+                    leaf.copy_(p if d is None else torch.chunk(p, tp, d)[r])
+
+
+def _en_mesh_grads(torch, sharded) -> dict:
+    """The mesh step's summed gradients gathered whole on its first
+    device: group 0's slices concatenated in rank order."""
+    out = {}
+    for name, d in sharded.dims.items():
+        row = sharded.shards[0]
+        out[name] = row[0][name].grad if d is None else torch.cat(
+            [sh[name].grad.to(sharded.mesh.device) for sh in row], d)
+    return out
+
+
+def phase_encoder_mesh(torch, np, dev, card, en) -> None:
+    """Phase 5v (module docstring): training and the ring across devices,
+    on 5t's config, token table, batch and long rows (``en``)."""
+    import dataclasses
+
+    from elasticsearch_tpu_torch.models import init_params, make_train_step
+    from elasticsearch_tpu_torch.models.ring_encoder import (build_sp_mesh,
+                                                             ring_encode)
+    from elasticsearch_tpu_torch.parallel.mesh import training_mesh
+
+    t_phase = time.perf_counter()
+    cfg, batch = en["cfg"], en["batch"]
+
+    # (a) the device list and the mesh over it
+    n = torch.cuda.device_count()
+    if n >= 2:
+        devs, form = [f"cuda:{i}" for i in range(n)], f"every card ({n})"
+    else:
+        devs = [str(dev)] * EN_MESH_NAMED
+        form = f"one card named {EN_MESH_NAMED} times (the machine has one)"
+    mesh = training_mesh(len(devs), device=devs)
+    log(f"[5v] (a) {form}: device list {', '.join(devs)}; "
+        f"training_mesh({len(devs)}) = {mesh.shape}, its positions on "
+        f"{len(set(map(str, mesh.devices)))} distinct card(s); "
+        f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+
+    # (b) f32 parity: the first step free, the next ones from the same
+    # parameters; each side keeps its own AdamW moments
+    t = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    one, _ = make_train_step(
+        cfg32, model=init_params(cfg32, seed=0, device=dev),
+        mesh=training_mesh(1, device=dev))
+    sharded, _ = make_train_step(cfg32, model=init_params(
+        cfg32, seed=0, device=dev), mesh=mesh)
+    l_one, l_mesh, worst, worst_g = [], [], 0.0, 0.0
+    noisy = {}
+    for i in range(EN_PARITY_STEPS):
+        if i:
+            _en_sync(torch, sharded, one)
+        l_one.append(float(one(*batch)))
+        l_mesh.append(float(sharded(*batch)))
+        want, got = one.model.state_dict(), sharded.state_dict()
+        grads = {k: p.grad for k, p in one.model.named_parameters()}
+        mgrads = _en_mesh_grads(torch, sharded)
+        g_top = max(float(g.norm()) for g in grads.values())
+        for k, a in want.items():
+            g, h = grads[k], mgrads[k]
+            # each leaf's summed gradient against the one-device one: a
+            # lost, doubled or misplaced slice moves its norm
+            gerr, gbar = float((h - g).norm()), \
+                1e-3 * float(g.norm()) + 1e-5 * g_top
+            worst_g = max(worst_g, gerr / gbar)
+            _hold(gerr <= gbar, f"(b) step {i + 1}: gradient of {k} off "
+                  f"by {gerr:.3e} (its norm {float(g.norm()):.3e})", "5v")
+            # the rounding floor, from the one-device gradient: under
+            # 1e-5 in this step or an earlier one (Adam's moments carry
+            # it); an exact zero on both sides is held
+            floor = (g.abs() < 1e-5) & ((g != 0) | (h != 0))
+            noisy[k] = noisy[k] | floor if k in noisy else floor
+            ok = ~noisy[k]
+            excess = ((got[k] - a).abs() - 1e-5 * a.abs().max()) \
+                / a.abs().clamp_min(1e-30)
+            w = float(excess[ok].max()) if bool(ok.any()) else 0.0
+            worst = max(worst, w)
+            _hold(w <= 1e-4, f"(b) step {i + 1}: parameter {k} off by "
+                  f"{w:.3e} relative", "5v")
+    rel = [abs(a - b) / abs(b) for a, b in zip(l_mesh, l_one)]
+    _hold(max(rel) <= 1e-4, f"(b) f32 losses {l_mesh} against {l_one}",
+          "5v")
+    n_all = sum(p.numel() for p in one.model.parameters())
+    n_noisy = sum(int(x.sum()) for x in noisy.values())
+    _hold(n_noisy <= EN_FLOOR_SHARE * n_all, f"(b) {n_noisy} of {n_all} "
+          f"entries at the rounding floor", "5v")
+    del one, sharded, want, got, grads, mgrads, noisy
+    torch.cuda.empty_cache()
+    log(f"[5v] (b) f32, B={EN_PAIRS}, L={cfg.max_len}, {EN_PARITY_STEPS} "
+        f"steps under {mesh.shape} and under training_mesh(1) on {card}, "
+        f"the first free, each later one from the same parameters, each "
+        f"side's own AdamW moments: losses "
+        f"{[round(x, 6) for x in l_mesh]} against "
+        f"{[round(x, 6) for x in l_one]} (worst {max(rel):.3e} "
+        f"relative); every leaf's summed gradient within 1e-3 of the "
+        f"one-device one's norm plus 1e-5 of the largest leaf's (worst "
+        f"{worst_g:.3f} of that bar); each "
+        f"step's parameters within rtol 1e-4 (worst excess {worst:.3e}) "
+        f"outside the {n_noisy} of {n_all} entries "
+        f"({100 * n_noisy / n_all:.2f}%, at most "
+        f"{100 * EN_FLOOR_SHARE:.0f}%) whose one-device gradient sat under "
+        f"1e-5 in some step; {time.perf_counter() - t:.1f} s")
+
+    # (c) 5t(d)'s bf16 steps under the mesh
+    t = time.perf_counter()
+    step, _ = make_train_step(cfg, lr=1e-3, model=init_params(
+        cfg, seed=0, device=dev), mesh=mesh)
+    setup_s = time.perf_counter() - t
+    _en_reset_peaks(torch, devs)
+    t = time.perf_counter()
+    losses = [step(*batch)]
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    losses += [step(*batch) for _ in range(EN_STEPS - 1)]
+    torch.cuda.synchronize()
+    steady = (EN_STEPS - 1) / (time.perf_counter() - t)
+    peaks = _en_peaks(torch, devs)
+    losses = [float(x) for x in losses]
+    _hold(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"(c) losses {losses}", "5v")
+    _hold(abs(losses[0] - en["first_loss"]) <= 1e-2 * abs(en["first_loss"]),
+          f"(c) first loss {losses[0]} against 5t(d)'s {en['first_loss']}",
+          "5v")
+    log(f"[5v] (c) {EN_STEPS} bf16 train steps at B={EN_PAIRS}, "
+        f"L={cfg.max_len} under {mesh.shape} on {card}: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (5t(d): first "
+        f"{en['first_loss']:.4f}); shards set up in {setup_s:.1f} s, "
+        f"first step {first_ms:.1f} ms, then {steady:.2f} steps/s against "
+        f"5t(d)'s {en['steps_s']:.2f} ({en['steps_s'] / steady:.2f}x "
+        f"slower); peak allocated {peaks}")
+    log("[5v] (c) one mesh step: " + _en_profile(torch, lambda: step(*batch)))
+    del step
+    torch.cuda.empty_cache()
+
+    # (d) the ring at max_len 4096 over EN_SLOTS slots over the devices
+    lcfg = en["lcfg"]
+    lmodel = init_params(lcfg, seed=0, device=dev)
+    lids_d = torch.from_numpy(en["lids"]).to(dev)
+    lmask_d = torch.from_numpy(en["lmask"]).to(dev)
+    smesh = build_sp_mesh(EN_SLOTS, devs)
+    ring_encode(lcfg, lmodel, lids_d, lmask_d, smesh)  # first touch
+    _en_reset_peaks(torch, devs)
+    ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        ring = ring_encode(lcfg, lmodel, lids_d, lmask_d, smesh)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    peaks = _en_peaks(torch, devs)
+    ring = ring.cpu().numpy()
+    cos_one = np.sum(ring * en["ring"], axis=1)
+    cos_dense = np.sum(ring * en["dense"], axis=1)
+    _hold(bool(np.all(cos_one > 0.99999)),
+          f"(d) ring over the devices vs 5t(c)'s ring: cosine {cos_one}",
+          "5v")
+    _hold(bool(np.all(cos_dense > 0.999)),
+          f"(d) ring over the devices vs dense: cosine {cos_dense}", "5v")
+    log(f"[5v] (d) the ring at max_len {EN_LONG}, B={len(EN_LONG_ROWS)} over "
+        f"{EN_SLOTS} slots on {smesh.n_devices} mesh devices ({form}) on "
+        f"{card}: {sorted(ms)[1]:.3f} ms (5t(c) one device "
+        f"{en['ring_ms']:.3f}); peak allocated {peaks}; cosine against "
+        f"5t(c)'s ring >= {cos_one.min():.7f}, against dense >= "
+        f"{cos_dense.min():.6f}")
+    del lmodel, lids_d, lmask_d
+    torch.cuda.empty_cache()
+    log(f"[5v] phase 5v took {time.perf_counter() - t_phase:.1f} s")
 
 
 def profile_read(torch, node, index, bodies, wall_ms, tag):
@@ -10705,13 +11035,20 @@ def main() -> int:
         f"t{t}" for t in q)}}, "size": 10} for q in make_queries(
             np, MSEARCH_BATCH, VOCAB, corpus[4], SEED,
             dense_only=np.asarray(dense_rows[:VOCAB]) >= 0)]
+    # phase 5r(d)'s and 5u(e)'s tail-term bodies: no term of the dense block
+    tail = np.asarray(dense_rows[:VOCAB]) < 0
+    tail &= np.asarray(corpus[4][:tail.size]) > 0
+    tail_bodies = [{"query": {"match": {"body": " ".join(
+        f"t{t}" for t in q)}}, "size": 10} for q in make_queries(
+            np, WD_GENERIC, VOCAB, corpus[4], SEED + 135, dense_only=tail)]
     (launches["knn_topk"], launches["adc_scores"], b3_case, ivf_index,
      pq_parts) = phase_vectors(torch, np, dev, card, sift)
     hyb = phase_hybrid(torch, np, dev, card, corpus, sift, ivf_index,
                        pq_parts)
     launches["maxsim_adc"] = hyb["maxsim_adc"]
     b1_mesh, b2_mesh, mesh_node, shard_text = phase_mesh(
-        torch, np, dev, card, corpus, sift, rest_dense[:MULTI_MSEARCH])
+        torch, np, dev, card, corpus, sift, rest_dense[:MULTI_MSEARCH],
+        tail_bodies)
     launches["bm25_dense_topk"] += b1_mesh
     launches["knn_topk"] += b2_mesh
     b1_ms, b2_ms = phase_msearch(torch, np, dev, card, corpus, sift,
@@ -10766,7 +11103,11 @@ def main() -> int:
         launches[name] += n
     launches["bm25_dense_topk"] += phase_cluster(torch, np, dev, card)
     torch.cuda.empty_cache()
-    launches["knn_topk"] += phase_encoder(torch, np, dev, card, corpus_df)
+    b2_en, en = phase_encoder(torch, np, dev, card, corpus_df)
+    launches["knn_topk"] += b2_en
+    torch.cuda.empty_cache()
+    phase_encoder_mesh(torch, np, dev, card, en)
+    del en
     torch.cuda.empty_cache()
     timing = {"bm25_dense_topk": phase_timing(torch, dev, card),
               "knn_topk": timing_knn(torch, dev, card),

@@ -4,16 +4,20 @@ Port of ``__graft_entry__.py``. ``entry()`` gives the flagship dual
 encoder's forward (query and passage embeddings, the model behind
 `dense_vector` hybrid search) with example inputs.
 
-``dryrun(n)`` runs the reference's three multi-chip programs over n
-slots of one device (``parallel/mesh.py``):
+``dryrun(n, device)`` runs the reference's three multi-chip programs
+over the devices of ``device`` (``utils/device.py::resolve_devices``:
+every visible card by default, ``"cpu"`` only when asked, or a list
+that may name one device several times), n positions each laid over
+``min(n, len(devices))`` of them (``parallel/mesh.py``):
 
-1. one contrastive train step under ``training_mesh(n)``, the batch two
-   rows a 'dp' slot;
-2. the ring-attention encode over n sequence slots, held against the
-   dense encode;
-3. a distributed search round: an index of n shards through the mesh
-   executor (one BM25 query and one kNN batch), held against the host
-   loop.
+1. one contrastive train step under ``training_mesh(n, devices)``, the
+   parameters tensor-parallel and the batch two rows a 'dp' group
+   (``models/mesh_step.py``);
+2. the ring-attention encode over ``build_sp_mesh(n, devices)``, held
+   against the dense encode;
+3. a distributed search round: an index of n shards on a ``Node`` over
+   the devices, through the mesh executor (one BM25 query and one kNN
+   batch), held against the host loop.
 
 Both run on the card unless the caller passes ``device="cpu"``.
 """
@@ -51,16 +55,18 @@ def entry(device=None):
 
 
 def dryrun(n_devices: int, device=None) -> None:
-    """The three programs over ``n_devices`` slots; raises on a failed
-    check."""
+    """The three programs over ``n_devices`` positions; raises on a
+    failed check."""
     from elasticsearch_tpu_torch.models import make_train_step
     from elasticsearch_tpu_torch.parallel.mesh import training_mesh
+    from elasticsearch_tpu_torch.utils.device import resolve_devices
 
+    devices = resolve_devices(device)
     cfg = _small_cfg(max_len=16)
-    mesh = training_mesh(n_devices, device=device)
-    step, _opt = make_train_step(cfg, mesh=mesh, device=mesh.device)
+    mesh = training_mesh(n_devices, device=devices)
+    step, _opt = make_train_step(cfg, mesh=mesh)
 
-    # the batch must divide dp: two rows a dp slot
+    # the batch must divide dp: two rows a dp group
     B = 2 * mesh.dp
     rng = np.random.default_rng(0)
 
@@ -72,41 +78,43 @@ def dryrun(n_devices: int, device=None) -> None:
     if not np.isfinite(loss):
         raise AssertionError(f"non-finite loss {loss}")
     print(f"dryrun(n={n_devices}): mesh={mesh.shape} B={B} "
-          f"loss={loss:.4f} ok")
-    _dryrun_ring_encode(n_devices, mesh.device)
-    _dryrun_distributed_search(n_devices, mesh.device)
+          f"loss={loss:.4f} over {min(n_devices, len(devices))} mesh "
+          f"devices of [{', '.join(map(str, devices))}] ok")
+    _dryrun_ring_encode(n_devices, devices)
+    _dryrun_distributed_search(n_devices, devices)
 
 
-def _dryrun_ring_encode(n_devices: int, device) -> None:
-    """The ring encode over n sequence slots against the dense encode of
-    the same parameters."""
+def _dryrun_ring_encode(n_devices: int, devices) -> None:
+    """The ring encode over n sequence slots on the devices against the
+    dense encode of the same parameters."""
     from elasticsearch_tpu_torch.models import encode, init_params
     from elasticsearch_tpu_torch.models.ring_encoder import (build_sp_mesh,
                                                              ring_encode)
 
     cfg = _small_cfg(max_len=8 * n_devices)
-    model = init_params(cfg, seed=1, device=device)
+    mesh = build_sp_mesh(n_devices, devices)
+    model = init_params(cfg, seed=1, device=mesh.device)
     rng = np.random.default_rng(2)
     ids = rng.integers(1, cfg.vocab_size, size=(2, cfg.max_len))
     mask = np.ones((2, cfg.max_len), np.float32)
     mask[1, cfg.max_len // 2:] = 0.0
-    ring = ring_encode(cfg, model, ids, mask,
-                       build_sp_mesh(n_devices, device)).cpu().numpy()
+    ring = ring_encode(cfg, model, ids, mask, mesh).cpu().numpy()
     dense = encode(model, ids, mask).cpu().numpy()
     cos = np.sum(ring * dense, axis=-1)
     if not np.all(cos > 0.999):
         raise AssertionError(f"sp ring encode diverged from dense: {cos}")
-    print(f"sp ring encode: mesh=(sp={n_devices}) L={cfg.max_len} "
-          f"cos_vs_dense={cos.min():.5f} ok")
+    print(f"sp ring encode: mesh=(sp={n_devices}) over {mesh.n_devices} "
+          f"mesh devices L={cfg.max_len} cos_vs_dense={cos.min():.5f} ok")
 
 
-def _dryrun_distributed_search(n_devices: int, device) -> None:
+def _dryrun_distributed_search(n_devices: int, devices) -> None:
     """One BM25 round and one kNN round through the mesh executor over n
-    shard slots, the BM25 round against the host loop."""
+    shards on a node over the devices, the BM25 round against the host
+    loop."""
     from elasticsearch_tpu_torch.monitor import kernels
     from elasticsearch_tpu_torch.node import Node
 
-    node = Node(name="dryrun", device=device)
+    node = Node(name="dryrun", device=list(devices))
     try:
         node.create_index("dr", {
             "settings": {"number_of_shards": n_devices},
@@ -150,7 +158,8 @@ def _dryrun_distributed_search(n_devices: int, device) -> None:
         vals = ex.search_knn("emb", qs, k=3)[0]
         if vals.shape != (4, 3) or not np.isfinite(vals).all():
             raise AssertionError(f"kNN round: {vals}")
-        print(f"distributed search round: shards={n_devices} "
+        print(f"distributed search round: shards={n_devices} over "
+              f"{ex.n_devices} mesh devices "
               f"total={r['hits']['total']} "
               f"top={[(i, round(s, 4)) for i, s in top[:3]]} "
               f"knn_merged_shape={vals.shape} ok")

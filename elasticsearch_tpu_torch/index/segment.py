@@ -165,9 +165,10 @@ class InvertedField:
         return self.nnz >= postings_shard.POSTINGS_SHARD_NNZ
 
     def postings_split(self, n_devices: Optional[int] = None):
-        """The field's term-range split, built once, or None (under the
-        threshold, one slot, or no host mirror). ``n_devices`` names the
-        slot count of the first build (``build_split``)."""
+        """The field's term-range split over the node's registries, built
+        once, or None (under the threshold, one slot, or no host mirror).
+        ``n_devices`` names the slot count of the first build
+        (``build_split``; by default one a registry of the node)."""
         if self._pshard is False:
             return None
         if self._pshard is not None:
@@ -775,8 +776,8 @@ class TpuSegment:
 
     def fielddata_handles(self) -> List[ResidentArray]:
         """Every evictable handle the segment owns: its columns' and
-        slabs', the dense impact blocks, PQ codes, sort mirrors and geo
-        arrays."""
+        slabs', the dense impact blocks, the postings splits' ranges (on
+        the node's registries), PQ codes, sort mirrors and geo arrays."""
         out: List[ResidentArray] = []
         for col in self._column_iter():
             out += _handles(col, col.RESIDENT)
@@ -786,6 +787,8 @@ class TpuSegment:
         for inv in self.inverted.values():
             if isinstance(inv._dense, tuple):
                 out.append(inv._dense[1])
+            if inv._pshard:
+                out += inv._pshard.handles()
         with self._cache_lock:
             for m in self._sort_keys.values():
                 if m is not None:

@@ -31,7 +31,7 @@ import os
 import re
 import zlib
 from dataclasses import dataclass, fields
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,79 +72,161 @@ def config_from_dict(d: Dict[str, Any]) -> DualEncoderConfig:
 # the model
 # ---------------------------------------------------------------------------
 
-def _dense(x: torch.Tensor, lin: nn.Linear, dtype) -> torch.Tensor:
+def _linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            dtype) -> torch.Tensor:
     """flax Dense: the f32 kernel and bias cast to ``dtype``, the product
     rounded, then the bias added."""
-    return torch.matmul(x, lin.weight.to(dtype).t()) + lin.bias.to(dtype)
+    return torch.matmul(x, weight.to(dtype).t()) + bias.to(dtype)
 
 
-class LayerNorm(nn.Module):
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
+                ) -> torch.Tensor:
     """flax LayerNorm: f32 statistics, fast variance clipped at 0, eps
     1e-6, the scale folded into the reciprocal, the output in the input's
     dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    mu2 = (xf * xf).mean(-1, keepdim=True)
+    var = torch.clamp(mu2 - mu * mu, min=0.0)
+    mul = torch.rsqrt(var + LN_EPS) * scale
+    return ((xf - mu) * mul + bias).to(x.dtype)
+
+
+def _embed(ids: torch.Tensor, tok: torch.Tensor, pos: torch.Tensor,
+           dtype) -> torch.Tensor:
+    """Token plus position embeddings in the compute dtype (of whichever
+    ``d_model`` columns the tables hold)."""
+    x = F.embedding(ids, tok).to(dtype)
+    return x + pos[:ids.shape[1]].to(dtype)[None]
+
+
+def _self_mask(m: torch.Tensor) -> torch.Tensor:
+    """bool[B, 1, L, L]: a query and a key both unmasked."""
+    return (m[:, None, None, :] * m[:, None, :, None]) > 0
+
+
+def _attend(h: torch.Tensor, q_w, q_b, k_w, k_b, v_w, v_b, heads: int,
+            mask: torch.Tensor, dtype) -> torch.Tensor:
+    """Softmax attention of ``heads`` heads whose q/k/v rows the weights
+    hold: ``[B, L, heads * Dh]`` before the out projection."""
+    B, L, _ = h.shape
+    Dh = q_w.shape[0] // heads
+    q = _linear(h, q_w, q_b, dtype).view(B, L, heads, Dh)
+    k = _linear(h, k_w, k_b, dtype).view(B, L, heads, Dh)
+    v = _linear(h, v_w, v_b, dtype).view(B, L, heads, Dh)
+    # flax divides by sqrt(depth) rounded to the compute dtype
+    q = q / torch.tensor(math.sqrt(Dh), dtype=dtype).item()
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    s = torch.where(mask, s, torch.finfo(dtype).min)
+    # jax.nn.softmax: the max is held out of the gradient
+    e = torch.exp(s - s.amax(-1, keepdim=True).detach())
+    w = e / e.sum(-1, keepdim=True)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, heads * Dh)
+
+
+def _pool_project(x: torch.Tensor, m: torch.Tensor, ln_scale, ln_bias,
+                  proj_w, proj_b, dtype) -> torch.Tensor:
+    """The final LayerNorm, the masked mean pool (dividing in the compute
+    dtype) and the L2-normalised projection, f32[B, E]."""
+    x = _layer_norm(x, ln_scale, ln_bias)
+    denom = torch.clamp(m.sum(1, keepdim=True), min=1.0)
+    pooled = (x * m[:, :, None].to(x.dtype)).sum(1) / denom.to(x.dtype)
+    z = _linear(pooled, proj_w, proj_b, dtype).float()
+    return z / torch.clamp(torch.linalg.norm(z, dim=-1, keepdim=True),
+                           min=1e-6)
+
+
+def _encode_ranks(cfg: "DualEncoderConfig", P: Sequence[Dict[str, Any]],
+                  ids: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
+                  dims: Dict[str, Optional[int]], gather=None,
+                  row_sum=None) -> torch.Tensor:
+    """The encoder forward over the tensor-parallel ranks of one group,
+    f32[B, E] on rank 0's device. ``P[r]`` maps the state dict's names to
+    rank r's tensors and ``ids[r]``/``masks[r]`` are its inputs on its
+    device; ``dims`` gives a name's split dim (absent or None: whole on
+    every rank). ``gather(xs)`` turns the ranks' embedding columns into
+    every rank's whole ``[B, L, d_model]``; ``row_sum(parts)`` sums the
+    row-parallel f32 partials and gives every rank the sum in the
+    compute dtype. One rank with nothing split is the one-device model
+    (:meth:`DualEncoder.forward`); ``models/mesh_step.py`` passes the
+    rest."""
+    dtype, tp = cfg.dtype, len(P)
+    ms = [m.float() for m in masks]
+    sa = [_self_mask(m) for m in ms]
+    xs = [_embed(ids[r], P[r]["tok_emb.weight"], P[r]["pos_emb.weight"],
+                 dtype) for r in range(tp)]
+    if dims.get("tok_emb.weight") is not None:
+        xs = gather(xs)
+    heads = cfg.n_heads // tp if dims.get(
+        "blocks.0.attn.query.weight") is not None else cfg.n_heads
+
+    def residual(xs, hs, pre, name):
+        """x + the (row-parallel) projection ``name`` of hs."""
+        wn, bn = pre + name + ".weight", pre + name + ".bias"
+        if dims.get(wn) is None:
+            return [xs[r] + _linear(hs[r], P[r][wn], P[r][bn], dtype)
+                    for r in range(tp)]
+        ys = row_sum([torch.matmul(hs[r].float(),
+                                   P[r][wn].to(dtype).float().t())
+                      for r in range(tp)])
+        return [xs[r] + (ys[r] + P[r][bn].to(dtype)) for r in range(tp)]
+
+    for i in range(cfg.n_layers):
+        pre = f"blocks.{i}."
+        os_ = []
+        for r in range(tp):
+            w = P[r]
+            h = _layer_norm(xs[r], w[pre + "ln1.scale"], w[pre + "ln1.bias"])
+            os_.append(_attend(
+                h, w[pre + "attn.query.weight"], w[pre + "attn.query.bias"],
+                w[pre + "attn.key.weight"], w[pre + "attn.key.bias"],
+                w[pre + "attn.value.weight"], w[pre + "attn.value.bias"],
+                heads, sa[r], dtype))
+        xs = residual(xs, os_, pre, "attn.out")
+        hs = [F.gelu(_linear(
+            _layer_norm(xs[r], P[r][pre + "ln2.scale"],
+                        P[r][pre + "ln2.bias"]),
+            P[r][pre + "wi.weight"], P[r][pre + "wi.bias"], dtype),
+            approximate="tanh") for r in range(tp)]
+        xs = residual(xs, hs, pre, "wo")
+    w = P[0]
+    return _pool_project(xs[0], ms[0], w["ln_f.scale"], w["ln_f.bias"],
+                         w["proj.weight"], w["proj.bias"], dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax LayerNorm's parameters (:func:`_layer_norm`)."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mu = xf.mean(-1, keepdim=True)
-        mu2 = (xf * xf).mean(-1, keepdim=True)
-        var = torch.clamp(mu2 - mu * mu, min=0.0)
-        mul = torch.rsqrt(var + LN_EPS) * self.scale
-        return ((xf - mu) * mul + self.bias).to(x.dtype)
-
 
 class Attention(nn.Module):
-    """flax MultiHeadDotProductAttention as explicit ops. The q/k/v
-    kernels ``[D, H, Dh]`` are ``nn.Linear(D, H*Dh)`` and the out kernel
-    ``[H, Dh, D]`` is ``nn.Linear(H*Dh, D)``."""
+    """flax MultiHeadDotProductAttention's parameters (:func:`_attend`).
+    The q/k/v kernels ``[D, H, Dh]`` are ``nn.Linear(D, H*Dh)`` and the
+    out kernel ``[H, Dh, D]`` is ``nn.Linear(H*Dh, D)``."""
 
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int):
         super().__init__()
-        self.n_heads = n_heads
         self.query = nn.Linear(d_model, d_model)
         self.key = nn.Linear(d_model, d_model)
         self.value = nn.Linear(d_model, d_model)
         self.out = nn.Linear(d_model, d_model)
 
-    def forward(self, h: torch.Tensor, mask: torch.Tensor, dtype
-                ) -> torch.Tensor:
-        B, L, D = h.shape
-        H = self.n_heads
-        Dh = D // H
-        q = _dense(h, self.query, dtype).view(B, L, H, Dh)
-        k = _dense(h, self.key, dtype).view(B, L, H, Dh)
-        v = _dense(h, self.value, dtype).view(B, L, H, Dh)
-        # flax divides by sqrt(depth) rounded to the compute dtype
-        q = q / torch.tensor(math.sqrt(Dh), dtype=dtype).item()
-        s = torch.einsum("bqhd,bkhd->bhqk", q, k)
-        s = torch.where(mask, s, torch.finfo(dtype).min)
-        # jax.nn.softmax: the max is held out of the gradient
-        e = torch.exp(s - s.amax(-1, keepdim=True).detach())
-        w = e / e.sum(-1, keepdim=True)
-        o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, D)
-        return _dense(o, self.out, dtype)
-
 
 class Block(nn.Module):
-    """Pre-LN attention and MLP, each with its residual."""
+    """Pre-LN attention and MLP, each with its residual: the parameters
+    (the order is :func:`_encode_ranks`')."""
 
     def __init__(self, cfg: DualEncoderConfig):
         super().__init__()
         self.ln1 = LayerNorm(cfg.d_model)
-        self.attn = Attention(cfg.d_model, cfg.n_heads)
+        self.attn = Attention(cfg.d_model)
         self.ln2 = LayerNorm(cfg.d_model)
         self.wi = nn.Linear(cfg.d_model, cfg.d_ff)
         self.wo = nn.Linear(cfg.d_ff, cfg.d_model)
-
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, dtype
-                ) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), mask, dtype)
-        h = F.gelu(_dense(self.ln2(x), self.wi, dtype), approximate="tanh")
-        return x + _dense(h, self.wo, dtype)
 
 
 class DualEncoder(nn.Module):
@@ -166,23 +248,14 @@ class DualEncoder(nn.Module):
 
     def forward(self, token_ids: torch.Tensor, attn_mask: torch.Tensor
                 ) -> torch.Tensor:
-        cfg, dtype = self.cfg, self.cfg.dtype
-        L = token_ids.shape[1]
-        if L > cfg.max_len:
-            raise ValueError(f"sequence {L} exceeds cfg.max_len "
-                             f"{cfg.max_len}")
-        x = F.embedding(token_ids, self.tok_emb.weight).to(dtype)
-        x = x + self.pos_emb.weight[:L].to(dtype)[None]
-        m = attn_mask.float()
-        sa_mask = (m[:, None, None, :] * m[:, None, :, None]) > 0
-        for blk in self.blocks:
-            x = blk(x, sa_mask, dtype)
-        x = self.ln_f(x)
-        denom = torch.clamp(m.sum(1, keepdim=True), min=1.0)
-        pooled = (x * m[:, :, None].to(x.dtype)).sum(1) / denom.to(x.dtype)
-        z = _dense(pooled, self.proj, dtype).float()
-        return z / torch.clamp(torch.linalg.norm(z, dim=-1, keepdim=True),
-                               min=1e-6)
+        _check_len(self.cfg, token_ids.shape[1])
+        return _encode_ranks(self.cfg, [dict(self.named_parameters())],
+                             [token_ids], [attn_mask], {})
+
+
+def _check_len(cfg: DualEncoderConfig, L: int) -> None:
+    if L > cfg.max_len:
+        raise ValueError(f"sequence {L} exceeds cfg.max_len {cfg.max_len}")
 
 
 def build_model(cfg: DualEncoderConfig) -> DualEncoder:
@@ -362,9 +435,8 @@ def params_to_flax(model: DualEncoder) -> Dict[str, Any]:
 
 # flax path regex -> the kernel's axes. Column-parallel (output dim on
 # 'tp'): q/k/v, mlp wi, the embeddings' model dim. Row-parallel (input dim
-# on 'tp'): attention out, mlp wo. On one card every slot is the same
-# device, so the rules decide nothing about placement; they are kept as
-# the reference's layout of a ('dp', 'tp') step.
+# on 'tp'): attention out, mlp wo. models/mesh_step.py::split_dims slices
+# the port's tensors by the same rules.
 _RULES = [
     (r"tok_emb.*embedding$", (None, "tp")),
     (r"pos_emb.*embedding$", (None, "tp")),
@@ -450,23 +522,38 @@ def make_train_step(cfg: DualEncoderConfig, lr: float = 1e-3,
                     model: Optional[DualEncoder] = None, mesh=None,
                     device=None):
     """``(step, opt)``: ``step(q_ids, q_mask, d_ids, d_mask)`` runs one
-    symmetric InfoNCE update of ``step.model`` with autograd and returns
-    the loss (a 0-d tensor). Without ``model`` one is drawn by
-    :func:`init_params` (seed 0) on ``device``. Under a ``training_mesh`` the batch
-    must divide its 'dp' slots, as the reference's sharded batch must;
-    the slots share the one device, so the step is the same computation
-    under any factorisation."""
+    symmetric InfoNCE update with autograd and returns the loss (a 0-d
+    tensor). Without ``model`` one is drawn by :func:`init_params` (seed
+    0) on ``device``, or on the mesh's first device.
+
+    Under a ``training_mesh`` of more than one position the step is
+    ``models/mesh_step.py::MeshTrainStep``: ``model``'s parameters are
+    sliced onto the positions' devices, the batch splits over 'dp' (it
+    must divide dp, as the reference's sharded batch must), the loss is
+    the global in-batch InfoNCE, and ``step.model`` gathers the shards
+    into a whole model on demand. Without a mesh, or under
+    ``training_mesh(1)``, the step updates ``step.model`` (``model``
+    itself) on its device. A mesh brings its own devices: ``device``
+    with a mesh is refused."""
+    if mesh is not None and device is not None:
+        raise ValueError("make_train_step: the mesh places the step; "
+                         "pass no device with it")
+    if mesh is not None and mesh.dp * mesh.tp > 1:
+        from elasticsearch_tpu_torch.models.mesh_step import MeshTrainStep
+
+        if model is None:
+            model = init_params(cfg, device=mesh.device)
+        step = MeshTrainStep(cfg, model, mesh, lr)
+        return step, step.opt
     if model is None:
-        model = init_params(cfg, device=device)
+        model = init_params(cfg, device=mesh.device if mesh is not None
+                            else device)
     opt = make_optimizer(model.parameters(), lr)
 
     def step(q_ids, q_mask, d_ids, d_mask) -> torch.Tensor:
         q_ids, q_mask = _as_inputs(model, q_ids, q_mask)
         d_ids, d_mask = _as_inputs(model, d_ids, d_mask)
         B = q_ids.shape[0]
-        if mesh is not None and B % mesh.shape["dp"]:
-            raise ValueError(f"batch {B} does not divide dp="
-                             f"{mesh.shape['dp']}")
         _first_touch("dual_encoder.train_step",
                      f"{B}x{q_ids.shape[1]}x{d_ids.shape[1]}/{cfg.dtype}")
         opt.zero_grad(set_to_none=True)

@@ -13,14 +13,19 @@ result copied to the first device, ``psum`` an int64 sum there
 once (``utils/device.py::resolve_devices``): each entry is a mesh
 device of its own.
 
-The models' meshes are slots of one device. ``training_mesh`` keeps
-the reference's ``('dp', 'tp')`` factorisation, which decides the batch
-divisibility and the tensor-parallel specs of
-``models/dual_encoder.py::param_shardings``; the train step itself runs
-whole on the device, so there is no all-reduce to insert and a step
-under any factorisation is the same computation. The ring encoder's
-``('sp',)`` axis is a ``ShardMesh`` of sequence slots on one device
-(``models/ring_encoder.py::build_sp_mesh``).
+The models' meshes follow the same device rule. ``training_mesh(n)``
+keeps the reference's ``('dp', 'tp')`` factorisation of n positions
+and lays position ``p`` (dp-major: ``p = dp_rank * tp + tp_rank``, the
+reference's ``reshape(n // tp, tp)``) on device ``p % m`` of the first
+``m = min(n, len(devices))`` devices; ``models/dual_encoder.py``'s mesh
+step keeps each position's parameter shard on its device. The ring
+encoder's ``('sp',)`` axis is a ``ShardMesh`` of sequence slots
+(``models/ring_encoder.py::build_sp_mesh``) and the postings split's
+term ranges lie over the node's registries the same way
+(``parallel/postings_shard.py``). The reference's meshes shrink to the
+devices there are; the port keeps its count of positions and wraps
+them, so ``training_mesh(8, device="cpu")`` runs the sharded step with
+every position on the CPU.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from elasticsearch_tpu_torch.utils.device import resolve_device
+from elasticsearch_tpu_torch.utils.device import resolve_devices
 
 
 @dataclass(frozen=True)
@@ -76,26 +81,48 @@ def shard_mesh(n_shards: int,
 
 @dataclass(frozen=True)
 class TrainingMesh:
-    """``dp x tp`` slots of one device: the reference's 2-D
-    ``('dp', 'tp')`` mesh as data."""
+    """The reference's 2-D ``('dp', 'tp')`` mesh: ``grid[g][r]`` is the
+    device of data-parallel group g's tensor-parallel rank r."""
 
-    device: torch.device
-    dp: int
-    tp: int
+    grid: Tuple[Tuple[torch.device, ...], ...]
+
+    @property
+    def dp(self) -> int:
+        return len(self.grid)
+
+    @property
+    def tp(self) -> int:
+        return len(self.grid[0])
+
+    @property
+    def device(self) -> torch.device:
+        """The first position's device: where the groups' embeddings
+        meet for the loss and the gradients are summed."""
+        return self.grid[0][0]
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        """Every position's device, dp-major."""
+        return tuple(d for row in self.grid for d in row)
 
     @property
     def shape(self) -> Dict[str, int]:
         return {"dp": self.dp, "tp": self.tp}
 
+    def device_of(self, dp_rank: int, tp_rank: int) -> torch.device:
+        return self.grid[dp_rank][tp_rank]
+
 
 def training_mesh(n_devices: int = 1, device=None,
                   tp: Optional[int] = None) -> TrainingMesh:
-    """``('dp', 'tp')`` slots of one device.
+    """n positions as ``(n // tp, tp)`` over the devices of ``device``
+    (``utils/device.py::resolve_devices``: every visible card by default,
+    ``"cpu"`` only when asked, a list that may name one device several
+    times): position p on device ``p % min(n, len(devices))``.
 
     tp defaults to the largest power of two <= min(n, 4) that divides n,
     the reference's rule: tensor-parallel groups stay small and data
-    parallelism takes the rest. The device is the card unless the caller
-    passes ``device="cpu"``.
+    parallelism takes the rest.
     """
     n = int(n_devices)
     if n < 1:
@@ -106,7 +133,12 @@ def training_mesh(n_devices: int = 1, device=None,
             tp *= 2
     if n % tp:
         raise ValueError(f"tp={tp} must divide n={n}")
-    return TrainingMesh(resolve_device(device), n // tp, int(tp))
+    devs = resolve_devices(device)
+    m = min(n, len(devs))
+    tp = int(tp)
+    return TrainingMesh(tuple(
+        tuple(devs[(g * tp + r) % m] for r in range(tp))
+        for g in range(n // tp)))
 
 
 def mesh_size(mesh: ShardMesh) -> int:

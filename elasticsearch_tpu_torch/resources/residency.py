@@ -50,7 +50,11 @@ the bytes its handles and pinned charges hold; a reservation that
 overruns it evicts this registry's handles only and then raises. The
 breakers stay the node's, shared by every registry, so their totals
 count every device. A request denied on one device evicts nothing on
-another.
+another. Each registry knows the node's registries
+(``Residency.node_registries``), so a structure spread over the node's
+devices from one segment (the postings split,
+``parallel/postings_shard.py``) places and charges each part on its
+own registry.
 
 Fault point ``resources.reserve`` (``utils/faults.py``) fires before
 every breaker reservation.
@@ -253,6 +257,9 @@ class Residency:
         self._pinned_tokens = 0
         self._placements = 0
         self._placed_bytes_total = 0
+        # the node's registries, in device-list order, when a
+        # ResidencySet holds this one (node_registries)
+        self._node_members: Optional[List["Residency"]] = None
 
     def set_tracer(self, tracer) -> None:
         """The node's tracer: each rehydration files a span there."""
@@ -271,6 +278,14 @@ class Residency:
     def for_shard(self, shard_id: int, n_shards: int) -> "Residency":
         """The registry a shard's copies and segments live on: this one."""
         return self
+
+    @property
+    def node_registries(self) -> List["Residency"]:
+        """Every registry of the node's device list this one belongs to,
+        in order: what a structure spread over the node's devices (the
+        postings split) places on; this one alone when it stands
+        alone."""
+        return list(self._node_members or (self,))
 
     # -- always-resident placement --------------------------------------------
 
@@ -504,6 +519,8 @@ class ResidencySet:
             Residency(d, breakers,
                       budget=device_budget(d, devs.count(d), breakers))
             for d in devs]
+        for m in self._members:
+            m._node_members = self._members
         self._blob_dir: Optional[str] = None
 
     @property
@@ -517,6 +534,12 @@ class ResidencySet:
     @property
     def device(self) -> torch.device:
         return self._members[0].device
+
+    @property
+    def node_registries(self) -> List[Residency]:
+        """Every registry, in order (a segment placed with the set itself
+        spreads over them as one placed with a member does)."""
+        return list(self._members)
 
     def for_shard(self, shard_id: int, n_shards: int) -> Residency:
         n = min(max(1, int(n_shards)), len(self._members))

@@ -146,9 +146,15 @@ def ndjson(lines) -> str:
 class Pair:
     """The two servers, and what each answered."""
 
-    def __init__(self):
+    def __init__(self, watchdog_interval_s: Optional[float] = None):
+        """``watchdog_interval_s``: each watchdog's tick interval, set
+        before the servers start their tick threads (a test that drives
+        the ticks itself passes one longer than it runs)."""
         self.ref = RefNode(name="rest-node")
         self.port = PortNode(name="rest-node", device="cpu")
+        if watchdog_interval_s is not None:
+            for node in (self.ref, self.port):
+                node.watchdog.config["interval_s"] = watchdog_interval_s
         self.ref_server = RefServer(self.ref, host="127.0.0.1", port=0)
         self.port_server = PortServer(self.port, host="127.0.0.1", port=0)
         self.ref_server.start(background=True)

@@ -64,6 +64,14 @@ def _inv(node):
     return node.indices["ps"].shards[0].segments[0].inverted["body"]
 
 
+def _stacked(split):
+    """Every range's (doc ids, tfnorm) stacked in slot order, as the
+    reference's ``[S, L]`` arrays."""
+    parts = [split.slot_arrays(s) for s in range(split.S)]
+    return (np.stack([d.cpu().numpy() for d, _ in parts]),
+            np.stack([t.cpu().numpy() for _, t in parts]))
+
+
 @pytest.fixture()
 def nodes(monkeypatch):
     """(reference, port) nodes whose ``body`` field is oversized; the
@@ -89,10 +97,9 @@ def test_split_bounds_and_bases_equal_the_references(nodes):
     sizes = [int(ps.bounds[s + 1] - ps.bounds[s]) for s in range(ps.S)]
     assert sum(sizes) == len(_inv(port).terms)
     # every slot holds its range's postings, padded with the sentinel
-    np.testing.assert_array_equal(ps.doc_ids_sh.numpy(),
-                                  np.asarray(rs.doc_ids_sh))
-    np.testing.assert_array_equal(ps.tfnorm_sh.numpy(),
-                                  np.asarray(rs.tfnorm_sh))
+    doc_ids, tfnorm = _stacked(ps)
+    np.testing.assert_array_equal(doc_ids, np.asarray(rs.doc_ids_sh))
+    np.testing.assert_array_equal(tfnorm, np.asarray(rs.tfnorm_sh))
 
 
 def test_split_search_matches_unsplit_and_reference(nodes, monkeypatch):
@@ -228,3 +235,146 @@ def test_placement_is_the_references(shards, replicas, devices):
         primary = {a.shard_id: a.device_ord for a in got if a.replica == 0}
         assert all(a.device_ord != primary[a.shard_id]
                    for a in got if a.replica > 0)
+
+
+# ---------------------------------------------------------------------------
+# the split over a node's devices
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def four(monkeypatch):
+    """(reference, port over ``["cpu"] * 4``, port on one device) whose
+    ``body`` field is oversized; the port's splits are built on first
+    use, with their default slot count."""
+    monkeypatch.setattr(aot, "_ENABLED", False)
+    monkeypatch.setattr(ref_ps, "POSTINGS_SHARD_NNZ", 1)
+    monkeypatch.setattr(postings_shard, "POSTINGS_SHARD_NNZ", 1)
+    nodes = (_make(RefNode), _make(Node, device=["cpu"] * 4),
+             _make(Node, device="cpu"))
+    yield nodes
+    for n in nodes:
+        n.close()
+
+
+def test_a_node_over_four_devices_splits_four_ways(four):
+    """No ``n_devices``: one range a registry of the node, with the
+    reference's bounds, bases and postings of a four-way split."""
+    ref, port, _one = four
+    ps = _inv(port).postings_split()
+    rinv = _inv(ref)
+    rs = ref_ps.build_split(rinv, rinv.max_docs, n_devices=4)
+    assert ps.S == rs.S == 4
+    np.testing.assert_array_equal(ps.bounds, rs.bounds)
+    np.testing.assert_array_equal(ps.bases, rs.bases)
+    assert ps.L == rs.L
+    doc_ids, tfnorm = _stacked(ps)
+    np.testing.assert_array_equal(doc_ids, np.asarray(rs.doc_ids_sh))
+    np.testing.assert_array_equal(tfnorm, np.asarray(rs.tfnorm_sh))
+
+
+def test_one_device_node_declines_by_default(four):
+    """A node over one device (a one-entry list too) has one registry:
+    one slot, no split, as the reference's on one device."""
+    _ref, _port, one = four
+    assert _inv(one).postings_split() is None
+    node = _make(Node, device=["cpu"])
+    try:
+        assert _inv(node).postings_split() is None
+    finally:
+        node.close()
+
+
+def test_each_range_lives_and_is_charged_on_its_registry(four):
+    """Range s on registry s % 4: its postings are that registry's
+    handles, charged to its budget and the node's ``fielddata`` breaker;
+    ``evict_all`` and the segment's release give every registry's charge
+    back, and a search after the eviction rehydrates them."""
+    _ref, port, _one = four
+    regs = port.residency.members
+    inv = _inv(port)
+    br = port.breakers.breaker("fielddata")
+    held0 = [r._held() for r in regs]
+    used0 = br.used
+    split = inv.postings_split()
+    for s in range(split.S):
+        assert split.registry_of(s) is regs[s % 4]
+        doc_ids, tfnorm = split.slot_arrays(s)
+        assert doc_ids.device == regs[s % 4].device
+        # the range's own postings, padded with the sentinel
+        lo = int(split.bases[s])
+        hi = int(split.bases[s + 1]) if s + 1 < split.S else inv.nnz
+        want = np.full(split.L, inv.max_docs, np.int32)
+        want[:hi - lo] = inv.doc_ids_host[lo:hi]
+        np.testing.assert_array_equal(doc_ids.numpy(), want)
+    by_reg = [0] * 4
+    for reg, slots, h_doc, h_tfn in split.parts:
+        for h in (h_doc, h_tfn):
+            assert h._registry is reg and h.resident and h.tier == \
+                "fielddata"
+            by_reg[regs.index(reg)] += h.nbytes
+    assert all(b > 0 for b in by_reg)
+    assert [r._held() - h for r, h in zip(regs, held0)] == by_reg
+    assert br.used - used0 == sum(by_reg)
+    seg = port.indices["ps"].shards[0].segments[0]
+    assert set(split.handles()) <= set(seg.fielddata_handles())
+    want = port.search("ps", {"query": QUERIES[0], "size": 20})
+    port.residency.evict_all()
+    assert not any(h.resident for h in split.handles())
+    assert [r._held() for r in regs] == held0 and br.used == used0
+    assert port.search("ps", {"query": QUERIES[0], "size": 20})["hits"] == \
+        want["hits"]
+    assert all(h.resident for h in split.handles())
+    seg.release_fielddata()
+    assert [r._held() for r in regs] == held0 and br.used == used0
+
+
+def test_split_over_devices_matches_unsplit_and_reference(four,
+                                                          monkeypatch):
+    """Searches through the four-way split: the hits and totals of the
+    unsplit path and the reference's (eight-way) split, scores within the
+    generic bar; the split counted."""
+    ref, port, _one = four
+    monkeypatch.setattr(postings_shard, "POSTINGS_SHARD_NNZ", 1 << 30)
+    unsplit = _make(Node, device="cpu")
+    monkeypatch.setattr(postings_shard, "POSTINGS_SHARD_NNZ", 1)
+    try:
+        before = kernels.snapshot().get("bm25_postings_sharded", 0)
+        for q in QUERIES:
+            body = {"query": q, "size": 20}
+            a = port.search("ps", body)
+            r = ref.search("ps", body)
+            monkeypatch.setattr(postings_shard, "POSTINGS_SHARD_NNZ",
+                                1 << 30)
+            b = unsplit.search("ps", body)
+            monkeypatch.setattr(postings_shard, "POSTINGS_SHARD_NNZ", 1)
+            for other in (b, r):
+                assert [h["_id"] for h in a["hits"]["hits"]] == \
+                    [h["_id"] for h in other["hits"]["hits"]], q
+                assert a["hits"]["total"] == other["hits"]["total"], q
+                np.testing.assert_allclose(
+                    [h["_score"] for h in a["hits"]["hits"]],
+                    [h["_score"] for h in other["hits"]["hits"]],
+                    rtol=SCORE_RTOL)
+        assert kernels.snapshot().get("bm25_postings_sharded", 0) > before
+        assert _inv(port).postings_split().S == 4
+    finally:
+        unsplit.close()
+
+
+def test_a_segment_placed_with_the_node_set_splits_over_its_registries():
+    """A segment built with the node's ``ResidencySet`` itself (as
+    ``segment_from_arrays`` callers pass ``node.residency``) reaches the
+    same registries as one built with a member."""
+    node = Node(device=["cpu"] * 3)
+    try:
+        rs = node.residency
+        assert rs.node_registries == rs.members
+        for s in range(5):
+            assert rs.for_shard(s, 5).node_registries == rs.members
+        one = Node(device="cpu")
+        try:
+            assert one.residency.node_registries == one.residency.members
+        finally:
+            one.close()
+    finally:
+        node.close()

@@ -20,6 +20,8 @@ MAPPING = {"properties": {
     "price": {"type": "double"},
 }}
 DOCS = corpus(60, seed=3)
+#: a search (it moves the port's counters)
+SEARCH = {"query": {"match": {"body": DOCS[0][1]["body"].split()[0]}}}
 
 
 @pytest.fixture(scope="module")
@@ -29,8 +31,16 @@ def pair():
     p.close()
 
 
-@pytest.fixture
-def idx(pair):
+@pytest.fixture(scope="module")
+def quiet():
+    """A pair whose watchdogs tick only when a test drives them
+    (``run_once``): their interval is longer than any test runs."""
+    p = Pair(watchdog_interval_s=3600.0)
+    yield p
+    p.close()
+
+
+def _load(pair):
     pair.wipe()
     pair.same("PUT", "/logs", {"settings": {"index": {
         "number_of_shards": 2, "search": {"mesh": "false"}}},
@@ -40,6 +50,16 @@ def idx(pair):
         lines += [{"index": {"_index": "logs", "_id": doc_id}}, src]
     pair.same("POST", "/_bulk?refresh=true", ndjson=ndjson(lines))
     return pair
+
+
+@pytest.fixture
+def idx(pair):
+    return _load(pair)
+
+
+@pytest.fixture
+def quiet_idx(quiet):
+    return _load(quiet)
 
 
 def test_create_delete_exists(idx):
@@ -202,9 +222,38 @@ def test_cluster(idx):
     s("POST", "/_cluster/reroute", {"commands": [{"bogus": {}}]})
 
 
-def test_nodes_info_and_stats(idx):
+def _tick_both(pair):
+    """One driven watchdog tick on each server, its counter cursor
+    started afresh, so the tick only seeds the cursor and records no
+    ``metrics`` event: the packages' counters move on different requests
+    (the reference's on its compiles, the port's on every search), so a
+    tick after a request records on one side and not the other."""
+    for node in (pair.ref, pair.port):
+        node.watchdog._last_counters = None
+        node.watchdog.run_once()
+
+
+def test_nodes_info_and_stats(quiet_idx):
     """The two servers' node views: equal where both have a section; the
-    reference's own sections named one by one."""
+    reference's own sections named one by one. The watchdogs tick only
+    when driven, the same ticks on each side (ROADMAP C38: each server's
+    1 s tick thread fed the ``metrics`` ring at its own times)."""
+    _tick_both(quiet_idx)
+    _hold_node_views(quiet_idx)
+
+
+def test_node_views_see_an_extra_tick(quiet_idx):
+    """The comparison holds the ``metrics`` ring exactly: one more tick on
+    one side, after a search moved its counters, fails it."""
+    _tick_both(quiet_idx)
+    _hold_node_views(quiet_idx)
+    quiet_idx.same("POST", "/logs/_search", SEARCH)
+    quiet_idx.port.watchdog.run_once()
+    with pytest.raises(AssertionError, match="metrics"):
+        _hold_node_views(quiet_idx)
+
+
+def _hold_node_views(idx):
     (rs, rb), (ps, pb) = idx.both("GET", "/_nodes/stats")
     assert rs == ps == 200
     r = next(iter(rb["nodes"].values()))
